@@ -12,12 +12,17 @@ synthetic 120 000-point scans, weights drawn from a seed — and checks it:
   3. one phase per kernel at the main path's real shapes (captured from
      a real forward): K1 join_scan bit-exact against its plain version,
      K2 sparse_conv_k3 and K3 strided down/up within stated tolerances,
-     with kernel, plain and library times;
+     with kernel, plain and library times.  bf16 takes the tensor-core
+     route of K2 and K3-up wherever the widths allow it, f32 the CUDA-core
+     route; each per-shape line names its route;
   4. the main path on 3 scans: finite logits of the right shape, every
-     kernel's launch count above 0, bf16/f32 argmax agreement, agreement
-     of the card's f32 path with the CPU's plain path on a small scan,
-     and scans/s with the topology / forward split;
-  5. one JSON line listing the kernels.
+     kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
+     4 K3-up launches of each scan on the tensor-core route, bf16/f32
+     argmax agreement, agreement of the card's f32 path with the CPU's
+     plain path on a small scan, and scans/s with the topology / forward
+     split;
+  5. one JSON line listing the kernels, K2 and K3-up with their launches
+     per route.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -37,6 +42,10 @@ N_POINTS = 120_000
 N_SCANS = 3
 ROUNDS = 14  # throughput samples: ROUNDS * N_SCANS scans, 10+ beyond p75
 SEED = 0
+# launches per scan of the main path: (all, tensor-core route); only the
+# stem's first conv (C_in = 4) takes K2's CUDA-core route
+K2_PER_SCAN = (48, 47)
+UP_PER_SCAN = (4, 4)
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -189,6 +198,11 @@ def phase_convs(cap: Capture, results: dict) -> None:
         "strided_down": (strided_conv.downsample_conv_apply, strided_conv.downsample_conv_plain, 1e-4),
         "strided_up": (strided_conv.upsample_conv_apply, strided_conv.upsample_conv_plain, 1e-5),
     }
+    routes = {
+        "sparse_conv_k3": sparse_conv.route,
+        "strided_down": lambda *_: "simt",
+        "strided_up": strided_conv.upsample_route,
+    }
     for name in kernels:
         results[name] = {
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
@@ -205,8 +219,9 @@ def phase_convs(cap: Capture, results: dict) -> None:
             want = plain(x, w, table)
             ref_abs = plain(x.abs(), w.abs(), table)
             err = check_close(f"{name} {key[1:]} {dtype}", got, want, ref_abs, dtype, rel)
+            route = routes[name](tdt, c_in, c_out)
             if dtype != "bfloat16":
-                log(f"  {name} rows={rows} {c_in}->{c_out} f32 max|err| {err:.3e}")
+                log(f"  {name} rows={rows} {c_in}->{c_out} f32 route {route} max|err| {err:.3e}")
                 continue
             ms = cuda_ms(lambda: kern(x, w, table))
             pms = cuda_ms(lambda: plain(x, w, table), iters=3)
@@ -227,7 +242,7 @@ def phase_convs(cap: Capture, results: dict) -> None:
             ops = 2.0 * pairs * c_in * c_out
             b, by = bound_ms(nbytes, ops, dtype)
             log(
-                f"{name} rows={rows} {c_in}->{c_out} x{count}/scan bf16 "
+                f"{name} rows={rows} {c_in}->{c_out} x{count}/scan bf16 route {route} "
                 f"max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
                 f"bound {b:.4f} ms ({by}) pairs={pairs}"
             )
@@ -315,6 +330,17 @@ def main() -> int:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    for name, (total, mma) in (("sparse_conv_k3", K2_PER_SCAN), ("strided_up", UP_PER_SCAN)):
+        got = (launches[name], launches[f"{name}_mma"])
+        if got != (total * N_SCANS, mma * N_SCANS):
+            raise AssertionError(
+                f"{name}: (all, tensor-core) launches {got}, expected "
+                f"{(total * N_SCANS, mma * N_SCANS)} over {N_SCANS} scans"
+            )
+    log(
+        f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]}, "
+        f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]}"
+    )
     for s, o in zip(scans, out):
         n_raw = s["xyzret"].shape[0]
         if o["logits"].shape != (n_raw, cfg["MODEL"]["NUM_CLASS"]):
@@ -387,13 +413,17 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"taseg_tpu_torch/{src}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if f"{name}_mma" in launches:
+            mma = launches[f"{name}_mma"]
+            entry["launches_by_route"] = {"mma": mma, "simt": launches[name] - mma}
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

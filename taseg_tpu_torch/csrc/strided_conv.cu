@@ -16,18 +16,29 @@
 // path's shapes; at V_fine <= 131072 and C <= 256 either bound is tens of
 // microseconds.
 //
-// Design (first, simple version): like K2 a gather-GEMM with a 64x64
-// output tile in registers, except that the weight slice varies per row:
-// each shared-memory stage holds the chunk of all 8 slots' weights, and
-// each thread reads the slot of each of its rows.  `up` gathers one
-// parent row per fine row.  `down` walks the children of each coarse row
-// in rounds (round q takes each row's q-th child), until no row of the
-// tile has another child; a coarse cell has up to 8 children, up to 27
-// where truncating division folds negative coordinates into cell 0.
+// `up` in bf16 with C_in and C_out multiples of 8 (all four deconvs of
+// the main path) runs strided_up_mma_kernel: the tensor-core tile of
+// gather_mma.cuh with the 8 slots as its offsets.  For each slot s that
+// occurs in a 64-row tile, A_s holds the parent rows of the fine rows of
+// slot s and zero elsewhere (the same zero-filling cp.async), and
+// acc += A_s @ W[s]; each row receives exactly one nonzero term, and rows
+// with parent < 0 stay zero.
+//
+// The other cases (f32, ragged widths, and `down` in every dtype) run the
+// CUDA-core design: like K2's a gather-GEMM with a 64x64 output tile in
+// registers, except that the weight slice varies per row: each
+// shared-memory stage holds the chunk of all 8 slots' weights, and each
+// thread reads the slot of each of its rows.  `up` gathers one parent row
+// per fine row.  `down` walks the children of each coarse row in rounds
+// (round q takes each row's q-th child), until no row of the tile has
+// another child; a coarse cell has up to 8 children, up to 27 where
+// truncating division folds negative coordinates into cell 0.
 #include "common.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
+namespace mma = taseg::mma;
 using taseg::store_f;
 using taseg::to_f;
 
@@ -160,6 +171,32 @@ __global__ void __launch_bounds__(kThreads)
   store_tile(acc, out, v_fine, c_out, m0, n0);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(mma::kThreads)
+    strided_up_mma_kernel(const __nv_bfloat16* __restrict__ feats,
+                          const __nv_bfloat16* __restrict__ w,
+                          const int* __restrict__ parent,
+                          const int* __restrict__ slot,
+                          __nv_bfloat16* __restrict__ out, int v_fine,
+                          int c_in, int c_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Smem s = mma::carve<BN>(smem, kSlots);
+  const int m0 = blockIdx.x * mma::kBM, n0 = blockIdx.y * BN;
+  if (threadIdx.x < mma::kBM) {
+    const int f = m0 + threadIdx.x;
+    const int p = f < v_fine ? parent[f] : -1;
+    const int sl = p >= 0 ? (slot[f] & (kSlots - 1)) : -1;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      s.idx[j * mma::kBM + threadIdx.x] = j == sl ? p : -1;
+  }
+  __syncthreads();
+  const int n_present = mma::present_offsets(s, kSlots);
+  float acc[2][BN / 16][4] = {};
+  mma::gather_mma_tile<BN>(s, n_present, feats, w, c_in, c_out, n0, acc);
+  mma::store_tile<BN>(acc, out, v_fine, c_out, m0, n0);
+}
+
 template <typename T>
 void launch_down(const void* feats, const void* w, const void* parent,
                  const void* slot, const void* perm, const void* starts,
@@ -227,4 +264,24 @@ extern "C" int taseg_strided_up(const void* feats, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 only; C_in and C_out multiples of 8, feats and w 16-byte aligned
+extern "C" int taseg_strided_up_mma(const void* feats, const void* w,
+                                    const void* parent, const void* slot,
+                                    void* out, int v_fine, int c_in,
+                                    int c_out, void* stream) {
+  if (v_fine <= 0 || c_in <= 0 || c_out <= 0 || c_in % 8 != 0 ||
+      c_out % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  return mma::with_tile_n(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    return mma::launch_tiles<BN>(
+        strided_up_mma_kernel<BN>, kSlots, v_fine, c_out,
+        static_cast<cudaStream_t>(stream), static_cast<const bf16*>(feats),
+        static_cast<const bf16*>(w), static_cast<const int*>(parent),
+        static_cast<const int*>(slot), static_cast<bf16*>(out), v_fine, c_in,
+        c_out);
+  });
 }

@@ -7,9 +7,11 @@ and the library is loaded with `ctypes`.  The hash covers the sources,
 the headers and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing is built when a module is imported.
 
-Each kernel wrapper adds one to its entry of `LAUNCHES` where it launches
-its kernel, and nowhere else, so a run can show which kernels it went
-through.
+Each kernel wrapper adds one to its entries of `LAUNCHES` where it
+launches its kernel, and nowhere else, so a run can show which kernels it
+went through.  `sparse_conv_k3` and `strided_up` count every launch of
+K2 and K3-up; `sparse_conv_k3_mma` and `strided_up_mma` count those that
+took the tensor-core route.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "join_scan": 0,
     "sparse_conv_k3": 0,
+    "sparse_conv_k3_mma": 0,
     "strided_down": 0,
     "strided_up": 0,
+    "strided_up_mma": 0,
 }
 
 _P = ctypes.c_void_p
@@ -46,8 +50,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "taseg_join_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_strided_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_strided_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "taseg_strided_up_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -141,14 +147,15 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
+def launch(name: str, counters: tuple[str, ...], *args) -> None:
     """Call C entry point `name` on the current stream, raise on a CUDA
-    error, and count the launch under `counter`."""
+    error, and count the launch under each of `counters`."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(get_lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")
-    LAUNCHES[counter] += 1
+    for c in counters:
+        LAUNCHES[c] += 1
 
 
 def check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
@@ -164,6 +171,14 @@ def check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary (the
+    tensor-core kernels copy rows in 16-byte pieces)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data not 16-byte aligned")
 
 
 def dispatch(t: torch.Tensor) -> bool:

@@ -82,7 +82,7 @@ def join_scan(
     nb = (n + TILE - 1) // TILE
     scratch = torch.empty(6 * nb, dtype=torch.int32, device=dev)
     _build.launch(
-        "taseg_join_scan", "join_scan",
+        "taseg_join_scan", ("join_scan",),
         shi.data_ptr(), slo2.data_ptr(), srow.data_ptr(),
         num_refs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         n, int(v), int(qsent), int(mode),

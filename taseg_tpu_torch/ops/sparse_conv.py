@@ -6,8 +6,10 @@ With a dense (27, V) rulebook the output row of voxel v is
 
     out[v] = sum_k  feats[rb[k, v]] * (rb[k, v] >= 0)  @  W[k]
 
-On CUDA tensors `sparse_conv_k3` launches the hand-written gather-GEMM
-`csrc/sparse_conv.cu`; on CPU tensors it runs `sparse_conv_plain`, the
+On CUDA tensors `sparse_conv_k3` launches a hand-written gather-GEMM of
+`csrc/sparse_conv.cu`, chosen by `route`: the tensor-core kernel for
+bf16 with C_in and C_out multiples of 8, the CUDA-core kernel for f32
+and ragged widths.  On CPU tensors it runs `sparse_conv_plain`, the
 per-offset gather + matmul of `_conv_fwd_impl`.  Both accumulate in f32
 over all 27 offsets and round once to the input dtype.  (The JAX TGF path
 rounds each group's transformed rows to the activation dtype before it
@@ -24,6 +26,15 @@ from . import _build
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
+    """The kernel a CUDA call takes: "mma" (tensor cores) for bf16 with
+    C_in and C_out multiples of 8, else "simt" (CUDA cores).  f32 stays
+    on CUDA cores: TF32 tensor cores would not hold its 1e-5 tolerance."""
+    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
+        return "mma"
+    return "simt"
 
 
 def sparse_conv_plain(
@@ -63,9 +74,16 @@ def sparse_conv_k3(
         return out
     if c_in == 0:
         return out.zero_()
-    _build.launch(
-        "taseg_sparse_conv_k3", "sparse_conv_k3",
-        feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
-        v, c_in, c_out, DTYPE_CODES[feats.dtype],
-    )
+    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr())
+    if route(feats.dtype, c_in, c_out) == "mma":
+        _build.check_aligned(feats=feats, weight=weight)
+        _build.launch(
+            "taseg_sparse_conv_k3_mma", ("sparse_conv_k3", "sparse_conv_k3_mma"),
+            *ptrs, v, c_in, c_out,
+        )
+    else:
+        _build.launch(
+            "taseg_sparse_conv_k3", ("sparse_conv_k3",),
+            *ptrs, v, c_in, c_out, DTYPE_CODES[feats.dtype],
+        )
     return out

@@ -10,8 +10,10 @@ per-axis parity bits), so:
 
 Children of a coarse cell are the contiguous run [starts[c], starts[c+1])
 of the downsample unique's sort permutation `perm`.  On CUDA tensors the
-wrappers launch the hand-written kernel K3 (`csrc/strided_conv.cu`); on
-CPU tensors they run the plain versions, which follow the JAX
+wrappers launch the hand-written kernel K3 (`csrc/strided_conv.cu`): the
+up direction on tensor cores where `upsample_route` says so (bf16, C_in
+and C_out multiples of 8), everything else on CUDA cores.  On CPU
+tensors they run the plain versions, which follow the JAX
 `_slot_matmul`, `_segment_sum` (a mean-centred cumsum) and
 `_parent_gather` (`voxelize.run_sums` is the segment sum).  The kernel
 sums children directly, so in f32 the two differ by the cumsum's
@@ -27,7 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .sparse_conv import DTYPE_CODES
+from .sparse_conv import DTYPE_CODES, route
 from .voxelize import run_sums
 
 
@@ -79,6 +81,13 @@ def build_strided_tables(
         perm=perm.to(torch.int32),
         starts=starts,
     )
+
+
+def upsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
+    """The kernel a CUDA call of `upsample_conv_apply` takes: "mma" or
+    "simt", by K2's rule (`sparse_conv.route`).  The down direction always
+    runs on CUDA cores."""
+    return route(dtype, c_in, c_out)
 
 
 def _slot_matmul(x: torch.Tensor, w: torch.Tensor, tables) -> torch.Tensor:
@@ -145,7 +154,7 @@ def downsample_conv_apply(
     if v_fine == 0 or c_in == 0:
         return out.zero_()
     _build.launch(
-        "taseg_strided_down", "strided_down",
+        "taseg_strided_down", ("strided_down",),
         feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
         tables.slot.data_ptr(), tables.perm.data_ptr(),
         tables.starts.data_ptr(), out.data_ptr(),
@@ -170,10 +179,19 @@ def upsample_conv_apply(
         return out
     if v_coarse == 0 or c_in == 0:
         return out.zero_()
-    _build.launch(
-        "taseg_strided_up", "strided_up",
+    ptrs = (
         feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
         tables.slot.data_ptr(), out.data_ptr(),
-        v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
     )
+    if upsample_route(feats.dtype, c_in, c_out) == "mma":
+        _build.check_aligned(feats=feats, weight=weight)
+        _build.launch(
+            "taseg_strided_up_mma", ("strided_up", "strided_up_mma"),
+            *ptrs, v_fine, c_in, c_out,
+        )
+    else:
+        _build.launch(
+            "taseg_strided_up", ("strided_up",),
+            *ptrs, v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
+        )
     return out

@@ -1,0 +1,97 @@
+"""Which kernel each conv of the main path takes on the card, decided on the
+CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-up
+(`strided_conv.upsample_route`) take the tensor-core route ("mma") in
+bf16 where C_in and C_out are multiples of 8, the CUDA-core route
+("simt") in f32 and at ragged widths.  MinkUNet mk34 cr1.0 at full width;
+nothing runs on a card here."""
+
+import pytest
+import torch
+
+from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
+from taseg_tpu_torch.models.layers import SparseConv
+from taseg_tpu_torch.models.voxel.minkunet import MinkUNet
+from taseg_tpu_torch.ops import _build
+from taseg_tpu_torch.ops import sparse_conv as tsc
+from taseg_tpu_torch.ops import strided_conv as tst
+
+
+@pytest.fixture(scope="module")
+def convs():
+    model = MinkUNet.from_cfg(MINKUNET_MK34_CR10, device="cpu")
+    return {
+        name: m
+        for name, m in model.named_modules()
+        if isinstance(m, SparseConv) and m.kernel_volume > 1
+    }
+
+
+def test_k2_routes_in_bf16(convs):
+    """Every 27-point conv but the stem's first (C_in = 4) is on tensor
+    cores: 47 of the 48 K2 launches of a scan."""
+    k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
+    routes = {n: tsc.route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
+    assert len(k3) == 48
+    assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
+    assert sum(r == "mma" for r in routes.values()) == 47
+
+
+def test_k3_up_routes_in_bf16(convs):
+    """All four transposed 8-point convs (the deconvs) are on tensor
+    cores; the down direction has one route only."""
+    up = {n: m for n, m in convs.items() if m.kernel_volume == 8 and m.transposed}
+    widths = sorted((m.in_channels, m.out_channels) for m in up.values())
+    assert widths == [(96, 96), (128, 96), (256, 128), (256, 256)]
+    assert all(
+        tst.upsample_route(torch.bfloat16, m.in_channels, m.out_channels) == "mma"
+        for m in up.values()
+    )
+    assert sum(m.kernel_volume == 8 and not m.transposed for m in convs.values()) == 4
+
+
+def test_f32_routes_stay_on_cuda_cores(convs):
+    for m in convs.values():
+        assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+
+
+@pytest.mark.parametrize(
+    "c_in,c_out,want",
+    [
+        (4, 32, "simt"), (37, 70, "simt"), (64, 20, "simt"), (12, 8, "simt"),
+        (8, 8, "mma"), (32, 32, "mma"), (40, 24, "mma"), (384, 256, "mma"),
+    ],
+)
+def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
+    assert tsc.route(torch.bfloat16, c_in, c_out) == want
+    assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
+
+
+def test_launch_counters_have_the_route_entries():
+    assert set(_build.LAUNCHES) == {
+        "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma",
+        "strided_down", "strided_up", "strided_up_mma",
+    }
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_cpu_tensors_launch_nothing():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch, on either route's widths."""
+    _build.reset_launches()
+    rb = torch.full((27, 16), -1, dtype=torch.int32)
+    rb[13] = torch.arange(16, dtype=torch.int32)  # the centre offset
+    x = torch.ones(16, 8, dtype=torch.bfloat16)
+    out = tsc.sparse_conv_k3(x, torch.ones(27, 8, 8, dtype=torch.bfloat16), rb)
+    assert torch.equal(out, torch.full((16, 8), 8.0, dtype=torch.bfloat16))
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_tensor_core_route_rejects_misaligned_rows():
+    """The tensor-core kernels copy rows in 16-byte pieces: a tensor whose
+    data starts off a 16-byte boundary is refused before any launch."""
+    base = torch.zeros(8 * 9, dtype=torch.bfloat16)
+    _build.check_aligned(feats=base[:64].view(8, 8))
+    with pytest.raises(ValueError, match="feats: data not 16-byte aligned"):
+        _build.check_aligned(feats=base[1:65].view(8, 8))

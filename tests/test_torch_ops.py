@@ -65,7 +65,10 @@ def make_level(seed, cap=512, n=400, span=10, stride=1):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c_in,c_out", [(4, 32), (24, 40), (64, 16)])
+@pytest.mark.parametrize(
+    "c_in,c_out",
+    [(4, 32), (24, 40), (64, 16), (32, 32), (128, 96), (192, 128), (384, 256)],
+)
 def test_k3_conv_plain_matches_jax(dtype, c_in, c_out):
     jdt, tdt = DTYPES[dtype]
     rng, (ju, jn, jb), (tu, tn, tb) = make_level(1 + c_in)
@@ -91,9 +94,15 @@ def test_k3_conv_plain_matches_jax(dtype, c_in, c_out):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_strided_plain_matches_jax(dtype):
+@pytest.mark.parametrize(
+    "c_in,c_out", [(12, 20), (256, 256), (256, 128), (128, 96), (96, 96)]
+)
+def test_strided_plain_matches_jax(dtype, c_in, c_out):
+    """Down C_in -> C_out on the fine level, up (the deconv) C_in -> C_out
+    from the coarse level; the main path's deconvs are 256->256,
+    256->128, 128->96 and 96->96."""
     jdt, tdt = DTYPES[dtype]
-    c_in, c_out, cap2 = 12, 20, 512
+    cap2 = 512
     rng, (ju, jn, jb), (tu, tn, tb) = make_level(7, span=14)
     jc2, jn2, jpar, jcnt, jperm = j_spdown(ju, jn, 2, 1, jb, cap2, return_inverse=True)
     jtab = j_strided(ju, jn, jpar, jcnt, jperm, 1)
@@ -106,8 +115,8 @@ def test_strided_plain_matches_jax(dtype):
     cap = ju.shape[0]
     feats = rng.normal(size=(cap, c_in)).astype(np.float32)
     w = (rng.normal(size=(8, c_in, c_out)) / np.sqrt(8 * c_in)).astype(np.float32)
-    coarse = rng.normal(size=(cap2, c_out)).astype(np.float32)
-    wt = (rng.normal(size=(8, c_out, c_in)) / np.sqrt(8 * c_out)).astype(np.float32)
+    coarse = rng.normal(size=(cap2, c_in)).astype(np.float32)
+    wt = (rng.normal(size=(8, c_in, c_out)) / np.sqrt(8 * c_in)).astype(np.float32)
     tol = 1e-4 if dtype == "float32" else 2.0**-7
     cases = (
         (j_down, tst.downsample_conv_apply, feats, w),
