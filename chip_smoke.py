@@ -10,19 +10,23 @@ synthetic 120 000-point scans, weights drawn from a seed — and checks it:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
   3. one phase per kernel at the main path's real shapes (captured from
-     a real forward): K1 join_scan bit-exact against its plain version,
-     K2 sparse_conv_k3 and K3 strided down/up within stated tolerances,
-     with kernel, plain and library times.  bf16 takes the tensor-core
-     route of K2 and K3-up wherever the widths allow it, f32 the CUDA-core
-     route; each per-shape line names its route;
+     a real forward): K1 join_scan (one launch per call) bit-exact against
+     its plain version, K2 sparse_conv_k3 and K3 strided down/up within
+     stated tolerances, with kernel, plain and library times.  bf16 takes
+     the tensor-core route of K2 and K3 wherever the widths allow it, f32
+     the CUDA-core route; each per-shape line names its route.  The real
+     topology's child tables take one round at every level;
   4. the main path on 3 scans: finite logits of the right shape, every
-     kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
-     4 K3-up launches of each scan on the tensor-core route, bf16/f32
-     argmax agreement, agreement of the card's f32 path with the CPU's
-     plain path on a small scan, and scans/s with the topology / forward
-     split;
-  5. one JSON line listing the kernels, K2 and K3-up with their launches
-     per route.
+     kernel's launch count above 0, 47 of the 48 K2 launches, 4 of the 4
+     K3-down and 4 of the 4 K3-up launches of each scan on the
+     tensor-core route, bf16/f32 argmax agreement, agreement of the card's
+     f32 path with the CPU's plain path on a small scan, and scans/s with
+     the topology / forward split;
+  5. each kernel's device time per scan on the main path (torch.profiler
+     device events), and the plain point<->voxel ops (voxelize_avg,
+     devoxelize) with their bounds and library calls;
+  6. one JSON line listing the kernels, K2 and K3 with their launches per
+     route.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -35,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -45,7 +50,15 @@ SEED = 0
 # launches per scan of the main path: (all, tensor-core route); only the
 # stem's first conv (C_in = 4) takes K2's CUDA-core route
 K2_PER_SCAN = (48, 47)
+DOWN_PER_SCAN = (4, 4)
 UP_PER_SCAN = (4, 4)
+# each wrapper's kernels, by a fragment of their names in the profiler
+KERNEL_NAMES = {
+    "join_scan": "join_scan_kernel",
+    "sparse_conv_k3": "k3_conv",
+    "strided_down": "strided_down",
+    "strided_up": "strided_up",
+}
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -70,6 +83,35 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, frag: str, iters: int = 10):
+    """Mean device time per call of `fn`'s kernels whose names hold
+    `frag`, from torch.profiler's device events over `iters` calls after
+    one warm-up (a second try where the first records none); None where
+    neither does.  Unlike `cuda_ms` it leaves out the host's cost per
+    launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU and frag in e.key
+        )
+        if us:
+            return us / 1e3 / iters
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -138,30 +180,55 @@ def check_close(name, got, want, ref_abs, dtype: str, rel: float) -> float:
     return err
 
 
-def phase_join_scan(topo, results: dict) -> None:
-    """K1 on the 5 levels' unions of the real topology; both modes
-    bit-exact against the plain (cummax) version on the card."""
+def k1_call(topo, l: int):
+    """K1's floor-mode call at level `l` of the main path, on the sorted
+    union that `build_rulebook_k3` scans there."""
     import torch
 
     from taseg_tpu_torch.ops.coords import QUERY_SENTINEL_HI
     from taseg_tpu_torch.ops.join import sorted_union
-    from taseg_tpu_torch.ops.join_scan import join_scan, join_scan_plain
+    from taseg_tpu_torch.ops.join_scan import join_scan
     from taseg_tpu_torch.ops.rulebook import k3_floor_queries
 
-    qsent = int(QUERY_SENTINEL_HI)
+    lt = topo.levels[l]
+    hi, lo, q_hi, q_lo = k3_floor_queries(lt.coords, lt.num, 2**l, topo.bounds)
+    shi, slo2, srow = sorted_union(hi, lo, q_hi, q_lo)
+    num = lt.num.reshape(1).to(torch.int32)
+    return partial(join_scan, shi, slo2, srow, num, hi.shape[0], int(QUERY_SENTINEL_HI), 1)
+
+
+def down_call(kern, rows: int, c_in: int, w, table):
+    """A K3-down call at a main-path shape, on seeded random features
+    (its time does not depend on their values)."""
+    import torch
+
+    gen = torch.Generator(device=w.device).manual_seed(SEED)
+    x = torch.randn(rows, c_in, device=w.device, generator=gen).to(w.dtype)
+    return partial(kern, x, w, table)
+
+
+def phase_join_scan(topo, results: dict, probes: list) -> None:
+    """K1 on the 5 levels' unions of the real topology; both modes
+    bit-exact against the plain (cummax) version on the card.  Each
+    level's call goes into `probes` (as a function that makes it) for its
+    device time."""
+    import torch
+
+    from taseg_tpu_torch.ops.join_scan import join_scan, join_scan_plain
+
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for l, lt in enumerate(topo.levels):
-        hi, lo, q_hi, q_lo = k3_floor_queries(lt.coords, lt.num, 2**l, topo.bounds)
-        shi, slo2, srow = sorted_union(hi, lo, q_hi, q_lo)
-        v, n = hi.shape[0], shi.shape[0]
-        num = lt.num.reshape(1).to(torch.int32)
+    for l in range(len(topo.levels)):
+        call = k1_call(topo, l)
+        shi, slo2, srow, num, v, qsent, _ = call.args
+        n = shi.shape[0]
         for mode in (0, 1):
             got = join_scan(shi, slo2, srow, num, v, qsent, mode)
             want = join_scan_plain(shi, slo2, srow, num, v, qsent, mode)
             if not torch.equal(got, want):
                 bad = (got != want).sum().item()
                 raise AssertionError(f"join_scan level {l} mode {mode}: {bad} rows differ")
-        ms = cuda_ms(lambda: join_scan(shi, slo2, srow, num, v, qsent, 1))
+        ms = cuda_ms(call)
+        probes.append(("join_scan", f"K1 join_scan level {l}", partial(k1_call, topo, l)))
         plain = cuda_ms(lambda: join_scan_plain(shi, slo2, srow, num, v, qsent, 1))
         # library yardstick: the three cummax calls of the plain version
         # on its masked arrays
@@ -177,17 +244,18 @@ def phase_join_scan(topo, results: dict) -> None:
         b, _ = bound_ms(16.0 * n, 0.0, "float32")  # 3 int32 in, 1 out
         log(
             f"K1 join_scan level {l}: n={n} bit-exact (modes 0,1) "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms cummax x3 {lib:.4f} ms "
-            f"bound {b:.4f} ms"
+            f"kernel {ms:.4f} ms plain {plain:.4f} ms "
+            f"cummax x3 {lib:.4f} ms bound {b:.4f} ms"
         )
         for k, x in (("ms", ms), ("plain_ms", plain), ("bound_ms", b), ("library_ms", lib)):
             tot[k] += x
     results["join_scan"] = dict(tot, max_abs_err=0.0, bound_by="bytes")
 
 
-def phase_convs(cap: Capture, results: dict) -> None:
+def phase_convs(cap: Capture, results: dict, probes: list) -> None:
     """K2 and K3 on every distinct shape of the path, bf16 (the path's
-    dtype) and f32; per-scan totals weight each shape by its count."""
+    dtype) and f32; per-scan totals weight each shape by its count.  The
+    bf16 K3-down calls go into `probes` for their device time."""
     import torch
 
     from taseg_tpu_torch.ops import sparse_conv, strided_conv
@@ -200,7 +268,7 @@ def phase_convs(cap: Capture, results: dict) -> None:
     }
     routes = {
         "sparse_conv_k3": sparse_conv.route,
-        "strided_down": lambda *_: "simt",
+        "strided_down": strided_conv.downsample_route,
         "strided_up": strided_conv.upsample_route,
     }
     for name in kernels:
@@ -224,6 +292,11 @@ def phase_convs(cap: Capture, results: dict) -> None:
                 log(f"  {name} rows={rows} {c_in}->{c_out} f32 route {route} max|err| {err:.3e}")
                 continue
             ms = cuda_ms(lambda: kern(x, w, table))
+            if name == "strided_down":
+                probes.append((
+                    name, f"{name} rows={rows} {c_in}->{c_out}",
+                    partial(down_call, kern, rows, c_in, w, table),
+                ))
             pms = cuda_ms(lambda: plain(x, w, table), iters=3)
             esz = x.element_size()
             if name == "sparse_conv_k3":
@@ -256,6 +329,126 @@ def phase_convs(cap: Capture, results: dict) -> None:
         r = results[name]
         parts = r.pop("_bound_parts")
         r["bound_by"] = "bytes" if parts[0] >= parts[1] else "operations"
+
+
+def check_child_rounds(topo) -> None:
+    """The host pipeline's coordinates are non-negative, so every coarse
+    cell has at most one child per slot: the down kernel's child table
+    takes one round at every level of the path."""
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+
+    rounds = [slot_child_table(lt.strided).shape[0] for lt in topo.levels[1:]]
+    log(f"K3-down child rounds per level 1-4: {rounds}")
+    if rounds != [1] * len(rounds):
+        raise AssertionError(f"expected one child round per level, got {rounds}")
+
+
+def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
+    """Device time per scan of each kernel on the main path (topology +
+    forward), from torch.profiler's device events as
+    tools/profile_port.py sums them; K1 must launch one kernel per call
+    (`calls`: wrapper calls per scan).  Then the device time per call of
+    each of `probes` (K1 per level, K3-down per shape; each makes its call
+    only now, so that its inputs do not stay on the card through the
+    throughput samples).  Runs after those samples: a profiler session
+    before them slowed the launch-bound topology stage by 4-6 ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [seg.collate([s]) for s in scans]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for a in batches:
+            seg.forward(a, seg.topology(a))
+        torch.cuda.synchronize()
+    n = len(batches)
+    dev = {k: [0.0, 0] for k in KERNEL_NAMES}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        for k, frag in KERNEL_NAMES.items():
+            if frag in e.key and e.self_device_time_total > 0:
+                dev[k][0] += e.self_device_time_total / 1e3 / n
+                dev[k][1] += e.count
+    for k, (ms, count) in dev.items():
+        per_call = count / (n * calls[k]) if calls[k] else 0.0
+        log(
+            f"profiler {k}: {ms:.4f} ms per scan on the device, "
+            f"{count / n:g} kernel launches per scan, {per_call:g} per wrapper call"
+        )
+        results[k]["device_ms"] = ms if count else None
+    k1_count = dev["join_scan"][1]
+    if k1_count and k1_count != n * calls["join_scan"]:
+        raise AssertionError(
+            f"K1: {k1_count} kernel launches for {n * calls['join_scan']} calls"
+        )
+    results["join_scan"]["kernel_launches_per_call"] = 1 if k1_count else None
+    if not k1_count:
+        log("profiler: no device events for K1 (launches per call not measured)")
+    for name, label, make in probes:
+        log(f"profiler {label}: device {fmt_ms(device_ms(make(), KERNEL_NAMES[name]))} per call")
+
+
+def phase_point_ops(seg, arrays, topo, k: int) -> None:
+    """voxelize_avg and the head's devoxelize calls, plain torch on the
+    main path: time per scan, bound (bytes: each input read once, the
+    output written once) and, where one PyTorch call computes the same
+    function, that call's time.  The head devoxelizes (V, k) bf16 rows
+    (k classes)."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    feats = arrays["point_feats_t"][:, : seg.model.in_dim].contiguous()
+    inv, tables = topo.point_inverse, topo.point_tables
+    v, (p, c) = tables.counts.shape[0], feats.shape
+    want = vx.voxelize_avg(feats, inv, tables)
+    ms = cuda_ms(lambda: vx.voxelize_avg(feats, inv, tables))
+    # row v takes the dropped points; include_self=False leaves rows
+    # without points at 0
+    idx = torch.where(inv >= 0, inv, v).long()[:, None].expand(p, c).contiguous()
+    buf = torch.zeros(v + 1, c, device=feats.device)
+    lib = cuda_ms(lambda: buf.scatter_reduce_(0, idx, feats, "mean", include_self=False))
+    # the plain version's mean-centred f32 cumsum rounds by up to ~2e-4
+    # of the feature scale over 131 072 points
+    err = (buf[:v] - want).abs().max().item()
+    if not err <= 1e-3 * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"scatter_reduce mean differs from voxelize_avg by {err:.3e}")
+    b, _ = bound_ms(p * c * 4 + p * 4 + v * c * 4, 0.0, "float32")
+    log(
+        f"voxelize_avg P={p} V={v} C={c} x1/scan: plain {ms:.4f} ms, "
+        f"scatter_reduce_ mean {lib:.4f} ms, bound {b:.4f} ms (bytes)"
+    )
+
+    gen = torch.Generator(device=feats.device).manual_seed(SEED)
+    z = torch.randn(topo.levels[0].coords.shape[0], k, device=feats.device, generator=gen)
+    z = z.to(torch.bfloat16)
+    ident = topo.devox[1]
+    want = vx.devoxelize(z, ident)
+    ms = cuda_ms(lambda: vx.devoxelize(z, ident))
+    zpad = torch.cat([z, z.new_zeros(1, k)])
+    gidx = torch.where(ident.inverse >= 0, ident.inverse, z.shape[0]).long()
+    lib = cuda_ms(lambda: torch.index_select(zpad, 0, gidx))
+    if not torch.equal(torch.index_select(zpad, 0, gidx), want):
+        raise AssertionError("index_select differs from the identity devoxelize")
+    pts = ident.inverse.shape[0]
+    b, _ = bound_ms(pts * 4 + z.numel() * 2 + pts * k * 2, 0.0, "float32")
+    log(
+        f"devoxelize identity P={pts} V={z.shape[0]} C={k} x1/scan: plain {ms:.4f} ms, "
+        f"index_select {lib:.4f} ms, bound {b:.4f} ms (bytes)"
+    )
+    for s in (4, 16):
+        tab = topo.devox[s]
+        lvl = topo.levels[s.bit_length() - 1]
+        zs = torch.randn(lvl.coords.shape[0], k, device=feats.device, generator=gen)
+        zs = zs.to(torch.bfloat16)
+        ms = cuda_ms(lambda: vx.devoxelize(zs, tab))
+        pts = tab.idx.shape[1]
+        b, _ = bound_ms(8 * pts * 8 + zs.numel() * 2 + pts * k * 2, 0.0, "float32")
+        log(
+            f"devoxelize trilinear stride {s} P={pts} V={zs.shape[0]} C={k} x1/scan: "
+            f"plain {ms:.4f} ms, library none, bound {b:.4f} ms (bytes)"
+        )
 
 
 def main() -> int:
@@ -317,8 +510,11 @@ def main() -> int:
 
     # 3. kernel phases
     results: dict = {}
-    phase_join_scan(topo, results)
-    phase_convs(cap, results)
+    probes: list = []
+    phase_join_scan(topo, results, probes)
+    phase_convs(cap, results, probes)
+    check_child_rounds(topo)
+    phase_point_ops(seg, arrays, topo, cfg["MODEL"]["NUM_CLASS"])
     del cap
 
     # 4. the main path, counted
@@ -330,7 +526,11 @@ def main() -> int:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    for name, (total, mma) in (("sparse_conv_k3", K2_PER_SCAN), ("strided_up", UP_PER_SCAN)):
+    per_scan = (
+        ("sparse_conv_k3", K2_PER_SCAN), ("strided_down", DOWN_PER_SCAN),
+        ("strided_up", UP_PER_SCAN),
+    )
+    for name, (total, mma) in per_scan:
         got = (launches[name], launches[f"{name}_mma"])
         if got != (total * N_SCANS, mma * N_SCANS):
             raise AssertionError(
@@ -339,6 +539,7 @@ def main() -> int:
             )
     log(
         f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]}, "
+        f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]}, "
         f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]}"
     )
     for s, o in zip(scans, out):
@@ -403,7 +604,10 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
 
-    # 5. the kernels line
+    # 5. device time per kernel on the main path
+    phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
+
+    # 6. the kernels line
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
@@ -423,6 +627,9 @@ def main() -> int:
         if f"{name}_mma" in launches:
             mma = launches[f"{name}_mma"]
             entry["launches_by_route"] = {"mma": mma, "simt": launches[name] - mma}
+        if name == "join_scan":
+            entry["kernel_launches_per_call"] = r["kernel_launches_per_call"]
+        entry["device_ms_per_scan"] = r["device_ms"]
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // Tensor-core gather-GEMM tile, shared by the bf16 routes of K2
-// (sparse_conv.cu) and K3-up (strided_conv.cu).
+// (sparse_conv.cu) and of both directions of K3 (strided_conv.cu).
 //
 // A block of kThreads owns a kBM x BN output tile.  Its kernel first
 // fills a shared table idx[j][r] (j < n_off offsets, r < kBM rows) with

@@ -15,25 +15,48 @@
 // 131072 rows) reads 3 int32 arrays and writes one: 16 B/row, ~21 MB,
 // ~6 us at 3.35 TB/s; it does a handful of integer ops per row.
 //
-// Design: the TPU kernel carried the maxima across a sequential grid in
-// SMEM; CUDA blocks run in no order, so this is a block-parallel
-// inclusive max-scan in three launches: (1) each block reduces its 2048
-// rows to 3 maxima, (2) one block scans the block aggregates into
-// exclusive prefixes, (3) each block rescans its rows seeded with its
-// prefix and writes the result.  The key-boundary test reads row i-1
-// directly, so no previous-key carry and no padding are needed.  Inputs
-// are read twice (passes 1 and 3); at ~21 MB the second read is mostly
-// served by the 50 MB L2.
-#include <climits>
-
+// Design: the TPU kernel carries five values (the previous key pair and
+// the three running maxima) in SMEM across a sequential grid.  CUDA blocks
+// run in no order, so the counterpart of that carry is a single-pass scan
+// with decoupled look-back (Merrill & Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", NVIDIA 2016), one launch per call
+// and one read of the inputs:
+//   * each block draws its tile index from an atomic counter, not from
+//     blockIdx.x, so a tile only ever waits on tiles whose blocks have
+//     already started; the block that draws the last index resets the
+//     counter for the next call;
+//   * a tile loads its 4096 rows into registers (16 per thread, 16-byte
+//     loads where the arrays are 16-byte aligned), reduces them to the
+//     three maxima and publishes that aggregate; warp 0 then reads its
+//     predecessors' status words, 128 tiles per step (4 per lane), until
+//     each maximum has met an inclusive prefix, publishes its own
+//     inclusive prefix, and the block rescans its rows from registers
+//     seeded with the exclusive prefix and writes them.  All tiles of a
+//     call start at about the same time, so the inclusive prefixes spread
+//     from tile 0 one look-back step at a time: large tiles and wide steps
+//     keep that chain short (level 0: 320 tiles, at most 3 steps);
+//   * a status word is 64 bits: the value in the low half, epoch << 2 |
+//     flag in the high half, so one st.release publishes both and one
+//     ld.acquire reads both.  Each tile has one word per maximum: max is
+//     idempotent, so each maximum looks back on its own, and a value read
+//     from beyond a predecessor's inclusive prefix changes nothing;
+//   * words carry the wrapper's per-call epoch, so a word left by an
+//     earlier call reads as not ready and the buffer needs no memset
+//     between calls.  The wrapper keeps the buffer and the counter across
+//     calls and grows the buffer zeroed (epoch 0 is never used).
+// The key-boundary test reads row i-1 directly, so no key is carried.
 #include "common.cuh"
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;  // rows per block (2048)
-constexpr int kScanThreads = 1024;
+constexpr int kItems = 16;
+constexpr int kTile = kThreads * kItems;  // rows per tile (4096)
+constexpr int kLookLanes = 4;             // predecessors per lane and step
+constexpr unsigned kAggregate = 1;        // status flags
+constexpr unsigned kPrefix = 2;
 
 struct Max3 {
   int a, b, c;  // bound, refpos, refid
@@ -43,16 +66,50 @@ __device__ __forceinline__ Max3 max3(Max3 x, Max3 y) {
   return {max(x.a, y.a), max(x.b, y.b), max(x.c, y.c)};
 }
 
-__device__ __forceinline__ Max3 row_vals(const int* __restrict__ shi,
-                                         const int* __restrict__ slo2,
-                                         const int* __restrict__ srow, int i,
-                                         int v, int num_refs) {
-  const bool differs = i == 0 || shi[i] != shi[i - 1] ||
-                       (slo2[i] >> 1) != (slo2[i - 1] >> 1);
-  const int r = srow[i];
+// row i with keys (hi, lo2), row i-1 with (hi_prev, lo2_prev)
+__device__ __forceinline__ Max3 row_vals(int i, int hi, int lo2, int r,
+                                         int hi_prev, int lo2_prev, int v,
+                                         int num_refs) {
+  const bool differs =
+      i == 0 || hi != hi_prev || (lo2 >> 1) != (lo2_prev >> 1);
   const bool is_ref = r < v;
   return {differs ? i : -1, is_ref ? i : -1,
           (is_ref && r < num_refs) ? r : -1};
+}
+
+// x[j] = p[base + j] for the rows < n (0 past n); 16-byte loads when the
+// caller vouches for p's alignment and the thread's rows are all < n
+template <bool kVec>
+__device__ __forceinline__ void load_rows(const int* __restrict__ p, int base,
+                                          int n, int (&x)[kItems]) {
+  if (kVec && base + kItems <= n) {
+#pragma unroll
+    for (int j = 0; j < kItems; j += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(p + base + j);
+      x[j] = q.x;
+      x[j + 1] = q.y;
+      x[j + 2] = q.z;
+      x[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) x[j] = base + j < n ? p[base + j] : 0;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_rows(int* __restrict__ p, int base,
+                                           int n, const int (&x)[kItems]) {
+  if (kVec && base + kItems <= n) {
+#pragma unroll
+    for (int j = 0; j < kItems; j += 4)
+      *reinterpret_cast<int4*>(p + base + j) =
+          make_int4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      if (base + j < n) p[base + j] = x[j];
+  }
 }
 
 __device__ __forceinline__ int warp_incl_max(int x) {
@@ -65,130 +122,201 @@ __device__ __forceinline__ int warp_incl_max(int x) {
   return x;
 }
 
-// Exclusive max-scan of one value per thread over the block (identity
-// -1: every scanned value is >= -1).  *total gets the block's maximum.
-// `smem` holds 32 ints; the trailing barrier lets callers reuse it.
-__device__ int block_excl_max(int x, int* smem, int* total) {
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, d));
+  return x;
+}
+
+// Exclusive max-scan of one Max3 per thread over the block (identity -1:
+// every scanned value is >= -1); *total gets the block's maxima.
+__device__ Max3 block_excl_max3(Max3 x, int (*smem)[32], Max3* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int incl = warp_incl_max(x);
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? smem[lane] : -1;
-    smem[lane] = warp_incl_max(w);
+  constexpr int nw = kThreads / 32;
+  const Max3 incl = {warp_incl_max(x.a), warp_incl_max(x.b),
+                     warp_incl_max(x.c)};
+  if (lane == 31) {
+    smem[0][warp] = incl.a;
+    smem[1][warp] = incl.b;
+    smem[2][warp] = incl.c;
   }
   __syncthreads();
-  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = -1;
-  if (warp > 0) excl = max(excl, smem[warp - 1]);
-  *total = smem[nw - 1];
+  if (warp < 3) {  // warp k scans the warp totals of maximum k
+    const int w = lane < nw ? smem[warp][lane] : -1;
+    smem[warp][lane] = warp_incl_max(w);
+  }
   __syncthreads();
-  return excl;
+  Max3 ex = {__shfl_up_sync(0xffffffffu, incl.a, 1),
+             __shfl_up_sync(0xffffffffu, incl.b, 1),
+             __shfl_up_sync(0xffffffffu, incl.c, 1)};
+  if (lane == 0) ex = {-1, -1, -1};
+  if (warp > 0)
+    ex = max3(ex, Max3{smem[0][warp - 1], smem[1][warp - 1],
+                       smem[2][warp - 1]});
+  *total = {smem[0][nw - 1], smem[1][nw - 1], smem[2][nw - 1]};
+  return ex;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    js_reduce(const int* __restrict__ shi, const int* __restrict__ slo2,
-              const int* __restrict__ srow, const int* __restrict__ num_refs_p,
-              int n, int v, int* __restrict__ agg) {
-  __shared__ int smem[32];
-  const int num_refs = *num_refs_p;
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  Max3 m = {-1, -1, -1};
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void publish(u64* words, Max3 m, unsigned epoch,
+                                        unsigned flag) {
+  const u64 tag = static_cast<u64>(epoch << 2 | flag) << 32;
+  st_release(words + 0, tag | static_cast<unsigned>(m.a));
+  st_release(words + 1, tag | static_cast<unsigned>(m.b));
+  st_release(words + 2, tag | static_cast<unsigned>(m.c));
+}
+
+// Run by all of warp 0 of tile t > 0: the maxima over tiles [0, t), from
+// their status words, 32 * kLookLanes contiguous predecessors per step
+// (lane l reads tiles base - l - 32 k), until each maximum has met some
+// tile's inclusive prefix.  Every tile between that one and t has been
+// read by then.
+__device__ Max3 look_back(const u64* __restrict__ status, int t,
+                          unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  Max3 ex = {-1, -1, -1};
+  unsigned done = 0;  // bit c: maximum c has met an inclusive prefix
+  for (int base = t - 1; done != 7u; base -= 32 * kLookLanes) {
+    unsigned pre = 0;  // bit c: some tile read here holds prefix c
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = base + j;
-    if (i < n) m = max3(m, row_vals(shi, slo2, srow, i, v, num_refs));
+    for (int k = 0; k < kLookLanes; ++k) {
+      const int j = base - lane - 32 * k;
+      if (j < 0) {  // before tile 0 counts as a prefix of -1
+        pre = 7u;
+        continue;
+      }
+      u64 w[3];
+      for (;;) {
+        bool ready = true;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          w[c] = ld_acquire(status + 3 * j + c);
+          ready = ready && (w[c] >> 34) == epoch;
+        }
+        if (ready) break;
+        __nanosleep(32);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (((w[c] >> 32) & 3u) == kPrefix) pre |= 1u << c;
+      ex = max3(ex, Max3{static_cast<int>(static_cast<unsigned>(w[0])),
+                         static_cast<int>(static_cast<unsigned>(w[1])),
+                         static_cast<int>(static_cast<unsigned>(w[2]))});
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      if (__ballot_sync(0xffffffffu, (pre >> c) & 1u)) done |= 1u << c;
   }
-  Max3 t;
-  block_excl_max(m.a, smem, &t.a);
-  block_excl_max(m.b, smem, &t.b);
-  block_excl_max(m.c, smem, &t.c);
+  return {warp_max(ex.a), warp_max(ex.b), warp_max(ex.c)};
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    join_scan_kernel(const int* __restrict__ shi, const int* __restrict__ slo2,
+                     const int* __restrict__ srow,
+                     const int* __restrict__ num_refs_p, int* __restrict__ out,
+                     u64* __restrict__ status, int* __restrict__ counter, int n,
+                     int v, int qsent, int mode, unsigned epoch) {
+  __shared__ int smem[3][32];
+  __shared__ int tile_s;
+  __shared__ Max3 prefix_s;
+  const int nb = (n + kTile - 1) / kTile;
   if (threadIdx.x == 0) {
-    agg[3 * blockIdx.x + 0] = t.a;
-    agg[3 * blockIdx.x + 1] = t.b;
-    agg[3 * blockIdx.x + 2] = t.c;
+    const int t = atomicAdd(counter, 1);
+    if (t == nb - 1) atomicExch(counter, 0);  // the call's last draw
+    tile_s = t;
   }
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-    js_scan_aggs(const int* __restrict__ agg, int* __restrict__ prefix,
-                 int nblocks) {
-  __shared__ int smem[32];
-  int carry[3] = {-1, -1, -1};
-  for (int base = 0; base < nblocks; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int x = i < nblocks ? agg[3 * i + c] : -1;
-      int tot;
-      const int ex = block_excl_max(x, smem, &tot);
-      if (i < nblocks) prefix[3 * i + c] = max(carry[c], ex);
-      carry[c] = max(carry[c], tot);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    js_emit(const int* __restrict__ shi, const int* __restrict__ slo2,
-            const int* __restrict__ srow, const int* __restrict__ num_refs_p,
-            const int* __restrict__ prefix, int* __restrict__ out, int n,
-            int v, int qsent, int mode) {
-  __shared__ int smem[32];
+  __syncthreads();
+  const int t = tile_s;
   const int num_refs = *num_refs_p;
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  Max3 vals[kItems];
+  const int base = t * kTile + threadIdx.x * kItems;
+  int hi[kItems], lo2[kItems], row[kItems];
+  load_rows<kVec>(shi, base, n, hi);
+  load_rows<kVec>(slo2, base, n, lo2);
+  load_rows<kVec>(srow, base, n, row);
+  // row base - 1, for the key-boundary test of the thread's first row
+  const bool has_prev = base > 0 && base <= n;
+  const int hi0 = has_prev ? shi[base - 1] : 0;
+  const int lo0 = has_prev ? slo2[base - 1] : 0;
   Max3 m = {-1, -1, -1};
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int i = base + j;
-    vals[j] = i < n ? row_vals(shi, slo2, srow, i, v, num_refs)
-                    : Max3{-1, -1, -1};
-    m = max3(m, vals[j]);
+    if (i < n)
+      m = max3(m, row_vals(i, hi[j], lo2[j], row[j], j ? hi[j - 1] : hi0,
+                           j ? lo2[j - 1] : lo0, v, num_refs));
   }
-  int unused;
-  Max3 run;
-  run.a = block_excl_max(m.a, smem, &unused);
-  run.b = block_excl_max(m.b, smem, &unused);
-  run.c = block_excl_max(m.c, smem, &unused);
-  const int b3 = 3 * blockIdx.x;
-  run = max3(run, Max3{prefix[b3], prefix[b3 + 1], prefix[b3 + 2]});
+  Max3 agg;
+  Max3 run = block_excl_max3(m, smem, &agg);
+  if (threadIdx.x < 32) {
+    const bool lead = threadIdx.x == 0;
+    u64* mine = status + 3 * t;
+    Max3 ex = {-1, -1, -1};
+    if (t > 0) {
+      if (lead) publish(mine, agg, epoch, kAggregate);
+      ex = look_back(status, t, epoch);
+    }
+    if (lead) {
+      publish(mine, max3(ex, agg), epoch, kPrefix);
+      prefix_s = ex;
+    }
+  }
+  __syncthreads();
+  run = max3(run, prefix_s);
+  int res[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int i = base + j;
-    if (i >= n) break;
-    run = max3(run, vals[j]);
-    const bool in_range = shi[i] < qsent;
+    run = max3(run, row_vals(i, hi[j], lo2[j], row[j], j ? hi[j - 1] : hi0,
+                             j ? lo2[j - 1] : lo0, v, num_refs));
+    const bool in_range = hi[j] < qsent;
     const bool matched = run.b >= run.a && run.c >= 0 && in_range;
-    int res;
     if (mode == 1) {
-      res = in_range ? run.c * 2 + (matched ? 1 : 0) : -2;
+      res[j] = in_range ? run.c * 2 + (matched ? 1 : 0) : -2;
     } else {
-      res = matched ? run.c : -1;
+      res[j] = matched ? run.c : -1;
     }
-    out[i] = res;
   }
+  store_rows<kVec>(out, base, n, res);
 }
 
 }  // namespace
 
-// scratch: 6 * ceil(n / 2048) int32 (block aggregates, then prefixes).
+// status: at least 3 * ceil(n / 4096) 64-bit words, zeroed when allocated
+// and holding no word of this `epoch` (1 <= epoch < 2^30); counter: one
+// int32, 0 between calls (the kernel leaves it so).
 extern "C" int taseg_join_scan(const void* shi, const void* slo2,
                                const void* srow, const void* num_refs,
-                               void* out, void* scratch, int n, int v,
-                               int qsent, int mode, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                               void* out, void* status, void* counter, int n,
+                               int v, int qsent, int mode, int epoch,
+                               void* stream) {
+  if (n <= 0 || (mode != 0 && mode != 1) || epoch <= 0 || epoch >= (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + kTile - 1) / kTile;
-  int* agg = static_cast<int*>(scratch);
-  int* prefix = agg + 3 * nb;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* h = static_cast<const int*>(shi);
-  const int* l = static_cast<const int*>(slo2);
-  const int* r = static_cast<const int*>(srow);
-  const int* nr = static_cast<const int*>(num_refs);
-  js_reduce<<<nb, kThreads, 0, s>>>(h, l, r, nr, n, v, agg);
-  js_scan_aggs<<<1, kScanThreads, 0, s>>>(agg, prefix, nb);
-  js_emit<<<nb, kThreads, 0, s>>>(h, l, r, nr, prefix,
-                                  static_cast<int*>(out), n, v, qsent, mode);
+  const bool vec = ((reinterpret_cast<size_t>(shi) |
+                     reinterpret_cast<size_t>(slo2) |
+                     reinterpret_cast<size_t>(srow) |
+                     reinterpret_cast<size_t>(out)) & 15) == 0;
+  auto kernel = vec ? join_scan_kernel<true> : join_scan_kernel<false>;
+  kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(shi), static_cast<const int*>(slo2),
+      static_cast<const int*>(srow), static_cast<const int*>(num_refs),
+      static_cast<int*>(out), static_cast<u64*>(status),
+      static_cast<int*>(counter), n, v, qsent, mode,
+      static_cast<unsigned>(epoch));
   return static_cast<int>(cudaGetLastError());
 }

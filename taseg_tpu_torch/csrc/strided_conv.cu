@@ -16,23 +16,39 @@
 // path's shapes; at V_fine <= 131072 and C <= 256 either bound is tens of
 // microseconds.
 //
-// `up` in bf16 with C_in and C_out multiples of 8 (all four deconvs of
-// the main path) runs strided_up_mma_kernel: the tensor-core tile of
+// In bf16 with C_in and C_out multiples of 8 (all eight strided convs of
+// the main path) both directions run on the tensor-core tile of
 // gather_mma.cuh with the 8 slots as its offsets.  For each slot s that
-// occurs in a 64-row tile, A_s holds the parent rows of the fine rows of
-// slot s and zero elsewhere (the same zero-filling cp.async), and
-// acc += A_s @ W[s]; each row receives exactly one nonzero term, and rows
-// with parent < 0 stay zero.
+// occurs in a 64-row tile, A_s holds the gathered input rows of slot s
+// and zero elsewhere (the same zero-filling cp.async), and
+// acc += A_s @ W[s]:
+//   * up (strided_up_mma_kernel): A_s row f is the parent row of fine row
+//     f when slot(f) == s; each row receives exactly one nonzero term, and
+//     rows with parent < 0 stay zero.
+//   * down (strided_down_mma_kernel): a block owns 64 coarse rows; thread
+//     r walks its row's children perm[starts[c] : starts[c+1]] and sets
+//     idx[slot f][r] = f.  On the main path a cell has at most one child
+//     per slot (the host pipeline shifts coordinates to be non-negative),
+//     so one round of the tile covers every child.  Where coordinates are
+//     negative, truncating division folds {-1, 0, 1} into cell 0 and a
+//     slot repeats up to 8 times in a cell: round q then takes each row's
+//     q-th child of each slot, the f32 accumulators carry across rounds,
+//     and the block stops when no row of the tile has a further round.
+//     The tile does 8 slots x 64 rows of work per (round, C_in chunk)
+//     against ~V_fine present pairs in all: at most ~5x at level 0, and
+//     cheap on tensor cores; the reads of feats (V_fine x C_in) and the
+//     write of out bound it.
 //
-// The other cases (f32, ragged widths, and `down` in every dtype) run the
-// CUDA-core design: like K2's a gather-GEMM with a 64x64 output tile in
-// registers, except that the weight slice varies per row: each
-// shared-memory stage holds the chunk of all 8 slots' weights, and each
-// thread reads the slot of each of its rows.  `up` gathers one parent row
-// per fine row.  `down` walks the children of each coarse row in rounds
-// (round q takes each row's q-th child), until no row of the tile has
-// another child; a coarse cell has up to 8 children, up to 27 where
-// truncating division folds negative coordinates into cell 0.
+// The other cases (f32 and ragged widths) run the CUDA-core design: like
+// K2's a gather-GEMM with a 64x64 output tile in registers, except that
+// the weight slice varies per row: each shared-memory stage holds the
+// chunk of all 8 slots' weights, and each thread reads the slot of each of
+// its rows.  `up` gathers one parent row per fine row.  `down` walks the
+// children of each coarse row in rounds (round q takes each row's q-th
+// child), until no row of the tile has another child; a coarse cell has up
+// to 8 children, up to 27 where truncating division folds negative
+// coordinates into cell 0.  f32 stays on CUDA cores: TF32 tensor cores
+// would miss its tolerance.
 #include "common.cuh"
 #include "gather_mma.cuh"
 
@@ -197,6 +213,57 @@ __global__ void __launch_bounds__(mma::kThreads)
   mma::store_tile<BN>(acc, out, v_fine, c_out, m0, n0);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(mma::kThreads)
+    strided_down_mma_kernel(const __nv_bfloat16* __restrict__ feats,
+                            const __nv_bfloat16* __restrict__ w,
+                            const int* __restrict__ parent,
+                            const int* __restrict__ slot,
+                            const int* __restrict__ perm,
+                            const int* __restrict__ starts,
+                            __nv_bfloat16* __restrict__ out, int v_coarse,
+                            int c_in, int c_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Smem s = mma::carve<BN>(smem, kSlots);
+  const int m0 = blockIdx.x * mma::kBM, n0 = blockIdx.y * BN;
+  const int r = threadIdx.x;
+  int beg = 0, end = 0;
+  if (r < mma::kBM && m0 + r < v_coarse) {
+    beg = starts[m0 + r];
+    end = starts[m0 + r + 1];
+  }
+  float acc[2][BN / 16][4] = {};
+  for (int q = 0;; ++q) {
+    // round q: idx[j][r] = row r's q-th child of slot j, -1 for none.
+    // `seen` counts the children of each slot walked so far, 8 bits each
+    // (at most 8 children of one slot share a cell).
+    bool has = false;
+    if (r < mma::kBM) {
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) s.idx[j * mma::kBM + r] = -1;
+      unsigned long long seen = 0;
+      for (int i = beg; i < end; ++i) {
+        const int f = perm[i];
+        if (parent[f] < 0) continue;
+        const int sl = slot[f] & (kSlots - 1);
+        if (static_cast<int>((seen >> (8 * sl)) & 0xffu) == q) {
+          s.idx[sl * mma::kBM + r] = f;
+          has = true;
+        }
+        seen += 1ull << (8 * sl);
+      }
+    }
+    // barrier for idx; stop once no row of the tile has a q-th round
+    if (!__syncthreads_or(has)) break;
+    const int n_present = mma::present_offsets(s, kSlots);
+    mma::gather_mma_tile<BN>(s, n_present, feats, w, c_in, c_out, n0, acc);
+    // other warps may still be multiplying the last stage: nobody
+    // rewrites idx or refills the ring before they are done
+    __syncthreads();
+  }
+  mma::store_tile<BN>(acc, out, v_coarse, c_out, m0, n0);
+}
+
 template <typename T>
 void launch_down(const void* feats, const void* w, const void* parent,
                  const void* slot, const void* perm, const void* starts,
@@ -264,6 +331,30 @@ extern "C" int taseg_strided_up(const void* feats, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 only; C_in and C_out multiples of 8, feats and w 16-byte aligned.
+// feats (V_fine, C_in), w (8, C_in, C_out), parent/slot/perm (V_fine,),
+// starts (V_coarse + 1,) -> out (V_coarse, C_out)
+extern "C" int taseg_strided_down_mma(const void* feats, const void* w,
+                                      const void* parent, const void* slot,
+                                      const void* perm, const void* starts,
+                                      void* out, int v_coarse, int c_in,
+                                      int c_out, void* stream) {
+  if (v_coarse <= 0 || c_in <= 0 || c_out <= 0 || c_in % 8 != 0 ||
+      c_out % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  return mma::with_tile_n(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    return mma::launch_tiles<BN>(
+        strided_down_mma_kernel<BN>, kSlots, v_coarse, c_out,
+        static_cast<cudaStream_t>(stream), static_cast<const bf16*>(feats),
+        static_cast<const bf16*>(w), static_cast<const int*>(parent),
+        static_cast<const int*>(slot), static_cast<const int*>(perm),
+        static_cast<const int*>(starts), static_cast<bf16*>(out), v_coarse,
+        c_in, c_out);
+  });
 }
 
 // bf16 only; C_in and C_out multiples of 8, feats and w 16-byte aligned

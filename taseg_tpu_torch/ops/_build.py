@@ -9,9 +9,10 @@ unchanged one is reused.  Nothing is built when a module is imported.
 
 Each kernel wrapper adds one to its entries of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show which kernels it
-went through.  `sparse_conv_k3` and `strided_up` count every launch of
-K2 and K3-up; `sparse_conv_k3_mma` and `strided_up_mma` count those that
-took the tensor-core route.
+went through.  `sparse_conv_k3`, `strided_down` and `strided_up` count
+every launch of K2, K3-down and K3-up; `sparse_conv_k3_mma`,
+`strided_down_mma` and `strided_up_mma` count those that took the
+tensor-core route.  K1 (`join_scan`) launches one kernel per call.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ LAUNCHES = {
     "sparse_conv_k3": 0,
     "sparse_conv_k3_mma": 0,
     "strided_down": 0,
+    "strided_down_mma": 0,
     "strided_up": 0,
     "strided_up_mma": 0,
 }
@@ -48,10 +50,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
-    "taseg_join_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "taseg_join_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_strided_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_down_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_strided_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_strided_up_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -4,9 +4,15 @@ After `join_keys` sorts the tagged union of reference and query keys,
 each sorted row needs three running maxima (last key-group start, last
 reference row, last valid reference id) and a match/select on them.  On
 CUDA tensors `join_scan` launches the hand-written kernel
-`csrc/join_scan.cu`; on CPU tensors it runs `join_scan_plain`, the XLA
+`csrc/join_scan.cu`, a single-pass scan with decoupled look-back (one
+launch per call); on CPU tensors it runs `join_scan_plain`, the XLA
 cummax formulation of `taseg_tpu/ops/join.py:205-231`.  Both are
 bit-identical.
+
+The kernel's tiles publish their maxima in status words tagged with a
+per-call epoch.  `LookbackState` keeps those words and the tile counter
+across calls, one per device and stream, so a call allocates and clears
+nothing.
 """
 
 from __future__ import annotations
@@ -15,8 +21,50 @@ import torch
 
 from . import _build
 
-# rows per block of the CUDA kernel (csrc/join_scan.cu kTile)
-TILE = 2048
+# rows per tile of the CUDA kernel (csrc/join_scan.cu kTile)
+TILE = 4096
+# status words carry epoch << 2 in 32 bits; 0 marks a word never written
+EPOCH_LIMIT = 2**30
+
+
+class LookbackState:
+    """The kernel's state between calls on one device and stream: three
+    int64 status words per tile, the int32 tile counter (0 again after
+    every call) and the epoch of the last call.  Calls on one stream run
+    in order, so one state serves them all."""
+
+    def __init__(self, device):
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def next_call(self, tiles: int) -> int:
+        """Make room for `tiles` tiles and return the new call's epoch.
+        A grown buffer is zeroed (epoch 0), so no word in it matches; at
+        the epoch limit the words are zeroed and the epochs start over."""
+        if self.status.shape[0] < 3 * tiles:
+            grown = max(tiles, 2 * (self.status.shape[0] // 3))
+            self.status = torch.zeros(
+                3 * grown, dtype=torch.int64, device=self.status.device
+            )
+        self.epoch += 1
+        if self.epoch >= EPOCH_LIMIT:
+            self.status.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+_STATES: dict = {}  # (device, stream) -> LookbackState
+
+
+def _state(dev: torch.device) -> LookbackState:
+    """The state of `dev`'s current stream ("cuda" means the current
+    device)."""
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device, stream.cuda_stream)
+    if key not in _STATES:
+        _STATES[key] = LookbackState(stream.device)
+    return _STATES[key]
 
 
 def join_scan_plain(
@@ -79,12 +127,12 @@ def join_scan(
     if n == 0:
         return torch.empty(0, dtype=torch.int32, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    nb = (n + TILE - 1) // TILE
-    scratch = torch.empty(6 * nb, dtype=torch.int32, device=dev)
+    state = _state(dev)
+    epoch = state.next_call((n + TILE - 1) // TILE)
     _build.launch(
         "taseg_join_scan", ("join_scan",),
         shi.data_ptr(), slo2.data_ptr(), srow.data_ptr(),
-        num_refs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n, int(v), int(qsent), int(mode),
+        num_refs.data_ptr(), out.data_ptr(), state.status.data_ptr(),
+        state.counter.data_ptr(), n, int(v), int(qsent), int(mode), epoch,
     )
     return out

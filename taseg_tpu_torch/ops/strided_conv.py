@@ -10,9 +10,10 @@ per-axis parity bits), so:
 
 Children of a coarse cell are the contiguous run [starts[c], starts[c+1])
 of the downsample unique's sort permutation `perm`.  On CUDA tensors the
-wrappers launch the hand-written kernel K3 (`csrc/strided_conv.cu`): the
-up direction on tensor cores where `upsample_route` says so (bf16, C_in
-and C_out multiples of 8), everything else on CUDA cores.  On CPU
+wrappers launch the hand-written kernel K3 (`csrc/strided_conv.cu`):
+either direction on tensor cores where `downsample_route` /
+`upsample_route` say so (bf16, C_in and C_out multiples of 8), everything
+else on CUDA cores.  On CPU
 tensors they run the plain versions, which follow the JAX
 `_slot_matmul`, `_segment_sum` (a mean-centred cumsum) and
 `_parent_gather` (`voxelize.run_sums` is the segment sum).  The kernel
@@ -83,11 +84,47 @@ def build_strided_tables(
     )
 
 
+def downsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
+    """The kernel a CUDA call of `downsample_conv_apply` takes: "mma" or
+    "simt", by K2's rule (`sparse_conv.route`)."""
+    return route(dtype, c_in, c_out)
+
+
 def upsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of `upsample_conv_apply` takes: "mma" or
-    "simt", by K2's rule (`sparse_conv.route`).  The down direction always
-    runs on CUDA cores."""
+    "simt", by K2's rule (`sparse_conv.route`)."""
     return route(dtype, c_in, c_out)
+
+
+def slot_child_table(tables: StridedTables) -> torch.Tensor:
+    """(rounds, 8, V_coarse) int32: entry [q, s, c] is the q-th child of
+    coarse row c at slot s, in `perm` order, -1 for none; children with
+    parent < 0 are skipped.  It is the table that the tensor-core down
+    kernel builds in shared memory, round by round, so that
+
+        out[c] = sum_q sum_s feats[table[q, s, c]] @ W[s]
+
+    One round covers a cell whose children have distinct slots; more
+    rounds come only from cells that fold negative coordinates."""
+    starts = tables.starts.long()
+    v_coarse = starts.shape[0] - 1
+    dev = starts.device
+    pos = torch.arange(int(starts[-1]), device=dev)
+    cell = torch.searchsorted(starts, pos, right=True) - 1
+    f = tables.perm[pos].long()
+    live = tables.parent[f] >= 0
+    cell, f = cell[live], f[live]
+    key = cell * 8 + (tables.slot[f].long() & 7)
+    # rank of each child among the earlier children of its (cell, slot)
+    order = torch.sort(key, stable=True).indices
+    k_sorted = key[order]
+    first = torch.searchsorted(k_sorted, k_sorted)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=dev) - first
+    rounds = int(rank.max()) + 1 if rank.numel() else 0
+    table = torch.full((rounds, 8, v_coarse), -1, dtype=torch.int32, device=dev)
+    table[rank, key % 8, cell] = f.to(torch.int32)
+    return table
 
 
 def _slot_matmul(x: torch.Tensor, w: torch.Tensor, tables) -> torch.Tensor:
@@ -153,13 +190,22 @@ def downsample_conv_apply(
         return out
     if v_fine == 0 or c_in == 0:
         return out.zero_()
-    _build.launch(
-        "taseg_strided_down", ("strided_down",),
+    ptrs = (
         feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
         tables.slot.data_ptr(), tables.perm.data_ptr(),
         tables.starts.data_ptr(), out.data_ptr(),
-        v_fine, v_coarse, c_in, c_out, DTYPE_CODES[feats.dtype],
     )
+    if downsample_route(feats.dtype, c_in, c_out) == "mma":
+        _build.check_aligned(feats=feats, weight=weight)
+        _build.launch(
+            "taseg_strided_down_mma", ("strided_down", "strided_down_mma"),
+            *ptrs, v_coarse, c_in, c_out,
+        )
+    else:
+        _build.launch(
+            "taseg_strided_down", ("strided_down",),
+            *ptrs, v_fine, v_coarse, c_in, c_out, DTYPE_CODES[feats.dtype],
+        )
     return out
 
 

@@ -10,7 +10,10 @@ Tolerances as in chip_smoke.py: f32 within 1e-5 (1e-4 for the down
 conv, whose plain version sums with a mean-centred cumsum) of the
 largest sum of |terms|; bf16 adds one bf16 rounding of the output.
 bf16 cases with widths that are multiples of 8 take the tensor-core
-route of K2 and K3-up, f32 and ragged cases the CUDA-core route.
+route of K2 and K3, f32 and ragged cases the CUDA-core route.  K1, the
+single-pass join scan, is bit-exact in both modes at tile edges, at the
+main path's largest size, and across calls that reuse and grow its
+look-back state.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from taseg_tpu_torch.ops import _build
+from taseg_tpu_torch.ops import join_scan as tjs
 from taseg_tpu_torch.ops import coords as tc
 from taseg_tpu_torch.ops import join as tj
 from taseg_tpu_torch.ops import rulebook as tr
@@ -72,6 +76,60 @@ def test_join_scan_kernel_bit_exact(cuda):
             got = join_scan(shi, slo2, srow, nref, hi.shape[0], int(tc.QUERY_SENTINEL_HI), mode)
             want = join_scan_plain(shi, slo2, srow, nref, hi.shape[0], int(tc.QUERY_SENTINEL_HI), mode)
             assert torch.equal(got, want)
+
+
+def _scan_inputs(dev, n, seed):
+    """An arbitrary (shi, slo2, srow, num_refs, v, qsent) for the scan:
+    sorted high keys with runs of equal keys, the last rows at the query
+    sentinel, reference rows (srow < v) scattered, num_refs < v.  Kernel
+    and plain version compute the same function of any such arrays."""
+    rng = np.random.default_rng(seed)
+    shi = np.sort(rng.integers(0, max(n // 3, 2), n)).astype(np.int32)
+    shi[n - max(n // 50, 1):] = int(tc.QUERY_SENTINEL_HI)
+    slo2 = rng.integers(0, 6, n).astype(np.int32)
+    v = n // 2 + 1
+    srow = rng.integers(0, 2 * v, n).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (shi, slo2, srow)]
+    num = torch.tensor([max(v - 3, 1)], dtype=torch.int32, device=dev)
+    return (*t, num, v, int(tc.QUERY_SENTINEL_HI))
+
+
+@pytest.mark.parametrize(
+    "n", [1, 2047, 2048, 2049, 4095, 4096, 4097, 64 * 2048 + 5, 1310720]
+)
+def test_join_scan_single_pass_bit_exact(cuda, n):
+    """One launch per call, bit-exact in both modes; rows around the tile
+    edges (tjs.TILE rows per tile, 16 per thread) and level 0's
+    n = 10 x 131072.  The counter is 0 again after each call.  Inputs
+    that start off a 16-byte boundary take the kernel's scalar loads."""
+    args = _scan_inputs(cuda, n, seed=n % 1009)
+    for mode in (0, 1):
+        _build.reset_launches()
+        got = join_scan(*args, mode)
+        assert _build.LAUNCHES["join_scan"] == 1
+        assert torch.equal(got, join_scan_plain(*args, mode)), mode
+    assert int(tjs._state(cuda).counter) == 0
+    if n > 1:
+        shifted = [x[1:] for x in args[:3]] + list(args[3:])
+        for mode in (0, 1):
+            assert torch.equal(join_scan(*shifted, mode), join_scan_plain(*shifted, mode))
+
+
+def test_join_scan_state_across_calls(cuda, monkeypatch):
+    """Calls queued back to back without a synchronisation: three of one
+    size (the epoch tells their status words apart), a larger one (the
+    buffer grows), small ones after a large one (the words of earlier
+    calls lie beyond and within their tiles)."""
+    monkeypatch.setattr(tjs, "_STATES", {})
+    sizes = (5000, 5000, 5000, 300_000, 3000, 2049, 300_000, 1)
+    inputs = [_scan_inputs(cuda, n, seed=i) for i, n in enumerate(sizes)]
+    got = [join_scan(*a, i % 2) for i, a in enumerate(inputs)]
+    for i, (a, g) in enumerate(zip(inputs, got)):
+        assert torch.equal(g, join_scan_plain(*a, i % 2)), (i, sizes[i])
+    st = tjs._state(cuda)
+    assert st.epoch == len(sizes)
+    assert st.status.shape[0] == 3 * ((300_000 + tjs.TILE - 1) // tjs.TILE)
+    assert int(st.counter) == 0
 
 
 def test_rulebook_on_card_equals_cpu(cuda):
@@ -152,6 +210,67 @@ def test_strided_kernels(cuda, dtype):
         )
 
 
+def _down_case(dev, case):
+    """Strided tables of one level pair for the down kernel:
+    path:     non-negative coordinates, as the host pipeline gives them
+              (one round);
+    negative: coordinates around 0, so cell 0 holds repeated slots
+              (several rounds);
+    ragged:   V_coarse = 1000, not a multiple of the 64-row tile;
+    empty:    whole tiles of coarse rows past the live ones, without
+              children;
+    dead:     the children of coarse rows 64-127 and every 7th fine row
+              have parent -1 (skipped)."""
+    span = 8
+    rng = np.random.default_rng(11)
+    coords = np.concatenate(
+        [rng.integers(-span, span, size=(2000, 3)), rng.integers(0, 2, size=(2000, 1))], 1
+    ).astype(np.int32)
+    if case != "negative":
+        coords[:, :3] += span
+    u, num, b = _unique_level(dev, coords, 2048)
+    cap2 = 1000 if case == "ragged" else 2048
+    c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, cap2, return_inverse=True)
+    tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
+    if case == "dead":
+        parent = tab.parent.clone()
+        kids = tab.perm[int(tab.starts[64]) : int(tab.starts[128])].long()
+        parent[kids] = -1
+        parent[::7] = -1
+        tab = tst.StridedTables(parent=parent, slot=tab.slot, perm=tab.perm, starts=tab.starts)
+    rounds = tst.slot_child_table(tab).shape[0]
+    assert (rounds > 1) == (case == "negative"), rounds
+    if case == "empty":
+        assert int(n2) + 128 <= cap2
+    if case == "ragged":
+        assert cap2 % 64 and int(n2) <= cap2
+    return rng, u.shape[0], tab, int(n2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["path", "negative", "ragged", "empty", "dead"])
+@pytest.mark.parametrize("c_in,c_out", [(32, 32), (64, 64), (128, 128)])
+def test_strided_down_kernel(cuda, dtype, case, c_in, c_out):
+    """K3-down at the main path's widths (32->32 twice, 64->64,
+    128->128): bf16 on the tensor-core route, f32 on CUDA cores."""
+    rng, v_fine, tab, n2 = _down_case(cuda, case)
+    x = torch.from_numpy(rng.normal(size=(v_fine, c_in)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.normal(size=(8, c_in, c_out)).astype(np.float32)).to(cuda, dtype)
+    _build.reset_launches()
+    got = tst.downsample_conv_apply(x, w, tab)
+    mma = tst.downsample_route(dtype, c_in, c_out) == "mma"
+    assert mma == (dtype == torch.bfloat16)
+    assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_mma"]) == (1, int(mma))
+    _close(
+        got, tst.downsample_conv_plain(x, w, tab),
+        tst.downsample_conv_plain(x.abs(), w.abs(), tab), dtype, 1e-4,
+    )
+    if case in ("empty", "ragged"):
+        assert not got[n2:].any()
+    if case == "dead":
+        assert not got[64:128].any()
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     _, u, num, b = _level(cuda, seed=2)
     _build.reset_launches()
@@ -162,8 +281,8 @@ def test_launch_counters_count_kernel_launches(cuda):
 
 
 def test_launch_counters_per_route(cuda):
-    """Every K3-up launch counts under strided_up; the tensor-core ones
-    under strided_up_mma too."""
+    """Every K3 launch counts under strided_down / strided_up; the
+    tensor-core ones under strided_down_mma / strided_up_mma too."""
     _, u, num, b = _level(cuda, seed=6)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
     tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
@@ -171,6 +290,10 @@ def test_launch_counters_per_route(cuda):
         _build.reset_launches()
         x = torch.ones(c2.shape[0], 16, device=cuda, dtype=dtype)
         tst.upsample_conv_apply(x, torch.ones(8, 16, 8, device=cuda, dtype=dtype), tab)
+        assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
+        xf = torch.ones(u.shape[0], 16, device=cuda, dtype=dtype)
+        tst.downsample_conv_apply(xf, torch.ones(8, 16, 8, device=cuda, dtype=dtype), tab)
+        assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_mma"]) == (1, mma)
         assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
 
 
@@ -192,3 +315,15 @@ def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):
     assert tsc.route(torch.bfloat16, 8, 8) == "mma"
     with pytest.raises(RuntimeError, match="nvcc"):
         tsc.sparse_conv_k3(x.bfloat16(), torch.zeros(27, 8, 8, device=cuda, dtype=torch.bfloat16), rb)
+    # and so do K3-down's tensor-core route and K1
+    i32 = dict(dtype=torch.int32, device=cuda)
+    tab = tst.StridedTables(
+        parent=torch.zeros(64, **i32), slot=torch.zeros(64, **i32),
+        perm=torch.arange(64, **i32), starts=torch.tensor([0, 64], **i32),
+    )
+    assert tst.downsample_route(torch.bfloat16, 8, 8) == "mma"
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tst.downsample_conv_apply(x.bfloat16(), torch.zeros(8, 8, 8, device=cuda, dtype=torch.bfloat16), tab)
+    k = torch.zeros(64, **i32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        join_scan(k, k, k, torch.zeros(1, **i32), 32, 100, 1)

@@ -15,6 +15,7 @@ from taseg_tpu.ops.coords import QUERY_SENTINEL_HI
 from taseg_tpu.ops.join_scan import BLOCK, join_scan as j_join_scan
 from taseg_tpu_torch.ops import coords as tc
 from taseg_tpu_torch.ops import join as tj
+from taseg_tpu_torch.ops import join_scan as tjs
 from taseg_tpu_torch.ops.join_scan import join_scan, join_scan_plain
 
 
@@ -120,6 +121,35 @@ def test_join_scan_rejects_bad_inputs():
         join_scan(x, x, x, num, 4, 0, 2)
     with pytest.raises(ValueError):
         join_scan(x[::2], x[::2].clone(), x[::2].clone(), num, 4, 0, 0)
+
+
+def test_lookback_state_epochs_and_growth():
+    """K1's state between calls: every call gets a new epoch; the status
+    buffer (3 words per tile) grows zeroed, at least doubling, and is
+    never shrunk; at the epoch limit the words are zeroed and the epochs
+    start over at 1 (0 marks a word never written).  The state's logic
+    is plain Python over tensors, so it runs here on CPU tensors."""
+    st = tjs.LookbackState(torch.device("cpu"))
+    assert st.next_call(4) == 1 and st.status.shape == (12,)
+    st.status.fill_(7)  # words left by the call
+    assert st.next_call(4) == 2 and st.status.shape == (12,)
+    assert st.next_call(3) == 3 and int(st.status[0]) == 7  # kept
+    assert st.next_call(5) == 4 and st.status.shape == (24,)  # doubled
+    assert not st.status.any()  # grown zeroed
+    assert st.next_call(100) == 5 and st.status.shape == (300,)
+    assert st.next_call(1) == 6 and st.status.shape == (300,)
+    st.status.fill_(7)
+    st.epoch = tjs.EPOCH_LIMIT - 1
+    assert st.next_call(1) == 1 and not st.status.any()
+    assert st.counter.shape == (1,) and int(st.counter) == 0
+
+
+def test_plain_join_scan_keeps_no_state():
+    """CPU tensors run the plain version: no look-back state is made."""
+    before = dict(tjs._STATES)
+    x = torch.arange(8, dtype=torch.int32)
+    join_scan(x, x, x, torch.tensor([2], dtype=torch.int32), 4, 6, 1)
+    assert tjs._STATES == before
 
 
 def _unique_both(coords, valid, cap, **kw):

@@ -1,9 +1,9 @@
 """Which kernel each conv of the main path takes on the card, decided on the
-CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-up
-(`strided_conv.upsample_route`) take the tensor-core route ("mma") in
-bf16 where C_in and C_out are multiples of 8, the CUDA-core route
-("simt") in f32 and at ragged widths.  MinkUNet mk34 cr1.0 at full width;
-nothing runs on a card here."""
+CPU from the modules' widths: K2 (`sparse_conv.route`), K3-down
+(`strided_conv.downsample_route`) and K3-up (`strided_conv.upsample_route`)
+take the tensor-core route ("mma") in bf16 where C_in and C_out are
+multiples of 8, the CUDA-core route ("simt") in f32 and at ragged widths.
+MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
 import pytest
 import torch
@@ -38,7 +38,7 @@ def test_k2_routes_in_bf16(convs):
 
 def test_k3_up_routes_in_bf16(convs):
     """All four transposed 8-point convs (the deconvs) are on tensor
-    cores; the down direction has one route only."""
+    cores."""
     up = {n: m for n, m in convs.items() if m.kernel_volume == 8 and m.transposed}
     widths = sorted((m.in_channels, m.out_channels) for m in up.values())
     assert widths == [(96, 96), (128, 96), (256, 128), (256, 256)]
@@ -49,10 +49,21 @@ def test_k3_up_routes_in_bf16(convs):
     assert sum(m.kernel_volume == 8 and not m.transposed for m in convs.values()) == 4
 
 
+def test_k3_down_routes_in_bf16(convs):
+    """All four strided 8-point convs (down1-down4, C_in = C_out) are on
+    tensor cores: 4 of the 4 K3-down launches of a scan."""
+    down = {n: m for n, m in convs.items() if m.kernel_volume == 8 and not m.transposed}
+    assert sorted(down) == [f"down{l}.SparseConv_0" for l in range(1, 5)]
+    widths = [(down[n].in_channels, down[n].out_channels) for n in sorted(down)]
+    assert widths == [(32, 32), (32, 32), (64, 64), (128, 128)]
+    assert all(tst.downsample_route(torch.bfloat16, *wd) == "mma" for wd in widths)
+
+
 def test_f32_routes_stay_on_cuda_cores(convs):
     for m in convs.values():
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
 
 
 @pytest.mark.parametrize(
@@ -65,12 +76,13 @@ def test_f32_routes_stay_on_cuda_cores(convs):
 def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
     assert tsc.route(torch.bfloat16, c_in, c_out) == want
     assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
+    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == want
 
 
 def test_launch_counters_have_the_route_entries():
     assert set(_build.LAUNCHES) == {
         "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma",
-        "strided_down", "strided_up", "strided_up_mma",
+        "strided_down", "strided_down_mma", "strided_up", "strided_up_mma",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())

@@ -129,6 +129,45 @@ def test_strided_plain_matches_jax(dtype, c_in, c_out):
         assert err <= tol * scale, (tfn.__name__, err, scale)
 
 
+def _down_by_child_table(x, w, table):
+    """sum_q sum_s x[table[q, s]] @ W[s], accumulated in f32 and rounded
+    once: the sum that the tensor-core down kernel takes, round by round."""
+    out = torch.zeros(table.shape[2], w.shape[2])
+    for q in range(table.shape[0]):
+        for s in range(8):
+            idx = table[q, s]
+            g = torch.where((idx >= 0)[:, None], x[idx.clamp(min=0).long()], 0)
+            out += g.float() @ w[s].float()
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out", [(12, 20), (32, 32), (64, 64), (128, 128)])
+def test_slot_child_table_matches_jax(dtype, c_in, c_out):
+    """The (round, slot, coarse row) child table summed per slot equals
+    JAX's downsample_conv_apply on the scene of
+    test_strided_plain_matches_jax (non-negative coordinates: one round);
+    the main path's down convs are 32->32, 32->32, 64->64, 128->128."""
+    jdt, tdt = DTYPES[dtype]
+    rng, (ju, jn, jb), (tu, tn, tb) = make_level(7, span=14)
+    jc2, jn2, jpar, jcnt, jperm = j_spdown(ju, jn, 2, 1, jb, 512, return_inverse=True)
+    jtab = j_strided(ju, jn, jpar, jcnt, jperm, 1)
+    _, _, tpar, tcnt, tperm = tr.spdownsample(tu, tn, 2, 1, tb, 512, return_inverse=True)
+    ttab = tst.build_strided_tables(tu, tn, tpar, tcnt, tperm, 1)
+    table = tst.slot_child_table(ttab)
+    assert table.shape == (1, 8, 512)
+    # every live fine row appears exactly once
+    live = table[table >= 0]
+    assert live.numel() == int(tn) and live.unique().numel() == int(tn)
+
+    feats = rng.normal(size=(ju.shape[0], c_in)).astype(np.float32)
+    w = (rng.normal(size=(8, c_in, c_out)) / np.sqrt(8 * c_in)).astype(np.float32)
+    want = to_np(j_down(jnp.asarray(feats, jdt), jnp.asarray(w, jdt), jtab))
+    got = _down_by_child_table(torch.from_numpy(feats).to(tdt), torch.from_numpy(w).to(tdt), table)
+    err, scale = scale_err(got.float().numpy(), want)
+    assert err <= (1e-4 if dtype == "float32" else 2.0**-7) * scale, (err, scale)
+
+
 def test_strided_children_of_negative_cells():
     """Truncating division folds x in {-1, 0, 1} into cell 0, so a coarse
     cell can hold two children of one slot: the plain down conv sums them
@@ -146,6 +185,17 @@ def test_strided_children_of_negative_cells():
     # cell 0: x=-1 (slot 4), x=0 (slot 0), x=1 (slot 4); cell 2: x=3 (slot 4)
     assert int(n2) == 2
     torch.testing.assert_close(out[:2, 0], torch.tensor([1 * 5 + 2 * 1 + 4 * 5, 8 * 5.0]))
+    # the child table takes the two slot-4 children of cell 0 in two rounds
+    table = tst.slot_child_table(tab)
+    assert table.shape == (2, 8, 8)
+    assert table[:, 4, 0].tolist() == [0, 2] and table[:, 0, 0].tolist() == [1, -1]
+    torch.testing.assert_close(_down_by_child_table(feats, w, table), out)
+    jb = j_bounds(jnp.asarray(coords), jnp.asarray(valid))
+    ju, jn, _, _ = j_unique(jnp.asarray(coords), jnp.asarray(valid), jb, 8)
+    _, _, jpar, jcnt, jperm = j_spdown(ju, jn, 2, 1, jb, 8, return_inverse=True)
+    want = to_np(j_down(jnp.asarray(feats.numpy()), jnp.asarray(w.numpy()), j_strided(ju, jn, jpar, jcnt, jperm, 1)))
+    err, scale = scale_err(_down_by_child_table(feats, w, table).numpy(), want)
+    assert err <= 1e-4 * scale, (err, scale)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
