@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — `Segmenter.predict` of MinkUNet mk34 cr1.0
+Drives the port's two main paths — `Segmenter.predict` and
+`Trainer.step` of MinkUNet mk34 cr1.0
 (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml) in bf16 on
-synthetic 120 000-point scans, weights drawn from a seed — and checks it:
+synthetic 120 000-point scans, weights drawn from a seed — and checks
+them:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
@@ -15,18 +17,28 @@ synthetic 120 000-point scans, weights drawn from a seed — and checks it:
      stated tolerances, with kernel, plain and library times.  bf16 takes
      the tensor-core route of K2 and K3 wherever the widths allow it, f32
      the CUDA-core route; each per-shape line names its route.  The real
-     topology's child tables take one round at every level;
+     topology's child tables take one round at every level.  voxelize_avg
+     (K6) and the plain devoxelize calls with their bounds and library
+     calls;
   4. the main path on 3 scans: finite logits of the right shape, every
      kernel's launch count above 0, 47 of the 48 K2 launches, 4 of the 4
      K3-down and 4 of the 4 K3-up launches of each scan on the
      tensor-core route, bf16/f32 argmax agreement, agreement of the card's
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
-  5. each kernel's device time per scan on the main path (torch.profiler
-     device events), and the plain point<->voxel ops (voxelize_avg,
-     devoxelize) with their bounds and library calls;
-  6. one JSON line listing the kernels, K2 and K3 with their launches per
-     route.
+  5. the train path, `Trainer` of the same model in bf16: the backward
+     kernels K4 k3_conv_dw, K5 strided_dw and K6 segment_sum, and the
+     input-gradient calls of K2 and K3 on both routes, at every shape
+     that one real step gives them, against their plain versions (and
+     bit-identical on a repeat call); a small-scan f32 step on the card
+     against the CPU's plain path; 4 full-width steps on 120 000-point
+     scans with finite loss, grad norm and parameters and the launches of
+     every kernel per step; ms per step by stage and peak memory;
+  6. each kernel's device time per scan (inference) and per step (train)
+     on the main paths (torch.profiler device events), and the train
+     step's largest plain-torch kernels;
+  7. one JSON line listing the kernels, K2 and K3 with their launches per
+     route and their train launches.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -52,12 +64,35 @@ SEED = 0
 K2_PER_SCAN = (48, 47)
 DOWN_PER_SCAN = (4, 4)
 UP_PER_SCAN = (4, 4)
+# the inference path's kernels
+INFER_KERNELS = (
+    "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma", "strided_down",
+    "strided_down_mma", "strided_up", "strided_up_mma", "segment_sum",
+)
 # each wrapper's kernels, by a fragment of their names in the profiler
 KERNEL_NAMES = {
     "join_scan": "join_scan_kernel",
     "sparse_conv_k3": "k3_conv",
     "strided_down": "strided_down",
     "strided_up": "strided_up",
+    "segment_sum": "segment_sum_kernel",
+    "k3_conv_dw": "PairsK3",
+    "strided_dw": "PairsStrided",
+}
+TRAIN_STEPS = 4
+# launches per train step (bf16, batch 1): K2 48 forward + 47 input
+# gradients (the stem's first conv takes none), all but the stem's
+# forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, K5 one
+# per strided conv; K6 the voxelize forward and the 3 devox backwards
+TRAIN_PER_STEP = {
+    "join_scan": 5,
+    "sparse_conv_k3": 95, "sparse_conv_k3_mma": 94,
+    "sparse_conv_k3_dgrad": 47, "sparse_conv_k3_dgrad_mma": 47,
+    "strided_down": 8, "strided_down_mma": 8,
+    "strided_down_dgrad": 4, "strided_down_dgrad_mma": 4,
+    "strided_up": 8, "strided_up_mma": 8,
+    "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
+    "k3_conv_dw": 48, "strided_dw": 8, "segment_sum": 4,
 }
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
@@ -376,7 +411,7 @@ def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
             f"profiler {k}: {ms:.4f} ms per scan on the device, "
             f"{count / n:g} kernel launches per scan, {per_call:g} per wrapper call"
         )
-        results[k]["device_ms"] = ms if count else None
+        results.setdefault(k, {})["device_ms"] = ms if count else None
     k1_count = dev["join_scan"][1]
     if k1_count and k1_count != n * calls["join_scan"]:
         raise AssertionError(
@@ -390,10 +425,10 @@ def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
 
 
 def phase_point_ops(seg, arrays, topo, k: int) -> None:
-    """voxelize_avg and the head's devoxelize calls, plain torch on the
-    main path: time per scan, bound (bytes: each input read once, the
-    output written once) and, where one PyTorch call computes the same
-    function, that call's time.  The head devoxelizes (V, k) bf16 rows
+    """voxelize_avg (K6's segment sum, then the mean) and the head's
+    devoxelize calls (plain torch) on the main path: time per scan, bound
+    (bytes: each input read once, the output written once) and, where
+    one PyTorch call computes the same function, that call's time.  The head devoxelizes (V, k) bf16 rows
     (k classes)."""
     import torch
 
@@ -416,7 +451,7 @@ def phase_point_ops(seg, arrays, topo, k: int) -> None:
         raise AssertionError(f"scatter_reduce mean differs from voxelize_avg by {err:.3e}")
     b, _ = bound_ms(p * c * 4 + p * 4 + v * c * 4, 0.0, "float32")
     log(
-        f"voxelize_avg P={p} V={v} C={c} x1/scan: plain {ms:.4f} ms, "
+        f"voxelize_avg (K6 segment sum + mean) P={p} V={v} C={c} x1/scan: {ms:.4f} ms, "
         f"scatter_reduce_ mean {lib:.4f} ms, bound {b:.4f} ms (bytes)"
     )
 
@@ -449,6 +484,410 @@ def phase_point_ops(seg, arrays, topo, k: int) -> None:
             f"devoxelize trilinear stride {s} P={pts} V={zs.shape[0]} C={k} x1/scan: "
             f"plain {ms:.4f} ms, library none, bound {b:.4f} ms (bytes)"
         )
+
+
+
+class CallCapture:
+    """Wraps module-level functions for one train step: the first call of
+    each distinct key (from `key_fn` of the call's arguments; None skips
+    the call) is kept with its arguments, and every key is counted."""
+
+    def __init__(self):
+        self.seen: dict = {}
+        self.count: dict = {}
+        self._restore = []
+
+    def patch(self, module, name, key_fn):
+        orig = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            key = key_fn(*args, **kwargs)
+            if key is not None:
+                self.count[key] = self.count.get(key, 0) + 1
+                self.seen.setdefault(key, (args, kwargs))
+            return orig(*args, **kwargs)
+
+        setattr(module, name, wrapper)
+        self._restore.append((module, name, orig))
+
+    def remove(self):
+        for module, name, orig in self._restore:
+            setattr(module, name, orig)
+        self._restore.clear()
+
+
+def capture_train_calls(trainer, scans) -> CallCapture:
+    """One real train step with the backward kernels' wrappers wrapped:
+    the inputs of K4, K5, K6 and of the input-gradient calls of K2 and
+    K3 at every shape the step gives them."""
+    from taseg_tpu_torch.ops import f3conv, strided_conv, voxelize
+
+    cap = CallCapture()
+    cap.patch(f3conv, "k3_conv_dw", lambda f, g, rb, out_dtype=None: ("k3_conv_dw", *f.shape, g.shape[1]))
+    cap.patch(
+        strided_conv, "strided_dw",
+        lambda x, y, t, up, out_dtype=None: (
+            "strided_dw", "up" if up else "down", t.parent.shape[0], x.shape[1], y.shape[1]
+        ),
+    )
+    cap.patch(
+        voxelize, "segment_sum",
+        lambda src, t, w=None: (
+            "segment_sum", t.perm.shape[0] - t.starts.shape[0] + 1, t.starts.shape[0] - 1,
+            src.shape[1], w is not None,
+        ),
+    )
+    cap.patch(
+        f3conv, "sparse_conv_k3",
+        lambda x, w, rb, dgrad=False: ("sparse_conv_k3", *x.shape, w.shape[2]) if dgrad else None,
+    )
+    for name in ("downsample_conv_apply", "upsample_conv_apply"):
+        kind = "strided_down" if name.startswith("down") else "strided_up"
+        cap.patch(
+            strided_conv, name,
+            lambda x, w, t, dgrad=False, kind=kind: (kind, *x.shape, w.shape[2]) if dgrad else None,
+        )
+    trainer.step(scans)
+    cap.remove()
+    return cap
+
+
+def twice_same(name, fn):
+    """fn() twice on the same inputs: the results must be bit-identical."""
+    import torch
+
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    return a
+
+
+def phase_train_kernels(cap: CallCapture, results: dict) -> None:
+    """K4, K5, K6 and the input-gradient calls of K2 and K3 at every
+    shape of one bf16 train step, against their plain versions, bit-
+    identical on repeat; each kernel also once in f32 (K2 and K3: every
+    shape in f32, their CUDA-core route).  Per-step totals weight each
+    shape by its count in the step.  K4 and K5 sum up to all V rows in
+    f32 in another order than the plain matmuls: 1e-4 of the largest sum
+    of |terms|; K6 (against its plain version in f64) and the K2/K3 input
+    gradients 1e-5 (K3-down 1e-4: its plain version sums by a
+    mean-centred cumsum)."""
+    import torch
+
+    from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv, voxelize
+
+    def k4(a, kw, x, g):
+        rb = a[2]
+        return (
+            lambda: f3conv.k3_conv_dw(x, g, rb),
+            lambda: f3conv.k3_conv_dw_plain(x, g, rb),
+            lambda: f3conv.k3_conv_dw_plain(x.abs(), g.abs(), rb),
+        )
+
+    def k5(a, kw, x, y):
+        t, up = a[2], (a[3] if len(a) > 3 else kw["up"])
+        return (
+            lambda: strided_conv.strided_dw(x, y, t, up),
+            lambda: strided_conv.strided_dw_plain(x, y, t, up),
+            lambda: strided_conv.strided_dw_plain(x.abs(), y.abs(), t, up),
+        )
+
+    def k6(a, kw, x, _):
+        # held against the plain version in f64: the f32 cumsum's rounding
+        # over ~10^6 rows is above K6's own error at these small sums
+        t, w = a[1], (a[2] if len(a) > 2 else kw.get("weights"))
+        w64 = None if w is None else w.double()
+        return (
+            lambda: voxelize.segment_sum(x, t, w),
+            lambda: voxelize.segment_sum_plain(x.double(), t, w64),
+            lambda: voxelize.segment_sum_plain(x.double().abs(), t, None if w is None else w64.abs()),
+            lambda: voxelize.segment_sum_plain(x, t, w),
+        )
+
+    def dgrad(kern, plain):
+        def make(a, kw, x, w):
+            t = a[2]
+            return (
+                lambda: kern(x, w, t, dgrad=True),
+                lambda: plain(x, w, t),
+                lambda: plain(x.abs(), w.abs(), t),
+            )
+        return make
+
+    makers = {
+        "k3_conv_dw": (k4, 1e-4),
+        "strided_dw": (k5, 1e-4),
+        "segment_sum": (k6, 1e-5),
+        "sparse_conv_k3": (dgrad(sparse_conv.sparse_conv_k3, sparse_conv.sparse_conv_plain), 1e-5),
+        "strided_down": (dgrad(strided_conv.downsample_conv_apply, strided_conv.downsample_conv_plain), 1e-4),
+        "strided_up": (dgrad(strided_conv.upsample_conv_apply, strided_conv.upsample_conv_plain), 1e-5),
+    }
+    routes = {
+        "sparse_conv_k3": sparse_conv.route,
+        "strided_down": strided_conv.downsample_route,
+        "strided_up": strided_conv.upsample_route,
+    }
+    tot = {
+        k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+            "library_ms": 0.0 if k == "segment_sum" else None, "_parts": [0.0, 0.0],
+            "f32_checked": False}
+        for k in makers
+    }
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        name = key[0]
+        make, rel = makers[name]
+        count = cap.count[key]
+        r = tot[name]
+        x, second = a[0], a[1]
+        f32_cases = name in routes or not r["f32_checked"]
+        for dtype in ("bfloat16", "float32") if f32_cases else ("bfloat16",):
+            tdt = getattr(torch, dtype)
+            xd = x.to(tdt).contiguous()
+            sd = second.to(tdt).contiguous() if name != "segment_sum" else None
+            kern, want, ref, *timed = make(a, kw, xd, sd)
+            plain = timed[0] if timed else want
+            got = twice_same(f"{key} {dtype}", kern)
+            err = check_close(f"{key} {dtype}", got, want(), ref(), "float32" if name in ("k3_conv_dw", "strided_dw", "segment_sum") else dtype, rel)
+            label = f"{name} {key[1:]} x{count}/step {dtype}"
+            if name in routes:
+                label += f" route {routes[name](tdt, x.shape[1], second.shape[2])}"
+            if dtype == "float32":
+                r["f32_checked"] = True
+                log(f"  {label} max|err| {err:.3e} (bit-identical on repeat)")
+                continue
+            ms = cuda_ms(kern)
+            pms = cuda_ms(plain, iters=3)
+            nbytes, ops, lib = train_cost(name, a, kw, xd, sd)
+            b, by = bound_ms(nbytes, ops, dtype)
+            log(
+                f"{label} max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                f"bound {b:.4f} ms ({by})" + (f" index_add_ {lib:.4f} ms" if lib is not None else "")
+            )
+            r["ms"] += count * ms
+            r["plain_ms"] += count * pms
+            r["bound_ms"] += count * b
+            r["_parts"][0 if by == "bytes" else 1] += count * b
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if lib is not None:
+                r["library_ms"] += count * lib
+    for name, r in tot.items():
+        parts = r.pop("_parts")
+        r.pop("f32_checked")
+        r["bound_by"] = "bytes" if parts[0] >= parts[1] else "operations"
+        key = name if name in ("k3_conv_dw", "strided_dw", "segment_sum") else name + "_dgrad"
+        results.setdefault(key, {}).update(r)
+
+
+def train_cost(name, a, kw, x, second):
+    """(bytes, operations, library ms or None) of one captured call: each
+    input read once and the output written once; operations on the pairs
+    that this call's tables hold.  K6's yardstick is one `index_add_` of
+    its (weighted) rows into the segments, on rows prepared beforehand."""
+    import torch
+
+    esz = x.element_size()
+    if name == "k3_conv_dw":
+        rb = a[2]
+        v, ci, co = x.shape[0], x.shape[1], second.shape[1]
+        pairs = int((rb >= 0).sum())
+        return (v * (ci + co) * esz + rb.numel() * 4 + 27 * ci * co * 4,
+                2.0 * pairs * ci * co, None)
+    if name == "strided_dw":
+        t = a[2]
+        ci, co = x.shape[1], second.shape[1]
+        live = int((t.parent >= 0).sum())
+        return ((x.numel() + second.numel()) * esz + 8 * t.parent.shape[0] + 8 * ci * co * 4,
+                2.0 * live * ci * co, None)
+    if name == "segment_sum":
+        t = a[1]
+        w = a[2] if len(a) > 2 else kw.get("weights")
+        v = t.starts.shape[0] - 1
+        r_real = t.perm.shape[0] - v
+        p, c = x.shape
+        nbytes = t.perm.numel() * 8 + (v + 1) * 4 + x.numel() * esz + v * c * 4
+        if w is not None:
+            nbytes += r_real * 4
+        # segment id of each sorted real row, and its (weighted) source row
+        seg = torch.repeat_interleave(torch.arange(v, device=x.device), (t.starts[1:] - t.starts[:-1]).long())
+        members = t.perm[: seg.shape[0]]
+        keep = members < r_real
+        rows_idx = members[keep]
+        rows = x[rows_idx % p].float()
+        if w is not None:
+            rows = rows * w.reshape(-1)[rows_idx][:, None]
+        ids = seg[keep]
+        out = torch.zeros(v, c, device=x.device)
+        lib = cuda_ms(lambda: out.zero_().index_add_(0, ids, rows))
+        return nbytes, 2.0 * r_real * c, lib
+    # input-gradient calls of K2 / K3: the forward kernels' costs
+    w, t = second, a[2]
+    rows, ci = x.shape
+    co = w.shape[2]
+    if name == "sparse_conv_k3":
+        pairs = int((t >= 0).sum())
+        return (rows * (ci + co) * esz + w.numel() * esz + t.numel() * 4, 2.0 * pairs * ci * co, None)
+    live = int((t.parent >= 0).sum())
+    out_rows = t.starts.shape[0] - 1 if name == "strided_down" else t.parent.shape[0]
+    nbytes = (rows * ci + w.numel() + out_rows * co) * esz + 4 * (3 * t.parent.shape[0] + t.starts.shape[0])
+    return nbytes, 2.0 * live * ci * co, None
+
+
+def phase_small_train_step(cfg, variables) -> None:
+    """The same small scan and weights through 2 f32 train steps on the
+    card and on the CPU (plain versions): step 0 at LR * 1e-5, step 1 at
+    the full LR (warmup of one step).  Loss within 1e-4 relative, grad
+    norm within 1e-3, and the parameters' updates within 3e-2 of the
+    update's L2 norm (measured 4.2e-4 and 1.3e-2 on an H100: the step
+    amplifies summation-order differences, as tests/test_torch_train.py
+    shows on the CPU)."""
+    import numpy as np
+
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params
+
+    small = make_scans(1, n_points=8000, seed=SEED + 1)
+    cfg_small = {**cfg, "MODEL": {**cfg["MODEL"], "TRAIN_CAPACITY_SCHEDULE": (1.0,) * 5}}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(
+            cfg_small, variables, device=dev, iters_per_epoch=1, total_epochs=4,
+            compute_dtype="float32", point_capacity=8192, seed=SEED,
+        )
+        runs[dev] = [tr.step(small) for _ in range(2)], export_flax_params(tr.model)[0]
+    (g_out, g_par), (c_out, c_par) = runs["cuda"], runs["cpu"]
+    p0 = variables["params"]
+
+    def flat(t, pre=""):
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, pre + k + "/") if isinstance(v, dict) else {pre + k: np.asarray(v, np.float64)})
+        return out
+
+    a, b, z = flat(g_par), flat(c_par), flat(p0)
+    diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+    upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
+    for i, (g, c) in enumerate(zip(g_out, c_out)):
+        log(
+            f"small-scan f32 step {i}: loss card {g['loss']:.7f} cpu {c['loss']:.7f}, "
+            f"grad norm card {g['grad_norm']:.6f} cpu {c['grad_norm']:.6f}, lr {g['lr']:.3e}"
+        )
+        if not abs(g["loss"] - c["loss"]) <= 1e-4 * abs(c["loss"]):
+            raise AssertionError(f"small-scan step {i}: card and CPU losses disagree")
+        if not abs(g["grad_norm"] - c["grad_norm"]) <= 1e-3 * c["grad_norm"]:
+            raise AssertionError(f"small-scan step {i}: card and CPU grad norms disagree")
+    log(f"small-scan f32 params after 2 steps: |card - cpu| / |update| = {diff / upd:.3e}")
+    if not diff <= 3e-2 * upd:
+        raise AssertionError("small-scan step: card and CPU updates disagree")
+
+
+def phase_train_steps(trainer, scans) -> dict:
+    """The train path, counted: TRAIN_STEPS calls of `Trainer.step`, one
+    120 000-point scan each, with every launch count set to 0 just before
+    and read just after; loss, grad norm and every parameter finite; each
+    kernel's launches per step as TRAIN_PER_STEP says.  Then the same
+    number of steps again by stage (host clock for the host stage, CUDA
+    events for the others), and the peak memory of the counted steps."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.engine import check_capacity
+    from taseg_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = [trainer.step(scans[i % len(scans) : i % len(scans) + 1]) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, o in enumerate(outs):
+        log(
+            f"train step {i}: loss {o['loss']:.5f} grad norm {o['grad_norm']:.4f} "
+            f"lr {o['lr']:.3e} level voxels {o['level_nums']}"
+        )
+        if not (np.isfinite(o["loss"]) and np.isfinite(o["grad_norm"])):
+            raise AssertionError(f"train step {i}: non-finite loss or grad norm")
+    for n, p in trainer.model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"train: parameter {n} is not finite")
+    log(f"train path launches over {TRAIN_STEPS} steps: {launches}")
+    for k, per in TRAIN_PER_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(
+                f"train: {k} launched {launches[k]} times, expected {per} per step"
+            )
+    log(f"train: launches per step as expected: {TRAIN_PER_STEP}")
+
+    stages = {k: [] for k in ("host", "topology", "forward", "backward", "optimizer", "step")}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        a = trainer.collate(scans[i % len(scans) : i % len(scans) + 1])
+        t1 = time.perf_counter()
+        ev[0].record()
+        topo = trainer.topology(a)
+        check_capacity(topo, trainer.caps)
+        ev[1].record()
+        loss = trainer.forward(a, topo)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update()
+        ev[4].record()
+        ev[4].synchronize()
+        stages["step"].append((time.perf_counter() - t0) * 1e3)
+        stages["host"].append((t1 - t0) * 1e3)
+        for j, k in enumerate(("topology", "forward", "backward", "optimizer")):
+            stages[k].append(ev[j].elapsed_time(ev[j + 1]))
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log(
+        f"train ms per step (median of {TRAIN_STEPS}; counted steps {wall:.1f} ms "
+        f"each end to end): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; peak device memory {peak:.2f} GiB"
+    )
+    return launches
+
+
+def phase_train_profile(trainer, scans, results: dict) -> None:
+    """Device time per train step of each kernel (torch.profiler device
+    events over one step), the split reductions of K4/K5 apart.  User
+    annotations (the optimizer's `Optimizer.step` range) span kernels
+    that are counted already, and are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(scans[:1])
+        torch.cuda.synchronize()
+    dev = {k: 0.0 for k in KERNEL_NAMES}
+    red = busy = 0.0
+    others = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU or e.is_user_annotation:
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        if "reduce_splits" in e.key:
+            red += ms
+        mine = [k for k, frag in KERNEL_NAMES.items() if frag in e.key]
+        for k in mine:
+            dev[k] += ms
+        if not mine and "reduce_splits" not in e.key:
+            others.append((ms, e.count, e.key[:90]))
+    for k, ms in dev.items():
+        log(f"profiler train {k}: {ms:.4f} ms per step on the device")
+        results.setdefault(k, {})["device_ms_per_step"] = ms or None
+    log(f"profiler train: K4/K5 split reductions {red:.4f} ms, all kernels {busy:.4f} ms per step")
+    others.sort(reverse=True)
+    log(
+        f"profiler train: other kernels {sum(o[0] for o in others):.4f} ms per step "
+        f"in {sum(o[1] for o in others)} launches; the largest:"
+    )
+    for ms, n, name in others[:10]:
+        log(f"  {ms:.4f} ms x{n} {name}")
 
 
 def main() -> int:
@@ -523,8 +962,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     log(f"main path launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in INFER_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     per_scan = (
         ("sparse_conv_k3", K2_PER_SCAN), ("strided_down", DOWN_PER_SCAN),
@@ -604,32 +1043,68 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
 
-    # 5. device time per kernel on the main path
-    phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
+    # 5. the train path: Trainer of the same model in bf16
+    from taseg_tpu_torch.engine import Trainer
 
-    # 6. the kernels line
+    trainer = Trainer(
+        cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED,
+    )
+    log(f"train capacities {list(trainer.caps.voxels)}")
+    train_cap = capture_train_calls(trainer, scans[:1])
+    phase_train_kernels(train_cap, results)
+    del train_cap
+    phase_small_train_step(cfg, variables)
+    train_launches = phase_train_steps(trainer, scans)
+
+    # 6. device time per kernel on the main paths
+    phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
+    phase_train_profile(trainer, scans, results)
+
+    # 7. the kernels line: K1-K3 with the inference path's launches (and
+    # their train launches), K4-K6 with the train path's
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
         "strided_down": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:123"),
         "strided_up": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:152"),
+        "k3_conv_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/f3conv.py:219"),
+        "strided_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/strided_conv.py:136"),
+        "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
     }
+    per_step = ("k3_conv_dw", "strided_dw", "segment_sum")
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
         entry = {
             "name": name, "route": "cuda", "source": f"taseg_tpu_torch/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (train_launches if name in per_step else launches)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if f"{name}_mma" in launches:
-            mma = launches[f"{name}_mma"]
-            entry["launches_by_route"] = {"mma": mma, "simt": launches[name] - mma}
+        if name in per_step:
+            entry["per"] = "train step"
+        else:
+            entry["per"] = "scan"
+            mma = launches[f"{name}_mma"] if f"{name}_mma" in launches else None
+            if mma is not None:
+                entry["launches_by_route"] = {"mma": mma, "simt": launches[name] - mma}
+                d = results[f"{name}_dgrad"]
+                entry["train"] = {
+                    "launches": train_launches[name],
+                    "dgrad_launches": train_launches[f"{name}_dgrad"],
+                    "dgrad_mma_launches": train_launches[f"{name}_dgrad_mma"],
+                    "dgrad_ms_per_step": d["ms"], "dgrad_plain_ms_per_step": d["plain_ms"],
+                    "dgrad_bound_ms_per_step": d["bound_ms"], "dgrad_max_abs_err": d["max_abs_err"],
+                }
+            else:
+                entry["train"] = {"launches": train_launches[name]}
+            entry["device_ms_per_scan"] = r["device_ms"]
         if name == "join_scan":
             entry["kernel_launches_per_call"] = r["kernel_launches_per_call"]
-        entry["device_ms_per_scan"] = r["device_ms"]
+        entry["device_ms_per_train_step"] = r.get("device_ms_per_step")
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

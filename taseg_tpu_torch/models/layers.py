@@ -1,5 +1,5 @@
 """Sparse building blocks as `nn.Module`s (port of
-`taseg_tpu/models/layers.py`, inference form).
+`taseg_tpu/models/layers.py`, train and eval forms).
 
 Every module works on a (V, C) feature matrix plus a rulebook or strided
 table, never on a dynamically sized tensor.  Submodule and parameter
@@ -13,21 +13,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.sparse_conv import sparse_conv_k3
-from ..ops.strided_conv import (
-    StridedTables,
-    downsample_conv_apply,
-    upsample_conv_apply,
-)
+from ..ops.sparse_conv import k3_conv
+from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 
 
 class SparseConv(nn.Module):
     """Sparse conv with weights (K, C_in, C_out); K = 1 is a plain matmul.
 
-    Called with a (27, V) rulebook it runs the stride-1 conv (K2); with
-    `StridedTables` the ks=2/stride=2 pair (K3), `transposed` picking the
-    direction.  The weight is cast to the activation dtype first, so a
-    bf16 stream stays bf16 (JAX layers.py:104-107)."""
+    Called with a (27, V) rulebook, or a pair (rulebook, flipped
+    rulebook) where a gradient is wanted, it runs the stride-1 conv (K2,
+    backward K2 + K4); with `StridedTables` the ks=2/stride=2 pair (K3,
+    backward K3 + K5), `transposed` picking the direction.  The weight is
+    cast to the activation dtype first, so a bf16 stream stays bf16 (JAX
+    layers.py:104-107), and its gradient comes back in that dtype."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int,
@@ -55,36 +53,59 @@ class SparseConv(nn.Module):
         if self.kernel_volume == 1:
             return feats @ w
         if isinstance(rulebook, StridedTables):
-            apply = upsample_conv_apply if self.transposed else downsample_conv_apply
+            apply = upsample_conv if self.transposed else downsample_conv
             return apply(feats, w.contiguous(), rulebook)
         if self.kernel_volume != 27:
             raise ValueError("only 27-point rulebook convs are supported")
-        return sparse_conv_k3(feats, w.contiguous(), rulebook)
+        rb, rb_bwd = rulebook if isinstance(rulebook, tuple) else (rulebook, None)
+        return k3_conv(feats, w.contiguous(), rb, rb_bwd)
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d at inference: running statistics are constants, so the
-    layer is one multiply-add `x * g + b` in the activation dtype (JAX
-    layers.py:225-237).  Padding rows are not reset: nothing reads them.
-    The training form (masked batch statistics) is not ported yet."""
+    """BatchNorm1d over the valid rows of a level (JAX layers.py:176-243).
 
-    def __init__(self, channels: int, epsilon: float = 1e-5, device=None):
+    Train mode: batch statistics over the rows where `mask` is True, in
+    f32; the running mean and (unbiased) var are buffers updated in place
+    with momentum 0.1 under `no_grad`; x is normalised in its own dtype,
+    in the JAX order, and padding rows come out 0.  Eval mode: running
+    statistics are constants, so the layer is one multiply-add `x * g + b`
+    in the activation dtype (JAX layers.py:225-237) and padding rows are
+    not reset (nothing reads them)."""
+
+    def __init__(
+        self, channels: int, epsilon: float = 1e-5, momentum: float = 0.1,
+        device=None,
+    ):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs in eval mode only; call model.eval()"
-            )
-        inv = torch.rsqrt(self.var + self.epsilon)
-        g = (self.scale * inv).to(x.dtype)
-        b = (self.bias - self.mean * self.scale * inv).to(x.dtype)
-        return x * g + b
+    def forward(self, x: torch.Tensor, mask: torch.Tensor = None) -> torch.Tensor:
+        if not self.training:
+            inv = torch.rsqrt(self.var + self.epsilon)
+            g = (self.scale * inv).to(x.dtype)
+            b = (self.bias - self.mean * self.scale * inv).to(x.dtype)
+            return x * g + b
+        if mask is None:
+            raise ValueError("MaskedBatchNorm in train mode needs the row mask")
+        m = mask.float()[:, None]
+        xf = x.float()
+        cnt = m.sum().clamp(min=1.0)
+        mean = (xf * m).sum(0) / cnt
+        var = ((xf * xf * m).sum(0) / cnt - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+            mo = self.momentum
+            self.mean.copy_((1 - mo) * self.mean + mo * mean)
+            self.var.copy_((1 - mo) * self.var + mo * unbiased)
+        eps = torch.tensor(self.epsilon, dtype=x.dtype, device=x.device)
+        y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
+        y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+        return torch.where(mask[:, None], y, 0.0)
 
 
 class ConvBNReLU(nn.Module):
@@ -101,9 +122,9 @@ class ConvBNReLU(nn.Module):
         )
         self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, device=device)
 
-    def forward(self, feats, rulebook):
+    def forward(self, feats, rulebook, mask=None):
         h = self.SparseConv_0(feats, rulebook)
-        return torch.relu(self.MaskedBatchNorm_0(h))
+        return torch.relu(self.MaskedBatchNorm_0(h, mask))
 
 
 class ResidualBlock(nn.Module):
@@ -123,11 +144,11 @@ class ResidualBlock(nn.Module):
             self.SparseConv_2 = SparseConv(in_channels, out_channels, 1, device=device)
             self.MaskedBatchNorm_2 = MaskedBatchNorm(out_channels, device=device)
 
-    def forward(self, feats, rulebook):
-        h = torch.relu(self.MaskedBatchNorm_0(self.SparseConv_0(feats, rulebook)))
-        h = self.MaskedBatchNorm_1(self.SparseConv_1(h, rulebook))
+    def forward(self, feats, rulebook, mask=None):
+        h = torch.relu(self.MaskedBatchNorm_0(self.SparseConv_0(feats, rulebook), mask))
+        h = self.MaskedBatchNorm_1(self.SparseConv_1(h, rulebook), mask)
         if self.project:
-            short = self.MaskedBatchNorm_2(self.SparseConv_2(feats))
+            short = self.MaskedBatchNorm_2(self.SparseConv_2(feats), mask)
         else:
             short = feats
         return torch.relu(h + short)

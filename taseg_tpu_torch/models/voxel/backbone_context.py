@@ -1,5 +1,5 @@
 """Per-batch topology precomputation for sparse UNet backbones (port of
-`taseg_tpu/models/voxel/backbone_context.py`, inference form).
+`taseg_tpu/models/voxel/backbone_context.py`).
 
 `build_unet_topology` builds every integer structure of a MinkUNet
 forward once, from the input coordinates alone: the unique voxel set of
@@ -7,9 +7,12 @@ each stride level, the same-level 3^3 rulebooks, the parent relation
 between levels (the strided conv pair) and the point<->voxel tables.
 The forward then touches only gathers, segment sums and matmuls.
 
-Left out against the JAX package: the TGF gather plans (the port's conv
-takes the rulebook directly), the backward-only tables (`tgf_bwd`, devox
-pairs) and SPVCNN's `point_vox` tables.
+With `devox_pairs=True` (training) it also builds the backward-only
+tables: one flipped rulebook per level (`rb_k3_bwd`, the JAX
+`ConvPlan.rb_bwd`, built once per step and shared by every conv of the
+level) and the trilinear pair tables.  Left out against the JAX package:
+the TGF gather plans (the port's conv takes the rulebook directly) and
+SPVCNN's `point_vox` tables.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ...ops.coords import GridBounds, compute_bounds
 from ...ops.join import unique_coords
 from ...ops.rulebook import build_rulebook_k3, spdownsample
+from ...ops.sparse_conv import flip_rulebook
 from ...ops.strided_conv import StridedTables, build_strided_tables
 from ...ops.voxelize import (
     IdentityDevoxTable,
@@ -81,6 +85,8 @@ class LevelTopo:
     # parent relation to the 2x-finer level: serves the down conv INTO
     # this level and the transposed conv back out of it; None at level 0
     strided: Optional[StridedTables] = None
+    # flip_rulebook(rb_k3) for the backward; None in inference topologies
+    rb_k3_bwd: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -110,13 +116,15 @@ def build_unet_topology(
     num_points: torch.Tensor,
     caps: UNetCapacities,
     *,
+    devox_pairs: bool = False,
     assume_sorted_points: bool = False,
 ) -> UNetTopology:
     """Build the MinkUNet topology from point coords (P, 4) on their
     device: one level per entry of `caps.voxels`, devox tables for the
     head's strides 1, 4 and 16.  `num_points` is a 0-dim int32 tensor.
     The points are integer voxel coords (the host pipeline's contract),
-    so stride 1 devoxelizes by the identity gather."""
+    so stride 1 devoxelizes by the identity gather.  `devox_pairs` adds
+    the tables that only the backward reads (training)."""
     num_levels = len(caps.voxels)
     dev = point_coords.device
     p = point_coords.shape[0]
@@ -138,12 +146,14 @@ def build_unet_topology(
     )
     point_tables = build_segment_tables(inverse, caps.voxels[0])
 
-    levels = [
-        LevelTopo(
-            coords=coords0, num=num0,
-            rb_k3=build_rulebook_k3(coords0, num0, 1, bounds),
+    def level(coords, num, stride, strided=None):
+        rb = build_rulebook_k3(coords, num, stride, bounds)
+        return LevelTopo(
+            coords=coords, num=num, rb_k3=rb, strided=strided,
+            rb_k3_bwd=flip_rulebook(rb) if devox_pairs else None,
         )
-    ]
+
+    levels = [level(coords0, num0, 1)]
     prev_coords, prev_num = coords0, num0
     for l in range(1, num_levels):
         s_prev = 2 ** (l - 1)
@@ -154,13 +164,7 @@ def build_unet_topology(
         strided = build_strided_tables(
             prev_coords, prev_num, parent, counts, perm, s_prev
         )
-        levels.append(
-            LevelTopo(
-                coords=coords_l, num=num_l,
-                rb_k3=build_rulebook_k3(coords_l, num_l, 2**l, bounds),
-                strided=strided,
-            )
-        )
+        levels.append(level(coords_l, num_l, 2**l, strided))
         prev_coords, prev_num = coords_l, num_l
 
     # point -> coarse-voxel corner rows without joins: chase the parent
@@ -196,7 +200,7 @@ def build_unet_topology(
 
     # host-deduped integer points: trilinear at stride 1 collapses to the
     # identity gather through the inverse map
-    devox = {1: IdentityDevoxTable(inverse=inverse)}
+    devox = {1: IdentityDevoxTable(inverse=inverse, tables=point_tables)}
     corner_strides = (4, 16)
     cat = torch.cat([corner_v(s.bit_length() - 1) for s in corner_strides], dim=1)
     g = cat[inverse.clamp(min=0).long()]  # (P, 8 * strides)
@@ -205,7 +209,7 @@ def build_unet_topology(
         l = s.bit_length() - 1
         devox[s] = trilinear_table(
             point_coords, valid, levels[l].coords, levels[l].num, s, bounds,
-            corner_idx=g[:, 8 * i : 8 * (i + 1)].t(),
+            with_pairs=devox_pairs, corner_idx=g[:, 8 * i : 8 * (i + 1)].t(),
         )
 
     return UNetTopology(

@@ -1,5 +1,5 @@
 """MinkUNet — sparse-voxel 3D UNet segmentor (port of
-`taseg_tpu/models/voxel/minkunet.py`, inference form).
+`taseg_tpu/models/voxel/minkunet.py`, train and eval forms).
 
 Stem + four stride-2 encoder stages + four transposed-conv decoder
 stages with skip concatenation, and the tri-scale point head
@@ -10,8 +10,13 @@ conv casts its weight to the activation dtype and accumulates in f32;
 BN folds into one multiply-add in the activation dtype; the head takes
 its dots with f32 accumulation and sums the scales in f32.
 
-Dropout is the identity at eval and is left out; so are `Bottleneck`
-blocks and `return_features`.
+In train mode (`model.train()`) every BN takes its level's row mask
+(`arange(V_l) < num_l`) and the convs take (rulebook, flipped rulebook)
+pairs, so the topology must come from `build_unet_topology(...,
+devox_pairs=True)`.  Dropout (after x4 and y2) is the identity at eval
+and at p = 0, the flagship's value; a train forward with p > 0 raises
+(its random bits could not be held against JAX's anyway).  `Bottleneck`
+blocks and `return_features` are left out.
 """
 
 from __future__ import annotations
@@ -64,11 +69,13 @@ class MinkUNet(nn.Module):
         block: str = "ResBlock",
         cr: float = 1.0,
         compute_dtype: str = "float32",
+        dropout_p: float = 0.3,
         device=None,
     ):
         super().__init__()
         dev = resolve_device(device)
         self.in_dim = in_dim
+        self.dropout_p = dropout_p
         self.num_layer = tuple(num_layer)
         self.compute_dtype = _DTYPES[compute_dtype]
         if block not in BLOCKS:
@@ -112,35 +119,50 @@ class MinkUNet(nn.Module):
             block=m.get("BLOCK", "Bottleneck"),
             cr=m.get("cr", 1.0),
             compute_dtype=compute_dtype or m.get("COMPUTE_DTYPE", "float32"),
+            dropout_p=float(m.get("DROPOUT_P", 0.3)),
             device=device,
         )
 
-    def _stack(self, x, name, n, rulebook):
+    def _stack(self, x, name, n, rulebook, mask):
         for i in range(n):
-            x = getattr(self, f"{name}_{i}")(x, rulebook)
+            x = getattr(self, f"{name}_{i}")(x, rulebook, mask)
         return x
 
     def forward(self, point_feats: torch.Tensor, topo: UNetTopology) -> torch.Tensor:
         """point_feats (P, C) f32 -> per-point logits (P, num_classes) f32."""
         levels = topo.levels
+        if self.training:
+            if self.dropout_p > 0:
+                raise NotImplementedError(
+                    f"Dropout p={self.dropout_p} in training is not ported; p = 0 is"
+                )
+            masks = [
+                torch.arange(l.coords.shape[0], device=l.num.device) < l.num
+                for l in levels
+            ]
+            rb = [(l.rb_k3, l.rb_k3_bwd) for l in levels]
+        else:
+            masks = [None] * len(levels)
+            rb = [l.rb_k3 for l in levels]
         x0 = voxelize_avg(
             point_feats[:, : self.in_dim], topo.point_inverse, topo.point_tables
         ).to(self.compute_dtype)
-        rb = [l.rb_k3 for l in levels]
-        x0 = self.stem_1(self.stem_0(x0, rb[0]), rb[0])
+        x0 = self.stem_1(self.stem_0(x0, rb[0], masks[0]), rb[0], masks[0])
 
         enc = [x0]
         x = x0
         for l in range(1, 5):
-            x = getattr(self, f"down{l}")(x, levels[l].strided)
-            x = self._stack(x, f"stage{l}", self.num_layer[l - 1], rb[l])
+            x = getattr(self, f"down{l}")(x, levels[l].strided, masks[l])
+            x = self._stack(x, f"stage{l}", self.num_layer[l - 1], rb[l], masks[l])
             enc.append(x)
         x4 = enc[4]
 
         def up(x, k, lvl):
-            h = getattr(self, f"up{k}_deconv")(x, levels[lvl].strided)
+            h = getattr(self, f"up{k}_deconv")(x, levels[lvl].strided, masks[lvl - 1])
             h = torch.cat([h, enc[lvl - 1]], dim=-1)
-            return self._stack(h, f"up{k}_blocks", self.num_layer[3 + k], rb[lvl - 1])
+            return self._stack(
+                h, f"up{k}_blocks", self.num_layer[3 + k], rb[lvl - 1], masks[lvl - 1]
+            )
 
         y1 = up(x4, 1, 4)
         y2 = up(y1, 2, 3)

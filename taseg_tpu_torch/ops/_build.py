@@ -12,7 +12,11 @@ launches its kernel, and nowhere else, so a run can show which kernels it
 went through.  `sparse_conv_k3`, `strided_down` and `strided_up` count
 every launch of K2, K3-down and K3-up; `sparse_conv_k3_mma`,
 `strided_down_mma` and `strided_up_mma` count those that took the
-tensor-core route.  K1 (`join_scan`) launches one kernel per call.
+tensor-core route.  The `_dgrad` counters count, again, the launches of
+K2 and K3 that compute an input gradient (the backward of the k3 conv
+and of the other strided direction).  K1 (`join_scan`) launches one
+kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
+(`segment_sum`) count one per call, their split reduction included.
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ LAUNCHES = {
     "strided_down_mma": 0,
     "strided_up": 0,
     "strided_up_mma": 0,
+    "sparse_conv_k3_dgrad": 0,
+    "sparse_conv_k3_dgrad_mma": 0,
+    "strided_down_dgrad": 0,
+    "strided_down_dgrad_mma": 0,
+    "strided_up_dgrad": 0,
+    "strided_up_dgrad_mma": 0,
+    "k3_conv_dw": 0,
+    "strided_dw": 0,
+    "segment_sum": 0,
 }
 
 _P = ctypes.c_void_p
@@ -57,6 +70,9 @@ _SIGNATURES = {
     "taseg_strided_down_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_strided_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_strided_up_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "taseg_k3_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_segment_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -148,6 +164,14 @@ def get_lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def counters(name: str, *, dgrad: bool = False, mma: bool = False) -> tuple:
+    """The LAUNCHES entries that one launch of wrapper `name` counts
+    under: its own, `<name>_dgrad` for an input-gradient call, and the
+    `_mma` entry of each on the tensor-core route."""
+    names = (name, name + "_dgrad") if dgrad else (name,)
+    return names + tuple(n + "_mma" for n in names) if mma else names
 
 
 def launch(name: str, counters: tuple[str, ...], *args) -> None:

@@ -16,6 +16,11 @@ rounds each group's transformed rows to the activation dtype before it
 sums them, so in bf16 the two packages differ by that rounding.)
 
 The port takes the rulebook directly and builds no TGF tables.
+
+`k3_conv` is the differentiable form (`K3Conv`, the counterpart of the
+custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its backward runs
+`f3conv.f3_bwd_fused` over the flipped rulebook `flip_rulebook(rb)`,
+which the topology builds once per level and step.
 """
 
 from __future__ import annotations
@@ -51,11 +56,21 @@ def sparse_conv_plain(
     return out.to(feats.dtype)
 
 
+def flip_rulebook(rb: torch.Tensor) -> torch.Tensor:
+    """Reverse table of a same-coordinate-set odd-kernel rulebook (JAX
+    sparse_conv.py:207): offset k -> 26 - k negates the offset, so
+    flip(rb)[k, i] = v  <=>  rb[k, v] = i."""
+    return rb.flip(0).contiguous()
+
+
 def sparse_conv_k3(
-    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    *, dgrad: bool = False,
 ) -> torch.Tensor:
     """feats (V, C_in), weight (27, C_in, C_out) in feats' dtype, rb
-    (27, V) int32 -> (V, C_out) in feats' dtype."""
+    (27, V) int32 -> (V, C_out) in feats' dtype.  `dgrad` marks a call
+    that computes an input gradient: its launch also counts under
+    `sparse_conv_k3_dgrad`."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
@@ -78,12 +93,61 @@ def sparse_conv_k3(
     if route(feats.dtype, c_in, c_out) == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
-            "taseg_sparse_conv_k3_mma", ("sparse_conv_k3", "sparse_conv_k3_mma"),
+            "taseg_sparse_conv_k3_mma",
+            _build.counters("sparse_conv_k3", dgrad=dgrad, mma=True),
             *ptrs, v, c_in, c_out,
         )
     else:
         _build.launch(
-            "taseg_sparse_conv_k3", ("sparse_conv_k3",),
+            "taseg_sparse_conv_k3", _build.counters("sparse_conv_k3", dgrad=dgrad),
             *ptrs, v, c_in, c_out, DTYPE_CODES[feats.dtype],
         )
     return out
+
+
+class K3Conv(torch.autograd.Function):
+    """`sparse_conv_k3` with its gradient.  Saves feats and weight; the
+    rulebooks are held by reference (no copy).  The backward returns no
+    d_feats where feats need none (the stem's first conv, whose input is
+    the voxelized point features)."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, rb, rb_bwd):
+        ctx.save_for_backward(feats, weight)
+        ctx.rb_bwd = rb_bwd
+        return sparse_conv_k3(feats, weight, rb)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .f3conv import f3_bwd_fused
+
+        feats, weight = ctx.saved_tensors
+        d_feats, d_w = f3_bwd_fused(
+            feats, weight, grad.contiguous(), ctx.rb_bwd,
+            need_feats=ctx.needs_input_grad[0],
+        )
+        return d_feats, d_w, None, None
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd records a graph through one of `tensors`: the
+    differentiable entry points then go through their Function, else
+    straight to the kernel wrapper (inference pays nothing for autograd)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def k3_conv(
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    rb_bwd: torch.Tensor = None,
+) -> torch.Tensor:
+    """The stride-1 k3 conv, differentiable where autograd asks for a
+    gradient (then `rb_bwd = flip_rulebook(rb)` is required), else the
+    plain `sparse_conv_k3` call."""
+    if wants_grad(feats, weight):
+        if rb_bwd is None:
+            raise ValueError(
+                "a gradient of the k3 conv needs the flipped rulebook: build "
+                "the topology with devox_pairs=True"
+            )
+        return K3Conv.apply(feats, weight, rb, rb_bwd)
+    return sparse_conv_k3(feats, weight, rb)

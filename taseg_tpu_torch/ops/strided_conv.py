@@ -1,5 +1,5 @@
 """Strided (ks=2, stride=2) sparse conv pair via the parent relation —
-port of `taseg_tpu/ops/strided_conv.py` (forward only).
+port of `taseg_tpu/ops/strided_conv.py`.
 
 Every fine voxel f belongs to exactly one coarse cell `parent(f)` (the
 downsample unique's inverse) at one kernel offset `slot(f)` (its
@@ -21,6 +21,12 @@ sums children directly, so in f32 the two differ by the cumsum's
 rounding only (about 1e-6 of the output scale).
 Weight layout (8, C_in, C_out) with the z-fastest offset enumeration of
 `kernel_offsets(2)`.
+
+Gradients (`DownConv`, `UpConv`; JAX `_down_bwd` :136, `_up_bwd` :169):
+the two directions swap, so down's d_feats is exactly
+`upsample_conv_apply(g, W^T, tables)` and up's d_feats exactly
+`downsample_conv_apply(g, W^T, tables)`; both d_W run the kernel K5
+(`strided_dw`, `csrc/conv_dw.cu`), which gathers the parent rows itself.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .sparse_conv import DTYPE_CODES, route
+from .f3conv import launch_dw
+from .sparse_conv import DTYPE_CODES, route, wants_grad
 from .voxelize import run_sums
 
 
@@ -175,10 +182,12 @@ def _check(feats, weight, tables, v_fine, v_coarse):
 
 
 def downsample_conv_apply(
-    feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables
+    feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables,
+    *, dgrad: bool = False,
 ) -> torch.Tensor:
     """feats (V_fine, Ci), weight (8, Ci, Co) in feats' dtype ->
-    (V_coarse, Co)."""
+    (V_coarse, Co).  `dgrad` marks an input-gradient call (counted under
+    `strided_down_dgrad` too)."""
     v_fine = feats.shape[0]
     v_coarse = tables.starts.shape[0] - 1
     _check(feats, weight, tables, v_fine, v_coarse)
@@ -198,22 +207,25 @@ def downsample_conv_apply(
     if downsample_route(feats.dtype, c_in, c_out) == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
-            "taseg_strided_down_mma", ("strided_down", "strided_down_mma"),
+            "taseg_strided_down_mma", _build.counters("strided_down", dgrad=dgrad, mma=True),
             *ptrs, v_coarse, c_in, c_out,
         )
     else:
         _build.launch(
-            "taseg_strided_down", ("strided_down",),
+            "taseg_strided_down", _build.counters("strided_down", dgrad=dgrad),
             *ptrs, v_fine, v_coarse, c_in, c_out, DTYPE_CODES[feats.dtype],
         )
     return out
 
 
 def upsample_conv_apply(
-    feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables
+    feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables,
+    *, dgrad: bool = False,
 ) -> torch.Tensor:
     """Transposed pair: feats (V_coarse, Ci), weight (8, Ci, Co) in feats'
-    dtype -> (V_fine, Co); out[f] = feats[parent(f)] @ W[slot(f)]."""
+    dtype -> (V_fine, Co); out[f] = feats[parent(f)] @ W[slot(f)].
+    `dgrad` marks an input-gradient call (counted under
+    `strided_up_dgrad` too)."""
     v_fine = tables.parent.shape[0]
     v_coarse = feats.shape[0]
     _check(feats, weight, tables, v_fine, v_coarse)
@@ -232,12 +244,125 @@ def upsample_conv_apply(
     if upsample_route(feats.dtype, c_in, c_out) == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
-            "taseg_strided_up_mma", ("strided_up", "strided_up_mma"),
+            "taseg_strided_up_mma", _build.counters("strided_up", dgrad=dgrad, mma=True),
             *ptrs, v_fine, c_in, c_out,
         )
     else:
         _build.launch(
-            "taseg_strided_up", ("strided_up",),
+            "taseg_strided_up", _build.counters("strided_up", dgrad=dgrad),
             *ptrs, v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
         )
     return out
+
+
+def strided_dw_plain(x, y, tables: StridedTables, up: bool) -> torch.Tensor:
+    """d_W (8, C_in, C_out) f32 = sum over live fine rows f of slot s of
+    X[f]^T (x) Y[f], the coarse side gathered by parent (JAX's einsum
+    "vk,vc,vo->kco", f32 products and sums)."""
+    if up:
+        x = _parent_gather(x, tables)
+    else:
+        y = _parent_gather(y, tables)
+    live = tables.parent >= 0
+    yf = y.float()
+    out = []
+    for s in range(8):
+        oh = ((tables.slot == s) & live)[:, None]
+        out.append(torch.where(oh, x, 0).float().t() @ yf)
+    return torch.stack(out)
+
+
+def strided_dw(
+    x: torch.Tensor, y: torch.Tensor, tables: StridedTables, up: bool,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K5: the weight gradient of the strided pair, (8, C_in, C_out)
+    summed in f32 and rounded once to `out_dtype`.  down (`up=False`): x
+    the fine input (V_fine, C_in), y the coarse cotangent (V_coarse,
+    C_out); up: x the coarse input (V_coarse, C_in), y the fine cotangent
+    (V_fine, C_out).  Deterministic: the same inputs give the same bits."""
+    dev = x.device
+    _build.check("x", x, tuple(DTYPE_CODES), 2, dev)
+    _build.check("y", y, (x.dtype,), 2, dev)
+    v_fine = tables.parent.shape[0]
+    v_coarse = tables.starts.shape[0] - 1
+    fine, coarse = (y, x) if up else (x, y)
+    if fine.shape[0] != v_fine or coarse.shape[0] != v_coarse:
+        raise ValueError(
+            f"rows do not fit the tables: fine {fine.shape[0]} != {v_fine} "
+            f"or coarse {coarse.shape[0]} != {v_coarse}"
+        )
+    for name in ("parent", "slot"):
+        _build.check(name, getattr(tables, name), (torch.int32,), 1, dev)
+    if not _build.dispatch(x):
+        return strided_dw_plain(x, y, tables, up).to(out_dtype)
+    c_in, c_out = x.shape[1], y.shape[1]
+    if v_fine == 0 or v_coarse == 0 or c_in == 0 or c_out == 0:
+        return torch.zeros((8, c_in, c_out), dtype=out_dtype, device=dev)
+    out = launch_dw(
+        "taseg_strided_dw", "strided_dw",
+        (x.data_ptr(), y.data_ptr(), tables.parent.data_ptr(), tables.slot.data_ptr()),
+        (v_fine, c_in, c_out, int(up)), v_fine, 8, x.dtype, dev,
+    )
+    return out.to(out_dtype)
+
+
+class DownConv(torch.autograd.Function):
+    """`downsample_conv_apply` with its gradient (JAX `_down_bwd`):
+    d_feats = up(g, W^T) through K3-up, d_W through K5.  Saves feats and
+    weight; the tables by reference."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, tables):
+        ctx.save_for_backward(feats, weight)
+        ctx.tables = tables
+        return downsample_conv_apply(feats, weight, tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight = ctx.saved_tensors
+        g = g.contiguous().to(feats.dtype)
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            w_t = weight.transpose(1, 2).contiguous()
+            d_feats = upsample_conv_apply(g, w_t, ctx.tables, dgrad=True)
+        d_w = strided_dw(feats, g, ctx.tables, up=False, out_dtype=weight.dtype)
+        return d_feats, d_w, None
+
+
+class UpConv(torch.autograd.Function):
+    """`upsample_conv_apply` with its gradient (JAX `_up_bwd`): d_feats =
+    down(g, W^T) through K3-down, d_W through K5, which gathers the
+    coarse rows by parent itself (the (V_fine, C_in) gathered rows that
+    the JAX forward keeps are not saved)."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, tables):
+        ctx.save_for_backward(feats, weight)
+        ctx.tables = tables
+        return upsample_conv_apply(feats, weight, tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight = ctx.saved_tensors
+        g = g.contiguous().to(feats.dtype)
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            w_t = weight.transpose(1, 2).contiguous()
+            d_feats = downsample_conv_apply(g, w_t, ctx.tables, dgrad=True)
+        d_w = strided_dw(feats, g, ctx.tables, up=True, out_dtype=weight.dtype)
+        return d_feats, d_w, None
+
+
+def downsample_conv(feats, weight, tables: StridedTables) -> torch.Tensor:
+    """`downsample_conv_apply`, differentiable where autograd asks."""
+    if wants_grad(feats, weight):
+        return DownConv.apply(feats, weight, tables)
+    return downsample_conv_apply(feats, weight, tables)
+
+
+def upsample_conv(feats, weight, tables: StridedTables) -> torch.Tensor:
+    """`upsample_conv_apply`, differentiable where autograd asks."""
+    if wants_grad(feats, weight):
+        return UpConv.apply(feats, weight, tables)
+    return upsample_conv_apply(feats, weight, tables)

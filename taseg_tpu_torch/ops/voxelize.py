@@ -1,13 +1,18 @@
-"""Point<->voxel transforms, forward only (port of
+"""Point<->voxel transforms and their gradients (port of
 `taseg_tpu/ops/voxelize.py`).
 
   * `voxelize_avg`: segment mean of point features per voxel, over the
-    sorted-segment layout of `build_segment_tables` and a mean-centred
-    cumsum, as in the JAX package;
+    sorted-segment layout of `build_segment_tables`; its backward gathers
+    each voxel's gradient / count back to the points (plain torch);
   * `devoxelize`: the identity gather (integer points at stride 1) or the
-    8-corner trilinear interpolation.
+    8-corner trilinear interpolation (plain torch); their backwards are
+    segment sums, over the point tables or over the (corner, point) pair
+    table `DevoxTable.pairs`.
 
-Plain PyTorch in this slice; their hand kernels are queued in ROADMAP.md.
+Every segment sum (the voxelize forward and both devoxelize backwards)
+is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`, members
+summed directly) on CUDA tensors, the JAX package's mean-centred cumsum
+(`segment_sum_plain`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import _build
 from .coords import GridBounds
 from .join import query_coords
 from .rulebook import kernel_offsets
+from .sparse_conv import DTYPE_CODES, wants_grad
 
 
 class SegmentTables(NamedTuple):
@@ -77,15 +84,86 @@ def run_sums(rows_f32: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     return seg + (hi - lo)[:, None].float() * center
 
 
-def _segment_sum_sorted(values: torch.Tensor, tables: SegmentTables) -> torch.Tensor:
-    """Sum rows per segment: zero-pad to the sentinel-augmented length,
-    gather to sorted order, run sums (each segment's run holds its count
-    + 1 rows: the sentinel adds zero)."""
-    pad = tables.perm.shape[0] - values.shape[0]
-    vals = torch.cat(
-        [values, values.new_zeros((pad,) + tuple(values.shape[1:]))]
+def segment_sum_plain(
+    src: torch.Tensor, tables: SegmentTables, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K6's plain version, as JAX `_segment_sum_sorted`: the R = N - V
+    real rows (row r reads src[r mod P], times weights[r]), zero-padded
+    by the V sentinel rows, gathered to sorted order, run sums by a
+    mean-centred cumsum.  (V, C) f32 (f64 for f64 input: a reference
+    without the cumsum's rounding)."""
+    v = tables.starts.shape[0] - 1
+    r_real = tables.perm.shape[0] - v
+    rows = src.to(torch.promote_types(src.dtype, torch.float32))
+    if r_real != rows.shape[0]:
+        rows = rows.repeat(r_real // rows.shape[0], 1)
+    if weights is not None:
+        rows = rows * weights.reshape(-1, 1).to(rows.dtype)
+    vals = torch.cat([rows, rows.new_zeros((v, rows.shape[1]))])
+    return run_sums(vals[tables.perm], tables.starts)
+
+
+def segment_sum(
+    src: torch.Tensor, tables: SegmentTables, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K6: per segment u of `tables` (V segments over N = R + V sorted
+    rows, the last V the sentinels), out[u] = sum of weights[r] *
+    src[r mod P] over its real member rows r < R.  src (P, C) f32 or
+    bf16 with R a multiple of P; weights (R,) f32 or None (weight 1).
+    (V, C) f32, each segment's members added in order."""
+    dev = src.device
+    _build.check("src", src, (torch.float32, torch.bfloat16), 2, dev)
+    _build.check("perm", tables.perm, (torch.int64,), 1, dev)
+    _build.check("starts", tables.starts, (torch.int32,), 1, dev)
+    v = tables.starts.shape[0] - 1
+    r_real = tables.perm.shape[0] - v
+    p, c = src.shape
+    if r_real < 0 or (r_real and (not p or r_real % p)):
+        raise ValueError(f"{r_real} table rows do not tile {p} source rows")
+    if weights is not None:
+        weights = weights.reshape(-1)
+        _build.check("weights", weights, (torch.float32,), 1, dev)
+        if weights.shape[0] != r_real:
+            raise ValueError(f"weights: {weights.shape[0]} rows, tables have {r_real}")
+    if r_real + v >= 2**31:
+        raise ValueError("segment tables of 2^31 rows or more")
+    if not _build.dispatch(src):
+        return segment_sum_plain(src, tables, weights)
+    out = torch.empty((v, c), dtype=torch.float32, device=dev)
+    if v == 0 or c == 0:
+        return out
+    if r_real == 0:
+        return out.zero_()
+    _build.launch(
+        "taseg_segment_sum", ("segment_sum",),
+        src.data_ptr(), None if weights is None else weights.data_ptr(),
+        tables.perm.data_ptr(), tables.starts.data_ptr(), out.data_ptr(),
+        v, c, r_real, p, DTYPE_CODES[src.dtype],
     )
-    return run_sums(vals[tables.perm].float(), tables.starts)
+    return out
+
+
+def _voxelize_avg(point_feats, tables):
+    sums = segment_sum(point_feats, tables)
+    mean = sums / tables.counts.clamp(min=1)[:, None].float()
+    return mean.to(point_feats.dtype)
+
+
+class VoxelizeAvg(torch.autograd.Function):
+    """Segment mean with the JAX `_voxelize_bwd` gradient: each point gets
+    its voxel's gradient / count (plain torch gather)."""
+
+    @staticmethod
+    def forward(ctx, point_feats, inverse, tables):
+        ctx.inverse, ctx.counts = inverse, tables.counts
+        return _voxelize_avg(point_feats, tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        scaled = g / ctx.counts.clamp(min=1).to(g.dtype)[:, None]
+        inv = ctx.inverse
+        d_points = torch.where((inv >= 0)[:, None], scaled[inv.clamp(min=0).long()], 0)
+        return d_points, None, None
 
 
 def voxelize_avg(
@@ -95,20 +173,23 @@ def voxelize_avg(
 ) -> torch.Tensor:
     """Average point features per voxel (reference `spvoxelize`); tables
     from `build_segment_tables(inverse, V)`."""
-    sums = _segment_sum_sorted(point_feats, tables)
-    mean = sums / tables.counts.clamp(min=1)[:, None].float()
-    return mean.to(point_feats.dtype)
+    if wants_grad(point_feats):
+        return VoxelizeAvg.apply(point_feats, inverse, tables)
+    return _voxelize_avg(point_feats, tables)
 
 
 class DevoxTable(NamedTuple):
-    """Trilinear interpolation table (forward only).
+    """Trilinear interpolation table + its transpose structure.
 
     idx:     (8, P) int32 voxel index per corner, -1 missing.
     weights: (8, P) float32 normalized trilinear weights.
+    pairs:   SegmentTables over the flattened (8P,) corner -> voxel ids,
+             for the backward (None: forward only).
     """
 
     idx: torch.Tensor
     weights: torch.Tensor
+    pairs: Optional[SegmentTables] = None
 
 
 def trilinear_table(
@@ -118,12 +199,15 @@ def trilinear_table(
     num_voxels: torch.Tensor,
     stride: int,
     bounds: GridBounds,
+    with_pairs: bool = True,
     corner_idx: Optional[torch.Tensor] = None,
 ) -> DevoxTable:
     """8-corner indices + weights (reference `voxel_to_point` /
-    `calc_ti_weights`, minkunet/utils.py:69-105).  `corner_idx` (8, P)
-    skips the corner joins when the caller already derived the corner
-    rows (`backbone_context.build_unet_topology`)."""
+    `calc_ti_weights`, minkunet/utils.py:69-105), plus the transposed
+    pair layout for the backward unless `with_pairs` is False (its
+    (8P + V)-row sort serves training only).  `corner_idx` (8, P) skips
+    the corner joins when the caller already derived the corner rows
+    (`backbone_context.build_unet_topology`)."""
     p = point_coords[:, :3].float()
     s = float(stride)
     pf = torch.floor(p / s) * s
@@ -150,24 +234,29 @@ def trilinear_table(
     w = torch.where(d[:, None, :], frac[None, :, :], one[None, :, :]).prod(-1)
     w = torch.where(idx >= 0, w, 0.0)
     w = w / (w.sum(0, keepdim=True) + 1e-8)
-    return DevoxTable(idx=idx, weights=w)
+    pairs = (
+        build_segment_tables(idx.reshape(-1), voxel_coords.shape[0])
+        if with_pairs else None
+    )
+    return DevoxTable(idx=idx, weights=w, pairs=pairs)
 
 
 class IdentityDevoxTable(NamedTuple):
     """Degenerate trilinear table for integer points at stride 1: the
     weights collapse to 1 on the containing voxel, so devoxelization is
-    a gather by the point->voxel inverse map."""
+    a gather by the point->voxel inverse map, and its gradient a segment
+    sum over the point tables that the topology builds anyway."""
 
     inverse: torch.Tensor  # (P,) point -> voxel id (-1 invalid)
+    tables: Optional[SegmentTables] = None  # segment tables over `inverse`
 
 
-def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
-    """Interpolate (V, C) voxel feats to (P, C) points (reference
-    `spdevoxelize`); dispatches on the table type."""
-    if isinstance(table, IdentityDevoxTable):
-        inv = table.inverse
-        g = voxel_feats[inv.clamp(min=0).long()]
-        return torch.where((inv >= 0)[:, None], g, 0)
+def _devox_identity(voxel_feats, inv):
+    g = voxel_feats[inv.clamp(min=0).long()]
+    return torch.where((inv >= 0)[:, None], g, 0)
+
+
+def _devox_trilinear(voxel_feats, table):
     # per-corner multiply-accumulate in the feature dtype, as the JAX
     # package does
     out = None
@@ -178,3 +267,53 @@ def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
         c = g * table.weights[k][:, None].to(voxel_feats.dtype)
         out = c if out is None else out + c
     return out
+
+
+class DevoxIdentity(torch.autograd.Function):
+    """Identity devoxelize; backward (JAX `_devox_id_bwd`): the segment
+    sum of the point gradients per voxel, K6 over the point tables."""
+
+    @staticmethod
+    def forward(ctx, voxel_feats, table):
+        if table.tables is None:
+            raise ValueError("the identity devox table has no segment tables")
+        ctx.table = table
+        return _devox_identity(voxel_feats, table.inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        return segment_sum(g, ctx.table.tables).to(g.dtype), None
+
+
+class DevoxTrilinear(torch.autograd.Function):
+    """Trilinear devoxelize; backward (JAX `_devox_bwd`): per voxel the
+    weighted sum of the point gradients over its (corner, point) pairs,
+    K6 over `pairs` with the corner weights."""
+
+    @staticmethod
+    def forward(ctx, voxel_feats, table):
+        if table.pairs is None:
+            raise ValueError(
+                "the trilinear table has no pairs: build it with with_pairs=True"
+            )
+        ctx.table = table
+        return _devox_trilinear(voxel_feats, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        t = ctx.table
+        return segment_sum(g, t.pairs, t.weights.reshape(-1)).to(g.dtype), None
+
+
+def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
+    """Interpolate (V, C) voxel feats to (P, C) points (reference
+    `spdevoxelize`); dispatches on the table type, and is differentiable
+    in the voxel features where autograd asks."""
+    identity = isinstance(table, IdentityDevoxTable)
+    if wants_grad(voxel_feats):
+        return (DevoxIdentity if identity else DevoxTrilinear).apply(voxel_feats, table)
+    if identity:
+        return _devox_identity(voxel_feats, table.inverse)
+    return _devox_trilinear(voxel_feats, table)

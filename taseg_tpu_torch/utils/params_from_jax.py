@@ -7,6 +7,9 @@ kernel`, `stage1_0/MaskedBatchNorm_1/scale`, `classifier/kernel`, ...).
 Conv kernels are (K, C_in, C_out) on both sides, so nothing is
 transposed.  Every key on either side must be matched, or it raises.
 
+`export_flax_params(model)` is the inverse map: the model's parameters
+and BN running statistics back to the two flax-shaped numpy trees.
+
 `init_params_numpy(cfg, seed)` draws trees of the same names and shapes
 from numpy with the flax init distributions (JAX layers.py:68-76:
 uniform(+-1/sqrt(fan*K)) for convs, lecun_uniform for the head, ones and
@@ -68,6 +71,22 @@ def load_flax_params(model: MinkUNet, params: dict, batch_stats: dict) -> None:
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"model entries not in the flax trees: {missing[:8]}")
+
+
+@torch.no_grad()
+def export_flax_params(model: MinkUNet) -> tuple[dict, dict]:
+    """(params, batch_stats) nested dicts of float32 numpy arrays, named
+    as `model.init` names them: the BN buffers `mean` / `var` go to
+    batch_stats, every parameter to params."""
+    params = {
+        n.replace(".", "/"): np.array(p.detach().float().cpu(), copy=True)
+        for n, p in model.named_parameters()
+    }
+    stats = {
+        n.replace(".", "/"): np.array(b.detach().float().cpu(), copy=True)
+        for n, b in model.named_buffers()
+    }
+    return _nest(params), _nest(stats)
 
 
 def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:

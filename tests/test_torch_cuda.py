@@ -14,6 +14,12 @@ route of K2 and K3, f32 and ragged cases the CUDA-core route.  K1, the
 single-pass join scan, is bit-exact in both modes at tile edges, at the
 main path's largest size, and across calls that reuse and grow its
 look-back state.
+
+The backward kernels: K4 (`k3_conv_dw`) and K5 (`strided_dw`) reduce
+over up to all V rows in f32 in another order than the plain matmuls,
+so they are held within 1e-4 of the largest sum of |terms|; K6
+(`segment_sum`) sums short segments, within 1e-5.  Each is called twice
+on the same inputs and must give the same bits.
 """
 
 import numpy as np
@@ -21,7 +27,9 @@ import pytest
 import torch
 
 from taseg_tpu_torch.ops import _build
+from taseg_tpu_torch.ops import f3conv as tf3
 from taseg_tpu_torch.ops import join_scan as tjs
+from taseg_tpu_torch.ops import voxelize as tvx
 from taseg_tpu_torch.ops import coords as tc
 from taseg_tpu_torch.ops import join as tj
 from taseg_tpu_torch.ops import rulebook as tr
@@ -327,3 +335,146 @@ def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):
     k = torch.zeros(64, **i32)
     with pytest.raises(RuntimeError, match="nvcc"):
         join_scan(k, k, k, torch.zeros(1, **i32), 32, 100, 1)
+
+
+def _rand(rng, shape, dev, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+
+def _twice_same(fn):
+    """fn() twice: the two results must be bit-identical."""
+    a, b = fn(), fn()
+    assert torch.equal(a, b)
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "c_in,c_out", [(4, 32), (37, 70), (32, 32), (64, 64), (128, 96), (384, 256)]
+)
+def test_k3_conv_dw_kernel(cuda, dtype, c_in, c_out):
+    """K4 against its plain version, ragged widths (C_in = 4 is the
+    stem's); one launch per call, the same bits on a repeat call, and the
+    rounding to the weight dtype."""
+    rng, u, num, b = _level(cuda, seed=20 + c_in)
+    rb_bwd = tsc.flip_rulebook(tr.build_rulebook_k3(u, num, 1, b))
+    x = _rand(rng, (u.shape[0], c_in), cuda, dtype)
+    g = _rand(rng, (u.shape[0], c_out), cuda, dtype)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.k3_conv_dw(x, g, rb_bwd))
+    assert _build.LAUNCHES["k3_conv_dw"] == 2
+    assert got.dtype == torch.float32 and got.shape == (27, c_in, c_out)
+    _close(got, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
+    assert torch.equal(tf3.k3_conv_dw(x, g, rb_bwd, out_dtype=dtype), got.to(dtype))
+
+
+def test_k3_conv_dw_kernel_edges(cuda):
+    """Empty V gives zeros; offsets absent from every row give a zero
+    d_W[k]; a split of the rows (level-0 sized V) gives the same sums."""
+    rb = torch.full((27, 0), -1, dtype=torch.int32, device=cuda)
+    z = tf3.k3_conv_dw(torch.zeros(0, 8, device=cuda), torch.zeros(0, 16, device=cuda), rb)
+    assert z.shape == (27, 8, 16) and not z.any()
+    rng, u, num, b = _level(cuda, seed=31)
+    rb_bwd = tsc.flip_rulebook(tr.build_rulebook_k3(u, num, 1, b))
+    rb_bwd[[0, 5, 26]] = -1
+    x = _rand(rng, (u.shape[0], 32), cuda, torch.float32)
+    g = _rand(rng, (u.shape[0], 32), cuda, torch.float32)
+    got = tf3.k3_conv_dw(x, g, rb_bwd)
+    assert not got[[0, 5, 26]].any() and got[13].abs().sum() > 0
+    v = 131072
+    assert tf3.dw_splits(v, 27, 32, 32)[0] > 1
+    idx = torch.from_numpy(np.random.default_rng(3).integers(-1, v, (27, v)).astype(np.int32)).to(cuda)
+    xb = _rand(rng, (v, 32), cuda, torch.bfloat16)
+    gb = _rand(rng, (v, 32), cuda, torch.bfloat16)
+    got = _twice_same(lambda: tf3.k3_conv_dw(xb, gb, idx))
+    _close(got, tf3.k3_conv_dw_plain(xb, gb, idx), tf3.k3_conv_dw_plain(xb.abs(), gb.abs(), idx), torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["path", "negative", "dead"])
+@pytest.mark.parametrize("c_in,c_out", [(4, 12), (32, 32), (256, 128)])
+def test_strided_dw_kernel(cuda, dtype, case, c_in, c_out):
+    """K5, both directions: non-negative coordinates, negative ones
+    (children in 2+ rounds), children with parent -1; the same bits on a
+    repeat call."""
+    rng, v_fine, tab, n2 = _down_case(cuda, case)
+    v_coarse = tab.starts.shape[0] - 1
+    xf = _rand(rng, (v_fine, c_in), cuda, dtype)
+    gc = _rand(rng, (v_coarse, c_out), cuda, dtype)
+    xc = _rand(rng, (v_coarse, c_in), cuda, dtype)
+    gf = _rand(rng, (v_fine, c_out), cuda, dtype)
+    _build.reset_launches()
+    for x, y, up in ((xf, gc, False), (xc, gf, True)):
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
+        _close(
+            got, tst.strided_dw_plain(x, y, tab, up),
+            tst.strided_dw_plain(x.abs(), y.abs(), tab, up), torch.float32, 1e-4,
+        )
+    assert _build.LAUNCHES["strided_dw"] == 4
+
+
+def _trilinear(dev, seed=41, n=3000):
+    rng, u, num, b = _level(dev, seed=seed, n=n, span=20, cap=4096)
+    c2, n2, _, _, _ = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
+    pts = u[:, :3].float() + torch.from_numpy(rng.uniform(0, 1, (u.shape[0], 3)).astype(np.float32)).to(dev)
+    pts = torch.cat([pts, u[:, 3:].float()], 1)
+    valid = torch.arange(u.shape[0], device=dev) < num
+    tab = tvx.trilinear_table(pts, valid, c2, n2, 2, b)
+    return rng, u, num, tab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 20, 45])
+def test_segment_sum_kernel(cuda, dtype, c):
+    """K6 over the voxelize / identity-devox tables (ids with -1 rows)
+    and over the trilinear pair table with weights; the same bits on a
+    repeat call."""
+    rng, u, num, tab = _trilinear(cuda)
+    p = u.shape[0]
+    ids = torch.from_numpy(rng.integers(-1, 700, p).astype(np.int32)).to(cuda)
+    seg = tvx.build_segment_tables(ids, 1024)
+    src = _rand(rng, (p, c), cuda, dtype)
+    _build.reset_launches()
+    for tables, w in ((seg, None), (tab.pairs, tab.weights.reshape(-1))):
+        got = _twice_same(lambda: tvx.segment_sum(src, tables, w))
+        want = tvx.segment_sum_plain(src, tables, w)
+        ref = tvx.segment_sum_plain(src.abs(), tables, None if w is None else w.abs())
+        _close(got, want, ref, torch.float32, 1e-5)
+    assert _build.LAUNCHES["segment_sum"] == 4
+    assert not tvx.segment_sum(src, seg)[700:].any()
+
+
+def test_segment_sum_kernel_edges(cuda):
+    """No segments; no real rows (only sentinels)."""
+    src = torch.ones(5, 3, device=cuda)
+    t0 = tvx.build_segment_tables(torch.zeros(5, dtype=torch.int32, device=cuda), 0)
+    assert tvx.segment_sum(src, t0).shape == (0, 3)
+    empty = tvx.build_segment_tables(torch.zeros(0, dtype=torch.int32, device=cuda), 7)
+    out = tvx.segment_sum(torch.zeros(0, 3, device=cuda), empty)
+    assert out.shape == (7, 3) and not out.any()
+
+
+def test_backward_routes_and_counts(cuda):
+    """Autograd through the k3 conv and the strided pair on the card: the
+    input gradients run K2 / K3 on W^T and count under `_dgrad`, on the
+    tensor-core route where the forward takes it (bf16, widths % 8 == 0),
+    on CUDA cores in f32; every d_W runs K4 / K5 once."""
+    rng, u, num, b = _level(cuda, seed=51)
+    rb = tr.build_rulebook_k3(u, num, 1, b)
+    c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
+    tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
+    for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        x = _rand(rng, (u.shape[0], 32), cuda, dtype).requires_grad_()
+        w = _rand(rng, (27, 32, 32), cuda, dtype).requires_grad_()
+        wd = _rand(rng, (8, 32, 64), cuda, dtype).requires_grad_()
+        wu = _rand(rng, (8, 64, 32), cuda, dtype).requires_grad_()
+        h = tsc.k3_conv(x, w, rb, tsc.flip_rulebook(rb))
+        y = tst.upsample_conv(tst.downsample_conv(h, wd, tab), wu, tab)
+        _build.reset_launches()
+        y.float().square().sum().backward()
+        L = _build.LAUNCHES
+        assert (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_mma"]) == (1, mma)
+        assert (L["strided_down_dgrad"], L["strided_down_dgrad_mma"]) == (1, mma)
+        assert (L["strided_up_dgrad"], L["strided_up_dgrad_mma"]) == (1, mma)
+        assert (L["k3_conv_dw"], L["strided_dw"]) == (1, 2)
+        assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, w, wd, wu))

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, every submodule and chip_smoke.py
-pulls in no jax, flax or taseg_tpu module; chip_smoke.py refuses to run
+"""The port stands alone: importing it, every submodule (the train
+path's loss, optim and f3conv among them) and chip_smoke.py pulls in no
+jax, flax, optax or taseg_tpu module; chip_smoke.py refuses to run
 without CUDA or without the package beside it, and prints no result."""
 
 import shutil
@@ -16,13 +17,16 @@ _CHECK = """
 import importlib, pkgutil, sys
 import taseg_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(taseg_tpu_torch.__path__, "taseg_tpu_torch.")]
+train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch.loss.util",
+         "taseg_tpu_torch.optim", "taseg_tpu_torch.ops.f3conv"}
+missing = train - set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "taseg_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """
 
 

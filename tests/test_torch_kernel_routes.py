@@ -59,6 +59,20 @@ def test_k3_down_routes_in_bf16(convs):
     assert all(tst.downsample_route(torch.bfloat16, *wd) == "mma" for wd in widths)
 
 
+def test_input_gradient_routes_in_bf16(convs):
+    """The train step's input gradients run the forward kernels on W^T,
+    with C_in and C_out swapped: the 47 of K2 (every 27-point conv but
+    the stem's first, whose input needs no gradient), the 4 of K3-up
+    (down's backward) and the 4 of K3-down (the deconvs' backward) all
+    take the tensor-core route."""
+    k3 = [m for n, m in convs.items() if m.kernel_volume == 27 and n != "stem_0.SparseConv_0"]
+    assert len(k3) == 47
+    assert all(tsc.route(torch.bfloat16, m.out_channels, m.in_channels) == "mma" for m in k3)
+    for m in (m for m in convs.values() if m.kernel_volume == 8):
+        back = tst.downsample_route if m.transposed else tst.upsample_route
+        assert back(torch.bfloat16, m.out_channels, m.in_channels) == "mma"
+
+
 def test_f32_routes_stay_on_cuda_cores(convs):
     for m in convs.values():
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
@@ -83,6 +97,10 @@ def test_launch_counters_have_the_route_entries():
     assert set(_build.LAUNCHES) == {
         "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma",
         "strided_down", "strided_down_mma", "strided_up", "strided_up_mma",
+        "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_mma",
+        "strided_down_dgrad", "strided_down_dgrad_mma",
+        "strided_up_dgrad", "strided_up_dgrad_mma",
+        "k3_conv_dw", "strided_dw", "segment_sum",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
