@@ -27,18 +27,24 @@ them:
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
-     kernels K4 k3_conv_dw, K5 strided_dw and K6 segment_sum, and the
+     kernels K4 k3_conv_dw (tensor cores over the level's pair lists in
+     bf16, CUDA cores in f32 and for the stem's 4 -> 32), K5 strided_dw
+     and K6 segment_sum (each of its 4 calls named and timed), and the
      input-gradient calls of K2 and K3 on both routes, at every shape
      that one real step gives them, against their plain versions (and
-     bit-identical on a repeat call); a small-scan f32 step on the card
+     bit-identical on a repeat call); what the pair lists cost the
+     topology; a small-scan f32 step on the card
      against the CPU's plain path; 4 full-width steps on 120 000-point
      scans with finite loss, grad norm and parameters and the launches of
      every kernel per step; ms per step by stage and peak memory;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
-  7. one JSON line listing the kernels, K2 and K3 with their launches per
-     route and their train launches.
+  7. one JSON line listing the kernels, K2, K3 and K4 with their launches
+     per route, K2 and K3 with their train launches.  Beside each kernel
+     and plain time stands one PyTorch call of the same function
+     (`library_ms`): K1 three cummax, K6 one index_add_, the convs one
+     torch.mm on rows gathered beforehand.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -69,21 +75,22 @@ INFER_KERNELS = (
     "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma", "strided_down",
     "strided_down_mma", "strided_up", "strided_up_mma", "segment_sum",
 )
-# each wrapper's kernels, by a fragment of their names in the profiler
+# each wrapper's kernels, by fragments of their names in the profiler
 KERNEL_NAMES = {
-    "join_scan": "join_scan_kernel",
-    "sparse_conv_k3": "k3_conv",
-    "strided_down": "strided_down",
-    "strided_up": "strided_up",
-    "segment_sum": "segment_sum_kernel",
-    "k3_conv_dw": "PairsK3",
-    "strided_dw": "PairsStrided",
+    "join_scan": ("join_scan_kernel",),
+    "sparse_conv_k3": ("k3_conv",),
+    "strided_down": ("strided_down",),
+    "strided_up": ("strided_up",),
+    "segment_sum": ("segment_sum_",),
+    "k3_conv_dw": ("PairsK3", "dw_mma"),
+    "strided_dw": ("PairsStrided",),
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
 # gradients (the stem's first conv takes none), all but the stem's
-# forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, K5 one
-# per strided conv; K6 the voxelize forward and the 3 devox backwards
+# forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
+# the stem's first (4 -> 32) on tensor cores, K5 one per strided conv; K6
+# the voxelize forward and the 3 devox backwards
 TRAIN_PER_STEP = {
     "join_scan": 5,
     "sparse_conv_k3": 95, "sparse_conv_k3_mma": 94,
@@ -92,7 +99,7 @@ TRAIN_PER_STEP = {
     "strided_down_dgrad": 4, "strided_down_dgrad_mma": 4,
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
-    "k3_conv_dw": 48, "strided_dw": 8, "segment_sum": 4,
+    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "segment_sum": 4,
 }
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
@@ -120,9 +127,13 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, frag: str, iters: int = 10):
-    """Mean device time per call of `fn`'s kernels whose names hold
-    `frag`, from torch.profiler's device events over `iters` calls after
+def named(key: str, frags) -> bool:
+    return any(f in key for f in frags)
+
+
+def device_ms(fn, frags, iters: int = 10):
+    """Mean device time per call of `fn`'s kernels whose names hold one
+    of `frags`, from torch.profiler's device events over `iters` calls after
     one warm-up (a second try where the first records none); None where
     neither does.  Unlike `cuda_ms` it leaves out the host's cost per
     launch."""
@@ -138,7 +149,7 @@ def device_ms(fn, frag: str, iters: int = 10):
             torch.cuda.synchronize()
         us = sum(
             e.self_device_time_total for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and frag in e.key
+            if e.device_type != torch.autograd.DeviceType.CPU and named(e.key, frags)
         )
         if us:
             return us / 1e3 / iters
@@ -213,6 +224,69 @@ def check_close(name, got, want, ref_abs, dtype: str, rel: float) -> float:
     if not err <= tol:
         raise AssertionError(f"{name}: max |err| {err:.3e} > tol {tol:.3e}")
     return err
+
+
+def gathered_rows(x, idx):
+    """(V, K * C): row v holds x[idx[k, v]] for k = 0..K-1 side by side,
+    zero where idx is -1 (the rows a gather-GEMM reads, laid out for one
+    dense matrix product)."""
+    import torch
+
+    g = x[idx.clamp(min=0).long()]
+    g = torch.where((idx >= 0)[:, :, None], g, 0)
+    return g.permute(1, 0, 2).reshape(idx.shape[1], -1)
+
+
+def slot_rows(tables):
+    """(8, V_fine) int32: the parent of each fine row at its slot, -1 at
+    the other slots and where it has none."""
+    import torch
+
+    par, slot = tables.parent, (tables.slot & 7).long()
+    idx = torch.full((8, par.shape[0]), -1, dtype=torch.int32, device=par.device)
+    cols = torch.arange(par.shape[0], device=par.device)
+    idx[slot, cols] = par
+    return idx
+
+
+def conv_library_ms(name: str, x, w, table) -> float:
+    """One torch.mm that computes a conv call of K2 / K3 (forward or input
+    gradient) on rows gathered beforehand: (rows x K C_in) @ W reshaped
+    to (K C_in x C_out); K = 27 offsets, or the 8 slots."""
+    import torch
+
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+
+    if name == "sparse_conv_k3":
+        idx = table
+    elif name == "strided_down":
+        idx = slot_child_table(table)[0]  # one round on the path
+    else:
+        idx = slot_rows(table)
+    a = gathered_rows(x, idx)
+    b = w.reshape(-1, w.shape[2])
+    ms = cuda_ms(lambda: torch.mm(a, b))
+    del a
+    return ms
+
+
+def dw_library_ms(name: str, x, y, table, up: bool = False) -> float:
+    """One torch.mm that computes a weight gradient of K4 / K5: x^T @ the
+    cotangent rows gathered per offset or slot side by side (zero where
+    absent)."""
+    import torch
+
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+
+    if name == "k3_conv_dw":
+        b = gathered_rows(y, table)
+    elif up:  # x coarse rows, y fine rows: the children per slot
+        b = gathered_rows(y, slot_child_table(table)[0])
+    else:  # x fine rows, y coarse rows at each fine row's slot
+        b = gathered_rows(y, slot_rows(table))
+    ms = cuda_ms(lambda: torch.mm(x.t(), b))
+    del b
+    return ms
 
 
 def k1_call(topo, l: int):
@@ -309,7 +383,7 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
     for name in kernels:
         results[name] = {
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-            "library_ms": None, "_bound_parts": [0.0, 0.0],
+            "library_ms": 0.0, "_bound_parts": [0.0, 0.0],
         }
     for key, (feats, w32, table) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, rows, c_in, c_out = key
@@ -349,12 +423,14 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
                 )
             ops = 2.0 * pairs * c_in * c_out
             b, by = bound_ms(nbytes, ops, dtype)
+            lib = conv_library_ms(name, x, w, table)
             log(
                 f"{name} rows={rows} {c_in}->{c_out} x{count}/scan bf16 route {route} "
                 f"max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
-                f"bound {b:.4f} ms ({by}) pairs={pairs}"
+                f"bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms pairs={pairs}"
             )
             r = results[name]
+            r["library_ms"] += count * lib
             r["ms"] += count * ms
             r["plain_ms"] += count * pms
             r["bound_ms"] += count * b
@@ -401,8 +477,8 @@ def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU:
             continue
-        for k, frag in KERNEL_NAMES.items():
-            if frag in e.key and e.self_device_time_total > 0:
+        for k, frags in KERNEL_NAMES.items():
+            if named(e.key, frags) and e.self_device_time_total > 0:
                 dev[k][0] += e.self_device_time_total / 1e3 / n
                 dev[k][1] += e.count
     for k, (ms, count) in dev.items():
@@ -523,7 +599,10 @@ def capture_train_calls(trainer, scans) -> CallCapture:
     from taseg_tpu_torch.ops import f3conv, strided_conv, voxelize
 
     cap = CallCapture()
-    cap.patch(f3conv, "k3_conv_dw", lambda f, g, rb, out_dtype=None: ("k3_conv_dw", *f.shape, g.shape[1]))
+    cap.patch(
+        f3conv, "k3_conv_dw",
+        lambda f, g, rb, out_dtype=None, pairs=None: ("k3_conv_dw", *f.shape, g.shape[1]),
+    )
     cap.patch(
         strided_conv, "strided_dw",
         lambda x, y, t, up, out_dtype=None: (
@@ -571,15 +650,20 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     f32 in another order than the plain matmuls: 1e-4 of the largest sum
     of |terms|; K6 (against its plain version in f64) and the K2/K3 input
     gradients 1e-5 (K3-down 1e-4: its plain version sums by a
-    mean-centred cumsum)."""
+    mean-centred cumsum).  K4 in bf16 reads the level's pair lists as the
+    step passed them, and must give the same bits when its wrapper builds
+    them itself; its f32 call takes the CUDA-core route.  Each K6 call is
+    named by its place in the step, so the stride-16 call shows."""
     import torch
 
     from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv, voxelize
 
     def k4(a, kw, x, g):
-        rb = a[2]
+        rb, pairs = a[2], kw.get("pairs")
+        if x.dtype == torch.bfloat16 and pairs is None:
+            raise AssertionError("K4 was called without the level's pair lists")
         return (
-            lambda: f3conv.k3_conv_dw(x, g, rb),
+            lambda: f3conv.k3_conv_dw(x, g, rb, pairs=pairs),
             lambda: f3conv.k3_conv_dw_plain(x, g, rb),
             lambda: f3conv.k3_conv_dw_plain(x.abs(), g.abs(), rb),
         )
@@ -629,10 +713,10 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     }
     tot = {
         k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-            "library_ms": 0.0 if k == "segment_sum" else None, "_parts": [0.0, 0.0],
-            "f32_checked": False}
+            "library_ms": 0.0, "_parts": [0.0, 0.0], "f32_checked": False}
         for k in makers
     }
+    k6_names = k6_call_names([k for k in cap.seen if k[0] == "segment_sum"])
     for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name = key[0]
         make, rel = makers[name]
@@ -649,8 +733,15 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             got = twice_same(f"{key} {dtype}", kern)
             err = check_close(f"{key} {dtype}", got, want(), ref(), "float32" if name in ("k3_conv_dw", "strided_dw", "segment_sum") else dtype, rel)
             label = f"{name} {key[1:]} x{count}/step {dtype}"
+            if name == "segment_sum":
+                label = f"{name} ({k6_names[key]}) {key[1:]} x{count}/step {dtype}"
             if name in routes:
                 label += f" route {routes[name](tdt, x.shape[1], second.shape[2])}"
+            if name == "k3_conv_dw":
+                route = f3conv.dw_route(tdt, x.shape[1], second.shape[1])
+                label += f" route {route}"
+                if route == "mma" and not torch.equal(f3conv.k3_conv_dw(xd, sd, a[2]), got):
+                    raise AssertionError(f"{key}: K4 differs with pair lists built by the wrapper")
             if dtype == "float32":
                 r["f32_checked"] = True
                 log(f"  {label} max|err| {err:.3e} (bit-identical on repeat)")
@@ -661,15 +752,15 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             b, by = bound_ms(nbytes, ops, dtype)
             log(
                 f"{label} max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
-                f"bound {b:.4f} ms ({by})" + (f" index_add_ {lib:.4f} ms" if lib is not None else "")
+                f"bound {b:.4f} ms ({by}) "
+                + ("index_add_" if name == "segment_sum" else "one torch.mm") + f" {lib:.4f} ms"
             )
             r["ms"] += count * ms
             r["plain_ms"] += count * pms
             r["bound_ms"] += count * b
             r["_parts"][0 if by == "bytes" else 1] += count * b
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if lib is not None:
-                r["library_ms"] += count * lib
+            r["library_ms"] += count * lib
     for name, r in tot.items():
         parts = r.pop("_parts")
         r.pop("f32_checked")
@@ -678,11 +769,25 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
         results.setdefault(key, {}).update(r)
 
 
+def k6_call_names(keys) -> dict:
+    """Where each captured K6 call ("segment_sum", R, V, C, weighted)
+    sits in the step: the unweighted call seen first is the voxelize
+    forward (the forward runs first), the other the identity devoxelize
+    backward; of the trilinear backwards the one over more voxels is at
+    stride 4, the other at stride 16."""
+    plain = [k for k in keys if not k[4]]
+    tri = sorted((k for k in keys if k[4]), key=lambda k: -k[2])
+    names = dict(zip(plain, ("voxelize forward", "devox identity backward, stride 1")))
+    names.update(zip(tri, ("devox trilinear backward, stride 4", "devox trilinear backward, stride 16")))
+    return names
+
+
 def train_cost(name, a, kw, x, second):
-    """(bytes, operations, library ms or None) of one captured call: each
-    input read once and the output written once; operations on the pairs
-    that this call's tables hold.  K6's yardstick is one `index_add_` of
-    its (weighted) rows into the segments, on rows prepared beforehand."""
+    """(bytes, operations, library ms) of one captured call: each input
+    read once and the output written once; operations on the pairs that
+    this call's tables hold.  K6's yardstick is one `index_add_` of its
+    (weighted) rows into the segments, on rows prepared beforehand; the
+    others' one torch.mm on rows gathered beforehand."""
     import torch
 
     esz = x.element_size()
@@ -691,13 +796,13 @@ def train_cost(name, a, kw, x, second):
         v, ci, co = x.shape[0], x.shape[1], second.shape[1]
         pairs = int((rb >= 0).sum())
         return (v * (ci + co) * esz + rb.numel() * 4 + 27 * ci * co * 4,
-                2.0 * pairs * ci * co, None)
+                2.0 * pairs * ci * co, dw_library_ms(name, x, second, rb))
     if name == "strided_dw":
-        t = a[2]
+        t, up = a[2], (a[3] if len(a) > 3 else kw["up"])
         ci, co = x.shape[1], second.shape[1]
         live = int((t.parent >= 0).sum())
         return ((x.numel() + second.numel()) * esz + 8 * t.parent.shape[0] + 8 * ci * co * 4,
-                2.0 * live * ci * co, None)
+                2.0 * live * ci * co, dw_library_ms(name, x, second, t, up))
     if name == "segment_sum":
         t = a[1]
         w = a[2] if len(a) > 2 else kw.get("weights")
@@ -723,13 +828,39 @@ def train_cost(name, a, kw, x, second):
     w, t = second, a[2]
     rows, ci = x.shape
     co = w.shape[2]
+    lib = conv_library_ms(name, x, w, t)
     if name == "sparse_conv_k3":
         pairs = int((t >= 0).sum())
-        return (rows * (ci + co) * esz + w.numel() * esz + t.numel() * 4, 2.0 * pairs * ci * co, None)
+        return (rows * (ci + co) * esz + w.numel() * esz + t.numel() * 4, 2.0 * pairs * ci * co, lib)
     live = int((t.parent >= 0).sum())
     out_rows = t.starts.shape[0] - 1 if name == "strided_down" else t.parent.shape[0]
     nbytes = (rows * ci + w.numel() + out_rows * co) * esz + 4 * (3 * t.parent.shape[0] + t.starts.shape[0])
-    return nbytes, 2.0 * live * ci * co, None
+    return nbytes, 2.0 * live * ci * co, lib
+
+
+def phase_pair_lists(trainer, scans) -> None:
+    """What K4's pair lists cost the topology stage: per level of one
+    train topology, the present pairs, the buffer and the time of
+    `k3_pair_lists` (one per level and step).  The pipeline's random
+    state is put back, so the timed steps see the augmentations they
+    would see without this phase."""
+    from taseg_tpu_torch.ops import f3conv
+
+    rng = trainer.pipeline.rng.bit_generator
+    state = rng.state
+    topo = trainer.topology(trainer.collate(scans[:1]))
+    rng.state = state
+    tot = 0.0
+    for l, lt in enumerate(topo.levels):
+        ms = cuda_ms(lambda: f3conv.k3_pair_lists(lt.rb_k3_bwd))
+        v, n = lt.rb_k3_bwd.shape[1], int(lt.k3_pairs.starts[-1])
+        log(
+            f"K4 pair lists level {l}: V={v} voxels={int(lt.num)} pairs={n} "
+            f"({n / max(1, int(lt.num)):.2f} per voxel), {8 * 27 * v / 2**20:.1f} MiB, "
+            f"built in {ms:.4f} ms"
+        )
+        tot += ms
+    log(f"K4 pair lists: {tot:.4f} ms per step in the topology stage")
 
 
 def phase_small_train_step(cfg, variables) -> None:
@@ -872,7 +1003,7 @@ def phase_train_profile(trainer, scans, results: dict) -> None:
         busy += ms
         if "reduce_splits" in e.key:
             red += ms
-        mine = [k for k, frag in KERNEL_NAMES.items() if frag in e.key]
+        mine = [k for k, frags in KERNEL_NAMES.items() if named(e.key, frags)]
         for k in mine:
             dev[k] += ms
         if not mine and "reduce_splits" not in e.key:
@@ -888,6 +1019,29 @@ def phase_train_profile(trainer, scans, results: dict) -> None:
     )
     for ms, n, name in others[:10]:
         log(f"  {ms:.4f} ms x{n} {name}")
+
+
+def phase_train_probes(trainer, scans) -> None:
+    """Device time per call of K4 and K6 at every shape of one more
+    captured train step (torch.profiler device events, the call's own
+    bf16 inputs and pair lists); after the timed steps, so that neither
+    the profiler nor the captured inputs touch them."""
+    from taseg_tpu_torch.ops import f3conv, voxelize
+
+    cap = capture_train_calls(trainer, scans[:1])
+    k6_names = k6_call_names([k for k in cap.seen if k[0] == "segment_sum"])
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        name = key[0]
+        if name == "k3_conv_dw":
+            route = f3conv.dw_route(a[0].dtype, a[0].shape[1], a[1].shape[1])
+            label = f"{name} {key[1:]} route {route}"
+            call = partial(f3conv.k3_conv_dw, a[0], a[1], a[2], pairs=kw.get("pairs"))
+        elif name == "segment_sum":
+            label = f"{name} ({k6_names[key]}) {key[1:]}"
+            call = partial(voxelize.segment_sum, *a, **kw)
+        else:
+            continue
+        log(f"profiler {label} x{cap.count[key]}/step: device {fmt_ms(device_ms(call, KERNEL_NAMES[name]))} per call")
 
 
 def main() -> int:
@@ -1054,12 +1208,14 @@ def main() -> int:
     train_cap = capture_train_calls(trainer, scans[:1])
     phase_train_kernels(train_cap, results)
     del train_cap
+    phase_pair_lists(trainer, scans)
     phase_small_train_step(cfg, variables)
     train_launches = phase_train_steps(trainer, scans)
 
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
+    phase_train_probes(trainer, scans)
 
     # 7. the kernels line: K1-K3 with the inference path's launches (and
     # their train launches), K4-K6 with the train path's
@@ -1086,6 +1242,9 @@ def main() -> int:
         }
         if name in per_step:
             entry["per"] = "train step"
+            if name == "k3_conv_dw":
+                mma = train_launches["k3_conv_dw_mma"]
+                entry["launches_by_route"] = {"mma": mma, "simt": train_launches[name] - mma}
         else:
             entry["per"] = "scan"
             mma = launches[f"{name}_mma"] if f"{name}_mma" in launches else None
@@ -1098,6 +1257,7 @@ def main() -> int:
                     "dgrad_mma_launches": train_launches[f"{name}_dgrad_mma"],
                     "dgrad_ms_per_step": d["ms"], "dgrad_plain_ms_per_step": d["plain_ms"],
                     "dgrad_bound_ms_per_step": d["bound_ms"], "dgrad_max_abs_err": d["max_abs_err"],
+                    "dgrad_library_ms_per_step": d["library_ms"],
                 }
             else:
                 entry["train"] = {"launches": train_launches[name]}

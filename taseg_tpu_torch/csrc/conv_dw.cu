@@ -19,37 +19,49 @@
 // slot s).  Inputs f32 or bf16, products and sums in f32, out f32
 // (n_out, C_in, C_out); the wrappers round it to the weight's dtype.
 //
-// Bound on the H100: operations.  Each present pair costs 2 C_in C_out
-// flops; the path's 48 k3 convs hold ~184 GFLOP of present pairs per
-// step (the forward's count), which is 2.7 ms at the 67 TFLOP/s of f32
-// CUDA cores and 0.19 ms at the bf16 tensor-core rate.  The bytes (each
-// feature row read once per tile column, the tables once) are small
-// against that.  This first design stays on CUDA cores (f32 FMA on
-// operands widened in shared memory); the tensor-core route is queued.
+// Bound on the H100: operations at the wide levels, bytes at the narrow
+// ones.  Each present pair costs 2 C_in C_out flops; the path's 48 k3
+// convs hold ~184 GFLOP of present pairs per step (the forward's count),
+// 0.19 ms at the bf16 tensor-core rate and 2.7 ms at the 67 TFLOP/s of
+// f32 CUDA cores.  The bytes (feats, grad and the tables read once, d_W
+// written once) are 0.39 ms per step.
 //
-// Design:
-//   * a block owns a 64 x 64 tile of d_W[o] (4 x 4 per thread, f32
-//     registers) and walks the rows of its split in windows of 256: each
-//     thread tests one row, the present pairs are compacted in row order
-//     into shared memory (warp ballots), and the tile multiplies them 16
-//     pairs per stage.  Only present pairs are multiplied, so an offset
-//     that few rows have costs little.
-//   * split-K over rows.  At level 0 (C_in = C_out = 32) the (o, tile)
-//     grid has only 27 blocks for 132 SMs, so the rows are cut into
-//     `splits` contiguous ranges and each split writes its own partial
-//     tile.  The splits come from the shapes alone (the wrappers'
-//     `dw_splits`):
-//       splits = max(1, min(ceil(528 / (n_out * tiles)),   // 4 blocks/SM
-//                           ceil(rows / 1024),             // >= 1024 rows
-//                           floor(64 MiB / (n_out*C_in*C_out*4))))
-//     e.g. level 0, 32 -> 32: 20 splits of 6 656 rows, 2.2 MB of
-//     partials; up1_blocks_0 (384 -> 256, 648 blocks): 1 split.
-//   * determinism: no float atomics.  Within a block the pairs are summed
-//     in row order; a second kernel adds the splits' partials in split
-//     order.  Two calls on the same inputs give the same bits.
+// Two K4 routes; the wrapper picks one by dtype and widths
+// (f3conv.dw_route):
+//
+// dw_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: 47 of the 48 convs
+// of a step): tensor cores over pair lists built once per level.  The
+// topology compacts the present (i, rb_bwd[k, i]) pairs of each offset
+// k, in row order (f3conv.k3_pair_lists), into one (27 V,) int2 list with
+// a (28,) start table on the device; every conv of the level shares it.
+// d_W[k] is then a dense product over k's pair list,
+//
+//   d_W[k] = X_k^T Y_k,  X_k = feats[i of k's pairs], Y_k = g[j of them],
+//
+// with the contraction over pairs.  A block owns (a 64-row C_in tile, a
+// BN-column C_out tile, offset k, a split of k's list); it stages up to
+// kWin pairs in shared memory, then gathers X and Y rows, 32 pairs per
+// stage, by 16-byte cp.async into a 4-stage ring (the list is known
+// before the loop, so three stages are in flight while one multiplies),
+// and multiplies them with mma.sync m16n8k16 bf16 -> f32: X^T through
+// ldmatrix .trans (X is stored pair-major), Y through ldmatrix .trans as
+// gather_mma.cuh reads W.  Pairs past the list's end copy 0 bytes and
+// add 0.  Against the CUDA-core kernel below, which tested 256 rows per
+// window and multiplied the ~21 pairs it found in 16-pair rounds with no
+// loads in flight, every stage here is full and prefetched.
+//
+// Splits of a pair list come from the shapes alone (f3conv.dw_mma_splits:
+// `per_split` pairs, enough splits to cover V, the most any offset can
+// have, within 32 MiB of partials); the counts stay on the device.  A
+// split past its offset's count does nothing, and the reduction reads
+// only the splits an offset's count reaches, in split order.
+//
+// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32; also K5):
+// CUDA cores, f32 FMA on operands widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
@@ -188,6 +200,181 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   }
 }
 
+// ---- K4 on tensor cores, over per-offset pair lists ----
+namespace dwmma {
+
+namespace mma = taseg::mma;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64;        // C_in rows of d_W per block
+constexpr int kBK = 32;        // pairs per stage
+constexpr int kStages = 4;     // cp.async ring depth
+constexpr int kThreads = 128;  // 4 warps: 2 (C_in) x 2 (C_out)
+constexpr int kWin = 1024;     // pairs staged in shared memory at a time
+constexpr int kAS = kBM + mma::kPad;
+
+template <int BN>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kStages) * kBK * kAS * 2 +
+         static_cast<size_t>(kStages) * kBK * (BN + mma::kPad) * 2 +
+         static_cast<size_t>(kWin) * sizeof(int2);
+}
+
+// issue the cp.asyncs of stage t of the window: pairs [t kBK, t kBK + kBK)
+template <int BN>
+__device__ __forceinline__ void load_stage(bf16* as, bf16* bs,
+                                           const int2* ps, int buf, int t,
+                                           int n_w, const bf16* x,
+                                           const bf16* y, int c_in,
+                                           int c_out, int m0, int n0) {
+  constexpr int kBS = BN + mma::kPad, kAC = kBM / 8, kBC = BN / 8;
+  bf16* a = as + buf * kBK * kAS;
+  bf16* b = bs + buf * kBK * kBS;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kAC; e += kThreads) {
+    const int r = e / kAC, cc = (e % kAC) * 8, c = m0 + cc, p = t * kBK + r;
+    const bool ok = p < n_w && c < c_in;
+    mma::cp_async16(a + r * kAS + cc,
+                    ok ? x + static_cast<size_t>(ps[p].x) * c_in + c : x, ok);
+  }
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kBC; e += kThreads) {
+    const int r = e / kBC, cc = (e % kBC) * 8, col = n0 + cc, p = t * kBK + r;
+    const bool ok = p < n_w && col < c_out;
+    mma::cp_async16(b + r * kBS + cc,
+                    ok ? y + static_cast<size_t>(ps[p].y) * c_out + col : y,
+                    ok);
+  }
+}
+
+// acc += X(stage)^T Y(stage) for this warp's 32 x BN/2 sub-tile.  X is
+// stored [pair][C_in]: ldmatrix .trans turns its 8 x 8 blocks into the
+// row-major A fragment (lanes 8q..8q+7 address pairs (q / 2) * 8 + 0..7 at
+// C_in column (q % 2) * 8: a0..a3 = (m 0-7, k 0-7), (m 8-15, k 0-7),
+// (m 0-7, k 8-15), (m 8-15, k 8-15)).
+template <int BN>
+__device__ __forceinline__ void mma_stage(const bf16* as, const bf16* bs,
+                                          int buf,
+                                          float (&acc)[2][BN / 16][4]) {
+  constexpr int kBS = BN + mma::kPad;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2, q = lane / 8;
+  const bf16* a = as + buf * kBK * kAS + ((lane % 8) + (q / 2) * 8) * kAS +
+                  wm * 32 + (q % 2) * 8;
+  const bf16* b = bs + buf * kBK * kBS + (lane % 16) * kBS + wn * (BN / 2) +
+                  (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    unsigned af[2][4];
+    mma::ldmatrix_x4_trans(af[0], a + kk * kAS);
+    mma::ldmatrix_x4_trans(af[1], a + kk * kAS + 16);
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      unsigned bfr[4];
+      mma::ldmatrix_x4_trans(bfr, b + kk * kBS + j * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma::mma_bf16(acc[i][2 * j], af[i], bfr[0], bfr[1]);
+        mma::mma_bf16(acc[i][2 * j + 1], af[i], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// grid: x = C_in tiles * C_out tiles, y = offset k, z = split.  Split z
+// of offset k takes pairs [z per_split, (z + 1) per_split) of k's list
+// and writes its (C_in, C_out) partial at out + (z * 27 + k) C_in C_out;
+// with one split, out is d_W itself.
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+    dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                  const int2* __restrict__ pairs,
+                  const int* __restrict__ starts, float* __restrict__ out,
+                  int c_in, int c_out, int per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kBS = BN + mma::kPad;
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = as + kStages * kBK * kAS;
+  int2* ps = reinterpret_cast<int2*>(bs + kStages * kBK * kBS);
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * kBM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int k = blockIdx.y;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int lo = blockIdx.z * per_split;
+  // nothing to add: the reduction reads no partial of this split
+  if (gridDim.z > 1 && lo >= n_k) return;
+  const int n_pairs = max(0, min(per_split, n_k - lo));
+  float acc[2][BN / 16][4] = {};
+
+  for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
+    const int n_w = min(kWin, n_pairs - w0);
+    __syncthreads();  // the previous window is consumed
+    for (int e = threadIdx.x; e < n_w; e += kThreads)
+      ps[e] = pairs[beg + lo + w0 + e];
+    __syncthreads();
+    const int total = (n_w + kBK - 1) / kBK;
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < total)
+        load_stage<BN>(as, bs, ps, t, t, n_w, x, y, c_in, c_out, m0, n0);
+      mma::cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      mma::cp_async_wait<kStages - 2>();  // stage t landed (own part)
+      __syncthreads();  // everyone's part; stage t - 1 is consumed
+      const int nxt = t + kStages - 1;
+      if (nxt < total)
+        load_stage<BN>(as, bs, ps, nxt % kStages, nxt, n_w, x, y, c_in,
+                       c_out, m0, n0);
+      mma::cp_async_commit();
+      mma_stage<BN>(as, bs, t % kStages, acc);
+    }
+    mma::cp_async_wait<0>();
+  }
+
+  float* dst = out + (static_cast<size_t>(blockIdx.z) * gridDim.y + k) *
+                         static_cast<size_t>(c_in) * c_out;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + wm * 32 + i * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = n0 + wn * (BN / 2) + j * 8 + (lane % 4) * 2;
+      if (col >= c_out) continue;  // c_out % 8 == 0: col + 1 < c_out too
+      if (r < c_in) {
+        dst[static_cast<size_t>(r) * c_out + col] = acc[i][j][0];
+        dst[static_cast<size_t>(r) * c_out + col + 1] = acc[i][j][1];
+      }
+      if (r + 8 < c_in) {
+        dst[static_cast<size_t>(r + 8) * c_out + col] = acc[i][j][2];
+        dst[static_cast<size_t>(r + 8) * c_out + col + 1] = acc[i][j][3];
+      }
+    }
+  }
+}
+
+// out[e] = sum over the splits that offset k(e) reaches, in split order
+__global__ void dw_mma_reduce_splits_kernel(const float* __restrict__ part,
+                                          const int* __restrict__ starts,
+                                          float* __restrict__ out,
+                                          size_t per_k, int per_split,
+                                          int splits) {
+  const size_t n = 27 * per_k;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(e / per_k);
+    const int n_k = starts[k + 1] - starts[k];
+    const int live = min(splits, (n_k + per_split - 1) / per_split);
+    float s = 0.f;
+    for (int z = 0; z < live; ++z) s += part[static_cast<size_t>(z) * n + e];
+    out[e] = s;
+  }
+}
+
+}  // namespace dwmma
+
 template <typename Pairs>
 int launch_dw(const void* x, const void* y, Pairs pairs, void* out,
               void* part, int n_out, int n_rows, int c_in, int c_out,
@@ -248,4 +435,44 @@ extern "C" int taseg_strided_dw(const void* x, const void* y,
                            static_cast<const int*>(slot), up};
   return launch_dw(x, y, pairs, out, part, 8, v_fine, c_in, c_out, splits,
                    rows_per_split, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K4's tensor-core route.  feats (V, C_in), grad (V, C_out) bf16, 16-byte
+// aligned, C_in % 8 == 0 and C_out % 8 == 0; pairs (27 V,) int2 and
+// starts (28,) int32 from f3conv.k3_pair_lists -> out (27, C_in, C_out)
+// f32; part (splits, 27, C_in, C_out) f32 scratch when splits > 1, with
+// splits * per_split >= V.
+extern "C" int taseg_k3_conv_dw_mma(const void* feats, const void* grad,
+                                    const void* pairs, const void* starts,
+                                    void* out, void* part, int c_in,
+                                    int c_out, int splits, int per_split,
+                                    void* stream) {
+  namespace d = dwmma;
+  if (c_in <= 0 || c_out <= 0 || c_in % 8 || c_out % 8 || splits <= 0 ||
+      per_split <= 0 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(splits > 1 ? part : out);
+  const int err = taseg::mma::with_tile_n(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    const size_t bytes = d::smem_bytes<BN>();
+    cudaError_t e = cudaFuncSetAttribute(
+        d::dw_mma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int tiles = ((c_in + d::kBM - 1) / d::kBM) * ((c_out + BN - 1) / BN);
+    d::dw_mma_kernel<BN><<<dim3(tiles, 27, splits), d::kThreads, bytes, s>>>(
+        static_cast<const d::bf16*>(feats), static_cast<const d::bf16*>(grad),
+        static_cast<const int2*>(pairs), static_cast<const int*>(starts), dst,
+        c_in, c_out, per_split);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0 || splits == 1) return err;
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  const int blocks =
+      static_cast<int>(std::min<size_t>((27 * per_k + 255) / 256, 4096));
+  d::dw_mma_reduce_splits_kernel<<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<const int*>(starts),
+      static_cast<float*>(out), per_k, per_split, splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -20,12 +20,13 @@ from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 class SparseConv(nn.Module):
     """Sparse conv with weights (K, C_in, C_out); K = 1 is a plain matmul.
 
-    Called with a (27, V) rulebook, or a pair (rulebook, flipped
-    rulebook) where a gradient is wanted, it runs the stride-1 conv (K2,
-    backward K2 + K4); with `StridedTables` the ks=2/stride=2 pair (K3,
-    backward K3 + K5), `transposed` picking the direction.  The weight is
-    cast to the activation dtype first, so a bf16 stream stays bf16 (JAX
-    layers.py:104-107), and its gradient comes back in that dtype."""
+    Called with a (27, V) rulebook, or a tuple (rulebook, flipped
+    rulebook, K4's pair lists) where a gradient is wanted, it runs the
+    stride-1 conv (K2, backward K2 + K4); with `StridedTables` the
+    ks=2/stride=2 pair (K3, backward K3 + K5), `transposed` picking the
+    direction.  The weight is cast to the activation dtype first, so a
+    bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
+    comes back in that dtype."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int,
@@ -57,8 +58,8 @@ class SparseConv(nn.Module):
             return apply(feats, w.contiguous(), rulebook)
         if self.kernel_volume != 27:
             raise ValueError("only 27-point rulebook convs are supported")
-        rb, rb_bwd = rulebook if isinstance(rulebook, tuple) else (rulebook, None)
-        return k3_conv(feats, w.contiguous(), rb, rb_bwd)
+        rb, rb_bwd, pairs = rulebook if isinstance(rulebook, tuple) else (rulebook, None, None)
+        return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -10,7 +10,9 @@ The forward then touches only gathers, segment sums and matmuls.
 With `devox_pairs=True` (training) it also builds the backward-only
 tables: one flipped rulebook per level (`rb_k3_bwd`, the JAX
 `ConvPlan.rb_bwd`, built once per step and shared by every conv of the
-level) and the trilinear pair tables.  Left out against the JAX package:
+level), the level's present pairs of it compacted per offset
+(`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared)
+and the trilinear pair tables.  Left out against the JAX package:
 the TGF gather plans (the port's conv takes the rulebook directly) and
 SPVCNN's `point_vox` tables.
 """
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 
 from ...ops.coords import GridBounds, compute_bounds
+from ...ops.f3conv import K3Pairs, k3_pair_lists
 from ...ops.join import unique_coords
 from ...ops.rulebook import build_rulebook_k3, spdownsample
 from ...ops.sparse_conv import flip_rulebook
@@ -87,6 +90,8 @@ class LevelTopo:
     strided: Optional[StridedTables] = None
     # flip_rulebook(rb_k3) for the backward; None in inference topologies
     rb_k3_bwd: Optional[torch.Tensor] = None
+    # k3_pair_lists(rb_k3_bwd): K4's pair lists; None in inference
+    k3_pairs: Optional[K3Pairs] = None
 
 
 @dataclass(frozen=True)
@@ -148,9 +153,12 @@ def build_unet_topology(
 
     def level(coords, num, stride, strided=None):
         rb = build_rulebook_k3(coords, num, stride, bounds)
+        if not devox_pairs:
+            return LevelTopo(coords=coords, num=num, rb_k3=rb, strided=strided)
+        rb_bwd = flip_rulebook(rb)
         return LevelTopo(
             coords=coords, num=num, rb_k3=rb, strided=strided,
-            rb_k3_bwd=flip_rulebook(rb) if devox_pairs else None,
+            rb_k3_bwd=rb_bwd, k3_pairs=k3_pair_lists(rb_bwd),
         )
 
     levels = [level(coords0, num0, 1)]

@@ -140,7 +140,7 @@ class MinkUNet(nn.Module):
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
             ]
-            rb = [(l.rb_k3, l.rb_k3_bwd) for l in levels]
+            rb = [(l.rb_k3, l.rb_k3_bwd, l.k3_pairs) for l in levels]
         else:
             masks = [None] * len(levels)
             rb = [l.rb_k3 for l in levels]

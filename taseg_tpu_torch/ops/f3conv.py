@@ -9,13 +9,19 @@ With the flipped rulebook rb_bwd (rb_bwd[k, i] = v <=> rb_fwd[k, v] = i):
 
 So d_feats is the forward kernel K2 run on the transposed weights, and
 takes K2's tensor-core route wherever C_in and C_out are multiples of 8;
-d_W is the new kernel K4.  On CPU tensors both run their plain versions
+d_W is the kernel K4, on one of two routes (`dw_route`): for bf16 with
+C_in and C_out multiples of 8, the tensor-core kernel over the level's
+per-offset pair lists (`k3_pair_lists`, built once per level and step by
+the topology and shared by every conv of the level); else the CUDA-core
+kernel over rb_bwd.  On CPU tensors both run their plain versions
 (`f3_bwd_fused_plain`).  d_W comes back in the weight's dtype, as
 `_tgf_vjp_bwd` returns it (`d_w.astype(weight.dtype)`): with a bf16
 weight it is rounded once to bf16.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +36,63 @@ DW_MIN_ROWS = 1024
 DW_PART_BYTES = 64 << 20
 DW_TILE = 64
 DW_WINDOW = 256
+
+
+# split rule of K4's tensor-core route: pairs per split a multiple of
+# the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough splits to cover
+# V pairs (the most one offset can have) within DW_MMA_PART_BYTES of f32
+# partials
+DW_MMA_STAGE = 32
+DW_MMA_MIN_PAIRS = 512
+DW_MMA_PART_BYTES = 32 << 20
+
+
+def dw_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
+    """The kernel a CUDA call of K4 takes: "mma" (tensor cores, over pair
+    lists) for bf16 with C_in and C_out multiples of 8, else "simt" (CUDA
+    cores, over rb_bwd), as K2's `sparse_conv.route`."""
+    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
+        return "mma"
+    return "simt"
+
+
+class K3Pairs(NamedTuple):
+    """The present pairs of a flipped rulebook, compacted per offset.
+
+    pairs:  (27 V, 2) int32 — for k = 0..26 in turn, the pairs (row i,
+            rb_bwd[k, i]) with rb_bwd[k, i] >= 0, in row order; rows past
+            starts[27] are unused capacity.
+    starts: (28,) int32 — offset k's pairs are pairs[starts[k]:starts[k+1]].
+    """
+
+    pairs: torch.Tensor
+    starts: torch.Tensor
+
+
+def k3_pair_lists(rb_bwd: torch.Tensor) -> K3Pairs:
+    """K3Pairs of a (27, V) int32 flipped rulebook, on its device, by one
+    prefix sum and one scatter: no count is read back to the host."""
+    k, v = rb_bwd.shape
+    present = (rb_bwd >= 0).reshape(-1)
+    pos = torch.cumsum(present, 0)  # int64: pairs up to and including each entry
+    # absent entries all go to one spare row, cut off below
+    dest = torch.where(present, pos - 1, k * v)
+    # (i, rb_bwd[k, i]) as one int64, i in the low word: viewed as int32
+    # pairs on a little-endian device
+    packed = (rb_bwd.long() << 32) | torch.arange(v, device=rb_bwd.device)
+    out = torch.empty(k * v + 1, dtype=torch.int64, device=rb_bwd.device)
+    out.scatter_(0, dest, packed.reshape(-1))
+    starts = torch.cat([pos.new_zeros(1), pos[v - 1 :: v]]).int()
+    return K3Pairs(pairs=out[: k * v].view(torch.int32).view(k * v, 2), starts=starts)
+
+
+def dw_mma_splits(v: int, c_in: int, c_out: int) -> tuple[int, int]:
+    """(splits, pairs per split) of K4's tensor-core route for a level of
+    V rows, from the shapes alone."""
+    by_mem = max(1, DW_MMA_PART_BYTES // (27 * c_in * c_out * 4))
+    per = max(DW_MMA_MIN_PAIRS, _cdiv(v, by_mem))
+    per = _cdiv(per, DW_MMA_STAGE) * DW_MMA_STAGE
+    return max(1, _cdiv(v, per)), per
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -88,13 +151,29 @@ def k3_conv_dw_plain(
     return torch.stack(out)
 
 
+def k3_conv_dw_pairs_plain(
+    feats: torch.Tensor, grad: torch.Tensor, pairs: K3Pairs
+) -> torch.Tensor:
+    """d_W (27, C_in, C_out) f32 over the pair lists: per offset, the
+    gathered feats rows^T @ the gathered grad rows, f32 products and
+    sums (reads the start table on the host)."""
+    s = pairs.starts.tolist()
+    out = []
+    for k in range(27):
+        p = pairs.pairs[s[k] : s[k + 1]].long()
+        out.append(feats[p[:, 0]].float().t() @ grad[p[:, 1]].float())
+    return torch.stack(out)
+
+
 def k3_conv_dw(
     feats: torch.Tensor, grad: torch.Tensor, rb_bwd: torch.Tensor,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, pairs: Optional[K3Pairs] = None,
 ) -> torch.Tensor:
     """K4: feats (V, C_in), grad (V, C_out) in one dtype, rb_bwd (27, V)
     int32 -> d_W (27, C_in, C_out), summed in f32 and rounded once to
-    `out_dtype`.  Deterministic: the same inputs give the same bits."""
+    `out_dtype`.  The tensor-core route reads `pairs`, the level's
+    `k3_pair_lists(rb_bwd)` (built here when not given).  Deterministic:
+    the same inputs give the same bits."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("grad", grad, (feats.dtype,), 2, dev)
@@ -110,12 +189,42 @@ def k3_conv_dw(
         return k3_conv_dw_plain(feats, grad, rb_bwd).to(out_dtype)
     if v == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((27, c_in, c_out), dtype=out_dtype, device=dev)
+    if dw_route(feats.dtype, c_in, c_out) == "mma":
+        return _k3_conv_dw_mma(feats, grad, rb_bwd, pairs).to(out_dtype)
     out = launch_dw(
         "taseg_k3_conv_dw", "k3_conv_dw",
         (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
         (v, c_in, c_out), v, 27, feats.dtype, dev,
     )
     return out.to(out_dtype)
+
+
+def _k3_conv_dw_mma(feats, grad, rb_bwd, pairs):
+    _build.check_aligned(feats=feats, grad=grad)
+    if pairs is None:
+        pairs = k3_pair_lists(rb_bwd)
+    v, c_in = feats.shape
+    c_out = grad.shape[1]
+    _build.check("pairs", pairs.pairs, (torch.int32,), 2, feats.device)
+    _build.check("starts", pairs.starts, (torch.int32,), 1, feats.device)
+    if pairs.pairs.shape != (27 * v, 2) or pairs.starts.shape != (28,):
+        raise ValueError(
+            f"pair lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
+            f"do not fit V = {v}"
+        )
+    splits, per = dw_mma_splits(v, c_in, c_out)
+    out = torch.empty((27, c_in, c_out), dtype=torch.float32, device=feats.device)
+    part = (
+        torch.empty((splits, 27, c_in, c_out), dtype=torch.float32, device=feats.device)
+        if splits > 1 else None
+    )
+    _build.launch(
+        "taseg_k3_conv_dw_mma", _build.counters("k3_conv_dw", mma=True),
+        feats.data_ptr(), grad.data_ptr(), pairs.pairs.data_ptr(),
+        pairs.starts.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), c_in, c_out, splits, per,
+    )
+    return out
 
 
 def f3_bwd_fused_plain(feats, weight, grad, rb_bwd):
@@ -130,14 +239,16 @@ def f3_bwd_fused_plain(feats, weight, grad, rb_bwd):
 def f3_bwd_fused(
     feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
     rb_bwd: torch.Tensor, *, need_feats: bool = True,
+    pairs: Optional[K3Pairs] = None,
 ):
     """(d_feats or None, d_W) of the k3 conv for the cotangent `grad`
     (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd), counted as a
-    `sparse_conv_k3_dgrad` launch; d_W through K4, in weight's dtype.
+    `sparse_conv_k3_dgrad` launch; d_W through K4 (over the level's pair
+    lists `pairs` on its tensor-core route), in weight's dtype.
     `need_feats=False` skips d_feats (returns None)."""
     g = grad.to(feats.dtype)
     d_feats = None
     if need_feats:
         w_t = weight.transpose(1, 2).contiguous()
         d_feats = sparse_conv_k3(g, w_t, rb_bwd, dgrad=True)
-    return d_feats, k3_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype)
+    return d_feats, k3_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)

@@ -19,8 +19,8 @@ The port takes the rulebook directly and builds no TGF tables.
 
 `k3_conv` is the differentiable form (`K3Conv`, the counterpart of the
 custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its backward runs
-`f3conv.f3_bwd_fused` over the flipped rulebook `flip_rulebook(rb)`,
-which the topology builds once per level and step.
+`f3conv.f3_bwd_fused` over the flipped rulebook `flip_rulebook(rb)` and
+K4's pair lists, which the topology builds once per level and step.
 """
 
 from __future__ import annotations
@@ -107,14 +107,14 @@ def sparse_conv_k3(
 
 class K3Conv(torch.autograd.Function):
     """`sparse_conv_k3` with its gradient.  Saves feats and weight; the
-    rulebooks are held by reference (no copy).  The backward returns no
-    d_feats where feats need none (the stem's first conv, whose input is
-    the voxelized point features)."""
+    rulebooks and pair lists are held by reference (no copy).  The
+    backward returns no d_feats where feats need none (the stem's first
+    conv, whose input is the voxelized point features)."""
 
     @staticmethod
-    def forward(ctx, feats, weight, rb, rb_bwd):
+    def forward(ctx, feats, weight, rb, rb_bwd, pairs):
         ctx.save_for_backward(feats, weight)
-        ctx.rb_bwd = rb_bwd
+        ctx.rb_bwd, ctx.pairs = rb_bwd, pairs
         return sparse_conv_k3(feats, weight, rb)
 
     @staticmethod
@@ -124,9 +124,9 @@ class K3Conv(torch.autograd.Function):
         feats, weight = ctx.saved_tensors
         d_feats, d_w = f3_bwd_fused(
             feats, weight, grad.contiguous(), ctx.rb_bwd,
-            need_feats=ctx.needs_input_grad[0],
+            need_feats=ctx.needs_input_grad[0], pairs=ctx.pairs,
         )
-        return d_feats, d_w, None, None
+        return d_feats, d_w, None, None, None
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:
@@ -138,16 +138,17 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
 
 def k3_conv(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
-    rb_bwd: torch.Tensor = None,
+    rb_bwd: torch.Tensor = None, pairs=None,
 ) -> torch.Tensor:
     """The stride-1 k3 conv, differentiable where autograd asks for a
-    gradient (then `rb_bwd = flip_rulebook(rb)` is required), else the
-    plain `sparse_conv_k3` call."""
+    gradient (then `rb_bwd = flip_rulebook(rb)` is required; `pairs`,
+    `f3conv.k3_pair_lists(rb_bwd)`, is built in the backward where not
+    given), else the plain `sparse_conv_k3` call."""
     if wants_grad(feats, weight):
         if rb_bwd is None:
             raise ValueError(
                 "a gradient of the k3 conv needs the flipped rulebook: build "
                 "the topology with devox_pairs=True"
             )
-        return K3Conv.apply(feats, weight, rb, rb_bwd)
+        return K3Conv.apply(feats, weight, rb, rb_bwd, pairs)
     return sparse_conv_k3(feats, weight, rb)

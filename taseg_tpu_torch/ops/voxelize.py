@@ -11,8 +11,9 @@
 
 Every segment sum (the voxelize forward and both devoxelize backwards)
 is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`, members
-summed directly) on CUDA tensors, the JAX package's mean-centred cumsum
-(`segment_sum_plain`) on CPU tensors.
+spread over lanes in fixed-size chunks and summed in a fixed order) on
+CUDA tensors, the JAX package's mean-centred cumsum (`segment_sum_plain`)
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,11 +36,14 @@ class SegmentTables(NamedTuple):
             (members of segment u occupy perm[starts[u]:starts[u+1]]).
     starts: (V+1,) int32 — exclusive prefix of segment sizes.
     counts: (V,) int32 — segment sizes.
+    seg:    (N,) int32 — segment id of each sorted row (V for the dropped
+            rows past starts[V]); K6 reads it, the plain version does not.
     """
 
     perm: torch.Tensor
     starts: torch.Tensor
     counts: torch.Tensor
+    seg: torch.Tensor
 
 
 def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
@@ -53,10 +57,10 @@ def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
         [ids.to(torch.int32), torch.arange(num_segments, dtype=torch.int32, device=dev)]
     )
     in_range = (ids_aug >= 0) & (ids_aug < num_segments)
-    key = torch.where(in_range, ids_aug, num_segments).long()
-    _, perm = torch.sort(key, stable=True)
+    key = torch.where(in_range, ids_aug, num_segments)
+    seg, perm = torch.sort(key, stable=True)
     sizes = torch.zeros(num_segments + 1, dtype=torch.int32, device=dev)
-    sizes.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    sizes.scatter_add_(0, key.long(), torch.ones_like(key))
     starts = torch.cat(
         [
             torch.zeros(1, dtype=torch.int32, device=dev),
@@ -64,7 +68,7 @@ def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
         ]
     )
     counts = starts[1:] - starts[:-1] - 1  # minus the sentinel row
-    return SegmentTables(perm=perm, starts=starts, counts=counts)
+    return SegmentTables(perm=perm, starts=starts, counts=counts, seg=seg)
 
 
 def run_sums(rows_f32: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -103,6 +107,12 @@ def segment_sum_plain(
     return run_sums(vals[tables.perm], tables.starts)
 
 
+# sorted rows per warp of K6's first pass (kChunk, csrc/segment_sum.cu);
+# each chunk writes up to two partial rows (its first and its last
+# segment, where they cross a chunk boundary)
+SEGMENT_CHUNK = 64
+
+
 def segment_sum(
     src: torch.Tensor, tables: SegmentTables, weights: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -110,7 +120,9 @@ def segment_sum(
     rows, the last V the sentinels), out[u] = sum of weights[r] *
     src[r mod P] over its real member rows r < R.  src (P, C) f32 or
     bf16 with R a multiple of P; weights (R,) f32 or None (weight 1).
-    (V, C) f32, each segment's members added in order."""
+    (V, C) f32, each segment's members added in a fixed order (two
+    launches: chunk sums, then the merge of the segments that span
+    chunks)."""
     dev = src.device
     _build.check("src", src, (torch.float32, torch.bfloat16), 2, dev)
     _build.check("perm", tables.perm, (torch.int64,), 1, dev)
@@ -129,16 +141,21 @@ def segment_sum(
         raise ValueError("segment tables of 2^31 rows or more")
     if not _build.dispatch(src):
         return segment_sum_plain(src, tables, weights)
+    _build.check("seg", tables.seg, (torch.int32,), 1, dev)
+    n = tables.perm.shape[0]
+    if tables.seg.shape[0] != n:
+        raise ValueError(f"seg: {tables.seg.shape[0]} rows, perm has {n}")
     out = torch.empty((v, c), dtype=torch.float32, device=dev)
     if v == 0 or c == 0:
         return out
     if r_real == 0:
         return out.zero_()
+    part = torch.empty((-(-n // SEGMENT_CHUNK), 2, c), dtype=torch.float32, device=dev)
     _build.launch(
         "taseg_segment_sum", ("segment_sum",),
         src.data_ptr(), None if weights is None else weights.data_ptr(),
-        tables.perm.data_ptr(), tables.starts.data_ptr(), out.data_ptr(),
-        v, c, r_real, p, DTYPE_CODES[src.dtype],
+        tables.perm.data_ptr(), tables.seg.data_ptr(), tables.starts.data_ptr(),
+        out.data_ptr(), part.data_ptr(), v, c, r_real, p, n, DTYPE_CODES[src.dtype],
     )
     return out
 

@@ -18,8 +18,11 @@ look-back state.
 The backward kernels: K4 (`k3_conv_dw`) and K5 (`strided_dw`) reduce
 over up to all V rows in f32 in another order than the plain matmuls,
 so they are held within 1e-4 of the largest sum of |terms|; K6
-(`segment_sum`) sums short segments, within 1e-5.  Each is called twice
-on the same inputs and must give the same bits.
+(`segment_sum`) within 1e-5 (against its plain version in f64 where
+segments are long).  Each is called twice on the same inputs and must
+give the same bits.  K4 takes its tensor-core route (over the pair
+lists of `f3conv.k3_pair_lists`) in bf16 with widths that are multiples
+of 8, its CUDA-core route in f32 and at ragged widths.
 """
 
 import numpy as np
@@ -478,3 +481,85 @@ def test_backward_routes_and_counts(cuda):
         assert (L["strided_up_dgrad"], L["strided_up_dgrad_mma"]) == (1, mma)
         assert (L["k3_conv_dw"], L["strided_dw"]) == (1, 2)
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, w, wd, wu))
+
+
+@pytest.mark.parametrize("c_in,c_out", [(8, 8), (32, 32), (96, 96), (384, 256)])
+def test_k3_conv_dw_mma_route(cuda, c_in, c_out):
+    """K4's tensor-core route against its plain version: with the pair
+    lists given and built by the wrapper (the same bits), offsets without
+    pairs, pair counts that are not a multiple of the 32-pair stage; each
+    launch counts under k3_conv_dw and k3_conv_dw_mma."""
+    rng, u, num, b = _level(cuda, seed=60 + c_in)
+    rb_bwd = tsc.flip_rulebook(tr.build_rulebook_k3(u, num, 1, b))
+    rb_bwd[[0, 7, 26]] = -1
+    pairs = tf3.k3_pair_lists(rb_bwd)
+    counts = (pairs.starts[1:] - pairs.starts[:-1]).tolist()
+    assert counts[0] == counts[7] == 0 and any(n % 32 for n in counts)
+    x = _rand(rng, (u.shape[0], c_in), cuda, torch.bfloat16)
+    g = _rand(rng, (u.shape[0], c_out), cuda, torch.bfloat16)
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "mma"
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.k3_conv_dw(x, g, rb_bwd, pairs=pairs))
+    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_mma"]) == (2, 2)
+    assert torch.equal(tf3.k3_conv_dw(x, g, rb_bwd), got)
+    assert not got[[0, 7, 26]].any()
+    _close(got, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(32, 32), (64, 128)])
+def test_k3_conv_dw_mma_many_splits(cuda, c_in, c_out):
+    """A level-0 sized V splits every offset's list many times (the
+    partials are added in split order): within tolerance, the same bits
+    on a repeat call; the f32 call of the same shape takes the CUDA-core
+    route."""
+    v = 131072
+    splits, per = tf3.dw_mma_splits(v, c_in, c_out)
+    assert splits > 16
+    rng = np.random.default_rng(7)
+    idx = rng.integers(-3, v, (27, v)).astype(np.int32)
+    idx[4, : v // 2] = -1  # an offset with half its rows
+    idx = torch.from_numpy(idx).to(cuda)
+    x = _rand(rng, (v, c_in), cuda, torch.bfloat16)
+    g = _rand(rng, (v, c_out), cuda, torch.bfloat16)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.k3_conv_dw(x, g, idx))
+    _close(got, tf3.k3_conv_dw_plain(x, g, idx), tf3.k3_conv_dw_plain(x.abs(), g.abs(), idx), torch.float32, 1e-4)
+    tf3.k3_conv_dw(x.float(), g.float(), idx)
+    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_mma"]) == (3, 2)
+
+
+def _long_short_ids(rng, p):
+    """One segment of 4096+ members beside many 1-member ones, segments
+    of random length that cross the 256-row chunks, dropped rows (-1)
+    and segments with no real member (only their sentinel)."""
+    ids = np.concatenate([
+        np.full(4500, 5), np.arange(10, 1010), rng.integers(1100, 1400, p - 5500),
+    ])
+    ids[rng.integers(0, p, p // 20)] = -1
+    return torch.from_numpy(ids.astype(np.int32)), 1600
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("c", [4, 20, 45])
+def test_segment_sum_long_and_short_segments(cuda, dtype, weighted, c):
+    """K6 against its plain version in f64 over long, short, chunk-
+    crossing and sentinel-only segments; a repeat call gives the same
+    bits; one launch counted per call."""
+    rng = np.random.default_rng(90 + c)
+    p = 12000
+    ids, v = _long_short_ids(rng, p)
+    reps = 2 if weighted else 1  # the trilinear table's R = k P rows
+    tables = tvx.build_segment_tables(ids.repeat(reps).to(cuda), v)
+    src = _rand(rng, (p, c), cuda, dtype)
+    w = _rand(rng, (reps * p,), cuda, torch.float32) if weighted else None
+    _build.reset_launches()
+    got = _twice_same(lambda: tvx.segment_sum(src, tables, w))
+    assert _build.LAUNCHES["segment_sum"] == 2
+    w64 = None if w is None else w.double()
+    want = tvx.segment_sum_plain(src.double(), tables, w64)
+    ref = tvx.segment_sum_plain(src.double().abs(), tables, None if w is None else w64.abs())
+    _close(got, want, ref, torch.float32, 1e-5)
+    counts = tables.counts.cpu()
+    assert (counts == 0).sum() > 100 and counts.max() >= 4096
+    assert not got[counts.to(cuda) == 0].any()

@@ -151,6 +151,29 @@ def test_f3_bwd_fused_matches_jax(k3_level, c_in, c_out):
     assert none is None and torch.equal(dw3, dw)
 
 
+@pytest.mark.parametrize("c_in,c_out", [(4, 32), (64, 16), (32, 32)])
+def test_k4_pair_lists_match_jax(k3_level, c_in, c_out):
+    """K4 over the level's pair lists (`k3_pair_lists` of the flipped
+    rulebook, the form its tensor-core route reads) equals the plain K4
+    over rb_bwd, and JAX `f3_dw_impl` within the tolerance above; the
+    backward given the lists returns the same d_W as without them."""
+    rng, rb, _, _ = k3_level
+    v = rb.shape[1]
+    feats = rng.normal(size=(v, c_in)).astype(np.float32)
+    g = rng.normal(size=(v, c_out)).astype(np.float32)
+    jdw = f3_dw_impl(jnp.asarray(feats), jnp.asarray(g), rb)
+    tf, tg = torch.from_numpy(feats), torch.from_numpy(g)
+    rb_bwd = tsc.flip_rulebook(torch.from_numpy(np.array(rb)))
+    pairs = tf3.k3_pair_lists(rb_bwd)
+    dw = tf3.k3_conv_dw_pairs_plain(tf, tg, pairs)
+    torch.testing.assert_close(dw, tf3.k3_conv_dw_plain(tf, tg, rb_bwd), rtol=0, atol=1e-4)
+    ref = t2n(tf3.k3_conv_dw_plain(tf.abs(), tg.abs(), rb_bwd))
+    check(t2n(dw), to_np(jdw), ref, "float32")
+    w = torch.from_numpy(rng.normal(size=(27, c_in, c_out)).astype(np.float32))
+    _, dw2 = tf3.f3_bwd_fused(tf, w, tg, rb_bwd, pairs=pairs)
+    assert torch.equal(dw2, tf3.f3_bwd_fused(tf, w, tg, rb_bwd)[1])
+
+
 @pytest.fixture(scope="module")
 def strided_pair():
     """A fine level around 0 (negative coordinates: truncating division

@@ -1,8 +1,9 @@
 """Which kernel each conv of the main path takes on the card, decided on the
 CPU from the modules' widths: K2 (`sparse_conv.route`), K3-down
 (`strided_conv.downsample_route`) and K3-up (`strided_conv.upsample_route`)
-take the tensor-core route ("mma") in bf16 where C_in and C_out are
-multiples of 8, the CUDA-core route ("simt") in f32 and at ragged widths.
+and K4, the weight gradient of the k3 conv (`f3conv.dw_route`), take the
+tensor-core route ("mma") in bf16 where C_in and C_out are multiples of
+8, the CUDA-core route ("simt") in f32 and at ragged widths.
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
 import pytest
@@ -12,6 +13,7 @@ from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
 from taseg_tpu_torch.models.layers import SparseConv
 from taseg_tpu_torch.models.voxel.minkunet import MinkUNet
 from taseg_tpu_torch.ops import _build
+from taseg_tpu_torch.ops import f3conv as tf3
 from taseg_tpu_torch.ops import sparse_conv as tsc
 from taseg_tpu_torch.ops import strided_conv as tst
 
@@ -32,6 +34,15 @@ def test_k2_routes_in_bf16(convs):
     k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
     routes = {n: tsc.route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert len(k3) == 48
+    assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
+    assert sum(r == "mma" for r in routes.values()) == 47
+
+
+def test_k4_routes_in_bf16(convs):
+    """The train step's d_W of every 27-point conv but the stem's first
+    (C_in = 4) is on tensor cores: 47 of the 48 K4 launches of a step."""
+    k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
+    routes = {n: tf3.dw_route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
     assert sum(r == "mma" for r in routes.values()) == 47
 
@@ -78,6 +89,7 @@ def test_f32_routes_stay_on_cuda_cores(convs):
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels) == "simt"
 
 
 @pytest.mark.parametrize(
@@ -91,6 +103,23 @@ def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
     assert tsc.route(torch.bfloat16, c_in, c_out) == want
     assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
     assert tst.downsample_route(torch.bfloat16, c_in, c_out) == want
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == want
+    assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"
+
+
+@pytest.mark.parametrize(
+    "v,c_in,c_out",
+    [(131072, 32, 32), (131072, 96, 96), (19712, 384, 256), (7936, 256, 256), (100, 8, 8)],
+)
+def test_k4_mma_splits_from_shapes(v, c_in, c_out):
+    """K4's tensor-core splits cover V pairs (the most one offset can
+    hold) in whole 32-pair stages, keep the partials within their budget
+    and split only where a split has at least DW_MMA_MIN_PAIRS pairs."""
+    splits, per = tf3.dw_mma_splits(v, c_in, c_out)
+    assert per % tf3.DW_MMA_STAGE == 0 and per >= tf3.DW_MMA_MIN_PAIRS
+    assert splits * per >= v and (splits - 1) * per < v
+    if splits > 1:
+        assert splits * 27 * c_in * c_out * 4 <= tf3.DW_MMA_PART_BYTES
 
 
 def test_launch_counters_have_the_route_entries():
@@ -100,7 +129,7 @@ def test_launch_counters_have_the_route_entries():
         "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_mma",
         "strided_down_dgrad", "strided_down_dgrad_mma",
         "strided_up_dgrad", "strided_up_dgrad_mma",
-        "k3_conv_dw", "strided_dw", "segment_sum",
+        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "segment_sum",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())

@@ -258,3 +258,96 @@ def test_kernel_wrappers_reject_bad_inputs():
         tst.downsample_conv_apply(x, torch.zeros(27, 8, 4), tab)
     with pytest.raises(ValueError):  # starts does not fit the coarse rows
         tst.upsample_conv_apply(torch.zeros(3, 8), torch.zeros(8, 8, 4), tab)
+
+
+def _k6_two_passes(src, tables, w, chunk, r_real=None):
+    """numpy model of K6's two passes (csrc/segment_sum.cu): per chunk of
+    sorted rows, run sums written to out, or to the chunk's two partial
+    slots where the seg ids beside the chunk's ends show that its first
+    or last segment runs over; gaps (segments without rows) written 0;
+    then, per chunk whose last segment begins in it and runs on, that
+    segment's partials added in chunk order.  Unwritten rows stay NaN."""
+    perm, seg, starts = (t.numpy().astype(np.int64) for t in (tables.perm, tables.seg, tables.starts))
+    v = len(starts) - 1
+    r_real = len(perm) - v if r_real is None else r_real
+    p = src.shape[0]
+    m = starts[v]
+    n_chunks = -(-len(perm) // chunk)
+    out = np.full((v, src.shape[1]), np.nan)
+    part = np.full((n_chunks, 2, src.shape[1]), np.nan)
+    for c in range(n_chunks):
+        b = c * chunk
+        if b >= m:
+            continue
+        e = min(b + chunk, m)
+        u_first, u_last = seg[b], seg[e - 1]
+        before = seg[b - 1] if b > 0 else -1
+        first_open, last_open = before == u_first, e < m and seg[e] == u_last
+        out[before + 1 : u_first] = 0.0
+        if e == m:
+            out[u_last + 1 :] = 0.0
+        j = b
+        while j < e:
+            key, acc = seg[j], 0.0
+            while j < e and seg[j] == key:
+                r = perm[j]
+                if r < r_real:
+                    acc = acc + (1.0 if w is None else w[r]) * src[r % p]
+                j += 1
+            if (key == u_first and first_open) or (key == u_last and last_open):
+                part[c, 0 if key == u_first else 1] = acc
+            else:
+                out[key] = acc
+            if j < e:
+                out[key + 1 : seg[j]] = 0.0
+    for c in range(n_chunks):
+        b = c * chunk
+        if b >= m:
+            continue
+        e = min(b + chunk, m)
+        u = seg[e - 1]
+        if e >= m or seg[e] != u or (u == seg[b] and b > 0 and seg[b - 1] == u):
+            continue
+        last = (starts[u + 1] - 1) // chunk
+        out[u] = part[c, 0 if u == seg[b] else 1] + part[c + 1 : last + 1, 0].sum(0)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [8, 32, tvx.SEGMENT_CHUNK])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_sum_chunk_passes(chunk, weighted):
+    """The sorted segment ids that K6 reads (`SegmentTables.seg`) and the
+    decomposition of its two passes into chunk sums and partials give the
+    segment sums of JAX `_segment_sum_sorted` (via the port's plain
+    version, checked against JAX here) over long, short, chunk-crossing,
+    sentinel-only and dropped rows; without sentinels (segments with no
+    rows at all) every such segment is 0."""
+    from taseg_tpu.ops.voxelize import _segment_sum_sorted
+
+    rng = np.random.default_rng(17 + chunk)
+    p, v = 1500, 300
+    ids = np.concatenate([np.full(600, 3), rng.integers(10, 200, p - 600)]).astype(np.int32)
+    ids[rng.integers(0, p, 50)] = -1
+    reps = 2 if weighted else 1
+    tt = tvx.build_segment_tables(torch.from_numpy(np.tile(ids, reps)), v)
+    key = np.where(np.tile(ids, reps) >= 0, np.tile(ids, reps), v)
+    np.testing.assert_array_equal(tt.seg.numpy(), np.sort(np.concatenate([key, np.arange(v)])))
+    src = rng.normal(size=(p, 5))
+    w = rng.normal(size=reps * p) if weighted else None
+    got = _k6_two_passes(src, tt, w, chunk)
+    assert not np.isnan(got).any()
+    tw = None if w is None else torch.from_numpy(w)
+    want = tvx.segment_sum_plain(torch.from_numpy(src), tt, tw).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    jt = j_seg_tables(jnp.asarray(np.tile(ids, reps)), v)
+    rows = np.tile(src, (reps, 1)) * (1.0 if w is None else w[:, None])
+    jwant = np.asarray(_segment_sum_sorted(jnp.asarray(rows, jnp.float32), jt))
+    np.testing.assert_allclose(got, jwant, rtol=0, atol=1e-4 * np.abs(rows).sum(0).max())
+    # drop the sentinel rows: empty segments, and gaps inside chunks
+    keep = tt.perm.numpy() < reps * p
+    bare = tvx.SegmentTables(
+        perm=tt.perm[keep], seg=tt.seg[keep], counts=tt.counts,
+        starts=torch.from_numpy(np.searchsorted(tt.seg[keep].numpy(), np.arange(v + 1)).astype(np.int32)),
+    )
+    got = _k6_two_passes(src, bare, w, chunk, r_real=reps * p)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

@@ -12,12 +12,14 @@ from taseg_tpu.models import UNetCapacities as JCaps
 from taseg_tpu.models import build_unet_topology as j_topology
 from taseg_tpu.ops import build_rulebook_k3 as j_rb_k3
 from taseg_tpu.ops import compute_bounds as j_bounds
+from taseg_tpu.ops import flip_rulebook as j_flip
 from taseg_tpu.ops import unique_coords as j_unique
 from taseg_tpu_torch.models.voxel.backbone_context import (
     UNetCapacities,
     build_unet_topology,
 )
 from taseg_tpu_torch.ops import coords as tc
+from taseg_tpu_torch.ops import f3conv as tf3
 from taseg_tpu_torch.ops import join as tj
 from taseg_tpu_torch.ops import rulebook as tr
 
@@ -147,3 +149,63 @@ def test_capacities_match_jax():
         )
     nums = (90000, 51000, 23000, 9000, 3100)
     assert UNetCapacities.fit(131072, nums).voxels == JCaps.fit(131072, nums).voxels
+
+
+def _want_pairs(rb_bwd):
+    """The present (i, rb_bwd[k, i]) pairs, offset by offset in row
+    order, and the start table."""
+    pairs, starts = [], [0]
+    for k in range(rb_bwd.shape[0]):
+        rows = np.nonzero(rb_bwd[k] >= 0)[0]
+        pairs.append(np.stack([rows, rb_bwd[k, rows]], 1))
+        starts.append(starts[-1] + len(rows))
+    return np.concatenate(pairs).astype(np.int32), np.asarray(starts, np.int32)
+
+
+def _planar_scene(seed):
+    """Integer points on one z plane: every offset with dz != 0 is empty
+    at every level."""
+    pts, n = _scene(seed)
+    pts[:n, 2] = 5.0
+    rows = np.unique(pts[:n], axis=0)
+    pts[:] = 0
+    pts[: len(rows)] = rows
+    return pts, len(rows)
+
+
+@pytest.mark.parametrize("scene", ["random", "pipeline_sorted", "planar"])
+def test_train_topology_pair_lists(scene):
+    """K4's pair lists, built once per level by the train topology: the
+    present pairs of the flipped rulebook (JAX `flip_rulebook` of the JAX
+    level's rulebook), per offset in row order, with their start table,
+    also where offsets have no pairs (the planar scene).  Inference
+    topologies build none."""
+    scenes = {"random": lambda: _scene(11), "pipeline_sorted": lambda: _sorted_scene(3), "planar": lambda: _planar_scene(12)}
+    pts, n = scenes[scene]()
+    cap = pts.shape[0]
+    jcaps = JCaps.for_points(cap)
+    jt = jax.jit(lambda c, m: j_topology(c, m, jcaps, devox_pairs=False))(jnp.asarray(pts), jnp.int32(n))
+    args = (torch.from_numpy(pts), torch.tensor(n, dtype=torch.int32), UNetCapacities.for_points(cap))
+    tt = build_unet_topology(*args, devox_pairs=True)
+    empty = 0
+    for l, (a, b) in enumerate(zip(jt.levels, tt.levels)):
+        want_rb = np.asarray(j_flip(a.rb_k3))
+        np.testing.assert_array_equal(b.rb_k3_bwd.numpy(), want_rb, err_msg=f"L{l}")
+        pairs, starts = _want_pairs(want_rb)
+        np.testing.assert_array_equal(b.k3_pairs.starts.numpy(), starts, err_msg=f"L{l}")
+        assert b.k3_pairs.pairs.shape == (27 * want_rb.shape[1], 2)
+        np.testing.assert_array_equal(b.k3_pairs.pairs[: starts[-1]].numpy(), pairs, err_msg=f"L{l}")
+        empty += int((np.diff(starts) == 0).sum())
+    assert (empty >= 18 * len(tt.levels)) == (scene == "planar")
+    inference = build_unet_topology(*args)
+    assert all(l.k3_pairs is None and l.rb_k3_bwd is None for l in inference.levels)
+
+
+def test_pair_lists_of_a_lone_voxel():
+    """One voxel: only the centre offset has a pair; the other 26 lists
+    are empty and the padding rows are not pairs."""
+    rb = torch.full((27, 4), -1, dtype=torch.int32)
+    rb[13, 0] = 0
+    got = tf3.k3_pair_lists(rb)
+    assert got.starts.tolist() == [0] * 14 + [1] * 14
+    assert got.pairs[:1].tolist() == [[0, 0]]
