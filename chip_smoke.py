@@ -18,21 +18,24 @@ them:
      the tensor-core route of K2 and K3 wherever the widths allow it, f32
      the CUDA-core route; each per-shape line names its route.  The real
      topology's child tables take one round at every level.  voxelize_avg
-     (K6) and the plain devoxelize calls with their bounds and library
-     calls;
+     (K6) and the head's three devoxelize calls (K7) at the real tables,
+     bit-identical to the plain versions, with kernel, plain, bound and
+     library (index_select, embedding_bag) times;
   4. the main path on 3 scans: finite logits of the right shape, every
      kernel's launch count above 0, 47 of the 48 K2 launches, 4 of the 4
      K3-down and 4 of the 4 K3-up launches of each scan on the
-     tensor-core route, bf16/f32 argmax agreement, agreement of the card's
+     tensor-core route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
      kernels K4 k3_conv_dw (tensor cores over the level's pair lists in
      bf16, CUDA cores in f32 and for the stem's 4 -> 32), K5 strided_dw
-     and K6 segment_sum (each of its 4 calls named and timed), and the
-     input-gradient calls of K2 and K3 on both routes, at every shape
-     that one real step gives them, against their plain versions (and
-     bit-identical on a repeat call); what the pair lists cost the
+     (tensor cores over the level's per-slot pair lists in bf16, CUDA
+     cores in f32), K6 segment_sum (each of its 4 calls named and timed),
+     and the input-gradient calls of K2 and K3 on both routes, at every
+     shape that one real step gives them, against their plain versions
+     (and bit-identical on a repeat call), K7 bit-identical to its plain
+     version in the train forward; what the pair lists cost the
      topology; a small-scan f32 step on the card
      against the CPU's plain path; 4 full-width steps on 120 000-point
      scans with finite loss, grad norm and parameters and the launches of
@@ -40,11 +43,12 @@ them:
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
-  7. one JSON line listing the kernels, K2, K3 and K4 with their launches
-     per route, K2 and K3 with their train launches.  Beside each kernel
-     and plain time stands one PyTorch call of the same function
-     (`library_ms`): K1 three cummax, K6 one index_add_, the convs one
-     torch.mm on rows gathered beforehand.
+  7. one JSON line listing the kernels, K2, K3, K4 and K5 with their
+     launches per route, K2, K3 and K7 with their train launches.  Beside
+     each kernel and plain time stands one PyTorch call of the same
+     function (`library_ms`): K1 three cummax, K6 one index_add_, K7
+     index_select and embedding_bag, the convs one torch.mm on rows
+     gathered beforehand.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -57,7 +61,9 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from functools import partial
+from types import SimpleNamespace
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -74,7 +80,9 @@ UP_PER_SCAN = (4, 4)
 INFER_KERNELS = (
     "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma", "strided_down",
     "strided_down_mma", "strided_up", "strided_up_mma", "segment_sum",
+    "devoxelize",
 )
+DEVOX_PER_SCAN = 3  # the head's strides 1, 4 and 16
 # each wrapper's kernels, by fragments of their names in the profiler
 KERNEL_NAMES = {
     "join_scan": ("join_scan_kernel",),
@@ -82,15 +90,17 @@ KERNEL_NAMES = {
     "strided_down": ("strided_down",),
     "strided_up": ("strided_up",),
     "segment_sum": ("segment_sum_",),
-    "k3_conv_dw": ("PairsK3", "dw_mma"),
-    "strided_dw": ("PairsStrided",),
+    "k3_conv_dw": ("PairsK3", "K3Lists"),
+    "strided_dw": ("PairsStrided", "SlotLists"),
+    "devoxelize": ("devox_kernel",),
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
 # gradients (the stem's first conv takes none), all but the stem's
 # forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
-# the stem's first (4 -> 32) on tensor cores, K5 one per strided conv; K6
-# the voxelize forward and the 3 devox backwards
+# the stem's first (4 -> 32) on tensor cores, K5 one per strided conv, all
+# on tensor cores; K6 the voxelize forward and the 3 devox backwards; K7
+# the 3 devox forwards
 TRAIN_PER_STEP = {
     "join_scan": 5,
     "sparse_conv_k3": 95, "sparse_conv_k3_mma": 94,
@@ -99,7 +109,8 @@ TRAIN_PER_STEP = {
     "strided_down_dgrad": 4, "strided_down_dgrad_mma": 4,
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
-    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "segment_sum": 4,
+    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
+    "segment_sum": 4, "devoxelize": 3,
 }
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
@@ -500,12 +511,14 @@ def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
         log(f"profiler {label}: device {fmt_ms(device_ms(make(), KERNEL_NAMES[name]))} per call")
 
 
-def phase_point_ops(seg, arrays, topo, k: int) -> None:
+def phase_point_ops(seg, arrays, topo, k: int, results: dict, probes: list) -> None:
     """voxelize_avg (K6's segment sum, then the mean) and the head's
-    devoxelize calls (plain torch) on the main path: time per scan, bound
-    (bytes: each input read once, the output written once) and, where
-    one PyTorch call computes the same function, that call's time.  The head devoxelizes (V, k) bf16 rows
-    (k classes)."""
+    three devoxelize calls (K7, held bit-identical to its plain version)
+    on the main path's tables: time per scan, bound (bytes: each input
+    read once, the output written once) and, where one PyTorch call
+    computes the same function, that call's time.  The head devoxelizes
+    (V, k) bf16 rows (k classes).  Each K7 call goes into `probes` for
+    its device time."""
     import torch
 
     from taseg_tpu_torch.ops import voxelize as vx
@@ -530,37 +543,105 @@ def phase_point_ops(seg, arrays, topo, k: int) -> None:
         f"voxelize_avg (K6 segment sum + mean) P={p} V={v} C={c} x1/scan: {ms:.4f} ms, "
         f"scatter_reduce_ mean {lib:.4f} ms, bound {b:.4f} ms (bytes)"
     )
+    # its backward (JAX _voxelize_bwd, plain torch, off the path: the
+    # point features take no gradient) at the same shapes
+    g = torch.randn(v, c, device=feats.device, generator=torch.Generator(feats.device).manual_seed(SEED))
+    ctx = SimpleNamespace(inverse=inv, counts=tables.counts)
+    ms = cuda_ms(lambda: vx.VoxelizeAvg.backward(ctx, g))
+    b, _ = bound_ms(v * c * 4 + p * 4 + p * c * 4, 0.0, "float32")
+    log(f"voxelize_avg backward (plain torch) P={p} V={v} C={c}: plain {ms:.4f} ms, bound {b:.4f} ms (bytes)")
 
     gen = torch.Generator(device=feats.device).manual_seed(SEED)
-    z = torch.randn(topo.levels[0].coords.shape[0], k, device=feats.device, generator=gen)
-    z = z.to(torch.bfloat16)
-    ident = topo.devox[1]
-    want = vx.devoxelize(z, ident)
-    ms = cuda_ms(lambda: vx.devoxelize(z, ident))
-    zpad = torch.cat([z, z.new_zeros(1, k)])
-    gidx = torch.where(ident.inverse >= 0, ident.inverse, z.shape[0]).long()
-    lib = cuda_ms(lambda: torch.index_select(zpad, 0, gidx))
-    if not torch.equal(torch.index_select(zpad, 0, gidx), want):
-        raise AssertionError("index_select differs from the identity devoxelize")
-    pts = ident.inverse.shape[0]
-    b, _ = bound_ms(pts * 4 + z.numel() * 2 + pts * k * 2, 0.0, "float32")
-    log(
-        f"devoxelize identity P={pts} V={z.shape[0]} C={k} x1/scan: plain {ms:.4f} ms, "
-        f"index_select {lib:.4f} ms, bound {b:.4f} ms (bytes)"
-    )
-    for s in (4, 16):
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    for s in (1, 4, 16):
         tab = topo.devox[s]
         lvl = topo.levels[s.bit_length() - 1]
-        zs = torch.randn(lvl.coords.shape[0], k, device=feats.device, generator=gen)
-        zs = zs.to(torch.bfloat16)
-        ms = cuda_ms(lambda: vx.devoxelize(zs, tab))
-        pts = tab.idx.shape[1]
-        b, _ = bound_ms(8 * pts * 8 + zs.numel() * 2 + pts * k * 2, 0.0, "float32")
+        z = torch.randn(lvl.coords.shape[0], k, device=feats.device, generator=gen)
+        z = z.to(torch.bfloat16)
+        ms, pms, lib, lib_err, pts = devox_times(z, tab)
+        corners = 1 if s == 1 else 8
+        b, _ = bound_ms(corners * pts * (4 if s == 1 else 8) + z.numel() * 2 + pts * k * 2, 0.0, "float32")
+        yardstick = "index_select" if s == 1 else "embedding_bag"
         log(
-            f"devoxelize trilinear stride {s} P={pts} V={zs.shape[0]} C={k} x1/scan: "
-            f"plain {ms:.4f} ms, library none, bound {b:.4f} ms (bytes)"
+            f"K7 devoxelize {'identity' if s == 1 else 'trilinear'} stride {s} P={pts} "
+            f"V={z.shape[0]} C={k} x1/scan: bit-identical, kernel {ms:.4f} ms plain {pms:.4f} ms "
+            f"{yardstick} {lib:.4f} ms (max|diff| {lib_err:.3e}) bound {b:.4f} ms (bytes)"
         )
+        for key, x in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib)):
+            tot[key] += x
+        probes.append(("devoxelize", f"K7 devoxelize stride {s}", partial(devox_call, topo, s, k)))
+    results["devoxelize"] = dict(tot, bound_by="bytes")
 
+
+def devox_call(topo, s: int, k: int):
+    """K7's call at head stride `s` of the main path, on seeded random
+    (V, k) bf16 rows (its time does not depend on their values)."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    rows = topo.levels[s.bit_length() - 1].coords.shape[0]
+    gen = torch.Generator(device=topo.bounds.origin.device).manual_seed(SEED)
+    z = torch.randn(rows, k, device=gen.device, generator=gen).to(torch.bfloat16)
+    return partial(vx.devoxelize, z, topo.devox[s])
+
+
+def bits(t):
+    """The raw bits of a f32 or bf16 tensor (tells -0 from +0)."""
+    import torch
+
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def devox_check(z, table) -> None:
+    """K7 on (V, C) rows `z` and a head table: the same bits as the plain
+    version."""
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    if isinstance(table, vx.IdentityDevoxTable):
+        got, want = vx.devoxelize_identity(z, table.inverse), vx._devox_identity(z, table.inverse)
+    else:
+        got, want = vx.devoxelize_trilinear(z, table), vx._devox_trilinear(z, table)
+    if not bits(got).equal(bits(want)):
+        bad = (bits(got) != bits(want)).sum().item()
+        raise AssertionError(f"K7 devoxelize: {bad} values differ from the plain version")
+
+
+def devox_times(z, table):
+    """K7 against its plain version on one head call: (kernel ms, plain
+    ms, library ms, library max |diff|, points).  The library call is
+    `index_select` for the identity (exact) and `F.embedding_bag` (sum
+    with per-sample weights) for the trilinear, both over a zero row
+    appended for absent corners; embedding_bag sums in f32 and rounds
+    once, where K7 rounds each of its 15 products and sums to bf16, so
+    it is held within 2^-5 of the largest sum of |terms|."""
+    import torch
+    import torch.nn.functional as F
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    devox_check(z, table)
+    k = z.shape[1]
+    zpad = torch.cat([z, z.new_zeros(1, k)])
+    ms = cuda_ms(lambda: vx.devoxelize(z, table))
+    if isinstance(table, vx.IdentityDevoxTable):
+        inv = table.inverse
+        pms = cuda_ms(lambda: vx._devox_identity(z, inv))
+        gidx = torch.where(inv >= 0, inv, z.shape[0]).long()
+        lib = cuda_ms(lambda: torch.index_select(zpad, 0, gidx))
+        if not bits(torch.index_select(zpad, 0, gidx)).equal(bits(vx._devox_identity(z, inv))):
+            raise AssertionError("index_select differs from the identity devoxelize")
+        return ms, pms, lib, 0.0, inv.shape[0]
+    pms = cuda_ms(lambda: vx._devox_trilinear(z, table))
+    eidx = torch.where(table.idx >= 0, table.idx, z.shape[0]).t().contiguous()
+    ew = table.weights.t().contiguous().to(z.dtype)
+    lib = cuda_ms(lambda: F.embedding_bag(eidx, zpad, per_sample_weights=ew, mode="sum"))
+    want = vx._devox_trilinear(z, table).float()
+    err = (F.embedding_bag(eidx, zpad, per_sample_weights=ew, mode="sum").float() - want).abs().max().item()
+    ref = F.embedding_bag(eidx, zpad.float().abs(), per_sample_weights=ew.float().abs(), mode="sum")
+    if not err <= 2.0**-5 * ref.max().item():
+        raise AssertionError(f"embedding_bag differs from the trilinear devoxelize by {err:.3e}")
+    return ms, pms, lib, err, table.idx.shape[1]
 
 
 class CallCapture:
@@ -594,8 +675,8 @@ class CallCapture:
 
 def capture_train_calls(trainer, scans) -> CallCapture:
     """One real train step with the backward kernels' wrappers wrapped:
-    the inputs of K4, K5, K6 and of the input-gradient calls of K2 and
-    K3 at every shape the step gives them."""
+    the inputs of K4, K5, K6, of the input-gradient calls of K2 and K3
+    and of the forward's K7 calls at every shape the step gives them."""
     from taseg_tpu_torch.ops import f3conv, strided_conv, voxelize
 
     cap = CallCapture()
@@ -626,6 +707,14 @@ def capture_train_calls(trainer, scans) -> CallCapture:
             strided_conv, name,
             lambda x, w, t, dgrad=False, kind=kind: (kind, *x.shape, w.shape[2]) if dgrad else None,
         )
+    cap.patch(
+        voxelize, "devoxelize_trilinear",
+        lambda v, t: ("devoxelize", "trilinear", t.idx.shape[1], *v.shape),
+    )
+    cap.patch(
+        voxelize, "devoxelize_identity",
+        lambda v, inv: ("devoxelize", "identity", inv.shape[0], *v.shape),
+    )
     trainer.step(scans)
     cap.remove()
     return cap
@@ -644,7 +733,8 @@ def twice_same(name, fn):
 def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     """K4, K5, K6 and the input-gradient calls of K2 and K3 at every
     shape of one bf16 train step, against their plain versions, bit-
-    identical on repeat; each kernel also once in f32 (K2 and K3: every
+    identical on repeat (K7's forward calls bit-identical to its plain
+    version); each kernel also once in f32 (K2 and K3: every
     shape in f32, their CUDA-core route).  Per-step totals weight each
     shape by its count in the step.  K4 and K5 sum up to all V rows in
     f32 in another order than the plain matmuls: 1e-4 of the largest sum
@@ -652,7 +742,8 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     gradients 1e-5 (K3-down 1e-4: its plain version sums by a
     mean-centred cumsum).  K4 in bf16 reads the level's pair lists as the
     step passed them, and must give the same bits when its wrapper builds
-    them itself; its f32 call takes the CUDA-core route.  Each K6 call is
+    them itself; its f32 call takes the CUDA-core route; K5 likewise
+    over the level's per-slot pair lists.  Each K6 call is
     named by its place in the step, so the stride-16 call shows."""
     import torch
 
@@ -716,6 +807,11 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             "library_ms": 0.0, "_parts": [0.0, 0.0], "f32_checked": False}
         for k in makers
     }
+    for key in sorted((k for k in cap.seen if k[0] == "devoxelize"), key=str):
+        (v, t), _ = cap.seen.pop(key)
+        table = t if key[1] == "trilinear" else voxelize.IdentityDevoxTable(inverse=t)
+        devox_check(v, table)
+        log(f"devoxelize {key[1:]} x{cap.count[key]}/step (train forward): bit-identical to the plain version")
     k6_names = k6_call_names([k for k in cap.seen if k[0] == "segment_sum"])
     for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name = key[0]
@@ -742,6 +838,16 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
                 label += f" route {route}"
                 if route == "mma" and not torch.equal(f3conv.k3_conv_dw(xd, sd, a[2]), got):
                     raise AssertionError(f"{key}: K4 differs with pair lists built by the wrapper")
+            if name == "strided_dw":
+                route = f3conv.dw_route(tdt, x.shape[1], second.shape[1])
+                label += f" route {route}"
+                t, up = a[2], (a[3] if len(a) > 3 else kw["up"])
+                if route == "mma":
+                    if t.pairs is None:
+                        raise AssertionError("K5 was called without the level's pair lists")
+                    bare = replace(t, pairs=None)
+                    if not torch.equal(strided_conv.strided_dw(xd, sd, bare, up), got):
+                        raise AssertionError(f"{key}: K5 differs with pair lists built by the wrapper")
             if dtype == "float32":
                 r["f32_checked"] = True
                 log(f"  {label} max|err| {err:.3e} (bit-identical on repeat)")
@@ -839,12 +945,13 @@ def train_cost(name, a, kw, x, second):
 
 
 def phase_pair_lists(trainer, scans) -> None:
-    """What K4's pair lists cost the topology stage: per level of one
-    train topology, the present pairs, the buffer and the time of
-    `k3_pair_lists` (one per level and step).  The pipeline's random
+    """What the pair lists of K4 and K5 cost the topology stage: per
+    level of one train topology, the present pairs, the buffer and the
+    time of `k3_pair_lists` (one per level and step) and of
+    `slot_pair_lists` (one per level but the first).  The pipeline's random
     state is put back, so the timed steps see the augmentations they
     would see without this phase."""
-    from taseg_tpu_torch.ops import f3conv
+    from taseg_tpu_torch.ops import f3conv, strided_conv
 
     rng = trainer.pipeline.rng.bit_generator
     state = rng.state
@@ -861,6 +968,15 @@ def phase_pair_lists(trainer, scans) -> None:
         )
         tot += ms
     log(f"K4 pair lists: {tot:.4f} ms per step in the topology stage")
+    tot = 0.0
+    for l, lt in enumerate(topo.levels[1:], start=1):
+        ms = cuda_ms(lambda: strided_conv.slot_pair_lists(lt.strided))
+        log(
+            f"K5 pair lists level {l}: V_fine={lt.strided.parent.shape[0]} "
+            f"pairs={int(lt.strided.pairs.starts[-1])}, built in {ms:.4f} ms"
+        )
+        tot += ms
+    log(f"K5 pair lists: {tot:.4f} ms per step in the topology stage")
 
 
 def phase_small_train_step(cfg, variables) -> None:
@@ -1022,11 +1138,11 @@ def phase_train_profile(trainer, scans, results: dict) -> None:
 
 
 def phase_train_probes(trainer, scans) -> None:
-    """Device time per call of K4 and K6 at every shape of one more
+    """Device time per call of K4, K5 and K6 at every shape of one more
     captured train step (torch.profiler device events, the call's own
     bf16 inputs and pair lists); after the timed steps, so that neither
     the profiler nor the captured inputs touch them."""
-    from taseg_tpu_torch.ops import f3conv, voxelize
+    from taseg_tpu_torch.ops import f3conv, strided_conv, voxelize
 
     cap = capture_train_calls(trainer, scans[:1])
     k6_names = k6_call_names([k for k in cap.seen if k[0] == "segment_sum"])
@@ -1036,6 +1152,10 @@ def phase_train_probes(trainer, scans) -> None:
             route = f3conv.dw_route(a[0].dtype, a[0].shape[1], a[1].shape[1])
             label = f"{name} {key[1:]} route {route}"
             call = partial(f3conv.k3_conv_dw, a[0], a[1], a[2], pairs=kw.get("pairs"))
+        elif name == "strided_dw":
+            route = f3conv.dw_route(a[0].dtype, a[0].shape[1], a[1].shape[1])
+            label = f"{name} {key[1:]} route {route}"
+            call = partial(strided_conv.strided_dw, *a, **kw)
         elif name == "segment_sum":
             label = f"{name} ({k6_names[key]}) {key[1:]}"
             call = partial(voxelize.segment_sum, *a, **kw)
@@ -1107,7 +1227,7 @@ def main() -> int:
     phase_join_scan(topo, results, probes)
     phase_convs(cap, results, probes)
     check_child_rounds(topo)
-    phase_point_ops(seg, arrays, topo, cfg["MODEL"]["NUM_CLASS"])
+    phase_point_ops(seg, arrays, topo, cfg["MODEL"]["NUM_CLASS"], results, probes)
     del cap
 
     # 4. the main path, counted
@@ -1130,6 +1250,11 @@ def main() -> int:
                 f"{name}: (all, tensor-core) launches {got}, expected "
                 f"{(total * N_SCANS, mma * N_SCANS)} over {N_SCANS} scans"
             )
+    if launches["devoxelize"] != DEVOX_PER_SCAN * N_SCANS:
+        raise AssertionError(
+            f"devoxelize: {launches['devoxelize']} launches, expected "
+            f"{DEVOX_PER_SCAN} per scan over {N_SCANS} scans"
+        )
     log(
         f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]}, "
         f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]}, "
@@ -1217,8 +1342,8 @@ def main() -> int:
     phase_train_profile(trainer, scans, results)
     phase_train_probes(trainer, scans)
 
-    # 7. the kernels line: K1-K3 with the inference path's launches (and
-    # their train launches), K4-K6 with the train path's
+    # 7. the kernels line: K1-K3 and K7 with the inference path's
+    # launches (and their train launches), K4-K6 with the train path's
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
@@ -1227,6 +1352,7 @@ def main() -> int:
         "k3_conv_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/f3conv.py:219"),
         "strided_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/strided_conv.py:136"),
         "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
+        "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:241,261"),
     }
     per_step = ("k3_conv_dw", "strided_dw", "segment_sum")
     kernels = []
@@ -1242,8 +1368,8 @@ def main() -> int:
         }
         if name in per_step:
             entry["per"] = "train step"
-            if name == "k3_conv_dw":
-                mma = train_launches["k3_conv_dw_mma"]
+            if name in ("k3_conv_dw", "strided_dw"):
+                mma = train_launches[f"{name}_mma"]
                 entry["launches_by_route"] = {"mma": mma, "simt": train_launches[name] - mma}
         else:
             entry["per"] = "scan"

@@ -14,19 +14,20 @@
 //   down: X[f] = feats_fine[f],           Y[f] = g_coarse[parent f]
 //   up:   X[f] = feats_coarse[parent f],  Y[f] = g_fine[f]
 //
-// Both are one kernel over (x row, y row) pairs, `PairsK3` or
-// `PairsStrided` naming the pairs of output index o (the offset k or the
-// slot s).  Inputs f32 or bf16, products and sums in f32, out f32
-// (n_out, C_in, C_out); the wrappers round it to the weight's dtype.
+// Both are a sum over (x row, y row) pairs per output index o (the
+// offset k or the slot s).  Inputs f32 or bf16, products and sums in f32,
+// out f32 (n_out, C_in, C_out); the wrappers round it to the weight's
+// dtype.
 //
 // Bound on the H100: operations at the wide levels, bytes at the narrow
 // ones.  Each present pair costs 2 C_in C_out flops; the path's 48 k3
 // convs hold ~184 GFLOP of present pairs per step (the forward's count),
 // 0.19 ms at the bf16 tensor-core rate and 2.7 ms at the 67 TFLOP/s of
 // f32 CUDA cores.  The bytes (feats, grad and the tables read once, d_W
-// written once) are 0.39 ms per step.
+// written once) are 0.39 ms per step.  K5 has at most one pair per fine
+// row: ~12 GFLOP per step, so its 0.047 ms of bytes set its floor.
 //
-// Two K4 routes; the wrapper picks one by dtype and widths
+// Two routes for each; the wrappers pick one by dtype and widths
 // (f3conv.dw_route):
 //
 // dw_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: 47 of the 48 convs
@@ -50,14 +51,23 @@
 // window and multiplied the ~21 pairs it found in 16-pair rounds with no
 // loads in flight, every stage here is full and prefetched.
 //
-// Splits of a pair list come from the shapes alone (f3conv.dw_mma_splits:
-// `per_split` pairs, enough splits to cover V, the most any offset can
-// have, within 32 MiB of partials); the counts stay on the device.  A
-// split past its offset's count does nothing, and the reduction reads
-// only the splits an offset's count reaches, in split order.
+// K5 runs the same tile with the 8 slots as the lists: every live fine
+// row f has one slot, so the train topology compacts the (f, parent f)
+// pairs slot by slot, in row order, into one (V_fine,) int2 list with a
+// (9,) start table (strided_conv.slot_pair_lists); the down and the up
+// conv of a level share it, the up direction reading each pair swapped
+// (X = coarse feats[parent f], Y = fine grad[f]).  Against the CUDA-core
+// kernel, whose blocks each scanned every row of the tables for the ~1/8
+// of their slot, each list is read once.
 //
-// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32; also K5):
-// CUDA cores, f32 FMA on operands widened in shared memory:
+// Splits of a pair list come from the shapes alone (f3conv.dw_mma_splits:
+// `per_split` pairs, enough splits to cover V, the most any list can
+// have, within 32 MiB of partials); the counts stay on the device.  A
+// split past its list's count does nothing, and the reduction reads
+// only the splits a list's count reaches, in split order.
+//
+// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32, for K4
+// and K5): CUDA cores, f32 FMA on operands widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"
@@ -281,16 +291,27 @@ __device__ __forceinline__ void mma_stage(const bf16* as, const bf16* bs,
   }
 }
 
-// grid: x = C_in tiles * C_out tiles, y = offset k, z = split.  Split z
-// of offset k takes pairs [z per_split, (z + 1) per_split) of k's list
-// and writes its (C_in, C_out) partial at out + (z * 27 + k) C_in C_out;
-// with one split, out is d_W itself.
-template <int BN>
+// The lists of K4 and K5; the tag also tells their kernels apart in a
+// profile.
+struct K3Lists {
+  static constexpr int kOut = 27;  // offsets
+};
+struct SlotLists {
+  static constexpr int kOut = 8;  // slots
+};
+
+// grid: x = C_in tiles * C_out tiles, y = list k (of Lists::kOut), z =
+// split.  Split z of list k takes pairs [z per_split, (z + 1) per_split)
+// of k's list and writes its (C_in, C_out) partial at out + (z * kOut +
+// k) C_in C_out; with one split, out is d_W itself.  `swap` reads each
+// pair as (y row, x row): K5's up direction over the down direction's
+// (fine, parent) lists.
+template <int BN, typename Lists>
 __global__ void __launch_bounds__(kThreads)
     dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
                   const int2* __restrict__ pairs,
                   const int* __restrict__ starts, float* __restrict__ out,
-                  int c_in, int c_out, int per_split) {
+                  int c_in, int c_out, int per_split, int swap) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kBS = BN + mma::kPad;
   bf16* as = reinterpret_cast<bf16*>(smem);
@@ -309,8 +330,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
     const int n_w = min(kWin, n_pairs - w0);
     __syncthreads();  // the previous window is consumed
-    for (int e = threadIdx.x; e < n_w; e += kThreads)
-      ps[e] = pairs[beg + lo + w0 + e];
+    for (int e = threadIdx.x; e < n_w; e += kThreads) {
+      const int2 q = pairs[beg + lo + w0 + e];
+      ps[e] = swap ? make_int2(q.y, q.x) : q;
+    }
     __syncthreads();
     const int total = (n_w + kBK - 1) / kBK;
 #pragma unroll
@@ -332,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
     mma::cp_async_wait<0>();
   }
 
-  float* dst = out + (static_cast<size_t>(blockIdx.z) * gridDim.y + k) *
+  float* dst = out + (static_cast<size_t>(blockIdx.z) * Lists::kOut + k) *
                          static_cast<size_t>(c_in) * c_out;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
@@ -355,13 +378,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[e] = sum over the splits that offset k(e) reaches, in split order
+// out[e] = sum over the splits that list k(e) reaches, in split order
+template <typename Lists>
 __global__ void dw_mma_reduce_splits_kernel(const float* __restrict__ part,
                                           const int* __restrict__ starts,
                                           float* __restrict__ out,
                                           size_t per_k, int per_split,
                                           int splits) {
-  const size_t n = 27 * per_k;
+  const size_t n = Lists::kOut * per_k;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int k = static_cast<int>(e / per_k);
@@ -371,6 +395,42 @@ __global__ void dw_mma_reduce_splits_kernel(const float* __restrict__ part,
     for (int z = 0; z < live; ++z) s += part[static_cast<size_t>(z) * n + e];
     out[e] = s;
   }
+}
+
+// Lists::kOut pair lists -> out (kOut, C_in, C_out) f32, through part
+// when splits > 1
+template <typename Lists>
+int launch_dw_mma(const void* x, const void* y, const void* pairs,
+                  const void* starts, void* out, void* part, int c_in,
+                  int c_out, int swap, int splits, int per_split,
+                  cudaStream_t s) {
+  constexpr int n_out = Lists::kOut;
+  if (c_in <= 0 || c_out <= 0 || c_in % 8 || c_out % 8 || splits <= 0 ||
+      per_split <= 0 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dst = static_cast<float*>(splits > 1 ? part : out);
+  const int err = mma::with_tile_n(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    const size_t bytes = smem_bytes<BN>();
+    cudaError_t e = cudaFuncSetAttribute(
+        dw_mma_kernel<BN, Lists>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int tiles = ((c_in + kBM - 1) / kBM) * ((c_out + BN - 1) / BN);
+    dw_mma_kernel<BN, Lists><<<dim3(tiles, n_out, splits), kThreads, bytes, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(y),
+        static_cast<const int2*>(pairs), static_cast<const int*>(starts), dst,
+        c_in, c_out, per_split, swap);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0 || splits == 1) return err;
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  const int blocks =
+      static_cast<int>(std::min<size_t>((n_out * per_k + 255) / 256, 4096));
+  dw_mma_reduce_splits_kernel<Lists><<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<const int*>(starts),
+      static_cast<float*>(out), per_k, per_split, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dwmma
@@ -447,32 +507,25 @@ extern "C" int taseg_k3_conv_dw_mma(const void* feats, const void* grad,
                                     void* out, void* part, int c_in,
                                     int c_out, int splits, int per_split,
                                     void* stream) {
-  namespace d = dwmma;
-  if (c_in <= 0 || c_out <= 0 || c_in % 8 || c_out % 8 || splits <= 0 ||
-      per_split <= 0 || (splits > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(splits > 1 ? part : out);
-  const int err = taseg::mma::with_tile_n(c_out, [&](auto bn) {
-    constexpr int BN = decltype(bn)::value;
-    const size_t bytes = d::smem_bytes<BN>();
-    cudaError_t e = cudaFuncSetAttribute(
-        d::dw_mma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int tiles = ((c_in + d::kBM - 1) / d::kBM) * ((c_out + BN - 1) / BN);
-    d::dw_mma_kernel<BN><<<dim3(tiles, 27, splits), d::kThreads, bytes, s>>>(
-        static_cast<const d::bf16*>(feats), static_cast<const d::bf16*>(grad),
-        static_cast<const int2*>(pairs), static_cast<const int*>(starts), dst,
-        c_in, c_out, per_split);
-    return static_cast<int>(cudaGetLastError());
-  });
-  if (err != 0 || splits == 1) return err;
-  const size_t per_k = static_cast<size_t>(c_in) * c_out;
-  const int blocks =
-      static_cast<int>(std::min<size_t>((27 * per_k + 255) / 256, 4096));
-  d::dw_mma_reduce_splits_kernel<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<const int*>(starts),
-      static_cast<float*>(out), per_k, per_split, splits);
-  return static_cast<int>(cudaGetLastError());
+  return dwmma::launch_dw_mma<dwmma::K3Lists>(
+      feats, grad, pairs, starts, out, part, c_in, c_out, 0, splits,
+      per_split, static_cast<cudaStream_t>(stream));
+}
+
+// K5's tensor-core route.  pairs (V_fine, 2) int32 (fine row, parent)
+// and starts (9,) int32 from strided_conv.slot_pair_lists; down (up = 0):
+// x = fine feats (V_fine, C_in), y = coarse grad (V_coarse, C_out); up
+// (up = 1, the pairs read as (parent, fine row)): x = coarse feats
+// (V_coarse, C_in), y = fine grad (V_fine, C_out); bf16, 16-byte aligned,
+// C_in % 8 == 0 and C_out % 8 == 0 -> out (8, C_in, C_out) f32; part
+// (splits, 8, C_in, C_out) f32 scratch when splits > 1, with splits *
+// per_split >= V_fine.
+extern "C" int taseg_strided_dw_mma(const void* x, const void* y,
+                                    const void* pairs, const void* starts,
+                                    void* out, void* part, int c_in,
+                                    int c_out, int up, int splits,
+                                    int per_split, void* stream) {
+  return dwmma::launch_dw_mma<dwmma::SlotLists>(
+      x, y, pairs, starts, out, part, c_in, c_out, up, splits, per_split,
+      static_cast<cudaStream_t>(stream));
 }

@@ -67,7 +67,8 @@ class MaskedBatchNorm(nn.Module):
 
     Train mode: batch statistics over the rows where `mask` is True, in
     f32; the running mean and (unbiased) var are buffers updated in place
-    with momentum 0.1 under `no_grad`; x is normalised in its own dtype,
+    with `momentum` (torch convention, 0.1 by default; the models pass
+    `MODEL.BN_MOMENTUM`) under `no_grad`; x is normalised in its own dtype,
     in the JAX order, and padding rows come out 0.  Eval mode: running
     statistics are constants, so the layer is one multiply-add `x * g + b`
     in the activation dtype (JAX layers.py:225-237) and padding rows are
@@ -115,13 +116,15 @@ class ConvBNReLU(nn.Module):
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int,
-        transposed: bool = False, device=None,
+        transposed: bool = False, bn_momentum: float = 0.1, device=None,
     ):
         super().__init__()
         self.SparseConv_0 = SparseConv(
             in_channels, out_channels, kernel_volume, transposed, device=device
         )
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, device=device)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(
+            out_channels, momentum=bn_momentum, device=device
+        )
 
     def forward(self, feats, rulebook, mask=None):
         h = self.SparseConv_0(feats, rulebook)
@@ -134,16 +137,20 @@ class ResidualBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, in_channels: int, out_channels: int, device=None):
+    def __init__(
+        self, in_channels: int, out_channels: int, bn_momentum: float = 0.1,
+        device=None,
+    ):
         super().__init__()
+        bn = dict(momentum=bn_momentum, device=device)
         self.SparseConv_0 = SparseConv(in_channels, out_channels, 27, device=device)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, device=device)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, **bn)
         self.SparseConv_1 = SparseConv(out_channels, out_channels, 27, device=device)
-        self.MaskedBatchNorm_1 = MaskedBatchNorm(out_channels, device=device)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(out_channels, **bn)
         self.project = in_channels != out_channels
         if self.project:
             self.SparseConv_2 = SparseConv(in_channels, out_channels, 1, device=device)
-            self.MaskedBatchNorm_2 = MaskedBatchNorm(out_channels, device=device)
+            self.MaskedBatchNorm_2 = MaskedBatchNorm(out_channels, **bn)
 
     def forward(self, feats, rulebook, mask=None):
         h = torch.relu(self.MaskedBatchNorm_0(self.SparseConv_0(feats, rulebook), mask))

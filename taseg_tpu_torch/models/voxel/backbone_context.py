@@ -11,25 +11,27 @@ With `devox_pairs=True` (training) it also builds the backward-only
 tables: one flipped rulebook per level (`rb_k3_bwd`, the JAX
 `ConvPlan.rb_bwd`, built once per step and shared by every conv of the
 level), the level's present pairs of it compacted per offset
-(`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared)
-and the trilinear pair tables.  Left out against the JAX package:
+(`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared),
+the parent relation's pairs compacted per slot (`StridedTables.pairs`,
+the pair lists of K5's tensor-core route, shared by the level's down and
+up conv) and the trilinear pair tables.  Left out against the JAX package:
 the TGF gather plans (the port's conv takes the rulebook directly) and
 SPVCNN's `point_vox` tables.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
 
 from ...ops.coords import GridBounds, compute_bounds
-from ...ops.f3conv import K3Pairs, k3_pair_lists
+from ...ops.f3conv import PairLists, k3_pair_lists
 from ...ops.join import unique_coords
 from ...ops.rulebook import build_rulebook_k3, spdownsample
 from ...ops.sparse_conv import flip_rulebook
-from ...ops.strided_conv import StridedTables, build_strided_tables
+from ...ops.strided_conv import StridedTables, build_strided_tables, slot_pair_lists
 from ...ops.voxelize import (
     IdentityDevoxTable,
     SegmentTables,
@@ -91,7 +93,7 @@ class LevelTopo:
     # flip_rulebook(rb_k3) for the backward; None in inference topologies
     rb_k3_bwd: Optional[torch.Tensor] = None
     # k3_pair_lists(rb_k3_bwd): K4's pair lists; None in inference
-    k3_pairs: Optional[K3Pairs] = None
+    k3_pairs: Optional[PairLists] = None
 
 
 @dataclass(frozen=True)
@@ -172,6 +174,8 @@ def build_unet_topology(
         strided = build_strided_tables(
             prev_coords, prev_num, parent, counts, perm, s_prev
         )
+        if devox_pairs:
+            strided = replace(strided, pairs=slot_pair_lists(strided))
         levels.append(level(coords_l, num_l, 2**l, strided))
         prev_coords, prev_num = coords_l, num_l
 

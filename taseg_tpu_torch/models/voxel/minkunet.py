@@ -70,6 +70,7 @@ class MinkUNet(nn.Module):
         cr: float = 1.0,
         compute_dtype: str = "float32",
         dropout_p: float = 0.3,
+        bn_momentum: float = 0.1,
         device=None,
     ):
         super().__init__()
@@ -83,22 +84,23 @@ class MinkUNet(nn.Module):
         blk = BLOCKS[block]
         cs = [int(cr * x) for x in planes]
         add = self.add_module
-        add("stem_0", ConvBNReLU(in_dim, cs[0], 27, device=dev))
-        add("stem_1", ConvBNReLU(cs[0], cs[0], 27, device=dev))
+        kw = dict(bn_momentum=bn_momentum, device=dev)
+        add("stem_0", ConvBNReLU(in_dim, cs[0], 27, **kw))
+        add("stem_1", ConvBNReLU(cs[0], cs[0], 27, **kw))
         ch = cs[0]
         enc_ch = [ch]
         for l in range(1, 5):
-            add(f"down{l}", ConvBNReLU(ch, ch, 8, device=dev))
+            add(f"down{l}", ConvBNReLU(ch, ch, 8, **kw))
             for i in range(self.num_layer[l - 1]):
-                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l], cs[l], device=dev))
+                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l], cs[l], **kw))
             ch = cs[l]
             enc_ch.append(ch)
         for k, lvl in enumerate((4, 3, 2, 1), start=1):
             out_ch = cs[4 + k]
-            add(f"up{k}_deconv", ConvBNReLU(ch, out_ch, 8, transposed=True, device=dev))
+            add(f"up{k}_deconv", ConvBNReLU(ch, out_ch, 8, transposed=True, **kw))
             for i in range(self.num_layer[3 + k]):
                 c_in = out_ch + enc_ch[lvl - 1] if i == 0 else out_ch
-                add(f"up{k}_blocks_{i}", blk(c_in, out_ch, device=dev))
+                add(f"up{k}_blocks_{i}", blk(c_in, out_ch, **kw))
             ch = out_ch
         # head widths: x4 (stride 16), y2 (stride 4), y4 (stride 1)
         add("classifier", _TriScaleHead((cs[4], cs[6], cs[8]), num_classes, device=dev))
@@ -107,7 +109,8 @@ class MinkUNet(nn.Module):
     def from_cfg(cfg: dict, device=None, compute_dtype=None) -> "MinkUNet":
         """Build from a config dict with the YAML's layout (`MODEL.PLANES`,
         `NUM_LAYER`, `cr`, `NUM_CLASS`, `IN_FEATURE_DIM`, `BLOCK`,
-        `COMPUTE_DTYPE`), defaults as in `taseg_tpu.models.build_model`."""
+        `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`), defaults as in
+        `taseg_tpu.models.build_model`."""
         m = cfg["MODEL"]
         if m.get("NAME", "MinkUNet") != "MinkUNet":
             raise ValueError(f"the port runs MinkUNet only, not {m['NAME']}")
@@ -120,6 +123,7 @@ class MinkUNet(nn.Module):
             cr=m.get("cr", 1.0),
             compute_dtype=compute_dtype or m.get("COMPUTE_DTYPE", "float32"),
             dropout_p=float(m.get("DROPOUT_P", 0.3)),
+            bn_momentum=float(m.get("BN_MOMENTUM", 0.1)),
             device=device,
         )
 

@@ -11,13 +11,14 @@ Each kernel wrapper adds one to its entries of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show which kernels it
 went through.  `sparse_conv_k3`, `strided_down` and `strided_up` count
 every launch of K2, K3-down and K3-up; `sparse_conv_k3_mma`,
-`strided_down_mma`, `strided_up_mma` and `k3_conv_dw_mma` count those
-that took the tensor-core route.  The `_dgrad` counters count, again,
-the launches of K2 and K3 that compute an input gradient (the backward
-of the k3 conv and of the other strided direction).  K1 (`join_scan`) launches one
-kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
+`strided_down_mma`, `strided_up_mma`, `k3_conv_dw_mma` and
+`strided_dw_mma` count those that took the tensor-core route.  The
+`_dgrad` counters count, again, the launches of K2 and K3 that compute
+an input gradient (the backward of the k3 conv and of the other strided
+direction).  K1 (`join_scan`) launches one kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
 (`segment_sum`) count one per call, their second kernel (the split
-reduction, K6's merge of chunk partials) included.
+reduction, K6's merge of chunk partials) included; K7 (`devoxelize`)
+launches one kernel per call, trilinear or identity.
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ LAUNCHES = {
     "k3_conv_dw": 0,
     "k3_conv_dw_mma": 0,
     "strided_dw": 0,
+    "strided_dw_mma": 0,
     "segment_sum": 0,
+    "devoxelize": 0,
 }
 
 _P = ctypes.c_void_p
@@ -75,7 +78,10 @@ _SIGNATURES = {
     "taseg_k3_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_k3_conv_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_strided_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -38,40 +38,44 @@ DW_TILE = 64
 DW_WINDOW = 256
 
 
-# split rule of K4's tensor-core route: pairs per split a multiple of
-# the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough splits to cover
-# V pairs (the most one offset can have) within DW_MMA_PART_BYTES of f32
-# partials
+# split rule of the tensor-core route of K4 and K5: pairs per split a
+# multiple of the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough
+# splits to cover V pairs (the most one list can have) within
+# DW_MMA_PART_BYTES of f32 partials
 DW_MMA_STAGE = 32
 DW_MMA_MIN_PAIRS = 512
 DW_MMA_PART_BYTES = 32 << 20
 
 
 def dw_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of K4 takes: "mma" (tensor cores, over pair
-    lists) for bf16 with C_in and C_out multiples of 8, else "simt" (CUDA
-    cores, over rb_bwd), as K2's `sparse_conv.route`."""
+    """The kernel a CUDA call of K4 or K5 takes: "mma" (tensor cores, over
+    pair lists) for bf16 with C_in and C_out multiples of 8, else "simt"
+    (CUDA cores, over rb_bwd or the strided tables), as K2's
+    `sparse_conv.route`."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
         return "mma"
     return "simt"
 
 
-class K3Pairs(NamedTuple):
-    """The present pairs of a flipped rulebook, compacted per offset.
+class PairLists(NamedTuple):
+    """Present (x row, y row) pairs of a weight gradient, compacted per
+    output index o (K4's 27 offsets, K5's 8 slots), each list in row
+    order.
 
-    pairs:  (27 V, 2) int32 — for k = 0..26 in turn, the pairs (row i,
-            rb_bwd[k, i]) with rb_bwd[k, i] >= 0, in row order; rows past
-            starts[27] are unused capacity.
-    starts: (28,) int32 — offset k's pairs are pairs[starts[k]:starts[k+1]].
+    pairs:  (capacity, 2) int32 — for o = 0..n_out-1 in turn, o's pairs;
+            rows past starts[n_out] are unused capacity.
+    starts: (n_out + 1,) int32 — o's pairs are pairs[starts[o]:starts[o+1]].
     """
 
     pairs: torch.Tensor
     starts: torch.Tensor
 
 
-def k3_pair_lists(rb_bwd: torch.Tensor) -> K3Pairs:
-    """K3Pairs of a (27, V) int32 flipped rulebook, on its device, by one
-    prefix sum and one scatter: no count is read back to the host."""
+def k3_pair_lists(rb_bwd: torch.Tensor) -> PairLists:
+    """K4's PairLists of a (27, V) int32 flipped rulebook: per offset k
+    the pairs (row i, rb_bwd[k, i]) with rb_bwd[k, i] >= 0, in a (27 V, 2)
+    buffer; on its device, by one prefix sum and one scatter: no count
+    is read back to the host."""
     k, v = rb_bwd.shape
     present = (rb_bwd >= 0).reshape(-1)
     pos = torch.cumsum(present, 0)  # int64: pairs up to and including each entry
@@ -83,13 +87,14 @@ def k3_pair_lists(rb_bwd: torch.Tensor) -> K3Pairs:
     out = torch.empty(k * v + 1, dtype=torch.int64, device=rb_bwd.device)
     out.scatter_(0, dest, packed.reshape(-1))
     starts = torch.cat([pos.new_zeros(1), pos[v - 1 :: v]]).int()
-    return K3Pairs(pairs=out[: k * v].view(torch.int32).view(k * v, 2), starts=starts)
+    return PairLists(pairs=out[: k * v].view(torch.int32).view(k * v, 2), starts=starts)
 
 
-def dw_mma_splits(v: int, c_in: int, c_out: int) -> tuple[int, int]:
-    """(splits, pairs per split) of K4's tensor-core route for a level of
-    V rows, from the shapes alone."""
-    by_mem = max(1, DW_MMA_PART_BYTES // (27 * c_in * c_out * 4))
+def dw_mma_splits(v: int, c_in: int, c_out: int, n_out: int = 27) -> tuple[int, int]:
+    """(splits, pairs per split) of the tensor-core route of K4 (n_out =
+    27 offsets) or K5 (8 slots) when one list can hold up to V pairs,
+    from the shapes alone."""
+    by_mem = max(1, DW_MMA_PART_BYTES // (n_out * c_in * c_out * 4))
     per = max(DW_MMA_MIN_PAIRS, _cdiv(v, by_mem))
     per = _cdiv(per, DW_MMA_STAGE) * DW_MMA_STAGE
     return max(1, _cdiv(v, per)), per
@@ -152,14 +157,15 @@ def k3_conv_dw_plain(
 
 
 def k3_conv_dw_pairs_plain(
-    feats: torch.Tensor, grad: torch.Tensor, pairs: K3Pairs
+    feats: torch.Tensor, grad: torch.Tensor, pairs: PairLists
 ) -> torch.Tensor:
-    """d_W (27, C_in, C_out) f32 over the pair lists: per offset, the
-    gathered feats rows^T @ the gathered grad rows, f32 products and
-    sums (reads the start table on the host)."""
+    """d_W (n_out, C_in, C_out) f32 over the pair lists (K4's 27 offsets,
+    or K5's 8 slots): per list, the gathered feats rows^T @ the gathered
+    grad rows, f32 products and sums (reads the start table on the
+    host)."""
     s = pairs.starts.tolist()
     out = []
-    for k in range(27):
+    for k in range(len(s) - 1):
         p = pairs.pairs[s[k] : s[k + 1]].long()
         out.append(feats[p[:, 0]].float().t() @ grad[p[:, 1]].float())
     return torch.stack(out)
@@ -167,7 +173,7 @@ def k3_conv_dw_pairs_plain(
 
 def k3_conv_dw(
     feats: torch.Tensor, grad: torch.Tensor, rb_bwd: torch.Tensor,
-    out_dtype: torch.dtype = torch.float32, pairs: Optional[K3Pairs] = None,
+    out_dtype: torch.dtype = torch.float32, pairs: Optional[PairLists] = None,
 ) -> torch.Tensor:
     """K4: feats (V, C_in), grad (V, C_out) in one dtype, rb_bwd (27, V)
     int32 -> d_W (27, C_in, C_out), summed in f32 and rounded once to
@@ -200,29 +206,42 @@ def k3_conv_dw(
 
 
 def _k3_conv_dw_mma(feats, grad, rb_bwd, pairs):
-    _build.check_aligned(feats=feats, grad=grad)
     if pairs is None:
         pairs = k3_pair_lists(rb_bwd)
-    v, c_in = feats.shape
-    c_out = grad.shape[1]
-    _build.check("pairs", pairs.pairs, (torch.int32,), 2, feats.device)
-    _build.check("starts", pairs.starts, (torch.int32,), 1, feats.device)
-    if pairs.pairs.shape != (27 * v, 2) or pairs.starts.shape != (28,):
+    v = feats.shape[0]
+    return launch_dw_mma(
+        "taseg_k3_conv_dw_mma", "k3_conv_dw", feats, grad, pairs, 27, v, 27 * v,
+    )
+
+
+def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
+                  max_pairs: int, capacity: int, *extra) -> torch.Tensor:
+    """Launch the tensor-core route of K4 or K5 (C entry `name`, counted
+    under `counter` and its `_mma` entry) over `pairs`, n_out lists of up
+    to `max_pairs` pairs each in a (capacity, 2) buffer; `extra` are the
+    entry's int arguments after the widths.  Returns the f32 (n_out,
+    C_in, C_out) result."""
+    dev = x.device
+    _build.check_aligned(x=x, y=y)
+    _build.check("pairs", pairs.pairs, (torch.int32,), 2, dev)
+    _build.check("starts", pairs.starts, (torch.int32,), 1, dev)
+    if pairs.pairs.shape != (capacity, 2) or pairs.starts.shape != (n_out + 1,):
         raise ValueError(
             f"pair lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
-            f"do not fit V = {v}"
+            f"do not fit ({capacity}, 2) / ({n_out + 1},)"
         )
-    splits, per = dw_mma_splits(v, c_in, c_out)
-    out = torch.empty((27, c_in, c_out), dtype=torch.float32, device=feats.device)
+    c_in, c_out = x.shape[1], y.shape[1]
+    splits, per = dw_mma_splits(max_pairs, c_in, c_out, n_out)
+    out = torch.empty((n_out, c_in, c_out), dtype=torch.float32, device=dev)
     part = (
-        torch.empty((splits, 27, c_in, c_out), dtype=torch.float32, device=feats.device)
+        torch.empty((splits, n_out, c_in, c_out), dtype=torch.float32, device=dev)
         if splits > 1 else None
     )
     _build.launch(
-        "taseg_k3_conv_dw_mma", _build.counters("k3_conv_dw", mma=True),
-        feats.data_ptr(), grad.data_ptr(), pairs.pairs.data_ptr(),
+        name, _build.counters(counter, mma=True),
+        x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(),
         pairs.starts.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), c_in, c_out, splits, per,
+        None if part is None else part.data_ptr(), c_in, c_out, *extra, splits, per,
     )
     return out
 
@@ -239,7 +258,7 @@ def f3_bwd_fused_plain(feats, weight, grad, rb_bwd):
 def f3_bwd_fused(
     feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
     rb_bwd: torch.Tensor, *, need_feats: bool = True,
-    pairs: Optional[K3Pairs] = None,
+    pairs: Optional[PairLists] = None,
 ):
     """(d_feats or None, d_W) of the k3 conv for the cotangent `grad`
     (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd), counted as a

@@ -26,17 +26,23 @@ Gradients (`DownConv`, `UpConv`; JAX `_down_bwd` :136, `_up_bwd` :169):
 the two directions swap, so down's d_feats is exactly
 `upsample_conv_apply(g, W^T, tables)` and up's d_feats exactly
 `downsample_conv_apply(g, W^T, tables)`; both d_W run the kernel K5
-(`strided_dw`, `csrc/conv_dw.cu`), which gathers the parent rows itself.
+(`strided_dw`, `csrc/conv_dw.cu`), which gathers the parent rows itself,
+on one of two routes (`f3conv.dw_route`): for bf16 with C_in and C_out
+multiples of 8, K4's tensor-core tile over the level's per-slot pair
+lists (`slot_pair_lists`, built once per level and step by the train
+topology as `StridedTables.pairs` and shared by the level's down and up
+conv); else the CUDA-core kernel over the parent and slot tables.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from . import _build
-from .f3conv import launch_dw
+from .f3conv import PairLists, dw_route, k3_conv_dw_pairs_plain, launch_dw, launch_dw_mma
 from .sparse_conv import DTYPE_CODES, route, wants_grad
 from .voxelize import run_sums
 
@@ -51,12 +57,15 @@ class StridedTables:
             rows last).
     starts: (V_coarse + 1,) int32 — exclusive prefix over children
             counts; children of c are PERMUTED rows [starts[c], starts[c+1]).
+    pairs:  `slot_pair_lists` of these tables, for K5's tensor-core route
+            (train topologies; None: the wrapper builds them per call).
     """
 
     parent: torch.Tensor
     slot: torch.Tensor
     perm: torch.Tensor
     starts: torch.Tensor
+    pairs: Optional[PairLists] = None
 
 
 def build_strided_tables(
@@ -89,6 +98,32 @@ def build_strided_tables(
         perm=perm.to(torch.int32),
         starts=starts,
     )
+
+
+def slot_pair_lists(tables: StridedTables) -> PairLists:
+    """K5's PairLists: per slot s, the pairs (f, parent f) of the live
+    fine rows f of slot s, in row order, in a (V_fine, 2) buffer (every
+    live row has one slot, so the lists partition the live rows) with a
+    (9,) start table.  On the tables' device, by one prefix sum over the
+    (8, V_fine) slot one-hot and one scatter: no count is read back to
+    the host."""
+    parent = tables.parent
+    v = parent.shape[0]
+    dev = parent.device
+    slot = (tables.slot & 7).long()
+    live = parent >= 0
+    onehot = (torch.arange(8, device=dev)[:, None] == slot) & live  # (8, V_fine)
+    pos = torch.cumsum(onehot.reshape(-1), 0)  # int64: pairs up to and including each entry
+    f = torch.arange(v, device=dev)
+    # dead rows all go to one spare row, cut off below
+    dest = torch.where(live, pos[slot * v + f] - 1, v)
+    # (f, parent f) as one int64, f in the low word: viewed as int32
+    # pairs on a little-endian device
+    packed = (parent.long() << 32) | f
+    out = torch.empty(v + 1, dtype=torch.int64, device=dev)
+    out.scatter_(0, dest, packed)
+    starts = torch.cat([pos.new_zeros(1), pos[v - 1 :: v]]).int()
+    return PairLists(pairs=out[:v].view(torch.int32).view(v, 2), starts=starts)
 
 
 def downsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
@@ -272,6 +307,16 @@ def strided_dw_plain(x, y, tables: StridedTables, up: bool) -> torch.Tensor:
     return torch.stack(out)
 
 
+def strided_dw_pairs_plain(x, y, pairs: PairLists, up: bool) -> torch.Tensor:
+    """d_W (8, C_in, C_out) f32 over the per-slot pair lists, the
+    arithmetic of K5's tensor-core route: per slot, the gathered x rows^T
+    @ the gathered y rows; the up direction reads each (f, parent f)
+    pair swapped."""
+    if up:
+        pairs = PairLists(pairs=pairs.pairs.flip(1), starts=pairs.starts)
+    return k3_conv_dw_pairs_plain(x, y, pairs)
+
+
 def strided_dw(
     x: torch.Tensor, y: torch.Tensor, tables: StridedTables, up: bool,
     out_dtype: torch.dtype = torch.float32,
@@ -280,7 +325,9 @@ def strided_dw(
     summed in f32 and rounded once to `out_dtype`.  down (`up=False`): x
     the fine input (V_fine, C_in), y the coarse cotangent (V_coarse,
     C_out); up: x the coarse input (V_coarse, C_in), y the fine cotangent
-    (V_fine, C_out).  Deterministic: the same inputs give the same bits."""
+    (V_fine, C_out).  The tensor-core route reads `tables.pairs` (built
+    here when absent).  Deterministic: the same inputs give the same
+    bits."""
     dev = x.device
     _build.check("x", x, tuple(DTYPE_CODES), 2, dev)
     _build.check("y", y, (x.dtype,), 2, dev)
@@ -299,6 +346,12 @@ def strided_dw(
     c_in, c_out = x.shape[1], y.shape[1]
     if v_fine == 0 or v_coarse == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((8, c_in, c_out), dtype=out_dtype, device=dev)
+    if dw_route(x.dtype, c_in, c_out) == "mma":
+        pairs = tables.pairs if tables.pairs is not None else slot_pair_lists(tables)
+        out = launch_dw_mma(
+            "taseg_strided_dw_mma", "strided_dw", x, y, pairs, 8, v_fine, v_fine, int(up),
+        )
+        return out.to(out_dtype)
     out = launch_dw(
         "taseg_strided_dw", "strided_dw",
         (x.data_ptr(), y.data_ptr(), tables.parent.data_ptr(), tables.slot.data_ptr()),

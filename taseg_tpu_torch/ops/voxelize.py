@@ -5,9 +5,11 @@
     sorted-segment layout of `build_segment_tables`; its backward gathers
     each voxel's gradient / count back to the points (plain torch);
   * `devoxelize`: the identity gather (integer points at stride 1) or the
-    8-corner trilinear interpolation (plain torch); their backwards are
-    segment sums, over the point tables or over the (corner, point) pair
-    table `DevoxTable.pairs`.
+    8-corner trilinear interpolation, the hand kernel K7
+    (`csrc/devoxelize.cu`, one launch per call, bit-identical to the plain
+    versions `_devox_identity` / `_devox_trilinear`) on CUDA tensors;
+    their backwards are segment sums, over the point tables or over the
+    (corner, point) pair table `DevoxTable.pairs`.
 
 Every segment sum (the voxelize forward and both devoxelize backwards)
 is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`, members
@@ -230,7 +232,7 @@ def trilinear_table(
     pf = torch.floor(p / s) * s
 
     if corner_idx is not None:
-        idx = corner_idx
+        idx = corner_idx.contiguous()  # K7 reads (8, P) rows
     else:
         offs = torch.as_tensor(
             kernel_offsets(2, stride=stride), device=p.device
@@ -269,13 +271,14 @@ class IdentityDevoxTable(NamedTuple):
 
 
 def _devox_identity(voxel_feats, inv):
+    # K7's plain version
     g = voxel_feats[inv.clamp(min=0).long()]
     return torch.where((inv >= 0)[:, None], g, 0)
 
 
 def _devox_trilinear(voxel_feats, table):
-    # per-corner multiply-accumulate in the feature dtype, as the JAX
-    # package does
+    # K7's plain version: per-corner multiply-accumulate in the feature
+    # dtype, as the JAX package does
     out = None
     for k in range(table.idx.shape[0]):
         idx = table.idx[k]
@@ -286,16 +289,63 @@ def _devox_trilinear(voxel_feats, table):
     return out
 
 
+def _launch_devox(name: str, voxel_feats, idx, weights) -> torch.Tensor:
+    p = idx.shape[-1]
+    c = voxel_feats.shape[1]
+    out = torch.empty((p, c), dtype=voxel_feats.dtype, device=voxel_feats.device)
+    if p == 0 or c == 0:
+        return out
+    ptrs = (voxel_feats.data_ptr(), idx.data_ptr())
+    if weights is not None:
+        ptrs += (weights.data_ptr(),)
+    _build.launch(
+        name, ("devoxelize",), *ptrs, out.data_ptr(), p, c,
+        DTYPE_CODES[voxel_feats.dtype],
+    )
+    return out
+
+
+def devoxelize_identity(voxel_feats: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+    """K7 identity: out[p] = voxel_feats[inverse[p]], 0 where inverse[p]
+    < 0; (V, C) f32 or bf16 and (P,) int32 -> (P, C)."""
+    dev = voxel_feats.device
+    _build.check("voxel_feats", voxel_feats, tuple(DTYPE_CODES), 2, dev)
+    _build.check("inverse", inverse, (torch.int32,), 1, dev)
+    if not _build.dispatch(voxel_feats):
+        return _devox_identity(voxel_feats, inverse)
+    return _launch_devox("taseg_devox_identity", voxel_feats, inverse, None)
+
+
+def devoxelize_trilinear(voxel_feats: torch.Tensor, table: DevoxTable) -> torch.Tensor:
+    """K7 trilinear: out[p] = sum over corners k of weights[k, p] *
+    voxel_feats[idx[k, p]] (absent corners idx = -1 add 0), multiplied
+    and added in the feature dtype in corner order, as the JAX package
+    does; (V, C) f32 or bf16 -> (P, C)."""
+    dev = voxel_feats.device
+    _build.check("voxel_feats", voxel_feats, tuple(DTYPE_CODES), 2, dev)
+    _build.check("idx", table.idx, (torch.int32,), 2, dev)
+    _build.check("weights", table.weights, (torch.float32,), 2, dev)
+    if table.idx.shape[0] != 8 or table.weights.shape != table.idx.shape:
+        raise ValueError(
+            f"idx {tuple(table.idx.shape)} / weights {tuple(table.weights.shape)}: "
+            "expected (8, P) each"
+        )
+    if not _build.dispatch(voxel_feats):
+        return _devox_trilinear(voxel_feats, table)
+    return _launch_devox("taseg_devox_trilinear", voxel_feats, table.idx, table.weights)
+
+
 class DevoxIdentity(torch.autograd.Function):
-    """Identity devoxelize; backward (JAX `_devox_id_bwd`): the segment
-    sum of the point gradients per voxel, K6 over the point tables."""
+    """Identity devoxelize (K7); backward (JAX `_devox_id_bwd`): the
+    segment sum of the point gradients per voxel, K6 over the point
+    tables."""
 
     @staticmethod
     def forward(ctx, voxel_feats, table):
         if table.tables is None:
             raise ValueError("the identity devox table has no segment tables")
         ctx.table = table
-        return _devox_identity(voxel_feats, table.inverse)
+        return devoxelize_identity(voxel_feats, table.inverse)
 
     @staticmethod
     def backward(ctx, g):
@@ -304,9 +354,9 @@ class DevoxIdentity(torch.autograd.Function):
 
 
 class DevoxTrilinear(torch.autograd.Function):
-    """Trilinear devoxelize; backward (JAX `_devox_bwd`): per voxel the
-    weighted sum of the point gradients over its (corner, point) pairs,
-    K6 over `pairs` with the corner weights."""
+    """Trilinear devoxelize (K7); backward (JAX `_devox_bwd`): per voxel
+    the weighted sum of the point gradients over its (corner, point)
+    pairs, K6 over `pairs` with the corner weights."""
 
     @staticmethod
     def forward(ctx, voxel_feats, table):
@@ -315,7 +365,7 @@ class DevoxTrilinear(torch.autograd.Function):
                 "the trilinear table has no pairs: build it with with_pairs=True"
             )
         ctx.table = table
-        return _devox_trilinear(voxel_feats, table)
+        return devoxelize_trilinear(voxel_feats, table)
 
     @staticmethod
     def backward(ctx, g):
@@ -332,5 +382,5 @@ def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
     if wants_grad(voxel_feats):
         return (DevoxIdentity if identity else DevoxTrilinear).apply(voxel_feats, table)
     if identity:
-        return _devox_identity(voxel_feats, table.inverse)
-    return _devox_trilinear(voxel_feats, table)
+        return devoxelize_identity(voxel_feats, table.inverse)
+    return devoxelize_trilinear(voxel_feats, table)

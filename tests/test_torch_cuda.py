@@ -22,8 +22,13 @@ so they are held within 1e-4 of the largest sum of |terms|; K6
 segments are long).  Each is called twice on the same inputs and must
 give the same bits.  K4 takes its tensor-core route (over the pair
 lists of `f3conv.k3_pair_lists`) in bf16 with widths that are multiples
-of 8, its CUDA-core route in f32 and at ragged widths.
+of 8, its CUDA-core route in f32 and at ragged widths; K5 likewise, over
+the per-slot lists of `strided_conv.slot_pair_lists`.  K7
+(`devoxelize`) repeats its plain version's roundings and is held to the
+same bits, signed zeros included.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -563,3 +568,158 @@ def test_segment_sum_long_and_short_segments(cuda, dtype, weighted, c):
     counts = tables.counts.cpu()
     assert (counts == 0).sum() > 100 and counts.max() >= 4096
     assert not got[counts.to(cuda) == 0].any()
+
+
+# K5's widths on the main path: down1-4 (32 -> 32 twice), up1-4
+K5_WIDTHS = [(32, 32), (64, 64), (128, 128), (256, 256), (256, 128), (128, 96), (96, 96)]
+
+
+@pytest.mark.parametrize("case", ["path", "negative", "dead"])
+@pytest.mark.parametrize("c_in,c_out", K5_WIDTHS)
+def test_strided_dw_mma_route(cuda, case, c_in, c_out):
+    """K5's tensor-core route, both directions, at the path's widths on
+    non-negative coordinates (the up direction gathers each coarse row
+    for each of its children), on negative ones (cells with repeated
+    slots) and with dead children: within tolerance of its plain version,
+    the same bits on a repeat call and with the pair lists built by the
+    wrapper; each launch counts under strided_dw and strided_dw_mma."""
+    rng, v_fine, bare, _ = _down_case(cuda, case)
+    tab = replace(bare, pairs=tst.slot_pair_lists(bare))
+    v_coarse = tab.starts.shape[0] - 1
+    xf = _rand(rng, (v_fine, c_in), cuda, torch.bfloat16)
+    gc = _rand(rng, (v_coarse, c_out), cuda, torch.bfloat16)
+    xc = _rand(rng, (v_coarse, c_in), cuda, torch.bfloat16)
+    gf = _rand(rng, (v_fine, c_out), cuda, torch.bfloat16)
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "mma"
+    _build.reset_launches()
+    for x, y, up in ((xf, gc, False), (xc, gf, True)):
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
+        assert torch.equal(tst.strided_dw(x, y, bare, up), got)
+        _close(
+            got, tst.strided_dw_plain(x, y, bare, up),
+            tst.strided_dw_plain(x.abs(), y.abs(), bare, up), torch.float32, 1e-4,
+        )
+    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_mma"]) == (6, 6)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(32, 32), (96, 96)])
+def test_strided_dw_mma_many_splits(cuda, c_in, c_out):
+    """A level-0 sized V_fine splits every slot's list many times, slot 3
+    has no pairs and every 9th row is dead: within tolerance, the same
+    bits on a repeat call, slot 3 zero; the f32 call takes the CUDA-core
+    route."""
+    v, v_coarse = 131072, 20000
+    splits, _ = tf3.dw_mma_splits(v, c_in, c_out, n_out=8)
+    assert splits > 16
+    rng = np.random.default_rng(17)
+    parent = rng.integers(0, v_coarse, v).astype(np.int32)
+    parent[::9] = -1
+    slot = rng.integers(0, 8, v).astype(np.int32)
+    slot[slot == 3] = 6
+    i32 = lambda a: torch.from_numpy(a).to(cuda)
+    tab = tst.StridedTables(
+        parent=i32(parent), slot=i32(slot), perm=i32(np.arange(v, dtype=np.int32)),
+        starts=torch.zeros(v_coarse + 1, dtype=torch.int32, device=cuda),
+    )
+    _build.reset_launches()
+    for up in (False, True):
+        x = _rand(rng, (v_coarse if up else v, c_in), cuda, torch.bfloat16)
+        y = _rand(rng, (v if up else v_coarse, c_out), cuda, torch.bfloat16)
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
+        _close(
+            got, tst.strided_dw_plain(x, y, tab, up),
+            tst.strided_dw_plain(x.abs(), y.abs(), tab, up), torch.float32, 1e-4,
+        )
+        assert not got[3].any() and got[2].abs().sum() > 0
+    tst.strided_dw(x.float(), y.float(), tab, True)
+    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_mma"]) == (5, 4)
+
+
+def test_strided_dw_mma_with_topology_lists(cuda):
+    """The same bits from the pair lists of a train topology as from the
+    wrapper's own, at every level, both directions."""
+    from taseg_tpu_torch.models.voxel.backbone_context import UNetCapacities, build_unet_topology
+
+    rng = np.random.default_rng(23)
+    pts = np.zeros((4096, 4), np.float32)
+    rows = np.unique(np.floor(rng.uniform(0, 48, size=(3500, 3))), axis=0)
+    pts[: len(rows), :3] = rows
+    topo = build_unet_topology(
+        torch.from_numpy(pts).to(cuda), torch.tensor(len(rows), dtype=torch.int32),
+        UNetCapacities.for_points(4096), devox_pairs=True,
+    )
+    for l in range(1, len(topo.levels)):
+        tab = topo.levels[l].strided
+        assert tab.pairs is not None
+        bare = replace(tab, pairs=None)
+        v_fine, v_coarse = tab.parent.shape[0], tab.starts.shape[0] - 1
+        for up in (False, True):
+            x = _rand(rng, (v_coarse if up else v_fine, 64), cuda, torch.bfloat16)
+            y = _rand(rng, (v_fine if up else v_coarse, 32), cuda, torch.bfloat16)
+            assert torch.equal(tst.strided_dw(x, y, tab, up), tst.strided_dw(x, y, bare, up))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _devox_case(dev, dtype, c, misaligned):
+    """A stride-2 trilinear table with 40 all-absent points, 40 points
+    whose 8 corners all read one negative row with weight 0 (so every
+    product and the sum are -0), 40 more points with one zero-weight
+    present corner, and an identity inverse with -1 rows; `misaligned`
+    starts the features 2 or 4 bytes off their vector boundary (the
+    kernel's scalar path)."""
+    rng, u, num, tab = _trilinear(dev, seed=47)
+    idx, w = tab.idx.clone(), tab.weights.clone()
+    idx[:, :40], w[:, :40] = -1, 0.0
+    idx[:, 40:80], w[:, 40:80] = 0, 0.0
+    present = torch.nonzero(idx[0, 80:] >= 0).flatten()[:40] + 80
+    w[0, present] = 0.0
+    tri = tvx.DevoxTable(idx=idx, weights=w, pairs=tab.pairs)
+    v = int(idx.max()) + 1
+    base = _rand(rng, (v * c + 1,), dev, dtype)
+    vox = (base[1:] if misaligned else base[:-1]).view(v, c)
+    vox[0] = -vox[0].abs() - 0.5
+    inv = torch.from_numpy(rng.integers(-1, v, idx.shape[1]).astype(np.int32)).to(dev)
+    return vox, tri, inv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [20, 19])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_devoxelize_kernel_bit_identical(cuda, dtype, c, misaligned):
+    """K7 trilinear and identity give the plain versions' bits (signed
+    zeros included) at the head's class width and at a ragged one, with
+    all-absent points and zero-weight present corners; one launch per
+    call, through `devoxelize` with and without autograd."""
+    vox, tri, inv = _devox_case(cuda, dtype, c, misaligned)
+    assert (vox.data_ptr() % 8 != 0) == misaligned
+    _build.reset_launches()
+    got = tvx.devoxelize_trilinear(vox, tri)
+    want = tvx._devox_trilinear(vox, tri)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got[40:80]), _bits(torch.full_like(got[40:80], -0.0)))
+    assert torch.equal(_bits(got[:40]), _bits(torch.zeros_like(got[:40])))
+    got_id = tvx.devoxelize_identity(vox, inv)
+    assert torch.equal(_bits(got_id), _bits(tvx._devox_identity(vox, inv)))
+    assert _build.LAUNCHES["devoxelize"] == 2
+    v = vox.detach().clone().requires_grad_()
+    assert torch.equal(_bits(tvx.devoxelize(v, tri).detach()), _bits(want))
+    assert torch.equal(_bits(tvx.devoxelize(vox, tri)), _bits(want))
+    assert _build.LAUNCHES["devoxelize"] == 4
+
+
+def test_devoxelize_kernel_empty(cuda):
+    """P = 0 launches nothing; so do CPU tensors."""
+    vox = torch.ones(5, 20, device=cuda, dtype=torch.bfloat16)
+    _build.reset_launches()
+    out = tvx.devoxelize_identity(vox, torch.zeros(0, dtype=torch.int32, device=cuda))
+    assert out.shape == (0, 20)
+    tri = tvx.DevoxTable(
+        idx=torch.zeros(8, 0, dtype=torch.int32, device=cuda),
+        weights=torch.zeros(8, 0, device=cuda),
+    )
+    assert tvx.devoxelize_trilinear(vox, tri).shape == (0, 20)
+    tvx.devoxelize_identity(vox.cpu(), torch.zeros(3, dtype=torch.int32))
+    assert _build.LAUNCHES["devoxelize"] == 0

@@ -217,6 +217,38 @@ def test_strided_grads_match_jax(strided_pair, dtype, up, c_in, c_out):
     check(t2n(dw), to_np(jdw), ref_dw, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("up", [False, True])
+def test_strided_dw_pair_lists_match_jax(strided_pair, dtype, up):
+    """K5's tensor-core arithmetic: d_W over the per-slot pair lists
+    (`strided_dw_pairs_plain` on `slot_pair_lists`, the up direction
+    reading each pair swapped) equals `strided_dw_plain` and the d_W of
+    JAX's `_down_bwd` / `_up_bwd`, on coordinates around 0 (cells whose
+    children repeat a slot).  The inputs are exact in both dtypes and
+    every version sums in f32, so both dtypes are held within 1e-5 of the
+    largest sum of |terms|."""
+    jdt, tdt = DTYPES[dtype]
+    rng, jtab, ttab, v_fine, v_coarse = strided_pair
+    c_in, c_out = 24, 40
+    v_x, v_y = (v_coarse, v_fine) if up else (v_fine, v_coarse)
+    x = rng.normal(size=(v_x, c_in)).astype(np.float32)
+    y = rng.normal(size=(v_y, c_out)).astype(np.float32)
+    w = rng.normal(size=(8, c_in, c_out)).astype(np.float32)
+    j_fn = j_up if up else j_down
+    _, vjp = jax.vjp(lambda w: j_fn(jnp.asarray(x, jdt), w, jtab), jnp.asarray(w))
+    (jdw,) = vjp(jnp.asarray(y, jdt))
+
+    xt, yt = torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt)
+    pairs = tst.slot_pair_lists(ttab)
+    live = ttab.parent >= 0
+    assert int(pairs.starts[-1]) == int(live.sum())
+    got = tst.strided_dw_pairs_plain(xt, yt, pairs, up)
+    ref = t2n(tst.strided_dw_plain(xt.abs(), yt.abs(), ttab, up))
+    check(t2n(got), t2n(tst.strided_dw_plain(xt, yt, ttab, up)), ref, "float32")
+    check(t2n(got), to_np(jdw), ref, "float32")
+    assert torch.equal(tst.strided_dw(xt, yt, ttab, up), tst.strided_dw_plain(xt, yt, ttab, up))
+
+
 @pytest.fixture(scope="module")
 def point_tables():
     rng = np.random.default_rng(11)

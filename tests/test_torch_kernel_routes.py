@@ -1,9 +1,10 @@
 """Which kernel each conv of the main path takes on the card, decided on the
 CPU from the modules' widths: K2 (`sparse_conv.route`), K3-down
 (`strided_conv.downsample_route`) and K3-up (`strided_conv.upsample_route`)
-and K4, the weight gradient of the k3 conv (`f3conv.dw_route`), take the
-tensor-core route ("mma") in bf16 where C_in and C_out are multiples of
-8, the CUDA-core route ("simt") in f32 and at ragged widths.
+K4 and K5, the weight gradients of the k3 conv and of the strided pair
+(`f3conv.dw_route`), take the tensor-core route ("mma") in bf16 where
+C_in and C_out are multiples of 8, the CUDA-core route ("simt") in f32
+and at ragged widths.
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
 import pytest
@@ -16,6 +17,7 @@ from taseg_tpu_torch.ops import _build
 from taseg_tpu_torch.ops import f3conv as tf3
 from taseg_tpu_torch.ops import sparse_conv as tsc
 from taseg_tpu_torch.ops import strided_conv as tst
+from taseg_tpu_torch.ops import voxelize as tvx
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +47,16 @@ def test_k4_routes_in_bf16(convs):
     routes = {n: tf3.dw_route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
     assert sum(r == "mma" for r in routes.values()) == 47
+
+
+def test_k5_routes_in_bf16(convs):
+    """The train step's d_W of all 8 strided convs (down1-4 and the four
+    deconvs) is on tensor cores: 8 of the 8 K5 launches of a step."""
+    strided = {n: m for n, m in convs.items() if m.kernel_volume == 8}
+    widths = sorted((m.in_channels, m.out_channels) for m in strided.values())
+    assert widths == sorted(K5_PATH_WIDTHS)
+    assert all(tf3.dw_route(torch.bfloat16, *wd) == "mma" for wd in widths)
+    assert all(tf3.dw_route(torch.float32, *wd) == "simt" for wd in widths)
 
 
 def test_k3_up_routes_in_bf16(convs):
@@ -122,6 +134,28 @@ def test_k4_mma_splits_from_shapes(v, c_in, c_out):
         assert splits * 27 * c_in * c_out * 4 <= tf3.DW_MMA_PART_BYTES
 
 
+# K5's calls of a train step at TRAIN_CAPACITY_SCHEDULE: (V_fine, C_in,
+# C_out) of down1-down4, then up1-up4
+K5_PATH_SHAPES = [
+    (131072, 32, 32), (91904, 32, 32), (46080, 64, 64), (19712, 128, 128),
+    (19712, 256, 256), (46080, 256, 128), (91904, 128, 96), (131072, 96, 96),
+]
+K5_PATH_WIDTHS = [(c_in, c_out) for _, c_in, c_out in K5_PATH_SHAPES]
+
+
+@pytest.mark.parametrize("v,c_in,c_out", K5_PATH_SHAPES)
+def test_k5_mma_splits_from_shapes(v, c_in, c_out):
+    """K5's tensor-core splits cover V_fine pairs (the most one slot can
+    hold) in whole 32-pair stages and count the partials of 8 slots, not
+    27, against their budget: never fewer pairs per split than K4's rule
+    would give the same shape."""
+    splits, per = tf3.dw_mma_splits(v, c_in, c_out, n_out=8)
+    assert per % tf3.DW_MMA_STAGE == 0 and per >= tf3.DW_MMA_MIN_PAIRS
+    assert splits * per >= v and (splits - 1) * per < v
+    assert splits * 8 * c_in * c_out * 4 <= max(tf3.DW_MMA_PART_BYTES, 8 * c_in * c_out * 4)
+    assert splits >= tf3.dw_mma_splits(v, c_in, c_out)[0]
+
+
 def test_launch_counters_have_the_route_entries():
     assert set(_build.LAUNCHES) == {
         "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma",
@@ -129,7 +163,8 @@ def test_launch_counters_have_the_route_entries():
         "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_mma",
         "strided_down_dgrad", "strided_down_dgrad_mma",
         "strided_up_dgrad", "strided_up_dgrad_mma",
-        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "segment_sum",
+        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
+        "segment_sum", "devoxelize",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -145,6 +180,29 @@ def test_cpu_tensors_launch_nothing():
     out = tsc.sparse_conv_k3(x, torch.ones(27, 8, 8, dtype=torch.bfloat16), rb)
     assert torch.equal(out, torch.full((16, 8), 8.0, dtype=torch.bfloat16))
     assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_devoxelize_launches_nothing(dtype):
+    """K7's wrappers run the plain versions on CPU tensors and count no
+    launch, with and without autograd."""
+    vox = torch.arange(12, dtype=torch.float32).reshape(4, 3).to(dtype)
+    inv = torch.tensor([2, -1, 0], dtype=torch.int32)
+    idx = torch.full((8, 3), -1, dtype=torch.int32)
+    idx[0], idx[5, 1] = torch.tensor([1, 3, -1], dtype=torch.int32), 0
+    w = torch.zeros(8, 3)
+    w[0], w[5, 1] = torch.tensor([0.5, 0.25, 0.0]), 0.75
+    tri = tvx.DevoxTable(idx=idx, weights=w, pairs=tvx.build_segment_tables(idx.reshape(-1), 4))
+    ident = tvx.IdentityDevoxTable(inverse=inv, tables=tvx.build_segment_tables(inv, 4))
+    _build.reset_launches()
+    got = tvx.devoxelize(vox, ident)
+    assert torch.equal(got, torch.stack([vox[2], torch.zeros(3, dtype=dtype), vox[0]]))
+    assert torch.equal(tvx.devoxelize_identity(vox, inv), got)
+    want = torch.stack([vox[1] * 0.5, vox[3] * 0.25 + vox[0] * 0.75, torch.zeros(3, dtype=dtype)])
+    assert torch.equal(tvx.devoxelize(vox, tri), want)
+    v = vox.clone().requires_grad_()
+    tvx.devoxelize(v, tri).float().sum().backward()
+    assert v.grad is not None and not any(_build.LAUNCHES.values())
 
 
 def test_tensor_core_route_rejects_misaligned_rows():

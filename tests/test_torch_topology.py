@@ -22,6 +22,7 @@ from taseg_tpu_torch.ops import coords as tc
 from taseg_tpu_torch.ops import f3conv as tf3
 from taseg_tpu_torch.ops import join as tj
 from taseg_tpu_torch.ops import rulebook as tr
+from taseg_tpu_torch.ops import strided_conv as tst
 
 
 def random_coords(rng, n, lo, hi, batches=3):
@@ -209,3 +210,65 @@ def test_pair_lists_of_a_lone_voxel():
     got = tf3.k3_pair_lists(rb)
     assert got.starts.tolist() == [0] * 14 + [1] * 14
     assert got.pairs[:1].tolist() == [[0, 0]]
+
+
+def _want_slot_pairs(parent, slot):
+    """The (f, parent f) pairs of the live fine rows, slot by slot in row
+    order, and the (9,) start table."""
+    pairs, starts = [], [0]
+    for s in range(8):
+        rows = np.nonzero((parent >= 0) & ((slot & 7) == s))[0]
+        pairs.append(np.stack([rows, parent[rows]], 1))
+        starts.append(starts[-1] + len(rows))
+    return np.concatenate(pairs).astype(np.int32), np.asarray(starts, np.int32)
+
+
+def _negative_scene(seed):
+    """`_scene` moved to coordinates around 0: truncating division folds
+    -1, 0 and 1 into one coarse cell, whose children repeat slots."""
+    pts, n = _scene(seed, span=24.0)
+    pts[:n, :3] -= 12.0
+    return pts, n
+
+
+@pytest.mark.parametrize("scene", ["random", "pipeline_sorted", "negative"])
+def test_train_topology_slot_pair_lists(scene):
+    """K5's per-slot pair lists, built once per level by the train
+    topology: they partition the live fine rows of the JAX level's parent
+    relation, slot by slot in row order, with their start table, also
+    where cells hold two children of one slot (the negative scene).
+    Inference topologies build none."""
+    scenes = {"random": lambda: _scene(11), "pipeline_sorted": lambda: _sorted_scene(3), "negative": lambda: _negative_scene(13)}
+    pts, n = scenes[scene]()
+    cap = pts.shape[0]
+    jcaps = JCaps.for_points(cap)
+    jt = jax.jit(lambda c, m: j_topology(c, m, jcaps, devox_pairs=False))(jnp.asarray(pts), jnp.int32(n))
+    args = (torch.from_numpy(pts), torch.tensor(n, dtype=torch.int32), UNetCapacities.for_points(cap))
+    tt = build_unet_topology(*args, devox_pairs=True)
+    rounds = []
+    for l in range(1, len(tt.levels)):
+        a, b = jt.levels[l].strided, tt.levels[l].strided
+        parent, slot = np.asarray(a.parent), np.asarray(a.slot)
+        pairs, starts = _want_slot_pairs(parent, slot)
+        assert 0 < starts[-1] == (parent >= 0).sum() <= int(tt.levels[l - 1].num)
+        np.testing.assert_array_equal(b.pairs.starts.numpy(), starts, err_msg=f"L{l}")
+        assert b.pairs.pairs.shape == (parent.shape[0], 2)
+        np.testing.assert_array_equal(b.pairs.pairs[: starts[-1]].numpy(), pairs, err_msg=f"L{l}")
+        rounds.append(tst.slot_child_table(b).shape[0])
+    assert (max(rounds) > 1) == (scene == "negative"), rounds
+    inference = build_unet_topology(*args)
+    assert all(l.strided.pairs is None for l in inference.levels[1:])
+
+
+def test_slot_pair_lists_of_a_lone_voxel():
+    """One live fine row: only its slot's list holds a pair; padding rows
+    (parent -1) are no pairs."""
+    tab = tst.StridedTables(
+        parent=torch.tensor([0, -1, -1], dtype=torch.int32),
+        slot=torch.tensor([5, 0, 3], dtype=torch.int32),
+        perm=torch.arange(3, dtype=torch.int32),
+        starts=torch.tensor([0, 1], dtype=torch.int32),
+    )
+    got = tst.slot_pair_lists(tab)
+    assert got.starts.tolist() == [0] * 6 + [1] * 3
+    assert got.pairs.shape == (3, 2) and got.pairs[:1].tolist() == [[0, 0]]

@@ -69,19 +69,19 @@ def _scans(seed=21, n=2):
     return out
 
 
-def _trainer(dtype, **kw):
-    params, stats = init_params_numpy(CFG, seed=4)
+def _trainer(dtype, cfg=CFG, **kw):
+    params, stats = init_params_numpy(cfg, seed=4)
     return Trainer(
-        CFG, {"params": params, "batch_stats": stats}, device="cpu",
+        cfg, {"params": params, "batch_stats": stats}, device="cpu",
         batch_size=2, seed=9, compute_dtype=dtype, point_capacity=CAP, **SCHED, **kw,
     )
 
 
-def _jax_step(dtype):
+def _jax_step(dtype, bn_momentum=0.1):
     m = CFG["MODEL"]
     model = JMinkUNet(
         num_classes=m["NUM_CLASS"], cr=m["cr"], num_layer=tuple(m["NUM_LAYER"]),
-        block="ResBlock", dropout_p=0.0, compute_dtype=dtype,
+        block="ResBlock", dropout_p=0.0, compute_dtype=dtype, bn_momentum=bn_momentum,
     )
     criterion = JLosses(["CELoss", "LovLoss"], [1.0, 1.0], ignore_index=0, label_smoothing=0.1)
     tx = j_build_optimizer(
@@ -164,6 +164,34 @@ def test_train_steps_match_jax_f32(f32_run):
         prev = b
     assert got[0]["lr"] == pytest.approx(0.04 * 1e-5)
     assert got[1]["lr"] == pytest.approx(0.04 * ((1 - 1e-5) / 2 + 1e-5), rel=1e-6)
+
+
+def test_bn_momentum_from_the_config(f32_run):
+    """`MODEL.BN_MOMENTUM` reaches every MaskedBatchNorm (as JAX's
+    `build_model` passes it): after one f32 step at 0.005 the running
+    means and vars match those of JAX's `make_train_step` with
+    bn_momentum 0.005 within 1e-4 of their scale (step 0's tolerance
+    above), and differ from the default 0.1 run's step 0."""
+    from taseg_tpu_torch.models.layers import MaskedBatchNorm
+
+    cfg = {**CFG, "MODEL": {**CFG["MODEL"], "BN_MOMENTUM": 0.005}}
+    tr = _trainer("float32", cfg=cfg)
+    bns = [m for m in tr.model.modules() if isinstance(m, MaskedBatchNorm)]
+    assert bns and all(m.momentum == 0.005 for m in bns)
+    step, state = _jax_step("float32", bn_momentum=0.005)
+    arrays = tr.collate(_scans())
+    state, _ = step(state, _batch(arrays), jax.random.fold_in(jax.random.PRNGKey(0), 0))
+    tr.train_on(arrays)
+    got, want = _flat(export_flax_params(tr.model)[1]), _flat(state.batch_stats)
+    default = _flat(f32_run[2][0]["variables"][1])
+    assert got.keys() == want.keys() == default.keys()
+    init = _flat(init_params_numpy(CFG, seed=4)[1])
+    for k in got:
+        scale = max(np.abs(want[k]).max(), 1e-3)
+        assert np.abs(got[k] - want[k]).max() <= 1e-4 * scale, k
+        # the running statistics move from their start 20x less than at 0.1
+        moved, moved_default = np.abs(got[k] - init[k]).max(), np.abs(default[k] - init[k]).max()
+        assert moved == pytest.approx(moved_default / 20, rel=1e-2), k
 
 
 def test_train_steps_move_the_parameters(f32_run):
