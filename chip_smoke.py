@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths — `Segmenter.predict` and
-`Trainer.step` of MinkUNet mk34 cr1.0
+Drives the port's main paths — `Segmenter.predict`, `Trainer.step` and
+the harness around it (`Trainer.train` over the prefetching loader,
+checkpoints, evaluation, TTA) of MinkUNet mk34 cr1.0
 (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml) in bf16 on
 synthetic 120 000-point scans, weights drawn from a seed — and checks
 them:
@@ -40,6 +41,19 @@ them:
      against the CPU's plain path; 4 full-width steps on 120 000-point
      scans with finite loss, grad norm and parameters and the launches of
      every kernel per step; ms per step by stage and peak memory;
+  5b. the harness: `build_dataloader` over the synthetic reader (6 train
+     and 3 eval scans of 120 000 points, batch 1, point capacity 131 072)
+     and `Trainer.train(eval_interval=1)` for one epoch: 6 steps through
+     the prefetching loader, a checkpoint and `evaluate()`, every launch
+     counted (each kernel as TRAIN_PER_STEP and the inference path give
+     it, so nothing ran a plain version); a fresh Trainer resumed from the
+     checkpoint with the same bits (parameters, BN buffers, momentum
+     traces, the schedule's count); `evaluate_points()` writing the
+     logits and labels of `Segmenter.predict` on the same scans and
+     weights, bit for bit; 2 TTA votes writing 3 .label files of raw
+     ids; ms per step through the loader, the wait on its queue, the host
+     stage inside the producer, the device stages beside the serial ones
+     of 5, and eval scans/s without and with TTA;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -112,6 +126,13 @@ TRAIN_PER_STEP = {
     "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
     "segment_sum": 4, "devoxelize": 3,
 }
+
+# the harness phase: one epoch of train scans through the loader, the
+# eval scans, and the point capacity passed as bench.py passes it (the
+# YAML's NUM_POINTS of 1 000 000 would give 1 M rows per scan)
+HARNESS_TRAIN_SCANS = 6
+HARNESS_EVAL_SCANS = 3
+HARNESS_POINT_CAPACITY = 131072
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -1094,7 +1115,210 @@ def phase_train_steps(trainer, scans) -> dict:
         f"each end to end): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
         + f"; peak device memory {peak:.2f} GiB"
     )
-    return launches
+    return launches, med
+
+
+class StageEvents:
+    """CUDA events around a Trainer's stage methods, as `train_on` calls
+    them: topology (until the forward starts, the capacity check
+    included), forward + loss, backward and optimizer of each step."""
+
+    STAGES = ("topology", "forward", "backward", "update")
+
+    def __init__(self, trainer):
+        import torch
+
+        self.marks = []
+        for name in self.STAGES:
+            fn = getattr(trainer, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.marks.append((_name, ev))
+                out = _fn(*a, **kw)
+                if _name == "update":
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    self.marks.append(("end", end))
+                return out
+
+            setattr(trainer, name, timed)
+
+    def per_step(self) -> list:
+        """[{stage: ms}] of each step."""
+        out, step = [], {}
+        for (name, ev), (_, nxt) in zip(self.marks, self.marks[1:]):
+            if name == "end":
+                continue
+            step[name] = ev.elapsed_time(nxt)
+            if name == "update":
+                out.append(step)
+                step = {}
+        return out
+
+
+def phase_harness(cfg, variables, infer_per_scan: dict, serial: dict) -> None:
+    """The train/eval harness at full width: `build_dataloader` over the
+    synthetic reader (HARNESS_TRAIN_SCANS train and HARNESS_EVAL_SCANS
+    eval scans of N_POINTS points, batch 1, the point capacity passed
+    explicitly as bench.py does) and `Trainer.train(eval_interval=1)` for
+    one epoch: the steps through the prefetching loader, a checkpoint and
+    `evaluate()`, with every launch counted and each kernel's launches
+    as TRAIN_PER_STEP and the inference path give them.  A fresh Trainer
+    resumes the same bits; `evaluate_points()` writes the logits and
+    labels of `Segmenter.predict` on the same scans and weights, bit for
+    bit; 2 TTA votes write 3 readable .label files of raw ids.  Prints ms
+    per step, the wait for each batch, the host stage in the producer,
+    the device stages while the producer runs beside the serial ones of
+    `phase_train_steps`, and eval scans/s without TTA and with 2 votes."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.data import build_dataloader
+    from taseg_tpu_torch.data.semantickitti.labels import INV_LUT, LEARNING_MAP_LUT
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params
+
+    out_dir = REPO / "build" / "harness"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    logger = logging.getLogger("chip_smoke.harness")
+    logger.propagate = False
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logging.FileHandler(out_dir / "log.txt"))
+    data = {**cfg["DATA"], "DATASET": "synthetic", "N_RAW_POINTS": N_POINTS}
+    hcfg = {**cfg, "DATA": data}
+
+    def trainer():
+        kw = dict(training=True, scans_per_shard=1, point_capacity=HARNESS_POINT_CAPACITY)
+        train = build_dataloader({**data, "LENGTH": HARNESS_TRAIN_SCANS}, **kw)
+        val = build_dataloader({**data, "LENGTH": HARNESS_EVAL_SCANS}, **{**kw, "training": False})
+        return Trainer(
+            hcfg, variables, train_loader=train, val_loader=val, output_dir=out_dir,
+            logger=logger, compute_dtype="bfloat16", total_epochs=1,
+        )
+
+    def expect(launches, steps, scans, what):
+        for k, n in launches.items():
+            want = TRAIN_PER_STEP.get(k, 0) * steps + infer_per_scan.get(k, 0) * scans
+            if n != want:
+                raise AssertionError(f"harness {what}: {k} launched {n} times, expected {want}")
+        missing = [k for k in INFER_KERNELS if infer_per_scan.get(k) and not launches[k]]
+        if missing:
+            raise AssertionError(f"harness {what}: {missing} not launched")
+
+    a = trainer()
+    make_ms = []
+    make_batch = a.train_loader._make_batch
+
+    def timed_make(*args):
+        t0 = time.perf_counter()
+        out = make_batch(*args)
+        make_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    a.train_loader._make_batch = timed_make
+    stages = StageEvents(a)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (epoch,) = a.train(eval_interval=1)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    expect(launches, HARNESS_TRAIN_SCANS, HARNESS_EVAL_SCANS, "train(eval_interval=1)")
+    steps = epoch["steps"]
+    for i, o in enumerate(steps):
+        if not (np.isfinite(o["loss"]) and np.isfinite(o["grad_norm"])):
+            raise AssertionError(f"harness step {i}: non-finite loss or grad norm")
+    ckpts = a.ckptr.list_epochs(a.ckpt_dir)
+    if [e for e, _ in ckpts] != [0]:
+        raise AssertionError(f"harness: checkpoints {ckpts}")
+    log(f"harness: {len(steps)} steps through the loader, losses "
+        f"{[round(o['loss'], 5) for o in steps]}, lr {steps[-1]['lr']:.3e}; "
+        f"launches as expected ({HARNESS_TRAIN_SCANS} steps + {HARNESS_EVAL_SCANS} eval scans)")
+    later = slice(1, None)  # steps 2.. of the epoch
+    wall = [(o["data_s"] + o["step_s"]) * 1e3 for o in steps]
+    wait = [o["data_s"] * 1e3 for o in steps]
+    per = stages.per_step()
+    dev = {k: float(np.median([p[k] for p in per[later]])) for k in StageEvents.STAGES}
+    log(
+        f"harness ms per train step through the loader (median of steps 2-{len(steps)}): "
+        f"{np.median(wall[later]):.3f} (each: {', '.join(f'{x:.1f}' for x in wall)}); "
+        f"wait on the queue {np.median(wait[later]):.3f} (each: {', '.join(f'{x:.1f}' for x in wait)}); "
+        f"host stage in the producer {np.median(make_ms):.3f} ms per scan "
+        f"(each: {', '.join(f'{x:.1f}' for x in make_ms)})"
+    )
+    log(
+        "harness device stages while the producer runs, against the serial "
+        "steps (ms, medians): " + ", ".join(
+            f"{k} {dev[k]:.3f} / {serial[k if k != 'update' else 'optimizer']:.3f}"
+            for k in StageEvents.STAGES
+        )
+    )
+
+    # a fresh Trainer resumes the same bits
+    c = trainer()
+    if not (c.resume_latest() and c.start_epoch == 1):
+        raise AssertionError("harness: resume_latest found no checkpoint")
+    if c.optimizer.count != a.optimizer.count:
+        raise AssertionError(f"harness: count {c.optimizer.count} != {a.optimizer.count}")
+    for (k, x), y in zip(c.model.state_dict().items(), a.model.state_dict().values()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"harness: resumed {k} differs")
+    for p, q in zip(c.model.parameters(), a.model.parameters()):
+        if not torch.equal(c.optimizer.state[p]["trace"], a.optimizer.state[q]["trace"]):
+            raise AssertionError("harness: resumed momentum trace differs")
+    log(f"harness: resumed bit-exactly at count {c.optimizer.count}")
+
+    # raw-point evaluation: scans/s, then the files against Segmenter
+    timing = {}
+    for votes in (0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.evaluate_points(tta_votes=votes)
+        torch.cuda.synchronize()
+        timing[votes] = HARNESS_EVAL_SCANS / (time.perf_counter() - t0)
+    _build.reset_launches()
+    res = c.evaluate_points(save_path=out_dir / "plain", save_score=True)
+    torch.cuda.synchronize()
+    expect(dict(_build.LAUNCHES), 0, HARNESS_EVAL_SCANS, "evaluate_points()")
+    p, s = export_flax_params(c.model)
+    seg = Segmenter(hcfg, {"params": p, "batch_stats": s}, compute_dtype="bfloat16",
+                    point_capacity=HARNESS_POINT_CAPACITY)
+    reader = c.val_loader.reader
+    want = seg.predict([reader[i] for i in range(HARNESS_EVAL_SCANS)])
+    for i, o in enumerate(want):
+        f = out_dir / "plain" / "sequences" / "08" / "predictions" / f"{i:06d}"
+        logits = np.fromfile(f.with_suffix(".bin"), np.float32).reshape(o["logits"].shape)
+        labels = LEARNING_MAP_LUT[np.fromfile(f.with_suffix(".label"), np.uint32)]
+        if not (np.array_equal(logits.view(np.uint32), o["logits"].view(np.uint32))
+                and np.array_equal(labels, o["labels"])):
+            raise AssertionError(f"harness: evaluate_points differs from Segmenter on scan {i}")
+    log(f"harness: evaluate_points() logits and labels bit-equal to Segmenter.predict on "
+        f"{HARNESS_EVAL_SCANS} scans; point mIoU {res['miou']:.2f}")
+
+    c.evaluate_points(tta_votes=2, save_path=out_dir / "tta")
+    files = sorted((out_dir / "tta" / "sequences" / "08" / "predictions").glob("*.label"))
+    if len(files) != HARNESS_EVAL_SCANS:
+        raise AssertionError(f"harness: {len(files)} TTA label files")
+    for f in files:
+        raw = np.fromfile(f, np.uint32)
+        if len(raw) != N_POINTS or not np.isin(raw, INV_LUT).all():
+            raise AssertionError(f"harness: {f.name} is not {N_POINTS} raw ids")
+    log(
+        f"harness: evaluate_points {timing[0]:.4f} scans/s, with 2 TTA votes "
+        f"{timing[2]:.4f} scans/s; {len(files)} TTA .label files of {N_POINTS} raw ids"
+    )
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    del a, c, seg
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def phase_train_profile(trainer, scans, results: dict) -> None:
@@ -1335,7 +1559,11 @@ def main() -> int:
     del train_cap
     phase_pair_lists(trainer, scans)
     phase_small_train_step(cfg, variables)
-    train_launches = phase_train_steps(trainer, scans)
+    train_launches, serial = phase_train_steps(trainer, scans)
+
+    # 5b. the harness: the epoch loop through the prefetching loader,
+    # checkpoint and resume, evaluation, TTA and submission files
+    phase_harness(cfg, variables, {k: launches[k] // N_SCANS for k in launches}, serial)
 
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)

@@ -9,9 +9,10 @@ Ops are plain functions on tensors and run on the device of their inputs.
 The hot-path kernels (`ops.join_scan`, `ops.sparse_conv`,
 `ops.strided_conv`) are hand-written CUDA for Hopper (`csrc/`), built at
 first use by `ops._build`; each has a plain PyTorch version that serves
-CPU tensors only.  Entry points (`engine.Segmenter`,
+CPU tensors only.  Entry points (`engine.Segmenter`, `engine.Trainer`,
 `models.voxel.minkunet.MinkUNet`) take `device=None`, which means CUDA,
-and raise when CUDA is absent unless the caller passes `device="cpu"`.
+and raise when CUDA is absent unless the caller passes `device="cpu"`;
+the CLI `python -m taseg_tpu_torch.train` takes `--device`.
 
 This package imports torch and numpy only — never jax, flax or taseg_tpu.
 """

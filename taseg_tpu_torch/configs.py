@@ -1,8 +1,10 @@
 """Model configurations of the port, as dicts with the YAML's layout.
 
 The port reads no YAML (the machine with the card has no YAML parser
-guaranteed), so each configuration it serves is written out here; a
-test holds every entry equal to its YAML file.
+guaranteed), so each configuration it serves is written out here and
+registered in `RECIPES` under its YAML file's path, relative to the
+repository (`utils.config.load_config` looks it up there); a test holds
+every entry equal to its YAML file.
 """
 
 # tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml: the flagship
@@ -52,4 +54,53 @@ MINKUNET_MK34_CR10 = {
         "SCHEDULER": "linear_warmup_with_cosdecay",
         "WARMUP_EPOCH": 1,
     },
+}
+
+# tools/cfgs/voxel/synthetic/minkunet_tiny.yaml: the fast end-to-end
+# smoke recipe of the CLI (MinkUNet cr 0.125, one block per stage)
+MINKUNET_TINY = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "synthetic",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 4000,
+        "VOXEL_SIZE": 0.2,
+        "NUM_POINTS": 4096,
+    },
+    "MODEL": {
+        "NAME": "MinkUNet",
+        "IN_FEATURE_DIM": 4,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock",
+        "NUM_LAYER": [1, 1, 1, 1, 1, 1, 1, 1],
+        "cr": 0.125,
+        "DROPOUT_P": 0.0,
+        "LOSS_CONFIG": {
+            "LOSS_TYPES": ["CELoss", "LovLoss"],
+            "LOSS_WEIGHTS": [1.0, 1.0],
+        },
+        # not in the YAML: per-level voxel capacities as fractions of the
+        # 4096-row point capacity.  At voxel 0.2 the 4000-point scans fill
+        # the coarse levels far more than the default schedule allows
+        # (worst over the 8 train scans of 2 epochs and the 8 val scans:
+        # 0.66 / 0.39 / 0.15 / 0.066), and the port raises on overflow
+        "CAPACITY_SCHEDULE": (1.0, 0.90, 0.55, 0.25, 0.125),
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 1,
+        "NUM_EPOCHS": 1,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.01,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
+# the recipes `utils.config.load_config` serves, by YAML path
+RECIPES = {
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
+    "tools/cfgs/voxel/synthetic/minkunet_tiny.yaml": MINKUNET_TINY,
 }

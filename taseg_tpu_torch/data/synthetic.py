@@ -1,8 +1,8 @@
 """Synthetic LiDAR scenes — deterministic stand-in for SemanticKITTI.
 
-Copy of `taseg_tpu/data/synthetic.py:1-164` (the scan generator), so the
-port needs no module of the JAX package.  The same seed gives the same
-arrays in both packages.
+Copy of `taseg_tpu/data/synthetic.py:1-164` (the scan generator) and of
+its `SyntheticKittiReader` (:221-246), so the port needs no module of the
+JAX package.  The same seed gives the same arrays in both packages.
 
 Point clouds are generated with a *raycast beam model* (64 beams x ~2048
 azimuth steps, first-hit against an analytic scene of ground plane, walls,
@@ -166,3 +166,35 @@ def synthetic_scan(
     pts = np.concatenate([xyz, intensity], axis=1)
     perm = rng.permutation(len(pts))
     return pts[perm], lbl[perm].astype(np.int32)
+
+
+class SyntheticKittiReader:
+    """Reader-contract-compatible synthetic dataset (JAX
+    `data/synthetic.py:221`): scan `index` is drawn from a generator
+    seeded with `seed * 100_003 + index`, and carries the path of a
+    SemanticKITTI sequence-08 scan, so the submission writers treat it as
+    one."""
+
+    def __init__(
+        self, length: int = 64, n_points: int = 120_000, seed: int = 0
+    ):
+        self.length = length
+        self.n_points = n_points
+        self.seed = seed
+        self.class_names = [f"class_{i}" for i in range(20)]
+
+    def __len__(self) -> int:
+        return self.length
+
+    def resample(self) -> None:
+        pass
+
+    def __getitem__(self, index: int) -> dict:
+        rng = np.random.default_rng(self.seed * 100_003 + index)
+        pts, labels = synthetic_scan(rng, self.n_points)
+        ring = np.zeros((len(pts), 1), np.float32)
+        return {
+            "xyzret": np.concatenate([pts, ring], axis=1),
+            "labels": labels,
+            "path": f"synthetic/08/velodyne/{index:06d}.bin",
+        }

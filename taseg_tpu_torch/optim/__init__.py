@@ -58,7 +58,9 @@ class ClippedSGD(torch.optim.Optimizer):
     """The optax chain above over one group of parameters.  `step()`
     reads `p.grad`, updates the parameters and the momentum traces in
     place, and returns (the unclipped global grad norm, the LR it
-    applied)."""
+    applied).  `count`, the schedule's position, travels in
+    `state_dict()` beside the traces, so a resumed run goes on where it
+    stopped (optax keeps it in the chain's state)."""
 
     def __init__(
         self, params, *, lr: float, schedule: Callable[[int], float],
@@ -72,6 +74,15 @@ class ClippedSGD(torch.optim.Optimizer):
         )
         self.schedule = schedule
         self.count = 0
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
 
     @torch.no_grad()
     def step(self, closure=None):

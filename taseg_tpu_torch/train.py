@@ -1,0 +1,121 @@
+"""Train/eval CLI of the port: `python -m taseg_tpu_torch.train`.
+
+Counterpart of the JAX package's `train.py:37-147` (reference
+`train.py:55-125`): --cfg_file names a recipe by its YAML path (served
+from `configs.RECIPES`, the port reads no YAML), --set dotted overrides,
+--eval, --tta votes, --save_path submission files, --pretrained_model,
+batch-size / epoch overrides.  Outputs go to
+`output/<recipe>/<extra_tag>/` under the working directory (log.txt,
+ckpt/checkpoint_epoch_<n>, metrics/); a run resumes from the newest
+checkpoint there.  One process drives one device: `--device` (default
+cuda; cpu runs the plain versions of the kernels).  MinkUNet on the
+`voxel` pipeline only; several processes (`--distributed`, DDP) wait for
+ROADMAP Queue 1 item 3.
+
+    python -m taseg_tpu_torch.train \\
+        --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml --epochs 1
+    python -m taseg_tpu_torch.train \\
+        --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml \\
+        --eval --tta --votes_max 2 --save_path preds
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from .data import build_dataloader
+from .engine import Trainer
+from .utils.common import create_logger
+from .utils.config import apply_overrides, load_config
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="taseg_tpu_torch train/eval")
+    p.add_argument("--cfg_file", required=True,
+                   help="recipe YAML path (relative to the repository)")
+    p.add_argument("--extra_tag", default="default", help="experiment tag")
+    p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER,
+                   default=[], help="dotted-path config overrides")
+    p.add_argument("--eval", action="store_true", help="evaluate only")
+    p.add_argument("--seq", type=int, default=None,
+                   help="restrict eval to one sequence (11-21 selects the "
+                        "label-free test split for benchmark submissions)")
+    p.add_argument("--tta", action="store_true", help="rotation-vote TTA")
+    p.add_argument("--votes_min", type=int, default=0)
+    p.add_argument("--votes_max", type=int, default=10)
+    p.add_argument("--save_path", default=None,
+                   help="write predictions (submission/pseudo-mask format)")
+    p.add_argument("--save_score", action="store_true",
+                   help="also write float logits per scan")
+    p.add_argument("--pretrained_model", default=None)
+    p.add_argument("--fix_random_seed", action="store_true")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="scans per step (per device)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--eval_interval", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the hand kernels) or cpu (their plain versions)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    cfg = load_config(args.cfg_file)
+    if args.set_cfgs:
+        cfg = apply_overrides(cfg, args.set_cfgs)
+    if args.seq is not None:
+        # per-sequence submission eval (reference train.py:75-76): test
+        # sequences 11-21 are label-free, the eval loader serves them via
+        # DATA.EVAL_SPLIT + DATA.SEQUENCES
+        cfg.DATA["SEQUENCES"] = [args.seq]
+        cfg.DATA["EVAL_SPLIT"] = "test" if args.seq >= 11 else "val"
+    modality = str(cfg.get("MODALITY", "voxel"))
+    if modality != "voxel" or cfg.MODEL["NAME"] != "MinkUNet":
+        raise NotImplementedError(
+            f"{cfg.MODEL['NAME']} ({modality}) is not ported yet: ROADMAP "
+            f"Queue 1 items 5-6; the port trains MinkUNet on the voxel pipeline"
+        )
+
+    out_dir = Path("output") / cfg.TAG / args.extra_tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(out_dir / "log.txt")
+    logger.info(f"device: {args.device}")
+
+    scans_per_shard = args.batch_size or int(cfg.OPTIM.get("BATCH_SIZE_PER_GPU", 2))
+    train_loader = build_dataloader(
+        cfg.DATA, training=True, scans_per_shard=scans_per_shard, modality=modality,
+    )
+    val_loader = build_dataloader(
+        cfg.DATA, training=False, scans_per_shard=scans_per_shard,
+        point_capacity=train_loader.point_capacity, modality=modality,
+    )
+    trainer = Trainer(
+        cfg, None, args.device, train_loader=train_loader, val_loader=val_loader,
+        output_dir=out_dir, logger=logger, total_epochs=args.epochs,
+    )
+    if args.pretrained_model:
+        trainer.load_pretrained(args.pretrained_model)
+    resumed = trainer.resume_latest()
+
+    if args.eval:
+        if not resumed and not args.pretrained_model:
+            logger.warning(
+                "--eval with no checkpoint in %s and no "
+                "--pretrained_model: evaluating RANDOM weights",
+                trainer.ckpt_dir,
+            )
+        if args.tta or args.save_path:
+            trainer.evaluate_points(
+                tta_votes=(args.votes_max - args.votes_min) if args.tta else 0,
+                save_path=args.save_path,
+                save_score=args.save_score,
+            )
+        else:
+            trainer.evaluate_points()
+    else:
+        trainer.train(eval_interval=args.eval_interval)
+
+
+if __name__ == "__main__":
+    main()

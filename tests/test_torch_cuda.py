@@ -723,3 +723,64 @@ def test_devoxelize_kernel_empty(cuda):
     assert tvx.devoxelize_trilinear(vox, tri).shape == (0, 20)
     tvx.devoxelize_identity(vox.cpu(), torch.zeros(3, dtype=torch.int32))
     assert _build.LAUNCHES["devoxelize"] == 0
+
+
+# ------------------------------------------------ the harness on the card
+def _harness_trainer(tmp_path, dtype):
+    from taseg_tpu_torch.configs import MINKUNET_TINY
+    from taseg_tpu_torch.data import build_dataloader
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    data = {**MINKUNET_TINY["DATA"], "LENGTH": 3}
+    cfg = {**MINKUNET_TINY, "DATA": data}
+    p, s = init_params_numpy(cfg, seed=2)
+    return Trainer(
+        cfg, {"params": p, "batch_stats": s}, "cuda", compute_dtype=dtype,
+        train_loader=build_dataloader(data, training=True, scans_per_shard=1),
+        val_loader=build_dataloader(data, training=False, scans_per_shard=1),
+        output_dir=tmp_path, total_epochs=2,
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_harness_resume_bit_exact(cuda, tmp_path, dtype):
+    """One epoch through the loader on the card, a checkpoint, and a
+    fresh Trainer resumed from it: parameters, BN buffers, momentum
+    traces and the schedule's count carry the same bits."""
+    a = _harness_trainer(tmp_path, dtype)
+    a.train_one_epoch(0)
+    a.save_checkpoint(0)
+    c = _harness_trainer(tmp_path, dtype)
+    assert c.resume_latest() and c.start_epoch == 1
+    assert c.optimizer.count == a.optimizer.count == 3
+    for (k, x), y in zip(c.model.state_dict().items(), a.model.state_dict().values()):
+        assert torch.equal(x, y), k
+    for p, q in zip(c.model.parameters(), a.model.parameters()):
+        assert torch.equal(c.optimizer.state[p]["trace"], a.optimizer.state[q]["trace"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_harness_eval_equals_segmenter(cuda, tmp_path, dtype):
+    """`evaluate_points` on the card writes the logits and labels that
+    `Segmenter.predict` gives for the same scans and weights, bit for
+    bit, and leaves the model in train mode."""
+    from taseg_tpu_torch.data.semantickitti.labels import LEARNING_MAP_LUT
+    from taseg_tpu_torch.engine import Segmenter
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params
+
+    tr = _harness_trainer(tmp_path, dtype)
+    tr.train_one_epoch(0)
+    tr.evaluate_points(save_path=tmp_path / "p", save_score=True)
+    assert tr.model.training
+    p, s = export_flax_params(tr.model)
+    seg = Segmenter(tr.cfg, {"params": p, "batch_stats": s}, "cuda", compute_dtype=dtype,
+                    point_capacity=tr.val_loader.point_capacity)
+    reader = tr.val_loader.reader
+    got = seg.predict([reader[i] for i in range(len(reader))])
+    for i, o in enumerate(got):
+        f = tmp_path / "p" / "sequences" / "08" / "predictions" / f"{i:06d}"
+        logits = np.fromfile(f.with_suffix(".bin"), np.float32).reshape(o["logits"].shape)
+        assert np.array_equal(logits.view(np.uint32), o["logits"].view(np.uint32))
+        raw = np.fromfile(f.with_suffix(".label"), np.uint32)
+        np.testing.assert_array_equal(LEARNING_MAP_LUT[raw], o["labels"])

@@ -10,6 +10,7 @@ from taseg_tpu.data import augment as jaug
 from taseg_tpu.data import synthetic as jsyn
 from taseg_tpu.data import voxel_dataset as jvd
 from taseg_tpu.ops import quantize as jq
+from taseg_tpu_torch.configs import RECIPES
 from taseg_tpu_torch.data import augment as taug
 from taseg_tpu_torch.data import quantize as tq
 from taseg_tpu_torch.data import synthetic as tsyn
@@ -70,18 +71,16 @@ def test_pipeline_and_collate_equal(training):
         tvd.collate_shard(ts, 100)
 
 
-def test_config_dict_matches_yaml():
-    """configs.MINKUNET_MK34_CR10 holds every DATA/MODEL/OPTIM key it
-    shares with its YAML file at the YAML's value."""
+@pytest.mark.parametrize("path", sorted(RECIPES))
+def test_config_dict_matches_yaml(path):
+    """Every recipe of configs.RECIPES holds every DATA/MODEL/OPTIM key
+    it shares with its YAML file at the YAML's value."""
     from taseg_tpu.utils.config import load_config
-    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
 
-    y = load_config(
-        Path(__file__).resolve().parents[1]
-        / "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
-    )
+    y = load_config(Path(__file__).resolve().parents[1] / path)
     for sec in ("DATA", "MODEL", "OPTIM"):
-        for k, v in MINKUNET_MK34_CR10[sec].items():
+        for k, v in RECIPES[path][sec].items():
             if k in ("CAPACITY_SCHEDULE", "TRAIN_CAPACITY_SCHEDULE"):
                 continue  # the port's deployment settings, not in the YAML
             assert y[sec][k] == v, (sec, k)
+    assert RECIPES[path].get("MODALITY", "voxel") == y.get("MODALITY", "voxel")
