@@ -6,7 +6,9 @@
 Drives the port's main paths — `Segmenter.predict`, `Trainer.step` and
 the harness around it (`Trainer.train` over the prefetching loader,
 checkpoints, evaluation, TTA) of MinkUNet mk34 cr1.0
-(tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml) in bf16 on
+(tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml), then
+`Segmenter.predict` and `Trainer.step` of SPVCNN mk34 cr1.0
+(tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml), in bf16 on
 synthetic 120 000-point scans, weights drawn from a seed — and checks
 them:
 
@@ -54,15 +56,26 @@ them:
      ids; ms per step through the loader, the wait on its queue, the host
      stage inside the producer, the device stages beside the serial ones
      of 5, and eval scans/s without and with TTA;
+  5c. SPVCNN at full width in bf16 on the same scans: `Segmenter.predict`
+     with every launch counted (per scan K2 48 (47 on tensor cores), K3
+     4 + 4, K6 4, K7 4, K8 0), finite logits of the right shape, bf16/f32
+     argmax agreement, the small-scan card f32 logits against the CPU,
+     serving ms per scan by stage; K8 voxelize_bwd at the 3 calls of one
+     real train step, bit-identical to its plain version, with kernel,
+     device, plain, bound and library times; a small-scan f32 step on the
+     card against the CPU; 4 counted full-width steps (per step K8 3, K6
+     8, K7 4, the convs as MinkUNet's), ms per step by stage, peak
+     memory, and (after them) each kernel's device time per step;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
   7. one JSON line listing the kernels, K2, K3, K4 and K5 with their
-     launches per route, K2, K3 and K7 with their train launches.  Beside
-     each kernel and plain time stands one PyTorch call of the same
-     function (`library_ms`): K1 three cummax, K6 one index_add_, K7
-     index_select and embedding_bag, the convs one torch.mm on rows
-     gathered beforehand.
+     launches per route, K2, K3 and K7 with their train launches, every
+     kernel with its launches per scan and per step on SPVCNN's paths.
+     Beside each kernel and plain time stands one PyTorch call of the
+     same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
+     index_select and embedding_bag, K8 index_select of rows divided
+     beforehand, the convs one torch.mm on rows gathered beforehand.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 the exit code is not 0.  Without CUDA, or without the package beside
@@ -77,7 +90,6 @@ import sys
 import time
 from dataclasses import replace
 from functools import partial
-from types import SimpleNamespace
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -107,6 +119,7 @@ KERNEL_NAMES = {
     "k3_conv_dw": ("PairsK3", "K3Lists"),
     "strided_dw": ("PairsStrided", "SlotLists"),
     "devoxelize": ("devox_kernel",),
+    "voxelize_bwd": ("voxelize_bwd_kernel",),
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
@@ -124,8 +137,22 @@ TRAIN_PER_STEP = {
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
     "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
-    "segment_sum": 4, "devoxelize": 3,
+    "segment_sum": 4, "devoxelize": 3, "voxelize_bwd": 0,
 }
+
+# SPVCNN (tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml), the same
+# backbone with the point branch: per scan the convs of MinkUNet, K6 on
+# the stem's voxelize and the three re-voxelizations (strides 1, 16, 4),
+# K7 on the four devoxelizations (strides 1, 16, 4, 1); per train step
+# also K6 on the four devox backwards and K8 on the three re-voxelize
+# backwards (the stem's input takes no gradient)
+SPVCNN_PER_SCAN = {
+    "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47,
+    "strided_down": 4, "strided_down_mma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "segment_sum": 4, "devoxelize": 4, "voxelize_bwd": 0,
+}
+SPVCNN_PER_STEP = {**TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "voxelize_bwd": 3}
+SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 
 # the harness phase: one epoch of train scans through the loader, the
 # eval scans, and the point capacity passed as bench.py passes it (the
@@ -564,13 +591,6 @@ def phase_point_ops(seg, arrays, topo, k: int, results: dict, probes: list) -> N
         f"voxelize_avg (K6 segment sum + mean) P={p} V={v} C={c} x1/scan: {ms:.4f} ms, "
         f"scatter_reduce_ mean {lib:.4f} ms, bound {b:.4f} ms (bytes)"
     )
-    # its backward (JAX _voxelize_bwd, plain torch, off the path: the
-    # point features take no gradient) at the same shapes
-    g = torch.randn(v, c, device=feats.device, generator=torch.Generator(feats.device).manual_seed(SEED))
-    ctx = SimpleNamespace(inverse=inv, counts=tables.counts)
-    ms = cuda_ms(lambda: vx.VoxelizeAvg.backward(ctx, g))
-    b, _ = bound_ms(v * c * 4 + p * 4 + p * c * 4, 0.0, "float32")
-    log(f"voxelize_avg backward (plain torch) P={p} V={v} C={c}: plain {ms:.4f} ms, bound {b:.4f} ms (bytes)")
 
     gen = torch.Generator(device=feats.device).manual_seed(SEED)
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
@@ -1000,7 +1020,7 @@ def phase_pair_lists(trainer, scans) -> None:
     log(f"K5 pair lists: {tot:.4f} ms per step in the topology stage")
 
 
-def phase_small_train_step(cfg, variables) -> None:
+def phase_small_train_step(cfg, variables, label: str = "") -> None:
     """The same small scan and weights through 2 f32 train steps on the
     card and on the CPU (plain versions): step 0 at LR * 1e-5, step 1 at
     the full LR (warmup of one step).  Loss within 1e-4 relative, grad
@@ -1036,23 +1056,23 @@ def phase_small_train_step(cfg, variables) -> None:
     upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
     for i, (g, c) in enumerate(zip(g_out, c_out)):
         log(
-            f"small-scan f32 step {i}: loss card {g['loss']:.7f} cpu {c['loss']:.7f}, "
+            f"{label}small-scan f32 step {i}: loss card {g['loss']:.7f} cpu {c['loss']:.7f}, "
             f"grad norm card {g['grad_norm']:.6f} cpu {c['grad_norm']:.6f}, lr {g['lr']:.3e}"
         )
         if not abs(g["loss"] - c["loss"]) <= 1e-4 * abs(c["loss"]):
             raise AssertionError(f"small-scan step {i}: card and CPU losses disagree")
         if not abs(g["grad_norm"] - c["grad_norm"]) <= 1e-3 * c["grad_norm"]:
             raise AssertionError(f"small-scan step {i}: card and CPU grad norms disagree")
-    log(f"small-scan f32 params after 2 steps: |card - cpu| / |update| = {diff / upd:.3e}")
+    log(f"{label}small-scan f32 params after 2 steps: |card - cpu| / |update| = {diff / upd:.3e}")
     if not diff <= 3e-2 * upd:
         raise AssertionError("small-scan step: card and CPU updates disagree")
 
 
-def phase_train_steps(trainer, scans) -> dict:
+def phase_train_steps(trainer, scans, per_step: dict = TRAIN_PER_STEP, label: str = "train") -> dict:
     """The train path, counted: TRAIN_STEPS calls of `Trainer.step`, one
     120 000-point scan each, with every launch count set to 0 just before
     and read just after; loss, grad norm and every parameter finite; each
-    kernel's launches per step as TRAIN_PER_STEP says.  Then the same
+    kernel's launches per step as `per_step` says.  Then the same
     number of steps again by stage (host clock for the host stage, CUDA
     events for the others), and the peak memory of the counted steps."""
     import numpy as np
@@ -1063,6 +1083,7 @@ def phase_train_steps(trainer, scans) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
     _build.reset_launches()
     t0 = time.perf_counter()
     outs = [trainer.step(scans[i % len(scans) : i % len(scans) + 1]) for i in range(TRAIN_STEPS)]
@@ -1072,21 +1093,21 @@ def phase_train_steps(trainer, scans) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, o in enumerate(outs):
         log(
-            f"train step {i}: loss {o['loss']:.5f} grad norm {o['grad_norm']:.4f} "
+            f"{label} step {i}: loss {o['loss']:.5f} grad norm {o['grad_norm']:.4f} "
             f"lr {o['lr']:.3e} level voxels {o['level_nums']}"
         )
         if not (np.isfinite(o["loss"]) and np.isfinite(o["grad_norm"])):
-            raise AssertionError(f"train step {i}: non-finite loss or grad norm")
+            raise AssertionError(f"{label} step {i}: non-finite loss or grad norm")
     for n, p in trainer.model.named_parameters():
         if not torch.isfinite(p).all():
-            raise AssertionError(f"train: parameter {n} is not finite")
-    log(f"train path launches over {TRAIN_STEPS} steps: {launches}")
-    for k, per in TRAIN_PER_STEP.items():
+            raise AssertionError(f"{label}: parameter {n} is not finite")
+    log(f"{label} path launches over {TRAIN_STEPS} steps: {launches}")
+    for k, per in per_step.items():
         if launches[k] != per * TRAIN_STEPS:
             raise AssertionError(
-                f"train: {k} launched {launches[k]} times, expected {per} per step"
+                f"{label}: {k} launched {launches[k]} times, expected {per} per step"
             )
-    log(f"train: launches per step as expected: {TRAIN_PER_STEP}")
+    log(f"{label}: launches per step as expected: {per_step}")
 
     stages = {k: [] for k in ("host", "topology", "forward", "backward", "optimizer", "step")}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -1111,9 +1132,9 @@ def phase_train_steps(trainer, scans) -> dict:
             stages[k].append(ev[j].elapsed_time(ev[j + 1]))
     med = {k: float(np.median(v)) for k, v in stages.items()}
     log(
-        f"train ms per step (median of {TRAIN_STEPS}; counted steps {wall:.1f} ms "
+        f"{label} ms per step (median of {TRAIN_STEPS}; counted steps {wall:.1f} ms "
         f"each end to end): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
-        + f"; peak device memory {peak:.2f} GiB"
+        + f"; peak device memory {peak:.2f} GiB ({before:.2f} GiB allocated before the steps)"
     )
     return launches, med
 
@@ -1321,7 +1342,7 @@ def phase_harness(cfg, variables, infer_per_scan: dict, serial: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_profile(trainer, scans, results: dict) -> None:
+def phase_train_profile(trainer, scans, results: dict, label: str = "") -> None:
     """Device time per train step of each kernel (torch.profiler device
     events over one step), the split reductions of K4/K5 apart.  User
     annotations (the optimizer's `Optimizer.step` range) span kernels
@@ -1349,12 +1370,12 @@ def phase_train_profile(trainer, scans, results: dict) -> None:
         if not mine and "reduce_splits" not in e.key:
             others.append((ms, e.count, e.key[:90]))
     for k, ms in dev.items():
-        log(f"profiler train {k}: {ms:.4f} ms per step on the device")
+        log(f"{label}profiler train {k}: {ms:.4f} ms per step on the device")
         results.setdefault(k, {})["device_ms_per_step"] = ms or None
-    log(f"profiler train: K4/K5 split reductions {red:.4f} ms, all kernels {busy:.4f} ms per step")
+    log(f"{label}profiler train: K4/K5 split reductions {red:.4f} ms, all kernels {busy:.4f} ms per step")
     others.sort(reverse=True)
     log(
-        f"profiler train: other kernels {sum(o[0] for o in others):.4f} ms per step "
+        f"{label}profiler train: other kernels {sum(o[0] for o in others):.4f} ms per step "
         f"in {sum(o[1] for o in others)} launches; the largest:"
     )
     for ms, n, name in others[:10]:
@@ -1386,6 +1407,304 @@ def phase_train_probes(trainer, scans) -> None:
         else:
             continue
         log(f"profiler {label} x{cap.count[key]}/step: device {fmt_ms(device_ms(call, KERNEL_NAMES[name]))} per call")
+
+
+def small_scan_check(cfg, variables, label: str = "") -> None:
+    """The card's f32 `Segmenter` against the CPU's plain path on one
+    small scan (a sparse small scan fills every level: capacities at the
+    point count): logits within 1e-3 of their scale."""
+    import numpy as np
+
+    from taseg_tpu_torch.engine import Segmenter
+
+    small = make_scans(1, n_points=8000, seed=SEED + 1)
+    cfg_small = {**cfg, "MODEL": {**cfg["MODEL"], "CAPACITY_SCHEDULE": (1.0,) * 5}}
+    gpu_small, cpu_small = (
+        Segmenter(cfg_small, variables, device=dev, compute_dtype="float32",
+                  point_capacity=8192).predict(small)[0]
+        for dev in ("cuda", "cpu")
+    )
+    d = np.abs(gpu_small["logits"] - cpu_small["logits"]).max()
+    scale = max(1.0, float(np.abs(cpu_small["logits"]).max()))
+    log(f"{label}small scan f32 card vs cpu plain: max|dlogit| {d:.3e} (scale {scale:.3e})")
+    if not d <= 1e-3 * scale:
+        raise AssertionError(f"{label}card and CPU logits disagree on the small scan")
+
+
+def serve_split(seg, scans, rounds: int, label: str = "") -> None:
+    """Serving time per scan after warm-up, host / topology / forward
+    split (host clock, CUDA events), one scan per sample, `rounds` passes
+    over the scans; median and p75, and the peak memory."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    samples = {"end_to_end": [], "host": [], "topology": [], "forward": []}
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(rounds):
+        for s in scans:
+            t0 = time.perf_counter()
+            a = seg.collate([s])
+            t1 = time.perf_counter()
+            e[0].record()
+            tp = seg.topology(a)
+            e[1].record()
+            lg = seg.forward(a, tp)
+            e[2].record()
+            seg.map_to_points(a, lg)  # copies to the host: synchronises
+            samples["end_to_end"].append((time.perf_counter() - t0) * 1e3)
+            samples["host"].append((t1 - t0) * 1e3)
+            samples["topology"].append(e[0].elapsed_time(e[1]))
+            samples["forward"].append(e[1].elapsed_time(e[2]))
+    summary = {
+        k: (float(np.median(v)), float(np.percentile(v, 75))) for k, v in samples.items()
+    }
+    n = len(samples["end_to_end"])
+    log(
+        f"{label}throughput over {n} scans (ms per scan, median / p75): "
+        + ", ".join(f"{k} {m:.3f} / {q:.3f}" for k, (m, q) in summary.items())
+        + f"; {1e3 / summary['end_to_end'][0]:.4f} scans/s end to end, "
+        f"{1e3 / (summary['topology'][0] + summary['forward'][0]):.4f} scans/s on the "
+        f"card (topology + forward); peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+
+
+def check_launches(launches: dict, per: dict, n: int, what: str) -> None:
+    """Every wrapper's launches equal per[k] * n (0 where `per` has no k)."""
+    for k, got in launches.items():
+        if got != per.get(k, 0) * n:
+            raise AssertionError(
+                f"{what}: {k} launched {got} times, expected {per.get(k, 0)} x {n}"
+            )
+
+
+def k8_calls(trainer, scans) -> CallCapture:
+    """One real train step with K8's wrapper wrapped: the inputs of each
+    of its calls (the re-voxelize backwards of SPVCNN's point branch)."""
+    from taseg_tpu_torch.ops import voxelize
+
+    cap = CallCapture()
+    cap.patch(
+        voxelize, "voxelize_bwd",
+        lambda g, inv, counts: ("voxelize_bwd", inv.shape[0], *g.shape, str(g.dtype).split(".")[-1]),
+    )
+    trainer.step(scans[:1])
+    cap.remove()
+    return cap
+
+
+def phase_k8(cap: CallCapture, results: dict) -> None:
+    """K8 at every call of one real SPVCNN train step: bit-identical to
+    its plain version (signed zeros included) and on a repeat call, with
+    kernel, plain, device (profiler), bound (bytes: g, the (P,) map and
+    the counts read once, the (P, C) output written once) and library
+    times, summed over the step's calls; g's rows and counts count once
+    per voxel that has points (what this step's data reads).  The library
+    call is one
+    `index_select` of g's rows divided by their counts beforehand, over a
+    zero row for points without a voxel (bit-equal to K8 where torch's
+    division rounds as K8's)."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "device_ms": 0.0, "max_abs_err": 0.0}
+    if sum(cap.count.values()) != SPVCNN_PER_STEP["voxelize_bwd"]:
+        raise AssertionError(f"K8: calls per step {cap.count}")
+    for key, (args, _) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        g, inv, counts = args
+        got = twice_same("K8 voxelize_bwd", lambda: vx.voxelize_bwd(g, inv, counts))
+        want = vx._voxelize_bwd_plain(g, inv, counts)
+        if not bits(got).equal(bits(want)):
+            bad = (bits(got) != bits(want)).sum().item()
+            raise AssertionError(f"K8 {key[1:]}: {bad} values differ from the plain version")
+        ms = cuda_ms(lambda: vx.voxelize_bwd(g, inv, counts))
+        pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, inv, counts))
+        dev = device_ms(partial(vx.voxelize_bwd, g, inv, counts), KERNEL_NAMES["voxelize_bwd"])
+        v, c = g.shape
+        p = inv.shape[0]
+        scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
+        idx = torch.where(inv >= 0, inv, v).long()
+        lib = cuda_ms(lambda: torch.index_select(scaled, 0, idx))
+        lib_err = (torch.index_select(scaled, 0, idx).float() - got.float()).abs().max().item()
+        if not lib_err <= 2.0**-7 * got.float().abs().max().item():
+            raise AssertionError(f"K8 {key[1:]}: index_select differs by {lib_err:.3e}")
+        es = g.element_size()
+        used = int((counts > 0).sum())
+        b, _ = bound_ms(p * c * es + used * (c * es + 4) + p * 4, 0.0, "float32")
+        log(
+            f"K8 voxelize_bwd P={p} V={v} ({used} with points) C={c} {key[4]} "
+            f"x{cap.count[key]}/step: bit-identical, "
+            f"kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms index_select {lib:.4f} ms "
+            f"(max|diff| {lib_err:.3e}) bound {b:.4f} ms (bytes)"
+        )
+        for k, x in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib), ("device_ms", dev or 0.0)):
+            tot[k] += cap.count[key] * x
+    results["voxelize_bwd"] = dict(tot, bound_by="bytes")
+
+
+def point_vox_cost(seg, scans, rounds: int = 3) -> None:
+    """What the point -> voxel tables add to the topology stage: the
+    serving and the train topology of each scan built with and without
+    `point_voxel_strides`, in turns (CUDA events), medians."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+
+    strides = seg.model.point_voxel_strides
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = {}
+    batches = [seg.collate([s]) for s in scans]
+    for _ in range(rounds):
+        for a in batches:
+            for pairs in (False, True):
+                for pv in ((), strides):
+                    e[0].record()
+                    build_unet_topology(
+                        a["point_coords_t"], a["num_points_t"], seg.caps, devox_pairs=pairs,
+                        assume_sorted_points=True, point_voxel_strides=pv,
+                    )
+                    e[1].record()
+                    e[1].synchronize()
+                    ms.setdefault((pairs, bool(pv)), []).append(e[0].elapsed_time(e[1]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(
+        f"spvcnn point_vox tables in the topology (medians of {len(ms[(False, False)])}, "
+        f"in turns): serving {med[(False, False)]:.3f} -> {med[(False, True)]:.3f} ms, "
+        f"train form {med[(True, False)]:.3f} -> {med[(True, True)]:.3f} ms"
+    )
+
+
+def stage_turns(models: dict, scans, rounds: int = 2) -> None:
+    """Device stage times of each model's serving and train paths in
+    turns on the same scans (the order of the models alternating per
+    scan), so that what SPVCNN's point branch adds to MinkUNet's stages
+    is read free of the drift between the script's phases.  `models`:
+    name -> (Segmenter, Trainer).  CUDA events; medians."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.engine import check_capacity
+
+    names = list(models)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ms: dict = {}
+
+    def add(name, keys):
+        for j, k in enumerate(keys):
+            ms.setdefault((name, k), []).append(ev[j].elapsed_time(ev[j + 1]))
+
+    for r in range(rounds):
+        for i, s in enumerate(scans):
+            order = names if (r * len(scans) + i) % 2 == 0 else names[::-1]
+            for name in order:
+                seg, tr = models[name]
+                a = seg.collate([s])
+                ev[0].record()
+                topo = seg.topology(a)
+                ev[1].record()
+                seg.forward(a, topo)
+                ev[2].record()
+                ev[2].synchronize()
+                add(name, ("serve topology", "serve forward"))
+                a = tr.collate([s])
+                ev[0].record()
+                topo = tr.topology(a)
+                check_capacity(topo, tr.caps)
+                ev[1].record()
+                loss = tr.forward(a, topo)
+                ev[2].record()
+                tr.backward(loss)
+                ev[3].record()
+                tr.update()
+                ev[4].record()
+                ev[4].synchronize()
+                add(name, ("train topology", "train forward", "backward", "optimizer"))
+    for name in names:
+        log(
+            f"in turns ({rounds * len(scans)} each), {name} device stages (ms, medians): "
+            + ", ".join(
+                f"{k} {float(np.median(v)):.3f}" for (n, k), v in ms.items() if n == name
+            )
+        )
+
+
+def phase_spvcnn(scans, results: dict, minkunet: tuple) -> dict:
+    """SPVCNN mk34 cr1.0 (the same backbone with the point branch) at full
+    width in bf16, seeded weights, on the same scans: `Segmenter.predict`
+    with every launch count set to 0 just before and read just after
+    (each kernel as SPVCNN_PER_SCAN says), finite logits of the right
+    shape, bf16/f32 argmax agreement >= 0.97, the small-scan card f32
+    logits against the CPU, serving ms per scan by stage; then the train
+    path: the inputs of K8's calls in one real step, a small-scan f32 step
+    on the card against the CPU, TRAIN_STEPS counted `Trainer` steps (each
+    kernel as SPVCNN_PER_STEP says), ms per step by stage, peak memory,
+    the device stages beside MinkUNet's in turns (`minkunet`: its
+    Segmenter and Trainer); then, with the profiler, K8 at its captured
+    calls (`phase_k8`) and the device time per step of each kernel.  The MinkUNet phases'
+    objects stay alive (phase 6 uses them).  Returns the launches per
+    scan and per step and the device ms per step."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import SPVCNN_MK34_CR10
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.models import SPVCNN
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    cfg = SPVCNN_MK34_CR10
+    params, stats = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    seg = Segmenter(cfg, variables, compute_dtype="bfloat16")
+    if not isinstance(seg.model, SPVCNN):
+        raise AssertionError(f"spvcnn: Segmenter built {type(seg.model).__name__}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = seg.predict(scans)
+    torch.cuda.synchronize()
+    serve = dict(_build.LAUNCHES)
+    log(f"spvcnn serving launches over {len(scans)} scans: {serve}")
+    check_launches(serve, SPVCNN_PER_SCAN, len(scans), "spvcnn serving")
+    for s, o in zip(scans, out):
+        if o["logits"].shape != (s["xyzret"].shape[0], cfg["MODEL"]["NUM_CLASS"]):
+            raise AssertionError(f"spvcnn logits shape {o['logits'].shape}")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError("spvcnn: non-finite logits")
+    out32 = Segmenter(cfg, variables, compute_dtype="float32").predict(scans)
+    agree = float(np.mean(np.concatenate([a["labels"] == b["labels"] for a, b in zip(out, out32)])))
+    log(f"spvcnn bf16 vs f32 per-point argmax agreement {agree:.5f}")
+    if agree < 0.97:
+        raise AssertionError(f"spvcnn bf16/f32 argmax agreement {agree:.4f} < 0.97")
+    del out32
+    small_scan_check(cfg, variables, "spvcnn ")
+    serve_split(seg, scans, SPVCNN_ROUNDS, "spvcnn ")
+    point_vox_cost(seg, scans)
+
+    trainer = Trainer(
+        cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED,
+    )
+    cap = k8_calls(trainer, scans)
+    phase_small_train_step(cfg, variables, "spvcnn ")
+    train, _ = phase_train_steps(trainer, scans, SPVCNN_PER_STEP, "spvcnn train")
+    stage_turns({"MinkUNet": minkunet, "SPVCNN": (seg, trainer)}, scans)
+    del seg
+    phase_k8(cap, results)
+    del cap
+    spv: dict = {}
+    phase_train_profile(trainer, scans, spv, "spvcnn ")
+    results["voxelize_bwd"]["device_ms_per_step"] = spv["voxelize_bwd"]["device_ms_per_step"]
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "per_scan": {k: n // len(scans) for k, n in serve.items()},
+        "per_step": {k: n // TRAIN_STEPS for k, n in train.items()},
+        "device_ms_per_step": {k: v["device_ms_per_step"] for k, v in spv.items()},
+    }
 
 
 def main() -> int:
@@ -1474,6 +1793,8 @@ def main() -> int:
                 f"{name}: (all, tensor-core) launches {got}, expected "
                 f"{(total * N_SCANS, mma * N_SCANS)} over {N_SCANS} scans"
             )
+    if launches["voxelize_bwd"]:
+        raise AssertionError("voxelize_bwd (K8) launched on the inference path")
     if launches["devoxelize"] != DEVOX_PER_SCAN * N_SCANS:
         raise AssertionError(
             f"devoxelize: {launches['devoxelize']} launches, expected "
@@ -1499,52 +1820,9 @@ def main() -> int:
         raise AssertionError(f"bf16/f32 argmax agreement {agree:.4f} < 0.97")
 
     # the card's f32 path against the CPU's plain path on a small scan
-    # (a sparse small scan fills every level: capacities at the point count)
-    small = make_scans(1, n_points=8000, seed=SEED + 1)
-    cfg_small = {**cfg, "MODEL": {**cfg["MODEL"], "CAPACITY_SCHEDULE": (1.0,) * 5}}
-    gpu_small, cpu_small = (
-        Segmenter(cfg_small, variables, device=dev, compute_dtype="float32",
-                  point_capacity=8192).predict(small)[0]
-        for dev in ("cuda", "cpu")
-    )
-    d = np.abs(gpu_small["logits"] - cpu_small["logits"]).max()
-    scale = max(1.0, float(np.abs(cpu_small["logits"]).max()))
-    log(f"small scan f32 card vs cpu plain: max|dlogit| {d:.3e} (scale {scale:.3e})")
-    if not d <= 1e-3 * scale:
-        raise AssertionError("card and CPU logits disagree on the small scan")
-
-    # throughput: host / topology / forward split, after warm-up; one
-    # scan per sample, ROUNDS passes over the scans
-    torch.cuda.reset_peak_memory_stats()
-    samples = {"end_to_end": [], "host": [], "topology": [], "forward": []}
-    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    for _ in range(ROUNDS):
-        for s in scans:
-            t0 = time.perf_counter()
-            a = seg.collate([s])
-            t1 = time.perf_counter()
-            e[0].record()
-            tp = seg.topology(a)
-            e[1].record()
-            lg = seg.forward(a, tp)
-            e[2].record()
-            seg.map_to_points(a, lg)  # copies to the host: synchronises
-            samples["end_to_end"].append((time.perf_counter() - t0) * 1e3)
-            samples["host"].append((t1 - t0) * 1e3)
-            samples["topology"].append(e[0].elapsed_time(e[1]))
-            samples["forward"].append(e[1].elapsed_time(e[2]))
-    summary = {
-        k: (float(np.median(v)), float(np.percentile(v, 75))) for k, v in samples.items()
-    }
-    n = len(samples["end_to_end"])
-    log(
-        f"throughput over {n} scans (ms per scan, median / p75): "
-        + ", ".join(f"{k} {m:.3f} / {q:.3f}" for k, (m, q) in summary.items())
-        + f"; {1e3 / summary['end_to_end'][0]:.4f} scans/s end to end, "
-        f"{1e3 / (summary['topology'][0] + summary['forward'][0]):.4f} scans/s on the "
-        f"card (topology + forward); peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-    )
+    small_scan_check(cfg, variables)
+    # throughput: host / topology / forward split
+    serve_split(seg, scans, ROUNDS)
 
     # 5. the train path: Trainer of the same model in bf16
     from taseg_tpu_torch.engine import Trainer
@@ -1565,13 +1843,19 @@ def main() -> int:
     # checkpoint and resume, evaluation, TTA and submission files
     phase_harness(cfg, variables, {k: launches[k] // N_SCANS for k in launches}, serial)
 
+    # 5c. SPVCNN: serving and train paths at full width, K8 at its calls
+    # (its profiler sessions after its timed samples)
+    spvcnn = phase_spvcnn(scans, results, (seg, trainer))
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
     phase_train_probes(trainer, scans)
 
     # 7. the kernels line: K1-K3 and K7 with the inference path's
-    # launches (and their train launches), K4-K6 with the train path's
+    # launches (and their train launches), K4-K6 with the train path's,
+    # K8 with SPVCNN's train path's; each with its launches per scan and
+    # per step on the SPVCNN paths
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
@@ -1581,20 +1865,27 @@ def main() -> int:
         "strided_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/strided_conv.py:136"),
         "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
         "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:241,261"),
+        "voxelize_bwd": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:126"),
     }
     per_step = ("k3_conv_dw", "strided_dw", "segment_sum")
+    spv_train = {k: n * TRAIN_STEPS for k, n in spvcnn["per_step"].items()}
     kernels = []
     for name, (src, replaces) in meta.items():
         r = results[name]
         entry = {
             "name": name, "route": "cuda", "source": f"taseg_tpu_torch/{src}",
             "replaces": replaces,
-            "launches": (train_launches if name in per_step else launches)[name],
+            "launches": (
+                spv_train if name == "voxelize_bwd"
+                else train_launches if name in per_step else launches
+            )[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if name in per_step:
+        if name == "voxelize_bwd":
+            entry["per"] = "train step (SPVCNN)"
+        elif name in per_step:
             entry["per"] = "train step"
             if name in ("k3_conv_dw", "strided_dw"):
                 mma = train_launches[f"{name}_mma"]
@@ -1619,6 +1910,11 @@ def main() -> int:
         if name == "join_scan":
             entry["kernel_launches_per_call"] = r["kernel_launches_per_call"]
         entry["device_ms_per_train_step"] = r.get("device_ms_per_step")
+        entry["spvcnn"] = {
+            "launches_per_scan": spvcnn["per_scan"][name],
+            "launches_per_step": spvcnn["per_step"][name],
+            "device_ms_per_train_step": spvcnn["device_ms_per_step"].get(name),
+        }
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -99,8 +99,54 @@ MINKUNET_TINY = {
     },
 }
 
+# tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml: SPVCNN, the
+# MinkUNet mk34 backbone with the point branch (the JAX CLI runs its
+# MODALITY fusion on the voxel pipeline); the YAML's IF_DIST (cross-device
+# BN) is left out, the port runs one device
+SPVCNN_MK34_CR10 = {
+    "MODALITY": "fusion",
+    "DATA": {
+        "DATASET": "semantickitti",
+        "VOXEL_SIZE": 0.05,
+        "NUM_POINTS": 1000000,
+    },
+    "MODEL": {
+        "NAME": "SPVCNN",
+        "IN_FEATURE_DIM": 4,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock",
+        "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2],
+        "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
+        "cr": 1.0,
+        "DROPOUT_P": 0.0,
+        "LABEL_SMOOTHING": 0.0,
+        "LOSS_CONFIG": {
+            "LOSS_TYPES": ["CELoss", "LovLoss"],
+            "LOSS_WEIGHTS": [1.0, 1.0],
+        },
+        # not in the YAML: the MinkUNet recipe's capacities (the voxel
+        # levels are those of the same scans at the same voxel size)
+        "CAPACITY_SCHEDULE": (1.0, 0.60, 0.30, 0.12, 0.05),
+        "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.70, 0.35, 0.15, 0.06),
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 12,
+        "NUM_EPOCHS": 36,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.02,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "NESTEROV": True,
+        "GRAD_NORM_CLIP": 10.0,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
+    "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml": SPVCNN_MK34_CR10,
     "tools/cfgs/voxel/synthetic/minkunet_tiny.yaml": MINKUNET_TINY,
 }

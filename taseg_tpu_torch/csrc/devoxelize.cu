@@ -1,6 +1,7 @@
-// K7 devoxelize: the point side of the MinkUNet head, one launch per call.
+// K7 devoxelize: the point side of the MinkUNet head, one launch per call;
+// and K8, the gradient of the voxelize mean, in the same point-major layout.
 //
-// Replaces taseg_tpu/ops/voxelize.py:261 _devoxelize_trilinear and :241
+// K7 replaces taseg_tpu/ops/voxelize.py:261 _devoxelize_trilinear and :241
 // _devoxelize_identity (the forwards; their backwards are K6):
 //
 //   trilinear: out[p] = sum_{k < 8} w[k, p] * V[idx[k, p]]   (idx -1: 0 row)
@@ -25,6 +26,22 @@
 // with one 8-byte (bf16) or 16-byte (f32) load where the rows allow it
 // (C % 4 == 0 and aligned bases; else one scalar load per channel), keeps
 // the sum in registers and writes its 4 channels once.
+//
+// K8 replaces taseg_tpu/ops/voxelize.py:126 _voxelize_bwd, the gradient
+// of voxelize_avg (SPVCNN's point branch re-voxelizes features that take
+// a gradient):
+//
+//   d_points[p] = g[inv[p]] / max(count[inv[p]], 1), or 0 where inv[p] < 0
+//
+// The plain version (and JAX) casts the count to g's dtype before it
+// divides, which in bf16 rounds counts above 256; the kernel repeats it:
+// the count rounded to g's dtype, one IEEE division in f32 (__fdiv_rn),
+// one rounding to g's dtype.  Absent points write +0.  So its bits,
+// signed zeros included, are the plain version's.  Bound on the H100:
+// bytes, the (P, C) output (8.4-134 MB per call on SPVCNN's train step)
+// and the rows of g it gathers.  A thread owns one point and 16 bytes of
+// its row (4 f32 or 8 bf16 channels): one 16-byte load of g, one of the
+// output, where C and the bases allow it (else scalar loads and stores).
 #include <algorithm>
 
 #include "common.cuh"
@@ -161,6 +178,79 @@ int dispatch(const void* feats, const void* idx, const void* w, void* out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------- K8
+// 16 bytes of one row: 4 f32 or 8 bf16 values
+template <typename D>
+struct alignas(16) Row16 {
+  static constexpr int kN = 16 / sizeof(typename D::raw);
+  typename D::raw e[kN];
+};
+
+template <typename D, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    voxelize_bwd_kernel(const typename D::raw* __restrict__ g,
+                        const int* __restrict__ inv,
+                        const int* __restrict__ counts,
+                        typename D::raw* __restrict__ out, int p, int c) {
+  using raw = typename D::raw;
+  constexpr int kN = Row16<D>::kN;
+  const int chunks = (c + kN - 1) / kN;
+  const long long n = static_cast<long long>(p) * chunks;
+  for (long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       t < n; t += static_cast<long long>(gridDim.x) * kThreads) {
+    const int pt = static_cast<int>(t / chunks);
+    const int c0 = static_cast<int>(t % chunks) * kN;
+    const int m = min(kN, c - c0);
+    const int i = __ldg(inv + pt);
+    Row16<D> r;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) r.e[j] = raw(0);
+    if (i >= 0) {
+      // the count in g's dtype (bf16 rounds counts above 256)
+      const float d =
+          D::to_f(D::from_f(static_cast<float>(max(__ldg(counts + i), 1))));
+      const raw* row = g + static_cast<size_t>(i) * c + c0;
+      if (kVec) {
+        r = *reinterpret_cast<const Row16<D>*>(row);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          if (j < m) r.e[j] = row[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        r.e[j] = D::from_f(__fdiv_rn(D::to_f(r.e[j]), d));
+    }
+    raw* dst = out + static_cast<size_t>(pt) * c + c0;
+    if (kVec) {
+      *reinterpret_cast<Row16<D>*>(dst) = r;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (j < m) dst[j] = r.e[j];
+    }
+  }
+}
+
+template <typename D>
+int launch_voxelize_bwd(const void* g, const void* inv, const void* counts,
+                        void* out, int p, int c, cudaStream_t s) {
+  if (p <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  using raw = typename D::raw;
+  constexpr int kN = Row16<D>::kN;
+  const bool vec = c % kN == 0 && reinterpret_cast<size_t>(g) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  const long long n = static_cast<long long>(p) * ((c + kN - 1) / kN);
+  const int blocks = static_cast<int>(
+      std::min<long long>((n + kThreads - 1) / kThreads, 1 << 20));
+  auto kern = vec ? voxelize_bwd_kernel<D, true> : voxelize_bwd_kernel<D, false>;
+  kern<<<blocks, kThreads, 0, s>>>(
+      static_cast<const raw*>(g), static_cast<const int*>(inv),
+      static_cast<const int*>(counts), static_cast<raw*>(out), p, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // feats (V, C), idx (8, P) int32 (-1: absent corner), w (8, P) f32 ->
@@ -177,4 +267,17 @@ extern "C" int taseg_devox_identity(const void* feats, const void* inverse,
                                     void* out, int p, int c, int dtype,
                                     void* stream) {
   return dispatch(feats, inverse, nullptr, out, p, 1, c, dtype, stream);
+}
+
+// g (V, C), inv (P,) int32 (-1: no voxel), counts (V,) int32 -> out (P, C),
+// g and out f32 or bf16 (dtype)
+extern "C" int taseg_voxelize_bwd(const void* g, const void* inv,
+                                  const void* counts, void* out, int p, int c,
+                                  int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == taseg::kF32)
+    return launch_voxelize_bwd<F32>(g, inv, counts, out, p, c, s);
+  if (dtype == taseg::kBF16)
+    return launch_voxelize_bwd<BF16>(g, inv, counts, out, p, c, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

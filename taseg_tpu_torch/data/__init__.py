@@ -284,7 +284,7 @@ class VoxelLoader:
 _KIND_NOT_PORTED = {
     "range": "Queue 1 item 6 (range-view family)",
     "cylinder": "Queue 1 item 6 (Cylinder3D)",
-    "fusion": "Queue 1 item 6 (SPVCNN / RPVNet)",
+    "fusion": "Queue 1 item 6 (RPVNet's range-view pipeline)",
     "kd": "Queue 1 item 5 (KD)",
     "mm": "Queue 1 item 5 (TIAF)",
 }

@@ -9,8 +9,10 @@ train step and the harness around it).
 per-raw-point logits and labels.  A batch goes through four stages:
 
   1. host:     VoxelPipeline(training=False) + collate_shard (numpy);
-  2. topology: build_unet_topology(assume_sorted_points=True);
-  3. forward:  MinkUNet in eval mode, in the compute dtype;
+  2. topology: build_unet_topology(assume_sorted_points=True), with the
+               model's `point_voxel_strides` (SPVCNN's point branch);
+  3. forward:  the model (`models.build_segmentor` on MODEL.NAME: MinkUNet
+               or SPVCNN) in eval mode, in the compute dtype;
   4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan.
 
 `Trainer`'s evaluation runs stages 2-4 through the same functions
@@ -42,7 +44,7 @@ from ._device import resolve_device
 from .data.voxel_dataset import VoxelPipeline, collate_shard
 from .loss import Losses
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology
-from .models.voxel.minkunet import MinkUNet
+from .models import build_segmentor
 from .optim import build_optimizer
 from .utils import storage
 from .utils.common import StepTimer, create_logger
@@ -88,16 +90,19 @@ def eval_mode(model: torch.nn.Module):
         model.train(was_training)
 
 
-def eval_topology(arrays: dict, caps: UNetCapacities, sorted_points: bool):
-    """Stage 2: the inference topology (no backward tables)."""
+def eval_topology(
+    arrays: dict, caps: UNetCapacities, sorted_points: bool, point_voxel_strides=()
+):
+    """Stage 2: the inference topology (no backward tables), with the
+    point -> voxel tables at `point_voxel_strides` (the model's)."""
     return build_unet_topology(
         arrays["point_coords_t"], arrays["num_points_t"], caps,
-        assume_sorted_points=sorted_points,
+        assume_sorted_points=sorted_points, point_voxel_strides=point_voxel_strides,
     )
 
 
 @torch.no_grad()
-def eval_logits(model: MinkUNet, arrays: dict, topo) -> torch.Tensor:
+def eval_logits(model: torch.nn.Module, arrays: dict, topo) -> torch.Tensor:
     """Stage 3: per-row logits (P, C) f32 of an eval-mode `model`."""
     return model(arrays["point_feats_t"], topo)
 
@@ -113,7 +118,8 @@ def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
 
 
 class Segmenter:
-    """MinkUNet inference on one device.
+    """Inference on one device of the model that MODEL.NAME names
+    (MinkUNet or SPVCNN).
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
@@ -144,9 +150,7 @@ class Segmenter:
             training=False,
             in_feature_dim=cfg["MODEL"].get("IN_FEATURE_DIM", 4),
         )
-        self.model = MinkUNet.from_cfg(
-            cfg, device=self.device, compute_dtype=compute_dtype
-        )
+        self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
         load_flax_params(self.model, params["params"], params["batch_stats"])
         self.model.eval()
 
@@ -159,7 +163,9 @@ class Segmenter:
         return to_device(arrays, self.device)
 
     def topology(self, arrays: dict):
-        return eval_topology(arrays, self.caps, self.pipeline.sorted_points)
+        return eval_topology(
+            arrays, self.caps, self.pipeline.sorted_points, self.model.point_voxel_strides
+        )
 
     def check_capacity(self, topo) -> None:
         check_capacity(topo, self.caps)
@@ -258,7 +264,8 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
 
 
 class Trainer:
-    """The MinkUNet train step on one device, and the harness around it.
+    """The train step on one device of the model that MODEL.NAME names
+    (MinkUNet or SPVCNN), and the harness around it.
 
     cfg: dict with the YAML's layout (`configs.py`, or a `utils.config.
     Config`), including OPTIM; MODEL.TRAIN_CAPACITY_SCHEDULE, where
@@ -277,9 +284,9 @@ class Trainer:
       1. host:      VoxelPipeline(training=True) with a numpy generator
                     seeded by `seed`, then collate_shard;
       2. topology:  build_unet_topology(devox_pairs=True,
-                    assume_sorted_points=True); a level over capacity
-                    raises;
-      3. forward:   MinkUNet in train mode (masked batch statistics), then
+                    assume_sorted_points=True, the model's
+                    point_voxel_strides); a level over capacity raises;
+      3. forward:   the model in train mode (masked batch statistics), then
                     the criterion (MODEL.LOSS_CONFIG: CE with label
                     smoothing + Lovász, ignore MODEL.IGNORE_LABEL);
       4. backward:  autograd through the hand kernels' Functions;
@@ -351,9 +358,7 @@ class Trainer:
             in_feature_dim=m.get("IN_FEATURE_DIM", 4),
             seed=seed,
         )
-        self.model = MinkUNet.from_cfg(
-            cfg, device=self.device, compute_dtype=compute_dtype
-        )
+        self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
         if self.model.dropout_p > 0:
             raise NotImplementedError(
                 f"MODEL.DROPOUT_P = {self.model.dropout_p}: training with "
@@ -406,6 +411,7 @@ class Trainer:
         return build_unet_topology(
             arrays["point_coords_t"], arrays["num_points_t"], self.caps,
             devox_pairs=True, assume_sorted_points=self.pipeline.sorted_points,
+            point_voxel_strides=self.model.point_voxel_strides,
         )
 
     def forward(self, arrays: dict, topo) -> torch.Tensor:
@@ -551,7 +557,9 @@ class Trainer:
         with eval_mode(self.model):
             for arrays, meta in batches:
                 arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
-                topo = eval_topology(arrays, self.eval_caps, sorted_points)
+                topo = eval_topology(
+                    arrays, self.eval_caps, sorted_points, self.model.point_voxel_strides
+                )
                 check_capacity(topo, self.eval_caps)
                 yield arrays, meta, eval_logits(self.model, arrays, topo)
 

@@ -1,1 +1,43 @@
-"""Models of the port (counterpart of `taseg_tpu.models`)."""
+"""Models of the port (counterpart of `taseg_tpu.models`), and the
+dispatch on `MODEL.NAME` (JAX `models/__init__.py:54 build_segmentor`)."""
+
+from __future__ import annotations
+
+from .fusion.spvcnn import SPVCNN
+from .voxel.minkunet import MinkUNet
+
+# the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25)
+SEGMENTORS = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN}
+
+
+def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
+    """The model of a config dict with the YAML's layout (`MODEL.NAME`,
+    `PLANES`, `NUM_LAYER`, `cr`, `NUM_CLASS`, `IN_FEATURE_DIM`, `BLOCK`,
+    `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`, and SPVCNN's
+    `MULTI_SCALE`), defaults as in the JAX `build_segmentor`.  A name the
+    port has not ported raises, listing those it has."""
+    m = cfg["MODEL"]
+    name = m.get("NAME", "MinkUNet")
+    if name not in SEGMENTORS:
+        raise ValueError(
+            f"MODEL.NAME {name!r} is not ported (ROADMAP Queue 1); the port "
+            f"builds {sorted(SEGMENTORS)}"
+        )
+    kw = dict(
+        num_classes=m["NUM_CLASS"],
+        in_dim=m.get("IN_FEATURE_DIM", 4),
+        planes=tuple(m.get("PLANES", (32, 32, 64, 128, 256, 256, 128, 96, 96))),
+        num_layer=tuple(m.get("NUM_LAYER", (2, 3, 4, 6, 2, 2, 2, 2))),
+        block=m.get("BLOCK", "Bottleneck"),
+        cr=m.get("cr", 1.0),
+        compute_dtype=compute_dtype or m.get("COMPUTE_DTYPE", "float32"),
+        dropout_p=float(m.get("DROPOUT_P", 0.3)),
+        bn_momentum=float(m.get("BN_MOMENTUM", 0.1)),
+        device=device,
+    )
+    if name == "SPVCNN":
+        kw["multi_scale"] = m.get("MULTI_SCALE", "concat")
+    return SEGMENTORS[name](**kw)
+
+
+__all__ = ["MinkUNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]

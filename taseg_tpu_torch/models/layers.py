@@ -62,6 +62,21 @@ class SparseConv(nn.Module):
         return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
 
 
+class Dense(nn.Module):
+    """flax `nn.Dense`: kernel (C_in, C_out), bias (C_out,).  The input
+    and the f32 parameters are promoted to their common dtype first, as
+    flax promotes them, so a bf16 input gives an f32 product."""
+
+    def __init__(self, in_features: int, out_features: int, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty((in_features, out_features), device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the valid rows of a level (JAX layers.py:176-243).
 

@@ -14,9 +14,10 @@ level), the level's present pairs of it compacted per offset
 (`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared),
 the parent relation's pairs compacted per slot (`StridedTables.pairs`,
 the pair lists of K5's tensor-core route, shared by the level's down and
-up conv) and the trilinear pair tables.  Left out against the JAX package:
-the TGF gather plans (the port's conv takes the rulebook directly) and
-SPVCNN's `point_vox` tables.
+up conv) and the trilinear pair tables.  With `point_voxel_strides`
+(SPVCNN's (1, 4, 16)) it adds the point -> voxel tables of the point
+branch (`UNetTopology.point_vox`).  Left out against the JAX package: the
+TGF gather plans (the port's conv takes the rulebook directly).
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ class UNetTopology:
     point_tables: SegmentTables  # for the initial average voxelization
     devox: dict  # stride (1, 4, 16) -> devox table of the head
     bounds: GridBounds
+    num_points: torch.Tensor  # () int32: the valid point rows
+    # stride -> (inverse (P,) int32 point -> voxel of that stride or -1,
+    # its SegmentTables); empty unless built with point_voxel_strides
+    point_vox: dict
 
 
 def _pattern_cols(m: int) -> list:
@@ -125,13 +130,18 @@ def build_unet_topology(
     *,
     devox_pairs: bool = False,
     assume_sorted_points: bool = False,
+    point_voxel_strides: tuple = (),
 ) -> UNetTopology:
     """Build the MinkUNet topology from point coords (P, 4) on their
     device: one level per entry of `caps.voxels`, devox tables for the
     head's strides 1, 4 and 16.  `num_points` is a 0-dim int32 tensor.
     The points are integer voxel coords (the host pipeline's contract),
     so stride 1 devoxelizes by the identity gather.  `devox_pairs` adds
-    the tables that only the backward reads (training)."""
+    the tables that only the backward reads (training).
+    `point_voxel_strides` (a subset of SPVCNN's (1, 4, 16)) adds, per
+    stride s, each point's stride-s voxel (the floor voxel, corner 0 of
+    its trilinear corners) and the segment tables over it (JAX
+    `backbone_context.py:326-337`)."""
     num_levels = len(caps.voxels)
     dev = point_coords.device
     p = point_coords.shape[0]
@@ -224,10 +234,25 @@ def build_unet_topology(
             with_pairs=devox_pairs, corner_idx=g[:, 8 * i : 8 * (i + 1)].t(),
         )
 
+    # point -> stride-s voxel: the containing (floor) voxel is corner 0
+    # of the trilinear corners, already gathered for strides 4 and 16
+    point_vox = {}
+    for s in point_voxel_strides:
+        if s == 1:
+            point_vox[s] = (inverse, point_tables)
+            continue
+        if s not in corner_strides:
+            raise ValueError(f"point_voxel_strides: {s} is not one of 1, {corner_strides}")
+        inv_s = g[:, 8 * corner_strides.index(s)].contiguous()
+        rows = levels[s.bit_length() - 1].coords.shape[0]
+        point_vox[s] = (inv_s, build_segment_tables(inv_s, rows))
+
     return UNetTopology(
         levels=tuple(levels),
         point_inverse=inverse,
         point_tables=point_tables,
         devox=devox,
         bounds=bounds,
+        num_points=num_points,
+        point_vox=point_vox,
     )

@@ -60,6 +60,9 @@ class _TriScaleHead(nn.Module):
 
 
 class MinkUNet(nn.Module):
+    # the model takes no point -> voxel tables (SPVCNN's point branch does)
+    point_voxel_strides = ()
+
     def __init__(
         self,
         num_classes: int,
@@ -107,25 +110,17 @@ class MinkUNet(nn.Module):
 
     @staticmethod
     def from_cfg(cfg: dict, device=None, compute_dtype=None) -> "MinkUNet":
-        """Build from a config dict with the YAML's layout (`MODEL.PLANES`,
-        `NUM_LAYER`, `cr`, `NUM_CLASS`, `IN_FEATURE_DIM`, `BLOCK`,
-        `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`), defaults as in
-        `taseg_tpu.models.build_model`."""
-        m = cfg["MODEL"]
-        if m.get("NAME", "MinkUNet") != "MinkUNet":
-            raise ValueError(f"the port runs MinkUNet only, not {m['NAME']}")
-        return MinkUNet(
-            num_classes=m["NUM_CLASS"],
-            in_dim=m.get("IN_FEATURE_DIM", 4),
-            planes=tuple(m.get("PLANES", (32, 32, 64, 128, 256, 256, 128, 96, 96))),
-            num_layer=tuple(m.get("NUM_LAYER", (2, 3, 4, 6, 2, 2, 2, 2))),
-            block=m.get("BLOCK", "Bottleneck"),
-            cr=m.get("cr", 1.0),
-            compute_dtype=compute_dtype or m.get("COMPUTE_DTYPE", "float32"),
-            dropout_p=float(m.get("DROPOUT_P", 0.3)),
-            bn_momentum=float(m.get("BN_MOMENTUM", 0.1)),
-            device=device,
-        )
+        """Build from a config dict with the YAML's layout, through
+        `models.build_segmentor` (which builds every ported model by
+        `MODEL.NAME`); raises where the config names another model."""
+        from .. import build_segmentor
+
+        name = cfg["MODEL"].get("NAME", "MinkUNet")
+        if name != "MinkUNet":
+            raise ValueError(
+                f"MODEL.NAME is {name!r}: build it with models.build_segmentor"
+            )
+        return build_segmentor(cfg, device=device, compute_dtype=compute_dtype)
 
     def _stack(self, x, name, n, rulebook, mask):
         for i in range(n):

@@ -18,7 +18,8 @@ an input gradient (the backward of the k3 conv and of the other strided
 direction).  K1 (`join_scan`) launches one kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
 (`segment_sum`) count one per call, their second kernel (the split
 reduction, K6's merge of chunk partials) included; K7 (`devoxelize`)
-launches one kernel per call, trilinear or identity.
+launches one kernel per call, trilinear or identity, and so does K8
+(`voxelize_bwd`).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ LAUNCHES = {
     "strided_dw_mma": 0,
     "segment_sum": 0,
     "devoxelize": 0,
+    "voxelize_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -82,6 +84,7 @@ _SIGNATURES = {
     "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
+    "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

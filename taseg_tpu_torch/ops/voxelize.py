@@ -3,7 +3,10 @@
 
   * `voxelize_avg`: segment mean of point features per voxel, over the
     sorted-segment layout of `build_segment_tables`; its backward gathers
-    each voxel's gradient / count back to the points (plain torch);
+    each voxel's gradient / count back to the points, the hand kernel K8
+    (`voxelize_bwd`, `csrc/devoxelize.cu`, one launch per call,
+    bit-identical to the plain version `_voxelize_bwd_plain`) on CUDA
+    tensors;
   * `devoxelize`: the identity gather (integer points at stride 1) or the
     8-corner trilinear interpolation, the hand kernel K7
     (`csrc/devoxelize.cu`, one launch per call, bit-identical to the plain
@@ -168,9 +171,40 @@ def _voxelize_avg(point_feats, tables):
     return mean.to(point_feats.dtype)
 
 
+def _voxelize_bwd_plain(g, inverse, counts):
+    # K8's plain version, as JAX `_voxelize_bwd`: the count is cast to
+    # g's dtype before the division (in bf16 that rounds counts above 256)
+    scaled = g / counts.clamp(min=1).to(g.dtype)[:, None]
+    return torch.where((inverse >= 0)[:, None], scaled[inverse.clamp(min=0).long()], 0)
+
+
+def voxelize_bwd(g: torch.Tensor, inverse: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """K8, the gradient of `voxelize_avg`: out[p] = g[inverse[p]] /
+    max(counts[inverse[p]], 1), the count rounded to g's dtype first, and
+    +0 where inverse[p] < 0; (V, C) f32 or bf16, (P,) and (V,) int32 ->
+    (P, C) in g's dtype."""
+    dev = g.device
+    _build.check("g", g, tuple(DTYPE_CODES), 2, dev)
+    _build.check("inverse", inverse, (torch.int32,), 1, dev)
+    _build.check("counts", counts, (torch.int32,), 1, dev)
+    if counts.shape[0] != g.shape[0]:
+        raise ValueError(f"counts: {counts.shape[0]} rows, g has {g.shape[0]}")
+    if not _build.dispatch(g):
+        return _voxelize_bwd_plain(g, inverse, counts)
+    p, c = inverse.shape[0], g.shape[1]
+    out = torch.empty((p, c), dtype=g.dtype, device=dev)
+    if p == 0 or c == 0:
+        return out
+    _build.launch(
+        "taseg_voxelize_bwd", ("voxelize_bwd",), g.data_ptr(), inverse.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), p, c, DTYPE_CODES[g.dtype],
+    )
+    return out
+
+
 class VoxelizeAvg(torch.autograd.Function):
-    """Segment mean with the JAX `_voxelize_bwd` gradient: each point gets
-    its voxel's gradient / count (plain torch gather)."""
+    """Segment mean (K6, then the division) with the JAX `_voxelize_bwd`
+    gradient: each point gets its voxel's gradient / count (K8)."""
 
     @staticmethod
     def forward(ctx, point_feats, inverse, tables):
@@ -179,10 +213,7 @@ class VoxelizeAvg(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        scaled = g / ctx.counts.clamp(min=1).to(g.dtype)[:, None]
-        inv = ctx.inverse
-        d_points = torch.where((inv >= 0)[:, None], scaled[inv.clamp(min=0).long()], 0)
-        return d_points, None, None
+        return voxelize_bwd(g.contiguous(), ctx.inverse, ctx.counts), None, None
 
 
 def voxelize_avg(

@@ -8,9 +8,9 @@ batch-size / epoch overrides.  Outputs go to
 `output/<recipe>/<extra_tag>/` under the working directory (log.txt,
 ckpt/checkpoint_epoch_<n>, metrics/); a run resumes from the newest
 checkpoint there.  One process drives one device: `--device` (default
-cuda; cpu runs the plain versions of the kernels).  MinkUNet on the
-`voxel` pipeline only; several processes (`--distributed`, DDP) wait for
-ROADMAP Queue 1 item 3.
+cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
+on the `voxel` pipeline only; several processes (`--distributed`, DDP)
+wait for ROADMAP Queue 1 item 3.
 
     python -m taseg_tpu_torch.train \\
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml --epochs 1
@@ -26,6 +26,7 @@ from pathlib import Path
 
 from .data import build_dataloader
 from .engine import Trainer
+from .models import SEGMENTORS
 from .utils.common import create_logger
 from .utils.config import apply_overrides, load_config
 
@@ -59,6 +60,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def check_ported(cfg) -> str:
+    """The recipe's MODALITY, where the port trains its model; raises
+    otherwise.  The JAX CLI runs SPVCNN (MODALITY fusion) as the `voxel`
+    kind, on the voxel pipeline (JAX engine.py:164-176, train.py:101-107)."""
+    modality = str(cfg.get("MODALITY", "voxel"))
+    name = cfg["MODEL"]["NAME"]
+    if name not in SEGMENTORS or modality not in ("voxel", "fusion"):
+        raise NotImplementedError(
+            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 items 5-6; "
+            f"the port trains {sorted(SEGMENTORS)} on the voxel pipeline"
+        )
+    return modality
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = load_config(args.cfg_file)
@@ -70,12 +85,7 @@ def main(argv=None) -> None:
         # DATA.EVAL_SPLIT + DATA.SEQUENCES
         cfg.DATA["SEQUENCES"] = [args.seq]
         cfg.DATA["EVAL_SPLIT"] = "test" if args.seq >= 11 else "val"
-    modality = str(cfg.get("MODALITY", "voxel"))
-    if modality != "voxel" or cfg.MODEL["NAME"] != "MinkUNet":
-        raise NotImplementedError(
-            f"{cfg.MODEL['NAME']} ({modality}) is not ported yet: ROADMAP "
-            f"Queue 1 items 5-6; the port trains MinkUNet on the voxel pipeline"
-        )
+    modality = check_ported(cfg)
 
     out_dir = Path("output") / cfg.TAG / args.extra_tag
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,19 +1,23 @@
-"""Weights between the JAX package's flax trees and the port's MinkUNet.
+"""Weights between the JAX package's flax trees and the port's models
+(MinkUNet, SPVCNN).
 
-`load_flax_params(model, params, batch_stats)` fills a torch `MinkUNet`
+`load_flax_params(model, params, batch_stats)` fills a torch model
 from the flax `params` and `batch_stats` trees given as nested dicts of
 numpy arrays, with the names `model.init` gives (`stem_0/SparseConv_0/
-kernel`, `stage1_0/MaskedBatchNorm_1/scale`, `classifier/kernel`, ...).
-Conv kernels are (K, C_in, C_out) on both sides, so nothing is
-transposed.  Every key on either side must be matched, or it raises.
+kernel`, `stage1_0/MaskedBatchNorm_1/scale`, `classifier/kernel`,
+SPVCNN's `point_transform_0/Dense_0/kernel`, ...).  Conv and Dense
+kernels are (K, C_in, C_out) and (C_in, C_out) on both sides, so nothing
+is transposed.  Every key on either side must be matched, or it raises.
 
 `export_flax_params(model)` is the inverse map: the model's parameters
 and BN running statistics back to the two flax-shaped numpy trees.
 
 `init_params_numpy(cfg, seed)` draws trees of the same names and shapes
 from numpy with the flax init distributions (JAX layers.py:68-76:
-uniform(+-1/sqrt(fan*K)) for convs, lecun_uniform for the head, ones and
-zeros for BN), so a run on the card needs no JAX.
+uniform(+-1/sqrt(fan*K)) for convs, lecun_uniform for MinkUNet's head,
+flax's default Dense init (lecun_normal: a normal truncated at 2 standard
+deviations, zero bias) for SPVCNN's Dense layers, ones and zeros for
+BN), so a run on the card needs no JAX.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.layers import MaskedBatchNorm, SparseConv
-from ..models.voxel.minkunet import MinkUNet, _TriScaleHead
+from torch import nn
+
+from ..models import build_segmentor
+from ..models.layers import Dense, MaskedBatchNorm, SparseConv
+from ..models.voxel.minkunet import _TriScaleHead
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -48,7 +55,7 @@ def _nest(flat: dict) -> dict:
 
 
 @torch.no_grad()
-def load_flax_params(model: MinkUNet, params: dict, batch_stats: dict) -> None:
+def load_flax_params(model: nn.Module, params: dict, batch_stats: dict) -> None:
     """Copy the flax trees into `model` in place (on its device)."""
     targets = dict(model.named_parameters())
     targets.update(model.named_buffers())
@@ -74,7 +81,7 @@ def load_flax_params(model: MinkUNet, params: dict, batch_stats: dict) -> None:
 
 
 @torch.no_grad()
-def export_flax_params(model: MinkUNet) -> tuple[dict, dict]:
+def export_flax_params(model: nn.Module) -> tuple[dict, dict]:
     """(params, batch_stats) nested dicts of float32 numpy arrays, named
     as `model.init` names them: the BN buffers `mean` / `var` go to
     batch_stats, every parameter to params."""
@@ -91,9 +98,10 @@ def export_flax_params(model: MinkUNet) -> tuple[dict, dict]:
 
 def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
     """(params, batch_stats) nested dicts of float32 numpy arrays for the
-    MinkUNet of `cfg`, drawn from numpy's generator seeded with `seed`."""
+    model of `cfg` (`models.build_segmentor`), drawn from numpy's
+    generator seeded with `seed`."""
     rng = np.random.default_rng(seed)
-    model = MinkUNet.from_cfg(cfg, device="cpu")
+    model = build_segmentor(cfg, device="cpu")
     params, stats = {}, {}
     for mname, m in model.named_modules():
         path = mname.replace(".", "/")
@@ -115,4 +123,20 @@ def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
                 -lim, lim, (fan_in, n_cls)
             ).astype(np.float32)
             params[f"{path}/bias"] = np.zeros(n_cls, np.float32)
+        elif isinstance(m, Dense):
+            fan_in, n_out = m.kernel.shape
+            params[f"{path}/kernel"] = lecun_normal(rng, fan_in, (fan_in, n_out))
+            params[f"{path}/bias"] = np.zeros(n_out, np.float32)
     return _nest(params), _nest(stats)
+
+
+def lecun_normal(rng: np.random.Generator, fan_in: int, shape) -> np.ndarray:
+    """flax's `lecun_normal`: a standard normal truncated to [-2, 2]
+    (redrawn outside), scaled to variance 1 / fan_in (the truncated
+    normal's std is 0.8796256610342398)."""
+    x = rng.standard_normal(shape)
+    out = np.abs(x) > 2.0
+    while out.any():
+        x[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(x) > 2.0
+    return (x * (1.0 / fan_in) ** 0.5 / 0.8796256610342398).astype(np.float32)

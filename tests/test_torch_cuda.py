@@ -25,7 +25,9 @@ lists of `f3conv.k3_pair_lists`) in bf16 with widths that are multiples
 of 8, its CUDA-core route in f32 and at ragged widths; K5 likewise, over
 the per-slot lists of `strided_conv.slot_pair_lists`.  K7
 (`devoxelize`) repeats its plain version's roundings and is held to the
-same bits, signed zeros included.
+same bits, signed zeros included; so is K8 (`voxelize_bwd`), the
+gradient of the voxelize mean.  A small SPVCNN f32 step on the card is
+held against the CPU's.
 """
 
 from dataclasses import replace
@@ -723,6 +725,98 @@ def test_devoxelize_kernel_empty(cuda):
     assert tvx.devoxelize_trilinear(vox, tri).shape == (0, 20)
     tvx.devoxelize_identity(vox.cpu(), torch.zeros(3, dtype=torch.int32))
     assert _build.LAUNCHES["devoxelize"] == 0
+
+
+def _voxelize_bwd_case(dev, dtype, c, misaligned, seed=53):
+    """g (V, C) and a point -> voxel map with segments of 301 and 257
+    members (counts 300 and 256 in bf16), empty voxels, points without a
+    voxel and negative zeros in g; `misaligned` starts g 2 or 4 bytes off
+    its 16-byte boundary (the kernel's scalar path)."""
+    rng = np.random.default_rng(seed)
+    v, p = int(rng.integers(300, 2000)), int(rng.integers(3000, 9000))
+    inv = rng.integers(2, v, p).astype(np.int32)
+    inv[rng.random(p) < 0.05] = -1
+    inv[inv == 7] = 5
+    inv[:301], inv[301:558] = 0, 1
+    base = _rand(rng, (v * c + 1,), dev, dtype)
+    g = (base[1:] if misaligned else base[:-1]).view(v, c)
+    g[3] = -0.0
+    t_inv = torch.from_numpy(inv).to(dev)
+    return g, t_inv, tvx.build_segment_tables(t_inv, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 19, 256])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_voxelize_bwd_kernel_bit_identical(cuda, dtype, c, misaligned):
+    """K8 gives the plain version's bits (signed zeros, the bf16 count
+    rounding and the +0 rows included), the same bits on a repeat call,
+    one launch per call, and the same through the VoxelizeAvg backward."""
+    g, inv, tables = _voxelize_bwd_case(cuda, dtype, c, misaligned)
+    assert (g.data_ptr() % 16 != 0) == misaligned
+    _build.reset_launches()
+    got = tvx.voxelize_bwd(g, inv, tables.counts)
+    want = tvx._voxelize_bwd_plain(g, inv, tables.counts)
+    assert got.dtype == dtype and got.shape == (inv.shape[0], c)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(tvx.voxelize_bwd(g, inv, tables.counts)), _bits(got))
+    assert torch.equal(_bits(got[inv < 0]), _bits(torch.zeros_like(got[inv < 0])))
+    assert _build.LAUNCHES["voxelize_bwd"] == 2
+    f = torch.zeros(inv.shape[0], c, device=cuda, dtype=dtype, requires_grad=True)
+    (d,) = torch.autograd.grad(tvx.voxelize_avg(f, inv, tables), f, g)
+    assert torch.equal(_bits(d), _bits(want))
+    assert _build.LAUNCHES["voxelize_bwd"] == 3
+
+
+def test_voxelize_bwd_kernel_empty(cuda):
+    """P = 0 launches nothing; neither do CPU tensors."""
+    g = torch.ones(5, 32, device=cuda)
+    counts = torch.ones(5, dtype=torch.int32, device=cuda)
+    _build.reset_launches()
+    out = tvx.voxelize_bwd(g, torch.zeros(0, dtype=torch.int32, device=cuda), counts)
+    assert out.shape == (0, 32)
+    tvx.voxelize_bwd(g.cpu(), torch.zeros(3, dtype=torch.int32), counts.cpu())
+    assert _build.LAUNCHES["voxelize_bwd"] == 0
+
+
+def test_spvcnn_small_step_card_equals_cpu(cuda):
+    """2 f32 SPVCNN train steps (the tiny recipe's widths, one small
+    synthetic scan) on the card and on the CPU: the loss within 1e-4
+    relative, the grad norm within 1e-3 and the parameters' updates within
+    3e-2 of the update's L2 norm, as chip_smoke.py holds MinkUNet's; K8
+    launched 3 times per step on the card."""
+    from taseg_tpu_torch.configs import MINKUNET_TINY
+    from taseg_tpu_torch.data.synthetic import synthetic_scan
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
+
+    cfg = {**MINKUNET_TINY, "MODEL": {**MINKUNET_TINY["MODEL"], "NAME": "SPVCNN"}}
+    pts, labels = synthetic_scan(np.random.default_rng(7), 4000)
+    scan = {"xyzret": np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1), "labels": labels}
+    p0, s0 = init_params_numpy(cfg, seed=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, {"params": p0, "batch_stats": s0}, dev, iters_per_epoch=1,
+                     total_epochs=4, compute_dtype="float32", point_capacity=4096)
+        _build.reset_launches()
+        outs = [tr.step([scan]) for _ in range(2)]
+        runs[dev] = outs, export_flax_params(tr.model)[0], _build.LAUNCHES["voxelize_bwd"]
+    (g_out, g_par, g_k8), (c_out, c_par, c_k8) = runs["cuda"], runs["cpu"]
+    assert (g_k8, c_k8) == (6, 0)
+    for g, c in zip(g_out, c_out):
+        assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+        assert g["grad_norm"] == pytest.approx(c["grad_norm"], rel=1e-3)
+
+    def flat(t, pre=""):
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, pre + k + "/") if isinstance(v, dict) else {pre + k: np.asarray(v, np.float64)})
+        return out
+
+    a, b, z = flat(g_par), flat(c_par), flat(p0)
+    diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+    upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
+    assert diff <= 3e-2 * upd, diff / upd
 
 
 # ------------------------------------------------ the harness on the card

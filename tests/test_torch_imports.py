@@ -1,7 +1,8 @@
 """The port stands alone: importing it, every submodule (the train
-path's loss, optim and f3conv among them) and chip_smoke.py pulls in no
-jax, flax, optax or taseg_tpu module; chip_smoke.py refuses to run
-without CUDA or without the package beside it, and prints no result."""
+path's loss, optim and f3conv, and models/fusion, among them) and
+chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
+chip_smoke.py refuses to run without CUDA or without the package beside
+it, and prints no result."""
 
 import shutil
 import subprocess
@@ -18,7 +19,8 @@ import importlib, pkgutil, sys
 import taseg_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(taseg_tpu_torch.__path__, "taseg_tpu_torch.")]
 train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch.loss.util",
-         "taseg_tpu_torch.optim", "taseg_tpu_torch.ops.f3conv"}
+         "taseg_tpu_torch.optim", "taseg_tpu_torch.ops.f3conv",
+         "taseg_tpu_torch.models.fusion", "taseg_tpu_torch.models.fusion.spvcnn"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

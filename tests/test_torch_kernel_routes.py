@@ -164,7 +164,7 @@ def test_launch_counters_have_the_route_entries():
         "strided_down_dgrad", "strided_down_dgrad_mma",
         "strided_up_dgrad", "strided_up_dgrad_mma",
         "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
-        "segment_sum", "devoxelize",
+        "segment_sum", "devoxelize", "voxelize_bwd",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
