@@ -8,9 +8,10 @@ the harness around it (`Trainer.train` over the prefetching loader,
 checkpoints, evaluation, TTA) of MinkUNet mk34 cr1.0
 (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml), then
 `Segmenter.predict` and `Trainer.step` of SPVCNN mk34 cr1.0
-(tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml), in bf16 on
-synthetic 120 000-point scans, weights drawn from a seed — and checks
-them:
+(tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml) and of RPVNet
+mk18 cr1.0 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml, with
+64 x 2048 range images), in bf16 on synthetic 120 000-point scans,
+weights drawn from a seed — and checks them:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
@@ -66,12 +67,30 @@ them:
      card against the CPU; 4 counted full-width steps (per step K8 3, K6
      8, K7 4, the convs as MinkUNet's), ms per step by stage, peak
      memory, and (after them) each kernel's device time per step;
+  5d. RPVNet at full width, the range branch in f32 as in JAX:
+     `Segmenter.predict` with every launch counted (per scan K2 34 (33
+     on tensor cores), K3 4 + 4, K6 7, K7 8 of which 4 at 4 corners, K8
+     0), bf16/f32 argmax agreement, the small-scan card f32 logits
+     against the CPU, serving ms per scan by stage, what the RpvContext
+     adds to the topology, the range stages' forward; a small-scan f32
+     step on the card against the CPU (dropout off on both); 4 counted
+     full-width steps (per step K6 15, K7 8 of which 4 at 4 corners, K8
+     6), ms per step by stage, peak memory, the range stages' forward and
+     backward; then K7 at 4 corners at the 4 samples of a real step,
+     bit-identical to its plain version and on repeat, with kernel,
+     device, plain, bound and `embedding_bag` times, K6 over the 3 pixel
+     tables and the 4 corner-pair tables against its plain version in
+     f64, K8 at the 3 pixel scatters bit-identical; each kernel's device
+     time per step;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
   7. one JSON line listing the kernels, K2, K3, K4 and K5 with their
-     launches per route, K2, K3 and K7 with their train launches, every
-     kernel with its launches per scan and per step on SPVCNN's paths.
+     launches per route, K2, K3 and K7 with their train launches, K7 at 4
+     corners as its own entry (`devoxelize_bilinear`, RPVNet's serving
+     launches), K6 and K8 with their times at RPVNet's pixel tables, every
+     kernel with its launches per scan and per step on SPVCNN's and
+     RPVNet's paths.
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -119,6 +138,8 @@ KERNEL_NAMES = {
     "k3_conv_dw": ("PairsK3", "K3Lists"),
     "strided_dw": ("PairsStrided", "SlotLists"),
     "devoxelize": ("devox_kernel",),
+    # K7's 4-corner instances (a tuple: every fragment must appear)
+    "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
     "voxelize_bwd": ("voxelize_bwd_kernel",),
 }
 TRAIN_STEPS = 4
@@ -137,7 +158,7 @@ TRAIN_PER_STEP = {
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
     "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
-    "segment_sum": 4, "devoxelize": 3, "voxelize_bwd": 0,
+    "segment_sum": 4, "devoxelize": 3, "devoxelize_bilinear": 0, "voxelize_bwd": 0,
 }
 
 # SPVCNN (tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml), the same
@@ -153,6 +174,31 @@ SPVCNN_PER_SCAN = {
 }
 SPVCNN_PER_STEP = {**TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "voxelize_bwd": 3}
 SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
+
+# RPVNet (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml): the
+# mk18 backbone (two blocks per stage: K2 34 per scan, the stem's first
+# on CUDA cores), the point branch, and the range branch on 64 x 2048
+# images.  Per scan K6 on the stem's voxelize, the three re-voxelizations
+# and the three scatters to the range image (pixel tables at scales 1, 16
+# and 4); K7 on the four voxel devoxelizations and the four bilinear
+# samples of the range stages (4 corners, scales 1, 16, 4, 1).  Per train
+# step also K6 on the four devox and the four sample backwards (over the
+# 4P corner pairs), K8 on the three re-voxelize and the three scatter
+# backwards
+RPVNET_PER_SCAN = {
+    "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_mma": 33,
+    "strided_down": 4, "strided_down_mma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 0,
+}
+RPVNET_PER_STEP = {
+    **TRAIN_PER_STEP,
+    "sparse_conv_k3": 67, "sparse_conv_k3_mma": 66,
+    "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_mma": 33,
+    "k3_conv_dw": 34, "k3_conv_dw_mma": 33,
+    "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 6,
+}
+RPVNET_ROUNDS = 3  # serving samples: RPVNET_ROUNDS * N_SCANS scans
+RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bottom")
 
 # the harness phase: one epoch of train scans through the loader, the
 # eval scans, and the point capacity passed as bench.py passes it (the
@@ -187,7 +233,9 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 def named(key: str, frags) -> bool:
-    return any(f in key for f in frags)
+    """Whether a profiler key holds one of `frags` (a tuple in `frags`:
+    all of its fragments)."""
+    return any(all(p in key for p in f) if isinstance(f, tuple) else f in key for f in frags)
 
 
 def device_ms(fn, frags, iters: int = 10):
@@ -1020,17 +1068,20 @@ def phase_pair_lists(trainer, scans) -> None:
     log(f"K5 pair lists: {tot:.4f} ms per step in the topology stage")
 
 
-def phase_small_train_step(cfg, variables, label: str = "") -> None:
+def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = False) -> None:
     """The same small scan and weights through 2 f32 train steps on the
     card and on the CPU (plain versions): step 0 at LR * 1e-5, step 1 at
     the full LR (warmup of one step).  Loss within 1e-4 relative, grad
     norm within 1e-3, and the parameters' updates within 3e-2 of the
     update's L2 norm (measured 4.2e-4 and 1.3e-2 on an H100: the step
     amplifies summation-order differences, as tests/test_torch_train.py
-    shows on the CPU)."""
+    shows on the CPU).  `no_dropout` sets every Dropout's rate to 0 on
+    both sides: a CUDA and a CPU generator draw different masks from one
+    seed (RPVNet's range branch drops at 0.2 in every step)."""
     import numpy as np
 
     from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.models.layers import Dropout
     from taseg_tpu_torch.utils.params_from_jax import export_flax_params
 
     small = make_scans(1, n_points=8000, seed=SEED + 1)
@@ -1041,6 +1092,10 @@ def phase_small_train_step(cfg, variables, label: str = "") -> None:
             cfg_small, variables, device=dev, iters_per_epoch=1, total_epochs=4,
             compute_dtype="float32", point_capacity=8192, seed=SEED,
         )
+        if no_dropout:
+            for m in tr.model.modules():
+                if isinstance(m, Dropout):
+                    m.rate = 0.0
         runs[dev] = [tr.step(small) for _ in range(2)], export_flax_params(tr.model)[0]
     (g_out, g_par), (c_out, c_par) = runs["cuda"], runs["cpu"]
     p0 = variables["params"]
@@ -1707,6 +1762,329 @@ def phase_spvcnn(scans, results: dict, minkunet: tuple) -> dict:
     }
 
 
+def rpv_calls(trainer, scans) -> CallCapture:
+    """One real RPVNet train step with the model's point <-> range
+    functions wrapped: the inputs of its 3 scatters to the range image
+    (`point_to_range`: K6 over the pixel tables, K8 their backward) and
+    of its 4 bilinear samples back (`devoxelize` on a 4-corner table: K7
+    at 4 corners, K6 over the 4P corner pairs their backward)."""
+    from taseg_tpu_torch.models.fusion import rpvnet
+
+    cap = CallCapture()
+    cap.patch(rpvnet, "point_to_range", lambda z, ids, t, h, w: ("scatter", h, w, z.shape[1]))
+    cap.patch(
+        rpvnet, "devoxelize",
+        lambda v, t: ("sample", t.idx.shape[1], *v.shape)
+        if getattr(t, "idx", None) is not None and t.idx.shape[0] == 4 else None,
+    )
+    trainer.step(scans[:1])
+    cap.remove()
+    return cap
+
+
+def _tot():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "device_ms": 0.0, "max_abs_err": 0.0}
+
+
+def _add(tot, **kw):
+    for k, x in kw.items():
+        tot[k] = max(tot[k], x) if k == "max_abs_err" else tot[k] + x
+
+
+def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
+    """The kernels of RPVNet's point <-> range path at the tables and
+    feature rows of one real train step (the backwards' cotangents drawn
+    from a seed at the same shapes):
+      * K7 at 4 corners, each of the 4 samples (scales 1, 16, 4, 1 at C =
+        32, 256, 128, 96, f32): bit-identical to the plain version (signed
+        zeros included) and on a repeat call; kernel, device (profiler),
+        plain, bound (bytes: the (idx, w) pairs, the image rows the
+        corners read, once each, and the output) and `F.embedding_bag`
+        with per-sample weights (`devox_times`);
+      * K6 over each scatter's pixel tables (the forward mean's sums) and
+        over each sample's 4P corner pairs (its backward), against the
+        plain version in f64 within 1e-5 of the largest sum of |terms|,
+        bit-identical on repeat, with `index_add_` beside it;
+      * K8 at each scatter's backward (g over the pixels, f32):
+        bit-identical to the plain version, with `index_select` of rows
+        divided beforehand beside it.
+    Totals per step go to results["devoxelize_bilinear"] and to the
+    "rpvnet_pixel_tables" entries of K6 and K8."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k7, k6, k8 = _tot(), _tot(), _tot()
+    samples = sorted((k for k in cap.seen if k[0] == "sample"), key=str)
+    scatters = sorted((k for k in cap.seen if k[0] == "scatter"), key=str)
+    if len(samples) != 4 or len(scatters) != 3:
+        raise AssertionError(f"rpvnet: {len(samples)} samples, {len(scatters)} scatters captured")
+    for key in samples:
+        (v, t), _ = cap.seen[key]
+        img = v.detach()
+        p, c = t.idx.shape[1], img.shape[1]
+        twice_same("K7 bilinear", lambda: vx.devoxelize_trilinear(img, t))
+        ms, pms, lib, lib_err, _ = devox_times(img, t)
+        dev = device_ms(partial(vx.devoxelize_trilinear, img, t), KERNEL_NAMES["devoxelize"])
+        rows = int(torch.unique(t.idx[t.idx >= 0]).numel())
+        b, _ = bound_ms(4 * p * 8 + rows * c * 4 + p * c * 4, 7.0 * p * c, "float32")
+        log(
+            f"K7 bilinear (range_to_point) P={p} pixels={img.shape[0]} ({rows} read) C={c} f32 "
+            f"x{cap.count[key]}/scan: bit-identical, kernel {ms:.4f} ms device {fmt_ms(dev)} "
+            f"plain {pms:.4f} ms embedding_bag {lib:.4f} ms (max|diff| {lib_err:.3e}) "
+            f"bound {b:.4f} ms (bytes)"
+        )
+        _add(k7, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0)
+        # its backward: K6 over the 4P (corner, pixel) pairs, weighted
+        g = torch.randn(p, c, device="cuda", generator=gen)
+        w = t.weights.reshape(-1)
+        _k6_check(f"K6 over the 4P corner pairs (sample backward) pixels={img.shape[0]} C={c}",
+                  (g, t.pairs, w), k6)
+    for key in scatters:
+        (z, ids, tables, h, w_), _ = cap.seen[key]
+        z = z.detach()
+        _k6_check(f"K6 over the pixel tables (scatter forward) {h}x{w_} C={z.shape[1]}",
+                  (z, tables, None), k6)
+        v, c = h * w_, z.shape[1]
+        g = torch.randn(v, c, device="cuda", generator=gen)
+        counts = tables.counts
+        got = twice_same("K8 scatter backward", lambda: vx.voxelize_bwd(g, ids, counts))
+        want = vx._voxelize_bwd_plain(g, ids, counts)
+        if not bits(got).equal(bits(want)):
+            raise AssertionError(f"K8 scatter backward {h}x{w_}: differs from the plain version")
+        ms = cuda_ms(lambda: vx.voxelize_bwd(g, ids, counts))
+        pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, ids, counts))
+        dev = device_ms(partial(vx.voxelize_bwd, g, ids, counts), KERNEL_NAMES["voxelize_bwd"])
+        scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
+        idx = torch.where(ids >= 0, ids, v).long()
+        lib = cuda_ms(lambda: torch.index_select(scaled, 0, idx))
+        used = int((counts > 0).sum())
+        p = ids.shape[0]
+        b, _ = bound_ms(p * c * 4 + used * (c * 4 + 4) + p * 4, 0.0, "float32")
+        log(
+            f"K8 scatter backward (point_to_range) P={p} pixels={v} ({used} with points) C={c} f32: "
+            f"bit-identical, kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms "
+            f"index_select {lib:.4f} ms bound {b:.4f} ms (bytes)"
+        )
+        _add(k8, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0)
+    results["devoxelize_bilinear"] = dict(k7, bound_by="bytes", device_ms_per_scan=k7["device_ms"])
+    results.setdefault("segment_sum", {})["rpvnet_pixel_tables"] = dict(k6, bound_by="bytes")
+    results.setdefault("voxelize_bwd", {})["rpvnet_pixel_tables"] = dict(k8, bound_by="bytes")
+    log(
+        "rpvnet point <-> range kernels per step: "
+        + "; ".join(f"{n} kernel {t['ms']:.4f} ms device {t['device_ms']:.4f} bound {t['bound_ms']:.4f} "
+                    f"plain {t['plain_ms']:.4f} library {t['library_ms']:.4f}"
+                    for n, t in (("K7 bilinear x4", k7), ("K6 pixel/pair x7", k6), ("K8 pixel x3", k8)))
+    )
+
+
+def _k6_check(label, args, tot) -> None:
+    """K6 on one call's (src, tables, weights): against its plain version
+    in f64, bit-identical on repeat, with kernel, device, plain, bound
+    and `index_add_` times added to `tot`."""
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    x, t, w = args
+    w64 = None if w is None else w.double()
+    got = twice_same(label, lambda: vx.segment_sum(x, t, w))
+    want = vx.segment_sum_plain(x.double(), t, w64)
+    ref = vx.segment_sum_plain(x.double().abs(), t, None if w is None else w64.abs())
+    err = check_close(label, got, want, ref, "float32", 1e-5)
+    ms = cuda_ms(lambda: vx.segment_sum(x, t, w))
+    pms = cuda_ms(lambda: vx.segment_sum_plain(x, t, w), iters=3)
+    dev = device_ms(partial(vx.segment_sum, x, t, w), KERNEL_NAMES["segment_sum"])
+    nbytes, ops, lib = train_cost("segment_sum", (x, t, w), {}, x, None)
+    b, by = bound_ms(nbytes, ops, "float32")
+    log(
+        f"{label}: max|err| {err:.3e} (bit-identical on repeat), kernel {ms:.4f} ms device "
+        f"{fmt_ms(dev)} plain {pms:.4f} ms index_add_ {lib:.4f} ms bound {b:.4f} ms ({by})"
+    )
+    _add(tot, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0, max_abs_err=err)
+
+
+def _leaves(a):
+    """A captured argument as fresh leaves: floating tensors detached,
+    copied and asking for a gradient, tuples element by element."""
+    import torch
+
+    if isinstance(a, tuple):
+        return tuple(_leaves(x) for x in a)
+    if torch.is_tensor(a) and a.is_floating_point():
+        return a.detach().clone().requires_grad_()
+    return a
+
+
+def range_branch_ms(model, runs, train: bool) -> None:
+    """What RPVNet's range branch (its four 2D stages, f32 convs on the
+    card's CUDA cores, TF32 off) costs: CUDA events around each stage's
+    forward, from hooks, over real forwards; in train mode also its
+    backward, replayed stage by stage from the inputs and the output
+    shapes one real step gave them (cotangents drawn from a seed; the
+    replays update the stages' BN statistics and gradients, so this runs
+    after the counted steps)."""
+    import numpy as np
+    import torch
+
+    mods = {n: getattr(model, n) for n in RANGE_MODULES}
+    ev, seen, handles = {}, {}, []
+    for n, m in mods.items():
+        def pre(mod, args, n=n):
+            seen.setdefault(n, args)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.setdefault(n, []).append([e])
+
+        def post(mod, args, out, n=n):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev[n][-1].append(e)
+
+        handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        for run in runs:
+            run()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    fwd = {n: float(np.median([a.elapsed_time(b) for a, b in ev[n]])) for n in mods}
+    msg = f"rpvnet range branch forward ({'train' if train else 'eval'}, medians over {len(ev['range_stem'])}): " + ", ".join(
+        f"{n} {ms:.3f} ms" for n, ms in fwd.items()) + f"; total {sum(fwd.values()):.3f} ms"
+    if train:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        bwd = {}
+        for n, m in mods.items():
+            args = _leaves(tuple(seen[n]))
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            times = []
+            for _ in range(3):
+                out = m(*args)
+                outs = out if isinstance(out, tuple) else (out,)
+                flat = [o for x in outs for o in (x if isinstance(x, tuple) else (x,))]
+                grads = [torch.randn(o.shape, device="cuda", generator=gen) for o in flat]
+                e0.record()
+                torch.autograd.backward(flat, grads)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            bwd[n] = float(np.median(times))
+        msg += "; backward (replayed) " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in bwd.items()) + f"; total {sum(bwd.values()):.3f} ms"
+    log(msg)
+
+
+def rpv_context_cost(seg, scans, rounds: int = 2) -> None:
+    """What the RpvContext (the point <-> range tables at 3 scales:
+    pixel ids and their segment tables, bilinear tables) adds to the
+    serving and the train topology: `rpv_inputs` alone after the UNet
+    topology (CUDA events), medians."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.models.fusion.rpvnet import rpv_inputs
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ms = {}
+    batches = [seg.collate([s]) for s in scans]
+    for _ in range(rounds):
+        for a in batches:
+            for pairs in (False, True):
+                e[0].record()
+                topo = build_unet_topology(
+                    a["point_coords_t"], a["num_points_t"], seg.caps, devox_pairs=pairs,
+                    assume_sorted_points=True, point_voxel_strides=seg.model.point_voxel_strides,
+                )
+                e[1].record()
+                rpv_inputs(topo, a, with_pairs=pairs)
+                e[2].record()
+                e[2].synchronize()
+                ms.setdefault(pairs, []).append((e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])))
+    for pairs, v in ms.items():
+        u, r = np.median([x[0] for x in v]), np.median([x[1] for x in v])
+        log(f"rpvnet {'train' if pairs else 'serving'} topology: UNet {u:.3f} ms + RpvContext {r:.3f} ms (medians of {len(v)})")
+
+
+def phase_rpvnet(scans, results: dict) -> dict:
+    """RPVNet mk18 cr1.0 at full width in bf16 (the range branch in f32,
+    as in JAX), seeded weights, on the same scans with 64 x 2048 range
+    images: `Segmenter.predict` with every launch count set to 0 just
+    before and read just after (each kernel as RPVNET_PER_SCAN says),
+    finite logits of the right shape, bf16/f32 argmax agreement >= 0.97,
+    the small-scan card f32 logits against the CPU, serving ms per scan
+    by stage, the RpvContext's share of the topology and the range
+    branch's forward; then the train path: the inputs of one real step's
+    point <-> range calls, a small-scan f32 step on the card against the
+    CPU (dropout off on both), TRAIN_STEPS counted `Trainer` steps (each
+    kernel as RPVNET_PER_STEP says), ms per step by stage, peak memory,
+    the range branch's forward and backward; then K7 at 4 corners, K6 and
+    K8 at the captured calls (`phase_rpv_kernels`) and each kernel's
+    device time per step.  Returns the launches per scan and per step
+    and the device ms per step."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import RPVNET_MK18_CR10
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.models import RPVNet
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    cfg = RPVNET_MK18_CR10
+    params, stats = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    seg = Segmenter(cfg, variables, compute_dtype="bfloat16")
+    if not isinstance(seg.model, RPVNet):
+        raise AssertionError(f"rpvnet: Segmenter built {type(seg.model).__name__}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = seg.predict(scans)
+    torch.cuda.synchronize()
+    serve = dict(_build.LAUNCHES)
+    log(f"rpvnet serving launches over {len(scans)} scans: {serve}")
+    check_launches(serve, RPVNET_PER_SCAN, len(scans), "rpvnet serving")
+    for s, o in zip(scans, out):
+        if o["logits"].shape != (s["xyzret"].shape[0], cfg["MODEL"]["NUM_CLASS"]):
+            raise AssertionError(f"rpvnet logits shape {o['logits'].shape}")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError("rpvnet: non-finite logits")
+    out32 = Segmenter(cfg, variables, compute_dtype="float32").predict(scans)
+    agree = float(np.mean(np.concatenate([a["labels"] == b["labels"] for a, b in zip(out, out32)])))
+    log(f"rpvnet bf16 vs f32 per-point argmax agreement {agree:.5f}")
+    if agree < 0.97:
+        raise AssertionError(f"rpvnet bf16/f32 argmax agreement {agree:.4f} < 0.97")
+    del out32
+    small_scan_check(cfg, variables, "rpvnet ")
+    serve_split(seg, scans, RPVNET_ROUNDS, "rpvnet ")
+    rpv_context_cost(seg, scans)
+    batches = [seg.collate([s]) for s in scans]
+    range_branch_ms(seg.model, [partial(seg.forward, a, seg.topology(a)) for a in batches], False)
+    del batches
+
+    trainer = Trainer(
+        cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED,
+    )
+    cap = rpv_calls(trainer, scans)
+    phase_small_train_step(cfg, variables, "rpvnet ", no_dropout=True)
+    train, _ = phase_train_steps(trainer, scans, RPVNET_PER_STEP, "rpvnet train")
+    del seg
+    range_branch_ms(trainer.model, [partial(trainer.step, [s]) for s in scans], True)
+    phase_rpv_kernels(cap, results)
+    del cap
+    rpv: dict = {}
+    phase_train_profile(trainer, scans, rpv, "rpvnet ")
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "per_scan": {k: n // len(scans) for k, n in serve.items()},
+        "per_step": {k: n // TRAIN_STEPS for k, n in train.items()},
+        "device_ms_per_step": {k: v["device_ms_per_step"] for k, v in rpv.items()},
+        "launches": serve,
+    }
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -1847,6 +2225,10 @@ def main() -> int:
     # (its profiler sessions after its timed samples)
     spvcnn = phase_spvcnn(scans, results, (seg, trainer))
 
+    # 5d. RPVNet: serving and train paths at full width with the range
+    # branch; K7 at 4 corners, K6 and K8 at its point <-> range tables
+    rpvnet = phase_rpvnet(scans, results)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -1854,8 +2236,10 @@ def main() -> int:
 
     # 7. the kernels line: K1-K3 and K7 with the inference path's
     # launches (and their train launches), K4-K6 with the train path's,
-    # K8 with SPVCNN's train path's; each with its launches per scan and
-    # per step on the SPVCNN paths
+    # K8 with SPVCNN's train path's, K7 at 4 corners with RPVNet's serving
+    # path's; each with its launches per scan and per step on the SPVCNN
+    # and RPVNet paths, K6 and K8 with their times at RPVNet's pixel
+    # tables
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
@@ -1866,6 +2250,7 @@ def main() -> int:
         "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
         "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:241,261"),
         "voxelize_bwd": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:126"),
+        "devoxelize_bilinear": ("csrc/devoxelize.cu", "taseg_tpu/ops/point_range.py:82"),
     }
     per_step = ("k3_conv_dw", "strided_dw", "segment_sum")
     spv_train = {k: n * TRAIN_STEPS for k, n in spvcnn["per_step"].items()}
@@ -1876,14 +2261,19 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"taseg_tpu_torch/{src}",
             "replaces": replaces,
             "launches": (
-                spv_train if name == "voxelize_bwd"
+                rpvnet["launches"] if name == "devoxelize_bilinear"
+                else spv_train if name == "voxelize_bwd"
                 else train_launches if name in per_step else launches
             )[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if name == "voxelize_bwd":
+        if name == "devoxelize_bilinear":
+            entry["per"] = "scan (RPVNet serving, K7 at 4 corners)"
+            entry["route_of"] = "devoxelize"
+            entry["device_ms_per_scan"] = r["device_ms_per_scan"]
+        elif name == "voxelize_bwd":
             entry["per"] = "train step (SPVCNN)"
         elif name in per_step:
             entry["per"] = "train step"
@@ -1915,6 +2305,16 @@ def main() -> int:
             "launches_per_step": spvcnn["per_step"][name],
             "device_ms_per_train_step": spvcnn["device_ms_per_step"].get(name),
         }
+        entry["rpvnet"] = {
+            "launches_per_scan": rpvnet["per_scan"][name],
+            "launches_per_step": rpvnet["per_step"][name],
+            "device_ms_per_train_step": rpvnet["device_ms_per_step"].get(name),
+        }
+        if "rpvnet_pixel_tables" in r:
+            entry["rpvnet_pixel_tables"] = dict(
+                r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
+                per="train step (RPVNet)",
+            )
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -144,9 +144,96 @@ SPVCNN_MK34_CR10 = {
     },
 }
 
+# tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml: RPVNet, the
+# three-branch fusion segmentor (range images on the fusion pipeline, the
+# FusionPipeline's 64 x 2048 default); the YAML's IF_DIST is left out, as
+# for SPVCNN
+RPVNET_MK18_CR10 = {
+    "MODALITY": "fusion",
+    "DATA": {
+        "DATASET": "semantickitti",
+        "VOXEL_SIZE": 0.05,
+        "NUM_POINTS": 1000000,
+    },
+    "MODEL": {
+        "NAME": "RPVNet",
+        "IN_FEATURE_DIM": 4,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock",
+        "NUM_LAYER": [2, 2, 2, 2, 2, 2, 2, 2],
+        "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
+        "cr": 1.0,
+        "DROPOUT_P": 0.0,
+        "LABEL_SMOOTHING": 0.0,
+        "LOSS_CONFIG": {
+            "LOSS_TYPES": ["CELoss", "LovLoss"],
+            "LOSS_WEIGHTS": [1.0, 1.0],
+        },
+        # not in the YAML: the MinkUNet recipe's capacities (the voxel
+        # levels are those of the same scans at the same voxel size)
+        "CAPACITY_SCHEDULE": (1.0, 0.60, 0.30, 0.12, 0.05),
+        "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.70, 0.35, 0.15, 0.06),
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 16,
+        "NUM_EPOCHS": 36,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.02,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "NESTEROV": True,
+        "GRAD_NORM_CLIP": 10.0,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
+# tools/cfgs/fusion/synthetic/rpvnet_tiny.yaml: the CLI smoke recipe of
+# the fusion modality (RPVNet cr 0.125, one block per stage, 16 x 64
+# range images)
+RPVNET_TINY = {
+    "MODALITY": "fusion",
+    "DATA": {
+        "DATASET": "synthetic",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 3000,
+        "VOXEL_SIZE": 0.2,
+        "NUM_POINTS": 4096,
+        "H": 16,
+        "W": 64,
+    },
+    "MODEL": {
+        "NAME": "RPVNet",
+        "IN_FEATURE_DIM": 4,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock",
+        "NUM_LAYER": [1, 1, 1, 1, 1, 1, 1, 1],
+        "cr": 0.125,
+        "DROPOUT_P": 0.0,
+        # not in the YAML: MINKUNET_TINY's capacities (the same voxel size
+        # and point capacity, 3000-point scans); the port raises on
+        # overflow where the default schedule would drop voxels
+        "CAPACITY_SCHEDULE": (1.0, 0.90, 0.55, 0.25, 0.125),
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 1,
+        "NUM_EPOCHS": 1,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.01,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
     "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml": SPVCNN_MK34_CR10,
     "tools/cfgs/voxel/synthetic/minkunet_tiny.yaml": MINKUNET_TINY,
+    "tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml": RPVNET_MK18_CR10,
+    "tools/cfgs/fusion/synthetic/rpvnet_tiny.yaml": RPVNET_TINY,
 }

@@ -2,9 +2,12 @@
 // and K8, the gradient of the voxelize mean, in the same point-major layout.
 //
 // K7 replaces taseg_tpu/ops/voxelize.py:261 _devoxelize_trilinear and :241
-// _devoxelize_identity (the forwards; their backwards are K6):
+// _devoxelize_identity (the forwards; their backwards are K6), and, at 4
+// corners, the forward of taseg_tpu/ops/point_range.py:82 range_to_point
+// (RPVNet's bilinear sample of a range image at each point):
 //
 //   trilinear: out[p] = sum_{k < 8} w[k, p] * V[idx[k, p]]   (idx -1: 0 row)
+//   bilinear:  out[p] = sum_{k < 4} w[k, p] * I[idx[k, p]]   (I: pixel rows)
 //   identity:  out[p] = V[inverse[p]], or 0 where inverse[p] < 0
 //
 // The JAX package, and the port's plain version, multiply and add in the
@@ -26,6 +29,14 @@
 // with one 8-byte (bf16) or 16-byte (f32) load where the rows allow it
 // (C % 4 == 0 and aligned bases; else one scalar load per channel), keeps
 // the sum in registers and writes its 4 channels once.
+//
+// At 4 corners (RPVNet, f32 images of C = 32-256 channels, P = 131072):
+// per point 4 (idx, w) pairs (32 B) and one output row, and the image
+// rows, read once where the corners of neighbouring points share pixels
+// (a 64 x 2048 canvas at full scale is 131072 rows, 16-128 MB; the 1/16
+// and 1/4 scales fit in L2).  The same thread layout serves: neighbouring
+// threads take neighbouring 16-byte pieces of one corner row.  The corner
+// count is a template parameter, so the corner loop unrolls.
 //
 // K8 replaces taseg_tpu/ops/voxelize.py:126 _voxelize_bwd, the gradient
 // of voxelize_avg (SPVCNN's point branch re-voxelizes features that take
@@ -104,14 +115,13 @@ __device__ __forceinline__ void load_chunk(const typename D::raw* feats,
   }
 }
 
-// w == nullptr: the identity (one corner, copied as it is); else the
-// trilinear sum over `corners` corners in corner order
-template <typename D, bool kVec>
+// kCorners == 1: the identity (one corner, copied as it is, w unused);
+// else the weighted sum over kCorners corners in corner order
+template <typename D, bool kVec, int kCorners>
 __global__ void __launch_bounds__(kThreads)
     devox_kernel(const typename D::raw* __restrict__ feats,
                  const int* __restrict__ idx, const float* __restrict__ w,
-                 typename D::raw* __restrict__ out, int p, int corners,
-                 int c) {
+                 typename D::raw* __restrict__ out, int p, int c) {
   using raw = typename D::raw;
   const int chunks = (c + kChunk - 1) / kChunk;
   const long long n = static_cast<long long>(p) * chunks;
@@ -122,10 +132,11 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = static_cast<int>(t % chunks) * kChunk;
     const int m = min(kChunk, c - c0);
     raw acc[kChunk];
-    if (w == nullptr) {
+    if (kCorners == 1) {
       load_chunk<D, kVec>(feats, __ldg(idx + pt), c, c0, m, acc);
     } else {
-      for (int k = 0; k < corners; ++k) {
+#pragma unroll
+      for (int k = 0; k < kCorners; ++k) {
         const size_t e = static_cast<size_t>(k) * p + pt;
         raw g[kChunk];
         load_chunk<D, kVec>(feats, __ldg(idx + e), c, c0, m, g);
@@ -149,10 +160,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename D>
+template <typename D, int kCorners>
 int launch(const void* feats, const void* idx, const void* w, void* out,
-           int p, int corners, int c, cudaStream_t s) {
-  if (p <= 0 || c <= 0 || corners <= 0)
+           int p, int c, cudaStream_t s) {
+  if (p <= 0 || c <= 0 || (kCorners > 1 && w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   using raw = typename D::raw;
   const size_t vb = sizeof(typename D::vec);
@@ -163,18 +174,22 @@ int launch(const void* feats, const void* idx, const void* w, void* out,
       static_cast<long long>(p) * ((c + kChunk - 1) / kChunk);
   const int blocks = static_cast<int>(
       std::min<long long>((n + kThreads - 1) / kThreads, 1 << 20));
-  auto kern = vec ? devox_kernel<D, true> : devox_kernel<D, false>;
+  auto kern = vec ? devox_kernel<D, true, kCorners>
+                 : devox_kernel<D, false, kCorners>;
   kern<<<blocks, kThreads, 0, s>>>(
       static_cast<const raw*>(feats), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<raw*>(out), p, corners, c);
+      static_cast<const float*>(w), static_cast<raw*>(out), p, c);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kCorners>
 int dispatch(const void* feats, const void* idx, const void* w, void* out,
-             int p, int corners, int c, int dtype, void* stream) {
+             int p, int c, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == taseg::kF32) return launch<F32>(feats, idx, w, out, p, corners, c, s);
-  if (dtype == taseg::kBF16) return launch<BF16>(feats, idx, w, out, p, corners, c, s);
+  if (dtype == taseg::kF32)
+    return launch<F32, kCorners>(feats, idx, w, out, p, c, s);
+  if (dtype == taseg::kBF16)
+    return launch<BF16, kCorners>(feats, idx, w, out, p, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -258,15 +273,22 @@ int launch_voxelize_bwd(const void* g, const void* inv, const void* counts,
 extern "C" int taseg_devox_trilinear(const void* feats, const void* idx,
                                      const void* w, void* out, int p, int c,
                                      int dtype, void* stream) {
-  if (w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(feats, idx, w, out, p, 8, c, dtype, stream);
+  return dispatch<8>(feats, idx, w, out, p, c, dtype, stream);
+}
+
+// image rows (H * W, C), idx (4, P) int32 (-1: absent corner), w (4, P)
+// f32 -> out (P, C), rows and out f32 or bf16 (dtype)
+extern "C" int taseg_devox_bilinear(const void* feats, const void* idx,
+                                    const void* w, void* out, int p, int c,
+                                    int dtype, void* stream) {
+  return dispatch<4>(feats, idx, w, out, p, c, dtype, stream);
 }
 
 // feats (V, C), inverse (P,) int32 (-1: none) -> out (P, C)
 extern "C" int taseg_devox_identity(const void* feats, const void* inverse,
                                     void* out, int p, int c, int dtype,
                                     void* stream) {
-  return dispatch(feats, inverse, nullptr, out, p, 1, c, dtype, stream);
+  return dispatch<1>(feats, inverse, nullptr, out, p, c, dtype, stream);
 }
 
 // g (V, C), inv (P,) int32 (-1: no voxel), counts (V,) int32 -> out (P, C),

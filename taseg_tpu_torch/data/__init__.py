@@ -25,9 +25,10 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .augment import AugParams
+from .fusion_dataset import FusionPipeline
 from .semantickitti.reader import SemanticKittiReader
 from .synthetic import SyntheticKittiReader
-from .voxel_dataset import VoxelPipeline, collate_shard
+from .voxel_dataset import VoxelPipeline
 
 # datasets of the JAX package the port does not read yet, by ROADMAP item
 _NOT_PORTED = {
@@ -216,7 +217,7 @@ class VoxelLoader:
             for i in idxs
         ]
         (shard,) = self._pad_and_shard(samples, n_real)
-        c = collate_shard(shard, self.point_capacity)
+        c = self.pipeline.collate(shard, self.point_capacity)
         meta = [{"offsets": c.pop("offsets"), "samples": c.pop("samples")}]
         return self._mark_padding((c, meta), n_real)
 
@@ -284,7 +285,6 @@ class VoxelLoader:
 _KIND_NOT_PORTED = {
     "range": "Queue 1 item 6 (range-view family)",
     "cylinder": "Queue 1 item 6 (Cylinder3D)",
-    "fusion": "Queue 1 item 6 (RPVNet's range-view pipeline)",
     "kd": "Queue 1 item 5 (KD)",
     "mm": "Queue 1 item 5 (TIAF)",
 }
@@ -302,7 +302,9 @@ def build_dataloader(
     process_index: int = 0,
     process_count: int = 1,
 ) -> VoxelLoader:
-    """The `voxel` pipeline over `build_reader`'s reader (JAX
+    """The `voxel` pipeline, or the `fusion` one (RPVNet: the voxel
+    sample, the DATA.H x DATA.W range image and the voxels' pixel
+    coordinates), over `build_reader`'s reader (JAX
     `data/__init__.py:462`).  The point capacity defaults to JAX's,
     DATA.NUM_POINTS x scans_per_shard."""
     if pipeline_kind is None:
@@ -319,10 +321,10 @@ def build_dataloader(
         raise _not_ported(
             f"the {pipeline_kind!r} pipeline", _KIND_NOT_PORTED[pipeline_kind]
         )
-    if pipeline_kind != "voxel":
+    if pipeline_kind not in ("voxel", "fusion"):
         raise NotImplementedError(f"pipeline kind {pipeline_kind!r}")
     reader = build_reader(data_cfgs, training)
-    pipeline = VoxelPipeline(
+    kw = dict(
         voxel_size=data_cfgs.get("VOXEL_SIZE", 0.05),
         training=training,
         if_flip=data_cfgs.get("FLIP_AUG", True),
@@ -331,6 +333,10 @@ def build_dataloader(
         if_jitter=data_cfgs.get("TRANSFORM_AUG", True),
         if_rotate=data_cfgs.get("ROTATE_AUG", True),
     )
+    if pipeline_kind == "fusion":
+        pipeline = FusionPipeline(h=data_cfgs.get("H", 64), w=data_cfgs.get("W", 2048), **kw)
+    else:
+        pipeline = VoxelPipeline(**kw)
     cap = point_capacity or int(
         data_cfgs.get("NUM_POINTS", 80_000) * scans_per_shard
     )

@@ -93,6 +93,10 @@ class VoxelPipeline:
             token=sample.get("token"),
         )
 
+    def collate(self, samples: list, point_capacity: int) -> dict:
+        """This pipeline's samples as one padded shard (`collate_shard`)."""
+        return collate_shard(samples, point_capacity)
+
 
 def collate_shard(
     samples: list[VoxelSample], point_capacity: int

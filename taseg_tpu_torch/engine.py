@@ -8,15 +8,21 @@ train step and the harness around it).
 (`xyzret` (N, >=4) float32, `labels` (N,)) and returns, per scan, the
 per-raw-point logits and labels.  A batch goes through four stages:
 
-  1. host:     VoxelPipeline(training=False) + collate_shard (numpy);
+  1. host:     VoxelPipeline(training=False) + collate_shard (numpy); for
+               RPVNet the FusionPipeline, which adds each scan's range
+               image and its voxels' pixel coordinates;
   2. topology: build_unet_topology(assume_sorted_points=True), with the
-               model's `point_voxel_strides` (SPVCNN's point branch);
-  3. forward:  the model (`models.build_segmentor` on MODEL.NAME: MinkUNet
-               or SPVCNN) in eval mode, in the compute dtype;
+               model's `point_voxel_strides` (SPVCNN's and RPVNet's point
+               branch); for RPVNet also its point <-> range tables
+               (`models.fusion.rpvnet.rpv_inputs`, JAX
+               `parallel/fusion_step.py:_unpack`);
+  3. forward:  the model (`models.build_segmentor` on MODEL.NAME:
+               MinkUNet, SPVCNN or RPVNet) in eval mode, in the compute
+               dtype;
   4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan.
 
 `Trainer`'s evaluation runs stages 2-4 through the same functions
-(`eval_topology`, `eval_logits`, `point_logits`) on its own model,
+(`model_topology`, `eval_logits`, `point_logits`) on its own model,
 switched to eval mode and back (`eval_mode`).
 
 A level whose voxel count exceeds its capacity raises (engine.py:607
@@ -41,8 +47,11 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .data.voxel_dataset import VoxelPipeline, collate_shard
+from .data.fusion_dataset import FusionPipeline
+from .data.voxel_dataset import VoxelPipeline
 from .loss import Losses
+from .models.fusion.rpvnet import RpvInputs, rpv_inputs
+from .models.layers import seed_dropout
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology
 from .models import build_segmentor
 from .optim import build_optimizer
@@ -58,8 +67,11 @@ POINTS_PER_SCAN = 131072
 
 
 def check_capacity(topo, caps: UNetCapacities) -> list:
-    """The per-level voxel counts; raises where one exceeds its
-    capacity (the JAX engine only warns and drops the excess voxels)."""
+    """The per-level voxel counts of a topology (or of an `RpvInputs`');
+    raises where one exceeds its capacity (the JAX engine only warns and
+    drops the excess voxels)."""
+    if isinstance(topo, RpvInputs):
+        topo = topo.topo
     nums = torch.stack([l.num for l in topo.levels]).tolist()
     for l, (n, cap) in enumerate(zip(nums, caps.voxels)):
         if n > cap:
@@ -70,9 +82,15 @@ def check_capacity(topo, caps: UNetCapacities) -> list:
     return nums
 
 
+# the arrays of a collated fusion shard that the device reads
+FUSION_KEYS = ("range_image", "range_pxpy")
+
+
 def to_device(arrays: dict, device, keys=("point_coords", "point_feats")) -> dict:
-    """Add `<key>_t` device tensors of the collated numpy arrays, and
+    """Add `<key>_t` device tensors of the collated numpy arrays (and of
+    the range images and pixel coordinates of a fusion shard), and
     `num_points_t` (a 0-dim int32)."""
+    keys = tuple(keys) + tuple(k for k in FUSION_KEYS if k in arrays)
     for k in keys:
         arrays[k + "_t"] = torch.from_numpy(arrays[k]).to(device)
     arrays["num_points_t"] = torch.from_numpy(arrays["num_points"].reshape(())).to(device)
@@ -90,15 +108,35 @@ def eval_mode(model: torch.nn.Module):
         model.train(was_training)
 
 
-def eval_topology(
-    arrays: dict, caps: UNetCapacities, sorted_points: bool, point_voxel_strides=()
-):
-    """Stage 2: the inference topology (no backward tables), with the
-    point -> voxel tables at `point_voxel_strides` (the model's)."""
-    return build_unet_topology(
-        arrays["point_coords_t"], arrays["num_points_t"], caps,
-        assume_sorted_points=sorted_points, point_voxel_strides=point_voxel_strides,
+def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int = 0):
+    """The host pipeline of `model`: the FusionPipeline (DATA.H x DATA.W
+    range images, 64 x 2048 by default) for a model that reads range
+    images (RPVNet), the VoxelPipeline otherwise."""
+    kw = dict(
+        voxel_size=cfg["DATA"]["VOXEL_SIZE"], training=training,
+        in_feature_dim=cfg["MODEL"].get("IN_FEATURE_DIM", 4), seed=seed,
     )
+    if getattr(model, "range_view", False):
+        return FusionPipeline(h=cfg["DATA"].get("H", 64), w=cfg["DATA"].get("W", 2048), **kw)
+    return VoxelPipeline(**kw)
+
+
+def model_topology(
+    model: torch.nn.Module, arrays: dict, caps: UNetCapacities, *,
+    sorted_points: bool, devox_pairs: bool = False,
+):
+    """Stage 2: the topology with the model's point -> voxel tables
+    (`point_voxel_strides`), and the tables only the backward reads where
+    `devox_pairs`; for a model that reads range images (RPVNet) an
+    `RpvInputs` that adds its point <-> range tables and the images."""
+    topo = build_unet_topology(
+        arrays["point_coords_t"], arrays["num_points_t"], caps,
+        devox_pairs=devox_pairs, assume_sorted_points=sorted_points,
+        point_voxel_strides=model.point_voxel_strides,
+    )
+    if getattr(model, "range_view", False):
+        return rpv_inputs(topo, arrays, with_pairs=devox_pairs)
+    return topo
 
 
 @torch.no_grad()
@@ -119,7 +157,7 @@ def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
 
 class Segmenter:
     """Inference on one device of the model that MODEL.NAME names
-    (MinkUNet or SPVCNN).
+    (MinkUNet, SPVCNN or RPVNet).
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
@@ -145,27 +183,20 @@ class Segmenter:
             self.point_capacity,
             schedule=cfg["MODEL"].get("CAPACITY_SCHEDULE"),
         )
-        self.pipeline = VoxelPipeline(
-            voxel_size=cfg["DATA"]["VOXEL_SIZE"],
-            training=False,
-            in_feature_dim=cfg["MODEL"].get("IN_FEATURE_DIM", 4),
-        )
         self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
         load_flax_params(self.model, params["params"], params["batch_stats"])
         self.model.eval()
+        self.pipeline = make_pipeline(cfg, self.model, training=False)
 
     def collate(self, scans: list) -> dict:
         """Host stage: quantize, dedup, key-sort and pad the scans into
-        one shard, and move the arrays to the device."""
-        arrays = collate_shard(
-            [self.pipeline(s) for s in scans], self.point_capacity
-        )
+        one shard (with their range images for RPVNet), and move the
+        arrays to the device."""
+        arrays = self.pipeline.collate([self.pipeline(s) for s in scans], self.point_capacity)
         return to_device(arrays, self.device)
 
     def topology(self, arrays: dict):
-        return eval_topology(
-            arrays, self.caps, self.pipeline.sorted_points, self.model.point_voxel_strides
-        )
+        return model_topology(self.model, arrays, self.caps, sorted_points=self.pipeline.sorted_points)
 
     def check_capacity(self, topo) -> None:
         check_capacity(topo, self.caps)
@@ -265,7 +296,7 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
 
 class Trainer:
     """The train step on one device of the model that MODEL.NAME names
-    (MinkUNet or SPVCNN), and the harness around it.
+    (MinkUNet, SPVCNN or RPVNet), and the harness around it.
 
     cfg: dict with the YAML's layout (`configs.py`, or a `utils.config.
     Config`), including OPTIM; MODEL.TRAIN_CAPACITY_SCHEDULE, where
@@ -281,11 +312,13 @@ class Trainer:
     (`engine.py:179-193`); `total_epochs` defaults to OPTIM.NUM_EPOCHS.
 
     `step(scans)` runs, for `batch_size` reader dicts:
-      1. host:      VoxelPipeline(training=True) with a numpy generator
-                    seeded by `seed`, then collate_shard;
-      2. topology:  build_unet_topology(devox_pairs=True,
-                    assume_sorted_points=True, the model's
-                    point_voxel_strides); a level over capacity raises;
+      1. host:      VoxelPipeline(training=True) (RPVNet: FusionPipeline)
+                    with a numpy generator seeded by `seed`, then its
+                    collate;
+      2. topology:  `model_topology(devox_pairs=True)`: the train
+                    topology with the model's point_voxel_strides, and
+                    RPVNet's point <-> range tables; a level over capacity
+                    raises;
       3. forward:   the model in train mode (masked batch statistics), then
                     the criterion (MODEL.LOSS_CONFIG: CE with label
                     smoothing + Lovász, ignore MODEL.IGNORE_LABEL);
@@ -294,7 +327,9 @@ class Trainer:
                     (`optim.ClippedSGD`),
     and returns {"loss", "grad_norm" (before the clip), "lr" (the LR this
     step applied), "level_nums"}.  `train_on(arrays)` runs stages 2-5 on
-    a collated shard.  Dropout p > 0 is not ported and raises.
+    a collated shard.  Every Dropout of the model (MODEL.DROPOUT_P, and
+    RPVNet's range branch at 0.2) draws its masks from one generator on
+    the device seeded by `seed` (`dropout_generator`).
 
     The harness (JAX `engine.py:539-911`): `train(eval_interval=)` runs
     `train_one_epoch` over the train loader (its prefetch thread runs the
@@ -352,18 +387,9 @@ class Trainer:
             val_loader.point_capacity if val_loader is not None else self.point_capacity,
             schedule=m.get("CAPACITY_SCHEDULE"),
         )
-        self.pipeline = VoxelPipeline(
-            voxel_size=cfg["DATA"]["VOXEL_SIZE"],
-            training=True,
-            in_feature_dim=m.get("IN_FEATURE_DIM", 4),
-            seed=seed,
-        )
         self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
-        if self.model.dropout_p > 0:
-            raise NotImplementedError(
-                f"MODEL.DROPOUT_P = {self.model.dropout_p}: training with "
-                f"Dropout is not ported; p = 0 is"
-            )
+        self.pipeline = make_pipeline(cfg, self.model, training=True, seed=seed)
+        self.dropout_generator = seed_dropout(self.model, seed)
         if params is None:
             p, s = init_params_numpy(cfg, seed=int(cfg.get("SEED", 0)))
             params = {"params": p, "batch_stats": s}
@@ -401,17 +427,15 @@ class Trainer:
     # ---------------- the step ---------------------------------------------
     def collate(self, scans: list) -> dict:
         """Host stage: augment, quantize, dedup, key-sort and pad the scans
-        into one shard, and move the arrays to the device."""
-        arrays = collate_shard(
-            [self.pipeline(s) for s in scans], self.point_capacity
-        )
+        into one shard (with their range images for RPVNet), and move the
+        arrays to the device."""
+        arrays = self.pipeline.collate([self.pipeline(s) for s in scans], self.point_capacity)
         return to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
 
     def topology(self, arrays: dict):
-        return build_unet_topology(
-            arrays["point_coords_t"], arrays["num_points_t"], self.caps,
-            devox_pairs=True, assume_sorted_points=self.pipeline.sorted_points,
-            point_voxel_strides=self.model.point_voxel_strides,
+        return model_topology(
+            self.model, arrays, self.caps, devox_pairs=True,
+            sorted_points=self.pipeline.sorted_points,
         )
 
     def forward(self, arrays: dict, topo) -> torch.Tensor:
@@ -450,11 +474,13 @@ class Trainer:
     def save_checkpoint(self, epoch: int, max_keep: int = 30) -> None:
         """`checkpoint_epoch_<epoch>`: the model's state dict (parameters
         and BN running statistics), the optimizer's (momentum traces and
-        its step count) and the epoch; keeps the newest `max_keep`."""
+        its step count), the dropout generator's state and the epoch;
+        keeps the newest `max_keep`."""
         path = f"{str(self.ckpt_dir).rstrip('/')}/checkpoint_epoch_{epoch}"
         payload = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
+            "dropout_rng": self.dropout_generator.get_state(),
             "epoch": epoch,
         }
         self.ckptr.save(path, payload)
@@ -471,6 +497,8 @@ class Trainer:
         payload = self.ckptr.restore(found[-1][1], map_location=self.device)
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
+        if "dropout_rng" in payload:
+            self.dropout_generator.set_state(payload["dropout_rng"].cpu())
         self.start_epoch = int(payload["epoch"]) + 1
         self.logger.info(
             f"resumed from {found[-1][1]} (epoch {self.start_epoch - 1})"
@@ -557,9 +585,7 @@ class Trainer:
         with eval_mode(self.model):
             for arrays, meta in batches:
                 arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
-                topo = eval_topology(
-                    arrays, self.eval_caps, sorted_points, self.model.point_voxel_strides
-                )
+                topo = model_topology(self.model, arrays, self.eval_caps, sorted_points=sorted_points)
                 check_capacity(topo, self.eval_caps)
                 yield arrays, meta, eval_logits(self.model, arrays, topo)
 

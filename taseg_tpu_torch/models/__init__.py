@@ -3,18 +3,21 @@ dispatch on `MODEL.NAME` (JAX `models/__init__.py:54 build_segmentor`)."""
 
 from __future__ import annotations
 
+from .fusion.rpvnet import RPVNet
 from .fusion.spvcnn import SPVCNN
 from .voxel.minkunet import MinkUNet
 
 # the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25)
-SEGMENTORS = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN}
+SEGMENTORS = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet}
 
 
 def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     """The model of a config dict with the YAML's layout (`MODEL.NAME`,
     `PLANES`, `NUM_LAYER`, `cr`, `NUM_CLASS`, `IN_FEATURE_DIM`, `BLOCK`,
     `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`, and SPVCNN's
-    `MULTI_SCALE`), defaults as in the JAX `build_segmentor`.  A name the
+    `MULTI_SCALE`), defaults as in the JAX `build_segmentor`, which passes
+    `BN_MOMENTUM` to MinkUNet and SPVCNN only and `MULTI_SCALE` to SPVCNN
+    only (RPVNet keeps momentum 0.1 and its 'concat' head).  A name the
     port has not ported raises, listing those it has."""
     m = cfg["MODEL"]
     name = m.get("NAME", "MinkUNet")
@@ -32,12 +35,13 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
         cr=m.get("cr", 1.0),
         compute_dtype=compute_dtype or m.get("COMPUTE_DTYPE", "float32"),
         dropout_p=float(m.get("DROPOUT_P", 0.3)),
-        bn_momentum=float(m.get("BN_MOMENTUM", 0.1)),
         device=device,
     )
+    if name in ("MinkUNet", "SPVCNN"):
+        kw["bn_momentum"] = float(m.get("BN_MOMENTUM", 0.1))
     if name == "SPVCNN":
         kw["multi_scale"] = m.get("MULTI_SCALE", "concat")
     return SEGMENTORS[name](**kw)
 
 
-__all__ = ["MinkUNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]
+__all__ = ["MinkUNet", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]

@@ -1,5 +1,6 @@
-"""Point-voxel fusion models of the port."""
+"""Point-voxel(-range) fusion models of the port."""
 
+from .rpvnet import RPVNet
 from .spvcnn import SPVCNN, PointTransform
 
-__all__ = ["PointTransform", "SPVCNN"]
+__all__ = ["PointTransform", "RPVNet", "SPVCNN"]

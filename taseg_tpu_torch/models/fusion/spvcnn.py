@@ -17,7 +17,7 @@ of the voxelize mean (K8) takes bf16 rows at stride 1 and f32 rows at
 strides 16 and 4.  The classifier is one f32 Dense over concat(z1, z2,
 z3) (`MULTI_SCALE` "concat", the default) or over z3.  Dropout (after the
 two re-voxelizations) is the identity at eval and at p = 0, the value of
-every SPVCNN YAML; a train forward with p > 0 raises, as in MinkUNet.
+every SPVCNN YAML; at p > 0 it draws its masks as MinkUNet's does.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from torch import nn
 
 from ..._device import resolve_device
 from ...ops.voxelize import devoxelize, voxelize_avg
-from ..layers import BLOCKS, ConvBNReLU, Dense, MaskedBatchNorm
+from ..layers import BLOCKS, ConvBNReLU, Dense, Dropout, MaskedBatchNorm
 from ..voxel.backbone_context import UNetTopology
 from ..voxel.minkunet import _DTYPES
 
@@ -76,6 +76,7 @@ class SPVCNN(nn.Module):
         if block not in BLOCKS:
             raise ValueError(f"block {block!r} is not ported; have {sorted(BLOCKS)}")
         blk = BLOCKS[block]
+        self.dropout = Dropout(dropout_p)
         exp = blk.expansion
         cs = [int(cr * x) for x in planes]
         add = self.add_module
@@ -116,10 +117,6 @@ class SPVCNN(nn.Module):
         """point_feats (P, C) f32 -> per-point logits (P, num_classes) f32."""
         levels = topo.levels
         if self.training:
-            if self.dropout_p > 0:
-                raise NotImplementedError(
-                    f"Dropout p={self.dropout_p} in training is not ported; p = 0 is"
-                )
             masks = [
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
@@ -137,9 +134,10 @@ class SPVCNN(nn.Module):
         pvalid = torch.arange(point_feats.shape[0], device=point_feats.device) < topo.num_points
         cdt = self.compute_dtype
 
-        def revoxelize(z, s):
+        def revoxelize(z, s, drop=False):
             inv, tables = topo.point_vox[s]
-            return voxelize_avg(z, inv, tables).to(cdt)
+            x = voxelize_avg(z, inv, tables).to(cdt)
+            return self.dropout(x) if drop else x
 
         x0 = voxelize_avg(
             point_feats[:, : self.in_dim], topo.point_inverse, topo.point_tables
@@ -162,9 +160,9 @@ class SPVCNN(nn.Module):
             )
 
         z1 = devoxelize(enc[4], topo.devox[16]) + self.point_transform_0(z0, pvalid)
-        y2 = up(up(revoxelize(z1, 16), 1, 4), 2, 3)
+        y2 = up(up(revoxelize(z1, 16, drop=True), 1, 4), 2, 3)
         z2 = devoxelize(y2, topo.devox[4]) + self.point_transform_1(z1, pvalid)
-        y4 = up(up(revoxelize(z2, 4), 3, 2), 4, 1)
+        y4 = up(up(revoxelize(z2, 4, drop=True), 3, 2), 4, 1)
         z3 = devoxelize(y4, topo.devox[1]) + self.point_transform_2(z2, pvalid)
         z = torch.cat([z1, z2, z3], dim=-1) if self.multi_scale == "concat" else z3
         return self.classifier(z.float())

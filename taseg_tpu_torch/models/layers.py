@@ -178,3 +178,39 @@ class ResidualBlock(nn.Module):
 
 
 BLOCKS = {"ResBlock": ResidualBlock}
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in train mode each value is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else set to 0; the
+    identity in eval mode and at rate 0.  The keep mask is
+    `uniform < 1 - rate` drawn from `generator` (a `torch.Generator` on
+    the input's device, which `seed_dropout` gives every Dropout of a
+    model; None draws from torch's default generator).  The masks are
+    torch's random numbers, not JAX's: tests hold the two models against
+    each other with the dropout off and test this layer on its own."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, 0.0)
+
+
+def seed_dropout(model: nn.Module, seed: int) -> torch.Generator:
+    """One generator on the model's device, seeded with `seed`, for every
+    `Dropout` of `model` (the masks of a train step follow from the seed
+    and the steps before it); returned so a caller can save its state."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+    return gen

@@ -13,10 +13,12 @@ its dots with f32 accumulation and sums the scales in f32.
 In train mode (`model.train()`) every BN takes its level's row mask
 (`arange(V_l) < num_l`) and the convs take (rulebook, flipped rulebook)
 pairs, so the topology must come from `build_unet_topology(...,
-devox_pairs=True)`.  Dropout (after x4 and y2) is the identity at eval
-and at p = 0, the flagship's value; a train forward with p > 0 raises
-(its random bits could not be held against JAX's anyway).  `Bottleneck`
-blocks and `return_features` are left out.
+devox_pairs=True)`.  Dropout (`layers.Dropout`, after x4 and y2, whose
+pre-dropout values feed the head, as in JAX) is the identity at eval and
+at p = 0, the flagship's value; in training at p > 0 its masks come from
+the generator that `layers.seed_dropout` gives it (the `Trainer` seeds
+it), not from JAX's bits.  `Bottleneck` blocks and `return_features` are
+left out.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 
 from ..._device import resolve_device
 from ...ops.voxelize import devoxelize, voxelize_avg
-from ..layers import BLOCKS, ConvBNReLU
+from ..layers import BLOCKS, ConvBNReLU, Dropout
 from .backbone_context import UNetTopology
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,6 +87,7 @@ class MinkUNet(nn.Module):
         if block not in BLOCKS:
             raise ValueError(f"block {block!r} is not ported; have {sorted(BLOCKS)}")
         blk = BLOCKS[block]
+        self.dropout = Dropout(dropout_p)
         cs = [int(cr * x) for x in planes]
         add = self.add_module
         kw = dict(bn_momentum=bn_momentum, device=dev)
@@ -131,10 +134,6 @@ class MinkUNet(nn.Module):
         """point_feats (P, C) f32 -> per-point logits (P, num_classes) f32."""
         levels = topo.levels
         if self.training:
-            if self.dropout_p > 0:
-                raise NotImplementedError(
-                    f"Dropout p={self.dropout_p} in training is not ported; p = 0 is"
-                )
             masks = [
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
@@ -163,9 +162,9 @@ class MinkUNet(nn.Module):
                 h, f"up{k}_blocks", self.num_layer[3 + k], rb[lvl - 1], masks[lvl - 1]
             )
 
-        y1 = up(x4, 1, 4)
+        y1 = up(self.dropout(x4), 1, 4)
         y2 = up(y1, 2, 3)
-        y3 = up(y2, 3, 2)
+        y3 = up(self.dropout(y2), 3, 2)
         y4 = up(y3, 4, 1)
         tables = (topo.devox[16], topo.devox[4], topo.devox[1])
         return self.classifier((x4, y2, y4), tables)

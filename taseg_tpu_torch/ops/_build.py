@@ -18,8 +18,9 @@ an input gradient (the backward of the k3 conv and of the other strided
 direction).  K1 (`join_scan`) launches one kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
 (`segment_sum`) count one per call, their second kernel (the split
 reduction, K6's merge of chunk partials) included; K7 (`devoxelize`)
-launches one kernel per call, trilinear or identity, and so does K8
-(`voxelize_bwd`).
+launches one kernel per call, trilinear, bilinear or identity, and
+`devoxelize_bilinear` counts again those at 4 corners (RPVNet's
+`range_to_point`); K8 (`voxelize_bwd`) launches one per call.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ LAUNCHES = {
     "strided_dw_mma": 0,
     "segment_sum": 0,
     "devoxelize": 0,
+    "devoxelize_bilinear": 0,
     "voxelize_bwd": 0,
 }
 
@@ -83,6 +85,7 @@ _SIGNATURES = {
     "taseg_strided_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
     "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
 }

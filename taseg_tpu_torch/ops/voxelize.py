@@ -7,8 +7,9 @@
     (`voxelize_bwd`, `csrc/devoxelize.cu`, one launch per call,
     bit-identical to the plain version `_voxelize_bwd_plain`) on CUDA
     tensors;
-  * `devoxelize`: the identity gather (integer points at stride 1) or the
-    8-corner trilinear interpolation, the hand kernel K7
+  * `devoxelize`: the identity gather (integer points at stride 1), the
+    8-corner trilinear interpolation, or the 4-corner bilinear sample of
+    an image (`point_range.range_to_point`), the hand kernel K7
     (`csrc/devoxelize.cu`, one launch per call, bit-identical to the plain
     versions `_devox_identity` / `_devox_trilinear`) on CUDA tensors;
     their backwards are segment sums, over the point tables or over the
@@ -229,11 +230,12 @@ def voxelize_avg(
 
 
 class DevoxTable(NamedTuple):
-    """Trilinear interpolation table + its transpose structure.
+    """Interpolation table + its transpose structure: 8 corners
+    (trilinear, voxels) or 4 (bilinear, pixels).
 
-    idx:     (8, P) int32 voxel index per corner, -1 missing.
-    weights: (8, P) float32 normalized trilinear weights.
-    pairs:   SegmentTables over the flattened (8P,) corner -> voxel ids,
+    idx:     (8, P) or (4, P) int32 row index per corner, -1 missing.
+    weights: (8, P) or (4, P) float32 interpolation weights.
+    pairs:   SegmentTables over the flattened corner -> row ids,
              for the backward (None: forward only).
     """
 
@@ -320,7 +322,7 @@ def _devox_trilinear(voxel_feats, table):
     return out
 
 
-def _launch_devox(name: str, voxel_feats, idx, weights) -> torch.Tensor:
+def _launch_devox(name: str, voxel_feats, idx, weights, counters=("devoxelize",)) -> torch.Tensor:
     p = idx.shape[-1]
     c = voxel_feats.shape[1]
     out = torch.empty((p, c), dtype=voxel_feats.dtype, device=voxel_feats.device)
@@ -330,7 +332,7 @@ def _launch_devox(name: str, voxel_feats, idx, weights) -> torch.Tensor:
     if weights is not None:
         ptrs += (weights.data_ptr(),)
     _build.launch(
-        name, ("devoxelize",), *ptrs, out.data_ptr(), p, c,
+        name, counters, *ptrs, out.data_ptr(), p, c,
         DTYPE_CODES[voxel_feats.dtype],
     )
     return out
@@ -347,23 +349,33 @@ def devoxelize_identity(voxel_feats: torch.Tensor, inverse: torch.Tensor) -> tor
     return _launch_devox("taseg_devox_identity", voxel_feats, inverse, None)
 
 
+# K7's corner entries: 8 corners (trilinear, voxels) and 4 (bilinear,
+# the pixels of RPVNet's range_to_point), and their launch counters
+_DEVOX_CORNERS = {
+    8: ("taseg_devox_trilinear", ("devoxelize",)),
+    4: ("taseg_devox_bilinear", ("devoxelize", "devoxelize_bilinear")),
+}
+
+
 def devoxelize_trilinear(voxel_feats: torch.Tensor, table: DevoxTable) -> torch.Tensor:
-    """K7 trilinear: out[p] = sum over corners k of weights[k, p] *
-    voxel_feats[idx[k, p]] (absent corners idx = -1 add 0), multiplied
-    and added in the feature dtype in corner order, as the JAX package
-    does; (V, C) f32 or bf16 -> (P, C)."""
+    """K7 trilinear (8 corners) or bilinear (4): out[p] = sum over
+    corners k of weights[k, p] * voxel_feats[idx[k, p]] (absent corners
+    idx = -1 add 0), multiplied and added in the feature dtype in corner
+    order, as the JAX package does; (V, C) f32 or bf16 -> (P, C)."""
     dev = voxel_feats.device
     _build.check("voxel_feats", voxel_feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("idx", table.idx, (torch.int32,), 2, dev)
     _build.check("weights", table.weights, (torch.float32,), 2, dev)
-    if table.idx.shape[0] != 8 or table.weights.shape != table.idx.shape:
+    corners = table.idx.shape[0]
+    if corners not in _DEVOX_CORNERS or table.weights.shape != table.idx.shape:
         raise ValueError(
             f"idx {tuple(table.idx.shape)} / weights {tuple(table.weights.shape)}: "
-            "expected (8, P) each"
+            "expected (8, P) or (4, P) each"
         )
     if not _build.dispatch(voxel_feats):
         return _devox_trilinear(voxel_feats, table)
-    return _launch_devox("taseg_devox_trilinear", voxel_feats, table.idx, table.weights)
+    entry, counters = _DEVOX_CORNERS[corners]
+    return _launch_devox(entry, voxel_feats, table.idx, table.weights, counters)
 
 
 class DevoxIdentity(torch.autograd.Function):

@@ -9,7 +9,8 @@ batch-size / epoch overrides.  Outputs go to
 ckpt/checkpoint_epoch_<n>, metrics/); a run resumes from the newest
 checkpoint there.  One process drives one device: `--device` (default
 cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
-on the `voxel` pipeline only; several processes (`--distributed`, DDP)
+on the `voxel` pipeline, RPVNet on the `fusion` one (as JAX
+`train.py:102-107` picks it); several processes (`--distributed`, DDP)
 wait for ROADMAP Queue 1 item 3.
 
     python -m taseg_tpu_torch.train \\
@@ -63,13 +64,14 @@ def parse_args(argv=None):
 def check_ported(cfg) -> str:
     """The recipe's MODALITY, where the port trains its model; raises
     otherwise.  The JAX CLI runs SPVCNN (MODALITY fusion) as the `voxel`
-    kind, on the voxel pipeline (JAX engine.py:164-176, train.py:101-107)."""
+    kind, on the voxel pipeline, and RPVNet on the `fusion` pipeline (JAX
+    engine.py:164-176, train.py:101-107)."""
     modality = str(cfg.get("MODALITY", "voxel"))
     name = cfg["MODEL"]["NAME"]
     if name not in SEGMENTORS or modality not in ("voxel", "fusion"):
         raise NotImplementedError(
             f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 items 5-6; "
-            f"the port trains {sorted(SEGMENTORS)} on the voxel pipeline"
+            f"the port trains {sorted(SEGMENTORS)} on the voxel and fusion pipelines"
         )
     return modality
 
@@ -86,6 +88,7 @@ def main(argv=None) -> None:
         cfg.DATA["SEQUENCES"] = [args.seq]
         cfg.DATA["EVAL_SPLIT"] = "test" if args.seq >= 11 else "val"
     modality = check_ported(cfg)
+    kind = "fusion" if cfg.MODEL["NAME"] == "RPVNet" else None
 
     out_dir = Path("output") / cfg.TAG / args.extra_tag
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -95,10 +98,11 @@ def main(argv=None) -> None:
     scans_per_shard = args.batch_size or int(cfg.OPTIM.get("BATCH_SIZE_PER_GPU", 2))
     train_loader = build_dataloader(
         cfg.DATA, training=True, scans_per_shard=scans_per_shard, modality=modality,
+        pipeline_kind=kind,
     )
     val_loader = build_dataloader(
         cfg.DATA, training=False, scans_per_shard=scans_per_shard,
-        point_capacity=train_loader.point_capacity, modality=modality,
+        point_capacity=train_loader.point_capacity, modality=modality, pipeline_kind=kind,
     )
     trainer = Trainer(
         cfg, None, args.device, train_loader=train_loader, val_loader=val_loader,

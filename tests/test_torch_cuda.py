@@ -25,7 +25,8 @@ lists of `f3conv.k3_pair_lists`) in bf16 with widths that are multiples
 of 8, its CUDA-core route in f32 and at ragged widths; K5 likewise, over
 the per-slot lists of `strided_conv.slot_pair_lists`.  K7
 (`devoxelize`) repeats its plain version's roundings and is held to the
-same bits, signed zeros included; so is K8 (`voxelize_bwd`), the
+same bits, signed zeros included, at 8 corners and at 4 (RPVNet's
+bilinear sample of the range image); so is K8 (`voxelize_bwd`), the
 gradient of the voxelize mean.  A small SPVCNN f32 step on the card is
 held against the CPU's.
 """
@@ -710,6 +711,84 @@ def test_devoxelize_kernel_bit_identical(cuda, dtype, c, misaligned):
     assert torch.equal(_bits(tvx.devoxelize(v, tri).detach()), _bits(want))
     assert torch.equal(_bits(tvx.devoxelize(vox, tri)), _bits(want))
     assert _build.LAUNCHES["devoxelize"] == 4
+
+
+def _bilinear_case(dev, dtype, c, misaligned, seed=59):
+    """RPVNet's range_to_point on a (2 * 16, 64) canvas: a bilinear table
+    of 3000 points with 40 invalid (all corners absent), 40 whose 4
+    corners all read one negative pixel row with weight 0 (every product
+    and the sum -0), and the rest at random fractions."""
+    from taseg_tpu_torch.ops.point_range import range_sample_table
+
+    rng = np.random.default_rng(seed)
+    h, w, p = 32, 64, 3000
+    pxf = torch.from_numpy(rng.uniform(0, w - 1.001, p).astype(np.float32))
+    pyf = torch.from_numpy(rng.uniform(0, h - 1.001, p).astype(np.float32))
+    valid = torch.arange(p) >= 40
+    tab = range_sample_table(pxf, pyf, valid, h, w)
+    idx, wt = tab.idx.clone(), tab.weights.clone()
+    idx[:, 40:80], wt[:, 40:80] = 0, 0.0
+    table = tvx.DevoxTable(idx=idx.to(dev), weights=wt.to(dev))
+    base = _rand(rng, (h * w * c + 1,), dev, dtype)
+    img = (base[1:] if misaligned else base[:-1]).view(h * w, c)
+    img[0] = -img[0].abs() - 0.5
+    return img, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 96, 19])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_devoxelize_bilinear_kernel_bit_identical(cuda, dtype, c, misaligned):
+    """K7 at 4 corners (RPVNet's range_to_point) gives its plain version's
+    bits, signed zeros included, at the range branch's widths and a
+    ragged one, and the same bits on a repeat call; one launch per call,
+    counted under `devoxelize` and `devoxelize_bilinear`."""
+    img, table = _bilinear_case(cuda, dtype, c, misaligned)
+    _build.reset_launches()
+    got = _twice_same(lambda: tvx.devoxelize_trilinear(img, table))
+    want = tvx._devox_trilinear(img, table)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got[:40]), _bits(torch.zeros_like(got[:40])))
+    assert torch.equal(_bits(got[40:80]), _bits(torch.full_like(got[40:80], -0.0)))
+    assert (_build.LAUNCHES["devoxelize"], _build.LAUNCHES["devoxelize_bilinear"]) == (2, 2)
+
+
+@pytest.mark.parametrize("block", ["res_context", "salsa_res", "salsa_up"])
+def test_range_blocks_train_backward_card_equals_cpu(cuda, block):
+    """RPVNet's range blocks in train mode (dropout off) on the card
+    against the CPU on the same NHWC f32 inputs, weights and output
+    gradients: outputs, input gradients and parameter gradients within
+    1e-4 of their L2 norm (cuDNN sums in another order; TF32 off).  The
+    average pool of `SalsaResBlock` runs on an NCHW-contiguous copy: on a
+    channels-last input torch's CUDA avg_pool2d backward returned a wrong
+    input gradient (tools/range_ops_check.py)."""
+    from taseg_tpu_torch.models.range2d import blocks as B
+
+    gen = torch.Generator().manual_seed(3)
+    make = {
+        "res_context": lambda: B.ResContextBlock(32, 32, device="cpu"),
+        "salsa_res": lambda: B.SalsaResBlock(32, 48, drop_out=False, device="cpu"),
+        "salsa_up": lambda: B.SalsaUpBlock(64, 16, 32, drop_out=False, device="cpu"),
+    }[block]
+    m = make().train()
+    with torch.no_grad():
+        for q in m.parameters():
+            q.copy_(torch.randn(q.shape, generator=gen) * 0.1)
+    x0 = torch.randn(2, 16, 64, 64 if block == "salsa_up" else 32, generator=gen)
+    s0 = torch.randn(2, 32, 128, 16, generator=gen) if block == "salsa_up" else None
+    res = {}
+    for dev in ("cpu", cuda):
+        m.to(dev)
+        x = x0.detach().to(dev).clone().requires_grad_()
+        args = (x,) if s0 is None else (x, s0.to(dev))
+        ys = m(*args)
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        gs = [torch.randn(y.shape, generator=torch.Generator().manual_seed(4)).to(dev) for y in ys]
+        torch.autograd.backward(list(ys), gs)
+        res[str(dev)] = [y.detach().cpu() for y in ys] + [x.grad.cpu()] + [q.grad.cpu() for q in m.parameters()]
+        m.zero_grad(set_to_none=True)
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert (got - want).norm() <= 1e-4 * want.norm()
 
 
 def test_devoxelize_kernel_empty(cuda):

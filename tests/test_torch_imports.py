@@ -1,5 +1,6 @@
 """The port stands alone: importing it, every submodule (the train
-path's loss, optim and f3conv, and models/fusion, among them) and
+path's loss, optim and f3conv, models/fusion, RPVNet's range blocks,
+point_range and fusion pipeline, among them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -20,7 +21,10 @@ import taseg_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(taseg_tpu_torch.__path__, "taseg_tpu_torch.")]
 train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch.loss.util",
          "taseg_tpu_torch.optim", "taseg_tpu_torch.ops.f3conv",
-         "taseg_tpu_torch.models.fusion", "taseg_tpu_torch.models.fusion.spvcnn"}
+         "taseg_tpu_torch.models.fusion", "taseg_tpu_torch.models.fusion.spvcnn",
+         "taseg_tpu_torch.models.fusion.rpvnet", "taseg_tpu_torch.models.range2d",
+         "taseg_tpu_torch.models.range2d.blocks", "taseg_tpu_torch.ops.point_range",
+         "taseg_tpu_torch.data.fusion_dataset"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

@@ -164,7 +164,7 @@ def test_launch_counters_have_the_route_entries():
         "strided_down_dgrad", "strided_down_dgrad_mma",
         "strided_up_dgrad", "strided_up_dgrad_mma",
         "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
-        "segment_sum", "devoxelize", "voxelize_bwd",
+        "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -203,6 +203,24 @@ def test_cpu_devoxelize_launches_nothing(dtype):
     v = vox.clone().requires_grad_()
     tvx.devoxelize(v, tri).float().sum().backward()
     assert v.grad is not None and not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("corners", [4, 8])
+def test_devoxelize_corner_entries(corners, monkeypatch):
+    """K7 picks its C entry by the table's corner count: (4, P) tables
+    (RPVNet's `range_to_point`) the bilinear one, counted under
+    `devoxelize` and `devoxelize_bilinear`; (8, P) the trilinear one,
+    under `devoxelize` only.  (The launch is recorded, not made: the
+    route is a pure function of the table.)"""
+    calls = []
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, counters)))
+    idx = torch.zeros(corners, 5, dtype=torch.int32)
+    table = tvx.DevoxTable(idx=idx, weights=torch.zeros(corners, 5))
+    tvx.devoxelize_trilinear(torch.ones(3, 4), table)
+    want = ("taseg_devox_bilinear", ("devoxelize", "devoxelize_bilinear")) if corners == 4 else (
+        "taseg_devox_trilinear", ("devoxelize",))
+    assert calls == [want]
 
 
 def test_tensor_core_route_rejects_misaligned_rows():

@@ -145,7 +145,7 @@ def test_build_reader_raises_for_ports_still_to_come():
     for ds in ("semantickitti_ms", "nuscenes", "waymo", "synthetic_ms_mm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdata.build_reader({**DATA, "DATASET": ds}, True)
-    for kind in ("range", "cylinder", "fusion", "kd", "mm"):
+    for kind in ("range", "cylinder", "kd", "mm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdata.build_dataloader(DATA, training=True, scans_per_shard=1, pipeline_kind=kind)
 
@@ -218,6 +218,27 @@ def test_tta_batches_equal():
         for x, y in zip(a, b):
             _batches_equal(x, y)
     assert t.fixed_aug is None and t.pipeline.training is False
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_fusion_loader_equal(training):
+    """The `fusion` kind (RPVNet): the voxel arrays, the (B, H, W, 6)
+    range images and the per-scan offset pixel coordinates of every
+    batch equal JAX's (`collate_fusion_batch`), augmented and padded
+    batches included."""
+    data = {**DATA, "H": 16, "W": 64}
+    j = jdata.build_dataloader(data, training=training, n_shards=1, scans_per_shard=2,
+                               pipeline_kind="fusion")
+    t = tdata.build_dataloader(data, training=training, n_shards=1, scans_per_shard=2,
+                               pipeline_kind="fusion")
+    assert type(t.pipeline).__name__ == "FusionPipeline"
+    jb, tb = list(j), list(t)
+    assert len(jb) == len(tb) == (2 if training else 3)
+    for a, b in zip(jb, tb):
+        _batches_equal(a, b)
+        for k in ("range_image", "range_pxpy"):
+            np.testing.assert_array_equal(a[0][k][0], b[0][k], err_msg=k)
+    assert tb[0][0]["range_image"].shape == (2, 16, 64, 6)
 
 
 def test_reader_error_reaches_the_consumer():

@@ -310,7 +310,9 @@ def test_weight_tree_and_round_trip(scene):
 def test_build_segmentor_dispatch():
     """MODEL.NAME picks the model; an unported name raises with the list;
     `MinkUNet.from_cfg` refuses another name.  The point transforms' BN
-    keeps momentum 0.1 whatever MODEL.BN_MOMENTUM says (as in JAX)."""
+    keeps momentum 0.1 whatever MODEL.BN_MOMENTUM says (as in JAX).
+    DROPOUT_P > 0 builds a Trainer whose dropout draws from its seeded
+    generator (MinkUNet trains with it: test_torch_train.py)."""
     cfg = {**CFG, "MODEL": {**CFG["MODEL"], "BN_MOMENTUM": 0.01, "MULTI_SCALE": "last"}}
     m = build_segmentor(cfg, device="cpu")
     assert isinstance(m, SPVCNN) and m.point_voxel_strides == STRIDES
@@ -319,20 +321,21 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="RPVNet.*'MinkUNet', 'SPVCNN'"):
-        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "RPVNet"}}, device="cpu")
+    with pytest.raises(ValueError, match="Cylinder_TS.*'MinkUNet', 'RPVNet', 'SPVCNN'"):
+        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "Cylinder_TS"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")
     p, s = init_params_numpy(CFG, seed=0)
-    with pytest.raises(NotImplementedError, match="Dropout"):
-        Trainer({**CFG, "MODEL": {**CFG["MODEL"], "DROPOUT_P": 0.3}},
-                {"params": p, "batch_stats": s}, device="cpu", **SCHED)
+    tr = Trainer({**CFG, "MODEL": {**CFG["MODEL"], "DROPOUT_P": 0.3}},
+                 {"params": p, "batch_stats": s}, device="cpu", point_capacity=CAP, **SCHED)
+    assert tr.model.dropout.rate == 0.3 and tr.model.dropout.generator is tr.dropout_generator
 
 
 def test_cli_takes_the_spvcnn_recipe():
     """`--cfg_file tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml`
     resolves to SPVCNN at full width (MODALITY fusion, on the voxel
-    pipeline); a model the port has not ported is refused."""
+    pipeline); RPVNet is taken, a model the port has not ported is
+    refused."""
     from taseg_tpu_torch.train import check_ported
     from taseg_tpu_torch.utils.config import load_config
 
@@ -341,8 +344,9 @@ def test_cli_takes_the_spvcnn_recipe():
     m = build_segmentor(cfg, device="cpu")
     assert isinstance(m, SPVCNN) and m.classifier.kernel.shape == (256 + 128 + 96, 20)
     assert m.point_transform_0.Dense_0.kernel.shape == (32, 256)
-    with pytest.raises(NotImplementedError, match="RPVNet"):
-        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "RPVNet"}})
+    assert check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "RPVNet"}}) == "fusion"
+    with pytest.raises(NotImplementedError, match="Cylinder_TS"):
+        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "Cylinder_TS"}})
     with pytest.raises(NotImplementedError, match="range"):
         check_ported({**cfg, "MODALITY": "range"})
 
