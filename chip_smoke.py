@@ -10,8 +10,10 @@ checkpoints, evaluation, TTA) of MinkUNet mk34 cr1.0
 `Segmenter.predict` and `Trainer.step` of SPVCNN mk34 cr1.0
 (tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml) and of RPVNet
 mk18 cr1.0 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml, with
-64 x 2048 range images), in bf16 on synthetic 120 000-point scans,
-weights drawn from a seed — and checks them:
+64 x 2048 range images), in bf16, and of Cylinder_TS cy480 cr1.0
+(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml) in f32, on
+synthetic 120 000-point scans, weights drawn from a seed — and checks
+them:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
@@ -82,6 +84,21 @@ weights drawn from a seed — and checks them:
      tables and the 4 corner-pair tables against its plain version in
      f64, K8 at the 3 pixel scatters bit-identical; each kernel's device
      time per step;
+  5e. Cylinder_TS cy480 cr1.0 at full width (INIT_SIZE 32, the 480 x
+     360 x 32 polar grid) in f32: `Segmenter.predict` with every launch
+     counted (per scan K2 at K offsets 47, K2 at 27 one (the head), K1
+     22, nothing else), finite logits of the right shape, the level
+     counts beside their capacities, the small-scan card f32 logits
+     against the CPU, serving ms per scan by stage and each kernel's
+     device time per scan; K2 at K and at 27 at every call of a real
+     forward against their plain versions (and once in bf16, the
+     tensor-core route, at the same shapes); the input and weight
+     gradients (K2 at K, K4 at K, the head's K2 and K4 at 27) at every
+     call of a real step, K4 bit-identical on repeat; a small-scan f32
+     step on the card against the CPU; 4 counted full-width steps (per
+     step K2 at K 47 + 47, K4 at K 47, K2 at 27 1 + 1, K4 at 27 1, K1
+     22), ms per step by stage, peak memory and each kernel's device time
+     per step;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -90,7 +107,10 @@ weights drawn from a seed — and checks them:
      corners as its own entry (`devoxelize_bilinear`, RPVNet's serving
      launches), K6 and K8 with their times at RPVNet's pixel tables, every
      kernel with its launches per scan and per step on SPVCNN's and
-     RPVNet's paths.
+     RPVNet's paths; K2 at K offsets (`sparse_conv_k`, with its train
+     launches and input-gradient times) and K4 at K offsets
+     (`sparse_conv_dw`) with Cylinder_TS's launches, and every kernel's
+     launches on Cylinder_TS's path.
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -141,6 +161,8 @@ KERNEL_NAMES = {
     # K7's 4-corner instances (a tuple: every fragment must appear)
     "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
     "voxelize_bwd": ("voxelize_bwd_kernel",),
+    "sparse_conv_k": ("sparse_conv_k_",),
+    "sparse_conv_dw": ("PairsOffsets",),
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
@@ -199,6 +221,22 @@ RPVNET_PER_STEP = {
 }
 RPVNET_ROUNDS = 3  # serving samples: RPVNET_ROUNDS * N_SCANS scans
 RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bottom")
+
+# Cylinder_TS (tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml),
+# f32 on the 480 x 360 x 32 polar grid: per scan 47 convs over K offsets
+# (K2 at K: 36 at K = 9, 4 at 8, 4 at 4, 3 at 3), the 3^3 head (K2 at 27,
+# 20 classes: the CUDA-core route) and 22 joins (K1: 2 asymmetric
+# rulebooks per level, the 4 pooling tables and their reverses, 3 recon
+# rulebooks, the head's); per train step also the 47 input gradients
+# (K2 at K) and weight gradients (K4 at K) and the head's (K2 and K4 at
+# 27); no other kernel (its voxelization is a segment max in plain torch,
+# its devoxelization a gather)
+CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 47, "sparse_conv_k3": 1}
+CYLINDER_PER_STEP = {
+    "join_scan": 22, "sparse_conv_k": 94, "sparse_conv_k_dgrad": 47, "sparse_conv_dw": 47,
+    "sparse_conv_k3": 2, "sparse_conv_k3_dgrad": 1, "k3_conv_dw": 1,
+}
+CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 
 # the harness phase: one epoch of train scans through the loader, the
 # eval scans, and the point capacity passed as bench.py passes it (the
@@ -359,12 +397,12 @@ def slot_rows(tables):
 def conv_library_ms(name: str, x, w, table) -> float:
     """One torch.mm that computes a conv call of K2 / K3 (forward or input
     gradient) on rows gathered beforehand: (rows x K C_in) @ W reshaped
-    to (K C_in x C_out); K = 27 offsets, or the 8 slots."""
+    to (K C_in x C_out); K = the rulebook's offsets, or the 8 slots."""
     import torch
 
     from taseg_tpu_torch.ops.strided_conv import slot_child_table
 
-    if name == "sparse_conv_k3":
+    if name in ("sparse_conv_k3", "sparse_conv_k", "sparse_conv_k_dgrad"):
         idx = table
     elif name == "strided_down":
         idx = slot_child_table(table)[0]  # one round on the path
@@ -385,7 +423,7 @@ def dw_library_ms(name: str, x, y, table, up: bool = False) -> float:
 
     from taseg_tpu_torch.ops.strided_conv import slot_child_table
 
-    if name == "k3_conv_dw":
+    if name in ("k3_conv_dw", "sparse_conv_dw"):
         b = gathered_rows(y, table)
     elif up:  # x coarse rows, y fine rows: the children per slot
         b = gathered_rows(y, slot_child_table(table)[0])
@@ -760,6 +798,14 @@ class CallCapture:
         for module, name, orig in self._restore:
             setattr(module, name, orig)
         self._restore.clear()
+
+    @staticmethod
+    def only(cap: "CallCapture", keep) -> "CallCapture":
+        """A copy of `cap` with the keys for which `keep(key)` holds."""
+        out = CallCapture()
+        out.seen = {k: v for k, v in cap.seen.items() if keep(k)}
+        out.count = {k: cap.count[k] for k in out.seen}
+        return out
 
 
 def capture_train_calls(trainer, scans) -> CallCapture:
@@ -2084,6 +2130,275 @@ def phase_rpvnet(scans, results: dict) -> dict:
         "launches": serve,
     }
 
+def cylinder_calls(run) -> CallCapture:
+    """`run()` (a Segmenter forward or a Trainer step) with the wrappers
+    of K2 and K4 at K offsets and at 27 wrapped: the inputs of every
+    forward, input-gradient and weight-gradient call at each distinct
+    (kind, K, V_in, C_in, V_out, C_out)."""
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    def conv_key(name):
+        def key(x, w, rb, dgrad=False):
+            return (name + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
+        return key
+
+    cap = CallCapture()
+    cap.patch(sparse_conv, "sparse_conv", conv_key("sparse_conv_k"))
+    cap.patch(f3conv, "sparse_conv", conv_key("sparse_conv_k"))
+    cap.patch(sparse_conv, "sparse_conv_k3", conv_key("sparse_conv_k3"))
+    cap.patch(f3conv, "sparse_conv_k3", conv_key("sparse_conv_k3"))
+    cap.patch(
+        f3conv, "sparse_conv_dw",
+        lambda x, g, rb, out_dtype=None: ("sparse_conv_dw", rb.shape[0], *x.shape, *g.shape),
+    )
+    cap.patch(
+        f3conv, "k3_conv_dw",
+        lambda x, g, rb, out_dtype=None, pairs=None: ("k3_conv_dw", rb.shape[0], *x.shape, *g.shape),
+    )
+    run()
+    cap.remove()
+    return cap
+
+
+def phase_cylinder_kernels(cap: CallCapture, label: str) -> dict:
+    """K2 and K4 at K offsets, and at 27 (the head), at every call of the
+    captured forward or train step, on the call's own f32 inputs: against
+    their plain versions (the convs within 1e-5 of the largest sum of
+    |terms|, the weight gradients within 1e-4: they sum up to all V rows
+    in another order), the weight gradients bit-identical on a repeat
+    call; kernel, plain, bound (bytes: inputs read once, output written
+    once; operations: the rulebook's present pairs at the f32 CUDA-core
+    rate) and library (one torch.mm on rows gathered beforehand) times,
+    summed over the calls by their count.  The K-offset convs also run
+    once in bf16 at the same shapes (their tensor-core route where the
+    widths allow it), for correctness only: no path calls them in bf16.
+    Returns the totals by kind (`sparse_conv_k`, `sparse_conv_k_dgrad`,
+    `sparse_conv_dw`, and the head's `sparse_conv_k3`,
+    `sparse_conv_k3_dgrad`, `k3_conv_dw`)."""
+    import torch
+
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    convs = {
+        "sparse_conv_k": (sparse_conv.sparse_conv, sparse_conv.sparse_conv_plain),
+        "sparse_conv_k3": (sparse_conv.sparse_conv_k3, sparse_conv.sparse_conv_plain),
+    }
+    dws = {
+        "sparse_conv_dw": (f3conv.sparse_conv_dw, f3conv.k3_conv_dw_plain),
+        "k3_conv_dw": (f3conv.k3_conv_dw, f3conv.k3_conv_dw_plain),
+    }
+    tot: dict = {}
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        name, k, v_in, c_in, v_out, c_out = key
+        count = cap.count[key]
+        x, second, rb = a[0], a[1], a[2]
+        pairs = int((rb >= 0).sum())
+        if name in dws:
+            kern, plain = dws[name]
+            got = twice_same(f"{label}{key}", lambda: kern(x, second, rb))
+            err = check_close(f"{label}{key}", got, plain(x, second, rb), plain(x.abs(), second.abs(), rb), "float32", 1e-4)
+            nbytes = (v_in * c_in + v_out * c_out + rb.numel() + k * c_in * c_out) * 4
+            lib = dw_library_ms(name, x, second, rb)
+            ms = cuda_ms(lambda: kern(x, second, rb))
+            pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
+            extra = "bit-identical on repeat"
+        else:
+            base = name.replace("_dgrad", "")
+            kern, plain = convs[base]
+            got = kern(x, second, rb)
+            err = check_close(f"{label}{key}", got, plain(x, second, rb), plain(x.abs(), second.abs(), rb), "float32", 1e-5)
+            extra = "f32 route " + sparse_conv.route(x.dtype, c_in, c_out)
+            if base == "sparse_conv_k":
+                xb, wb = x.bfloat16(), second.bfloat16()
+                berr = check_close(f"{label}{key} bf16", kern(xb, wb, rb), plain(xb, wb, rb),
+                                   plain(xb.abs(), wb.abs(), rb), "bfloat16", 1e-5)
+                extra += f"; bf16 route {sparse_conv.route(torch.bfloat16, c_in, c_out)} max|err| {berr:.3e}"
+            nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
+            lib = conv_library_ms(base, x, second, rb)
+            ms = cuda_ms(lambda: kern(x, second, rb))
+            pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
+        b, by = bound_ms(nbytes, 2.0 * pairs * c_in * c_out, "float32")
+        log(
+            f"{label}{name} K={k} V_in={v_in} {c_in}->{c_out} V_out={v_out} x{count} "
+            f"pairs={pairs} max|err| {err:.3e} ({extra}) kernel {ms:.4f} ms plain {pms:.4f} ms "
+            f"bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+        )
+        r = tot.setdefault(name, {
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+            "_parts": [0.0, 0.0],
+        })
+        for kk, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib)):
+            r[kk] += count * val
+        r["_parts"][0 if by == "bytes" else 1] += count * b
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    for r in tot.values():
+        parts = r.pop("_parts")
+        r["bound_by"] = "bytes" if parts[0] >= parts[1] else "operations"
+    return tot
+
+
+def cylinder_serve_profile(seg, scans, out: dict) -> None:
+    """Device time per scan of Cylinder's serving (topology + forward) by
+    kernel (torch.profiler device events over the scans): the hand
+    kernels by name, the busy total, and the largest other kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [seg.collate([s]) for s in scans]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for a in batches:
+            seg.forward(a, seg.topology(a))
+        torch.cuda.synchronize()
+    n = len(batches)
+    dev = {k: 0.0 for k in KERNEL_NAMES}
+    busy = 0.0
+    others = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU or e.is_user_annotation:
+            continue
+        ms = e.self_device_time_total / 1e3 / n
+        busy += ms
+        mine = [k for k, frags in KERNEL_NAMES.items() if named(e.key, frags)]
+        for k in mine:
+            dev[k] += ms
+        if not mine:
+            others.append((ms, e.count / n, e.key[:90]))
+    for k in ("join_scan", "sparse_conv_k", "sparse_conv_k3"):
+        log(f"cylinder profiler serving {k}: {dev[k]:.4f} ms per scan on the device")
+        out[k] = dev[k] or None
+    others.sort(reverse=True)
+    log(
+        f"cylinder profiler serving: all kernels {busy:.4f} ms per scan; other kernels "
+        f"{sum(o[0] for o in others):.4f} ms in {sum(o[1] for o in others):g} launches; the largest:"
+    )
+    for ms, c, name in others[:8]:
+        log(f"  {ms:.4f} ms x{c:g} {name}")
+
+
+def segment_max_ms(seg, scans) -> None:
+    """The segment max (plain torch: `scatter_reduce` amax forward, its own
+    backward) at the real (P, 16) f32 shape and segment ids of one scan:
+    forward, and forward + backward of its sum (CUDA events, `cuda_ms`)."""
+    import torch
+
+    from taseg_tpu_torch.ops.voxelize import segment_max
+
+    a = seg.collate(scans[:1])
+    topo = seg.topology(a)
+    inv, v0 = topo.point_inverse, topo.levels[0].coords.shape[0]
+    ids = torch.where(inv >= 0, inv, v0)
+    gen = torch.Generator(device=inv.device).manual_seed(SEED)
+    x = torch.randn(inv.shape[0], 16, device=inv.device, generator=gen)
+    x = torch.where((inv >= 0)[:, None], x, float("-inf")).requires_grad_()
+
+    def fwd_bwd():
+        m = segment_max(x, ids, v0 + 1)
+        torch.where(torch.isfinite(m), m, 0.0).sum().backward()
+
+    fwd = cuda_ms(lambda: segment_max(x.detach(), ids, v0 + 1))
+    both = cuda_ms(fwd_bwd)
+    log(f"cylinder segment_max P={x.shape[0]} V={v0} C=16 f32: forward {fwd:.4f} ms, forward + backward {both:.4f} ms")
+
+
+def phase_cylinder(scans, results: dict) -> dict:
+    """Cylinder_TS cy480 cr1.0 at full width (INIT_SIZE 32, the 480 x 360
+    x 32 polar grid) in f32, seeded weights, on the same scans:
+    `Segmenter.predict` with every launch count set to 0 just before and
+    read just after (each kernel as CYLINDER_PER_SCAN says, every other
+    0), finite logits of the right shape, the level counts beside their
+    capacities, the small-scan card f32 logits against the CPU, serving ms
+    per scan by stage and each kernel's device time per scan; K2 at K and
+    at 27 at every call of a real forward against their plain versions;
+    then the train path: the inputs of every K2 / K4 call of one real
+    step checked the same way (the input gradients and weight gradients,
+    K4 bit-identical on repeat), a small-scan f32 step on the card
+    against the CPU, TRAIN_STEPS counted `Trainer` steps (each kernel as
+    CYLINDER_PER_STEP says), ms per step by stage, peak memory, and each
+    kernel's device time per step.  Returns the launches per scan and per
+    step and the device ms."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import CYLINDER_CY480_CR10
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.models import CylinderTS
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    cfg = CYLINDER_CY480_CR10
+    params, stats = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    seg = Segmenter(cfg, variables)
+    if not isinstance(seg.model, CylinderTS):
+        raise AssertionError(f"cylinder: Segmenter built {type(seg.model).__name__}")
+    for s in scans:
+        a = seg.collate([s])
+        topo = seg.topology(a)
+        log(
+            f"cylinder serving rows {int(a['num_points'][0])}, level voxels "
+            f"{[int(l.num) for l in topo.levels]} caps {list(seg.caps.voxels)}"
+        )
+    a = seg.collate(scans[:1])
+    cap = cylinder_calls(lambda: seg.forward(a, seg.topology(a)))
+    del a, topo
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = seg.predict(scans)
+    torch.cuda.synchronize()
+    serve = dict(_build.LAUNCHES)
+    log(f"cylinder serving launches over {len(scans)} scans: {serve}")
+    check_launches(serve, CYLINDER_PER_SCAN, len(scans), "cylinder serving")
+    for s, o in zip(scans, out):
+        if o["logits"].shape != (s["xyzret"].shape[0], cfg["MODEL"]["NUM_CLASS"]):
+            raise AssertionError(f"cylinder logits shape {o['logits'].shape}")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError("cylinder: non-finite logits")
+    del out
+    small_scan_check(cfg, variables, "cylinder ")
+    serve_split(seg, scans, CYLINDER_ROUNDS, "cylinder ")
+    serve_k = phase_cylinder_kernels(cap, "cylinder serving ")
+    results["sparse_conv_k"] = serve_k["sparse_conv_k"]
+    head = {"forward_per_scan": serve_k["sparse_conv_k3"]}
+    del cap
+    segment_max_ms(seg, scans)
+    serve_dev: dict = {}
+    cylinder_serve_profile(seg, scans, serve_dev)
+    del seg
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(
+        cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], seed=SEED,
+    )
+    log(f"cylinder train capacities {list(trainer.caps.voxels)}")
+    cap = cylinder_calls(lambda: trainer.step(scans[:1]))
+    train_k = phase_cylinder_kernels(
+        CallCapture.only(cap, lambda key: key[0] not in ("sparse_conv_k", "sparse_conv_k3")),
+        "cylinder train ",
+    )
+    del cap
+    for k in ("sparse_conv_k_dgrad", "sparse_conv_dw"):
+        results[k] = train_k[k]
+    head["dgrad_per_step"] = train_k["sparse_conv_k3_dgrad"]
+    head["dw_per_step"] = train_k["k3_conv_dw"]
+    phase_small_train_step(cfg, variables, "cylinder ")
+    per_step = {k: CYLINDER_PER_STEP.get(k, 0) for k in _build.LAUNCHES}
+    train, _ = phase_train_steps(trainer, scans, per_step, "cylinder train")
+    cyl: dict = {}
+    phase_train_profile(trainer, scans, cyl, "cylinder ")
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        "per_scan": {k: n // len(scans) for k, n in serve.items()},
+        "per_step": {k: n // TRAIN_STEPS for k, n in train.items()},
+        "device_ms_per_step": {k: v["device_ms_per_step"] for k, v in cyl.items()},
+        "device_ms_per_scan": serve_dev,
+        "launches": serve,
+        "train_launches": train,
+        "head": head,
+    }
+
 
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
@@ -2229,6 +2544,10 @@ def main() -> int:
     # branch; K7 at 4 corners, K6 and K8 at its point <-> range tables
     rpvnet = phase_rpvnet(scans, results)
 
+    # 5e. Cylinder_TS: serving and train paths at full width in f32, K2
+    # and K4 at K offsets at every call of a real forward and step
+    cylinder = phase_cylinder(scans, results)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -2310,12 +2629,51 @@ def main() -> int:
             "launches_per_step": rpvnet["per_step"][name],
             "device_ms_per_train_step": rpvnet["device_ms_per_step"].get(name),
         }
+        entry["cylinder"] = {
+            "launches_per_scan": cylinder["per_scan"][name],
+            "launches_per_step": cylinder["per_step"][name],
+            "device_ms_per_train_step": cylinder["device_ms_per_step"].get(name),
+        }
+        if name == "sparse_conv_k3":
+            entry["cylinder"]["head"] = {
+                "forward_per_scan": cylinder["head"]["forward_per_scan"],
+                "dgrad_per_step": cylinder["head"]["dgrad_per_step"],
+                "device_ms_per_scan": cylinder["device_ms_per_scan"].get(name),
+            }
+        if name == "k3_conv_dw":
+            entry["cylinder"]["head"] = cylinder["head"]["dw_per_step"]
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
                 per="train step (RPVNet)",
             )
         kernels.append(entry)
+    # K2 and K4 at K offsets: Cylinder_TS's serving (per scan) and train
+    # (per step) paths, their only users
+    k2k, dgrad, k4k = results["sparse_conv_k"], results["sparse_conv_k_dgrad"], results["sparse_conv_dw"]
+    serve, train = cylinder["launches"], cylinder["train_launches"]
+    kernels.append({
+        "name": "sparse_conv_k", "route": "cuda", "source": "taseg_tpu_torch/csrc/sparse_conv.cu",
+        "replaces": "taseg_tpu/ops/sparse_conv.py:137", "launches": serve["sparse_conv_k"],
+        **{k: k2k[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per": "scan (Cylinder_TS serving, f32)",
+        "launches_by_route": {"mma": serve["sparse_conv_k_mma"], "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_mma"]},
+        "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
+        "train": {
+            "launches": train["sparse_conv_k"], "dgrad_launches": train["sparse_conv_k_dgrad"],
+            "dgrad_ms_per_step": dgrad["ms"], "dgrad_plain_ms_per_step": dgrad["plain_ms"],
+            "dgrad_bound_ms_per_step": dgrad["bound_ms"], "dgrad_bound_by": dgrad["bound_by"],
+            "dgrad_max_abs_err": dgrad["max_abs_err"], "dgrad_library_ms_per_step": dgrad["library_ms"],
+            "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_k"],
+        },
+    })
+    kernels.append({
+        "name": "sparse_conv_dw", "route": "cuda", "source": "taseg_tpu_torch/csrc/conv_dw.cu",
+        "replaces": "taseg_tpu/ops/sparse_conv.py:157", "launches": train["sparse_conv_dw"],
+        **{k: k4k[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per": "train step (Cylinder_TS, f32)",
+        "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_dw"],
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -229,6 +229,79 @@ RPVNET_TINY = {
     },
 }
 
+# tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml: Cylinder_TS on
+# the 480 x 360 x 32 polar grid (MODALITY cylinder, the cylinder pipeline,
+# f32); the YAML's IF_DIST is left out, as for SPVCNN.  No capacity
+# schedule: JAX's default holds the synthetic 120k-point scans at 131072
+# rows (chip_smoke.py prints each level's count beside its capacity)
+CYLINDER_CY480_CR10 = {
+    "MODALITY": "cylinder",
+    "DATA": {
+        "DATASET": "semantickitti",
+        "GRID_SIZE": [480, 360, 32],
+    },
+    "MODEL": {
+        "NAME": "Cylinder_TS",
+        "IN_FEATURE_DIM": 9,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "DROPOUT_P": 0.0,
+        "LABEL_SMOOTHING": 0.0,
+        "INIT_SIZE": 32,
+        "LOSS_CONFIG": {
+            "LOSS_TYPES": ["CELoss", "LovLoss"],
+            "LOSS_WEIGHTS": [1.0, 1.0],
+        },
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 12,
+        "NUM_EPOCHS": 36,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.02,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "NESTEROV": True,
+        "GRAD_NORM_CLIP": 10.0,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
+# tools/cfgs/voxel/synthetic/cylinder_tiny.yaml: the CLI smoke recipe of
+# Cylinder_TS (INIT_SIZE 4, a 64 x 64 x 16 polar grid; MODALITY voxel,
+# the cylinder pipeline picked by the model's name, as the JAX CLI does)
+CYLINDER_TINY = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "synthetic",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 4000,
+        "GRID_SIZE": [64, 64, 16],
+        "NUM_POINTS": 4096,
+    },
+    "MODEL": {
+        "NAME": "Cylinder_TS",
+        "IN_FEATURE_DIM": 9,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "INIT_SIZE": 4,
+        "LOSS_CONFIG": {
+            "LOSS_TYPES": ["CELoss", "LovLoss"],
+            "LOSS_WEIGHTS": [1.0, 1.0],
+        },
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 1,
+        "NUM_EPOCHS": 1,
+        "OPTIMIZER": "sgd",
+        "LR_PER_SAMPLE": 0.01,
+        "WEIGHT_DECAY": 0.0001,
+        "MOMENTUM": 0.9,
+        "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
@@ -236,4 +309,6 @@ RECIPES = {
     "tools/cfgs/voxel/synthetic/minkunet_tiny.yaml": MINKUNET_TINY,
     "tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml": RPVNET_MK18_CR10,
     "tools/cfgs/fusion/synthetic/rpvnet_tiny.yaml": RPVNET_TINY,
+    "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml": CYLINDER_CY480_CR10,
+    "tools/cfgs/voxel/synthetic/cylinder_tiny.yaml": CYLINDER_TINY,
 }

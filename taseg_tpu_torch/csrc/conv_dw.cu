@@ -1,5 +1,7 @@
 // K4 k3_conv_dw and K5 strided_dw: the weight gradients of the stride-1
-// k3 conv and of the ks=2 / stride=2 conv pair.
+// k3 conv and of the ks=2 / stride=2 conv pair; K4 at K offsets
+// (sparse_conv_dw), the weight gradient of the conv over a general
+// kernel volume.
 //
 // K4 replaces the d_W half of taseg_tpu/ops/f3conv.py:219 f3_bwd_fused
 // (the backward of ops/tgf.py:216 tgf_conv_apply, _tgf_vjp_bwd :231):
@@ -7,6 +9,11 @@
 //   d_W[k] = sum_i feats[i]^T (x) g[rb_bwd[k, i]]     (rb_bwd == -1: none)
 //
 // with rb_bwd the flipped rulebook: rb_bwd[k, i] = v <=> rb_fwd[k, v] = i.
+// K4 at K offsets replaces the d_W half of taseg_tpu/ops/sparse_conv.py
+// :157 _conv_vjp_bwd (d_W[k] = gathered_k(feats, rb_fwd)^T g), summed
+// over the reverse table instead: the same sum, over the same pairs, in
+// row order of the input.  rb_bwd (K, V_in) holds rows of g (V_out, C_out),
+// and V_in != V_out for the pooling and transposed convs.
 // K5 replaces the d_W einsums of taseg_tpu/ops/strided_conv.py:136
 // _down_bwd and :169 _up_bwd:
 //
@@ -66,8 +73,9 @@
 // split past its list's count does nothing, and the reduction reads
 // only the splits a list's count reaches, in split order.
 //
-// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32, for K4
-// and K5): CUDA cores, f32 FMA on operands widened in shared memory:
+// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32, for K4,
+// K4 at K offsets (its only route: Cylinder3D runs in f32) and K5): CUDA
+// cores, f32 FMA on operands widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"
@@ -89,6 +97,21 @@ struct PairsK3 {
   int v;
   __device__ __forceinline__ bool get(int o, int i, int& xr, int& yr) const {
     const int y = rb[static_cast<size_t>(o) * v + i];
+    xr = i;
+    yr = y;
+    return y >= 0;
+  }
+};
+
+// K4 at K offsets (sparse_conv_dw): pair (i, rb_bwd[k, i]) of offset k
+// over the V_in input rows; the grad rows it names are output rows of
+// the forward (V_out of them), so the two sides have their own row
+// counts.  A type of its own so that a profile tells it from K4 at 27.
+struct PairsOffsets {
+  const int* rb;
+  int v_in;
+  __device__ __forceinline__ bool get(int o, int i, int& xr, int& yr) const {
+    const int y = rb[static_cast<size_t>(o) * v_in + i];
     xr = i;
     yr = y;
     return y >= 0;
@@ -480,6 +503,20 @@ extern "C" int taseg_k3_conv_dw(const void* feats, const void* grad,
   const PairsK3 pairs{static_cast<const int*>(rb_bwd), v};
   return launch_dw(feats, grad, pairs, out, part, 27, v, c_in, c_out, splits,
                    rows_per_split, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K4 at K offsets (1 <= n_off): feats (V_in, C_in), grad (V_out, C_out),
+// rb_bwd (n_off, V_in) int32 of grad rows -> out (n_off, C_in, C_out)
+// f32; part (splits, n_off, C_in, C_out) f32 scratch when splits > 1
+extern "C" int taseg_sparse_conv_dw(const void* feats, const void* grad,
+                                    const void* rb_bwd, void* out, void* part,
+                                    int v_in, int c_in, int c_out, int n_off,
+                                    int splits, int rows_per_split, int dtype,
+                                    void* stream) {
+  const PairsOffsets pairs{static_cast<const int*>(rb_bwd), v_in};
+  return launch_dw(feats, grad, pairs, out, part, n_off, v_in, c_in, c_out,
+                   splits, rows_per_split, dtype,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // down (up = 0): x = fine feats (V_fine, C_in), y = coarse grad

@@ -25,6 +25,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .augment import AugParams
+from .cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .fusion_dataset import FusionPipeline
 from .semantickitti.reader import SemanticKittiReader
 from .synthetic import SyntheticKittiReader
@@ -284,7 +285,6 @@ class VoxelLoader:
 # pipeline kinds and modalities of the JAX package the port has not yet
 _KIND_NOT_PORTED = {
     "range": "Queue 1 item 6 (range-view family)",
-    "cylinder": "Queue 1 item 6 (Cylinder3D)",
     "kd": "Queue 1 item 5 (KD)",
     "mm": "Queue 1 item 5 (TIAF)",
 }
@@ -302,10 +302,12 @@ def build_dataloader(
     process_index: int = 0,
     process_count: int = 1,
 ) -> VoxelLoader:
-    """The `voxel` pipeline, or the `fusion` one (RPVNet: the voxel
-    sample, the DATA.H x DATA.W range image and the voxels' pixel
-    coordinates), over `build_reader`'s reader (JAX
-    `data/__init__.py:462`).  The point capacity defaults to JAX's,
+    """The `voxel` pipeline, the `fusion` one (RPVNet: the voxel sample,
+    the DATA.H x DATA.W range image and the voxels' pixel coordinates) or
+    the `cylinder` one (Cylinder_TS: the polar grid DATA.GRID_SIZE, else
+    CYLINDER_GRID_SIZE, else 480 x 360 x 32, with JAX's default
+    augmentation flags, as JAX builds it), over `build_reader`'s reader
+    (JAX `data/__init__.py:462`).  The point capacity defaults to JAX's,
     DATA.NUM_POINTS x scans_per_shard."""
     if pipeline_kind is None:
         dataset_name = str(data_cfgs.get("DATASET", "synthetic"))
@@ -321,7 +323,7 @@ def build_dataloader(
         raise _not_ported(
             f"the {pipeline_kind!r} pipeline", _KIND_NOT_PORTED[pipeline_kind]
         )
-    if pipeline_kind not in ("voxel", "fusion"):
+    if pipeline_kind not in ("voxel", "fusion", "cylinder"):
         raise NotImplementedError(f"pipeline kind {pipeline_kind!r}")
     reader = build_reader(data_cfgs, training)
     kw = dict(
@@ -335,6 +337,8 @@ def build_dataloader(
     )
     if pipeline_kind == "fusion":
         pipeline = FusionPipeline(h=data_cfgs.get("H", 64), w=data_cfgs.get("W", 2048), **kw)
+    elif pipeline_kind == "cylinder":
+        pipeline = CylinderPipeline(grid=grid_from_cfg(data_cfgs), training=training)
     else:
         pipeline = VoxelPipeline(**kw)
     cap = point_capacity or int(

@@ -10,15 +10,17 @@ per-raw-point logits and labels.  A batch goes through four stages:
 
   1. host:     VoxelPipeline(training=False) + collate_shard (numpy); for
                RPVNet the FusionPipeline, which adds each scan's range
-               image and its voxels' pixel coordinates;
+               image and its voxels' pixel coordinates; for Cylinder_TS
+               the CylinderPipeline (polar grid, majority labels);
   2. topology: build_unet_topology(assume_sorted_points=True), with the
                model's `point_voxel_strides` (SPVCNN's and RPVNet's point
                branch); for RPVNet also its point <-> range tables
                (`models.fusion.rpvnet.rpv_inputs`, JAX
-               `parallel/fusion_step.py:_unpack`);
+               `parallel/fusion_step.py:_unpack`); for Cylinder_TS
+               `build_cylinder_topology`;
   3. forward:  the model (`models.build_segmentor` on MODEL.NAME:
-               MinkUNet, SPVCNN or RPVNet) in eval mode, in the compute
-               dtype;
+               MinkUNet, SPVCNN, RPVNet or Cylinder_TS) in eval mode, in
+               the compute dtype (Cylinder_TS: f32);
   4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan.
 
 `Trainer`'s evaluation runs stages 2-4 through the same functions
@@ -47,11 +49,13 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .data.cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .data.fusion_dataset import FusionPipeline
 from .data.voxel_dataset import VoxelPipeline
 from .loss import Losses
 from .models.fusion.rpvnet import RpvInputs, rpv_inputs
 from .models.layers import seed_dropout
+from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology
 from .models import build_segmentor
 from .optim import build_optimizer
@@ -67,9 +71,9 @@ POINTS_PER_SCAN = 131072
 
 
 def check_capacity(topo, caps: UNetCapacities) -> list:
-    """The per-level voxel counts of a topology (or of an `RpvInputs`');
-    raises where one exceeds its capacity (the JAX engine only warns and
-    drops the excess voxels)."""
+    """The per-level voxel counts of a topology (a UNet topology, an
+    `RpvInputs`' or a `CylTopology`); raises where one exceeds its
+    capacity (the JAX engine only warns and drops the excess voxels)."""
     if isinstance(topo, RpvInputs):
         topo = topo.topo
     nums = torch.stack([l.num for l in topo.levels]).tolist()
@@ -109,9 +113,13 @@ def eval_mode(model: torch.nn.Module):
 
 
 def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int = 0):
-    """The host pipeline of `model`: the FusionPipeline (DATA.H x DATA.W
-    range images, 64 x 2048 by default) for a model that reads range
-    images (RPVNet), the VoxelPipeline otherwise."""
+    """The host pipeline of `model`: the CylinderPipeline for Cylinder_TS
+    (the polar grid DATA.GRID_SIZE, 480 x 360 x 32 by default, as JAX's
+    `build_dataloader`), the FusionPipeline (DATA.H x DATA.W range images,
+    64 x 2048 by default) for a model that reads range images (RPVNet),
+    the VoxelPipeline otherwise."""
+    if isinstance(model, CylinderTS):
+        return CylinderPipeline(grid=grid_from_cfg(cfg["DATA"]), training=training, seed=seed)
     kw = dict(
         voxel_size=cfg["DATA"]["VOXEL_SIZE"], training=training,
         in_feature_dim=cfg["MODEL"].get("IN_FEATURE_DIM", 4), seed=seed,
@@ -128,7 +136,13 @@ def model_topology(
     """Stage 2: the topology with the model's point -> voxel tables
     (`point_voxel_strides`), and the tables only the backward reads where
     `devox_pairs`; for a model that reads range images (RPVNet) an
-    `RpvInputs` that adds its point <-> range tables and the images."""
+    `RpvInputs` that adds its point <-> range tables and the images; for
+    Cylinder_TS its own `CylTopology` (JAX's `topology_fn`,
+    engine.py:272-284)."""
+    if isinstance(model, CylinderTS):
+        return build_cylinder_topology(
+            arrays["point_coords_t"], arrays["num_points_t"], caps, train=devox_pairs
+        )
     topo = build_unet_topology(
         arrays["point_coords_t"], arrays["num_points_t"], caps,
         devox_pairs=devox_pairs, assume_sorted_points=sorted_points,
@@ -157,7 +171,7 @@ def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
 
 class Segmenter:
     """Inference on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN or RPVNet).
+    (MinkUNet, SPVCNN, RPVNet or Cylinder_TS).
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
@@ -296,7 +310,7 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
 
 class Trainer:
     """The train step on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN or RPVNet), and the harness around it.
+    (MinkUNet, SPVCNN, RPVNet or Cylinder_TS), and the harness around it.
 
     cfg: dict with the YAML's layout (`configs.py`, or a `utils.config.
     Config`), including OPTIM; MODEL.TRAIN_CAPACITY_SCHEDULE, where
@@ -312,13 +326,14 @@ class Trainer:
     (`engine.py:179-193`); `total_epochs` defaults to OPTIM.NUM_EPOCHS.
 
     `step(scans)` runs, for `batch_size` reader dicts:
-      1. host:      VoxelPipeline(training=True) (RPVNet: FusionPipeline)
-                    with a numpy generator seeded by `seed`, then its
-                    collate;
+      1. host:      VoxelPipeline(training=True) (RPVNet: FusionPipeline,
+                    Cylinder_TS: CylinderPipeline) with a numpy generator
+                    seeded by `seed`, then its collate;
       2. topology:  `model_topology(devox_pairs=True)`: the train
                     topology with the model's point_voxel_strides, and
-                    RPVNet's point <-> range tables; a level over capacity
-                    raises;
+                    RPVNet's point <-> range tables (Cylinder_TS: its
+                    CylTopology with the reverse tables); a level over
+                    capacity raises;
       3. forward:   the model in train mode (masked batch statistics), then
                     the criterion (MODEL.LOSS_CONFIG: CE with label
                     smoothing + Lovász, ignore MODEL.IGNORE_LABEL);

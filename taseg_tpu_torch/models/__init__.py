@@ -5,10 +5,14 @@ from __future__ import annotations
 
 from .fusion.rpvnet import RPVNet
 from .fusion.spvcnn import SPVCNN
+from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
 
-# the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25)
-SEGMENTORS = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet}
+# the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25,
+# and Cylinder_TS of its SEGMENTORS)
+SEGMENTORS = {
+    "MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet, "Cylinder_TS": CylinderTS,
+}
 
 
 def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
@@ -17,14 +21,27 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`, and SPVCNN's
     `MULTI_SCALE`), defaults as in the JAX `build_segmentor`, which passes
     `BN_MOMENTUM` to MinkUNet and SPVCNN only and `MULTI_SCALE` to SPVCNN
-    only (RPVNet keeps momentum 0.1 and its 'concat' head).  A name the
-    port has not ported raises, listing those it has."""
+    only (RPVNet keeps momentum 0.1 and its 'concat' head).  Cylinder_TS
+    reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9) only, as JAX
+    (`models/__init__.py:58-64`), and runs in f32: another compute dtype
+    raises.  A name the port has not ported raises, listing those it
+    has."""
     m = cfg["MODEL"]
     name = m.get("NAME", "MinkUNet")
     if name not in SEGMENTORS:
         raise ValueError(
             f"MODEL.NAME {name!r} is not ported (ROADMAP Queue 1); the port "
             f"builds {sorted(SEGMENTORS)}"
+        )
+    if name == "Cylinder_TS":
+        dtype = compute_dtype or m.get("COMPUTE_DTYPE", "float32")
+        if dtype != "float32":
+            raise ValueError(
+                f"Cylinder_TS runs in float32, as the JAX model; got {dtype!r}"
+            )
+        return CylinderTS(
+            num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 9),
+            init_size=m.get("INIT_SIZE", 32), device=device,
         )
     kw = dict(
         num_classes=m["NUM_CLASS"],
@@ -44,4 +61,4 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     return SEGMENTORS[name](**kw)
 
 
-__all__ = ["MinkUNet", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]
+__all__ = ["CylinderTS", "MinkUNet", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]

@@ -13,24 +13,29 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.sparse_conv import k3_conv
+from ..ops.sparse_conv import conv_k, k3_conv
 from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 
 
 class SparseConv(nn.Module):
     """Sparse conv with weights (K, C_in, C_out); K = 1 is a plain matmul.
 
-    Called with a (27, V) rulebook, or a tuple (rulebook, flipped
-    rulebook, K4's pair lists) where a gradient is wanted, it runs the
-    stride-1 conv (K2, backward K2 + K4); with `StridedTables` the
-    ks=2/stride=2 pair (K3, backward K3 + K5), `transposed` picking the
-    direction.  The weight is cast to the activation dtype first, so a
-    bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
-    comes back in that dtype."""
+    K = 27, called with a (27, V) rulebook, or a tuple (rulebook, flipped
+    rulebook, K4's pair lists) where a gradient is wanted: the stride-1
+    3^3 conv (K2, backward K2 + K4; JAX's F3 and TGF routes).  With
+    `StridedTables` the ks=2/stride=2 pair (K3, backward K3 + K5),
+    `transposed` picking the direction.  Any other K, called with a
+    (K, V_out) rulebook, or a tuple (rb_fwd, rb_bwd) of the two
+    directions' tables where a gradient is wanted: the conv over K
+    offsets (K2 at K, backward K2 + K4 at K; JAX's `sparse_conv_apply`).  `transposed` also sets the init's fan (C_out,
+    JAX layers.py:96).  The weight is cast to the activation dtype first,
+    so a bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
+    comes back in that dtype.  `use_bias` adds a (C_out,) f32 bias after
+    the conv, as JAX's `use_bias` (a bf16 output is promoted, as there)."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int,
-        transposed: bool = False, device=None,
+        transposed: bool = False, use_bias: bool = False, device=None,
     ):
         super().__init__()
         self.in_channels = in_channels
@@ -43,6 +48,10 @@ class SparseConv(nn.Module):
             else (kernel_volume, in_channels, out_channels)
         )
         self.kernel = nn.Parameter(torch.empty(shape, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+        else:
+            self.bias = None
 
     @property
     def fan(self) -> int:
@@ -50,16 +59,21 @@ class SparseConv(nn.Module):
         return self.out_channels if self.transposed else self.in_channels
 
     def forward(self, feats: torch.Tensor, rulebook=None) -> torch.Tensor:
+        out = self._conv(feats, rulebook)
+        return out if self.bias is None else out + self.bias
+
+    def _conv(self, feats: torch.Tensor, rulebook) -> torch.Tensor:
         w = self.kernel.to(feats.dtype)
         if self.kernel_volume == 1:
             return feats @ w
         if isinstance(rulebook, StridedTables):
             apply = upsample_conv if self.transposed else downsample_conv
             return apply(feats, w.contiguous(), rulebook)
-        if self.kernel_volume != 27:
-            raise ValueError("only 27-point rulebook convs are supported")
-        rb, rb_bwd, pairs = rulebook if isinstance(rulebook, tuple) else (rulebook, None, None)
-        return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
+        if self.kernel_volume == 27:
+            rb, rb_bwd, pairs = rulebook if isinstance(rulebook, tuple) else (rulebook, None, None)
+            return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
+        rb, rb_bwd = rulebook if isinstance(rulebook, tuple) else (rulebook, None)
+        return conv_k(feats, w.contiguous(), rb, rb_bwd)
 
 
 class Dense(nn.Module):

@@ -20,7 +20,11 @@ direction).  K1 (`join_scan`) launches one kernel per call; K4 (`k3_conv_dw`), K
 reduction, K6's merge of chunk partials) included; K7 (`devoxelize`)
 launches one kernel per call, trilinear, bilinear or identity, and
 `devoxelize_bilinear` counts again those at 4 corners (RPVNet's
-`range_to_point`); K8 (`voxelize_bwd`) launches one per call.
+`range_to_point`); K8 (`voxelize_bwd`) launches one per call.  K2 at K
+offsets (`sparse_conv`, Cylinder3D's convs) counts under its own
+`sparse_conv_k` (`_mma`, `_dgrad`, `_dgrad_mma` as K2's), so K2's
+27-offset counts stay those of the 3^3 convs; K4 at K offsets
+(`sparse_conv_dw`) counts one per call, its split reduction included.
 """
 
 from __future__ import annotations
@@ -66,6 +70,11 @@ LAUNCHES = {
     "devoxelize": 0,
     "devoxelize_bilinear": 0,
     "voxelize_bwd": 0,
+    "sparse_conv_k": 0,
+    "sparse_conv_k_mma": 0,
+    "sparse_conv_k_dgrad": 0,
+    "sparse_conv_k_dgrad_mma": 0,
+    "sparse_conv_dw": 0,
 }
 
 _P = ctypes.c_void_p
@@ -88,6 +97,9 @@ _SIGNATURES = {
     "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
     "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_k_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -17,6 +17,14 @@ kernel over rb_bwd.  On CPU tensors both run their plain versions
 (`f3_bwd_fused_plain`).  d_W comes back in the weight's dtype, as
 `_tgf_vjp_bwd` returns it (`d_w.astype(weight.dtype)`): with a bf16
 weight it is rounded once to bf16.
+
+The conv over K offsets (`sparse_conv.conv_k`, JAX sparse_conv.py:157
+`_conv_vjp_bwd`) has the same backward over its reverse table rb_bwd
+(K, V_in) of cotangent rows (`sparse_conv_bwd`): d_feats through K2 at K
+offsets on (g, W^T, rb_bwd), d_W through K4 at K offsets
+(`sparse_conv_dw`, `csrc/conv_dw.cu`), where g has V_out rows and feats
+V_in.  K4 at K offsets has the CUDA-core route only, over rb_bwd itself
+(Cylinder3D, its one user, runs in f32), so it reads no pair lists.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .sparse_conv import DTYPE_CODES, sparse_conv_k3, sparse_conv_plain
+from .sparse_conv import DTYPE_CODES, sparse_conv, sparse_conv_k3, sparse_conv_plain
 
 # split-K rule of K4 and K5 (csrc/conv_dw.cu): at least 4 blocks per SM
 # of the H100's 132, at least 1024 rows per split, at most 64 MiB of f32
@@ -144,8 +152,10 @@ def launch_dw(name: str, counter: str, ptrs: tuple, shape: tuple,
 def k3_conv_dw_plain(
     feats: torch.Tensor, grad: torch.Tensor, rb_bwd: torch.Tensor
 ) -> torch.Tensor:
-    """d_W (27, C_in, C_out) f32: per offset, feats^T @ the gathered grad
-    rows (zero where rb_bwd is -1), f32 products and sums."""
+    """d_W (K, C_in, C_out) f32: per offset, feats^T @ the gathered grad
+    rows (zero where rb_bwd is -1), f32 products and sums; the plain
+    version of K4 (K = 27) and of K4 at K offsets, where grad has its own
+    row count."""
     f = feats.float().t()
     out = []
     for k in range(rb_bwd.shape[0]):
@@ -271,3 +281,51 @@ def f3_bwd_fused(
         w_t = weight.transpose(1, 2).contiguous()
         d_feats = sparse_conv_k3(g, w_t, rb_bwd, dgrad=True)
     return d_feats, k3_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)
+
+
+def sparse_conv_dw(
+    feats: torch.Tensor, grad: torch.Tensor, rb_bwd: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K4 at K offsets: feats (V_in, C_in), grad (V_out, C_out) in one
+    dtype, rb_bwd (K, V_in) int32 of grad rows -> d_W (K, C_in, C_out),
+    summed in f32 and rounded once to `out_dtype`.  Deterministic: the
+    same inputs give the same bits."""
+    dev = feats.device
+    _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
+    _build.check("grad", grad, (feats.dtype,), 2, dev)
+    _build.check("rb_bwd", rb_bwd, (torch.int32,), 2, dev)
+    v_in, c_in = feats.shape
+    c_out = grad.shape[1]
+    k = rb_bwd.shape[0]
+    if rb_bwd.shape[1] != v_in or not 1 <= k <= 32:
+        raise ValueError(
+            f"shapes do not fit: feats {tuple(feats.shape)}, grad "
+            f"{tuple(grad.shape)}, rb_bwd {tuple(rb_bwd.shape)} (1 <= K <= 32)"
+        )
+    if not _build.dispatch(feats):
+        return k3_conv_dw_plain(feats, grad, rb_bwd).to(out_dtype)
+    if v_in == 0 or c_in == 0 or c_out == 0 or grad.shape[0] == 0:
+        return torch.zeros((k, c_in, c_out), dtype=out_dtype, device=dev)
+    out = launch_dw(
+        "taseg_sparse_conv_dw", "sparse_conv_dw",
+        (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
+        (v_in, c_in, c_out, k), v_in, k, feats.dtype, dev,
+    )
+    return out.to(out_dtype)
+
+
+def sparse_conv_bwd(
+    feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
+    rb_bwd: torch.Tensor, *, need_feats: bool = True,
+):
+    """(d_feats or None, d_W) of the conv over K offsets for the cotangent
+    `grad` (V_out, C_out): d_feats (V_in, C_in) through K2 at K offsets
+    on (grad, W^T, rb_bwd), counted as a `sparse_conv_k_dgrad` launch; d_W
+    through K4 at K offsets, in weight's dtype."""
+    g = grad.to(feats.dtype)
+    d_feats = None
+    if need_feats:
+        w_t = weight.transpose(1, 2).contiguous()
+        d_feats = sparse_conv(g, w_t, rb_bwd, dgrad=True)
+    return d_feats, sparse_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype)

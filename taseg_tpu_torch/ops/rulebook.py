@@ -3,7 +3,9 @@
 
 For every kernel offset k and output voxel v the table holds the index of
 the contributing input voxel or -1: a dense (K, V_out) int32 table, in
-torchsparse's offset order (`nn/utils/kernel.py:11-32`).
+torchsparse's offset order (`nn/utils/kernel.py:11-32`); between two
+levels (a pooling conv) `build_reverse_rulebook` gives the table of the
+other direction.
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def build_rulebook(
     bounds: GridBounds,
 ) -> torch.Tensor:
     """Dense rulebook: idx[k, v] = input voxel index at out_coords[v] +
-    offsets[k], or -1 (one join per offset; the test oracle of
-    `build_rulebook_k3`)."""
+    offsets[k], or -1 (one join over all K offsets' queries; the test
+    oracle of `build_rulebook_k3`, and the table of Cylinder3D's convs
+    of any kernel shape)."""
     k = offsets.shape[0]
     vo = out_coords.shape[0]
     dev = out_coords.device
@@ -194,3 +197,21 @@ def build_rulebook_k3(
         cols[base + 3] = rc[gi]
         cols[base + 6] = rp[gi]
     return torch.stack(cols).to(torch.int32)
+
+
+def build_reverse_rulebook(
+    in_coords: torch.Tensor,
+    num_in: torch.Tensor,
+    out_coords: torch.Tensor,
+    num_out: torch.Tensor,
+    offsets: np.ndarray,
+    bounds: GridBounds,
+) -> torch.Tensor:
+    """Reverse table of a conv between two levels: t[k, i] = the output
+    voxel paired with input i under offset k, i.e. the o with out[o] ==
+    in[i] - d_k, or -1 (JAX rulebook.py:213): `build_rulebook` on the
+    negated offsets.  It is the gradient table of the forward conv and the
+    forward table of the matching transposed conv."""
+    return build_rulebook(
+        in_coords, num_in, out_coords, num_out, -np.asarray(offsets), bounds
+    )

@@ -1,6 +1,7 @@
-"""Stride-1 27-offset sparse conv forward (K2) — the port's counterpart of
-`taseg_tpu/ops/tgf.py:tgf_conv_apply` (the main path's conv) and of the
-oracle `taseg_tpu/ops/sparse_conv.py:sparse_conv_apply`.
+"""Sparse conv forward (K2) — the port's counterpart of
+`taseg_tpu/ops/tgf.py:tgf_conv_apply` (the stride-1 27-offset conv of
+the MinkUNet path) and of `taseg_tpu/ops/sparse_conv.py:137
+sparse_conv_apply` (the conv over any kernel volume, Cylinder3D's).
 
 With a dense (27, V) rulebook the output row of voxel v is
 
@@ -21,6 +22,17 @@ The port takes the rulebook directly and builds no TGF tables.
 custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its backward runs
 `f3conv.f3_bwd_fused` over the flipped rulebook `flip_rulebook(rb)` and
 K4's pair lists, which the topology builds once per level and step.
+
+`sparse_conv` is K2 at K <= 32 offsets with a (K, V_out) rulebook over
+V_in input rows (V_in != V_out between two levels), counted under
+`sparse_conv_k`; `conv_k` its differentiable form (`SparseConvK`, the
+counterpart of the custom VJP `_conv_vjp_fwd` / `_conv_vjp_bwd`, JAX
+sparse_conv.py:153-201): d_feats is `sparse_conv` on (g, W^T, rb_bwd),
+pairing rb_bwd[k] with W[k], and d_W is K4 at K offsets
+(`f3conv.sparse_conv_dw`) over the same reverse table.  rb_bwd is the
+table of the other direction: `flip_rulebook(rb)` for an odd kernel on
+one coordinate set, the down / up table pair (`rulebook.build_rulebook`
+and `build_reverse_rulebook`) between two levels.
 """
 
 from __future__ import annotations
@@ -58,7 +70,7 @@ def sparse_conv_plain(
 
 def flip_rulebook(rb: torch.Tensor) -> torch.Tensor:
     """Reverse table of a same-coordinate-set odd-kernel rulebook (JAX
-    sparse_conv.py:207): offset k -> 26 - k negates the offset, so
+    sparse_conv.py:207): offset k -> K - 1 - k negates the offset, so
     flip(rb)[k, i] = v  <=>  rb[k, v] = i."""
     return rb.flip(0).contiguous()
 
@@ -152,3 +164,88 @@ def k3_conv(
             )
         return K3Conv.apply(feats, weight, rb, rb_bwd, pairs)
     return sparse_conv_k3(feats, weight, rb)
+
+
+def sparse_conv(
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    *, dgrad: bool = False,
+) -> torch.Tensor:
+    """K2 at K offsets: feats (V_in, C_in), weight (K, C_in, C_out) in
+    feats' dtype, rb (K, V_out) int32 of feats rows (-1: none), 1 <= K <=
+    32 -> (V_out, C_out) in feats' dtype, summed in f32 and rounded once.
+    `dgrad` marks an input-gradient call (counted again under
+    `sparse_conv_k_dgrad`)."""
+    dev = feats.device
+    _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
+    _build.check("weight", weight, (feats.dtype,), 3, dev)
+    _build.check("rb", rb, (torch.int32,), 2, dev)
+    k, v_out = rb.shape
+    c_in = feats.shape[1]
+    if weight.shape[:2] != (k, c_in) or not 1 <= k <= 32:
+        raise ValueError(
+            f"shapes do not fit: feats {tuple(feats.shape)}, weight "
+            f"{tuple(weight.shape)}, rb {tuple(rb.shape)} (1 <= K <= 32)"
+        )
+    if not _build.dispatch(feats):
+        return sparse_conv_plain(feats, weight, rb)
+    c_out = weight.shape[2]
+    out = torch.empty((v_out, c_out), dtype=feats.dtype, device=dev)
+    if v_out == 0 or c_out == 0:
+        return out
+    if c_in == 0 or feats.shape[0] == 0:
+        return out.zero_()
+    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr())
+    if route(feats.dtype, c_in, c_out) == "mma":
+        _build.check_aligned(feats=feats, weight=weight)
+        _build.launch(
+            "taseg_sparse_conv_k_mma",
+            _build.counters("sparse_conv_k", dgrad=dgrad, mma=True),
+            *ptrs, v_out, c_in, c_out, k,
+        )
+    else:
+        _build.launch(
+            "taseg_sparse_conv_k", _build.counters("sparse_conv_k", dgrad=dgrad),
+            *ptrs, v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
+        )
+    return out
+
+
+class SparseConvK(torch.autograd.Function):
+    """`sparse_conv` with its gradient (JAX `_conv_vjp_bwd`).  Saves feats
+    and weight; rb_bwd (K, V_in) is held by reference.  No d_feats where
+    feats need none."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, rb, rb_bwd):
+        ctx.save_for_backward(feats, weight)
+        ctx.rb_bwd = rb_bwd
+        return sparse_conv(feats, weight, rb)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .f3conv import sparse_conv_bwd
+
+        feats, weight = ctx.saved_tensors
+        d_feats, d_w = sparse_conv_bwd(
+            feats, weight, grad.contiguous(), ctx.rb_bwd,
+            need_feats=ctx.needs_input_grad[0],
+        )
+        return d_feats, d_w, None, None
+
+
+def conv_k(
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    rb_bwd: torch.Tensor = None,
+) -> torch.Tensor:
+    """The conv over K offsets, differentiable where autograd asks for a
+    gradient (then rb_bwd, the (K, V_in) table of the other direction, is
+    required: `flip_rulebook(rb)` for an odd kernel on one level, as JAX's
+    layer takes it), else the plain `sparse_conv` call."""
+    if wants_grad(feats, weight):
+        if rb_bwd is None:
+            raise ValueError(
+                "a gradient of this conv needs its reverse rulebook: build the "
+                "topology in its train form"
+            )
+        return SparseConvK.apply(feats, weight, rb, rb_bwd)
+    return sparse_conv(feats, weight, rb)

@@ -15,6 +15,10 @@
     their backwards are segment sums, over the point tables or over the
     (corner, point) pair table `DevoxTable.pairs`.
 
+`segment_max` is Cylinder3D's max-pooled voxelization (JAX
+`jax.ops.segment_max` in `models/voxel/cylinder3d.py:236`, an XLA
+scatter), in plain torch with JAX's gradient (`SegmentMax`).
+
 Every segment sum (the voxelize forward and both devoxelize backwards)
 is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`, members
 spread over lanes in fixed-size chunks and summed in a fixed order) on
@@ -427,3 +431,37 @@ def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
     if identity:
         return devoxelize_identity(voxel_feats, table.inverse)
     return devoxelize_trilinear(voxel_feats, table)
+
+
+class SegmentMax(torch.autograd.Function):
+    """`jax.ops.segment_max` with JAX's gradient.  Forward: per segment
+    the max over its member rows, -inf for a segment with no member
+    (`scatter_reduce(amax)` over a -inf fill).  Backward: the segment's
+    cotangent goes to every member equal to the segment's max, divided by
+    the number of such members, as JAX's scatter-max gradient splits ties
+    (torch's own `amax` backward counts the fill value as a tie)."""
+
+    @staticmethod
+    def forward(ctx, x, seg, num_segments):
+        idx = seg.long()[:, None].expand_as(x)
+        out = torch.full(
+            (num_segments, x.shape[1]), float("-inf"), dtype=x.dtype, device=x.device
+        ).scatter_reduce(0, idx, x, "amax", include_self=True)
+        ctx.save_for_backward(x, idx, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, out = ctx.saved_tensors
+        top = out.gather(0, idx)
+        hit = x == top
+        n = torch.zeros_like(out).scatter_add_(0, idx, hit.to(out.dtype))
+        share = g * (1.0 / n.clamp(min=1.0))  # JAX multiplies by 1 / count
+        return torch.where(hit, share.gather(0, idx), 0.0), None, None
+
+
+def segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(num_segments, C): per segment id in `seg` (P,), in [0,
+    num_segments), the max of its rows of x (P, C); -inf where a segment
+    has no row (JAX `jax.ops.segment_max`)."""
+    return SegmentMax.apply(x, seg, num_segments)

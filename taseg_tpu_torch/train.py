@@ -9,9 +9,9 @@ batch-size / epoch overrides.  Outputs go to
 ckpt/checkpoint_epoch_<n>, metrics/); a run resumes from the newest
 checkpoint there.  One process drives one device: `--device` (default
 cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
-on the `voxel` pipeline, RPVNet on the `fusion` one (as JAX
-`train.py:102-107` picks it); several processes (`--distributed`, DDP)
-wait for ROADMAP Queue 1 item 3.
+on the `voxel` pipeline, RPVNet on the `fusion` one and Cylinder_TS on the
+`cylinder` one (as JAX `train.py:102-107` picks them, by model name);
+several processes (`--distributed`, DDP) wait for ROADMAP Queue 1 item 3.
 
     python -m taseg_tpu_torch.train \\
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml --epochs 1
@@ -64,16 +64,26 @@ def parse_args(argv=None):
 def check_ported(cfg) -> str:
     """The recipe's MODALITY, where the port trains its model; raises
     otherwise.  The JAX CLI runs SPVCNN (MODALITY fusion) as the `voxel`
-    kind, on the voxel pipeline, and RPVNet on the `fusion` pipeline (JAX
+    kind, on the voxel pipeline, RPVNet on the `fusion` pipeline and
+    Cylinder_TS (MODALITY voxel or cylinder) on the `cylinder` one (JAX
     engine.py:164-176, train.py:101-107)."""
     modality = str(cfg.get("MODALITY", "voxel"))
     name = cfg["MODEL"]["NAME"]
-    if name not in SEGMENTORS or modality not in ("voxel", "fusion"):
+    ok = ("voxel", "fusion", "cylinder") if name == "Cylinder_TS" else ("voxel", "fusion")
+    if name not in SEGMENTORS or modality not in ok:
         raise NotImplementedError(
             f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 items 5-6; "
-            f"the port trains {sorted(SEGMENTORS)} on the voxel and fusion pipelines"
+            f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion and "
+            f"cylinder pipelines"
         )
     return modality
+
+
+def pipeline_kind(cfg) -> str:
+    """The host pipeline by model name, as JAX `train.py:102-107`:
+    `cylinder` for Cylinder_TS, `fusion` for RPVNet, else None (the
+    modality's)."""
+    return {"Cylinder_TS": "cylinder", "RPVNet": "fusion"}.get(cfg.MODEL["NAME"])
 
 
 def main(argv=None) -> None:
@@ -88,7 +98,7 @@ def main(argv=None) -> None:
         cfg.DATA["SEQUENCES"] = [args.seq]
         cfg.DATA["EVAL_SPLIT"] = "test" if args.seq >= 11 else "val"
     modality = check_ported(cfg)
-    kind = "fusion" if cfg.MODEL["NAME"] == "RPVNet" else None
+    kind = pipeline_kind(cfg)
 
     out_dir = Path("output") / cfg.TAG / args.extra_tag
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,12 +1,13 @@
 """Weights between the JAX package's flax trees and the port's models
-(MinkUNet, SPVCNN, RPVNet).
+(MinkUNet, SPVCNN, RPVNet, Cylinder_TS).
 
 `load_flax_params(model, params, batch_stats)` fills a torch model
 from the flax `params` and `batch_stats` trees given as nested dicts of
 numpy arrays, with the names `model.init` gives (`stem_0/SparseConv_0/
 kernel`, `stage1_0/MaskedBatchNorm_1/scale`, `classifier/kernel`,
 SPVCNN's `point_transform_0/Dense_0/kernel`, RPVNet's
-`range_stem/ResContextBlock_0/ConvActBN_0/Conv_0/kernel`, ...).  Sparse
+`range_stem/ResContextBlock_0/ConvActBN_0/Conv_0/kernel`, Cylinder_TS's
+`downCntx/a_conv0/kernel` and `logits/bias`, ...).  Sparse
 conv, 2D conv and Dense kernels are (K, C_in, C_out), (kh, kw, C_in,
 C_out) and (C_in, C_out) on both sides, so nothing is transposed.  Every
 key on either side must be matched, or it raises.
@@ -16,7 +17,8 @@ and BN running statistics back to the two flax-shaped numpy trees.
 
 `init_params_numpy(cfg, seed)` draws trees of the same names and shapes
 from numpy with the flax init distributions (JAX layers.py:68-76:
-uniform(+-1/sqrt(fan*K)) for convs, lecun_uniform for MinkUNet's head,
+uniform(+-1/sqrt(fan*K)) for convs and a sparse conv's bias,
+lecun_uniform for MinkUNet's head,
 flax's default Dense and Conv init (lecun_normal: a normal truncated at 2
 standard deviations over the fan-in, kh * kw * C_in for a 2D conv, zero
 bias) for the Dense layers and RPVNet's range branch, ones and zeros for
@@ -114,6 +116,10 @@ def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
             params[f"{path}/kernel"] = rng.uniform(
                 -std, std, tuple(m.kernel.shape)
             ).astype(np.float32)
+            if m.bias is not None:
+                params[f"{path}/bias"] = rng.uniform(
+                    -std, std, tuple(m.bias.shape)
+                ).astype(np.float32)
         elif isinstance(m, Conv):
             kh, kw, ci, co = m.kernel.shape
             params[f"{path}/kernel"] = lecun_normal(rng, kh * kw * ci, (kh, kw, ci, co))

@@ -29,6 +29,12 @@ same bits, signed zeros included, at 8 corners and at 4 (RPVNet's
 bilinear sample of the range image); so is K8 (`voxelize_bwd`), the
 gradient of the voxelize mean.  A small SPVCNN f32 step on the card is
 held against the CPU's.
+
+K2 and K4 at K offsets (`sparse_conv`, `sparse_conv_dw`; Cylinder3D's
+convs at K = 9, 3, 8 and 4, between two levels for the pooling and
+transposed convs) are held as K2 and K4 are; the autograd Function of
+the conv over K offsets, `segment_max` and a small Cylinder_TS f32 step
+on the card against the CPU.
 """
 
 from dataclasses import replace
@@ -957,3 +963,149 @@ def test_harness_eval_equals_segmenter(cuda, tmp_path, dtype):
         assert np.array_equal(logits.view(np.uint32), o["logits"].view(np.uint32))
         raw = np.fromfile(f.with_suffix(".label"), np.uint32)
         np.testing.assert_array_equal(LEARNING_MAP_LUT[raw], o["labels"])
+
+
+# ------------------------------------ K2 and K4 at K offsets (Cylinder3D)
+def _k_tables(dev, kind, seed=61):
+    """(rb, rb_bwd, V_in) of a conv over K offsets on a random level:
+    `asym9` a (1,3,3) conv on the level (K = 9), `recon3` a (1,1,3) conv
+    (K = 3), `down8` / `down4` the pooling conv into the level at step
+    (2,2,2) / (2,2,1) (V_in the finer level's rows, V_out the coarser
+    one's), `up8` / `up4` its transposed conv (the reverse table)."""
+    _, u, num, b = _level(dev, seed=seed)
+    if kind in ("asym9", "recon3"):
+        offs = tr.kernel_offsets((1, 3, 3) if kind == "asym9" else (1, 1, 3))
+        rb = tr.build_rulebook(u, num, u, num, offs, b)
+        return rb, tsc.flip_rulebook(rb), u.shape[0]
+    step = (2, 2, 2) if kind.endswith("8") else (2, 2, 1)
+    cu, cn = tr.spdownsample(u, num, step, 1, b, 2048)
+    offs = tr.kernel_offsets(step)
+    down = tr.build_rulebook(cu, cn, u, num, offs, b)
+    up = tr.build_reverse_rulebook(u, num, cu, cn, offs, b)
+    return (down, up, u.shape[0]) if kind.startswith("down") else (up, down, cu.shape[0])
+
+
+K_KINDS = ("asym9", "recon3", "down8", "down4", "up8", "up4")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", K_KINDS)
+@pytest.mark.parametrize("c_in,c_out", [(16, 32), (37, 20), (128, 64), (768, 512)])
+def test_sparse_conv_k_kernel(cuda, dtype, kind, c_in, c_out):
+    """K2 at K offsets against its plain version (f32 within 1e-5 of the
+    largest sum of |terms|, bf16 plus one rounding), on both routes; one
+    `sparse_conv_k` launch, none under K2's 27-offset counter."""
+    rng = np.random.default_rng(c_in + c_out)
+    rb, _, v_in = _k_tables(cuda, kind)
+    x = _rand(rng, (v_in, c_in), cuda, dtype)
+    w = _rand(rng, (rb.shape[0], c_in, c_out), cuda, dtype)
+    _build.reset_launches()
+    got = tsc.sparse_conv(x, w, rb)
+    mma = tsc.route(dtype, c_in, c_out) == "mma"
+    assert (_build.LAUNCHES["sparse_conv_k"], _build.LAUNCHES["sparse_conv_k_mma"]) == (1, int(mma))
+    assert _build.LAUNCHES["sparse_conv_k3"] == 0
+    assert got.shape == (rb.shape[1], c_out)
+    _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), dtype, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", K_KINDS)
+@pytest.mark.parametrize("c_in,c_out", [(16, 32), (37, 20), (768, 512)])
+def test_sparse_conv_dw_kernel(cuda, dtype, kind, c_in, c_out):
+    """K4 at K offsets against its plain version within 1e-4 of the
+    largest sum of |terms|, V_in != V_out for the pooling convs; the same
+    bits on a repeat call; one `sparse_conv_dw` launch per call."""
+    rng = np.random.default_rng(c_in * 3 + c_out)
+    rb, rb_bwd, v_in = _k_tables(cuda, kind)
+    x = _rand(rng, (v_in, c_in), cuda, dtype)
+    g = _rand(rng, (rb.shape[1], c_out), cuda, dtype)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd))
+    assert _build.LAUNCHES["sparse_conv_dw"] == 2 and _build.LAUNCHES["k3_conv_dw"] == 0
+    assert got.dtype == torch.float32 and got.shape == (rb.shape[0], c_in, c_out)
+    _close(got, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd),
+           torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("kind", K_KINDS)
+def test_conv_k_gradient_card_equals_cpu(cuda, kind):
+    """`conv_k`'s autograd Function on the card (K2 at K forward and
+    input gradient, K4 at K) against the same on the CPU (the plain
+    versions): d_feats within 1e-5 and d_W within 1e-4 of their scale."""
+    rng = np.random.default_rng(5)
+    rb, rb_bwd, v_in = _k_tables(cuda, kind)
+    x0 = rng.normal(size=(v_in, 24)).astype(np.float32)
+    w0 = rng.normal(size=(rb.shape[0], 24, 40)).astype(np.float32)
+    g0 = rng.normal(size=(rb.shape[1], 40)).astype(np.float32)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.tensor(x0, device=dev, requires_grad=True)
+        w = torch.tensor(w0, device=dev, requires_grad=True)
+        _build.reset_launches()
+        out = tsc.conv_k(x, w, rb.to(dev), rb_bwd.to(dev))
+        out.backward(torch.tensor(g0, device=dev))
+        res[dev.type] = [t.detach().cpu() for t in (out, x.grad, w.grad)], dict(_build.LAUNCHES)
+    (got, launches), (want, none) = res["cuda"], res["cpu"]
+    assert (launches["sparse_conv_k"], launches["sparse_conv_k_dgrad"], launches["sparse_conv_dw"]) == (2, 1, 1)
+    assert not any(none.values())
+    for a, b, rel in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        assert (a - b).abs().max() <= rel * b.abs().max()
+
+
+def test_segment_max_card_equals_cpu(cuda):
+    """`segment_max` and its gradient on the card against the CPU, with
+    ties and empty segments: the same values and the same gradient."""
+    rng = np.random.default_rng(3)
+    x0 = rng.integers(-3, 3, size=(4000, 16)).astype(np.float32)
+    seg0 = rng.integers(0, 1200, 4000)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.tensor(x0, device=dev, requires_grad=True)
+        out = tvx.segment_max(x, torch.tensor(seg0, device=dev), 1300)
+        out = torch.where(torch.isfinite(out), out, 0.0)
+        (out * torch.arange(16, device=dev)).sum().backward()
+        res.append((out.detach().cpu(), x.grad.cpu()))
+    assert torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1])
+
+
+def test_cylinder_small_step_card_equals_cpu(cuda):
+    """2 f32 Cylinder_TS train steps (the tiny recipe: INIT_SIZE 4, a 64 x
+    64 x 16 grid, one synthetic scan) on the card and on the CPU: the
+    loss within 1e-4 relative, the grad norm within 1e-3 and the updates
+    within 3e-2 of the update's L2 norm; per step 47 K2-at-K forwards and
+    47 input gradients, 47 K4-at-K calls, the head's K2 and K4 at 27."""
+    from taseg_tpu_torch.configs import CYLINDER_TINY
+    from taseg_tpu_torch.data.synthetic import synthetic_scan
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
+
+    cfg = CYLINDER_TINY
+    pts, labels = synthetic_scan(np.random.default_rng(7), 4000)
+    scan = {"xyzret": np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1), "labels": labels}
+    p0, s0 = init_params_numpy(cfg, seed=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, {"params": p0, "batch_stats": s0}, dev, iters_per_epoch=1,
+                     total_epochs=4, point_capacity=4096)
+        _build.reset_launches()
+        outs = [tr.step([scan]) for _ in range(2)]
+        runs[dev] = outs, export_flax_params(tr.model)[0], dict(_build.LAUNCHES)
+    (g_out, g_par, g_n), (c_out, c_par, c_n) = runs["cuda"], runs["cpu"]
+    assert not any(c_n.values())
+    want = {"sparse_conv_k": 188, "sparse_conv_k_dgrad": 94, "sparse_conv_dw": 94,
+            "sparse_conv_k3": 4, "sparse_conv_k3_dgrad": 2, "k3_conv_dw": 2}
+    assert {k: g_n[k] for k in want} == want
+    for g, c in zip(g_out, c_out):
+        assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+        assert g["grad_norm"] == pytest.approx(c["grad_norm"], rel=1e-3)
+
+    def flat(t, pre=""):
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, pre + k + "/") if isinstance(v, dict) else {pre + k: np.asarray(v, np.float64)})
+        return out
+
+    a, b, z = flat(g_par), flat(c_par), flat(p0)
+    diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+    upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
+    assert diff <= 3e-2 * upd, diff / upd

@@ -165,6 +165,8 @@ def test_launch_counters_have_the_route_entries():
         "strided_up_dgrad", "strided_up_dgrad_mma",
         "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
         "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
+        "sparse_conv_k", "sparse_conv_k_mma", "sparse_conv_k_dgrad",
+        "sparse_conv_k_dgrad_mma", "sparse_conv_dw",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())

@@ -321,8 +321,8 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="Cylinder_TS.*'MinkUNet', 'RPVNet', 'SPVCNN'"):
-        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "Cylinder_TS"}}, device="cpu")
+    with pytest.raises(ValueError, match="MinkUNetMsMm.*'Cylinder_TS', 'MinkUNet', 'RPVNet', 'SPVCNN'"):
+        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMm"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")
     p, s = init_params_numpy(CFG, seed=0)
@@ -345,8 +345,8 @@ def test_cli_takes_the_spvcnn_recipe():
     assert isinstance(m, SPVCNN) and m.classifier.kernel.shape == (256 + 128 + 96, 20)
     assert m.point_transform_0.Dense_0.kernel.shape == (32, 256)
     assert check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "RPVNet"}}) == "fusion"
-    with pytest.raises(NotImplementedError, match="Cylinder_TS"):
-        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "Cylinder_TS"}})
+    with pytest.raises(NotImplementedError, match="MinkUNetMsMm"):
+        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "MinkUNetMsMm"}})
     with pytest.raises(NotImplementedError, match="range"):
         check_ported({**cfg, "MODALITY": "range"})
 
