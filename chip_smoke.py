@@ -86,19 +86,21 @@ them:
      time per step;
   5e. Cylinder_TS cy480 cr1.0 at full width (INIT_SIZE 32, the 480 x
      360 x 32 polar grid) in f32: `Segmenter.predict` with every launch
-     counted (per scan K2 at K offsets 47, K2 at 27 one (the head), K1
-     22, nothing else), finite logits of the right shape, the level
-     counts beside their capacities, the small-scan card f32 logits
-     against the CPU, serving ms per scan by stage and each kernel's
-     device time per scan; K2 at K and at 27 at every call of a real
-     forward against their plain versions (and once in bf16, the
-     tensor-core route, at the same shapes); the input and weight
-     gradients (K2 at K, K4 at K, the head's K2 and K4 at 27) at every
-     call of a real step, K4 bit-identical on repeat; a small-scan f32
+     counted (per scan K2 at K offsets 48, the 3^3 head's among them, all
+     on the 3xTF32 route, K1 22, nothing else), finite logits of the
+     right shape, the level counts beside their capacities, the
+     small-scan card f32 logits against the CPU, serving ms per scan by
+     stage and each kernel's device time per scan; K2 at K at every call
+     of a real forward against its plain version, bit-identical on
+     repeat, beside the CUDA-core kernel at the same inputs (through
+     its C entry), with two bounds (f32 CUDA cores, 3xTF32), and once in
+     bf16 (the tensor-core route) at the same shapes; the input and
+     weight gradients (K2 at K, K4 at K) at every call of a real step the
+     same way; what the row orders and pair lists cost; a small-scan f32
      step on the card against the CPU; 4 counted full-width steps (per
-     step K2 at K 47 + 47, K4 at K 47, K2 at 27 1 + 1, K4 at 27 1, K1
-     22), ms per step by stage, peak memory and each kernel's device time
-     per step;
+     step K2 at K 48 + 48, K4 at K 48, all on the 3xTF32 route, K1 22),
+     ms per step by stage, peak memory and each kernel's device time per
+     step; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -109,8 +111,9 @@ them:
      kernel with its launches per scan and per step on SPVCNN's and
      RPVNet's paths; K2 at K offsets (`sparse_conv_k`, with its train
      launches and input-gradient times) and K4 at K offsets
-     (`sparse_conv_dw`) with Cylinder_TS's launches, and every kernel's
-     launches on Cylinder_TS's path.
+     (`sparse_conv_dw`) with Cylinder_TS's launches per route, the
+     CUDA-core time (`old_ms`), the 3xTF32 bound and the head's share,
+     and every kernel's launches on Cylinder_TS's path.
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -162,7 +165,7 @@ KERNEL_NAMES = {
     "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
     "voxelize_bwd": ("voxelize_bwd_kernel",),
     "sparse_conv_k": ("sparse_conv_k_",),
-    "sparse_conv_dw": ("PairsOffsets",),
+    "sparse_conv_dw": ("PairsOffsets", "sparse_conv_dw_tf32", "OffsetLists"),
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
@@ -223,18 +226,19 @@ RPVNET_ROUNDS = 3  # serving samples: RPVNET_ROUNDS * N_SCANS scans
 RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bottom")
 
 # Cylinder_TS (tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml),
-# f32 on the 480 x 360 x 32 polar grid: per scan 47 convs over K offsets
-# (K2 at K: 36 at K = 9, 4 at 8, 4 at 4, 3 at 3), the 3^3 head (K2 at 27,
-# 20 classes: the CUDA-core route) and 22 joins (K1: 2 asymmetric
-# rulebooks per level, the 4 pooling tables and their reverses, 3 recon
-# rulebooks, the head's); per train step also the 47 input gradients
-# (K2 at K) and weight gradients (K4 at K) and the head's (K2 and K4 at
-# 27); no other kernel (its voxelization is a segment max in plain torch,
-# its devoxelization a gather)
-CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 47, "sparse_conv_k3": 1}
+# f32 on the 480 x 360 x 32 polar grid: per scan 48 convs over K offsets
+# (K2 at K: 36 at K = 9, 4 at 8, 4 at 4, 3 at 3, the 3^3 head (20
+# classes) at 27), all on the 3xTF32 route, and 22 joins (K1: 2
+# asymmetric rulebooks per level, the 4 pooling tables and their
+# reverses, 3 recon rulebooks, the head's); per train step also the 48
+# input gradients (K2 at K) and weight gradients (K4 at K), all on the
+# 3xTF32 route; no other kernel (its voxelization is a segment max in
+# plain torch, its devoxelization a gather), none at 27 offsets
+CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 48, "sparse_conv_k_tf32": 48}
 CYLINDER_PER_STEP = {
-    "join_scan": 22, "sparse_conv_k": 94, "sparse_conv_k_dgrad": 47, "sparse_conv_dw": 47,
-    "sparse_conv_k3": 2, "sparse_conv_k3_dgrad": 1, "k3_conv_dw": 1,
+    "join_scan": 22, "sparse_conv_k": 96, "sparse_conv_k_tf32": 96,
+    "sparse_conv_k_dgrad": 48, "sparse_conv_k_dgrad_tf32": 48,
+    "sparse_conv_dw": 48, "sparse_conv_dw_tf32": 48,
 }
 CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 
@@ -247,7 +251,7 @@ HARNESS_POINT_CAPACITY = 131072
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 494.7e12 / 3}
 
 
 def log(msg: str) -> None:
@@ -2132,109 +2136,204 @@ def phase_rpvnet(scans, results: dict) -> dict:
 
 def cylinder_calls(run) -> CallCapture:
     """`run()` (a Segmenter forward or a Trainer step) with the wrappers
-    of K2 and K4 at K offsets and at 27 wrapped: the inputs of every
-    forward, input-gradient and weight-gradient call at each distinct
-    (kind, K, V_in, C_in, V_out, C_out)."""
+    of K2 and K4 at K offsets wrapped: the inputs of every forward,
+    input-gradient and weight-gradient call (with the topology's row
+    order or pair lists) at each distinct (kind, K, V_in, C_in, V_out,
+    C_out)."""
     from taseg_tpu_torch.ops import f3conv, sparse_conv
 
-    def conv_key(name):
-        def key(x, w, rb, dgrad=False):
-            return (name + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
-        return key
+    def key(x, w, rb, dgrad=False, order=None):
+        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
 
     cap = CallCapture()
-    cap.patch(sparse_conv, "sparse_conv", conv_key("sparse_conv_k"))
-    cap.patch(f3conv, "sparse_conv", conv_key("sparse_conv_k"))
-    cap.patch(sparse_conv, "sparse_conv_k3", conv_key("sparse_conv_k3"))
-    cap.patch(f3conv, "sparse_conv_k3", conv_key("sparse_conv_k3"))
+    cap.patch(sparse_conv, "sparse_conv", key)
+    cap.patch(f3conv, "sparse_conv", key)
     cap.patch(
         f3conv, "sparse_conv_dw",
-        lambda x, g, rb, out_dtype=None: ("sparse_conv_dw", rb.shape[0], *x.shape, *g.shape),
-    )
-    cap.patch(
-        f3conv, "k3_conv_dw",
-        lambda x, g, rb, out_dtype=None, pairs=None: ("k3_conv_dw", rb.shape[0], *x.shape, *g.shape),
+        lambda x, g, rb, out_dtype=None, pairs=None: ("sparse_conv_dw", rb.shape[0], *x.shape, *g.shape),
     )
     run()
     cap.remove()
     return cap
 
 
+def cuda_core_k(name: str, x, second, rb):
+    """The CUDA-core kernel of K2 at K (`taseg_sparse_conv_k`) or K4
+    at K (`taseg_sparse_conv_dw`) on the same f32 inputs, called through
+    its C entry (no wrapper, so no launch is counted)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build, f3conv
+
+    lib = _build.get_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    k = rb.shape[0]
+    if name == "sparse_conv_dw":
+        v_in, c_in = x.shape
+        c_out = second.shape[1]
+        out = torch.empty((k, c_in, c_out), device=x.device)
+        splits, rows = f3conv.dw_splits(v_in, k, c_in, c_out)
+        part = torch.empty((splits, k, c_in, c_out), device=x.device) if splits > 1 else None
+        err = lib.taseg_sparse_conv_dw(
+            x.data_ptr(), second.data_ptr(), rb.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), v_in, c_in, c_out, k, splits, rows, 0, stream,
+        )
+    else:
+        c_in, c_out = x.shape[1], second.shape[2]
+        out = torch.empty((rb.shape[1], c_out), device=x.device)
+        err = lib.taseg_sparse_conv_k(
+            x.data_ptr(), second.data_ptr(), rb.data_ptr(), out.data_ptr(), rb.shape[1],
+            c_in, c_out, k, 0, stream,
+        )
+    if err:
+        raise RuntimeError(f"CUDA-core {name} failed with CUDA error {err}")
+    return out
+
+
 def phase_cylinder_kernels(cap: CallCapture, label: str) -> dict:
-    """K2 and K4 at K offsets, and at 27 (the head), at every call of the
-    captured forward or train step, on the call's own f32 inputs: against
-    their plain versions (the convs within 1e-5 of the largest sum of
-    |terms|, the weight gradients within 1e-4: they sum up to all V rows
-    in another order), the weight gradients bit-identical on a repeat
-    call; kernel, plain, bound (bytes: inputs read once, output written
-    once; operations: the rulebook's present pairs at the f32 CUDA-core
-    rate) and library (one torch.mm on rows gathered beforehand) times,
-    summed over the calls by their count.  The K-offset convs also run
-    once in bf16 at the same shapes (their tensor-core route where the
-    widths allow it), for correctness only: no path calls them in bf16.
-    Returns the totals by kind (`sparse_conv_k`, `sparse_conv_k_dgrad`,
-    `sparse_conv_dw`, and the head's `sparse_conv_k3`,
-    `sparse_conv_k3_dgrad`, `k3_conv_dw`)."""
+    """K2 and K4 at K offsets (the 3^3 head's at K = 27 among them) at
+    every call of the captured forward or train step, on the call's own
+    f32 inputs and the topology's row order / pair lists: the 3xTF32
+    kernel against its plain version (the convs within 1e-5 of the
+    largest sum of |terms|, the weight gradients within 1e-4: they sum up
+    to all V rows in another order) and bit-identical on a repeat call;
+    the CUDA-core kernel (`cuda_core_k`) on the same inputs held to
+    the same tolerances.  Times: kernel, CUDA-core kernel, plain, two
+    bounds (bytes: inputs read once, output written once; operations: the
+    rulebook's present pairs at the f32 CUDA-core rate, and at 3xTF32's
+    494.7 / 3 TFLOP/s) and library (one torch.mm on rows gathered
+    beforehand), summed over the calls by their count; a call slower than
+    its torch.mm is named.  The convs also run once in bf16 at the same
+    shapes (their tensor-core route where the widths allow it), for
+    correctness only: no path calls them in bf16.  Returns the totals by
+    kind (`sparse_conv_k`, `sparse_conv_k_dgrad`, `sparse_conv_dw`), each
+    with a `head` part of its K = 27 calls."""
     import torch
 
     from taseg_tpu_torch.ops import f3conv, sparse_conv
 
-    convs = {
-        "sparse_conv_k": (sparse_conv.sparse_conv, sparse_conv.sparse_conv_plain),
-        "sparse_conv_k3": (sparse_conv.sparse_conv_k3, sparse_conv.sparse_conv_plain),
-    }
-    dws = {
-        "sparse_conv_dw": (f3conv.sparse_conv_dw, f3conv.k3_conv_dw_plain),
-        "k3_conv_dw": (f3conv.k3_conv_dw, f3conv.k3_conv_dw_plain),
-    }
     tot: dict = {}
     for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, k, v_in, c_in, v_out, c_out = key
         count = cap.count[key]
         x, second, rb = a[0], a[1], a[2]
         pairs = int((rb >= 0).sum())
-        if name in dws:
-            kern, plain = dws[name]
-            got = twice_same(f"{label}{key}", lambda: kern(x, second, rb))
-            err = check_close(f"{label}{key}", got, plain(x, second, rb), plain(x.abs(), second.abs(), rb), "float32", 1e-4)
+        route = sparse_conv.k_route(x.dtype, c_in, c_out)
+        if route != "tf32x3":
+            raise AssertionError(f"{label}{key}: route {route}, expected tf32x3")
+        if name == "sparse_conv_dw":
+            lists = kw.get("pairs")
+            kern = lambda: f3conv.sparse_conv_dw(x, second, rb, pairs=lists)  # noqa: E731
+            plain, rel = f3conv.k3_conv_dw_plain, 1e-4
             nbytes = (v_in * c_in + v_out * c_out + rb.numel() + k * c_in * c_out) * 4
-            lib = dw_library_ms(name, x, second, rb)
-            ms = cuda_ms(lambda: kern(x, second, rb))
-            pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
-            extra = "bit-identical on repeat"
         else:
-            base = name.replace("_dgrad", "")
-            kern, plain = convs[base]
-            got = kern(x, second, rb)
-            err = check_close(f"{label}{key}", got, plain(x, second, rb), plain(x.abs(), second.abs(), rb), "float32", 1e-5)
-            extra = "f32 route " + sparse_conv.route(x.dtype, c_in, c_out)
-            if base == "sparse_conv_k":
-                xb, wb = x.bfloat16(), second.bfloat16()
-                berr = check_close(f"{label}{key} bf16", kern(xb, wb, rb), plain(xb, wb, rb),
-                                   plain(xb.abs(), wb.abs(), rb), "bfloat16", 1e-5)
-                extra += f"; bf16 route {sparse_conv.route(torch.bfloat16, c_in, c_out)} max|err| {berr:.3e}"
+            order = kw.get("order")
+            kern = lambda: sparse_conv.sparse_conv(x, second, rb, order=order)  # noqa: E731
+            plain, rel = sparse_conv.sparse_conv_plain, 1e-5
             nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
-            lib = conv_library_ms(base, x, second, rb)
-            ms = cuda_ms(lambda: kern(x, second, rb))
-            pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
-        b, by = bound_ms(nbytes, 2.0 * pairs * c_in * c_out, "float32")
+        want = plain(x, second, rb)
+        ref = plain(x.abs(), second.abs(), rb)
+        got = twice_same(f"{label}{key}", kern)
+        err = check_close(f"{label}{key}", got, want, ref, "float32", rel)
+        old_err = check_close(
+            f"{label}{key} CUDA-core", cuda_core_k(name, x, second, rb), want, ref, "float32", rel
+        )
+        share = err / max(ref.abs().max().item(), 1e-30)  # of the largest sum of |terms|
+        del got, want, ref
+        extra = (f"3xTF32 max|err| {err:.3e} ({share:.2e} of the sum of |terms|), "
+                 f"CUDA-core {old_err:.3e}, bit-identical on repeat")
+        if name == "sparse_conv_k":
+            xb, wb = x.bfloat16(), second.bfloat16()
+            berr = check_close(f"{label}{key} bf16", sparse_conv.sparse_conv(xb, wb, rb), plain(xb, wb, rb),
+                               plain(xb.abs(), wb.abs(), rb), "bfloat16", 1e-5)
+            extra += f"; bf16 route {sparse_conv.k_route(torch.bfloat16, c_in, c_out)} max|err| {berr:.3e}"
+        base = "sparse_conv_k" if name == "sparse_conv_k_dgrad" else name
+        lib = (dw_library_ms if name == "sparse_conv_dw" else conv_library_ms)(base, x, second, rb)
+        ms = cuda_ms(kern)
+        old_ms = cuda_ms(lambda: cuda_core_k(name, x, second, rb))
+        pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
+        ops = 2.0 * pairs * c_in * c_out
+        b, by = bound_ms(nbytes, ops, "float32")
+        b3, by3 = bound_ms(nbytes, ops, "tf32x3")
+        slow = " SLOWER than torch.mm" if ms > lib else ""
         log(
             f"{label}{name} K={k} V_in={v_in} {c_in}->{c_out} V_out={v_out} x{count} "
-            f"pairs={pairs} max|err| {err:.3e} ({extra}) kernel {ms:.4f} ms plain {pms:.4f} ms "
-            f"bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+            f"pairs={pairs} ({extra}) kernel {ms:.4f} ms CUDA-core {old_ms:.4f} ms plain {pms:.4f} ms "
+            f"bound {b:.4f} ms ({by}, f32 CUDA cores) / {b3:.4f} ms ({by3}, 3xTF32) "
+            f"one torch.mm {lib:.4f} ms{slow}"
         )
-        r = tot.setdefault(name, {
-            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-            "_parts": [0.0, 0.0],
-        })
-        for kk, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib)):
-            r[kk] += count * val
-        r["_parts"][0 if by == "bytes" else 1] += count * b
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        parts = [tot.setdefault(name, {})]
+        if k == 27:
+            parts.append(parts[0].setdefault("head", {}))
+        for r in parts:
+            for kk, val in (("ms", ms), ("old_ms", old_ms), ("plain_ms", pms), ("bound_ms", b),
+                            ("bound_ms_3xtf32", b3), ("library_ms", lib)):
+                r[kk] = r.get(kk, 0.0) + count * val
+            for kk, val in ((by, b), (by3 + "_3xtf32", b3)):
+                r.setdefault("_parts", {})[kk] = r.get("_parts", {}).get(kk, 0.0) + count * val
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+            r["max_err_share"] = max(r.get("max_err_share", 0.0), share)
+            r["old_max_abs_err"] = max(r.get("old_max_abs_err", 0.0), old_err)
+            r["calls"] = r.get("calls", 0) + count
     for r in tot.values():
-        parts = r.pop("_parts")
-        r["bound_by"] = "bytes" if parts[0] >= parts[1] else "operations"
+        for q in (r, r.get("head")):
+            if q is None:
+                continue
+            parts = q.pop("_parts")
+            q["bound_by"] = "bytes" if parts.get("bytes", 0) >= parts.get("operations", 0) else "operations"
+            q["bound_by_3xtf32"] = (
+                "bytes" if parts.get("bytes_3xtf32", 0) >= parts.get("operations_3xtf32", 0) else "operations"
+            )
     return tot
+
+
+def cylinder_table_cost(topo, label: str) -> None:
+    """What the 3xTF32 route adds to a Cylinder topology: the row order of
+    each table (`mask_row_order`) and, in a train topology, the pair
+    lists of each reverse table (`pair_lists`), rebuilt from its
+    rulebooks (CUDA events, `cuda_ms`), and each rebuild equal to the
+    topology's."""
+    import torch
+
+    from taseg_tpu_torch.ops.f3conv import pair_lists, pair_lists_many
+    from taseg_tpu_torch.ops.sparse_conv import mask_row_order, mask_row_orders
+
+    fwd = [t for l in topo.levels for t in (*l.asym, l.down, l.up) if t is not None]
+    fwd += [*topo.recon, topo.head]
+    rev = [t for t in fwd if t.pairs is not None]
+    if topo.head_bwd is not None:
+        rev += [t for l in topo.levels for t in l.asym_bwd] + [*topo.recon_bwd, topo.head_bwd]
+    for t in fwd:
+        if not torch.equal(mask_row_order(t.rb), t.order):
+            raise AssertionError(f"{label}: a row order differs from its rebuild")
+    for t in rev:
+        p = pair_lists(t.rb)
+        n, at = int(p.starts[-1]), int(t.pairs.starts[0])  # the table's place in its buffer
+        if not (torch.equal(p.pairs[:n], t.pairs.pairs[at : at + n])
+                and torch.equal(p.starts, t.pairs.starts - at)):
+            raise AssertionError(f"{label}: pair lists differ from their rebuild")
+    def tile_work(present):  # 64 x the offsets each 64-row tile runs
+        k, v = present.shape
+        pad = torch.zeros((k, -v % 64), dtype=torch.bool, device=present.device)
+        return 64 * int(torch.cat([present, pad], 1).view(k, -1, 64).any(2).sum())
+
+    n_pairs = by_table = by_order = 0
+    for t in fwd:
+        present = t.rb >= 0
+        n_pairs += int(present.sum())
+        by_table += tile_work(present)
+        by_order += tile_work(present[:, t.order.long()])
+    log(
+        f"{label}tiles: 64-row tiles run {by_table / n_pairs:.3f}x the {n_pairs} present pairs "
+        f"in table order, {by_order / n_pairs:.3f}x over the mask-sorted row order"
+    )
+    orders = cuda_ms(lambda: mask_row_orders([t.rb for t in fwd]))
+    lists = cuda_ms(lambda: pair_lists_many([t.rb for t in rev])) if rev else 0.0
+    log(
+        f"{label}tables: {len(fwd)} row orders {orders:.4f} ms, {len(rev)} pair lists "
+        f"{lists:.4f} ms, built as the topology builds them (one sort and one list buffer "
+        f"per row count; CUDA events, host cost per launch included)"
+    )
 
 
 def cylinder_serve_profile(seg, scans, out: dict) -> None:
@@ -2264,7 +2363,7 @@ def cylinder_serve_profile(seg, scans, out: dict) -> None:
             dev[k] += ms
         if not mine:
             others.append((ms, e.count / n, e.key[:90]))
-    for k in ("join_scan", "sparse_conv_k", "sparse_conv_k3"):
+    for k in ("join_scan", "sparse_conv_k"):
         log(f"cylinder profiler serving {k}: {dev[k]:.4f} ms per scan on the device")
         out[k] = dev[k] or None
     others.sort(reverse=True)
@@ -2279,7 +2378,10 @@ def cylinder_serve_profile(seg, scans, out: dict) -> None:
 def segment_max_ms(seg, scans) -> None:
     """The segment max (plain torch: `scatter_reduce` amax forward, its own
     backward) at the real (P, 16) f32 shape and segment ids of one scan:
-    forward, and forward + backward of its sum (CUDA events, `cuda_ms`)."""
+    forward, and forward + backward of its sum, on the host clock around
+    10 calls (CUDA events, `cuda_ms`) and in device time (profiler events,
+    every kernel of the call), beside its bound (bytes: (P, 16) f32 read
+    and (V, 16) written once each way)."""
     import torch
 
     from taseg_tpu_torch.ops.voxelize import segment_max
@@ -2296,9 +2398,52 @@ def segment_max_ms(seg, scans) -> None:
         m = segment_max(x, ids, v0 + 1)
         torch.where(torch.isfinite(m), m, 0.0).sum().backward()
 
-    fwd = cuda_ms(lambda: segment_max(x.detach(), ids, v0 + 1))
-    both = cuda_ms(fwd_bwd)
-    log(f"cylinder segment_max P={x.shape[0]} V={v0} C=16 f32: forward {fwd:.4f} ms, forward + backward {both:.4f} ms")
+    def fwd():
+        segment_max(x.detach(), ids, v0 + 1)
+
+    b, _ = bound_ms((x.shape[0] + v0 + 1) * 16 * 4, 0, "float32")
+    log(
+        f"cylinder segment_max P={x.shape[0]} V={v0} C=16 f32: forward {cuda_ms(fwd):.4f} ms "
+        f"(device {fmt_ms(device_ms(fwd, ('',)))}), forward + backward {cuda_ms(fwd_bwd):.4f} ms "
+        f"(device {fmt_ms(device_ms(fwd_bwd, ('',)))}); bound {b:.4f} ms each way (bytes)"
+    )
+
+
+def permute_rows_ms(trainer, scans) -> None:
+    """`loss.util.permute_rows` (plain torch: one `take_along_dim` each
+    way) at the calls of one real Cylinder train step (the Lovász loss's
+    sorted errors, with a backward, and sorted labels): host-clock and
+    device time of each call's forward (and of the errors' forward +
+    backward), beside its bound (bytes: x, the permutation and the output
+    once each; the backward reads the cotangent and the inverse and
+    writes the gradient)."""
+    import torch
+
+    from taseg_tpu_torch.loss import lovasz
+
+    cap = CallCapture()
+    cap.patch(lovasz, "permute_rows", lambda x, perm, inv: ("permute_rows", *x.shape, x.requires_grad))
+    trainer.step(scans[:1])
+    cap.remove()
+    for key, (a, _) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        x, perm, inv = (t.detach() for t in a)
+        grad = key[-1]
+        xg = x.clone().requires_grad_(grad)
+
+        def fwd():
+            lovasz.permute_rows(x, perm, inv)
+
+        def fwd_bwd():
+            lovasz.permute_rows(xg, perm, inv).sum().backward()
+
+        nbytes = x.numel() * (2 * x.element_size() + perm.element_size())
+        b, _ = bound_ms(nbytes * (2 if grad else 1), 0, "float32")
+        both = (f", forward + backward {cuda_ms(fwd_bwd):.4f} ms (device "
+                f"{fmt_ms(device_ms(fwd_bwd, ('',)))})" if grad else "")
+        log(
+            f"cylinder permute_rows {tuple(x.shape)} x{cap.count[key]}: forward {cuda_ms(fwd):.4f} ms "
+            f"(device {fmt_ms(device_ms(fwd, ('',)))}){both}; bound {b:.4f} ms (bytes)"
+        )
 
 
 def phase_cylinder(scans, results: dict) -> dict:
@@ -2308,15 +2453,17 @@ def phase_cylinder(scans, results: dict) -> dict:
     read just after (each kernel as CYLINDER_PER_SCAN says, every other
     0), finite logits of the right shape, the level counts beside their
     capacities, the small-scan card f32 logits against the CPU, serving ms
-    per scan by stage and each kernel's device time per scan; K2 at K and
-    at 27 at every call of a real forward against their plain versions;
-    then the train path: the inputs of every K2 / K4 call of one real
-    step checked the same way (the input gradients and weight gradients,
-    K4 bit-identical on repeat), a small-scan f32 step on the card
-    against the CPU, TRAIN_STEPS counted `Trainer` steps (each kernel as
-    CYLINDER_PER_STEP says), ms per step by stage, peak memory, and each
-    kernel's device time per step.  Returns the launches per scan and per
-    step and the device ms."""
+    per scan by stage and each kernel's device time per scan; K2 at K at
+    every call of a real forward against its plain version and the
+    CUDA-core kernel (`phase_cylinder_kernels`), and what the row orders
+    cost; then the train path: the inputs of every K2 / K4 call of one
+    real step checked the same way (the input gradients and weight
+    gradients), what the orders and pair lists cost, a small-scan f32
+    step on the card against the CPU, TRAIN_STEPS counted `Trainer` steps
+    (each kernel as CYLINDER_PER_STEP says), ms per step by stage, peak
+    memory, and each kernel's device time per step.  Logs the phase's
+    seconds.  Returns the launches per scan and per step and the device
+    ms."""
     import numpy as np
     import torch
 
@@ -2326,6 +2473,7 @@ def phase_cylinder(scans, results: dict) -> dict:
     from taseg_tpu_torch.ops import _build
     from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
 
+    t_phase = time.perf_counter()
     cfg = CYLINDER_CY480_CR10
     params, stats = init_params_numpy(cfg, seed=SEED)
     variables = {"params": params, "batch_stats": stats}
@@ -2359,8 +2507,10 @@ def phase_cylinder(scans, results: dict) -> dict:
     serve_split(seg, scans, CYLINDER_ROUNDS, "cylinder ")
     serve_k = phase_cylinder_kernels(cap, "cylinder serving ")
     results["sparse_conv_k"] = serve_k["sparse_conv_k"]
-    head = {"forward_per_scan": serve_k["sparse_conv_k3"]}
     del cap
+    a = seg.collate(scans[:1])
+    cylinder_table_cost(seg.topology(a), "cylinder serving ")
+    del a
     segment_max_ms(seg, scans)
     serve_dev: dict = {}
     cylinder_serve_profile(seg, scans, serve_dev)
@@ -2372,16 +2522,26 @@ def phase_cylinder(scans, results: dict) -> dict:
         total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], seed=SEED,
     )
     log(f"cylinder train capacities {list(trainer.caps.voxels)}")
-    cap = cylinder_calls(lambda: trainer.step(scans[:1]))
+    kept: dict = {}
+
+    def step():
+        # keep the step's topology for cylinder_table_cost
+        topo_fn = trainer.topology
+        trainer.topology = lambda arrays: kept.setdefault("topo", topo_fn(arrays))
+        try:
+            trainer.step(scans[:1])
+        finally:
+            del trainer.topology
+
+    cap = cylinder_calls(step)
     train_k = phase_cylinder_kernels(
-        CallCapture.only(cap, lambda key: key[0] not in ("sparse_conv_k", "sparse_conv_k3")),
-        "cylinder train ",
+        CallCapture.only(cap, lambda key: key[0] != "sparse_conv_k"), "cylinder train ",
     )
     del cap
     for k in ("sparse_conv_k_dgrad", "sparse_conv_dw"):
         results[k] = train_k[k]
-    head["dgrad_per_step"] = train_k["sparse_conv_k3_dgrad"]
-    head["dw_per_step"] = train_k["k3_conv_dw"]
+    cylinder_table_cost(kept.pop("topo"), "cylinder train ")
+    permute_rows_ms(trainer, scans)
     phase_small_train_step(cfg, variables, "cylinder ")
     per_step = {k: CYLINDER_PER_STEP.get(k, 0) for k in _build.LAUNCHES}
     train, _ = phase_train_steps(trainer, scans, per_step, "cylinder train")
@@ -2396,7 +2556,7 @@ def phase_cylinder(scans, results: dict) -> dict:
         "device_ms_per_scan": serve_dev,
         "launches": serve,
         "train_launches": train,
-        "head": head,
+        "seconds": time.perf_counter() - t_phase,
     }
 
 
@@ -2634,14 +2794,6 @@ def main() -> int:
             "launches_per_step": cylinder["per_step"][name],
             "device_ms_per_train_step": cylinder["device_ms_per_step"].get(name),
         }
-        if name == "sparse_conv_k3":
-            entry["cylinder"]["head"] = {
-                "forward_per_scan": cylinder["head"]["forward_per_scan"],
-                "dgrad_per_step": cylinder["head"]["dgrad_per_step"],
-                "device_ms_per_scan": cylinder["device_ms_per_scan"].get(name),
-            }
-        if name == "k3_conv_dw":
-            entry["cylinder"]["head"] = cylinder["head"]["dw_per_step"]
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
@@ -2649,21 +2801,31 @@ def main() -> int:
             )
         kernels.append(entry)
     # K2 and K4 at K offsets: Cylinder_TS's serving (per scan) and train
-    # (per step) paths, their only users
+    # (per step) paths, their only users, on the 3xTF32 route; beside it
+    # the CUDA-core kernel at the same inputs (`old_ms`), the 3xTF32
+    # bound, and the 3^3 head's calls (K = 27) on their own
     k2k, dgrad, k4k = results["sparse_conv_k"], results["sparse_conv_k_dgrad"], results["sparse_conv_dw"]
     serve, train = cylinder["launches"], cylinder["train_launches"]
+    extra = ("old_ms", "old_max_abs_err", "max_err_share", "bound_ms_3xtf32", "bound_by_3xtf32", "calls", "head")
     kernels.append({
         "name": "sparse_conv_k", "route": "cuda", "source": "taseg_tpu_torch/csrc/sparse_conv.cu",
         "replaces": "taseg_tpu/ops/sparse_conv.py:137", "launches": serve["sparse_conv_k"],
         **{k: k2k[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: k2k[k] for k in extra if k in k2k},
         "per": "scan (Cylinder_TS serving, f32)",
-        "launches_by_route": {"mma": serve["sparse_conv_k_mma"], "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_mma"]},
+        "launches_by_route": {
+            "tf32x3": serve["sparse_conv_k_tf32"], "mma": serve["sparse_conv_k_mma"],
+            "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_tf32"] - serve["sparse_conv_k_mma"],
+        },
         "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
         "train": {
-            "launches": train["sparse_conv_k"], "dgrad_launches": train["sparse_conv_k_dgrad"],
-            "dgrad_ms_per_step": dgrad["ms"], "dgrad_plain_ms_per_step": dgrad["plain_ms"],
-            "dgrad_bound_ms_per_step": dgrad["bound_ms"], "dgrad_bound_by": dgrad["bound_by"],
-            "dgrad_max_abs_err": dgrad["max_abs_err"], "dgrad_library_ms_per_step": dgrad["library_ms"],
+            "launches": train["sparse_conv_k"], "tf32x3_launches": train["sparse_conv_k_tf32"],
+            "dgrad_launches": train["sparse_conv_k_dgrad"],
+            "dgrad_tf32x3_launches": train["sparse_conv_k_dgrad_tf32"],
+            **{f"dgrad_{k}_per_step": dgrad[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "old_ms",
+                                                         "bound_ms_3xtf32")},
+            "dgrad_bound_by": dgrad["bound_by"], "dgrad_max_abs_err": dgrad["max_abs_err"],
+            "dgrad_head": dgrad.get("head"),
             "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_k"],
         },
     })
@@ -2671,9 +2833,15 @@ def main() -> int:
         "name": "sparse_conv_dw", "route": "cuda", "source": "taseg_tpu_torch/csrc/conv_dw.cu",
         "replaces": "taseg_tpu/ops/sparse_conv.py:157", "launches": train["sparse_conv_dw"],
         **{k: k4k[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: k4k[k] for k in extra if k in k4k},
         "per": "train step (Cylinder_TS, f32)",
+        "launches_by_route": {
+            "tf32x3": train["sparse_conv_dw_tf32"],
+            "simt": train["sparse_conv_dw"] - train["sparse_conv_dw_tf32"],
+        },
         "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_dw"],
     })
+    log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

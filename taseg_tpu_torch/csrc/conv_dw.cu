@@ -73,9 +73,24 @@
 // split past its list's count does nothing, and the reduction reads
 // only the splits a list's count reaches, in split order.
 //
-// dw_kernel (f32, and ragged widths such as the stem's 4 -> 32, for K4,
-// K4 at K offsets (its only route: Cylinder3D runs in f32) and K5): CUDA
-// cores, f32 FMA on operands widened in shared memory:
+// dw_tf32_kernel (K4 at K offsets in f32 with C_in % 4 == 0 and C_out %
+// 4 == 0: every weight gradient of Cylinder3D, the 3^3 head's included):
+// the pair-list tile above in f32 on 3xTF32 tensor cores.  The train
+// topology compacts each reverse table's present pairs per offset
+// (f3conv.pair_lists, K lists); a block owns (64 C_in rows, BN C_out
+// columns, offset k, a split of k's list) and gathers X and Y rows, 16
+// pairs per stage, by 16-byte cp.async into a 4-stage ring, then
+// multiplies with mma.sync m16n8k8 .tf32, each operand split into TF32
+// high and low parts and each product taken as three (gather_mma.cuh,
+// namespace tf32).  Splits and their reduction as for dw_mma_kernel, with
+// K at run time.  Against dw_kernel, whose every block scanned the whole
+// (K, V_in) table for its offset (V_in the level's capacity) and
+// multiplied the few pairs it found in 16-pair rounds with no loads in
+// flight, each list is read once and every stage is full and prefetched.
+//
+// dw_kernel (f32 on K4 at 27 and K5, and ragged widths such as the stem's
+// 4 -> 32, for K4, K4 at K offsets and K5): CUDA cores, f32 FMA on
+// operands widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"
@@ -322,6 +337,7 @@ struct K3Lists {
 struct SlotLists {
   static constexpr int kOut = 8;  // slots
 };
+struct OffsetLists {};  // K4 at K offsets: K at run time
 
 // grid: x = C_in tiles * C_out tiles, y = list k (of Lists::kOut), z =
 // split.  Split z of list k takes pairs [z per_split, (z + 1) per_split)
@@ -402,13 +418,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[e] = sum over the splits that list k(e) reaches, in split order
+// (n_out lists; Lists names the kernel in a profile)
 template <typename Lists>
 __global__ void dw_mma_reduce_splits_kernel(const float* __restrict__ part,
                                           const int* __restrict__ starts,
-                                          float* __restrict__ out,
+                                          float* __restrict__ out, int n_out,
                                           size_t per_k, int per_split,
                                           int splits) {
-  const size_t n = Lists::kOut * per_k;
+  const size_t n = static_cast<size_t>(n_out) * per_k;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int k = static_cast<int>(e / per_k);
@@ -452,9 +469,194 @@ int launch_dw_mma(const void* x, const void* y, const void* pairs,
       static_cast<int>(std::min<size_t>((n_out * per_k + 255) / 256, 4096));
   dw_mma_reduce_splits_kernel<Lists><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<const int*>(starts),
-      static_cast<float*>(out), per_k, per_split, splits);
+      static_cast<float*>(out), n_out, per_k, per_split, splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- K4 at K offsets on 3xTF32 tensor cores, over per-offset pair lists
+namespace dwtf32 {
+
+namespace tf = taseg::tf32;
+
+constexpr int kBM = 64;        // C_in rows of d_W per block
+constexpr int kBK = 16;        // pairs per stage
+constexpr int kStages = 4;     // cp.async ring depth
+constexpr int kThreads = 128;  // 4 warps: 2 (C_in) x 2 (C_out)
+constexpr int kWin = 1024;     // pairs staged in shared memory at a time
+constexpr int kAS = kBM + 8;   // floats per shared X row (pair-major)
+
+template <int BN>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kStages) * kBK * kAS * 4 +
+         static_cast<size_t>(kStages) * kBK * tf::b_stride<BN>() * 4 +
+         static_cast<size_t>(kWin) * sizeof(int2);
+}
+
+// issue the cp.asyncs of stage t of the window: pairs [t kBK, t kBK + kBK)
+template <int BN>
+__device__ __forceinline__ void load_stage(float* as, float* bs, const int2* ps,
+                                           int buf, int t, int n_w,
+                                           const float* x, const float* y,
+                                           int c_in, int c_out, int m0, int n0) {
+  constexpr int kBS = tf::b_stride<BN>(), kAC = kBM / 4, kBC = BN / 4;
+  float* a = as + buf * kBK * kAS;
+  float* b = bs + buf * kBK * kBS;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kAC; e += kThreads) {
+    const int r = e / kAC, cc = (e % kAC) * 4, c = m0 + cc, p = t * kBK + r;
+    const bool ok = p < n_w && c < c_in;
+    mma::cp_async16(a + r * kAS + cc,
+                    ok ? x + static_cast<size_t>(ps[p].x) * c_in + c : x, ok);
+  }
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kBC; e += kThreads) {
+    const int r = e / kBC, cc = (e % kBC) * 4, col = n0 + cc, p = t * kBK + r;
+    const bool ok = p < n_w && col < c_out;
+    mma::cp_async16(b + r * kBS + cc,
+                    ok ? y + static_cast<size_t>(ps[p].y) * c_out + col : y, ok);
+  }
+}
+
+// acc += X(stage)^T Y(stage) for this warp's 32 x BN/2 sub-tile; X is
+// stored [pair][C_in], so A = X^T reads a(m, k) = X[k][m]: with g = lane /
+// 4, t = lane % 4 the fragment (m g, k t), (m g + 8, k t), (m g, k t + 4),
+// (m g + 8, k t + 4) sits at X[t][g], X[t][g + 8], X[t + 4][g], X[t + 4][g
+// + 8]; the 72-float row stride puts the 32 lanes on 32 banks
+template <int BN>
+__device__ __forceinline__ void mma_stage(const float* as, const float* bs, int buf,
+                                          float (&acc)[2][BN / 16][4]) {
+  constexpr int kBS = tf::b_stride<BN>();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2, g = lane / 4, t = lane % 4;
+  const float* a = as + buf * kBK * kAS + t * kAS + wm * 32 + g;
+  const float* b = bs + buf * kBK * kBS + t * kBS + wn * (BN / 2) + g;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    unsigned ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* p = a + kk * kAS + i * 16;
+      tf::split(p[0], ah[i][0], al[i][0]);
+      tf::split(p[8], ah[i][1], al[i][1]);
+      tf::split(p[4 * kAS], ah[i][2], al[i][2]);
+      tf::split(p[4 * kAS + 8], ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const float* p = b + kk * kBS + j * 8;
+      unsigned bh[2], bl[2];
+      tf::split(p[0], bh[0], bl[0]);
+      tf::split(p[4 * kBS], bh[1], bl[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) tf::mma_3xtf32(acc[i][j], ah[i], al[i], bh, bl);
+    }
+  }
+}
+
+// grid: x = C_in tiles * C_out tiles, y = offset k (of n_out = gridDim.y),
+// z = split.  Split z of list k takes pairs [z per_split, (z + 1)
+// per_split) of k's list and writes its (C_in, C_out) partial at out + (z
+// * n_out + k) C_in C_out; with one split, out is d_W itself.
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_dw_tf32_kernel(const float* __restrict__ x,
+                               const float* __restrict__ y,
+                               const int2* __restrict__ pairs,
+                               const int* __restrict__ starts,
+                               float* __restrict__ out, int c_in, int c_out,
+                               int per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kBS = tf::b_stride<BN>();
+  float* as = reinterpret_cast<float*>(smem);
+  float* bs = as + kStages * kBK * kAS;
+  int2* ps = reinterpret_cast<int2*>(bs + kStages * kBK * kBS);
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * kBM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int k = blockIdx.y;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int lo = blockIdx.z * per_split;
+  // nothing to add: the reduction reads no partial of this split
+  if (gridDim.z > 1 && lo >= n_k) return;
+  const int n_pairs = max(0, min(per_split, n_k - lo));
+  float acc[2][BN / 16][4] = {};
+
+  for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
+    const int n_w = min(kWin, n_pairs - w0);
+    __syncthreads();  // the previous window is consumed
+    for (int e = threadIdx.x; e < n_w; e += kThreads) ps[e] = pairs[beg + lo + w0 + e];
+    __syncthreads();
+    const int total = (n_w + kBK - 1) / kBK;
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < total) load_stage<BN>(as, bs, ps, t, t, n_w, x, y, c_in, c_out, m0, n0);
+      mma::cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      mma::cp_async_wait<kStages - 2>();  // stage t landed (own part)
+      __syncthreads();  // everyone's part; stage t - 1 is consumed
+      const int nxt = t + kStages - 1;
+      if (nxt < total)
+        load_stage<BN>(as, bs, ps, nxt % kStages, nxt, n_w, x, y, c_in, c_out, m0, n0);
+      mma::cp_async_commit();
+      mma_stage<BN>(as, bs, t % kStages, acc);
+    }
+    mma::cp_async_wait<0>();
+  }
+
+  float* dst = out + (static_cast<size_t>(blockIdx.z) * gridDim.y + k) *
+                         static_cast<size_t>(c_in) * c_out;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + wm * 32 + i * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = n0 + wn * (BN / 2) + j * 8 + (lane % 4) * 2;
+      if (col >= c_out) continue;  // c_out % 4 == 0: col + 1 < c_out too
+      if (r < c_in)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * c_out + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (r + 8 < c_in)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * c_out + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+int launch(const void* x, const void* y, const void* pairs, const void* starts,
+           void* out, void* part, int c_in, int c_out, int n_out, int splits,
+           int per_split, cudaStream_t s) {
+  if (c_in <= 0 || c_out <= 0 || c_in % 4 || c_out % 4 || n_out <= 0 ||
+      n_out > 32 || splits <= 0 || per_split <= 0 ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dst = static_cast<float*>(splits > 1 ? part : out);
+  const int err = tf::with_tile_n_f32(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    const size_t bytes = smem_bytes<BN>();
+    cudaError_t e = cudaFuncSetAttribute(
+        sparse_conv_dw_tf32_kernel<BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int tiles = ((c_in + kBM - 1) / kBM) * ((c_out + BN - 1) / BN);
+    sparse_conv_dw_tf32_kernel<BN><<<dim3(tiles, n_out, splits), kThreads, bytes, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const int2*>(pairs), static_cast<const int*>(starts), dst,
+        c_in, c_out, per_split);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0 || splits == 1) return err;
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  const int blocks =
+      static_cast<int>(std::min<size_t>((n_out * per_k + 255) / 256, 4096));
+  dw_mma_reduce_splits_kernel<OffsetLists><<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<const int*>(starts),
+      static_cast<float*>(out), n_out, per_k, per_split, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dwtf32
 
 }  // namespace dwmma
 
@@ -565,4 +767,20 @@ extern "C" int taseg_strided_dw_mma(const void* x, const void* y,
   return dwmma::launch_dw_mma<dwmma::SlotLists>(
       x, y, pairs, starts, out, part, c_in, c_out, up, splits, per_split,
       static_cast<cudaStream_t>(stream));
+}
+
+// K4 at K offsets on 3xTF32 tensor cores.  feats (V_in, C_in), grad
+// (V_out, C_out) f32, 16-byte aligned, C_in % 4 == 0 and C_out % 4 == 0;
+// pairs (n_off V_in,) int2 and starts (n_off + 1,) int32 from
+// f3conv.pair_lists(rb_bwd) -> out (n_off, C_in, C_out) f32; part
+// (splits, n_off, C_in, C_out) f32 scratch when splits > 1, with splits *
+// per_split >= V_in.
+extern "C" int taseg_sparse_conv_dw_tf32(const void* feats, const void* grad,
+                                         const void* pairs, const void* starts,
+                                         void* out, void* part, int c_in,
+                                         int c_out, int n_off, int splits,
+                                         int per_split, void* stream) {
+  return dwmma::dwtf32::launch(feats, grad, pairs, starts, out, part, c_in,
+                               c_out, n_off, splits, per_split,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,8 @@
 // sparse_conv_apply (_conv_fwd_impl), a conv over any K <= 32 offsets
 // with V_in input rows and V_out output rows (Cylinder3D's asymmetric
 // 1x3x3 / 3x1x3 convs at K = 9, its 1-D recon convs at K = 3, its pooling
-// and transposed convs at K = 8 and 4, between two levels).
+// and transposed convs at K = 8 and 4, between two levels, and its 3^3
+// head at K = 27).
 //
 //   out[v] = sum_k feats[rb[k, v]] @ W[k]      (rb[k, v] == -1: absent)
 //
@@ -17,12 +18,15 @@
 // against 2 * (present rulebook pairs) * C_in * C_out operations.  At the
 // MinkUNet path's shapes the bytes bound it (0.33 ms per scan in all
 // against 0.19 ms of present-pair operations at the bf16 tensor-core
-// rate).
+// rate); at Cylinder3D's f32 shapes, summed per scan on the H100
+// (chip_smoke.py phase 5e), 1.09 ms at the 67 TFLOP/s of f32 CUDA cores
+// (operations) and 0.80 ms at 3xTF32's 165 (bytes in most calls).
 //
-// Two kernels, each in a 27-offset instance (k3_conv_*: the stride-1 3^3
-// conv, counted as `sparse_conv_k3`) and a K-offset instance
-// (sparse_conv_k_*: K at run time, counted as `sparse_conv_k`); the
-// wrapper picks the kernel by dtype and widths:
+// Three kernels, the first two each in a 27-offset instance (k3_conv_*:
+// the stride-1 3^3 conv, counted as `sparse_conv_k3`) and a K-offset
+// instance (sparse_conv_k_*: K at run time, counted as `sparse_conv_k`);
+// the wrapper picks the kernel by dtype and widths (sparse_conv.route,
+// sparse_conv.k_route):
 //
 // k3_conv_mma_kernel / sparse_conv_k_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0): the
 // tensor-core gather-GEMM of gather_mma.cuh.  Against the four limits of
@@ -31,22 +35,39 @@
 //      fragments, instead of f32 FMA on operands widened in shared memory;
 //   2. dense work inside a tile: still there.  A 64-row tile computes all
 //      its rows for every offset that one of them needs (about 2.6x the
-//      present-pair work at the path's occupancy); compacting pairs per
-//      offset is the next step;
+//      present-pair work at the path's occupancy);
 //   3. gathers: 16-byte cp.async per row chunk, zero-filled for absent
 //      rows (src_size 0), in a 3-stage ring, so the next stages' gathers
 //      are in flight during this stage's math;
 //   4. tile width: 32, 64, 96 or 128 output columns per block, from C_out,
 //      so 32- and 96-wide convs carry no masked columns.
 //
-// k3_conv_kernel / sparse_conv_k_kernel (f32, or ragged widths such as the
-// stem's C_in = 4; Cylinder3D's whole f32 path): a 64 x 64 output tile in
+// sparse_conv_k_tf32_kernel (f32, C_in % 4 == 0, C_out % 4 == 0: every
+// conv of Cylinder3D): the f32 tile of gather_mma.cuh (namespace tf32) on
+// 3xTF32 tensor cores, output-stationary over a row order.  The wrapper
+// passes `order`, the rows sorted by their bitmask of present offsets
+// (sparse_conv.mask_row_order, built once per table by the topology); a
+// tile takes 64 consecutive entries of the order, reads their rows'
+// rulebook entries through it, runs only the offsets one of them has and
+// writes out[order[r]].  Rows with equal masks share a tile, so the
+// tile's union of offsets comes near each row's own count (limit 2
+// above), and rows of a group stay in table order (nearby gathers).  Each
+// row sums its offsets in k order with no atomics: the same bits on
+// repeat.  Tiles of rows without offsets write zeros.  A table of few
+// rows (sparse_conv.k_splits: the coarse levels) has too few tiles to
+// fill the card: each tile's chain of (offset, 32-channel) stages is then
+// cut into equal parts run by separate blocks, and a second kernel adds
+// the parts' partials to the first's output in split order.
+//
+// k3_conv_kernel / sparse_conv_k_kernel (f32 on the 27-offset conv,
+// ragged widths such as the stem's C_in = 4): a 64 x 64 output tile in
 // registers (4 x 4 per thread) for all its offsets;
 // per offset it gathers the present neighbour rows into shared memory
 // (zero for -1), multiplies them with the W[k] tile by f32 FMA and skips
 // the offset when no row of the tile has that neighbour.  Ragged C_in /
-// C_out / V edges are masked.  f32 stays on CUDA cores: TF32 tensor cores
-// would not hold the f32 tolerance.
+// C_out / V edges are masked.
+#include <algorithm>
+
 #include "common.cuh"
 #include "gather_mma.cuh"
 
@@ -187,6 +208,116 @@ __global__ void __launch_bounds__(mma::kThreads)
   conv_mma_tile<BN>(smem, feats, w, rb, out, v_out, c_in, c_out, n_off);
 }
 
+// the 3xTF32 tile of one block: 64 rows of the order, T::BN columns.
+// With gridDim.z = S > 1 splits, block z runs the z-th of S equal parts of
+// the tile's stage chain; split 0 writes out (as with one split), split z
+// > 0 its partial at part[z - 1] in order positions and live[z - 1][tile]
+// = whether it had stages; sparse_conv_k_tf32_reduce adds the partials.
+template <typename T>
+__global__ void __launch_bounds__(taseg::tf32::kThreads)
+    sparse_conv_k_tf32_kernel(const float* __restrict__ feats,
+                              const float* __restrict__ w,
+                              const int* __restrict__ rb,
+                              const int* __restrict__ order,
+                              float* __restrict__ out, float* __restrict__ part,
+                              int* __restrict__ live, int v_out, int c_in,
+                              int c_out, int n_off) {
+  namespace tf = taseg::tf32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tf::Smem s = tf::carve<T>(smem, n_off);
+  const int m0 = blockIdx.x * tf::kBM, n0 = blockIdx.y * T::BN;
+  if (threadIdx.x < tf::kBM) {
+    const int r = m0 + threadIdx.x;
+    s.rows[threadIdx.x] = r < v_out ? order[r] : -1;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_off * tf::kBM; e += tf::kThreads) {
+    const int k = e / tf::kBM, row = s.rows[e % tf::kBM];
+    s.idx[e] = row >= 0 ? rb[static_cast<size_t>(k) * v_out + row] : -1;
+  }
+  __syncthreads();
+  const int total = tf::present_offsets(s, n_off) * ((c_in + T::BK - 1) / T::BK);
+  const int z = blockIdx.z, per = (total + gridDim.z - 1) / gridDim.z;
+  const int t0 = min(total, z * per), t1 = min(total, t0 + per);
+  if (z > 0) {
+    if (threadIdx.x == 0 && blockIdx.y == 0)
+      live[(z - 1) * gridDim.x + blockIdx.x] = t0 < t1;
+    if (t0 >= t1) return;
+  }
+  float acc[2][T::BN / 16][4] = {};
+  tf::gather_mma_tile<T>(s, t0, t1, feats, w, c_in, c_out, n0, acc);
+  if (z == 0)
+    tf::store_rows<T::BN>(s, acc, out, c_out, n0);
+  else
+    tf::store_rows<T::BN>(s, acc, part + static_cast<size_t>(z - 1) * v_out * c_out,
+                          c_out, n0, m0);
+}
+
+// out[order[p]] += the live partials of p's tile, in split order
+__global__ void sparse_conv_k_tf32_reduce(const float* __restrict__ part,
+                                          const int* __restrict__ live,
+                                          const int* __restrict__ order,
+                                          float* __restrict__ out, int v_out,
+                                          int c_out, int parts, int tiles) {
+  const int c4 = c_out / 4;
+  const size_t n = static_cast<size_t>(v_out) * c4;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int p = static_cast<int>(e / c4), c = static_cast<int>(e % c4) * 4;
+    const int tile = p / taseg::tf32::kBM;
+    bool any = false;
+    for (int z = 0; z < parts; ++z) any |= live[z * tiles + tile] != 0;
+    if (!any) continue;
+    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(order[p]) * c_out + c);
+    float4 a = *o;
+    for (int z = 0; z < parts; ++z) {
+      if (!live[z * tiles + tile]) continue;
+      const float4 b = *reinterpret_cast<const float4*>(
+          part + (static_cast<size_t>(z) * v_out + p) * c_out + c);
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    *o = a;
+  }
+}
+
+// launch the 3xTF32 kernel with tile T over `splits` parts of each tile's
+// chain (part: (splits - 1, v_out, c_out) f32, live: (splits - 1,
+// row tiles) int32 scratch when splits > 1), then the reduction; returns
+// the CUDA error
+template <typename T>
+int launch_k_tf32(const void* feats, const void* w, const void* rb,
+                  const void* order, void* out, void* part, void* live,
+                  int v_out, int c_in, int c_out, int n_off, int splits,
+                  cudaStream_t stream) {
+  namespace tf = taseg::tf32;
+  if (splits < 1 || (splits > 1 && (part == nullptr || live == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = tf::smem_bytes<T>(n_off);
+  cudaError_t e = cudaFuncSetAttribute(sparse_conv_k_tf32_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (v_out + tf::kBM - 1) / tf::kBM;
+  const dim3 grid(tiles, (c_out + T::BN - 1) / T::BN, splits);
+  sparse_conv_k_tf32_kernel<T><<<grid, tf::kThreads, bytes, stream>>>(
+      static_cast<const float*>(feats), static_cast<const float*>(w),
+      static_cast<const int*>(rb), static_cast<const int*>(order),
+      static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(live),
+      v_out, c_in, c_out, n_off);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const size_t n = static_cast<size_t>(v_out) * (c_out / 4);
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  sparse_conv_k_tf32_reduce<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(live),
+      static_cast<const int*>(order), static_cast<float*>(out), v_out, c_out,
+      splits - 1, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the CUDA-core kernel on one dtype code: the k3 instance (27 offsets)
 // where `k3`, else the K-offset instance over n_off offsets
 int launch_simt(const void* feats, const void* w, const void* rb, void* out,
@@ -276,5 +407,27 @@ extern "C" int taseg_sparse_conv_k_mma(const void* feats, const void* w,
         static_cast<cudaStream_t>(stream), static_cast<const bf16*>(feats),
         static_cast<const bf16*>(w), static_cast<const int*>(rb),
         static_cast<bf16*>(out), v_out, c_in, c_out, n_off);
+  });
+}
+
+// the 3xTF32 route of the K-offset conv: f32, C_in and C_out multiples of
+// 4, feats and w 16-byte aligned, 1 <= n_off <= 32; order (v_out,) int32,
+// a permutation of the output rows (sparse_conv.mask_row_order(rb));
+// `splits` parts of each tile's chain (sparse_conv.k_splits), with part
+// (splits - 1, v_out, c_out) f32 and live (splits - 1, ceil(v_out / 64))
+// int32 scratch when splits > 1
+extern "C" int taseg_sparse_conv_k_tf32(const void* feats, const void* w,
+                                        const void* rb, const void* order,
+                                        void* out, void* part, void* live,
+                                        int v_out, int c_in, int c_out,
+                                        int n_off, int splits, void* stream) {
+  namespace tf = taseg::tf32;
+  if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 4 != 0 ||
+      c_out % 4 != 0 || n_off <= 0 || n_off > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tf::with_tile_n_f32(c_out, [&](auto bn) {
+    using T = tf::Tile<decltype(bn)::value, 32, 3>;
+    return launch_k_tf32<T>(feats, w, rb, order, out, part, live, v_out, c_in,
+                            c_out, n_off, splits, static_cast<cudaStream_t>(stream));
   });
 }

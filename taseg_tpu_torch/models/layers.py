@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.sparse_conv import conv_k, k3_conv
+from ..ops.sparse_conv import KTable, conv_k, k3_conv
 from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 
 
@@ -27,7 +27,10 @@ class SparseConv(nn.Module):
     `transposed` picking the direction.  Any other K, called with a
     (K, V_out) rulebook, or a tuple (rb_fwd, rb_bwd) of the two
     directions' tables where a gradient is wanted: the conv over K
-    offsets (K2 at K, backward K2 + K4 at K; JAX's `sparse_conv_apply`).  `transposed` also sets the init's fan (C_out,
+    offsets (K2 at K, backward K2 + K4 at K; JAX's `sparse_conv_apply`);
+    so is any K, 27 included, called with a `KTable` or a tuple of two
+    (a table with its row order and pair lists: Cylinder3D's convs and
+    its 3^3 head).  `transposed` also sets the init's fan (C_out,
     JAX layers.py:96).  The weight is cast to the activation dtype first,
     so a bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
     comes back in that dtype.  `use_bias` adds a (C_out,) f32 bias after
@@ -69,7 +72,10 @@ class SparseConv(nn.Module):
         if isinstance(rulebook, StridedTables):
             apply = upsample_conv if self.transposed else downsample_conv
             return apply(feats, w.contiguous(), rulebook)
-        if self.kernel_volume == 27:
+        if isinstance(rulebook, KTable):
+            return conv_k(feats, w.contiguous(), rulebook)
+        tables = isinstance(rulebook, tuple) and isinstance(rulebook[0], KTable)
+        if self.kernel_volume == 27 and not tables:
             rb, rb_bwd, pairs = rulebook if isinstance(rulebook, tuple) else (rulebook, None, None)
             return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
         rb, rb_bwd = rulebook if isinstance(rulebook, tuple) else (rulebook, None)

@@ -12,15 +12,17 @@ reference `pcseg/model/segmentor/voxel/cylinder3d/cylinder_ts.py`).
     last two pooling only in (rho, phi) — pooling convs with the kernel
     equal to the step (K = 8, then 4), transposed convs back over the
     reverse tables;
-  * a 3^3 conv head with a bias (K = 27, the F3 route of JAX: `k3_conv`)
-    on the concatenated ReconBlock output and last decoder feature, and a
+  * a 3^3 conv head with a bias (K = 27, JAX's F3 route) on the
+    concatenated ReconBlock output and last decoder feature, and a
     point-refinement head on the voxel features gathered to the rows.
 
-Every conv other than the head and the 1x1 projections is the conv over
-K offsets (`ops.sparse_conv.conv_k`: K2 at K forward, K2 at K and K4 at
-K backward).  The model runs in f32, as JAX's (which casts nothing);
-`models.build_segmentor` refuses another compute dtype.  Module and
-parameter names follow the flax tree (`downCntx/a_conv0/kernel`,
+Every conv other than the 1x1 projections, the 3^3 head included, is the
+conv over K offsets (`ops.sparse_conv.conv_k`: K2 at K forward, K2 at K
+and K4 at K backward), called with `KTable`s: each table with its row
+order (`mask_row_order`) and, in train topologies, the pair lists of the
+tables a weight gradient reads.  The model runs in f32, as JAX's (which
+casts nothing); `models.build_segmentor` refuses another compute dtype.
+Module and parameter names follow the flax tree (`downCntx/a_conv0/kernel`,
 `res2/res/b_bn1/scale`, `up0_deconv/kernel`, `ReconNet/branch2/kernel`,
 `logits/bias`, `pp_fc0/kernel`, ...), so `utils.params_from_jax` maps
 the two one to one.
@@ -29,8 +31,8 @@ In train mode (`model.train()`) every BN takes its level's row mask and
 the convs take (rulebook, reverse rulebook) pairs, so the topology must
 come from `build_cylinder_topology(..., train=True)`, which adds the
 flipped tables of the same-level convs (the pooling and transposed convs
-read each other's table).  Left out against JAX's topology: the level-0
-segment tables (nothing reads them).
+read each other's table) and the pair lists.  Left out against JAX's
+topology: the level-0 segment tables (nothing reads them).
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ from ...ops.rulebook import (
     kernel_offsets,
     spdownsample,
 )
-from ...ops.sparse_conv import flip_rulebook
+from ...ops.f3conv import pair_lists_many
+from ...ops.sparse_conv import KTable, flip_rulebook, mask_row_orders
 from ...ops.voxelize import segment_max
 from ..layers import Dense, MaskedBatchNorm, SparseConv
 from ..range2d.blocks import leaky_relu
@@ -80,6 +83,14 @@ class CylLevel:
     rb_up: Optional[torch.Tensor] = None
     # flip_rulebook of each of rb_asym; None in inference topologies
     rb_asym_bwd: Optional[tuple] = None
+    # the same tables as KTables (row orders; pair lists of the tables a
+    # weight gradient reads in train topologies): rb_asym's, rb_asym_bwd's
+    # (the order of rb_asym's table: a flip keeps rows with equal masks
+    # equal), rb_down's and rb_up's
+    asym: tuple = ()
+    asym_bwd: Optional[tuple] = None
+    down: Optional[KTable] = None
+    up: Optional[KTable] = None
 
 
 @dataclass(frozen=True)
@@ -93,6 +104,11 @@ class CylTopology:
     # flipped rb_recon and rb_head; None in inference topologies
     rb_recon_bwd: Optional[tuple] = None
     rb_head_bwd: Optional[torch.Tensor] = None
+    # KTables of rb_recon, rb_recon_bwd, rb_head, rb_head_bwd (as CylLevel's)
+    recon: tuple = ()
+    recon_bwd: Optional[tuple] = None
+    head: Optional[KTable] = None
+    head_bwd: Optional[KTable] = None
 
 
 def build_cylinder_topology(
@@ -107,8 +123,10 @@ def build_cylinder_topology(
     levels at `CYL_STRIDES` (capacities `caps.voxels`), per level the two
     asymmetric rulebooks, the pooling table and its reverse, and at level
     0 the three recon rulebooks and the 3^3 head rulebook (from the 9
-    floor queries of `build_rulebook_k3`, equal to JAX's general build).
-    `train` adds the flipped tables that the backward reads."""
+    floor queries of `build_rulebook_k3`, equal to JAX's general build),
+    each with its row order.  `train` adds the flipped tables that the
+    backward reads and the pair lists of every table a weight gradient
+    reads.  Everything stays on the device: nothing is read back."""
     dev = point_coords.device
     p = point_coords.shape[0]
     num_points = torch.as_tensor(num_points, dtype=torch.int32, device=dev)
@@ -123,18 +141,13 @@ def build_cylinder_topology(
     bounds = compute_bounds(vox0, valid, margin=64)
     coords0, num0, inverse, _ = unique_coords(vox0, valid, bounds, caps.voxels[0])
 
-    def level(coords, num, stride, rb_down=None, rb_up=None):
-        rbs = tuple(
+    def asym(coords, num, stride):
+        return tuple(
             build_rulebook(coords, num, coords, num, kernel_offsets(ks, stride=stride), bounds)
             for ks in ASYM_KERNELS
         )
-        bwd = tuple(flip_rulebook(r) for r in rbs) if train else None
-        return CylLevel(
-            coords=coords, num=num, rb_asym=rbs, rb_down=rb_down, rb_up=rb_up,
-            rb_asym_bwd=bwd,
-        )
 
-    levels = [level(coords0, num0, CYL_STRIDES[0])]
+    raw = [(coords0, num0, asym(coords0, num0, CYL_STRIDES[0]), None, None)]
     prev_c, prev_n = coords0, num0
     for l in range(1, len(CYL_STRIDES)):
         s_prev = CYL_STRIDES[l - 1]
@@ -143,7 +156,7 @@ def build_cylinder_topology(
         offs = kernel_offsets(step, stride=s_prev)  # kernel = step
         rb_down = build_rulebook(coords_l, num_l, prev_c, prev_n, offs, bounds)
         rb_up = build_reverse_rulebook(prev_c, prev_n, coords_l, num_l, offs, bounds)
-        levels.append(level(coords_l, num_l, CYL_STRIDES[l], rb_down, rb_up))
+        raw.append((coords_l, num_l, asym(coords_l, num_l, CYL_STRIDES[l]), rb_down, rb_up))
         prev_c, prev_n = coords_l, num_l
 
     rb_recon = tuple(
@@ -151,11 +164,43 @@ def build_cylinder_topology(
         for ks in RECON_KERNELS
     )
     rb_head = build_rulebook_k3(coords0, num0, 1, bounds)
+
+    # every table's row order, and (train) the pair lists of every table a
+    # weight gradient reads: the flipped same-level tables and both
+    # pooling tables (each the other direction's reverse), batched by row
+    # count.  A flipped table shares its table's order.
+    same = [r for lv in raw for r in lv[2]] + [*rb_recon, rb_head]
+    pools = [r for lv in raw[1:] for r in lv[3:]]
+    orders = mask_row_orders(same + pools)
+    n = len(same)
+    if train:
+        flips = [flip_rulebook(r) for r in same]
+        lists = pair_lists_many(flips + pools)
+        bwd = [KTable(f, o, p) for f, o, p in zip(flips, orders, lists)]
+    else:
+        lists = [None] * (n + len(pools))
+        bwd = [None] * n
+    fwd = [KTable(r, o) for r, o in zip(same, orders)]
+    pooled = [KTable(r, o, p) for r, o, p in zip(pools, orders[n:], lists[n:])]
+
+    levels = []
+    for l, (coords, num, rbs, rb_down, rb_up) in enumerate(raw):
+        a, b = fwd[2 * l : 2 * l + 2], bwd[2 * l : 2 * l + 2]
+        levels.append(CylLevel(
+            coords=coords, num=num, rb_asym=rbs, rb_down=rb_down, rb_up=rb_up,
+            rb_asym_bwd=tuple(t.rb for t in b) if train else None,
+            asym=tuple(a), asym_bwd=tuple(b) if train else None,
+            down=pooled[2 * l - 2] if l else None, up=pooled[2 * l - 1] if l else None,
+        ))
+    i = 2 * len(raw)
+    recon, recon_bwd = tuple(fwd[i : i + 3]), tuple(bwd[i : i + 3])
     return CylTopology(
         levels=tuple(levels), rb_recon=rb_recon, rb_head=rb_head,
         point_inverse=inverse, bounds=bounds, num_points=num_points,
-        rb_recon_bwd=tuple(flip_rulebook(r) for r in rb_recon) if train else None,
-        rb_head_bwd=flip_rulebook(rb_head) if train else None,
+        rb_recon_bwd=tuple(t.rb for t in recon_bwd) if train else None,
+        rb_head_bwd=bwd[i + 3].rb if train else None,
+        recon=recon, recon_bwd=recon_bwd if train else None,
+        head=fwd[i + 3], head_bwd=bwd[i + 3],
     )
 
 
@@ -277,14 +322,14 @@ class CylinderTS(nn.Module):
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
             ]
-            asym = [tuple(zip(l.rb_asym, l.rb_asym_bwd)) for l in levels]
-            recon = tuple(zip(topo.rb_recon, topo.rb_recon_bwd))
-            head = (topo.rb_head, topo.rb_head_bwd, None)
+            asym = [tuple(zip(l.asym, l.asym_bwd)) for l in levels]
+            recon = tuple(zip(topo.recon, topo.recon_bwd))
+            head = (topo.head, topo.head_bwd)
         else:
             masks = [None] * len(levels)
-            asym = [l.rb_asym for l in levels]
-            recon = topo.rb_recon
-            head = topo.rb_head
+            asym = [l.asym for l in levels]
+            recon = topo.recon
+            head = topo.head
 
         # point pre-net (cylinder_ts.py:401-418)
         h = self.pp_bn0(point_feats[:, : self.in_dim], pvalid)
@@ -304,7 +349,7 @@ class CylinderTS(nn.Module):
         enc = [x]
         for l in range(1, 5):
             lv = levels[l]
-            x = getattr(self, f"pool{l}")(x, (lv.rb_down, lv.rb_up))
+            x = getattr(self, f"pool{l}")(x, (lv.down, lv.up))
             x = leaky_relu(getattr(self, f"pool_bn{l}")(x, masks[l]))
             x = getattr(self, f"res{l + 1}")(x, asym[l], masks[l])
             enc.append(x)
@@ -312,7 +357,7 @@ class CylinderTS(nn.Module):
         y = enc[4]
         for i, l in enumerate((4, 3, 2, 1)):
             lv = levels[l]
-            y = getattr(self, f"up{i}_deconv")(y, (lv.rb_up, lv.rb_down))
+            y = getattr(self, f"up{i}_deconv")(y, (lv.up, lv.down))
             y = leaky_relu(getattr(self, f"up_bn{i}")(y, masks[l - 1]))
             y = torch.cat([y, enc[l - 1]], dim=-1)
             y = getattr(self, f"up{i}_res")(y, asym[l - 1], masks[l - 1])

@@ -25,6 +25,9 @@ offsets (`sparse_conv`, Cylinder3D's convs) counts under its own
 `sparse_conv_k` (`_mma`, `_dgrad`, `_dgrad_mma` as K2's), so K2's
 27-offset counts stay those of the 3^3 convs; K4 at K offsets
 (`sparse_conv_dw`) counts one per call, its split reduction included.
+The `_tf32` entries (`sparse_conv_k_tf32`, `sparse_conv_k_dgrad_tf32`,
+`sparse_conv_dw_tf32`) count the launches of K2 and K4 at K offsets that
+took the 3xTF32 tensor-core route, as the `_mma` entries count bf16's.
 """
 
 from __future__ import annotations
@@ -75,6 +78,9 @@ LAUNCHES = {
     "sparse_conv_k_dgrad": 0,
     "sparse_conv_k_dgrad_mma": 0,
     "sparse_conv_dw": 0,
+    "sparse_conv_k_tf32": 0,
+    "sparse_conv_k_dgrad_tf32": 0,
+    "sparse_conv_dw_tf32": 0,
 }
 
 _P = ctypes.c_void_p
@@ -100,6 +106,8 @@ _SIGNATURES = {
     "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_k_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -193,12 +201,13 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
-def counters(name: str, *, dgrad: bool = False, mma: bool = False) -> tuple:
+def counters(name: str, *, dgrad: bool = False, suffix: str = "") -> tuple:
     """The LAUNCHES entries that one launch of wrapper `name` counts
-    under: its own, `<name>_dgrad` for an input-gradient call, and the
-    `_mma` entry of each on the tensor-core route."""
+    under: its own, `<name>_dgrad` for an input-gradient call, and, on a
+    tensor-core route, the route's entry of each (`suffix`: `_mma` for
+    bf16, `_tf32` for 3xTF32)."""
     names = (name, name + "_dgrad") if dgrad else (name,)
-    return names + tuple(n + "_mma" for n in names) if mma else names
+    return names + tuple(n + suffix for n in names) if suffix else names
 
 
 def launch(name: str, counters: tuple[str, ...], *args) -> None:

@@ -23,8 +23,10 @@ The conv over K offsets (`sparse_conv.conv_k`, JAX sparse_conv.py:157
 (K, V_in) of cotangent rows (`sparse_conv_bwd`): d_feats through K2 at K
 offsets on (g, W^T, rb_bwd), d_W through K4 at K offsets
 (`sparse_conv_dw`, `csrc/conv_dw.cu`), where g has V_out rows and feats
-V_in.  K4 at K offsets has the CUDA-core route only, over rb_bwd itself
-(Cylinder3D, its one user, runs in f32), so it reads no pair lists.
+V_in.  K4 at K offsets takes the route of `sparse_conv.k_route`: in f32
+with C_in and C_out multiples of 4, the 3xTF32 tensor-core tile over the
+per-offset pair lists of rb_bwd (`pair_lists`, which the topology builds
+once per table and step); else the CUDA-core kernel over rb_bwd itself.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .sparse_conv import DTYPE_CODES, sparse_conv, sparse_conv_k3, sparse_conv_plain
+from .sparse_conv import DTYPE_CODES, k_route, sparse_conv, sparse_conv_k3, sparse_conv_plain
 
 # split-K rule of K4 and K5 (csrc/conv_dw.cu): at least 4 blocks per SM
 # of the H100's 132, at least 1024 rows per split, at most 64 MiB of f32
@@ -71,7 +73,8 @@ class PairLists(NamedTuple):
     order.
 
     pairs:  (capacity, 2) int32 — for o = 0..n_out-1 in turn, o's pairs;
-            rows past starts[n_out] are unused capacity.
+            rows past starts[n_out] are unused capacity (and, in lists of
+            `pair_lists_many`, rows before starts[0] are other tables').
     starts: (n_out + 1,) int32 — o's pairs are pairs[starts[o]:starts[o+1]].
     """
 
@@ -79,11 +82,12 @@ class PairLists(NamedTuple):
     starts: torch.Tensor
 
 
-def k3_pair_lists(rb_bwd: torch.Tensor) -> PairLists:
-    """K4's PairLists of a (27, V) int32 flipped rulebook: per offset k
-    the pairs (row i, rb_bwd[k, i]) with rb_bwd[k, i] >= 0, in a (27 V, 2)
-    buffer; on its device, by one prefix sum and one scatter: no count
-    is read back to the host."""
+def pair_lists(rb_bwd: torch.Tensor) -> PairLists:
+    """The PairLists of a (K, V) int32 reverse table (K4's flipped
+    rulebook, K = 27, or any table of K4 at K offsets): per offset k the
+    pairs (row i, rb_bwd[k, i]) with rb_bwd[k, i] >= 0, in row order, in a
+    (K V, 2) buffer; on its device, by one prefix sum and one scatter: no
+    count is read back to the host."""
     k, v = rb_bwd.shape
     present = (rb_bwd >= 0).reshape(-1)
     pos = torch.cumsum(present, 0)  # int64: pairs up to and including each entry
@@ -96,6 +100,28 @@ def k3_pair_lists(rb_bwd: torch.Tensor) -> PairLists:
     out.scatter_(0, dest, packed.reshape(-1))
     starts = torch.cat([pos.new_zeros(1), pos[v - 1 :: v]]).int()
     return PairLists(pairs=out[: k * v].view(torch.int32).view(k * v, 2), starts=starts)
+
+
+k3_pair_lists = pair_lists  # K4's name for its 27-offset lists
+
+
+def pair_lists_many(rbs) -> list:
+    """`pair_lists` of each (K_t, V_t) reverse table of `rbs`, built once
+    per distinct V_t over the group's tables stacked along K: each
+    table's PairLists reads the group's buffer through its own slice of
+    the start table (its offsets' lists, at their place in the buffer)."""
+    out = [None] * len(rbs)
+    groups: dict = {}
+    for i, rb in enumerate(rbs):
+        groups.setdefault(rb.shape[1], []).append(i)
+    for idx in groups.values():
+        both = pair_lists(torch.cat([rbs[i] for i in idx]))
+        off = 0
+        for i in idx:
+            k = rbs[i].shape[0]
+            out[i] = PairLists(pairs=both.pairs, starts=both.starts[off : off + k + 1])
+            off += k
+    return out
 
 
 def dw_mma_splits(v: int, c_in: int, c_out: int, n_out: int = 27) -> tuple[int, int]:
@@ -225,20 +251,22 @@ def _k3_conv_dw_mma(feats, grad, rb_bwd, pairs):
 
 
 def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
-                  max_pairs: int, capacity: int, *extra) -> torch.Tensor:
-    """Launch the tensor-core route of K4 or K5 (C entry `name`, counted
-    under `counter` and its `_mma` entry) over `pairs`, n_out lists of up
-    to `max_pairs` pairs each in a (capacity, 2) buffer; `extra` are the
+                  max_pairs: int, capacity: int, *extra, suffix: str = "_mma") -> torch.Tensor:
+    """Launch the tensor-core route of K4, K5 or K4 at K offsets (C entry
+    `name`, counted under `counter` and its `suffix` entry: `_mma`, or
+    `_tf32` for the 3xTF32 route) over `pairs`, n_out lists of up to
+    `max_pairs` pairs each in a (capacity, 2) buffer; `extra` are the
     entry's int arguments after the widths.  Returns the f32 (n_out,
     C_in, C_out) result."""
     dev = x.device
     _build.check_aligned(x=x, y=y)
     _build.check("pairs", pairs.pairs, (torch.int32,), 2, dev)
     _build.check("starts", pairs.starts, (torch.int32,), 1, dev)
-    if pairs.pairs.shape != (capacity, 2) or pairs.starts.shape != (n_out + 1,):
+    if (pairs.pairs.shape[1:] != (2,) or pairs.pairs.shape[0] < capacity
+            or pairs.starts.shape != (n_out + 1,)):
         raise ValueError(
             f"pair lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
-            f"do not fit ({capacity}, 2) / ({n_out + 1},)"
+            f"do not fit (>= {capacity}, 2) / ({n_out + 1},)"
         )
     c_in, c_out = x.shape[1], y.shape[1]
     splits, per = dw_mma_splits(max_pairs, c_in, c_out, n_out)
@@ -248,7 +276,7 @@ def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
         if splits > 1 else None
     )
     _build.launch(
-        name, _build.counters(counter, mma=True),
+        name, _build.counters(counter, suffix=suffix),
         x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(),
         pairs.starts.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), c_in, c_out, *extra, splits, per,
@@ -285,12 +313,13 @@ def f3_bwd_fused(
 
 def sparse_conv_dw(
     feats: torch.Tensor, grad: torch.Tensor, rb_bwd: torch.Tensor,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, pairs: Optional[PairLists] = None,
 ) -> torch.Tensor:
     """K4 at K offsets: feats (V_in, C_in), grad (V_out, C_out) in one
     dtype, rb_bwd (K, V_in) int32 of grad rows -> d_W (K, C_in, C_out),
-    summed in f32 and rounded once to `out_dtype`.  Deterministic: the
-    same inputs give the same bits."""
+    summed in f32 and rounded once to `out_dtype`.  The 3xTF32 route reads
+    `pairs`, `pair_lists(rb_bwd)` (built here when not given).
+    Deterministic: the same inputs give the same bits."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("grad", grad, (feats.dtype,), 2, dev)
@@ -307,6 +336,14 @@ def sparse_conv_dw(
         return k3_conv_dw_plain(feats, grad, rb_bwd).to(out_dtype)
     if v_in == 0 or c_in == 0 or c_out == 0 or grad.shape[0] == 0:
         return torch.zeros((k, c_in, c_out), dtype=out_dtype, device=dev)
+    if k_route(feats.dtype, c_in, c_out) == "tf32x3":
+        if pairs is None:
+            pairs = pair_lists(rb_bwd)
+        out = launch_dw_mma(
+            "taseg_sparse_conv_dw_tf32", "sparse_conv_dw", feats, grad, pairs,
+            k, v_in, k * v_in, k, suffix="_tf32",
+        )
+        return out.to(out_dtype)
     out = launch_dw(
         "taseg_sparse_conv_dw", "sparse_conv_dw",
         (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
@@ -318,14 +355,16 @@ def sparse_conv_dw(
 def sparse_conv_bwd(
     feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
     rb_bwd: torch.Tensor, *, need_feats: bool = True,
+    order: Optional[torch.Tensor] = None, pairs: Optional[PairLists] = None,
 ):
     """(d_feats or None, d_W) of the conv over K offsets for the cotangent
     `grad` (V_out, C_out): d_feats (V_in, C_in) through K2 at K offsets
-    on (grad, W^T, rb_bwd), counted as a `sparse_conv_k_dgrad` launch; d_W
-    through K4 at K offsets, in weight's dtype."""
+    on (grad, W^T, rb_bwd) over rb_bwd's row order `order`, counted as a
+    `sparse_conv_k_dgrad` launch; d_W through K4 at K offsets over rb_bwd's
+    pair lists `pairs`, in weight's dtype (both built where not given)."""
     g = grad.to(feats.dtype)
     d_feats = None
     if need_feats:
         w_t = weight.transpose(1, 2).contiguous()
-        d_feats = sparse_conv(g, w_t, rb_bwd, dgrad=True)
-    return d_feats, sparse_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype)
+        d_feats = sparse_conv(g, w_t, rb_bwd, dgrad=True, order=order)
+    return d_feats, sparse_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)

@@ -33,9 +33,19 @@ pairing rb_bwd[k] with W[k], and d_W is K4 at K offsets
 table of the other direction: `flip_rulebook(rb)` for an odd kernel on
 one coordinate set, the down / up table pair (`rulebook.build_rulebook`
 and `build_reverse_rulebook`) between two levels.
+
+K2 at K picks its kernel by `k_route`: in f32 with C_in and C_out
+multiples of 4, the 3xTF32 tensor-core tile over the rows in
+`mask_row_order(rb)` (rows with equal sets of present offsets share a
+64-row tile, so a tile runs about the offsets its rows have); bf16 the
+tensor-core tile over rows in table order; other widths the CUDA-core
+kernel.  A `KTable` carries a table with its order and, where a weight
+gradient reads it, its pair lists, built once by the topology.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,12 +56,100 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call takes: "mma" (tensor cores) for bf16 with
-    C_in and C_out multiples of 8, else "simt" (CUDA cores).  f32 stays
-    on CUDA cores: TF32 tensor cores would not hold its 1e-5 tolerance."""
+    """The kernel a CUDA call of the 27-offset conv takes: "mma" (tensor
+    cores) for bf16 with C_in and C_out multiples of 8, else "simt" (CUDA
+    cores).  Its f32 calls stay on CUDA cores; the conv over K offsets
+    has a 3xTF32 route (`k_route`)."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
         return "mma"
     return "simt"
+
+
+def k_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
+    """The kernel a CUDA call of K2 or K4 at K offsets takes: "tf32x3"
+    (tensor cores, each f32 product as three TF32 products of its
+    operands' high and low parts, within the f32 tolerance) for f32 with
+    C_in and C_out multiples of 4; "mma" for bf16 with both multiples of
+    8 (K2 only: K4 at K has no bf16 tensor-core route); else "simt"."""
+    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
+        return "tf32x3"
+    return route(dtype, c_in, c_out)
+
+
+# split rule of K2 at K's 3xTF32 route (csrc/sparse_conv.cu): a 64-row
+# tile runs a chain of (present offsets) x (C_in / 32) stages.  A table of
+# at most K_SPLIT_ROWS output rows (Cylinder's coarse levels: 12-29k rows
+# of capacity, a fifth of them occupied) has too few tiles to fill the
+# card, so each chain is cut into K_SPLITS parts, each its own block, and
+# the partials are added in split order afterwards (tools/k2k_tiles.py
+# times the tile shapes and split counts at Cylinder's calls)
+K_TILE_ROWS = 64
+K_SPLITS = 4
+K_SPLIT_ROWS = 32768
+
+
+def k_splits(v_out: int) -> int:
+    """Parts of each tile's chain on the 3xTF32 route of K2 at K, from
+    the shapes alone."""
+    return K_SPLITS if v_out <= K_SPLIT_ROWS else 1
+
+
+class KTable(NamedTuple):
+    """A table of the conv over K offsets with what its kernels read
+    beside it.
+
+    rb:    (K, V_out) int32 rulebook: rb[k, v] the input row of output row
+           v at offset k, -1 for none.
+    order: (V_out,) int32 `mask_row_order(rb)`, or None (built at the call).
+    pairs: `f3conv.PairLists` of rb, where a weight gradient reads rb as
+           its reverse table (train topologies), or None (built at the call).
+    """
+
+    rb: torch.Tensor
+    order: Optional[torch.Tensor] = None
+    pairs: Optional[tuple] = None
+
+
+def as_table(t) -> KTable:
+    """`t` as a KTable (a bare rulebook gets no order or pair lists)."""
+    return t if isinstance(t, KTable) else KTable(t)
+
+
+def mask_row_order(rb: torch.Tensor) -> torch.Tensor:
+    """(V_out,) int32 permutation of the rows of a (K, V_out) rulebook:
+    rows grouped by their bitmask of present offsets, rows without any
+    offset last, table order within a group (one stable sort on the
+    device; nothing is read back).  The bitmask sort of TorchSparse++
+    (Tang et al., MICRO 2023)."""
+    return mask_row_orders([rb])[0]
+
+
+def mask_row_orders(rbs) -> list:
+    """`mask_row_order` of each (K_t, V_t) rulebook of `rbs`, with one
+    stable sort per distinct V_t (the tables of one level share it).  The
+    key of row v is the bitmask of its ABSENT offsets (bit k set where
+    rb[k, v] < 0): a bijection of the present mask, so equal masks
+    group, and a row without offsets has all K bits set, the largest key.
+    The keys of a group are one float64 product (exact below 2^53) of a
+    block matrix of powers of two with the stacked absence flags."""
+    out = [None] * len(rbs)
+    groups: dict = {}
+    for i, rb in enumerate(rbs):
+        groups.setdefault(rb.shape[1], []).append(i)
+    for idx in groups.values():
+        ks = [rbs[i].shape[0] for i in idx]
+        bits = torch.zeros((len(idx), sum(ks)), dtype=torch.float64)
+        off = 0
+        for t, k in enumerate(ks):
+            bits[t, off : off + k] = 2.0 ** torch.arange(k, dtype=torch.float64)
+            off += k
+        dev = rbs[idx[0]].device
+        absent = (torch.cat([rbs[i] for i in idx]) < 0).double()
+        keys = (bits.to(dev) @ absent).to(torch.int32 if max(ks) < 31 else torch.int64)
+        order = torch.sort(keys, dim=1, stable=True).indices.to(torch.int32)
+        for t, i in enumerate(idx):
+            out[i] = order[t]
+    return out
 
 
 def sparse_conv_plain(
@@ -106,7 +204,7 @@ def sparse_conv_k3(
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
             "taseg_sparse_conv_k3_mma",
-            _build.counters("sparse_conv_k3", dgrad=dgrad, mma=True),
+            _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_mma"),
             *ptrs, v, c_in, c_out,
         )
     else:
@@ -168,13 +266,14 @@ def k3_conv(
 
 def sparse_conv(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
-    *, dgrad: bool = False,
+    *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2 at K offsets: feats (V_in, C_in), weight (K, C_in, C_out) in
     feats' dtype, rb (K, V_out) int32 of feats rows (-1: none), 1 <= K <=
     32 -> (V_out, C_out) in feats' dtype, summed in f32 and rounded once.
-    `dgrad` marks an input-gradient call (counted again under
-    `sparse_conv_k_dgrad`)."""
+    The 3xTF32 route reads `order`, rb's `mask_row_order` (built here when
+    not given).  `dgrad` marks an input-gradient call (counted again
+    under `sparse_conv_k_dgrad`)."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
@@ -194,58 +293,81 @@ def sparse_conv(
         return out
     if c_in == 0 or feats.shape[0] == 0:
         return out.zero_()
-    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr())
-    if route(feats.dtype, c_in, c_out) == "mma":
+    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr())
+    r = k_route(feats.dtype, c_in, c_out)
+    if r == "tf32x3":
+        if order is None:
+            order = mask_row_order(rb)
+        _build.check("order", order, (torch.int32,), 1, dev)
+        if order.shape != (v_out,):
+            raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
+        _build.check_aligned(feats=feats, weight=weight)
+        splits = k_splits(v_out)
+        part = live = None
+        if splits > 1:
+            part = torch.empty((splits - 1, v_out, c_out), dtype=torch.float32, device=dev)
+            live = torch.empty((splits - 1, -(-v_out // K_TILE_ROWS)), dtype=torch.int32, device=dev)
+        _build.launch(
+            "taseg_sparse_conv_k_tf32",
+            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_tf32"),
+            *ptrs, order.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), None if live is None else live.data_ptr(),
+            v_out, c_in, c_out, k, splits,
+        )
+    elif r == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
             "taseg_sparse_conv_k_mma",
-            _build.counters("sparse_conv_k", dgrad=dgrad, mma=True),
-            *ptrs, v_out, c_in, c_out, k,
+            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_mma"),
+            *ptrs, out.data_ptr(), v_out, c_in, c_out, k,
         )
     else:
         _build.launch(
             "taseg_sparse_conv_k", _build.counters("sparse_conv_k", dgrad=dgrad),
-            *ptrs, v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
+            *ptrs, out.data_ptr(), v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
         )
     return out
 
 
 class SparseConvK(torch.autograd.Function):
     """`sparse_conv` with its gradient (JAX `_conv_vjp_bwd`).  Saves feats
-    and weight; rb_bwd (K, V_in) is held by reference.  No d_feats where
-    feats need none."""
+    and weight; the reverse table `bwd` (a KTable over V_in rows) is held
+    by reference.  No d_feats where feats need none."""
 
     @staticmethod
-    def forward(ctx, feats, weight, rb, rb_bwd):
+    def forward(ctx, feats, weight, fwd, bwd):
         ctx.save_for_backward(feats, weight)
-        ctx.rb_bwd = rb_bwd
-        return sparse_conv(feats, weight, rb)
+        ctx.bwd = bwd
+        return sparse_conv(feats, weight, fwd.rb, order=fwd.order)
 
     @staticmethod
     def backward(ctx, grad):
         from .f3conv import sparse_conv_bwd
 
         feats, weight = ctx.saved_tensors
+        b = ctx.bwd
         d_feats, d_w = sparse_conv_bwd(
-            feats, weight, grad.contiguous(), ctx.rb_bwd,
-            need_feats=ctx.needs_input_grad[0],
+            feats, weight, grad.contiguous(), b.rb,
+            need_feats=ctx.needs_input_grad[0], order=b.order, pairs=b.pairs,
         )
         return d_feats, d_w, None, None
 
 
 def conv_k(
-    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
-    rb_bwd: torch.Tensor = None,
+    feats: torch.Tensor, weight: torch.Tensor, rb, rb_bwd=None,
 ) -> torch.Tensor:
     """The conv over K offsets, differentiable where autograd asks for a
     gradient (then rb_bwd, the (K, V_in) table of the other direction, is
     required: `flip_rulebook(rb)` for an odd kernel on one level, as JAX's
-    layer takes it), else the plain `sparse_conv` call."""
+    layer takes it), else the plain `sparse_conv` call.  `rb` and `rb_bwd`
+    are rulebooks or `KTable`s (a table with its row order and pair
+    lists)."""
+    fwd = as_table(rb)
     if wants_grad(feats, weight):
         if rb_bwd is None:
             raise ValueError(
                 "a gradient of this conv needs its reverse rulebook: build the "
                 "topology in its train form"
             )
-        return SparseConvK.apply(feats, weight, rb, rb_bwd)
-    return sparse_conv(feats, weight, rb)
+        return SparseConvK.apply(feats, weight, fwd, as_table(rb_bwd))
+    return sparse_conv(feats, weight, fwd.rb, order=fwd.order)

@@ -242,7 +242,7 @@ def downsample_conv_apply(
     if downsample_route(feats.dtype, c_in, c_out) == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
-            "taseg_strided_down_mma", _build.counters("strided_down", dgrad=dgrad, mma=True),
+            "taseg_strided_down_mma", _build.counters("strided_down", dgrad=dgrad, suffix="_mma"),
             *ptrs, v_coarse, c_in, c_out,
         )
     else:
@@ -279,7 +279,7 @@ def upsample_conv_apply(
     if upsample_route(feats.dtype, c_in, c_out) == "mma":
         _build.check_aligned(feats=feats, weight=weight)
         _build.launch(
-            "taseg_strided_up_mma", _build.counters("strided_up", dgrad=dgrad, mma=True),
+            "taseg_strided_up_mma", _build.counters("strided_up", dgrad=dgrad, suffix="_mma"),
             *ptrs, v_fine, c_in, c_out,
         )
     else:

@@ -32,9 +32,13 @@ held against the CPU's.
 
 K2 and K4 at K offsets (`sparse_conv`, `sparse_conv_dw`; Cylinder3D's
 convs at K = 9, 3, 8 and 4, between two levels for the pooling and
-transposed convs) are held as K2 and K4 are; the autograd Function of
-the conv over K offsets, `segment_max` and a small Cylinder_TS f32 step
-on the card against the CPU.
+transposed convs, and its 3^3 head at K = 27) are held as K2 and K4 are;
+in f32 with widths that are multiples of 4 they take the 3xTF32 route
+(over `mask_row_order` and `pair_lists`), held to the same tolerances and
+to the same bits on repeat, at ragged V, all-empty tables and single-row
+tiles too; the autograd Function of the conv over K offsets,
+`segment_max` and a small Cylinder_TS f32 step on the card against the
+CPU.
 """
 
 from dataclasses import replace
@@ -969,10 +973,13 @@ def test_harness_eval_equals_segmenter(cuda, tmp_path, dtype):
 def _k_tables(dev, kind, seed=61):
     """(rb, rb_bwd, V_in) of a conv over K offsets on a random level:
     `asym9` a (1,3,3) conv on the level (K = 9), `recon3` a (1,1,3) conv
-    (K = 3), `down8` / `down4` the pooling conv into the level at step
+    (K = 3), `head27` the 3^3 conv (K = 27), `down8` / `down4` the pooling conv into the level at step
     (2,2,2) / (2,2,1) (V_in the finer level's rows, V_out the coarser
     one's), `up8` / `up4` its transposed conv (the reverse table)."""
     _, u, num, b = _level(dev, seed=seed)
+    if kind == "head27":
+        rb = tr.build_rulebook_k3(u, num, 1, b)
+        return rb, tsc.flip_rulebook(rb), u.shape[0]
     if kind in ("asym9", "recon3"):
         offs = tr.kernel_offsets((1, 3, 3) if kind == "asym9" else (1, 1, 3))
         rb = tr.build_rulebook(u, num, u, num, offs, b)
@@ -1068,12 +1075,96 @@ def test_segment_max_card_equals_cpu(cuda):
     assert torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1])
 
 
+TF32_KINDS = K_KINDS + ("head27",)
+TF32_WIDTHS = [(16, 32), (768, 512), (128, 20)]
+
+
+@pytest.mark.parametrize("kind", TF32_KINDS)
+@pytest.mark.parametrize("c_in,c_out", TF32_WIDTHS)
+def test_sparse_conv_k_tf32_kernel(cuda, kind, c_in, c_out):
+    """K2 at K offsets on its 3xTF32 route (K = 9, 3, 8, 4, 27; f32)
+    against its plain version within 1e-5 of the largest sum of |terms|;
+    the same bits on repeat and with the order given; one
+    `sparse_conv_k_tf32` launch per call, none on another route."""
+    rng = np.random.default_rng(c_in + 7 * c_out)
+    rb, _, v_in = _k_tables(cuda, kind)
+    x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+    w = _rand(rng, (rb.shape[0], c_in, c_out), cuda, torch.float32)
+    assert tsc.k_route(torch.float32, c_in, c_out) == "tf32x3"
+    _build.reset_launches()
+    got = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+    assert torch.equal(got, tsc.sparse_conv(x, w, rb, order=tsc.mask_row_order(rb)))
+    L = _build.LAUNCHES
+    assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_k_mma"], L["sparse_conv_k3"]) == (3, 3, 0, 0)
+    _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+
+
+@pytest.mark.parametrize("kind", TF32_KINDS)
+@pytest.mark.parametrize("c_in,c_out", TF32_WIDTHS)
+def test_sparse_conv_dw_tf32_kernel(cuda, kind, c_in, c_out):
+    """K4 at K offsets on its 3xTF32 route over `pair_lists(rb_bwd)`
+    against its plain version within 1e-4 of the largest sum of |terms|;
+    the same bits on repeat and with the lists given; one
+    `sparse_conv_dw_tf32` launch per call."""
+    rng = np.random.default_rng(c_in * 5 + c_out)
+    rb, rb_bwd, v_in = _k_tables(cuda, kind)
+    x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+    g = _rand(rng, (rb.shape[1], c_out), cuda, torch.float32)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd))
+    assert torch.equal(got, tf3.sparse_conv_dw(x, g, rb_bwd, pairs=tf3.pair_lists(rb_bwd)))
+    L = _build.LAUNCHES
+    assert (L["sparse_conv_dw"], L["sparse_conv_dw_tf32"], L["k3_conv_dw"]) == (3, 3, 0)
+    assert got.shape == (rb.shape[0], c_in, c_out)
+    _close(got, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd),
+           torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("k", [3, 4, 8, 9, 27])
+@pytest.mark.parametrize("case", ["ragged", "empty", "one_row", "tall"])
+def test_k_offsets_tf32_edges(cuda, k, case):
+    """Both 3xTF32 entries at V_out = 1000 and V_in = 777 (ragged tiles;
+    ~2/3 of the entries present), at a table with no present entry (zeros
+    out, every tile empty), and at one output row (a one-row tile); 128 ->
+    20, 16 -> 32 and 768 -> 32 on the same table, the same bits on
+    repeat.  These tables have at most `K_SPLIT_ROWS` output rows, so K2
+    cuts each tile's chain into `k_splits` parts; `tall` (40 000 output
+    rows over 5000) runs it uncut."""
+    rng = np.random.default_rng(k)
+    v_in, v_out = {"ragged": (777, 1000), "empty": (300, 200), "one_row": (50, 1), "tall": (5000, 40000)}[case]
+    assert tsc.k_splits(v_out) == (1 if case == "tall" else tsc.K_SPLITS)
+    rb = rng.integers(0, v_in, (k, v_out))
+    rb[rng.random((k, v_out)) < (1.0 if case == "empty" else 0.35)] = -1
+    rb = torch.tensor(rb, dtype=torch.int32, device=cuda)
+    rb_bwd = torch.full((k, v_in), -1, dtype=torch.int32, device=cuda)  # one pair per input row
+    kk, vv = torch.nonzero(rb >= 0, as_tuple=True)
+    rb_bwd[kk, rb[kk, vv].long()] = vv.int()
+    keep = rb_bwd >= 0
+    rb = torch.full_like(rb, -1)
+    kk, ii = torch.nonzero(keep, as_tuple=True)
+    rb[kk, rb_bwd[kk, ii].long()] = ii.int()
+    for c_in, c_out in ((128, 20), (16, 32), (768, 32)):
+        x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+        w = _rand(rng, (k, c_in, c_out), cuda, torch.float32)
+        g = _rand(rng, (v_out, c_out), cuda, torch.float32)
+        _build.reset_launches()
+        out = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+        dw = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd))
+        assert (_build.LAUNCHES["sparse_conv_k_tf32"], _build.LAUNCHES["sparse_conv_dw_tf32"]) == (2, 2)
+        if case == "empty":
+            assert not out.any() and not dw.any()
+        _close(out, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+        _close(dw, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd),
+               torch.float32, 1e-4)
+
+
 def test_cylinder_small_step_card_equals_cpu(cuda):
     """2 f32 Cylinder_TS train steps (the tiny recipe: INIT_SIZE 4, a 64 x
     64 x 16 grid, one synthetic scan) on the card and on the CPU: the
     loss within 1e-4 relative, the grad norm within 1e-3 and the updates
-    within 3e-2 of the update's L2 norm; per step 47 K2-at-K forwards and
-    47 input gradients, 47 K4-at-K calls, the head's K2 and K4 at 27."""
+    within 3e-2 of the update's L2 norm; per step 48 K2-at-K forwards and
+    48 input gradients, 48 K4-at-K calls (the 3^3 head's among them), all
+    on the 3xTF32 route, and no 27-offset launch."""
     from taseg_tpu_torch.configs import CYLINDER_TINY
     from taseg_tpu_torch.data.synthetic import synthetic_scan
     from taseg_tpu_torch.engine import Trainer
@@ -1092,8 +1183,9 @@ def test_cylinder_small_step_card_equals_cpu(cuda):
         runs[dev] = outs, export_flax_params(tr.model)[0], dict(_build.LAUNCHES)
     (g_out, g_par, g_n), (c_out, c_par, c_n) = runs["cuda"], runs["cpu"]
     assert not any(c_n.values())
-    want = {"sparse_conv_k": 188, "sparse_conv_k_dgrad": 94, "sparse_conv_dw": 94,
-            "sparse_conv_k3": 4, "sparse_conv_k3_dgrad": 2, "k3_conv_dw": 2}
+    want = {"sparse_conv_k": 192, "sparse_conv_k_dgrad": 96, "sparse_conv_dw": 96,
+            "sparse_conv_k_tf32": 192, "sparse_conv_k_dgrad_tf32": 96, "sparse_conv_dw_tf32": 96,
+            "sparse_conv_k3": 0, "sparse_conv_k3_dgrad": 0, "k3_conv_dw": 0}
     assert {k: g_n[k] for k in want} == want
     for g, c in zip(g_out, c_out):
         assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)

@@ -3,7 +3,8 @@ kernel offsets of even volumes and the anisotropic `spdownsample`, every
 rulebook of the cylinder topology (integer-equal), the conv over K
 offsets (the plain versions of K2 and K4 at K = 3, 4, 8 and 9, with
 V_in != V_out and the transposed direction) against `sparse_conv_apply`
-and `jax.vjp` of it, `segment_max` and its gradient against
+and `jax.vjp` of it, and at K = 27 (the 3^3 head) against
+`f3_conv_apply`, `segment_max` and its gradient against
 `jax.ops.segment_max` and `jax.grad`, and the CylinderPipeline against
 JAX's, tied majority labels included.
 
@@ -12,8 +13,8 @@ grid (JAX's own `tests/test_cylinder.py` scene), 2048 rows; JAX's
 topology jitted once for the module.  Tolerances (f32, measured values in
 brackets): the conv forward, d_feats and d_W within 1e-5 of their
 largest sum of |terms| [<= 1.1e-7, 1.3e-7 and 1.4e-7 of it]; the segment
-max and its gradient exact.  About 17 s on one worker (`--durations`), 3 s of
-it JAX compiling the topology.
+max and its gradient exact.  About 23 s on one worker (`--durations`), 3 s of
+it JAX compiling the topology and 3 s the head's `f3_conv_apply` case.
 """
 
 import jax
@@ -27,6 +28,7 @@ from taseg_tpu.data.cylinder_dataset import CylinderPipeline as JPipeline
 from taseg_tpu.models import UNetCapacities as JCaps
 from taseg_tpu.models.voxel.cylinder3d import build_cylinder_topology as j_topology
 from taseg_tpu.ops import rulebook as jrb
+from taseg_tpu.ops.f3conv import f3_conv_apply
 from taseg_tpu.ops.sparse_conv import sparse_conv_apply
 from taseg_tpu_torch.data.augment import AugParams
 from taseg_tpu_torch.data.cylinder_dataset import CylinderPipeline, majority_labels
@@ -171,6 +173,8 @@ def _case(topo, kind):
         return t.levels[0].rb_asym[1], t.levels[0].rb_asym_bwd[1], CAP
     if kind == "recon3":
         return t.rb_recon[2], t.rb_recon_bwd[2], CAP
+    if kind == "head27":
+        return t.rb_head, t.rb_head_bwd, CAP
     l = {"8": 1, "4": 3}[kind[-1]]
     lv = t.levels[l]
     fine = t.levels[l - 1].coords.shape[0]
@@ -179,7 +183,7 @@ def _case(topo, kind):
     return lv.rb_up, lv.rb_down, lv.coords.shape[0]
 
 
-KINDS = ("asym9", "recon3", "down8", "up8", "down4", "up4")
+KINDS = ("asym9", "recon3", "down8", "up8", "down4", "up4", "head27")
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -187,22 +191,27 @@ def test_conv_k_matches_sparse_conv_apply(topo, kind):
     """Forward and VJP of the port's conv over K offsets (`conv_k` on CPU
     tensors: the plain versions of K2 at K and K4 at K) against
     `sparse_conv_apply` and `jax.vjp` of it; V_in != V_out for the
-    pooling (down) and transposed (up) convs."""
+    pooling (down) and transposed (up) convs.  `head27` is Cylinder's 3^3
+    head, which JAX runs on `f3_conv_apply` and the port on `conv_k` over
+    the topology's KTables (rulebook, row order, pair lists)."""
     rb, rb_bwd, v_in = _case(topo, kind)
+    jconv = f3_conv_apply if kind == "head27" else sparse_conv_apply
     k, v_out = rb.shape
     rng = np.random.default_rng(k * 7 + v_in)
     x0 = rng.normal(size=(v_in, 12)).astype(np.float32)
     w0 = rng.normal(size=(k, 12, 20)).astype(np.float32)
     g0 = rng.normal(size=(v_out, 20)).astype(np.float32)
     out, vjp = jax.vjp(
-        lambda x, w: sparse_conv_apply(x, w, jnp.asarray(rb.numpy()), jnp.asarray(rb_bwd.numpy())),
+        lambda x, w: jconv(x, w, jnp.asarray(rb.numpy()), jnp.asarray(rb_bwd.numpy())),
         jnp.asarray(x0), jnp.asarray(w0),
     )
     jdx, jdw = vjp(jnp.asarray(g0))
     x = torch.tensor(x0, requires_grad=True)
     w = torch.tensor(w0, requires_grad=True)
     _build.reset_launches()
-    got = tsc.conv_k(x, w, rb, rb_bwd)
+    t, _ = topo
+    tables = (t.head, t.head_bwd) if kind == "head27" else (rb, rb_bwd)
+    got = tsc.conv_k(x, w, *tables)
     got.backward(torch.from_numpy(g0))
     assert not any(_build.LAUNCHES.values())
     scale_out = tsc.sparse_conv_plain(x.detach().abs(), w.detach().abs(), rb).max()
