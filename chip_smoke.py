@@ -12,8 +12,10 @@ checkpoints, evaluation, TTA) of MinkUNet mk34 cr1.0
 mk18 cr1.0 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml, with
 64 x 2048 range images), in bf16, and of Cylinder_TS cy480 cr1.0
 (tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml) in f32, on
-synthetic 120 000-point scans, weights drawn from a seed — and checks
-them:
+synthetic 120 000-point scans, and of TASeg's temporal stages, MinkUNetMs
+mk34 cr1.0 (FSA, tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml)
+and its mask-distillation step (_fsa_kd.yaml) in bf16 on fused
+multi-scan clouds, weights drawn from a seed — and checks them:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
@@ -101,6 +103,21 @@ them:
      step K2 at K 48 + 48, K4 at K 48, all on the 3xTF32 route, K1 22),
      ms per step by stage, peak memory and each kernel's device time per
      step; the phase's seconds;
+  5f. FSA and KD at full width in bf16 on 3 fused clouds of
+     SyntheticMsKittiReader(120 000 points, history 3), 262 144 rows per
+     scan: the level counts beside their capacities; K2 and K3 at every
+     conv shape of a fused forward (the stem's C_in 5 on K2's CUDA-core
+     route), K6 at the voxelize forward (C = 5) and the head's K7
+     against their plain versions, with their times; `Segmenter.predict`
+     with every launch counted (MinkUNet's per scan), frame-length labels,
+     bf16/f32 argmax agreement, a small fused cloud's f32 logits against
+     the CPU, serving ms per scan by stage; 4 counted FSA steps
+     (TRAIN_PER_STEP) by stage; the KD step's backward kernels and K7
+     calls (the 480-wide features: K7 at C = 256 / 128 / 96 and their K6
+     backwards) against their plain versions, 4 counted KD steps (the
+     teacher's eval forward and the features added) by stage with the
+     teacher's topology and forward apart, peak memory, the teacher's
+     parameters and buffers bit-identical after them; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -113,7 +130,9 @@ them:
      launches and input-gradient times) and K4 at K offsets
      (`sparse_conv_dw`) with Cylinder_TS's launches per route, the
      CUDA-core time (`old_ms`), the 3xTF32 bound and the head's share,
-     and every kernel's launches on Cylinder_TS's path.
+     and every kernel's launches on Cylinder_TS's path; every kernel's
+     launches per scan, per FSA step and per KD step, and its times at
+     the fused shapes (`fsa`).
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -241,6 +260,28 @@ CYLINDER_PER_STEP = {
     "sparse_conv_dw": 48, "sparse_conv_dw_tf32": 48,
 }
 CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
+
+# TASeg's temporal stages (tools/cfgs/voxel/semantic_kitti/
+# minkunet_mk34_cr10_fsa.yaml and _fsa_kd.yaml): MinkUNetMs mk34 cr1.0 on
+# fused clouds of SyntheticMsKittiReader(n_points=120 000, history=3) at
+# 262 144 rows per scan (POINTS_PER_SCAN of the recipes).  Serving runs
+# MinkUNet's kernels per scan, the stem's first conv (C_in 5: xyz, r and
+# the time flag) on K2's CUDA-core route; an FSA train step those of
+# TRAIN_PER_STEP; a KD step adds the teacher's eval forward (K2 48, K3 4
+# + 4, K6 1, K7 3 + 3) and the student's three feature devoxelizations
+# (K7 3) and their backwards (K6 3).  K1's count is the one serving
+# measures (the fused rows come unsorted), and a KD step's is the
+# student's plus the teacher's
+FSA_HISTORY = 3
+FSA_PER_SCAN = {
+    "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47, "strided_down": 4, "strided_down_mma": 4,
+    "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 3,
+}
+KD_TEACHER = {
+    "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47, "strided_down": 4, "strided_down_mma": 4,
+    "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 6,
+}
+FSA_ROUNDS = 2  # serving samples: FSA_ROUNDS * N_SCANS scans
 
 # the harness phase: one epoch of train scans through the loader, the
 # eval scans, and the point capacity passed as bench.py passes it (the
@@ -1016,14 +1057,19 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
 
 def k6_call_names(keys) -> dict:
     """Where each captured K6 call ("segment_sum", R, V, C, weighted)
-    sits in the step: the unweighted call seen first is the voxelize
-    forward (the forward runs first), the other the identity devoxelize
-    backward; of the trilinear backwards the one over more voxels is at
-    stride 4, the other at stride 16."""
-    plain = [k for k in keys if not k[4]]
-    tri = sorted((k for k in keys if k[4]), key=lambda k: -k[2])
-    names = dict(zip(plain, ("voxelize forward", "devox identity backward, stride 1")))
-    names.update(zip(tri, ("devox trilinear backward, stride 4", "devox trilinear backward, stride 16")))
+    sits in the step: an unweighted call at a width of at most 9 is a
+    voxelize forward (of the point features), a wider one the identity
+    devoxelize backward at stride 1; of the trilinear backwards the ones
+    over the most voxels are at stride 4, the others at stride 16 (a KD
+    step has two of each: the head's at class width and the features'
+    at full width)."""
+    names = {
+        k: "voxelize forward" if k[3] <= 9 else "devox identity backward, stride 1"
+        for k in keys if not k[4]
+    }
+    tri = [k for k in keys if k[4]]
+    most = max((k[2] for k in tri), default=0)
+    names.update({k: f"devox trilinear backward, stride {4 if k[2] == most else 16}" for k in tri})
     return names
 
 
@@ -1514,19 +1560,20 @@ def phase_train_probes(trainer, scans) -> None:
         log(f"profiler {label} x{cap.count[key]}/step: device {fmt_ms(device_ms(call, KERNEL_NAMES[name]))} per call")
 
 
-def small_scan_check(cfg, variables, label: str = "") -> None:
+def small_scan_check(cfg, variables, label: str = "", small=None, capacity: int = 8192) -> None:
     """The card's f32 `Segmenter` against the CPU's plain path on one
     small scan (a sparse small scan fills every level: capacities at the
-    point count): logits within 1e-3 of their scale."""
+    point count; by default an 8000-point scan at 8192 rows): logits
+    within 1e-3 of their scale."""
     import numpy as np
 
     from taseg_tpu_torch.engine import Segmenter
 
-    small = make_scans(1, n_points=8000, seed=SEED + 1)
+    small = small or make_scans(1, n_points=8000, seed=SEED + 1)
     cfg_small = {**cfg, "MODEL": {**cfg["MODEL"], "CAPACITY_SCHEDULE": (1.0,) * 5}}
     gpu_small, cpu_small = (
         Segmenter(cfg_small, variables, device=dev, compute_dtype="float32",
-                  point_capacity=8192).predict(small)[0]
+                  point_capacity=capacity).predict(small)[0]
         for dev in ("cuda", "cpu")
     )
     d = np.abs(gpu_small["logits"] - cpu_small["logits"]).max()
@@ -2560,6 +2607,266 @@ def phase_cylinder(scans, results: dict) -> dict:
     }
 
 
+def fsa_scans(n: int, n_points: int = N_POINTS, seed: int = SEED) -> list:
+    """`n` samples of SyntheticMsKittiReader(n_points, history=FSA_HISTORY,
+    kd=True): the frame, the fused cloud (`xyzret_ms`) and the KD teacher's
+    GT-mask cloud (`xyzret_ms_gt`)."""
+    from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader
+
+    reader = SyntheticMsKittiReader(length=n, n_points=n_points, history=FSA_HISTORY, seed=seed, kd=True)
+    return [reader[i] for i in range(n)]
+
+
+def k6_voxelize_check(feats, tables, label: str) -> dict:
+    """K6 at the voxelize forward of the fused cloud (C = 5: its odd
+    width takes the kernel's path without 16-byte rows) against its plain
+    version in f64 (1e-5 of the largest sum of |terms|), bit-identical on
+    repeat, with kernel, plain, bound and `index_add_` times."""
+    from taseg_tpu_torch.ops import voxelize
+
+    got = twice_same(f"{label}K6 voxelize", lambda: voxelize.segment_sum(feats, tables))
+    err = check_close(
+        f"{label}K6 voxelize", got, voxelize.segment_sum_plain(feats.double(), tables),
+        voxelize.segment_sum_plain(feats.double().abs(), tables), "float32", 1e-5,
+    )
+    ms = cuda_ms(lambda: voxelize.segment_sum(feats, tables))
+    pms = cuda_ms(lambda: voxelize.segment_sum_plain(feats, tables), iters=3)
+    nbytes, ops, lib = train_cost("segment_sum", (feats, tables), {}, feats, None)
+    b, by = bound_ms(nbytes, ops, "float32")
+    log(
+        f"{label}K6 voxelize forward R={feats.shape[0]} V={tables.starts.shape[0] - 1} "
+        f"C={feats.shape[1]} x1/scan: max|err| {err:.3e} (bit-identical on repeat) kernel "
+        f"{ms:.4f} ms plain {pms:.4f} ms bound {b:.4f} ms ({by}) index_add_ {lib:.4f} ms"
+    )
+    return {"ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by, "library_ms": lib, "max_abs_err": err}
+
+
+def kd_steps(trainer, scans) -> tuple:
+    """TRAIN_STEPS counted KD steps (every count set to 0 just before and
+    read just after; finite losses, grad norm and parameters), then as
+    many by stage: host, the student's topology, the teacher's topology,
+    forward + loss (both models), backward, optimizer; and the teacher's
+    forward alone.  Returns (launches, outputs, median ms per stage, peak
+    GiB)."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.engine import check_capacity
+    from taseg_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    outs = [trainer.step(scans[i % len(scans): i % len(scans) + 1]) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, o in enumerate(outs):
+        log(
+            f"kd step {i}: loss {o['loss']:.5f} (seg {o['loss_seg']:.5f}, feat kd "
+            f"{o['loss_feat_kd']:.5f}) grad norm {o['grad_norm']:.4f} lr {o['lr']:.3e} "
+            f"level voxels {o['level_nums']}"
+        )
+        if not all(np.isfinite(o[k]) for k in ("loss", "loss_seg", "loss_feat_kd", "grad_norm")):
+            raise AssertionError(f"kd step {i}: a non-finite loss or grad norm")
+    for n, p in trainer.model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"kd: parameter {n} is not finite")
+    names = ("host", "topology", "teacher_topology", "forward", "backward", "optimizer", "step")
+    stages = {k: [] for k in names + ("teacher_forward",)}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        a = trainer.collate(scans[i % len(scans): i % len(scans) + 1])
+        t1 = time.perf_counter()
+        ev[0].record()
+        topo = trainer.topology(a)
+        check_capacity(topo, trainer.caps)
+        ev[1].record()
+        t_topo = trainer.teacher_topology(a)
+        ev[2].record()
+        loss = trainer.forward(a, topo, t_topo)
+        ev[3].record()
+        trainer.backward(loss)
+        ev[4].record()
+        trainer.update()
+        ev[5].record()
+        ev[5].synchronize()
+        stages["step"].append((time.perf_counter() - t0) * 1e3)
+        stages["host"].append((t1 - t0) * 1e3)
+        for j, k in enumerate(names[1:6]):
+            stages[k].append(ev[j].elapsed_time(ev[j + 1]))
+        with torch.no_grad():
+            stages["teacher_forward"].append(cuda_ms(
+                lambda: trainer.teacher(a["teacher"]["point_feats_t"], t_topo, return_features=True),
+                iters=1,
+            ))
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    return launches, outs, med, peak
+
+
+def fsa_entry(fsa: dict, name: str) -> dict:
+    """A kernel's numbers on the FSA / KD path: its launches per serving
+    scan, per FSA step and per KD step, and its times and error at the
+    fused cloud's shapes (per scan at serving; per KD step for the
+    backward kernels and the input gradients), where phase 5f held it."""
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    serve, kd = fsa["serve"].get(name), fsa["kd"].get(name, fsa["kd"].get(f"{name}_dgrad"))
+    return {
+        "launches_per_scan": fsa["per_scan"].get(name, 0),
+        "launches_per_step": fsa["per_step"].get(name, 0),
+        "kd_launches_per_step": fsa["kd_per_step"].get(name, 0),
+        "serving_per_scan": {k: serve[k] for k in keep if k in serve} if serve else None,
+        "kd_step": {k: kd[k] for k in keep if k in kd} if kd else None,
+    }
+
+
+def phase_fsa_kd() -> dict:
+    """TASeg's temporal stages at full width in bf16, seeded weights:
+    MinkUNetMs mk34 cr1.0 (the FSA recipe) on N_SCANS fused clouds of
+    SyntheticMsKittiReader(N_POINTS, history=FSA_HISTORY) at the recipe's
+    262 144 rows per scan.  Serving: each scan's level counts beside
+    their capacities; K2 and K3 at every conv shape of a fused forward
+    (twice the flagship's rows; the stem's C_in 5 on the CUDA-core route)
+    and K6 at the voxelize forward (C = 5) against their plain versions,
+    the head's K7 bit-identical, with their times; `Segmenter.predict`
+    counted (each kernel as FSA_PER_SCAN says, K1 the same per scan), its
+    frame-length labels, finite logits, bf16/f32 argmax agreement >=
+    0.97, the small fused cloud's f32 logits against the CPU, serving ms
+    per scan by stage.  Train: TRAIN_STEPS counted FSA steps
+    (TRAIN_PER_STEP, K1 as serving's) by stage with peak memory; then the
+    KD stage (MinkUNetMsKd, a teacher with other seeded weights): one real
+    KD step's backward kernels and K7 forward calls (the 480-wide
+    features: K7 at C = 256 / 128 / 96, their K6 backwards) against their
+    plain versions (`phase_train_kernels`), TRAIN_STEPS counted KD steps
+    (FSA's launches plus KD_TEACHER and the features' K7 3 and K6 3) by
+    stage, the teacher's topology and forward apart, peak memory, and the
+    teacher's parameters and buffers bit-identical after them.  Returns
+    the launches per scan and per step and the kernels' numbers at these
+    shapes; logs the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10_FSA, MINKUNET_MK34_CR10_FSA_KD
+    from taseg_tpu_torch.engine import Segmenter, Trainer, check_capacity, points_per_scan
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    cfg, kd_cfg = MINKUNET_MK34_CR10_FSA, MINKUNET_MK34_CR10_FSA_KD
+    params, stats = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    t0 = time.perf_counter()
+    scans = fsa_scans(N_SCANS)
+    log(
+        f"fsa scans: {N_SCANS} x (frame {[len(s['xyzret']) for s in scans]}, fused "
+        f"{[len(s['xyzret_ms']) for s in scans]}, gt {[len(s['xyzret_ms_gt']) for s in scans]} "
+        f"points) in {time.perf_counter() - t0:.1f} s"
+    )
+    seg = Segmenter(cfg, variables, compute_dtype="bfloat16")
+    if seg.point_capacity != points_per_scan(cfg) or seg.model.in_dim != 5:
+        raise AssertionError(f"fsa: capacity {seg.point_capacity}, in_dim {seg.model.in_dim}")
+    for s in scans:
+        a = seg.collate([s])
+        topo = seg.topology(a)
+        nums = check_capacity(topo, seg.caps)
+        log(
+            f"fsa serving rows {int(a['num_points'][0])} of {seg.point_capacity}, level voxels "
+            f"{nums} caps {list(seg.caps.voxels)} ({[round(n / c, 3) for n, c in zip(nums, seg.caps.voxels)]})"
+        )
+    a = seg.collate(scans[:1])
+    topo = seg.topology(a)
+    cap = Capture(seg.model)
+    seg.forward(a, topo)
+    cap.remove()
+    fsa: dict = {}
+    phase_convs(cap, fsa, [])
+    del cap
+    feats = a["point_feats_t"][:, : seg.model.in_dim].contiguous()
+    fsa["segment_sum"] = k6_voxelize_check(feats, topo.point_tables, "fsa ")
+    phase_point_ops(seg, a, topo, cfg["MODEL"]["NUM_CLASS"], fsa, [])
+    del a, topo, feats
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = seg.predict(scans)
+    torch.cuda.synchronize()
+    serve = dict(_build.LAUNCHES)
+    log(f"fsa serving launches over {N_SCANS} scans: {serve}")
+    if serve["join_scan"] <= 0 or serve["join_scan"] % N_SCANS:
+        raise AssertionError(f"fsa serving: join_scan launched {serve['join_scan']} times")
+    per_scan = {**FSA_PER_SCAN, "join_scan": serve["join_scan"] // N_SCANS}
+    check_launches(serve, per_scan, N_SCANS, "fsa serving")
+    for s, o in zip(scans, out):
+        if o["logits"].shape != (len(s["xyzret"]), cfg["MODEL"]["NUM_CLASS"]):
+            raise AssertionError(f"fsa: logits {o['logits'].shape} for a {len(s['xyzret'])}-point frame")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError("fsa: non-finite logits")
+    log(f"fsa Segmenter.predict: frame-length labels {[len(o['labels']) for o in out]}")
+    out32 = Segmenter(cfg, variables, compute_dtype="float32").predict(scans)
+    agree = float(np.mean(np.concatenate([x["labels"] == y["labels"] for x, y in zip(out, out32)])))
+    log(f"fsa bf16 vs f32 per-point argmax agreement {agree:.5f}")
+    if agree < 0.97:
+        raise AssertionError(f"fsa bf16/f32 argmax agreement {agree:.4f} < 0.97")
+    del out, out32
+    # a 4000-point frame with its history (~7600 fused points)
+    small_scan_check(cfg, variables, "fsa ", fsa_scans(1, n_points=4000, seed=SEED + 1), 16384)
+    serve_split(seg, scans, FSA_ROUNDS, "fsa ")
+    del seg
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(
+        cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED,
+    )
+    log(f"fsa train capacities {list(trainer.caps.voxels)}")
+    per_step = {**TRAIN_PER_STEP, "join_scan": per_scan["join_scan"]}
+    train, train_med = phase_train_steps(
+        trainer, scans, {k: per_step.get(k, 0) for k in _build.LAUNCHES}, "fsa train"
+    )
+    del trainer
+    torch.cuda.empty_cache()
+
+    kd = Trainer(
+        kd_cfg, variables, iters_per_epoch=TRAIN_STEPS,
+        total_epochs=kd_cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED,
+    )
+    t_params, t_stats = init_params_numpy(kd_cfg, seed=SEED + 1)
+    kd.set_teacher(t_params, t_stats)
+    teacher0 = {k: v.clone() for k, v in kd.teacher.state_dict().items()}
+    log(f"kd capacities: student {list(kd.caps.voxels)} teacher {list(kd.teacher_caps.voxels)}")
+    kd_cap = capture_train_calls(kd, scans[:1])
+    kd_k: dict = {}
+    phase_train_kernels(kd_cap, kd_k)
+    del kd_cap
+    kd_launch, _, kd_med, kd_peak = kd_steps(kd, scans)
+    log(f"kd path launches over {TRAIN_STEPS} steps: {kd_launch}")
+    kd_per_step = {k: per_step.get(k, 0) + KD_TEACHER.get(k, 0) for k in _build.LAUNCHES}
+    kd_per_step["join_scan"] = 2 * per_scan["join_scan"]
+    kd_per_step["devoxelize"] += 3
+    kd_per_step["segment_sum"] += 3
+    check_launches(kd_launch, kd_per_step, TRAIN_STEPS, "kd train")
+    log(f"kd: launches per step as expected: {kd_per_step}")
+    for k, v in kd.teacher.state_dict().items():
+        if not torch.equal(v, teacher0[k]):
+            raise AssertionError(f"kd: the teacher's {k} changed")
+    log("kd: the teacher's parameters and buffers are bit-identical after the steps")
+    log(
+        f"kd ms per step (median of {TRAIN_STEPS}): " + ", ".join(f"{k} {v:.3f}" for k, v in kd_med.items())
+        + f"; peak device memory {kd_peak:.2f} GiB"
+    )
+    del kd
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"fsa/kd phase (5f): {seconds:.1f} s")
+    return {
+        "per_scan": {k: n // N_SCANS for k, n in serve.items()},
+        "per_step": {k: n // TRAIN_STEPS for k, n in train.items()},
+        "kd_per_step": {k: n // TRAIN_STEPS for k, n in kd_launch.items()},
+        "serve": fsa, "kd": kd_k, "train_ms": train_med, "kd_ms": kd_med, "seconds": seconds,
+    }
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -2708,6 +3015,10 @@ def main() -> int:
     # and K4 at K offsets at every call of a real forward and step
     cylinder = phase_cylinder(scans, results)
 
+    # 5f. TASeg's temporal stages: FSA serving and train steps, KD steps,
+    # on 262 144-row fused clouds
+    fsa = phase_fsa_kd()
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -2721,13 +3032,13 @@ def main() -> int:
     # tables
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
-        "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:216"),
-        "strided_down": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:123"),
-        "strided_up": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:152"),
+        "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:217"),
+        "strided_down": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:124"),
+        "strided_up": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:153"),
         "k3_conv_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/f3conv.py:219"),
         "strided_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/strided_conv.py:136"),
         "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
-        "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:241,261"),
+        "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:242,262"),
         "voxelize_bwd": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:126"),
         "devoxelize_bilinear": ("csrc/devoxelize.cu", "taseg_tpu/ops/point_range.py:82"),
     }
@@ -2794,6 +3105,7 @@ def main() -> int:
             "launches_per_step": cylinder["per_step"][name],
             "device_ms_per_train_step": cylinder["device_ms_per_step"].get(name),
         }
+        entry["fsa"] = fsa_entry(fsa, name)
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
@@ -2818,6 +3130,7 @@ def main() -> int:
             "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_tf32"] - serve["sparse_conv_k_mma"],
         },
         "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
+        "fsa": fsa_entry(fsa, "sparse_conv_k"),
         "train": {
             "launches": train["sparse_conv_k"], "tf32x3_launches": train["sparse_conv_k_tf32"],
             "dgrad_launches": train["sparse_conv_k_dgrad"],
@@ -2840,8 +3153,10 @@ def main() -> int:
             "simt": train["sparse_conv_dw"] - train["sparse_conv_dw_tf32"],
         },
         "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_dw"],
+        "fsa": fsa_entry(fsa, "sparse_conv_dw"),
     })
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
+    log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -302,6 +302,155 @@ CYLINDER_TINY = {
     },
 }
 
+# TASeg's temporal stages on SemanticKITTI: the frame fused with up to 16
+# history scans (pose-warped, per-class flexible steps over pseudo masks,
+# the time flag as the 5th input feature).  Port-only deployment settings
+# (not in the YAMLs): the YAMLs' NUM_POINTS of 3 000 000 (and batch 6)
+# size the JAX loader; the port serves and trains one fused cloud per step
+# at POINTS_PER_SCAN rows.  tools/ms_capacity.py over 24 synthetic fused
+# clouds (120 000-point frames with 3 history copies, 227-228k points):
+# at most 0.668 / 0.504 / 0.300 / 0.118 / 0.035 of 262 144 rows per level
+# when augmented for training (the KD student's), 0.651 / 0.480 / 0.272 /
+# 0.103 / 0.032 unaugmented; each schedule holds >= 32% headroom over
+# those (the KD teacher's GT-mask cloud fills less and takes the train
+# schedule at its own capacity)
+_FSA_DATA = {
+    "DATA_PATH": "/data/SemanticKITTI/dataset/sequences",
+    "VOXEL_SIZE": 0.05,
+    "NUM_POINTS": 3000000,
+    "IN_FEATURE_DIM": 5,
+    "MULTISCAN": 16,
+    "ONLY_HISTORY": True,
+    "PSEUDO_MASK": "mink_notta",
+    "PSEUDO_LABEL_ROOT": "output/minkunet_mk34_cr10/default/trainval_notta",
+    "FLEXIBLE_STEPS": [0, 0, 2, 2, 2, 2, 2, 2, 2, 0, 4, 4, 4, 0, 4, 0, 2, 4, 2, 2],
+}
+_FSA_MODEL = {
+    "IN_FEATURE_DIM": 5,
+    "NUM_CLASS": 20,
+    "IGNORE_LABEL": 0,
+    "BLOCK": "ResBlock",
+    "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2],
+    "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
+    "cr": 1.0,
+    "DROPOUT_P": 0.0,
+    "LABEL_SMOOTHING": 0.1,
+    "LOSS_CONFIG": {
+        "LOSS_TYPES": ["CELoss", "LovLoss"],
+        "LOSS_WEIGHTS": [1.0, 1.0],
+    },
+    "POINTS_PER_SCAN": 262144,
+    "CAPACITY_SCHEDULE": (1.0, 0.65, 0.36, 0.14, 0.045),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.70, 0.40, 0.16, 0.05),
+}
+_FSA_OPTIM = {
+    "BATCH_SIZE_PER_GPU": 6,
+    "NUM_EPOCHS": 12,
+    "OPTIMIZER": "sgd",
+    "LR_PER_SAMPLE": 0.02,
+    "WEIGHT_DECAY": 0.0001,
+    "MOMENTUM": 0.9,
+    "NESTEROV": True,
+    "GRAD_NORM_CLIP": 10.0,
+    "SCHEDULER": "linear_warmup_with_cosdecay",
+    "WARMUP_EPOCH": 1,
+}
+
+# tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml: FSA, the
+# mk34 MinkUNet on the fused cloud; the YAML's IF_DIST is left out, as for
+# SPVCNN
+MINKUNET_MK34_CR10_FSA = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "semantickitti_ms", **_FSA_DATA},
+    "MODEL": {"NAME": "MinkUNetMs", **_FSA_MODEL},
+    "OPTIM": dict(_FSA_OPTIM),
+}
+
+# tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_kd.yaml: mask
+# distillation, a frozen teacher on the GT-mask cloud (MODEL.TEACHER_CKPT)
+# distils its tri-scale features into the student on the pseudo-mask cloud
+MINKUNET_MK34_CR10_FSA_KD = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "semantickitti_ms_kd", **_FSA_DATA, "MAX_VOXEL": 3000},
+    "MODEL": {
+        "NAME": "MinkUNetMsKd", **_FSA_MODEL,
+        "MAX_VOXEL": 3000, "FEAT_KD_WEIGHT": 10.0, "TEACHER_CKPT": None,
+    },
+    "OPTIM": dict(_FSA_OPTIM),
+}
+
+# tools/cfgs/voxel/semantic_kitti_ms/minkunet_mk34_cr10_smsa.yaml: SMSA,
+# the 26-class multi-scan task (moving classes) with the static/moving
+# switch augmentation on the fused cloud
+MINKUNET_MK34_CR10_SMSA = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "semantickitti_ms_ms", **_FSA_DATA},
+    "MODEL": {"NAME": "MinkUNetMs", **_FSA_MODEL, "NUM_CLASS": 26},
+    "OPTIM": dict(_FSA_OPTIM),
+}
+
+_MS_TINY_OPTIM = {
+    "BATCH_SIZE_PER_GPU": 1,
+    "NUM_EPOCHS": 1,
+    "OPTIMIZER": "sgd",
+    "LR_PER_SAMPLE": 0.01,
+    "WEIGHT_DECAY": 0.0001,
+    "MOMENTUM": 0.9,
+    "SCHEDULER": "linear_warmup_with_cosdecay",
+    "WARMUP_EPOCH": 1,
+}
+_MS_TINY_MODEL = {
+    "IN_FEATURE_DIM": 5,
+    "NUM_CLASS": 20,
+    "IGNORE_LABEL": 0,
+    "BLOCK": "ResBlock",
+    "NUM_LAYER": [1, 1, 1, 1, 1, 1, 1, 1],
+    "cr": 0.125,
+    "DROPOUT_P": 0.0,
+    # not in the YAML: tools/ms_capacity.py (--points 2000 --voxel 0.2
+    # --capacity 8192) over the 8 train and 8 eval fused clouds: at most
+    # 0.44 / 0.35 / 0.19 / 0.10 / 0.045 of the 8192 rows (the train
+    # augmentation included); JAX's default schedule overflows at levels 3
+    # and 4, and the port raises on overflow
+    "CAPACITY_SCHEDULE": (1.0, 0.60, 0.30, 0.15, 0.07),
+}
+
+# tools/cfgs/voxel/synthetic/minkunet_ms_tiny.yaml: the FSA smoke recipe
+# of the CLI (the teacher stage of the KD smoke)
+MINKUNET_MS_TINY = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "synthetic_ms",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 2000,
+        "VOXEL_SIZE": 0.2,
+        "NUM_POINTS": 8192,
+        "IN_FEATURE_DIM": 5,
+    },
+    "MODEL": {"NAME": "MinkUNetMs", **_MS_TINY_MODEL},
+    "OPTIM": dict(_MS_TINY_OPTIM),
+}
+
+# tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml: the KD smoke
+# recipe of the CLI (set MODEL.TEACHER_CKPT to a MinkUNetMs checkpoint)
+MINKUNET_MS_KD_TINY = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "synthetic_ms_kd",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 2000,
+        "VOXEL_SIZE": 0.2,
+        "NUM_POINTS": 8192,
+        "IN_FEATURE_DIM": 5,
+        "MAX_VOXEL": 256,
+    },
+    "MODEL": {
+        "NAME": "MinkUNetMsKd", **_MS_TINY_MODEL,
+        "FEAT_KD_WEIGHT": 10.0, "TEACHER_CKPT": None,
+    },
+    "OPTIM": dict(_MS_TINY_OPTIM),
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
@@ -311,4 +460,9 @@ RECIPES = {
     "tools/cfgs/fusion/synthetic/rpvnet_tiny.yaml": RPVNET_TINY,
     "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml": CYLINDER_CY480_CR10,
     "tools/cfgs/voxel/synthetic/cylinder_tiny.yaml": CYLINDER_TINY,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml": MINKUNET_MK34_CR10_FSA,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_kd.yaml": MINKUNET_MK34_CR10_FSA_KD,
+    "tools/cfgs/voxel/semantic_kitti_ms/minkunet_mk34_cr10_smsa.yaml": MINKUNET_MK34_CR10_SMSA,
+    "tools/cfgs/voxel/synthetic/minkunet_ms_tiny.yaml": MINKUNET_MS_TINY,
+    "tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml": MINKUNET_MS_KD_TINY,
 }

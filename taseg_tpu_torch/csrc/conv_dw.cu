@@ -4,7 +4,7 @@
 // kernel volume.
 //
 // K4 replaces the d_W half of taseg_tpu/ops/f3conv.py:219 f3_bwd_fused
-// (the backward of ops/tgf.py:216 tgf_conv_apply, _tgf_vjp_bwd :231):
+// (the backward of ops/tgf.py:217 tgf_conv_apply, _tgf_vjp_bwd :231):
 //
 //   d_W[k] = sum_i feats[i]^T (x) g[rb_bwd[k, i]]     (rb_bwd == -1: none)
 //

@@ -1,7 +1,7 @@
 // K7 devoxelize: the point side of the MinkUNet head, one launch per call;
 // and K8, the gradient of the voxelize mean, in the same point-major layout.
 //
-// K7 replaces taseg_tpu/ops/voxelize.py:261 _devoxelize_trilinear and :241
+// K7 replaces taseg_tpu/ops/voxelize.py:262 _devoxelize_trilinear and :242
 // _devoxelize_identity (the forwards; their backwards are K6), and, at 4
 // corners, the forward of taseg_tpu/ops/point_range.py:82 range_to_point
 // (RPVNet's bilinear sample of a range image at each point):

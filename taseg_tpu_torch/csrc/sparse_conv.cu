@@ -1,5 +1,5 @@
 // K2: sparse conv forward over a dense rulebook — replaces the forward of
-// taseg_tpu/ops/tgf.py:216 tgf_conv_apply (_tgf_fwd_impl, :165), the 27
+// taseg_tpu/ops/tgf.py:217 tgf_conv_apply (_tgf_fwd_impl, :165), the 27
 // offsets of a stride-1 3^3 conv, and of taseg_tpu/ops/sparse_conv.py:137
 // sparse_conv_apply (_conv_fwd_impl), a conv over any K <= 32 offsets
 // with V_in input rows and V_out output rows (Cylinder3D's asymmetric

@@ -11,6 +11,12 @@ code.  A background thread prefetches batches (double-buffered) to
 overlap the host pipeline with the device, as JAX's does
 (`taseg_tpu/data/__init__.py:429-457`).
 
+The multi-scan datasets of TASeg's temporal stages are ported: FSA
+(`semantickitti_ms`, `synthetic_ms`) on `MsVoxelPipeline`, SMSA
+(`semantickitti_ms_ms`, the 26-class task) on the same, and mask
+distillation (`semantickitti_ms_kd`, `synthetic_ms_kd`) on
+`MsKdVoxelPipeline`, whose shard also carries the teacher's cloud and the
+distillation pairs (`loader.teacher_capacity`, `loader.kd_max_voxel`).
 The readers and pipelines of the other datasets and modalities are not
 ported yet and raise, naming their ROADMAP item.
 """
@@ -28,17 +34,13 @@ from .augment import AugParams
 from .cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .fusion_dataset import FusionPipeline
 from .semantickitti.reader import SemanticKittiReader
-from .synthetic import SyntheticKittiReader
-from .voxel_dataset import VoxelPipeline
+from .semantickitti.reader_ms import MsKdKittiReader, MultiScanKittiReader, SmsaKittiReader
+from .synthetic import SyntheticKittiReader, SyntheticMsKittiReader
+from .voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
 
 # datasets of the JAX package the port does not read yet, by ROADMAP item
 _NOT_PORTED = {
-    "semantickitti_ms": "Queue 1 item 5 (FSA)",
-    "semantickitti_ms_kd": "Queue 1 item 5 (KD)",
-    "semantickitti_ms_ms": "Queue 1 item 5 (SMSA)",
     "semantickitti_ms_mm": "Queue 1 item 5 (TIAF)",
-    "synthetic_ms": "Queue 1 item 5 (FSA)",
-    "synthetic_ms_kd": "Queue 1 item 5 (KD)",
     "synthetic_ms_mm": "Queue 1 item 5 (TIAF)",
     "nuscenes": "Queue 1 item 6 (nuScenes reader)",
     "nuscenes_ms": "Queue 1 items 5-6 (FSA, nuScenes reader)",
@@ -72,11 +74,44 @@ def build_reader(data_cfgs, training: bool):
             samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
             if_scribble=(dataset == "scribblekitti"),
         )
+    if dataset in ("semantickitti_ms", "semantickitti_ms_kd", "semantickitti_ms_ms"):
+        # the KD and SMSA readers run without the mixing augmentations, as
+        # in JAX (data/__init__.py:74-125)
+        cls = {
+            "semantickitti_ms": MultiScanKittiReader,
+            "semantickitti_ms_kd": MsKdKittiReader,
+            "semantickitti_ms_ms": SmsaKittiReader,
+        }[dataset]
+        kw = {"multiscan_labels": True} if dataset == "semantickitti_ms_ms" else {}
+        return cls(
+            data_cfgs["DATA_PATH"],
+            split=train_split if training else eval_split,
+            sequences=None if training else eval_seqs,
+            split_file=data_cfgs.get("SPLIT_FILE") if training else None,
+            augment=(
+                data_cfgs.get("AUGMENT", "GlobalAugment")
+                if dataset == "semantickitti_ms" else "NoAug"
+            ),
+            samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
+            multiscan=data_cfgs.get("MULTISCAN", 16),
+            only_history=data_cfgs.get("ONLY_HISTORY", True),
+            flexible_steps=data_cfgs.get("FLEXIBLE_STEPS", None),
+            pseudo_mask=data_cfgs.get("PSEUDO_MASK", "gt"),
+            pseudo_label_root=data_cfgs.get("PSEUDO_LABEL_ROOT", None),
+            **kw,
+        )
     if dataset == "synthetic":
         return SyntheticKittiReader(
             length=data_cfgs.get("LENGTH", 64),
             n_points=data_cfgs.get("N_RAW_POINTS", 120_000),
             seed=0 if training else 1,
+        )
+    if dataset in ("synthetic_ms", "synthetic_ms_kd"):
+        return SyntheticMsKittiReader(
+            length=data_cfgs.get("LENGTH", 16),
+            n_points=data_cfgs.get("N_RAW_POINTS", 60_000),
+            seed=0 if training else 1,
+            kd=dataset == "synthetic_ms_kd",
         )
     if dataset in _NOT_PORTED:
         raise _not_ported(f"dataset {dataset!r}", _NOT_PORTED[dataset])
@@ -84,23 +119,32 @@ def build_reader(data_cfgs, training: bool):
 
 
 _LABEL_FIELDS = ("labels", "raw_labels")
+# the sub-samples of a multi-scan (frame, fused) and a KD (student,
+# teacher) sample, and a fused sample's back-reference to its pair
+_NESTED_FIELDS = ("frame", "fused", "student", "teacher", "ms_pair")
 
 
-def _as_padding(sample):
+def _as_padding(sample, _memo=None):
     """Shallow-copy a sample with every label array zeroed (train id 0 is
-    the ignore class), so padded repeats of the final partial batch add
-    nothing to confusion histograms.  `evaluate_points` additionally
-    skips them via meta['padded'], keeping n_scans == len(dataset) — the
-    reference pads its eval sampler to world size and merges back to
-    exactly len(dataset) results (`pcseg/data/__init__.py:38-58`,
-    `common_utils.py:200-221`).  The port's samples are plain
-    `VoxelSample`s, so the nested fields of JAX's multi-scan samples do
-    not arise."""
+    the ignore class), its nested samples too, so padded repeats of the
+    final partial batch add nothing to confusion histograms.
+    `evaluate_points` additionally skips them via meta['padded'], keeping
+    n_scans == len(dataset) — the reference pads its eval sampler to world
+    size and merges back to exactly len(dataset) results
+    (`pcseg/data/__init__.py:38-58`, `common_utils.py:200-221`)."""
+    _memo = {} if _memo is None else _memo
+    if id(sample) in _memo:  # ms_pair back-references form cycles
+        return _memo[id(sample)]
     s = copy.copy(sample)
+    _memo[id(sample)] = s
     for f in _LABEL_FIELDS:
         v = getattr(s, f, None)
         if isinstance(v, np.ndarray):
             setattr(s, f, np.zeros_like(v))
+    for f in _NESTED_FIELDS:
+        v = getattr(s, f, None)
+        if v is not None and not isinstance(v, np.ndarray):
+            setattr(s, f, _as_padding(v, _memo))
     return s
 
 
@@ -144,6 +188,9 @@ class VoxelLoader:
         self.process_count = process_count
         self.rng = np.random.default_rng(seed)
         self.epoch = 0
+        # KD-stage extras (set by build_dataloader for the kd pipeline)
+        self.teacher_capacity = None
+        self.kd_max_voxel = 3000
         # when set, every sample is transformed with this exact AugParams —
         # the deterministic TTA-vote path (reference
         # semantickitti_voxel.py:101-117)
@@ -218,7 +265,12 @@ class VoxelLoader:
             for i in idxs
         ]
         (shard,) = self._pad_and_shard(samples, n_real)
-        c = self.pipeline.collate(shard, self.point_capacity)
+        if isinstance(self.pipeline, MsKdVoxelPipeline):
+            c = self.pipeline.collate(
+                shard, self.point_capacity, self.teacher_capacity, self.kd_max_voxel
+            )
+        else:
+            c = self.pipeline.collate(shard, self.point_capacity)
         meta = [{"offsets": c.pop("offsets"), "samples": c.pop("samples")}]
         return self._mark_padding((c, meta), n_real)
 
@@ -285,7 +337,6 @@ class VoxelLoader:
 # pipeline kinds and modalities of the JAX package the port has not yet
 _KIND_NOT_PORTED = {
     "range": "Queue 1 item 6 (range-view family)",
-    "kd": "Queue 1 item 5 (KD)",
     "mm": "Queue 1 item 5 (TIAF)",
 }
 
@@ -303,12 +354,17 @@ def build_dataloader(
     process_count: int = 1,
 ) -> VoxelLoader:
     """The `voxel` pipeline, the `fusion` one (RPVNet: the voxel sample,
-    the DATA.H x DATA.W range image and the voxels' pixel coordinates) or
+    the DATA.H x DATA.W range image and the voxels' pixel coordinates),
     the `cylinder` one (Cylinder_TS: the polar grid DATA.GRID_SIZE, else
     CYLINDER_GRID_SIZE, else 480 x 360 x 32, with JAX's default
-    augmentation flags, as JAX builds it), over `build_reader`'s reader
-    (JAX `data/__init__.py:462`).  The point capacity defaults to JAX's,
-    DATA.NUM_POINTS x scans_per_shard."""
+    augmentation flags, as JAX builds it) or the `kd` one (a `_ms_kd`
+    dataset), over `build_reader`'s reader (JAX `data/__init__.py:462`).
+    On the `voxel` kind a dataset whose name ends in `_ms` takes the
+    multi-scan pipeline, and the multi-scan pipelines read
+    DATA.IN_FEATURE_DIM (5) features; the `kd` loader's teacher capacity
+    is DATA.TEACHER_NUM_POINTS (default the point capacity) and its pairs
+    per scan DATA.MAX_VOXEL (3000), as in JAX (:546-590).  The point
+    capacity defaults to JAX's, DATA.NUM_POINTS x scans_per_shard."""
     if pipeline_kind is None:
         dataset_name = str(data_cfgs.get("DATASET", "synthetic"))
         if modality in ("range", "cylinder"):
@@ -323,7 +379,7 @@ def build_dataloader(
         raise _not_ported(
             f"the {pipeline_kind!r} pipeline", _KIND_NOT_PORTED[pipeline_kind]
         )
-    if pipeline_kind not in ("voxel", "fusion", "cylinder"):
+    if pipeline_kind not in ("voxel", "fusion", "cylinder", "kd"):
         raise NotImplementedError(f"pipeline kind {pipeline_kind!r}")
     reader = build_reader(data_cfgs, training)
     kw = dict(
@@ -335,16 +391,23 @@ def build_dataloader(
         if_jitter=data_cfgs.get("TRANSFORM_AUG", True),
         if_rotate=data_cfgs.get("ROTATE_AUG", True),
     )
+    is_ms = str(data_cfgs.get("DATASET", "synthetic")).endswith("_ms")
+    if is_ms or pipeline_kind == "kd":
+        kw["in_feature_dim"] = data_cfgs.get("IN_FEATURE_DIM", 5)
     if pipeline_kind == "fusion":
         pipeline = FusionPipeline(h=data_cfgs.get("H", 64), w=data_cfgs.get("W", 2048), **kw)
     elif pipeline_kind == "cylinder":
         pipeline = CylinderPipeline(grid=grid_from_cfg(data_cfgs), training=training)
+    elif pipeline_kind == "kd":
+        pipeline = MsKdVoxelPipeline(max_voxel=int(data_cfgs.get("MAX_VOXEL", 3000)), **kw)
+    elif is_ms:
+        pipeline = MsVoxelPipeline(**kw)
     else:
         pipeline = VoxelPipeline(**kw)
     cap = point_capacity or int(
         data_cfgs.get("NUM_POINTS", 80_000) * scans_per_shard
     )
-    return VoxelLoader(
+    loader = VoxelLoader(
         reader,
         pipeline,
         n_shards=n_shards,
@@ -355,3 +418,7 @@ def build_dataloader(
         process_index=process_index,
         process_count=process_count,
     )
+    if pipeline_kind == "kd":
+        loader.teacher_capacity = int(data_cfgs.get("TEACHER_NUM_POINTS", cap))
+        loader.kd_max_voxel = int(data_cfgs.get("MAX_VOXEL", 3000))
+    return loader

@@ -1,8 +1,9 @@
 """Synthetic LiDAR scenes — deterministic stand-in for SemanticKITTI.
 
 Copy of `taseg_tpu/data/synthetic.py:1-164` (the scan generator) and of
-its `SyntheticKittiReader` (:221-246), so the port needs no module of the
-JAX package.  The same seed gives the same arrays in both packages.
+its `SyntheticMsKittiReader` (:167) and `SyntheticKittiReader` (:221-246),
+so the port needs no module of the JAX package.  The same seed gives the
+same arrays in both packages.
 
 Point clouds are generated with a *raycast beam model* (64 beams x ~2048
 azimuth steps, first-hit against an analytic scene of ground plane, walls,
@@ -166,6 +167,60 @@ def synthetic_scan(
     pts = np.concatenate([xyz, intensity], axis=1)
     perm = rng.permutation(len(pts))
     return pts[perm], lbl[perm].astype(np.int32)
+
+
+class SyntheticMsKittiReader:
+    """Synthetic multi-scan reader matching the TLAD/FSA reader contract
+    (frame + pose-jittered history copies with the time-flag channel)."""
+
+    def __init__(
+        self, length: int = 16, n_points: int = 60_000, history: int = 3,
+        seed: int = 0, kd: bool = False,
+    ):
+        self.length = length
+        self.n_points = n_points
+        self.history = history
+        self.seed = seed
+        self.kd = kd  # also emit a GT-mask cloud (teacher input, KD stage)
+        self.class_names = [f"class_{i}" for i in range(20)]
+
+    def __len__(self):
+        return self.length
+
+    def resample(self):
+        pass
+
+    def __getitem__(self, index: int) -> dict:
+        rng = np.random.default_rng(self.seed * 99991 + index)
+        pts, labels = synthetic_scan(rng, self.n_points)
+        hist_parts, hist_labels = [], []
+        for h in range(self.history):
+            shift = rng.normal(0, 0.5, 3).astype(np.float32)
+            keep = rng.random(len(pts)) < 0.3  # flexible-step style thinning
+            moved = pts[keep].copy()
+            moved[:, :3] += shift
+            hist_parts.append(moved)
+            hist_labels.append(labels[keep])
+        fused = np.concatenate([pts] + hist_parts)
+        fused_labels = np.concatenate([labels] + hist_labels)
+        flag = np.zeros((len(fused), 1), np.float32)
+        flag[: len(pts)] = 1.0
+        ring = np.zeros((len(pts), 1), np.float32)
+        ring_ms = np.zeros((len(fused), 1), np.float32)
+        out = {
+            "xyzret": np.concatenate([pts, ring], axis=1),
+            "labels": labels,
+            "xyzret_ms": np.concatenate([fused[:, :4], flag, ring_ms], axis=1),
+            "labels_ms": fused_labels,
+            "path": f"synthetic_ms/08/velodyne/{index:06d}.bin",
+        }
+        if self.kd:
+            # GT-mask cloud: a differently-thinned fusion (teacher input)
+            keep = rng.random(len(fused)) < 0.8
+            keep[: len(pts)] = True
+            out["xyzret_ms_gt"] = out["xyzret_ms"][keep]
+            out["labels_ms_gt"] = fused_labels[keep]
+        return out
 
 
 class SyntheticKittiReader:

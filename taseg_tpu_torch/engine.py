@@ -11,7 +11,9 @@ per-raw-point logits and labels.  A batch goes through four stages:
   1. host:     VoxelPipeline(training=False) + collate_shard (numpy); for
                RPVNet the FusionPipeline, which adds each scan's range
                image and its voxels' pixel coordinates; for Cylinder_TS
-               the CylinderPipeline (polar grid, majority labels);
+               the CylinderPipeline (polar grid, majority labels); for
+               MinkUNetMs / MinkUNetMsKd (FSA) the MsVoxelPipeline over
+               the fused multi-scan cloud (`xyzret_ms`, 5 features);
   2. topology: build_unet_topology(assume_sorted_points=True), with the
                model's `point_voxel_strides` (SPVCNN's and RPVNet's point
                branch); for RPVNet also its point <-> range tables
@@ -21,7 +23,9 @@ per-raw-point logits and labels.  A batch goes through four stages:
   3. forward:  the model (`models.build_segmentor` on MODEL.NAME:
                MinkUNet, SPVCNN, RPVNet or Cylinder_TS) in eval mode, in
                the compute dtype (Cylinder_TS: f32);
-  4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan.
+  4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan;
+               for a fused cloud only the current frame's points, the
+               first `num_frame_points` (JAX engine.py:700-710).
 
 `Trainer`'s evaluation runs stages 2-4 through the same functions
 (`model_topology`, `eval_logits`, `point_logits`) on its own model,
@@ -32,7 +36,8 @@ only warns; a serving path must not return degraded labels, and an
 epoch must not train on them).
 
 `Trainer` is the counterpart of one call of the JAX step
-(`taseg_tpu/parallel/__init__.py:120 make_train_step`) on one device,
+(`taseg_tpu/parallel/__init__.py:120 make_train_step`, and for
+MinkUNetMsKd `parallel/kd.py:52 make_kd_train_step`) on one device,
 wired as `taseg_tpu/engine.py:179-228` wires it, and of JAX's harness
 around it (`engine.py:539-911`): epochs over a `data.VoxelLoader`,
 checkpoints, voxel- and point-level evaluation, TTA votes and
@@ -51,7 +56,7 @@ import torch
 from ._device import resolve_device
 from .data.cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .data.fusion_dataset import FusionPipeline
-from .data.voxel_dataset import VoxelPipeline
+from .data.voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
 from .loss import Losses
 from .models.fusion.rpvnet import RpvInputs, rpv_inputs
 from .models.layers import seed_dropout
@@ -66,8 +71,18 @@ from .utils.params_from_jax import init_params_numpy, load_flax_params
 from .utils.submission import save_logits, save_predictions
 from .utils.tb import MetricsWriter
 
-# padded points per scan: 120k-point scans with ~9% headroom (bench.py)
+# padded points per scan: 120k-point scans with ~9% headroom (bench.py);
+# a recipe's MODEL.POINTS_PER_SCAN replaces it (the fused multi-scan
+# clouds: 262144)
 POINTS_PER_SCAN = 131072
+# the models that read the fused multi-scan cloud (FSA, and KD's student)
+MS_MODELS = ("MinkUNetMs", "MinkUNetMsKd")
+# the arrays of a collated KD shard beside the student's and teacher's
+KD_KEYS = ("kd_student_idx", "kd_teacher_idx", "kd_mask")
+
+
+def points_per_scan(cfg: dict) -> int:
+    return int(cfg["MODEL"].get("POINTS_PER_SCAN", POINTS_PER_SCAN))
 
 
 def check_capacity(topo, caps: UNetCapacities) -> list:
@@ -93,7 +108,15 @@ FUSION_KEYS = ("range_image", "range_pxpy")
 def to_device(arrays: dict, device, keys=("point_coords", "point_feats")) -> dict:
     """Add `<key>_t` device tensors of the collated numpy arrays (and of
     the range images and pixel coordinates of a fusion shard), and
-    `num_points_t` (a 0-dim int32)."""
+    `num_points_t` (a 0-dim int32).  A KD shard's student and teacher
+    shards each get theirs (the teacher's without labels), and its pair
+    tables `<kd key>_t`."""
+    if "student" in arrays:
+        to_device(arrays["student"], device, keys)
+        to_device(arrays["teacher"], device)
+        for k in KD_KEYS:
+            arrays[k + "_t"] = torch.from_numpy(arrays[k]).to(device)
+        return arrays
     keys = tuple(keys) + tuple(k for k in FUSION_KEYS if k in arrays)
     for k in keys:
         arrays[k + "_t"] = torch.from_numpy(arrays[k]).to(device)
@@ -117,13 +140,20 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
     (the polar grid DATA.GRID_SIZE, 480 x 360 x 32 by default, as JAX's
     `build_dataloader`), the FusionPipeline (DATA.H x DATA.W range images,
     64 x 2048 by default) for a model that reads range images (RPVNet),
-    the VoxelPipeline otherwise."""
+    the MsVoxelPipeline for the models of the fused cloud (MS_MODELS; the
+    MsKdVoxelPipeline with DATA.MAX_VOXEL pairs per scan to train
+    MinkUNetMsKd), the VoxelPipeline otherwise."""
     if isinstance(model, CylinderTS):
         return CylinderPipeline(grid=grid_from_cfg(cfg["DATA"]), training=training, seed=seed)
     kw = dict(
         voxel_size=cfg["DATA"]["VOXEL_SIZE"], training=training,
         in_feature_dim=cfg["MODEL"].get("IN_FEATURE_DIM", 4), seed=seed,
     )
+    name = cfg["MODEL"].get("NAME")
+    if training and name == "MinkUNetMsKd":
+        return MsKdVoxelPipeline(max_voxel=int(cfg["DATA"].get("MAX_VOXEL", 3000)), **kw)
+    if name in MS_MODELS:
+        return MsVoxelPipeline(**kw)
     if getattr(model, "range_view", False):
         return FusionPipeline(h=cfg["DATA"].get("H", 64), w=cfg["DATA"].get("W", 2048), **kw)
     return VoxelPipeline(**kw)
@@ -161,21 +191,33 @@ def eval_logits(model: torch.nn.Module, arrays: dict, topo) -> torch.Tensor:
 
 def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
     """Stage 4: yields (sample, per-raw-point logits on the device) for
-    every sample of a shard that is not a padding repeat."""
+    every sample of a shard that is not a padding repeat.  A fused
+    multi-scan sample (one with an `ms_pair`) yields its frame and the
+    logits of the current frame's points only, which lead the fused cloud
+    (FSA's point_mask, reference semantickitti_voxel_ms.py:204-210)."""
     for b, s in enumerate(samples):
         if padded and padded[b]:
             continue
         rows = logits[int(offsets[b]) : int(offsets[b + 1])]
-        yield s, rows[torch.from_numpy(s.inverse_map).to(logits.device).long()]
+        pt = rows[torch.from_numpy(s.inverse_map).to(logits.device).long()]
+        ms = getattr(s, "ms_pair", None)
+        if ms is not None:
+            yield ms.frame, pt[: ms.num_frame_points]
+        else:
+            yield s, pt
 
 
 class Segmenter:
     """Inference on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN, RPVNet or Cylinder_TS).
+    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs or MinkUNetMsKd;
+    the last two take reader dicts with the fused cloud, `xyzret_ms`, and
+    return the current frame's points).
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
     (`utils.params_from_jax.init_params_numpy` draws them from a seed).
+    The point capacity defaults to MODEL.POINTS_PER_SCAN (else 131072)
+    rows per scan.
     """
 
     def __init__(
@@ -190,7 +232,7 @@ class Segmenter:
     ):
         self.device = resolve_device(device)
         self.batch_size = batch_size
-        self.point_capacity = point_capacity or POINTS_PER_SCAN * batch_size
+        self.point_capacity = point_capacity or points_per_scan(cfg) * batch_size
         # MODEL.CAPACITY_SCHEDULE: per-level voxel-capacity fractions of
         # the point capacity, as in the JAX engine
         self.caps = UNetCapacities.for_points(
@@ -310,7 +352,8 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
 
 class Trainer:
     """The train step on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN, RPVNet or Cylinder_TS), and the harness around it.
+    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs or MinkUNetMsKd),
+    and the harness around it.
 
     cfg: dict with the YAML's layout (`configs.py`, or a `utils.config.
     Config`), including OPTIM; MODEL.TRAIN_CAPACITY_SCHEDULE, where
@@ -324,6 +367,8 @@ class Trainer:
     `iters_per_epoch`, `batch_size` and `point_capacity` default to its
     length, global scans per batch and point capacity, as in JAX
     (`engine.py:179-193`); `total_epochs` defaults to OPTIM.NUM_EPOCHS.
+    Without a loader the point capacity defaults to MODEL.POINTS_PER_SCAN
+    (else 131072) rows per scan.
 
     `step(scans)` runs, for `batch_size` reader dicts:
       1. host:      VoxelPipeline(training=True) (RPVNet: FusionPipeline,
@@ -345,6 +390,21 @@ class Trainer:
     a collated shard.  Every Dropout of the model (MODEL.DROPOUT_P, and
     RPVNet's range branch at 0.2) draws its masks from one generator on
     the device seeded by `seed` (`dropout_generator`).
+
+    MinkUNetMsKd trains the `kd` kind (JAX `parallel/kd.py:52`, wired as
+    `engine.py:289-320`): its pipeline is the MsKdVoxelPipeline, whose
+    shard holds the student's pseudo-mask cloud, the teacher's GT-mask
+    cloud and the pairs of their matching voxels.  The teacher, a frozen
+    copy of the architecture installed by `set_teacher` / `load_teacher`
+    (MODEL.TEACHER_CKPT in the CLI), runs in eval mode (BN on its running
+    statistics) under `torch.no_grad` on its own topology
+    (`teacher_topology`, at `teacher_capacity` rows: the loader's, else
+    the point capacity) with `return_features`; the student in train
+    mode with `return_features`; the loss is the criterion plus
+    MODEL.FEAT_KD_WEIGHT (10) x the MSE of their tri-scale features over
+    the pairs, and `train_on` also returns "loss_seg" and "loss_feat_kd".
+    The teacher's parameters and buffers are in no optimizer and in no
+    checkpoint; a step without a teacher raises.
 
     The harness (JAX `engine.py:539-911`): `train(eval_interval=)` runs
     `train_one_epoch` over the train loader (its prefetch thread runs the
@@ -372,6 +432,7 @@ class Trainer:
         val_loader=None,
         output_dir="output",
         logger=None,
+        teacher_capacity: int = None,
     ):
         m, optim = cfg["MODEL"], cfg["OPTIM"]
         self.cfg = cfg
@@ -388,16 +449,21 @@ class Trainer:
             iters_per_epoch = iters_per_epoch or len(train_loader)
             batch_size = batch_size or train_loader.global_scans_per_batch
             point_capacity = point_capacity or train_loader.point_capacity
+            teacher_capacity = teacher_capacity or getattr(train_loader, "teacher_capacity", None)
         if iters_per_epoch is None:
             raise TypeError("Trainer needs iters_per_epoch or a train_loader")
         self.batch_size = batch_size = batch_size or 1
         self.total_epochs = int(total_epochs or optim["NUM_EPOCHS"])
         self.num_class = int(m.get("NUM_CLASS", 20))
-        self.point_capacity = point_capacity or POINTS_PER_SCAN * batch_size
-        self.caps = UNetCapacities.for_points(
-            self.point_capacity,
-            schedule=m.get("TRAIN_CAPACITY_SCHEDULE", m.get("CAPACITY_SCHEDULE")),
-        )
+        self.point_capacity = point_capacity or points_per_scan(cfg) * batch_size
+        train_schedule = m.get("TRAIN_CAPACITY_SCHEDULE", m.get("CAPACITY_SCHEDULE"))
+        self.caps = UNetCapacities.for_points(self.point_capacity, schedule=train_schedule)
+        self.kind = "kd" if m.get("NAME") == "MinkUNetMsKd" else "voxel"
+        self.teacher_capacity = teacher_capacity or self.point_capacity
+        self.teacher_caps = UNetCapacities.for_points(self.teacher_capacity, schedule=train_schedule)
+        self.teacher = None
+        self.feat_kd_weight = float(m.get("FEAT_KD_WEIGHT", 10.0))
+        self.compute_dtype = compute_dtype
         self.eval_caps = UNetCapacities.for_points(
             val_loader.point_capacity if val_loader is not None else self.point_capacity,
             schedule=m.get("CAPACITY_SCHEDULE"),
@@ -439,26 +505,89 @@ class Trainer:
             self._writer = MetricsWriter(self.output_dir / "metrics")
         return self._writer
 
+    # ---------------- the KD teacher (JAX engine.py:377-393) ----------------
+    def set_teacher(self, params: dict, batch_stats: dict) -> None:
+        """Install the frozen KD teacher from flax-layout numpy trees (a
+        second copy of the architecture, in eval mode, outside the
+        optimizer; it replaces the reference's stem -> stem_gt key
+        remapping, minkunet_ms_kd.py:680-717)."""
+        teacher = build_segmentor(self.cfg, device=self.device, compute_dtype=self.compute_dtype)
+        load_flax_params(teacher, params, batch_stats)
+        self.teacher = teacher.eval().requires_grad_(False)
+
+    def load_teacher(self, path: str) -> None:
+        """The KD teacher from a checkpoint of a Trainer of the same
+        architecture (e.g. the FSA stage's MinkUNetMs), or from a file of
+        flax-layout {"params", "batch_stats"} trees."""
+        payload = self.ckptr.restore(path, map_location="cpu")
+        if "model" in payload:
+            teacher = build_segmentor(self.cfg, device=self.device, compute_dtype=self.compute_dtype)
+            teacher.load_state_dict(payload["model"])
+            self.teacher = teacher.eval().requires_grad_(False)
+        else:
+            self.set_teacher(payload["params"], payload["batch_stats"])
+        self.logger.info(f"loaded frozen KD teacher from {path}")
+
     # ---------------- the step ---------------------------------------------
     def collate(self, scans: list) -> dict:
         """Host stage: augment, quantize, dedup, key-sort and pad the scans
-        into one shard (with their range images for RPVNet), and move the
-        arrays to the device."""
-        arrays = self.pipeline.collate([self.pipeline(s) for s in scans], self.point_capacity)
+        into one shard (with their range images for RPVNet; with the
+        teacher's shard and the pairs for KD), and move the arrays to the
+        device."""
+        samples = [self.pipeline(s) for s in scans]
+        if self.kind == "kd":
+            arrays = self.pipeline.collate(samples, self.point_capacity, self.teacher_capacity)
+        else:
+            arrays = self.pipeline.collate(samples, self.point_capacity)
         return to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
 
     def topology(self, arrays: dict):
+        """The train topology of the shard (of the student's, for KD)."""
         return model_topology(
-            self.model, arrays, self.caps, devox_pairs=True,
+            self.model, arrays.get("student", arrays), self.caps, devox_pairs=True,
             sorted_points=self.pipeline.sorted_points,
         )
 
-    def forward(self, arrays: dict, topo) -> torch.Tensor:
-        """The loss of the shard (f32 scalar, with its graph)."""
-        logits = self.model(arrays["point_feats_t"], topo)
+    def teacher_topology(self, arrays: dict):
+        """The KD teacher's eval topology of its shard at its capacities;
+        a level over capacity raises."""
+        t = arrays["teacher"]
+        topo = build_unet_topology(t["point_coords_t"], t["num_points_t"], self.teacher_caps)
+        check_capacity(topo, self.teacher_caps)
+        return topo
+
+    def forward(self, arrays: dict, topo, teacher_topo=None) -> torch.Tensor:
+        """The loss of the shard (f32 scalar, with its graph); for KD the
+        criterion plus FEAT_KD_WEIGHT x the masked feature MSE (JAX
+        kd.py:94-108), with its two terms kept in `kd_terms` (detached),
+        the teacher's topology built here unless given."""
+        a = arrays.get("student", arrays)
+        if self.kind != "kd":
+            logits = self.model(a["point_feats_t"], topo)
+        else:
+            if self.teacher is None:
+                raise RuntimeError(
+                    "the KD stage needs MODEL.TEACHER_CKPT (or set_teacher / "
+                    "load_teacher) before training"
+                )
+            if teacher_topo is None:
+                teacher_topo = self.teacher_topology(arrays)
+            with torch.no_grad():
+                _, t_feats = self.teacher(
+                    arrays["teacher"]["point_feats_t"], teacher_topo, return_features=True
+                )
+            logits, s_feats = self.model(a["point_feats_t"], topo, return_features=True)
         p = logits.shape[0]
-        pvalid = torch.arange(p, device=self.device) < arrays["num_points_t"]
-        return self.criterion(logits, arrays["labels_t"].long(), pvalid)
+        pvalid = torch.arange(p, device=self.device) < a["num_points_t"]
+        loss = self.criterion(logits, a["labels_t"].long(), pvalid)
+        if self.kind == "kd":
+            fs = s_feats[arrays["kd_student_idx_t"].long()]
+            ft = t_feats[arrays["kd_teacher_idx_t"].long()]
+            m = arrays["kd_mask_t"].float()[:, None]
+            loss_kd = (((fs - ft) ** 2) * m).sum() / torch.clamp(m.sum() * fs.shape[-1], min=1.0)
+            self.kd_terms = (loss.detach(), loss_kd.detach())
+            loss = loss + self.feat_kd_weight * loss_kd
+        return loss
 
     def backward(self, loss: torch.Tensor) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -476,10 +605,13 @@ class Trainer:
         loss = self.forward(arrays, topo)
         self.backward(loss)
         g_norm, lr = self.update()
-        return {
+        out = {
             "loss": float(loss.detach()), "grad_norm": float(g_norm), "lr": lr,
             "level_nums": level_nums,
         }
+        if self.kind == "kd":
+            out["loss_seg"], out["loss_feat_kd"] = (float(t) for t in self.kd_terms)
+        return out
 
     def step(self, scans: list) -> dict:
         """One train step on `batch_size` reader dicts."""
@@ -563,8 +695,9 @@ class Trainer:
             out.update(data_s=timer.d_time.val, step_s=timer.f_time.val)
             steps.append(out)
             step = self.optimizer.count
-            for k in ("loss", "grad_norm", "lr"):
-                writer.scalar(f"train/{k}", out[k], step)
+            for k in ("loss", "grad_norm", "lr", "loss_seg", "loss_feat_kd"):
+                if k in out:
+                    writer.scalar(f"train/{k}", out[k], step)
             if it % max(n // 4, 1) == 0:
                 self.logger.info(
                     f"epoch {epoch} it {it}/{n} loss {out['loss']:.4f} "
@@ -595,11 +728,13 @@ class Trainer:
     # ------------- evaluation: the same stages as Segmenter ----------------
     def _eval_batches(self, batches):
         """(arrays on the device, meta, per-row logits) of each batch,
-        through `Segmenter`'s stages 2-3 on this model in eval mode."""
+        through `Segmenter`'s stages 2-3 on this model in eval mode (for
+        KD, the student alone on its shard)."""
         sorted_points = self.val_loader.pipeline.sorted_points
         with eval_mode(self.model):
             for arrays, meta in batches:
                 arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
+                arrays = arrays.get("student", arrays)
                 topo = model_topology(self.model, arrays, self.eval_caps, sorted_points=sorted_points)
                 check_capacity(topo, self.eval_caps)
                 yield arrays, meta, eval_logits(self.model, arrays, topo)

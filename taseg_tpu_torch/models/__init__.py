@@ -9,9 +9,13 @@ from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
 
 # the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25,
-# and Cylinder_TS of its SEGMENTORS)
+# and Cylinder_TS of its SEGMENTORS).  MinkUNetMs (FSA) is the MinkUNet
+# backbone on the fused multi-scan cloud (5 input features, the time flag
+# among them); MinkUNetMsKd is the KD stage's student (and teacher), a
+# MinkUNet too, whose distillation wiring is the Trainer's kd step
 SEGMENTORS = {
     "MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet, "Cylinder_TS": CylinderTS,
+    "MinkUNetMs": MinkUNet, "MinkUNetMsKd": MinkUNet,
 }
 
 
@@ -20,7 +24,8 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     `PLANES`, `NUM_LAYER`, `cr`, `NUM_CLASS`, `IN_FEATURE_DIM`, `BLOCK`,
     `COMPUTE_DTYPE`, `DROPOUT_P`, `BN_MOMENTUM`, and SPVCNN's
     `MULTI_SCALE`), defaults as in the JAX `build_segmentor`, which passes
-    `BN_MOMENTUM` to MinkUNet and SPVCNN only and `MULTI_SCALE` to SPVCNN
+    `BN_MOMENTUM` to the MinkUNets (MinkUNet, MinkUNetMs, MinkUNetMsKd)
+    and SPVCNN only and `MULTI_SCALE` to SPVCNN
     only (RPVNet keeps momentum 0.1 and its 'concat' head).  Cylinder_TS
     reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9) only, as JAX
     (`models/__init__.py:58-64`), and runs in f32: another compute dtype
@@ -54,7 +59,7 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
         dropout_p=float(m.get("DROPOUT_P", 0.3)),
         device=device,
     )
-    if name in ("MinkUNet", "SPVCNN"):
+    if SEGMENTORS[name] in (MinkUNet, SPVCNN):
         kw["bn_momentum"] = float(m.get("BN_MOMENTUM", 0.1))
     if name == "SPVCNN":
         kw["multi_scale"] = m.get("MULTI_SCALE", "concat")

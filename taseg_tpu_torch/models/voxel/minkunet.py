@@ -17,8 +17,11 @@ devox_pairs=True)`.  Dropout (`layers.Dropout`, after x4 and y2, whose
 pre-dropout values feed the head, as in JAX) is the identity at eval and
 at p = 0, the flagship's value; in training at p > 0 its masks come from
 the generator that `layers.seed_dropout` gives it (the `Trainer` seeds
-it), not from JAX's bits.  `Bottleneck` blocks and `return_features` are
-left out.
+it), not from JAX's bits.  `forward(..., return_features=True)` also
+returns the tri-scale point features `cat(devox(x4), devox(y2),
+devox(y4))` at full width in f32 (256 + 128 + 96 = 480 at cr 1.0), the
+mask-distillation target (JAX :192-199).  `Bottleneck` blocks are left
+out.
 """
 
 from __future__ import annotations
@@ -130,8 +133,12 @@ class MinkUNet(nn.Module):
             x = getattr(self, f"{name}_{i}")(x, rulebook, mask)
         return x
 
-    def forward(self, point_feats: torch.Tensor, topo: UNetTopology) -> torch.Tensor:
-        """point_feats (P, C) f32 -> per-point logits (P, num_classes) f32."""
+    def forward(
+        self, point_feats: torch.Tensor, topo: UNetTopology, return_features: bool = False
+    ):
+        """point_feats (P, C) f32 -> per-point logits (P, num_classes) f32;
+        with `return_features`, (logits, the tri-scale point features (P,
+        C_x4 + C_y2 + C_y4) f32)."""
         levels = topo.levels
         if self.training:
             masks = [
@@ -167,4 +174,12 @@ class MinkUNet(nn.Module):
         y3 = up(self.dropout(y2), 3, 2)
         y4 = up(y3, 4, 1)
         tables = (topo.devox[16], topo.devox[4], topo.devox[1])
-        return self.classifier((x4, y2, y4), tables)
+        logits = self.classifier((x4, y2, y4), tables)
+        if return_features:
+            # reference minkunet_ms_kd.py:568, 605: each scale devoxelized
+            # in the compute dtype, the concatenation in f32
+            z = torch.cat(
+                [devoxelize(x, t) for x, t in zip((x4, y2, y4), tables)], dim=-1
+            ).float()
+            return logits, z
+        return logits

@@ -11,13 +11,20 @@ checkpoint there.  One process drives one device: `--device` (default
 cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
 on the `voxel` pipeline, RPVNet on the `fusion` one and Cylinder_TS on the
 `cylinder` one (as JAX `train.py:102-107` picks them, by model name);
-several processes (`--distributed`, DDP) wait for ROADMAP Queue 1 item 3.
+TASeg's temporal stages by dataset: MinkUNetMs on the multi-scan
+pipeline (FSA, SMSA) and MinkUNetMsKd on the `kd` one, whose frozen
+teacher is MODEL.TEACHER_CKPT (JAX `train.py:127-128`; a checkpoint of
+the FSA stage); several processes (`--distributed`, DDP) wait for ROADMAP
+Queue 1 item 3.
 
     python -m taseg_tpu_torch.train \\
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml --epochs 1
     python -m taseg_tpu_torch.train \\
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml \\
         --eval --tta --votes_max 2 --save_path preds
+    python -m taseg_tpu_torch.train \
+        --cfg_file tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml --epochs 1 \
+        --set MODEL.TEACHER_CKPT output/minkunet_ms_tiny/default/ckpt/checkpoint_epoch_0
 """
 
 from __future__ import annotations
@@ -120,6 +127,8 @@ def main(argv=None) -> None:
     )
     if args.pretrained_model:
         trainer.load_pretrained(args.pretrained_model)
+    if cfg.MODEL.get("TEACHER_CKPT"):
+        trainer.load_teacher(cfg.MODEL["TEACHER_CKPT"])
     resumed = trainer.resume_latest()
 
     if args.eval:

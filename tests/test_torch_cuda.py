@@ -38,7 +38,8 @@ in f32 with widths that are multiples of 4 they take the 3xTF32 route
 to the same bits on repeat, at ragged V, all-empty tables and single-row
 tiles too; the autograd Function of the conv over K offsets,
 `segment_max` and a small Cylinder_TS f32 step on the card against the
-CPU.
+CPU.  TASeg's temporal stages: small f32 steps of the tiny FSA and KD
+recipes on the card against the CPU.
 """
 
 from dataclasses import replace
@@ -1198,6 +1199,54 @@ def test_cylinder_small_step_card_equals_cpu(cuda):
         return out
 
     a, b, z = flat(g_par), flat(c_par), flat(p0)
+    diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+    upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
+    assert diff <= 3e-2 * upd, diff / upd
+
+
+# ------------------------------------------- TASeg's temporal stages (FSA, KD)
+def _flat_params(t, pre=""):
+    out = {}
+    for k, v in t.items():
+        out.update(_flat_params(v, pre + k + "/") if isinstance(v, dict) else {pre + k: np.asarray(v, np.float64)})
+    return out
+
+
+@pytest.mark.parametrize("kd", [False, True])
+def test_fsa_and_kd_small_steps_card_equal_cpu(cuda, kd):
+    """2 f32 steps of the tiny FSA recipe (MinkUNetMs, 5 input features,
+    one synthetic fused cloud) or of the tiny KD recipe (MinkUNetMsKd with
+    a teacher of other weights) on the card and on the CPU: the losses
+    (and for KD loss_seg and loss_feat_kd) within 1e-4 relative, the grad
+    norm within 1e-3 and the parameters' updates within 3e-2 of the
+    update's L2 norm, as chip_smoke.py holds MinkUNet's step; the KD
+    teacher unchanged on the card."""
+    from taseg_tpu_torch.configs import MINKUNET_MS_KD_TINY, MINKUNET_MS_TINY
+    from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
+
+    base = MINKUNET_MS_KD_TINY if kd else MINKUNET_MS_TINY
+    cfg = {**base, "MODEL": {**base["MODEL"], "CAPACITY_SCHEDULE": (1.0,) * 5}}
+    scan = SyntheticMsKittiReader(length=1, n_points=2000, kd=True)[0]
+    p0, s0 = init_params_numpy(cfg, seed=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, {"params": p0, "batch_stats": s0}, dev, iters_per_epoch=1,
+                     total_epochs=4, compute_dtype="float32", point_capacity=8192)
+        if kd:
+            tr.set_teacher(*init_params_numpy(cfg, seed=3))
+            before = {k: v.clone() for k, v in tr.teacher.state_dict().items()}
+        outs = [tr.step([scan]) for _ in range(2)]
+        if kd:
+            assert all(torch.equal(v, before[k]) for k, v in tr.teacher.state_dict().items())
+        runs[dev] = outs, export_flax_params(tr.model)[0]
+    (g_out, g_par), (c_out, c_par) = runs["cuda"], runs["cpu"]
+    for g, c in zip(g_out, c_out):
+        for k in ("loss", "loss_seg", "loss_feat_kd") if kd else ("loss",):
+            assert g[k] == pytest.approx(c[k], rel=1e-4), k
+        assert g["grad_norm"] == pytest.approx(c["grad_norm"], rel=1e-3)
+    a, b, z = _flat_params(g_par), _flat_params(c_par), _flat_params(p0)
     diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
     upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
     assert diff <= 3e-2 * upd, diff / upd

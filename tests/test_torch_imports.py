@@ -1,7 +1,8 @@
 """The port stands alone: importing it, every submodule (the train
 path's loss, optim and f3conv, models/fusion, RPVNet's range blocks,
 point_range and fusion pipeline, Cylinder3D's model, pipeline and the
-K-offset conv entries, among them) and
+K-offset conv entries, the multi-scan readers, poses and SMSA, among
+them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -26,12 +27,15 @@ train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch
          "taseg_tpu_torch.models.fusion.rpvnet", "taseg_tpu_torch.models.range2d",
          "taseg_tpu_torch.models.range2d.blocks", "taseg_tpu_torch.ops.point_range",
          "taseg_tpu_torch.data.fusion_dataset", "taseg_tpu_torch.ops.sparse_conv",
-         "taseg_tpu_torch.models.voxel.cylinder3d", "taseg_tpu_torch.data.cylinder_dataset"}
+         "taseg_tpu_torch.models.voxel.cylinder3d", "taseg_tpu_torch.data.cylinder_dataset",
+         "taseg_tpu_torch.data.semantickitti.poses", "taseg_tpu_torch.data.semantickitti.smsa",
+         "taseg_tpu_torch.data.semantickitti.reader_ms"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)
 from taseg_tpu_torch.ops.sparse_conv import conv_k, sparse_conv  # K2 at K offsets
 from taseg_tpu_torch.ops.f3conv import sparse_conv_dw  # K4 at K offsets
+from taseg_tpu_torch.data.voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline  # FSA, KD
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "taseg_tpu"))

@@ -321,7 +321,8 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="MinkUNetMsMm.*'Cylinder_TS', 'MinkUNet', 'RPVNet', 'SPVCNN'"):
+    with pytest.raises(ValueError, match="MinkUNetMsMm.*'Cylinder_TS', 'MinkUNet', 'MinkUNetMs', "
+                                         "'MinkUNetMsKd', 'RPVNet', 'SPVCNN'"):
         build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMm"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")
