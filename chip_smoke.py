@@ -15,7 +15,9 @@ mk18 cr1.0 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml, with
 synthetic 120 000-point scans, and of TASeg's temporal stages, MinkUNetMs
 mk34 cr1.0 (FSA, tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml)
 and its mask-distillation step (_fsa_kd.yaml) in bf16 on fused
-multi-scan clouds, weights drawn from a seed — and checks them:
+multi-scan clouds, and TIAF, MinkUNetMsMm (_fsa_tiaf.yaml) in f32 on
+fused clouds with 5 camera images each, weights drawn from a seed — and
+checks them:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the sources in the checkout, with its time;
@@ -118,6 +120,25 @@ multi-scan clouds, weights drawn from a seed — and checks them:
      teacher's eval forward and the features added) by stage with the
      teacher's topology and forward apart, peak memory, the teacher's
      parameters and buffers bit-identical after them; the phase's seconds;
+  5g. TIAF at full width in f32 (the _fsa_tiaf recipe: the mk34 main
+     branch, UNet2D at IMAGE_BASE 32, the FOV branch at FOV_CR 0.5) on 2
+     fused clouds of SyntheticTiafReader(120 000 points, history 3) with
+     5 images of 384 x 1280, 262 144 main and 131 072 FOV rows per scan:
+     the level counts of both topologies beside their capacities; one
+     main-branch conv (the second stem conv, level 0) on K2 at 27 over
+     the 3xTF32 route and on the 27-offset CUDA-core K2, and its weight
+     gradient on K4 at 27 both ways, against the plain versions, with
+     their times, bounds and one torch.mm; `Segmenter.predict` with every
+     launch counted (TIAF_PER_SCAN: K2 at K 65 of which 64 on 3xTF32, K3
+     8 + 8, K6 2, K7 15, K1 13), frame-length finite logits, the replace
+     ensemble on the overlap; a small fused cloud with 5 images of 48 x
+     160 on the card against the CPU; serving by stage; 3 counted
+     `Trainer` steps with the staged recipe's freezing (TIAF_PER_STEP):
+     finite loss, five terms and grad norm, the trainable parameters
+     moved, `main/` bit-identical, `main`'s BN buffers moved, peak
+     memory; the steps by stage (host, the topology's pieces, each
+     branch's forward, loss, backward, optimizer) and each branch's
+     forward and backward alone; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -132,7 +153,9 @@ multi-scan clouds, weights drawn from a seed — and checks them:
      CUDA-core time (`old_ms`), the 3xTF32 bound and the head's share,
      and every kernel's launches on Cylinder_TS's path; every kernel's
      launches per scan, per FSA step and per KD step, and its times at
-     the fused shapes (`fsa`).
+     the fused shapes (`fsa`); every kernel's TIAF launches per scan and
+     per step (`tiaf`), with the 3xTF32 / CUDA-core route call beside K2
+     and K4 at K offsets.
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -389,11 +412,15 @@ class Capture:
                 self.handles.append(m.register_forward_pre_hook(self._hook))
 
     def _hook(self, module, args):
+        from taseg_tpu_torch.ops.sparse_conv import KTable, as_table
+
         feats, table = args
         if isinstance(table, self._strided):
             kind = "strided_up" if module.transposed else "strided_down"
-        else:
+        else:  # the forward table's rulebook (of a pair in training)
             kind = "sparse_conv_k3"
+            pair = isinstance(table, tuple) and not isinstance(table, KTable)
+            table = as_table(table[0] if pair else table).rb
         key = (kind, feats.shape[0], module.in_channels, module.out_channels)
         self.count[key] = self.count.get(key, 0) + 1
         if key not in self.seen:
@@ -1977,10 +2004,11 @@ def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
     )
 
 
-def _k6_check(label, args, tot) -> None:
+def _k6_check(label, args, tot, count: int = 1, profile: bool = True) -> None:
     """K6 on one call's (src, tables, weights): against its plain version
-    in f64, bit-identical on repeat, with kernel, device, plain, bound
-    and `index_add_` times added to `tot`."""
+    in f64, bit-identical on repeat, with kernel, device (where
+    `profile`), plain, bound and `index_add_` times added to `tot`,
+    `count` times."""
     from taseg_tpu_torch.ops import voxelize as vx
 
     x, t, w = args
@@ -1989,16 +2017,18 @@ def _k6_check(label, args, tot) -> None:
     want = vx.segment_sum_plain(x.double(), t, w64)
     ref = vx.segment_sum_plain(x.double().abs(), t, None if w is None else w64.abs())
     err = check_close(label, got, want, ref, "float32", 1e-5)
+    limit = 1e-5 * ref.abs().max().item()
     ms = cuda_ms(lambda: vx.segment_sum(x, t, w))
     pms = cuda_ms(lambda: vx.segment_sum_plain(x, t, w), iters=3)
-    dev = device_ms(partial(vx.segment_sum, x, t, w), KERNEL_NAMES["segment_sum"])
+    dev = device_ms(partial(vx.segment_sum, x, t, w), KERNEL_NAMES["segment_sum"]) if profile else None
     nbytes, ops, lib = train_cost("segment_sum", (x, t, w), {}, x, None)
     b, by = bound_ms(nbytes, ops, "float32")
     log(
-        f"{label}: max|err| {err:.3e} (bit-identical on repeat), kernel {ms:.4f} ms device "
+        f"{label}: max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat), kernel {ms:.4f} ms device "
         f"{fmt_ms(dev)} plain {pms:.4f} ms index_add_ {lib:.4f} ms bound {b:.4f} ms ({by})"
     )
-    _add(tot, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0, max_abs_err=err)
+    _add(tot, ms=count * ms, plain_ms=count * pms, bound_ms=count * b, library_ms=count * lib,
+         device_ms=count * (dev or 0.0), max_abs_err=err)
 
 
 def _leaves(a):
@@ -2237,7 +2267,7 @@ def cuda_core_k(name: str, x, second, rb):
     return out
 
 
-def phase_cylinder_kernels(cap: CallCapture, label: str) -> dict:
+def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> dict:
     """K2 and K4 at K offsets (the 3^3 head's at K = 27 among them) at
     every call of the captured forward or train step, on the call's own
     f32 inputs and the topology's row order / pair lists: the 3xTF32
@@ -2252,7 +2282,8 @@ def phase_cylinder_kernels(cap: CallCapture, label: str) -> dict:
     beforehand), summed over the calls by their count; a call slower than
     its torch.mm is named.  The convs also run once in bf16 at the same
     shapes (their tensor-core route where the widths allow it), for
-    correctness only: no path calls them in bf16.  Returns the totals by
+    correctness only: no path calls them in bf16 (`bf16` False leaves
+    that out).  Returns the totals by
     kind (`sparse_conv_k`, `sparse_conv_k_dgrad`, `sparse_conv_dw`), each
     with a `head` part of its K = 27 calls."""
     import torch
@@ -2287,9 +2318,10 @@ def phase_cylinder_kernels(cap: CallCapture, label: str) -> dict:
         )
         share = err / max(ref.abs().max().item(), 1e-30)  # of the largest sum of |terms|
         del got, want, ref
-        extra = (f"3xTF32 max|err| {err:.3e} ({share:.2e} of the sum of |terms|), "
-                 f"CUDA-core {old_err:.3e}, bit-identical on repeat")
-        if name == "sparse_conv_k":
+        extra = (f"3xTF32 max|err| {err:.3e} "
+                 f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), CUDA-core {old_err:.3e}, "
+                 f"bit-identical on repeat")
+        if name == "sparse_conv_k" and bf16:
             xb, wb = x.bfloat16(), second.bfloat16()
             berr = check_close(f"{label}{key} bf16", sparse_conv.sparse_conv(xb, wb, rb), plain(xb, wb, rb),
                                plain(xb.abs(), wb.abs(), rb), "bfloat16", 1e-5)
@@ -2428,7 +2460,9 @@ def segment_max_ms(seg, scans) -> None:
     forward, and forward + backward of its sum, on the host clock around
     10 calls (CUDA events, `cuda_ms`) and in device time (profiler events,
     every kernel of the call), beside its bound (bytes: (P, 16) f32 read
-    and (V, 16) written once each way)."""
+    and (V, 16) written once each way) and one `scatter_reduce(amax)` on
+    the same rows into a -inf-filled output made beforehand (`library_ms`
+    of its table row)."""
     import torch
 
     from taseg_tpu_torch.ops.voxelize import segment_max
@@ -2449,10 +2483,15 @@ def segment_max_ms(seg, scans) -> None:
         segment_max(x.detach(), ids, v0 + 1)
 
     b, _ = bound_ms((x.shape[0] + v0 + 1) * 16 * 4, 0, "float32")
+    base = torch.full((v0 + 1, 16), float("-inf"), device=x.device)
+    idx = ids.long()[:, None].expand(-1, 16)
+    xd = x.detach()
+    lib = cuda_ms(lambda: base.scatter_reduce(0, idx, xd, "amax"))
     log(
         f"cylinder segment_max P={x.shape[0]} V={v0} C=16 f32: forward {cuda_ms(fwd):.4f} ms "
         f"(device {fmt_ms(device_ms(fwd, ('',)))}), forward + backward {cuda_ms(fwd_bwd):.4f} ms "
-        f"(device {fmt_ms(device_ms(fwd_bwd, ('',)))}); bound {b:.4f} ms each way (bytes)"
+        f"(device {fmt_ms(device_ms(fwd_bwd, ('',)))}); bound {b:.4f} ms each way (bytes); one "
+        f"scatter_reduce(amax) {lib:.4f} ms"
     )
 
 
@@ -2463,7 +2502,8 @@ def permute_rows_ms(trainer, scans) -> None:
     device time of each call's forward (and of the errors' forward +
     backward), beside its bound (bytes: x, the permutation and the output
     once each; the backward reads the cotangent and the inverse and
-    writes the gradient)."""
+    writes the gradient) and one `take_along_dim` of the same rows
+    (`library_ms` of its table row)."""
     import torch
 
     from taseg_tpu_torch.loss import lovasz
@@ -2487,9 +2527,11 @@ def permute_rows_ms(trainer, scans) -> None:
         b, _ = bound_ms(nbytes * (2 if grad else 1), 0, "float32")
         both = (f", forward + backward {cuda_ms(fwd_bwd):.4f} ms (device "
                 f"{fmt_ms(device_ms(fwd_bwd, ('',)))})" if grad else "")
+        lib = cuda_ms(lambda: torch.take_along_dim(x, perm, 0))
         log(
             f"cylinder permute_rows {tuple(x.shape)} x{cap.count[key]}: forward {cuda_ms(fwd):.4f} ms "
-            f"(device {fmt_ms(device_ms(fwd, ('',)))}){both}; bound {b:.4f} ms (bytes)"
+            f"(device {fmt_ms(device_ms(fwd, ('',)))}){both}; bound {b:.4f} ms (bytes); one "
+            f"take_along_dim {lib:.4f} ms"
         )
 
 
@@ -2867,6 +2909,685 @@ def phase_fsa_kd() -> dict:
     }
 
 
+TIAF_SCANS = 2
+TIAF_STEPS = 3
+# TIAF (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml)
+# in f32: per scan the main branch's 48 convs and the FOV branch's 17: 64
+# on K2 at K = 27 offsets on the f32 3xTF32 route over the levels' row
+# orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 + 4 per branch, K6 at
+# the two voxelizes, K7 at the main head's 3, the main features' 3, the
+# FOV taps to the FOV points (3) and to the main points (3, trilinear
+# FOV -> main) and the image gathers (3: stem, decoder, logits); K1 at
+# both topologies' joins (5 each) and the corner joins of the three
+# FOV -> main tables.  A train step adds the input gradients (47 main,
+# 17 FOV: the FOV stem's input, the image features, takes one), K4 at K =
+# 27 (64; the main stem's first on K4 at 27), K3's input gradients and K5
+# per strided conv, K6 at the 15 devoxelize backwards (the image
+# gathers' over the pixel table among them) and K8 at the FOV stem's
+# voxelize backward
+TIAF_PER_SCAN = {
+    "join_scan": 13, "sparse_conv_k3": 1, "sparse_conv_k": 64, "sparse_conv_k_tf32": 64,
+    "strided_down": 8, "strided_up": 8, "segment_sum": 2, "devoxelize": 15,
+}
+TIAF_PER_STEP = {
+    "join_scan": 13, "sparse_conv_k3": 1, "k3_conv_dw": 1, "sparse_conv_k": 128,
+    "sparse_conv_k_tf32": 128, "sparse_conv_k_dgrad": 64, "sparse_conv_k_dgrad_tf32": 64,
+    "sparse_conv_dw": 64, "sparse_conv_dw_tf32": 64,
+    "strided_down": 16, "strided_down_dgrad": 8, "strided_up": 16, "strided_up_dgrad": 8,
+    "strided_dw": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
+}
+TIAF_BRANCHES = ("image_backbone", "lidar_backbone", "main")
+
+
+def tiaf_scans(n: int, n_points: int = N_POINTS, seed: int = SEED, img=(384, 1280)) -> list:
+    """`n` samples of SyntheticTiafReader(n_points, history=FSA_HISTORY,
+    5 images of `img`): the fused cloud with its camera window."""
+    from taseg_tpu_torch.data.synthetic import SyntheticTiafReader
+
+    reader = SyntheticTiafReader(
+        length=n, n_points=n_points, history=FSA_HISTORY, seed=seed, n_images=5,
+        img_h=img[0], img_w=img[1],
+    )
+    return [reader[i] for i in range(n)]
+
+
+def tiaf_route_call(seg, arrays) -> dict:
+    """The main branch's second stem conv (level 0, 32 -> 32) at its real
+    input and tables: K2 at 27 on the 3xTF32 route (over the level's
+    row order) and the 27-offset CUDA-core K2 (`sparse_conv_k3`) on the
+    same inputs, each within 1e-5 of the largest sum of |terms| of the
+    plain version; the weight gradient of a seeded cotangent the same way
+    (K4 at 27 over the pair lists, 3xTF32, against the CUDA-core K4,
+    1e-4).  Kernel, plain, both bounds and one torch.mm each."""
+    import torch
+
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    conv = seg.model.main.stem_1.SparseConv_0
+    seen = {}
+    h = conv.register_forward_pre_hook(lambda m, a: seen.setdefault("args", a))
+    seg.forward(arrays, seg.topology(arrays))
+    h.remove()
+    x, table = seen["args"]
+    w, rb, order = conv.kernel.detach().contiguous(), table.rb, table.order
+    v, c_in, c_out = x.shape[0], x.shape[1], w.shape[2]
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    g = torch.randn(v, c_out, device=x.device, generator=gen)
+    rb_bwd = sparse_conv.flip_rulebook(rb)
+    lists = f3conv.k3_pair_lists(rb_bwd)
+    pairs = int((rb >= 0).sum())
+    nbytes = (v * c_in + w.numel() + rb.numel() + v * c_out) * 4
+    ops = 2.0 * pairs * c_in * c_out
+    out = {}
+    calls = (
+        ("sparse_conv_k", lambda: sparse_conv.sparse_conv(x, w, rb, order=order),
+         lambda: sparse_conv.sparse_conv_k3(x, w, rb), sparse_conv.sparse_conv_plain, (x, w, rb), 1e-5,
+         conv_library_ms("sparse_conv_k3", x, w, rb)),
+        ("sparse_conv_dw", lambda: f3conv.sparse_conv_dw(x, g, rb_bwd, pairs=lists),
+         lambda: f3conv.k3_conv_dw(x, g, rb_bwd), f3conv.k3_conv_dw_plain, (x, g, rb_bwd), 1e-4,
+         dw_library_ms("k3_conv_dw", x, g, rb_bwd)),
+    )
+    for name, tf32, simt, plain, args, rel, lib in calls:
+        want = plain(*args)
+        ref = plain(args[0].abs(), args[1].abs(), args[2])
+        err = check_close(f"tiaf {name} 3xTF32", twice_same(name, tf32), want, ref, "float32", rel)
+        old_err = check_close(f"tiaf {name} CUDA cores", simt(), want, ref, "float32", rel)
+        b, by = bound_ms(nbytes, ops, "float32")
+        b3, by3 = bound_ms(nbytes, ops, "tf32x3")
+        r = {
+            "ms": cuda_ms(tf32), "old_ms": cuda_ms(simt), "plain_ms": cuda_ms(lambda: plain(*args), iters=3),
+            "max_abs_err": err, "old_max_abs_err": old_err, "bound_ms": b, "bound_by": by,
+            "bound_ms_3xtf32": b3, "bound_by_3xtf32": by3, "library_ms": lib,
+        }
+        out[name] = r
+        log(
+            f"tiaf route, main stem_1 {name} V={v} {c_in}->{c_out} pairs={pairs}: 3xTF32 {r['ms']:.4f} ms "
+            f"(max|err| {err:.3e}, bit-identical on repeat) CUDA cores (K2 / K4 at 27, `sparse_conv_k3` / `k3_conv_dw`) "
+            f"{r['old_ms']:.4f} ms (max|err| {old_err:.3e}) plain {r['plain_ms']:.4f} ms bound {b:.4f} ms "
+            f"({by}, f32 CUDA cores) / {b3:.4f} ms ({by3}, 3xTF32) one torch.mm {lib:.4f} ms"
+        )
+    return out
+
+
+class ModuleEvents:
+    """CUDA events before and after each forward of the named submodules
+    of `model`, for the split of one forward."""
+
+    def __init__(self, model, names):
+        import torch
+
+        self.marks: dict = {}
+        self.handles = []
+        for n in names:
+            mod = model.get_submodule(n)
+
+            def pre(m, a, _n=n):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.marks[_n] = [ev]
+
+            def post(m, a, o, _n=n):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.marks[_n].append(ev)
+
+            self.handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+
+    def ms(self) -> dict:
+        return {n: a.elapsed_time(b) for n, (a, b) in self.marks.items()}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def tiaf_topology_split(trainer, arrays) -> dict:
+    """The pieces of `tiaf_inputs` (the train form) one after another,
+    CUDA events between them: the main topology, the FOV topology (each
+    with its levels' row orders), the three FOV -> main tables and the
+    pixel table."""
+    import torch
+
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+    from taseg_tpu_torch.models.voxel.minkunet_mm import TAP_STRIDES
+    from taseg_tpu_torch.ops.voxelize import build_segment_tables, trilinear_table
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    main, fov = arrays["main"], arrays["fov"]
+    ev[0].record()
+    topo = build_unet_topology(
+        main["point_coords_t"], main["num_points_t"], trainer.caps, devox_pairs=True, row_orders=True
+    )
+    ev[1].record()
+    fov_topo = build_unet_topology(
+        fov["point_coords_t"], fov["num_points_t"], trainer.fov_caps, devox_pairs=True, row_orders=True
+    )
+    ev[2].record()
+    coords = main["point_coords_t"]
+    valid = torch.arange(coords.shape[0], device=coords.device) < topo.num_points
+    for s in TAP_STRIDES:
+        lvl = fov_topo.levels[s.bit_length() - 1]
+        trilinear_table(coords, valid, lvl.coords, lvl.num, s, fov_topo.bounds)
+    ev[3].record()
+    b, h, w, _ = arrays["images_t"].shape
+    rc = arrays["fov_rowcol_t"]
+    inv = torch.where(
+        torch.arange(rc.shape[0], device=rc.device) < fov_topo.num_points,
+        torch.clamp(rc[:, 0] * w + rc[:, 1], 0, b * h * w - 1), -1,
+    ).to(torch.int32)
+    build_segment_tables(inv, b * h * w)
+    ev[4].record()
+    ev[4].synchronize()
+    names = ("main_topology", "fov_topology", "fov_to_main_tables", "pixel_table")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def tiaf_branch_backward(trainer, arrays) -> dict:
+    """Each branch alone, forward and forward + backward of a seeded
+    cotangent on its real inputs (CUDA events; train mode, so its BN
+    statistics move as in a step): the image branch (UNet2D with its
+    gathers), the FOV branch (its input taking a gradient, as the image
+    features give it one) and the main branch (features and logits); and
+    the image branch's conv operations with their f32 bound."""
+    import torch
+
+    from taseg_tpu_torch.models.range2d.blocks import Conv
+
+    tr = trainer
+    inputs = tr.topology(arrays)
+    feats = arrays["main"]["point_feats_t"]
+    m = tr.model
+    gen = torch.Generator(device=feats.device).manual_seed(SEED)
+
+    def fov_in():
+        c = m.lidar_backbone.stem.SparseConv_0.in_channels
+        x = torch.randn(inputs.fov_feats.shape[0], c, device=feats.device, generator=gen)
+        return x.requires_grad_()
+
+    runs = {
+        "image_backbone": lambda: m.image_backbone(inputs.images, inputs.pixels),
+        "lidar_backbone": lambda: m.lidar_backbone(fov_in(), inputs.fov_topo),
+        "main": lambda: m.main(feats, inputs.topo, return_features=True),
+    }
+    # the image branch's conv operations, from the shapes of one forward,
+    # beside the f32 bound (its backward does twice the operations)
+    convs = [c for c in m.image_backbone.modules() if isinstance(c, Conv)]
+    ops = []
+
+    def count(mod, args, y):
+        n, h, w, _ = y.shape
+        kh, kw, ci, co = mod.kernel.shape
+        ops.append(2.0 * n * h * w * kh * kw * ci * co)
+
+    hooks = [c.register_forward_hook(count) for c in convs]
+    with torch.no_grad():
+        runs["image_backbone"]()
+    for h in hooks:
+        h.remove()
+    b_fwd, _ = bound_ms(0, sum(ops), "float32")
+    out = {"image_backbone_tflop": sum(ops) / 1e12, "image_backbone_bound_ms": b_fwd}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for name, fn in runs.items():
+        fwd, bwd = [], []
+        for _ in range(2):
+            ev[0].record()
+            outs = fn()
+            ev[1].record()
+            loss = sum((o * torch.randn(o.shape, device=o.device, generator=gen)).sum() for o in outs)
+            loss.backward()
+            ev[2].record()
+            ev[2].synchronize()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+            del outs, loss
+        out[name] = {"forward": min(fwd), "backward": min(bwd)}
+    m.zero_grad(set_to_none=True)
+    log(
+        f"tiaf UNet2D convs {out['image_backbone_tflop']:.4f} TFLOP forward: f32 bound {b_fwd:.3f} ms "
+        f"forward, {2 * b_fwd:.3f} ms backward; measured {out['image_backbone']['forward']:.3f} / "
+        f"{out['image_backbone']['backward']:.3f} ms"
+    )
+    return out
+
+
+def tiaf_calls(trainer, scans) -> CallCapture:
+    """One real TIAF train step with every kernel wrapper of its path
+    wrapped: K2 and K4 at K offsets (forward, input-gradient and weight-
+    gradient calls, with the tables' row order or pair lists), K2 and K4
+    at 27 (the main stem's first conv), K3's forward and input-gradient
+    calls, K5 and K6 at each distinct shape;
+    K7 at each distinct (table, shape), so every gather of the path (the
+    image gathers from the pixel rows, the FOV -> main trilinear tables)
+    is kept; K8 at its call."""
+    from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv, voxelize
+
+    def conv(x, w, rb, dgrad=False, order=None):
+        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
+
+    cap = CallCapture()
+    cap.patch(sparse_conv, "sparse_conv", conv)
+    cap.patch(f3conv, "sparse_conv", conv)
+    cap.patch(
+        f3conv, "sparse_conv_dw",
+        lambda x, g, rb, out_dtype=None, pairs=None: ("sparse_conv_dw", rb.shape[0], *x.shape, *g.shape),
+    )
+    for module in (sparse_conv, f3conv):
+        cap.patch(
+            module, "sparse_conv_k3",
+            lambda x, w, rb, dgrad=False: ("sparse_conv_k3" + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]),
+        )
+    cap.patch(
+        f3conv, "k3_conv_dw",
+        lambda f, g, rb, out_dtype=None, pairs=None: ("k3_conv_dw", *f.shape, g.shape[1]),
+    )
+    for name in ("downsample_conv_apply", "upsample_conv_apply"):
+        kind = "strided_down" if name.startswith("down") else "strided_up"
+        cap.patch(
+            strided_conv, name,
+            lambda x, w, t, dgrad=False, kind=kind: (kind + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]),
+        )
+    cap.patch(
+        strided_conv, "strided_dw",
+        lambda x, y, t, up, out_dtype=None: (
+            "strided_dw", "up" if up else "down", t.parent.shape[0], x.shape[1], y.shape[1]
+        ),
+    )
+    cap.patch(
+        voxelize, "segment_sum",
+        lambda src, t, w=None: (
+            "segment_sum", t.perm.shape[0] - t.starts.shape[0] + 1, t.starts.shape[0] - 1,
+            src.shape[1], w is not None,
+        ),
+    )
+    cap.patch(
+        voxelize, "devoxelize_trilinear",
+        lambda v, t: ("devoxelize", "trilinear", t.idx.shape[1], *v.shape, t.idx.data_ptr()),
+    )
+    cap.patch(
+        voxelize, "devoxelize_identity",
+        lambda v, inv: ("devoxelize", "identity", inv.shape[0], *v.shape, inv.data_ptr()),
+    )
+    cap.patch(voxelize, "voxelize_bwd", lambda g, inv, counts: ("voxelize_bwd", inv.shape[0], *g.shape))
+    trainer.step(scans[:1])
+    cap.remove()
+    return cap
+
+
+def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
+    """Every kernel of one real TIAF train step (`tiaf_calls`) at the
+    step's own f32 inputs, against its plain version:
+      * K2 and K4 at K offsets at every call (`phase_cylinder_kernels`:
+        the 3xTF32 route; beside each the CUDA-core kernel), and K2 and K4
+        at 27 at the main stem's first conv (C_in 5, CUDA cores; 1e-5 and
+        1e-4 of the largest sum of |terms|);
+      * K3-down and K3-up, forward and input gradient, at every call of
+        both branches (1e-4 / 1e-5 of the largest sum of |terms|: the
+        plain down path sums by a mean-centred cumsum), and K5 at every
+        call (1e-4: it sums up to all fine rows in another order);
+      * K6 at every call (the two voxelizes, the devoxelize backwards, the
+        image gathers' backward over the `pixels`-segment pixel table)
+        against its plain version in f64 (1e-5);
+      * K7 at every call (the main head and features, the FOV taps, the
+        FOV -> main trilinear tables, the image gathers from the flat
+        pixel rows) and K8 at the FOV stem's voxelize backward: the same
+        bits as the plain version, signed zeros included.
+    Every kernel bit-identical on a repeat call.  Times per step (each
+    call by its count): kernel, plain, bound (bytes: inputs read once,
+    output written once, K7 counting the source rows its tables read;
+    operations at the f32 rate) and one library call (torch.mm on rows
+    gathered beforehand; `index_add_` for K6; `index_select` /
+    `embedding_bag` for K7 and K8).  Returns the totals by kernel name
+    (the input gradients of K2 at K and K3 under `<name>_dgrad`)."""
+    import torch
+
+    from taseg_tpu_torch.ops import strided_conv
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    out = phase_cylinder_kernels(
+        CallCapture.only(cap, lambda k: k[0].startswith(("sparse_conv_k_", "sparse_conv_dw"))
+                         or k[0] == "sparse_conv_k"), "tiaf ", bf16=False
+    )
+    for r in out.values():
+        r.pop("head", None)
+    strided = {
+        "strided_down": (strided_conv.downsample_conv_apply, strided_conv.downsample_conv_plain, 1e-4),
+        "strided_up": (strided_conv.upsample_conv_apply, strided_conv.upsample_conv_plain, 1e-5),
+    }
+    routes = {"strided_down": strided_conv.downsample_route, "strided_up": strided_conv.upsample_route}
+    tot: dict = {}
+
+    def add(name, count, by, **kw):
+        r = tot.setdefault(name, dict(_tot(), calls=0, _parts={"bytes": 0.0, "operations": 0.0}))
+        _add(r, **{k: (v if k == "max_abs_err" else count * v) for k, v in kw.items()})
+        r["calls"] += count
+        r["_parts"][by] += count * kw["bound_ms"]
+
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        name, count = key[0], cap.count[key]
+        label = f"tiaf {name} {key[1:]} x{count}/step f32"
+        if name.startswith(("strided_", "sparse_conv_k3", "k3_conv_dw")):
+            x, second, t = a[0].detach(), a[1].detach(), a[2]
+            base = name.replace("_dgrad", "")
+            if name == "k3_conv_dw":
+                kern = partial(f3conv.k3_conv_dw, x, second, t, pairs=kw.get("pairs"))
+                plain, rel, route = f3conv.k3_conv_dw_plain, 1e-4, f3conv.dw_route(x.dtype, x.shape[1], second.shape[1])
+            elif base == "sparse_conv_k3":
+                kern = partial(sparse_conv.sparse_conv_k3, x, second, t, dgrad=name != base)
+                plain, rel = sparse_conv.sparse_conv_plain, 1e-5
+                route = sparse_conv.route(x.dtype, x.shape[1], second.shape[2])
+            elif name == "strided_dw":
+                up = a[3] if len(a) > 3 else kw["up"]
+                kern = partial(strided_conv.strided_dw, x, second, t, up)
+                plain = partial(strided_conv.strided_dw_plain, up=up)
+                rel, route = 1e-4, "simt"
+            else:
+                fn, plain, rel = strided[base]
+                kern = partial(fn, x, second, t, dgrad=name != base)
+                route = routes[base](x.dtype, x.shape[1], second.shape[2])
+            got = twice_same(label, kern)
+            ref = plain(x.abs(), second.abs(), t)
+            err = check_close(label, got, plain(x, second, t), ref, "float32", rel)
+            limit = rel * ref.abs().max().item()
+            del got, ref
+            ms = cuda_ms(kern)
+            pms = cuda_ms(lambda: plain(x, second, t), iters=3)
+            nbytes, ops, lib = train_cost(base, a, kw, x, second)
+            b, by = bound_ms(nbytes, ops, "float32")
+            log(
+                f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
+                f"plain {pms:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+            )
+            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=err)
+        elif name == "segment_sum":
+            x, t = a[0].detach(), a[1]
+            w = a[2] if len(a) > 2 else kw.get("w")
+            where = (
+                "pixel table (the image gathers' backward)" if key[2] == pixels
+                else "trilinear pairs (a devoxelize backward)" if w is not None else "point tables"
+            )
+            k6 = _tot()
+            _k6_check(f"tiaf K6 over the {where} {key[1:]} x{count}/step", (x, t, w), k6, count, profile=False)
+            k6.pop("device_ms")
+            # K6 moves 4 bytes or more per f32 add: bytes bound it
+            add(name, 1, "bytes", **k6)
+            tot[name]["calls"] += count - 1
+        elif name == "devoxelize":
+            v = a[0].detach()
+            trilinear = key[1] == "trilinear"
+            table = a[1] if trilinear else vx.IdentityDevoxTable(inverse=a[1])
+            fn = vx.devoxelize_trilinear if trilinear else vx.devoxelize_identity
+            twice_same(label, partial(fn, v, a[1]))
+            ms, pms, lib, lib_err, p = devox_times(v, table)
+            idx = a[1].idx if trilinear else a[1][None]
+            c = v.shape[1]
+            rows = int(torch.unique(idx[idx >= 0]).numel())
+            b, by = bound_ms(idx.shape[0] * p * (8 if trilinear else 4) + rows * c * 4 + p * c * 4, 0.0, "float32")
+            log(
+                f"tiaf K7 devoxelize {key[1]} P={p} {'pixel rows' if v.shape[0] == pixels else 'voxels'}="
+                f"{v.shape[0]} ({rows} read) C={c} x{count}/step: bit-identical (and on repeat), kernel "
+                f"{ms:.4f} ms plain {pms:.4f} ms {'embedding_bag' if trilinear else 'index_select'} "
+                f"{lib:.4f} ms (max|diff| {lib_err:.3e}) bound {b:.4f} ms ({by})"
+            )
+            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
+        elif name == "voxelize_bwd":
+            g, ids, counts = a[0].detach(), a[1], a[2]
+            kern = partial(vx.voxelize_bwd, g, ids, counts)
+            if not bits(twice_same(label, kern)).equal(bits(vx._voxelize_bwd_plain(g, ids, counts))):
+                raise AssertionError(f"{label}: K8 differs from the plain version")
+            v, c = g.shape
+            ms = cuda_ms(kern)
+            pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, ids, counts))
+            scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
+            gidx = torch.where(ids >= 0, ids, v).long()
+            lib = cuda_ms(lambda: torch.index_select(scaled, 0, gidx))
+            used, p = int((counts > 0).sum()), ids.shape[0]
+            b, by = bound_ms(p * c * 4 + used * (c * 4 + 4) + p * 4, 0.0, "float32")
+            log(
+                f"tiaf K8 voxelize backward (the FOV stem) P={p} V={v} ({used} occupied) C={c} x{count}/step: "
+                f"bit-identical (and on repeat), kernel {ms:.4f} ms plain {pms:.4f} ms index_select "
+                f"{lib:.4f} ms bound {b:.4f} ms ({by})"
+            )
+            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
+    for r in tot.values():
+        parts = r.pop("_parts")
+        r.pop("device_ms")
+        r["bound_by"] = "bytes" if parts["bytes"] >= parts["operations"] else "operations"
+    out.update(tot)
+    log(
+        "tiaf kernels per step at the step's own calls: " + "; ".join(
+            f"{n} x{r['calls']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"library {r['library_ms']:.4f} max|err| {r['max_abs_err']:.3e}" for n, r in sorted(out.items())
+        )
+    )
+    return out
+
+
+def tiaf_entry(tiaf: dict, name: str) -> dict:
+    """A kernel's launches per TIAF serving scan and train step; its
+    numbers per step at the calls of a real step (`phase_tiaf_kernels`:
+    `step`, and `dgrad_step` for the input gradients of K2 at K and K3);
+    for K2 and K4 at K offsets also the main-branch route call of
+    `tiaf_route_call` (3xTF32 beside the 27-offset CUDA-core kernel)."""
+    out = {
+        "launches_per_scan": tiaf["per_scan"].get(name, 0),
+        "launches_per_step": tiaf["per_step"].get(name, 0),
+        "step": tiaf["kernels"].get(name),
+    }
+    if f"{name}_dgrad" in tiaf["kernels"]:
+        out["dgrad_step"] = tiaf["kernels"][f"{name}_dgrad"]
+    if name in tiaf["route"]:
+        out["route_call"] = tiaf["route"][name]
+    return out
+
+
+def phase_tiaf() -> dict:
+    """TIAF at full width in f32, seeded weights: MinkUNetMsMm (the
+    _fsa_tiaf recipe: the mk34 cr1.0 MinkUNet `main` on the fused cloud,
+    UNet2D at IMAGE_BASE 32 over 5 images of 384 x 1280, the FOV branch
+    at FOV_CR 0.5) on TIAF_SCANS samples of SyntheticTiafReader(N_POINTS,
+    history FSA_HISTORY), 262 144 main and 131 072 FOV rows per scan.
+    The level counts beside their capacities; K2 at 27 on one main-branch
+    call on the 3xTF32 route against the 27-offset CUDA-core route, and their
+    weight gradients (`tiaf_route_call`); `Segmenter.predict` counted
+    (TIAF_PER_SCAN), frame-length finite logits, the replace ensemble on
+    the overlap; a small fused cloud with 5 small images, card against
+    CPU; serving by stage; every kernel at every call of one real train
+    step against its plain version (`phase_tiaf_kernels`); TIAF_STEPS
+    counted `Trainer` steps with the staged recipe's freezing
+    (MODEL.FIX_PART_PARAM, as tiaf_tiny):
+    TIAF_PER_STEP, finite loss, terms and grad norm, the trainable
+    parameters moved, `main/` bit-identical, `main`'s BN buffers moved,
+    peak memory; then the same steps by stage (host, the topology's
+    pieces, the forward by branch, loss, backward, optimizer) and each
+    branch's forward and backward alone.  Returns the launches per scan
+    and per step, the route call's and the kernels' numbers and the stage
+    split; logs the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10_FSA_TIAF
+    from taseg_tpu_torch.engine import TIAF_TERMS, Segmenter, Trainer, check_capacity, points_per_scan
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    base = MINKUNET_MK34_CR10_FSA_TIAF
+    cfg = {**base, "MODEL": {**base["MODEL"], "FIX_PART_PARAM": True}}
+    params, stats = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    t0 = time.perf_counter()
+    scans = tiaf_scans(TIAF_SCANS)
+    log(
+        f"tiaf scans: {TIAF_SCANS} x (frame {[len(s['xyzret']) for s in scans]}, fused "
+        f"{[len(s['xyzret_ms']) for s in scans]}, in the FOV {[int(s['fov_mask'].sum()) for s in scans]} "
+        f"points, images {scans[0]['images'].shape}) in {time.perf_counter() - t0:.1f} s"
+    )
+    seg = Segmenter(cfg, variables)
+    rows = points_per_scan(cfg)
+    if (seg.point_capacity, seg.fov_capacity) != (rows, rows // 2):
+        raise AssertionError(f"tiaf: capacities {seg.point_capacity}, {seg.fov_capacity}")
+    for s in scans:
+        a = seg.collate([s])
+        inputs = seg.topology(a)
+        nums = check_capacity(inputs, seg.caps, seg.fov_caps)
+        fov_nums = [int(l.num) for l in inputs.fov_topo.levels]
+        log(
+            f"tiaf serving main rows {int(a['main']['num_points'][0])}, level voxels {nums} caps "
+            f"{list(seg.caps.voxels)}; FOV rows {int(a['fov']['num_points'][0])}, level voxels "
+            f"{fov_nums} caps {list(seg.fov_caps.voxels)}"
+        )
+    route = tiaf_route_call(seg, a)
+    del a, inputs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out = seg.predict(scans)
+    torch.cuda.synchronize()
+    serve = dict(_build.LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"tiaf serving launches over {TIAF_SCANS} scans: {serve}")
+    check_launches(serve, TIAF_PER_SCAN, TIAF_SCANS, "tiaf serving")
+    for s, o in zip(scans, out):
+        if o["logits"].shape != (len(s["xyzret"]), cfg["MODEL"]["NUM_CLASS"]):
+            raise AssertionError(f"tiaf: logits {o['logits'].shape} for a {len(s['xyzret'])}-point frame")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError("tiaf: non-finite logits")
+    a = seg.collate(scans[:1])
+    with torch.no_grad():
+        res = seg.model(a["main"]["point_feats_t"], seg.topology(a))
+    ov, n = res["overlap"], int(a["main"]["num_points"][0])
+    if not 0 < int(ov.sum()) < n or not torch.equal(res["logits"][ov], res["fusion_logits"][ov]):
+        raise AssertionError("tiaf: the replace ensemble does not hold on the overlap")
+    for k, v in res.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"tiaf: non-finite {k}")
+    log(
+        f"tiaf Segmenter.predict: frame-length labels {[len(o['labels']) for o in out]}, launches per "
+        f"scan as expected, replace ensemble on {int(ov.sum())} of {n} main rows in the overlap; "
+        f"image logits {tuple(res['image_logits'].shape)}; serving peak {serve_peak:.2f} GiB"
+    )
+    del a, res, out
+    # the small sparse cloud fills the FOV's coarse levels more than the
+    # default schedule's fractions of 8192 rows: 32 768 FOV rows
+    small_cfg = {**cfg, "DATA": {**cfg["DATA"], "FOV_NUM_POINTS": 32768}}
+    small = tiaf_scans(1, n_points=4000, seed=SEED + 1, img=(48, 160))
+    small_scan_check(small_cfg, variables, "tiaf ", small, 16384)
+    serve_split(seg, scans, 2, "tiaf ")
+    del seg
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, variables, iters_per_epoch=TIAF_STEPS, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], seed=SEED)
+    log(f"tiaf train capacities: main {list(trainer.caps.voxels)} FOV {list(trainer.fov_caps.voxels)}")
+    cap = tiaf_calls(trainer, scans)
+    n_img, h, w = scans[0]["images"].shape[:3]
+    kernels = phase_tiaf_kernels(cap, n_img * h * w)
+    del cap
+    torch.cuda.empty_cache()
+    named = dict(trainer.model.named_parameters())
+    p0 = {k: v.detach().clone() for k, v in named.items()}
+    b0 = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    _build.reset_launches()
+    outs = [trainer.step(scans[i % TIAF_SCANS: i % TIAF_SCANS + 1]) for i in range(TIAF_STEPS)]
+    torch.cuda.synchronize()
+    train = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"tiaf train launches over {TIAF_STEPS} steps: {train}")
+    check_launches(train, TIAF_PER_STEP, TIAF_STEPS, "tiaf train")
+    for i, o in enumerate(outs):
+        log(
+            f"tiaf step {i}: loss {o['loss']:.5f} (" + ", ".join(f"{k} {o[k]:.5f}" for k in TIAF_TERMS)
+            + f") grad norm {o['grad_norm']:.4f} lr {o['lr']:.3e} level voxels {o['level_nums']}"
+        )
+        if not all(np.isfinite(o[k]) for k in ("loss", "grad_norm") + TIAF_TERMS):
+            raise AssertionError(f"tiaf step {i}: a non-finite loss, term or grad norm")
+    moved = frozen = 0
+    for k, p in named.items():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"tiaf: parameter {k} is not finite")
+        same = torch.equal(p.detach(), p0[k])
+        if k.startswith("main."):
+            if not same:
+                raise AssertionError(f"tiaf: the frozen {k} moved")
+            frozen += 1
+        elif same:
+            raise AssertionError(f"tiaf: the trainable {k} did not move")
+        else:
+            moved += 1
+    bn = [k for k in b0 if k.startswith("main.")]
+    still = [k for k in bn if torch.equal(dict(trainer.model.named_buffers())[k], b0[k])]
+    if still:
+        raise AssertionError(f"tiaf: main's BN buffers did not move: {still[:4]}")
+    log(
+        f"tiaf: {moved} trainable parameters moved, {frozen} main/ parameters bit-identical, "
+        f"{len(bn)} main BN buffers moved; peak device memory {peak:.2f} GiB ({before:.2f} GiB "
+        f"allocated before the steps)"
+    )
+
+    stages = {k: [] for k in ("host", "topology", *TIAF_BRANCHES, "forward_rest", "loss", "backward", "optimizer", "step")}
+    split = {k: [] for k in ("main_topology", "fov_topology", "fov_to_main_tables", "pixel_table")}
+    mods = ModuleEvents(trainer.model, TIAF_BRANCHES)
+    done = torch.cuda.Event(enable_timing=True)
+    hook = trainer.model.register_forward_hook(lambda m, a, o: done.record())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for i in range(TIAF_STEPS):
+        t0 = time.perf_counter()
+        a = trainer.collate(scans[i % TIAF_SCANS: i % TIAF_SCANS + 1])
+        t1 = time.perf_counter()
+        ev[0].record()
+        inputs = trainer.topology(a)
+        check_capacity(inputs, trainer.caps, trainer.fov_caps)
+        ev[1].record()
+        loss = trainer.forward(a, inputs)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update()
+        ev[4].record()
+        ev[4].synchronize()
+        stages["step"].append((time.perf_counter() - t0) * 1e3)
+        stages["host"].append((t1 - t0) * 1e3)
+        for j, k in enumerate(("topology", None, "backward", "optimizer")):
+            if k:
+                stages[k].append(ev[j].elapsed_time(ev[j + 1]))
+        br = mods.ms()
+        for k in TIAF_BRANCHES:
+            stages[k].append(br[k])
+        fwd = ev[1].elapsed_time(done)
+        stages["forward_rest"].append(fwd - sum(br.values()))
+        stages["loss"].append(done.elapsed_time(ev[2]))
+        for k, v in tiaf_topology_split(trainer, a).items():
+            split[k].append(v)
+        del a, inputs, loss
+    mods.remove()
+    hook.remove()
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    med_split = {k: float(np.median(v)) for k, v in split.items()}
+    branches = tiaf_branch_backward(trainer, trainer.collate(scans[:1]))
+    log(
+        f"tiaf ms per step (median of {TIAF_STEPS}): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + "; topology pieces " + ", ".join(f"{k} {v:.3f}" for k, v in med_split.items())
+        + "; each branch alone (forward / backward) " + ", ".join(
+            f"{k} {branches[k]['forward']:.3f} / {branches[k]['backward']:.3f}" for k in TIAF_BRANCHES
+        )
+    )
+    del trainer
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"tiaf phase (5g): {seconds:.1f} s")
+    return {
+        "per_scan": {k: n // TIAF_SCANS for k, n in serve.items()},
+        "per_step": {k: n // TIAF_STEPS for k, n in train.items()},
+        "route": route, "kernels": kernels, "train_ms": med, "topology_ms": med_split, "branches": branches,
+        "peak_gib": peak, "serve_peak_gib": serve_peak, "seconds": seconds,
+    }
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -3019,6 +3740,10 @@ def main() -> int:
     # on 262 144-row fused clouds
     fsa = phase_fsa_kd()
 
+    # 5g. TIAF in f32: the image and FOV branches beside the FSA branch,
+    # serving and the staged train step
+    tiaf = phase_tiaf()
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -3106,6 +3831,7 @@ def main() -> int:
             "device_ms_per_train_step": cylinder["device_ms_per_step"].get(name),
         }
         entry["fsa"] = fsa_entry(fsa, name)
+        entry["tiaf"] = tiaf_entry(tiaf, name)
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
@@ -3131,6 +3857,7 @@ def main() -> int:
         },
         "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
         "fsa": fsa_entry(fsa, "sparse_conv_k"),
+        "tiaf": tiaf_entry(tiaf, "sparse_conv_k"),
         "train": {
             "launches": train["sparse_conv_k"], "tf32x3_launches": train["sparse_conv_k_tf32"],
             "dgrad_launches": train["sparse_conv_k_dgrad"],
@@ -3154,9 +3881,11 @@ def main() -> int:
         },
         "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_dw"],
         "fsa": fsa_entry(fsa, "sparse_conv_dw"),
+        "tiaf": tiaf_entry(tiaf, "sparse_conv_dw"),
     })
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")
+    log(f"tiaf phase (5g): {tiaf['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

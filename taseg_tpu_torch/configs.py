@@ -451,6 +451,72 @@ MINKUNET_MS_KD_TINY = {
     "OPTIM": dict(_MS_TINY_OPTIM),
 }
 
+# tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml: TIAF,
+# the FSA MinkUNet (`main`) beside the UNet2D image branch over the
+# 48-frame camera window (every 12th frame: 5 images of 384 x 1280) and
+# the FOV sparse branch (FOV_CR 0.5), fused by `classifier_fusion`; the
+# YAML's IF_DIST is left out, as for FSA.  The main cloud is FSA's, so
+# are its port-only capacities; the FOV cloud takes JAX's default
+# schedule at half the point capacity (tools/ms_capacity.py --tiaf: at
+# most 0.233 / 0.195 / 0.134 / 0.063 / 0.022 of 131 072 rows per level
+# over 12 synthetic clouds, each unaugmented and augmented, >= 29% under
+# the default's)
+MINKUNET_MK34_CR10_FSA_TIAF = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "semantickitti_ms_mm", **_FSA_DATA,
+        "MULTISCAN_IMAGE": 48,
+        "STEP_IMAGE": 12,
+        "IMAGE_ROOT": "/data/SemanticKITTI/dataset/sequences",
+        "SEMANTIC_MAP_ROOT": "/data/SemanticKITTI/semantic_map_dilate",
+    },
+    "MODEL": {
+        "NAME": "MinkUNetMsMm", **_FSA_MODEL,
+        "LOSS_WEIGHT": [0, 1, 0.5, 0.5, 1],
+        "ENSEMBLE_TYPE": "replace",
+    },
+    "OPTIM": {**_FSA_OPTIM, "BATCH_SIZE_PER_GPU": 2},
+}
+
+# tools/cfgs/voxel/synthetic/tiaf_tiny.yaml: the TIAF smoke recipe of the
+# CLI (cr 0.125, FOV_CR 0.125, IMAGE_BASE 8, 2 images of 32 x 64; the
+# staged recipe's freezing: only the image / FOV / fusion modules train)
+TIAF_TINY = {
+    "MODALITY": "voxel",
+    "DATA": {
+        "DATASET": "synthetic_ms_mm",
+        "LENGTH": 8,
+        "N_RAW_POINTS": 1500,
+        "VOXEL_SIZE": 0.2,
+        "NUM_POINTS": 8192,
+        "FOV_NUM_POINTS": 4096,
+        "IN_FEATURE_DIM": 5,
+        "N_IMAGES": 2,
+        "IMG_H": 32,
+        "IMG_W": 64,
+    },
+    "MODEL": {
+        "NAME": "MinkUNetMsMm",
+        "IN_FEATURE_DIM": 5,
+        "NUM_CLASS": 20,
+        "IGNORE_LABEL": 0,
+        "cr": 0.125,
+        "FOV_CR": 0.125,
+        "IMAGE_BASE": 8,
+        "FIX_PART_PARAM": True,
+        "LOSS_WEIGHT": [0, 1, 0.5, 0.5, 1],
+        "ENSEMBLE_TYPE": "replace",
+        # not in the YAML: the main clouds of the 8 train (augmented 3
+        # times) and 8 eval scans fill at most 0.338 / 0.298 / 0.194 /
+        # 0.089 / 0.040 of the 8192 rows; JAX's default schedule leaves
+        # level 3 5% of headroom (768 rows), and the port raises on
+        # overflow.  The FOV clouds fill at most 674 / 617 / 415 / 209 /
+        # 102 rows, inside the default's at 4096
+        "CAPACITY_SCHEDULE": (1.0, 0.60, 0.30, 0.15, 0.07),
+    },
+    "OPTIM": dict(_MS_TINY_OPTIM),
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
@@ -465,4 +531,6 @@ RECIPES = {
     "tools/cfgs/voxel/semantic_kitti_ms/minkunet_mk34_cr10_smsa.yaml": MINKUNET_MK34_CR10_SMSA,
     "tools/cfgs/voxel/synthetic/minkunet_ms_tiny.yaml": MINKUNET_MS_TINY,
     "tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml": MINKUNET_MS_KD_TINY,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml": MINKUNET_MK34_CR10_FSA_TIAF,
+    "tools/cfgs/voxel/synthetic/tiaf_tiny.yaml": TIAF_TINY,
 }

@@ -16,7 +16,10 @@ The multi-scan datasets of TASeg's temporal stages are ported: FSA
 (`semantickitti_ms_ms`, the 26-class task) on the same, and mask
 distillation (`semantickitti_ms_kd`, `synthetic_ms_kd`) on
 `MsKdVoxelPipeline`, whose shard also carries the teacher's cloud and the
-distillation pairs (`loader.teacher_capacity`, `loader.kd_max_voxel`).
+distillation pairs (`loader.teacher_capacity`, `loader.kd_max_voxel`), and
+TIAF (`semantickitti_ms_mm`, `synthetic_ms_mm`) on `MsMmVoxelPipeline`,
+whose shard also carries the FOV cloud (`loader.fov_capacity` rows), its
+pixel coordinates and the camera images with their targets.
 The readers and pipelines of the other datasets and modalities are not
 ported yet and raise, naming their ROADMAP item.
 """
@@ -35,16 +38,15 @@ from .cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .fusion_dataset import FusionPipeline
 from .semantickitti.reader import SemanticKittiReader
 from .semantickitti.reader_ms import MsKdKittiReader, MultiScanKittiReader, SmsaKittiReader
-from .synthetic import SyntheticKittiReader, SyntheticMsKittiReader
+from .synthetic import SyntheticKittiReader, SyntheticMsKittiReader, SyntheticTiafReader
 from .voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
+from .voxel_mm import MsMmVoxelPipeline
 
 # datasets of the JAX package the port does not read yet, by ROADMAP item
 _NOT_PORTED = {
-    "semantickitti_ms_mm": "Queue 1 item 5 (TIAF)",
-    "synthetic_ms_mm": "Queue 1 item 5 (TIAF)",
     "nuscenes": "Queue 1 item 6 (nuScenes reader)",
-    "nuscenes_ms": "Queue 1 items 5-6 (FSA, nuScenes reader)",
-    "nuscenes_ms_mm": "Queue 1 items 5-6 (TIAF, nuScenes reader)",
+    "nuscenes_ms": "Queue 1 item 6 (nuScenes reader)",
+    "nuscenes_ms_mm": "Queue 1 item 6 (nuScenes reader; TIAF's MinkUNetMsMmNus)",
     "waymo": "Queue 1 item 6 (Waymo reader)",
 }
 
@@ -100,6 +102,27 @@ def build_reader(data_cfgs, training: bool):
             pseudo_label_root=data_cfgs.get("PSEUDO_LABEL_ROOT", None),
             **kw,
         )
+    if dataset == "semantickitti_ms_mm":
+        from .semantickitti.reader_mm import TiafKittiReader
+
+        return TiafKittiReader(
+            data_cfgs["DATA_PATH"],
+            split=train_split if training else eval_split,
+            sequences=None if training else eval_seqs,
+            split_file=data_cfgs.get("SPLIT_FILE") if training else None,
+            augment=data_cfgs.get("AUGMENT", "GlobalAugment"),
+            samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
+            multiscan=data_cfgs.get("MULTISCAN", 16),
+            only_history=data_cfgs.get("ONLY_HISTORY", True),
+            flexible_steps=data_cfgs.get("FLEXIBLE_STEPS", None),
+            pseudo_mask=data_cfgs.get("PSEUDO_MASK", "gt"),
+            pseudo_label_root=data_cfgs.get("PSEUDO_LABEL_ROOT", None),
+            multiscan_image=data_cfgs.get("MULTISCAN_IMAGE", 48),
+            step_image=data_cfgs.get("STEP_IMAGE", 12),
+            image_height=data_cfgs.get("IMAGE_HEIGHT", 384),
+            image_width=data_cfgs.get("IMAGE_WIDTH", 1280),
+            semantic_map_root=data_cfgs.get("SEMANTIC_MAP_ROOT", None),
+        )
     if dataset == "synthetic":
         return SyntheticKittiReader(
             length=data_cfgs.get("LENGTH", 64),
@@ -113,15 +136,25 @@ def build_reader(data_cfgs, training: bool):
             seed=0 if training else 1,
             kd=dataset == "synthetic_ms_kd",
         )
+    if dataset == "synthetic_ms_mm":
+        return SyntheticTiafReader(
+            length=data_cfgs.get("LENGTH", 16),
+            n_points=data_cfgs.get("N_RAW_POINTS", 60_000),
+            seed=0 if training else 1,
+            n_images=data_cfgs.get("N_IMAGES", 2),
+            img_h=data_cfgs.get("IMG_H", 32),
+            img_w=data_cfgs.get("IMG_W", 64),
+        )
     if dataset in _NOT_PORTED:
         raise _not_ported(f"dataset {dataset!r}", _NOT_PORTED[dataset])
     raise NotImplementedError(f"dataset {dataset!r}")
 
 
-_LABEL_FIELDS = ("labels", "raw_labels")
-# the sub-samples of a multi-scan (frame, fused) and a KD (student,
-# teacher) sample, and a fused sample's back-reference to its pair
-_NESTED_FIELDS = ("frame", "fused", "student", "teacher", "ms_pair")
+_LABEL_FIELDS = ("labels", "raw_labels", "image_labels")
+# the sub-samples of a multi-scan (frame, fused), a KD (student, teacher)
+# and a TIAF (main, fov) sample, and a fused sample's back-reference to
+# its pair
+_NESTED_FIELDS = ("frame", "fused", "student", "teacher", "main", "fov", "ms_pair")
 
 
 def _as_padding(sample, _memo=None):
@@ -191,6 +224,8 @@ class VoxelLoader:
         # KD-stage extras (set by build_dataloader for the kd pipeline)
         self.teacher_capacity = None
         self.kd_max_voxel = 3000
+        # TIAF extra (set by build_dataloader for the mm pipeline)
+        self.fov_capacity = None
         # when set, every sample is transformed with this exact AugParams —
         # the deterministic TTA-vote path (reference
         # semantickitti_voxel.py:101-117)
@@ -269,6 +304,8 @@ class VoxelLoader:
             c = self.pipeline.collate(
                 shard, self.point_capacity, self.teacher_capacity, self.kd_max_voxel
             )
+        elif isinstance(self.pipeline, MsMmVoxelPipeline):
+            c = self.pipeline.collate(shard, self.point_capacity, self.fov_capacity)
         else:
             c = self.pipeline.collate(shard, self.point_capacity)
         meta = [{"offsets": c.pop("offsets"), "samples": c.pop("samples")}]
@@ -337,7 +374,6 @@ class VoxelLoader:
 # pipeline kinds and modalities of the JAX package the port has not yet
 _KIND_NOT_PORTED = {
     "range": "Queue 1 item 6 (range-view family)",
-    "mm": "Queue 1 item 5 (TIAF)",
 }
 
 
@@ -357,14 +393,17 @@ def build_dataloader(
     the DATA.H x DATA.W range image and the voxels' pixel coordinates),
     the `cylinder` one (Cylinder_TS: the polar grid DATA.GRID_SIZE, else
     CYLINDER_GRID_SIZE, else 480 x 360 x 32, with JAX's default
-    augmentation flags, as JAX builds it) or the `kd` one (a `_ms_kd`
-    dataset), over `build_reader`'s reader (JAX `data/__init__.py:462`).
+    augmentation flags, as JAX builds it), the `kd` one (a `_ms_kd`
+    dataset) or the `mm` one (TIAF, a `_ms_mm` dataset), over
+    `build_reader`'s reader (JAX `data/__init__.py:462`).
     On the `voxel` kind a dataset whose name ends in `_ms` takes the
     multi-scan pipeline, and the multi-scan pipelines read
     DATA.IN_FEATURE_DIM (5) features; the `kd` loader's teacher capacity
     is DATA.TEACHER_NUM_POINTS (default the point capacity) and its pairs
-    per scan DATA.MAX_VOXEL (3000), as in JAX (:546-590).  The point
-    capacity defaults to JAX's, DATA.NUM_POINTS x scans_per_shard."""
+    per scan DATA.MAX_VOXEL (3000), as in JAX (:546-590); the `mm`
+    loader's FOV capacity is DATA.FOV_NUM_POINTS, else half the point
+    capacity (JAX :589).  The point capacity defaults to JAX's,
+    DATA.NUM_POINTS x scans_per_shard."""
     if pipeline_kind is None:
         dataset_name = str(data_cfgs.get("DATASET", "synthetic"))
         if modality in ("range", "cylinder"):
@@ -379,7 +418,7 @@ def build_dataloader(
         raise _not_ported(
             f"the {pipeline_kind!r} pipeline", _KIND_NOT_PORTED[pipeline_kind]
         )
-    if pipeline_kind not in ("voxel", "fusion", "cylinder", "kd"):
+    if pipeline_kind not in ("voxel", "fusion", "cylinder", "kd", "mm"):
         raise NotImplementedError(f"pipeline kind {pipeline_kind!r}")
     reader = build_reader(data_cfgs, training)
     kw = dict(
@@ -392,7 +431,7 @@ def build_dataloader(
         if_rotate=data_cfgs.get("ROTATE_AUG", True),
     )
     is_ms = str(data_cfgs.get("DATASET", "synthetic")).endswith("_ms")
-    if is_ms or pipeline_kind == "kd":
+    if is_ms or pipeline_kind in ("kd", "mm"):
         kw["in_feature_dim"] = data_cfgs.get("IN_FEATURE_DIM", 5)
     if pipeline_kind == "fusion":
         pipeline = FusionPipeline(h=data_cfgs.get("H", 64), w=data_cfgs.get("W", 2048), **kw)
@@ -400,6 +439,8 @@ def build_dataloader(
         pipeline = CylinderPipeline(grid=grid_from_cfg(data_cfgs), training=training)
     elif pipeline_kind == "kd":
         pipeline = MsKdVoxelPipeline(max_voxel=int(data_cfgs.get("MAX_VOXEL", 3000)), **kw)
+    elif pipeline_kind == "mm":
+        pipeline = MsMmVoxelPipeline(**kw)
     elif is_ms:
         pipeline = MsVoxelPipeline(**kw)
     else:
@@ -421,4 +462,6 @@ def build_dataloader(
     if pipeline_kind == "kd":
         loader.teacher_capacity = int(data_cfgs.get("TEACHER_NUM_POINTS", cap))
         loader.kd_max_voxel = int(data_cfgs.get("MAX_VOXEL", 3000))
+    if pipeline_kind == "mm":
+        loader.fov_capacity = int(data_cfgs.get("FOV_NUM_POINTS", cap // 2))
     return loader

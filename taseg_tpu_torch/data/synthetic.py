@@ -1,9 +1,9 @@
 """Synthetic LiDAR scenes — deterministic stand-in for SemanticKITTI.
 
 Copy of `taseg_tpu/data/synthetic.py:1-164` (the scan generator) and of
-its `SyntheticMsKittiReader` (:167) and `SyntheticKittiReader` (:221-246),
-so the port needs no module of the JAX package.  The same seed gives the
-same arrays in both packages.
+its `SyntheticMsKittiReader` (:167), `SyntheticKittiReader` (:221-246) and
+`SyntheticTiafReader` (:249), so the port needs no module of the JAX
+package.  The same seed gives the same arrays in both packages.
 
 Point clouds are generated with a *raycast beam model* (64 beams x ~2048
 azimuth steps, first-hit against an analytic scene of ground plane, walls,
@@ -253,3 +253,51 @@ class SyntheticKittiReader:
             "labels": labels,
             "path": f"synthetic/08/velodyne/{index:06d}.bin",
         }
+
+
+class SyntheticTiafReader(SyntheticMsKittiReader):
+    """Synthetic TIAF reader: the multi-scan contract plus a rendered
+    image window (one fake camera per aggregated frame), frustum masks and
+    per-point pixel coords — the `semantickitti_ms_mm`-shaped dict the
+    MsMmVoxelPipeline consumes, with no files on disk."""
+
+    def __init__(self, *args, n_images: int = 2, img_h: int = 32,
+                 img_w: int = 64, **kw):
+        super().__init__(*args, **kw)
+        self.n_images = n_images
+        self.img_h = img_h
+        self.img_w = img_w
+
+    def __getitem__(self, index: int) -> dict:
+        out = super().__getitem__(index)
+        rng = np.random.default_rng(self.seed * 77791 + index)
+        pts = out["xyzret_ms"][:, :3]
+        h, w, n_img = self.img_h, self.img_w, self.n_images
+        # simple pinhole looking down +x: u = f*(-y/x)+cx, v = f*(-z/x)+cy
+        f = w / 2.0
+        n = len(pts)
+        fov_mask = np.zeros(n, bool)
+        rowcol = np.zeros((n, 2), np.int32)
+        # split history points across the image slots round-robin to mimic
+        # per-frame projection
+        slot = rng.integers(0, n_img, n)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = f * (-pts[:, 1] / pts[:, 0]) + w / 2
+            v = f * (-pts[:, 2] / pts[:, 0]) + h / 2
+        ok = (pts[:, 0] > 1.0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        fov_mask[ok] = True
+        rowcol[ok, 0] = v[ok].astype(np.int32) + slot[ok] * h
+        rowcol[ok, 1] = u[ok].astype(np.int32)
+        images = rng.uniform(0, 1, (n_img, h, w, 3)).astype(np.float32)
+        image_labels = np.zeros((n_img, h, w), np.int32)
+        lab = out["labels_ms"]
+        for s in range(n_img):
+            sel = ok & (slot == s)
+            image_labels[s, rowcol[sel, 0] - s * h, rowcol[sel, 1]] = lab[sel]
+        out.update(
+            fov_mask=fov_mask,
+            fov_rowcol=rowcol[fov_mask],
+            images=images,
+            image_labels=image_labels,
+        )
+        return out

@@ -13,16 +13,23 @@ per-raw-point logits and labels.  A batch goes through four stages:
                image and its voxels' pixel coordinates; for Cylinder_TS
                the CylinderPipeline (polar grid, majority labels); for
                MinkUNetMs / MinkUNetMsKd (FSA) the MsVoxelPipeline over
-               the fused multi-scan cloud (`xyzret_ms`, 5 features);
+               the fused multi-scan cloud (`xyzret_ms`, 5 features); for
+               MinkUNetMsMm (TIAF) the MsMmVoxelPipeline, which adds the
+               FOV cloud, its pixel coordinates and the camera images;
   2. topology: build_unet_topology(assume_sorted_points=True), with the
                model's `point_voxel_strides` (SPVCNN's and RPVNet's point
                branch); for RPVNet also its point <-> range tables
                (`models.fusion.rpvnet.rpv_inputs`, JAX
                `parallel/fusion_step.py:_unpack`); for Cylinder_TS
-               `build_cylinder_topology`;
+               `build_cylinder_topology`; for MinkUNetMsMm the
+               `TiafInputs` (`models.voxel.minkunet_mm.tiaf_inputs`, JAX
+               `parallel/tiaf.py:_unpack`): both topologies, the FOV ->
+               main tables and the pixel table;
   3. forward:  the model (`models.build_segmentor` on MODEL.NAME:
-               MinkUNet, SPVCNN, RPVNet or Cylinder_TS) in eval mode, in
-               the compute dtype (Cylinder_TS: f32);
+               MinkUNet, SPVCNN, RPVNet, Cylinder_TS or MinkUNetMsMm) in
+               eval mode, in the compute dtype (Cylinder_TS and
+               MinkUNetMsMm: f32; TIAF's logits with the replace
+               ensemble);
   4. mapping:  logits[offsets[b]:offsets[b+1]][inverse_map] per scan;
                for a fused cloud only the current frame's points, the
                first `num_frame_points` (JAX engine.py:700-710).
@@ -37,7 +44,8 @@ epoch must not train on them).
 
 `Trainer` is the counterpart of one call of the JAX step
 (`taseg_tpu/parallel/__init__.py:120 make_train_step`, and for
-MinkUNetMsKd `parallel/kd.py:52 make_kd_train_step`) on one device,
+MinkUNetMsKd `parallel/kd.py:52 make_kd_train_step`, for MinkUNetMsMm
+`parallel/tiaf.py:73 make_tiaf_train_step`) on one device,
 wired as `taseg_tpu/engine.py:179-228` wires it, and of JAX's harness
 around it (`engine.py:539-911`): epochs over a `data.VoxelLoader`,
 checkpoints, voxel- and point-level evaluation, TTA votes and
@@ -57,15 +65,18 @@ from ._device import resolve_device
 from .data.cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .data.fusion_dataset import FusionPipeline
 from .data.voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
+from .data.voxel_mm import MsMmVoxelPipeline
 from .loss import Losses
 from .models.fusion.rpvnet import RpvInputs, rpv_inputs
 from .models.layers import seed_dropout
 from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology
+from .models.voxel.minkunet_mm import TRAINABLE_PREFIXES, TiafInputs, tiaf_inputs
 from .models import build_segmentor
 from .optim import build_optimizer
 from .utils import storage
 from .utils.common import StepTimer, create_logger
+from .utils.param_groups import frozen_parameters
 from .utils.metrics import confusion_hist, format_confusion, miou_from_hist, per_class_iou
 from .utils.params_from_jax import init_params_numpy, load_flax_params
 from .utils.submission import save_logits, save_predictions
@@ -79,23 +90,42 @@ POINTS_PER_SCAN = 131072
 MS_MODELS = ("MinkUNetMs", "MinkUNetMsKd")
 # the arrays of a collated KD shard beside the student's and teacher's
 KD_KEYS = ("kd_student_idx", "kd_teacher_idx", "kd_mask")
+# the arrays of a collated TIAF shard beside the main and FOV shards
+TIAF_KEYS = ("fov_rowcol", "images")
+# TIAF's five loss terms, in MODEL.LOSS_WEIGHT's order (JAX
+# parallel/tiaf.py:95-96)
+TIAF_TERMS = ("loss_lidar", "loss_fusion", "loss_image_s", "loss_image_d", "loss_image_lidar")
 
 
 def points_per_scan(cfg: dict) -> int:
     return int(cfg["MODEL"].get("POINTS_PER_SCAN", POINTS_PER_SCAN))
 
 
-def check_capacity(topo, caps: UNetCapacities) -> list:
+def fov_points(cfg: dict, point_capacity: int) -> int:
+    """TIAF's FOV rows per shard: DATA.FOV_NUM_POINTS, else half the
+    point capacity (JAX `data/__init__.py:589`)."""
+    return int(cfg["DATA"].get("FOV_NUM_POINTS", point_capacity // 2))
+
+
+def check_capacity(topo, caps: UNetCapacities, fov_caps: UNetCapacities = None) -> list:
     """The per-level voxel counts of a topology (a UNet topology, an
-    `RpvInputs`' or a `CylTopology`); raises where one exceeds its
+    `RpvInputs`' or a `CylTopology`; of a `TiafInputs`, the main one's,
+    its FOV topology held to `fov_caps`); raises where one exceeds its
     capacity (the JAX engine only warns and drops the excess voxels)."""
     if isinstance(topo, RpvInputs):
         topo = topo.topo
+    if isinstance(topo, TiafInputs):
+        _check_levels(topo.fov_topo, fov_caps, "FOV ")
+        topo = topo.topo
+    return _check_levels(topo, caps, "")
+
+
+def _check_levels(topo, caps: UNetCapacities, what: str) -> list:
     nums = torch.stack([l.num for l in topo.levels]).tolist()
     for l, (n, cap) in enumerate(zip(nums, caps.voxels)):
         if n > cap:
             raise RuntimeError(
-                f"capacity overflow at level {l}: {n} voxels > {cap}; "
+                f"{what}capacity overflow at level {l}: {n} voxels > {cap}; "
                 f"raise the point capacity or lower the batch size"
             )
     return nums
@@ -110,11 +140,19 @@ def to_device(arrays: dict, device, keys=("point_coords", "point_feats")) -> dic
     the range images and pixel coordinates of a fusion shard), and
     `num_points_t` (a 0-dim int32).  A KD shard's student and teacher
     shards each get theirs (the teacher's without labels), and its pair
-    tables `<kd key>_t`."""
+    tables `<kd key>_t`; a TIAF shard's main and FOV shards theirs, and its
+    pixel coordinates and images (and, with the labels, the image
+    labels)."""
     if "student" in arrays:
         to_device(arrays["student"], device, keys)
         to_device(arrays["teacher"], device)
         for k in KD_KEYS:
+            arrays[k + "_t"] = torch.from_numpy(arrays[k]).to(device)
+        return arrays
+    if "main" in arrays:
+        to_device(arrays["main"], device, keys)
+        to_device(arrays["fov"], device, keys)
+        for k in TIAF_KEYS + (("image_labels",) if "labels" in keys else ()):
             arrays[k + "_t"] = torch.from_numpy(arrays[k]).to(device)
         return arrays
     keys = tuple(keys) + tuple(k for k in FUSION_KEYS if k in arrays)
@@ -142,7 +180,8 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
     64 x 2048 by default) for a model that reads range images (RPVNet),
     the MsVoxelPipeline for the models of the fused cloud (MS_MODELS; the
     MsKdVoxelPipeline with DATA.MAX_VOXEL pairs per scan to train
-    MinkUNetMsKd), the VoxelPipeline otherwise."""
+    MinkUNetMsKd), the MsMmVoxelPipeline for TIAF (MinkUNetMsMm), the
+    VoxelPipeline otherwise."""
     if isinstance(model, CylinderTS):
         return CylinderPipeline(grid=grid_from_cfg(cfg["DATA"]), training=training, seed=seed)
     kw = dict(
@@ -154,6 +193,8 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
         return MsKdVoxelPipeline(max_voxel=int(cfg["DATA"].get("MAX_VOXEL", 3000)), **kw)
     if name in MS_MODELS:
         return MsVoxelPipeline(**kw)
+    if name == "MinkUNetMsMm":
+        return MsMmVoxelPipeline(**kw)
     if getattr(model, "range_view", False):
         return FusionPipeline(h=cfg["DATA"].get("H", 64), w=cfg["DATA"].get("W", 2048), **kw)
     return VoxelPipeline(**kw)
@@ -161,14 +202,18 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
 
 def model_topology(
     model: torch.nn.Module, arrays: dict, caps: UNetCapacities, *,
-    sorted_points: bool, devox_pairs: bool = False,
+    sorted_points: bool, devox_pairs: bool = False, fov_caps: UNetCapacities = None,
 ):
     """Stage 2: the topology with the model's point -> voxel tables
-    (`point_voxel_strides`), and the tables only the backward reads where
-    `devox_pairs`; for a model that reads range images (RPVNet) an
+    (`point_voxel_strides`), the tables only the backward reads where
+    `devox_pairs`, and for an f32 model the levels' row orders (the f32
+    route of the 3^3 convs reads them); for a model that reads range images (RPVNet) an
     `RpvInputs` that adds its point <-> range tables and the images; for
     Cylinder_TS its own `CylTopology` (JAX's `topology_fn`,
-    engine.py:272-284)."""
+    engine.py:272-284); for TIAF the `TiafInputs`, its FOV topology at
+    `fov_caps`."""
+    if getattr(model, "tiaf", False):
+        return tiaf_inputs(arrays, caps, fov_caps, train=devox_pairs)
     if isinstance(model, CylinderTS):
         return build_cylinder_topology(
             arrays["point_coords_t"], arrays["num_points_t"], caps, train=devox_pairs
@@ -177,6 +222,7 @@ def model_topology(
         arrays["point_coords_t"], arrays["num_points_t"], caps,
         devox_pairs=devox_pairs, assume_sorted_points=sorted_points,
         point_voxel_strides=model.point_voxel_strides,
+        row_orders=model.compute_dtype == torch.float32,
     )
     if getattr(model, "range_view", False):
         return rpv_inputs(topo, arrays, with_pairs=devox_pairs)
@@ -185,7 +231,10 @@ def model_topology(
 
 @torch.no_grad()
 def eval_logits(model: torch.nn.Module, arrays: dict, topo) -> torch.Tensor:
-    """Stage 3: per-row logits (P, C) f32 of an eval-mode `model`."""
+    """Stage 3: per-row logits (P, C) f32 of an eval-mode `model` (TIAF:
+    of the main cloud's rows, the replace ensemble applied)."""
+    if isinstance(topo, TiafInputs):
+        return model(arrays["main"]["point_feats_t"], topo)["logits"]
     return model(arrays["point_feats_t"], topo)
 
 
@@ -209,15 +258,18 @@ def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
 
 class Segmenter:
     """Inference on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs or MinkUNetMsKd;
-    the last two take reader dicts with the fused cloud, `xyzret_ms`, and
-    return the current frame's points).
+    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs, MinkUNetMsKd or
+    MinkUNetMsMm; the last three take reader dicts with the fused cloud,
+    `xyzret_ms` (TIAF's also with the camera window: `fov_mask`,
+    `fov_rowcol`, `images`, `image_labels`), and return the current
+    frame's points).
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
     (`utils.params_from_jax.init_params_numpy` draws them from a seed).
     The point capacity defaults to MODEL.POINTS_PER_SCAN (else 131072)
-    rows per scan.
+    rows per scan; TIAF's FOV capacity to `fov_points`, at JAX's default
+    schedule (`engine.py:230`).
     """
 
     def __init__(
@@ -239,6 +291,8 @@ class Segmenter:
             self.point_capacity,
             schedule=cfg["MODEL"].get("CAPACITY_SCHEDULE"),
         )
+        self.fov_capacity = fov_points(cfg, self.point_capacity)
+        self.fov_caps = UNetCapacities.for_points(self.fov_capacity)
         self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
         load_flax_params(self.model, params["params"], params["batch_stats"])
         self.model.eval()
@@ -246,16 +300,24 @@ class Segmenter:
 
     def collate(self, scans: list) -> dict:
         """Host stage: quantize, dedup, key-sort and pad the scans into
-        one shard (with their range images for RPVNet), and move the
-        arrays to the device."""
-        arrays = self.pipeline.collate([self.pipeline(s) for s in scans], self.point_capacity)
+        one shard (with their range images for RPVNet; with the FOV shard
+        and the camera images for TIAF), and move the arrays to the
+        device."""
+        samples = [self.pipeline(s) for s in scans]
+        if isinstance(self.pipeline, MsMmVoxelPipeline):
+            arrays = self.pipeline.collate(samples, self.point_capacity, self.fov_capacity)
+        else:
+            arrays = self.pipeline.collate(samples, self.point_capacity)
         return to_device(arrays, self.device)
 
     def topology(self, arrays: dict):
-        return model_topology(self.model, arrays, self.caps, sorted_points=self.pipeline.sorted_points)
+        return model_topology(
+            self.model, arrays, self.caps, sorted_points=self.pipeline.sorted_points,
+            fov_caps=self.fov_caps,
+        )
 
     def check_capacity(self, topo) -> None:
-        check_capacity(topo, self.caps)
+        check_capacity(topo, self.caps, self.fov_caps)
 
     def forward(self, arrays: dict, topo) -> torch.Tensor:
         return eval_logits(self.model, arrays, topo)
@@ -352,8 +414,8 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
 
 class Trainer:
     """The train step on one device of the model that MODEL.NAME names
-    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs or MinkUNetMsKd),
-    and the harness around it.
+    (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs, MinkUNetMsKd or
+    MinkUNetMsMm), and the harness around it.
 
     cfg: dict with the YAML's layout (`configs.py`, or a `utils.config.
     Config`), including OPTIM; MODEL.TRAIN_CAPACITY_SCHEDULE, where
@@ -405,6 +467,24 @@ class Trainer:
     the pairs, and `train_on` also returns "loss_seg" and "loss_feat_kd".
     The teacher's parameters and buffers are in no optimizer and in no
     checkpoint; a step without a teacher raises.
+
+    MinkUNetMsMm trains the `tiaf` kind (JAX `parallel/tiaf.py:73`, wired
+    as `engine.py:229-251, 321-337`): its pipeline is the
+    MsMmVoxelPipeline, whose shard holds the main fused cloud, the FOV
+    cloud (`fov_capacity` rows: the loader's, else `fov_points`, at JAX's
+    default schedule), the FOV rows' pixels and the camera images with
+    their targets; the topology stage builds `TiafInputs`; the loss is
+    MODEL.LOSS_WEIGHT ([lidar, fusion, image_s, image_d, image_lidar],
+    default [0, 1, 0.5, 0.5, 1]) over the criterion on the main logits,
+    the fusion logits (on the overlap), the image logits at the FOV rows,
+    the dense image logits and the FOV branch's logits, and `train_on`
+    also returns the five terms (`TIAF_TERMS`).  With MODEL.FIX_PART_PARAM
+    only the parameters under MODEL.TRAINABLE_PREFIXES (default: the
+    image and lidar-FOV branches and the two classifiers) are in the
+    optimizer's chain (`utils.param_groups`): every parameter keeps its
+    gradient and "grad_norm" covers them all, as in JAX; the clip covers
+    the trainable ones; the frozen ones do not move, while `main`'s BN
+    runs in train mode and its running statistics move.
 
     The harness (JAX `engine.py:539-911`): `train(eval_interval=)` runs
     `train_one_epoch` over the train loader (its prefetch thread runs the
@@ -458,7 +538,7 @@ class Trainer:
         self.point_capacity = point_capacity or points_per_scan(cfg) * batch_size
         train_schedule = m.get("TRAIN_CAPACITY_SCHEDULE", m.get("CAPACITY_SCHEDULE"))
         self.caps = UNetCapacities.for_points(self.point_capacity, schedule=train_schedule)
-        self.kind = "kd" if m.get("NAME") == "MinkUNetMsKd" else "voxel"
+        self.kind = {"MinkUNetMsKd": "kd", "MinkUNetMsMm": "tiaf"}.get(m.get("NAME"), "voxel")
         self.teacher_capacity = teacher_capacity or self.point_capacity
         self.teacher_caps = UNetCapacities.for_points(self.teacher_capacity, schedule=train_schedule)
         self.teacher = None
@@ -468,6 +548,14 @@ class Trainer:
             val_loader.point_capacity if val_loader is not None else self.point_capacity,
             schedule=m.get("CAPACITY_SCHEDULE"),
         )
+        self.fov_capacity = (
+            getattr(train_loader, "fov_capacity", None) or fov_points(cfg, self.point_capacity)
+        )
+        self.fov_caps = UNetCapacities.for_points(self.fov_capacity)
+        self.eval_fov_caps = UNetCapacities.for_points(
+            getattr(val_loader, "fov_capacity", None) or self.fov_capacity
+        )
+        self.loss_weight = tuple(float(w) for w in m.get("LOSS_WEIGHT", (0.0, 1.0, 0.5, 0.5, 1.0)))
         self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
         self.pipeline = make_pipeline(cfg, self.model, training=True, seed=seed)
         self.dropout_generator = seed_dropout(self.model, seed)
@@ -476,10 +564,18 @@ class Trainer:
             params = {"params": p, "batch_stats": s}
         load_flax_params(self.model, params["params"], params["batch_stats"])
         self.model.train()
+        frozen = []
+        if m.get("FIX_PART_PARAM", False):
+            # staged-recipe freezing (reference fix_part_param, JAX
+            # engine.py:237-251)
+            trainable = list(m.get("TRAINABLE_PREFIXES", TRAINABLE_PREFIXES))
+            frozen = frozen_parameters(self.model, trainable)
+            self.logger.info(f"fix_part_param: training only {trainable}")
         lr = float(optim["LR_PER_SAMPLE"]) * batch_size
         self.optimizer = build_optimizer(
             self.model.parameters(), {**optim, "LR": lr}, iters_per_epoch,
             self.total_epochs, clip_grad_norm=float(optim.get("GRAD_NORM_CLIP", 10.0)),
+            frozen=frozen,
         )
         loss_cfg = m.get(
             "LOSS_CONFIG",
@@ -532,27 +628,33 @@ class Trainer:
     def collate(self, scans: list) -> dict:
         """Host stage: augment, quantize, dedup, key-sort and pad the scans
         into one shard (with their range images for RPVNet; with the
-        teacher's shard and the pairs for KD), and move the arrays to the
-        device."""
+        teacher's shard and the pairs for KD; with the FOV shard and the
+        camera images for TIAF), and move the arrays to the device."""
         samples = [self.pipeline(s) for s in scans]
         if self.kind == "kd":
             arrays = self.pipeline.collate(samples, self.point_capacity, self.teacher_capacity)
+        elif self.kind == "tiaf":
+            arrays = self.pipeline.collate(samples, self.point_capacity, self.fov_capacity)
         else:
             arrays = self.pipeline.collate(samples, self.point_capacity)
         return to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
 
     def topology(self, arrays: dict):
-        """The train topology of the shard (of the student's, for KD)."""
+        """The train topology of the shard (of the student's, for KD; the
+        `TiafInputs` for TIAF)."""
         return model_topology(
             self.model, arrays.get("student", arrays), self.caps, devox_pairs=True,
-            sorted_points=self.pipeline.sorted_points,
+            sorted_points=self.pipeline.sorted_points, fov_caps=self.fov_caps,
         )
 
     def teacher_topology(self, arrays: dict):
         """The KD teacher's eval topology of its shard at its capacities;
         a level over capacity raises."""
         t = arrays["teacher"]
-        topo = build_unet_topology(t["point_coords_t"], t["num_points_t"], self.teacher_caps)
+        topo = build_unet_topology(
+            t["point_coords_t"], t["num_points_t"], self.teacher_caps,
+            row_orders=self.teacher.compute_dtype == torch.float32,
+        )
         check_capacity(topo, self.teacher_caps)
         return topo
 
@@ -560,7 +662,10 @@ class Trainer:
         """The loss of the shard (f32 scalar, with its graph); for KD the
         criterion plus FEAT_KD_WEIGHT x the masked feature MSE (JAX
         kd.py:94-108), with its two terms kept in `kd_terms` (detached),
-        the teacher's topology built here unless given."""
+        the teacher's topology built here unless given; for TIAF the
+        weighted five terms (`tiaf_loss`)."""
+        if self.kind == "tiaf":
+            return self.tiaf_loss(arrays, topo)
         a = arrays.get("student", arrays)
         if self.kind != "kd":
             logits = self.model(a["point_feats_t"], topo)
@@ -589,6 +694,37 @@ class Trainer:
             loss = loss + self.feat_kd_weight * loss_kd
         return loss
 
+    def tiaf_loss(self, arrays: dict, inputs: TiafInputs) -> torch.Tensor:
+        """TIAF's loss (JAX `parallel/tiaf.py:100-135`): LOSS_WEIGHT x
+        (criterion on the main logits over the valid main rows, on the
+        fusion logits over the valid rows in the overlap, on the image
+        logits at the FOV rows and on the FOV branch's logits over the
+        valid FOV rows, on the dense image logits over every pixel), the
+        terms kept in `tiaf_terms` (detached)."""
+        main, fov = arrays["main"], arrays["fov"]
+        out = self.model(main["point_feats_t"], inputs)
+        labels = main["labels_t"].long()
+        fov_labels = fov["labels_t"].long()
+        pvalid = torch.arange(labels.shape[0], device=self.device) < main["num_points_t"]
+        fvalid = torch.arange(fov_labels.shape[0], device=self.device) < fov["num_points_t"]
+        img_labels = arrays["image_labels_t"].reshape(-1).long()
+        nc = out["image_logits"].shape[-1]
+        terms = (
+            self.criterion(out["logits"], labels, pvalid),
+            self.criterion(out["fusion_logits"], labels, pvalid & out["overlap"]),
+            self.criterion(out["image_point_logits"], fov_labels, fvalid),
+            self.criterion(
+                out["image_logits"].reshape(-1, nc), img_labels,
+                torch.ones_like(img_labels, dtype=torch.bool),
+            ),
+            self.criterion(out["fov_point_logits"], fov_labels, fvalid),
+        )
+        self.tiaf_terms = dict(zip(TIAF_TERMS, (t.detach() for t in terms)))
+        loss = None
+        for w, t in zip(self.loss_weight, terms):
+            loss = w * t if loss is None else loss + w * t
+        return loss
+
     def backward(self, loss: torch.Tensor) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -601,7 +737,7 @@ class Trainer:
         """Topology, forward, loss, backward and update on a collated
         shard (`collate`)."""
         topo = self.topology(arrays)
-        level_nums = check_capacity(topo, self.caps)
+        level_nums = check_capacity(topo, self.caps, self.fov_caps)
         loss = self.forward(arrays, topo)
         self.backward(loss)
         g_norm, lr = self.update()
@@ -611,6 +747,8 @@ class Trainer:
         }
         if self.kind == "kd":
             out["loss_seg"], out["loss_feat_kd"] = (float(t) for t in self.kd_terms)
+        elif self.kind == "tiaf":
+            out.update({k: float(v) for k, v in self.tiaf_terms.items()})
         return out
 
     def step(self, scans: list) -> dict:
@@ -695,7 +833,7 @@ class Trainer:
             out.update(data_s=timer.d_time.val, step_s=timer.f_time.val)
             steps.append(out)
             step = self.optimizer.count
-            for k in ("loss", "grad_norm", "lr", "loss_seg", "loss_feat_kd"):
+            for k in ("loss", "grad_norm", "lr", "loss_seg", "loss_feat_kd", *TIAF_TERMS):
                 if k in out:
                     writer.scalar(f"train/{k}", out[k], step)
             if it % max(n // 4, 1) == 0:
@@ -727,17 +865,21 @@ class Trainer:
 
     # ------------- evaluation: the same stages as Segmenter ----------------
     def _eval_batches(self, batches):
-        """(arrays on the device, meta, per-row logits) of each batch,
-        through `Segmenter`'s stages 2-3 on this model in eval mode (for
-        KD, the student alone on its shard)."""
+        """(arrays of the logits' rows on the device, meta, per-row
+        logits) of each batch, through `Segmenter`'s stages 2-3 on this
+        model in eval mode (for KD, the student alone on its shard; for
+        TIAF, the main shard's rows)."""
         sorted_points = self.val_loader.pipeline.sorted_points
         with eval_mode(self.model):
             for arrays, meta in batches:
                 arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
                 arrays = arrays.get("student", arrays)
-                topo = model_topology(self.model, arrays, self.eval_caps, sorted_points=sorted_points)
-                check_capacity(topo, self.eval_caps)
-                yield arrays, meta, eval_logits(self.model, arrays, topo)
+                topo = model_topology(
+                    self.model, arrays, self.eval_caps, sorted_points=sorted_points,
+                    fov_caps=self.eval_fov_caps,
+                )
+                check_capacity(topo, self.eval_caps, self.eval_fov_caps)
+                yield arrays.get("main", arrays), meta, eval_logits(self.model, arrays, topo)
 
     def _point_hist(self, pred: torch.Tensor, sample) -> torch.Tensor:
         labels = torch.from_numpy(sample.raw_labels).to(pred.device)

@@ -7,16 +7,21 @@ from .fusion.rpvnet import RPVNet
 from .fusion.spvcnn import SPVCNN
 from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
+from .voxel.minkunet_mm import MinkUNetMsMm
 
 # the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25,
-# and Cylinder_TS of its SEGMENTORS).  MinkUNetMs (FSA) is the MinkUNet
-# backbone on the fused multi-scan cloud (5 input features, the time flag
-# among them); MinkUNetMsKd is the KD stage's student (and teacher), a
-# MinkUNet too, whose distillation wiring is the Trainer's kd step
+# and Cylinder_TS and MinkUNetMsMm of its SEGMENTORS).  MinkUNetMs (FSA) is
+# the MinkUNet backbone on the fused multi-scan cloud (5 input features,
+# the time flag among them); MinkUNetMsKd is the KD stage's student (and
+# teacher), a MinkUNet too, whose distillation wiring is the Trainer's kd
+# step; MinkUNetMsMm is TIAF (camera images, the FOV branch, the fusion
+# head), whose five-term loss is the Trainer's tiaf step
 SEGMENTORS = {
     "MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet, "Cylinder_TS": CylinderTS,
-    "MinkUNetMs": MinkUNet, "MinkUNetMsKd": MinkUNet,
+    "MinkUNetMs": MinkUNet, "MinkUNetMsKd": MinkUNet, "MinkUNetMsMm": MinkUNetMsMm,
 }
+# the models JAX builds in f32 only: another compute dtype raises
+F32_ONLY = ("Cylinder_TS", "MinkUNetMsMm")
 
 
 def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
@@ -28,9 +33,11 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     and SPVCNN only and `MULTI_SCALE` to SPVCNN
     only (RPVNet keeps momentum 0.1 and its 'concat' head).  Cylinder_TS
     reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9) only, as JAX
-    (`models/__init__.py:58-64`), and runs in f32: another compute dtype
-    raises.  A name the port has not ported raises, listing those it
-    has."""
+    (`models/__init__.py:58-64`); MinkUNetMsMm reads `IN_FEATURE_DIM`
+    (5), `cr` (1.0), `FOV_CR` (0.5), `IMAGE_BASE` (32) and
+    `ENSEMBLE_TYPE` ('replace') only (:65-75).  Both run in f32: another
+    compute dtype raises.  A name the port has not ported raises, listing
+    those it has."""
     m = cfg["MODEL"]
     name = m.get("NAME", "MinkUNet")
     if name not in SEGMENTORS:
@@ -38,12 +45,17 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
             f"MODEL.NAME {name!r} is not ported (ROADMAP Queue 1); the port "
             f"builds {sorted(SEGMENTORS)}"
         )
-    if name == "Cylinder_TS":
+    if name in F32_ONLY:
         dtype = compute_dtype or m.get("COMPUTE_DTYPE", "float32")
         if dtype != "float32":
-            raise ValueError(
-                f"Cylinder_TS runs in float32, as the JAX model; got {dtype!r}"
-            )
+            raise ValueError(f"{name} runs in float32, as the JAX model; got {dtype!r}")
+    if name == "MinkUNetMsMm":
+        return MinkUNetMsMm(
+            num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 5), cr=m.get("cr", 1.0),
+            fov_cr=m.get("FOV_CR", 0.5), image_base=m.get("IMAGE_BASE", 32),
+            ensemble_type=m.get("ENSEMBLE_TYPE", "replace"), device=device,
+        )
+    if name == "Cylinder_TS":
         return CylinderTS(
             num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 9),
             init_size=m.get("INIT_SIZE", 32), device=device,
@@ -66,4 +78,6 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     return SEGMENTORS[name](**kw)
 
 
-__all__ = ["CylinderTS", "MinkUNet", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor"]
+__all__ = [
+    "CylinderTS", "MinkUNet", "MinkUNetMsMm", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor",
+]

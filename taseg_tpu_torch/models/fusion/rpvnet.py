@@ -44,7 +44,7 @@ from ...ops.point_range import point_to_range, point_to_range_tables, range_samp
 from ...ops.voxelize import devoxelize, voxelize_avg
 from ..layers import BLOCKS, ConvBNReLU, Dense, Dropout
 from ..range2d.blocks import ResContextBlock, SalsaResBlock, SalsaUpBlock
-from ..voxel.backbone_context import UNetTopology
+from ..voxel.backbone_context import UNetTopology, conv_tables
 from ..voxel.minkunet import _DTYPES
 from .spvcnn import PointTransform
 
@@ -266,10 +266,9 @@ class RPVNet(nn.Module):
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
             ]
-            rb = [(l.rb_k3, l.rb_k3_bwd, l.k3_pairs) for l in levels]
         else:
             masks = [None] * len(levels)
-            rb = [l.rb_k3 for l in levels]
+        rb = conv_tables(topo, self.training)
         missing = set(self.point_voxel_strides) - set(topo.point_vox)
         if missing:
             raise ValueError(

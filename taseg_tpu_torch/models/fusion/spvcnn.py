@@ -30,7 +30,7 @@ from torch import nn
 from ..._device import resolve_device
 from ...ops.voxelize import devoxelize, voxelize_avg
 from ..layers import BLOCKS, ConvBNReLU, Dense, Dropout, MaskedBatchNorm
-from ..voxel.backbone_context import UNetTopology
+from ..voxel.backbone_context import UNetTopology, conv_tables
 from ..voxel.minkunet import _DTYPES
 
 
@@ -121,10 +121,9 @@ class SPVCNN(nn.Module):
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
             ]
-            rb = [(l.rb_k3, l.rb_k3_bwd, l.k3_pairs) for l in levels]
         else:
             masks = [None] * len(levels)
-            rb = [l.rb_k3 for l in levels]
+        rb = conv_tables(topo, self.training)
         missing = set(self.point_voxel_strides) - set(topo.point_vox)
         if missing:
             raise ValueError(

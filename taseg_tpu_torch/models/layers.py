@@ -20,17 +20,15 @@ from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 class SparseConv(nn.Module):
     """Sparse conv with weights (K, C_in, C_out); K = 1 is a plain matmul.
 
-    K = 27, called with a (27, V) rulebook, or a tuple (rulebook, flipped
-    rulebook, K4's pair lists) where a gradient is wanted: the stride-1
-    3^3 conv (K2, backward K2 + K4; JAX's F3 and TGF routes).  With
-    `StridedTables` the ks=2/stride=2 pair (K3, backward K3 + K5),
-    `transposed` picking the direction.  Any other K, called with a
-    (K, V_out) rulebook, or a tuple (rb_fwd, rb_bwd) of the two
-    directions' tables where a gradient is wanted: the conv over K
-    offsets (K2 at K, backward K2 + K4 at K; JAX's `sparse_conv_apply`);
-    so is any K, 27 included, called with a `KTable` or a tuple of two
-    (a table with its row order and pair lists: Cylinder3D's convs and
-    its 3^3 head).  `transposed` also sets the init's fan (C_out,
+    Called with a (K, V_out) rulebook or a `KTable` (a table with its row
+    order and pair lists), or a tuple (forward table, reverse table) of
+    either where a gradient is wanted.  K = 27: the stride-1 3^3 conv
+    (`k3_conv`, JAX's F3 and TGF routes; the route by dtype and widths:
+    K2 at 27, backward K2 + K4, or in f32 the conv over K = 27 offsets on
+    3xTF32).  Any other K: the conv over K offsets (K2 at K, backward K2
+    + K4 at K; JAX's `sparse_conv_apply`).  With `StridedTables` the
+    ks=2/stride=2 pair (K3, backward K3 + K5), `transposed` picking the
+    direction.  `transposed` also sets the init's fan (C_out,
     JAX layers.py:96).  The weight is cast to the activation dtype first,
     so a bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
     comes back in that dtype.  `use_bias` adds a (C_out,) f32 bias after
@@ -72,14 +70,11 @@ class SparseConv(nn.Module):
         if isinstance(rulebook, StridedTables):
             apply = upsample_conv if self.transposed else downsample_conv
             return apply(feats, w.contiguous(), rulebook)
-        if isinstance(rulebook, KTable):
-            return conv_k(feats, w.contiguous(), rulebook)
-        tables = isinstance(rulebook, tuple) and isinstance(rulebook[0], KTable)
-        if self.kernel_volume == 27 and not tables:
-            rb, rb_bwd, pairs = rulebook if isinstance(rulebook, tuple) else (rulebook, None, None)
-            return k3_conv(feats, w.contiguous(), rb, rb_bwd, pairs)
-        rb, rb_bwd = rulebook if isinstance(rulebook, tuple) else (rulebook, None)
-        return conv_k(feats, w.contiguous(), rb, rb_bwd)
+        pair = isinstance(rulebook, tuple) and not isinstance(rulebook, KTable)
+        fwd, bwd = rulebook if pair else (rulebook, None)
+        if self.kernel_volume == 27:
+            return k3_conv(feats, w.contiguous(), fwd, bwd)
+        return conv_k(feats, w.contiguous(), fwd, bwd)
 
 
 class Dense(nn.Module):

@@ -14,7 +14,10 @@ level), the level's present pairs of it compacted per offset
 (`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared),
 the parent relation's pairs compacted per slot (`StridedTables.pairs`,
 the pair lists of K5's tensor-core route, shared by the level's down and
-up conv) and the trilinear pair tables.  With `point_voxel_strides`
+up conv) and the trilinear pair tables.  With `row_orders` (f32 models)
+it adds each level's row order (`k3_order`, `mask_row_order` of the
+3^3 rulebook), which the f32 route of the 3^3 convs reads (K2 and K4 at
+K = 27 on 3xTF32, `sparse_conv.k3_conv`).  With `point_voxel_strides`
 (SPVCNN's (1, 4, 16)) it adds the point -> voxel tables of the point
 branch (`UNetTopology.point_vox`).  Left out against the JAX package: the
 TGF gather plans (the port's conv takes the rulebook directly).
@@ -31,7 +34,7 @@ from ...ops.coords import GridBounds, compute_bounds
 from ...ops.f3conv import PairLists, k3_pair_lists
 from ...ops.join import unique_coords
 from ...ops.rulebook import build_rulebook_k3, spdownsample
-from ...ops.sparse_conv import flip_rulebook
+from ...ops.sparse_conv import KTable, flip_rulebook, mask_row_orders
 from ...ops.strided_conv import StridedTables, build_strided_tables, slot_pair_lists
 from ...ops.voxelize import (
     IdentityDevoxTable,
@@ -95,6 +98,9 @@ class LevelTopo:
     rb_k3_bwd: Optional[torch.Tensor] = None
     # k3_pair_lists(rb_k3_bwd): K4's pair lists; None in inference
     k3_pairs: Optional[PairLists] = None
+    # mask_row_order(rb_k3), shared by rb_k3_bwd (a flip maps equal
+    # offset masks to equal masks); None unless built with row_orders
+    k3_order: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -131,13 +137,15 @@ def build_unet_topology(
     devox_pairs: bool = False,
     assume_sorted_points: bool = False,
     point_voxel_strides: tuple = (),
+    row_orders: bool = False,
 ) -> UNetTopology:
     """Build the MinkUNet topology from point coords (P, 4) on their
     device: one level per entry of `caps.voxels`, devox tables for the
     head's strides 1, 4 and 16.  `num_points` is a 0-dim int32 tensor.
     The points are integer voxel coords (the host pipeline's contract),
     so stride 1 devoxelizes by the identity gather.  `devox_pairs` adds
-    the tables that only the backward reads (training).
+    the tables that only the backward reads (training); `row_orders`
+    each level's `k3_order` (one stable sort per level, on the device).
     `point_voxel_strides` (a subset of SPVCNN's (1, 4, 16)) adds, per
     stride s, each point's stride-s voxel (the floor voxel, corner 0 of
     its trilinear corners) and the segment tables over it (JAX
@@ -188,6 +196,9 @@ def build_unet_topology(
             strided = replace(strided, pairs=slot_pair_lists(strided))
         levels.append(level(coords_l, num_l, 2**l, strided))
         prev_coords, prev_num = coords_l, num_l
+    if row_orders:
+        orders = mask_row_orders([l.rb_k3 for l in levels])
+        levels = [replace(l, k3_order=o) for l, o in zip(levels, orders)]
 
     # point -> coarse-voxel corner rows without joins: chase the parent
     # chain, then read the 8 trilinear corners out of the level's k3
@@ -256,3 +267,14 @@ def build_unet_topology(
         num_points=num_points,
         point_vox=point_vox,
     )
+
+
+def conv_tables(topo: UNetTopology, train: bool) -> list:
+    """Each level's 3^3 conv tables as the conv modules take them:
+    `KTable(rb_k3, k3_order)`, in training with the reverse table
+    `KTable(rb_k3_bwd, k3_order, k3_pairs)` beside it (the topology needs
+    `devox_pairs=True` then)."""
+    fwd = [KTable(l.rb_k3, l.k3_order) for l in topo.levels]
+    if not train:
+        return fwd
+    return [(f, KTable(l.rb_k3_bwd, l.k3_order, l.k3_pairs)) for f, l in zip(fwd, topo.levels)]

@@ -34,7 +34,7 @@ from torch import nn
 from ..._device import resolve_device
 from ...ops.voxelize import devoxelize, voxelize_avg
 from ..layers import BLOCKS, ConvBNReLU, Dropout
-from .backbone_context import UNetTopology
+from .backbone_context import UNetTopology, conv_tables
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -145,10 +145,9 @@ class MinkUNet(nn.Module):
                 torch.arange(l.coords.shape[0], device=l.num.device) < l.num
                 for l in levels
             ]
-            rb = [(l.rb_k3, l.rb_k3_bwd, l.k3_pairs) for l in levels]
         else:
             masks = [None] * len(levels)
-            rb = [l.rb_k3 for l in levels]
+        rb = conv_tables(topo, self.training)
         x0 = voxelize_avg(
             point_feats[:, : self.in_dim], topo.point_inverse, topo.point_tables
         ).to(self.compute_dtype)

@@ -18,10 +18,14 @@ sums them, so in bf16 the two packages differ by that rounding.)
 
 The port takes the rulebook directly and builds no TGF tables.
 
-`k3_conv` is the differentiable form (`K3Conv`, the counterpart of the
-custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its backward runs
-`f3conv.f3_bwd_fused` over the flipped rulebook `flip_rulebook(rb)` and
-K4's pair lists, which the topology builds once per level and step.
+`k3_conv` is the 3^3 conv the models call, differentiable (`K3Conv`,
+the counterpart of the custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its
+backward runs `f3conv.f3_bwd_fused` over the flipped rulebook
+`flip_rulebook(rb)` and K4's pair lists, which the topology builds once
+per level and step.  Its f32 calls with C_in and C_out multiples of 4
+(`k_route`'s "tf32x3") go instead to `conv_k` at K = 27, on 3xTF32
+tensor cores over the level's row order; so the CUDA-core K2 at 27
+serves only ragged f32 widths (the 5-channel stems).
 
 `sparse_conv` is K2 at K <= 32 offsets with a (K, V_out) rulebook over
 V_in input rows (V_in != V_out between two levels), counted under
@@ -58,8 +62,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of the 27-offset conv takes: "mma" (tensor
     cores) for bf16 with C_in and C_out multiples of 8, else "simt" (CUDA
-    cores).  Its f32 calls stay on CUDA cores; the conv over K offsets
-    has a 3xTF32 route (`k_route`)."""
+    cores).  `k3_conv` asks `k_route` first: the f32 calls whose widths
+    allow it go to the conv over K = 27 offsets on 3xTF32."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
         return "mma"
     return "simt"
@@ -247,21 +251,32 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
 
 
 def k3_conv(
-    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
-    rb_bwd: torch.Tensor = None, pairs=None,
+    feats: torch.Tensor, weight: torch.Tensor, rb, rb_bwd=None, pairs=None,
 ) -> torch.Tensor:
     """The stride-1 k3 conv, differentiable where autograd asks for a
     gradient (then `rb_bwd = flip_rulebook(rb)` is required; `pairs`,
     `f3conv.k3_pair_lists(rb_bwd)`, is built in the backward where not
-    given), else the plain `sparse_conv_k3` call."""
+    given), else the plain call.  `rb` and `rb_bwd` are rulebooks or
+    `KTable`s (the level's row order, and the reverse table's pair lists).
+    The route is `k_route`'s: on "tf32x3" (f32, C_in and C_out multiples
+    of 4) the conv over K = 27 offsets (`conv_k`: K2 and K4 at K on 3xTF32
+    tensor cores, over the tables' row order and pair lists, built per
+    call where absent), else K2 at 27 (`sparse_conv_k3`) with K4
+    (`f3conv.k3_conv_dw`) in its backward."""
+    fwd = as_table(rb)
+    bwd = None if rb_bwd is None else as_table(rb_bwd)
+    if bwd is not None and pairs is not None:
+        bwd = bwd._replace(pairs=pairs)
+    if k_route(feats.dtype, feats.shape[1], weight.shape[2]) == "tf32x3":
+        return conv_k(feats, weight, fwd, bwd)
     if wants_grad(feats, weight):
-        if rb_bwd is None:
+        if bwd is None:
             raise ValueError(
                 "a gradient of the k3 conv needs the flipped rulebook: build "
                 "the topology with devox_pairs=True"
             )
-        return K3Conv.apply(feats, weight, rb, rb_bwd, pairs)
-    return sparse_conv_k3(feats, weight, rb)
+        return K3Conv.apply(feats, weight, fwd.rb, bwd.rb, bwd.pairs)
+    return sparse_conv_k3(feats, weight, fwd.rb)
 
 
 def sparse_conv(

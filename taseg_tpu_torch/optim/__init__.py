@@ -11,7 +11,11 @@ returns), in plain torch:
                                       count taken before its increment
 
 so step 0 runs at lr * 1e-5 under the linear warmup.  The schedule is
-computed in float32, as JAX computes it.
+computed in float32, as JAX computes it.  Parameters given as `frozen`
+(a staged recipe's, `utils.param_groups`) sit outside the chain, as
+JAX's `freeze_except` puts them (`optax.multi_transform` with
+`set_to_zero`): the clip's norm covers the others only, and the frozen
+ones get no update and no trace.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ def global_norm(tensors) -> torch.Tensor:
 class ClippedSGD(torch.optim.Optimizer):
     """The optax chain above over one group of parameters.  `step()`
     reads `p.grad`, updates the parameters and the momentum traces in
-    place, and returns (the unclipped global grad norm, the LR it
+    place, and returns (the unclipped global norm of every gradient, the
+    frozen parameters' included, as JAX's `grad_norm` metric; the LR it
     applied).  `count`, the schedule's position, travels in
     `state_dict()` beside the traces, so a resumed run goes on where it
     stopped (optax keeps it in the chain's state)."""
@@ -65,7 +70,7 @@ class ClippedSGD(torch.optim.Optimizer):
     def __init__(
         self, params, *, lr: float, schedule: Callable[[int], float],
         momentum: float = 0.9, nesterov: bool = False, weight_decay: float = 0.0,
-        max_norm: float = 10.0,
+        max_norm: float = 10.0, frozen=(),
     ):
         super().__init__(
             params,
@@ -74,6 +79,7 @@ class ClippedSGD(torch.optim.Optimizer):
         )
         self.schedule = schedule
         self.count = 0
+        self.frozen = {id(p) for p in frozen}
 
     def state_dict(self) -> dict:
         return {**super().state_dict(), "count": self.count}
@@ -90,14 +96,19 @@ class ClippedSGD(torch.optim.Optimizer):
             raise ValueError("ClippedSGD takes no closure")
         (group,) = self.param_groups
         params = [p for p in group["params"] if p.grad is not None]
-        grads = [p.grad for p in params]
-        g_norm = global_norm(grads)
+        g_norm = global_norm([p.grad for p in params])
+        if self.frozen:
+            params = [p for p in params if id(p) not in self.frozen]
+            c_norm = global_norm([p.grad for p in params])
+        else:
+            c_norm = g_norm
         lr_t = group["lr"] * self.schedule(self.count)
-        clip = bool(g_norm >= group["max_norm"])
+        clip = bool(c_norm >= group["max_norm"])
         mu, wd = group["momentum"], group["weight_decay"]
-        for p, g in zip(params, grads):
+        for p in params:
+            g = p.grad
             if clip:
-                g = (g / g_norm) * group["max_norm"]
+                g = (g / c_norm) * group["max_norm"]
             if wd:
                 g = g + wd * p
             st = self.state[p]
@@ -113,10 +124,11 @@ class ClippedSGD(torch.optim.Optimizer):
 
 def build_optimizer(
     params, optim_cfg: dict, iters_per_epoch: int, total_epochs: int,
-    *, clip_grad_norm: float = 10.0,
+    *, clip_grad_norm: float = 10.0, frozen=(),
 ) -> ClippedSGD:
     """The `sgd` optimizer of an OPTIM block (LR, WEIGHT_DECAY, MOMENTUM,
-    NESTEROV) on the warmup-cosine schedule (JAX :151)."""
+    NESTEROV) on the warmup-cosine schedule (JAX :151), `frozen`
+    parameters held still."""
     name = optim_cfg.get("OPTIMIZER", "sgd")
     if name != "sgd":
         raise NotImplementedError(f"OPTIMIZER {name} is not ported yet")
@@ -128,4 +140,5 @@ def build_optimizer(
         nesterov=bool(optim_cfg.get("NESTEROV", False)),
         weight_decay=float(optim_cfg.get("WEIGHT_DECAY", 0.0)),
         max_norm=clip_grad_norm,
+        frozen=frozen,
     )

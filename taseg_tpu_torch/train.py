@@ -12,9 +12,10 @@ cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
 on the `voxel` pipeline, RPVNet on the `fusion` one and Cylinder_TS on the
 `cylinder` one (as JAX `train.py:102-107` picks them, by model name);
 TASeg's temporal stages by dataset: MinkUNetMs on the multi-scan
-pipeline (FSA, SMSA) and MinkUNetMsKd on the `kd` one, whose frozen
+pipeline (FSA, SMSA), MinkUNetMsKd on the `kd` one, whose frozen
 teacher is MODEL.TEACHER_CKPT (JAX `train.py:127-128`; a checkpoint of
-the FSA stage); several processes (`--distributed`, DDP) wait for ROADMAP
+the FSA stage), and MinkUNetMsMm (TIAF) on the `mm` one, whose FSA
+branch loads from --pretrained_model (`main/` matched by suffix); several processes (`--distributed`, DDP) wait for ROADMAP
 Queue 1 item 3.
 
     python -m taseg_tpu_torch.train \\
@@ -25,6 +26,8 @@ Queue 1 item 3.
     python -m taseg_tpu_torch.train \
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml --epochs 1 \
         --set MODEL.TEACHER_CKPT output/minkunet_ms_tiny/default/ckpt/checkpoint_epoch_0
+    python -m taseg_tpu_torch.train \
+        --cfg_file tools/cfgs/voxel/synthetic/tiaf_tiny.yaml --epochs 1
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ def check_ported(cfg) -> str:
     ok = ("voxel", "fusion", "cylinder") if name == "Cylinder_TS" else ("voxel", "fusion")
     if name not in SEGMENTORS or modality not in ok:
         raise NotImplementedError(
-            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 items 5-6; "
+            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 item 6; "
             f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion and "
             f"cylinder pipelines"
         )

@@ -1,5 +1,5 @@
 """Weights between the JAX package's flax trees and the port's models
-(MinkUNet, SPVCNN, RPVNet, Cylinder_TS).
+(MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMsMm).
 
 `load_flax_params(model, params, batch_stats)` fills a torch model
 from the flax `params` and `batch_stats` trees given as nested dicts of
@@ -7,7 +7,9 @@ numpy arrays, with the names `model.init` gives (`stem_0/SparseConv_0/
 kernel`, `stage1_0/MaskedBatchNorm_1/scale`, `classifier/kernel`,
 SPVCNN's `point_transform_0/Dense_0/kernel`, RPVNet's
 `range_stem/ResContextBlock_0/ConvActBN_0/Conv_0/kernel`, Cylinder_TS's
-`downCntx/a_conv0/kernel` and `logits/bias`, ...).  Sparse
+`downCntx/a_conv0/kernel` and `logits/bias`, TIAF's
+`image_backbone/image_head/kernel`, `lidar_backbone/stem/SparseConv_0/
+kernel` and `main/stem_0/...`, ...).  Sparse
 conv, 2D conv and Dense kernels are (K, C_in, C_out), (kh, kw, C_in,
 C_out) and (C_in, C_out) on both sides, so nothing is transposed.  Every
 key on either side must be matched, or it raises.

@@ -39,6 +39,18 @@ def load_bin(path, dtype="float32") -> np.ndarray:
     return np.fromfile(_local(path), dtype=np.dtype(dtype))
 
 
+def load_npy(path) -> np.ndarray:
+    return np.load(_local(path))
+
+
+def load_image(path):
+    """A PIL image (TIAF camera frames).  Pillow is imported here, so
+    only a reader of camera images needs it."""
+    from PIL import Image
+
+    return Image.open(_local(path))
+
+
 def save_bytes(path, data: bytes) -> None:
     p = _local(path)
     p.parent.mkdir(parents=True, exist_ok=True)

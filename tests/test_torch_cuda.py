@@ -479,8 +479,9 @@ def test_segment_sum_kernel_edges(cuda):
 def test_backward_routes_and_counts(cuda):
     """Autograd through the k3 conv and the strided pair on the card: the
     input gradients run K2 / K3 on W^T and count under `_dgrad`, on the
-    tensor-core route where the forward takes it (bf16, widths % 8 == 0),
-    on CUDA cores in f32; every d_W runs K4 / K5 once."""
+    tensor-core route where the forward takes it (bf16, widths % 8 == 0);
+    in f32 the k3 conv takes K2 and K4 at K = 27 on 3xTF32 (`k_route`)
+    and the strided pair CUDA cores; every d_W runs K4 / K5 once."""
     rng, u, num, b = _level(cuda, seed=51)
     rb = tr.build_rulebook_k3(u, num, 1, b)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
@@ -495,10 +496,12 @@ def test_backward_routes_and_counts(cuda):
         _build.reset_launches()
         y.float().square().sum().backward()
         L = _build.LAUNCHES
-        assert (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_mma"]) == (1, mma)
+        k3 = (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_mma"], L["k3_conv_dw"])
+        k27 = (L["sparse_conv_k_dgrad_tf32"], L["sparse_conv_dw_tf32"])
+        assert (k3, k27) == (((1, 1, 1), (0, 0)) if mma else ((0, 0, 0), (1, 1)))
         assert (L["strided_down_dgrad"], L["strided_down_dgrad_mma"]) == (1, mma)
         assert (L["strided_up_dgrad"], L["strided_up_dgrad_mma"]) == (1, mma)
-        assert (L["k3_conv_dw"], L["strided_dw"]) == (1, 2)
+        assert L["strided_dw"] == 2
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, w, wd, wu))
 
 

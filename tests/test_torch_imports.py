@@ -1,8 +1,8 @@
 """The port stands alone: importing it, every submodule (the train
 path's loss, optim and f3conv, models/fusion, RPVNet's range blocks,
 point_range and fusion pipeline, Cylinder3D's model, pipeline and the
-K-offset conv entries, the multi-scan readers, poses and SMSA, among
-them) and
+K-offset conv entries, the multi-scan readers, poses and SMSA, TIAF's
+model, pipeline, readers and parameter groups, among them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -29,7 +29,10 @@ train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch
          "taseg_tpu_torch.data.fusion_dataset", "taseg_tpu_torch.ops.sparse_conv",
          "taseg_tpu_torch.models.voxel.cylinder3d", "taseg_tpu_torch.data.cylinder_dataset",
          "taseg_tpu_torch.data.semantickitti.poses", "taseg_tpu_torch.data.semantickitti.smsa",
-         "taseg_tpu_torch.data.semantickitti.reader_ms"}
+         "taseg_tpu_torch.data.semantickitti.reader_ms",
+         "taseg_tpu_torch.models.voxel.minkunet_mm", "taseg_tpu_torch.data.voxel_mm",
+         "taseg_tpu_torch.data.semantickitti.reader_mm", "taseg_tpu_torch.data.semantickitti.tiaf",
+         "taseg_tpu_torch.utils.param_groups"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

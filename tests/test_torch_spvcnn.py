@@ -51,6 +51,17 @@ from taseg_tpu_torch.utils.params_from_jax import (
     load_flax_params,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's thread team per process oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CAP = 2048
 SCHEDULE = (1.0,) * 5
 STRIDES = (1, 4, 16)
@@ -321,9 +332,9 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="MinkUNetMsMm.*'Cylinder_TS', 'MinkUNet', 'MinkUNetMs', "
-                                         "'MinkUNetMsKd', 'RPVNet', 'SPVCNN'"):
-        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMm"}}, device="cpu")
+    with pytest.raises(ValueError, match="MinkUNetMsMmNus.*'Cylinder_TS', 'MinkUNet', 'MinkUNetMs', "
+                                         "'MinkUNetMsKd', 'MinkUNetMsMm', 'RPVNet', 'SPVCNN'"):
+        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMmNus"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")
     p, s = init_params_numpy(CFG, seed=0)
@@ -346,8 +357,8 @@ def test_cli_takes_the_spvcnn_recipe():
     assert isinstance(m, SPVCNN) and m.classifier.kernel.shape == (256 + 128 + 96, 20)
     assert m.point_transform_0.Dense_0.kernel.shape == (32, 256)
     assert check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "RPVNet"}}) == "fusion"
-    with pytest.raises(NotImplementedError, match="MinkUNetMsMm"):
-        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "MinkUNetMsMm"}})
+    with pytest.raises(NotImplementedError, match="MinkUNetMsMmNus"):
+        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "MinkUNetMsMmNus"}})
     with pytest.raises(NotImplementedError, match="range"):
         check_ported({**cfg, "MODALITY": "range"})
 

@@ -39,6 +39,17 @@ from taseg_tpu_torch.data.synthetic import synthetic_scan
 from taseg_tpu_torch.engine import Trainer
 from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's thread team per process oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CAP = 2048
 STEPS = 3
 CFG = {

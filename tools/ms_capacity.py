@@ -16,6 +16,13 @@ samples as a fraction of the point capacity (`--capacity`, 262 144 rows
 per scan), beside the raw points and the distillation pairs.  These
 fractions are what the recipes' CAPACITY_SCHEDULE and
 TRAIN_CAPACITY_SCHEDULE must hold with headroom (taseg_tpu_torch/configs.py).
+
+    python3 tools/ms_capacity.py --tiaf [--scans 12]
+
+does the same for TIAF: `SyntheticTiafReader` samples (5 images of 384 x
+1280, the recipe's window) through the MsMmVoxelPipeline unaugmented and augmented,
+and prints the largest level counts of the main and of the FOV clouds as
+fractions of the point capacity and of half of it (the FOV capacity).
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader  # noqa: E402
+from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader, SyntheticTiafReader  # noqa: E402
 from taseg_tpu_torch.data.voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline  # noqa: E402
+from taseg_tpu_torch.data.voxel_mm import MsMmVoxelPipeline  # noqa: E402
 
 LEVELS = 5
 
@@ -46,7 +54,11 @@ def main() -> None:
     p.add_argument("--capacity", type=int, default=262_144)
     p.add_argument("--voxel", type=float, default=0.05)
     p.add_argument("--max_voxel", type=int, default=3000)
+    p.add_argument("--tiaf", action="store_true", help="the TIAF main and FOV clouds")
     args = p.parse_args()
+    if args.tiaf:
+        tiaf(args)
+        return
 
     serve = MsVoxelPipeline(voxel_size=args.voxel, training=False)
     train = MsKdVoxelPipeline(voxel_size=args.voxel, training=True, max_voxel=args.max_voxel, seed=0)
@@ -84,6 +96,30 @@ def main() -> None:
         f"{min(raw['fused'])}-{max(raw['fused'])}, gt {min(raw['gt'])}-{max(raw['gt'])}; "
         f"pairs {min(raw['pairs'])}-{max(raw['pairs'])}"
     )
+
+
+def tiaf(args) -> None:
+    pipes = (
+        MsMmVoxelPipeline(voxel_size=args.voxel, training=False),
+        MsMmVoxelPipeline(voxel_size=args.voxel, training=True, seed=0),
+    )
+    worst = {k: np.zeros(LEVELS, np.int64) for k in ("main", "fov")}
+    for i in range(args.scans):
+        reader = SyntheticTiafReader(
+            length=args.scans, n_points=args.points, history=args.history, seed=i % 2,
+            n_images=5, img_h=384, img_w=1280,
+        )
+        s = reader[i // 2]
+        for pipe in pipes:
+            m = pipe(s)
+            counts = {"main": level_counts(m.main.fused.coords), "fov": level_counts(m.fov.coords)}
+            for k, n in counts.items():
+                worst[k] = np.maximum(worst[k], n)
+            print(f"scan {i} fov points {int(s['fov_mask'].sum())}: {counts}", flush=True)
+    print(f"over {args.scans} samples x 2 (largest per level):")
+    for k, cap in (("main", args.capacity), ("fov", args.capacity // 2)):
+        frac = ", ".join(f"{v / cap:.4f}" for v in worst[k])
+        print(f"  {k:5s} voxels {worst[k].tolist()} -> ({frac}) of {cap} rows")
 
 
 if __name__ == "__main__":
