@@ -25,16 +25,23 @@ checks them:
      a real forward): K1 join_scan (one launch per call) bit-exact against
      its plain version, K2 sparse_conv_k3 and K3 strided down/up within
      stated tolerances, with kernel, plain and library times.  bf16 takes
-     the tensor-core route of K2 and K3 wherever the widths allow it, f32
-     the CUDA-core route; each per-shape line names its route.  The real
-     topology's child tables take one round at every level.  voxelize_avg
+     the Hopper wgmma route of K2 and K3-down (over the level's row order
+     and child table) and the mma.sync tile of K3-up
+     wherever the widths allow it, f32 the CUDA-core route; each
+     per-shape line names its route, and beside the wgmma route's time
+     stand the kernels it replaced (`old_ms`: the mma.sync K2 tile, the
+     K3-down tile, through their C entries), its tile work over present
+     pairs, blocks per SM and TFLOP/s, and per level of K2 the sums.  The
+     real topology's child tables take one round at every level and
+     equal the counted ones; what the child tables and row orders add to
+     the topology, timed apart.  voxelize_avg
      (K6) and the head's three devoxelize calls (K7) at the real tables,
      bit-identical to the plain versions, with kernel, plain, bound and
      library (index_select, embedding_bag) times;
   4. the main path on 3 scans: finite logits of the right shape, every
-     kernel's launch count above 0, 47 of the 48 K2 launches, 4 of the 4
-     K3-down and 4 of the 4 K3-up launches of each scan on the
-     tensor-core route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
+     kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
+     4 K3-down launches of each scan on the wgmma route, 4 of the 4 K3-up
+     launches on the tensor-core route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
@@ -42,9 +49,10 @@ checks them:
      bf16, CUDA cores in f32 and for the stem's 4 -> 32), K5 strided_dw
      (tensor cores over the level's per-slot pair lists in bf16, CUDA
      cores in f32), K6 segment_sum (each of its 4 calls named and timed),
-     and the input-gradient calls of K2 and K3 on both routes, at every
-     shape that one real step gives them, against their plain versions
-     (and bit-identical on a repeat call), K7 bit-identical to its plain
+     and the input-gradient calls of K2 and K3 on both routes (K2 and
+     K3-down over the level's order and child table, beside the mma.sync
+     3's tiles), at every shape that one real step gives them, against
+     their plain versions (and bit-identical on a repeat call), K7 bit-identical to its plain
      version in the train forward; what the pair lists cost the
      topology; a small-scan f32 step on the card
      against the CPU's plain path; 4 full-width steps on 120 000-point
@@ -143,7 +151,8 @@ checks them:
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
   7. one JSON line listing the kernels, K2, K3, K4 and K5 with their
-     launches per route, K2, K3 and K7 with their train launches, K7 at 4
+     launches per route, K2 and K3-down with `old_ms` (the mma.sync K2 and
+     tiles at the same calls) and their input gradients' too, K2, K3 and K7 with their train launches, K7 at 4
      corners as its own entry (`devoxelize_bilinear`, RPVNet's serving
      launches), K6 and K8 with their times at RPVNet's pixel tables, every
      kernel with its launches per scan and per step on SPVCNN's and
@@ -181,23 +190,28 @@ N_POINTS = 120_000
 N_SCANS = 3
 ROUNDS = 14  # throughput samples: ROUNDS * N_SCANS scans, 10+ beyond p75
 SEED = 0
-# launches per scan of the main path: (all, tensor-core route); only the
-# stem's first conv (C_in = 4) takes K2's CUDA-core route
+# launches per scan of the main path: (all, tensor-core route: K2 and
+# K3-down the wgmma tile, K3-up the mma.sync tile); only the stem's first
+# conv (C_in = 4) takes K2's CUDA-core route
 K2_PER_SCAN = (48, 47)
 DOWN_PER_SCAN = (4, 4)
 UP_PER_SCAN = (4, 4)
 # the inference path's kernels
 INFER_KERNELS = (
-    "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma", "strided_down",
-    "strided_down_mma", "strided_up", "strided_up_mma", "segment_sum",
+    "join_scan", "sparse_conv_k3", "sparse_conv_k3_wgmma", "strided_down",
+    "strided_down_wgmma", "strided_up", "strided_up_mma", "segment_sum",
     "devoxelize",
 )
 DEVOX_PER_SCAN = 3  # the head's strides 1, 4 and 16
+# the LAUNCHES entry of each wrapper's tensor-core route on the path
+ROUTE_ENTRY = {"sparse_conv_k3": "_wgmma", "strided_down": "_wgmma", "strided_up": "_mma"}
 # each wrapper's kernels, by fragments of their names in the profiler
 KERNEL_NAMES = {
     "join_scan": ("join_scan_kernel",),
-    "sparse_conv_k3": ("k3_conv",),
-    "strided_down": ("strided_down",),
+    # the wgmma kernel is one template for K2 and K3-down, named apart by
+    # its table (K2Rows / DownSlots)
+    "sparse_conv_k3": ("k3_conv", "K2Rows"),
+    "strided_down": ("strided_down", "DownSlots"),
     "strided_up": ("strided_up",),
     "segment_sum": ("segment_sum_",),
     "k3_conv_dw": ("PairsK3", "K3Lists"),
@@ -218,10 +232,10 @@ TRAIN_STEPS = 4
 # the 3 devox forwards
 TRAIN_PER_STEP = {
     "join_scan": 5,
-    "sparse_conv_k3": 95, "sparse_conv_k3_mma": 94,
-    "sparse_conv_k3_dgrad": 47, "sparse_conv_k3_dgrad_mma": 47,
-    "strided_down": 8, "strided_down_mma": 8,
-    "strided_down_dgrad": 4, "strided_down_dgrad_mma": 4,
+    "sparse_conv_k3": 95, "sparse_conv_k3_wgmma": 94,
+    "sparse_conv_k3_dgrad": 47, "sparse_conv_k3_dgrad_wgmma": 47,
+    "strided_down": 8, "strided_down_wgmma": 8,
+    "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4,
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
     "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
@@ -235,8 +249,8 @@ TRAIN_PER_STEP = {
 # also K6 on the four devox backwards and K8 on the three re-voxelize
 # backwards (the stem's input takes no gradient)
 SPVCNN_PER_SCAN = {
-    "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47,
-    "strided_down": 4, "strided_down_mma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47,
+    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_mma": 4,
     "segment_sum": 4, "devoxelize": 4, "voxelize_bwd": 0,
 }
 SPVCNN_PER_STEP = {**TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "voxelize_bwd": 3}
@@ -253,14 +267,14 @@ SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 # 4P corner pairs), K8 on the three re-voxelize and the three scatter
 # backwards
 RPVNET_PER_SCAN = {
-    "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_mma": 33,
-    "strided_down": 4, "strided_down_mma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33,
+    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_mma": 4,
     "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 0,
 }
 RPVNET_PER_STEP = {
     **TRAIN_PER_STEP,
-    "sparse_conv_k3": 67, "sparse_conv_k3_mma": 66,
-    "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_mma": 33,
+    "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66,
+    "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_wgmma": 33,
     "k3_conv_dw": 34, "k3_conv_dw_mma": 33,
     "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 6,
 }
@@ -297,11 +311,11 @@ CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 # student's plus the teacher's
 FSA_HISTORY = 3
 FSA_PER_SCAN = {
-    "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47, "strided_down": 4, "strided_down_mma": 4,
+    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
     "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 3,
 }
 KD_TEACHER = {
-    "sparse_conv_k3": 48, "sparse_conv_k3_mma": 47, "strided_down": 4, "strided_down_mma": 4,
+    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
     "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 6,
 }
 FSA_ROUNDS = 2  # serving samples: FSA_ROUNDS * N_SCANS scans
@@ -417,10 +431,10 @@ class Capture:
         feats, table = args
         if isinstance(table, self._strided):
             kind = "strided_up" if module.transposed else "strided_down"
-        else:  # the forward table's rulebook (of a pair in training)
+        else:  # the forward table, with the level's order (of a pair in training)
             kind = "sparse_conv_k3"
             pair = isinstance(table, tuple) and not isinstance(table, KTable)
-            table = as_table(table[0] if pair else table).rb
+            table = as_table(table[0] if pair else table)
         key = (kind, feats.shape[0], module.in_channels, module.out_channels)
         self.count[key] = self.count.get(key, 0) + 1
         if key not in self.seen:
@@ -533,6 +547,91 @@ def down_call(kern, rows: int, c_in: int, w, table):
     return partial(kern, x, w, table)
 
 
+def old_call(name: str, x, w, t):
+    """The kernels the wgmma and 3xTF32 routes replaced on the path, at
+    the same inputs, through their C entries (counted nowhere): the
+    tensor-core K2 tile in table order (`sparse_conv_k3`, bf16 widths in
+    8s), the mma.sync K3-down round tile (`strided_down`, bf16 widths in
+    8s)
+    and the CUDA-core K3-down kernel (f32).  Returns the output."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.sparse_conv import DTYPE_CODES
+
+    c_in, c_out = x.shape[1], w.shape[2]
+    if name == "sparse_conv_k3":
+        out = torch.empty((x.shape[0], c_out), dtype=x.dtype, device=x.device)
+        _build.launch("taseg_sparse_conv_k3_mma", (), x.data_ptr(), w.data_ptr(), t.data_ptr(),
+                      out.data_ptr(), x.shape[0], c_in, c_out)
+        return out
+    v_coarse = t.starts.shape[0] - 1
+    out = torch.empty((v_coarse, c_out), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), t.parent.data_ptr(), t.slot.data_ptr(), t.perm.data_ptr(),
+            t.starts.data_ptr(), out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        _build.launch("taseg_strided_down_mma", (), *ptrs, v_coarse, c_in, c_out)
+    else:
+        _build.launch("taseg_strided_down", (), *ptrs, x.shape[0], v_coarse, c_in, c_out,
+                      DTYPE_CODES[x.dtype])
+    return out
+
+
+def old_times(name: str, x, w, t, want, ref, dtype: str, rel: float):
+    """(ms, max|err|) of `old_call` at one call, held to the route's
+    tolerance against the plain version; (None, None) where the call has
+    no old kernel (K2's f32 and ragged calls, K3-up, ragged bf16
+    K3-down)."""
+    import torch
+
+    wide = x.shape[1] % 8 == 0 and w.shape[2] % 8 == 0
+    if (name == "strided_down" and (wide or x.dtype == torch.float32)) or (
+            name == "sparse_conv_k3" and x.dtype == torch.bfloat16 and wide):
+        err = check_close(f"{name} old kernel", old_call(name, x, w, t), want, ref, dtype, rel)
+        return cuda_ms(lambda: old_call(name, x, w, t)), err
+    return None, None
+
+
+def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -> dict:
+    """The wgmma route's plan of one bf16 call: tile work over present
+    pairs over the order (`tile`) and before (`before`: the mma.sync K2
+    tile in table order; the K3-down round tile, 8 slots x 64 rows in every tile
+    with a child), resident blocks per SM, grid blocks per SM, and the
+    rates of the present-pair and of the tile work (TFLOP/s)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.sparse_conv import tile_work, wgmma_splits
+
+    if name == "sparse_conv_k3":
+        rb, order = table.rb, table.order
+        before = tile_work(rb)
+    else:
+        rb, order = table.child[0], table.child_order
+        v = rb.shape[1]
+        live = torch.nn.functional.pad((rb >= 0).any(0).to(torch.int8), (0, (-v) % 64))
+        before = 8 * 64 * int(live.reshape(-1, 64).amax(1).sum())
+    work = tile_work(rb, order)
+    v_out, k = rb.shape[1], rb.shape[0]
+    splits = wgmma_splits(v_out, k, c_in)
+    grid = -(-v_out // 64) * max(1, -(-c_out // 256)) * splits
+    return {
+        "tile": work / max(pairs, 1), "before": before / max(pairs, 1),
+        "resident_per_sm": _build.wgmma_blocks_per_sm(c_in, c_out, k),
+        "grid_per_sm": grid / 132, "splits": splits,
+        "tflops": 2.0 * pairs * c_in * c_out / ms / 1e9,
+        "tile_tflops": 2.0 * work * c_in * c_out / ms / 1e9,
+    }
+
+
+def fmt_tiles(s: dict) -> str:
+    return (
+        f"tile work {s['tile']:.2f}x present pairs ({s['before']:.2f}x before), "
+        f"{s['resident_per_sm']} blocks/SM resident, grid {s['grid_per_sm']:.2f}/SM "
+        f"({s['splits']} parts), {s['tflops']:.1f} TFLOP/s present, {s['tile_tflops']:.1f} tile"
+    )
+
+
 def phase_join_scan(topo, results: dict, probes: list) -> None:
     """K1 on the 5 levels' unions of the real topology; both modes
     bit-exact against the plain (cummax) version on the card.  Each
@@ -580,8 +679,14 @@ def phase_join_scan(topo, results: dict, probes: list) -> None:
 
 def phase_convs(cap: Capture, results: dict, probes: list) -> None:
     """K2 and K3 on every distinct shape of the path, bf16 (the path's
-    dtype) and f32; per-scan totals weight each shape by its count.  The
-    bf16 K3-down calls go into `probes` for their device time."""
+    dtype) and f32; per-scan totals weight each shape by its count.  K2
+    and K3-down read the level's row order and child table as the path
+    does.  Beside each bf16 time: the kernel the route replaced
+    (`old_ms`: the mma.sync K2 tile, the K3-down round tile, through their C
+    entries, held to the same tolerance), the wgmma route's plan (tile
+    work over present pairs, blocks per SM, TFLOP/s), and per level of K2
+    the sums over its shapes.  The bf16 K3-down calls go into `probes`
+    for their device time."""
     import torch
 
     from taseg_tpu_torch.ops import sparse_conv, strided_conv
@@ -592,43 +697,48 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
         "strided_down": (strided_conv.downsample_conv_apply, strided_conv.downsample_conv_plain, 1e-4),
         "strided_up": (strided_conv.upsample_conv_apply, strided_conv.upsample_conv_plain, 1e-5),
     }
-    routes = {
-        "sparse_conv_k3": sparse_conv.route,
-        "strided_down": strided_conv.downsample_route,
-        "strided_up": strided_conv.upsample_route,
-    }
     for name in kernels:
         results[name] = {
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
             "library_ms": 0.0, "_bound_parts": [0.0, 0.0],
         }
+        if name != "strided_up":
+            results[name]["old_ms"] = 0.0
+    levels: dict = {}  # K2 by level rows: ms, old, library, present and tile operations
     for key, (feats, w32, table) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, rows, c_in, c_out = key
         kern, plain, rel = kernels[name]
         count = cap.count[key]
+        arg = table.rb if name == "sparse_conv_k3" else table
+        kw = {"order": table.order} if name == "sparse_conv_k3" else {}
         for dtype, tdt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             x = feats.to(tdt).contiguous()
             w = w32.to(tdt).contiguous()
-            got = kern(x, w, table)
-            want = plain(x, w, table)
-            ref_abs = plain(x.abs(), w.abs(), table)
+            got = kern(x, w, arg, **kw)
+            want = plain(x, w, arg)
+            ref_abs = plain(x.abs(), w.abs(), arg)
             err = check_close(f"{name} {key[1:]} {dtype}", got, want, ref_abs, dtype, rel)
-            route = routes[name](tdt, c_in, c_out)
+            if name == "sparse_conv_k3":
+                route = sparse_conv.route(tdt, c_in, c_out)
+            elif name == "strided_down":
+                route = strided_conv.downsample_route(tdt, c_in, c_out, table.child.shape[0])
+            else:
+                route = strided_conv.upsample_route(tdt, c_in, c_out)
             if dtype != "bfloat16":
                 log(f"  {name} rows={rows} {c_in}->{c_out} f32 route {route} max|err| {err:.3e}")
                 continue
-            ms = cuda_ms(lambda: kern(x, w, table))
+            ms = cuda_ms(lambda: kern(x, w, arg, **kw))
+            old, old_err = old_times(name, x, w, arg, want, ref_abs, dtype, rel)
             if name == "strided_down":
                 probes.append((
                     name, f"{name} rows={rows} {c_in}->{c_out}",
                     partial(down_call, kern, rows, c_in, w, table),
                 ))
-            pms = cuda_ms(lambda: plain(x, w, table), iters=3)
+            pms = cuda_ms(lambda: plain(x, w, arg), iters=3)
             esz = x.element_size()
             if name == "sparse_conv_k3":
-                pairs = int((table >= 0).sum().item())
-                out_rows = rows
-                nbytes = rows * c_in * esz + w.numel() * esz + table.numel() * 4 + rows * c_out * esz
+                pairs = int((arg >= 0).sum().item())
+                nbytes = rows * c_in * esz + w.numel() * esz + arg.numel() * 4 + rows * c_out * esz
             else:
                 fine = int((table.parent >= 0).sum().item())
                 pairs = fine
@@ -640,11 +750,15 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
                 )
             ops = 2.0 * pairs * c_in * c_out
             b, by = bound_ms(nbytes, ops, dtype)
-            lib = conv_library_ms(name, x, w, table)
+            lib = conv_library_ms(name, x, w, arg)
+            plan = tile_stats(name, table, c_in, c_out, ms, pairs) if route == "wgmma" else None
             log(
                 f"{name} rows={rows} {c_in}->{c_out} x{count}/scan bf16 route {route} "
-                f"max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
-                f"bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms pairs={pairs}"
+                f"max|err| {err:.3e} kernel {ms:.4f} ms"
+                + ("" if old is None else f" old {old:.4f} ms (max|err| {old_err:.3e})")
+                + f" plain {pms:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+                + f" pairs={pairs}" + ("" if plan is None else "; " + fmt_tiles(plan))
+                + (" SLOWER than torch.mm" if ms > lib else "")
             )
             r = results[name]
             r["library_ms"] += count * lib
@@ -653,6 +767,19 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
             r["bound_ms"] += count * b
             r["_bound_parts"][0 if by == "bytes" else 1] += count * b
             r["max_abs_err"] = max(r["max_abs_err"], err)
+            if old is not None:
+                r["old_ms"] += count * old
+            if name == "sparse_conv_k3" and plan is not None:
+                lv = levels.setdefault(rows, [0.0, 0.0, 0.0, 0.0, 0.0, 0])
+                for i, val in enumerate((ms, old or 0.0, lib, ops, ops * plan["tile"] if pairs else 0.0)):
+                    lv[i] += count * val
+                lv[5] += count
+    for rows, (ms, old, lib, ops, tile_ops, n) in sorted(levels.items(), key=lambda kv: -kv[0]):
+        log(
+            f"K2 wgmma level of {rows} rows ({n} calls/scan): kernel {ms:.4f} ms old {old:.4f} ms "
+            f"one torch.mm {lib:.4f} ms, {ops / ms / 1e9:.1f} TFLOP/s present, "
+            f"{tile_ops / ms / 1e9:.1f} TFLOP/s tile (tile work {tile_ops / max(ops, 1):.2f}x)"
+        )
     for name in kernels:
         r = results[name]
         parts = r.pop("_bound_parts")
@@ -661,14 +788,42 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
 
 def check_child_rounds(topo) -> None:
     """The host pipeline's coordinates are non-negative, so every coarse
-    cell has at most one child per slot: the down kernel's child table
-    takes one round at every level of the path."""
+    cell has at most one child per slot: the topology's child tables
+    (built with one round and nothing read back) take one round at every
+    level of the path, equal to the tables whose rounds are counted."""
+    import torch
+
     from taseg_tpu_torch.ops.strided_conv import slot_child_table
 
     rounds = [slot_child_table(lt.strided).shape[0] for lt in topo.levels[1:]]
     log(f"K3-down child rounds per level 1-4: {rounds}")
     if rounds != [1] * len(rounds):
         raise AssertionError(f"expected one child round per level, got {rounds}")
+    for l, lt in enumerate(topo.levels[1:], 1):
+        if not torch.equal(lt.strided.child, slot_child_table(lt.strided)):
+            raise AssertionError(f"level {l}: the topology's child table differs from the counted one")
+
+
+def topology_cost(seg, arrays) -> None:
+    """What the wgmma routes add to the serving topology: the child table
+    of each level (one scatter, nothing read back) and the row orders of
+    the levels' 3^3 rulebooks and child tables (one batched sort per
+    level), each timed on its own at the real topology's tables (CUDA
+    events, host cost included) beside the whole stage."""
+    from taseg_tpu_torch.ops.sparse_conv import mask_row_orders
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+
+    topo = seg.topology(arrays)
+    lv = topo.levels
+    child = cuda_ms(lambda: [slot_child_table(l.strided, rounds=1) for l in lv[1:]])
+    orders = cuda_ms(lambda: mask_row_orders([l.rb_k3 for l in lv] + [l.strided.child[0] for l in lv[1:]]))
+    k3_only = cuda_ms(lambda: mask_row_orders([l.rb_k3 for l in lv]))
+    whole = cuda_ms(lambda: seg.topology(arrays))
+    log(
+        f"topology {whole:.3f} ms per scan; of it the child tables {child:.3f} ms and the row "
+        f"orders {orders:.3f} ms (the 3^3 tables' alone {k3_only:.3f} ms): "
+        f"{child + orders:.3f} ms added by the wgmma routes"
+    )
 
 
 def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
@@ -906,7 +1061,7 @@ def capture_train_calls(trainer, scans) -> CallCapture:
     )
     cap.patch(
         f3conv, "sparse_conv_k3",
-        lambda x, w, rb, dgrad=False: ("sparse_conv_k3", *x.shape, w.shape[2]) if dgrad else None,
+        lambda x, w, rb, dgrad=False, order=None: ("sparse_conv_k3", *x.shape, w.shape[2]) if dgrad else None,
     )
     for name in ("downsample_conv_apply", "upsample_conv_apply"):
         kind = "strided_down" if name.startswith("down") else "strided_up"
@@ -988,9 +1143,10 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
 
     def dgrad(kern, plain):
         def make(a, kw, x, w):
-            t = a[2]
+            # the call as the step made it: K2 over the level's order
+            t, more = a[2], {k: v for k, v in kw.items() if k != "dgrad"}
             return (
-                lambda: kern(x, w, t, dgrad=True),
+                lambda: kern(x, w, t, dgrad=True, **more),
                 lambda: plain(x, w, t),
                 lambda: plain(x.abs(), w.abs(), t),
             )
@@ -1011,7 +1167,8 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     }
     tot = {
         k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-            "library_ms": 0.0, "_parts": [0.0, 0.0], "f32_checked": False}
+            "library_ms": 0.0, "_parts": [0.0, 0.0], "f32_checked": False,
+            **({"old_ms": 0.0} if k in ("sparse_conv_k3", "strided_down") else {})}
         for k in makers
     }
     for key in sorted((k for k in cap.seen if k[0] == "devoxelize"), key=str):
@@ -1038,7 +1195,9 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             label = f"{name} {key[1:]} x{count}/step {dtype}"
             if name == "segment_sum":
                 label = f"{name} ({k6_names[key]}) {key[1:]} x{count}/step {dtype}"
-            if name in routes:
+            if name == "strided_down":
+                label += f" route {routes[name](tdt, x.shape[1], second.shape[2], a[2].child.shape[0])}"
+            elif name in routes:
                 label += f" route {routes[name](tdt, x.shape[1], second.shape[2])}"
             if name == "k3_conv_dw":
                 route = f3conv.dw_route(tdt, x.shape[1], second.shape[1])
@@ -1060,14 +1219,21 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
                 log(f"  {label} max|err| {err:.3e} (bit-identical on repeat)")
                 continue
             ms = cuda_ms(kern)
+            old = None
+            if name in ("sparse_conv_k3", "strided_down"):
+                old, old_err = old_times(name, xd, sd, a[2], want(), ref(), dtype, rel)
             pms = cuda_ms(plain, iters=3)
             nbytes, ops, lib = train_cost(name, a, kw, xd, sd)
             b, by = bound_ms(nbytes, ops, dtype)
             log(
-                f"{label} max|err| {err:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
-                f"bound {b:.4f} ms ({by}) "
+                f"{label} max|err| {err:.3e} kernel {ms:.4f} ms"
+                + ("" if old is None else f" old {old:.4f} ms (max|err| {old_err:.3e})")
+                + f" plain {pms:.4f} ms bound {b:.4f} ms ({by}) "
                 + ("index_add_" if name == "segment_sum" else "one torch.mm") + f" {lib:.4f} ms"
+                + (" SLOWER than " + ("index_add_" if name == "segment_sum" else "torch.mm") if ms > lib else "")
             )
+            if old is not None:
+                r["old_ms"] += count * old
             r["ms"] += count * ms
             r["plain_ms"] += count * pms
             r["bound_ms"] += count * b
@@ -1731,7 +1897,7 @@ def point_vox_cost(seg, scans, rounds: int = 3) -> None:
     import numpy as np
     import torch
 
-    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology, host_nonneg
 
     strides = seg.model.point_voxel_strides
     e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1745,6 +1911,7 @@ def point_vox_cost(seg, scans, rounds: int = 3) -> None:
                     build_unet_topology(
                         a["point_coords_t"], a["num_points_t"], seg.caps, devox_pairs=pairs,
                         assume_sorted_points=True, point_voxel_strides=pv,
+                        nonneg_coords=host_nonneg(a["point_coords"]),
                     )
                     e[1].record()
                     e[1].synchronize()
@@ -2110,7 +2277,7 @@ def rpv_context_cost(seg, scans, rounds: int = 2) -> None:
     import torch
 
     from taseg_tpu_torch.models.fusion.rpvnet import rpv_inputs
-    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology, host_nonneg
 
     e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ms = {}
@@ -2122,6 +2289,7 @@ def rpv_context_cost(seg, scans, rounds: int = 2) -> None:
                 topo = build_unet_topology(
                     a["point_coords_t"], a["num_points_t"], seg.caps, devox_pairs=pairs,
                     assume_sorted_points=True, point_voxel_strides=seg.model.point_voxel_strides,
+                    nonneg_coords=host_nonneg(a["point_coords"]),
                 )
                 e[1].record()
                 rpv_inputs(topo, a, with_pairs=pairs)
@@ -2914,7 +3082,9 @@ TIAF_STEPS = 3
 # TIAF (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml)
 # in f32: per scan the main branch's 48 convs and the FOV branch's 17: 64
 # on K2 at K = 27 offsets on the f32 3xTF32 route over the levels' row
-# orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 + 4 per branch, K6 at
+# orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 +
+# 4 per branch (K3-down on K2 at K's 3xTF32 tile over each level's child
+# table: `strided_down_tf32`), K6 at
 # the two voxelizes, K7 at the main head's 3, the main features' 3, the
 # FOV taps to the FOV points (3) and to the main points (3, trilinear
 # FOV -> main) and the image gathers (3: stem, decoder, logits); K1 at
@@ -2927,13 +3097,14 @@ TIAF_STEPS = 3
 # voxelize backward
 TIAF_PER_SCAN = {
     "join_scan": 13, "sparse_conv_k3": 1, "sparse_conv_k": 64, "sparse_conv_k_tf32": 64,
-    "strided_down": 8, "strided_up": 8, "segment_sum": 2, "devoxelize": 15,
+    "strided_down": 8, "strided_down_tf32": 8, "strided_up": 8, "segment_sum": 2, "devoxelize": 15,
 }
 TIAF_PER_STEP = {
     "join_scan": 13, "sparse_conv_k3": 1, "k3_conv_dw": 1, "sparse_conv_k": 128,
     "sparse_conv_k_tf32": 128, "sparse_conv_k_dgrad": 64, "sparse_conv_k_dgrad_tf32": 64,
     "sparse_conv_dw": 64, "sparse_conv_dw_tf32": 64,
-    "strided_down": 16, "strided_down_dgrad": 8, "strided_up": 16, "strided_up_dgrad": 8,
+    "strided_down": 16, "strided_down_tf32": 16, "strided_down_dgrad": 8,
+    "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_dgrad": 8,
     "strided_dw": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
 }
 TIAF_BRANCHES = ("image_backbone", "lidar_backbone", "main")
@@ -3044,11 +3215,11 @@ class ModuleEvents:
 def tiaf_topology_split(trainer, arrays) -> dict:
     """The pieces of `tiaf_inputs` (the train form) one after another,
     CUDA events between them: the main topology, the FOV topology (each
-    with its levels' row orders), the three FOV -> main tables and the
-    pixel table."""
+    with its levels' row orders and child tables), the three FOV -> main
+    tables and the pixel table."""
     import torch
 
-    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology, host_nonneg
     from taseg_tpu_torch.models.voxel.minkunet_mm import TAP_STRIDES
     from taseg_tpu_torch.ops.voxelize import build_segment_tables, trilinear_table
 
@@ -3056,11 +3227,13 @@ def tiaf_topology_split(trainer, arrays) -> dict:
     main, fov = arrays["main"], arrays["fov"]
     ev[0].record()
     topo = build_unet_topology(
-        main["point_coords_t"], main["num_points_t"], trainer.caps, devox_pairs=True, row_orders=True
+        main["point_coords_t"], main["num_points_t"], trainer.caps, devox_pairs=True,
+        nonneg_coords=host_nonneg(main["point_coords"]),
     )
     ev[1].record()
     fov_topo = build_unet_topology(
-        fov["point_coords_t"], fov["num_points_t"], trainer.fov_caps, devox_pairs=True, row_orders=True
+        fov["point_coords_t"], fov["num_points_t"], trainer.fov_caps, devox_pairs=True,
+        nonneg_coords=host_nonneg(fov["point_coords"]),
     )
     ev[2].record()
     coords = main["point_coords_t"]
@@ -3174,7 +3347,9 @@ def tiaf_calls(trainer, scans) -> CallCapture:
     for module in (sparse_conv, f3conv):
         cap.patch(
             module, "sparse_conv_k3",
-            lambda x, w, rb, dgrad=False: ("sparse_conv_k3" + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]),
+            lambda x, w, rb, dgrad=False, order=None: (
+                "sparse_conv_k3" + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]
+            ),
         )
     cap.patch(
         f3conv, "k3_conv_dw",
@@ -3260,6 +3435,8 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
 
     def add(name, count, by, **kw):
         r = tot.setdefault(name, dict(_tot(), calls=0, _parts={"bytes": 0.0, "operations": 0.0}))
+        if "old_ms" in kw:
+            r.setdefault("old_ms", 0.0)
         _add(r, **{k: (v if k == "max_abs_err" else count * v) for k, v in kw.items()})
         r["calls"] += count
         r["_parts"][by] += count * kw["bound_ms"]
@@ -3285,21 +3462,28 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             else:
                 fn, plain, rel = strided[base]
                 kern = partial(fn, x, second, t, dgrad=name != base)
-                route = routes[base](x.dtype, x.shape[1], second.shape[2])
+                rounds = (t.child.shape[0],) if base == "strided_down" else ()
+                route = routes[base](x.dtype, x.shape[1], second.shape[2], *rounds)
             got = twice_same(label, kern)
             ref = plain(x.abs(), second.abs(), t)
-            err = check_close(label, got, plain(x, second, t), ref, "float32", rel)
+            want = plain(x, second, t)
+            err = check_close(label, got, want, ref, "float32", rel)
             limit = rel * ref.abs().max().item()
-            del got, ref
+            # K3-down's CUDA-core kernel, which the 3xTF32 route replaced
+            old, old_err = old_times(base, x, second, t, want, ref, "float32", rel) if base == "strided_down" else (None, None)
+            del got, ref, want
             ms = cuda_ms(kern)
             pms = cuda_ms(lambda: plain(x, second, t), iters=3)
             nbytes, ops, lib = train_cost(base, a, kw, x, second)
             b, by = bound_ms(nbytes, ops, "float32")
             log(
                 f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
-                f"plain {pms:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+                + ("" if old is None else f"CUDA-core {old:.4f} ms (max|err| {old_err:.3e}) ")
+                + f"plain {pms:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+                + (" SLOWER than torch.mm" if ms > lib else "")
             )
-            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=err)
+            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=err,
+                **({} if old is None else {"old_ms": old}))
         elif name == "segment_sum":
             x, t = a[0].detach(), a[1]
             w = a[2] if len(a) > 2 else kw.get("w")
@@ -3651,6 +3835,7 @@ def main() -> int:
     phase_join_scan(topo, results, probes)
     phase_convs(cap, results, probes)
     check_child_rounds(topo)
+    topology_cost(seg, arrays)
     phase_point_ops(seg, arrays, topo, cfg["MODEL"]["NUM_CLASS"], results, probes)
     del cap
 
@@ -3668,7 +3853,7 @@ def main() -> int:
         ("strided_up", UP_PER_SCAN),
     )
     for name, (total, mma) in per_scan:
-        got = (launches[name], launches[f"{name}_mma"])
+        got = (launches[name], launches[name + ROUTE_ENTRY[name]])
         if got != (total * N_SCANS, mma * N_SCANS):
             raise AssertionError(
                 f"{name}: (all, tensor-core) launches {got}, expected "
@@ -3682,9 +3867,9 @@ def main() -> int:
             f"{DEVOX_PER_SCAN} per scan over {N_SCANS} scans"
         )
     log(
-        f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]}, "
-        f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]}, "
-        f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]}"
+        f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]} (wgmma), "
+        f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]} (wgmma), "
+        f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]} (mma)"
     )
     for s, o in zip(scans, out):
         n_raw = s["xyzret"].shape[0]
@@ -3797,18 +3982,23 @@ def main() -> int:
                 entry["launches_by_route"] = {"mma": mma, "simt": train_launches[name] - mma}
         else:
             entry["per"] = "scan"
-            mma = launches[f"{name}_mma"] if f"{name}_mma" in launches else None
-            if mma is not None:
-                entry["launches_by_route"] = {"mma": mma, "simt": launches[name] - mma}
+            route = ROUTE_ENTRY.get(name)
+            if route is not None:
+                tc = launches[name + route]
+                entry["launches_by_route"] = {route[1:]: tc, "simt": launches[name] - tc}
                 d = results[f"{name}_dgrad"]
                 entry["train"] = {
                     "launches": train_launches[name],
                     "dgrad_launches": train_launches[f"{name}_dgrad"],
-                    "dgrad_mma_launches": train_launches[f"{name}_dgrad_mma"],
+                    f"dgrad{route}_launches": train_launches[f"{name}_dgrad{route}"],
                     "dgrad_ms_per_step": d["ms"], "dgrad_plain_ms_per_step": d["plain_ms"],
                     "dgrad_bound_ms_per_step": d["bound_ms"], "dgrad_max_abs_err": d["max_abs_err"],
                     "dgrad_library_ms_per_step": d["library_ms"],
                 }
+                if "old_ms" in r:
+                    # the kernels the wgmma route replaced, at the same calls
+                    entry["old_ms"] = r["old_ms"]
+                    entry["train"]["dgrad_old_ms_per_step"] = d["old_ms"]
             else:
                 entry["train"] = {"launches": train_launches[name]}
             entry["device_ms_per_scan"] = r["device_ms"]
@@ -3852,8 +4042,8 @@ def main() -> int:
         **{k: k2k[k] for k in extra if k in k2k},
         "per": "scan (Cylinder_TS serving, f32)",
         "launches_by_route": {
-            "tf32x3": serve["sparse_conv_k_tf32"], "mma": serve["sparse_conv_k_mma"],
-            "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_tf32"] - serve["sparse_conv_k_mma"],
+            "tf32x3": serve["sparse_conv_k_tf32"], "wgmma": serve["sparse_conv_k_wgmma"],
+            "simt": serve["sparse_conv_k"] - serve["sparse_conv_k_tf32"] - serve["sparse_conv_k_wgmma"],
         },
         "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
         "fsa": fsa_entry(fsa, "sparse_conv_k"),

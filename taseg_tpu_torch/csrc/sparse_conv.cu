@@ -22,36 +22,38 @@
 // (chip_smoke.py phase 5e), 1.09 ms at the 67 TFLOP/s of f32 CUDA cores
 // (operations) and 0.80 ms at 3xTF32's 165 (bytes in most calls).
 //
-// Three kernels, the first two each in a 27-offset instance (k3_conv_*:
-// the stride-1 3^3 conv, counted as `sparse_conv_k3`) and a K-offset
-// instance (sparse_conv_k_*: K at run time, counted as `sparse_conv_k`);
-// the wrapper picks the kernel by dtype and widths (sparse_conv.route,
-// sparse_conv.k_route):
+// The wrapper picks the kernel by dtype and widths (sparse_conv.route,
+// sparse_conv.k_route); the 27-offset calls count as `sparse_conv_k3`, the
+// K-offset calls as `sparse_conv_k`:
 //
-// k3_conv_mma_kernel / sparse_conv_k_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0): the
-// tensor-core gather-GEMM of gather_mma.cuh.  Against the four limits of
-// the CUDA-core kernel below:
-//   1. math on tensor cores: mma.sync m16n8k16 bf16 -> f32 on ldmatrix
-//      fragments, instead of f32 FMA on operands widened in shared memory;
-//   2. dense work inside a tile: still there.  A 64-row tile computes all
-//      its rows for every offset that one of them needs (about 2.6x the
-//      present-pair work at the path's occupancy);
-//   3. gathers: 16-byte cp.async per row chunk, zero-filled for absent
-//      rows (src_size 0), in a 3-stage ring, so the next stages' gathers
-//      are in flight during this stage's math;
-//   4. tile width: 32, 64, 96 or 128 output columns per block, from C_out,
-//      so 32- and 96-wide convs carry no masked columns.
+// sparse_conv_wgmma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: every
+// bf16 conv but the 4- and 5-channel stems, at 27 or K offsets, and
+// K3-down's 8 slots, strided_conv.cu): the Hopper tile of wgmma_tile.cuh,
+// output-stationary over the table's row order like the 3xTF32 kernel
+// below: a producer warpgroup gathers rows by cp.async into a 4-stage
+// mbarrier ring, a consumer warpgroup runs wgmma m64nNk16 with N the whole
+// C_out (up to 256), and on tables of few rows (sparse_conv.wgmma_splits:
+// the coarse levels) each tile's chain is cut into parts whose f32
+// partials sparse_conv_wgmma_reduce adds in split order.  What held the
+// mma.sync tile (k3_conv_mma_kernel, kept off the path as the yardstick
+// `old_ms`) at ~7% of the bf16 peak (tools/k2_pace.py): a 64-row tile in
+// table order ran 2.1-4.1x the present pairs (now 1.5-1.8x over the
+// order); each 32-channel stage cost a __syncthreads with two stages of
+// lookahead, which one 4-warp block per tile could not hide (now a
+// warp-specialised ring with 64-channel stages); a 256-wide conv gathered
+// its rows once per 128-column block (now once); the coarse levels had
+// 1-4 blocks per SM (now split chains).
 //
 // sparse_conv_k_tf32_kernel (f32, C_in % 4 == 0, C_out % 4 == 0: every
-// conv of Cylinder3D): the f32 tile of gather_mma.cuh (namespace tf32) on
+// conv of Cylinder3D, every f32 MinkUNet's 3^3 convs and K3-down's f32
+// calls over the child table): the f32 tile of gather_mma.cuh (namespace tf32) on
 // 3xTF32 tensor cores, output-stationary over a row order.  The wrapper
 // passes `order`, the rows sorted by their bitmask of present offsets
 // (sparse_conv.mask_row_order, built once per table by the topology); a
 // tile takes 64 consecutive entries of the order, reads their rows'
 // rulebook entries through it, runs only the offsets one of them has and
 // writes out[order[r]].  Rows with equal masks share a tile, so the
-// tile's union of offsets comes near each row's own count (limit 2
-// above), and rows of a group stay in table order (nearby gathers).  Each
+// tile's union of offsets comes near each row's own count, and rows of a group stay in table order (nearby gathers).  Each
 // row sums its offsets in k order with no atomics: the same bits on
 // repeat.  Tiles of rows without offsets write zeros.  A table of few
 // rows (sparse_conv.k_splits: the coarse levels) has too few tiles to
@@ -59,8 +61,8 @@
 // cut into equal parts run by separate blocks, and a second kernel adds
 // the parts' partials to the first's output in split order.
 //
-// k3_conv_kernel / sparse_conv_k_kernel (f32 on the 27-offset conv,
-// ragged widths such as the stem's C_in = 4): a 64 x 64 output tile in
+// k3_conv_kernel / sparse_conv_k_kernel (f32 on the 27-offset conv
+// with ragged widths such as the stem's C_in = 4): a 64 x 64 output tile in
 // registers (4 x 4 per thread) for all its offsets;
 // per offset it gathers the present neighbour rows into shared memory
 // (zero for -1), multiplies them with the W[k] tile by f32 FMA and skips
@@ -70,6 +72,7 @@
 
 #include "common.cuh"
 #include "gather_mma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -167,25 +170,9 @@ __global__ void __launch_bounds__(kThreads)
   conv_simt_tile<T>(feats, w, rb, out, v_out, c_in, c_out, n_off);
 }
 
-// the tensor-core tile of one block over n_off (<= 32) offsets
-template <int BN>
-__device__ __forceinline__ void conv_mma_tile(
-    unsigned char* smem, const __nv_bfloat16* __restrict__ feats,
-    const __nv_bfloat16* __restrict__ w, const int* __restrict__ rb,
-    __nv_bfloat16* __restrict__ out, int v, int c_in, int c_out, int n_off) {
-  const mma::Smem s = mma::carve<BN>(smem, n_off);
-  const int m0 = blockIdx.x * mma::kBM, n0 = blockIdx.y * BN;
-  for (int e = threadIdx.x; e < n_off * mma::kBM; e += mma::kThreads) {
-    const int k = e / mma::kBM, r = m0 + e % mma::kBM;
-    s.idx[e] = r < v ? rb[static_cast<size_t>(k) * v + r] : -1;
-  }
-  __syncthreads();
-  const int n_present = mma::present_offsets(s, n_off);
-  float acc[2][BN / 16][4] = {};
-  mma::gather_mma_tile<BN>(s, n_present, feats, w, c_in, c_out, n0, acc);
-  mma::store_tile<BN>(acc, out, v, c_out, m0, n0);
-}
-
+// the mma.sync tile of one block over the 27 offsets in table
+// order: off the path since the wgmma route, kept as its yardstick
+// (chip_smoke.py's `old_ms`, tools/k2_pace.py)
 template <int BN>
 __global__ void __launch_bounds__(mma::kThreads)
     k3_conv_mma_kernel(const __nv_bfloat16* __restrict__ feats,
@@ -194,18 +181,17 @@ __global__ void __launch_bounds__(mma::kThreads)
                        __nv_bfloat16* __restrict__ out, int v, int c_in,
                        int c_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  conv_mma_tile<BN>(smem, feats, w, rb, out, v, c_in, c_out, kOffsets);
-}
-
-template <int BN>
-__global__ void __launch_bounds__(mma::kThreads)
-    sparse_conv_k_mma_kernel(const __nv_bfloat16* __restrict__ feats,
-                             const __nv_bfloat16* __restrict__ w,
-                             const int* __restrict__ rb,
-                             __nv_bfloat16* __restrict__ out, int v_out,
-                             int c_in, int c_out, int n_off) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  conv_mma_tile<BN>(smem, feats, w, rb, out, v_out, c_in, c_out, n_off);
+  const mma::Smem s = mma::carve<BN>(smem, kOffsets);
+  const int m0 = blockIdx.x * mma::kBM, n0 = blockIdx.y * BN;
+  for (int e = threadIdx.x; e < kOffsets * mma::kBM; e += mma::kThreads) {
+    const int k = e / mma::kBM, r = m0 + e % mma::kBM;
+    s.idx[e] = r < v ? rb[static_cast<size_t>(k) * v + r] : -1;
+  }
+  __syncthreads();
+  const int n_present = mma::present_offsets(s, kOffsets);
+  float acc[2][BN / 16][4] = {};
+  mma::gather_mma_tile<BN>(s, n_present, feats, w, c_in, c_out, n0, acc);
+  mma::store_tile<BN>(acc, out, v, c_out, m0, n0);
 }
 
 // the 3xTF32 tile of one block: 64 rows of the order, T::BN columns.
@@ -318,6 +304,129 @@ int launch_k_tf32(const void* feats, const void* w, const void* rb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// which table the wgmma kernel runs over: it names the kernel apart in a
+// profile (K2's rulebooks, or K3-down's child tables, strided_conv.cu)
+struct K2Rows {};
+struct DownSlots {};
+
+// the wgmma tile of one block: 64 entries of the order (blockIdx.x),
+// columns [n0, n0 + BN) (blockIdx.y), part z of the tile's chain
+// (blockIdx.z of S).  With S = 1 it writes out[order[r]] in bf16; with S
+// > 1 part z writes f32 partials at part[z] in order positions and
+// live[z][tile] = whether it had stages, and sparse_conv_wgmma_reduce
+// adds them.
+template <typename T, typename Role>
+__global__ void __launch_bounds__(taseg::wg::kThreads, 1)
+    sparse_conv_wgmma_kernel(const __nv_bfloat16* __restrict__ feats,
+                             const __nv_bfloat16* __restrict__ w,
+                             const int* __restrict__ rb, const int* __restrict__ order,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                             int* __restrict__ live, int v_out, int c_in, int c_out,
+                             int n_off) {
+  namespace wg = taseg::wg;
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve<T>(smem_raw, n_off);
+  const int m0 = blockIdx.x * wg::kBM, n0 = blockIdx.y * T::BN;
+  if (threadIdx.x < wg::kBM) {
+    const int r = m0 + threadIdx.x;
+    s.rows[threadIdx.x] = r < v_out ? order[r] : -1;
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wg::kStages; ++i) {
+      wg::mbar_init(s.full + i, wg::kThreads - wg::kConsumers);
+      wg::mbar_init(s.empty + i, wg::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_off * wg::kBM; e += wg::kThreads) {
+    const int k = e / wg::kBM, row = s.rows[e % wg::kBM];
+    s.idx[e] = row >= 0 ? rb[static_cast<size_t>(k) * v_out + row] : -1;
+  }
+  __syncthreads();
+  const int total = wg::present_offsets(s, n_off) * ((c_in + T::BK - 1) / T::BK);
+  const int z = blockIdx.z, splits = gridDim.z, per = (total + splits - 1) / splits;
+  const int t0 = min(total, z * per), t1 = min(total, t0 + per);
+  if (splits > 1) {
+    if (threadIdx.x == 0 && blockIdx.y == 0)
+      live[z * gridDim.x + blockIdx.x] = t0 < t1;
+    if (t0 >= t1) return;
+  }
+  if (threadIdx.x >= wg::kConsumers) {
+    wg::produce<T>(s, t0, t1, feats, w, c_in, c_out, n0);
+    return;
+  }
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  wg::consume<T>(s, t1 - t0, acc);
+  wg::store<T::BN>(s, acc, out,
+                   splits > 1 ? part + static_cast<size_t>(z) * v_out * c_out : nullptr,
+                   c_out, m0, n0);
+}
+
+// out[order[p]] = bf16(the live partials of p's tile added in split
+// order; 0 where none is live), 8 columns per thread
+template <typename Role>
+__global__ void sparse_conv_wgmma_reduce(const float* __restrict__ part,
+                                         const int* __restrict__ live,
+                                         const int* __restrict__ order,
+                                         __nv_bfloat16* __restrict__ out, int v_out,
+                                         int c_out, int splits, int tiles) {
+  const int c8 = c_out / 8;
+  const size_t n = static_cast<size_t>(v_out) * c8;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int p = static_cast<int>(e / c8), c = static_cast<int>(e % c8) * 8;
+    const int tile = p / taseg::wg::kBM;
+    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int z = 0; z < splits; ++z) {
+      if (!live[z * tiles + tile]) continue;
+      const float4* q = reinterpret_cast<const float4*>(
+          part + (static_cast<size_t>(z) * v_out + p) * c_out + c);
+      const float4 u = q[0], v = q[1];
+      a[0] += u.x; a[1] += u.y; a[2] += u.z; a[3] += u.w;
+      a[4] += v.x; a[5] += v.y; a[6] += v.z; a[7] += v.w;
+    }
+    __align__(16) __nv_bfloat162 o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(order[p]) * c_out + c) =
+        *reinterpret_cast<const uint4*>(o);
+  }
+}
+
+template <typename T, typename Role>
+int launch_wgmma(const void* feats, const void* w, const void* rb, const void* order,
+                 void* out, void* part, void* live, int v_out, int c_in, int c_out,
+                 int n_off, int splits, cudaStream_t stream) {
+  namespace wg = taseg::wg;
+  using bf16 = __nv_bfloat16;
+  const size_t bytes = wg::smem_bytes<T>(n_off);
+  // the attribute once per kernel at its largest size (K = 32 offsets):
+  // a launch then sets nothing more
+  static const cudaError_t set = cudaFuncSetAttribute(
+      sparse_conv_wgmma_kernel<T, Role>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(wg::smem_bytes<T>(32)));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaError_t e;
+  const int tiles = (v_out + wg::kBM - 1) / wg::kBM;
+  const dim3 grid(tiles, (c_out + T::BN - 1) / T::BN, splits);
+  sparse_conv_wgmma_kernel<T, Role><<<grid, wg::kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(feats), static_cast<const bf16*>(w),
+      static_cast<const int*>(rb), static_cast<const int*>(order), static_cast<bf16*>(out),
+      static_cast<float*>(part), static_cast<int*>(live), v_out, c_in, c_out, n_off);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const size_t n = static_cast<size_t>(v_out) * (c_out / 8);
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  sparse_conv_wgmma_reduce<Role><<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(live),
+      static_cast<const int*>(order), static_cast<bf16*>(out), v_out, c_out, splits,
+      tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the CUDA-core kernel on one dtype code: the k3 instance (27 offsets)
 // where `k3`, else the K-offset instance over n_off offsets
 int launch_simt(const void* feats, const void* w, const void* rb, void* out,
@@ -390,26 +499,6 @@ extern "C" int taseg_sparse_conv_k(const void* feats, const void* w,
                      static_cast<cudaStream_t>(stream));
 }
 
-// the tensor-core route of the K-offset conv: bf16, C_in and C_out
-// multiples of 8, feats and w 16-byte aligned, 1 <= n_off <= 32
-extern "C" int taseg_sparse_conv_k_mma(const void* feats, const void* w,
-                                       const void* rb, void* out, int v_out,
-                                       int c_in, int c_out, int n_off,
-                                       void* stream) {
-  if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 8 != 0 ||
-      c_out % 8 != 0 || n_off <= 0 || n_off > 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  using bf16 = __nv_bfloat16;
-  return mma::with_tile_n(c_out, [&](auto bn) {
-    constexpr int BN = decltype(bn)::value;
-    return mma::launch_tiles<BN>(
-        sparse_conv_k_mma_kernel<BN>, n_off, v_out, c_out,
-        static_cast<cudaStream_t>(stream), static_cast<const bf16*>(feats),
-        static_cast<const bf16*>(w), static_cast<const int*>(rb),
-        static_cast<bf16*>(out), v_out, c_in, c_out, n_off);
-  });
-}
-
 // the 3xTF32 route of the K-offset conv: f32, C_in and C_out multiples of
 // 4, feats and w 16-byte aligned, 1 <= n_off <= 32; order (v_out,) int32,
 // a permutation of the output rows (sparse_conv.mask_row_order(rb));
@@ -429,5 +518,70 @@ extern "C" int taseg_sparse_conv_k_tf32(const void* feats, const void* w,
     using T = tf::Tile<decltype(bn)::value, 32, 3>;
     return launch_k_tf32<T>(feats, w, rb, order, out, part, live, v_out, c_in,
                             c_out, n_off, splits, static_cast<cudaStream_t>(stream));
+  });
+}
+
+namespace {
+
+// the wgmma route of K2 (27 offsets or any K) and of K3-down (the 8
+// slots of the child table): bf16, C_in and C_out multiples of 8, feats
+// and w 16-byte aligned, 1 <= n_off <= 32; rb (n_off, v_out) int32 rows
+// of feats, order (v_out,) int32 a permutation of the output rows
+// (sparse_conv.mask_row_order(rb)); `splits` (1..8) parts of each tile's
+// chain (sparse_conv.wgmma_splits), with part (splits, v_out, c_out) f32
+// and live (splits, ceil(v_out / 64)) int32 scratch when splits > 1
+template <typename Role>
+int wgmma_entry(const void* feats, const void* w, const void* rb, const void* order,
+                void* out, void* part, void* live, int v_out, int c_in, int c_out,
+                int n_off, int splits, void* stream) {
+  namespace wg = taseg::wg;
+  if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 8 != 0 || c_out % 8 != 0 ||
+      n_off <= 0 || n_off > 32 || splits < 1 || splits > wg::kMaxSplits ||
+      (splits > 1 && (part == nullptr || live == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wg::with_tile(c_in, c_out, [&](auto bk, auto bn) {
+    using T = wg::Tile<decltype(bk)::value, decltype(bn)::value>;
+    return launch_wgmma<T, Role>(feats, w, rb, order, out, part, live, v_out, c_in,
+                                 c_out, n_off, splits, static_cast<cudaStream_t>(stream));
+  });
+}
+
+}  // namespace
+
+extern "C" int taseg_sparse_conv_wgmma(const void* feats, const void* w, const void* rb,
+                                       const void* order, void* out, void* part,
+                                       void* live, int v_out, int c_in, int c_out,
+                                       int n_off, int splits, void* stream) {
+  return wgmma_entry<K2Rows>(feats, w, rb, order, out, part, live, v_out, c_in, c_out,
+                             n_off, splits, stream);
+}
+
+// K3-down's calls of the same route, over its child table (n_off = 8)
+extern "C" int taseg_strided_down_wgmma(const void* feats, const void* w,
+                                        const void* child, const void* order,
+                                        void* out, void* part, void* live,
+                                        int v_coarse, int c_in, int c_out,
+                                        int n_off, int splits, void* stream) {
+  return wgmma_entry<DownSlots>(feats, w, child, order, out, part, live, v_coarse,
+                                c_in, c_out, n_off, splits, stream);
+}
+
+// resident blocks per SM of the wgmma route at these widths and offsets
+// (the occupancy calculator, after the shared-memory attribute is set)
+extern "C" int taseg_sparse_conv_wgmma_blocks(int c_in, int c_out, int n_off,
+                                              int* blocks) {
+  namespace wg = taseg::wg;
+  if (c_in <= 0 || c_out <= 0 || n_off <= 0 || n_off > 32 || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wg::with_tile(c_in, c_out, [&](auto bk, auto bn) {
+    using T = wg::Tile<decltype(bk)::value, decltype(bn)::value>;
+    const size_t bytes = wg::smem_bytes<T>(n_off);
+    cudaError_t e = cudaFuncSetAttribute(sparse_conv_wgmma_kernel<T, K2Rows>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(wg::smem_bytes<T>(32)));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, sparse_conv_wgmma_kernel<T, K2Rows>, wg::kThreads, bytes);
+    return static_cast<int>(e);
   });
 }

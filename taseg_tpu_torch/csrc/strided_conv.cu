@@ -16,28 +16,35 @@
 // path's shapes; at V_fine <= 131072 and C <= 256 either bound is tens of
 // microseconds.
 //
-// In bf16 with C_in and C_out multiples of 8 (all eight strided convs of
-// the main path) both directions run on the tensor-core tile of
-// gather_mma.cuh with the 8 slots as its offsets.  For each slot s that
-// occurs in a 64-row tile, A_s holds the gathered input rows of slot s
-// and zero elsewhere (the same zero-filling cp.async), and
-// acc += A_s @ W[s]:
+// Where the level's child table has one round (every cell has at most one
+// child per slot: non-negative coordinates, as on every path), the down
+// direction is a conv over 8 offsets from V_fine to V_coarse rows and runs
+// on K2's tiles over the table's row order (sparse_conv.cu:
+// taseg_strided_down_wgmma in bf16, taseg_sparse_conv_k_tf32 in f32;
+// strided_conv.downsample_route).  This file holds the up direction and
+// the down direction's round kernels, which a table of several rounds
+// takes (cells that fold negative coordinates) and which stay callable as
+// the yardstick of the tiles that replaced them on the path
+// (chip_smoke.py's `old_ms`).
+//
+// In bf16 with C_in and C_out multiples of 8 both directions run on PR
+// 2's tensor-core tile of gather_mma.cuh with the 8 slots as its offsets.
+// For each slot s that occurs in a 64-row tile, A_s holds the gathered
+// input rows of slot s and zero elsewhere (the same zero-filling
+// cp.async), and acc += A_s @ W[s]:
 //   * up (strided_up_mma_kernel): A_s row f is the parent row of fine row
 //     f when slot(f) == s; each row receives exactly one nonzero term, and
 //     rows with parent < 0 stay zero.
 //   * down (strided_down_mma_kernel): a block owns 64 coarse rows; thread
 //     r walks its row's children perm[starts[c] : starts[c+1]] and sets
-//     idx[slot f][r] = f.  On the main path a cell has at most one child
-//     per slot (the host pipeline shifts coordinates to be non-negative),
-//     so one round of the tile covers every child.  Where coordinates are
-//     negative, truncating division folds {-1, 0, 1} into cell 0 and a
-//     slot repeats up to 8 times in a cell: round q then takes each row's
-//     q-th child of each slot, the f32 accumulators carry across rounds,
-//     and the block stops when no row of the tile has a further round.
-//     The tile does 8 slots x 64 rows of work per (round, C_in chunk)
-//     against ~V_fine present pairs in all: at most ~5x at level 0, and
-//     cheap on tensor cores; the reads of feats (V_fine x C_in) and the
-//     write of out bound it.
+//     idx[slot f][r] = f.  Where coordinates are negative, truncating
+//     division folds {-1, 0, 1} into cell 0 and a slot repeats up to 8
+//     times in a cell: round q then takes each row's q-th child of each
+//     slot, the f32 accumulators carry across rounds, and the block stops
+//     when no row of the tile has a further round.  The tile does 8 slots
+//     x 64 rows of work per (round, C_in chunk): 2.5-4.1x the present
+//     pairs on MinkUNet's path, against 1.1-1.4x for the wgmma tile over
+//     the child table's order.
 //
 // The other cases (f32 and ragged widths) run the CUDA-core design: like
 // K2's a gather-GEMM with a 64x64 output tile in registers, except that
@@ -47,8 +54,7 @@
 // children of each coarse row in rounds (round q takes each row's q-th
 // child), until no row of the tile has another child; a coarse cell has up
 // to 8 children, up to 27 where truncating division folds negative
-// coordinates into cell 0.  f32 stays on CUDA cores: TF32 tensor cores
-// would miss its tolerance.
+// coordinates into cell 0.
 #include "common.cuh"
 #include "gather_mma.cuh"
 

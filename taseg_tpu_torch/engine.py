@@ -70,7 +70,7 @@ from .loss import Losses
 from .models.fusion.rpvnet import RpvInputs, rpv_inputs
 from .models.layers import seed_dropout
 from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
-from .models.voxel.backbone_context import UNetCapacities, build_unet_topology
+from .models.voxel.backbone_context import UNetCapacities, build_unet_topology, host_nonneg
 from .models.voxel.minkunet_mm import TRAINABLE_PREFIXES, TiafInputs, tiaf_inputs
 from .models import build_segmentor
 from .optim import build_optimizer
@@ -206,8 +206,9 @@ def model_topology(
 ):
     """Stage 2: the topology with the model's point -> voxel tables
     (`point_voxel_strides`), the tables only the backward reads where
-    `devox_pairs`, and for an f32 model the levels' row orders (the f32
-    route of the 3^3 convs reads them); for a model that reads range images (RPVNet) an
+    `devox_pairs`, and K3-down's child tables, built without a host read
+    where the host arrays' coordinates are non-negative (`host_nonneg`);
+    for a model that reads range images (RPVNet) an
     `RpvInputs` that adds its point <-> range tables and the images; for
     Cylinder_TS its own `CylTopology` (JAX's `topology_fn`,
     engine.py:272-284); for TIAF the `TiafInputs`, its FOV topology at
@@ -222,7 +223,7 @@ def model_topology(
         arrays["point_coords_t"], arrays["num_points_t"], caps,
         devox_pairs=devox_pairs, assume_sorted_points=sorted_points,
         point_voxel_strides=model.point_voxel_strides,
-        row_orders=model.compute_dtype == torch.float32,
+        nonneg_coords=host_nonneg(arrays["point_coords"]),
     )
     if getattr(model, "range_view", False):
         return rpv_inputs(topo, arrays, with_pairs=devox_pairs)
@@ -653,7 +654,7 @@ class Trainer:
         t = arrays["teacher"]
         topo = build_unet_topology(
             t["point_coords_t"], t["num_points_t"], self.teacher_caps,
-            row_orders=self.teacher.compute_dtype == torch.float32,
+            nonneg_coords=host_nonneg(t["point_coords"]),
         )
         check_capacity(topo, self.teacher_caps)
         return topo

@@ -14,10 +14,14 @@ level), the level's present pairs of it compacted per offset
 (`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared),
 the parent relation's pairs compacted per slot (`StridedTables.pairs`,
 the pair lists of K5's tensor-core route, shared by the level's down and
-up conv) and the trilinear pair tables.  With `row_orders` (f32 models)
-it adds each level's row order (`k3_order`, `mask_row_order` of the
-3^3 rulebook), which the f32 route of the 3^3 convs reads (K2 and K4 at
-K = 27 on 3xTF32, `sparse_conv.k3_conv`).  With `point_voxel_strides`
+up conv) and the trilinear pair tables.  Every topology carries each
+level's row order (`k3_order`, `mask_row_order` of the 3^3 rulebook),
+which the tensor-core routes of the 3^3 convs read (K2's wgmma tile in
+bf16, K2 and K4 at K = 27 on 3xTF32 in f32, `sparse_conv.k3_conv`), and
+between two levels the child table of K3-down with its row order
+(`StridedTables.child`, `child_order`: K3-down as a conv over 8 offsets,
+shared by the down conv and the up conv's input gradient).  With
+`point_voxel_strides`
 (SPVCNN's (1, 4, 16)) it adds the point -> voxel tables of the point
 branch (`UNetTopology.point_vox`).  Left out against the JAX package: the
 TGF gather plans (the port's conv takes the rulebook directly).
@@ -35,7 +39,12 @@ from ...ops.f3conv import PairLists, k3_pair_lists
 from ...ops.join import unique_coords
 from ...ops.rulebook import build_rulebook_k3, spdownsample
 from ...ops.sparse_conv import KTable, flip_rulebook, mask_row_orders
-from ...ops.strided_conv import StridedTables, build_strided_tables, slot_pair_lists
+from ...ops.strided_conv import (
+    StridedTables,
+    build_strided_tables,
+    slot_child_table,
+    slot_pair_lists,
+)
 from ...ops.voxelize import (
     IdentityDevoxTable,
     SegmentTables,
@@ -99,7 +108,7 @@ class LevelTopo:
     # k3_pair_lists(rb_k3_bwd): K4's pair lists; None in inference
     k3_pairs: Optional[PairLists] = None
     # mask_row_order(rb_k3), shared by rb_k3_bwd (a flip maps equal
-    # offset masks to equal masks); None unless built with row_orders
+    # offset masks to equal masks)
     k3_order: Optional[torch.Tensor] = None
 
 
@@ -129,6 +138,14 @@ def _pattern_cols(m: int) -> list:
     ]
 
 
+def host_nonneg(point_coords) -> bool:
+    """Whether every row of a collated (P, 4) numpy coordinate array,
+    padding rows (zeros) included, has non-negative x, y and z: read on
+    the host before the upload, so `build_unet_topology(nonneg_coords=)`
+    reads nothing back from the device."""
+    return bool((point_coords[:, :3] >= 0).all())
+
+
 def build_unet_topology(
     point_coords: torch.Tensor,
     num_points: torch.Tensor,
@@ -137,19 +154,23 @@ def build_unet_topology(
     devox_pairs: bool = False,
     assume_sorted_points: bool = False,
     point_voxel_strides: tuple = (),
-    row_orders: bool = False,
+    nonneg_coords: bool = False,
 ) -> UNetTopology:
     """Build the MinkUNet topology from point coords (P, 4) on their
     device: one level per entry of `caps.voxels`, devox tables for the
     head's strides 1, 4 and 16.  `num_points` is a 0-dim int32 tensor.
     The points are integer voxel coords (the host pipeline's contract),
     so stride 1 devoxelizes by the identity gather.  `devox_pairs` adds
-    the tables that only the backward reads (training); `row_orders`
-    each level's `k3_order` (one stable sort per level, on the device).
-    `point_voxel_strides` (a subset of SPVCNN's (1, 4, 16)) adds, per
-    stride s, each point's stride-s voxel (the floor voxel, corner 0 of
-    its trilinear corners) and the segment tables over it (JAX
-    `backbone_context.py:326-337`)."""
+    the tables that only the backward reads (training).  Each level's
+    `k3_order` and child table order take one batched stable sort per
+    level, on the device.  `nonneg_coords` says the caller's coordinates
+    are non-negative (`host_nonneg`; the host pipelines shift them): every
+    coarse cell then has at most one child per slot and each child table
+    is one scatter with nothing read back; else its rounds are counted
+    with one host read per level.  `point_voxel_strides` (a subset of
+    SPVCNN's (1, 4, 16)) adds, per stride s, each point's stride-s voxel
+    (the floor voxel, corner 0 of its trilinear corners) and the segment
+    tables over it (JAX `backbone_context.py:326-337`)."""
     num_levels = len(caps.voxels)
     dev = point_coords.device
     p = point_coords.shape[0]
@@ -194,11 +215,19 @@ def build_unet_topology(
         )
         if devox_pairs:
             strided = replace(strided, pairs=slot_pair_lists(strided))
-        levels.append(level(coords_l, num_l, 2**l, strided))
+        child = slot_child_table(strided, rounds=1 if nonneg_coords else None)
+        levels.append(level(coords_l, num_l, 2**l, replace(strided, child=child)))
         prev_coords, prev_num = coords_l, num_l
-    if row_orders:
-        orders = mask_row_orders([l.rb_k3 for l in levels])
-        levels = [replace(l, k3_order=o) for l, o in zip(levels, orders)]
+    # one batched sort per level: its 3^3 rulebook and the one-round child
+    # table into it share V_l (a table of several rounds takes K3-down's
+    # round kernels, which read no order)
+    ordered = [l for l in range(1, num_levels) if levels[l].strided.child.shape[0] == 1]
+    orders = mask_row_orders(
+        [lt.rb_k3 for lt in levels] + [levels[l].strided.child[0] for l in ordered]
+    )
+    levels = [replace(lt, k3_order=o) for lt, o in zip(levels, orders)]
+    for l, o in zip(ordered, orders[num_levels:]):
+        levels[l] = replace(levels[l], strided=replace(levels[l].strided, child_order=o))
 
     # point -> coarse-voxel corner rows without joins: chase the parent
     # chain, then read the 8 trilinear corners out of the level's k3

@@ -48,7 +48,13 @@ from ..._device import resolve_device
 from ...ops.voxelize import IdentityDevoxTable, build_segment_tables, devoxelize, trilinear_table, voxelize_avg
 from ..layers import ConvBNReLU, Dense, ResidualBlock
 from ..range2d.blocks import Conv, ResContextBlock, SalsaResBlock, SalsaUpBlock
-from .backbone_context import UNetCapacities, UNetTopology, build_unet_topology, conv_tables
+from .backbone_context import (
+    UNetCapacities,
+    UNetTopology,
+    build_unet_topology,
+    conv_tables,
+    host_nonneg,
+)
 from .minkunet import MinkUNet
 
 # the FOV taps' strides (x4, y2, y4), as the main head's
@@ -80,14 +86,15 @@ def tiaf_inputs(
     topology's, so main points outside them query the sentinel and get
     index -1 and weight 0), the pixel table of the FOV rows (rows pre-offset
     by image slot x H; flat index row * W + col clipped into the image
-    rows, -1 for padding rows).  Both topologies carry their levels' row
-    orders (the model is f32)."""
+    rows, -1 for padding rows)."""
     main, fov = arrays["main"], arrays["fov"]
     topo = build_unet_topology(
-        main["point_coords_t"], main["num_points_t"], caps, devox_pairs=train, row_orders=True
+        main["point_coords_t"], main["num_points_t"], caps, devox_pairs=train,
+        nonneg_coords=host_nonneg(main["point_coords"]),
     )
     fov_topo = build_unet_topology(
-        fov["point_coords_t"], fov["num_points_t"], fov_caps, devox_pairs=train, row_orders=True
+        fov["point_coords_t"], fov["num_points_t"], fov_caps, devox_pairs=train,
+        nonneg_coords=host_nonneg(fov["point_coords"]),
     )
     coords = main["point_coords_t"]
     valid = torch.arange(coords.shape[0], device=coords.device) < topo.num_points

@@ -10,29 +10,32 @@ unchanged one is reused.  Nothing is built when a module is imported.
 Each kernel wrapper adds one to its entries of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show which kernels it
 went through.  `sparse_conv_k3`, `strided_down` and `strided_up` count
-every launch of K2, K3-down and K3-up; `sparse_conv_k3_mma`,
-`strided_down_mma`, `strided_up_mma`, `k3_conv_dw_mma` and
-`strided_dw_mma` count those that took the tensor-core route.  The
-`_dgrad` counters count, again, the launches of K2 and K3 that compute
-an input gradient (the backward of the k3 conv and of the other strided
-direction).  K1 (`join_scan`) launches one kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
+every launch of K2, K3-down and K3-up; the route entries count those
+that took a route: `sparse_conv_k3_wgmma` and `strided_down_wgmma` the
+Hopper wgmma tile (K2 and K3-down in bf16, over row orders),
+`strided_down_tf32` K3-down's 3xTF32 route (f32), `strided_down_rounds`
+K3-down's round kernels (child tables of several rounds), and
+`strided_up_mma`, `k3_conv_dw_mma` and `strided_dw_mma` the mma.sync
+tensor-core tiles.  The `_dgrad` counters count, again, the launches of
+K2 and K3 that compute an input gradient (the backward of the k3 conv
+and of the other strided direction).  K1 (`join_scan`) launches one
+kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
 (`segment_sum`) count one per call, their second kernel (the split
-reduction, K6's merge of chunk partials) included; K7 (`devoxelize`)
-launches one kernel per call, trilinear, bilinear or identity, and
-`devoxelize_bilinear` counts again those at 4 corners (RPVNet's
-`range_to_point`); K8 (`voxelize_bwd`) launches one per call.  K2 at K
-offsets (`sparse_conv`, Cylinder3D's convs) counts under its own
-`sparse_conv_k` (`_mma`, `_dgrad`, `_dgrad_mma` as K2's), so K2's
-27-offset counts stay those of the 3^3 convs; K4 at K offsets
-(`sparse_conv_dw`) counts one per call, its split reduction included.
-The `_tf32` entries (`sparse_conv_k_tf32`, `sparse_conv_k_dgrad_tf32`,
-`sparse_conv_dw_tf32`) count the launches of K2 and K4 at K offsets that
-took the 3xTF32 tensor-core route, as the `_mma` entries count bf16's.
+reduction, K6's merge of chunk partials) included, as do K2's and
+K3-down's split routes; K7 (`devoxelize`) launches one kernel per call,
+trilinear, bilinear or identity, and `devoxelize_bilinear` counts again
+those at 4 corners (RPVNet's `range_to_point`); K8 (`voxelize_bwd`)
+launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
+convs) counts under its own `sparse_conv_k` (`_wgmma`, `_tf32`,
+`_dgrad`, `_dgrad_wgmma`, `_dgrad_tf32` as K2's), so K2's 27-offset
+counts stay those of the 3^3 convs; K4 at K offsets (`sparse_conv_dw`,
+`_tf32`) counts one per call, its split reduction included.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -54,15 +57,19 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "join_scan": 0,
     "sparse_conv_k3": 0,
-    "sparse_conv_k3_mma": 0,
+    "sparse_conv_k3_wgmma": 0,
     "strided_down": 0,
-    "strided_down_mma": 0,
+    "strided_down_wgmma": 0,
+    "strided_down_tf32": 0,
+    "strided_down_rounds": 0,
     "strided_up": 0,
     "strided_up_mma": 0,
     "sparse_conv_k3_dgrad": 0,
-    "sparse_conv_k3_dgrad_mma": 0,
+    "sparse_conv_k3_dgrad_wgmma": 0,
     "strided_down_dgrad": 0,
-    "strided_down_dgrad_mma": 0,
+    "strided_down_dgrad_wgmma": 0,
+    "strided_down_dgrad_tf32": 0,
+    "strided_down_dgrad_rounds": 0,
     "strided_up_dgrad": 0,
     "strided_up_dgrad_mma": 0,
     "k3_conv_dw": 0,
@@ -74,9 +81,9 @@ LAUNCHES = {
     "devoxelize_bilinear": 0,
     "voxelize_bwd": 0,
     "sparse_conv_k": 0,
-    "sparse_conv_k_mma": 0,
+    "sparse_conv_k_wgmma": 0,
     "sparse_conv_k_dgrad": 0,
-    "sparse_conv_k_dgrad_mma": 0,
+    "sparse_conv_k_dgrad_wgmma": 0,
     "sparse_conv_dw": 0,
     "sparse_conv_k_tf32": 0,
     "sparse_conv_k_dgrad_tf32": 0,
@@ -104,10 +111,12 @@ _SIGNATURES = {
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
     "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_sparse_conv_k_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
 }
 
 _lib = None
@@ -201,29 +210,53 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+@functools.lru_cache(maxsize=None)
 def counters(name: str, *, dgrad: bool = False, suffix: str = "") -> tuple:
     """The LAUNCHES entries that one launch of wrapper `name` counts
     under: its own, `<name>_dgrad` for an input-gradient call, and, on a
-    tensor-core route, the route's entry of each (`suffix`: `_mma` for
+    named route, the route's entry of each (`suffix`: `_wgmma` for the
+    Hopper tile, `_rounds` for K3-down's round kernels, `_mma` for
     bf16, `_tf32` for 3xTF32)."""
     names = (name, name + "_dgrad") if dgrad else (name,)
     return names + tuple(n + suffix for n in names) if suffix else names
 
 
+def _raw_stream() -> int:
+    """The current CUDA stream of the current device, as an int: torch's
+    C accessor where this build has it (no Stream object per call), else
+    through `torch.cuda.current_stream()`."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch._C._cuda_getDevice())
+
+
 def launch(name: str, counters: tuple[str, ...], *args) -> None:
     """Call C entry point `name` on the current stream, raise on a CUDA
     error, and count the launch under each of `counters`."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(get_lib(), name)(*args, stream)
+    err = getattr(get_lib(), name)(*args, _raw_stream())
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")
     for c in counters:
         LAUNCHES[c] += 1
 
 
+def wgmma_blocks_per_sm(c_in: int, c_out: int, n_off: int) -> int:
+    """Resident blocks per SM of K2's wgmma route at these widths and
+    offsets (the CUDA occupancy calculator; needs the card)."""
+    n = ctypes.c_int(0)
+    err = get_lib().taseg_sparse_conv_wgmma_blocks(c_in, c_out, n_off, ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"taseg_sparse_conv_wgmma_blocks failed with CUDA error {err}")
+    return n.value
+
+
 def check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
     """Raise unless `t` is a contiguous tensor of one of `dtypes`, with
     `ndim` dimensions, on `device`."""
+    if (isinstance(t, torch.Tensor) and t.dtype in dtypes and t.dim() == ndim
+            and t.device == device and t.is_contiguous()):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype not in dtypes:

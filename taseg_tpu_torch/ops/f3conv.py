@@ -8,7 +8,8 @@ With the flipped rulebook rb_bwd (rb_bwd[k, i] = v <=> rb_fwd[k, v] = i):
     d_W[k]     = sum_i feats[i]^T (x) g[rb_bwd[k, i]] (K4, csrc/conv_dw.cu)
 
 So d_feats is the forward kernel K2 run on the transposed weights, and
-takes K2's tensor-core route wherever C_in and C_out are multiples of 8;
+takes K2's wgmma route wherever C_in and C_out are multiples of 8 (over
+the level's row order: a flip maps equal offset masks to equal masks);
 d_W is the kernel K4, on one of two routes (`dw_route`): for bf16 with
 C_in and C_out multiples of 8, the tensor-core kernel over the level's
 per-offset pair lists (`k3_pair_lists`, built once per level and step by
@@ -296,10 +297,11 @@ def f3_bwd_fused_plain(feats, weight, grad, rb_bwd):
 def f3_bwd_fused(
     feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
     rb_bwd: torch.Tensor, *, need_feats: bool = True,
-    pairs: Optional[PairLists] = None,
+    pairs: Optional[PairLists] = None, order: Optional[torch.Tensor] = None,
 ):
     """(d_feats or None, d_W) of the k3 conv for the cotangent `grad`
-    (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd), counted as a
+    (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd) over the
+    level's row order `order` on its wgmma route, counted as a
     `sparse_conv_k3_dgrad` launch; d_W through K4 (over the level's pair
     lists `pairs` on its tensor-core route), in weight's dtype.
     `need_feats=False` skips d_feats (returns None)."""
@@ -307,7 +309,7 @@ def f3_bwd_fused(
     d_feats = None
     if need_feats:
         w_t = weight.transpose(1, 2).contiguous()
-        d_feats = sparse_conv_k3(g, w_t, rb_bwd, dgrad=True)
+        d_feats = sparse_conv_k3(g, w_t, rb_bwd, dgrad=True, order=order)
     return d_feats, k3_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)
 
 

@@ -8,9 +8,12 @@ With a dense (27, V) rulebook the output row of voxel v is
     out[v] = sum_k  feats[rb[k, v]] * (rb[k, v] >= 0)  @  W[k]
 
 On CUDA tensors `sparse_conv_k3` launches a hand-written gather-GEMM of
-`csrc/sparse_conv.cu`, chosen by `route`: the tensor-core kernel for
-bf16 with C_in and C_out multiples of 8, the CUDA-core kernel for f32
-and ragged widths.  On CPU tensors it runs `sparse_conv_plain`, the
+`csrc/sparse_conv.cu`, chosen by `route`: for bf16 with C_in and C_out
+multiples of 8 the Hopper tile (`csrc/wgmma_tile.cuh`: wgmma over the
+table's row order `mask_row_order`, a producer warpgroup's cp.async ring,
+the chains of the coarse levels cut in `wgmma_splits` parts), the
+CUDA-core kernel for f32 and ragged widths.  On CPU tensors it runs
+`sparse_conv_plain`, the
 per-offset gather + matmul of `_conv_fwd_impl`.  Both accumulate in f32
 over all 27 offsets and round once to the input dtype.  (The JAX TGF path
 rounds each group's transformed rows to the activation dtype before it
@@ -27,6 +30,10 @@ per level and step.  Its f32 calls with C_in and C_out multiples of 4
 tensor cores over the level's row order; so the CUDA-core K2 at 27
 serves only ragged f32 widths (the 5-channel stems).
 
+The topology builds each level's order once (`k3_order`); a flip maps
+equal offset masks to equal masks, so the input gradient's call on the
+flipped table reads the same order.
+
 `sparse_conv` is K2 at K <= 32 offsets with a (K, V_out) rulebook over
 V_in input rows (V_in != V_out between two levels), counted under
 `sparse_conv_k`; `conv_k` its differentiable form (`SparseConvK`, the
@@ -41,9 +48,8 @@ and `build_reverse_rulebook`) between two levels.
 K2 at K picks its kernel by `k_route`: in f32 with C_in and C_out
 multiples of 4, the 3xTF32 tensor-core tile over the rows in
 `mask_row_order(rb)` (rows with equal sets of present offsets share a
-64-row tile, so a tile runs about the offsets its rows have); bf16 the
-tensor-core tile over rows in table order; other widths the CUDA-core
-kernel.  A `KTable` carries a table with its order and, where a weight
+64-row tile, so a tile runs about the offsets its rows have); in bf16
+the wgmma tile over the same order; other widths the CUDA-core kernel.  A `KTable` carries a table with its order and, where a weight
 gradient reads it, its pair lists, built once by the topology.
 """
 
@@ -60,12 +66,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of the 27-offset conv takes: "mma" (tensor
-    cores) for bf16 with C_in and C_out multiples of 8, else "simt" (CUDA
-    cores).  `k3_conv` asks `k_route` first: the f32 calls whose widths
-    allow it go to the conv over K = 27 offsets on 3xTF32."""
+    """The kernel a CUDA call of the 27-offset conv takes: "wgmma" (Hopper
+    tensor cores, over the table's row order) for bf16 with C_in and C_out
+    multiples of 8, else "simt" (CUDA cores).  `k3_conv` asks `k_route`
+    first: the f32 calls whose widths allow it go to the conv over K = 27
+    offsets on 3xTF32."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "mma"
+        return "wgmma"
     return "simt"
 
 
@@ -73,8 +80,8 @@ def k_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of K2 or K4 at K offsets takes: "tf32x3"
     (tensor cores, each f32 product as three TF32 products of its
     operands' high and low parts, within the f32 tolerance) for f32 with
-    C_in and C_out multiples of 4; "mma" for bf16 with both multiples of
-    8 (K2 only: K4 at K has no bf16 tensor-core route); else "simt"."""
+    C_in and C_out multiples of 4; "wgmma" for bf16 with both multiples
+    of 8 (K2 only: K4 at K has no bf16 tensor-core route); else "simt"."""
     if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
         return "tf32x3"
     return route(dtype, c_in, c_out)
@@ -96,6 +103,97 @@ def k_splits(v_out: int) -> int:
     """Parts of each tile's chain on the 3xTF32 route of K2 at K, from
     the shapes alone."""
     return K_SPLITS if v_out <= K_SPLIT_ROWS else 1
+
+
+# split rule of the wgmma route (csrc/wgmma_tile.cuh): a table of fewer
+# than WGMMA_SPLIT_BLOCKS 64-row tiles (2 blocks per SM of the H100's
+# 132) cuts each tile's chain of (present offset) x (C_in chunk) stages
+# into ceil(WGMMA_SPLIT_BLOCKS / tiles) parts, one block each, at most
+# WGMMA_MAX_SPLITS and at most one per WGMMA_PART_STAGES stages of the
+# full chain (K x C_in chunks: a part pays the tile's table load and a
+# partial's round trip), and a second kernel adds their f32 partials in
+# split order.  `tools/k2_pace.py --splits` chose it (H100, every K2 and
+# K3-down shape of MinkUNet's path at 1-8 parts): uncut at 616 tiles and
+# more, 2 parts at 248 (MinkUNet's level 3), 3 at 104 (level 4); K3-down's
+# 8 slots are cut only from 16 stages (C_in > 64)
+WGMMA_SPLIT_BLOCKS = 2 * 132
+WGMMA_MAX_SPLITS = 8
+WGMMA_PART_STAGES = 8
+
+
+def wgmma_splits(v_out: int, n_off: int = 27, c_in: int = 64) -> int:
+    """Parts of each tile's chain on the wgmma route, from the shapes
+    alone (no host read): V_out rows, K offsets, C_in channels."""
+    tiles = -(-v_out // K_TILE_ROWS)
+    if tiles >= WGMMA_SPLIT_BLOCKS:
+        return 1
+    chain = n_off * -(-c_in // (64 if c_in % 64 == 0 else 32))
+    fill = -(-WGMMA_SPLIT_BLOCKS // max(tiles, 1))
+    return max(1, min(WGMMA_MAX_SPLITS, fill, chain // WGMMA_PART_STAGES))
+
+
+def launch_wgmma(
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    order: Optional[torch.Tensor], out: torch.Tensor, counters: tuple,
+    entry: str = "taseg_sparse_conv_wgmma",
+) -> None:
+    """K2's wgmma route (and K3-down's, on the child table, through its
+    own C `entry`, which names the kernel apart in a profile): feats
+    (V_in, C_in) and weight (K, C_in, C_out) bf16, rb (K, V_out) int32,
+    order rb's `mask_row_order` (built here when None) -> out (V_out,
+    C_out), with `wgmma_splits(V_out, K, C_in)` parts per tile chain."""
+    dev = feats.device
+    v_out, c_out = out.shape
+    if order is None:
+        order = mask_row_order(rb)
+    _build.check("order", order, (torch.int32,), 1, dev)
+    if order.shape != (v_out,):
+        raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
+    _build.check_aligned(feats=feats, weight=weight)
+    splits = wgmma_splits(v_out, rb.shape[0], feats.shape[1])
+    part = live = None
+    if splits > 1:
+        # one scratch allocation: the f32 partials, then the live flags
+        n_part = splits * v_out * c_out
+        buf = torch.empty(n_part + splits * -(-v_out // K_TILE_ROWS), dtype=torch.float32, device=dev)
+        part, live = buf.data_ptr(), buf.data_ptr() + 4 * n_part
+    _build.launch(
+        entry, counters,
+        feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), order.data_ptr(), out.data_ptr(),
+        part, live, v_out, feats.shape[1], c_out, rb.shape[0], splits,
+    )
+
+
+def launch_k_tf32(
+    feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
+    order: Optional[torch.Tensor], out: torch.Tensor, counters: tuple,
+    splits: Optional[int] = None,
+) -> None:
+    """K2 at K's 3xTF32 route (and K3-down's f32 one, on the child
+    table): feats (V_in, C_in) and weight (K, C_in, C_out) f32, rb (K,
+    V_out) int32, order rb's `mask_row_order` (built here when None) ->
+    out (V_out, C_out), with `splits` parts per tile chain (K2 at K's rule
+    `k_splits(V_out)` where None)."""
+    dev = feats.device
+    v_out, c_out = out.shape
+    if order is None:
+        order = mask_row_order(rb)
+    _build.check("order", order, (torch.int32,), 1, dev)
+    if order.shape != (v_out,):
+        raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
+    _build.check_aligned(feats=feats, weight=weight)
+    if splits is None:
+        splits = k_splits(v_out)
+    part = live = None
+    if splits > 1:
+        part = torch.empty((splits - 1, v_out, c_out), dtype=torch.float32, device=dev)
+        live = torch.empty((splits - 1, -(-v_out // K_TILE_ROWS)), dtype=torch.int32, device=dev)
+    _build.launch(
+        "taseg_sparse_conv_k_tf32", counters,
+        feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), order.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), None if live is None else live.data_ptr(),
+        v_out, feats.shape[1], c_out, rb.shape[0], splits,
+    )
 
 
 class KTable(NamedTuple):
@@ -156,6 +254,20 @@ def mask_row_orders(rbs) -> list:
     return out
 
 
+def tile_work(rb: torch.Tensor, order: Optional[torch.Tensor] = None) -> int:
+    """Row-offset products the 64-row tiles of the tensor-core routes run
+    on a (K, V) table: per tile of `order` (table order where None), 64
+    rows x the offsets that some row of the tile has (reads the count
+    back: for tools and tests, not the path)."""
+    k, v = rb.shape
+    present = rb >= 0
+    if order is not None:
+        present = present[:, order.long()]
+    pad = (-v) % K_TILE_ROWS
+    hit = torch.nn.functional.pad(present.to(torch.int8), (0, pad))
+    return K_TILE_ROWS * int(hit.reshape(k, -1, K_TILE_ROWS).amax(-1).sum())
+
+
 def sparse_conv_plain(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor
 ) -> torch.Tensor:
@@ -179,12 +291,13 @@ def flip_rulebook(rb: torch.Tensor) -> torch.Tensor:
 
 def sparse_conv_k3(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
-    *, dgrad: bool = False,
+    *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """feats (V, C_in), weight (27, C_in, C_out) in feats' dtype, rb
-    (27, V) int32 -> (V, C_out) in feats' dtype.  `dgrad` marks a call
-    that computes an input gradient: its launch also counts under
-    `sparse_conv_k3_dgrad`."""
+    (27, V) int32 -> (V, C_out) in feats' dtype.  The wgmma route reads
+    `order`, rb's `mask_row_order` (the level's `k3_order`; built here
+    when not given).  `dgrad` marks a call that computes an input
+    gradient: its launch also counts under `sparse_conv_k3_dgrad`."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
@@ -203,44 +316,44 @@ def sparse_conv_k3(
         return out
     if c_in == 0:
         return out.zero_()
-    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr())
-    if route(feats.dtype, c_in, c_out) == "mma":
-        _build.check_aligned(feats=feats, weight=weight)
-        _build.launch(
-            "taseg_sparse_conv_k3_mma",
-            _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_mma"),
-            *ptrs, v, c_in, c_out,
+    if route(feats.dtype, c_in, c_out) == "wgmma":
+        launch_wgmma(
+            feats, weight, rb, order, out,
+            _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_wgmma"),
         )
     else:
         _build.launch(
             "taseg_sparse_conv_k3", _build.counters("sparse_conv_k3", dgrad=dgrad),
-            *ptrs, v, c_in, c_out, DTYPE_CODES[feats.dtype],
+            feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
+            v, c_in, c_out, DTYPE_CODES[feats.dtype],
         )
     return out
 
 
 class K3Conv(torch.autograd.Function):
-    """`sparse_conv_k3` with its gradient.  Saves feats and weight; the
-    rulebooks and pair lists are held by reference (no copy).  The
-    backward returns no d_feats where feats need none (the stem's first
-    conv, whose input is the voxelized point features)."""
+    """`sparse_conv_k3` with its gradient, over the KTables `fwd` and
+    `bwd` (the flipped rulebook with the level's order and pair lists).
+    Saves feats and weight; the tables are held by reference (no copy).
+    The backward returns no d_feats where feats need none (the stem's
+    first conv, whose input is the voxelized point features)."""
 
     @staticmethod
-    def forward(ctx, feats, weight, rb, rb_bwd, pairs):
+    def forward(ctx, feats, weight, fwd, bwd):
         ctx.save_for_backward(feats, weight)
-        ctx.rb_bwd, ctx.pairs = rb_bwd, pairs
-        return sparse_conv_k3(feats, weight, rb)
+        ctx.bwd = bwd
+        return sparse_conv_k3(feats, weight, fwd.rb, order=fwd.order)
 
     @staticmethod
     def backward(ctx, grad):
         from .f3conv import f3_bwd_fused
 
         feats, weight = ctx.saved_tensors
+        b = ctx.bwd
         d_feats, d_w = f3_bwd_fused(
-            feats, weight, grad.contiguous(), ctx.rb_bwd,
-            need_feats=ctx.needs_input_grad[0], pairs=ctx.pairs,
+            feats, weight, grad.contiguous(), b.rb,
+            need_feats=ctx.needs_input_grad[0], pairs=b.pairs, order=b.order,
         )
-        return d_feats, d_w, None, None, None
+        return d_feats, d_w, None, None
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:
@@ -261,8 +374,9 @@ def k3_conv(
     The route is `k_route`'s: on "tf32x3" (f32, C_in and C_out multiples
     of 4) the conv over K = 27 offsets (`conv_k`: K2 and K4 at K on 3xTF32
     tensor cores, over the tables' row order and pair lists, built per
-    call where absent), else K2 at 27 (`sparse_conv_k3`) with K4
-    (`f3conv.k3_conv_dw`) in its backward."""
+    call where absent), else K2 at 27 (`sparse_conv_k3`, over the tables'
+    row order on its wgmma route) with K4 (`f3conv.k3_conv_dw`) in its
+    backward."""
     fwd = as_table(rb)
     bwd = None if rb_bwd is None else as_table(rb_bwd)
     if bwd is not None and pairs is not None:
@@ -275,8 +389,8 @@ def k3_conv(
                 "a gradient of the k3 conv needs the flipped rulebook: build "
                 "the topology with devox_pairs=True"
             )
-        return K3Conv.apply(feats, weight, fwd.rb, bwd.rb, bwd.pairs)
-    return sparse_conv_k3(feats, weight, fwd.rb)
+        return K3Conv.apply(feats, weight, fwd, bwd)
+    return sparse_conv_k3(feats, weight, fwd.rb, order=fwd.order)
 
 
 def sparse_conv(
@@ -286,8 +400,8 @@ def sparse_conv(
     """K2 at K offsets: feats (V_in, C_in), weight (K, C_in, C_out) in
     feats' dtype, rb (K, V_out) int32 of feats rows (-1: none), 1 <= K <=
     32 -> (V_out, C_out) in feats' dtype, summed in f32 and rounded once.
-    The 3xTF32 route reads `order`, rb's `mask_row_order` (built here when
-    not given).  `dgrad` marks an input-gradient call (counted again
+    The 3xTF32 and wgmma routes read `order`, rb's `mask_row_order` (built
+    here when not given).  `dgrad` marks an input-gradient call (counted again
     under `sparse_conv_k_dgrad`)."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
@@ -308,38 +422,22 @@ def sparse_conv(
         return out
     if c_in == 0 or feats.shape[0] == 0:
         return out.zero_()
-    ptrs = (feats.data_ptr(), weight.data_ptr(), rb.data_ptr())
     r = k_route(feats.dtype, c_in, c_out)
     if r == "tf32x3":
-        if order is None:
-            order = mask_row_order(rb)
-        _build.check("order", order, (torch.int32,), 1, dev)
-        if order.shape != (v_out,):
-            raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
-        _build.check_aligned(feats=feats, weight=weight)
-        splits = k_splits(v_out)
-        part = live = None
-        if splits > 1:
-            part = torch.empty((splits - 1, v_out, c_out), dtype=torch.float32, device=dev)
-            live = torch.empty((splits - 1, -(-v_out // K_TILE_ROWS)), dtype=torch.int32, device=dev)
-        _build.launch(
-            "taseg_sparse_conv_k_tf32",
+        launch_k_tf32(
+            feats, weight, rb, order, out,
             _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_tf32"),
-            *ptrs, order.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), None if live is None else live.data_ptr(),
-            v_out, c_in, c_out, k, splits,
         )
-    elif r == "mma":
-        _build.check_aligned(feats=feats, weight=weight)
-        _build.launch(
-            "taseg_sparse_conv_k_mma",
-            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_mma"),
-            *ptrs, out.data_ptr(), v_out, c_in, c_out, k,
+    elif r == "wgmma":
+        launch_wgmma(
+            feats, weight, rb, order, out,
+            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_wgmma"),
         )
     else:
         _build.launch(
             "taseg_sparse_conv_k", _build.counters("sparse_conv_k", dgrad=dgrad),
-            *ptrs, out.data_ptr(), v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
+            feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
+            v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
         )
     return out
 

@@ -9,11 +9,21 @@ per-axis parity bits), so:
   up:    out[f] = feats[parent(f)] @ W[slot(f)]
 
 Children of a coarse cell are the contiguous run [starts[c], starts[c+1])
-of the downsample unique's sort permutation `perm`.  On CUDA tensors the
-wrappers launch the hand-written kernel K3 (`csrc/strided_conv.cu`):
-either direction on tensor cores where `downsample_route` /
-`upsample_route` say so (bf16, C_in and C_out multiples of 8), everything
-else on CUDA cores.  On CPU
+of the downsample unique's sort permutation `perm`.  The down direction
+is also a conv over 8 offsets from V_fine rows to V_coarse rows, over the
+child table (`slot_child_table`: entry [s, c] the child of cell c at slot
+s; one round of it where coordinates are non-negative, as on every path),
+which the topology builds once per level with its row order
+(`StridedTables.child`, `child_order`).  On CUDA tensors the wrappers
+launch hand-written kernels, by `downsample_route` / `upsample_route`:
+down over a one-round child table in bf16 (C_in and C_out multiples of
+8) on K2's wgmma tile at K = 8 (`sparse_conv.launch_wgmma`), in f32 (C_in
+and C_out multiples of 4) on K2 at K's 3xTF32 tile
+(`sparse_conv.launch_k_tf32`); a table of several rounds (cells that fold
+negative coordinates) on K3-down's round kernels of `csrc/strided_conv.cu`
+("rounds"); up on K3-up (`csrc/strided_conv.cu`), on tensor cores in
+bf16 with C_in and C_out multiples of 8; everything else on CUDA cores.
+On CPU
 tensors they run the plain versions, which follow the JAX
 `_slot_matmul`, `_segment_sum` (a mean-centred cumsum) and
 `_parent_gather` (`voxelize.run_sums` is the segment sum).  The kernel
@@ -42,8 +52,15 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import sparse_conv as _sc
 from .f3conv import PairLists, dw_route, k3_conv_dw_pairs_plain, launch_dw, launch_dw_mma
-from .sparse_conv import DTYPE_CODES, route, wants_grad
+from .sparse_conv import (
+    DTYPE_CODES,
+    launch_k_tf32,
+    launch_wgmma,
+    sparse_conv_plain,
+    wants_grad,
+)
 from .voxelize import run_sums
 
 
@@ -59,6 +76,10 @@ class StridedTables:
             counts; children of c are PERMUTED rows [starts[c], starts[c+1]).
     pairs:  `slot_pair_lists` of these tables, for K5's tensor-core route
             (train topologies; None: the wrapper builds them per call).
+    child:  `slot_child_table` of these tables, (rounds, 8, V_coarse)
+            int32, read by K3-down's routes (None: built per call).
+    child_order: `mask_row_order(child[0])` where child has one round
+            (None: built per call).
     """
 
     parent: torch.Tensor
@@ -66,6 +87,8 @@ class StridedTables:
     perm: torch.Tensor
     starts: torch.Tensor
     pairs: Optional[PairLists] = None
+    child: Optional[torch.Tensor] = None
+    child_order: Optional[torch.Tensor] = None
 
 
 def build_strided_tables(
@@ -126,28 +149,67 @@ def slot_pair_lists(tables: StridedTables) -> PairLists:
     return PairLists(pairs=out[:v].view(torch.int32).view(v, 2), starts=starts)
 
 
-def downsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of `downsample_conv_apply` takes: "mma" or
-    "simt", by K2's rule (`sparse_conv.route`)."""
-    return route(dtype, c_in, c_out)
+def downsample_route(dtype: torch.dtype, c_in: int, c_out: int, rounds: int = 1) -> str:
+    """The kernel a CUDA call of `downsample_conv_apply` takes, from its
+    child table's rounds (`StridedTables.child.shape[0]`) and widths: over
+    one round "wgmma" (K2's wgmma tile at K = 8) for bf16 with C_in and
+    C_out multiples of 8, "tf32x3" (K2 at K's 3xTF32 tile) for f32 with
+    both multiples of 4, else "simt" (K3-down's CUDA-core kernel); over
+    several rounds "rounds": K3-down's round kernels of
+    csrc/strided_conv.cu (its tensor-core one for bf16 with widths in 8s,
+    else its CUDA-core one), which walk each cell's children themselves."""
+    if rounds > 1:
+        return "rounds"
+    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
+        return "wgmma"
+    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
+        return "tf32x3"
+    return "simt"
+
+
+def down_tf32_splits(v_coarse: int, c_in: int) -> int:
+    """Parts of each tile's chain of K3-down's 3xTF32 route: K2 at K's
+    rule (`sparse_conv.k_splits`), at most one per 16 stages of the full
+    chain (8 slots x C_in chunks of 32): a child table's tiles run 1-3
+    slots each, too few stages to share (as the wgmma route's rule)."""
+    return max(1, min(_sc.k_splits(v_coarse), 8 * -(-c_in // 32) // 16))
 
 
 def upsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of `upsample_conv_apply` takes: "mma" or
-    "simt", by K2's rule (`sparse_conv.route`)."""
-    return route(dtype, c_in, c_out)
+    """The kernel a CUDA call of `upsample_conv_apply` takes: "mma"
+    (the mma.sync tile) for bf16 with C_in and C_out multiples of 8,
+    else "simt"."""
+    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
+        return "mma"
+    return "simt"
 
 
-def slot_child_table(tables: StridedTables) -> torch.Tensor:
+def slot_child_table(tables: StridedTables, rounds: Optional[int] = None) -> torch.Tensor:
     """(rounds, 8, V_coarse) int32: entry [q, s, c] is the q-th child of
     coarse row c at slot s, in `perm` order, -1 for none; children with
-    parent < 0 are skipped.  It is the table that the tensor-core down
-    kernel builds in shared memory, round by round, so that
+    parent < 0 are skipped.  It is the table of K3-down as a conv over 8
+    offsets:
 
         out[c] = sum_q sum_s feats[table[q, s, c]] @ W[s]
 
     One round covers a cell whose children have distinct slots; more
-    rounds come only from cells that fold negative coordinates."""
+    rounds come only from cells that fold negative coordinates.  With
+    `rounds=1` the caller vouches for that (non-negative coordinates: the
+    host pipelines shift them): one scatter of the live rows by (slot,
+    parent), nothing read back.  Else the rounds are counted (one read of
+    the largest rank) and at least one is built."""
+    if rounds == 1:
+        parent = tables.parent
+        v_coarse = tables.starts.shape[0] - 1
+        live = parent >= 0
+        f = torch.arange(parent.shape[0], dtype=torch.int32, device=parent.device)
+        # dead rows all go to one spare column, cut off below
+        dest = torch.where(live, (tables.slot.long() & 7) * (v_coarse + 1) + parent.long(), v_coarse)
+        table = torch.full((8 * (v_coarse + 1),), -1, dtype=torch.int32, device=parent.device)
+        table.scatter_(0, dest, torch.where(live, f, -1))
+        return table.view(1, 8, v_coarse + 1)[:, :, :v_coarse].contiguous()
+    if rounds is not None:
+        raise ValueError(f"rounds: 1 or None (counted), got {rounds}")
     starts = tables.starts.long()
     v_coarse = starts.shape[0] - 1
     dev = starts.device
@@ -163,7 +225,7 @@ def slot_child_table(tables: StridedTables) -> torch.Tensor:
     first = torch.searchsorted(k_sorted, k_sorted)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.shape[0], device=dev) - first
-    rounds = int(rank.max()) + 1 if rank.numel() else 0
+    rounds = int(rank.max()) + 1 if rank.numel() else 1
     table = torch.full((rounds, 8, v_coarse), -1, dtype=torch.int32, device=dev)
     table[rank, key % 8, cell] = f.to(torch.int32)
     return table
@@ -190,12 +252,24 @@ def downsample_conv_plain(feats, weight, tables: StridedTables):
     return run_sums(h[tables.perm.long()], tables.starts).to(feats.dtype)
 
 
+def downsample_conv_slot_plain(feats, weight, child: torch.Tensor):
+    """The down conv over a child table (rounds, 8, V_coarse), the
+    arithmetic of its K2-tile routes: per round, the per-slot gather +
+    f32 matmul of `sparse_conv.sparse_conv_plain`, summed in f32 over the
+    rounds and rounded once."""
+    out = None
+    for q in range(child.shape[0]):
+        c = sparse_conv_plain(feats.float(), weight.float(), child[q])
+        out = c if out is None else out + c
+    return out.to(feats.dtype)
+
+
 def upsample_conv_plain(feats, weight, tables: StridedTables):
     g = _parent_gather(feats, tables)
     return _slot_matmul(g, weight, tables).to(feats.dtype)
 
 
-def _check(feats, weight, tables, v_fine, v_coarse):
+def _check_weights(feats, weight):
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
@@ -204,6 +278,11 @@ def _check(feats, weight, tables, v_fine, v_coarse):
             f"weight {tuple(weight.shape)} does not fit feats "
             f"{tuple(feats.shape)}: expected (8, C_in, C_out)"
         )
+
+
+def _check(feats, weight, tables, v_fine, v_coarse):
+    dev = feats.device
+    _check_weights(feats, weight)
     for name in ("parent", "slot", "perm"):
         t = getattr(tables, name)
         _build.check(name, t, (torch.int32,), 1, dev)
@@ -221,11 +300,17 @@ def downsample_conv_apply(
     *, dgrad: bool = False,
 ) -> torch.Tensor:
     """feats (V_fine, Ci), weight (8, Ci, Co) in feats' dtype ->
-    (V_coarse, Co).  `dgrad` marks an input-gradient call (counted under
+    (V_coarse, Co).  The route (`downsample_route`) reads the child
+    table's rounds: `tables.child` and `tables.child_order` (built here,
+    with one host read for the rounds, where the topology gave none).
+    `dgrad` marks an input-gradient call (counted under
     `strided_down_dgrad` too)."""
     v_fine = feats.shape[0]
     v_coarse = tables.starts.shape[0] - 1
-    _check(feats, weight, tables, v_fine, v_coarse)
+    if tables.child is None or not _build.dispatch(feats):
+        _check(feats, weight, tables, v_fine, v_coarse)
+    else:  # the child table's routes read no other table
+        _check_weights(feats, weight)
     if not _build.dispatch(feats):
         return downsample_conv_plain(feats, weight, tables)
     c_in, c_out = weight.shape[1], weight.shape[2]
@@ -234,20 +319,40 @@ def downsample_conv_apply(
         return out
     if v_fine == 0 or c_in == 0:
         return out.zero_()
+    child = tables.child if tables.child is not None else slot_child_table(tables)
+    _build.check("child", child, (torch.int32,), 3, feats.device)
+    if child.shape[1:] != (8, v_coarse):
+        raise ValueError(f"child {tuple(child.shape)} does not fit (rounds, 8, {v_coarse})")
+    r = downsample_route(feats.dtype, c_in, c_out, child.shape[0])
+    if r in ("rounds", "simt") and tables.child is not None:
+        _check(feats, weight, tables, v_fine, v_coarse)
+    order = tables.child_order if tables.child is not None else None
+    if r == "wgmma":
+        launch_wgmma(
+            feats, weight, child[0], order, out,
+            _build.counters("strided_down", dgrad=dgrad, suffix="_wgmma"),
+            entry="taseg_strided_down_wgmma",
+        )
+        return out
+    if r == "tf32x3":
+        launch_k_tf32(
+            feats, weight, child[0], order, out,
+            _build.counters("strided_down", dgrad=dgrad, suffix="_tf32"),
+            splits=down_tf32_splits(v_coarse, c_in),
+        )
+        return out
     ptrs = (
         feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
         tables.slot.data_ptr(), tables.perm.data_ptr(),
         tables.starts.data_ptr(), out.data_ptr(),
     )
-    if downsample_route(feats.dtype, c_in, c_out) == "mma":
+    counters = _build.counters("strided_down", dgrad=dgrad, suffix="_rounds" if r == "rounds" else "")
+    if r == "rounds" and feats.dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
         _build.check_aligned(feats=feats, weight=weight)
-        _build.launch(
-            "taseg_strided_down_mma", _build.counters("strided_down", dgrad=dgrad, suffix="_mma"),
-            *ptrs, v_coarse, c_in, c_out,
-        )
+        _build.launch("taseg_strided_down_mma", counters, *ptrs, v_coarse, c_in, c_out)
     else:
         _build.launch(
-            "taseg_strided_down", _build.counters("strided_down", dgrad=dgrad),
+            "taseg_strided_down", counters,
             *ptrs, v_fine, v_coarse, c_in, c_out, DTYPE_CODES[feats.dtype],
         )
     return out
@@ -385,7 +490,8 @@ class DownConv(torch.autograd.Function):
 
 class UpConv(torch.autograd.Function):
     """`upsample_conv_apply` with its gradient (JAX `_up_bwd`): d_feats =
-    down(g, W^T) through K3-down, d_W through K5, which gathers the
+    down(g, W^T) through K3-down (over the level's child table and order,
+    as the forward's down conv), d_W through K5, which gathers the
     coarse rows by parent itself (the (V_fine, C_in) gathered rows that
     the JAX forward keeps are not saved)."""
 

@@ -9,8 +9,14 @@ with
 Tolerances as in chip_smoke.py: f32 within 1e-5 (1e-4 for the down
 conv, whose plain version sums with a mean-centred cumsum) of the
 largest sum of |terms|; bf16 adds one bf16 rounding of the output.
-bf16 cases with widths that are multiples of 8 take the tensor-core
-route of K2 and K3, f32 and ragged cases the CUDA-core route.  K1, the
+bf16 cases with widths that are multiples of 8 take the Hopper wgmma
+route of K2 and K3-down (over row orders, chains cut on small tables)
+and the mma.sync tile of K3-up; f32 K3-down over a one-round child
+table K2 at K's 3xTF32 tile; child tables of several rounds (negative
+coordinates) K3-down's round kernels; f32 and ragged cases the
+CUDA-core route.  The wgmma route is held at every (C_in, C_out) of the
+MinkUNet path and its input gradients, with and without split chains,
+and to the same bits on repeat.  K1, the
 single-pass join scan, is bit-exact in both modes at tile edges, at the
 main path's largest size, and across calls that reuse and grow its
 look-back state.
@@ -177,9 +183,9 @@ def _check_k3(rng, rb, dtype, c_in, c_out):
     w = torch.from_numpy(rng.normal(size=(27, c_in, c_out)).astype(np.float32)).to(dev, dtype)
     _build.reset_launches()
     got = tsc.sparse_conv_k3(x, w, rb)
-    mma = tsc.route(dtype, c_in, c_out) == "mma"
+    wg = tsc.route(dtype, c_in, c_out) == "wgmma"
     assert _build.LAUNCHES["sparse_conv_k3"] == 1
-    assert _build.LAUNCHES["sparse_conv_k3_mma"] == int(mma)
+    assert _build.LAUNCHES["sparse_conv_k3_wgmma"] == int(wg)
     _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), dtype, 1e-5)
     return got
 
@@ -282,15 +288,19 @@ def _down_case(dev, case):
 @pytest.mark.parametrize("c_in,c_out", [(32, 32), (64, 64), (128, 128)])
 def test_strided_down_kernel(cuda, dtype, case, c_in, c_out):
     """K3-down at the main path's widths (32->32 twice, 64->64,
-    128->128): bf16 on the tensor-core route, f32 on CUDA cores."""
+    128->128): over a one-round child table bf16 on the wgmma route, f32
+    on 3xTF32; over several rounds (`negative`) the round kernels."""
     rng, v_fine, tab, n2 = _down_case(cuda, case)
     x = torch.from_numpy(rng.normal(size=(v_fine, c_in)).astype(np.float32)).to(cuda, dtype)
     w = torch.from_numpy(rng.normal(size=(8, c_in, c_out)).astype(np.float32)).to(cuda, dtype)
     _build.reset_launches()
     got = tst.downsample_conv_apply(x, w, tab)
-    mma = tst.downsample_route(dtype, c_in, c_out) == "mma"
-    assert mma == (dtype == torch.bfloat16)
-    assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_mma"]) == (1, int(mma))
+    rounds = tst.slot_child_table(tab).shape[0]
+    r = tst.downsample_route(dtype, c_in, c_out, rounds)
+    want = "rounds" if case == "negative" else ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    assert r == want
+    entry = {"wgmma": "strided_down_wgmma", "tf32x3": "strided_down_tf32", "rounds": "strided_down_rounds"}[r]
+    assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES[entry]) == (1, 1)
     _close(
         got, tst.downsample_conv_plain(x, w, tab),
         tst.downsample_conv_plain(x.abs(), w.abs(), tab), dtype, 1e-4,
@@ -299,6 +309,97 @@ def test_strided_down_kernel(cuda, dtype, case, c_in, c_out):
         assert not got[n2:].any()
     if case == "dead":
         assert not got[64:128].any()
+
+
+# every (C_in, C_out) of MinkUNet mk34 cr1.0's 3^3 convs but the stem's
+# C_in = 4, then their input gradients' (swapped; 256 -> 384 takes two
+# 256-wide column blocks)
+K2_WGMMA_WIDTHS = [
+    (32, 32), (32, 64), (64, 64), (64, 128), (96, 96), (128, 96), (128, 128),
+    (128, 256), (192, 128), (256, 256), (384, 256),
+    (64, 32), (96, 128), (128, 64), (128, 192), (256, 128), (256, 384),
+]
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("c_in,c_out", K2_WGMMA_WIDTHS)
+def test_k2_wgmma_path_widths(cuda, monkeypatch, c_in, c_out, splits):
+    """K2's wgmma route at every width of the path (bf16, within 1e-5 of
+    the largest sum of |terms| plus one bf16 rounding), uncut and with
+    each tile's chain in 3 parts; the same bits on repeat and with the
+    order given; the flipped table (an input gradient's) over the same
+    order."""
+    monkeypatch.setattr(tsc, "wgmma_splits", lambda *shape: splits)
+    rng, u, num, b = _level(cuda, seed=c_in + 3 * c_out)
+    rb = tr.build_rulebook_k3(u, num, 1, b)
+    x = _rand(rng, (rb.shape[1], c_in), cuda, torch.bfloat16)
+    w = _rand(rng, (27, c_in, c_out), cuda, torch.bfloat16)
+    assert tsc.route(torch.bfloat16, c_in, c_out) == "wgmma"
+    _build.reset_launches()
+    got = _twice_same(lambda: tsc.sparse_conv_k3(x, w, rb))
+    order = tsc.mask_row_order(rb)
+    assert torch.equal(got, tsc.sparse_conv_k3(x, w, rb, order=order))
+    assert (_build.LAUNCHES["sparse_conv_k3"], _build.LAUNCHES["sparse_conv_k3_wgmma"]) == (3, 3)
+    _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb),
+           torch.bfloat16, 1e-5)
+    flip = tsc.flip_rulebook(rb)
+    back = tsc.sparse_conv_k3(x, w, flip, dgrad=True, order=order)
+    assert _build.LAUNCHES["sparse_conv_k3_dgrad_wgmma"] == 1
+    _close(back, tsc.sparse_conv_plain(x, w, flip), tsc.sparse_conv_plain(x.abs(), w.abs(), flip),
+           torch.bfloat16, 1e-5)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("case", ["ragged", "empty", "one_row", "dense"])
+def test_k2_wgmma_edges(cuda, monkeypatch, case, splits):
+    """The wgmma route at 27 offsets on random tables (through K2 at K,
+    whose V_in may differ from V_out): V_out = 1000 over V_in = 777
+    (ragged tiles, ~2/3 of the entries present), a table with no present
+    entry (zeros out, every tile empty), one output row (a one-row tile),
+    every entry present (a dense chain in every tile); 32 -> 32, 96 ->
+    96, 40 -> 24 (a 24-wide tail of a 32-column block, a 40-channel tail
+    of a 32-channel stage) and 256 -> 384; uncut and in 4 parts, the same
+    bits on repeat."""
+    monkeypatch.setattr(tsc, "wgmma_splits", lambda *shape: splits)
+    rng = np.random.default_rng(splits)
+    v_in, v_out = {"ragged": (777, 1000), "empty": (300, 200), "one_row": (50, 1), "dense": (500, 700)}[case]
+    rb = rng.integers(0, v_in, (27, v_out))
+    rb[rng.random((27, v_out)) < {"empty": 1.0, "dense": 0.0}.get(case, 0.35)] = -1
+    rb = torch.tensor(rb, dtype=torch.int32, device=cuda)
+    for c_in, c_out in ((32, 32), (96, 96), (40, 24), (256, 384)):
+        x = _rand(rng, (v_in, c_in), cuda, torch.bfloat16)
+        w = _rand(rng, (27, c_in, c_out), cuda, torch.bfloat16)
+        _build.reset_launches()
+        out = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+        assert _build.LAUNCHES["sparse_conv_k_wgmma"] == 2
+        if case == "empty":
+            assert not out.any()
+        _close(out, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb),
+               torch.bfloat16, 1e-5)
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c_in,c_out", [(96, 96), (96, 128), (128, 256), (256, 256)])
+def test_strided_down_input_gradient_widths(cuda, monkeypatch, dtype, c_in, c_out, splits):
+    """K3-down at the widths of the up convs' input gradients (W^T of
+    96 -> 96, 128 -> 96, 256 -> 128, 256 -> 256) over the one-round child
+    table and its order as the topology builds them: bf16 on wgmma, f32
+    on 3xTF32, chains uncut and in 2 parts; the same bits on repeat."""
+    monkeypatch.setattr(tsc, "wgmma_splits", lambda *shape: splits)
+    monkeypatch.setattr(tsc, "k_splits", lambda v: splits)
+    rng, v_fine, tab, n2 = _down_case(cuda, "path")
+    child = tst.slot_child_table(tab, rounds=1)
+    assert torch.equal(child, tst.slot_child_table(tab))
+    tab = replace(tab, child=child, child_order=tsc.mask_row_order(child[0]))
+    x = _rand(rng, (v_fine, c_in), cuda, dtype)
+    w = _rand(rng, (8, c_in, c_out), cuda, dtype)
+    _build.reset_launches()
+    got = _twice_same(lambda: tst.downsample_conv_apply(x, w, tab, dgrad=True))
+    entry = "strided_down_dgrad_wgmma" if dtype == torch.bfloat16 else "strided_down_dgrad_tf32"
+    assert (_build.LAUNCHES["strided_down_dgrad"], _build.LAUNCHES[entry]) == (2, 2)
+    _close(got, tst.downsample_conv_plain(x, w, tab), tst.downsample_conv_plain(x.abs(), w.abs(), tab),
+           dtype, 1e-4)
 
 
 def test_launch_counters_count_kernel_launches(cuda):
@@ -312,10 +413,14 @@ def test_launch_counters_count_kernel_launches(cuda):
 
 def test_launch_counters_per_route(cuda):
     """Every K3 launch counts under strided_down / strided_up; the
-    tensor-core ones under strided_down_mma / strided_up_mma too."""
+    tensor-core ones under their route's entry too: strided_up_mma,
+    K3-down over a one-round child table strided_down_wgmma (bf16) or
+    strided_down_tf32 (f32), over several rounds strided_down_rounds."""
     _, u, num, b = _level(cuda, seed=6)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
     tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
+    assert tst.slot_child_table(tab).shape[0] > 1  # coordinates around 0
+    one = replace(tab, child=tst.slot_child_table(tab)[:1])  # one round of it
     for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
         _build.reset_launches()
         x = torch.ones(c2.shape[0], 16, device=cuda, dtype=dtype)
@@ -323,7 +428,10 @@ def test_launch_counters_per_route(cuda):
         assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
         xf = torch.ones(u.shape[0], 16, device=cuda, dtype=dtype)
         tst.downsample_conv_apply(xf, torch.ones(8, 16, 8, device=cuda, dtype=dtype), tab)
-        assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_mma"]) == (1, mma)
+        assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_rounds"]) == (1, 1)
+        tst.downsample_conv_apply(xf, torch.ones(8, 16, 8, device=cuda, dtype=dtype), one)
+        entry = "strided_down_wgmma" if mma else "strided_down_tf32"
+        assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES[entry]) == (2, 1)
         assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
 
 
@@ -341,17 +449,17 @@ def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):
     rb = torch.full((27, 64), -1, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="nvcc"):
         tsc.sparse_conv_k3(x, torch.zeros(27, 8, 4, device=cuda), rb)
-    # the tensor-core route (bf16, widths multiples of 8) raises too
-    assert tsc.route(torch.bfloat16, 8, 8) == "mma"
+    # the wgmma route (bf16, widths multiples of 8) raises too
+    assert tsc.route(torch.bfloat16, 8, 8) == "wgmma"
     with pytest.raises(RuntimeError, match="nvcc"):
         tsc.sparse_conv_k3(x.bfloat16(), torch.zeros(27, 8, 8, device=cuda, dtype=torch.bfloat16), rb)
-    # and so do K3-down's tensor-core route and K1
+    # and so do K3-down's wgmma route and K1
     i32 = dict(dtype=torch.int32, device=cuda)
     tab = tst.StridedTables(
         parent=torch.zeros(64, **i32), slot=torch.zeros(64, **i32),
         perm=torch.arange(64, **i32), starts=torch.tensor([0, 64], **i32),
     )
-    assert tst.downsample_route(torch.bfloat16, 8, 8) == "mma"
+    assert tst.downsample_route(torch.bfloat16, 8, 8) == "wgmma"
     with pytest.raises(RuntimeError, match="nvcc"):
         tst.downsample_conv_apply(x.bfloat16(), torch.zeros(8, 8, 8, device=cuda, dtype=torch.bfloat16), tab)
     k = torch.zeros(64, **i32)
@@ -479,9 +587,11 @@ def test_segment_sum_kernel_edges(cuda):
 def test_backward_routes_and_counts(cuda):
     """Autograd through the k3 conv and the strided pair on the card: the
     input gradients run K2 / K3 on W^T and count under `_dgrad`, on the
-    tensor-core route where the forward takes it (bf16, widths % 8 == 0);
-    in f32 the k3 conv takes K2 and K4 at K = 27 on 3xTF32 (`k_route`)
-    and the strided pair CUDA cores; every d_W runs K4 / K5 once."""
+    tensor-core routes where the forward takes them (bf16, widths % 8 ==
+    0: K2 on wgmma, K3-up on mma); in f32 the k3 conv takes K2 and K4 at K
+    = 27 on 3xTF32 (`k_route`) and K3-up CUDA cores; the level's
+    coordinates straddle 0, so K3-down takes its round kernel in both;
+    every d_W runs K4 / K5 once."""
     rng, u, num, b = _level(cuda, seed=51)
     rb = tr.build_rulebook_k3(u, num, 1, b)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
@@ -496,10 +606,10 @@ def test_backward_routes_and_counts(cuda):
         _build.reset_launches()
         y.float().square().sum().backward()
         L = _build.LAUNCHES
-        k3 = (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_mma"], L["k3_conv_dw"])
+        k3 = (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_wgmma"], L["k3_conv_dw"])
         k27 = (L["sparse_conv_k_dgrad_tf32"], L["sparse_conv_dw_tf32"])
         assert (k3, k27) == (((1, 1, 1), (0, 0)) if mma else ((0, 0, 0), (1, 1)))
-        assert (L["strided_down_dgrad"], L["strided_down_dgrad_mma"]) == (1, mma)
+        assert (L["strided_down_dgrad"], L["strided_down_dgrad_rounds"]) == (1, 1)
         assert (L["strided_up_dgrad"], L["strided_up_dgrad_mma"]) == (1, mma)
         assert L["strided_dw"] == 2
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, w, wd, wu))
@@ -1012,8 +1122,8 @@ def test_sparse_conv_k_kernel(cuda, dtype, kind, c_in, c_out):
     w = _rand(rng, (rb.shape[0], c_in, c_out), cuda, dtype)
     _build.reset_launches()
     got = tsc.sparse_conv(x, w, rb)
-    mma = tsc.route(dtype, c_in, c_out) == "mma"
-    assert (_build.LAUNCHES["sparse_conv_k"], _build.LAUNCHES["sparse_conv_k_mma"]) == (1, int(mma))
+    wg = tsc.route(dtype, c_in, c_out) == "wgmma"
+    assert (_build.LAUNCHES["sparse_conv_k"], _build.LAUNCHES["sparse_conv_k_wgmma"]) == (1, int(wg))
     assert _build.LAUNCHES["sparse_conv_k3"] == 0
     assert got.shape == (rb.shape[1], c_out)
     _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), dtype, 1e-5)
@@ -1099,7 +1209,7 @@ def test_sparse_conv_k_tf32_kernel(cuda, kind, c_in, c_out):
     got = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
     assert torch.equal(got, tsc.sparse_conv(x, w, rb, order=tsc.mask_row_order(rb)))
     L = _build.LAUNCHES
-    assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_k_mma"], L["sparse_conv_k3"]) == (3, 3, 0, 0)
+    assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_k_wgmma"], L["sparse_conv_k3"]) == (3, 3, 0, 0)
     _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
 
 

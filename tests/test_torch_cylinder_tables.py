@@ -264,13 +264,13 @@ def test_3xtf32_emulation_holds_the_f32_tolerance(c_in, c_out):
 
 
 def test_k_route():
-    """f32 at cy480's widths: the 3xTF32 route; bf16 the tensor-core tile
+    """f32 at cy480's widths: the 3xTF32 route; bf16 the wgmma tile
     where both widths are multiples of 8 (not the head's 20 classes);
     ragged widths the CUDA-core kernel in both; the split rule of K2's
     3xTF32 route at cy480's level capacities."""
     for a, b in CY480:
         assert tsc.k_route(torch.float32, a, b) == "tf32x3"
-        want = "mma" if a % 8 == 0 and b % 8 == 0 else "simt"
+        want = "wgmma" if a % 8 == 0 and b % 8 == 0 else "simt"
         assert tsc.k_route(torch.bfloat16, a, b) == want
     assert tsc.k_route(torch.bfloat16, 128, 20) == "simt"
     for a, b in ((37, 20), (16, 30), (6, 32)):

@@ -1,10 +1,12 @@
 """Which kernel each conv of the main path takes on the card, decided on the
-CPU from the modules' widths: K2 (`sparse_conv.route`), K3-down
-(`strided_conv.downsample_route`) and K3-up (`strided_conv.upsample_route`)
-K4 and K5, the weight gradients of the k3 conv and of the strided pair
-(`f3conv.dw_route`), take the tensor-core route ("mma") in bf16 where
-C_in and C_out are multiples of 8, the CUDA-core route ("simt") in f32
-and at ragged widths.
+CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-down
+(`strided_conv.downsample_route`, over a one-round child table) take the
+Hopper wgmma tile ("wgmma") in bf16 where C_in and C_out are multiples of
+8; K3-up (`strided_conv.upsample_route`), K4 and K5, the weight gradients
+of the k3 conv and of the strided pair (`f3conv.dw_route`), take the
+mma.sync tiles ("mma") there; K3-down takes K2 at K's 3xTF32 tile
+("tf32x3") in f32 with widths in 4s; the rest the CUDA-core route
+("simt").
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
 import pytest
@@ -37,7 +39,7 @@ def test_k2_routes_in_bf16(convs):
     routes = {n: tsc.route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert len(k3) == 48
     assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
-    assert sum(r == "mma" for r in routes.values()) == 47
+    assert sum(r == "wgmma" for r in routes.values()) == 47
 
 
 def test_k4_routes_in_bf16(convs):
@@ -74,12 +76,12 @@ def test_k3_up_routes_in_bf16(convs):
 
 def test_k3_down_routes_in_bf16(convs):
     """All four strided 8-point convs (down1-down4, C_in = C_out) are on
-    tensor cores: 4 of the 4 K3-down launches of a scan."""
+    the wgmma tile: 4 of the 4 K3-down launches of a scan."""
     down = {n: m for n, m in convs.items() if m.kernel_volume == 8 and not m.transposed}
     assert sorted(down) == [f"down{l}.SparseConv_0" for l in range(1, 5)]
     widths = [(down[n].in_channels, down[n].out_channels) for n in sorted(down)]
     assert widths == [(32, 32), (32, 32), (64, 64), (128, 128)]
-    assert all(tst.downsample_route(torch.bfloat16, *wd) == "mma" for wd in widths)
+    assert all(tst.downsample_route(torch.bfloat16, *wd) == "wgmma" for wd in widths)
 
 
 def test_input_gradient_routes_in_bf16(convs):
@@ -87,20 +89,27 @@ def test_input_gradient_routes_in_bf16(convs):
     with C_in and C_out swapped: the 47 of K2 (every 27-point conv but
     the stem's first, whose input needs no gradient), the 4 of K3-up
     (down's backward) and the 4 of K3-down (the deconvs' backward) all
-    take the tensor-core route."""
+    take the tensor-core routes (K2 and K3-down the wgmma tile)."""
     k3 = [m for n, m in convs.items() if m.kernel_volume == 27 and n != "stem_0.SparseConv_0"]
     assert len(k3) == 47
-    assert all(tsc.route(torch.bfloat16, m.out_channels, m.in_channels) == "mma" for m in k3)
+    assert all(tsc.route(torch.bfloat16, m.out_channels, m.in_channels) == "wgmma" for m in k3)
     for m in (m for m in convs.values() if m.kernel_volume == 8):
-        back = tst.downsample_route if m.transposed else tst.upsample_route
-        assert back(torch.bfloat16, m.out_channels, m.in_channels) == "mma"
+        if m.transposed:
+            assert tst.downsample_route(torch.bfloat16, m.out_channels, m.in_channels) == "wgmma"
+        else:
+            assert tst.upsample_route(torch.bfloat16, m.out_channels, m.in_channels) == "mma"
 
 
 def test_f32_routes_stay_on_cuda_cores(convs):
+    """f32 keeps K2 at 27 (its f32 calls go to K2 at K through `k_route`),
+    K3-up, K4 and K5 on CUDA cores; K3-down over a one-round child table
+    takes K2 at K's 3xTF32 tile (every width of the path is a multiple
+    of 4), over several rounds its round kernel."""
     for m in convs.values():
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
-        assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "tf32x3"
+        assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels, 2) == "rounds"
         assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels) == "simt"
 
 
@@ -112,9 +121,13 @@ def test_f32_routes_stay_on_cuda_cores(convs):
     ],
 )
 def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
-    assert tsc.route(torch.bfloat16, c_in, c_out) == want
+    """`want` is the route of the mma.sync tiles; K2 and K3-down take the
+    wgmma tile at the same widths."""
+    wide = "wgmma" if want == "mma" else want
+    assert tsc.route(torch.bfloat16, c_in, c_out) == wide
     assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
-    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == want
+    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == wide
+    assert tst.downsample_route(torch.bfloat16, c_in, c_out, 3) == "rounds"
     assert tf3.dw_route(torch.bfloat16, c_in, c_out) == want
     assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"
 
@@ -158,15 +171,17 @@ def test_k5_mma_splits_from_shapes(v, c_in, c_out):
 
 def test_launch_counters_have_the_route_entries():
     assert set(_build.LAUNCHES) == {
-        "join_scan", "sparse_conv_k3", "sparse_conv_k3_mma",
-        "strided_down", "strided_down_mma", "strided_up", "strided_up_mma",
-        "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_mma",
-        "strided_down_dgrad", "strided_down_dgrad_mma",
+        "join_scan", "sparse_conv_k3", "sparse_conv_k3_wgmma",
+        "strided_down", "strided_down_wgmma", "strided_down_tf32", "strided_down_rounds",
+        "strided_up", "strided_up_mma",
+        "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_wgmma",
+        "strided_down_dgrad", "strided_down_dgrad_wgmma", "strided_down_dgrad_tf32",
+        "strided_down_dgrad_rounds",
         "strided_up_dgrad", "strided_up_dgrad_mma",
         "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
         "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
-        "sparse_conv_k", "sparse_conv_k_mma", "sparse_conv_k_dgrad",
-        "sparse_conv_k_dgrad_mma", "sparse_conv_dw",
+        "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
+        "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",
         "sparse_conv_k_tf32", "sparse_conv_k_dgrad_tf32", "sparse_conv_dw_tf32",
     }
     _build.reset_launches()
