@@ -47,8 +47,10 @@ checks them:
   5. the train path, `Trainer` of the same model in bf16: the backward
      kernels K4 k3_conv_dw (tensor cores over the level's pair lists in
      bf16, CUDA cores in f32 and for the stem's 4 -> 32), K5 strided_dw
-     (tensor cores over the level's per-slot pair lists in bf16, CUDA
-     cores in f32), K6 segment_sum (each of its 4 calls named and timed),
+     (one launch over the level's per-slot pair lists: wgmma in bf16,
+     3xTF32 in f32), K6 segment_sum (each of its 4 calls named and timed,
+     one launch each, its bound recounted for the entries it reads),
+     K5 and K6 with their device time beside their yardstick's,
      and the input-gradient calls of K2 and K3 on both routes (K2 and
      K3-down over the level's order and child table, beside the mma.sync
      3's tiles), at every shape that one real step gives them, against
@@ -215,7 +217,7 @@ KERNEL_NAMES = {
     "strided_up": ("strided_up",),
     "segment_sum": ("segment_sum_",),
     "k3_conv_dw": ("PairsK3", "K3Lists"),
-    "strided_dw": ("PairsStrided", "SlotLists"),
+    "strided_dw": ("PairsStrided", "strided_dw_"),
     "devoxelize": ("devox_kernel",),
     # K7's 4-corner instances (a tuple: every fragment must appear)
     "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
@@ -228,7 +230,7 @@ TRAIN_STEPS = 4
 # gradients (the stem's first conv takes none), all but the stem's
 # forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
 # the stem's first (4 -> 32) on tensor cores, K5 one per strided conv, all
-# on tensor cores; K6 the voxelize forward and the 3 devox backwards; K7
+# on the wgmma tile; K6 the voxelize forward and the 3 devox backwards; K7
 # the 3 devox forwards
 TRAIN_PER_STEP = {
     "join_scan": 5,
@@ -238,7 +240,7 @@ TRAIN_PER_STEP = {
     "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4,
     "strided_up": 8, "strided_up_mma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
-    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_mma": 8,
+    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_wgmma": 8,
     "segment_sum": 4, "devoxelize": 3, "devoxelize_bilinear": 0, "voxelize_bwd": 0,
 }
 
@@ -361,15 +363,15 @@ def named(key: str, frags) -> bool:
 def device_ms(fn, frags, iters: int = 10):
     """Mean device time per call of `fn`'s kernels whose names hold one
     of `frags`, from torch.profiler's device events over `iters` calls after
-    one warm-up (a second try where the first records none); None where
-    neither does.  Unlike `cuda_ms` it leaves out the host's cost per
+    one warm-up (up to three tries where one records none); None where
+    none does.  Unlike `cuda_ms` it leaves out the host's cost per
     launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -501,10 +503,10 @@ def conv_library_ms(name: str, x, w, table) -> float:
     return ms
 
 
-def dw_library_ms(name: str, x, y, table, up: bool = False) -> float:
+def dw_library(name: str, x, y, table, up: bool = False):
     """One torch.mm that computes a weight gradient of K4 / K5: x^T @ the
     cotangent rows gathered per offset or slot side by side (zero where
-    absent)."""
+    absent), as a call on rows gathered beforehand."""
     import torch
 
     from taseg_tpu_torch.ops.strided_conv import slot_child_table
@@ -515,9 +517,47 @@ def dw_library_ms(name: str, x, y, table, up: bool = False) -> float:
         b = gathered_rows(y, slot_child_table(table)[0])
     else:  # x fine rows, y coarse rows at each fine row's slot
         b = gathered_rows(y, slot_rows(table))
-    ms = cuda_ms(lambda: torch.mm(x.t(), b))
-    del b
-    return ms
+    xt = x.t()
+    return lambda: torch.mm(xt, b)
+
+
+def dw_library_ms(name: str, x, y, table, up: bool = False) -> float:
+    return cuda_ms(dw_library(name, x, y, table, up))
+
+
+def k6_library(x, t, w):
+    """K6's yardstick on one call: zero the (V, C) output and
+    `index_add_` the call's (weighted) real rows, prepared beforehand,
+    into their segments."""
+    import torch
+
+    v = t.starts.shape[0] - 1
+    r_real = t.perm.shape[0] - v
+    p, c = x.shape
+    seg = torch.repeat_interleave(torch.arange(v, device=x.device), (t.starts[1:] - t.starts[:-1]).long())
+    members = t.perm[: seg.shape[0]]
+    keep = members < r_real
+    rows_idx = members[keep]
+    rows = x[rows_idx % p].float()
+    if w is not None:
+        rows = rows * w.reshape(-1)[rows_idx][:, None]
+    ids = seg[keep]
+    out = torch.zeros(v, c, device=x.device)
+    return lambda: out.zero_().index_add_(0, ids, rows)
+
+
+def k6_bytes(x, t, w) -> tuple[int, int]:
+    """(bytes, the sentinel-inclusive count) of one K6 call: starts, the
+    real members' perm entries (8 bytes) and weights (4), src read once
+    and out written once; the earlier count read a perm entry for every
+    sorted row, the sentinels' included, and every weight."""
+    v = t.starts.shape[0] - 1
+    r_real = t.perm.shape[0] - v
+    members = int(t.starts[-1]) - v
+    common = (v + 1) * 4 + x.numel() * x.element_size() + v * x.shape[1] * 4
+    new = common + members * (8 + (4 if w is not None else 0))
+    old = common + t.perm.numel() * 8 + (r_real * 4 if w is not None else 0)
+    return new, old
 
 
 def k1_call(topo, l: int):
@@ -1205,10 +1245,10 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
                 if route == "mma" and not torch.equal(f3conv.k3_conv_dw(xd, sd, a[2]), got):
                     raise AssertionError(f"{key}: K4 differs with pair lists built by the wrapper")
             if name == "strided_dw":
-                route = f3conv.dw_route(tdt, x.shape[1], second.shape[1])
+                route = f3conv.dw_route(tdt, x.shape[1], second.shape[1], strided=True)
                 label += f" route {route}"
                 t, up = a[2], (a[3] if len(a) > 3 else kw["up"])
-                if route == "mma":
+                if route != "simt":
                     if t.pairs is None:
                         raise AssertionError("K5 was called without the level's pair lists")
                     bare = replace(t, pairs=None)
@@ -1225,8 +1265,17 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             pms = cuda_ms(plain, iters=3)
             nbytes, ops, lib = train_cost(name, a, kw, xd, sd)
             b, by = bound_ms(nbytes, ops, dtype)
+            dev = ""
+            if name in ("strided_dw", "segment_sum"):
+                dev, lib_dev = yardstick_devices(name, kern, a, kw, xd, sd)
+                r["device_ms"] = r.get("device_ms", 0.0) + count * (dev or 0.0)
+                r["library_device_ms"] = r.get("library_device_ms", 0.0) + count * (lib_dev or 0.0)
+                dev = f" device {fmt_ms(dev)} (yardstick device {fmt_ms(lib_dev)})"
+                if name == "segment_sum":
+                    old_b, _ = bound_ms(k6_bytes(xd, a[1], a[2] if len(a) > 2 else kw.get("weights"))[1], ops, dtype)
+                    dev += f" sentinel-inclusive bound {old_b:.4f} ms"
             log(
-                f"{label} max|err| {err:.3e} kernel {ms:.4f} ms"
+                f"{label} max|err| {err:.3e} kernel {ms:.4f} ms{dev}"
                 + ("" if old is None else f" old {old:.4f} ms (max|err| {old_err:.3e})")
                 + f" plain {pms:.4f} ms bound {b:.4f} ms ({by}) "
                 + ("index_add_" if name == "segment_sum" else "one torch.mm") + f" {lib:.4f} ms"
@@ -1246,6 +1295,18 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
         r["bound_by"] = "bytes" if parts[0] >= parts[1] else "operations"
         key = name if name in ("k3_conv_dw", "strided_dw", "segment_sum") else name + "_dgrad"
         results.setdefault(key, {}).update(r)
+
+
+def yardstick_devices(name, kern, a, kw, x, second) -> tuple:
+    """(kernel, yardstick) device ms per call of one K5 or K6 call
+    (torch.profiler device events): the kernel's own, and every kernel of
+    its yardstick (one torch.mm on rows gathered beforehand; zeroing the
+    output and one index_add_)."""
+    if name == "segment_sum":
+        lib = k6_library(x, a[1], a[2] if len(a) > 2 else kw.get("weights"))
+    else:
+        lib = dw_library(name, x, second, a[2], a[3] if len(a) > 3 else kw["up"])
+    return device_ms(kern, KERNEL_NAMES[name]), device_ms(lib, ("",))
 
 
 def k6_call_names(keys) -> dict:
@@ -1272,8 +1333,6 @@ def train_cost(name, a, kw, x, second):
     this call's tables hold.  K6's yardstick is one `index_add_` of its
     (weighted) rows into the segments, on rows prepared beforehand; the
     others' one torch.mm on rows gathered beforehand."""
-    import torch
-
     esz = x.element_size()
     if name == "k3_conv_dw":
         rb = a[2]
@@ -1290,24 +1349,8 @@ def train_cost(name, a, kw, x, second):
     if name == "segment_sum":
         t = a[1]
         w = a[2] if len(a) > 2 else kw.get("weights")
-        v = t.starts.shape[0] - 1
-        r_real = t.perm.shape[0] - v
-        p, c = x.shape
-        nbytes = t.perm.numel() * 8 + (v + 1) * 4 + x.numel() * esz + v * c * 4
-        if w is not None:
-            nbytes += r_real * 4
-        # segment id of each sorted real row, and its (weighted) source row
-        seg = torch.repeat_interleave(torch.arange(v, device=x.device), (t.starts[1:] - t.starts[:-1]).long())
-        members = t.perm[: seg.shape[0]]
-        keep = members < r_real
-        rows_idx = members[keep]
-        rows = x[rows_idx % p].float()
-        if w is not None:
-            rows = rows * w.reshape(-1)[rows_idx][:, None]
-        ids = seg[keep]
-        out = torch.zeros(v, c, device=x.device)
-        lib = cuda_ms(lambda: out.zero_().index_add_(0, ids, rows))
-        return nbytes, 2.0 * r_real * c, lib
+        r_real = t.perm.shape[0] - t.starts.shape[0] + 1
+        return k6_bytes(x, t, w)[0], 2.0 * r_real * x.shape[1], cuda_ms(k6_library(x, t, w))
     # input-gradient calls of K2 / K3: the forward kernels' costs
     w, t = second, a[2]
     rows, ci = x.shape
@@ -1716,7 +1759,7 @@ def phase_train_profile(trainer, scans, results: dict, label: str = "") -> None:
     for k, ms in dev.items():
         log(f"{label}profiler train {k}: {ms:.4f} ms per step on the device")
         results.setdefault(k, {})["device_ms_per_step"] = ms or None
-    log(f"{label}profiler train: K4/K5 split reductions {red:.4f} ms, all kernels {busy:.4f} ms per step")
+    log(f"{label}profiler train: K4 split reductions {red:.4f} ms, all kernels {busy:.4f} ms per step")
     others.sort(reverse=True)
     log(
         f"{label}profiler train: other kernels {sum(o[0] for o in others):.4f} ms per step "
@@ -1742,7 +1785,7 @@ def phase_train_probes(trainer, scans) -> None:
             label = f"{name} {key[1:]} route {route}"
             call = partial(f3conv.k3_conv_dw, a[0], a[1], a[2], pairs=kw.get("pairs"))
         elif name == "strided_dw":
-            route = f3conv.dw_route(a[0].dtype, a[0].shape[1], a[1].shape[1])
+            route = f3conv.dw_route(a[0].dtype, a[0].shape[1], a[1].shape[1], strided=True)
             label = f"{name} {key[1:]} route {route}"
             call = partial(strided_conv.strided_dw, *a, **kw)
         elif name == "segment_sum":
@@ -2080,7 +2123,7 @@ def _tot():
 
 def _add(tot, **kw):
     for k, x in kw.items():
-        tot[k] = max(tot[k], x) if k == "max_abs_err" else tot[k] + x
+        tot[k] = max(tot.get(k, 0.0), x) if k == "max_abs_err" else tot.get(k, 0.0) + x
 
 
 def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
@@ -2187,15 +2230,22 @@ def _k6_check(label, args, tot, count: int = 1, profile: bool = True) -> None:
     limit = 1e-5 * ref.abs().max().item()
     ms = cuda_ms(lambda: vx.segment_sum(x, t, w))
     pms = cuda_ms(lambda: vx.segment_sum_plain(x, t, w), iters=3)
-    dev = device_ms(partial(vx.segment_sum, x, t, w), KERNEL_NAMES["segment_sum"]) if profile else None
+    dev, lib_dev = (
+        yardstick_devices("segment_sum", partial(vx.segment_sum, x, t, w), (x, t, w), {}, x, None)
+        if profile else (None, None)
+    )
     nbytes, ops, lib = train_cost("segment_sum", (x, t, w), {}, x, None)
     b, by = bound_ms(nbytes, ops, "float32")
+    old_b, _ = bound_ms(k6_bytes(x, t, w)[1], ops, "float32")
     log(
         f"{label}: max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat), kernel {ms:.4f} ms device "
-        f"{fmt_ms(dev)} plain {pms:.4f} ms index_add_ {lib:.4f} ms bound {b:.4f} ms ({by})"
+        f"{fmt_ms(dev)} plain {pms:.4f} ms index_add_ {lib:.4f} ms (device {fmt_ms(lib_dev)}) "
+        f"bound {b:.4f} ms ({by}; sentinel-inclusive count {old_b:.4f} ms)"
+        + (" SLOWER than index_add_" if ms > lib else "")
     )
     _add(tot, ms=count * ms, plain_ms=count * pms, bound_ms=count * b, library_ms=count * lib,
          device_ms=count * (dev or 0.0), max_abs_err=err)
+    tot["library_device_ms"] = tot.get("library_device_ms", 0.0) + count * (lib_dev or 0.0)
 
 
 def _leaves(a):
@@ -3105,7 +3155,7 @@ TIAF_PER_STEP = {
     "sparse_conv_dw": 64, "sparse_conv_dw_tf32": 64,
     "strided_down": 16, "strided_down_tf32": 16, "strided_down_dgrad": 8,
     "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_dgrad": 8,
-    "strided_dw": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
+    "strided_dw": 16, "strided_dw_tf32": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
 }
 TIAF_BRANCHES = ("image_backbone", "lidar_backbone", "main")
 
@@ -3458,7 +3508,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
                 up = a[3] if len(a) > 3 else kw["up"]
                 kern = partial(strided_conv.strided_dw, x, second, t, up)
                 plain = partial(strided_conv.strided_dw_plain, up=up)
-                rel, route = 1e-4, "simt"
+                rel, route = 1e-4, f3conv.dw_route(x.dtype, x.shape[1], second.shape[1], strided=True)
             else:
                 fn, plain, rel = strided[base]
                 kern = partial(fn, x, second, t, dgrad=name != base)
@@ -3476,6 +3526,11 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             pms = cuda_ms(lambda: plain(x, second, t), iters=3)
             nbytes, ops, lib = train_cost(base, a, kw, x, second)
             b, by = bound_ms(nbytes, ops, "float32")
+            dev = {}
+            if name == "strided_dw":
+                d, ld = yardstick_devices(name, kern, a, kw, x, second)
+                dev = {"device_ms": d or 0.0, "library_device_ms": ld or 0.0}
+                label += f" device {fmt_ms(d)} (torch.mm device {fmt_ms(ld)})"
             log(
                 f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
                 + ("" if old is None else f"CUDA-core {old:.4f} ms (max|err| {old_err:.3e}) ")
@@ -3483,7 +3538,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
                 + (" SLOWER than torch.mm" if ms > lib else "")
             )
             add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=err,
-                **({} if old is None else {"old_ms": old}))
+                **({} if old is None else {"old_ms": old}), **dev)
         elif name == "segment_sum":
             x, t = a[0].detach(), a[1]
             w = a[2] if len(a) > 2 else kw.get("w")
@@ -3492,8 +3547,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
                 else "trilinear pairs (a devoxelize backward)" if w is not None else "point tables"
             )
             k6 = _tot()
-            _k6_check(f"tiaf K6 over the {where} {key[1:]} x{count}/step", (x, t, w), k6, count, profile=False)
-            k6.pop("device_ms")
+            _k6_check(f"tiaf K6 over the {where} {key[1:]} x{count}/step", (x, t, w), k6, count)
             # K6 moves 4 bytes or more per f32 add: bytes bound it
             add(name, 1, "bytes", **k6)
             tot[name]["calls"] += count - 1
@@ -3536,13 +3590,17 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
     for r in tot.values():
         parts = r.pop("_parts")
-        r.pop("device_ms")
+        if not r["device_ms"]:
+            r.pop("device_ms")
         r["bound_by"] = "bytes" if parts["bytes"] >= parts["operations"] else "operations"
     out.update(tot)
     log(
         "tiaf kernels per step at the step's own calls: " + "; ".join(
             f"{n} x{r['calls']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
-            f"library {r['library_ms']:.4f} max|err| {r['max_abs_err']:.3e}" for n, r in sorted(out.items())
+            f"library {r['library_ms']:.4f} max|err| {r['max_abs_err']:.3e}"
+            + (f" device {r['device_ms']:.4f} library device {r['library_device_ms']:.4f}"
+               if "library_device_ms" in r else "")
+            for n, r in sorted(out.items())
         )
     )
     return out
@@ -3977,9 +4035,15 @@ def main() -> int:
             entry["per"] = "train step (SPVCNN)"
         elif name in per_step:
             entry["per"] = "train step"
-            if name in ("k3_conv_dw", "strided_dw"):
+            if name == "k3_conv_dw":
                 mma = train_launches[f"{name}_mma"]
                 entry["launches_by_route"] = {"mma": mma, "simt": train_launches[name] - mma}
+            elif name == "strided_dw":
+                wg = train_launches["strided_dw_wgmma"]
+                entry["launches_by_route"] = {"wgmma": wg, "simt": train_launches[name] - wg}
+            if name in ("strided_dw", "segment_sum"):
+                entry["device_ms"] = r.get("device_ms")
+                entry["library_device_ms"] = r.get("library_device_ms")
         else:
             entry["per"] = "scan"
             route = ROUTE_ENTRY.get(name)

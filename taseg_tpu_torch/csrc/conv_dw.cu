@@ -32,10 +32,10 @@
 // 0.19 ms at the bf16 tensor-core rate and 2.7 ms at the 67 TFLOP/s of
 // f32 CUDA cores.  The bytes (feats, grad and the tables read once, d_W
 // written once) are 0.39 ms per step.  K5 has at most one pair per fine
-// row: ~12 GFLOP per step, so its 0.047 ms of bytes set its floor.
+// row: ~12 GFLOP per step, so its bytes set its floor (0.047 ms per bf16
+// MinkUNet step, 0.26 ms per f32 TIAF step).
 //
-// Two routes for each; the wrappers pick one by dtype and widths
-// (f3conv.dw_route):
+// K4's routes (f3conv.dw_route):
 //
 // dw_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: 47 of the 48 convs
 // of a step): tensor cores over pair lists built once per level.  The
@@ -49,52 +49,66 @@
 // with the contraction over pairs.  A block owns (a 64-row C_in tile, a
 // BN-column C_out tile, offset k, a split of k's list); it stages up to
 // kWin pairs in shared memory, then gathers X and Y rows, 32 pairs per
-// stage, by 16-byte cp.async into a 4-stage ring (the list is known
-// before the loop, so three stages are in flight while one multiplies),
-// and multiplies them with mma.sync m16n8k16 bf16 -> f32: X^T through
-// ldmatrix .trans (X is stored pair-major), Y through ldmatrix .trans as
-// gather_mma.cuh reads W.  Pairs past the list's end copy 0 bytes and
-// add 0.  Against the CUDA-core kernel below, which tested 256 rows per
-// window and multiplied the ~21 pairs it found in 16-pair rounds with no
-// loads in flight, every stage here is full and prefetched.
+// stage, by 16-byte cp.async into a 4-stage ring, and multiplies them
+// with mma.sync m16n8k16 bf16 -> f32: X^T through ldmatrix .trans (X is
+// stored pair-major), Y through ldmatrix .trans as gather_mma.cuh reads
+// W.  Pairs past the list's end copy 0 bytes and add 0.  Splits of a
+// pair list come from the shapes alone (f3conv.dw_mma_splits); the
+// counts stay on the device, and dw_mma_reduce_splits_kernel adds the
+// splits a list's count reaches, in split order.
 //
-// K5 runs the same tile with the 8 slots as the lists: every live fine
-// row f has one slot, so the train topology compacts the (f, parent f)
-// pairs slot by slot, in row order, into one (V_fine,) int2 list with a
-// (9,) start table (strided_conv.slot_pair_lists); the down and the up
-// conv of a level share it, the up direction reading each pair swapped
-// (X = coarse feats[parent f], Y = fine grad[f]).  Against the CUDA-core
-// kernel, whose blocks each scanned every row of the tables for the ~1/8
-// of their slot, each list is read once.
-//
-// Splits of a pair list come from the shapes alone (f3conv.dw_mma_splits:
-// `per_split` pairs, enough splits to cover V, the most any list can
-// have, within 32 MiB of partials); the counts stay on the device.  A
-// split past its list's count does nothing, and the reduction reads
-// only the splits a list's count reaches, in split order.
-//
-// dw_tf32_kernel (K4 at K offsets in f32 with C_in % 4 == 0 and C_out %
-// 4 == 0: every weight gradient of Cylinder3D, the 3^3 head's included):
-// the pair-list tile above in f32 on 3xTF32 tensor cores.  The train
-// topology compacts each reverse table's present pairs per offset
-// (f3conv.pair_lists, K lists); a block owns (64 C_in rows, BN C_out
-// columns, offset k, a split of k's list) and gathers X and Y rows, 16
-// pairs per stage, by 16-byte cp.async into a 4-stage ring, then
-// multiplies with mma.sync m16n8k8 .tf32, each operand split into TF32
+// sparse_conv_dw_tf32_kernel (K4 at K offsets in f32 with C_in % 4 == 0
+// and C_out % 4 == 0: every weight gradient of Cylinder3D and of the f32
+// MinkUNets' 3^3 convs): the pair-list tile above in f32 on 3xTF32
+// tensor cores over the per-offset lists of f3conv.pair_lists, 16 pairs
+// per stage, mma.sync m16n8k8 .tf32 with each operand split into TF32
 // high and low parts and each product taken as three (gather_mma.cuh,
-// namespace tf32).  Splits and their reduction as for dw_mma_kernel, with
-// K at run time.  Against dw_kernel, whose every block scanned the whole
-// (K, V_in) table for its offset (V_in the level's capacity) and
-// multiplied the few pairs it found in 16-pair rounds with no loads in
-// flight, each list is read once and every stage is full and prefetched.
+// namespace tf32); splits and their reduction as for dw_mma_kernel.
 //
-// dw_kernel (f32 on K4 at 27 and K5, and ragged widths such as the stem's
-// 4 -> 32, for K4, K4 at K offsets and K5): CUDA cores, f32 FMA on
-// operands widened in shared memory:
+// K5 runs over the 8 slot lists: every live fine row f has one slot, so
+// the train topology compacts the (f, parent f) pairs slot by slot, in
+// row order, into one (V_fine,) int2 list with a (9,) start table
+// (strided_conv.slot_pair_lists), once per level and step in both
+// dtypes; the down and the up conv of a level share it, the up direction
+// reading each pair swapped (X = coarse feats[parent f], Y = fine
+// grad[f]).  One launch per call, on one of two routes:
+//
+// strided_dw_wgmma_kernel (bf16, widths in 8s: every K5 call of the
+// bf16 steps): Hopper's warpgroup MMA.  A block owns (64 C_in rows, C_out
+// up to 256 columns, slot s, a split of s's list).  A = X^T and B = Y are
+// both gathered pair-major, so both operands are MN-major (tnspA = tnspB
+// = 1): A in 128-byte swizzled atoms of 8 pairs x 64 channels, B in the
+// atoms K2's W takes (wgmma_tile.cuh).  Warpgroup 1 stages each window of
+// the list's pairs in shared memory and gathers X and Y rows, 64 pairs a
+// stage, by 16-byte cp.async into a 4-stage mbarrier ring; warpgroup 0
+// runs m64nNk16 over them.  The mma.sync tile before it took 2 launches
+// per call (the tile, then the split reduction) and sent every split's
+// partial through device memory for a few us of bytes per call.
+//
+// strided_dw_tf32_kernel (f32, widths in 4s: TIAF's 16 calls per step):
+// K4 at K's 3xTF32 tile over the slot lists.  It replaced the CUDA-core
+// dw_kernel over the parent and slot tables, whose every block scanned
+// all fine rows for the ~1/8 of its slot and multiplied them in f32 FMA.
+//
+// Splits (f3conv.k5_splits): pairs per split a multiple of the 64-pair
+// stage, enough splits for ~2 blocks per SM over all lists.  Split z of
+// slot s is piece starts[s] / per + s + z (no two lists collide, all
+// below V / per + 9), and the grid has one block per (tile, piece), so no
+// block waits on a split past its list's end.  A list of one split
+// writes d_W[s] directly; else each split writes its partial to its
+// piece and counts on its (tile, slot) counter, and the last split to
+// arrive adds the pieces in split order, writes the tile and sets the
+// counter back to 0.  So a call is one launch and the same inputs give
+// the same bits.
+//
+// dw_kernel (f32 K4 at 27 and ragged widths such as the stem's 4 -> 32,
+// for K4, K4 at K offsets and K5): CUDA cores, f32 FMA on operands
+// widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"
 #include "gather_mma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -333,9 +347,6 @@ __device__ __forceinline__ void mma_stage(const bf16* as, const bf16* bs,
 // profile.
 struct K3Lists {
   static constexpr int kOut = 27;  // offsets
-};
-struct SlotLists {
-  static constexpr int kOut = 8;  // slots
 };
 struct OffsetLists {};  // K4 at K offsets: K at run time
 
@@ -660,6 +671,372 @@ int launch(const void* x, const void* y, const void* pairs, const void* starts,
 
 }  // namespace dwmma
 
+// ---- K5 over the slot pair lists, one launch per call ----
+namespace k5 {
+
+namespace mma = taseg::mma;
+namespace wg = taseg::wg;
+namespace tf = taseg::tf32;
+
+// Split z of slot k's list is its piece p(k, z) = starts[k] / per + k + z
+// of the partial buffer: the lists are consecutive in the pair buffer, so
+// these indices never collide and stay below V / per + 9.  A list of one
+// piece (at most `per` pairs, or none) is written straight to out.
+__device__ __forceinline__ int first_piece(const int* starts, int k, int per) {
+  return starts[k] / per + k;
+}
+
+// The (slot, split) of piece p (blockIdx.y: one block per piece, no
+// block for a split past its list's end); false for the few indices
+// between two lists' pieces.
+__device__ __forceinline__ bool piece_of(const int* __restrict__ starts, int p, int per,
+                                         int& k, int& z, int& live) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int fp = first_piece(starts, kk, per);
+    const int lv = max(1, (starts[kk + 1] - starts[kk] + per - 1) / per);
+    if (p >= fp && p < fp + lv) {
+      k = kk;
+      z = p - fp;
+      live = lv;
+      return true;
+    }
+  }
+  return false;
+}
+
+// After the block's (C_in, C_out) tile [m0, m0 + 64) x [n0, n0 + bn) of
+// piece `pc` is in part: count it on cnt[slot], and if it is the last of
+// `live` pieces to arrive, write the tile of out as the sum of the
+// pieces in split order and set the counter back to 0.  `t` of `nt`
+// threads take part; `sync` is their barrier.
+template <typename Sync>
+__device__ __forceinline__ void finish_pieces(const float* part, float* out, int* cnt,
+                                              int* flag, int p0, int live, int c_in,
+                                              int c_out, int m0, int n0, int bn, int t,
+                                              int nt, Sync sync) {
+  __threadfence();
+  sync();
+  if (t == 0) *flag = atomicAdd(cnt, 1) == live - 1;
+  sync();
+  if (!*flag) return;
+  __threadfence();
+  const size_t per_piece = static_cast<size_t>(c_in) * c_out;
+  const int c4 = bn / 4;
+  for (int e = t; e < kTI * c4; e += nt) {
+    const int r = m0 + e / c4, col = n0 + (e % c4) * 4;
+    if (r >= c_in || col >= c_out) continue;  // c_out % 4 == 0
+    const size_t at = static_cast<size_t>(r) * c_out + col;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int z = 0; z < live; ++z) {
+      const float4 q = __ldcg(reinterpret_cast<const float4*>(part + (p0 + z) * per_piece + at));
+      s.x += q.x;
+      s.y += q.y;
+      s.z += q.z;
+      s.w += q.w;
+    }
+    *reinterpret_cast<float4*>(out + at) = s;
+  }
+  if (t == 0) *cnt = 0;
+}
+
+// ---- f32: the 3xTF32 tile of K4 at K over the 8 slot lists ----
+// grid: x = C_in tiles * C_out tiles, y = piece (`piece_of`).  `swap`
+// reads each (fine, parent) pair as (parent, fine): the up direction.
+template <int BN>
+__global__ void __launch_bounds__(dwmma::dwtf32::kThreads)
+    strided_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           const int2* __restrict__ pairs, const int* __restrict__ starts,
+                           float* __restrict__ out, float* __restrict__ part,
+                           int* __restrict__ cnt, int c_in, int c_out, int per_split,
+                           int swap) {
+  namespace d = dwmma::dwtf32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kBS = tf::b_stride<BN>();
+  float* as = reinterpret_cast<float*>(smem);
+  float* bs = as + d::kStages * d::kBK * d::kAS;
+  int2* ps = reinterpret_cast<int2*>(bs + d::kStages * d::kBK * kBS);
+  __shared__ int flag;
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * d::kBM, n0 = (blockIdx.x % tiles_n) * BN;
+  int k, z, live;
+  if (!piece_of(starts, blockIdx.y, per_split, k, z, live)) return;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int lo = z * per_split;
+  const int n_pairs = max(0, min(per_split, n_k - lo));
+  float acc[2][BN / 16][4] = {};
+
+  for (int w0 = 0; w0 < n_pairs; w0 += d::kWin) {
+    const int n_w = min(d::kWin, n_pairs - w0);
+    __syncthreads();  // the previous window is consumed
+    for (int e = threadIdx.x; e < n_w; e += d::kThreads) {
+      const int2 q = pairs[beg + lo + w0 + e];
+      ps[e] = swap ? make_int2(q.y, q.x) : q;
+    }
+    __syncthreads();
+    const int total = (n_w + d::kBK - 1) / d::kBK;
+#pragma unroll
+    for (int t = 0; t < d::kStages - 1; ++t) {
+      if (t < total) d::load_stage<BN>(as, bs, ps, t, t, n_w, x, y, c_in, c_out, m0, n0);
+      mma::cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      mma::cp_async_wait<d::kStages - 2>();
+      __syncthreads();
+      const int nxt = t + d::kStages - 1;
+      if (nxt < total)
+        d::load_stage<BN>(as, bs, ps, nxt % d::kStages, nxt, n_w, x, y, c_in, c_out, m0, n0);
+      mma::cp_async_commit();
+      d::mma_stage<BN>(as, bs, t % d::kStages, acc);
+    }
+    mma::cp_async_wait<0>();
+  }
+
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  const int p0 = blockIdx.y - z;
+  float* dst = live == 1 ? out + k * per_k : part + static_cast<size_t>(blockIdx.y) * per_k;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + wm * 32 + i * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = n0 + wn * (BN / 2) + j * 8 + (lane % 4) * 2;
+      if (col >= c_out) continue;  // c_out % 4 == 0: col + 1 < c_out too
+      if (r < c_in)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * c_out + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (r + 8 < c_in)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * c_out + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+  if (live == 1) return;
+  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, p0, live,
+                c_in, c_out, m0, n0, BN, threadIdx.x, d::kThreads, [] { __syncthreads(); });
+}
+
+// ---- bf16: wgmma over the 8 slot lists ----
+// A = X^T (64 C_in rows x 64 pairs per stage) and B = Y (64 pairs x BN
+// C_out columns) are both gathered pair-major, so both are MN-major:
+// 128-byte (or, for B at BN = 96, 64-byte) swizzled atoms of 8 pair rows,
+// A's one atom wide (64 channels = 128 bytes), read with tnspA = tnspB =
+// 1.  Warpgroup 1 stages each window of the list's pairs in shared memory
+// and gathers the rows by cp.async into the mbarrier ring of
+// wgmma_tile.cuh; warpgroup 0 runs m64nBNk16 and stores the tile.
+constexpr int kBK = 64;    // pairs per stage
+constexpr int kWin = 1024; // pairs staged in shared memory at a time
+constexpr int kABytes = wg::kBM * kBK * 2;
+
+template <int BN>
+struct WgTile {
+  static constexpr int BSW = BN % 64 == 0 ? 128 : 64;  // B swizzle bytes
+  static constexpr int AW = BSW / 2;                   // B columns per atom
+  static constexpr int B_BYTES = kBK * BN * 2;
+};
+
+template <int BN>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + static_cast<size_t>(wg::kStages) * (kABytes + WgTile<BN>::B_BYTES) +
+         2 * wg::kStages * 8 + static_cast<size_t>(kWin) * sizeof(int2);
+}
+
+// f(std::integral_constant<int, BN>{}): C_out columns per block, the
+// whole C_out up to 128 (a 256-wide tile's 160 KB ring leaves one block
+// per SM; two 128-wide ones run 2 blocks per SM)
+template <typename F>
+int with_bn(int c_out, F&& f) {
+  if (c_out <= 32) return f(std::integral_constant<int, 32>{});
+  if (c_out <= 64) return f(std::integral_constant<int, 64>{});
+  if (c_out <= 96) return f(std::integral_constant<int, 96>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads)
+    strided_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ y,
+                            const int2* __restrict__ pairs, const int* __restrict__ starts,
+                            float* __restrict__ out, float* __restrict__ part,
+                            int* __restrict__ cnt, int c_in, int c_out, int per_split,
+                            int swap) {
+  using bf16 = __nv_bfloat16;
+  using T = WgTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int flag;
+  const uint32_t base = wg::smem_addr(smem_raw);
+  unsigned char* p = smem_raw + (((base + 1023u) & ~1023u) - base);
+  const uint32_t a_ring = wg::smem_addr(p);
+  const uint32_t b_ring = a_ring + wg::kStages * kABytes;
+  p += wg::kStages * (kABytes + T::B_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(p);
+  uint64_t* empty = full + wg::kStages;
+  int2* ps = reinterpret_cast<int2*>(empty + wg::kStages);
+
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * wg::kBM, n0 = (blockIdx.x % tiles_n) * BN;
+  int k, z, live;
+  if (!piece_of(starts, blockIdx.y, per_split, k, z, live)) return;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int lo = z * per_split;
+  const int n_pairs = max(0, min(per_split, n_k - lo));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wg::kStages; ++i) {
+      wg::mbar_init(full + i, wg::kThreads - wg::kConsumers);
+      wg::mbar_init(empty + i, wg::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= wg::kConsumers) {  // producer warpgroup
+    constexpr int AC = wg::kBM / 8, BC = BN / 8, ATOM_C = T::AW / 8;
+    constexpr int kProd = wg::kThreads - wg::kConsumers;
+    const int pt = threadIdx.x - wg::kConsumers;
+    for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
+      const int n_w = min(kWin, n_pairs - w0);
+      named_sync(1, kProd);  // the previous window's copies are issued
+      for (int e = pt; e < n_w; e += kProd) {
+        const int2 q = pairs[beg + lo + w0 + e];
+        ps[e] = swap ? make_int2(q.y, q.x) : q;
+      }
+      named_sync(1, kProd);
+      const int stages = (n_w + kBK - 1) / kBK;
+      for (int t = 0; t < stages; ++t) {
+        const int i = w0 / kBK + t, st = i % wg::kStages;
+        wg::mbar_wait(empty + st, ((i / wg::kStages) & 1) ^ 1);
+        const uint32_t a = a_ring + st * kABytes, b = b_ring + st * T::B_BYTES;
+#pragma unroll
+        for (int e = pt; e < kBK * AC; e += kProd) {
+          const int r = e / AC, cc = e % AC, c = m0 + cc * 8, q = t * kBK + r;
+          const bool ok = q < n_w && c < c_in;
+          wg::cp_async16(a + (r / 8) * 1024 + (r % 8) * 128 + (wg::swz<128>(r % 8, cc) << 4),
+                         ok ? x + static_cast<size_t>(ps[q].x) * c_in + c : x, ok);
+        }
+#pragma unroll 4
+        for (int e = pt; e < kBK * BC; e += kProd) {
+          const int r = e / BC, nc = e % BC, col = n0 + nc * 8, q = t * kBK + r;
+          const bool ok = q < n_w && col < c_out;
+          const int atom = nc / ATOM_C, kr = r % 8;
+          wg::cp_async16(b + (atom * (kBK / 8) + r / 8) * (8 * T::BSW) + kr * T::BSW +
+                             (wg::swz<T::BSW>(kr, nc % ATOM_C) << 4),
+                         ok ? y + static_cast<size_t>(ps[q].y) * c_out + col : y, ok);
+        }
+        wg::cp_async_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_st = (n_pairs + kBK - 1) / kBK;
+  for (int i = 0; i < n_st; ++i) {
+    const int st = i % wg::kStages;
+    wg::mbar_wait(full + st, (i / wg::kStages) & 1);
+    __syncwarp();
+    wg::fence_proxy_async();
+    const uint32_t a = a_ring + st * kABytes, b = b_ring + st * T::B_BYTES;
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = wg::make_desc(a + kk * 2 * 1024, kBK * 128, 1024, 128);
+      const uint64_t db =
+          wg::make_desc(b + kk * 2 * 8 * T::BSW, kBK * T::BSW, 8 * T::BSW, T::BSW);
+      wg::MmaTA<BN>::run(acc, da, db);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();
+    wg::fence_regs(acc);
+    if (i > 0 && lane == 0) wg::mbar_arrive(empty + (i - 1) % wg::kStages);
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc);
+
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  const int p0 = blockIdx.y - z;
+  float* dst = live == 1 ? out + k * per_k : part + static_cast<size_t>(blockIdx.y) * per_k;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + warp * 16 + lane / 4 + 8 * h;
+    if (r >= c_in) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane % 4) * 2;
+      if (col >= c_out) continue;  // c_out % 8 == 0: col + 1 < c_out too
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * c_out + col) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  if (live == 1) return;
+  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, p0, live,
+                c_in, c_out, m0, n0, BN, threadIdx.x, wg::kConsumers,
+                [] { named_sync(2, wg::kConsumers); });
+}
+
+// K5 over the slot lists on either route, one block per (tile, piece):
+// pieces = V / per_split + 9 covers every list's splits (8 where no list
+// is split).  out (8, C_in, C_out) f32; part (pieces, C_in, C_out) f32 and
+// cnt (8 tiles,) int32 (zero on entry and on exit) where pieces > 8
+template <bool Wgmma>
+int launch(const void* x, const void* y, const void* pairs, const void* starts,
+           void* out, void* part, void* cnt, int c_in, int c_out, int up, int pieces,
+           int per_split, cudaStream_t s) {
+  if (c_in <= 0 || c_out <= 0 || c_in % (Wgmma ? 8 : 4) || c_out % (Wgmma ? 8 : 4) ||
+      pieces < 8 || per_split <= 0 || (pieces > 8 && (part == nullptr || cnt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    const int tiles = ((c_in + kTI - 1) / kTI) * ((c_out + BN - 1) / BN);
+    const dim3 grid(tiles, pieces);
+    cudaError_t e;
+    if constexpr (Wgmma) {
+      const size_t bytes = wg_smem_bytes<BN>();
+      e = cudaFuncSetAttribute(strided_dw_wgmma_kernel<BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      strided_dw_wgmma_kernel<BN><<<grid, wg::kThreads, bytes, s>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+          static_cast<const int2*>(pairs), static_cast<const int*>(starts),
+          static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt),
+          c_in, c_out, per_split, up);
+    } else {
+      const size_t bytes = dwmma::dwtf32::smem_bytes<BN>();
+      e = cudaFuncSetAttribute(strided_dw_tf32_kernel<BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      strided_dw_tf32_kernel<BN><<<grid, dwmma::dwtf32::kThreads, bytes, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(y),
+          static_cast<const int2*>(pairs), static_cast<const int*>(starts),
+          static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt),
+          c_in, c_out, per_split, up);
+    }
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (Wgmma) {
+    return with_bn(c_out, go);
+  } else {
+    // 3xTF32 at the widths of wgmma's tile but 256: 96 columns are one
+    // 96-wide tile, not a 128-wide one with a quarter of it idle
+    if (c_out > 64 && c_out <= 96) return go(std::integral_constant<int, 96>{});
+    return tf::with_tile_n_f32(c_out, go);
+  }
+}
+
+}  // namespace k5
+
 template <typename Pairs>
 int launch_dw(const void* x, const void* y, Pairs pairs, void* out,
               void* part, int n_out, int n_rows, int c_in, int c_out,
@@ -751,22 +1128,31 @@ extern "C" int taseg_k3_conv_dw_mma(const void* feats, const void* grad,
       per_split, static_cast<cudaStream_t>(stream));
 }
 
-// K5's tensor-core route.  pairs (V_fine, 2) int32 (fine row, parent)
-// and starts (9,) int32 from strided_conv.slot_pair_lists; down (up = 0):
-// x = fine feats (V_fine, C_in), y = coarse grad (V_coarse, C_out); up
-// (up = 1, the pairs read as (parent, fine row)): x = coarse feats
-// (V_coarse, C_in), y = fine grad (V_fine, C_out); bf16, 16-byte aligned,
-// C_in % 8 == 0 and C_out % 8 == 0 -> out (8, C_in, C_out) f32; part
-// (splits, 8, C_in, C_out) f32 scratch when splits > 1, with splits *
-// per_split >= V_fine.
-extern "C" int taseg_strided_dw_mma(const void* x, const void* y,
-                                    const void* pairs, const void* starts,
-                                    void* out, void* part, int c_in,
-                                    int c_out, int up, int splits,
-                                    int per_split, void* stream) {
-  return dwmma::launch_dw_mma<dwmma::SlotLists>(
-      x, y, pairs, starts, out, part, c_in, c_out, up, splits, per_split,
-      static_cast<cudaStream_t>(stream));
+// K5 over the slot lists, one launch per call.  pairs (V_fine, 2) int32
+// (fine row, parent) and starts (9,) int32 from
+// strided_conv.slot_pair_lists; down (up = 0): x = fine feats (V_fine,
+// C_in), y = coarse grad (V_coarse, C_out); up (up = 1, the pairs read as
+// (parent, fine row)): x = coarse feats (V_coarse, C_in), y = fine grad
+// (V_fine, C_out); 16-byte aligned -> out (8, C_in, C_out) f32.  pieces:
+// 8 where per_split >= V_fine, else V_fine / per_split + 9, with part
+// (pieces, C_in, C_out) f32 and cnt (8 * tiles,) int32, zero on entry and
+// on exit.
+// bf16 with C_in % 8 == 0 and C_out % 8 == 0 on wgmma:
+extern "C" int taseg_strided_dw_wgmma(const void* x, const void* y, const void* pairs,
+                                      const void* starts, void* out, void* part,
+                                      void* cnt, int c_in, int c_out, int up,
+                                      int pieces, int per_split, void* stream) {
+  return k5::launch<true>(x, y, pairs, starts, out, part, cnt, c_in, c_out, up, pieces,
+                          per_split, static_cast<cudaStream_t>(stream));
+}
+
+// f32 with C_in % 4 == 0 and C_out % 4 == 0 on 3xTF32 mma.sync:
+extern "C" int taseg_strided_dw_tf32(const void* x, const void* y, const void* pairs,
+                                     const void* starts, void* out, void* part,
+                                     void* cnt, int c_in, int c_out, int up, int pieces,
+                                     int per_split, void* stream) {
+  return k5::launch<false>(x, y, pairs, starts, out, part, cnt, c_in, c_out, up, pieces,
+                           per_split, static_cast<cudaStream_t>(stream));
 }
 
 // K4 at K offsets on 3xTF32 tensor cores.  feats (V_in, C_in), grad

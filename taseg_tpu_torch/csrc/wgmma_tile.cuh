@@ -327,6 +327,31 @@ TASEG_WGMMA(128, 64, 65, 66)
 TASEG_WGMMA(256, 128, 129, 130)
 #undef TASEG_WGMMA
 
+// the same with A MN-major too (tnspA = 1: A's M index contiguous, as the
+// X^T of a weight gradient whose rows are gathered pair by pair, K5)
+template <int N>
+struct MmaTA;
+
+#define TASEG_WGMMA_TA(N, IA, IB, IS)                                           \
+  template <>                                                                   \
+  struct MmaTA<N> {                                                             \
+    __device__ __forceinline__ static void run(float (&d)[N / 2], uint64_t a,   \
+                                               uint64_t b) {                    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"            \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                       \
+                   "k16.f32.bf16.bf16 {" TASEG_WGMMA_REGS_##N                   \
+                   "}, %" #IA ", %" #IB ", p, 1, 1, 1, 1;\n}\n"                 \
+                   : TASEG_WGMMA_OPS_##N(d)                                     \
+                   : "l"(a), "l"(b), "r"(1));                                   \
+    }                                                                           \
+  };
+
+TASEG_WGMMA_TA(32, 16, 17, 18)
+TASEG_WGMMA_TA(64, 32, 33, 34)
+TASEG_WGMMA_TA(96, 48, 49, 50)
+TASEG_WGMMA_TA(128, 64, 65, 66)
+#undef TASEG_WGMMA_TA
+
 // ---- the tile ----
 
 // After s.idx is filled and a __syncthreads: the offsets that some row of

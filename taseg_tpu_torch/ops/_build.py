@@ -15,14 +15,16 @@ that took a route: `sparse_conv_k3_wgmma` and `strided_down_wgmma` the
 Hopper wgmma tile (K2 and K3-down in bf16, over row orders),
 `strided_down_tf32` K3-down's 3xTF32 route (f32), `strided_down_rounds`
 K3-down's round kernels (child tables of several rounds), and
-`strided_up_mma`, `k3_conv_dw_mma` and `strided_dw_mma` the mma.sync
-tensor-core tiles.  The `_dgrad` counters count, again, the launches of
-K2 and K3 that compute an input gradient (the backward of the k3 conv
-and of the other strided direction).  K1 (`join_scan`) launches one
-kernel per call; K4 (`k3_conv_dw`), K5 (`strided_dw`) and K6
-(`segment_sum`) count one per call, their second kernel (the split
-reduction, K6's merge of chunk partials) included, as do K2's and
-K3-down's split routes; K7 (`devoxelize`) launches one kernel per call,
+`strided_up_mma` and `k3_conv_dw_mma` the mma.sync tensor-core
+tiles, `strided_dw_wgmma` and `strided_dw_tf32` K5's wgmma (bf16) and
+3xTF32 (f32) tiles over the slot lists.  The `_dgrad` counters count,
+again, the launches of K2 and K3 that compute an input gradient (the
+backward of the k3 conv and of the other strided direction).  K1
+(`join_scan`), K5 (`strided_dw`, its splits added in the kernel) and K6
+(`segment_sum`, a segment cut across units finished by its last piece)
+launch one kernel per call; K4 (`k3_conv_dw`) counts one per call, its
+second kernel (the split reduction) included, as do K2's and K3-down's
+split routes; K7 (`devoxelize`) launches one kernel per call,
 trilinear, bilinear or identity, and `devoxelize_bilinear` counts again
 those at 4 corners (RPVNet's `range_to_point`); K8 (`voxelize_bwd`)
 launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
@@ -75,7 +77,8 @@ LAUNCHES = {
     "k3_conv_dw": 0,
     "k3_conv_dw_mma": 0,
     "strided_dw": 0,
-    "strided_dw_mma": 0,
+    "strided_dw_wgmma": 0,
+    "strided_dw_tf32": 0,
     "segment_sum": 0,
     "devoxelize": 0,
     "devoxelize_bilinear": 0,
@@ -104,8 +107,9 @@ _SIGNATURES = {
     "taseg_k3_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_k3_conv_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_strided_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "taseg_strided_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_dw_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_dw_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
@@ -275,6 +279,24 @@ def check_aligned(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data not 16-byte aligned")
+
+
+_COUNTERS: dict = {}  # (device, stream) -> int32 tensor, zero between calls
+
+
+def zeroed_counters(device, n: int) -> torch.Tensor:
+    """At least `n` int32 counters on `device`'s current stream, zero on
+    entry: the kernels that finish their split sums in the last block to
+    arrive (K5, K6) count arrivals there and set each counter they used
+    back to 0 before they exit, so one buffer per device and stream
+    serves every call, cleared once when it is made or grown.  Calls on
+    one stream run in order."""
+    key = (device.index, _raw_stream())
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.shape[0] < n:
+        grown = max(n, 2 * (0 if buf is None else buf.shape[0]), 1024)
+        buf = _COUNTERS[key] = torch.zeros(grown, dtype=torch.int32, device=device)
+    return buf
 
 
 def dispatch(t: torch.Tensor) -> bool:

@@ -32,6 +32,7 @@ once per table and step); else the CUDA-core kernel over rb_bwd itself.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -49,8 +50,8 @@ DW_TILE = 64
 DW_WINDOW = 256
 
 
-# split rule of the tensor-core route of K4 and K5: pairs per split a
-# multiple of the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough
+# split rule of the tensor-core routes of K4 (and K4 at K): pairs per
+# split a multiple of the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough
 # splits to cover V pairs (the most one list can have) within
 # DW_MMA_PART_BYTES of f32 partials
 DW_MMA_STAGE = 32
@@ -58,14 +59,47 @@ DW_MMA_MIN_PAIRS = 512
 DW_MMA_PART_BYTES = 32 << 20
 
 
-def dw_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of K4 or K5 takes: "mma" (tensor cores, over
-    pair lists) for bf16 with C_in and C_out multiples of 8, else "simt"
-    (CUDA cores, over rb_bwd or the strided tables), as K2's
-    `sparse_conv.route`."""
+def dw_route(dtype: torch.dtype, c_in: int, c_out: int, strided: bool = False) -> str:
+    """The kernel a CUDA call of K4 (`strided=False`) or K5 (`strided=True`)
+    takes.  K4: "mma" (the mma.sync tile over the level's pair lists) for
+    bf16 with C_in and C_out multiples of 8, else "simt" (CUDA cores over
+    rb_bwd); its f32 calls with widths in 4s run as K4 at K = 27
+    (`sparse_conv.k_route`) and do not reach it.  K5, over the level's slot
+    pair lists in one launch: "wgmma" (Hopper's warpgroup MMA) for bf16
+    with widths in 8s, "tf32x3" (3xTF32 mma.sync) for f32 with widths in
+    4s, else "simt" (CUDA cores over the parent and slot tables)."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "mma"
+        return "wgmma" if strided else "mma"
+    if strided and dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
+        return "tf32x3"
     return "simt"
+
+
+# K5's split rule over the slot lists (csrc/conv_dw.cu, k5): pairs per
+# split a multiple of the 64-pair stage, at least K5_MIN_PAIRS, few
+# enough that the live blocks (tiles x the V pairs over all 8 lists) come
+# to about one wave of the H100's 132 SMs at 2 resident blocks per SM
+K5_STAGE = 64
+K5_MIN_PAIRS = 256
+K5_SMS = 132
+K5_PER_SM = 2
+
+
+def k5_tile_n(c_out: int) -> int:
+    """C_out columns per block of K5's tile (both routes): 32, 64, 96 or
+    128; wider C_out takes several 128-wide blocks."""
+    return next((w for w in (32, 64, 96) if c_out <= w), 128)
+
+
+@functools.lru_cache(maxsize=None)
+def k5_splits(v: int, c_in: int, c_out: int) -> tuple[int, int]:
+    """(splits, pairs per split) of K5 over slot lists of V_fine = `v`
+    rows in all (one list can hold all of them), from the shapes alone;
+    the splits of a list are added in the kernel, in split order."""
+    tiles = _cdiv(c_in, 64) * _cdiv(c_out, k5_tile_n(c_out))
+    per = max(K5_MIN_PAIRS, _cdiv(v * tiles, K5_SMS * K5_PER_SM))
+    per = _cdiv(per, K5_STAGE) * K5_STAGE
+    return max(1, _cdiv(v, per)), per
 
 
 class PairLists(NamedTuple):
@@ -127,8 +161,8 @@ def pair_lists_many(rbs) -> list:
 
 def dw_mma_splits(v: int, c_in: int, c_out: int, n_out: int = 27) -> tuple[int, int]:
     """(splits, pairs per split) of the tensor-core route of K4 (n_out =
-    27 offsets) or K5 (8 slots) when one list can hold up to V pairs,
-    from the shapes alone."""
+    27 offsets) or K4 at K when one list can hold up to V pairs, from
+    the shapes alone."""
     by_mem = max(1, DW_MMA_PART_BYTES // (n_out * c_in * c_out * 4))
     per = max(DW_MMA_MIN_PAIRS, _cdiv(v, by_mem))
     per = _cdiv(per, DW_MMA_STAGE) * DW_MMA_STAGE
@@ -253,7 +287,7 @@ def _k3_conv_dw_mma(feats, grad, rb_bwd, pairs):
 
 def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
                   max_pairs: int, capacity: int, *extra, suffix: str = "_mma") -> torch.Tensor:
-    """Launch the tensor-core route of K4, K5 or K4 at K offsets (C entry
+    """Launch the tensor-core route of K4 or K4 at K offsets (C entry
     `name`, counted under `counter` and its `suffix` entry: `_mma`, or
     `_tf32` for the 3xTF32 route) over `pairs`, n_out lists of up to
     `max_pairs` pairs each in a (capacity, 2) buffer; `extra` are the

@@ -37,11 +37,14 @@ the two directions swap, so down's d_feats is exactly
 `upsample_conv_apply(g, W^T, tables)` and up's d_feats exactly
 `downsample_conv_apply(g, W^T, tables)`; both d_W run the kernel K5
 (`strided_dw`, `csrc/conv_dw.cu`), which gathers the parent rows itself,
-on one of two routes (`f3conv.dw_route`): for bf16 with C_in and C_out
-multiples of 8, K4's tensor-core tile over the level's per-slot pair
-lists (`slot_pair_lists`, built once per level and step by the train
-topology as `StridedTables.pairs` and shared by the level's down and up
-conv); else the CUDA-core kernel over the parent and slot tables.
+in one launch, on one of three routes (`f3conv.dw_route(...,
+strided=True)`): over the level's per-slot pair lists
+(`slot_pair_lists`, built once per level and step by the train topology
+as `StridedTables.pairs` and shared by the level's down and up conv) on
+Hopper's wgmma for bf16 with C_in and C_out multiples of 8, on 3xTF32
+tensor cores for f32 with both multiples of 4, the splits of a list
+added in the kernel by its last block; else the CUDA-core kernel over
+the parent and slot tables.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import torch
 
 from . import _build
 from . import sparse_conv as _sc
-from .f3conv import PairLists, dw_route, k3_conv_dw_pairs_plain, launch_dw, launch_dw_mma
+from .f3conv import PairLists, dw_route, k3_conv_dw_pairs_plain, k5_splits, launch_dw
 from .sparse_conv import (
     DTYPE_CODES,
     launch_k_tf32,
@@ -74,7 +77,7 @@ class StridedTables:
             rows last).
     starts: (V_coarse + 1,) int32 — exclusive prefix over children
             counts; children of c are PERMUTED rows [starts[c], starts[c+1]).
-    pairs:  `slot_pair_lists` of these tables, for K5's tensor-core route
+    pairs:  `slot_pair_lists` of these tables, for K5's tensor-core routes
             (train topologies; None: the wrapper builds them per call).
     child:  `slot_child_table` of these tables, (rounds, 8, V_coarse)
             int32, read by K3-down's routes (None: built per call).
@@ -414,7 +417,7 @@ def strided_dw_plain(x, y, tables: StridedTables, up: bool) -> torch.Tensor:
 
 def strided_dw_pairs_plain(x, y, pairs: PairLists, up: bool) -> torch.Tensor:
     """d_W (8, C_in, C_out) f32 over the per-slot pair lists, the
-    arithmetic of K5's tensor-core route: per slot, the gathered x rows^T
+    arithmetic of K5's tensor-core routes: per slot, the gathered x rows^T
     @ the gathered y rows; the up direction reads each (f, parent f)
     pair swapped."""
     if up:
@@ -430,9 +433,9 @@ def strided_dw(
     summed in f32 and rounded once to `out_dtype`.  down (`up=False`): x
     the fine input (V_fine, C_in), y the coarse cotangent (V_coarse,
     C_out); up: x the coarse input (V_coarse, C_in), y the fine cotangent
-    (V_fine, C_out).  The tensor-core route reads `tables.pairs` (built
-    here when absent).  Deterministic: the same inputs give the same
-    bits."""
+    (V_fine, C_out).  The tensor-core routes read `tables.pairs` (built
+    here when absent).  One launch; deterministic: the same inputs give
+    the same bits."""
     dev = x.device
     _build.check("x", x, tuple(DTYPE_CODES), 2, dev)
     _build.check("y", y, (x.dtype,), 2, dev)
@@ -451,18 +454,52 @@ def strided_dw(
     c_in, c_out = x.shape[1], y.shape[1]
     if v_fine == 0 or v_coarse == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((8, c_in, c_out), dtype=out_dtype, device=dev)
-    if dw_route(x.dtype, c_in, c_out) == "mma":
+    route = dw_route(x.dtype, c_in, c_out, strided=True)
+    if route != "simt":
         pairs = tables.pairs if tables.pairs is not None else slot_pair_lists(tables)
-        out = launch_dw_mma(
-            "taseg_strided_dw_mma", "strided_dw", x, y, pairs, 8, v_fine, v_fine, int(up),
-        )
-        return out.to(out_dtype)
+        return _strided_dw_lists(x, y, pairs, v_fine, up, route).to(out_dtype)
     out = launch_dw(
         "taseg_strided_dw", "strided_dw",
         (x.data_ptr(), y.data_ptr(), tables.parent.data_ptr(), tables.slot.data_ptr()),
         (v_fine, c_in, c_out, int(up)), v_fine, 8, x.dtype, dev,
     )
     return out.to(out_dtype)
+
+
+def _strided_dw_lists(x, y, pairs: PairLists, v_fine: int, up: bool, route: str) -> torch.Tensor:
+    """K5 over the slot lists `pairs` (a (>= V_fine, 2) buffer, (9,)
+    starts) on its "wgmma" or "tf32x3" route: one launch, the splits of a
+    list added in split order by the last of its blocks to finish."""
+    dev = x.device
+    _build.check_aligned(x=x, y=y)
+    _build.check("pairs", pairs.pairs, (torch.int32,), 2, dev)
+    _build.check("starts", pairs.starts, (torch.int32,), 1, dev)
+    if pairs.pairs.shape[1:] != (2,) or pairs.pairs.shape[0] < v_fine or pairs.starts.shape != (9,):
+        raise ValueError(
+            f"slot lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
+            f"do not fit (>= {v_fine}, 2) / (9,)"
+        )
+    c_in, c_out = x.shape[1], y.shape[1]
+    splits, per = k5_splits(v_fine, c_in, c_out)
+    out = torch.empty((8, c_in, c_out), dtype=torch.float32, device=dev)
+    part = cnt = None
+    pieces = 8  # one block per (tile, piece): a list's splits are its pieces
+    if splits > 1:
+        pieces = v_fine // per + 9
+        part = torch.empty((pieces, c_in, c_out), dtype=torch.float32, device=dev)
+        cnt = _build.zeroed_counters(dev, 8 * _cdiv(c_in, 64) * _cdiv(c_out, 32))
+    name, suffix = ("taseg_strided_dw_wgmma", "_wgmma") if route == "wgmma" else ("taseg_strided_dw_tf32", "_tf32")
+    _build.launch(
+        name, _build.counters("strided_dw", suffix=suffix),
+        x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), c_in, c_out, int(up), pieces, per,
+    )
+    return out
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 class DownConv(torch.autograd.Function):

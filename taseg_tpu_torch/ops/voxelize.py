@@ -20,14 +20,17 @@
 scatter), in plain torch with JAX's gradient (`SegmentMax`).
 
 Every segment sum (the voxelize forward and both devoxelize backwards)
-is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`, members
-spread over lanes in fixed-size chunks and summed in a fixed order) on
-CUDA tensors, the JAX package's mean-centred cumsum (`segment_sum_plain`)
-on CPU tensors.
+is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`: the sorted
+positions cut into units of equal work, lanes over channels, a
+segment cut across units finished by its last piece, in a fixed order,
+one launch) on CUDA tensors, the JAX package's mean-centred cumsum
+(`segment_sum_plain`) on CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,14 +49,11 @@ class SegmentTables(NamedTuple):
             (members of segment u occupy perm[starts[u]:starts[u+1]]).
     starts: (V+1,) int32 — exclusive prefix of segment sizes.
     counts: (V,) int32 — segment sizes.
-    seg:    (N,) int32 — segment id of each sorted row (V for the dropped
-            rows past starts[V]); K6 reads it, the plain version does not.
     """
 
     perm: torch.Tensor
     starts: torch.Tensor
     counts: torch.Tensor
-    seg: torch.Tensor
 
 
 def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
@@ -61,14 +61,17 @@ def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
 
     One sentinel row per segment is appended so every segment is
     non-empty (as in the JAX package); consumers pad their value rows with
-    `num_segments` zero rows, and `counts` excludes the sentinels."""
+    `num_segments` zero rows, and `counts` excludes the sentinels.  The
+    sort is stable and the sentinels come after the N rows, so segment
+    u's sentinel (row N + u) is the last of u: its real members are
+    perm[starts[u] : starts[u+1] - 1], which is all K6 reads."""
     dev = ids.device
     ids_aug = torch.cat(
         [ids.to(torch.int32), torch.arange(num_segments, dtype=torch.int32, device=dev)]
     )
     in_range = (ids_aug >= 0) & (ids_aug < num_segments)
     key = torch.where(in_range, ids_aug, num_segments)
-    seg, perm = torch.sort(key, stable=True)
+    perm = torch.sort(key, stable=True).indices
     sizes = torch.zeros(num_segments + 1, dtype=torch.int32, device=dev)
     sizes.scatter_add_(0, key.long(), torch.ones_like(key))
     starts = torch.cat(
@@ -78,7 +81,7 @@ def build_segment_tables(ids: torch.Tensor, num_segments: int) -> SegmentTables:
         ]
     )
     counts = starts[1:] - starts[:-1] - 1  # minus the sentinel row
-    return SegmentTables(perm=perm, starts=starts, counts=counts, seg=seg)
+    return SegmentTables(perm=perm, starts=starts, counts=counts)
 
 
 def run_sums(rows_f32: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -117,22 +120,71 @@ def segment_sum_plain(
     return run_sums(vals[tables.perm], tables.starts)
 
 
-# sorted rows per warp of K6's first pass (kChunk, csrc/segment_sum.cu);
-# each chunk writes up to two partial rows (its first and its last
-# segment, where they cross a chunk boundary)
-SEGMENT_CHUNK = 64
+# K6's partition (csrc/segment_sum.cu): blocks of K6_THREADS threads, one
+# unit of consecutive sorted positions per lane group, 8 items a lane up
+# to K6_MAX_UNIT items a group
+K6_THREADS = 256
+K6_MAX_UNIT = 64
+
+
+# K6 cuts a table by rows, not by units of items, where it has at most one
+# member per K6_ROWS_RATIO segments (the image branches' pixel tables)
+K6_ROWS_RATIO = 4
+
+
+def segment_sum_by_rows(r_real: int, v: int) -> bool:
+    """Whether K6 takes its rows kernel for a table of `r_real` member rows
+    over `v` segments: each warp sums 32 consecutive rows and stores them
+    in order, with no search (the zero rows, most of a sparse table's
+    bytes, stream out); else the units of equal work."""
+    return K6_ROWS_RATIO * r_real <= v
+
+
+class SegmentSumPlan(NamedTuple):
+    """How K6 lays a call out: `vw` bytes of a source row per lane piece,
+    `lanes` groups of that many lanes per segment row (a power of two up
+    to 32), `pieces` per lane, `unit` sorted positions per group."""
+
+    vw: int
+    lanes: int
+    pieces: int
+    unit: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(c: int, esz: int, addr16: int) -> SegmentSumPlan:
+    return segment_sum_plan(c, esz, addr16)
+
+
+def segment_sum_plan(c: int, esz: int, addr: int = 0) -> SegmentSumPlan:
+    """K6's layout for rows of `c` channels of `esz` bytes at address
+    `addr`: the widest piece (16, 8, 4 or 2 bytes) that divides a row and
+    the address, the lanes that cover a row in such pieces (rounded up to
+    a power of two, at most 32, with 2, 4 or 8 pieces a lane above that),
+    and the items per group: 8 a lane, at most K6_MAX_UNIT (a group
+    walks its unit in sequence, so wide rows take short units)."""
+    vw = math.gcd(c * esz, 16)
+    while vw > esz and addr % vw:
+        vw //= 2
+    need = c // (vw // esz)
+    lanes = 1 << max(0, need - 1).bit_length()
+    pieces = 1
+    if lanes > 32:
+        pieces, lanes = lanes // 32, 32
+    if pieces > 8:
+        raise ValueError(f"segment_sum: {c} channels of {esz} bytes is wider than K6 takes")
+    return SegmentSumPlan(vw=vw, lanes=lanes, pieces=pieces, unit=min(8 * lanes, K6_MAX_UNIT))
 
 
 def segment_sum(
     src: torch.Tensor, tables: SegmentTables, weights: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """K6: per segment u of `tables` (V segments over N = R + V sorted
-    rows, the last V the sentinels), out[u] = sum of weights[r] *
-    src[r mod P] over its real member rows r < R.  src (P, C) f32 or
-    bf16 with R a multiple of P; weights (R,) f32 or None (weight 1).
-    (V, C) f32, each segment's members added in a fixed order (two
-    launches: chunk sums, then the merge of the segments that span
-    chunks)."""
+    rows, the last V the sentinels, each last in its segment), out[u] =
+    sum of weights[r] * src[r mod P] over its real member rows r < R.
+    src (P, C) f32 or bf16 with R a multiple of P; weights (R,) f32 or
+    None (weight 1).  (V, C) f32, each segment's members added in a fixed
+    order, in one launch (by rows on sparse tables: `segment_sum_by_rows`)."""
     dev = src.device
     _build.check("src", src, (torch.float32, torch.bfloat16), 2, dev)
     _build.check("perm", tables.perm, (torch.int64,), 1, dev)
@@ -151,21 +203,22 @@ def segment_sum(
         raise ValueError("segment tables of 2^31 rows or more")
     if not _build.dispatch(src):
         return segment_sum_plain(src, tables, weights)
-    _build.check("seg", tables.seg, (torch.int32,), 1, dev)
-    n = tables.perm.shape[0]
-    if tables.seg.shape[0] != n:
-        raise ValueError(f"seg: {tables.seg.shape[0]} rows, perm has {n}")
     out = torch.empty((v, c), dtype=torch.float32, device=dev)
     if v == 0 or c == 0:
         return out
     if r_real == 0:
         return out.zero_()
-    part = torch.empty((-(-n // SEGMENT_CHUNK), 2, c), dtype=torch.float32, device=dev)
+    n = tables.perm.shape[0]
+    plan = _plan(c, src.element_size(), src.data_ptr() % 16)
+    units = -(-n // plan.unit)
+    part = torch.empty((units, 2, c), dtype=torch.float32, device=dev)
     _build.launch(
         "taseg_segment_sum", ("segment_sum",),
         src.data_ptr(), None if weights is None else weights.data_ptr(),
-        tables.perm.data_ptr(), tables.seg.data_ptr(), tables.starts.data_ptr(),
-        out.data_ptr(), part.data_ptr(), v, c, r_real, p, n, DTYPE_CODES[src.dtype],
+        tables.perm.data_ptr(), tables.starts.data_ptr(), out.data_ptr(),
+        part.data_ptr(), _build.zeroed_counters(dev, units).data_ptr(),
+        v, c, r_real, p, n, DTYPE_CODES[src.dtype], plan.vw, plan.lanes, plan.pieces, plan.unit,
+        int(segment_sum_by_rows(r_real, v)),
     )
     return out
 

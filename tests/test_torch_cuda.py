@@ -25,11 +25,14 @@ The backward kernels: K4 (`k3_conv_dw`) and K5 (`strided_dw`) reduce
 over up to all V rows in f32 in another order than the plain matmuls,
 so they are held within 1e-4 of the largest sum of |terms|; K6
 (`segment_sum`) within 1e-5 (against its plain version in f64 where
-segments are long).  Each is called twice on the same inputs and must
-give the same bits.  K4 takes its tensor-core route (over the pair
-lists of `f3conv.k3_pair_lists`) in bf16 with widths that are multiples
-of 8, its CUDA-core route in f32 and at ragged widths; K5 likewise, over
-the per-slot lists of `strided_conv.slot_pair_lists`.  K7
+segments are long; at pixel-table shapes, on its rows kernel, and on
+segments cut across many units).  Each is called twice on the same
+inputs and must give the same bits.  K4 takes its tensor-core route
+(over the pair lists of `f3conv.k3_pair_lists`) in bf16 with widths
+that are multiples of 8, its CUDA-core route in f32 and at ragged
+widths; K5 runs over the per-slot lists of
+`strided_conv.slot_pair_lists` in one launch, on wgmma in bf16 and on
+3xTF32 in f32 (widths in 8s / 4s), else on its CUDA-core kernel.  K7
 (`devoxelize`) repeats its plain version's roundings and is held to the
 same bits, signed zeros included, at 8 corners and at 4 (RPVNet's
 bilinear sample of the range image); so is K8 (`voxelize_bwd`), the
@@ -709,7 +712,8 @@ def test_strided_dw_mma_route(cuda, case, c_in, c_out):
     for each of its children), on negative ones (cells with repeated
     slots) and with dead children: within tolerance of its plain version,
     the same bits on a repeat call and with the pair lists built by the
-    wrapper; each launch counts under strided_dw and strided_dw_mma."""
+    wrapper; each launch counts under strided_dw and strided_dw_wgmma
+    (the wgmma tile over the slot lists, one launch per call)."""
     rng, v_fine, bare, _ = _down_case(cuda, case)
     tab = replace(bare, pairs=tst.slot_pair_lists(bare))
     v_coarse = tab.starts.shape[0] - 1
@@ -717,7 +721,7 @@ def test_strided_dw_mma_route(cuda, case, c_in, c_out):
     gc = _rand(rng, (v_coarse, c_out), cuda, torch.bfloat16)
     xc = _rand(rng, (v_coarse, c_in), cuda, torch.bfloat16)
     gf = _rand(rng, (v_fine, c_out), cuda, torch.bfloat16)
-    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "mma"
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out, strided=True) == "wgmma"
     _build.reset_launches()
     for x, y, up in ((xf, gc, False), (xc, gf, True)):
         got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
@@ -726,17 +730,17 @@ def test_strided_dw_mma_route(cuda, case, c_in, c_out):
             got, tst.strided_dw_plain(x, y, bare, up),
             tst.strided_dw_plain(x.abs(), y.abs(), bare, up), torch.float32, 1e-4,
         )
-    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_mma"]) == (6, 6)
+    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_wgmma"]) == (6, 6)
 
 
 @pytest.mark.parametrize("c_in,c_out", [(32, 32), (96, 96)])
 def test_strided_dw_mma_many_splits(cuda, c_in, c_out):
-    """A level-0 sized V_fine splits every slot's list many times, slot 3
-    has no pairs and every 9th row is dead: within tolerance, the same
-    bits on a repeat call, slot 3 zero; the f32 call takes the CUDA-core
-    route."""
+    """A level-0 sized V_fine splits every slot's list many times (the
+    last block of each list adds the splits in split order), slot 3 has
+    no pairs and every 9th row is dead: within tolerance, the same bits
+    on a repeat call, slot 3 zero; the f32 call takes the 3xTF32 tile."""
     v, v_coarse = 131072, 20000
-    splits, _ = tf3.dw_mma_splits(v, c_in, c_out, n_out=8)
+    splits, _ = tf3.k5_splits(v, c_in, c_out)
     assert splits > 16
     rng = np.random.default_rng(17)
     parent = rng.integers(0, v_coarse, v).astype(np.int32)
@@ -759,7 +763,90 @@ def test_strided_dw_mma_many_splits(cuda, c_in, c_out):
         )
         assert not got[3].any() and got[2].abs().sum() > 0
     tst.strided_dw(x.float(), y.float(), tab, True)
-    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_mma"]) == (5, 4)
+    L = _build.LAUNCHES
+    assert (L["strided_dw"], L["strided_dw_wgmma"], L["strided_dw_tf32"]) == (5, 4, 1)
+
+
+# K5's widths on TIAF's f32 step (its branches' strided convs)
+K5_TIAF_WIDTHS = [(16, 16), (32, 32), (48, 48), (64, 64), (128, 128), (256, 128), (128, 96), (96, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c_in,c_out", sorted(set(K5_WIDTHS) | set(K5_TIAF_WIDTHS)))
+@pytest.mark.parametrize("v", [3000, 131072])
+def test_strided_dw_slot_lists_both_dtypes(cuda, dtype, c_in, c_out, v):
+    """K5 over the slot lists in both dtypes (wgmma in bf16, 3xTF32 in
+    f32) at MinkUNet's and TIAF's widths, down and up, on one list per
+    split and on many (a level-0 V_fine): within 1e-4 of
+    `strided_dw_plain`'s largest sum of |terms|, the same bits on repeat,
+    one launch per call on the dtype's route."""
+    v_coarse = v // 6
+    rng = np.random.default_rng(c_in + c_out + v)
+    parent = rng.integers(0, v_coarse, v).astype(np.int32)
+    parent[::7] = -1
+    slot = rng.integers(0, 8, v).astype(np.int32)
+    i32 = lambda a: torch.from_numpy(a).to(cuda)
+    bare = tst.StridedTables(
+        parent=i32(parent), slot=i32(slot), perm=i32(np.arange(v, dtype=np.int32)),
+        starts=torch.zeros(v_coarse + 1, dtype=torch.int32, device=cuda),
+    )
+    tab = replace(bare, pairs=tst.slot_pair_lists(bare))
+    route = tf3.dw_route(dtype, c_in, c_out, strided=True)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    _build.reset_launches()
+    for up in (False, True):
+        x = _rand(rng, (v_coarse if up else v, c_in), cuda, dtype)
+        y = _rand(rng, (v if up else v_coarse, c_out), cuda, dtype)
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
+        _close(
+            got, tst.strided_dw_plain(x, y, bare, up),
+            tst.strided_dw_plain(x.abs(), y.abs(), bare, up), torch.float32, 1e-4,
+        )
+    suffix = "_wgmma" if route == "wgmma" else "_tf32"
+    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw" + suffix]) == (4, 4)
+
+
+def _pixel_ids(rng, p, v):
+    """A pixel table's shape: P rows over V >> P segments (~95% empty)."""
+    return torch.from_numpy(rng.integers(0, v, p).astype(np.int32)), v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("c", [4, 20, 32, 96, 256])
+@pytest.mark.parametrize("shape", ["pixel", "hot_pixel", "long"])
+def test_segment_sum_units_on_card(cuda, dtype, weighted, c, shape):
+    """K6 in one launch at a pixel table's shape (20x more segments than
+    rows: its rows kernel), the same with one pixel of 3000 members, and
+    on segments of 4096+ members cut across many units, at the path's
+    widths: within 1e-5 of the plain version in f64 (of the sum of
+    |terms|), empty segments exactly 0, the same bits on repeat, one
+    launch per call."""
+    rng = np.random.default_rng(c + 7 * weighted + 13 * ["pixel", "hot_pixel", "long"].index(shape))
+    p = 12000
+    if shape == "long":
+        ids, v = _long_short_ids(rng, p)
+    else:
+        ids, v = _pixel_ids(rng, p, 20 * p)
+        if shape == "hot_pixel":
+            ids[:3000] = 77
+    assert tvx.segment_sum_by_rows(p, v) == (shape != "long")
+    reps = 2 if weighted else 1
+    tables = tvx.build_segment_tables(ids.repeat(reps).to(cuda), v)
+    src = _rand(rng, (p, c), cuda, dtype)
+    w = _rand(rng, (reps * p,), cuda, torch.float32) if weighted else None
+    _build.reset_launches()
+    got = _twice_same(lambda: tvx.segment_sum(src, tables, w))
+    assert _build.LAUNCHES["segment_sum"] == 2
+    w64 = None if w is None else w.double()
+    want = tvx.segment_sum_plain(src.double(), tables, w64)
+    ref = tvx.segment_sum_plain(src.double().abs(), tables, None if w is None else w64.abs())
+    _close(got, want, ref, torch.float32, 1e-5)
+    counts = tables.counts.to(cuda)
+    assert not got[counts == 0].any()
+    if shape == "long":
+        unit = tvx.segment_sum_plan(c, src.element_size(), src.data_ptr()).unit
+        assert int(counts.max()) > 8 * unit
 
 
 def test_strided_dw_mma_with_topology_lists(cuda):

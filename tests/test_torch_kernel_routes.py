@@ -2,13 +2,16 @@
 CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-down
 (`strided_conv.downsample_route`, over a one-round child table) take the
 Hopper wgmma tile ("wgmma") in bf16 where C_in and C_out are multiples of
-8; K3-up (`strided_conv.upsample_route`), K4 and K5, the weight gradients
-of the k3 conv and of the strided pair (`f3conv.dw_route`), take the
-mma.sync tiles ("mma") there; K3-down takes K2 at K's 3xTF32 tile
-("tf32x3") in f32 with widths in 4s; the rest the CUDA-core route
-("simt").
+8; K3-up (`strided_conv.upsample_route`) and K4, the weight gradient of
+the k3 conv (`f3conv.dw_route`), take the mma.sync tiles ("mma") there;
+K5, the strided pair's (`dw_route(..., strided=True)`), takes wgmma in
+bf16 and 3xTF32 ("tf32x3") in f32 with widths in 4s, as K3-down takes K2
+at K's 3xTF32 tile in f32; the rest the CUDA-core route ("simt").  K5's
+split rule and its pieces are checked against a numpy model here; ~5 s
+for the file.
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,12 +56,27 @@ def test_k4_routes_in_bf16(convs):
 
 def test_k5_routes_in_bf16(convs):
     """The train step's d_W of all 8 strided convs (down1-4 and the four
-    deconvs) is on tensor cores: 8 of the 8 K5 launches of a step."""
+    deconvs) is on tensor cores: 8 of the 8 K5 launches of a step, on the
+    wgmma tile over the slot lists."""
     strided = {n: m for n, m in convs.items() if m.kernel_volume == 8}
     widths = sorted((m.in_channels, m.out_channels) for m in strided.values())
     assert widths == sorted(K5_PATH_WIDTHS)
-    assert all(tf3.dw_route(torch.bfloat16, *wd) == "mma" for wd in widths)
+    assert all(tf3.dw_route(torch.bfloat16, *wd, strided=True) == "wgmma" for wd in widths)
+    assert all(tf3.dw_route(torch.bfloat16, *wd) == "mma" for wd in widths)  # K4's tile
     assert all(tf3.dw_route(torch.float32, *wd) == "simt" for wd in widths)
+
+
+def test_k5_routes_in_f32(convs):
+    """In f32 (TIAF's step, whose branches are MinkUNets of these widths)
+    every K5 call takes the 3xTF32 tile over the slot lists; a ragged
+    width keeps the CUDA-core kernel."""
+    strided = [m for m in convs.values() if m.kernel_volume == 8]
+    assert len(strided) == 8
+    for m in strided:
+        assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels, strided=True) == "tf32x3"
+    assert tf3.dw_route(torch.float32, 5, 32, strided=True) == "simt"
+    assert tf3.dw_route(torch.float32, 32, 6, strided=True) == "simt"
+    assert tf3.dw_route(torch.float16, 32, 32, strided=True) == "simt"
 
 
 def test_k3_up_routes_in_bf16(convs):
@@ -102,15 +120,16 @@ def test_input_gradient_routes_in_bf16(convs):
 
 def test_f32_routes_stay_on_cuda_cores(convs):
     """f32 keeps K2 at 27 (its f32 calls go to K2 at K through `k_route`),
-    K3-up, K4 and K5 on CUDA cores; K3-down over a one-round child table
-    takes K2 at K's 3xTF32 tile (every width of the path is a multiple
-    of 4), over several rounds its round kernel."""
+    K3-up and K4 on CUDA cores; K3-down over a one-round child table and
+    K5 take 3xTF32 tiles (every width of the path is a multiple of 4),
+    K3-down over several rounds its round kernel."""
     for m in convs.values():
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
         assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "tf32x3"
         assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels, 2) == "rounds"
         assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels, strided=True) == "tf32x3"
 
 
 @pytest.mark.parametrize(
@@ -130,6 +149,9 @@ def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
     assert tst.downsample_route(torch.bfloat16, c_in, c_out, 3) == "rounds"
     assert tf3.dw_route(torch.bfloat16, c_in, c_out) == want
     assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out, strided=True) == wide
+    f32 = "tf32x3" if c_in % 4 == 0 and c_out % 4 == 0 else "simt"
+    assert tf3.dw_route(torch.float32, c_in, c_out, strided=True) == f32
 
 
 @pytest.mark.parametrize(
@@ -158,15 +180,100 @@ K5_PATH_WIDTHS = [(c_in, c_out) for _, c_in, c_out in K5_PATH_SHAPES]
 
 @pytest.mark.parametrize("v,c_in,c_out", K5_PATH_SHAPES)
 def test_k5_mma_splits_from_shapes(v, c_in, c_out):
-    """K5's tensor-core splits cover V_fine pairs (the most one slot can
-    hold) in whole 32-pair stages and count the partials of 8 slots, not
-    27, against their budget: never fewer pairs per split than K4's rule
-    would give the same shape."""
-    splits, per = tf3.dw_mma_splits(v, c_in, c_out, n_out=8)
-    assert per % tf3.DW_MMA_STAGE == 0 and per >= tf3.DW_MMA_MIN_PAIRS
+    """K5's splits cover V_fine pairs (the most one slot can hold) in
+    whole 64-pair stages, at least K5_MIN_PAIRS a split, and about one
+    wave of live blocks over the 8 lists at 2 resident blocks per SM; the
+    tile is 32, 64, 96 or 128 columns wide."""
+    splits, per = tf3.k5_splits(v, c_in, c_out)
+    assert per % tf3.K5_STAGE == 0 and per >= tf3.K5_MIN_PAIRS
     assert splits * per >= v and (splits - 1) * per < v
-    assert splits * 8 * c_in * c_out * 4 <= max(tf3.DW_MMA_PART_BYTES, 8 * c_in * c_out * 4)
-    assert splits >= tf3.dw_mma_splits(v, c_in, c_out)[0]
+    bn = tf3.k5_tile_n(c_out)
+    assert bn in (32, 64, 96, 128) and (bn >= c_out or bn == 128)
+    tiles = -(-c_in // 64) * -(-c_out // bn)
+    live = tiles * (v // per + 8)
+    assert live <= tf3.K5_SMS * tf3.K5_PER_SM + 8 * tiles
+
+
+def _k5_pieces(starts, per):
+    """numpy model of K5's split partition over the slot lists
+    (csrc/conv_dw.cu, k5): split z of slot k takes pairs [z per, (z + 1)
+    per) of k's list; a list of one piece goes straight to out, else
+    piece z of slot k is partial p(k, z) = starts[k] // per + k + z.
+    Returns {(k, z): piece index or None}."""
+    out = {}
+    for k in range(8):
+        n_k = starts[k + 1] - starts[k]
+        live = max(1, -(-n_k // per))
+        for z in range(live):
+            out[k, z] = None if live == 1 else starts[k] // per + k + z
+    return out
+
+
+@pytest.mark.parametrize("per", [64, 128, 256])
+@pytest.mark.parametrize("up", [False, True])
+def test_k5_split_pieces_and_their_sum(per, up):
+    """The pieces of K5's splits never collide and stay within the
+    wrapper's V / per + 9 buffer, over lists of every length (empty,
+    shorter than a split, many splits); adding each list's piece sums in
+    split order gives `strided_dw_pairs_plain` and `strided_dw_plain`
+    (f32; the plain versions sum each list as one product).  ~0.2 s."""
+    rng = np.random.default_rng(per + up)
+    v, v_coarse = 3000, 500
+    parent = rng.integers(0, v_coarse, v).astype(np.int32)
+    parent[::11] = -1
+    slot = rng.choice([0, 1, 2, 4, 5, 6, 7], v, p=[0.55, 0.2, 0.01, 0.1, 0.1, 0.02, 0.02]).astype(np.int32)
+    tab = tst.StridedTables(
+        parent=torch.from_numpy(parent), slot=torch.from_numpy(slot),
+        perm=torch.arange(v, dtype=torch.int32), starts=torch.zeros(v_coarse + 1, dtype=torch.int32),
+    )
+    lists = tst.slot_pair_lists(tab)
+    starts = lists.starts.tolist()
+    pieces = _k5_pieces(starts, per)
+    used = [p for p in pieces.values() if p is not None]
+    assert len(used) == len(set(used)) and max(used) < v // per + 9
+    assert starts[4] == starts[3]  # slot 3 holds no pair
+    c_in, c_out = 8, 12
+    x = torch.from_numpy(rng.normal(size=(v_coarse if up else v, c_in)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(v if up else v_coarse, c_out)).astype(np.float32))
+    pairs = lists.pairs.long()
+    if up:
+        pairs = pairs.flip(1)
+    got = torch.zeros(8, c_in, c_out)
+    for (k, z), _ in sorted(pieces.items()):
+        lo = starts[k] + z * per
+        p = pairs[lo : min(lo + per, starts[k + 1])]
+        got[k] = got[k] + x[p[:, 0]].t() @ y[p[:, 1]]
+    want = tst.strided_dw_pairs_plain(x, y, lists, up)
+    ref = tst.strided_dw_plain(x.abs(), y.abs(), tab, up).abs().max()
+    assert (got - want).abs().max() <= 1e-5 * ref
+    assert (got - tst.strided_dw_plain(x, y, tab, up)).abs().max() <= 1e-5 * ref
+    assert not got[3].any()
+
+
+@pytest.mark.parametrize("dtype,entry,suffix", [
+    (torch.bfloat16, "taseg_strided_dw_wgmma", "_wgmma"),
+    (torch.float32, "taseg_strided_dw_tf32", "_tf32"),
+])
+def test_k5_launches_once_per_call(monkeypatch, dtype, entry, suffix):
+    """K5 on either tensor-core route is one C entry per call, counted
+    under `strided_dw` and its route's entry, with the partial buffer and
+    the counters only where a list is split.  (The launch is recorded,
+    not made.)"""
+    calls = []
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
+    monkeypatch.setattr(_build, "zeroed_counters", lambda dev, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, counters, a)))
+    for v in (200, 20000):
+        tab = tst.StridedTables(
+            parent=torch.zeros(v, dtype=torch.int32), slot=torch.zeros(v, dtype=torch.int32),
+            perm=torch.arange(v, dtype=torch.int32), starts=torch.tensor([0, v], dtype=torch.int32),
+        )
+        tst.strided_dw(torch.ones(v, 32, dtype=dtype), torch.ones(1, 64, dtype=dtype), tab, False)
+    assert [(c[0], c[1]) for c in calls] == [(entry, ("strided_dw", "strided_dw" + suffix))] * 2
+    small, big = (c[2] for c in calls)  # (..., pieces, pairs per split)
+    assert small[5] is None and small[6] is None and small[-2] == 8
+    assert big[5] is not None and big[6] is not None and big[-2] == 20000 // big[-1] + 9
 
 
 def test_launch_counters_have_the_route_entries():
@@ -178,7 +285,7 @@ def test_launch_counters_have_the_route_entries():
         "strided_down_dgrad", "strided_down_dgrad_wgmma", "strided_down_dgrad_tf32",
         "strided_down_dgrad_rounds",
         "strided_up_dgrad", "strided_up_dgrad_mma",
-        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_mma",
+        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_wgmma", "strided_dw_tf32",
         "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
         "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
         "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",

@@ -260,81 +260,72 @@ def test_kernel_wrappers_reject_bad_inputs():
         tst.upsample_conv_apply(torch.zeros(3, 8), torch.zeros(8, 8, 4), tab)
 
 
-def _k6_two_passes(src, tables, w, chunk, r_real=None):
-    """numpy model of K6's two passes (csrc/segment_sum.cu): per chunk of
-    sorted rows, run sums written to out, or to the chunk's two partial
-    slots where the seg ids beside the chunk's ends show that its first
-    or last segment runs over; gaps (segments without rows) written 0;
-    then, per chunk whose last segment begins in it and runs on, that
-    segment's partials added in chunk order.  Unwritten rows stay NaN."""
-    perm, seg, starts = (t.numpy().astype(np.int64) for t in (tables.perm, tables.seg, tables.starts))
+def _k6_units(src, tables, w, unit, seed=0):
+    """numpy model of K6's one-launch partition (csrc/segment_sum.cu):
+    the sorted positions [0, starts[V]) cut into units of `unit` items
+    (real members and one end per segment), each unit walking its
+    segments from the one that holds its first item, reading the perm
+    entries of real members only; a segment wholly inside a unit is
+    written by it (on the card an empty one by its block, all its zero
+    rows at once), one cut across units ka..kb leaves a partial in each
+    (slot 1 in ka, where it begins, slot 0 in the others) and is written
+    by the piece that arrives last, as the sum of the partials in unit
+    order.  Units run in a shuffled order (the card runs them in any).
+    Returns out (NaN where unwritten) and (cut segments, most pieces)."""
+    perm = tables.perm.numpy().astype(np.int64)
+    starts = tables.starts.numpy().astype(np.int64)
     v = len(starts) - 1
-    r_real = len(perm) - v if r_real is None else r_real
-    p = src.shape[0]
-    m = starts[v]
-    n_chunks = -(-len(perm) // chunk)
-    out = np.full((v, src.shape[1]), np.nan)
-    part = np.full((n_chunks, 2, src.shape[1]), np.nan)
-    for c in range(n_chunks):
-        b = c * chunk
-        if b >= m:
+    r_real = len(perm) - v
+    p, c = src.shape
+    m_total = starts[v]
+    n_units = -(-len(perm) // unit)
+    out = np.full((v, c), np.nan)
+    part = np.full((n_units, 2, c), np.nan)
+    arrived = np.zeros(n_units, np.int64)
+    read = np.zeros(len(perm), bool)
+    cuts, most = 0, 0
+    for k in np.random.default_rng(seed).permutation(n_units):
+        j0 = k * unit
+        if j0 >= m_total:
             continue
-        e = min(b + chunk, m)
-        u_first, u_last = seg[b], seg[e - 1]
-        before = seg[b - 1] if b > 0 else -1
-        first_open, last_open = before == u_first, e < m and seg[e] == u_last
-        out[before + 1 : u_first] = 0.0
-        if e == m:
-            out[u_last + 1 :] = 0.0
-        j = b
-        while j < e:
-            key, acc = seg[j], 0.0
-            while j < e and seg[j] == key:
-                r = perm[j]
+        j1 = min(j0 + unit, m_total)
+        u = int(np.searchsorted(starts, j0, "right")) - 1
+        j = j0
+        while j < j1:
+            su, e = starts[u], starts[u + 1] - 1  # e: u's sentinel
+            acc = np.zeros(c)
+            for m in range(j, min(e, j1)):
+                read[m] = True
+                r = perm[m]
                 if r < r_real:
                     acc = acc + (1.0 if w is None else w[r]) * src[r % p]
-                j += 1
-            if (key == u_first and first_open) or (key == u_last and last_open):
-                part[c, 0 if key == u_first else 1] = acc
+            ends, began = e < j1, su >= j0
+            if ends and began:
+                out[u] = acc
             else:
-                out[key] = acc
-            if j < e:
-                out[key + 1 : seg[j]] = 0.0
-    for c in range(n_chunks):
-        b = c * chunk
-        if b >= m:
-            continue
-        e = min(b + chunk, m)
-        u = seg[e - 1]
-        if e >= m or seg[e] != u or (u == seg[b] and b > 0 and seg[b - 1] == u):
-            continue
-        last = (starts[u + 1] - 1) // chunk
-        out[u] = part[c, 0 if u == seg[b] else 1] + part[c + 1 : last + 1, 0].sum(0)
-    return out
+                ka, kb = su // unit, e // unit
+                part[k, 1 if began else 0] = acc
+                arrived[ka] += 1
+                if arrived[ka] == kb - ka + 1:  # the last piece
+                    total = np.zeros(c)
+                    for kk in range(ka, kb + 1):
+                        total = total + part[kk, 1 if kk == ka else 0]
+                    out[u] = total
+                    cuts, most = cuts + 1, max(most, kb - ka + 1)
+            if not ends:
+                break
+            j, u = e + 1, u + 1
+    assert not read[starts[1:] - 1].any(), "a sentinel's perm entry was read"
+    assert (perm[starts[1:] - 1] == r_real + np.arange(v)).all()
+    return out, (cuts, most)
 
 
-@pytest.mark.parametrize("chunk", [8, 32, tvx.SEGMENT_CHUNK])
-@pytest.mark.parametrize("weighted", [False, True])
-def test_segment_sum_chunk_passes(chunk, weighted):
-    """The sorted segment ids that K6 reads (`SegmentTables.seg`) and the
-    decomposition of its two passes into chunk sums and partials give the
-    segment sums of JAX `_segment_sum_sorted` (via the port's plain
-    version, checked against JAX here) over long, short, chunk-crossing,
-    sentinel-only and dropped rows; without sentinels (segments with no
-    rows at all) every such segment is 0."""
+def _k6_check(src, ids, v, reps, w, unit, seed):
+    """The model against the port's plain version and JAX."""
     from taseg_tpu.ops.voxelize import _segment_sum_sorted
 
-    rng = np.random.default_rng(17 + chunk)
-    p, v = 1500, 300
-    ids = np.concatenate([np.full(600, 3), rng.integers(10, 200, p - 600)]).astype(np.int32)
-    ids[rng.integers(0, p, 50)] = -1
-    reps = 2 if weighted else 1
     tt = tvx.build_segment_tables(torch.from_numpy(np.tile(ids, reps)), v)
-    key = np.where(np.tile(ids, reps) >= 0, np.tile(ids, reps), v)
-    np.testing.assert_array_equal(tt.seg.numpy(), np.sort(np.concatenate([key, np.arange(v)])))
-    src = rng.normal(size=(p, 5))
-    w = rng.normal(size=reps * p) if weighted else None
-    got = _k6_two_passes(src, tt, w, chunk)
+    got, stats = _k6_units(src, tt, w, unit, seed)
     assert not np.isnan(got).any()
     tw = None if w is None else torch.from_numpy(w)
     want = tvx.segment_sum_plain(torch.from_numpy(src), tt, tw).numpy()
@@ -343,11 +334,94 @@ def test_segment_sum_chunk_passes(chunk, weighted):
     rows = np.tile(src, (reps, 1)) * (1.0 if w is None else w[:, None])
     jwant = np.asarray(_segment_sum_sorted(jnp.asarray(rows, jnp.float32), jt))
     np.testing.assert_allclose(got, jwant, rtol=0, atol=1e-4 * np.abs(rows).sum(0).max())
-    # drop the sentinel rows: empty segments, and gaps inside chunks
-    keep = tt.perm.numpy() < reps * p
-    bare = tvx.SegmentTables(
-        perm=tt.perm[keep], seg=tt.seg[keep], counts=tt.counts,
-        starts=torch.from_numpy(np.searchsorted(tt.seg[keep].numpy(), np.arange(v + 1)).astype(np.int32)),
-    )
-    got = _k6_two_passes(src, bare, w, chunk, r_real=reps * p)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    return got, stats, tt
+
+
+@pytest.mark.parametrize("unit", [2, 8, 64])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_sum_units(unit, weighted):
+    """K6's partition into units of equal work gives the segment sums of
+    JAX `_segment_sum_sorted` (via the port's plain version, checked
+    against JAX here) over a 600-member segment cut across many units,
+    short and one-member segments, segments with only their sentinel and
+    dropped rows; the weighted case is the trilinear table's R = 2 P
+    rows.  ~1 s each."""
+    rng = np.random.default_rng(17 + unit)
+    p, v = 1500, 300
+    ids = np.concatenate([np.full(600, 3), rng.integers(10, 200, p - 700), np.arange(200, 300)])
+    ids = ids.astype(np.int32)
+    ids[rng.integers(0, p, 50)] = -1
+    reps = 2 if weighted else 1
+    src = rng.normal(size=(p, 5))
+    w = rng.normal(size=reps * p) if weighted else None
+    got, (cuts, most), tt = _k6_check(src, ids, v, reps, w, unit, seed=unit)
+    counts = tt.counts.numpy()
+    assert (counts == 0).any() and (counts == reps).any()  # one member each copy
+    assert not got[counts == 0].any()
+    assert cuts > 0 and most >= counts.max() // unit
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_sum_units_pixel_table(weighted):
+    """A pixel table's shape (TIAF's image tables: many more segments
+    than members, ~95% of them empty) at the unit K6 takes for C = 20 f32
+    rows: every empty segment reads no perm entry and is written 0; the
+    rows kernel, which such tables take, sums each row's members in
+    order to the same values.  ~2 s each."""
+    rng = np.random.default_rng(5 + weighted)
+    p, v = 400, 8000
+    plan = tvx.segment_sum_plan(20, 4)
+    assert (plan.vw, plan.lanes, plan.pieces, plan.unit) == (16, 8, 1, 64)
+    ids = rng.integers(0, v, p).astype(np.int32)
+    reps = 2 if weighted else 1
+    src = rng.normal(size=(p, 3))
+    w = rng.normal(size=reps * p) if weighted else None
+    got, _, tt = _k6_check(src, ids, v, reps, w, plan.unit, seed=3)
+    counts = tt.counts.numpy()
+    assert (counts == 0).mean() > 0.9 and not got[counts == 0].any()
+    # such a table takes K6's rows kernel: each row's members in order
+    assert tvx.segment_sum_by_rows(reps * p, v)
+    perm, starts = tt.perm.numpy(), tt.starts.numpy()
+    rows = np.stack([
+        sum(((1.0 if w is None else w[r]) * src[r % p] for r in perm[starts[u] : starts[u + 1] - 1]),
+            np.zeros(3))
+        for u in range(v)
+    ])
+    np.testing.assert_allclose(rows, got, rtol=0, atol=1e-12)
+    assert not tvx.segment_sum_by_rows(reps * p, reps * p)  # point tables: units
+
+
+def test_segment_tables_sentinel_last():
+    """`build_segment_tables` puts segment u's sentinel (row N + u) last
+    in u, after its real rows in row order, and the dropped rows after
+    starts[V]: what K6 relies on to read no sentinel."""
+    rng = np.random.default_rng(2)
+    n, v = 5000, 700
+    ids = rng.integers(-1, v, n).astype(np.int32)
+    ids[:300] = 9
+    tt = tvx.build_segment_tables(torch.from_numpy(ids), v)
+    perm, starts = tt.perm.numpy(), tt.starts.numpy().astype(np.int64)
+    assert (np.diff(starts) >= 1).all()
+    assert (perm[starts[1:] - 1] == n + np.arange(v)).all()
+    for u in (0, 9, v - 1):
+        members = perm[starts[u] : starts[u + 1] - 1]
+        np.testing.assert_array_equal(members, np.flatnonzero(ids == u))
+    assert set(perm[starts[v]:]) == set(np.flatnonzero(ids < 0))
+    np.testing.assert_array_equal(tt.counts.numpy(), np.bincount(ids[ids >= 0], minlength=v))
+
+
+@pytest.mark.parametrize(
+    "c,esz,addr,want",
+    [
+        (4, 4, 0, (16, 1, 1, 8)), (5, 4, 0, (4, 8, 1, 64)), (20, 4, 0, (16, 8, 1, 64)),
+        (32, 4, 0, (16, 8, 1, 64)), (96, 4, 0, (16, 32, 1, 64)), (256, 4, 0, (16, 32, 2, 64)),
+        (20, 2, 0, (8, 8, 1, 64)), (256, 2, 0, (16, 32, 1, 64)), (88, 4, 0, (16, 32, 1, 64)),
+        (48, 4, 0, (16, 16, 1, 64)), (8, 4, 0, (16, 2, 1, 16)),
+        (32, 2, 8, (8, 8, 1, 64)), (5, 2, 0, (2, 8, 1, 64)),
+    ],
+)
+def test_segment_sum_plan(c, esz, addr, want):
+    """K6's layout per row width: the widest piece that divides the row
+    and the address, the lanes (a power of two) that cover a row, pieces
+    per lane past 32 lanes, and the unit: 8 items a lane, at most 64."""
+    assert tuple(tvx.segment_sum_plan(c, esz, addr)) == want
