@@ -25,12 +25,12 @@ checks them:
      a real forward): K1 join_scan (one launch per call) bit-exact against
      its plain version, K2 sparse_conv_k3 and K3 strided down/up within
      stated tolerances, with kernel, plain and library times.  bf16 takes
-     the Hopper wgmma route of K2 and K3-down (over the level's row order
-     and child table) and the mma.sync tile of K3-up
-     wherever the widths allow it, f32 the CUDA-core route; each
+     the Hopper wgmma route of K2 and K3 both ways (over the level's row
+     order, child table and up table) wherever the widths allow it, f32
+     the CUDA-core route for K2 and the 3xTF32 route for K3; each
      per-shape line names its route, and beside the wgmma route's time
      stand the kernels it replaced (`old_ms`: the mma.sync K2 tile, the
-     K3-down tile, through their C entries), its tile work over present
+     K3-down and K3-up tiles, through their C entries), its tile work over present
      pairs, blocks per SM and TFLOP/s, and per level of K2 the sums.  The
      real topology's child tables take one round at every level and
      equal the counted ones; what the child tables and row orders add to
@@ -40,13 +40,14 @@ checks them:
      library (index_select, embedding_bag) times;
   4. the main path on 3 scans: finite logits of the right shape, every
      kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
-     4 K3-down launches of each scan on the wgmma route, 4 of the 4 K3-up
-     launches on the tensor-core route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
+     4 K3-down and 4 of the 4 K3-up launches of each scan on the wgmma
+     route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
-     kernels K4 k3_conv_dw (tensor cores over the level's pair lists in
-     bf16, CUDA cores in f32 and for the stem's 4 -> 32), K5 strided_dw
+     kernels K4 k3_conv_dw (one launch on wgmma over the level's pair
+     lists in bf16, beside the mma.sync tile it replaced, `old_ms`; CUDA
+     cores in f32 and for the stem's 4 -> 32), K5 strided_dw
      (one launch over the level's per-slot pair lists: wgmma in bf16,
      3xTF32 in f32), K6 segment_sum (each of its 4 calls named and timed,
      one launch each, its bound recounted for the entries it reads),
@@ -153,8 +154,8 @@ checks them:
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
   7. one JSON line listing the kernels, K2, K3, K4 and K5 with their
-     launches per route, K2 and K3-down with `old_ms` (the mma.sync K2 and
-     tiles at the same calls) and their input gradients' too, K2, K3 and K7 with their train launches, K7 at 4
+     launches per route, K2, K3 and K4 with `old_ms` (the tiles their
+     wgmma routes replaced, at the same calls) and their input gradients' too, K2, K3 and K7 with their train launches, K7 at 4
      corners as its own entry (`devoxelize_bilinear`, RPVNet's serving
      launches), K6 and K8 with their times at RPVNet's pixel tables, every
      kernel with its launches per scan and per step on SPVCNN's and
@@ -193,31 +194,32 @@ N_SCANS = 3
 ROUNDS = 14  # throughput samples: ROUNDS * N_SCANS scans, 10+ beyond p75
 SEED = 0
 # launches per scan of the main path: (all, tensor-core route: K2 and
-# K3-down the wgmma tile, K3-up the mma.sync tile); only the stem's first
-# conv (C_in = 4) takes K2's CUDA-core route
+# K3-down and K3-up the wgmma tile); only the stem's first conv (C_in = 4)
+# takes K2's CUDA-core route
 K2_PER_SCAN = (48, 47)
 DOWN_PER_SCAN = (4, 4)
 UP_PER_SCAN = (4, 4)
 # the inference path's kernels
 INFER_KERNELS = (
     "join_scan", "sparse_conv_k3", "sparse_conv_k3_wgmma", "strided_down",
-    "strided_down_wgmma", "strided_up", "strided_up_mma", "segment_sum",
+    "strided_down_wgmma", "strided_up", "strided_up_wgmma", "segment_sum",
     "devoxelize",
 )
 DEVOX_PER_SCAN = 3  # the head's strides 1, 4 and 16
 # the LAUNCHES entry of each wrapper's tensor-core route on the path
-ROUTE_ENTRY = {"sparse_conv_k3": "_wgmma", "strided_down": "_wgmma", "strided_up": "_mma"}
+ROUTE_ENTRY = {"sparse_conv_k3": "_wgmma", "strided_down": "_wgmma", "strided_up": "_wgmma"}
 # each wrapper's kernels, by fragments of their names in the profiler
 KERNEL_NAMES = {
     "join_scan": ("join_scan_kernel",),
-    # the wgmma kernel is one template for K2 and K3-down, named apart by
-    # its table (K2Rows / DownSlots)
+    # the wgmma kernel is one template for K2 and K3 both ways, named
+    # apart by its table (K2Rows / DownSlots / UpSlots); the wgmma tile of
+    # K4 and K5 by its lists (K3Lists / SlotLists)
     "sparse_conv_k3": ("k3_conv", "K2Rows"),
     "strided_down": ("strided_down", "DownSlots"),
-    "strided_up": ("strided_up",),
+    "strided_up": ("strided_up", "UpSlots"),
     "segment_sum": ("segment_sum_",),
     "k3_conv_dw": ("PairsK3", "K3Lists"),
-    "strided_dw": ("PairsStrided", "strided_dw_"),
+    "strided_dw": ("PairsStrided", "strided_dw_", "SlotLists"),
     "devoxelize": ("devox_kernel",),
     # K7's 4-corner instances (a tuple: every fragment must appear)
     "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
@@ -229,8 +231,8 @@ TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
 # gradients (the stem's first conv takes none), all but the stem's
 # forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
-# the stem's first (4 -> 32) on tensor cores, K5 one per strided conv, all
-# on the wgmma tile; K6 the voxelize forward and the 3 devox backwards; K7
+# the stem's first (4 -> 32) on the wgmma tile over the offset lists, K5
+# one per strided conv, all on the wgmma tile; K6 the voxelize forward and the 3 devox backwards; K7
 # the 3 devox forwards
 TRAIN_PER_STEP = {
     "join_scan": 5,
@@ -238,9 +240,9 @@ TRAIN_PER_STEP = {
     "sparse_conv_k3_dgrad": 47, "sparse_conv_k3_dgrad_wgmma": 47,
     "strided_down": 8, "strided_down_wgmma": 8,
     "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4,
-    "strided_up": 8, "strided_up_mma": 8,
-    "strided_up_dgrad": 4, "strided_up_dgrad_mma": 4,
-    "k3_conv_dw": 48, "k3_conv_dw_mma": 47, "strided_dw": 8, "strided_dw_wgmma": 8,
+    "strided_up": 8, "strided_up_wgmma": 8,
+    "strided_up_dgrad": 4, "strided_up_dgrad_wgmma": 4,
+    "k3_conv_dw": 48, "k3_conv_dw_wgmma": 47, "strided_dw": 8, "strided_dw_wgmma": 8,
     "segment_sum": 4, "devoxelize": 3, "devoxelize_bilinear": 0, "voxelize_bwd": 0,
 }
 
@@ -252,7 +254,7 @@ TRAIN_PER_STEP = {
 # backwards (the stem's input takes no gradient)
 SPVCNN_PER_SCAN = {
     "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47,
-    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
     "segment_sum": 4, "devoxelize": 4, "voxelize_bwd": 0,
 }
 SPVCNN_PER_STEP = {**TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "voxelize_bwd": 3}
@@ -270,14 +272,14 @@ SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 # backwards
 RPVNET_PER_SCAN = {
     "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33,
-    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_mma": 4,
+    "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
     "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 0,
 }
 RPVNET_PER_STEP = {
     **TRAIN_PER_STEP,
     "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66,
     "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_wgmma": 33,
-    "k3_conv_dw": 34, "k3_conv_dw_mma": 33,
+    "k3_conv_dw": 34, "k3_conv_dw_wgmma": 33,
     "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 6,
 }
 RPVNET_ROUNDS = 3  # serving samples: RPVNET_ROUNDS * N_SCANS scans
@@ -314,11 +316,11 @@ CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 FSA_HISTORY = 3
 FSA_PER_SCAN = {
     "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
-    "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 3,
+    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 3,
 }
 KD_TEACHER = {
     "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
-    "strided_up": 4, "strided_up_mma": 4, "segment_sum": 1, "devoxelize": 6,
+    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 6,
 }
 FSA_ROUNDS = 2  # serving samples: FSA_ROUNDS * N_SCANS scans
 
@@ -470,32 +472,20 @@ def gathered_rows(x, idx):
     return g.permute(1, 0, 2).reshape(idx.shape[1], -1)
 
 
-def slot_rows(tables):
-    """(8, V_fine) int32: the parent of each fine row at its slot, -1 at
-    the other slots and where it has none."""
-    import torch
-
-    par, slot = tables.parent, (tables.slot & 7).long()
-    idx = torch.full((8, par.shape[0]), -1, dtype=torch.int32, device=par.device)
-    cols = torch.arange(par.shape[0], device=par.device)
-    idx[slot, cols] = par
-    return idx
-
-
 def conv_library_ms(name: str, x, w, table) -> float:
     """One torch.mm that computes a conv call of K2 / K3 (forward or input
     gradient) on rows gathered beforehand: (rows x K C_in) @ W reshaped
     to (K C_in x C_out); K = the rulebook's offsets, or the 8 slots."""
     import torch
 
-    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table, slot_up_table
 
     if name in ("sparse_conv_k3", "sparse_conv_k", "sparse_conv_k_dgrad"):
         idx = table
     elif name == "strided_down":
         idx = slot_child_table(table)[0]  # one round on the path
     else:
-        idx = slot_rows(table)
+        idx = slot_up_table(table)
     a = gathered_rows(x, idx)
     b = w.reshape(-1, w.shape[2])
     ms = cuda_ms(lambda: torch.mm(a, b))
@@ -509,14 +499,14 @@ def dw_library(name: str, x, y, table, up: bool = False):
     absent), as a call on rows gathered beforehand."""
     import torch
 
-    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table, slot_up_table
 
     if name in ("k3_conv_dw", "sparse_conv_dw"):
         b = gathered_rows(y, table)
     elif up:  # x coarse rows, y fine rows: the children per slot
         b = gathered_rows(y, slot_child_table(table)[0])
     else:  # x fine rows, y coarse rows at each fine row's slot
-        b = gathered_rows(y, slot_rows(table))
+        b = gathered_rows(y, slot_up_table(table))
     xt = x.t()
     return lambda: torch.mm(xt, b)
 
@@ -591,9 +581,9 @@ def old_call(name: str, x, w, t):
     """The kernels the wgmma and 3xTF32 routes replaced on the path, at
     the same inputs, through their C entries (counted nowhere): the
     tensor-core K2 tile in table order (`sparse_conv_k3`, bf16 widths in
-    8s), the mma.sync K3-down round tile (`strided_down`, bf16 widths in
-    8s)
-    and the CUDA-core K3-down kernel (f32).  Returns the output."""
+    8s), the mma.sync K3-down round tile and K3-up tile (`strided_down`,
+    `strided_up`, bf16 widths in 8s) and the CUDA-core K3 kernels (f32).
+    Returns the output."""
     import torch
 
     from taseg_tpu_torch.ops import _build
@@ -604,6 +594,15 @@ def old_call(name: str, x, w, t):
         out = torch.empty((x.shape[0], c_out), dtype=x.dtype, device=x.device)
         _build.launch("taseg_sparse_conv_k3_mma", (), x.data_ptr(), w.data_ptr(), t.data_ptr(),
                       out.data_ptr(), x.shape[0], c_in, c_out)
+        return out
+    if name == "strided_up":
+        v_fine = t.parent.shape[0]
+        out = torch.empty((v_fine, c_out), dtype=x.dtype, device=x.device)
+        ptrs = (x.data_ptr(), w.data_ptr(), t.parent.data_ptr(), t.slot.data_ptr(), out.data_ptr())
+        if x.dtype == torch.bfloat16:
+            _build.launch("taseg_strided_up_mma", (), *ptrs, v_fine, c_in, c_out)
+        else:
+            _build.launch("taseg_strided_up", (), *ptrs, v_fine, c_in, c_out, DTYPE_CODES[x.dtype])
         return out
     v_coarse = t.starts.shape[0] - 1
     out = torch.empty((v_coarse, c_out), dtype=x.dtype, device=x.device)
@@ -620,24 +619,40 @@ def old_call(name: str, x, w, t):
 def old_times(name: str, x, w, t, want, ref, dtype: str, rel: float):
     """(ms, max|err|) of `old_call` at one call, held to the route's
     tolerance against the plain version; (None, None) where the call has
-    no old kernel (K2's f32 and ragged calls, K3-up, ragged bf16
-    K3-down)."""
+    no old kernel (K2's f32 and ragged calls, ragged bf16 K3)."""
     import torch
 
     wide = x.shape[1] % 8 == 0 and w.shape[2] % 8 == 0
-    if (name == "strided_down" and (wide or x.dtype == torch.float32)) or (
+    if (name in ("strided_down", "strided_up") and (wide or x.dtype == torch.float32)) or (
             name == "sparse_conv_k3" and x.dtype == torch.bfloat16 and wide):
         err = check_close(f"{name} old kernel", old_call(name, x, w, t), want, ref, dtype, rel)
         return cuda_ms(lambda: old_call(name, x, w, t)), err
     return None, None
 
 
+def old_k4(x, g, pairs):
+    """K4's mma.sync tile over the same pair lists (the tile its wgmma
+    route replaced; two launches where a list splits), through its C
+    entry, counted nowhere: the f32 (27, C_in, C_out) result."""
+    from taseg_tpu_torch.ops import f3conv
+
+    v = x.shape[0]
+    return f3conv.launch_dw_mma("taseg_k3_conv_dw_mma", "", x, g, pairs, 27, v, 27 * v)
+
+
+def old_k4_times(x, g, pairs, want, ref):
+    """(ms, max|err|) of `old_k4` at one call, held to K4's tolerance."""
+    err = check_close("k3_conv_dw old kernel", old_k4(x, g, pairs), want, ref, "float32", 1e-4)
+    return cuda_ms(lambda: old_k4(x, g, pairs)), err
+
+
 def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -> dict:
     """The wgmma route's plan of one bf16 call: tile work over present
     pairs over the order (`tile`) and before (`before`: the mma.sync K2
-    tile in table order; the K3-down round tile, 8 slots x 64 rows in every tile
-    with a child), resident blocks per SM, grid blocks per SM, and the
-    rates of the present-pair and of the tile work (TFLOP/s)."""
+    and K3-up tiles in table order; the K3-down round tile, 8 slots x 64
+    rows in every tile with a child), resident blocks per SM, grid blocks
+    per SM, and the rates of the present-pair and of the tile work
+    (TFLOP/s)."""
     import torch
 
     from taseg_tpu_torch.ops import _build
@@ -645,6 +660,9 @@ def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -
 
     if name == "sparse_conv_k3":
         rb, order = table.rb, table.order
+        before = tile_work(rb)
+    elif name == "strided_up":
+        rb, order = table.up, table.up_order
         before = tile_work(rb)
     else:
         rb, order = table.child[0], table.child_order
@@ -720,10 +738,10 @@ def phase_join_scan(topo, results: dict, probes: list) -> None:
 def phase_convs(cap: Capture, results: dict, probes: list) -> None:
     """K2 and K3 on every distinct shape of the path, bf16 (the path's
     dtype) and f32; per-scan totals weight each shape by its count.  K2
-    and K3-down read the level's row order and child table as the path
+    and K3 read the level's row order and child or up table as the path
     does.  Beside each bf16 time: the kernel the route replaced
-    (`old_ms`: the mma.sync K2 tile, the K3-down round tile, through their C
-    entries, held to the same tolerance), the wgmma route's plan (tile
+    (`old_ms`: the mma.sync K2 tile, the K3-down round tile, the K3-up
+    tile, through their C entries, held to the same tolerance), the wgmma route's plan (tile
     work over present pairs, blocks per SM, TFLOP/s), and per level of K2
     the sums over its shapes.  The bf16 K3-down calls go into `probes`
     for their device time."""
@@ -742,8 +760,7 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
             "library_ms": 0.0, "_bound_parts": [0.0, 0.0],
         }
-        if name != "strided_up":
-            results[name]["old_ms"] = 0.0
+        results[name]["old_ms"] = 0.0
     levels: dict = {}  # K2 by level rows: ms, old, library, present and tile operations
     for key, (feats, w32, table) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, rows, c_in, c_out = key
@@ -846,23 +863,29 @@ def check_child_rounds(topo) -> None:
 
 def topology_cost(seg, arrays) -> None:
     """What the wgmma routes add to the serving topology: the child table
-    of each level (one scatter, nothing read back) and the row orders of
-    the levels' 3^3 rulebooks and child tables (one batched sort per
-    level), each timed on its own at the real topology's tables (CUDA
-    events, host cost included) beside the whole stage."""
+    and the up table of each level (one scatter and one elementwise op,
+    nothing read back) and the row orders of the levels' 3^3 rulebooks,
+    child tables and up tables (one batched sort per level size), each
+    timed on its own at the real topology's tables (CUDA events, host
+    cost included) beside the whole stage; the up tables' share (their
+    build and what they add to the sorts) apart."""
     from taseg_tpu_torch.ops.sparse_conv import mask_row_orders
-    from taseg_tpu_torch.ops.strided_conv import slot_child_table
+    from taseg_tpu_torch.ops.strided_conv import slot_child_table, slot_up_table
 
     topo = seg.topology(arrays)
     lv = topo.levels
     child = cuda_ms(lambda: [slot_child_table(l.strided, rounds=1) for l in lv[1:]])
-    orders = cuda_ms(lambda: mask_row_orders([l.rb_k3 for l in lv] + [l.strided.child[0] for l in lv[1:]]))
+    up = cuda_ms(lambda: [slot_up_table(l.strided) for l in lv[1:]])
+    tables = [l.rb_k3 for l in lv] + [l.strided.child[0] for l in lv[1:]]
+    orders = cuda_ms(lambda: mask_row_orders(tables + [l.strided.up for l in lv[1:]]))
+    no_up = cuda_ms(lambda: mask_row_orders(tables))
     k3_only = cuda_ms(lambda: mask_row_orders([l.rb_k3 for l in lv]))
     whole = cuda_ms(lambda: seg.topology(arrays))
     log(
-        f"topology {whole:.3f} ms per scan; of it the child tables {child:.3f} ms and the row "
-        f"orders {orders:.3f} ms (the 3^3 tables' alone {k3_only:.3f} ms): "
-        f"{child + orders:.3f} ms added by the wgmma routes"
+        f"topology {whole:.3f} ms per scan; of it the child tables {child:.3f} ms, the up tables "
+        f"{up:.3f} ms and the row orders {orders:.3f} ms (without the up tables' {no_up:.3f} ms, "
+        f"the 3^3 tables' alone {k3_only:.3f} ms): {child + up + orders:.3f} ms added by the wgmma "
+        f"routes, {up + orders - no_up:.3f} ms of it by the up tables"
     )
 
 
@@ -1145,7 +1168,9 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     mean-centred cumsum).  K4 in bf16 reads the level's pair lists as the
     step passed them, and must give the same bits when its wrapper builds
     them itself; its f32 call takes the CUDA-core route; K5 likewise
-    over the level's per-slot pair lists.  Each K6 call is
+    over the level's per-slot pair lists.  Beside the bf16 K4 and K3-up
+    calls stands the tile their wgmma route replaced (`old_ms`, through
+    its C entry, held to the same tolerance).  Each K6 call is
     named by its place in the step, so the stride-16 call shows."""
     import torch
 
@@ -1208,7 +1233,7 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
     tot = {
         k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
             "library_ms": 0.0, "_parts": [0.0, 0.0], "f32_checked": False,
-            **({"old_ms": 0.0} if k in ("sparse_conv_k3", "strided_down") else {})}
+            **({"old_ms": 0.0} if k in ("sparse_conv_k3", "strided_down", "strided_up", "k3_conv_dw") else {})}
         for k in makers
     }
     for key in sorted((k for k in cap.seen if k[0] == "devoxelize"), key=str):
@@ -1242,7 +1267,7 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             if name == "k3_conv_dw":
                 route = f3conv.dw_route(tdt, x.shape[1], second.shape[1])
                 label += f" route {route}"
-                if route == "mma" and not torch.equal(f3conv.k3_conv_dw(xd, sd, a[2]), got):
+                if route == "wgmma" and not torch.equal(f3conv.k3_conv_dw(xd, sd, a[2]), got):
                     raise AssertionError(f"{key}: K4 differs with pair lists built by the wrapper")
             if name == "strided_dw":
                 route = f3conv.dw_route(tdt, x.shape[1], second.shape[1], strided=True)
@@ -1260,8 +1285,10 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
                 continue
             ms = cuda_ms(kern)
             old = None
-            if name in ("sparse_conv_k3", "strided_down"):
+            if name in ("sparse_conv_k3", "strided_down", "strided_up"):
                 old, old_err = old_times(name, xd, sd, a[2], want(), ref(), dtype, rel)
+            elif name == "k3_conv_dw" and f3conv.dw_route(tdt, x.shape[1], second.shape[1]) == "wgmma":
+                old, old_err = old_k4_times(xd, sd, kw["pairs"], want(), ref())
             pms = cuda_ms(plain, iters=3)
             nbytes, ops, lib = train_cost(name, a, kw, xd, sd)
             b, by = bound_ms(nbytes, ops, dtype)
@@ -3133,8 +3160,8 @@ TIAF_STEPS = 3
 # in f32: per scan the main branch's 48 convs and the FOV branch's 17: 64
 # on K2 at K = 27 offsets on the f32 3xTF32 route over the levels' row
 # orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 +
-# 4 per branch (K3-down on K2 at K's 3xTF32 tile over each level's child
-# table: `strided_down_tf32`), K6 at
+# 4 per branch (K3-down and K3-up on K2 at K's 3xTF32 tile over each
+# level's child and up tables: `strided_down_tf32`, `strided_up_tf32`), K6 at
 # the two voxelizes, K7 at the main head's 3, the main features' 3, the
 # FOV taps to the FOV points (3) and to the main points (3, trilinear
 # FOV -> main) and the image gathers (3: stem, decoder, logits); K1 at
@@ -3147,14 +3174,16 @@ TIAF_STEPS = 3
 # voxelize backward
 TIAF_PER_SCAN = {
     "join_scan": 13, "sparse_conv_k3": 1, "sparse_conv_k": 64, "sparse_conv_k_tf32": 64,
-    "strided_down": 8, "strided_down_tf32": 8, "strided_up": 8, "segment_sum": 2, "devoxelize": 15,
+    "strided_down": 8, "strided_down_tf32": 8, "strided_up": 8, "strided_up_tf32": 8,
+    "segment_sum": 2, "devoxelize": 15,
 }
 TIAF_PER_STEP = {
     "join_scan": 13, "sparse_conv_k3": 1, "k3_conv_dw": 1, "sparse_conv_k": 128,
     "sparse_conv_k_tf32": 128, "sparse_conv_k_dgrad": 64, "sparse_conv_k_dgrad_tf32": 64,
     "sparse_conv_dw": 64, "sparse_conv_dw_tf32": 64,
     "strided_down": 16, "strided_down_tf32": 16, "strided_down_dgrad": 8,
-    "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_dgrad": 8,
+    "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_tf32": 16,
+    "strided_up_dgrad": 8, "strided_up_dgrad_tf32": 8,
     "strided_dw": 16, "strided_dw_tf32": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
 }
 TIAF_BRANCHES = ("image_backbone", "lidar_backbone", "main")
@@ -3519,8 +3548,11 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             want = plain(x, second, t)
             err = check_close(label, got, want, ref, "float32", rel)
             limit = rel * ref.abs().max().item()
-            # K3-down's CUDA-core kernel, which the 3xTF32 route replaced
-            old, old_err = old_times(base, x, second, t, want, ref, "float32", rel) if base == "strided_down" else (None, None)
+            # K3's CUDA-core kernels, which the 3xTF32 route replaced
+            old, old_err = (
+                old_times(base, x, second, t, want, ref, "float32", rel)
+                if base in ("strided_down", "strided_up") else (None, None)
+            )
             del got, ref, want
             ms = cuda_ms(kern)
             pms = cuda_ms(lambda: plain(x, second, t), iters=3)
@@ -3847,8 +3879,6 @@ def main() -> int:
     from taseg_tpu_torch.ops import _build
     from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     # 1. the card
@@ -3873,6 +3903,12 @@ def main() -> int:
     variables = {"params": params, "batch_stats": stats}
     seg = Segmenter(cfg, variables, compute_dtype="bfloat16")
     seg32 = Segmenter(cfg, variables, compute_dtype="float32")
+    # the entry points switch TF32 off for the process (_device.resolve_device)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    log(f"after Segmenter: torch.backends.cudnn.allow_tf32={tf32[0]} "
+        f"torch.backends.cuda.matmul.allow_tf32={tf32[1]}")
+    if any(tf32):
+        raise AssertionError("an entry point left TF32 on")
     t0 = time.perf_counter()
     scans = make_scans(N_SCANS)
     log(f"scans: {N_SCANS} x {N_POINTS} points in {time.perf_counter() - t0:.1f} s")
@@ -3927,7 +3963,7 @@ def main() -> int:
     log(
         f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]} (wgmma), "
         f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]} (wgmma), "
-        f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]} (mma)"
+        f"K3-up {UP_PER_SCAN[1]} of {UP_PER_SCAN[0]} (wgmma)"
     )
     for s, o in zip(scans, out):
         n_raw = s["xyzret"].shape[0]
@@ -4001,8 +4037,8 @@ def main() -> int:
     meta = {
         "join_scan": ("csrc/join_scan.cu", "taseg_tpu/ops/join_scan.py:134"),
         "sparse_conv_k3": ("csrc/sparse_conv.cu", "taseg_tpu/ops/tgf.py:217"),
-        "strided_down": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:124"),
-        "strided_up": ("csrc/strided_conv.cu", "taseg_tpu/ops/strided_conv.py:153"),
+        "strided_down": ("csrc/sparse_conv.cu", "taseg_tpu/ops/strided_conv.py:124"),
+        "strided_up": ("csrc/sparse_conv.cu", "taseg_tpu/ops/strided_conv.py:153"),
         "k3_conv_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/f3conv.py:219"),
         "strided_dw": ("csrc/conv_dw.cu", "taseg_tpu/ops/strided_conv.py:136"),
         "segment_sum": ("csrc/segment_sum.cu", "taseg_tpu/ops/voxelize.py:85"),
@@ -4036,8 +4072,10 @@ def main() -> int:
         elif name in per_step:
             entry["per"] = "train step"
             if name == "k3_conv_dw":
-                mma = train_launches[f"{name}_mma"]
-                entry["launches_by_route"] = {"mma": mma, "simt": train_launches[name] - mma}
+                wg = train_launches[f"{name}_wgmma"]
+                entry["launches_by_route"] = {"wgmma": wg, "simt": train_launches[name] - wg}
+                # the mma.sync tile the wgmma route replaced, at the same calls
+                entry["old_ms"] = r["old_ms"]
             elif name == "strided_dw":
                 wg = train_launches["strided_dw_wgmma"]
                 entry["launches_by_route"] = {"wgmma": wg, "simt": train_launches[name] - wg}

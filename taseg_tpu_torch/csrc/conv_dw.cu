@@ -35,71 +35,73 @@
 // row: ~12 GFLOP per step, so its bytes set its floor (0.047 ms per bf16
 // MinkUNet step, 0.26 ms per f32 TIAF step).
 //
-// K4's routes (f3conv.dw_route):
+// K4 and K5 run over pair lists: every present pair (x row, y row) of
+// an output index o (K4's offset k, K5's slot s) compacted, list by
+// list in row order, into one int2 buffer with a start table, on the
+// device.  For K4 the topology compacts the (i, rb_bwd[k, i]) pairs of
+// each offset into a (27 V,) buffer with (28,) starts
+// (f3conv.k3_pair_lists), once per level and step, shared by every conv
+// of the level.  For K5 every live fine row f has one slot, so the train
+// topology compacts the (f, parent f) pairs slot by slot into a (V_fine,)
+// buffer with (9,) starts (strided_conv.slot_pair_lists); the down and
+// the up conv of a level share it, the up direction reading each pair
+// swapped (X = coarse feats[parent f], Y = fine grad[f]).  d_W[o] is then
+// a dense product over o's list,
 //
-// dw_mma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: 47 of the 48 convs
-// of a step): tensor cores over pair lists built once per level.  The
-// topology compacts the present (i, rb_bwd[k, i]) pairs of each offset
-// k, in row order (f3conv.k3_pair_lists), into one (27 V,) int2 list with
-// a (28,) start table on the device; every conv of the level shares it.
-// d_W[k] is then a dense product over k's pair list,
+//   d_W[o] = X_o^T Y_o,  X_o = x[x rows of o's pairs], Y_o = y[y rows],
 //
-//   d_W[k] = X_k^T Y_k,  X_k = feats[i of k's pairs], Y_k = g[j of them],
+// with the contraction over pairs.
 //
-// with the contraction over pairs.  A block owns (a 64-row C_in tile, a
-// BN-column C_out tile, offset k, a split of k's list); it stages up to
-// kWin pairs in shared memory, then gathers X and Y rows, 32 pairs per
-// stage, by 16-byte cp.async into a 4-stage ring, and multiplies them
-// with mma.sync m16n8k16 bf16 -> f32: X^T through ldmatrix .trans (X is
-// stored pair-major), Y through ldmatrix .trans as gather_mma.cuh reads
-// W.  Pairs past the list's end copy 0 bytes and add 0.  Splits of a
-// pair list come from the shapes alone (f3conv.dw_mma_splits); the
-// counts stay on the device, and dw_mma_reduce_splits_kernel adds the
-// splits a list's count reaches, in split order.
+// dw_wgmma_kernel (namespace lists; bf16, widths in 8s: K4's 47 of the
+// 48 convs of a step, every K5 call of the bf16 steps): Hopper's
+// warpgroup MMA, one launch per call.  A block owns (64 CW C_in rows,
+// BN C_out columns, list o, a split of o's list).  A = X^T and B = Y are
+// both gathered pair-major, so both operands are MN-major (tnspA = tnspB
+// = 1): A in 128-byte swizzled atoms of 8 pairs x 64 channels, one atom
+// column per consumer warpgroup, B in the atoms K2's W takes
+// (wgmma_tile.cuh).  The producer warpgroup stages each window of the
+// list's pairs in shared memory (the next window's pairs in registers
+// meanwhile) and gathers X and Y rows, 64 pairs a stage, by 16-byte
+// cp.async into a 4-stage mbarrier ring; CW consumer warpgroups run
+// m64nBNk16 over them.  K4's tile (f3conv.k4_tile): the whole C_out up
+// to 256 columns, so each gathered x row feeds all of C_out once, and two
+// consumer warpgroups (128 C_in rows) where C_in >= 128, so each gathered
+// g row feeds 128 of them (at 384 -> 256 a g row is gathered 3 times and
+// a feats row once; the mma.sync tile before it, 64 x <= 128, gathered
+// them 6 and 2 times).  K5's: one consumer warpgroup, C_out up to 128.
+//
+// Splits and pieces (lists::split_pairs, piece_of, finish_pieces): a
+// list is cut into splits of `per` pairs.  K5 takes per from the shapes
+// (f3conv.k5_splits); K4 from the lists' lengths, read on the device:
+// the least per, at least K4_MIN_PAIRS, at which the pieces fill one
+// wave of the H100's SMs (f3conv.k4_plan's target).  Split z of list o is piece
+// (starts[o] - starts[0]) / per + o + z (no two lists collide, all below
+// total / per + kOut), and the grid has one block per (tile, piece), so
+// no block waits on a split past its list's end.  A list of one split
+// writes d_W[o] directly; else each split writes its partial to its
+// piece and counts on its (tile, list) counter, and the last split to
+// arrive adds the pieces in split order with all its threads, writes the
+// tile and sets the counter back to 0.  So a call is one launch and the
+// same inputs give the same bits.  K4's mma.sync tile before it
+// (dw_mma_kernel; now only chip_smoke.py's yardstick) took its
+// splits from a cap on the partials, 6 912 blocks at 32 -> 32 of which
+// most exited at once, a (splits, 27, C_in, C_out) buffer and a second
+// launch to add them, and drained its cp.async ring at each window.
 //
 // sparse_conv_dw_tf32_kernel (K4 at K offsets in f32 with C_in % 4 == 0
 // and C_out % 4 == 0: every weight gradient of Cylinder3D and of the f32
-// MinkUNets' 3^3 convs): the pair-list tile above in f32 on 3xTF32
+// MinkUNets' 3^3 convs): the mma.sync pair-list tile in f32 on 3xTF32
 // tensor cores over the per-offset lists of f3conv.pair_lists, 16 pairs
 // per stage, mma.sync m16n8k8 .tf32 with each operand split into TF32
 // high and low parts and each product taken as three (gather_mma.cuh,
-// namespace tf32); splits and their reduction as for dw_mma_kernel.
+// namespace tf32); splits from a cap on the partials, added by
+// dw_mma_reduce_splits_kernel.
 //
-// K5 runs over the 8 slot lists: every live fine row f has one slot, so
-// the train topology compacts the (f, parent f) pairs slot by slot, in
-// row order, into one (V_fine,) int2 list with a (9,) start table
-// (strided_conv.slot_pair_lists), once per level and step in both
-// dtypes; the down and the up conv of a level share it, the up direction
-// reading each pair swapped (X = coarse feats[parent f], Y = fine
-// grad[f]).  One launch per call, on one of two routes:
-//
-// strided_dw_wgmma_kernel (bf16, widths in 8s: every K5 call of the
-// bf16 steps): Hopper's warpgroup MMA.  A block owns (64 C_in rows, C_out
-// up to 256 columns, slot s, a split of s's list).  A = X^T and B = Y are
-// both gathered pair-major, so both operands are MN-major (tnspA = tnspB
-// = 1): A in 128-byte swizzled atoms of 8 pairs x 64 channels, B in the
-// atoms K2's W takes (wgmma_tile.cuh).  Warpgroup 1 stages each window of
-// the list's pairs in shared memory and gathers X and Y rows, 64 pairs a
-// stage, by 16-byte cp.async into a 4-stage mbarrier ring; warpgroup 0
-// runs m64nNk16 over them.  The mma.sync tile before it took 2 launches
-// per call (the tile, then the split reduction) and sent every split's
-// partial through device memory for a few us of bytes per call.
-//
-// strided_dw_tf32_kernel (f32, widths in 4s: TIAF's 16 calls per step):
-// K4 at K's 3xTF32 tile over the slot lists.  It replaced the CUDA-core
-// dw_kernel over the parent and slot tables, whose every block scanned
-// all fine rows for the ~1/8 of its slot and multiplied them in f32 FMA.
-//
-// Splits (f3conv.k5_splits): pairs per split a multiple of the 64-pair
-// stage, enough splits for ~2 blocks per SM over all lists.  Split z of
-// slot s is piece starts[s] / per + s + z (no two lists collide, all
-// below V / per + 9), and the grid has one block per (tile, piece), so no
-// block waits on a split past its list's end.  A list of one split
-// writes d_W[s] directly; else each split writes its partial to its
-// piece and counts on its (tile, slot) counter, and the last split to
-// arrive adds the pieces in split order, writes the tile and sets the
-// counter back to 0.  So a call is one launch and the same inputs give
-// the same bits.
+// strided_dw_tf32_kernel (f32, widths in 4s: TIAF's 16 K5 calls per
+// step): that 3xTF32 tile over the slot lists, with the pieces above.  It
+// replaced the CUDA-core dw_kernel over the parent and slot tables,
+// whose every block scanned all fine rows for the ~1/8 of its slot and
+// multiplied them in f32 FMA.
 //
 // dw_kernel (f32 K4 at 27 and ragged widths such as the stem's 4 -> 32,
 // for K4, K4 at K offsets and K5): CUDA cores, f32 FMA on operands
@@ -671,29 +673,68 @@ int launch(const void* x, const void* y, const void* pairs, const void* starts,
 
 }  // namespace dwmma
 
-// ---- K5 over the slot pair lists, one launch per call ----
-namespace k5 {
+// ---- K4 and K5 over pair lists, one launch per call ----
+//
+// What K4's 27 offset lists and K5's 8 slot lists share (`Lists::kOut`
+// lists, consecutive in one pair buffer): the pairs per split, the
+// pieces of the splits, the last block's sum of them, and the bf16 wgmma
+// tile that runs over them.
+namespace lists {
 
-namespace mma = taseg::mma;
 namespace wg = taseg::wg;
-namespace tf = taseg::tf32;
+using bf16 = __nv_bfloat16;
 
-// Split z of slot k's list is its piece p(k, z) = starts[k] / per + k + z
-// of the partial buffer: the lists are consecutive in the pair buffer, so
-// these indices never collide and stay below V / per + 9.  A list of one
-// piece (at most `per` pairs, or none) is written straight to out.
-__device__ __forceinline__ int first_piece(const int* starts, int k, int per) {
-  return starts[k] / per + k;
+// K4's lists (27 offsets) and K5's (8 slots); the tag also names the
+// kernel in a profile
+struct K3Lists {
+  static constexpr int kOut = 27;
+};
+struct SlotLists {
+  static constexpr int kOut = 8;
+};
+
+// Pairs per split: with a target, the least multiple of `stage`, at
+// least per_min, at which the lists' pieces (each list at least one)
+// number at most `target`, or the longest list's length where none does
+// (every list in one piece); target 0: per_min.  Found by bisection over
+// the lists' lengths, one lane per list (n_out <= 32), each warp on its
+// own: the split follows the data, nothing is read back on the host, and
+// every block of a call computes the same number from the same starts.
+// Call it from all 32 lanes of every warp.
+__device__ __forceinline__ int split_pairs(const int* __restrict__ starts, int n_out,
+                                           int per_min, int target, int stage) {
+  if (target <= 0) return per_min;
+  const int lane = threadIdx.x % 32;
+  const int n = lane < n_out ? starts[lane + 1] - starts[lane] : 0;
+  const int longest = __reduce_max_sync(0xffffffffu, n);
+  int lo = max(1, (per_min + stage - 1) / stage);  // in stages
+  int hi = max(lo, (longest + stage - 1) / stage);
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2, per = mid * stage;
+    const int pieces =
+        __reduce_add_sync(0xffffffffu, lane < n_out ? max(1, (n + per - 1) / per) : 0);
+    if (pieces <= target)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo * stage;
 }
 
-// The (slot, split) of piece p (blockIdx.y: one block per piece, no
-// block for a split past its list's end); false for the few indices
-// between two lists' pieces.
+// Split z of list k is its piece p(k, z) = (starts[k] - starts[0]) / per
+// + k + z of the partial buffer: the lists are consecutive in the pair
+// buffer, so these indices never collide and stay below total / per + N
+// (with split_pairs' target: below max(target, N) + N).
+// A list of one piece (at most `per` pairs, or none) is written straight
+// to out.  piece_of gives the (list, split) of piece p (blockIdx.y: one
+// block per piece, no block for a split past its list's end); false for
+// the few indices between two lists' pieces and past the last.
+template <int N>
 __device__ __forceinline__ bool piece_of(const int* __restrict__ starts, int p, int per,
                                          int& k, int& z, int& live) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int fp = first_piece(starts, kk, per);
+  const int s0 = starts[0];
+  for (int kk = 0; kk < N; ++kk) {
+    const int fp = (starts[kk] - s0) / per + kk;
     const int lv = max(1, (starts[kk + 1] - starts[kk] + per - 1) / per);
     if (p >= fp && p < fp + lv) {
       k = kk;
@@ -705,16 +746,17 @@ __device__ __forceinline__ bool piece_of(const int* __restrict__ starts, int p, 
   return false;
 }
 
-// After the block's (C_in, C_out) tile [m0, m0 + 64) x [n0, n0 + bn) of
-// piece `pc` is in part: count it on cnt[slot], and if it is the last of
-// `live` pieces to arrive, write the tile of out as the sum of the
-// pieces in split order and set the counter back to 0.  `t` of `nt`
-// threads take part; `sync` is their barrier.
+// After the block's (C_in, C_out) tile [m0, m0 + bm) x [n0, n0 + bn) of
+// piece `pc` is in part: count it on cnt (its list's and tile's
+// counter), and if it is the last of `live` pieces to arrive, write the
+// tile of out as the sum of the pieces in split order and set the
+// counter back to 0.  `t` of `nt` threads take part, each summing its
+// own float4s of the tile over the pieces; `sync` is their barrier.
 template <typename Sync>
 __device__ __forceinline__ void finish_pieces(const float* part, float* out, int* cnt,
                                               int* flag, int p0, int live, int c_in,
-                                              int c_out, int m0, int n0, int bn, int t,
-                                              int nt, Sync sync) {
+                                              int c_out, int m0, int n0, int bm, int bn,
+                                              int t, int nt, Sync sync) {
   __threadfence();
   sync();
   if (t == 0) *flag = atomicAdd(cnt, 1) == live - 1;
@@ -723,7 +765,7 @@ __device__ __forceinline__ void finish_pieces(const float* part, float* out, int
   __threadfence();
   const size_t per_piece = static_cast<size_t>(c_in) * c_out;
   const int c4 = bn / 4;
-  for (int e = t; e < kTI * c4; e += nt) {
+  for (int e = t; e < bm * c4; e += nt) {
     const int r = m0 + e / c4, col = n0 + (e % c4) * 4;
     if (r >= c_in || col >= c_out) continue;  // c_out % 4 == 0
     const size_t at = static_cast<size_t>(r) * c_out + col;
@@ -741,9 +783,270 @@ __device__ __forceinline__ void finish_pieces(const float* part, float* out, int
   if (t == 0) *cnt = 0;
 }
 
+// ---- bf16: wgmma over the lists ----
+// A = X^T (C_in rows x 64 pairs per stage) and B = Y (64 pairs x BN
+// C_out columns) are both gathered pair-major, so both are MN-major:
+// 128-byte (or, for B at BN = 96, 64-byte) swizzled atoms of 8 pair rows,
+// A in atom columns of 64 channels (128 bytes), one per consumer
+// warpgroup, read with tnspA = tnspB = 1.  The producer warpgroup stages
+// each window of the piece's pairs in shared memory and gathers the rows
+// by cp.async into the mbarrier ring of wgmma_tile.cuh; each consumer
+// warpgroup runs m64nBNk16 on its 64 C_in rows and stores them.
+constexpr int kBK = 64;     // pairs per stage
+constexpr int kWin = 1024;  // pairs staged in shared memory at a time
+constexpr int kABytes = wg::kBM * kBK * 2;  // one 64-channel atom column
+constexpr int kProd = 128;  // the producer warpgroup
+
+template <int BN>
+struct WgTile {
+  static constexpr int BSW = BN % 64 == 0 ? 128 : 64;  // B swizzle bytes
+  static constexpr int AW = BSW / 2;                   // B columns per atom
+  static constexpr int B_BYTES = kBK * BN * 2;
+};
+
+template <int CW, int BN>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + static_cast<size_t>(wg::kStages) * (CW * kABytes + WgTile<BN>::B_BYTES) +
+         2 * wg::kStages * 8 + static_cast<size_t>(kWin) * sizeof(int2);
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// this producer thread's pairs [w0 + pt + 128 j] of the piece (zeros
+// past its end), loaded into registers
+template <int J>
+__device__ __forceinline__ void fetch_window(int2 (&nxt)[J], const int2* __restrict__ src,
+                                             int w0, int n_pairs, int pt) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int e = w0 + pt + j * kProd;
+    nxt[j] = e < n_pairs ? src[e] : make_int2(0, 0);
+  }
+}
+
+// producer warpgroup: the piece's n_pairs pairs at src, window by
+// window; each window's pairs are loaded into registers while the window
+// before it is issued, so no barrier but the producers' own stands
+// between two windows
+template <int CW, int BN>
+__device__ __forceinline__ void produce_pairs(uint32_t a_ring, uint32_t b_ring, uint64_t* empty,
+                                        uint64_t* full, int2* ps, const int2* __restrict__ src,
+                                        int n_pairs, int swap, const bf16* __restrict__ x,
+                                        const bf16* __restrict__ y, int c_in, int c_out,
+                                        int m0, int n0) {
+  using T = WgTile<BN>;
+  constexpr int A_BYTES = CW * kABytes, AC = CW * wg::kBM / 8, BC = BN / 8;
+  constexpr int ATOM_C = T::AW / 8, J = kWin / kProd;
+  const int pt = threadIdx.x % kProd;
+  int2 nxt[J];
+  fetch_window(nxt, src, 0, n_pairs, pt);
+  for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
+    const int n_w = min(kWin, n_pairs - w0);
+    named_sync(1, kProd);  // every producer has issued the previous window
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      ps[pt + j * kProd] = swap ? make_int2(nxt[j].y, nxt[j].x) : nxt[j];
+    named_sync(1, kProd);
+    if (w0 + kWin < n_pairs) fetch_window(nxt, src, w0 + kWin, n_pairs, pt);
+    const int stages = (n_w + kBK - 1) / kBK;
+    for (int t = 0; t < stages; ++t) {
+      const int i = w0 / kBK + t, st = i % wg::kStages;
+      wg::mbar_wait(empty + st, ((i / wg::kStages) & 1) ^ 1);
+      const uint32_t a = a_ring + st * A_BYTES, b = b_ring + st * T::B_BYTES;
+#pragma unroll
+      for (int e = pt; e < kBK * AC; e += kProd) {
+        const int r = e / AC, cc = e % AC, c = m0 + cc * 8, q = t * kBK + r;
+        const bool ok = q < n_w && c < c_in;
+        wg::cp_async16(a + (cc / 8) * kABytes + (r / 8) * 1024 + (r % 8) * 128 +
+                           (wg::swz<128>(r % 8, cc % 8) << 4),
+                       ok ? x + static_cast<size_t>(ps[q].x) * c_in + c : x, ok);
+      }
+#pragma unroll 4
+      for (int e = pt; e < kBK * BC; e += kProd) {
+        const int r = e / BC, nc = e % BC, col = n0 + nc * 8, q = t * kBK + r;
+        const bool ok = q < n_w && col < c_out;
+        const int atom = nc / ATOM_C, kr = r % 8;
+        wg::cp_async16(b + (atom * (kBK / 8) + r / 8) * (8 * T::BSW) + kr * T::BSW +
+                           (wg::swz<T::BSW>(kr, nc % ATOM_C) << 4),
+                       ok ? y + static_cast<size_t>(ps[q].y) * c_out + col : y, ok);
+      }
+      wg::cp_async_arrive(full + st);
+    }
+  }
+}
+
+// consumer warpgroup g: its 64 C_in rows [m0 + 64 g, m0 + 64 g + 64) of
+// the tile over the piece's stages, stored at dst (f32, row-major C_in x
+// C_out); a warpgroup whose rows all lie past C_in runs no wgmma and only
+// releases the stages
+template <int CW, int BN>
+__device__ __forceinline__ void consume_pairs(uint32_t a_ring, uint32_t b_ring, uint64_t* empty,
+                                        uint64_t* full, int n_pairs, float* dst, int c_in,
+                                        int c_out, int m0, int n0) {
+  using T = WgTile<BN>;
+  constexpr int A_BYTES = CW * kABytes;
+  const int g = threadIdx.x / 128, lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int r0 = m0 + 64 * g;
+  const bool idle = r0 >= c_in;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int n_st = (n_pairs + kBK - 1) / kBK;
+  for (int i = 0; i < n_st; ++i) {
+    const int st = i % wg::kStages;
+    wg::mbar_wait(full + st, (i / wg::kStages) & 1);
+    if (!idle) {
+      __syncwarp();
+      wg::fence_proxy_async();
+      const uint32_t a = a_ring + st * A_BYTES + g * kABytes, b = b_ring + st * T::B_BYTES;
+      wg::fence_regs(acc);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t da = wg::make_desc(a + kk * 2 * 1024, kABytes, 1024, 128);
+        const uint64_t db =
+            wg::make_desc(b + kk * 2 * 8 * T::BSW, kBK * T::BSW, 8 * T::BSW, T::BSW);
+        wg::MmaTA<BN>::run(acc, da, db);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<1>();
+      wg::fence_regs(acc);
+    }
+    if (i > 0 && lane == 0) wg::mbar_arrive(empty + (i - 1) % wg::kStages);
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + warp * 16 + lane / 4 + 8 * h;
+    if (r >= c_in) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane % 4) * 2;
+      if (col >= c_out) continue;  // c_out % 8 == 0: col + 1 < c_out too
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * c_out + col) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// grid: x = C_in tiles (64 CW rows) * C_out tiles (BN columns), y =
+// piece (`piece_of`, its pairs per split from `split_pairs`).  Threads:
+// CW consumer warpgroups, then the producer warpgroup.  `swap` reads each
+// pair as (y row, x row): K5's up direction over the (fine, parent)
+// lists.  out (kOut, C_in, C_out) f32; part (pieces, C_in, C_out) f32 and
+// cnt (kOut * tiles) int32, zero on entry and on exit, where a list
+// splits.  The last block of a (list, tile) sums its pieces with all its
+// threads.
+template <int CW, int BN, typename Lists>
+__global__ void __launch_bounds__((CW + 1) * 128, 1)
+    dw_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                    const int2* __restrict__ pairs, const int* __restrict__ starts,
+                    float* __restrict__ out, float* __restrict__ part, int* __restrict__ cnt,
+                    int c_in, int c_out, int per_min, int target, int swap) {
+  using T = WgTile<BN>;
+  constexpr int kCons = CW * 128, BM = CW * wg::kBM;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int flag;
+  const uint32_t base = wg::smem_addr(smem_raw);
+  unsigned char* p = smem_raw + (((base + 1023u) & ~1023u) - base);
+  const uint32_t a_ring = wg::smem_addr(p);
+  const uint32_t b_ring = a_ring + wg::kStages * CW * kABytes;
+  p += wg::kStages * (CW * kABytes + T::B_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(p);
+  uint64_t* empty = full + wg::kStages;
+  int2* ps = reinterpret_cast<int2*>(empty + wg::kStages);
+
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int per = split_pairs(starts, Lists::kOut, per_min, target, kBK);
+  int k, z, live;
+  if (!piece_of<Lists::kOut>(starts, blockIdx.y, per, k, z, live)) return;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int n_pairs = max(0, min(per, n_k - z * per));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wg::kStages; ++i) {
+      wg::mbar_init(full + i, kProd);
+      wg::mbar_init(empty + i, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  if (threadIdx.x >= kCons)
+    produce_pairs<CW, BN>(a_ring, b_ring, empty, full, ps, pairs + beg + z * per, n_pairs,
+                          swap, x, y, c_in, c_out, m0, n0);
+  else
+    consume_pairs<CW, BN>(
+        a_ring, b_ring, empty, full, n_pairs,
+        live == 1 ? out + k * per_k : part + static_cast<size_t>(blockIdx.y) * per_k, c_in,
+        c_out, m0, n0);
+  if (live == 1) return;
+  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag,
+                blockIdx.y - z, live, c_in, c_out, m0, n0, BM, BN, threadIdx.x, kCons + kProd,
+                [] { __syncthreads(); });
+}
+
+// one call of the tile at (CW, BN) over `pieces` pieces
+template <int CW, int BN, typename Lists>
+int launch_wgmma(const void* x, const void* y, const void* pairs, const void* starts,
+                 void* out, void* part, void* cnt, int c_in, int c_out, int pieces,
+                 int per_min, int target, int swap, cudaStream_t s) {
+  // the attribute once per instance: a launch then sets nothing more
+  static const cudaError_t set = cudaFuncSetAttribute(
+      dw_wgmma_kernel<CW, BN, Lists>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(wg_smem_bytes<CW, BN>()));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int tiles = ((c_in + CW * wg::kBM - 1) / (CW * wg::kBM)) * ((c_out + BN - 1) / BN);
+  dw_wgmma_kernel<CW, BN, Lists>
+      <<<dim3(tiles, pieces), (CW + 1) * 128, wg_smem_bytes<CW, BN>(), s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(y),
+          static_cast<const int2*>(pairs), static_cast<const int*>(starts),
+          static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt), c_in,
+          c_out, per_min, target, swap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 on wgmma at the tile (cw consumer warpgroups, bn columns) that
+// f3conv.k4_tile picks: cw 1 or 2, bn 32, 64, 96, 128 or 256
+int launch_k4(const void* x, const void* y, const void* pairs, const void* starts, void* out,
+              void* part, void* cnt, int c_in, int c_out, int cw, int bn, int pieces,
+              int per_min, int target, cudaStream_t s) {
+  auto by_n = [&](auto cwc) {
+    constexpr int CW = decltype(cwc)::value;
+    auto go = [&](auto bnc) {
+      return launch_wgmma<CW, decltype(bnc)::value, K3Lists>(
+          x, y, pairs, starts, out, part, cnt, c_in, c_out, pieces, per_min, target, 0, s);
+    };
+    switch (bn) {
+      case 32: return go(std::integral_constant<int, 32>{});
+      case 64: return go(std::integral_constant<int, 64>{});
+      case 96: return go(std::integral_constant<int, 96>{});
+      case 128: return go(std::integral_constant<int, 128>{});
+      case 256: return go(std::integral_constant<int, 256>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (cw == 1) return by_n(std::integral_constant<int, 1>{});
+  if (cw == 2) return by_n(std::integral_constant<int, 2>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace lists
+
+// ---- K5 over the slot pair lists, one launch per call ----
+namespace k5 {
+
+namespace mma = taseg::mma;
+namespace tf = taseg::tf32;
+
 // ---- f32: the 3xTF32 tile of K4 at K over the 8 slot lists ----
-// grid: x = C_in tiles * C_out tiles, y = piece (`piece_of`).  `swap`
-// reads each (fine, parent) pair as (parent, fine): the up direction.
+// grid: x = C_in tiles * C_out tiles, y = piece (`lists::piece_of`).
+// `swap` reads each (fine, parent) pair as (parent, fine): the up
+// direction.
 template <int BN>
 __global__ void __launch_bounds__(dwmma::dwtf32::kThreads)
     strided_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -761,7 +1064,7 @@ __global__ void __launch_bounds__(dwmma::dwtf32::kThreads)
   const int tiles_n = (c_out + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * d::kBM, n0 = (blockIdx.x % tiles_n) * BN;
   int k, z, live;
-  if (!piece_of(starts, blockIdx.y, per_split, k, z, live)) return;
+  if (!lists::piece_of<8>(starts, blockIdx.y, per_split, k, z, live)) return;
   const int beg = starts[k], n_k = starts[k + 1] - beg;
   const int lo = z * per_split;
   const int n_pairs = max(0, min(per_split, n_k - lo));
@@ -814,38 +1117,14 @@ __global__ void __launch_bounds__(dwmma::dwtf32::kThreads)
     }
   }
   if (live == 1) return;
-  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, p0, live,
-                c_in, c_out, m0, n0, BN, threadIdx.x, d::kThreads, [] { __syncthreads(); });
+  lists::finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, p0,
+                       live, c_in, c_out, m0, n0, d::kBM, BN, threadIdx.x, d::kThreads,
+                       [] { __syncthreads(); });
 }
 
-// ---- bf16: wgmma over the 8 slot lists ----
-// A = X^T (64 C_in rows x 64 pairs per stage) and B = Y (64 pairs x BN
-// C_out columns) are both gathered pair-major, so both are MN-major:
-// 128-byte (or, for B at BN = 96, 64-byte) swizzled atoms of 8 pair rows,
-// A's one atom wide (64 channels = 128 bytes), read with tnspA = tnspB =
-// 1.  Warpgroup 1 stages each window of the list's pairs in shared memory
-// and gathers the rows by cp.async into the mbarrier ring of
-// wgmma_tile.cuh; warpgroup 0 runs m64nBNk16 and stores the tile.
-constexpr int kBK = 64;    // pairs per stage
-constexpr int kWin = 1024; // pairs staged in shared memory at a time
-constexpr int kABytes = wg::kBM * kBK * 2;
-
-template <int BN>
-struct WgTile {
-  static constexpr int BSW = BN % 64 == 0 ? 128 : 64;  // B swizzle bytes
-  static constexpr int AW = BSW / 2;                   // B columns per atom
-  static constexpr int B_BYTES = kBK * BN * 2;
-};
-
-template <int BN>
-constexpr size_t wg_smem_bytes() {
-  return 1024 + static_cast<size_t>(wg::kStages) * (kABytes + WgTile<BN>::B_BYTES) +
-         2 * wg::kStages * 8 + static_cast<size_t>(kWin) * sizeof(int2);
-}
-
-// f(std::integral_constant<int, BN>{}): C_out columns per block, the
-// whole C_out up to 128 (a 256-wide tile's 160 KB ring leaves one block
-// per SM; two 128-wide ones run 2 blocks per SM)
+// f(std::integral_constant<int, BN>{}): C_out columns per block of K5's
+// wgmma tile, the whole C_out up to 128 (a 256-wide tile's 160 KB ring
+// leaves one block per SM; two 128-wide ones run 2 blocks per SM)
 template <typename F>
 int with_bn(int c_out, F&& f) {
   if (c_out <= 32) return f(std::integral_constant<int, 32>{});
@@ -854,140 +1133,11 @@ int with_bn(int c_out, F&& f) {
   return f(std::integral_constant<int, 128>{});
 }
 
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-template <int BN>
-__global__ void __launch_bounds__(wg::kThreads)
-    strided_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ y,
-                            const int2* __restrict__ pairs, const int* __restrict__ starts,
-                            float* __restrict__ out, float* __restrict__ part,
-                            int* __restrict__ cnt, int c_in, int c_out, int per_split,
-                            int swap) {
-  using bf16 = __nv_bfloat16;
-  using T = WgTile<BN>;
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ int flag;
-  const uint32_t base = wg::smem_addr(smem_raw);
-  unsigned char* p = smem_raw + (((base + 1023u) & ~1023u) - base);
-  const uint32_t a_ring = wg::smem_addr(p);
-  const uint32_t b_ring = a_ring + wg::kStages * kABytes;
-  p += wg::kStages * (kABytes + T::B_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(p);
-  uint64_t* empty = full + wg::kStages;
-  int2* ps = reinterpret_cast<int2*>(empty + wg::kStages);
-
-  const int tiles_n = (c_out + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * wg::kBM, n0 = (blockIdx.x % tiles_n) * BN;
-  int k, z, live;
-  if (!piece_of(starts, blockIdx.y, per_split, k, z, live)) return;
-  const int beg = starts[k], n_k = starts[k + 1] - beg;
-  const int lo = z * per_split;
-  const int n_pairs = max(0, min(per_split, n_k - lo));
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < wg::kStages; ++i) {
-      wg::mbar_init(full + i, wg::kThreads - wg::kConsumers);
-      wg::mbar_init(empty + i, wg::kConsumers / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= wg::kConsumers) {  // producer warpgroup
-    constexpr int AC = wg::kBM / 8, BC = BN / 8, ATOM_C = T::AW / 8;
-    constexpr int kProd = wg::kThreads - wg::kConsumers;
-    const int pt = threadIdx.x - wg::kConsumers;
-    for (int w0 = 0; w0 < n_pairs; w0 += kWin) {
-      const int n_w = min(kWin, n_pairs - w0);
-      named_sync(1, kProd);  // the previous window's copies are issued
-      for (int e = pt; e < n_w; e += kProd) {
-        const int2 q = pairs[beg + lo + w0 + e];
-        ps[e] = swap ? make_int2(q.y, q.x) : q;
-      }
-      named_sync(1, kProd);
-      const int stages = (n_w + kBK - 1) / kBK;
-      for (int t = 0; t < stages; ++t) {
-        const int i = w0 / kBK + t, st = i % wg::kStages;
-        wg::mbar_wait(empty + st, ((i / wg::kStages) & 1) ^ 1);
-        const uint32_t a = a_ring + st * kABytes, b = b_ring + st * T::B_BYTES;
-#pragma unroll
-        for (int e = pt; e < kBK * AC; e += kProd) {
-          const int r = e / AC, cc = e % AC, c = m0 + cc * 8, q = t * kBK + r;
-          const bool ok = q < n_w && c < c_in;
-          wg::cp_async16(a + (r / 8) * 1024 + (r % 8) * 128 + (wg::swz<128>(r % 8, cc) << 4),
-                         ok ? x + static_cast<size_t>(ps[q].x) * c_in + c : x, ok);
-        }
-#pragma unroll 4
-        for (int e = pt; e < kBK * BC; e += kProd) {
-          const int r = e / BC, nc = e % BC, col = n0 + nc * 8, q = t * kBK + r;
-          const bool ok = q < n_w && col < c_out;
-          const int atom = nc / ATOM_C, kr = r % 8;
-          wg::cp_async16(b + (atom * (kBK / 8) + r / 8) * (8 * T::BSW) + kr * T::BSW +
-                             (wg::swz<T::BSW>(kr, nc % ATOM_C) << 4),
-                         ok ? y + static_cast<size_t>(ps[q].y) * c_out + col : y, ok);
-        }
-        wg::cp_async_arrive(full + st);
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n_st = (n_pairs + kBK - 1) / kBK;
-  for (int i = 0; i < n_st; ++i) {
-    const int st = i % wg::kStages;
-    wg::mbar_wait(full + st, (i / wg::kStages) & 1);
-    __syncwarp();
-    wg::fence_proxy_async();
-    const uint32_t a = a_ring + st * kABytes, b = b_ring + st * T::B_BYTES;
-    wg::fence_regs(acc);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t da = wg::make_desc(a + kk * 2 * 1024, kBK * 128, 1024, 128);
-      const uint64_t db =
-          wg::make_desc(b + kk * 2 * 8 * T::BSW, kBK * T::BSW, 8 * T::BSW, T::BSW);
-      wg::MmaTA<BN>::run(acc, da, db);
-    }
-    wg::wgmma_commit();
-    wg::wgmma_wait<1>();
-    wg::fence_regs(acc);
-    if (i > 0 && lane == 0) wg::mbar_arrive(empty + (i - 1) % wg::kStages);
-  }
-  wg::wgmma_wait<0>();
-  wg::fence_regs(acc);
-
-  const size_t per_k = static_cast<size_t>(c_in) * c_out;
-  const int p0 = blockIdx.y - z;
-  float* dst = live == 1 ? out + k * per_k : part + static_cast<size_t>(blockIdx.y) * per_k;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = m0 + warp * 16 + lane / 4 + 8 * h;
-    if (r >= c_in) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + j * 8 + (lane % 4) * 2;
-      if (col >= c_out) continue;  // c_out % 8 == 0: col + 1 < c_out too
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * c_out + col) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-  if (live == 1) return;
-  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, p0, live,
-                c_in, c_out, m0, n0, BN, threadIdx.x, wg::kConsumers,
-                [] { named_sync(2, wg::kConsumers); });
-}
-
 // K5 over the slot lists on either route, one block per (tile, piece):
 // pieces = V / per_split + 9 covers every list's splits (8 where no list
 // is split).  out (8, C_in, C_out) f32; part (pieces, C_in, C_out) f32 and
-// cnt (8 tiles,) int32 (zero on entry and on exit) where pieces > 8
+// cnt (8 tiles,) int32 (zero on entry and on exit) where pieces > 8.  The
+// wgmma route is the lists' tile with one consumer warpgroup.
 template <bool Wgmma>
 int launch(const void* x, const void* y, const void* pairs, const void* starts,
            void* out, void* part, void* cnt, int c_in, int c_out, int up, int pieces,
@@ -995,39 +1145,27 @@ int launch(const void* x, const void* y, const void* pairs, const void* starts,
   if (c_in <= 0 || c_out <= 0 || c_in % (Wgmma ? 8 : 4) || c_out % (Wgmma ? 8 : 4) ||
       pieces < 8 || per_split <= 0 || (pieces > 8 && (part == nullptr || cnt == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto go = [&](auto bn) {
-    constexpr int BN = decltype(bn)::value;
-    const int tiles = ((c_in + kTI - 1) / kTI) * ((c_out + BN - 1) / BN);
-    const dim3 grid(tiles, pieces);
-    cudaError_t e;
-    if constexpr (Wgmma) {
-      const size_t bytes = wg_smem_bytes<BN>();
-      e = cudaFuncSetAttribute(strided_dw_wgmma_kernel<BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-      if (e != cudaSuccess) return static_cast<int>(e);
-      strided_dw_wgmma_kernel<BN><<<grid, wg::kThreads, bytes, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-          static_cast<const int2*>(pairs), static_cast<const int*>(starts),
-          static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt),
-          c_in, c_out, per_split, up);
-    } else {
+  if constexpr (Wgmma) {
+    return with_bn(c_out, [&](auto bn) {
+      return lists::launch_wgmma<1, decltype(bn)::value, lists::SlotLists>(
+          x, y, pairs, starts, out, part, cnt, c_in, c_out, pieces, per_split, 0, up, s);
+    });
+  } else {
+    auto go = [&](auto bn) {
+      constexpr int BN = decltype(bn)::value;
+      const int tiles = ((c_in + kTI - 1) / kTI) * ((c_out + BN - 1) / BN);
       const size_t bytes = dwmma::dwtf32::smem_bytes<BN>();
-      e = cudaFuncSetAttribute(strided_dw_tf32_kernel<BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
+      cudaError_t e = cudaFuncSetAttribute(strided_dw_tf32_kernel<BN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
       if (e != cudaSuccess) return static_cast<int>(e);
-      strided_dw_tf32_kernel<BN><<<grid, dwmma::dwtf32::kThreads, bytes, s>>>(
+      strided_dw_tf32_kernel<BN><<<dim3(tiles, pieces), dwmma::dwtf32::kThreads, bytes, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(y),
           static_cast<const int2*>(pairs), static_cast<const int*>(starts),
           static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt),
           c_in, c_out, per_split, up);
-    }
-    return static_cast<int>(cudaGetLastError());
-  };
-  if constexpr (Wgmma) {
-    return with_bn(c_out, go);
-  } else {
+      return static_cast<int>(cudaGetLastError());
+    };
     // 3xTF32 at the widths of wgmma's tile but 256: 96 columns are one
     // 96-wide tile, not a 128-wide one with a quarter of it idle
     if (c_out > 64 && c_out <= 96) return go(std::integral_constant<int, 96>{});
@@ -1113,11 +1251,12 @@ extern "C" int taseg_strided_dw(const void* x, const void* y,
                    rows_per_split, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// K4's tensor-core route.  feats (V, C_in), grad (V, C_out) bf16, 16-byte
-// aligned, C_in % 8 == 0 and C_out % 8 == 0; pairs (27 V,) int2 and
-// starts (28,) int32 from f3conv.k3_pair_lists -> out (27, C_in, C_out)
-// f32; part (splits, 27, C_in, C_out) f32 scratch when splits > 1, with
-// splits * per_split >= V.
+// K4's mma.sync tile before the wgmma one (no longer on the path: the
+// yardstick `old_ms` of chip_smoke.py).  feats (V, C_in), grad (V,
+// C_out) bf16, 16-byte aligned, C_in % 8 == 0 and C_out % 8 == 0; pairs
+// (27 V,) int2 and starts (28,) int32 from f3conv.k3_pair_lists -> out
+// (27, C_in, C_out) f32; part (splits, 27, C_in, C_out) f32 scratch when
+// splits > 1, with splits * per_split >= V.
 extern "C" int taseg_k3_conv_dw_mma(const void* feats, const void* grad,
                                     const void* pairs, const void* starts,
                                     void* out, void* part, int c_in,
@@ -1126,6 +1265,28 @@ extern "C" int taseg_k3_conv_dw_mma(const void* feats, const void* grad,
   return dwmma::launch_dw_mma<dwmma::K3Lists>(
       feats, grad, pairs, starts, out, part, c_in, c_out, 0, splits,
       per_split, static_cast<cudaStream_t>(stream));
+}
+
+// K4 on wgmma over the 27 offset lists, one launch per call.  feats (V,
+// C_in), grad (V, C_out) bf16, 16-byte aligned, C_in % 8 == 0 and C_out %
+// 8 == 0; pairs (27 V,) int2 and starts (28,) int32 from
+// f3conv.k3_pair_lists -> out (27, C_in, C_out) f32.  The tile: cw
+// consumer warpgroups (1 or 2: 64 cw C_in rows) and bn columns (32, 64,
+// 96, 128 or 256), f3conv.k4_tile.  Pairs per split from per_min and
+// target (`lists::split_pairs`; target 0: per_min); pieces >= 27 blocks
+// per tile, at least max(target, 27) + 27 (target 0: 27 V / per_min +
+// 27).  part (pieces,
+// C_in, C_out) f32 and cnt (27 * tiles,) int32, zero on entry and on exit,
+// unless no list can split (target 0 and per_min >= V): then null.
+extern "C" int taseg_k3_conv_dw_wgmma(const void* feats, const void* grad, const void* pairs,
+                                      const void* starts, void* out, void* part, void* cnt,
+                                      int c_in, int c_out, int cw, int bn, int pieces,
+                                      int per_min, int target, void* stream) {
+  if (c_in <= 0 || c_out <= 0 || c_in % 8 || c_out % 8 || pieces < 27 || per_min <= 0 ||
+      (target > 0 && (part == nullptr || cnt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return lists::launch_k4(feats, grad, pairs, starts, out, part, cnt, c_in, c_out, cw, bn,
+                          pieces, per_min, target, static_cast<cudaStream_t>(stream));
 }
 
 // K5 over the slot lists, one launch per call.  pairs (V_fine, 2) int32

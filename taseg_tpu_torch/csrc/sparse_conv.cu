@@ -28,7 +28,8 @@
 //
 // sparse_conv_wgmma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: every
 // bf16 conv but the 4- and 5-channel stems, at 27 or K offsets, and
-// K3-down's 8 slots, strided_conv.cu): the Hopper tile of wgmma_tile.cuh,
+// K3-down's and K3-up's 8 slots, strided_conv.cu): the Hopper tile of
+// wgmma_tile.cuh,
 // output-stationary over the table's row order like the 3xTF32 kernel
 // below: a producer warpgroup gathers rows by cp.async into a 4-stage
 // mbarrier ring, a consumer warpgroup runs wgmma m64nNk16 with N the whole
@@ -45,8 +46,8 @@
 // 1-4 blocks per SM (now split chains).
 //
 // sparse_conv_k_tf32_kernel (f32, C_in % 4 == 0, C_out % 4 == 0: every
-// conv of Cylinder3D, every f32 MinkUNet's 3^3 convs and K3-down's f32
-// calls over the child table): the f32 tile of gather_mma.cuh (namespace tf32) on
+// conv of Cylinder3D, every f32 MinkUNet's 3^3 convs and K3-down's and
+// K3-up's f32 calls over the child and up tables): the f32 tile of gather_mma.cuh (namespace tf32) on
 // 3xTF32 tensor cores, output-stationary over a row order.  The wrapper
 // passes `order`, the rows sorted by their bitmask of present offsets
 // (sparse_conv.mask_row_order, built once per table by the topology); a
@@ -305,9 +306,10 @@ int launch_k_tf32(const void* feats, const void* w, const void* rb,
 }
 
 // which table the wgmma kernel runs over: it names the kernel apart in a
-// profile (K2's rulebooks, or K3-down's child tables, strided_conv.cu)
+// profile (K2's rulebooks, K3-down's child tables, K3-up's up tables)
 struct K2Rows {};
 struct DownSlots {};
+struct UpSlots {};
 
 // the wgmma tile of one block: 64 entries of the order (blockIdx.x),
 // columns [n0, n0 + BN) (blockIdx.y), part z of the tile's chain
@@ -564,6 +566,16 @@ extern "C" int taseg_strided_down_wgmma(const void* feats, const void* w,
                                         int n_off, int splits, void* stream) {
   return wgmma_entry<DownSlots>(feats, w, child, order, out, part, live, v_coarse,
                                 c_in, c_out, n_off, splits, stream);
+}
+
+// K3-up's calls of the same route, over its up table (n_off = 8; feats
+// the coarse rows, out the fine ones)
+extern "C" int taseg_strided_up_wgmma(const void* feats, const void* w, const void* up,
+                                      const void* order, void* out, void* part, void* live,
+                                      int v_fine, int c_in, int c_out, int n_off, int splits,
+                                      void* stream) {
+  return wgmma_entry<UpSlots>(feats, w, up, order, out, part, live, v_fine, c_in, c_out,
+                              n_off, splits, stream);
 }
 
 // resident blocks per SM of the wgmma route at these widths and offsets

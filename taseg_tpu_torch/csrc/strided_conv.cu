@@ -21,20 +21,28 @@
 // direction is a conv over 8 offsets from V_fine to V_coarse rows and runs
 // on K2's tiles over the table's row order (sparse_conv.cu:
 // taseg_strided_down_wgmma in bf16, taseg_sparse_conv_k_tf32 in f32;
-// strided_conv.downsample_route).  This file holds the up direction and
-// the down direction's round kernels, which a table of several rounds
-// takes (cells that fold negative coordinates) and which stay callable as
-// the yardstick of the tiles that replaced them on the path
-// (chip_smoke.py's `old_ms`).
+// strided_conv.downsample_route).  The up direction is a conv over 8
+// offsets from V_coarse to V_fine rows over the level's up table (entry
+// [s, f] the parent of fine row f at its slot s, -1 at the other slots
+// and where it has none: strided_conv.slot_up_table) and runs on the same
+// tiles over that table's row order, which groups the fine rows by slot,
+// so a 64-row tile holds one slot, or two at a boundary
+// (taseg_strided_up_wgmma in bf16, taseg_sparse_conv_k_tf32 in f32;
+// strided_conv.upsample_route).  This file holds the down direction's
+// round kernels, which a table of several rounds takes (cells that fold
+// negative coordinates), the up direction's CUDA-core kernel (ragged
+// widths), and the tensor-core tiles that the K2 tiles replaced on the
+// path, kept callable as their yardstick (chip_smoke.py's `old_ms`).
 //
-// In bf16 with C_in and C_out multiples of 8 both directions run on PR
-// 2's tensor-core tile of gather_mma.cuh with the 8 slots as its offsets.
+// The yardstick tiles: in bf16 with C_in and C_out multiples of 8, the
+// tensor-core tile of gather_mma.cuh with the 8 slots as its offsets.
 // For each slot s that occurs in a 64-row tile, A_s holds the gathered
 // input rows of slot s and zero elsewhere (the same zero-filling
 // cp.async), and acc += A_s @ W[s]:
 //   * up (strided_up_mma_kernel): A_s row f is the parent row of fine row
 //     f when slot(f) == s; each row receives exactly one nonzero term, and
-//     rows with parent < 0 stay zero.
+//     rows with parent < 0 stay zero.  A tile in row order holds most of
+//     the 8 slots and multiplies each: up to 8x the present work.
 //   * down (strided_down_mma_kernel): a block owns 64 coarse rows; thread
 //     r walks its row's children perm[starts[c] : starts[c+1]] and sets
 //     idx[slot f][r] = f.  Where coordinates are negative, truncating

@@ -1,6 +1,7 @@
 // Hopper tensor-core gather-GEMM tile on wgmma: the bf16 route of K2
 // (sparse_conv.cu: the 3^3 conv and the conv over K <= 32 offsets) and
-// of K3-down (the 8 slots of the level's child table as its offsets).
+// of K3 (the 8 slots of the level's child table, K3-down, or of its up
+// table, K3-up, as its offsets).
 //
 // A block owns 64 consecutive entries of a row order (the rows of the
 // table sorted by their bitmask of present offsets,
@@ -328,7 +329,8 @@ TASEG_WGMMA(256, 128, 129, 130)
 #undef TASEG_WGMMA
 
 // the same with A MN-major too (tnspA = 1: A's M index contiguous, as the
-// X^T of a weight gradient whose rows are gathered pair by pair, K5)
+// X^T of a weight gradient whose rows are gathered pair by pair, K4 and
+// K5, conv_dw.cu)
 template <int N>
 struct MmaTA;
 
@@ -350,6 +352,7 @@ TASEG_WGMMA_TA(32, 16, 17, 18)
 TASEG_WGMMA_TA(64, 32, 33, 34)
 TASEG_WGMMA_TA(96, 48, 49, 50)
 TASEG_WGMMA_TA(128, 64, 65, 66)
+TASEG_WGMMA_TA(256, 128, 129, 130)
 #undef TASEG_WGMMA_TA
 
 // ---- the tile ----

@@ -20,7 +20,10 @@ which the tensor-core routes of the 3^3 convs read (K2's wgmma tile in
 bf16, K2 and K4 at K = 27 on 3xTF32 in f32, `sparse_conv.k3_conv`), and
 between two levels the child table of K3-down with its row order
 (`StridedTables.child`, `child_order`: K3-down as a conv over 8 offsets,
-shared by the down conv and the up conv's input gradient).  With
+shared by the down conv and the up conv's input gradient) and the up
+table of K3-up with its row order (`StridedTables.up`, `up_order`: K3-up
+as a conv over 8 offsets, shared by the up conv and the down conv's
+input gradient).  With
 `point_voxel_strides`
 (SPVCNN's (1, 4, 16)) it adds the point -> voxel tables of the point
 branch (`UNetTopology.point_vox`).  Left out against the JAX package: the
@@ -44,6 +47,7 @@ from ...ops.strided_conv import (
     build_strided_tables,
     slot_child_table,
     slot_pair_lists,
+    slot_up_table,
 )
 from ...ops.voxelize import (
     IdentityDevoxTable,
@@ -162,8 +166,8 @@ def build_unet_topology(
     The points are integer voxel coords (the host pipeline's contract),
     so stride 1 devoxelizes by the identity gather.  `devox_pairs` adds
     the tables that only the backward reads (training).  Each level's
-    `k3_order` and child table order take one batched stable sort per
-    level, on the device.  `nonneg_coords` says the caller's coordinates
+    `k3_order`, child table order and up table order take one batched
+    stable sort per level size, on the device.  `nonneg_coords` says the caller's coordinates
     are non-negative (`host_nonneg`; the host pipelines shift them): every
     coarse cell then has at most one child per slot and each child table
     is one scatter with nothing read back; else its rounds are counted
@@ -216,18 +220,26 @@ def build_unet_topology(
         if devox_pairs:
             strided = replace(strided, pairs=slot_pair_lists(strided))
         child = slot_child_table(strided, rounds=1 if nonneg_coords else None)
-        levels.append(level(coords_l, num_l, 2**l, replace(strided, child=child)))
+        strided = replace(strided, child=child, up=slot_up_table(strided))
+        levels.append(level(coords_l, num_l, 2**l, strided))
         prev_coords, prev_num = coords_l, num_l
-    # one batched sort per level: its 3^3 rulebook and the one-round child
-    # table into it share V_l (a table of several rounds takes K3-down's
-    # round kernels, which read no order)
+    # one batched sort per level size: a level's 3^3 rulebook, the
+    # one-round child table into it (V_l rows) and the up table out of the
+    # next level into it (V_l fine rows) share it (a child table of several
+    # rounds takes K3-down's round kernels, which read no order)
     ordered = [l for l in range(1, num_levels) if levels[l].strided.child.shape[0] == 1]
     orders = mask_row_orders(
-        [lt.rb_k3 for lt in levels] + [levels[l].strided.child[0] for l in ordered]
+        [lt.rb_k3 for lt in levels]
+        + [levels[l].strided.child[0] for l in ordered]
+        + [lt.strided.up for lt in levels[1:]]
     )
     levels = [replace(lt, k3_order=o) for lt, o in zip(levels, orders)]
-    for l, o in zip(ordered, orders[num_levels:]):
-        levels[l] = replace(levels[l], strided=replace(levels[l].strided, child_order=o))
+    child_orders = dict(zip(ordered, orders[num_levels : num_levels + len(ordered)]))
+    up_orders = orders[num_levels + len(ordered) :]
+    for l in range(1, num_levels):
+        levels[l] = replace(levels[l], strided=replace(
+            levels[l].strided, child_order=child_orders.get(l), up_order=up_orders[l - 1],
+        ))
 
     # point -> coarse-voxel corner rows without joins: chase the parent
     # chain, then read the 8 trilinear corners out of the level's k3

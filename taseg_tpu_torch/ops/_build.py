@@ -11,20 +11,21 @@ Each kernel wrapper adds one to its entries of `LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show which kernels it
 went through.  `sparse_conv_k3`, `strided_down` and `strided_up` count
 every launch of K2, K3-down and K3-up; the route entries count those
-that took a route: `sparse_conv_k3_wgmma` and `strided_down_wgmma` the
-Hopper wgmma tile (K2 and K3-down in bf16, over row orders),
-`strided_down_tf32` K3-down's 3xTF32 route (f32), `strided_down_rounds`
-K3-down's round kernels (child tables of several rounds), and
-`strided_up_mma` and `k3_conv_dw_mma` the mma.sync tensor-core
-tiles, `strided_dw_wgmma` and `strided_dw_tf32` K5's wgmma (bf16) and
-3xTF32 (f32) tiles over the slot lists.  The `_dgrad` counters count,
-again, the launches of K2 and K3 that compute an input gradient (the
-backward of the k3 conv and of the other strided direction).  K1
-(`join_scan`), K5 (`strided_dw`, its splits added in the kernel) and K6
-(`segment_sum`, a segment cut across units finished by its last piece)
-launch one kernel per call; K4 (`k3_conv_dw`) counts one per call, its
-second kernel (the split reduction) included, as do K2's and K3-down's
-split routes; K7 (`devoxelize`) launches one kernel per call,
+that took a route: `sparse_conv_k3_wgmma`, `strided_down_wgmma` and
+`strided_up_wgmma` the Hopper wgmma tile (K2, K3-down and K3-up in
+bf16, over row orders), `strided_down_tf32` and `strided_up_tf32` K2 at
+K's 3xTF32 tile (K3 in f32), `strided_down_rounds` K3-down's round
+kernels (child tables of several rounds), `k3_conv_dw_wgmma` and
+`strided_dw_wgmma` the wgmma tile over pair lists (K4 over the offset
+lists, K5 over the slot lists, bf16), `strided_dw_tf32` K5's 3xTF32
+tile (f32).  The `_dgrad` counters count, again, the launches of K2 and
+K3 that compute an input gradient (the backward of the k3 conv and of
+the other strided direction).  K1 (`join_scan`), K4 on its wgmma route
+and K5 (`k3_conv_dw`, `strided_dw`, their splits added in the kernel)
+and K6 (`segment_sum`, a segment cut across units finished by its last
+piece) launch one kernel per call; K4 on CUDA cores counts one per call,
+its second kernel (the split reduction) included, as do K2's and
+K3's split routes; K7 (`devoxelize`) launches one kernel per call,
 trilinear, bilinear or identity, and `devoxelize_bilinear` counts again
 those at 4 corners (RPVNet's `range_to_point`); K8 (`voxelize_bwd`)
 launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
@@ -65,7 +66,8 @@ LAUNCHES = {
     "strided_down_tf32": 0,
     "strided_down_rounds": 0,
     "strided_up": 0,
-    "strided_up_mma": 0,
+    "strided_up_wgmma": 0,
+    "strided_up_tf32": 0,
     "sparse_conv_k3_dgrad": 0,
     "sparse_conv_k3_dgrad_wgmma": 0,
     "strided_down_dgrad": 0,
@@ -73,9 +75,10 @@ LAUNCHES = {
     "strided_down_dgrad_tf32": 0,
     "strided_down_dgrad_rounds": 0,
     "strided_up_dgrad": 0,
-    "strided_up_dgrad_mma": 0,
+    "strided_up_dgrad_wgmma": 0,
+    "strided_up_dgrad_tf32": 0,
     "k3_conv_dw": 0,
-    "k3_conv_dw_mma": 0,
+    "k3_conv_dw_wgmma": 0,
     "strided_dw": 0,
     "strided_dw_wgmma": 0,
     "strided_dw_tf32": 0,
@@ -106,6 +109,7 @@ _SIGNATURES = {
     "taseg_strided_up_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_k3_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_k3_conv_dw_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "taseg_k3_conv_dw_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_dw_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_strided_dw_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -120,6 +124,7 @@ _SIGNATURES = {
     "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
 }
 
@@ -219,8 +224,8 @@ def counters(name: str, *, dgrad: bool = False, suffix: str = "") -> tuple:
     """The LAUNCHES entries that one launch of wrapper `name` counts
     under: its own, `<name>_dgrad` for an input-gradient call, and, on a
     named route, the route's entry of each (`suffix`: `_wgmma` for the
-    Hopper tile, `_rounds` for K3-down's round kernels, `_mma` for
-    bf16, `_tf32` for 3xTF32)."""
+    Hopper tiles, `_rounds` for K3-down's round kernels, `_tf32` for
+    3xTF32)."""
     names = (name, name + "_dgrad") if dgrad else (name,)
     return names + tuple(n + suffix for n in names) if suffix else names
 

@@ -11,10 +11,11 @@ So d_feats is the forward kernel K2 run on the transposed weights, and
 takes K2's wgmma route wherever C_in and C_out are multiples of 8 (over
 the level's row order: a flip maps equal offset masks to equal masks);
 d_W is the kernel K4, on one of two routes (`dw_route`): for bf16 with
-C_in and C_out multiples of 8, the tensor-core kernel over the level's
+C_in and C_out multiples of 8, Hopper's warpgroup MMA over the level's
 per-offset pair lists (`k3_pair_lists`, built once per level and step by
-the topology and shared by every conv of the level); else the CUDA-core
-kernel over rb_bwd.  On CPU tensors both run their plain versions
+the topology and shared by every conv of the level), in one launch a
+call (`k3_conv_dw_wgmma`, its tile and splits from `k4_plan`); else the
+CUDA-core kernel over rb_bwd.  On CPU tensors both run their plain versions
 (`f3_bwd_fused_plain`).  d_W comes back in the weight's dtype, as
 `_tgf_vjp_bwd` returns it (`d_w.astype(weight.dtype)`): with a bf16
 weight it is rounded once to bf16.
@@ -50,10 +51,10 @@ DW_TILE = 64
 DW_WINDOW = 256
 
 
-# split rule of the tensor-core routes of K4 (and K4 at K): pairs per
-# split a multiple of the 32-pair stage, at least DW_MMA_MIN_PAIRS, and enough
-# splits to cover V pairs (the most one list can have) within
-# DW_MMA_PART_BYTES of f32 partials
+# split rule of the 3xTF32 route of K4 at K (and of K4's mma.sync tile
+# before its wgmma one): pairs per split a multiple of the 32-pair stage,
+# at least DW_MMA_MIN_PAIRS, and enough splits to cover V pairs (the most
+# one list can have) within DW_MMA_PART_BYTES of f32 partials
 DW_MMA_STAGE = 32
 DW_MMA_MIN_PAIRS = 512
 DW_MMA_PART_BYTES = 32 << 20
@@ -61,18 +62,123 @@ DW_MMA_PART_BYTES = 32 << 20
 
 def dw_route(dtype: torch.dtype, c_in: int, c_out: int, strided: bool = False) -> str:
     """The kernel a CUDA call of K4 (`strided=False`) or K5 (`strided=True`)
-    takes.  K4: "mma" (the mma.sync tile over the level's pair lists) for
-    bf16 with C_in and C_out multiples of 8, else "simt" (CUDA cores over
-    rb_bwd); its f32 calls with widths in 4s run as K4 at K = 27
-    (`sparse_conv.k_route`) and do not reach it.  K5, over the level's slot
-    pair lists in one launch: "wgmma" (Hopper's warpgroup MMA) for bf16
-    with widths in 8s, "tf32x3" (3xTF32 mma.sync) for f32 with widths in
-    4s, else "simt" (CUDA cores over the parent and slot tables)."""
+    takes, both over pair lists in one launch.  "wgmma" (Hopper's
+    warpgroup MMA: K4 over the level's offset lists, K5 over its slot
+    lists) for bf16 with C_in and C_out multiples of 8; K5's f32 calls
+    with widths in 4s "tf32x3" (3xTF32 mma.sync over the slot lists); else
+    "simt" (CUDA cores over rb_bwd, or the parent and slot tables).  K4's
+    f32 calls with widths in 4s run as K4 at K = 27 (`sparse_conv.k_route`)
+    and do not reach it."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "wgmma" if strided else "mma"
+        return "wgmma"
     if strided and dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
         return "tf32x3"
     return "simt"
+
+
+# K4's wgmma route (csrc/conv_dw.cu, lists::dw_wgmma_kernel): pairs per
+# split in whole 64-pair stages, at least K4_MIN_PAIRS, the least at
+# which the 27 lists' pieces (each list at least one) fill one wave of
+# live blocks: K4_SMS x the tile's resident blocks per SM (at most 2)
+# over all tiles.  The kernel finds it from the lists' lengths on the
+# device (`k4_split_pairs` is its host model), so a wave holds the pieces
+# the data gives: a target from the lists' total alone over- or
+# under-fills the wave by up to 27 ragged last pieces per tile, and a
+# block's fixed cost (its ring's fill, its partial's round trip) is a
+# few us, as much as a short piece's stages (tools/k4_calls.py)
+K4_STAGE = 64
+K4_MIN_PAIRS = 256
+K4_SMS = 132
+K4_SMEM = 232448  # shared memory a block can use on the H100
+K4_WINDOW = 1024  # pairs a block stages in shared memory at a time
+
+
+class K4Plan(NamedTuple):
+    """One K4 call on its wgmma route: `cw` consumer warpgroups (64 cw
+    C_in rows per block), `bn` C_out columns per block, pairs per split
+    at least `per_min` and, with a `target`, the least at which the
+    lists' pieces number at most `target` per tile (`k4_split_pairs`;
+    target 0: `per_min`)."""
+
+    cw: int
+    bn: int
+    target: int
+    per_min: int
+
+
+def k4_tile(c_in: int, c_out: int) -> tuple[int, int]:
+    """(consumer warpgroups, columns) of K4's wgmma tile: two warpgroups
+    (128 C_in rows, so a gathered g row feeds 128 of them) where C_in >=
+    256, else one; the whole C_out up to 256 columns (32, 64, 96, 128 or
+    256: a gathered feats row feeds all of them), wider C_out in 256-wide
+    tiles.  Two warpgroups paid on the H100 only from C_in 256 (MinkUNet's
+    256 -> 256 and 384 -> 256); at C_in 128 and 192 one was faster at
+    every call (tools/k4_calls.py --variants)."""
+    return (2 if c_in >= 256 else 1), next((w for w in (32, 64, 96, 128) if c_out <= w), 256)
+
+
+def k4_tiles(c_in: int, c_out: int, cw: int, bn: int) -> int:
+    """Blocks per piece of K4's wgmma tile: (64 cw)-row C_in tiles x
+    bn-column C_out tiles."""
+    return _cdiv(c_in, 64 * cw) * _cdiv(c_out, bn)
+
+
+def k4_smem_bytes(cw: int, bn: int) -> int:
+    """Dynamic shared memory of K4's wgmma tile: 1 KB of alignment, the
+    4-stage ring of A (64 cw rows) and B (bn columns) over 64 pairs, the
+    ring's barriers and the pair window."""
+    return 1024 + 4 * (cw * 64 + bn) * K4_STAGE * 2 + 2 * 4 * 8 + K4_WINDOW * 8
+
+
+def k4_resident(cw: int, bn: int) -> int:
+    """Blocks of K4's wgmma tile that the plan counts resident per SM:
+    as many as the shared memory holds, at most 2."""
+    return max(1, min(2, K4_SMEM // k4_smem_bytes(cw, bn)))
+
+
+def k4_pieces(v: int, target: int, per_min: int) -> int:
+    """Blocks per tile that cover every split of 27 lists of at most V
+    pairs each: piece (k, z) lies at (starts[k] - starts[0]) // per + k +
+    z, below max(target, 27) + 27 with a target (at most `target` pieces,
+    or one per list), below 27 V // per_min + 27 without."""
+    return (max(target, 27) if target > 0 else 27 * v // per_min) + 27
+
+
+def k4_split_pairs(starts, per_min: int, target: int, stage: int = K4_STAGE) -> int:
+    """Host model of the kernel's pairs per split (csrc/conv_dw.cu,
+    lists::split_pairs) for the start table `starts` (a list): with a
+    target, the least multiple of `stage`, at least per_min, at which the
+    lists' pieces number at most `target`, or the longest list rounded up
+    to a stage; else per_min.  For tools and tests (it reads the starts
+    on the host)."""
+    if target <= 0:
+        return per_min
+    n = [b - a for a, b in zip(starts[:-1], starts[1:])]
+    lo = max(1, _cdiv(per_min, stage))
+    hi = max(lo, _cdiv(max(n), stage))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if sum(max(1, _cdiv(m, mid * stage)) for m in n) <= target:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo * stage
+
+
+@functools.lru_cache(maxsize=None)
+def k4_plan(v: int, c_in: int, c_out: int) -> K4Plan:
+    """K4's wgmma plan for V rows and these widths, from the shapes alone
+    (the pairs per split follow the lists' lengths on the device)."""
+    cw, bn = k4_tile(c_in, c_out)
+    target = _cdiv(K4_SMS * k4_resident(cw, bn), k4_tiles(c_in, c_out, cw, bn))
+    return K4Plan(cw, bn, target, K4_MIN_PAIRS)
+
+
+def k4_one_split(v: int, c_in: int, c_out: int) -> K4Plan:
+    """`k4_plan` with every list in one piece (pairs per split V, the
+    most one list holds): no partials and no sum of pieces, for measuring
+    what the splits cost."""
+    return k4_plan(v, c_in, c_out)._replace(target=0, per_min=v)
 
 
 # K5's split rule over the slot lists (csrc/conv_dw.cu, k5): pairs per
@@ -248,7 +354,7 @@ def k3_conv_dw(
 ) -> torch.Tensor:
     """K4: feats (V, C_in), grad (V, C_out) in one dtype, rb_bwd (27, V)
     int32 -> d_W (27, C_in, C_out), summed in f32 and rounded once to
-    `out_dtype`.  The tensor-core route reads `pairs`, the level's
+    `out_dtype`.  The wgmma route reads `pairs`, the level's
     `k3_pair_lists(rb_bwd)` (built here when not given).  Deterministic:
     the same inputs give the same bits."""
     dev = feats.device
@@ -266,8 +372,10 @@ def k3_conv_dw(
         return k3_conv_dw_plain(feats, grad, rb_bwd).to(out_dtype)
     if v == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((27, c_in, c_out), dtype=out_dtype, device=dev)
-    if dw_route(feats.dtype, c_in, c_out) == "mma":
-        return _k3_conv_dw_mma(feats, grad, rb_bwd, pairs).to(out_dtype)
+    if dw_route(feats.dtype, c_in, c_out) == "wgmma":
+        if pairs is None:
+            pairs = k3_pair_lists(rb_bwd)
+        return k3_conv_dw_wgmma(feats, grad, pairs).to(out_dtype)
     out = launch_dw(
         "taseg_k3_conv_dw", "k3_conv_dw",
         (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
@@ -276,23 +384,10 @@ def k3_conv_dw(
     return out.to(out_dtype)
 
 
-def _k3_conv_dw_mma(feats, grad, rb_bwd, pairs):
-    if pairs is None:
-        pairs = k3_pair_lists(rb_bwd)
-    v = feats.shape[0]
-    return launch_dw_mma(
-        "taseg_k3_conv_dw_mma", "k3_conv_dw", feats, grad, pairs, 27, v, 27 * v,
-    )
-
-
-def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
-                  max_pairs: int, capacity: int, *extra, suffix: str = "_mma") -> torch.Tensor:
-    """Launch the tensor-core route of K4 or K4 at K offsets (C entry
-    `name`, counted under `counter` and its `suffix` entry: `_mma`, or
-    `_tf32` for the 3xTF32 route) over `pairs`, n_out lists of up to
-    `max_pairs` pairs each in a (capacity, 2) buffer; `extra` are the
-    entry's int arguments after the widths.  Returns the f32 (n_out,
-    C_in, C_out) result."""
+def check_pair_lists(x, y, pairs: PairLists, n_out: int, capacity: int) -> None:
+    """Raise unless x and y are 16-byte aligned and `pairs` holds n_out
+    lists in a (>= capacity, 2) int32 buffer with (n_out + 1,) starts on
+    x's device."""
     dev = x.device
     _build.check_aligned(x=x, y=y)
     _build.check("pairs", pairs.pairs, (torch.int32,), 2, dev)
@@ -303,6 +398,48 @@ def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
             f"pair lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
             f"do not fit (>= {capacity}, 2) / ({n_out + 1},)"
         )
+
+
+def k3_conv_dw_wgmma(
+    feats: torch.Tensor, grad: torch.Tensor, pairs: PairLists, plan: Optional[K4Plan] = None,
+) -> torch.Tensor:
+    """K4's wgmma route: feats (V, C_in) and grad (V, C_out) bf16 with
+    widths in 8s, `pairs` the level's `k3_pair_lists` -> f32 (27, C_in,
+    C_out), in one launch with `plan` (`k4_plan` where None; a test or a
+    tool may pass another, e.g. `k4_one_split`).  The splits of a list
+    are added in split order by its last block: the same inputs and plan
+    give the same bits."""
+    dev = feats.device
+    v, c_in = feats.shape
+    c_out = grad.shape[1]
+    check_pair_lists(feats, grad, pairs, 27, 27 * v)
+    p = plan or k4_plan(v, c_in, c_out)
+    pieces = k4_pieces(v, p.target, p.per_min)
+    out = torch.empty((27, c_in, c_out), dtype=torch.float32, device=dev)
+    part = cnt = None
+    if p.target > 0 or p.per_min < v:  # a list may split
+        part = torch.empty((pieces, c_in, c_out), dtype=torch.float32, device=dev)
+        cnt = _build.zeroed_counters(dev, 27 * k4_tiles(c_in, c_out, p.cw, p.bn))
+    _build.launch(
+        "taseg_k3_conv_dw_wgmma", _build.counters("k3_conv_dw", suffix="_wgmma"),
+        feats.data_ptr(), grad.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), c_in, c_out, p.cw, p.bn, pieces,
+        p.per_min, p.target,
+    )
+    return out
+
+
+def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
+                  max_pairs: int, capacity: int, *extra, suffix: str = "_tf32") -> torch.Tensor:
+    """Launch the 3xTF32 route of K4 at K offsets (C entry `name`, counted
+    under `counter` and its `suffix` entry; with an empty `counter`,
+    counted nowhere: K4's mma.sync tile, the yardstick of its wgmma route)
+    over `pairs`, n_out lists of up to `max_pairs` pairs each in a
+    (capacity, 2) buffer; `extra` are the entry's int arguments after the
+    widths.  Returns the f32 (n_out, C_in, C_out) result."""
+    dev = x.device
+    check_pair_lists(x, y, pairs, n_out, capacity)
     c_in, c_out = x.shape[1], y.shape[1]
     splits, per = dw_mma_splits(max_pairs, c_in, c_out, n_out)
     out = torch.empty((n_out, c_in, c_out), dtype=torch.float32, device=dev)
@@ -311,7 +448,7 @@ def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
         if splits > 1 else None
     )
     _build.launch(
-        name, _build.counters(counter, suffix=suffix),
+        name, _build.counters(counter, suffix=suffix) if counter else (),
         x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(),
         pairs.starts.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), c_in, c_out, *extra, splits, per,
@@ -337,7 +474,7 @@ def f3_bwd_fused(
     (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd) over the
     level's row order `order` on its wgmma route, counted as a
     `sparse_conv_k3_dgrad` launch; d_W through K4 (over the level's pair
-    lists `pairs` on its tensor-core route), in weight's dtype.
+    lists `pairs` on its wgmma route), in weight's dtype.
     `need_feats=False` skips d_feats (returns None)."""
     g = grad.to(feats.dtype)
     d_feats = None
@@ -377,7 +514,7 @@ def sparse_conv_dw(
             pairs = pair_lists(rb_bwd)
         out = launch_dw_mma(
             "taseg_sparse_conv_dw_tf32", "sparse_conv_dw", feats, grad, pairs,
-            k, v_in, k * v_in, k, suffix="_tf32",
+            k, v_in, k * v_in, k,
         )
         return out.to(out_dtype)
     out = launch_dw(

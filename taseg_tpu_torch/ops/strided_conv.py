@@ -14,16 +14,19 @@ is also a conv over 8 offsets from V_fine rows to V_coarse rows, over the
 child table (`slot_child_table`: entry [s, c] the child of cell c at slot
 s; one round of it where coordinates are non-negative, as on every path),
 which the topology builds once per level with its row order
-(`StridedTables.child`, `child_order`).  On CUDA tensors the wrappers
-launch hand-written kernels, by `downsample_route` / `upsample_route`:
-down over a one-round child table in bf16 (C_in and C_out multiples of
-8) on K2's wgmma tile at K = 8 (`sparse_conv.launch_wgmma`), in f32 (C_in
-and C_out multiples of 4) on K2 at K's 3xTF32 tile
-(`sparse_conv.launch_k_tf32`); a table of several rounds (cells that fold
-negative coordinates) on K3-down's round kernels of `csrc/strided_conv.cu`
-("rounds"); up on K3-up (`csrc/strided_conv.cu`), on tensor cores in
-bf16 with C_in and C_out multiples of 8; everything else on CUDA cores.
-On CPU
+(`StridedTables.child`, `child_order`).  The up direction is a conv over
+8 offsets from V_coarse to V_fine rows too, over the up table
+(`slot_up_table`: entry [s, f] the parent of fine row f where its slot is
+s, -1 elsewhere; `StridedTables.up`, `up_order`, built by the topology
+with the level's orders: its row order groups the fine rows by slot).
+On CUDA tensors the wrappers launch hand-written kernels, by
+`downsample_route` / `upsample_route`: over a one-round child table, or
+the up table, in bf16 (C_in and C_out multiples of 8) on K2's wgmma tile
+at K = 8 (`sparse_conv.launch_wgmma`), in f32 (C_in and C_out multiples
+of 4) on K2 at K's 3xTF32 tile (`sparse_conv.launch_k_tf32`); a child
+table of several rounds (cells that fold negative coordinates) on
+K3-down's round kernels of `csrc/strided_conv.cu` ("rounds"); everything
+else on the CUDA-core kernels of `csrc/strided_conv.cu`.  On CPU
 tensors they run the plain versions, which follow the JAX
 `_slot_matmul`, `_segment_sum` (a mean-centred cumsum) and
 `_parent_gather` (`voxelize.run_sums` is the segment sum).  The kernel
@@ -83,6 +86,10 @@ class StridedTables:
             int32, read by K3-down's routes (None: built per call).
     child_order: `mask_row_order(child[0])` where child has one round
             (None: built per call).
+    up:     `slot_up_table` of these tables, (8, V_fine) int32, read by
+            K3-up's tensor-core routes (None: built per call).
+    up_order: `mask_row_order(up)`: the fine rows grouped by slot, dead
+            rows last (None: built per call).
     """
 
     parent: torch.Tensor
@@ -92,6 +99,8 @@ class StridedTables:
     pairs: Optional[PairLists] = None
     child: Optional[torch.Tensor] = None
     child_order: Optional[torch.Tensor] = None
+    up: Optional[torch.Tensor] = None
+    up_order: Optional[torch.Tensor] = None
 
 
 def build_strided_tables(
@@ -170,21 +179,38 @@ def downsample_route(dtype: torch.dtype, c_in: int, c_out: int, rounds: int = 1)
     return "simt"
 
 
-def down_tf32_splits(v_coarse: int, c_in: int) -> int:
-    """Parts of each tile's chain of K3-down's 3xTF32 route: K2 at K's
-    rule (`sparse_conv.k_splits`), at most one per 16 stages of the full
-    chain (8 slots x C_in chunks of 32): a child table's tiles run 1-3
-    slots each, too few stages to share (as the wgmma route's rule)."""
-    return max(1, min(_sc.k_splits(v_coarse), 8 * -(-c_in // 32) // 16))
+def k3_tf32_splits(v_out: int, c_in: int) -> int:
+    """Parts of each tile's chain of K3's 3xTF32 route (over a child or
+    an up table of V_out rows): K2 at K's rule (`sparse_conv.k_splits`),
+    at most one per 16 stages of the full chain (8 slots x C_in chunks of
+    32): a child table's tiles run 1-3 slots each, an up table's 1-2, too
+    few stages to share (as the wgmma route's rule)."""
+    return max(1, min(_sc.k_splits(v_out), 8 * -(-c_in // 32) // 16))
 
 
 def upsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
-    """The kernel a CUDA call of `upsample_conv_apply` takes: "mma"
-    (the mma.sync tile) for bf16 with C_in and C_out multiples of 8,
-    else "simt"."""
+    """The kernel a CUDA call of `upsample_conv_apply` takes, over the
+    level's up table: "wgmma" (K2's wgmma tile at K = 8) for bf16 with
+    C_in and C_out multiples of 8, "tf32x3" (K2 at K's 3xTF32 tile) for
+    f32 with both multiples of 4, else "simt" (K3-up's CUDA-core
+    kernel)."""
     if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "mma"
+        return "wgmma"
+    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
+        return "tf32x3"
     return "simt"
+
+
+def slot_up_table(tables: StridedTables) -> torch.Tensor:
+    """(8, V_fine) int32: entry [s, f] is parent f where slot f == s and
+    parent f >= 0, else -1 (one elementwise op).  It is the table of
+    K3-up as a conv over 8 offsets from the coarse rows to the fine ones:
+
+        out[f] = sum_s feats[table[s, f]] @ W[s] = feats[parent f] @ W[slot f]
+    """
+    slot = (tables.slot & 7).long()
+    s = torch.arange(8, device=slot.device)[:, None]
+    return torch.where((s == slot) & (tables.parent >= 0), tables.parent, -1)
 
 
 def slot_child_table(tables: StridedTables, rounds: Optional[int] = None) -> torch.Tensor:
@@ -272,6 +298,13 @@ def upsample_conv_plain(feats, weight, tables: StridedTables):
     return _slot_matmul(g, weight, tables).to(feats.dtype)
 
 
+def upsample_conv_up_plain(feats, weight, up: torch.Tensor):
+    """The up conv over an up table (8, V_fine), the arithmetic of its
+    K2-tile routes: the per-slot gather + f32 matmul of
+    `sparse_conv.sparse_conv_plain`, rounded once."""
+    return sparse_conv_plain(feats.float(), weight.float(), up).to(feats.dtype)
+
+
 def _check_weights(feats, weight):
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
@@ -341,7 +374,7 @@ def downsample_conv_apply(
         launch_k_tf32(
             feats, weight, child[0], order, out,
             _build.counters("strided_down", dgrad=dgrad, suffix="_tf32"),
-            splits=down_tf32_splits(v_coarse, c_in),
+            splits=k3_tf32_splits(v_coarse, c_in),
         )
         return out
     ptrs = (
@@ -366,9 +399,11 @@ def upsample_conv_apply(
     *, dgrad: bool = False,
 ) -> torch.Tensor:
     """Transposed pair: feats (V_coarse, Ci), weight (8, Ci, Co) in feats'
-    dtype -> (V_fine, Co); out[f] = feats[parent(f)] @ W[slot(f)].
-    `dgrad` marks an input-gradient call (counted under
-    `strided_up_dgrad` too)."""
+    dtype -> (V_fine, Co); out[f] = feats[parent(f)] @ W[slot(f)].  The
+    tensor-core routes (`upsample_route`) read `tables.up` and
+    `tables.up_order` (built here where the topology gave none).  `dgrad`
+    marks an input-gradient call (counted under `strided_up_dgrad`
+    too)."""
     v_fine = tables.parent.shape[0]
     v_coarse = feats.shape[0]
     _check(feats, weight, tables, v_fine, v_coarse)
@@ -380,21 +415,30 @@ def upsample_conv_apply(
         return out
     if v_coarse == 0 or c_in == 0:
         return out.zero_()
-    ptrs = (
+    r = upsample_route(feats.dtype, c_in, c_out)
+    if r != "simt":
+        up, order = (tables.up, tables.up_order) if tables.up is not None else (slot_up_table(tables), None)
+        _build.check("up", up, (torch.int32,), 2, feats.device)
+        if up.shape != (8, v_fine):
+            raise ValueError(f"up {tuple(up.shape)} does not fit (8, {v_fine})")
+        if r == "wgmma":
+            launch_wgmma(
+                feats, weight, up, order, out,
+                _build.counters("strided_up", dgrad=dgrad, suffix="_wgmma"),
+                entry="taseg_strided_up_wgmma",
+            )
+        else:
+            launch_k_tf32(
+                feats, weight, up, order, out,
+                _build.counters("strided_up", dgrad=dgrad, suffix="_tf32"),
+                splits=k3_tf32_splits(v_fine, c_in),
+            )
+        return out
+    _build.launch(
+        "taseg_strided_up", _build.counters("strided_up", dgrad=dgrad),
         feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
-        tables.slot.data_ptr(), out.data_ptr(),
+        tables.slot.data_ptr(), out.data_ptr(), v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
     )
-    if upsample_route(feats.dtype, c_in, c_out) == "mma":
-        _build.check_aligned(feats=feats, weight=weight)
-        _build.launch(
-            "taseg_strided_up_mma", _build.counters("strided_up", dgrad=dgrad, suffix="_mma"),
-            *ptrs, v_fine, c_in, c_out,
-        )
-    else:
-        _build.launch(
-            "taseg_strided_up", _build.counters("strided_up", dgrad=dgrad),
-            *ptrs, v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
-        )
     return out
 
 
@@ -504,7 +548,8 @@ def _cdiv(a: int, b: int) -> int:
 
 class DownConv(torch.autograd.Function):
     """`downsample_conv_apply` with its gradient (JAX `_down_bwd`):
-    d_feats = up(g, W^T) through K3-up, d_W through K5.  Saves feats and
+    d_feats = up(g, W^T) through K3-up (over the level's up table and
+    order, as the forward's up conv), d_W through K5.  Saves feats and
     weight; the tables by reference."""
 
     @staticmethod

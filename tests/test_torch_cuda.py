@@ -10,11 +10,12 @@ Tolerances as in chip_smoke.py: f32 within 1e-5 (1e-4 for the down
 conv, whose plain version sums with a mean-centred cumsum) of the
 largest sum of |terms|; bf16 adds one bf16 rounding of the output.
 bf16 cases with widths that are multiples of 8 take the Hopper wgmma
-route of K2 and K3-down (over row orders, chains cut on small tables)
-and the mma.sync tile of K3-up; f32 K3-down over a one-round child
+route of K2, K3-down and K3-up (over row orders, chains cut on small
+tables); f32 K3-down over a one-round child table and K3-up over the up
 table K2 at K's 3xTF32 tile; child tables of several rounds (negative
 coordinates) K3-down's round kernels; f32 and ragged cases the
-CUDA-core route.  The wgmma route is held at every (C_in, C_out) of the
+CUDA-core route.  K3-up is held forward and as the down conv's input
+gradient in both dtypes at the widths of MinkUNet's and TIAF's paths.  The wgmma route is held at every (C_in, C_out) of the
 MinkUNet path and its input gradients, with and without split chains,
 and to the same bits on repeat.  K1, the
 single-pass join scan, is bit-exact in both modes at tile edges, at the
@@ -23,14 +24,16 @@ look-back state.
 
 The backward kernels: K4 (`k3_conv_dw`) and K5 (`strided_dw`) reduce
 over up to all V rows in f32 in another order than the plain matmuls,
-so they are held within 1e-4 of the largest sum of |terms|; K6
+so they are held within 1e-4 of the largest sum of |terms| (K4's
+wgmma route at every width of the path, on small tables, within 1e-5 of
+its f64 sum, with every list in one piece, in three and in many); K6
 (`segment_sum`) within 1e-5 (against its plain version in f64 where
 segments are long; at pixel-table shapes, on its rows kernel, and on
 segments cut across many units).  Each is called twice on the same
-inputs and must give the same bits.  K4 takes its tensor-core route
-(over the pair lists of `f3conv.k3_pair_lists`) in bf16 with widths
-that are multiples of 8, its CUDA-core route in f32 and at ragged
-widths; K5 runs over the per-slot lists of
+inputs and must give the same bits.  K4 takes its wgmma route (over
+the pair lists of `f3conv.k3_pair_lists`, one launch a call) in bf16
+with widths that are multiples of 8, its CUDA-core route in f32 and at
+ragged widths; K5 runs over the per-slot lists of
 `strided_conv.slot_pair_lists` in one launch, on wgmma in bf16 and on
 3xTF32 in f32 (widths in 8s / 4s), else on its CUDA-core kernel.  K7
 (`devoxelize`) repeats its plain version's roundings and is held to the
@@ -48,7 +51,9 @@ to the same bits on repeat, at ragged V, all-empty tables and single-row
 tiles too; the autograd Function of the conv over K offsets,
 `segment_max` and a small Cylinder_TS f32 step on the card against the
 CPU.  TASeg's temporal stages: small f32 steps of the tiny FSA and KD
-recipes on the card against the CPU.
+recipes on the card against the CPU.  A `Segmenter` built on the card
+(without this file's `cuda` fixture, which switches TF32 off itself)
+reads both TF32 flags as False.
 """
 
 from dataclasses import replace
@@ -416,9 +421,10 @@ def test_launch_counters_count_kernel_launches(cuda):
 
 def test_launch_counters_per_route(cuda):
     """Every K3 launch counts under strided_down / strided_up; the
-    tensor-core ones under their route's entry too: strided_up_mma,
-    K3-down over a one-round child table strided_down_wgmma (bf16) or
-    strided_down_tf32 (f32), over several rounds strided_down_rounds."""
+    tensor-core ones under their route's entry too: K3-up over the up
+    table and K3-down over a one-round child table strided_up_wgmma /
+    strided_down_wgmma (bf16) or strided_up_tf32 / strided_down_tf32
+    (f32), K3-down over several rounds strided_down_rounds."""
     _, u, num, b = _level(cuda, seed=6)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
     tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
@@ -426,16 +432,17 @@ def test_launch_counters_per_route(cuda):
     one = replace(tab, child=tst.slot_child_table(tab)[:1])  # one round of it
     for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
         _build.reset_launches()
+        up = "strided_up_wgmma" if mma else "strided_up_tf32"
         x = torch.ones(c2.shape[0], 16, device=cuda, dtype=dtype)
         tst.upsample_conv_apply(x, torch.ones(8, 16, 8, device=cuda, dtype=dtype), tab)
-        assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
+        assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES[up]) == (1, 1)
         xf = torch.ones(u.shape[0], 16, device=cuda, dtype=dtype)
         tst.downsample_conv_apply(xf, torch.ones(8, 16, 8, device=cuda, dtype=dtype), tab)
         assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES["strided_down_rounds"]) == (1, 1)
         tst.downsample_conv_apply(xf, torch.ones(8, 16, 8, device=cuda, dtype=dtype), one)
         entry = "strided_down_wgmma" if mma else "strided_down_tf32"
         assert (_build.LAUNCHES["strided_down"], _build.LAUNCHES[entry]) == (2, 1)
-        assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES["strided_up_mma"]) == (1, mma)
+        assert (_build.LAUNCHES["strided_up"], _build.LAUNCHES[up]) == (1, 1)
 
 
 def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):
@@ -591,10 +598,11 @@ def test_backward_routes_and_counts(cuda):
     """Autograd through the k3 conv and the strided pair on the card: the
     input gradients run K2 / K3 on W^T and count under `_dgrad`, on the
     tensor-core routes where the forward takes them (bf16, widths % 8 ==
-    0: K2 on wgmma, K3-up on mma); in f32 the k3 conv takes K2 and K4 at K
-    = 27 on 3xTF32 (`k_route`) and K3-up CUDA cores; the level's
-    coordinates straddle 0, so K3-down takes its round kernel in both;
-    every d_W runs K4 / K5 once."""
+    0: K2 and K3-up on wgmma, K4 on its wgmma tile); in f32 the k3 conv
+    takes K2 and K4 at K = 27 on 3xTF32 (`k_route`) and K3-up K2 at K's
+    3xTF32 tile over the up table; the level's coordinates straddle 0, so
+    K3-down takes its round kernel in both; every d_W runs K4 / K5
+    once."""
     rng, u, num, b = _level(cuda, seed=51)
     rb = tr.build_rulebook_k3(u, num, 1, b)
     c2, n2, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 4096, return_inverse=True)
@@ -609,21 +617,23 @@ def test_backward_routes_and_counts(cuda):
         _build.reset_launches()
         y.float().square().sum().backward()
         L = _build.LAUNCHES
-        k3 = (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_wgmma"], L["k3_conv_dw"])
+        k3 = (L["sparse_conv_k3_dgrad"], L["sparse_conv_k3_dgrad_wgmma"], L["k3_conv_dw"],
+              L["k3_conv_dw_wgmma"])
         k27 = (L["sparse_conv_k_dgrad_tf32"], L["sparse_conv_dw_tf32"])
-        assert (k3, k27) == (((1, 1, 1), (0, 0)) if mma else ((0, 0, 0), (1, 1)))
+        assert (k3, k27) == (((1, 1, 1, 1), (0, 0)) if mma else ((0, 0, 0, 0), (1, 1)))
         assert (L["strided_down_dgrad"], L["strided_down_dgrad_rounds"]) == (1, 1)
-        assert (L["strided_up_dgrad"], L["strided_up_dgrad_mma"]) == (1, mma)
+        up = "strided_up_dgrad_wgmma" if mma else "strided_up_dgrad_tf32"
+        assert (L["strided_up_dgrad"], L[up]) == (1, 1)
         assert L["strided_dw"] == 2
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, w, wd, wu))
 
 
 @pytest.mark.parametrize("c_in,c_out", [(8, 8), (32, 32), (96, 96), (384, 256)])
 def test_k3_conv_dw_mma_route(cuda, c_in, c_out):
-    """K4's tensor-core route against its plain version: with the pair
-    lists given and built by the wrapper (the same bits), offsets without
-    pairs, pair counts that are not a multiple of the 32-pair stage; each
-    launch counts under k3_conv_dw and k3_conv_dw_mma."""
+    """K4's tensor-core route (the wgmma tile) against its plain version:
+    with the pair lists given and built by the wrapper (the same bits),
+    offsets without pairs, pair counts that are not a multiple of the
+    stage; each launch counts under k3_conv_dw and k3_conv_dw_wgmma."""
     rng, u, num, b = _level(cuda, seed=60 + c_in)
     rb_bwd = tsc.flip_rulebook(tr.build_rulebook_k3(u, num, 1, b))
     rb_bwd[[0, 7, 26]] = -1
@@ -632,10 +642,10 @@ def test_k3_conv_dw_mma_route(cuda, c_in, c_out):
     assert counts[0] == counts[7] == 0 and any(n % 32 for n in counts)
     x = _rand(rng, (u.shape[0], c_in), cuda, torch.bfloat16)
     g = _rand(rng, (u.shape[0], c_out), cuda, torch.bfloat16)
-    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "mma"
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "wgmma"
     _build.reset_launches()
     got = _twice_same(lambda: tf3.k3_conv_dw(x, g, rb_bwd, pairs=pairs))
-    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_mma"]) == (2, 2)
+    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_wgmma"]) == (2, 2)
     assert torch.equal(tf3.k3_conv_dw(x, g, rb_bwd), got)
     assert not got[[0, 7, 26]].any()
     _close(got, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
@@ -644,9 +654,9 @@ def test_k3_conv_dw_mma_route(cuda, c_in, c_out):
 @pytest.mark.parametrize("c_in,c_out", [(32, 32), (64, 128)])
 def test_k3_conv_dw_mma_many_splits(cuda, c_in, c_out):
     """A level-0 sized V splits every offset's list many times (the
-    partials are added in split order): within tolerance, the same bits
-    on a repeat call; the f32 call of the same shape takes the CUDA-core
-    route."""
+    last block of each list adds the partials in split order): within
+    tolerance, the same bits on a repeat call; the f32 call of the same
+    shape takes the CUDA-core route."""
     v = 131072
     splits, per = tf3.dw_mma_splits(v, c_in, c_out)
     assert splits > 16
@@ -660,7 +670,144 @@ def test_k3_conv_dw_mma_many_splits(cuda, c_in, c_out):
     got = _twice_same(lambda: tf3.k3_conv_dw(x, g, idx))
     _close(got, tf3.k3_conv_dw_plain(x, g, idx), tf3.k3_conv_dw_plain(x.abs(), g.abs(), idx), torch.float32, 1e-4)
     tf3.k3_conv_dw(x.float(), g.float(), idx)
-    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_mma"]) == (3, 2)
+    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_wgmma"]) == (3, 2)
+
+
+# every (C_in, C_out) of MinkUNet mk34 cr1.0's 3^3 convs on K4's wgmma
+# route (all but the stem's 4 -> 32)
+K4_WIDTHS = [
+    (32, 32), (32, 64), (64, 64), (64, 128), (96, 96), (128, 96), (128, 128),
+    (128, 256), (192, 128), (256, 256), (384, 256),
+]
+
+
+def _k4_table(dev, table):
+    """(V, reverse table) of a K4 case: `ragged`, a level's flipped
+    rulebook (V not a multiple of any tile) with three offsets emptied;
+    `empty`, no pair at all; `one_row`, one row with its centre pair."""
+    if table == "ragged":
+        _, u, num, b = _level(dev, seed=71)
+        rb = tsc.flip_rulebook(tr.build_rulebook_k3(u, num, 1, b))
+        rb[[0, 7, 26]] = -1
+        return u.shape[0], rb
+    v = 1 if table == "one_row" else 300
+    rb = torch.full((27, v), -1, dtype=torch.int32, device=dev)
+    if table == "one_row":
+        rb[13, 0] = 0
+    return v, rb
+
+
+def _dw_f64(x, g, pairs):
+    """d_W over the pair lists in f64 (the sums and the sums of |terms|)."""
+    s = pairs.starts.tolist()
+    out, ref = [], []
+    for k in range(27):
+        p = pairs.pairs[s[k] : s[k + 1]].long()
+        a, b = x[p[:, 0]].double(), g[p[:, 1]].double()
+        out.append(a.t() @ b)
+        ref.append(a.abs().t() @ b.abs())
+    return torch.stack(out), torch.stack(ref)
+
+
+@pytest.mark.parametrize("splits", ["one", "three", "many"])
+@pytest.mark.parametrize("table", ["ragged", "empty", "one_row"])
+@pytest.mark.parametrize("c_in,c_out", K4_WIDTHS)
+def test_k4_wgmma_path_widths(cuda, c_in, c_out, table, splits):
+    """K4's wgmma route at every width of the path (its tile: the whole
+    C_out, 128 C_in rows from C_in 128) against the f64 sum over the pair
+    lists, within 1e-5 of the f64 sum of |terms|, with every list in one
+    piece, the longest in three and every list in many (the last block
+    adds them in split order); the same bits on repeat, one launch a
+    call, empty lists zero."""
+    v, rb = _k4_table(cuda, table)
+    pairs = tf3.k3_pair_lists(rb)
+    counts = (pairs.starts[1:] - pairs.starts[:-1]).tolist()
+    rng = np.random.default_rng(c_in + c_out)
+    x = _rand(rng, (v, c_in), cuda, torch.bfloat16)
+    g = _rand(rng, (v, c_out), cuda, torch.bfloat16)
+    plan = tf3.k4_one_split(v, c_in, c_out)
+    if splits != "one":
+        per = max(1, -(-max(counts) // 3)) if splits == "three" else 64
+        plan = plan._replace(per_min=per)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.k3_conv_dw_wgmma(x, g, pairs, plan))
+    assert (_build.LAUNCHES["k3_conv_dw"], _build.LAUNCHES["k3_conv_dw_wgmma"]) == (2, 2)
+    want, ref = _dw_f64(x, g, pairs)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * ref.max().item(), err
+    assert not got[[k for k in range(27) if counts[k] == 0]].any()
+    if table == "ragged":  # the default plan splits by the lists' lengths
+        _close(tf3.k3_conv_dw(x, g, rb), want, ref, torch.float32, 1e-5)
+
+
+def test_k4_wgmma_one_split_against_pieces(cuda):
+    """At a level-0 sized table the default plan cuts the lists into
+    pieces and the one-piece plan does not: both within tolerance of each
+    other (f32 sums in another order), each bit-identical on repeat."""
+    v = 131072
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(-8, v, (27, v)).astype(np.int32)).to(cuda)
+    pairs = tf3.k3_pair_lists(idx)
+    x = _rand(rng, (v, 32), cuda, torch.bfloat16)
+    g = _rand(rng, (v, 32), cuda, torch.bfloat16)
+    many = _twice_same(lambda: tf3.k3_conv_dw_wgmma(x, g, pairs))
+    one = _twice_same(lambda: tf3.k3_conv_dw_wgmma(x, g, pairs, tf3.k4_one_split(v, 32, 32)))
+    ref = tf3.k3_conv_dw_plain(x.abs(), g.abs(), idx)
+    _close(many, one, ref, torch.float32, 1e-4)
+    _close(many, tf3.k3_conv_dw_plain(x, g, idx), ref, torch.float32, 1e-4)
+
+
+# K3-up's widths: forward on the deconvs of MinkUNet and TIAF's branches,
+# input gradient of the down convs (C_out -> C_in on W^T)
+K3_UP_WIDTHS = [(16, 16), (32, 32), (48, 48), (64, 64), (96, 96), (128, 96), (128, 128), (256, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["path", "negative", "dead"])
+@pytest.mark.parametrize("c_in,c_out", K3_UP_WIDTHS)
+def test_k3_up_over_up_table(cuda, dtype, case, c_in, c_out):
+    """K3-up on K2's tiles over the level's up table (wgmma in bf16,
+    3xTF32 in f32), forward and as an input gradient, within 1e-5 (bf16:
+    plus one rounding) of its plain version, with the topology's up table
+    and order and without them (built per call: the same bits); dead
+    fine rows are zero."""
+    rng, v_fine, bare, _ = _down_case(cuda, case)
+    up = tst.slot_up_table(bare)
+    tab = replace(bare, up=up, up_order=tsc.mask_row_order(up))
+    v_coarse = tab.starts.shape[0] - 1
+    x = _rand(rng, (v_coarse, c_in), cuda, dtype)
+    w = _rand(rng, (8, c_in, c_out), cuda, dtype)
+    route = tst.upsample_route(dtype, c_in, c_out)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    entry = "_wgmma" if route == "wgmma" else "_tf32"
+    _build.reset_launches()
+    got = _twice_same(lambda: tst.upsample_conv_apply(x, w, tab))
+    grad = tst.upsample_conv_apply(x, w, tab, dgrad=True)
+    assert torch.equal(grad, got) and torch.equal(tst.upsample_conv_apply(x, w, bare), got)
+    L = _build.LAUNCHES
+    assert (L["strided_up"], L["strided_up" + entry], L["strided_up_dgrad"], L["strided_up_dgrad" + entry]) == (4, 4, 1, 1)
+    ref = tst.upsample_conv_plain(x.abs(), w.abs(), tab)
+    _close(got, tst.upsample_conv_plain(x, w, tab), ref, dtype, 1e-5)
+    _close(got, tst.upsample_conv_up_plain(x, w, up), ref, dtype, 1e-5)
+    if case == "dead":
+        assert not got[tab.parent < 0].any()
+
+
+def test_segmenter_switches_tf32_off(monkeypatch):
+    """A `Segmenter` built on the card through its entry point, without
+    the `cuda` fixture, runs with cuDNN's and the matmuls' TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from taseg_tpu_torch.configs import MINKUNET_TINY
+    from taseg_tpu_torch.engine import Segmenter
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    p, s = init_params_numpy(MINKUNET_TINY, seed=0)
+    seg = Segmenter(MINKUNET_TINY, {"params": p, "batch_stats": s})
+    assert seg.device.type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
 def _long_short_ids(rng, p):

@@ -1,4 +1,4 @@
-"""What the wgmma route of K2 and K3-down reads, planned on the CPU.
+"""What the wgmma route of K2 and K3 reads, planned on the CPU.
 
 The topology of a small synthetic scan (8000 raycast points at 0.2 m
 voxels, non-negative coordinates as the host pipelines give them, point
@@ -7,7 +7,10 @@ topologies too), and every level below the first the child table of
 K3-down (`StridedTables.child`, one round) with its own order
 (`child_order`), all equal to a numpy build; built with
 `nonneg_coords=True` (one scatter, nothing read back) they equal the
-tables whose rounds are counted on the host.  The tile work: a 64-row
+tables whose rounds are counted on the host; and the up table of K3-up
+(`StridedTables.up`: each live fine row's parent at its slot) with its
+order (`up_order`: the fine rows grouped by slot, dead rows last), equal
+to numpy.  The tile work: a 64-row
 tile runs every offset one of its rows has, so over the order it comes
 nearer the present pairs than in table order (numpy counts them too).
 The split rule of the wgmma route (`wgmma_splits`, from V_out alone) at
@@ -19,9 +22,13 @@ arithmetic of its tensor-core routes) against JAX's
 W^T), against `jax.vjp(upsample_conv_apply)`, in f32 within 1e-4 of the
 output scale (JAX sums the children with a mean-centred cumsum), on
 non-negative coordinates (one round) and around 0 (several rounds).
+K3-up through the up table (`upsample_conv_up_plain`, the arithmetic of
+its tensor-core routes) against JAX's `upsample_conv_apply` and, as the
+down conv's input gradient (up on W^T, JAX `_down_bwd`), against
+`jax.vjp(downsample_conv_apply)`, in f32 within 1e-5 of the output scale.
 
 Torch runs on one thread; JAX's references are jitted once per module.
-About 10 s on one worker.
+About 12 s on one worker.
 """
 
 import jax
@@ -54,6 +61,8 @@ from taseg_tpu_torch.ops import strided_conv as tst
 P = 8192
 J_DOWN = jax.jit(j_down)
 J_UP_VJP = jax.jit(lambda x, w, tab, g: jax.vjp(lambda a: j_up(a, w, tab), x)[1](g)[0])
+J_UP = jax.jit(j_up)
+J_DOWN_VJP = jax.jit(lambda x, w, tab, g: jax.vjp(lambda a: j_down(a, w, tab), x)[1](g)[0])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,6 +139,40 @@ def test_topology_carries_orders_and_child_tables(topos):
         assert torch.equal(s.child_order, b.strided.child_order)
         # every live fine row of the level below is one child
         assert int((s.child >= 0).sum()) == int(fast.levels[l - 1].num)
+
+
+def _np_up(parent: np.ndarray, slot: np.ndarray) -> np.ndarray:
+    table = np.full((8, parent.shape[0]), -1, np.int64)
+    for f in np.nonzero(parent >= 0)[0]:
+        table[slot[f] & 7, f] = parent[f]
+    return table
+
+
+def test_topology_carries_up_tables(topos):
+    """Each level's up table: one slot per live fine row holding its
+    parent, nothing for dead rows; its order groups the fine rows by slot
+    (slot 7 first: the key is the mask of absent slots), dead rows last,
+    table order within a slot."""
+    fast, counted = topos
+    for l in range(1, len(fast.levels)):
+        s = fast.levels[l].strided
+        parent, slot = s.parent.numpy(), s.slot.numpy()
+        up = s.up.numpy()
+        assert up.shape == (8, parent.shape[0]) and up.dtype == np.int32
+        np.testing.assert_array_equal(up, _np_up(parent, slot))
+        live = parent >= 0
+        np.testing.assert_array_equal((up >= 0).sum(0), live.astype(np.int64))
+        assert int(live.sum()) == int(fast.levels[l - 1].num)
+        order = s.up_order.numpy()
+        np.testing.assert_array_equal(order, _np_order(up))
+        want = np.concatenate(
+            [np.nonzero(live & ((slot & 7) == k))[0] for k in range(7, -1, -1)]
+            + [np.nonzero(~live)[0]]
+        )
+        np.testing.assert_array_equal(order, want)
+        assert torch.equal(s.up, counted.levels[l].strided.up)
+        assert torch.equal(s.up_order, counted.levels[l].strided.up_order)
+        assert torch.equal(s.up, tst.slot_up_table(s))
 
 
 def test_tile_work_over_the_order(topos):
@@ -221,7 +264,7 @@ def test_routes_hand_their_launch_the_split_and_order(recorded, topos):
     v_coarse = s.starts.shape[0] - 1
     assert a0[2] == s.child.data_ptr() and a0[3] == s.child_order.data_ptr()
     assert a0[-5:] == (v_coarse, 32, 32, 8, tsc.wgmma_splits(v_coarse, 8, 32))
-    assert a1[-5:] == (v_coarse, 32, 32, 8, tst.down_tf32_splits(v_coarse, 32)) == (v_coarse, 32, 32, 8, 1)
+    assert a1[-5:] == (v_coarse, 32, 32, 8, tst.k3_tf32_splits(v_coarse, 32)) == (v_coarse, 32, 32, 8, 1)
 
     recorded.clear()
     two = tst.StridedTables(s.parent, s.slot, s.perm, s.starts, child=torch.cat([s.child, s.child]))
@@ -232,6 +275,33 @@ def test_routes_hand_their_launch_the_split_and_order(recorded, topos):
         ("taseg_strided_down", ("strided_down", "strided_down_rounds")),
         ("taseg_strided_down", ("strided_down", "strided_down_rounds")),
     ]
+
+
+def test_up_routes_hand_their_launch_the_table_and_order(recorded, topos):
+    """K3-up and its input-gradient use: bf16 widths in 8s on K2's wgmma
+    tile over the level's up table and order (its own C entry), f32
+    widths in 4s on K2 at K's 3xTF32 tile over the same, ragged widths
+    on K3-up's CUDA-core kernel; a table without the topology's up table
+    gets one built (no order: the launch builds it)."""
+    s = topos[0].levels[3].strided
+    fine, v_coarse = s.parent.shape[0], s.starts.shape[0] - 1
+    for dt, c in ((torch.bfloat16, 64), (torch.float32, 64), (torch.bfloat16, 12)):
+        tst.upsample_conv_apply(torch.ones(v_coarse, c, dtype=dt), torch.ones(8, c, 32, dtype=dt), s, dgrad=True)
+    (n0, c0, a0), (n1, c1, a1), (n2, c2, _) = recorded
+    assert (n0, c0) == ("taseg_strided_up_wgmma", (
+        "strided_up", "strided_up_dgrad", "strided_up_wgmma", "strided_up_dgrad_wgmma"))
+    assert (n1, c1) == ("taseg_sparse_conv_k_tf32", (
+        "strided_up", "strided_up_dgrad", "strided_up_tf32", "strided_up_dgrad_tf32"))
+    assert (n2, c2) == ("taseg_strided_up", ("strided_up", "strided_up_dgrad"))
+    for a in (a0, a1):
+        assert a[2] == s.up.data_ptr() and a[3] == s.up_order.data_ptr()
+    assert a0[-5:] == (fine, 64, 32, 8, tsc.wgmma_splits(fine, 8, 64))
+    assert a1[-5:] == (fine, 64, 32, 8, tst.k3_tf32_splits(fine, 64))
+    recorded.clear()
+    bare = tst.StridedTables(s.parent, s.slot, s.perm, s.starts)
+    tst.upsample_conv_apply(torch.ones(v_coarse, 64, dtype=torch.bfloat16),
+                            torch.ones(8, 64, 32, dtype=torch.bfloat16), bare)
+    assert recorded[0][0] == "taseg_strided_up_wgmma"
 
 
 def _level_pair(negative: bool):
@@ -279,3 +349,31 @@ def test_down_through_child_table_matches_jax(negative, c_in, c_out):
     got = tst.downsample_conv_slot_plain(torch.from_numpy(gf), w_t, child).numpy()
     scale = max(np.abs(want).max(), 1e-6)
     assert np.abs(got - want).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("c_in,c_out", [(256, 256), (256, 128), (128, 96), (96, 96)])
+def test_up_through_up_table_matches_jax(negative, c_in, c_out):
+    """K3-up over the up table at the deconvs' widths: the forward against
+    JAX's `upsample_conv_apply`; as the down conv's input gradient (its
+    widths swapped, on W^T) against `jax.vjp(downsample_conv_apply)`,
+    JAX's `_down_bwd` d_feats."""
+    rng, jtab, ttab = _level_pair(negative)
+    up = tst.slot_up_table(ttab)
+    v_fine, v_coarse = ttab.parent.shape[0], ttab.starts.shape[0] - 1
+    x = rng.normal(size=(v_coarse, c_in)).astype(np.float32)
+    w = (rng.normal(size=(8, c_in, c_out)) / np.sqrt(c_in)).astype(np.float32)
+    want = np.asarray(J_UP(jnp.asarray(x), jnp.asarray(w), jtab))
+    got = tst.upsample_conv_up_plain(torch.from_numpy(x), torch.from_numpy(w), up).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1e-6)
+    assert torch.equal(
+        torch.from_numpy(got), tst.upsample_conv_plain(torch.from_numpy(x), torch.from_numpy(w), ttab)
+    )
+
+    # the down conv C_out -> C_in: its input gradient is up(g, W^T)
+    xf = rng.normal(size=(v_fine, c_out)).astype(np.float32)
+    wd = np.ascontiguousarray(w.transpose(0, 2, 1))  # (8, C_out, C_in)
+    want = np.asarray(J_DOWN_VJP(jnp.asarray(xf), jnp.asarray(wd), jtab, jnp.asarray(x)))
+    w_t = torch.from_numpy(wd).transpose(1, 2).contiguous()
+    got = tst.upsample_conv_up_plain(torch.from_numpy(x), w_t, up).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1e-6)

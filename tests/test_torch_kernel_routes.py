@@ -2,13 +2,14 @@
 CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-down
 (`strided_conv.downsample_route`, over a one-round child table) take the
 Hopper wgmma tile ("wgmma") in bf16 where C_in and C_out are multiples of
-8; K3-up (`strided_conv.upsample_route`) and K4, the weight gradient of
-the k3 conv (`f3conv.dw_route`), take the mma.sync tiles ("mma") there;
-K5, the strided pair's (`dw_route(..., strided=True)`), takes wgmma in
-bf16 and 3xTF32 ("tf32x3") in f32 with widths in 4s, as K3-down takes K2
-at K's 3xTF32 tile in f32; the rest the CUDA-core route ("simt").  K5's
-split rule and its pieces are checked against a numpy model here; ~5 s
-for the file.
+8, and so does K3-up (`strided_conv.upsample_route`, over the level's up
+table); K4 and K5, the weight gradients of the k3 conv and of the strided
+pair (`f3conv.dw_route`), take the wgmma tile over pair lists there; K5
+takes 3xTF32 ("tf32x3") in f32 with widths in 4s, as K3-down and K3-up
+take K2 at K's 3xTF32 tile in f32; the rest the CUDA-core route
+("simt").  K4's and K5's split rules and their pieces are checked against
+a numpy model here, and the TF32 switch of the entry points' device
+resolution; ~5 s for the file.
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
 
 import numpy as np
@@ -47,11 +48,12 @@ def test_k2_routes_in_bf16(convs):
 
 def test_k4_routes_in_bf16(convs):
     """The train step's d_W of every 27-point conv but the stem's first
-    (C_in = 4) is on tensor cores: 47 of the 48 K4 launches of a step."""
+    (C_in = 4) is on tensor cores: 47 of the 48 K4 launches of a step, on
+    the wgmma tile over the offset lists."""
     k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
     routes = {n: tf3.dw_route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
-    assert sum(r == "mma" for r in routes.values()) == 47
+    assert sum(r == "wgmma" for r in routes.values()) == 47
 
 
 def test_k5_routes_in_bf16(convs):
@@ -62,7 +64,7 @@ def test_k5_routes_in_bf16(convs):
     widths = sorted((m.in_channels, m.out_channels) for m in strided.values())
     assert widths == sorted(K5_PATH_WIDTHS)
     assert all(tf3.dw_route(torch.bfloat16, *wd, strided=True) == "wgmma" for wd in widths)
-    assert all(tf3.dw_route(torch.bfloat16, *wd) == "mma" for wd in widths)  # K4's tile
+    assert all(tf3.dw_route(torch.bfloat16, *wd) == "wgmma" for wd in widths)  # K4's tile
     assert all(tf3.dw_route(torch.float32, *wd) == "simt" for wd in widths)
 
 
@@ -80,13 +82,13 @@ def test_k5_routes_in_f32(convs):
 
 
 def test_k3_up_routes_in_bf16(convs):
-    """All four transposed 8-point convs (the deconvs) are on tensor
-    cores."""
+    """All four transposed 8-point convs (the deconvs) are on the wgmma
+    tile over the level's up table: 4 of the 4 K3-up launches of a scan."""
     up = {n: m for n, m in convs.items() if m.kernel_volume == 8 and m.transposed}
     widths = sorted((m.in_channels, m.out_channels) for m in up.values())
     assert widths == [(96, 96), (128, 96), (256, 128), (256, 256)]
     assert all(
-        tst.upsample_route(torch.bfloat16, m.in_channels, m.out_channels) == "mma"
+        tst.upsample_route(torch.bfloat16, m.in_channels, m.out_channels) == "wgmma"
         for m in up.values()
     )
     assert sum(m.kernel_volume == 8 and not m.transposed for m in convs.values()) == 4
@@ -107,7 +109,7 @@ def test_input_gradient_routes_in_bf16(convs):
     with C_in and C_out swapped: the 47 of K2 (every 27-point conv but
     the stem's first, whose input needs no gradient), the 4 of K3-up
     (down's backward) and the 4 of K3-down (the deconvs' backward) all
-    take the tensor-core routes (K2 and K3-down the wgmma tile)."""
+    take the wgmma tile."""
     k3 = [m for n, m in convs.items() if m.kernel_volume == 27 and n != "stem_0.SparseConv_0"]
     assert len(k3) == 47
     assert all(tsc.route(torch.bfloat16, m.out_channels, m.in_channels) == "wgmma" for m in k3)
@@ -115,17 +117,18 @@ def test_input_gradient_routes_in_bf16(convs):
         if m.transposed:
             assert tst.downsample_route(torch.bfloat16, m.out_channels, m.in_channels) == "wgmma"
         else:
-            assert tst.upsample_route(torch.bfloat16, m.out_channels, m.in_channels) == "mma"
+            assert tst.upsample_route(torch.bfloat16, m.out_channels, m.in_channels) == "wgmma"
 
 
 def test_f32_routes_stay_on_cuda_cores(convs):
-    """f32 keeps K2 at 27 (its f32 calls go to K2 at K through `k_route`),
-    K3-up and K4 on CUDA cores; K3-down over a one-round child table and
-    K5 take 3xTF32 tiles (every width of the path is a multiple of 4),
-    K3-down over several rounds its round kernel."""
+    """f32 keeps K2 at 27 and K4 on CUDA cores (their f32 calls go to K2
+    and K4 at K through `k_route`); K3-down over a one-round child table,
+    K3-up over the up table and K5 take 3xTF32 tiles (every width of the
+    path is a multiple of 4), K3-down over several rounds its round
+    kernel."""
     for m in convs.values():
         assert tsc.route(torch.float32, m.in_channels, m.out_channels) == "simt"
-        assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "simt"
+        assert tst.upsample_route(torch.float32, m.in_channels, m.out_channels) == "tf32x3"
         assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels) == "tf32x3"
         assert tst.downsample_route(torch.float32, m.in_channels, m.out_channels, 2) == "rounds"
         assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels) == "simt"
@@ -136,22 +139,22 @@ def test_f32_routes_stay_on_cuda_cores(convs):
     "c_in,c_out,want",
     [
         (4, 32, "simt"), (37, 70, "simt"), (64, 20, "simt"), (12, 8, "simt"),
-        (8, 8, "mma"), (32, 32, "mma"), (40, 24, "mma"), (384, 256, "mma"),
+        (8, 8, "wgmma"), (32, 32, "wgmma"), (40, 24, "wgmma"), (384, 256, "wgmma"),
     ],
 )
 def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
-    """`want` is the route of the mma.sync tiles; K2 and K3-down take the
-    wgmma tile at the same widths."""
-    wide = "wgmma" if want == "mma" else want
-    assert tsc.route(torch.bfloat16, c_in, c_out) == wide
+    """`want` is the bf16 route of K2, K3 both ways, K4 and K5: the wgmma
+    tiles at widths in 8s."""
+    assert tsc.route(torch.bfloat16, c_in, c_out) == want
     assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
-    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == wide
+    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == want
     assert tst.downsample_route(torch.bfloat16, c_in, c_out, 3) == "rounds"
     assert tf3.dw_route(torch.bfloat16, c_in, c_out) == want
     assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"
-    assert tf3.dw_route(torch.bfloat16, c_in, c_out, strided=True) == wide
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out, strided=True) == want
     f32 = "tf32x3" if c_in % 4 == 0 and c_out % 4 == 0 else "simt"
     assert tf3.dw_route(torch.float32, c_in, c_out, strided=True) == f32
+    assert tst.upsample_route(torch.float32, c_in, c_out) == f32
 
 
 @pytest.mark.parametrize(
@@ -250,6 +253,167 @@ def test_k5_split_pieces_and_their_sum(per, up):
     assert not got[3].any()
 
 
+# K4's calls of a bf16 train step at TRAIN_CAPACITY_SCHEDULE: (V, C_in,
+# C_out) of each distinct 3^3 conv shape on the wgmma route, levels 0-4
+# (the stem and up4, stage1 and up3, stage2 and up2, stage3 and up1,
+# stage4)
+K4_PATH_SHAPES = [
+    (131072, 32, 32), (131072, 128, 96), (131072, 96, 96),
+    (91904, 32, 32), (91904, 128, 96), (91904, 96, 96),
+    (46080, 32, 64), (46080, 64, 64), (46080, 192, 128), (46080, 128, 128),
+    (19712, 64, 128), (19712, 128, 128), (19712, 384, 256), (19712, 256, 256),
+    (7936, 128, 256), (7936, 256, 256),
+]
+
+
+@pytest.mark.parametrize("v,c_in,c_out", K4_PATH_SHAPES)
+def test_k4_plan_from_shapes(v, c_in, c_out):
+    """K4's wgmma tile takes the whole C_out up to 256 columns (a feats row
+    is gathered once) and 128 C_in rows where C_in >= 256 (a g row is
+    gathered ceil(C_in / 128) times); its ring fits the H100's shared
+    memory; the grid's pieces cover every split of 27 lists of up to V
+    pairs, and the target is one wave of live blocks."""
+    p = tf3.k4_plan(v, c_in, c_out)
+    assert p.bn >= c_out and p.bn in (32, 64, 96, 128, 256) and p.bn - c_out < 32 + 96 * (p.bn == 256)
+    assert p.cw == (2 if c_in >= 256 else 1)
+    tiles = tf3.k4_tiles(c_in, c_out, p.cw, p.bn)
+    assert tiles == -(-c_in // (64 * p.cw)) * -(-c_out // p.bn)
+    assert tiles <= 3  # at 384 -> 256: g rows gathered 3 times, feats rows once
+    assert tf3.k4_smem_bytes(p.cw, p.bn) <= tf3.K4_SMEM
+    assert p.per_min == tf3.K4_MIN_PAIRS and tf3.k4_pieces(v, p.target, p.per_min) == max(p.target, 27) + 27
+    wave = tf3.K4_SMS * tf3.k4_resident(p.cw, p.bn)
+    assert p.target == -(-wave // tiles) and tiles * p.target < wave + tiles
+    one = tf3.k4_one_split(v, c_in, c_out)
+    assert (one.target, one.per_min, tf3.k4_pieces(v, one.target, one.per_min)) == (0, v, 54)
+
+
+def _k4_pieces(starts, per_min, target, stage=64):
+    """numpy model of K4's pieces over its 27 offset lists (csrc/conv_dw.cu,
+    lists::split_pairs and piece_of): with a target, pairs per split the
+    least multiple of the stage, at least per_min, at which the lists'
+    pieces (each list at least one) number at most the target, else the
+    longest list (found here by a linear scan; the kernel bisects); split
+    z of list k takes pairs [z per, (z + 1) per) of k's list; a list of
+    one piece goes straight to out, else piece z of list k is p(k, z) =
+    (starts[k] - starts[0]) // per + k + z.  Returns (per, {(k, z):
+    piece index or None})."""
+    n = np.diff(starts)
+    per = per_min
+    if target > 0:
+        per = -(-per_min // stage) * stage
+        while np.maximum(1, -(-n // per)).sum() > target and per < n.max():
+            per += stage
+    out = {}
+    for k in range(27):
+        live = max(1, -(-int(n[k]) // per))
+        for z in range(live):
+            out[k, z] = None if live == 1 else (starts[k] - starts[0]) // per + k + z
+    return per, out
+
+
+def _k4_rulebook(case: str, v: int, rng) -> torch.Tensor:
+    """(27, V) reverse tables: random neighbours with absent offsets,
+    offsets without any pair, one-pair lists, the centre offset holding
+    every row and nothing else."""
+    rb = np.full((27, v), -1, np.int32)
+    if case == "random":
+        rb[:] = rng.integers(-2, v, (27, v))
+        rb[[0, 9, 26]] = -1
+    elif case == "one_pair":
+        rb[np.arange(27), rng.integers(0, v, 27)] = rng.integers(0, v, 27)
+        rb[5] = -1
+    elif case == "centre":
+        rb[13] = np.arange(v)
+    return torch.from_numpy(rb)
+
+
+@pytest.mark.parametrize("case", ["random", "one_pair", "centre", "empty"])
+@pytest.mark.parametrize("per_min,target", [
+    (64, 0), (256, 0), (256, 40), (64, 300), (4000, 0), (256, 10), (64, 27), (1, 132),
+])
+def test_k4_split_pieces_and_their_sum(case, per_min, target):
+    """The pieces of K4's splits never collide and stay below the grid's
+    `k4_pieces` blocks, with at most max(target, 27) of them, over lists
+    of every length (empty, one pair, the centre offset holding every
+    row, many splits); the kernel's bisection (`k4_split_pairs`, its host
+    model) finds the scan's pairs per split; adding each list's pieces in
+    split order gives `k3_conv_dw_pairs_plain` and `k3_conv_dw_plain`
+    (f32).  ~0.5 s."""
+    rng = np.random.default_rng(per_min + target)
+    v, c_in, c_out = 3000, 8, 16
+    rb = _k4_rulebook(case, v, rng)
+    lists = tf3.k3_pair_lists(rb)
+    starts = lists.starts.tolist()
+    per, pieces = _k4_pieces(np.array(starts), per_min, target)
+    assert per == tf3.k4_split_pairs(starts, per_min, target)
+    used = [p for p in pieces.values() if p is not None]
+    assert len(used) == len(set(used))
+    assert max(used, default=-1) < tf3.k4_pieces(v, target, per_min)
+    if target > 0:
+        assert len(pieces) <= max(target, 27)
+    if case == "centre":
+        assert starts[13] == 0 and starts[14] == starts[27] == v
+    x = torch.from_numpy(rng.normal(size=(v, c_in)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(v, c_out)).astype(np.float32))
+    pairs = lists.pairs.long()
+    got = torch.zeros(27, c_in, c_out)
+    for (k, z), _ in sorted(pieces.items()):
+        lo = starts[k] + z * per
+        p = pairs[lo : min(lo + per, starts[k + 1])]
+        got[k] = got[k] + x[p[:, 0]].t() @ y[p[:, 1]]
+    ref = tf3.k3_conv_dw_plain(x.abs(), y.abs(), rb).abs().max().clamp(min=1e-6)
+    assert (got - tf3.k3_conv_dw_pairs_plain(x, y, lists)).abs().max() <= 1e-5 * ref
+    assert (got - tf3.k3_conv_dw_plain(x, y, rb)).abs().max() <= 1e-5 * ref
+    empty = [k for k in range(27) if starts[k + 1] == starts[k]]
+    assert not got[empty].any()
+
+
+def test_k4_launches_once_per_call(monkeypatch):
+    """K4 on its wgmma route is one C entry per call, counted under
+    `k3_conv_dw` and `k3_conv_dw_wgmma`, with the plan's tile and pieces,
+    the partial buffer and the counters (the pairs per split follow the
+    lists' lengths on the device); with every list in one piece, neither.
+    The stem's 4 -> 32 stays on the CUDA-core kernel.  (The launch is
+    recorded, not made.)"""
+    calls = []
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
+    monkeypatch.setattr(_build, "zeroed_counters", lambda dev, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, counters, a)))
+    v = 500
+    rb = _k4_rulebook("random", v, np.random.default_rng(0))
+    x, g = torch.ones(v, 384, dtype=torch.bfloat16), torch.ones(v, 256, dtype=torch.bfloat16)
+    tf3.k3_conv_dw(x, g, rb)
+    lists = tf3.k3_pair_lists(rb)
+    tf3.k3_conv_dw_wgmma(x, g, lists, tf3.k4_one_split(v, 384, 256))
+    tf3.k3_conv_dw(torch.ones(v, 4, dtype=torch.bfloat16), torch.ones(v, 32, dtype=torch.bfloat16), rb)
+    wg = ("k3_conv_dw", "k3_conv_dw_wgmma")
+    assert [c[:2] for c in calls] == [("taseg_k3_conv_dw_wgmma", wg)] * 2 + [("taseg_k3_conv_dw", ("k3_conv_dw",))]
+    p = tf3.k4_plan(v, 384, 256)
+    plan, one = calls[0][2], calls[1][2]  # (..., part, cnt, c_in, c_out, cw, bn, pieces, per_min, target)
+    pieces = tf3.k4_pieces(v, p.target, 256)
+    assert plan[5] is not None and plan[6] is not None and plan[7:] == (384, 256, 2, 256, pieces, 256, p.target)
+    assert (tf3.k4_tiles(384, 256, p.cw, p.bn), pieces) == (3, max(p.target, 27) + 27)
+    assert one[5] is None and one[6] is None and one[7:] == (384, 256, 2, 256, 54, v, 0)
+
+
+def test_cuda_resolution_switches_tf32_off(monkeypatch):
+    """Resolving a CUDA device (every entry point does: `Segmenter`,
+    `Trainer`, the models) sets cuDNN's and the matmuls' TF32 flags to
+    False for the process; a CPU device leaves them as they are.  (CUDA
+    is reported present, not used.)"""
+    from taseg_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 @pytest.mark.parametrize("dtype,entry,suffix", [
     (torch.bfloat16, "taseg_strided_dw_wgmma", "_wgmma"),
     (torch.float32, "taseg_strided_dw_tf32", "_tf32"),
@@ -280,12 +444,12 @@ def test_launch_counters_have_the_route_entries():
     assert set(_build.LAUNCHES) == {
         "join_scan", "sparse_conv_k3", "sparse_conv_k3_wgmma",
         "strided_down", "strided_down_wgmma", "strided_down_tf32", "strided_down_rounds",
-        "strided_up", "strided_up_mma",
+        "strided_up", "strided_up_wgmma", "strided_up_tf32",
         "sparse_conv_k3_dgrad", "sparse_conv_k3_dgrad_wgmma",
         "strided_down_dgrad", "strided_down_dgrad_wgmma", "strided_down_dgrad_tf32",
         "strided_down_dgrad_rounds",
-        "strided_up_dgrad", "strided_up_dgrad_mma",
-        "k3_conv_dw", "k3_conv_dw_mma", "strided_dw", "strided_dw_wgmma", "strided_dw_tf32",
+        "strided_up_dgrad", "strided_up_dgrad_wgmma", "strided_up_dgrad_tf32",
+        "k3_conv_dw", "k3_conv_dw_wgmma", "strided_dw", "strided_dw_wgmma", "strided_dw_tf32",
         "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
         "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
         "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",
