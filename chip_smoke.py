@@ -35,13 +35,17 @@ checks them:
      real topology's child tables take one round at every level and
      equal the counted ones; what the child tables and row orders add to
      the topology, timed apart.  voxelize_avg
-     (K6) and the head's three devoxelize calls (K7) at the real tables,
+     (K6) and K7's single calls at the head's three real tables,
      bit-identical to the plain versions, with kernel, plain, bound and
-     library (index_select, embedding_bag) times;
+     library (index_select, embedding_bag) times; K7's multi-scale entry
+     at the same tables: the head's sum (one launch, bit-identical to its
+     plain version, to the three calls and adds it replaced and on
+     repeat, timed beside them) and the cat at KD's feature widths;
   4. the main path on 3 scans: finite logits of the right shape, every
      kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
      4 K3-down and 4 of the 4 K3-up launches of each scan on the wgmma
-     route, 3 K7 launches per scan, bf16/f32 argmax agreement, agreement of the card's
+     route, 1 K7 launch per scan (the head's multi-scale sum, where the
+     head took 3), bf16/f32 argmax agreement, agreement of the card's
      f32 path with the CPU's plain path on a small scan, and scans/s with
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
@@ -56,7 +60,10 @@ checks them:
      K3-down over the level's order and child table, beside the mma.sync
      3's tiles), at every shape that one real step gives them, against
      their plain versions (and bit-identical on a repeat call), K7 bit-identical to its plain
-     version in the train forward; what the pair lists cost the
+     version in the train forward; the head's backward, K6 once over the
+     stacked pair table against the three calls it replaced (1e-5 of the
+     largest sum of |terms|), bit-identical on repeat, device times of
+     both; what the pair lists cost the
      topology; a small-scan f32 step on the card
      against the CPU's plain path; 4 full-width steps on 120 000-point
      scans with finite loss, grad norm and parameters and the launches of
@@ -150,6 +157,16 @@ checks them:
      memory; the steps by stage (host, the topology's pieces, each
      branch's forward, loss, backward, optimizer) and each branch's
      forward and backward alone; the phase's seconds;
+  5h. MinkUNet mk34 cr1.0 with the default block (Bottleneck, the
+     flagship recipe without BLOCK) in bf16: one serving scan with every
+     launch counted (K2 at each 3^3 conv, all but the stem's first on
+     wgmma, K3 4 + 4 on wgmma: no width leaves the tensor-core routes),
+     finite logits, the small-scan f32 logits card vs CPU; one counted
+     train step, its time and peak memory; the phase's seconds;
+  5i. the flagship's bf16 train step with MODEL.IF_DIST, 2 steps without
+     torch.distributed and 2 in a NCCL process group of world size 1:
+     losses, grad norms, level counts, parameters and BN statistics
+     bit-equal; each run's ms per step and the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -159,7 +176,9 @@ checks them:
      corners as its own entry (`devoxelize_bilinear`, RPVNet's serving
      launches), K6 and K8 with their times at RPVNet's pixel tables, every
      kernel with its launches per scan and per step on SPVCNN's and
-     RPVNet's paths; K2 at K offsets (`sparse_conv_k`, with its train
+     RPVNet's paths; K7's multi-scale entry (`devoxelize_multi`, the
+     head's launches, its time beside the three calls and adds it
+     replaced, `old_ms`); K2 at K offsets (`sparse_conv_k`, with its train
      launches and input-gradient times) and K4 at K offsets
      (`sparse_conv_dw`) with Cylinder_TS's launches per route, the
      CUDA-core time (`old_ms`), the 3xTF32 bound and the head's share,
@@ -203,9 +222,11 @@ UP_PER_SCAN = (4, 4)
 INFER_KERNELS = (
     "join_scan", "sparse_conv_k3", "sparse_conv_k3_wgmma", "strided_down",
     "strided_down_wgmma", "strided_up", "strided_up_wgmma", "segment_sum",
-    "devoxelize",
+    "devoxelize", "devoxelize_multi",
 )
-DEVOX_PER_SCAN = 3  # the head's strides 1, 4 and 16
+# the head's strides 16, 4 and 1 in one launch of K7's multi-scale entry
+# (counted under `devoxelize` and `devoxelize_multi`; 3 launches before)
+DEVOX_PER_SCAN = 1
 # the LAUNCHES entry of each wrapper's tensor-core route on the path
 ROUTE_ENTRY = {"sparse_conv_k3": "_wgmma", "strided_down": "_wgmma", "strided_up": "_wgmma"}
 # each wrapper's kernels, by fragments of their names in the profiler
@@ -220,9 +241,13 @@ KERNEL_NAMES = {
     "segment_sum": ("segment_sum_",),
     "k3_conv_dw": ("PairsK3", "K3Lists"),
     "strided_dw": ("PairsStrided", "strided_dw_", "SlotLists"),
-    "devoxelize": ("devox_kernel",),
-    # K7's 4-corner instances (a tuple: every fragment must appear)
-    "devoxelize_bilinear": (("devox_kernel", ", 4>"),),
+    # K7: its column kernel (single calls and the cat epilogue) and its
+    # sum kernel (the head)
+    "devoxelize": ("devox_cols_kernel", "devox_sum_kernel"),
+    # K7's 4-corner instances (a tuple: every fragment must appear; the
+    # last template argument is the calls' corner count)
+    "devoxelize_bilinear": (("devox_cols_kernel", ", 4>"),),
+    "devoxelize_multi": ("devox_sum_kernel",),
     "voxelize_bwd": ("voxelize_bwd_kernel",),
     "sparse_conv_k": ("sparse_conv_k_",),
     "sparse_conv_dw": ("PairsOffsets", "sparse_conv_dw_tf32", "OffsetLists"),
@@ -232,8 +257,9 @@ TRAIN_STEPS = 4
 # gradients (the stem's first conv takes none), all but the stem's
 # forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
 # the stem's first (4 -> 32) on the wgmma tile over the offset lists, K5
-# one per strided conv, all on the wgmma tile; K6 the voxelize forward and the 3 devox backwards; K7
-# the 3 devox forwards
+# one per strided conv, all on the wgmma tile; K6 the voxelize forward and
+# the head's backward (one call over its stacked pair tables; 3 before);
+# K7 the head's one multi-scale launch (3 before)
 TRAIN_PER_STEP = {
     "join_scan": 5,
     "sparse_conv_k3": 95, "sparse_conv_k3_wgmma": 94,
@@ -243,7 +269,8 @@ TRAIN_PER_STEP = {
     "strided_up": 8, "strided_up_wgmma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_wgmma": 4,
     "k3_conv_dw": 48, "k3_conv_dw_wgmma": 47, "strided_dw": 8, "strided_dw_wgmma": 8,
-    "segment_sum": 4, "devoxelize": 3, "devoxelize_bilinear": 0, "voxelize_bwd": 0,
+    "segment_sum": 2, "devoxelize": 1, "devoxelize_multi": 1, "devoxelize_bilinear": 0,
+    "voxelize_bwd": 0,
 }
 
 # SPVCNN (tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml), the same
@@ -255,9 +282,11 @@ TRAIN_PER_STEP = {
 SPVCNN_PER_SCAN = {
     "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47,
     "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
-    "segment_sum": 4, "devoxelize": 4, "voxelize_bwd": 0,
+    "segment_sum": 4, "devoxelize": 4, "devoxelize_multi": 0, "voxelize_bwd": 0,
 }
-SPVCNN_PER_STEP = {**TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "voxelize_bwd": 3}
+SPVCNN_PER_STEP = {
+    **TRAIN_PER_STEP, "segment_sum": 8, "devoxelize": 4, "devoxelize_multi": 0, "voxelize_bwd": 3,
+}
 SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 
 # RPVNet (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml): the
@@ -273,14 +302,16 @@ SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 RPVNET_PER_SCAN = {
     "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33,
     "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
-    "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 0,
+    "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "devoxelize_multi": 0,
+    "voxelize_bwd": 0,
 }
 RPVNET_PER_STEP = {
     **TRAIN_PER_STEP,
     "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66,
     "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_wgmma": 33,
     "k3_conv_dw": 34, "k3_conv_dw_wgmma": 33,
-    "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "voxelize_bwd": 6,
+    "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "devoxelize_multi": 0,
+    "voxelize_bwd": 6,
 }
 RPVNET_ROUNDS = 3  # serving samples: RPVNET_ROUNDS * N_SCANS scans
 RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bottom")
@@ -309,18 +340,21 @@ CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 # MinkUNet's kernels per scan, the stem's first conv (C_in 5: xyz, r and
 # the time flag) on K2's CUDA-core route; an FSA train step those of
 # TRAIN_PER_STEP; a KD step adds the teacher's eval forward (K2 48, K3 4
-# + 4, K6 1, K7 3 + 3) and the student's three feature devoxelizations
-# (K7 3) and their backwards (K6 3).  K1's count is the one serving
+# + 4, K6 1, K7 1 + 1: the head's and the features' multi-scale
+# launches) and the student's feature devoxelizations (K7 1, the cat)
+# and their backwards (K6 3, one per scale's columns).  K1's count is the one serving
 # measures (the fused rows come unsorted), and a KD step's is the
 # student's plus the teacher's
 FSA_HISTORY = 3
 FSA_PER_SCAN = {
     "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
-    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 3,
+    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 1,
+    "devoxelize_multi": 1,
 }
 KD_TEACHER = {
     "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
-    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 6,
+    "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 2,
+    "devoxelize_multi": 2,
 }
 FSA_ROUNDS = 2  # serving samples: FSA_ROUNDS * N_SCANS scans
 
@@ -988,6 +1022,106 @@ def phase_point_ops(seg, arrays, topo, k: int, results: dict, probes: list) -> N
             tot[key] += x
         probes.append(("devoxelize", f"K7 devoxelize stride {s}", partial(devox_call, topo, s, k)))
     results["devoxelize"] = dict(tot, bound_by="bytes")
+    phase_multi(topo, k, results, probes)
+
+
+def multi_check(feats, tables, bias) -> None:
+    """K7's multi-scale entry: the same bits as its plain version (signed
+    zeros included) and on a repeat call."""
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    got = twice_same("K7 devoxelize_multi", lambda: vx.devoxelize_multi_kernel(feats, tables, bias))
+    if not bits(got).equal(bits(vx.devox_multi_plain(feats, tables, bias))):
+        bad = (bits(got) != bits(vx.devox_multi_plain(feats, tables, bias))).sum().item()
+        raise AssertionError(f"K7 devoxelize_multi: {bad} values differ from the plain version")
+
+
+def multi_bytes(feats, tables, bias) -> int:
+    """Bytes of one multi-scale call: each scale's table read once, each
+    row its table references read once, the output written once."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    p = vx._table_points(tables[0])
+    n = 0
+    for x, t in zip(feats, tables):
+        identity = isinstance(t, vx.IdentityDevoxTable)
+        idx = t.inverse if identity else t.idx
+        n += p * (4 if identity else 8 * t.idx.shape[0])
+        n += int(torch.unique(idx[idx >= 0]).numel()) * x.shape[1] * x.element_size()
+    c = feats[0].shape[1] if bias is not None else sum(x.shape[1] for x in feats)
+    return n + p * c * (4 if bias is not None else feats[0].element_size())
+
+
+def multi_call(topo, k: int):
+    """The head's multi-scale call of the main path on seeded random (V_s,
+    k) bf16 rows and bias."""
+    import torch
+
+    from taseg_tpu_torch.models.voxel.backbone_context import head_tables
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    gen = torch.Generator(device=topo.bounds.origin.device).manual_seed(SEED)
+    zs = [torch.randn(t.shape[0], k, device=gen.device, generator=gen).to(torch.bfloat16)
+          for t in (topo.levels[4].coords, topo.levels[2].coords, topo.levels[0].coords)]
+    bias = torch.randn(k, device=gen.device, generator=gen)
+    return partial(vx.devoxelize_multi_kernel, zs, head_tables(topo.devox), bias)
+
+
+def phase_multi(topo, k: int, results: dict, probes: list) -> None:
+    """K7's multi-scale entry at the head's real tables: the sum (the head:
+    one launch for the three scales, their f32 casts summed and the bias)
+    and the cat at KD's feature widths (256 / 128 / 96 bf16), each the
+    same bits as its plain version and on repeat; the sum's time beside
+    the sequence it replaced (three single K7 calls, three f32 casts, two
+    adds and the bias, `old_ms`), its plain version and its bound (no
+    single PyTorch call computes it: `library_ms` null)."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    fn = multi_call(topo, k)
+    zs, tables, bias = fn.args
+    multi_check(zs, tables, bias)
+
+    def sequence():
+        out = None
+        for z, t in zip(zs, tables):
+            c = vx.devoxelize(z, t).float()
+            out = c if out is None else out + c
+        return out + bias
+
+    if not bits(sequence()).equal(bits(fn())):
+        raise AssertionError("K7 devoxelize_multi: differs from the head's three calls and adds")
+    ms, pms = cuda_ms(fn), cuda_ms(lambda: vx.devox_multi_plain(zs, tables, bias))
+    old = cuda_ms(sequence)
+    b, by = bound_ms(multi_bytes(zs, tables, bias), 0.0, "float32")
+    log(
+        f"K7 devoxelize_multi sum (the head, strides 16 / 4 / 1, C={k} bf16 -> f32) P="
+        f"{vx._table_points(tables[0])} x1/scan: bit-identical (and on repeat, and to the three "
+        f"calls and adds), kernel {ms:.4f} ms plain {pms:.4f} ms, the three calls + f32 glue "
+        f"{old:.4f} ms, bound {b:.4f} ms ({by})"
+    )
+    results["devoxelize_multi"] = {
+        "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by, "library_ms": None,
+        "max_abs_err": 0.0, "old_ms": old,
+    }
+    probes.append(("devoxelize_multi", "K7 devoxelize_multi (the head)", partial(multi_call, topo, k)))
+    gen = torch.Generator(device=zs[0].device).manual_seed(SEED + 1)
+    xs = [torch.randn(z.shape[0], c, device=zs[0].device, generator=gen).to(torch.bfloat16)
+          for z, c in zip(zs, (256, 128, 96))]
+    multi_check(xs, tables, None)
+    cat = lambda: torch.cat([vx.devoxelize(x, t) for x, t in zip(xs, tables)], dim=-1)
+    if not bits(cat()).equal(bits(vx.devoxelize_multi_kernel(xs, tables))):
+        raise AssertionError("K7 devoxelize_multi: the cat differs from torch.cat of the three calls")
+    cb, _ = bound_ms(multi_bytes(xs, tables, None), 0.0, "float32")
+    log(
+        f"K7 devoxelize_multi cat (KD's features, C = 256 / 128 / 96 bf16): bit-identical (and "
+        f"on repeat, and to torch.cat of the three calls), kernel "
+        f"{cuda_ms(lambda: vx.devoxelize_multi_kernel(xs, tables)):.4f} ms, three calls + cat "
+        f"{cuda_ms(cat):.4f} ms, bound {cb:.4f} ms (bytes)"
+    )
 
 
 def devox_call(topo, s: int, k: int):
@@ -1119,7 +1253,7 @@ def capture_train_calls(trainer, scans) -> CallCapture:
         voxelize, "segment_sum",
         lambda src, t, w=None: (
             "segment_sum", t.perm.shape[0] - t.starts.shape[0] + 1, t.starts.shape[0] - 1,
-            src.shape[1], w is not None,
+            src.shape[1], w is not None, src.shape[0],
         ),
     )
     cap.patch(
@@ -1140,9 +1274,23 @@ def capture_train_calls(trainer, scans) -> CallCapture:
         voxelize, "devoxelize_identity",
         lambda v, inv: ("devoxelize", "identity", inv.shape[0], *v.shape),
     )
+    cap.patch(voxelize, "devoxelize_multi_kernel", multi_key)
     trainer.step(scans)
     cap.remove()
     return cap
+
+
+def multi_key(feats, tables, bias=None, ptr: bool = False) -> tuple:
+    """The capture key of one call of K7's multi-scale entry: its
+    epilogue, points and widths (with `ptr`, its first table's address)."""
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    key = ("devoxelize_multi", "sum" if bias is not None else "cat",
+           vx._table_points(tables[0]), tuple(x.shape[1] for x in feats))
+    if ptr:
+        t = tables[0]
+        key += ((t.inverse if isinstance(t, vx.IdentityDevoxTable) else t.idx).data_ptr(),)
+    return key
 
 
 def twice_same(name, fn):
@@ -1241,6 +1389,13 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
         table = t if key[1] == "trilinear" else voxelize.IdentityDevoxTable(inverse=t)
         devox_check(v, table)
         log(f"devoxelize {key[1:]} x{cap.count[key]}/step (train forward): bit-identical to the plain version")
+    for key in sorted((k for k in cap.seen if k[0] == "devoxelize_multi"), key=str):
+        a, kw = cap.seen.pop(key)
+        feats = [x.detach() for x in a[0]]
+        bias = kw.get("bias", a[2] if len(a) > 2 else None)
+        multi_check(feats, a[1], None if bias is None else bias.detach())
+        log(f"devoxelize_multi {key[1:]} x{cap.count[key]}/step (train forward): bit-identical to "
+            f"the plain version and on repeat")
     k6_names = k6_call_names([k for k in cap.seen if k[0] == "segment_sum"])
     for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name = key[0]
@@ -1324,6 +1479,60 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
         results.setdefault(key, {}).update(r)
 
 
+def phase_head_backward(trainer, scans) -> dict:
+    """The head's backward on one real train topology: K6 once over the
+    stacked pair table (`UNetTopology.devox_head`) against the three
+    per-scale K6 calls it replaced, within 1e-5 of the largest sum of
+    |terms| (a segment's members are cut into units at other places in
+    the stacked table), the same bits on a repeat call; device time of
+    both, with which of K6's kernels each call takes (units or rows)."""
+    import torch
+
+    from taseg_tpu_torch.models.voxel.backbone_context import head_tables
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    a = trainer.collate(scans[:1])
+    topo = trainer.topology(a)
+    st, tables = topo.devox_head, head_tables(topo.devox)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    p = tables[2].inverse.shape[0]
+    g = torch.randn(p, trainer.num_class, device=trainer.device, generator=gen).to(torch.bfloat16)
+    one = lambda: vx.segment_sum(g, st.tables, st.weights)
+    got = twice_same("K6 over the stacked head table", one).split(list(st.rows))
+
+    def three():
+        return [vx.segment_sum(g, *vx._pair_tables(t)) for t in tables]
+
+    err = 0.0
+    for x, y, t in zip(got, three(), tables):
+        pt, w = vx._pair_tables(t)
+        ref = vx.segment_sum_plain(g.float().abs(), pt, w.abs()).max().item()
+        e = (x - y).abs().max().item()
+        if not e <= 1e-5 * ref:
+            raise AssertionError(f"K6 stacked head backward: {e:.3e} > 1e-5 x {ref:.3e}")
+        err = max(err, e)
+    r_real = st.tables.perm.shape[0] - sum(st.rows)
+    rows_kernel = [vx.segment_sum_by_rows(r_real, sum(st.rows))] + [
+        vx.segment_sum_by_rows(vx._pair_tables(t)[0].perm.shape[0] - n, n)
+        for t, n in zip(tables, st.rows)
+    ]
+    dev_one = device_ms(one, KERNEL_NAMES["segment_sum"])
+    dev_three = device_ms(three, KERNEL_NAMES["segment_sum"])
+    out = {
+        "stacked_device_ms": dev_one, "three_calls_device_ms": dev_three,
+        "stacked_ms": cuda_ms(one), "three_calls_ms": cuda_ms(three), "max_abs_err": err,
+        "rows_kernel": rows_kernel,
+    }
+    log(
+        f"K6 the head's backward over the stacked pair table (R={r_real} member rows, V={sum(st.rows)}): "
+        f"within 1e-5 of the three calls (max|diff| {err:.3e}), bit-identical on repeat; device "
+        f"{fmt_ms(dev_one)} (one launch) against {fmt_ms(dev_three)} (three), cuda_ms "
+        f"{out['stacked_ms']:.4f} against {out['three_calls_ms']:.4f}; K6's rows kernel: stacked "
+        f"{rows_kernel[0]}, the three {rows_kernel[1:]} (else its units)"
+    )
+    return out
+
+
 def yardstick_devices(name, kern, a, kw, x, second) -> tuple:
     """(kernel, yardstick) device ms per call of one K5 or K6 call
     (torch.profiler device events): the kernel's own, and every kernel of
@@ -1337,18 +1546,23 @@ def yardstick_devices(name, kern, a, kw, x, second) -> tuple:
 
 
 def k6_call_names(keys) -> dict:
-    """Where each captured K6 call ("segment_sum", R, V, C, weighted)
+    """Where each captured K6 call ("segment_sum", R, V, C, weighted, P)
     sits in the step: an unweighted call at a width of at most 9 is a
     voxelize forward (of the point features), a wider one the identity
-    devoxelize backward at stride 1; of the trilinear backwards the ones
-    over the most voxels are at stride 4, the others at stride 16 (a KD
-    step has two of each: the head's at class width and the features'
-    at full width)."""
+    devoxelize backward at stride 1; a weighted one over 17 P rows the
+    head's backward over its stacked pair tables (strides 16, 4 and 1);
+    of the trilinear backwards the ones over the most voxels are at
+    stride 4, the others at stride 16 (a KD step's features add one of
+    each and an identity one at full width)."""
     names = {
         k: "voxelize forward" if k[3] <= 9 else "devox identity backward, stride 1"
         for k in keys if not k[4]
     }
-    tri = [k for k in keys if k[4]]
+    names.update({
+        k: "the head's backward, stacked (strides 16, 4, 1)"
+        for k in keys if k[4] and k[1] == 17 * k[5]
+    })
+    tri = [k for k in keys if k[4] and k not in names]
     most = max((k[2] for k in tri), default=0)
     names.update({k: f"devox trilinear backward, stride {4 if k[2] == most else 16}" for k in tri})
     return names
@@ -3130,7 +3344,8 @@ def phase_fsa_kd() -> dict:
     log(f"kd path launches over {TRAIN_STEPS} steps: {kd_launch}")
     kd_per_step = {k: per_step.get(k, 0) + KD_TEACHER.get(k, 0) for k in _build.LAUNCHES}
     kd_per_step["join_scan"] = 2 * per_scan["join_scan"]
-    kd_per_step["devoxelize"] += 3
+    kd_per_step["devoxelize"] += 1
+    kd_per_step["devoxelize_multi"] += 1
     kd_per_step["segment_sum"] += 3
     check_launches(kd_launch, kd_per_step, TRAIN_STEPS, "kd train")
     log(f"kd: launches per step as expected: {kd_per_step}")
@@ -3162,20 +3377,22 @@ TIAF_STEPS = 3
 # orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 +
 # 4 per branch (K3-down and K3-up on K2 at K's 3xTF32 tile over each
 # level's child and up tables: `strided_down_tf32`, `strided_up_tf32`), K6 at
-# the two voxelizes, K7 at the main head's 3, the main features' 3, the
-# FOV taps to the FOV points (3) and to the main points (3, trilinear
-# FOV -> main) and the image gathers (3: stem, decoder, logits); K1 at
+# the two voxelizes, K7 in 5 multi-scale launches (3 of each before): the
+# main head's, the main features', the FOV taps to the FOV points and to
+# the main points (trilinear FOV -> main) and the image gathers (stem,
+# decoder, logits); K1 at
 # both topologies' joins (5 each) and the corner joins of the three
 # FOV -> main tables.  A train step adds the input gradients (47 main,
 # 17 FOV: the FOV stem's input, the image features, takes one), K4 at K =
 # 27 (64; the main stem's first on K4 at 27), K3's input gradients and K5
-# per strided conv, K6 at the 15 devoxelize backwards (the image
+# per strided conv, K6 at the devoxelize backwards (13: the main head's
+# one over its stacked pair tables, 3 for each cat's columns, the image
 # gathers' over the pixel table among them) and K8 at the FOV stem's
 # voxelize backward
 TIAF_PER_SCAN = {
     "join_scan": 13, "sparse_conv_k3": 1, "sparse_conv_k": 64, "sparse_conv_k_tf32": 64,
     "strided_down": 8, "strided_down_tf32": 8, "strided_up": 8, "strided_up_tf32": 8,
-    "segment_sum": 2, "devoxelize": 15,
+    "segment_sum": 2, "devoxelize": 5, "devoxelize_multi": 5,
 }
 TIAF_PER_STEP = {
     "join_scan": 13, "sparse_conv_k3": 1, "k3_conv_dw": 1, "sparse_conv_k": 128,
@@ -3184,7 +3401,8 @@ TIAF_PER_STEP = {
     "strided_down": 16, "strided_down_tf32": 16, "strided_down_dgrad": 8,
     "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_tf32": 16,
     "strided_up_dgrad": 8, "strided_up_dgrad_tf32": 8,
-    "strided_dw": 16, "strided_dw_tf32": 16, "segment_sum": 17, "devoxelize": 15, "voxelize_bwd": 1,
+    "strided_dw": 16, "strided_dw_tf32": 16, "segment_sum": 15, "devoxelize": 5,
+    "devoxelize_multi": 5, "voxelize_bwd": 1,
 }
 TIAF_BRANCHES = ("image_backbone", "lidar_backbone", "main")
 
@@ -3450,7 +3668,7 @@ def tiaf_calls(trainer, scans) -> CallCapture:
         voxelize, "segment_sum",
         lambda src, t, w=None: (
             "segment_sum", t.perm.shape[0] - t.starts.shape[0] + 1, t.starts.shape[0] - 1,
-            src.shape[1], w is not None,
+            src.shape[1], w is not None, src.shape[0],
         ),
     )
     cap.patch(
@@ -3461,6 +3679,7 @@ def tiaf_calls(trainer, scans) -> CallCapture:
         voxelize, "devoxelize_identity",
         lambda v, inv: ("devoxelize", "identity", inv.shape[0], *v.shape, inv.data_ptr()),
     )
+    cap.patch(voxelize, "devoxelize_multi_kernel", partial(multi_key, ptr=True))
     cap.patch(voxelize, "voxelize_bwd", lambda g, inv, counts: ("voxelize_bwd", inv.shape[0], *g.shape))
     trainer.step(scans[:1])
     cap.remove()
@@ -3601,6 +3820,24 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
                 f"{lib:.4f} ms (max|diff| {lib_err:.3e}) bound {b:.4f} ms ({by})"
             )
             add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
+        elif name == "devoxelize_multi":
+            # K7's multi-scale entry (counted under K7): the same bits as
+            # its plain version and on repeat; beside it the sum of each
+            # scale's one-call yardstick
+            feats, tables = [x.detach() for x in a[0]], a[1]
+            bias = kw.get("bias", a[2] if len(a) > 2 else None)
+            bias = None if bias is None else bias.detach()
+            multi_check(feats, tables, bias)
+            ms = cuda_ms(lambda: vx.devoxelize_multi_kernel(feats, tables, bias))
+            pms = cuda_ms(lambda: vx.devox_multi_plain(feats, tables, bias))
+            lib = sum(devox_times(x, t)[2] for x, t in zip(feats, tables))
+            b, by = bound_ms(multi_bytes(feats, tables, bias), 0.0, "float32")
+            log(
+                f"tiaf K7 devoxelize_multi {key[1:4]} x{count}/step: bit-identical (and on repeat), "
+                f"kernel {ms:.4f} ms plain {pms:.4f} ms, the scales' library calls {lib:.4f} ms, "
+                f"bound {b:.4f} ms ({by})"
+            )
+            add("devoxelize", count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
         elif name == "voxelize_bwd":
             g, ids, counts = a[0].detach(), a[1], a[2]
             kern = partial(vx.voxelize_bwd, g, ids, counts)
@@ -3862,6 +4099,158 @@ def phase_tiaf() -> dict:
     }
 
 
+def phase_bottleneck(scans) -> dict:
+    """MinkUNet mk34 cr1.0 with JAX's default block (the flagship recipe
+    without BLOCK: Bottleneck, 1-3-1 with expansion 4, so the stages run
+    at 128 ... 1024 channels and the head reads 1024 / 512 / 384) in
+    bf16: one serving scan with every launch counted (K2 at each 3^3 conv,
+    all but the stem's first on the wgmma route; K3 4 + 4 on wgmma; K6 1;
+    K7 1, the head), finite logits of the right shape, the small-scan f32
+    logits card vs CPU; then two train steps, the second counted (K2 with
+    its input gradients, K4 per 3^3 conv, K5 8, K6 2, K7 1) and timed,
+    with peak memory; the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.models.layers import Bottleneck, SparseConv
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    model_cfg = {k: v for k, v in MINKUNET_MK34_CR10["MODEL"].items() if k != "BLOCK"}
+    cfg = {**MINKUNET_MK34_CR10, "MODEL": model_cfg}
+    p, st = init_params_numpy(cfg, seed=SEED)
+    variables = {"params": p, "batch_stats": st}
+    torch.cuda.reset_peak_memory_stats()
+    seg = Segmenter(cfg, variables, compute_dtype="bfloat16")
+    blocks = sum(isinstance(m, Bottleneck) for m in seg.model.modules())
+    k3 = sum(isinstance(m, SparseConv) and m.kernel_volume == 27 for m in seg.model.modules())
+    log(f"bottleneck: {blocks} Bottleneck blocks, {k3} 3^3 convs, head widths {seg.model.head_widths}")
+    seg.predict(scans[:1])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = seg.predict(scans[1:2])
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve = dict(_build.LAUNCHES)
+    per_scan = {
+        "join_scan": serve["join_scan"], "sparse_conv_k3": k3, "sparse_conv_k3_wgmma": k3 - 1,
+        "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
+        "segment_sum": 1, "devoxelize": 1, "devoxelize_multi": 1,
+    }
+    check_launches(serve, per_scan, 1, "bottleneck serving")
+    o = out[0]
+    if o["logits"].shape != (len(scans[1]["xyzret"]), cfg["MODEL"]["NUM_CLASS"]):
+        raise AssertionError(f"bottleneck: logits {o['logits'].shape}")
+    if not np.isfinite(o["logits"]).all():
+        raise AssertionError("bottleneck: non-finite logits")
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"bottleneck serving: one scan {serve_ms:.1f} ms end to end, launches as expected "
+        f"({per_scan}), peak device memory {serve_peak:.2f} GiB")
+    small_scan_check(cfg, variables, "bottleneck ")
+    del seg
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, variables, iters_per_epoch=2, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"],
+                      compute_dtype="bfloat16", seed=SEED)
+    trainer.step(scans[:1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    r = trainer.step(scans[1:2])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    train = dict(_build.LAUNCHES)
+    per_step = {
+        "join_scan": serve["join_scan"], "sparse_conv_k3": 2 * k3 - 1,
+        "sparse_conv_k3_wgmma": 2 * k3 - 2, "sparse_conv_k3_dgrad": k3 - 1,
+        "sparse_conv_k3_dgrad_wgmma": k3 - 1, "strided_down": 8, "strided_down_wgmma": 8,
+        "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4, "strided_up": 8,
+        "strided_up_wgmma": 8, "strided_up_dgrad": 4, "strided_up_dgrad_wgmma": 4,
+        "k3_conv_dw": k3, "k3_conv_dw_wgmma": k3 - 1, "strided_dw": 8, "strided_dw_wgmma": 8,
+        "segment_sum": 2, "devoxelize": 1, "devoxelize_multi": 1,
+    }
+    check_launches(train, per_step, 1, "bottleneck train")
+    if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+        raise AssertionError("bottleneck: non-finite loss or grad norm")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seconds = time.perf_counter() - t_phase
+    log(f"bottleneck train step: {step_ms:.1f} ms end to end, loss {r['loss']:.5f} grad norm "
+        f"{r['grad_norm']:.4f}, level voxels {r['level_nums']}, launches as expected ({per_step}), "
+        f"peak device memory {peak:.2f} GiB; phase (5h) {seconds:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"serve_ms": serve_ms, "step_ms": step_ms, "peak_gib": peak, "seconds": seconds}
+
+
+def phase_ddp_one_rank(scans) -> dict:
+    """The flagship's bf16 train step with MODEL.IF_DIST on, twice: 2 steps
+    of a Trainer without torch.distributed, then 2 steps of a fresh one
+    (same seed, weights and scans) in a NCCL process group of world size
+    1 (a FileStore under build/): the losses, grad norms, level counts,
+    parameters and BN statistics bit-equal, since an all-reduce over one
+    rank and a division by 1 change nothing.  Prints each run's second
+    step's ms (the first pays first-call costs) and the phase's
+    seconds."""
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from taseg_tpu_torch import parallel
+    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    cfg = {**MINKUNET_MK34_CR10, "MODEL": {**MINKUNET_MK34_CR10["MODEL"], "IF_DIST": True}}
+    p, st = init_params_numpy(cfg, seed=SEED)
+
+    def run(label):
+        tr = Trainer(cfg, {"params": p, "batch_stats": st}, iters_per_epoch=2,
+                     total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], compute_dtype="bfloat16", seed=SEED)
+        outs = [tr.step(scans[:1])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(tr.step(scans[1:2]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"ddp {label}: world size {parallel.world_size()}, second step {ms:.1f} ms, "
+            f"losses {[o['loss'] for o in outs]}")
+        state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        return outs, state, ms
+
+    plain = run("without torch.distributed")
+    store_dir = REPO / "build" / "ddp_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(store_dir / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120), device_id=torch.device("cuda", 0),
+    )
+    try:
+        nccl = run("NCCL")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    for a, b in zip(plain[0], nccl[0]):
+        if (a["loss"], a["grad_norm"], a["level_nums"]) != (b["loss"], b["grad_norm"], b["level_nums"]):
+            raise AssertionError(f"ddp: world size 1 changed a step: {a} against {b}")
+    for k, v in plain[1].items():
+        if not torch.equal(v, nccl[1][k]):
+            raise AssertionError(f"ddp: world size 1 changed {k}")
+    seconds = time.perf_counter() - t_phase
+    log(f"ddp: the NCCL world-size-1 steps are bit-equal to the steps without torch.distributed "
+        f"({len(plain[1])} tensors of parameters and BN statistics, losses, grad norms); phase (5i) "
+        f"{seconds:.1f} s")
+    return {"plain_ms": plain[2], "nccl_ms": nccl[2], "seconds": seconds}
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -3955,11 +4344,11 @@ def main() -> int:
             )
     if launches["voxelize_bwd"]:
         raise AssertionError("voxelize_bwd (K8) launched on the inference path")
-    if launches["devoxelize"] != DEVOX_PER_SCAN * N_SCANS:
-        raise AssertionError(
-            f"devoxelize: {launches['devoxelize']} launches, expected "
-            f"{DEVOX_PER_SCAN} per scan over {N_SCANS} scans"
-        )
+    for k in ("devoxelize", "devoxelize_multi"):
+        if launches[k] != DEVOX_PER_SCAN * N_SCANS:
+            raise AssertionError(
+                f"{k}: {launches[k]} launches, expected {DEVOX_PER_SCAN} per scan over {N_SCANS} scans"
+            )
     log(
         f"tensor-core route per scan: K2 {K2_PER_SCAN[1]} of {K2_PER_SCAN[0]} (wgmma), "
         f"K3-down {DOWN_PER_SCAN[1]} of {DOWN_PER_SCAN[0]} (wgmma), "
@@ -3995,6 +4384,7 @@ def main() -> int:
     train_cap = capture_train_calls(trainer, scans[:1])
     phase_train_kernels(train_cap, results)
     del train_cap
+    results.setdefault("segment_sum", {})["head_backward"] = phase_head_backward(trainer, scans)
     phase_pair_lists(trainer, scans)
     phase_small_train_step(cfg, variables)
     train_launches, serial = phase_train_steps(trainer, scans)
@@ -4023,6 +4413,13 @@ def main() -> int:
     # serving and the staged train step
     tiaf = phase_tiaf()
 
+    # 5h. MinkUNet with the default (Bottleneck) block: a serving scan and
+    # a train step at full width, counted
+    bottleneck = phase_bottleneck(scans)
+
+    # 5i. the DDP step on NCCL at world size 1, bit-equal to the plain step
+    ddp = phase_ddp_one_rank(scans)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -4045,6 +4442,9 @@ def main() -> int:
         "devoxelize": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:242,262"),
         "voxelize_bwd": ("csrc/devoxelize.cu", "taseg_tpu/ops/voxelize.py:126"),
         "devoxelize_bilinear": ("csrc/devoxelize.cu", "taseg_tpu/ops/point_range.py:82"),
+        # K7's multi-scale entry: the head's three devoxelize calls, f32
+        # casts and adds (JAX minkunet.py:36-66 over voxelize.py:242,262)
+        "devoxelize_multi": ("csrc/devoxelize.cu", "taseg_tpu/models/voxel/minkunet.py:36"),
     }
     per_step = ("k3_conv_dw", "strided_dw", "segment_sum")
     spv_train = {k: n * TRAIN_STEPS for k, n in spvcnn["per_step"].items()}
@@ -4103,6 +4503,11 @@ def main() -> int:
                     entry["train"]["dgrad_old_ms_per_step"] = d["old_ms"]
             else:
                 entry["train"] = {"launches": train_launches[name]}
+            if name == "devoxelize_multi":
+                # the sequence it replaced: three single K7 calls, three
+                # f32 casts, two adds and the bias
+                entry["route_of"] = "devoxelize"
+                entry["old_ms"] = r["old_ms"]
             entry["device_ms_per_scan"] = r["device_ms"]
         if name == "join_scan":
             entry["kernel_launches_per_call"] = r["kernel_launches_per_call"]
@@ -4178,6 +4583,7 @@ def main() -> int:
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")
     log(f"tiaf phase (5g): {tiaf['seconds']:.1f} s")
+    log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -517,6 +517,136 @@ TIAF_TINY = {
     "OPTIM": dict(_MS_TINY_OPTIM),
 }
 
+# the SGD recipe every KITTI and synthetic MinkUNet-family YAML below
+# shares (the reference's warmup-cosine schedule)
+_SGD = {
+    "NUM_EPOCHS": 36,
+    "OPTIMIZER": "sgd",
+    "LR_PER_SAMPLE": 0.02,
+    "WEIGHT_DECAY": 0.0001,
+    "MOMENTUM": 0.9,
+    "NESTEROV": True,
+    "GRAD_NORM_CLIP": 10.0,
+    "SCHEDULER": "linear_warmup_with_cosdecay",
+    "WARMUP_EPOCH": 1,
+}
+_KITTI_DATA = {
+    "DATASET": "semantickitti",
+    "DATA_PATH": "/data/SemanticKITTI/dataset/sequences",
+    "VOXEL_SIZE": 0.05,
+    "NUM_POINTS": 1000000,
+}
+_CE_LOVASZ = {"LOSS_TYPES": ["CELoss", "LovLoss"], "LOSS_WEIGHTS": [1.0, 1.0]}
+_PLANES = [32, 32, 64, 128, 256, 256, 128, 96, 96]
+# not in the YAMLs: the flagship's capacities (the same scans at the same
+# voxel size; cr and depth change no voxel set)
+_KITTI_CAPS = {
+    "CAPACITY_SCHEDULE": (1.0, 0.60, 0.30, 0.12, 0.05),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.70, 0.35, 0.15, 0.06),
+}
+
+
+def _mink18(name: str, cr: float, **model) -> dict:
+    """A KITTI MinkUNet-family recipe at mk18 depth (two blocks a stage)."""
+    return {
+        "MODALITY": "fusion" if name == "SPVCNN" else "voxel",
+        "DATA": dict(_KITTI_DATA),
+        "MODEL": {
+            "NAME": name, "IN_FEATURE_DIM": 4, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+            "BLOCK": "ResBlock", "NUM_LAYER": [2] * 8, "PLANES": list(_PLANES), "cr": cr,
+            "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.1, "IF_DIST": True,
+            "LOSS_CONFIG": _CE_LOVASZ, **_KITTI_CAPS, **model,
+        },
+        "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 16},
+    }
+
+
+# tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr10.yaml and _cr5.yaml:
+# MinkUNet at mk18 depth, full and half width (cr5 at one scan per card)
+MINKUNET_MK18_CR10 = _mink18("MinkUNet", 1.0)
+MINKUNET_MK18_CR5 = {
+    **_mink18("MinkUNet", 0.5), "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 1},
+}
+# tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr10.yaml and _cr5.yaml
+SPVCNN_MK18_CR10 = _mink18("SPVCNN", 1.0)
+SPVCNN_MK18_CR5 = _mink18("SPVCNN", 0.5)
+
+# tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml: RPVNet at
+# mk34 depth and cr 1.75 (widths 56 ... 448, all multiples of 8), five
+# input features
+RPVNET_MK34_CR17_5 = {
+    "MODALITY": "fusion",
+    "DATA": dict(_KITTI_DATA),
+    "MODEL": {
+        "NAME": "RPVNet", "IN_FEATURE_DIM": 5, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock", "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2], "PLANES": list(_PLANES),
+        "cr": 1.75, "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.0, "IF_DIST": True,
+        "LOSS_CONFIG": _CE_LOVASZ, **_KITTI_CAPS,
+    },
+    "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 4},
+}
+
+# tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr5.yaml: Cylinder_TS at
+# half width (INIT_SIZE 16) on the 480 x 360 x 32 polar grid; its
+# capacities are the grid's, as cy480_cr10's
+CYLINDER_CY480_CR5 = {
+    "MODALITY": "cylinder",
+    "DATA": {
+        "DATASET": "semantickitti",
+        "DATA_PATH": "/data/SemanticKITTI/dataset/sequences",
+        "GRID_SIZE": [480, 360, 32],
+    },
+    "MODEL": {
+        "NAME": "Cylinder_TS", "IN_FEATURE_DIM": 9, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+        "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.0, "IF_DIST": True, "INIT_SIZE": 16,
+        "LOSS_CONFIG": _CE_LOVASZ,
+    },
+    "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 16},
+}
+
+# tools/cfgs/voxel/synthetic/minkunet_demo_cr5.yaml: the learning check
+# (MinkUNet mk18 cr 0.5 on 32 synthetic scenes of 60 000 points at voxel
+# 0.1, 8 epochs, BN momentum 0.005)
+MINKUNET_DEMO_CR5 = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "synthetic", "LENGTH": 32, "N_RAW_POINTS": 60000, "VOXEL_SIZE": 0.1,
+             "NUM_POINTS": 65536},
+    "MODEL": {
+        "NAME": "MinkUNet", "IN_FEATURE_DIM": 4, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock", "NUM_LAYER": [2] * 8, "PLANES": list(_PLANES), "cr": 0.5,
+        "DROPOUT_P": 0.0, "BN_MOMENTUM": 0.005, "LABEL_SMOOTHING": 0.1, "IF_DIST": True,
+        "LOSS_CONFIG": _CE_LOVASZ,
+        # not in the YAML: the 32 train scans over 2 augmented epochs and
+        # the 32 val scans fill at most 0.689 / 0.456 / 0.196 / 0.083 /
+        # 0.030 of the 65 536 rows; levels 2-4 sit 8-15% under JAX's
+        # default schedule, which 8 epochs of augmentations may pass, and
+        # the port raises on overflow: >= 27% headroom here
+        "CAPACITY_SCHEDULE": (1.0, 0.60, 0.25, 0.11, 0.045),
+    },
+    "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 1, "NUM_EPOCHS": 8},
+}
+
+# tools/cfgs/voxel/synthetic/minkunet_synthetic.yaml: the flagship mk34
+# cr 1.0 on 16 synthetic 120 000-point scans at voxel 0.05, 2 epochs
+MINKUNET_SYNTHETIC = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "synthetic", "LENGTH": 16, "N_RAW_POINTS": 120000, "VOXEL_SIZE": 0.05,
+             "NUM_POINTS": 120000},
+    "MODEL": {
+        "NAME": "MinkUNet", "IN_FEATURE_DIM": 4, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+        "BLOCK": "ResBlock", "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2], "PLANES": list(_PLANES),
+        "cr": 1.0, "DROPOUT_P": 0.3, "IF_DIST": True, "LOSS_CONFIG": _CE_LOVASZ,
+        # not in the YAML: the flagship's schedules (the same scans at the
+        # same voxel size; its measured worst levels, in rows, stay >= 13%
+        # under these fractions of 120 000 rows)
+        **_KITTI_CAPS,
+    },
+    "OPTIM": {
+        **{k: v for k, v in _SGD.items() if k != "NESTEROV"},
+        "BATCH_SIZE_PER_GPU": 1, "NUM_EPOCHS": 2,
+    },
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
@@ -533,4 +663,12 @@ RECIPES = {
     "tools/cfgs/voxel/synthetic/minkunet_ms_kd_tiny.yaml": MINKUNET_MS_KD_TINY,
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml": MINKUNET_MK34_CR10_FSA_TIAF,
     "tools/cfgs/voxel/synthetic/tiaf_tiny.yaml": TIAF_TINY,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr10.yaml": MINKUNET_MK18_CR10,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr5.yaml": MINKUNET_MK18_CR5,
+    "tools/cfgs/voxel/synthetic/minkunet_demo_cr5.yaml": MINKUNET_DEMO_CR5,
+    "tools/cfgs/voxel/synthetic/minkunet_synthetic.yaml": MINKUNET_SYNTHETIC,
+    "tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr10.yaml": SPVCNN_MK18_CR10,
+    "tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr5.yaml": SPVCNN_MK18_CR5,
+    "tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml": RPVNET_MK34_CR17_5,
+    "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr5.yaml": CYLINDER_CY480_CR5,
 }

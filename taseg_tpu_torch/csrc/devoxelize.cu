@@ -20,24 +20,40 @@
 // version's (a present corner of weight 0 and a negative feature gives
 // -0).  So the kernel is bit-identical to the plain version on the card.
 //
-// Bound on the H100: bytes.  Per point it reads 8 (idx, w) pairs (64 B)
-// and 8 corner rows, and writes one row: at the head's class width (C =
-// 20, bf16) the tables and the output are ~9 MB per call at P = 131072,
-// ~0.003 ms at 3.35 TB/s; the corner rows come mostly from L2 (V is
-// 7936-46080 rows of 40 B).  A thread owns one point and 4 channels: it
-// reads the 8 (idx, w) pairs once, gathers 4 channels of each corner row
-// with one 8-byte (bf16) or 16-byte (f32) load where the rows allow it
-// (C % 4 == 0 and aligned bases; else one scalar load per channel), keeps
-// the sum in registers and writes its 4 channels once.
+// The multi-scale entry (taseg_devox_multi) runs up to three such
+// gathers, each identity or weighted, in one launch, with one of two
+// epilogues:
 //
-// At 4 corners (RPVNet, f32 images of C = 32-256 channels, P = 131072):
-// per point 4 (idx, w) pairs (32 B) and one output row, and the image
-// rows, read once where the corners of neighbouring points share pixels
-// (a 64 x 2048 canvas at full scale is 131072 rows, 16-128 MB; the 1/16
-// and 1/4 scales fit in L2).  The same thread layout serves: neighbouring
-// threads take neighbouring 16-byte pieces of one corner row.  The corner
-// count is a template parameter, so the corner loop unrolls.
+//   sum (the MinkUNet head, JAX minkunet.py:36-66):
+//        out[p] = ((f32(d_0[p]) + f32(d_1[p])) + f32(d_2[p])) + bias, f32
+//   cat (KD's tri-scale features, TIAF's taps): scale s written into its
+//        column range of one (P, sum C_s) output in the feature dtype
 //
+// where d_s is the per-corner chain above, so the sum is bit-identical to
+// the head's three calls, casts and adds, and the cat to torch.cat of the
+// three calls.
+//
+// Bound on the H100: bytes.  Per point a trilinear call reads 8 (idx, w)
+// pairs (64 B) and 8 corner rows and writes one row: at the head's class
+// width (C = 20, bf16, P = 131072) the tables and the output are ~9 MB,
+// ~0.003 ms at 3.35 TB/s.  The corner rows are gathered from L2 in 32-byte
+// sectors, a row of 40 B touching one or two: ~67 MB of L2 sectors a call,
+// ~0.012 ms, which sets the pace at narrow widths; at 256 channels the 8
+// corner rows of each point move ~0.5 GB through L2 a call.  One thread
+// owns one point and one piece of its row, the widest of 16, 8, 4 or 2
+// bytes that C and the bases allow (the earlier kernel: 4 values, 8
+// bytes in bf16),
+// loads its point's 8 (idx, w) pairs (the threads of one point at one
+// address: one broadcast load a warp), issues all 8 corner gathers
+// before the chain and writes its piece once.  A layout that loads each
+// point's pairs in one lane and hands them to the point's lanes by
+// __shfl_sync (tried first) ran 1.1-1.9x slower at every width
+// on the H100 (tools/k7_calls.py): the pairs' broadcast loads cost
+// little, the shuffles' dependency and the extra registers more.  The
+// multi-scale sum runs the scales in order in one thread, keeps the f32
+// sum in registers and writes the (P, C) f32 row once: it saves the
+// head's three (P, C) bf16 writes, three casts and three adds of (P, C)
+// f32 rows; the cat runs one scale per blockIdx.y into its columns.
 // K8 replaces taseg_tpu/ops/voxelize.py:126 _voxelize_bwd, the gradient
 // of voxelize_avg (SPVCNN's point branch re-voxelizes features that take
 // a gradient):
@@ -60,137 +76,270 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 4;  // channels per thread
+constexpr int kMaxScales = 3;
+constexpr int kMaxCorners = 8;
 
-// storage of one feature value, its conversions and 4-value vectors;
-// bf16 is handled as its raw 16 bits
+// storage of one feature value and its conversions; bf16 is handled as
+// its raw 16 bits
 struct F32 {
   using raw = float;
-  using vec = float4;
   __device__ static float to_f(raw x) { return x; }
   __device__ static raw from_f(float x) { return x; }
-  __device__ static void unpack(vec q, raw (&e)[kChunk]) {
-    e[0] = q.x; e[1] = q.y; e[2] = q.z; e[3] = q.w;
-  }
-  __device__ static vec pack(const raw (&e)[kChunk]) {
-    return make_float4(e[0], e[1], e[2], e[3]);
-  }
 };
 
 struct BF16 {
   using raw = unsigned short;
-  using vec = uint2;
   __device__ static float to_f(raw b) {
     return __uint_as_float(static_cast<unsigned>(b) << 16);
   }
   __device__ static raw from_f(float x) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(x));
   }
-  __device__ static void unpack(vec q, raw (&e)[kChunk]) {
-    e[0] = q.x & 0xffffu; e[1] = q.x >> 16;
-    e[2] = q.y & 0xffffu; e[3] = q.y >> 16;
-  }
-  __device__ static vec pack(const raw (&e)[kChunk]) {
-    return make_uint2(e[0] | (static_cast<unsigned>(e[1]) << 16),
-                      e[2] | (static_cast<unsigned>(e[3]) << 16));
-  }
 };
 
-// channels [c0, c0 + n) of row i (all +0 where i < 0)
-template <typename D, bool kVec>
-__device__ __forceinline__ void load_chunk(const typename D::raw* feats,
-                                           int i, int c, int c0, int n,
-                                           typename D::raw (&g)[kChunk]) {
-  using raw = typename D::raw;
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j) g[j] = raw(0);
-  if (i < 0) return;
-  const raw* row = feats + static_cast<size_t>(i) * c + c0;
-  if (kVec) {
-    D::unpack(__ldg(reinterpret_cast<const typename D::vec*>(row)), g);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (j < n) g[j] = __ldg(row + j);
-  }
+template <int VB> struct Vec;
+template <> struct Vec<16> { using T = uint4; };
+template <> struct Vec<8> { using T = uint2; };
+template <> struct Vec<4> { using T = unsigned; };
+template <> struct Vec<2> { using T = unsigned short; };
+
+// VB bytes of one row: N values, loaded and stored as one vector
+template <typename D, int VB>
+struct Piece {
+  static constexpr int N = VB / static_cast<int>(sizeof(typename D::raw));
+  union {
+    typename Vec<VB>::T v;
+    typename D::raw e[N];
+  };
+};
+
+// one gather: rows of `feats` (V, c), `corners` (idx, w) pairs a point
+// in (corners, P) tables (w null: the identity, one corner, copied)
+struct Scale {
+  const void* feats;
+  const int* idx;
+  const float* w;
+  int corners;
+  int c;
+  int col0;  // first output column (cat)
+};
+
+struct Args {
+  Scale s[kMaxScales];
+  int n;    // scales
+  int p;    // points
+  int ldo;  // output row stride, in values
+  void* out;
+  const float* bias;  // sum epilogue: (c,) f32
+};
+
+// scale y of `a`, read with constant offsets (an index computed at run
+// time into the kernel's parameters would copy them to local memory)
+__device__ __forceinline__ Scale pick(const Args& a, int y) {
+  return y == 0 ? a.s[0] : y == 1 ? a.s[1] : a.s[2];
 }
 
-// kCorners == 1: the identity (one corner, copied as it is, w unused);
-// else the weighted sum over kCorners corners in corner order
-template <typename D, bool kVec, int kCorners>
-__global__ void __launch_bounds__(kThreads)
-    devox_kernel(const typename D::raw* __restrict__ feats,
-                 const int* __restrict__ idx, const float* __restrict__ w,
-                 typename D::raw* __restrict__ out, int p, int c) {
+// piece `ch` of point `pt` in one scale: the per-corner chain in the
+// feature dtype (w rounded to it, __fmul_rn and __fadd_rn rounded, corner
+// order; an absent corner gathers +0 and is multiplied too), or the
+// identity's copy.  Every corner's (idx, w) and row piece are loaded
+// before the chain; the lanes of one point read its pairs at one address
+// (one broadcast load a warp), neighbouring points' at neighbouring ones.
+template <typename D, int VB, int kC>
+__device__ __forceinline__ void chain(const Scale& sc, int corners, int p, int pt, int ch,
+                                      Piece<D, VB>& acc) {
   using raw = typename D::raw;
-  const int chunks = (c + kChunk - 1) / kChunk;
-  const long long n = static_cast<long long>(p) * chunks;
-  for (long long t = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       t < n; t += static_cast<long long>(gridDim.x) * kThreads) {
-    const int pt = static_cast<int>(t / chunks);
-    const int c0 = static_cast<int>(t % chunks) * kChunk;
-    const int m = min(kChunk, c - c0);
-    raw acc[kChunk];
-    if (kCorners == 1) {
-      load_chunk<D, kVec>(feats, __ldg(idx + pt), c, c0, m, acc);
-    } else {
+  using P = Piece<D, VB>;
+  constexpr int N = P::N;
+  const raw* feats = static_cast<const raw*>(sc.feats);
+  P g[kMaxCorners];
+  float wk[kMaxCorners];
 #pragma unroll
-      for (int k = 0; k < kCorners; ++k) {
-        const size_t e = static_cast<size_t>(k) * p + pt;
-        raw g[kChunk];
-        load_chunk<D, kVec>(feats, __ldg(idx + e), c, c0, m, g);
-        const float wk = D::to_f(D::from_f(__ldg(w + e)));
+  for (int k = 0; k < kMaxCorners; ++k) {
+    if (k < (kC ? kC : corners)) {
+      const size_t e = static_cast<size_t>(k) * p + pt;
+      const int i = __ldg(sc.idx + e);
+      wk[k] = sc.w != nullptr ? __ldg(sc.w + e) : 1.f;
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const raw prod = D::from_f(__fmul_rn(D::to_f(g[j]), wk));
-          acc[j] = k == 0 ? prod
-                          : D::from_f(__fadd_rn(D::to_f(acc[j]), D::to_f(prod)));
-        }
+      for (int j = 0; j < N; ++j) g[k].e[j] = raw(0);
+      if (i >= 0)
+        g[k].v = __ldg(reinterpret_cast<const typename Vec<VB>::T*>(
+            feats + static_cast<size_t>(i) * sc.c + static_cast<size_t>(ch) * N));
+    }
+  }
+  if (sc.w == nullptr) {
+    acc = g[0];
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxCorners; ++k) {
+    if (k < (kC ? kC : corners)) {
+      const float w = D::to_f(D::from_f(wk[k]));
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const raw prod = D::from_f(__fmul_rn(D::to_f(g[k].e[j]), w));
+        acc.e[j] = k == 0 ? prod : D::from_f(__fadd_rn(D::to_f(acc.e[j]), D::to_f(prod)));
       }
     }
-    raw* dst = out + static_cast<size_t>(pt) * c + c0;
-    if (kVec) {
-      *reinterpret_cast<typename D::vec*>(dst) = D::pack(acc);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j)
-        if (j < m) dst[j] = acc[j];
-    }
   }
 }
 
-template <typename D, int kCorners>
-int launch(const void* feats, const void* idx, const void* w, void* out,
-           int p, int c, cudaStream_t s) {
-  if (p <= 0 || c <= 0 || (kCorners > 1 && w == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+// cat (and the single-scale entries): scale blockIdx.y into its columns,
+// one thread a (point, VB-byte piece); kC the corner count of every
+// scale (1, 4 or 8; 0: they differ, read each scale's), so a profile
+// tells the 4-corner calls apart
+template <typename D, int VB, int kC>
+__global__ void __launch_bounds__(kThreads) devox_cols_kernel(const Args a) {
   using raw = typename D::raw;
-  const size_t vb = sizeof(typename D::vec);
-  const bool vec = c % kChunk == 0 &&
-                   reinterpret_cast<size_t>(feats) % vb == 0 &&
-                   reinterpret_cast<size_t>(out) % vb == 0;
-  const long long n =
-      static_cast<long long>(p) * ((c + kChunk - 1) / kChunk);
+  using P = Piece<D, VB>;
+  const Scale sc = pick(a, blockIdx.y);
+  const int corners = kC ? kC : sc.corners;
+  const unsigned chunks = static_cast<unsigned>(sc.c / P::N);
+  const unsigned n = static_cast<unsigned>(a.p) * chunks;
+  raw* out = static_cast<raw*>(a.out);
+  for (unsigned t = blockIdx.x * kThreads + threadIdx.x; t < n; t += gridDim.x * kThreads) {
+    const int pt = static_cast<int>(t / chunks);
+    const int ch = static_cast<int>(t - static_cast<unsigned>(pt) * chunks);
+    P acc;
+    chain<D, VB, kC>(sc, corners, a.p, pt, ch, acc);
+    *reinterpret_cast<typename Vec<VB>::T*>(
+        out + static_cast<size_t>(pt) * a.ldo + sc.col0 + static_cast<size_t>(ch) * P::N) = acc.v;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_f32(float* dst, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) dst[j] = v[j];
+  }
+}
+
+// sum: every scale of width c, in order, summed in f32 in registers, plus
+// the bias, one (P, c) f32 write
+template <typename D, int VB>
+__global__ void __launch_bounds__(kThreads) devox_sum_kernel(const Args a) {
+  using P = Piece<D, VB>;
+  constexpr int N = P::N;
+  const int c = a.s[0].c;
+  const unsigned chunks = static_cast<unsigned>(c / N);
+  const unsigned n = static_cast<unsigned>(a.p) * chunks;
+  float* out = static_cast<float*>(a.out);
+  for (unsigned t = blockIdx.x * kThreads + threadIdx.x; t < n; t += gridDim.x * kThreads) {
+    const int pt = static_cast<int>(t / chunks);
+    const int ch = static_cast<int>(t - static_cast<unsigned>(pt) * chunks);
+    float acc[N];
+#pragma unroll
+    for (int s = 0; s < kMaxScales; ++s) {
+      if (s < a.n) {
+        P d;
+        chain<D, VB, 0>(a.s[s], a.s[s].corners, a.p, pt, ch, d);
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          acc[e] = s == 0 ? D::to_f(d.e[e]) : __fadd_rn(acc[e], D::to_f(d.e[e]));
+      }
+    }
+    const int c0 = ch * N;
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] = __fadd_rn(acc[e], __ldg(a.bias + c0 + e));
+    store_f32<N>(out + static_cast<size_t>(pt) * c + c0, acc);
+  }
+}
+
+template <typename D, int VB>
+void launch_vb(const Args& a, bool sum, int tag, int blocks, cudaStream_t s) {
+  if (sum) {
+    devox_sum_kernel<D, VB><<<blocks, kThreads, 0, s>>>(a);
+    return;
+  }
+  const dim3 grid(blocks, a.n);
+  switch (tag) {
+    case 1: devox_cols_kernel<D, VB, 1><<<grid, kThreads, 0, s>>>(a); break;
+    case 4: devox_cols_kernel<D, VB, 4><<<grid, kThreads, 0, s>>>(a); break;
+    case 8: devox_cols_kernel<D, VB, 8><<<grid, kThreads, 0, s>>>(a); break;
+    default: devox_cols_kernel<D, VB, 0><<<grid, kThreads, 0, s>>>(a); break;
+  }
+}
+
+template <typename D>
+int launch_multi(const Args& a, bool sum, cudaStream_t s) {
+  constexpr int esz = static_cast<int>(sizeof(typename D::raw));
+  if (a.n < 1 || a.n > kMaxScales || a.p <= 0 || a.out == nullptr ||
+      (sum && a.bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the widest piece that every row, base and column offset allows
+  int vb = 16;
+  auto fit = [&](size_t x) {
+    while (vb > esz && x % vb) vb /= 2;
+  };
+  long long items = 0;  // (point, piece) pairs of the widest scale
+  for (int i = 0; i < a.n; ++i) {
+    const Scale& sc = a.s[i];
+    const bool identity = sc.corners == 1 && sc.w == nullptr;
+    const bool weighted = (sc.corners == 4 || sc.corners == 8) && sc.w != nullptr;
+    if (sc.c <= 0 || sc.feats == nullptr || sc.idx == nullptr || !(identity || weighted) ||
+        (sum && sc.c != a.s[0].c))
+      return static_cast<int>(cudaErrorInvalidValue);
+    fit(static_cast<size_t>(sc.c) * esz);
+    fit(reinterpret_cast<size_t>(sc.feats));
+    if (!sum) fit(static_cast<size_t>(sc.col0) * esz);
+  }
+  if (!sum) {
+    fit(reinterpret_cast<size_t>(a.out));
+    fit(static_cast<size_t>(a.ldo) * esz);
+  }
+  int tag = a.s[0].corners;
+  for (int i = 0; i < a.n; ++i) {
+    if (a.s[i].corners != tag) tag = 0;
+    items = std::max(items, static_cast<long long>(a.p) * (a.s[i].c * esz / vb));
+  }
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = static_cast<int>(
-      std::min<long long>((n + kThreads - 1) / kThreads, 1 << 20));
-  auto kern = vec ? devox_kernel<D, true, kCorners>
-                 : devox_kernel<D, false, kCorners>;
-  kern<<<blocks, kThreads, 0, s>>>(
-      static_cast<const raw*>(feats), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<raw*>(out), p, c);
+      std::min<long long>((items + kThreads - 1) / kThreads, 1 << 20));
+  switch (vb) {
+    case 16: launch_vb<D, 16>(a, sum, tag, blocks, s); break;
+    case 8: launch_vb<D, 8>(a, sum, tag, blocks, s); break;
+    default:
+      if constexpr (esz <= 4) {
+        if (vb == 4) {
+          launch_vb<D, 4>(a, sum, tag, blocks, s);
+          break;
+        }
+      }
+      if constexpr (esz == 2) {
+        launch_vb<D, 2>(a, sum, tag, blocks, s);
+        break;
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kCorners>
-int dispatch(const void* feats, const void* idx, const void* w, void* out,
-             int p, int c, int dtype, void* stream) {
+int dispatch_multi(const Args& a, bool sum, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == taseg::kF32)
-    return launch<F32, kCorners>(feats, idx, w, out, p, c, s);
-  if (dtype == taseg::kBF16)
-    return launch<BF16, kCorners>(feats, idx, w, out, p, c, s);
+  if (dtype == taseg::kF32) return launch_multi<F32>(a, sum, s);
+  if (dtype == taseg::kBF16) return launch_multi<BF16>(a, sum, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// one gather of `corners` corners (1: the identity) into a (P, C) output
+int single(const void* feats, const void* idx, const void* w, int corners, void* out,
+           int p, int c, int dtype, void* stream) {
+  if (corners > 1 && w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.s[0] = Scale{feats, static_cast<const int*>(idx), static_cast<const float*>(w),
+                 corners, c, 0};
+  a.n = 1;
+  a.p = p;
+  a.ldo = c;
+  a.out = out;
+  return dispatch_multi(a, false, dtype, stream);
 }
 
 // ---------------------------------------------------------------- K8
@@ -273,7 +422,7 @@ int launch_voxelize_bwd(const void* g, const void* inv, const void* counts,
 extern "C" int taseg_devox_trilinear(const void* feats, const void* idx,
                                      const void* w, void* out, int p, int c,
                                      int dtype, void* stream) {
-  return dispatch<8>(feats, idx, w, out, p, c, dtype, stream);
+  return single(feats, idx, w, 8, out, p, c, dtype, stream);
 }
 
 // image rows (H * W, C), idx (4, P) int32 (-1: absent corner), w (4, P)
@@ -281,14 +430,44 @@ extern "C" int taseg_devox_trilinear(const void* feats, const void* idx,
 extern "C" int taseg_devox_bilinear(const void* feats, const void* idx,
                                     const void* w, void* out, int p, int c,
                                     int dtype, void* stream) {
-  return dispatch<4>(feats, idx, w, out, p, c, dtype, stream);
+  return single(feats, idx, w, 4, out, p, c, dtype, stream);
 }
 
 // feats (V, C), inverse (P,) int32 (-1: none) -> out (P, C)
 extern "C" int taseg_devox_identity(const void* feats, const void* inverse,
                                     void* out, int p, int c, int dtype,
                                     void* stream) {
-  return dispatch<1>(feats, inverse, nullptr, out, p, c, dtype, stream);
+  return single(feats, inverse, nullptr, 1, out, p, c, dtype, stream);
+}
+
+// up to 3 gathers (feats_s (V_s, C_s), idx_s (k_s, P) int32 or the
+// identity's (P,) with k_s = 1 and w_s null, w_s (k_s, P) f32) in one
+// launch: sum != 0 -> out (P, C) f32 = sum over s in order of f32(d_s),
+// plus bias (C,) f32 (every C_s equal); sum == 0 -> out (P, sum C_s) in
+// the feature dtype, scale s in columns [C_0 + ... + C_{s-1}, ...)
+extern "C" int taseg_devox_multi(
+    const void* f0, const void* i0, const void* w0, int k0, int c0,
+    const void* f1, const void* i1, const void* w1, int k1, int c1,
+    const void* f2, const void* i2, const void* w2, int k2, int c2,
+    int n, void* out, const void* bias, int p, int dtype, int sum, void* stream) {
+  Args a{};
+  const void* f[kMaxScales] = {f0, f1, f2};
+  const void* i[kMaxScales] = {i0, i1, i2};
+  const void* w[kMaxScales] = {w0, w1, w2};
+  const int k[kMaxScales] = {k0, k1, k2};
+  const int c[kMaxScales] = {c0, c1, c2};
+  int col = 0;
+  for (int s = 0; s < kMaxScales; ++s) {
+    a.s[s] = Scale{f[s], static_cast<const int*>(i[s]), static_cast<const float*>(w[s]),
+                   k[s], c[s], col};
+    if (s < n) col += c[s];
+  }
+  a.n = n;
+  a.p = p;
+  a.ldo = sum ? c0 : col;
+  a.out = out;
+  a.bias = static_cast<const float*>(bias);
+  return dispatch_multi(a, sum != 0, dtype, stream);
 }
 
 // g (V, C), inv (P,) int32 (-1: no voxel), counts (V,) int32 -> out (P, C),

@@ -205,9 +205,10 @@ class VoxelLoader:
         batch — the reference's DistributedSampler semantics
         (`pcseg/data/__init__.py:134-141`) without any communication."""
         if n_shards != 1:
-            raise NotImplementedError(
-                f"n_shards={n_shards}: the port runs one device per process "
-                f"(several cards: ROADMAP Queue 1 item 3, DDP)"
+            raise ValueError(
+                f"n_shards={n_shards}: the port runs one device per process; "
+                f"several cards run one process each (process_index, "
+                f"process_count; the CLI's --distributed)"
             )
         self.reader = reader
         self.pipeline = pipeline

@@ -61,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import parallel
 from ._device import resolve_device
 from .data.cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .data.fusion_dataset import FusionPipeline
@@ -107,21 +108,26 @@ def fov_points(cfg: dict, point_capacity: int) -> int:
     return int(cfg["DATA"].get("FOV_NUM_POINTS", point_capacity // 2))
 
 
-def check_capacity(topo, caps: UNetCapacities, fov_caps: UNetCapacities = None) -> list:
+def check_capacity(
+    topo, caps: UNetCapacities, fov_caps: UNetCapacities = None, over_ranks: bool = False
+) -> list:
     """The per-level voxel counts of a topology (a UNet topology, an
     `RpvInputs`' or a `CylTopology`; of a `TiafInputs`, the main one's,
     its FOV topology held to `fov_caps`); raises where one exceeds its
-    capacity (the JAX engine only warns and drops the excess voxels)."""
+    capacity (the JAX engine only warns and drops the excess voxels).
+    `over_ranks`: the counts' max over the ranks of the process group
+    (JAX's pmax), so every rank checks and reports the same."""
     if isinstance(topo, RpvInputs):
         topo = topo.topo
     if isinstance(topo, TiafInputs):
-        _check_levels(topo.fov_topo, fov_caps, "FOV ")
+        _check_levels(topo.fov_topo, fov_caps, "FOV ", over_ranks)
         topo = topo.topo
-    return _check_levels(topo, caps, "")
+    return _check_levels(topo, caps, "", over_ranks)
 
 
-def _check_levels(topo, caps: UNetCapacities, what: str) -> list:
-    nums = torch.stack([l.num for l in topo.levels]).tolist()
+def _check_levels(topo, caps: UNetCapacities, what: str, over_ranks: bool = False) -> list:
+    nums = torch.stack([l.num for l in topo.levels])
+    nums = (parallel.max_over_ranks(nums) if over_ranks else nums).tolist()
     for l, (n, cap) in enumerate(zip(nums, caps.voxels)):
         if n > cap:
             raise RuntimeError(
@@ -413,6 +419,19 @@ def load_matching_params(dst: dict, src: dict, *, strict: bool = False, logger=N
     return out
 
 
+class _NullWriter:
+    """The metrics writer of a rank other than 0."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def scalars(self, *args, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+
 class Trainer:
     """The train step on one device of the model that MODEL.NAME names
     (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs, MinkUNetMsKd or
@@ -487,6 +506,17 @@ class Trainer:
     the trainable ones; the frozen ones do not move, while `main`'s BN
     runs in train mode and its running statistics move.
 
+    Under a `torch.distributed` process group (`parallel`, one process
+    per card, the CLI's `--distributed`) each rank steps on its slice of
+    the global batch (`batch_size` is the global one, as the LR's): the
+    gradients are averaged in one all-reduce before the optimizer, the
+    reported loss too, the level counts are maxed before the capacity
+    check, with MODEL.IF_DIST every masked BN sums its statistics over the
+    ranks, each rank's dropout generator is seeded from (seed, rank), rank
+    0 alone writes checkpoints and metrics (every rank resumes from the
+    same file), and the evaluation histograms are summed (JAX
+    `parallel/__init__.py:120-254`).
+
     The harness (JAX `engine.py:539-911`): `train(eval_interval=)` runs
     `train_one_epoch` over the train loader (its prefetch thread runs the
     host stage), saves `checkpoint_epoch_<n>` under CKPT_DIR or
@@ -558,8 +588,11 @@ class Trainer:
         )
         self.loss_weight = tuple(float(w) for w in m.get("LOSS_WEIGHT", (0.0, 1.0, 0.5, 0.5, 1.0)))
         self.model = build_segmentor(cfg, device=self.device, compute_dtype=compute_dtype)
+        self.rank, self.seed = parallel.rank(), seed
+        if m.get("IF_DIST", False):
+            parallel.sync_batchnorm(self.model)
         self.pipeline = make_pipeline(cfg, self.model, training=True, seed=seed)
-        self.dropout_generator = seed_dropout(self.model, seed)
+        self.dropout_generator = seed_dropout(self.model, parallel.rank_seed(seed, self.rank))
         if params is None:
             p, s = init_params_numpy(cfg, seed=int(cfg.get("SEED", 0)))
             params = {"params": p, "batch_stats": s}
@@ -597,9 +630,12 @@ class Trainer:
     @property
     def writer(self) -> MetricsWriter:
         """`output_dir/metrics` (JSONL, and TensorBoard where importable),
-        opened at first use."""
+        opened at first use; rank 0's alone under a process group (the
+        others write nothing)."""
         if self._writer is None:
-            self._writer = MetricsWriter(self.output_dir / "metrics")
+            self._writer = (
+                MetricsWriter(self.output_dir / "metrics") if self.rank == 0 else _NullWriter()
+            )
         return self._writer
 
     # ---------------- the KD teacher (JAX engine.py:377-393) ----------------
@@ -727,8 +763,11 @@ class Trainer:
         return loss
 
     def backward(self, loss: torch.Tensor) -> None:
+        """The gradients of `loss`, averaged over the ranks under a process
+        group (one all-reduce, before the optimizer's clip)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        parallel.average_gradients(self.model.parameters())
 
     def update(self):
         """(global grad norm before the clip, LR applied)."""
@@ -738,13 +777,13 @@ class Trainer:
         """Topology, forward, loss, backward and update on a collated
         shard (`collate`)."""
         topo = self.topology(arrays)
-        level_nums = check_capacity(topo, self.caps, self.fov_caps)
+        level_nums = check_capacity(topo, self.caps, self.fov_caps, over_ranks=True)
         loss = self.forward(arrays, topo)
         self.backward(loss)
         g_norm, lr = self.update()
         out = {
-            "loss": float(loss.detach()), "grad_norm": float(g_norm), "lr": lr,
-            "level_nums": level_nums,
+            "loss": float(parallel.mean_over_ranks(loss.detach())), "grad_norm": float(g_norm),
+            "lr": lr, "level_nums": level_nums,
         }
         if self.kind == "kd":
             out["loss_seg"], out["loss_feat_kd"] = (float(t) for t in self.kd_terms)
@@ -762,18 +801,20 @@ class Trainer:
         and BN running statistics), the optimizer's (momentum traces and
         its step count), the dropout generator's state and the epoch;
         keeps the newest `max_keep`."""
-        path = f"{str(self.ckpt_dir).rstrip('/')}/checkpoint_epoch_{epoch}"
-        payload = {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "dropout_rng": self.dropout_generator.get_state(),
-            "epoch": epoch,
-        }
-        self.ckptr.save(path, payload)
-        kept = self.ckptr.list_epochs(self.ckpt_dir)
-        for _, old in kept[:-max_keep]:
-            self.ckptr.remove(old)
-        self.logger.info(f"saved checkpoint {path}")
+        if self.rank == 0:  # the ranks hold the same state: one writes it
+            path = f"{str(self.ckpt_dir).rstrip('/')}/checkpoint_epoch_{epoch}"
+            payload = {
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "dropout_rng": self.dropout_generator.get_state(),
+                "epoch": epoch,
+            }
+            self.ckptr.save(path, payload)
+            kept = self.ckptr.list_epochs(self.ckpt_dir)
+            for _, old in kept[:-max_keep]:
+                self.ckptr.remove(old)
+            self.logger.info(f"saved checkpoint {path}")
+        parallel.barrier()
 
     def resume_latest(self) -> bool:
         """Auto-resume from the newest checkpoint (train.py:232-242)."""
@@ -783,8 +824,14 @@ class Trainer:
         payload = self.ckptr.restore(found[-1][1], map_location=self.device)
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
-        if "dropout_rng" in payload:
+        if "dropout_rng" in payload and self.rank == 0:
             self.dropout_generator.set_state(payload["dropout_rng"].cpu())
+        elif self.rank:
+            # the checkpoint holds rank 0's generator: the others draw
+            # their own masks, from (seed, epoch) and the rank
+            self.dropout_generator.manual_seed(
+                parallel.rank_seed(self.seed + int(payload["epoch"]) + 1, self.rank)
+            )
         self.start_epoch = int(payload["epoch"]) + 1
         self.logger.info(
             f"resumed from {found[-1][1]} (epoch {self.start_epoch - 1})"
@@ -879,7 +926,7 @@ class Trainer:
                     self.model, arrays, self.eval_caps, sorted_points=sorted_points,
                     fov_caps=self.eval_fov_caps,
                 )
-                check_capacity(topo, self.eval_caps, self.eval_fov_caps)
+                check_capacity(topo, self.eval_caps, self.eval_fov_caps, over_ranks=True)
                 yield arrays.get("main", arrays), meta, eval_logits(self.model, arrays, topo)
 
     def _point_hist(self, pred: torch.Tensor, sample) -> torch.Tensor:
@@ -935,7 +982,8 @@ class Trainer:
                             scans[sample.name] = sample
                 for name, prob in votes.items():
                     finish(scans[name], prob.argmax(-1))
-        hist = hist.cpu().numpy()
+        hist = parallel.sum_over_ranks(hist).cpu().numpy()
+        n_scans = int(parallel.sum_over_ranks(torch.tensor(n_scans, device=self.device)))
         miou = miou_from_hist(hist, ignore_index=0)
         self.logger.info(f"point-eval mIoU {miou:.2f} over {n_scans} scans")
         return {"miou": miou, "hist": hist}
@@ -951,7 +999,7 @@ class Trainer:
             valid = torch.arange(labels.shape[0], device=self.device) < arrays["num_points_t"]
             hist += confusion_hist(logits.argmax(-1), labels, valid & (labels != 0), self.num_class)
             n_batches += 1
-        hist = hist.cpu().numpy()
+        hist = parallel.sum_over_ranks(hist).cpu().numpy()
         dt = time.perf_counter() - t0
         iou = per_class_iou(hist)
         miou = miou_from_hist(hist, ignore_index=0)

@@ -202,6 +202,10 @@ class RPVNet(nn.Module):
             raise ValueError(f"multi_scale {multi_scale!r}: one of concat, sum, se")
         if block not in BLOCKS:
             raise ValueError(f"block {block!r} is not ported; have {sorted(BLOCKS)}")
+        if BLOCKS[block].expansion != 1:
+            # JAX's RPVNet adds its point branch (cs widths) to the voxel
+            # stages, so only blocks without expansion fit it there too
+            raise ValueError(f"RPVNet takes blocks without expansion, not {block!r}")
         self.in_dim = in_dim
         self.dropout_p = dropout_p
         self.multi_scale = multi_scale

@@ -88,18 +88,18 @@ class SPVCNN(nn.Module):
         for l in range(1, 5):
             add(f"down{l}", ConvBNReLU(ch, ch, 8, **kw))
             for i in range(self.num_layer[l - 1]):
-                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l], cs[l], **kw))
-            ch = cs[l]
+                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l] * exp, cs[l], **kw))
+            ch = cs[l] * exp
             enc_ch.append(ch)
         # the decoder's inputs: the re-voxelized z1 (before up1) and z2
         # (before up3), the previous stage's output elsewhere
         point_ch = (cs[4] * exp, cs[6] * exp, cs[8] * exp)
-        ins = (point_ch[0], cs[5], point_ch[1], cs[7])
+        ins = (point_ch[0], cs[5] * exp, point_ch[1], cs[7] * exp)
         for k, lvl in enumerate((4, 3, 2, 1), start=1):
             out_ch = cs[4 + k]
             add(f"up{k}_deconv", ConvBNReLU(ins[k - 1], out_ch, 8, transposed=True, **kw))
             for i in range(self.num_layer[3 + k]):
-                c_in = out_ch + enc_ch[lvl - 1] if i == 0 else out_ch
+                c_in = out_ch + enc_ch[lvl - 1] if i == 0 else out_ch * exp
                 add(f"up{k}_blocks_{i}", blk(c_in, out_ch, **kw))
         prev = cs[0]
         for i, c in enumerate(point_ch):

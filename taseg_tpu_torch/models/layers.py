@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.sparse_conv import KTable, conv_k, k3_conv
+from ..parallel import all_reduce_sum
 from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 
 
@@ -99,7 +100,9 @@ class MaskedBatchNorm(nn.Module):
     f32; the running mean and (unbiased) var are buffers updated in place
     with `momentum` (torch convention, 0.1 by default; the models pass
     `MODEL.BN_MOMENTUM`) under `no_grad`; x is normalised in its own dtype,
-    in the JAX order, and padding rows come out 0.  Eval mode: running
+    in the JAX order, and padding rows come out 0; with `sync` (MODEL.
+    IF_DIST, `parallel.sync_batchnorm`) the count, sum and sum of squares
+    are summed over the ranks first.  Eval mode: running
     statistics are constants, so the layer is one multiply-add `x * g + b`
     in the activation dtype (JAX layers.py:225-237) and padding rows are
     not reset (nothing reads them)."""
@@ -115,6 +118,8 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
+        # sum the statistics over the ranks (`parallel.sync_batchnorm`)
+        self.sync = False
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor = None) -> torch.Tensor:
         if not self.training:
@@ -126,9 +131,19 @@ class MaskedBatchNorm(nn.Module):
             raise ValueError("MaskedBatchNorm in train mode needs the row mask")
         m = mask.float()[:, None]
         xf = x.float()
-        cnt = m.sum().clamp(min=1.0)
-        mean = (xf * m).sum(0) / cnt
-        var = ((xf * xf * m).sum(0) / cnt - mean * mean).clamp(min=0.0)
+        if self.sync:
+            # count, sum and sum of squares summed over the ranks in one
+            # all-reduce, whose backward sums the gradients too (JAX's
+            # psum under shard_map)
+            c = xf.shape[1]
+            st = all_reduce_sum(torch.cat([m.sum().reshape(1), (xf * m).sum(0), (xf * xf * m).sum(0)]))
+            cnt = st[0].clamp(min=1.0)
+            mean = st[1 : c + 1] / cnt
+            var = (st[c + 1 :] / cnt - mean * mean).clamp(min=0.0)
+        else:
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf * xf * m).sum(0) / cnt - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
             mo = self.momentum
@@ -192,7 +207,45 @@ class ResidualBlock(nn.Module):
         return torch.relu(h + short)
 
 
-BLOCKS = {"ResBlock": ResidualBlock}
+class Bottleneck(nn.Module):
+    """1x1 -> BN -> 3x3x3 -> BN -> 1x1 to `out_channels * 4` -> BN, with
+    an identity or 1x1-projected shortcut, then ReLU (JAX
+    layers.py:301-332, reference minkunet.py:132-183; as there, no ReLU
+    between the three convs).  The 1x1 convs are dense products; the 3^3
+    conv takes the `ResidualBlock` route (`k3_conv`)."""
+
+    expansion = 4
+
+    def __init__(
+        self, in_channels: int, out_channels: int, bn_momentum: float = 0.1,
+        device=None,
+    ):
+        super().__init__()
+        bn = dict(momentum=bn_momentum, device=device)
+        c_exp = out_channels * self.expansion
+        self.SparseConv_0 = SparseConv(in_channels, out_channels, 1, device=device)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels, **bn)
+        self.SparseConv_1 = SparseConv(out_channels, out_channels, 27, device=device)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(out_channels, **bn)
+        self.SparseConv_2 = SparseConv(out_channels, c_exp, 1, device=device)
+        self.MaskedBatchNorm_2 = MaskedBatchNorm(c_exp, **bn)
+        self.project = in_channels != c_exp
+        if self.project:
+            self.SparseConv_3 = SparseConv(in_channels, c_exp, 1, device=device)
+            self.MaskedBatchNorm_3 = MaskedBatchNorm(c_exp, **bn)
+
+    def forward(self, feats, rulebook, mask=None):
+        h = self.MaskedBatchNorm_0(self.SparseConv_0(feats), mask)
+        h = self.MaskedBatchNorm_1(self.SparseConv_1(h, rulebook), mask)
+        h = self.MaskedBatchNorm_2(self.SparseConv_2(h), mask)
+        if self.project:
+            short = self.MaskedBatchNorm_3(self.SparseConv_3(feats), mask)
+        else:
+            short = feats
+        return torch.relu(h + short)
+
+
+BLOCKS = {"ResBlock": ResidualBlock, "Bottleneck": Bottleneck}
 
 
 class Dropout(nn.Module):

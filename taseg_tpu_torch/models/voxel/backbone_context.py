@@ -14,7 +14,8 @@ level), the level's present pairs of it compacted per offset
 (`k3_pairs`, the pair lists of K4's tensor-core route, likewise shared),
 the parent relation's pairs compacted per slot (`StridedTables.pairs`,
 the pair lists of K5's tensor-core route, shared by the level's down and
-up conv) and the trilinear pair tables.  Every topology carries each
+up conv), the trilinear pair tables and the head's three pair tables
+stacked for one K6 backward (`devox_head`).  Every topology carries each
 level's row order (`k3_order`, `mask_row_order` of the 3^3 rulebook),
 which the tensor-core routes of the 3^3 convs read (K2's wgmma tile in
 bf16, K2 and K4 at K = 27 on 3xTF32 in f32, `sparse_conv.k3_conv`), and
@@ -52,7 +53,9 @@ from ...ops.strided_conv import (
 from ...ops.voxelize import (
     IdentityDevoxTable,
     SegmentTables,
+    StackedDevox,
     build_segment_tables,
+    stack_devox_tables,
     trilinear_table,
 )
 
@@ -127,6 +130,9 @@ class UNetTopology:
     # stride -> (inverse (P,) int32 point -> voxel of that stride or -1,
     # its SegmentTables); empty unless built with point_voxel_strides
     point_vox: dict
+    # the head's pair tables at strides (16, 4, 1) stacked for one K6
+    # backward (`stack_devox_tables`); None in inference topologies
+    devox_head: Optional[StackedDevox] = None
 
 
 def _pattern_cols(m: int) -> list:
@@ -307,7 +313,14 @@ def build_unet_topology(
         bounds=bounds,
         num_points=num_points,
         point_vox=point_vox,
+        devox_head=stack_devox_tables(head_tables(devox)) if devox_pairs else None,
     )
+
+
+def head_tables(devox: dict) -> tuple:
+    """The MinkUNet head's devox tables, in its scale order (x4 at
+    stride 16, y2 at 4, y4 at 1)."""
+    return devox[16], devox[4], devox[1]
 
 
 def conv_tables(topo: UNetTopology, train: bool) -> list:

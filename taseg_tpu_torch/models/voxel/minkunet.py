@@ -20,8 +20,9 @@ the generator that `layers.seed_dropout` gives it (the `Trainer` seeds
 it), not from JAX's bits.  `forward(..., return_features=True)` also
 returns the tri-scale point features `cat(devox(x4), devox(y2),
 devox(y4))` at full width in f32 (256 + 128 + 96 = 480 at cr 1.0), the
-mask-distillation target (JAX :192-199).  `Bottleneck` blocks are left
-out.
+mask-distillation target (JAX :192-199).  `block` is "ResBlock" or
+"Bottleneck" (JAX's default: 1-3-1 with expansion 4, so every stage and
+the head are 4x wider: 1024 / 512 / 384 head channels at cr 1.0).
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
-from ...ops.voxelize import devoxelize, voxelize_avg
+from ...ops.voxelize import devoxelize_multi, voxelize_avg
 from ..layers import BLOCKS, ConvBNReLU, Dropout
-from .backbone_context import UNetTopology, conv_tables
+from .backbone_context import UNetTopology, conv_tables, head_tables
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,7 +43,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class _TriScaleHead(nn.Module):
     """logits = sum_s devox(x_s @ K_s) + b, where [K_1; K_2; K_3] is the
     row partition of the classifier kernel (linear maps commute with the
-    interpolation).  `kernel` / `bias` keep the `nn.Dense` shapes."""
+    interpolation), the three devox, their f32 sum and the bias in one K7
+    launch (`devoxelize_multi`).  `kernel` / `bias` keep the `nn.Dense`
+    shapes."""
 
     def __init__(self, widths: Sequence[int], num_classes: int, device=None):
         super().__init__()
@@ -51,17 +54,18 @@ class _TriScaleHead(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(num_classes, device=device))
 
-    def forward(self, voxel_feats, tables) -> torch.Tensor:
-        out = None
+    def forward(self, voxel_feats, tables, stacked=None) -> torch.Tensor:
+        zs = []
         off = 0
-        for x, table in zip(voxel_feats, tables):
+        for x in voxel_feats:
             k = self.kernel[off : off + x.shape[-1]].to(x.dtype)
             off += x.shape[-1]
             # bf16 operands, f32 accumulation (products are exact in f32)
-            zc = x.float() @ k.float()
-            c = devoxelize(zc.to(x.dtype), table).float()
-            out = c if out is None else out + c
-        return out + self.bias
+            zs.append((x.float() @ k.float()).to(x.dtype))
+        # one K7 launch: each scale's devox in the feature dtype, their f32
+        # casts summed in scale order, plus the bias; its backward one K6
+        # over the stacked pair tables (`stacked`, train topologies)
+        return devoxelize_multi(zs, tables, bias=self.bias, stacked=stacked)
 
 
 class MinkUNet(nn.Module):
@@ -90,6 +94,7 @@ class MinkUNet(nn.Module):
         if block not in BLOCKS:
             raise ValueError(f"block {block!r} is not ported; have {sorted(BLOCKS)}")
         blk = BLOCKS[block]
+        exp = blk.expansion  # a block of width c outputs c * exp channels
         self.dropout = Dropout(dropout_p)
         cs = [int(cr * x) for x in planes]
         add = self.add_module
@@ -101,18 +106,19 @@ class MinkUNet(nn.Module):
         for l in range(1, 5):
             add(f"down{l}", ConvBNReLU(ch, ch, 8, **kw))
             for i in range(self.num_layer[l - 1]):
-                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l], cs[l], **kw))
-            ch = cs[l]
+                add(f"stage{l}_{i}", blk(ch if i == 0 else cs[l] * exp, cs[l], **kw))
+            ch = cs[l] * exp
             enc_ch.append(ch)
         for k, lvl in enumerate((4, 3, 2, 1), start=1):
             out_ch = cs[4 + k]
             add(f"up{k}_deconv", ConvBNReLU(ch, out_ch, 8, transposed=True, **kw))
             for i in range(self.num_layer[3 + k]):
-                c_in = out_ch + enc_ch[lvl - 1] if i == 0 else out_ch
+                c_in = out_ch + enc_ch[lvl - 1] if i == 0 else out_ch * exp
                 add(f"up{k}_blocks_{i}", blk(c_in, out_ch, **kw))
-            ch = out_ch
+            ch = out_ch * exp
         # head widths: x4 (stride 16), y2 (stride 4), y4 (stride 1)
-        add("classifier", _TriScaleHead((cs[4], cs[6], cs[8]), num_classes, device=dev))
+        self.head_widths = (cs[4] * exp, cs[6] * exp, cs[8] * exp)
+        add("classifier", _TriScaleHead(self.head_widths, num_classes, device=dev))
 
     @staticmethod
     def from_cfg(cfg: dict, device=None, compute_dtype=None) -> "MinkUNet":
@@ -172,13 +178,12 @@ class MinkUNet(nn.Module):
         y2 = up(y1, 2, 3)
         y3 = up(self.dropout(y2), 3, 2)
         y4 = up(y3, 4, 1)
-        tables = (topo.devox[16], topo.devox[4], topo.devox[1])
-        logits = self.classifier((x4, y2, y4), tables)
+        tables = head_tables(topo.devox)
+        logits = self.classifier((x4, y2, y4), tables, topo.devox_head)
         if return_features:
             # reference minkunet_ms_kd.py:568, 605: each scale devoxelized
-            # in the compute dtype, the concatenation in f32
-            z = torch.cat(
-                [devoxelize(x, t) for x, t in zip((x4, y2, y4), tables)], dim=-1
-            ).float()
+            # in the compute dtype (one K7 launch into its columns), the
+            # concatenation in f32
+            z = devoxelize_multi((x4, y2, y4), tables).float()
             return logits, z
         return logits

@@ -45,7 +45,13 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
-from ...ops.voxelize import IdentityDevoxTable, build_segment_tables, devoxelize, trilinear_table, voxelize_avg
+from ...ops.voxelize import (
+    IdentityDevoxTable,
+    build_segment_tables,
+    devoxelize_multi,
+    trilinear_table,
+    voxelize_avg,
+)
 from ..layers import ConvBNReLU, Dense, ResidualBlock
 from ..range2d.blocks import Conv, ResContextBlock, SalsaResBlock, SalsaUpBlock
 from .backbone_context import (
@@ -155,10 +161,11 @@ class UNet2D(nn.Module):
         u2 = self.SalsaUpBlock_1(u3, d1b)
         u1 = self.SalsaUpBlock_2(u2, d0b)
         logits = self.image_head(u1.float())
-        point_feats = torch.cat(
-            [devoxelize(_flat(stem), pixels), devoxelize(_flat(u1), pixels)], dim=-1
-        )
-        return logits, point_feats, devoxelize(_flat(logits), pixels)
+        # [stem ‖ u1] and the logits at the FOV rows' pixels: one K7 launch
+        # over the three maps, split after
+        g = devoxelize_multi((_flat(stem), _flat(u1), _flat(logits)), (pixels,) * 3)
+        c = stem.shape[-1] + u1.shape[-1]
+        return logits, g[:, :c], g[:, c:]
 
 
 class SparseEncoderFov(nn.Module):
@@ -270,9 +277,7 @@ class MinkUNetMsMm(nn.Module):
             [inputs.fov_feats[:, : self.in_dim - 1], img_point_feats, img_point_logits], dim=-1
         )
         taps = self.lidar_backbone(fov_in, inputs.fov_topo)
-        fov_tri = torch.cat(
-            [devoxelize(x, inputs.fov_topo.devox[s]) for x, s in zip(taps, TAP_STRIDES)], dim=-1
-        )
+        fov_tri = devoxelize_multi(taps, [inputs.fov_topo.devox[s] for s in TAP_STRIDES])
         fov_point_logits = self.classifier_fov(fov_tri)
 
         main_logits, main_tri = self.main(point_feats, inputs.topo, return_features=True)
@@ -280,9 +285,7 @@ class MinkUNetMsMm(nn.Module):
         # the FOV (voxel_to_point_fov, minkunet/utils.py:150-170).  A main
         # point counts as in the overlap where any tapped feature is
         # nonzero, as JAX tests it
-        fov_on_main = torch.cat(
-            [devoxelize(x, inputs.fov_devox[s]) for x, s in zip(taps, TAP_STRIDES)], dim=-1
-        )
+        fov_on_main = devoxelize_multi(taps, [inputs.fov_devox[s] for s in TAP_STRIDES])
         overlap = fov_on_main.abs().sum(-1) > 0
         fusion_logits = self.classifier_fusion(torch.cat([main_tri, fov_on_main], dim=-1))
         if not self.training and self.ensemble_type == "replace":

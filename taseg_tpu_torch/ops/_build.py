@@ -26,8 +26,10 @@ and K6 (`segment_sum`, a segment cut across units finished by its last
 piece) launch one kernel per call; K4 on CUDA cores counts one per call,
 its second kernel (the split reduction) included, as do K2's and
 K3's split routes; K7 (`devoxelize`) launches one kernel per call,
-trilinear, bilinear or identity, and `devoxelize_bilinear` counts again
-those at 4 corners (RPVNet's `range_to_point`); K8 (`voxelize_bwd`)
+trilinear, bilinear or identity, or up to three of them summed or
+concatenated (`devoxelize_multi` counts these again: the MinkUNet head,
+KD's features, TIAF's taps and image gathers), and `devoxelize_bilinear`
+counts again those at 4 corners (RPVNet's `range_to_point`); K8 (`voxelize_bwd`)
 launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
 convs) counts under its own `sparse_conv_k` (`_wgmma`, `_tf32`,
 `_dgrad`, `_dgrad_wgmma`, `_dgrad_tf32` as K2's), so K2's 27-offset
@@ -85,6 +87,7 @@ LAUNCHES = {
     "segment_sum": 0,
     "devoxelize": 0,
     "devoxelize_bilinear": 0,
+    "devoxelize_multi": 0,
     "voxelize_bwd": 0,
     "sparse_conv_k": 0,
     "sparse_conv_k_wgmma": 0,
@@ -117,6 +120,7 @@ _SIGNATURES = {
     "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
+    "taseg_devox_multi": [_P, _P, _P, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _P],
     "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -13,7 +13,12 @@
     (`csrc/devoxelize.cu`, one launch per call, bit-identical to the plain
     versions `_devox_identity` / `_devox_trilinear`) on CUDA tensors;
     their backwards are segment sums, over the point tables or over the
-    (corner, point) pair table `DevoxTable.pairs`.
+    (corner, point) pair table `DevoxTable.pairs`;
+  * `devoxelize_multi`: up to three of them in one K7 launch, summed in
+    f32 with a bias (the MinkUNet head) or concatenated (KD's features,
+    TIAF's taps), plain version `devox_multi_plain`; the sum's backward
+    is one K6 call over the scales' pair tables stacked with row offsets
+    (`stack_devox_tables`, built by the train topology).
 
 `segment_max` is Cylinder3D's max-pooled voxelization (JAX
 `jax.ops.segment_max` in `models/voxel/cylinder3d.py:236`, an XLA
@@ -472,6 +477,211 @@ class DevoxTrilinear(torch.autograd.Function):
         g = g.contiguous()
         t = ctx.table
         return segment_sum(g, t.pairs, t.weights.reshape(-1)).to(g.dtype), None
+
+
+def _devox_plain(voxel_feats, table):
+    if isinstance(table, IdentityDevoxTable):
+        return _devox_identity(voxel_feats, table.inverse)
+    return _devox_trilinear(voxel_feats, table)
+
+
+def devox_multi_plain(feats, tables, bias=None) -> torch.Tensor:
+    """The multi-scale entry's plain version: each scale's plain gather,
+    then with `bias` their f32 casts summed in order plus the bias (the
+    head's sequence, JAX minkunet.py:57-66), else their concatenation
+    in the feature dtype."""
+    outs = [_devox_plain(x, t) for x, t in zip(feats, tables)]
+    if bias is None:
+        return torch.cat(outs, dim=-1)
+    out = None
+    for o in outs:
+        o = o.float()
+        out = o if out is None else out + o
+    return out + bias
+
+
+def _scale_args(x: torch.Tensor, table, dev) -> tuple:
+    """(feats, idx, w, corners, C) of one scale for `taseg_devox_multi`,
+    checked."""
+    _build.check("voxel_feats", x, tuple(DTYPE_CODES), 2, dev)
+    if isinstance(table, IdentityDevoxTable):
+        _build.check("inverse", table.inverse, (torch.int32,), 1, dev)
+        return (x.data_ptr(), table.inverse.data_ptr(), None, 1, x.shape[1])
+    _build.check("idx", table.idx, (torch.int32,), 2, dev)
+    _build.check("weights", table.weights, (torch.float32,), 2, dev)
+    corners = table.idx.shape[0]
+    if corners not in _DEVOX_CORNERS or table.weights.shape != table.idx.shape:
+        raise ValueError(f"idx {tuple(table.idx.shape)}: expected (8, P) or (4, P)")
+    return (x.data_ptr(), table.idx.data_ptr(), table.weights.data_ptr(), corners, x.shape[1])
+
+
+def _table_points(table) -> int:
+    return table.inverse.shape[0] if isinstance(table, IdentityDevoxTable) else table.idx.shape[1]
+
+
+MAX_SCALES = 3
+
+
+def devoxelize_multi_kernel(feats, tables, bias=None) -> torch.Tensor:
+    """K7's multi-scale entry: up to MAX_SCALES gathers (identity, 4 or 8
+    corners, all of one feature dtype and one point count) in one
+    launch.  With `bias` ((C,) f32, every C_s = C): the (P, C) f32 sum of
+    their f32 casts in order plus the bias; else their (P, sum C_s)
+    concatenation in the feature dtype.  Bit-identical to
+    `devox_multi_plain` (CPU tensors take it)."""
+    if not 1 <= len(feats) == len(tables) <= MAX_SCALES:
+        raise ValueError(f"{len(feats)} feature maps, {len(tables)} tables: 1 to {MAX_SCALES} pairs")
+    dev = feats[0].device
+    dtype = feats[0].dtype
+    p = _table_points(tables[0])
+    if any(x.dtype != dtype for x in feats) or any(_table_points(t) != p for t in tables):
+        raise ValueError("devoxelize_multi: the scales differ in dtype or point count")
+    widths = [x.shape[1] for x in feats]
+    if bias is not None:
+        _build.check("bias", bias, (torch.float32,), 1, dev)
+        if len(set(widths)) != 1 or bias.shape[0] != widths[0]:
+            raise ValueError(f"sum of widths {widths} with a bias of {tuple(bias.shape)}")
+    args = [_scale_args(x, t, dev) for x, t in zip(feats, tables)]
+    if not _build.dispatch(feats[0]):
+        return devox_multi_plain(feats, tables, bias)
+    if min(widths) == 0:
+        raise ValueError(f"devoxelize_multi: a scale of width 0 in {widths}")
+    c_out = widths[0] if bias is not None else sum(widths)
+    out = torch.empty((p, c_out), dtype=torch.float32 if bias is not None else dtype, device=dev)
+    if p == 0:
+        return out
+    args += [(None, None, None, 1, 0)] * (MAX_SCALES - len(args))
+    _build.launch(
+        "taseg_devox_multi", ("devoxelize", "devoxelize_multi"),
+        *[v for a in args for v in a], len(feats), out.data_ptr(),
+        None if bias is None else bias.data_ptr(), p, DTYPE_CODES[dtype], int(bias is not None),
+    )
+    return out
+
+
+class StackedDevox(NamedTuple):
+    """The pair tables of several devoxelizations of one gradient stacked
+    with row offsets, so their backward is one K6 call: `tables` over the
+    concatenated real rows of each scale (R = sum R_s, each a multiple of
+    P) and sum V_s segments, `weights` (R,) f32 (1 for an identity
+    scale's rows), `rows` the V_s of each scale, in order."""
+
+    tables: SegmentTables
+    weights: torch.Tensor
+    rows: tuple
+
+
+def _pair_tables(table):
+    if isinstance(table, IdentityDevoxTable):
+        if table.tables is None:
+            raise ValueError("the identity devox table has no segment tables")
+        return table.tables, torch.ones(
+            table.inverse.shape[0], dtype=torch.float32, device=table.inverse.device
+        )
+    if table.pairs is None:
+        raise ValueError("the trilinear table has no pairs: build it with with_pairs=True")
+    return table.pairs, table.weights.reshape(-1)
+
+
+def stack_devox_tables(tables) -> StackedDevox:
+    """One `StackedDevox` over the pair tables of `tables` (identity or
+    trilinear, each with its backward tables), without a sort and
+    without a host read: each scale's sorted positions keep their order,
+    its member rows move by the real rows before it and its sentinel rows
+    to the end, its used positions (those below its last start) follow
+    the earlier scales' used positions and its dropped ones (ids out of
+    range) go after every used position, by one scatter."""
+    seg = [_pair_tables(t) for t in tables]
+    dev = seg[0][0].perm.device
+    v = [st.starts.shape[0] - 1 for st, _ in seg]
+    r = [st.perm.shape[0] - vs for (st, _), vs in zip(seg, v)]
+    r_tot, v_tot = sum(r), sum(v)
+    used = torch.stack([st.starts[-1].long() for st, _ in seg])  # device scalars
+    dropped = torch.tensor([st.perm.shape[0] for st, _ in seg], device=dev) - used
+    used_before = torch.cumsum(used, 0) - used
+    drop_at = used.sum() + torch.cumsum(dropped, 0) - dropped  # first dropped slot
+    perm = torch.empty(r_tot + v_tot, dtype=torch.int64, device=dev)
+    starts, counts = [], []
+    r_off = v_off = 0
+    for s, ((st, _), vs, rs) in enumerate(zip(seg, v, r)):
+        n = st.perm.shape[0]
+        mapped = torch.where(st.perm < rs, st.perm + r_off, st.perm - rs + r_tot + v_off)
+        i = torch.arange(n, device=dev)
+        dst = torch.where(i < used[s], used_before[s] + i, drop_at[s] + i - used[s])
+        perm.scatter_(0, dst, mapped)
+        starts.append(st.starts[:-1] + used_before[s].int())
+        counts.append(st.counts)
+        r_off += rs
+        v_off += vs
+    starts.append(used.sum().int().reshape(1))
+    return StackedDevox(
+        tables=SegmentTables(perm=perm, starts=torch.cat(starts), counts=torch.cat(counts)),
+        weights=torch.cat([w for _, w in seg]),
+        rows=tuple(v),
+    )
+
+
+def _scale_grads(gs, tables, dtypes, stacked: Optional[StackedDevox]):
+    """Each scale's voxel gradient (its dtype) from its point gradient:
+    on the card one K6 over `stacked` where given (every g_s the same
+    tensor), else one K6 per scale over its own pair table.  CPU tensors
+    take the per-scale plain calls either way: the plain K6's mean-centred
+    cumsum rounds far coarser over the stacked rows (17 P of three scales,
+    one centre) than over each scale's, enough to move the ill-conditioned
+    third step of `test_torch_train.py` by 2.4% in grad norm."""
+    if stacked is not None and _build.dispatch(gs[0]):
+        out = segment_sum(gs[0], stacked.tables, stacked.weights)
+        return [o.to(dt) for o, dt in zip(out.split(list(stacked.rows)), dtypes)]
+    grads = []
+    for g, t, dt in zip(gs, tables, dtypes):
+        st, w = _pair_tables(t)
+        grads.append(segment_sum(g, st, None if isinstance(t, IdentityDevoxTable) else w).to(dt))
+    return grads
+
+
+class DevoxMulti(torch.autograd.Function):
+    """K7's multi-scale entry; backward: with a bias (the sum) every scale
+    takes the output gradient cast to its dtype, and the bias its column
+    sums; without (the cat) each scale its column slice.  The voxel
+    gradients are K6 over the stacked pair table in one call where one
+    is given (the sum: one gradient), else K6 per scale."""
+
+    @staticmethod
+    def forward(ctx, bias, stacked, tables, *feats):
+        ctx.tables, ctx.stacked, ctx.has_bias = tables, stacked, bias is not None
+        ctx.widths = [x.shape[1] for x in feats]
+        ctx.dtypes = [x.dtype for x in feats]
+        return devoxelize_multi_kernel(feats, tables, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.has_bias:
+            gb = g.to(ctx.dtypes[0])
+            gs = [gb] * len(ctx.widths)
+            g_bias = g.sum(0)
+        else:
+            gs = [c.contiguous() for c in g.split(ctx.widths, dim=1)]
+            g_bias = None
+        stacked = ctx.stacked if ctx.has_bias else None
+        return (g_bias, None, None, *_scale_grads(gs, ctx.tables, ctx.dtypes, stacked))
+
+
+def devoxelize_multi(feats, tables, bias=None, stacked: Optional[StackedDevox] = None) -> torch.Tensor:
+    """Several devoxelizations of one point set in one K7 launch: with
+    `bias`, the (P, C) f32 sum of their f32 casts plus the bias (the
+    MinkUNet head); else their concatenation (P, sum C_s) in the feature
+    dtype.  Differentiable in the features and the bias where autograd
+    asks; the sum's backward is one K6 call over `stacked`
+    (`stack_devox_tables` of the same tables) where given."""
+    feats = tuple(feats)
+    tables = tuple(tables)
+    grad = wants_grad(*feats, *(() if bias is None else (bias,)))
+    if not grad:
+        return devoxelize_multi_kernel(feats, tables, bias)
+    if stacked is not None and tuple(stacked.rows) != tuple(x.shape[0] for x in feats):
+        raise ValueError(f"stacked rows {stacked.rows} do not match the feature rows")
+    return DevoxMulti.apply(bias, stacked, tables, *feats)
 
 
 def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:

@@ -15,8 +15,17 @@ TASeg's temporal stages by dataset: MinkUNetMs on the multi-scan
 pipeline (FSA, SMSA), MinkUNetMsKd on the `kd` one, whose frozen
 teacher is MODEL.TEACHER_CKPT (JAX `train.py:127-128`; a checkpoint of
 the FSA stage), and MinkUNetMsMm (TIAF) on the `mm` one, whose FSA
-branch loads from --pretrained_model (`main/` matched by suffix); several processes (`--distributed`, DDP) wait for ROADMAP
-Queue 1 item 3.
+branch loads from --pretrained_model (`main/` matched by suffix).
+
+Several cards: `--distributed` under `torchrun`, one process per card
+(`parallel.init_from_env`: NCCL on the card, gloo with `--device cpu`);
+each process loads its slice of every global batch (batch size per
+card x cards, the LR scaled by it), the gradients and the masked BN's
+statistics (MODEL.IF_DIST) are summed over the cards, rank 0 writes the
+log file, metrics and checkpoints:
+
+    torchrun --nproc_per_node 4 -m taseg_tpu_torch.train --distributed \
+        --cfg_file tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr10.yaml
 
     python -m taseg_tpu_torch.train \\
         --cfg_file tools/cfgs/voxel/synthetic/minkunet_tiny.yaml --epochs 1
@@ -33,8 +42,10 @@ Queue 1 item 3.
 from __future__ import annotations
 
 import argparse
+import logging
 from pathlib import Path
 
+from . import parallel
 from .data import build_dataloader
 from .engine import Trainer
 from .models import SEGMENTORS
@@ -68,6 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--eval_interval", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="cuda (the hand kernels) or cpu (their plain versions)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per card under torchrun (DDP)")
     return p.parse_args(argv)
 
 
@@ -110,22 +123,28 @@ def main(argv=None) -> None:
     modality = check_ported(cfg)
     kind = pipeline_kind(cfg)
 
+    device = parallel.init_from_env(args.device) if args.distributed else args.device
+    rank, world = parallel.rank(), parallel.world_size()
     out_dir = Path("output") / cfg.TAG / args.extra_tag
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_dir / "log.txt")
-    logger.info(f"device: {args.device}")
+    logger = create_logger(out_dir / "log.txt" if rank == 0 else None)
+    if rank != 0:
+        logger.setLevel(logging.WARNING)
+    logger.info(f"device: {args.device}, {world} process(es)")
 
     scans_per_shard = args.batch_size or int(cfg.OPTIM.get("BATCH_SIZE_PER_GPU", 2))
+    shard = dict(process_index=rank, process_count=world)
     train_loader = build_dataloader(
         cfg.DATA, training=True, scans_per_shard=scans_per_shard, modality=modality,
-        pipeline_kind=kind,
+        pipeline_kind=kind, **shard,
     )
     val_loader = build_dataloader(
         cfg.DATA, training=False, scans_per_shard=scans_per_shard,
         point_capacity=train_loader.point_capacity, modality=modality, pipeline_kind=kind,
+        **shard,
     )
     trainer = Trainer(
-        cfg, None, args.device, train_loader=train_loader, val_loader=val_loader,
+        cfg, None, device, train_loader=train_loader, val_loader=val_loader,
         output_dir=out_dir, logger=logger, total_epochs=args.epochs,
     )
     if args.pretrained_model:
@@ -151,6 +170,7 @@ def main(argv=None) -> None:
             trainer.evaluate_points()
     else:
         trainer.train(eval_interval=args.eval_interval)
+    parallel.shutdown()
 
 
 if __name__ == "__main__":

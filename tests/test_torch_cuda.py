@@ -38,7 +38,10 @@ ragged widths; K5 runs over the per-slot lists of
 3xTF32 in f32 (widths in 8s / 4s), else on its CUDA-core kernel.  K7
 (`devoxelize`) repeats its plain version's roundings and is held to the
 same bits, signed zeros included, at 8 corners and at 4 (RPVNet's
-bilinear sample of the range image); so is K8 (`voxelize_bwd`), the
+bilinear sample of the range image), and so is its multi-scale entry
+(the head's sum and the cat of KD's features; the head's backward, K6
+once over the stacked pair table, within 1e-5 of the three separate
+calls); so is K8 (`voxelize_bwd`), the
 gradient of the voxelize mean.  A small SPVCNN f32 step on the card is
 held against the CPU's.
 
@@ -1109,6 +1112,74 @@ def test_devoxelize_bilinear_kernel_bit_identical(cuda, dtype, c, misaligned):
     assert torch.equal(_bits(got[:40]), _bits(torch.zeros_like(got[:40])))
     assert torch.equal(_bits(got[40:80]), _bits(torch.full_like(got[40:80], -0.0)))
     assert (_build.LAUNCHES["devoxelize"], _build.LAUNCHES["devoxelize_bilinear"]) == (2, 2)
+
+
+def _head_topology(dev, seed=61):
+    """A train topology of ~3500 integer points: the head's tables at
+    strides 16, 4 (8 corners, fractions in 1/s) and 1 (the identity),
+    and their stacked pair table."""
+    from taseg_tpu_torch.models.voxel.backbone_context import UNetCapacities, build_unet_topology
+
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((4096, 4), np.float32)
+    rows = np.unique(np.floor(rng.uniform(0, 48, size=(3500, 3))), axis=0)
+    pts[: len(rows), :3] = rows
+    topo = build_unet_topology(
+        torch.from_numpy(pts).to(dev), torch.tensor(len(rows), dtype=torch.int32),
+        UNetCapacities.for_points(4096), devox_pairs=True,
+    )
+    return rng, topo, (topo.devox[16], topo.devox[4], topo.devox[1])
+
+
+def _table_rows(t):
+    return t.tables.counts.shape[0] if isinstance(t, tvx.IdentityDevoxTable) else t.pairs.counts.shape[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "widths,bias", [((20,) * 3, True), ((19,) * 3, True), ((256, 128, 96), False), ((48, 19, 20), False)]
+)
+def test_devoxelize_multi_bit_identical(cuda, dtype, widths, bias):
+    """K7's multi-scale entry, one launch a call: the sum epilogue (the
+    head: f32 casts summed in scale order, plus the bias) and the cat
+    epilogue (columns), at the head's widths, KD's feature widths and
+    ragged ones, give `devox_multi_plain`'s bits and the same bits on a
+    repeat call; a negative row read at weight 0 gives -0 as there."""
+    rng, topo, tables = _head_topology(cuda)
+    feats = [_rand(rng, (_table_rows(t), c), cuda, dtype) for t, c in zip(tables, widths)]
+    for f in feats:
+        f[0] = -f[0].abs() - 0.5
+    b = _rand(rng, (widths[0],), cuda, torch.float32) if bias else None
+    _build.reset_launches()
+    got = _twice_same(lambda: tvx.devoxelize_multi_kernel(feats, tables, b))
+    want = tvx.devox_multi_plain(feats, tables, b)
+    assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+    assert (_build.LAUNCHES["devoxelize"], _build.LAUNCHES["devoxelize_multi"]) == (2, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_k6_backward_on_card(cuda, dtype):
+    """The head's backward: K6 once over the stacked pair table, against
+    the three per-scale K6 calls within 1e-5 of the largest sum of |terms|
+    (a segment's members are summed in another split), the same bits on
+    repeat, and one K6 launch in the backward of `devoxelize_multi`."""
+    rng, topo, tables = _head_topology(cuda, seed=67)
+    st = topo.devox_head
+    g = _rand(rng, (tables[2].inverse.shape[0], 20), cuda, dtype)
+    got = _twice_same(lambda: tvx.segment_sum(g, st.tables, st.weights)).split(list(st.rows))
+    for x, t in zip(got, tables):
+        pt, w = tvx._pair_tables(t)
+        want = tvx.segment_sum(g, pt, w)
+        ref = tvx.segment_sum_plain(g.float().abs(), pt, w.abs()).max()
+        assert (x - want).abs().max() <= 1e-5 * ref
+    zs = [_rand(rng, (_table_rows(t), 20), cuda, dtype).requires_grad_() for t in tables]
+    bias = torch.zeros(20, device=cuda, requires_grad=True)
+    out = tvx.devoxelize_multi(zs, tables, bias=bias, stacked=st)
+    _build.reset_launches()
+    out.backward(g.float())
+    assert _build.LAUNCHES["segment_sum"] == 1
+    for z, x in zip(zs, torch.cat(got).split(list(st.rows))):
+        assert torch.equal(z.grad, x.to(dtype))
 
 
 @pytest.mark.parametrize("block", ["res_context", "salsa_res", "salsa_up"])

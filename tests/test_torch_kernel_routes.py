@@ -450,7 +450,7 @@ def test_launch_counters_have_the_route_entries():
         "strided_down_dgrad_rounds",
         "strided_up_dgrad", "strided_up_dgrad_wgmma", "strided_up_dgrad_tf32",
         "k3_conv_dw", "k3_conv_dw_wgmma", "strided_dw", "strided_dw_wgmma", "strided_dw_tf32",
-        "segment_sum", "devoxelize", "devoxelize_bilinear", "voxelize_bwd",
+        "segment_sum", "devoxelize", "devoxelize_bilinear", "devoxelize_multi", "voxelize_bwd",
         "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
         "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",
         "sparse_conv_k_tf32", "sparse_conv_k_dgrad_tf32", "sparse_conv_dw_tf32",

@@ -1,0 +1,104 @@
+"""One rank of `test_torch_ddp.py`'s process group (gloo, on the CPU).
+
+Imports no JAX: `torch.multiprocessing` starts each rank in a fresh
+interpreter, and JAX's start-up would only cost time there.  The
+rendezvous is a `FileStore` in the test's temporary directory, with a
+timeout of its own, so a rank that never arrives fails the run instead of
+holding it.  Each rank runs, in order:
+
+  * `step`: the plain train step of a tiny MinkUNet with IF_DIST, its
+    collated shard per step read from `shards/step<i>_rank<r>.npz`;
+  * `kd`: one KD step of the tiny KD recipe on its own scan;
+  * `eval`: `Trainer.evaluate()` over its slice of the val loader;
+
+and writes what it saw to `out_rank<r>.pt`.
+"""
+
+from __future__ import annotations
+
+import datetime
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+RDV_TIMEOUT_S = 60
+
+
+def run(rank: int, world: int, tmp: str, spec: dict) -> None:
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    store = dist.FileStore(str(tmp / "rendezvous"), world)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RDV_TIMEOUT_S),
+    )
+    try:
+        out = {"rank": rank}
+        out["step"] = _steps(rank, tmp, spec["step"])
+        out["kd"] = _kd(rank, spec["kd"])
+        out["eval"] = _eval(spec["eval"])
+        torch.save(out, tmp / f"out_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _steps(rank: int, tmp: Path, spec: dict) -> list:
+    from taseg_tpu_torch.engine import Trainer, to_device
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params
+
+    tr = Trainer(
+        spec["cfg"], spec["params"], device="cpu", batch_size=spec["global_batch"], seed=9,
+        point_capacity=spec["cap"], iters_per_epoch=spec["iters_per_epoch"],
+        total_epochs=spec["total_epochs"],
+    )
+    got = []
+    for i in range(spec["steps"]):
+        arrays = dict(np.load(tmp / "shards" / f"step{i}_rank{rank}.npz"))
+        arrays = to_device(arrays, torch.device("cpu"), ("point_coords", "point_feats", "labels"))
+        r = tr.train_on(arrays)
+        r["variables"] = export_flax_params(tr.model)
+        got.append(r)
+    return got
+
+
+def _kd(rank: int, spec: dict) -> dict:
+    from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader
+    from taseg_tpu_torch.engine import Trainer
+
+    tr = Trainer(
+        spec["cfg"], spec["student"], device="cpu", batch_size=2, point_capacity=spec["cap"],
+        teacher_capacity=spec["cap"], seed=9, iters_per_epoch=1, total_epochs=3,
+    )
+    tr.set_teacher(*spec["teacher"])
+    reader = SyntheticMsKittiReader(length=2, n_points=1500, seed=1, kd=True)
+    r = tr.step([reader[rank]])
+    return {"loss": r["loss"], "state": _flat_state(tr.model)}
+
+
+def _eval(spec: dict) -> np.ndarray:
+    from taseg_tpu_torch.data import build_dataloader
+    from taseg_tpu_torch import parallel
+    from taseg_tpu_torch.engine import Trainer, _NullWriter
+
+    cfg = spec["cfg"]
+    val = build_dataloader(
+        cfg["DATA"], training=False, scans_per_shard=1,
+        process_index=parallel.rank(), process_count=parallel.world_size(),
+    )
+    tr = Trainer(
+        cfg, spec["params"], device="cpu", iters_per_epoch=1, val_loader=val,
+        output_dir=spec["output_dir"],
+    )
+    tr._writer = _NullWriter()  # TensorBoard's import alone takes ~15 s here
+    return tr.evaluate()["hist"]
+
+
+if __name__ == "__main__":
+    sys.exit("run through tests/test_torch_ddp.py")
