@@ -167,6 +167,18 @@ checks them:
      torch.distributed and 2 in a NCCL process group of world size 1:
      losses, grad norms, level counts, parameters and BN statistics
      bit-equal; each run's ms per step and the phase's seconds;
+  5j. the range view (tools/cfgs/range/semantic_kitti/salsanext_res34.yaml:
+     SalsaNext at base 32 on 64 x 512 images, f32) on the same scans:
+     `Segmenter.predict` counted (K9, the KNN clean-up, once a scan and
+     no other kernel), finite logits, labels in range, serving by stage
+     (host, forward, K9, mapping); K9 at a real scan's shapes
+     array-equal to its plain version on the card and on the CPU, with
+     kernel, device, plain and bound times; a small scan card vs CPU
+     (logits, two f32 steps); 3 adamW + onecycle steps at the recipe's
+     batch of 30 by stage with the peak memory; the salsanext_tiny
+     recipe through the loader for 4 epochs, its loss falling; FIDNet
+     and RangeNet++ at their recipes' widths: a counted scan and a step
+     at batch 30 each; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -186,7 +198,8 @@ checks them:
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
      per step (`tiaf`), with the 3xTF32 / CUDA-core route call beside K2
-     and K4 at K offsets.
+     and K4 at K offsets; K9 (`knn`) with SalsaNext's serving launches
+     and its times at one scan.
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -364,6 +377,13 @@ FSA_ROUNDS = 2  # serving samples: FSA_ROUNDS * N_SCANS scans
 HARNESS_TRAIN_SCANS = 6
 HARNESS_EVAL_SCANS = 3
 HARNESS_POINT_CAPACITY = 131072
+
+# the range view (phase 5j): serving samples, the recipes' batch per
+# card, timed steps, and the tiny recipe's epochs through the loader
+RANGE_ROUNDS = 4
+RANGE_BATCH = 30
+RANGE_STEPS = 3
+RANGE_TINY_EPOCHS = 4
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -4251,6 +4271,266 @@ def phase_ddp_one_rank(scans) -> dict:
     return {"plain_ms": plain[2], "nccl_ms": nccl[2], "seconds": seconds}
 
 
+def range_scan_split(seg, scans, rounds: int, label: str) -> dict:
+    """A range model's serving per scan after warm-up, by stage: host
+    (projection and collate, host clock), forward and K9 (CUDA events),
+    the mapping back to the points and the copy to the host; median over
+    `rounds` passes over the scans."""
+    import numpy as np
+    import torch
+
+    samples = {"end_to_end": [], "host": [], "forward": [], "knn": [], "map": []}
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(rounds):
+        for s in scans:
+            t0 = time.perf_counter()
+            a = seg.collate([s])
+            t1 = time.perf_counter()
+            e[0].record()
+            lg = seg.forward(a, None)
+            e[1].record()
+            lab = seg.point_labels(a, lg)
+            e[2].record()
+            e[2].synchronize()
+            t2 = time.perf_counter()
+            seg.map_to_points(a, lg, lab)
+            t3 = time.perf_counter()
+            samples["end_to_end"].append((t3 - t0) * 1e3)
+            samples["host"].append((t1 - t0) * 1e3)
+            samples["forward"].append(e[0].elapsed_time(e[1]))
+            samples["knn"].append(e[1].elapsed_time(e[2]))
+            samples["map"].append((t3 - t2) * 1e3)
+    med = {k: float(np.median(v)) for k, v in samples.items()}
+    log(f"{label}serving over {len(samples['host'])} scans (ms per scan, median): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; {1e3 / med['end_to_end']:.3f} scans/s end to end")
+    return med
+
+
+def range_train_split(trainer, scans, others, steps: int, label: str) -> dict:
+    """`steps` train steps after one warm-up, by stage (host collate on
+    the host clock; forward with the loss, backward, optimizer with CUDA
+    events), their losses, and the peak device memory."""
+    import numpy as np
+    import torch
+
+    trainer.step(scans, others)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = {"end_to_end": [], "host": [], "forward_loss": [], "backward": [], "optimizer": []}
+    losses = []
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        arrays = trainer.collate(scans, others)
+        t1 = time.perf_counter()
+        e[0].record()
+        loss = trainer.forward(arrays, None)
+        e[1].record()
+        trainer.backward(loss)
+        e[2].record()
+        g_norm, _ = trainer.update()
+        e[3].record()
+        losses.append(float(loss.detach()))
+        split["end_to_end"].append((time.perf_counter() - t0) * 1e3)
+        split["host"].append((t1 - t0) * 1e3)
+        for k, (a, b) in zip(("forward_loss", "backward", "optimizer"), zip(e, e[1:])):
+            split[k].append(a.elapsed_time(b))
+        if not (np.isfinite(losses[-1]) and np.isfinite(float(g_norm))):
+            raise AssertionError(f"{label}: non-finite loss {losses[-1]} or grad norm {float(g_norm)}")
+    med = {k: float(np.median(v)) for k, v in split.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: {steps} steps of {len(scans)} images (ms per step, median): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; losses {losses}; peak device memory {peak:.2f} GiB")
+    return {**med, "losses": losses, "peak_gib": peak}
+
+
+def phase_range(scans) -> dict:
+    """The range view (5j): SalsaNext at the full width of
+    tools/cfgs/range/semantic_kitti/salsanext_res34.yaml (base 32, 64 x
+    512 images, f32) on the synthetic 120 000-point scans:
+
+      * `Segmenter.predict` of the scans, one per batch, counted: K9 once
+        per scan and nothing else; finite (N, 20) logits, labels in range;
+        serving by stage (`range_scan_split`);
+      * K9 at the main path's shapes against its plain version on the
+        same inputs (on the card and on the CPU), labels array-equal, with
+        its time, device time, plain time and bound;
+      * a small scan (16 x 128 images) card vs CPU: f32 logits within
+        1e-3 of their scale; two f32 train steps (dropout off on both
+        sides), loss and grad norm within tolerances from measurement;
+      * RANGE_STEPS adamW + onecycle steps at batch RANGE_BATCH (the
+        recipe's) by stage, finite, with the peak memory;
+      * the salsanext_tiny recipe through `build_dataloader` and
+        `Trainer.train` for RANGE_TINY_EPOCHS epochs: the mean loss of
+        the last epoch under the first's;
+      * FIDNet (fidnet_res34) and RangeNet++ (rangenet_darknet53): one
+        counted scan each (K9 once) and RANGE_STEPS steps at batch
+        RANGE_BATCH, with their peak memory;
+      * the phase's seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import FIDNET_RES34, RANGENET_DARKNET53, SALSANEXT_RES34, SALSANEXT_TINY
+    from taseg_tpu_torch.data import build_dataloader
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.models.layers import Dropout
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.knn import knn_postprocess, knn_postprocess_plain
+    from taseg_tpu_torch.range_step import range_point_labels
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    n_cls = SALSANEXT_RES34["MODEL"]["NUM_CLASS"]
+
+    def weights(cfg):
+        p, st = init_params_numpy(cfg, seed=SEED)
+        return {"params": p, "batch_stats": st}
+
+    def serve_counted(cfg, variables, label):
+        seg = Segmenter(cfg, variables)
+        seg.predict(scans[:1])  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = seg.predict(scans)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check_launches(launches, {"knn": 1}, len(scans), f"{label} serving")
+        for s, o in zip(scans, res):
+            n = len(s["xyzret"])
+            if o["logits"].shape != (n, n_cls) or o["labels"].shape != (n,):
+                raise AssertionError(f"{label}: logits {o['logits'].shape} labels {o['labels'].shape}")
+            if not np.isfinite(o["logits"]).all():
+                raise AssertionError(f"{label}: non-finite logits")
+            if o["labels"].dtype != np.int32 or o["labels"].min() < 0 or o["labels"].max() >= n_cls:
+                raise AssertionError(f"{label}: labels out of range")
+        log(f"{label} serving: {len(scans)} scans of {len(scans[0]['xyzret'])} points, launches "
+            f"{ {k: v for k, v in launches.items() if v} } (K9 once a scan, nothing else)")
+        return seg, launches
+
+    # serving, counted, and by stage
+    variables = weights(SALSANEXT_RES34)
+    seg, launches = serve_counted(SALSANEXT_RES34, variables, "salsanext")
+    out["launches"] = launches["knn"]
+    out["serve"] = range_scan_split(seg, scans, RANGE_ROUNDS, "salsanext ")
+
+    # K9 at the main path's shapes against its plain version
+    arrays = seg.collate(scans[:1])
+    logits = seg.forward(arrays, None)
+    pix = logits.argmax(-1).to(torch.int32)
+    args = (
+        (arrays["scan_t"][..., 4] * 80.0).contiguous(), arrays["unproj_range_t"], pix,
+        arrays["px_t"], arrays["py_t"], arrays["img_t"],
+    )
+    kern = lambda: knn_postprocess(*args, num_classes=n_cls)
+    plain = lambda: knn_postprocess_plain(*args, num_classes=n_cls)
+    got, want = kern(), plain()
+    cpu = knn_postprocess(*(a.cpu() for a in args), num_classes=n_cls)
+    again = kern()
+    if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu) and torch.equal(got, again)):
+        raise AssertionError(
+            f"K9: {int((got != want).sum())} labels differ from the plain version on the card, "
+            f"{int((got.cpu() != cpu).sum())} from the CPU's, {int((got != again).sum())} on repeat"
+        )
+    if not torch.equal(got, range_point_labels(arrays, logits, n_cls)):
+        raise AssertionError("K9: the engine's call differs from the direct one")
+    p_pts = args[1].shape[0]
+    b, h, w = args[0].shape
+    # per point its range, column, row and image in and its label out;
+    # each pixel's range and label (the centre's label among them); the
+    # window's 25 weights
+    nbytes = p_pts * (4 * 4 + 4) + b * h * w * (4 + 4) + 25 * 4
+    bound, by = bound_ms(nbytes, 0, "float32")
+    changed = float((got != pix[args[5].long(), args[4].long(), args[3].long()]).float().mean())
+    k9 = {
+        "max_abs_err": 0.0, "ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 20),
+        "device_ms": device_ms(kern, ("knn_postproc_kernel",), 20), "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "points": p_pts, "image": [b, h, w],
+        "bytes": nbytes, "changed_share": changed,
+    }
+    out["knn"] = k9
+    log(f"K9 knn at {p_pts} points, {b} x {h} x {w} image: labels equal to the plain version's "
+        f"(card and CPU) and on repeat; {fmt_ms(k9['ms'])} (device {fmt_ms(k9['device_ms'])}), plain "
+        f"{fmt_ms(k9['plain_ms'])}, bound {k9['bound_ms']:.5f} ms ({by}, {nbytes} bytes), library "
+        f"none (no one call); {changed:.4f} of the points relabelled")
+
+    # a small scan, card vs CPU: logits, then two f32 train steps
+    small_cfg = {**SALSANEXT_RES34, "DATA": {**SALSANEXT_RES34["DATA"], "H": 16, "W": 128}}
+    small = make_scans(1, n_points=8000, seed=SEED + 1)
+    lg = {dev: Segmenter(small_cfg, variables, device=dev).predict(small)[0]["logits"]
+          for dev in ("cuda", "cpu")}
+    d = float(np.abs(lg["cuda"] - lg["cpu"]).max())
+    scale = max(1.0, float(np.abs(lg["cpu"]).max()))
+    if not d <= 1e-3 * scale:
+        raise AssertionError(f"salsanext: small-scan logits card vs CPU {d:.3e} (scale {scale:.3e})")
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(small_cfg, variables, device=dev, iters_per_epoch=5, total_epochs=2,
+                     batch_size=1, seed=SEED)
+        for m in tr.model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        steps[dev] = [tr.step(small) for _ in range(2)]
+    # per step (loss, grad norm) relative tolerances, from measurement: the
+    # step is ill-conditioned (the boundary loss's max pools over flat
+    # regions of empty pixels tie, and Adam's first update moves every
+    # weight by about the LR whatever its gradient): on the CPU alone a
+    # 1e-7 relative change of the weights moves the step-0 grad norm by
+    # 3.5e-3, and the thread count moves step 1's loss by 3e-4 and its grad
+    # norm by 1.7e-2; on an H100 the card was 2.9e-3 and 6.8e-2 off the CPU
+    for i, (a, c) in enumerate(zip(steps["cuda"], steps["cpu"])):
+        tol_loss, tol_norm = ((1e-5, 1e-2), (1e-3, 0.2))[i]
+        if abs(a["loss"] - c["loss"]) > tol_loss * abs(c["loss"]) or \
+                abs(a["grad_norm"] - c["grad_norm"]) > tol_norm * abs(c["grad_norm"]):
+            raise AssertionError(f"salsanext: small step {i} card {a} vs CPU {c}")
+    log(f"salsanext small scan card vs CPU: max|dlogit| {d:.3e} (scale {scale:.3e}); two f32 steps "
+        f"loss {[x['loss'] for x in steps['cuda']]} vs {[x['loss'] for x in steps['cpu']]}, grad norm "
+        f"{[x['grad_norm'] for x in steps['cuda']]} vs {[x['grad_norm'] for x in steps['cpu']]}")
+
+    # batch-30 adamW + onecycle steps
+    del seg
+    torch.cuda.empty_cache()
+    batch = make_scans(RANGE_BATCH, seed=SEED + 30)
+    others = batch[1:] + batch[:1]
+    tr = Trainer(SALSANEXT_RES34, variables, iters_per_epoch=10,
+                 total_epochs=SALSANEXT_RES34["OPTIM"]["NUM_EPOCHS"], batch_size=RANGE_BATCH, seed=SEED)
+    out["train"] = range_train_split(tr, batch, others, RANGE_STEPS, "salsanext train (adamW, onecycle)")
+    del tr
+    torch.cuda.empty_cache()
+
+    # the tiny recipe through the loader: the loss falls
+    cfg = SALSANEXT_TINY
+    loader = build_dataloader(cfg["DATA"], training=True, scans_per_shard=1, modality="range")
+    tr = Trainer(cfg, None, train_loader=loader, total_epochs=RANGE_TINY_EPOCHS, seed=SEED,
+                 output_dir=REPO / "build" / "range_tiny")
+    hist = [tr.train_one_epoch(e)["loss"] for e in range(RANGE_TINY_EPOCHS)]
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError(f"salsanext_tiny: epoch mean losses {hist} do not fall")
+    log(f"salsanext_tiny through the loader: {len(loader)} steps an epoch, epoch mean losses {hist}")
+    del tr
+    shutil.rmtree(REPO / "build" / "range_tiny", ignore_errors=True)
+
+    # FIDNet and RangeNet++ at their recipes' widths
+    for name, cfg in (("fidnet", FIDNET_RES34), ("rangenet", RANGENET_DARKNET53)):
+        v = weights(cfg)
+        seg, _ = serve_counted(cfg, v, name)
+        out[name] = {"serve": range_scan_split(seg, scans[:1], 2, f"{name} ")}
+        del seg
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, v, iters_per_epoch=10, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"],
+                     batch_size=RANGE_BATCH, seed=SEED)
+        out[name]["train"] = range_train_split(tr, batch, others, 1, f"{name} train (adamW, onecycle)")
+        del tr
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"range phase (5j): {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -4420,6 +4700,10 @@ def main() -> int:
     # 5i. the DDP step on NCCL at world size 1, bit-equal to the plain step
     ddp = phase_ddp_one_rank(scans)
 
+    # 5j. the range view: SalsaNext serving with K9 (counted), K9 against
+    # its plain version, adamW steps at batch 30, FIDNet and RangeNet++
+    rng = phase_range(scans)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -4583,7 +4867,18 @@ def main() -> int:
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")
     log(f"tiaf phase (5g): {tiaf['seconds']:.1f} s")
-    log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s")
+    # K9, the range view's KNN clean-up: SalsaNext's serving launches (one
+    # a scan), its times at one 120 000-point scan on a 64 x 512 image
+    k9 = rng["knn"]
+    kernels.append({
+        "name": "knn", "route": "cuda", "source": "taseg_tpu_torch/csrc/knn_postproc.cu",
+        "replaces": "taseg_tpu/models/range2d/postproc.py:19", "launches": rng["launches"],
+        **{k: k9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per": "scan (SalsaNext serving, 64 x 512)", "device_ms_per_scan": k9["device_ms"],
+        "points": k9["points"], "image": k9["image"], "bytes": k9["bytes"],
+    })
+    log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s; "
+        f"range phase (5j): {rng['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

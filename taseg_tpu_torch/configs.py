@@ -647,6 +647,72 @@ MINKUNET_SYNTHETIC = {
     },
 }
 
+# tools/cfgs/range/semantic_kitti/{salsanext_res34, fidnet_res34,
+# rangenet_darknet53}.yaml: the range view's recipes, 64 x 512 images,
+# adamW on the onecycle schedule (LR = LR_PER_SAMPLE x global batch;
+# LEARNING_RATE and WARMUP_EPOCH are unread, as in JAX), batch 30 per
+# card; the mixes' IF_RANGE_* are truthy flags (each taken with
+# probability 0.5)
+_RANGE_KITTI_DATA = {
+    "DATASET": "semantickitti", "DATA_PATH": "/data/SemanticKITTI/dataset/sequences",
+    "H": 64, "W": 512, "IF_RANGE_MIX": 0.9, "IF_RANGE_SHIFT": 0.9, "IF_RANGE_PASTE": 0.9,
+    "IF_RANGE_UNION": 0.0,
+}
+_RANGE_LOSS = {"TOP_K_PERCENT": 1.0, "LS_WEIGHT": 3.0, "BD_WEIGHT": 1.0}
+_ADAMW_ONECYCLE = {
+    "BATCH_SIZE_PER_GPU": 30, "NUM_EPOCHS": 50, "WARMUP_EPOCH": 10, "GRAD_NORM_CLIP": 10.0,
+    "OPTIMIZER": "adamW", "WEIGHT_DECAY": 0.01, "LR_PER_SAMPLE": 0.0025,
+    "LEARNING_RATE": 0.0025, "SCHEDULER": "onecycle",
+}
+
+
+def _range_kitti(name: str, **model) -> dict:
+    return {
+        "MODALITY": "range",
+        "DATA": dict(_RANGE_KITTI_DATA),
+        "MODEL": {
+            "NAME": name, "IN_FEATURE_DIM": 6, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+            **model, "LOSS_CONFIG": dict(_RANGE_LOSS),
+        },
+        "OPTIM": dict(_ADAMW_ONECYCLE),
+    }
+
+
+SALSANEXT_RES34 = _range_kitti("SalsaNext")
+FIDNET_RES34 = _range_kitti("FIDNet")
+RANGENET_DARKNET53 = _range_kitti("RangeNet", IF_AUX=False)
+# tools/cfgs/range/nuscenes/cenet_res34.yaml: CENet with its aux heads on
+# nuScenes' 32 x 1920 images; the nuScenes reader is not ported, so the
+# loader raises (ROADMAP Queue 1 item 6)
+CENET_RES34 = {
+    "MODALITY": "range",
+    "DATA": {
+        "DATASET": "nuscenes", "DATA_PATH": "/data/nuscenes", "H": 32, "W": 1920,
+        "IF_RANGE_MIX": 0.9, "IF_RANGE_SHIFT": 0.9, "IF_RANGE_PASTE": 0.9, "IF_RANGE_UNION": 0.0,
+    },
+    "MODEL": {
+        "NAME": "CENet", "IN_FEATURE_DIM": 6, "NUM_CLASS": 17, "IGNORE_LABEL": 0, "IF_AUX": True,
+        "LOSS_CONFIG": dict(_RANGE_LOSS),
+    },
+    "OPTIM": {**_ADAMW_ONECYCLE, "BATCH_SIZE_PER_GPU": 1},
+}
+# tools/cfgs/range/synthetic/salsanext_tiny.yaml: the range view's CLI
+# smoke recipe (SalsaNext at full width on 16 x 128 images of 8 synthetic
+# 4000-point scans, sgd on the warmup-cosine schedule)
+SALSANEXT_TINY = {
+    "MODALITY": "range",
+    "DATA": {"DATASET": "synthetic", "LENGTH": 8, "N_RAW_POINTS": 4000, "H": 16, "W": 128},
+    "MODEL": {
+        "NAME": "SalsaNext", "IN_FEATURE_DIM": 6, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+        "IF_DIST": True, "LOSS_CONFIG": dict(_RANGE_LOSS),
+    },
+    "OPTIM": {
+        "BATCH_SIZE_PER_GPU": 1, "NUM_EPOCHS": 1, "OPTIMIZER": "sgd", "LR_PER_SAMPLE": 0.01,
+        "WEIGHT_DECAY": 0.0001, "MOMENTUM": 0.9, "SCHEDULER": "linear_warmup_with_cosdecay",
+        "WARMUP_EPOCH": 1,
+    },
+}
+
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
     "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10,
@@ -671,4 +737,9 @@ RECIPES = {
     "tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr5.yaml": SPVCNN_MK18_CR5,
     "tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml": RPVNET_MK34_CR17_5,
     "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr5.yaml": CYLINDER_CY480_CR5,
+    "tools/cfgs/range/semantic_kitti/salsanext_res34.yaml": SALSANEXT_RES34,
+    "tools/cfgs/range/semantic_kitti/fidnet_res34.yaml": FIDNET_RES34,
+    "tools/cfgs/range/semantic_kitti/rangenet_darknet53.yaml": RANGENET_DARKNET53,
+    "tools/cfgs/range/nuscenes/cenet_res34.yaml": CENET_RES34,
+    "tools/cfgs/range/synthetic/salsanext_tiny.yaml": SALSANEXT_TINY,
 }

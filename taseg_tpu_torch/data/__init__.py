@@ -20,6 +20,11 @@ distillation pairs (`loader.teacher_capacity`, `loader.kd_max_voxel`), and
 TIAF (`semantickitti_ms_mm`, `synthetic_ms_mm`) on `MsMmVoxelPipeline`,
 whose shard also carries the FOV cloud (`loader.fov_capacity` rows), its
 pixel coordinates and the camera images with their targets.
+The range view (`MODALITY: range`, SalsaNext, FIDNet, CENet, RangeNet)
+runs on `RangeViewPipeline`: its shard holds the (B, H, W, 6) images,
+their labels and masks and each point's pixel and range; in training
+each scan's mixes draw their second scan from the loader's generator,
+as JAX's `_make_batch` does.
 The readers and pipelines of the other datasets and modalities are not
 ported yet and raise, naming their ROADMAP item.
 """
@@ -36,6 +41,7 @@ import numpy as np
 from .augment import AugParams
 from .cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .fusion_dataset import FusionPipeline
+from .range_dataset import RangeViewPipeline
 from .semantickitti.reader import SemanticKittiReader
 from .semantickitti.reader_ms import MsKdKittiReader, MultiScanKittiReader, SmsaKittiReader
 from .synthetic import SyntheticKittiReader, SyntheticMsKittiReader, SyntheticTiafReader
@@ -150,7 +156,7 @@ def build_reader(data_cfgs, training: bool):
     raise NotImplementedError(f"dataset {dataset!r}")
 
 
-_LABEL_FIELDS = ("labels", "raw_labels", "image_labels")
+_LABEL_FIELDS = ("labels", "raw_labels", "label", "point_labels", "image_labels")
 # the sub-samples of a multi-scan (frame, fused), a KD (student, teacher)
 # and a TIAF (main, fov) sample, and a fused sample's back-reference to
 # its pair
@@ -296,6 +302,20 @@ class VoxelLoader:
 
     def _make_batch(self, idxs, n_real=None):
         n_real = len(idxs) if n_real is None else n_real
+        if isinstance(self.pipeline, RangeViewPipeline):
+            # the mixes' second scan, drawn from the loader's generator in
+            # training (JAX data/__init__.py:346-359)
+            samples = []
+            for i in idxs:
+                other = (
+                    self.reader[int(self.rng.integers(0, len(self.reader)))]
+                    if self.pipeline.training else None
+                )
+                samples.append(self.pipeline(self.reader[int(i)], other))
+            (shard,) = self._pad_and_shard(samples, n_real)
+            c = self.pipeline.collate(shard)
+            meta = [{"offsets": c.pop("offsets"), "samples": c.pop("samples")}]
+            return self._mark_padding((c, meta), n_real)
         samples = [
             self.pipeline(self.reader[int(i)], aug=self.fixed_aug)
             for i in idxs
@@ -372,10 +392,6 @@ class VoxelLoader:
             self.reader.resample()
 
 
-# pipeline kinds and modalities of the JAX package the port has not yet
-_KIND_NOT_PORTED = {
-    "range": "Queue 1 item 6 (range-view family)",
-}
 
 
 def build_dataloader(
@@ -390,7 +406,10 @@ def build_dataloader(
     process_index: int = 0,
     process_count: int = 1,
 ) -> VoxelLoader:
-    """The `voxel` pipeline, the `fusion` one (RPVNet: the voxel sample,
+    """The `range` pipeline (the range view: DATA.H x DATA.W images,
+    64 x 2048 by default, the mixes' flags DATA.IF_RANGE_SHIFT / _MIX /
+    _PASTE / _UNION read as truthy flags, point capacity 0, as JAX
+    :492-507), the `voxel` pipeline, the `fusion` one (RPVNet: the voxel sample,
     the DATA.H x DATA.W range image and the voxels' pixel coordinates),
     the `cylinder` one (Cylinder_TS: the polar grid DATA.GRID_SIZE, else
     CYLINDER_GRID_SIZE, else 480 x 360 x 32, with JAX's default
@@ -415,13 +434,16 @@ def build_dataloader(
             pipeline_kind = "mm"
         else:
             pipeline_kind = "voxel"
-    if pipeline_kind in _KIND_NOT_PORTED:
-        raise _not_ported(
-            f"the {pipeline_kind!r} pipeline", _KIND_NOT_PORTED[pipeline_kind]
-        )
-    if pipeline_kind not in ("voxel", "fusion", "cylinder", "kd", "mm"):
+    if pipeline_kind not in ("voxel", "fusion", "cylinder", "kd", "mm", "range"):
         raise NotImplementedError(f"pipeline kind {pipeline_kind!r}")
     reader = build_reader(data_cfgs, training)
+    shard = dict(
+        n_shards=n_shards, scans_per_shard=scans_per_shard, shuffle=training,
+        drop_last=training, process_index=process_index, process_count=process_count,
+    )
+    if pipeline_kind == "range":
+        pipeline = RangeViewPipeline.from_cfg(data_cfgs, training)
+        return VoxelLoader(reader, pipeline, point_capacity=0, **shard)
     kw = dict(
         voxel_size=data_cfgs.get("VOXEL_SIZE", 0.05),
         training=training,
@@ -449,17 +471,7 @@ def build_dataloader(
     cap = point_capacity or int(
         data_cfgs.get("NUM_POINTS", 80_000) * scans_per_shard
     )
-    loader = VoxelLoader(
-        reader,
-        pipeline,
-        n_shards=n_shards,
-        scans_per_shard=scans_per_shard,
-        point_capacity=cap,
-        shuffle=training,
-        drop_last=training,
-        process_index=process_index,
-        process_count=process_count,
-    )
+    loader = VoxelLoader(reader, pipeline, point_capacity=cap, **shard)
     if pipeline_kind == "kd":
         loader.teacher_capacity = int(data_cfgs.get("TEACHER_NUM_POINTS", cap))
         loader.kd_max_voxel = int(data_cfgs.get("MAX_VOXEL", 3000))

@@ -34,6 +34,11 @@ per-raw-point logits and labels.  A batch goes through four stages:
                for a fused cloud only the current frame's points, the
                first `num_frame_points` (JAX engine.py:700-710).
 
+A config of a range model (SalsaNext, FIDNet, CENet, RangeNet) gets a
+`range_step.RangeSegmenter` from `Segmenter(...)` and a
+`range_step.RangeTrainer` from `Trainer(...)`: images, no topology, and
+K9's clean-up at the points.
+
 `Trainer`'s evaluation runs stages 2-4 through the same functions
 (`model_topology`, `eval_logits`, `point_logits`) on its own model,
 switched to eval mode and back (`eval_mode`).
@@ -65,6 +70,7 @@ from . import parallel
 from ._device import resolve_device
 from .data.cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .data.fusion_dataset import FusionPipeline
+from .data.range_dataset import RangeViewPipeline
 from .data.voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
 from .data.voxel_mm import MsMmVoxelPipeline
 from .loss import Losses
@@ -73,7 +79,7 @@ from .models.layers import seed_dropout
 from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology, host_nonneg
 from .models.voxel.minkunet_mm import TRAINABLE_PREFIXES, TiafInputs, tiaf_inputs
-from .models import build_segmentor
+from .models import RANGE_SEGMENTORS, build_segmentor
 from .optim import build_optimizer
 from .utils import storage
 from .utils.common import StepTimer, create_logger
@@ -141,6 +147,11 @@ def _check_levels(topo, caps: UNetCapacities, what: str, over_ranks: bool = Fals
 FUSION_KEYS = ("range_image", "range_pxpy")
 
 
+def is_range_model(model: torch.nn.Module) -> bool:
+    """Whether `model` is one of the range view's 2D segmentors."""
+    return isinstance(model, tuple(RANGE_SEGMENTORS.values()))
+
+
 def to_device(arrays: dict, device, keys=("point_coords", "point_feats")) -> dict:
     """Add `<key>_t` device tensors of the collated numpy arrays (and of
     the range images and pixel coordinates of a fusion shard), and
@@ -187,7 +198,10 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
     the MsVoxelPipeline for the models of the fused cloud (MS_MODELS; the
     MsKdVoxelPipeline with DATA.MAX_VOXEL pairs per scan to train
     MinkUNetMsKd), the MsMmVoxelPipeline for TIAF (MinkUNetMsMm), the
-    VoxelPipeline otherwise."""
+    VoxelPipeline otherwise; the RangeViewPipeline (DATA.H x DATA.W,
+    64 x 2048 by default, and the mixes' flags) for the range models."""
+    if is_range_model(model):
+        return RangeViewPipeline.from_cfg(cfg.get("DATA", {}), training, seed)
     if isinstance(model, CylinderTS):
         return CylinderPipeline(grid=grid_from_cfg(cfg["DATA"]), training=training, seed=seed)
     kw = dict(
@@ -269,7 +283,8 @@ class Segmenter:
     MinkUNetMsMm; the last three take reader dicts with the fused cloud,
     `xyzret_ms` (TIAF's also with the camera window: `fov_mask`,
     `fov_rowcol`, `images`, `image_labels`), and return the current
-    frame's points).
+    frame's points).  A range model's config (SalsaNext, FIDNet, CENet,
+    RangeNet) gets a `range_step.RangeSegmenter`.
 
     cfg: dict with the YAML's layout (`configs.py`).  params: the flax
     variables as numpy trees, `{"params": ..., "batch_stats": ...}`
@@ -278,6 +293,13 @@ class Segmenter:
     rows per scan; TIAF's FOV capacity to `fov_points`, at JAX's default
     schedule (`engine.py:230`).
     """
+
+    def __new__(cls, cfg: dict, *args, **kwargs):
+        if cls is Segmenter and cfg["MODEL"].get("NAME") in RANGE_SEGMENTORS:
+            from .range_step import RangeSegmenter
+
+            cls = RangeSegmenter
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -517,6 +539,10 @@ class Trainer:
     same file), and the evaluation histograms are summed (JAX
     `parallel/__init__.py:120-254`).
 
+    A range model's config (SalsaNext, FIDNet, CENet, RangeNet) gets a
+    `range_step.RangeTrainer`, the `range` kind (JAX
+    `parallel/range_step.py`, wired as `engine.py:350-373`).
+
     The harness (JAX `engine.py:539-911`): `train(eval_interval=)` runs
     `train_one_epoch` over the train loader (its prefetch thread runs the
     host stage), saves `checkpoint_epoch_<n>` under CKPT_DIR or
@@ -526,6 +552,13 @@ class Trainer:
     (raw-point histogram, TTA votes, submission files) over the val
     loader.
     """
+
+    def __new__(cls, cfg: dict, *args, **kwargs):
+        if cls is Trainer and cfg["MODEL"].get("NAME") in RANGE_SEGMENTORS:
+            from .range_step import RangeTrainer
+
+            cls = RangeTrainer
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -615,17 +648,23 @@ class Trainer:
             "LOSS_CONFIG",
             {"LOSS_TYPES": ["CELoss", "LovLoss"], "LOSS_WEIGHTS": [1.0, 1.0]},
         )
-        self.criterion = Losses(
-            loss_cfg["LOSS_TYPES"], loss_cfg["LOSS_WEIGHTS"],
-            ignore_index=int(m.get("IGNORE_LABEL", 0)),
-            label_smoothing=float(m.get("LABEL_SMOOTHING", 0.0)),
-        )
+        self.build_criterion(cfg, loss_cfg)
         self.output_dir = Path(output_dir)
         ckpt_root = str(cfg.get("CKPT_DIR", "") or "")
         self.ckpt_dir = (Path(ckpt_root) if ckpt_root else self.output_dir / "ckpt").absolute()
         self.ckptr = storage.CheckpointIO()
         self.start_epoch = 0
         self._writer = None
+
+    def build_criterion(self, cfg: dict, loss_cfg: dict) -> None:
+        """The criterion of MODEL.LOSS_CONFIG: CE with label smoothing +
+        Lovász, ignoring MODEL.IGNORE_LABEL."""
+        m = cfg["MODEL"]
+        self.criterion = Losses(
+            loss_cfg["LOSS_TYPES"], loss_cfg["LOSS_WEIGHTS"],
+            ignore_index=int(m.get("IGNORE_LABEL", 0)),
+            label_smoothing=float(m.get("LABEL_SMOOTHING", 0.0)),
+        )
 
     @property
     def writer(self) -> MetricsWriter:
@@ -662,6 +701,10 @@ class Trainer:
         self.logger.info(f"loaded frozen KD teacher from {path}")
 
     # ---------------- the step ---------------------------------------------
+    def shard_to_device(self, arrays: dict) -> dict:
+        """A collated shard's arrays on the device, its labels with them."""
+        return to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
+
     def collate(self, scans: list) -> dict:
         """Host stage: augment, quantize, dedup, key-sort and pad the scans
         into one shard (with their range images for RPVNet; with the
@@ -674,7 +717,7 @@ class Trainer:
             arrays = self.pipeline.collate(samples, self.point_capacity, self.fov_capacity)
         else:
             arrays = self.pipeline.collate(samples, self.point_capacity)
-        return to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
+        return self.shard_to_device(arrays)
 
     def topology(self, arrays: dict):
         """The train topology of the shard (of the student's, for KD; the
@@ -773,11 +816,16 @@ class Trainer:
         """(global grad norm before the clip, LR applied)."""
         return self.optimizer.step()
 
+    def train_topology(self, arrays: dict):
+        """(the train topology, its level counts maxed over the ranks); a
+        level over capacity raises."""
+        topo = self.topology(arrays)
+        return topo, check_capacity(topo, self.caps, self.fov_caps, over_ranks=True)
+
     def train_on(self, arrays: dict) -> dict:
         """Topology, forward, loss, backward and update on a collated
         shard (`collate`)."""
-        topo = self.topology(arrays)
-        level_nums = check_capacity(topo, self.caps, self.fov_caps, over_ranks=True)
+        topo, level_nums = self.train_topology(arrays)
         loss = self.forward(arrays, topo)
         self.backward(loss)
         g_norm, lr = self.update()
@@ -874,7 +922,7 @@ class Trainer:
         steps = []
         n = len(self.train_loader)
         for it, (arrays, _meta) in enumerate(self.train_loader):
-            arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
+            arrays = self.shard_to_device(arrays)
             timer.data_done()
             out = self.train_on(arrays)
             timer.step_done()
@@ -920,7 +968,7 @@ class Trainer:
         sorted_points = self.val_loader.pipeline.sorted_points
         with eval_mode(self.model):
             for arrays, meta in batches:
-                arrays = to_device(arrays, self.device, ("point_coords", "point_feats", "labels"))
+                arrays = self.shard_to_device(arrays)
                 arrays = arrays.get("student", arrays)
                 topo = model_topology(
                     self.model, arrays, self.eval_caps, sorted_points=sorted_points,
@@ -929,9 +977,36 @@ class Trainer:
                 check_capacity(topo, self.eval_caps, self.eval_fov_caps, over_ranks=True)
                 yield arrays.get("main", arrays), meta, eval_logits(self.model, arrays, topo)
 
+    def _eval_rows(self, arrays: dict, logits: torch.Tensor):
+        """(predicted labels, labels, valid) of a batch's rows."""
+        labels = arrays["labels_t"]
+        valid = torch.arange(labels.shape[0], device=self.device) < arrays["num_points_t"]
+        return logits.argmax(-1), labels, valid
+
     def _point_hist(self, pred: torch.Tensor, sample) -> torch.Tensor:
         labels = torch.from_numpy(sample.raw_labels).to(pred.device)
         return confusion_hist(pred, labels, labels != 0, self.num_class)
+
+    def _point_predictions(self, tta_votes: int, save_score: bool):
+        """Yields (sample, predicted labels, logits to save or None) of
+        each val scan; with tta_votes > 0 the argmax of its votes."""
+        if tta_votes <= 0:
+            for _, meta, logits in self._eval_batches(self.val_loader):
+                for m in meta:
+                    for sample, pt in point_logits(logits, m["offsets"], m["samples"], m.get("padded")):
+                        yield sample, pt.argmax(-1), pt if save_score else None
+            return
+        for per_vote in self.val_loader.iter_tta(tta_votes):
+            votes: dict = {}
+            scans: dict = {}
+            for _, meta, logits in self._eval_batches(per_vote):
+                for m in meta:
+                    for sample, pt in point_logits(logits, m["offsets"], m["samples"], m.get("padded")):
+                        prob = torch.softmax(pt.float(), dim=-1)
+                        votes[sample.name] = votes[sample.name] + prob if sample.name in votes else prob
+                        scans[sample.name] = sample
+            for name, prob in votes.items():
+                yield scans[name], prob.argmax(-1), None
 
     def evaluate_points(
         self,
@@ -951,8 +1026,7 @@ class Trainer:
         hist = torch.zeros((self.num_class, self.num_class), dtype=torch.int64, device=self.device)
         n_scans = 0
 
-        def finish(sample, pred, logits=None):
-            nonlocal hist, n_scans
+        for sample, pred, logits in self._point_predictions(tta_votes, save_score):
             hist += self._point_hist(pred, sample)
             if save_path is not None:
                 if getattr(sample, "token", None) is not None:
@@ -964,24 +1038,6 @@ class Trainer:
                     save_logits(save_path, sample.name, logits.cpu().numpy())
                 save_predictions(save_path, sample.name, pred.cpu().numpy())
             n_scans += 1
-
-        if tta_votes <= 0:
-            for _, meta, logits in self._eval_batches(self.val_loader):
-                for m in meta:
-                    for sample, pt in point_logits(logits, m["offsets"], m["samples"], m.get("padded")):
-                        finish(sample, pt.argmax(-1), pt if save_score else None)
-        else:
-            for per_vote in self.val_loader.iter_tta(tta_votes):
-                votes: dict = {}
-                scans: dict = {}
-                for _, meta, logits in self._eval_batches(per_vote):
-                    for m in meta:
-                        for sample, pt in point_logits(logits, m["offsets"], m["samples"], m.get("padded")):
-                            prob = torch.softmax(pt.float(), dim=-1)
-                            votes[sample.name] = votes[sample.name] + prob if sample.name in votes else prob
-                            scans[sample.name] = sample
-                for name, prob in votes.items():
-                    finish(scans[name], prob.argmax(-1))
         hist = parallel.sum_over_ranks(hist).cpu().numpy()
         n_scans = int(parallel.sum_over_ranks(torch.tensor(n_scans, device=self.device)))
         miou = miou_from_hist(hist, ignore_index=0)
@@ -995,9 +1051,8 @@ class Trainer:
         t0 = time.perf_counter()
         n_batches = 0
         for arrays, _meta, logits in self._eval_batches(self.val_loader):
-            labels = arrays["labels_t"]
-            valid = torch.arange(labels.shape[0], device=self.device) < arrays["num_points_t"]
-            hist += confusion_hist(logits.argmax(-1), labels, valid & (labels != 0), self.num_class)
+            pred, labels, valid = self._eval_rows(arrays, logits)
+            hist += confusion_hist(pred, labels, valid & (labels != 0), self.num_class)
             n_batches += 1
         hist = parallel.sum_over_ranks(hist).cpu().numpy()
         dt = time.perf_counter() - t0

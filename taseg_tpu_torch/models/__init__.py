@@ -4,6 +4,9 @@ dispatch on `MODEL.NAME` (JAX `models/__init__.py:54 build_segmentor`)."""
 from __future__ import annotations
 
 from .fusion.rpvnet import RPVNet
+from .range2d.rangenet import RangeNet
+from .range2d.resnet_range import CENet, FIDNet
+from .range2d.salsanext import SalsaNext
 from .fusion.spvcnn import SPVCNN
 from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
@@ -20,8 +23,12 @@ SEGMENTORS = {
     "MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet, "Cylinder_TS": CylinderTS,
     "MinkUNetMs": MinkUNet, "MinkUNetMsKd": MinkUNet, "MinkUNetMsMm": MinkUNetMsMm,
 }
+# the range view's 2D segmentors (JAX RANGE_SEGMENTORS, models/__init__.py:38),
+# trained and served on the `range` pipeline
+RANGE_SEGMENTORS = {"SalsaNext": SalsaNext, "CENet": CENet, "FIDNet": FIDNet, "RangeNet": RangeNet}
+SEGMENTORS.update(RANGE_SEGMENTORS)
 # the models JAX builds in f32 only: another compute dtype raises
-F32_ONLY = ("Cylinder_TS", "MinkUNetMsMm")
+F32_ONLY = ("Cylinder_TS", "MinkUNetMsMm", *RANGE_SEGMENTORS)
 
 
 def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
@@ -35,8 +42,10 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9) only, as JAX
     (`models/__init__.py:58-64`); MinkUNetMsMm reads `IN_FEATURE_DIM`
     (5), `cr` (1.0), `FOV_CR` (0.5), `IMAGE_BASE` (32) and
-    `ENSEMBLE_TYPE` ('replace') only (:65-75).  Both run in f32: another
-    compute dtype raises.  A name the port has not ported raises, listing
+    `ENSEMBLE_TYPE` ('replace') only (:65-75).  The range models read
+    `IN_FEATURE_DIM` (6), CENet also `IF_AUX` (True), as JAX (:118-126),
+    at their full widths (RangeNet on darknet53).  These run in f32:
+    another compute dtype raises.  A name the port has not ported raises, listing
     those it has."""
     m = cfg["MODEL"]
     name = m.get("NAME", "MinkUNet")
@@ -49,6 +58,11 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
         dtype = compute_dtype or m.get("COMPUTE_DTYPE", "float32")
         if dtype != "float32":
             raise ValueError(f"{name} runs in float32, as the JAX model; got {dtype!r}")
+    if name in RANGE_SEGMENTORS:
+        kw = dict(num_classes=m["NUM_CLASS"], in_channels=m.get("IN_FEATURE_DIM", 6), device=device)
+        if name == "CENet":
+            kw["aux"] = bool(m.get("IF_AUX", True))
+        return RANGE_SEGMENTORS[name](**kw)
     if name == "MinkUNetMsMm":
         return MinkUNetMsMm(
             num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 5), cr=m.get("cr", 1.0),
@@ -79,5 +93,6 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
 
 
 __all__ = [
-    "CylinderTS", "MinkUNet", "MinkUNetMsMm", "RPVNet", "SEGMENTORS", "SPVCNN", "build_segmentor",
+    "CENet", "CylinderTS", "FIDNet", "MinkUNet", "MinkUNetMsMm", "RANGE_SEGMENTORS", "RPVNet",
+    "RangeNet", "SEGMENTORS", "SPVCNN", "SalsaNext", "build_segmentor",
 ]

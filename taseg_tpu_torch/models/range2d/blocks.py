@@ -43,37 +43,84 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, 0.01 * x)
 
 
-def _same_pad(kernel: int, dilation: int) -> int:
-    """flax "SAME" padding at stride 1: the dilated extent minus one,
-    split evenly (every conv of the range blocks has an even total)."""
-    total = (kernel - 1) * dilation
-    if total % 2:
-        raise ValueError(f"kernel {kernel} at dilation {dilation} pads unevenly")
-    return total // 2
+def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """flax "SAME" padding of one dimension: ceil(size / stride) outputs,
+    the total padding they need, the odd one after (an even size at
+    stride 2 pads (0, 1), where torch's symmetric `padding` cannot)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` (NHWC, "SAME" padding, stride 1): kernel (kh, kw,
-    C_in, C_out), bias (C_out,); input and parameters promoted to their
-    common dtype first."""
+    """flax `nn.Conv` (NHWC, "SAME" padding): kernel (kh, kw, C_in,
+    C_out), bias (C_out,) where `use_bias`; input and parameters promoted
+    to their common dtype first.  The padding follows the input's size
+    (`same_pads`); an uneven one is applied with `F.pad` before the
+    conv."""
 
     def __init__(
         self, in_features: int, features: int, kernel=(3, 3), dilation: int = 1,
-        device=None,
+        device=None, *, stride=1, use_bias: bool = True,
     ):
         super().__init__()
         self.dilation = dilation
+        self.stride = _pair(stride)
         kh, kw = kernel
         self.kernel = nn.Parameter(torch.empty((kh, kw, in_features, features), device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
-        self.pad = (_same_pad(kh, dilation), _same_pad(kw, dilation))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.kernel.dtype)
         w = self.kernel.to(dt).permute(3, 2, 0, 1)
-        y = F.conv2d(
-            x.to(dt).permute(0, 3, 1, 2), w, self.bias.to(dt), padding=self.pad,
-            dilation=self.dilation,
+        b = None if self.bias is None else self.bias.to(dt)
+        kh, kw = self.kernel.shape[:2]
+        (t, bo), (l, r) = (
+            same_pads(n, k, s, self.dilation)
+            for n, k, s in zip(x.shape[1:3], (kh, kw), self.stride)
+        )
+        xc = x.to(dt).permute(0, 3, 1, 2)
+        if (t, l) == (bo, r):
+            pad = (t, l)
+        else:
+            xc, pad = F.pad(xc, (l, r, t, bo)), 0
+        y = F.conv2d(xc, w, b, stride=self.stride, padding=pad, dilation=self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax `nn.ConvTranspose` ("SAME", no bias), as `lax.conv_transpose`
+    computes it with `transpose_kernel=False`: the kernel (kh, kw, C_in,
+    C_out) correlated, unflipped, with the stride-dilated input padded
+    by (k + s - 2) split as lax splits it (k - 1 before where s > k - 1,
+    else the ceiling half).  That is torch's `conv_transpose2d` of the
+    flipped kernel with `padding` k - 1 - before, where the split is
+    even (every call here: kernel (1, 4), strides (1, 2) pad (0, 0) and
+    (2, 2), output 2W)."""
+
+    def __init__(self, in_features: int, features: int, kernel=(1, 4), stride=(1, 2), device=None):
+        super().__init__()
+        self.stride = _pair(stride)
+        kh, kw = kernel
+        self.kernel = nn.Parameter(torch.empty((kh, kw, in_features, features), device=device))
+        pads = []
+        for k, s in zip(kernel, self.stride):
+            total = k + s - 2
+            before = k - 1 if s > k - 1 else -(-total // 2)
+            if 2 * before != total:
+                raise ValueError(f"kernel {k} at stride {s} pads unevenly")
+            pads.append(k - 1 - before)
+        self.padding = tuple(pads)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        w = self.kernel.to(dt).permute(2, 3, 0, 1).flip((2, 3))
+        y = F.conv_transpose2d(
+            x.to(dt).permute(0, 3, 1, 2), w, stride=self.stride, padding=self.padding
         )
         return y.permute(0, 2, 3, 1)
 

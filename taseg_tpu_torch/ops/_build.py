@@ -34,7 +34,9 @@ launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
 convs) counts under its own `sparse_conv_k` (`_wgmma`, `_tf32`,
 `_dgrad`, `_dgrad_wgmma`, `_dgrad_tf32` as K2's), so K2's 27-offset
 counts stay those of the 3^3 convs; K4 at K offsets (`sparse_conv_dw`,
-`_tf32`) counts one per call, its split reduction included.
+`_tf32`) counts one per call, its split reduction included.  K9 (`knn`, the
+range view's KNN clean-up) launches one kernel per call, one call per
+batch of scans.
 """
 
 from __future__ import annotations
@@ -97,10 +99,12 @@ LAUNCHES = {
     "sparse_conv_k_tf32": 0,
     "sparse_conv_k_dgrad_tf32": 0,
     "sparse_conv_dw_tf32": 0,
+    "knn": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
     "taseg_join_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -130,6 +134,7 @@ _SIGNATURES = {
     "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
+    "taseg_knn_postproc": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
 
 _lib = None

@@ -11,6 +11,8 @@ checkpoint there.  One process drives one device: `--device` (default
 cuda; cpu runs the plain versions of the kernels).  MinkUNet and SPVCNN
 on the `voxel` pipeline, RPVNet on the `fusion` one and Cylinder_TS on the
 `cylinder` one (as JAX `train.py:102-107` picks them, by model name);
+the range view's SalsaNext, FIDNet, CENet and RangeNet on the `range`
+one (MODALITY range);
 TASeg's temporal stages by dataset: MinkUNetMs on the multi-scan
 pipeline (FSA, SMSA), MinkUNetMsKd on the `kd` one, whose frozen
 teacher is MODEL.TEACHER_CKPT (JAX `train.py:127-128`; a checkpoint of
@@ -37,6 +39,8 @@ log file, metrics and checkpoints:
         --set MODEL.TEACHER_CKPT output/minkunet_ms_tiny/default/ckpt/checkpoint_epoch_0
     python -m taseg_tpu_torch.train \
         --cfg_file tools/cfgs/voxel/synthetic/tiaf_tiny.yaml --epochs 1
+    python -m taseg_tpu_torch.train \
+        --cfg_file tools/cfgs/range/synthetic/salsanext_tiny.yaml
 """
 
 from __future__ import annotations
@@ -46,9 +50,9 @@ import logging
 from pathlib import Path
 
 from . import parallel
-from .data import build_dataloader
+from .data import _NOT_PORTED, build_dataloader
 from .engine import Trainer
-from .models import SEGMENTORS
+from .models import RANGE_SEGMENTORS, SEGMENTORS
 from .utils.common import create_logger
 from .utils.config import apply_overrides, load_config
 
@@ -89,15 +93,27 @@ def check_ported(cfg) -> str:
     otherwise.  The JAX CLI runs SPVCNN (MODALITY fusion) as the `voxel`
     kind, on the voxel pipeline, RPVNet on the `fusion` pipeline and
     Cylinder_TS (MODALITY voxel or cylinder) on the `cylinder` one (JAX
-    engine.py:164-176, train.py:101-107)."""
+    engine.py:164-176, train.py:101-107), the range models with MODALITY
+    range on the `range` one.  A dataset whose reader is not ported
+    (nuScenes, Waymo) raises, naming its ROADMAP item."""
     modality = str(cfg.get("MODALITY", "voxel"))
     name = cfg["MODEL"]["NAME"]
-    ok = ("voxel", "fusion", "cylinder") if name == "Cylinder_TS" else ("voxel", "fusion")
+    if name in RANGE_SEGMENTORS:
+        ok = ("range",)
+    elif name == "Cylinder_TS":
+        ok = ("voxel", "fusion", "cylinder")
+    else:
+        ok = ("voxel", "fusion")
     if name not in SEGMENTORS or modality not in ok:
         raise NotImplementedError(
             f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 item 6; "
-            f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion and "
-            f"cylinder pipelines"
+            f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion, "
+            f"cylinder and range pipelines"
+        )
+    dataset = str(cfg.get("DATA", {}).get("DATASET", "synthetic"))
+    if dataset in _NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset {dataset!r} of {name} is not ported yet: ROADMAP {_NOT_PORTED[dataset]}"
         )
     return modality
 

@@ -1,5 +1,6 @@
 """Weights between the JAX package's flax trees and the port's models
-(MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMsMm).
+(MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMsMm, and the range
+view's SalsaNext, CENet, FIDNet and RangeNet).
 
 `load_flax_params(model, params, batch_stats)` fills a torch model
 from the flax `params` and `batch_stats` trees given as nested dicts of
@@ -9,9 +10,12 @@ SPVCNN's `point_transform_0/Dense_0/kernel`, RPVNet's
 `range_stem/ResContextBlock_0/ConvActBN_0/Conv_0/kernel`, Cylinder_TS's
 `downCntx/a_conv0/kernel` and `logits/bias`, TIAF's
 `image_backbone/image_head/kernel`, `lidar_backbone/stem/SparseConv_0/
-kernel` and `main/stem_0/...`, ...).  Sparse
-conv, 2D conv and Dense kernels are (K, C_in, C_out), (kh, kw, C_in,
-C_out) and (C_in, C_out) on both sides, so nothing is transposed.  Every
+kernel` and `main/stem_0/...`, CENet's `MultiScaleResNetBackbone_0/
+BasicBlock2d_3/ConvBNLeaky_2/Conv_0/kernel`, RangeNet's
+`ConvTranspose_0/kernel`, ...).  Sparse conv, 2D conv, transposed 2D
+conv and Dense kernels are (K, C_in, C_out), (kh, kw, C_in, C_out) (a
+transposed conv's too: flax does not transpose it) and (C_in, C_out) on
+both sides, so nothing is transposed.  Every
 key on either side must be matched, or it raises.
 
 `export_flax_params(model)` is the inverse map: the model's parameters
@@ -23,7 +27,8 @@ uniform(+-1/sqrt(fan*K)) for convs and a sparse conv's bias,
 lecun_uniform for MinkUNet's head,
 flax's default Dense and Conv init (lecun_normal: a normal truncated at 2
 standard deviations over the fan-in, kh * kw * C_in for a 2D conv, zero
-bias) for the Dense layers and RPVNet's range branch, ones and zeros for
+bias where the conv has one) for the Dense layers, RPVNet's range
+branch and the range models, ones and zeros for
 both kinds of BN), so a run on the card needs no JAX.
 """
 
@@ -36,7 +41,7 @@ from torch import nn
 
 from ..models import build_segmentor
 from ..models.layers import Dense, MaskedBatchNorm, SparseConv
-from ..models.range2d.blocks import BatchNorm, Conv
+from ..models.range2d.blocks import BatchNorm, Conv, ConvTranspose
 from ..models.voxel.minkunet import _TriScaleHead
 
 
@@ -122,10 +127,11 @@ def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
                 params[f"{path}/bias"] = rng.uniform(
                     -std, std, tuple(m.bias.shape)
                 ).astype(np.float32)
-        elif isinstance(m, Conv):
+        elif isinstance(m, (Conv, ConvTranspose)):
             kh, kw, ci, co = m.kernel.shape
             params[f"{path}/kernel"] = lecun_normal(rng, kh * kw * ci, (kh, kw, ci, co))
-            params[f"{path}/bias"] = np.zeros(co, np.float32)
+            if getattr(m, "bias", None) is not None:
+                params[f"{path}/bias"] = np.zeros(co, np.float32)
         elif isinstance(m, (MaskedBatchNorm, BatchNorm)):
             c = m.scale.shape[0]
             params[f"{path}/scale"] = np.ones(c, np.float32)

@@ -54,7 +54,11 @@ to the same bits on repeat, at ragged V, all-empty tables and single-row
 tiles too; the autograd Function of the conv over K offsets,
 `segment_max` and a small Cylinder_TS f32 step on the card against the
 CPU.  TASeg's temporal stages: small f32 steps of the tiny FSA and KD
-recipes on the card against the CPU.  A `Segmenter` built on the card
+recipes on the card against the CPU.  The range view: K9 (`knn`, the
+KNN clean-up) equal to its plain version's labels on random scans, all
+ties and class-0 votes; the four range models'
+eval logits and train-mode gradients on the card against the CPU.  A
+`Segmenter` built on the card
 (without this file's `cuda` fixture, which switches TF32 off itself)
 reads both TF32 flags as False.
 """
@@ -1668,3 +1672,87 @@ def test_fsa_and_kd_small_steps_card_equal_cpu(cuda, kd):
     diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
     upd = np.sqrt(sum(((b[k] - z[k]) ** 2).sum() for k in a))
     assert diff <= 3e-2 * upd, diff / upd
+
+
+# ------------------------------------------------------------ the range view
+def _knn_case(case: str, seed: int = 0):
+    """(proj_range (B, H, W), unproj, labels (B, H, W), px, py, img) of 3
+    images of 16 x 48 with 700 points each: random ranges with empty
+    pixels, or every distance 0 ('ties'), or labels all 0 ('class0')."""
+    rng = np.random.default_rng(seed)
+    b, h, w, p = 3, 16, 48, 700
+    r = rng.uniform(0.5, 4.0, (b, h, w)).astype(np.float32)
+    r[rng.random((b, h, w)) < 0.3] = 0.0
+    lab = rng.integers(0, 20, (b, h, w)).astype(np.int32)
+    img = np.repeat(np.arange(b), p).astype(np.int32)
+    px = rng.integers(0, w, b * p).astype(np.int32)
+    py = rng.integers(0, h, b * p).astype(np.int32)
+    u = (r[img, py, px] + rng.normal(0, 0.5, b * p)).astype(np.float32)
+    if case != "random":
+        r, u = np.ones_like(r), np.ones_like(u)
+    if case == "class0":
+        lab[:] = 0
+    return r, u, lab, px, py, img
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "class0"])
+def test_knn_kernel_equals_plain(cuda, case):
+    """K9 (one launch) gives its plain version's labels exactly, and the
+    same bits on repeat."""
+    from taseg_tpu_torch.ops.knn import knn_postprocess
+
+    args = [torch.from_numpy(a) for a in _knn_case(case)]
+    want = knn_postprocess(*args, num_classes=20)
+    before = _build.LAUNCHES["knn"]
+    got = knn_postprocess(*(a.to(cuda) for a in args), num_classes=20)
+    again = knn_postprocess(*(a.to(cuda) for a in args), num_classes=20)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["knn"] == before + 2
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", ["SalsaNext", "FIDNet", "CENet", "RangeNet"])
+def test_range_models_card_equal_cpu(cuda, name):
+    """Each range model (SalsaNext and RangeNet narrow, 16 x 64 images,
+    batch 2), card against CPU (the NHWC views' convs, pools, transposed
+    convs and bilinear resizes, forward and backward): eval logits within
+    1e-4 of their scale; in train mode (dropout off) the gradients of a
+    seeded cotangent, all parameters together, within 5e-2 of their L2
+    norm.  The train-mode gradients are discontinuous (leaky ReLU's kink,
+    batch statistics over as few as 32 values, conv biases before a BN
+    whose exact gradient is 0): on the CPU alone a 1e-7 relative change
+    of the input moves them by 1.7e-5 (SalsaNext), 1.1e-2 (CENet),
+    4.6e-3 (FIDNet) and 3.6e-3 (RangeNet) of their norm, and single
+    entries by up to 49%.  A wrong backward (as torch's CUDA avg_pool2d
+    on a channels-last view, 104% off) is far outside."""
+    from torch_range_narrow import narrow_range_models
+
+    from taseg_tpu_torch.models.layers import Dropout
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy, load_flax_params
+
+    cfg = {"MODEL": {"NAME": name, "NUM_CLASS": 20}}
+    narrow = narrow_range_models(SalsaNext={"base": 8}, RangeNet={"base": 8, "layers": (1, 1, 2, 2, 1)})
+    with narrow as build:
+        p, s = init_params_numpy(cfg, seed=1)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 16, 64, 6)).astype(np.float32)
+    ct = rng.normal(size=(2, 16, 64, 20)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build(cfg, device=dev)
+        load_flax_params(m, p, s)
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        with torch.no_grad():
+            ev = m.eval()(torch.from_numpy(x).to(dev)).cpu()
+        y = m.train()(torch.from_numpy(x).to(dev))
+        y = y[0] if isinstance(y, tuple) else y
+        (y * torch.from_numpy(ct).to(dev)).sum().backward()
+        out[dev] = ev, {k: q.grad.cpu() for k, q in m.named_parameters() if q.grad is not None}
+    (ge, gg), (ce, cg) = out["cuda"], out["cpu"]
+    assert (ge - ce).abs().max() <= 1e-4 * max(ce.abs().max(), 1.0)
+    assert gg.keys() == cg.keys()
+    diff = sum(float(((gg[k] - cg[k]) ** 2).sum()) for k in cg) ** 0.5
+    norm = sum(float((cg[k] ** 2).sum()) for k in cg) ** 0.5
+    assert diff <= 5e-2 * norm, diff / norm

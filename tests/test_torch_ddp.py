@@ -20,9 +20,18 @@ temporary directory, with a rendezvous timeout of 60 s and a wait of
     and BN statistics bit-identical after it.
   * `Trainer.evaluate()` over 2 processes (5 scans: the last global
     batch pads rank 1) gives the single-process confusion histogram.
+  * The range kind: 2 adamW + onecycle steps of SalsaNext at base 8 on
+    16 x 128 images, one augmented scan per rank, dropout off, against
+    JAX's `make_range_train_step` on the 2-device mesh (its dropout
+    patched to the identity here): the ranks' parameters bit-identical,
+    step 0 as `test_torch_range_train.py` holds it, step 1 (ill-conditioned
+    here: see RANGE_TOL) looser, rank 0's BN
+    statistics (each rank keeps its own, as each device does in JAX,
+    whose replicated output is device 0's) within its tolerances.
 
-~55 s on one worker, ~45 s of it JAX compiling and running the 2-device
-step while the two ranks run (at XLA's backend optimisation level 1: the
+~75 s on one worker with the range case (~55 s before it; 286 s in the
+6-worker tier-1 run), most of it JAX compiling and running the 2-device
+steps while the two ranks run (at XLA's backend optimisation level 1: the
 default level took ~95 s, level 0 gave a NaN grad norm).
 """
 
@@ -36,17 +45,23 @@ import torch
 import torch.multiprocessing as mp
 
 import torch_ddp_worker
+from torch_range_narrow import narrow_range_models
 from taseg_tpu.data import build_dataloader as j_build_dataloader
 from taseg_tpu.loss import Losses as JLosses
 from taseg_tpu.models import UNetCapacities as JCaps
 from taseg_tpu.models import build_segmentor as j_build
 from taseg_tpu.optim import build_optimizer as j_build_optimizer
+from taseg_tpu.models.range2d import SalsaNext as JSalsaNext
 from taseg_tpu.parallel import Batch, TrainState, make_mesh, make_train_step
+from taseg_tpu.parallel.range_step import RangeBatch, make_range_train_step
 from taseg_tpu_torch.configs import MINKUNET_MS_KD_TINY, MINKUNET_TINY
 from taseg_tpu_torch.data import build_dataloader
-from taseg_tpu_torch.data.synthetic import synthetic_scan
+from taseg_tpu_torch.data.range_dataset import RangeViewPipeline
+from taseg_tpu_torch.data.synthetic import SyntheticKittiReader, synthetic_scan
+from taseg_tpu_torch.loss.range import range_class_weights
 from taseg_tpu_torch.data.voxel_dataset import VoxelPipeline, collate_shard
 from taseg_tpu_torch.engine import Trainer, _NullWriter
+from taseg_tpu_torch.range_step import RANGE_KEYS
 from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
 
 WORLD = 2
@@ -75,6 +90,18 @@ KD_CFG = {
     "MODEL": {**MINKUNET_MS_KD_TINY["MODEL"], "CAPACITY_SCHEDULE": (1.0,) * 5, "IF_DIST": True},
 }
 EVAL_CFG = {**MINKUNET_TINY, "DATA": {**MINKUNET_TINY["DATA"], "LENGTH": 5}}
+RANGE_CFG = {
+    "MODALITY": "range",
+    "DATA": {"DATASET": "synthetic", "H": 16, "W": 128},
+    "MODEL": {
+        "NAME": "SalsaNext", "NUM_CLASS": 20, "IN_FEATURE_DIM": 6, "IGNORE_LABEL": 0,
+        "LOSS_CONFIG": {"TOP_K_PERCENT": 1.0, "LS_WEIGHT": 3.0, "BD_WEIGHT": 1.0},
+    },
+    "OPTIM": {"OPTIMIZER": "adamW", "WEIGHT_DECAY": 0.01, "LR_PER_SAMPLE": 0.0025,
+              "GRAD_NORM_CLIP": 10.0, "SCHEDULER": "onecycle"},
+}
+RANGE_SCHED = dict(iters_per_epoch=5, total_epochs=2)
+RANGE_WIDTHS = {"SalsaNext": {"base": 8}}
 LOADER_DATA = {"DATASET": "synthetic", "LENGTH": 5, "N_RAW_POINTS": 2000, "VOXEL_SIZE": 0.2,
                "NUM_POINTS": 4096}
 
@@ -96,6 +123,17 @@ def _shards() -> list:
     return out
 
 
+def _range_shards() -> list:
+    """[step][rank] collated range shards of one augmented scan each."""
+    reader = SyntheticKittiReader(length=2 * STEPS * WORLD, n_points=3000, seed=5)
+    pipe = RangeViewPipeline(16, 128, training=True, seed=3)
+    return [
+        [{k: v for k, v in pipe.collate([pipe(reader[2 * (i * WORLD + r)], reader[2 * (i * WORLD + r) + 1])]).items()
+          if k in RANGE_KEYS} for r in range(WORLD)]
+        for i in range(STEPS)
+    ]
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The two ranks, started (not joined) with every input they read."""
@@ -105,6 +143,12 @@ def ranks(tmp_path_factory):
     for i, row in enumerate(shards):
         for r, a in enumerate(row):
             np.savez(tmp / "shards" / f"step{i}_rank{r}.npz", **a)
+    range_shards = _range_shards()
+    for i, row in enumerate(range_shards):
+        for r, a in enumerate(row):
+            np.savez(tmp / "shards" / f"range_step{i}_rank{r}.npz", **a)
+    with narrow_range_models(**RANGE_WIDTHS):
+        rp = init_params_numpy(RANGE_CFG, seed=4)
     p, s = init_params_numpy(CFG, seed=4)
     kd_s, kd_t = init_params_numpy(KD_CFG, seed=4), init_params_numpy(KD_CFG, seed=5)
     ev = init_params_numpy(EVAL_CFG, seed=3)
@@ -115,12 +159,16 @@ def ranks(tmp_path_factory):
                "teacher": kd_t, "cap": 8192},
         "eval": {"cfg": EVAL_CFG, "params": {"params": ev[0], "batch_stats": ev[1]},
                  "output_dir": str(tmp / "eval")},
+        "range": {"cfg": RANGE_CFG, "widths": RANGE_WIDTHS,
+                  "params": {"params": rp[0], "batch_stats": rp[1]},
+                  "global_batch": WORLD, "steps": STEPS, **RANGE_SCHED},
     }
     ctx = mp.start_processes(
         torch_ddp_worker.run, args=(WORLD, str(tmp), spec), nprocs=WORLD, join=False,
         start_method="spawn",
     )
-    state = {"tmp": tmp, "shards": shards, "ctx": ctx, "spec": spec, "out": None}
+    state = {"tmp": tmp, "shards": shards, "range_shards": range_shards, "ctx": ctx, "spec": spec,
+             "out": None}
     yield state
     for proc in ctx.processes:
         if proc.is_alive():
@@ -255,3 +303,61 @@ def test_two_rank_eval_is_the_single_process_histogram(ranks, tmp_path):
     assert want.sum() > 0
     for o in out:
         np.testing.assert_array_equal(o["eval"], want)
+
+
+def _jax_range_steps(shards, params, stats) -> list:
+    import flax.linen as fnn
+
+    lw = RANGE_CFG["MODEL"]["LOSS_CONFIG"]
+    tx = j_build_optimizer({**RANGE_CFG["OPTIM"], "LR": 0.0025 * WORLD}, RANGE_SCHED["iters_per_epoch"],
+                           RANGE_SCHED["total_epochs"], clip_grad_norm=10.0)
+    step = make_range_train_step(
+        JSalsaNext(20, base=8), tx, make_mesh(jax.devices()[:WORLD]),
+        jnp.asarray(range_class_weights("synthetic", 20)), top_k_percent=lw["TOP_K_PERCENT"],
+        ls_weight=lw["LS_WEIGHT"], bd_weight=lw["BD_WEIGHT"], donate=False,
+    )
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    state = TrainState(params=jp, batch_stats=jax.tree_util.tree_map(jnp.asarray, stats),
+                       opt_state=tx.init(jp), step=jnp.int32(0))
+    want = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, deterministic=None, rng=None: x)
+        for i, row in enumerate(shards):
+            batch = RangeBatch(**{k: jnp.asarray(np.stack([a[k] for a in row])) for k in ("scan", "label", "mask")})
+            state, metrics = step(state, batch, jax.random.PRNGKey(i))
+            w = {k: float(v) for k, v in metrics.items()}
+            w["variables"] = (state.params, state.batch_stats)
+            want.append(w)
+    return want
+
+
+# per step: (loss rel, grad norm rel, update L2 rel, BN statistics rel), as
+# test_torch_range_train.py's at step 0; step 1 is ill-conditioned on
+# these shards: in the port alone (the two shards' gradients averaged in
+# one process) a 1e-7 relative change of the weights moves step 1's
+# update by 9.7e-2 and 0.15 of its L2 norm (step 0: 3.3e-2) and its grad
+# norm by 7e-3; against JAX (measured): grad norm 2.3e-3 and 4.1e-2, step
+# 1's update 0.28 of its norm
+RANGE_TOL = [(1e-5, 2e-2, 5e-2, 1e-4), (1e-3, 0.1, 0.5, 5e-2)]
+
+
+def test_two_rank_range_steps_match_jax_two_device_step(ranks):
+    params, stats = ranks["spec"]["range"]["params"].values()
+    want = _jax_range_steps(ranks["range_shards"], params, stats)
+    got, other = (o["range"] for o in _results(ranks))
+    prev = _flat(params)
+    for i, (g, w, (tl, tn, tu, tb)) in enumerate(zip(got, want, RANGE_TOL)):
+        assert g["loss"] == other[i]["loss"] and g["grad_norm"] == other[i]["grad_norm"]
+        assert g["loss"] == pytest.approx(w["loss"], rel=tl), i
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=tn), i
+        (p, s), (jp, js) = g["variables"], w["variables"]
+        x, y = _flat(p), _flat(other[i]["variables"][0])
+        assert x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        a, b = _flat(p), _flat(jp)
+        diff = np.sqrt(sum(np.sum((a[k] - b[k]).astype(np.float64) ** 2) for k in a))
+        upd = np.sqrt(sum(np.sum((b[k] - prev[k]).astype(np.float64) ** 2) for k in a))
+        assert diff <= tu * upd, (i, diff, upd)
+        sa, sb = _flat(s), _flat(js)
+        for k in sa:
+            assert np.abs(sa[k] - sb[k]).max() <= tb * max(np.abs(sb[k]).max(), 1e-3), (i, k)
+        prev = b

@@ -2,7 +2,8 @@
 path's loss, optim and f3conv, models/fusion, RPVNet's range blocks,
 point_range and fusion pipeline, Cylinder3D's model, pipeline and the
 K-offset conv entries, the multi-scan readers, poses and SMSA, TIAF's
-model, pipeline, readers and parameter groups, among them) and
+model, pipeline, readers and parameter groups, the range view's models,
+pipeline, losses, train step and K9's wrapper, among them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -32,7 +33,11 @@ train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch
          "taseg_tpu_torch.data.semantickitti.reader_ms",
          "taseg_tpu_torch.models.voxel.minkunet_mm", "taseg_tpu_torch.data.voxel_mm",
          "taseg_tpu_torch.data.semantickitti.reader_mm", "taseg_tpu_torch.data.semantickitti.tiaf",
-         "taseg_tpu_torch.utils.param_groups"}
+         "taseg_tpu_torch.utils.param_groups", "taseg_tpu_torch.ops.knn",
+         "taseg_tpu_torch.models.range2d.salsanext", "taseg_tpu_torch.models.range2d.resnet_range",
+         "taseg_tpu_torch.models.range2d.rangenet", "taseg_tpu_torch.models.range2d.postproc",
+         "taseg_tpu_torch.data.range_dataset", "taseg_tpu_torch.loss.range",
+         "taseg_tpu_torch.range_step"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

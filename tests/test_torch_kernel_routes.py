@@ -453,7 +453,7 @@ def test_launch_counters_have_the_route_entries():
         "segment_sum", "devoxelize", "devoxelize_bilinear", "devoxelize_multi", "voxelize_bwd",
         "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
         "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",
-        "sparse_conv_k_tf32", "sparse_conv_k_dgrad_tf32", "sparse_conv_dw_tf32",
+        "sparse_conv_k_tf32", "sparse_conv_k_dgrad_tf32", "sparse_conv_dw_tf32", "knn",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())

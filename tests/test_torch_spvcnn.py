@@ -332,8 +332,9 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="MinkUNetMsMmNus.*'Cylinder_TS', 'MinkUNet', 'MinkUNetMs', "
-                                         "'MinkUNetMsKd', 'MinkUNetMsMm', 'RPVNet', 'SPVCNN'"):
+    with pytest.raises(ValueError, match="MinkUNetMsMmNus.*'CENet', 'Cylinder_TS', 'FIDNet', 'MinkUNet', "
+                                         "'MinkUNetMs', 'MinkUNetMsKd', 'MinkUNetMsMm', 'RPVNet', "
+                                         "'RangeNet', 'SPVCNN', 'SalsaNext'"):
         build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMmNus"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")

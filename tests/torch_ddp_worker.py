@@ -10,6 +10,8 @@ holding it.  Each rank runs, in order:
     collated shard per step read from `shards/step<i>_rank<r>.npz`;
   * `kd`: one KD step of the tiny KD recipe on its own scan;
   * `eval`: `Trainer.evaluate()` over its slice of the val loader;
+  * `range`: two adamW steps of SalsaNext (base 8, dropout off), its
+    collated range shard per step read from `range_step<i>_rank<r>.npz`;
 
 and writes what it saw to `out_rank<r>.pt`.
 """
@@ -40,6 +42,7 @@ def run(rank: int, world: int, tmp: str, spec: dict) -> None:
         out["step"] = _steps(rank, tmp, spec["step"])
         out["kd"] = _kd(rank, spec["kd"])
         out["eval"] = _eval(spec["eval"])
+        out["range"] = _range(rank, tmp, spec["range"])
         torch.save(out, tmp / f"out_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -98,6 +101,30 @@ def _eval(spec: dict) -> np.ndarray:
     )
     tr._writer = _NullWriter()  # TensorBoard's import alone takes ~15 s here
     return tr.evaluate()["hist"]
+
+
+def _range(rank: int, tmp: Path, spec: dict) -> list:
+    from torch_range_narrow import narrow_range_models
+
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.models.layers import Dropout
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params
+
+    with narrow_range_models(**spec["widths"]):
+        tr = Trainer(
+            spec["cfg"], spec["params"], device="cpu", batch_size=spec["global_batch"], seed=9,
+            iters_per_epoch=spec["iters_per_epoch"], total_epochs=spec["total_epochs"],
+        )
+    for m in tr.model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    got = []
+    for i in range(spec["steps"]):
+        arrays = dict(np.load(tmp / "shards" / f"range_step{i}_rank{rank}.npz"))
+        r = tr.train_on(tr.shard_to_device(arrays))
+        r["variables"] = export_flax_params(tr.model)
+        got.append(r)
+    return got
 
 
 if __name__ == "__main__":
