@@ -16,7 +16,8 @@ synthetic 120 000-point scans, and of TASeg's temporal stages, MinkUNetMs
 mk34 cr1.0 (FSA, tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml)
 and its mask-distillation step (_fsa_kd.yaml) in bf16 on fused
 multi-scan clouds, and TIAF, MinkUNetMsMm (_fsa_tiaf.yaml) in f32 on
-fused clouds with 5 camera images each, weights drawn from a seed — and
+fused clouds with 5 camera images each, and the nuScenes and Waymo
+recipes on sensor-sized synthetic trees, weights drawn from a seed — and
 checks them:
 
   1. the card's name and power limit (nvidia-smi);
@@ -179,6 +180,17 @@ checks them:
      recipe through the loader for 4 epochs, its loss falling; FIDNet
      and RangeNet++ at their recipes' widths: a counted scan and a step
      at batch 30 each; the phase's seconds;
+  5k. nuScenes and Waymo (`phase_nus_waymo`): the eight recipes of
+     tools/cfgs/{voxel,fusion}/{nuscenes,waymo}/ and CENet's nuScenes
+     recipe at full width through their readers, on trees written from
+     seeded synthetic scans at the sensors' sizes: serving and train
+     steps counted (the launches per scan and per step as the recipe's
+     backbone gives them) and by stage, with peak memory; the Waymo
+     Cylinder's calls of one step (its 23-class head on the CUDA-core K2
+     and K4 at 27) and K7's head at 17 and 23 classes against their
+     plain versions; `Trainer.train` and the nuScenes submission files
+     of `evaluate_points`, equal to `Segmenter.predict`; each recipe's
+     small scan card vs CPU at a narrow width; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -197,7 +209,8 @@ checks them:
      and every kernel's launches on Cylinder_TS's path; every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
-     per step (`tiaf`), with the 3xTF32 / CUDA-core route call beside K2
+     per step (`tiaf`) and on each nuScenes / Waymo path (`nus_waymo`),
+     with the 3xTF32 / CUDA-core route call beside K2
      and K4 at K offsets; K9 (`knn`) with SalsaNext's serving launches
      and its times at one scan.
      Beside each kernel and plain time stands one PyTorch call of the
@@ -4531,6 +4544,582 @@ def phase_range(scans) -> dict:
     return out
 
 
+# nuScenes and Waymo (phase 5k): the sensors' trees (tests/
+# torch_nuscenes_fixture.make_card_trees), scans served per recipe, and the
+# launches per scan of the recipes whose backbone is the flagship's (mk34)
+# or RPVNet's (mk18, two blocks a stage): K2 at each 3^3 conv, all but the
+# stem's first (C_in 4) on the wgmma tile; K3 4 + 4; K6 the voxelize; K7
+# the head's one multi-scale launch.  K1's count per scan is measured.
+NW_SCANS = 3
+MK34_PER_SCAN = FSA_PER_SCAN
+MK34_PER_STEP = {k: v for k, v in TRAIN_PER_STEP.items() if k != "join_scan"}
+MK18_PER_SCAN = {**MK34_PER_SCAN, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33}
+MK18_PER_STEP = {
+    **MK34_PER_STEP, "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66, "sparse_conv_k3_dgrad": 33,
+    "sparse_conv_k3_dgrad_wgmma": 33, "k3_conv_dw": 34, "k3_conv_dw_wgmma": 33,
+}
+SPV18_PER_SCAN = {k: v for k, v in SPVCNN_PER_SCAN.items() if k != "join_scan"}
+SPV18_PER_SCAN.update(sparse_conv_k3=34, sparse_conv_k3_wgmma=33)
+RPV18_PER_SCAN = {k: v for k, v in RPVNET_PER_SCAN.items() if k != "join_scan"}
+# Waymo's 23 classes: the 3^3 head (128 -> 23, f32) is off the 3xTF32
+# route (23 is no multiple of 4), so `k3_conv` takes K2 at 27 on its
+# CUDA-core kernel, and in the step its input gradient (23 -> 128) the
+# same and its weight gradient K4 at 27 on CUDA cores; the other 47 convs
+# run K2 / K4 at K offsets on 3xTF32
+CYL23_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 47, "sparse_conv_k_tf32": 47, "sparse_conv_k3": 1,
+                  "sparse_conv_k3_wgmma": 0}
+CYL23_PER_STEP = {
+    "join_scan": 22, "sparse_conv_k": 94, "sparse_conv_k_tf32": 94, "sparse_conv_k_dgrad": 47,
+    "sparse_conv_k_dgrad_tf32": 47, "sparse_conv_dw": 47, "sparse_conv_dw_tf32": 47,
+    "sparse_conv_k3": 2, "sparse_conv_k3_dgrad": 1, "k3_conv_dw": 1, "k3_conv_dw_wgmma": 0,
+}
+# TIAF on nuScenes (f32): every kernel of KITTI's TIAF path (TIAF_PER_SCAN)
+# must launch but K2 at 27 (the main stem's C_in is 4 here: K2 at K's
+# 3xTF32 tile takes it)
+NW_TIAF_SERVE = ("join_scan", "sparse_conv_k", "sparse_conv_k_tf32", "strided_down", "strided_up",
+                 "segment_sum", "devoxelize", "devoxelize_multi")
+NW_TIAF_STEP = NW_TIAF_SERVE + ("sparse_conv_k_dgrad", "sparse_conv_dw", "strided_dw", "voxelize_bwd")
+
+
+def nw_counted(what: str, fn, exact: dict = None, must: tuple = (), n: int = 1,
+               never: tuple = ()) -> tuple:
+    """`fn()` with every launch count set to 0 just before and read just
+    after: each kernel of `exact` launched exact[k] x n times (the others
+    of `exact`'s kernels none), each of `must` at least once, none of
+    `never`; returns (fn's result, {kernel: launches / n} of those that
+    launched)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"{what}: launches {({k: v for k, v in launches.items() if v})} over {n}")
+    if exact:
+        for k, per in exact.items():
+            if launches.get(k, 0) != per * n:
+                raise AssertionError(f"{what}: {k} launched {launches.get(k, 0)} times, expected {per} x {n}")
+    for k in must:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{what}: kernel {k} of the path was not launched")
+    for k in never:
+        if launches.get(k, 0):
+            raise AssertionError(f"{what}: {k} launched {launches[k]} times, expected none")
+    for k, v in launches.items():
+        if v % n:
+            raise AssertionError(f"{what}: {k} launched {v} times over {n} scans, not the same per scan")
+    return out, {k: v // n for k, v in launches.items() if v}
+
+
+def nw_check_points(what: str, scans, out, n_cls: int) -> None:
+    """Finite (N, n_cls) logits and labels in range, N the scan's (its
+    keyframe's) points."""
+    import numpy as np
+
+    for s, o in zip(scans, out):
+        n = len(s["xyzret"])
+        if o["logits"].shape != (n, n_cls) or o["labels"].shape != (n,):
+            raise AssertionError(f"{what}: logits {o['logits'].shape} labels {o['labels'].shape}, {n} points")
+        if not np.isfinite(o["logits"]).all():
+            raise AssertionError(f"{what}: non-finite logits")
+        if o["labels"].min() < 0 or o["labels"].max() >= n_cls:
+            raise AssertionError(f"{what}: labels out of range")
+
+
+def nw_serve_stages(seg, scans, label: str) -> dict:
+    """Serving per scan after the counted run, by stage: host (reader
+    dict -> collated arrays, host clock), topology and forward (CUDA
+    events), mapping to the points with the copy to the host; the median
+    over the scans, and the peak device memory of the pass."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    st = {"end_to_end": [], "host": [], "topology": [], "forward": [], "map": []}
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for s in scans:
+        t0 = time.perf_counter()
+        a = seg.collate([s])
+        t1 = time.perf_counter()
+        e[0].record()
+        tp = seg.topology(a)
+        seg.check_capacity(tp)
+        e[1].record()
+        lg = seg.forward(a, tp)
+        e[2].record()
+        e[2].synchronize()
+        t2 = time.perf_counter()
+        seg.map_to_points(a, lg)
+        t3 = time.perf_counter()
+        st["end_to_end"].append((t3 - t0) * 1e3)
+        st["host"].append((t1 - t0) * 1e3)
+        st["topology"].append(e[0].elapsed_time(e[1]))
+        st["forward"].append(e[1].elapsed_time(e[2]))
+        st["map"].append((t3 - t2) * 1e3)
+    med = {k: float(np.median(v)) for k, v in st.items()}
+    med["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}serving over {len(scans)} scans (ms per scan, median): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items() if k != "peak_gib")
+        + f"; {1e3 / med['end_to_end']:.3f} scans/s; peak device memory {med['peak_gib']:.2f} GiB")
+    return med
+
+
+def nw_step_stages(trainer, scans, label: str) -> dict:
+    """One more train step on each of `scans` by stage: host (collate),
+    topology (with the capacity check), forward + loss, backward and
+    optimizer (CUDA events); the median, and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.engine import check_capacity
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = {k: [] for k in ("step", "host", "topology", "forward", "backward", "optimizer")}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for s in scans:
+        t0 = time.perf_counter()
+        a = trainer.collate([s])
+        t1 = time.perf_counter()
+        ev[0].record()
+        topo = trainer.topology(a)
+        check_capacity(topo, trainer.caps, trainer.fov_caps)
+        ev[1].record()
+        loss = trainer.forward(a, topo)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        g_norm, _ = trainer.update()
+        ev[4].record()
+        ev[4].synchronize()
+        if not (np.isfinite(float(loss.detach())) and np.isfinite(float(g_norm))):
+            raise AssertionError(f"{label}: non-finite loss or grad norm")
+        st["step"].append((time.perf_counter() - t0) * 1e3)
+        st["host"].append((t1 - t0) * 1e3)
+        for j, k in enumerate(("topology", "forward", "backward", "optimizer")):
+            st[k].append(ev[j].elapsed_time(ev[j + 1]))
+    med = {k: float(np.median(v)) for k, v in st.items()}
+    med["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}train step by stage (ms, median of {len(scans)}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items() if k != "peak_gib")
+        + f"; peak device memory {med['peak_gib']:.2f} GiB")
+    return med
+
+
+def nw_k_offsets(cap, label: str) -> dict:
+    """K2 and K4 at K offsets at every call of a captured Waymo Cylinder
+    step (`cylinder_calls`), and the 23-class head's K2 and K4 at 27
+    (`nw_head_calls`), on each call's own inputs: against the plain
+    version (the convs within 1e-5 of the largest sum of |terms|, the
+    weight gradients within 1e-4), bit-identical on repeat; the calls off
+    the 3xTF32 route (the head's, on the CUDA-core kernels) also timed
+    beside the plain version, the bound and one torch.mm."""
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    out = {"calls": 0, "max_err_share": 0.0, "cuda_core": {}}
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        name, k, v_in, c_in, v_out, c_out = key
+        x, second, rb = a[0], a[1], a[2]
+        route = sparse_conv.k_route(x.dtype, c_in, c_out)
+        if name in ("sparse_conv_dw", "k3_conv_dw"):
+            lists = kw.get("pairs")
+            fn = f3conv.sparse_conv_dw if name == "sparse_conv_dw" else f3conv.k3_conv_dw
+            kern = lambda: fn(x, second, rb, pairs=lists)  # noqa: E731
+            plain, rel = f3conv.k3_conv_dw_plain, 1e-4
+            nbytes = (v_in * c_in + v_out * c_out + rb.numel() + k * c_in * c_out) * 4
+        elif name.startswith("sparse_conv_k3"):
+            order = kw.get("order")
+            kern = lambda: sparse_conv.sparse_conv_k3(x, second, rb, order=order)  # noqa: E731
+            plain, rel = sparse_conv.sparse_conv_plain, 1e-5
+            nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
+        else:
+            order = kw.get("order")
+            kern = lambda: sparse_conv.sparse_conv(x, second, rb, order=order)  # noqa: E731
+            plain, rel = sparse_conv.sparse_conv_plain, 1e-5
+            nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
+        want, ref = plain(x, second, rb), plain(x.abs(), second.abs(), rb)
+        got = twice_same(f"{label}{key}", kern)
+        err = check_close(f"{label}{key}", got, want, ref, "float32", rel)
+        share = err / max(ref.abs().max().item(), 1e-30)
+        out["calls"] += cap.count[key]
+        out["max_err_share"] = max(out["max_err_share"], share)
+        if route != "tf32x3":
+            ops = 2.0 * int((rb >= 0).sum()) * c_in * c_out
+            b, by = bound_ms(nbytes, ops, "float32")
+            dw = name in ("sparse_conv_dw", "k3_conv_dw")
+            base = "sparse_conv_dw" if dw else "sparse_conv_k"
+            lib = (dw_library_ms if dw else conv_library_ms)(base, x, second, rb)
+            r = {"route": route, "k": k, "c_in": c_in, "c_out": c_out, "v_out": v_out,
+                 "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(lambda: plain(x, second, rb), 3),
+                 "bound_ms": b, "bound_by": by, "library_ms": lib}
+            out["cuda_core"][name] = r
+            log(f"{label}{name} K={k} {c_in}->{c_out} V_out={v_out} route {route}: max|err| {err:.3e} "
+                f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), bit-identical on repeat; "
+                f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {b:.4f} ms ({by}) "
+                f"one torch.mm {lib:.4f} ms")
+    log(f"{label}K2 / K4 at K offsets and at 27: {out['calls']} calls of one step against their plain "
+        f"versions, largest error {out['max_err_share']:.2e} of the largest sum of |terms|")
+    return out
+
+
+def nw_head_calls(run) -> CallCapture:
+    """`run()` (a Cylinder_TS train step) with the wrappers of K2 at 27 and
+    K4 at 27 wrapped: the 3^3 head's forward, input-gradient and
+    weight-gradient calls where they leave the 3xTF32 route."""
+    from taseg_tpu_torch.ops import f3conv, sparse_conv
+
+    cap = CallCapture()
+    for mod in (sparse_conv, f3conv):
+        cap.patch(mod, "sparse_conv_k3", lambda x, w, rb, dgrad=False, order=None: (
+            "sparse_conv_k3" + ("_dgrad" if dgrad else ""), 27, *x.shape, rb.shape[1], w.shape[2]))
+    cap.patch(f3conv, "k3_conv_dw", lambda f, g, rb, out_dtype=None, pairs=None: (
+        "k3_conv_dw", 27, *f.shape, *g.shape))
+    run()
+    cap.remove()
+    return cap
+
+
+def nw_head_k7(seg, scans, label: str) -> dict:
+    """K7's multi-scale entry (the MinkUNet head: strides 16, 4 and 1 in
+    one launch, summed in f32 with the bias) at the recipe's class count
+    in bf16 (rows of 34 or 46 bytes: 2-byte pieces) on the head's real
+    tables of a served scan: the same bits as its plain version and on
+    repeat, with its time, the plain version's and its bound."""
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    a = seg.collate(scans[:1])
+    topo = seg.topology(a)
+    k = seg.model.classifier.bias.shape[0]
+    fn = multi_call(topo, k)
+    multi_check(*fn.args)
+    nbytes = multi_bytes(*fn.args)
+    b, by = bound_ms(nbytes, 0, "float32")
+    r = {"classes": k, "max_abs_err": 0.0, "ms": cuda_ms(fn),
+         "plain_ms": cuda_ms(lambda: vx.devox_multi_plain(*fn.args)), "bound_ms": b, "bound_by": by,
+         "points": int(vx._table_points(fn.args[1][0]))}
+    log(f"{label}K7 head at C = {k} bf16 ({2 * k} bytes a row) on {r['points']} points: bit-identical to "
+        f"the plain version and on repeat; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{b:.5f} ms ({by})")
+    return r
+
+
+def nus_waymo_entry(res: dict, name: str) -> dict:
+    """A kernel's launches per scan and per step on each nuScenes / Waymo
+    path of phase 5k (the paths where it ran)."""
+    out = {}
+    for path, p in res["paths"].items():
+        scan, step = p.get("serve_launches", {}).get(name, 0), p.get("step_launches", {}).get(name, 0)
+        if scan or step:
+            out[path] = {"launches_per_scan": scan, "launches_per_step": step if "step_launches" in p else None}
+    return out
+
+
+def phase_nus_waymo() -> dict:
+    """nuScenes and Waymo (5k), on trees written from seeded synthetic
+    scans at the sensors' sizes (`tests/torch_nuscenes_fixture.
+    make_card_trees`: one nuScenes scene of 9 keyframes with 9 sweeps of
+    34 000 points between each pair, the ego at 5 m/s, six camera records
+    per keyframe; Waymo frames of 150 000 first and 20 000 second
+    returns), through the readers, at the recipes' full widths:
+
+      * nuScenes MinkUNet mk34 cr1.0 and FSA (TLAD: ~645 000 fused points
+        a scan) in bf16, Waymo MinkUNet mk34 and mk18 in bf16: serving of
+        NW_SCANS scans through `Segmenter.predict`, counted (the flagship's
+        launches per scan and per step on the mk34 recipes, RPVNet's
+        backbone's on mk18), by stage; a train step counted, two by stage;
+        K7's head at 17 and 23 classes against its plain version;
+      * nuScenes TIAF (MinkUNetMsMmNus, f32, six images of 448 x 800):
+        the real reader with the JPEG decode replaced by seeded images
+        (the card's machine has no Pillow), serving and a step;
+      * Waymo Cylinder_TS cy480 (f32, 23 classes): serving and a step
+        counted; K2 and K4 at K offsets at every call of the step against
+        their plain versions (the head's 128 -> 23 on CUDA cores);
+      * Waymo SPVCNN mk18 and RPVNet mk18: one counted scan each;
+      * CENet on nuScenes (32 x 1920): one scan (K9 once) and one step at
+        its recipe's batch of 1;
+      * `Trainer.train` for one epoch over two nuScenes keyframes and
+        `evaluate_points(save_path=...)` on two: the lidarseg `.bin` files
+        and `submission.json` read back, equal to `Segmenter.predict`;
+      * card against CPU: one small scan of each new recipe at a narrow
+        width (MinkUNets cr 0.25, TIAF cr / FOV_CR 0.25, IMAGE_BASE 8 and
+        48 x 64 images, Cylinder INIT_SIZE 8, CENet on 16 x 128), f32
+        logits within 1e-3 of their scale;
+      * the phase's seconds.
+    Returns each path's launches per scan and per step, and the times."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_nuscenes_fixture import NUS_CARD, WAYMO_CARD, make_card_trees, make_nuscenes_root, make_waymo_root
+
+    from taseg_tpu_torch.configs import RECIPES
+    from taseg_tpu_torch.data import build_dataloader, build_reader
+    from taseg_tpu_torch.data.nuscenes import reader_mm
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.utils import submission
+    from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
+
+    t_phase = time.perf_counter()
+    load_image = reader_mm._load_image
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="nus_waymo_", dir=REPO / "build"))
+    res: dict = {"paths": {}}
+    try:
+        t0 = time.perf_counter()
+        nus, waymo = make_card_trees(tmp / "card")
+        small_nus = make_nuscenes_root(tmp / "small_nus", splits=("train", "val"), jpeg_hw=None)
+        small_waymo = make_waymo_root(tmp / "small_waymo")
+        log(f"5k trees in {time.perf_counter() - t0:.1f} s: nuScenes {NUS_CARD} (an HDL-32E at 20 Hz, "
+            f"~34 000 points a sweep, keyframes at 2 Hz: nuScenes, Caesar et al., CVPR 2020); Waymo "
+            f"{WAYMO_CARD} (the top lidar's 64 x 2650 range image, first and second returns: Waymo Open "
+            f"Dataset, Sun et al., CVPR 2020)")
+
+        def seeded_image(path, h, w):
+            rng = np.random.default_rng(sum(map(ord, Path(path).as_posix()[-24:])))
+            return rng.random((h, w, 3), dtype=np.float32)
+
+        reader_mm._load_image = seeded_image
+        log("5k: the nuScenes TIAF reader's JPEG decode is replaced by seeded (H, W, 3) float32 images "
+            "(the card's host needs no Pillow); the camera files exist, everything else is the real reader")
+
+        def cfg_of(path, root):
+            c = RECIPES[path]
+            return {**c, "DATA": {**c["DATA"], "DATA_PATH": str(root)}}
+
+        def weights(cfg):
+            p, st = init_params_numpy(cfg, seed=SEED)
+            return {"params": p, "batch_stats": st}
+
+        def scans_of(cfg, training, n):
+            r = build_reader(cfg["DATA"], training)
+            return [r[i] for i in range(len(r) - n, len(r))]
+
+        def small_check(name, cfg, narrow, root):
+            c = {**cfg, "DATA": {**cfg["DATA"], "DATA_PATH": str(root)},
+                 "MODEL": {**cfg["MODEL"], **narrow}}
+            if "IMAGE_HEIGHT" in narrow:
+                # the FOV cloud of a small uniform scan fills its levels far
+                # more than a street does: JAX's default schedule at 65 536
+                c["DATA"].update(IMAGE_HEIGHT=narrow["IMAGE_HEIGHT"], IMAGE_WIDTH=narrow["IMAGE_WIDTH"],
+                                 FOV_NUM_POINTS=65536)
+            if c["MODEL"]["NAME"] in ("CENet", "RPVNet"):
+                c["DATA"].update(H=16, W=128)
+            r = build_reader(c["DATA"], False)
+            small_scan_check(c, weights(c), f"{name} (narrow) ", small=[r[len(r) - 1]], capacity=16384)
+
+        # ---- the MinkUNet-family recipes in bf16: serving, steps, counted
+        bf16 = (
+            ("nuscenes minkunet", "tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml", nus,
+             MK34_PER_SCAN, MK34_PER_STEP),
+            ("nuscenes fsa", "tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa.yaml", nus,
+             MK34_PER_SCAN, MK34_PER_STEP),
+            ("waymo minkunet mk34", "tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml", waymo,
+             MK34_PER_SCAN, MK34_PER_STEP),
+            ("waymo minkunet mk18", "tools/cfgs/voxel/waymo/minkunet_mk18_cr10.yaml", waymo,
+             MK18_PER_SCAN, MK18_PER_STEP),
+        )
+        for name, path, root, per_scan, per_step in bf16:
+            cfg = cfg_of(path, root)
+            v = weights(cfg)
+            n_cls = cfg["MODEL"]["NUM_CLASS"]
+            serve = scans_of(cfg, False, NW_SCANS)
+            seg = Segmenter(cfg, v, compute_dtype="bfloat16")
+            seg.predict(serve[:1])  # warm-up
+            out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve), exact=per_scan,
+                                  must=("join_scan",), n=NW_SCANS, never=("voxelize_bwd",))
+            nw_check_points(name, serve, out, n_cls)
+            a = seg.collate(serve[-1:])
+            levels = [int(l.num) for l in seg.topology(a).levels]
+            rows = int(a["num_points"].reshape(-1)[0])
+            log(f"{name}: rows {rows} of {seg.point_capacity}, level voxels {levels} "
+                f"caps {list(seg.caps.voxels)}")
+            p = {"serve_launches": per, "serve": nw_serve_stages(seg, serve, f"{name} "), "levels": levels}
+            if name in ("nuscenes minkunet", "waymo minkunet mk34"):
+                p["k7_head"] = nw_head_k7(seg, serve, f"{name} ")
+            del seg
+            torch.cuda.empty_cache()
+            train = scans_of(cfg, True, 2)
+            tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"],
+                         compute_dtype="bfloat16", seed=SEED)
+            tr.step(train[:1])  # warm-up
+            r, per_s = nw_counted(f"{name} train step", lambda: tr.step(train[1:]), exact=per_step,
+                                  must=("join_scan",))
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                raise AssertionError(f"{name}: non-finite loss or grad norm")
+            log(f"{name} train step: loss {r['loss']:.5f} grad norm {r['grad_norm']:.4f} level voxels "
+                f"{r['level_nums']} of {list(tr.caps.voxels)}")
+            p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+            res["paths"][name] = p
+            del tr
+            torch.cuda.empty_cache()
+
+        # ---- TIAF on nuScenes, f32
+        name = "nuscenes tiaf"
+        cfg = cfg_of("tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa_tiaf.yaml", nus)
+        v = weights(cfg)
+        serve = scans_of(cfg, False, NW_SCANS)
+        log(f"{name}: {serve[-1]['images'].shape[0]} images of {serve[-1]['images'].shape[1:3]}, "
+            f"{int(serve[-1]['fov_mask'].sum())} of {len(serve[-1]['xyzret_ms'])} fused points in a frustum")
+        seg = Segmenter(cfg, v)
+        seg.predict(serve[:1])
+        out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve), must=NW_TIAF_SERVE,
+                              n=NW_SCANS, never=("voxelize_bwd",))
+        nw_check_points(name, serve, out, 17)
+        p = {"serve_launches": per, "serve": nw_serve_stages(seg, serve, f"{name} ")}
+        del seg
+        torch.cuda.empty_cache()
+        train = scans_of(cfg, True, 2)
+        tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], seed=SEED)
+        tr.step(train[:1])
+        r, per_s = nw_counted(f"{name} train step", lambda: tr.step(train[1:]), must=NW_TIAF_STEP)
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
+        log(f"{name} train step: loss {r['loss']:.5f} grad norm {r['grad_norm']:.4f}")
+        p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+        res["paths"][name] = p
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- Waymo Cylinder_TS, f32, 23 classes
+        name = "waymo cylinder"
+        cfg = cfg_of("tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml", waymo)
+        v = weights(cfg)
+        serve = scans_of(cfg, False, NW_SCANS)
+        seg = Segmenter(cfg, v)
+        if seg.model.in_dim != 9:
+            raise AssertionError(f"{name}: pre-net {seg.model.in_dim} wide, expected the pipeline's 9")
+        seg.predict(serve[:1])
+        out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve), exact=CYL23_PER_SCAN, n=NW_SCANS)
+        nw_check_points(name, serve, out, 23)
+        p = {"serve_launches": per, "serve": nw_serve_stages(seg, serve, f"{name} ")}
+        del seg
+        torch.cuda.empty_cache()
+        train = scans_of(cfg, True, 2)
+        tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], seed=SEED)
+        tr.step(train[:1])
+        r, per_s = nw_counted(f"{name} train step", lambda: tr.step(train[1:]), exact=CYL23_PER_STEP)
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
+        p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+        cap = cylinder_calls(lambda: tr.step(train[:1]))
+        head = nw_head_calls(lambda: tr.step(train[:1]))
+        if sorted(k[0] for k in head.seen) != ["k3_conv_dw", "sparse_conv_k3", "sparse_conv_k3_dgrad"]:
+            raise AssertionError(f"{name}: the head's calls at 27 {sorted(head.seen)}")
+        cap.seen.update(head.seen)
+        cap.count.update(head.count)
+        p["k_offsets"] = nw_k_offsets(cap, f"{name} ")
+        res["paths"][name] = p
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- Waymo SPVCNN mk18 and RPVNet mk18: one counted scan each
+        for name, path, per_scan in (
+            ("waymo spvcnn mk18", "tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml", SPV18_PER_SCAN),
+            ("waymo rpvnet mk18", "tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml", RPV18_PER_SCAN),
+        ):
+            cfg = cfg_of(path, waymo)
+            serve = scans_of(cfg, False, 2)
+            seg = Segmenter(cfg, weights(cfg), compute_dtype="bfloat16")
+            seg.predict(serve[:1])
+            t0 = time.perf_counter()
+            out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve[1:]), exact=per_scan,
+                                  must=("join_scan",))
+            ms = (time.perf_counter() - t0) * 1e3
+            nw_check_points(name, serve[1:], out, 23)
+            log(f"{name}: one scan {ms:.1f} ms end to end")
+            res["paths"][name] = {"serve_launches": per, "serve": {"end_to_end": ms}}
+            del seg
+            torch.cuda.empty_cache()
+
+        # ---- CENet on nuScenes (the range view, 32 x 1920), batch 1
+        name = "nuscenes cenet"
+        cfg = cfg_of("tools/cfgs/range/nuscenes/cenet_res34.yaml", nus)
+        v = weights(cfg)
+        serve = scans_of(cfg, False, 2)
+        seg = Segmenter(cfg, v)
+        seg.predict(serve[:1])
+        out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve[1:]), exact={"knn": 1})
+        nw_check_points(name, serve[1:], out, 17)
+        p = {"serve_launches": per, "serve": range_scan_split(seg, serve[1:], 2, f"{name} ")}
+        del seg
+        torch.cuda.empty_cache()
+        train = scans_of(cfg, True, 2)
+        tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"], batch_size=1, seed=SEED)
+        p["step"] = range_train_split(tr, train[1:], train[:1], 1, f"{name} train (adamW, onecycle, batch 1)")
+        res["paths"][name] = p
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- Trainer.train and evaluate_points(save_path) on nuScenes
+        name = "nuscenes minkunet"
+        cfg = cfg_of("tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml", nus)
+        v = weights(cfg)
+        loaders = []
+        for training in (True, False):
+            ld = build_dataloader(cfg["DATA"], training=training, scans_per_shard=1,
+                                  point_capacity=cfg["MODEL"]["POINTS_PER_SCAN"])
+            ld.reader.sample_idx = ld.reader.sample_idx[-2:]  # two keyframes (for one epoch)
+            loaders.append(ld)
+        scans = [loaders[1].reader[i] for i in range(2)]
+        tr = Trainer(cfg, v, train_loader=loaders[0], val_loader=loaders[1], total_epochs=1,
+                     compute_dtype="bfloat16", seed=SEED, output_dir=tmp / "run")
+        hist = tr.train()
+        if not np.isfinite(hist[0]["loss"]):
+            raise AssertionError("nuscenes Trainer.train: non-finite loss")
+        preds = tmp / "preds"
+        ev = tr.evaluate_points(save_path=preds)
+        p_, s_ = export_flax_params(tr.model)
+        seg = Segmenter(cfg, {"params": p_, "batch_stats": s_}, compute_dtype="bfloat16")
+        files = sorted((preds / "lidarseg" / "test").glob("*_lidarseg.bin"))
+        if len(files) != 2:
+            raise AssertionError(f"evaluate_points wrote {len(files)} lidarseg files, expected 2")
+        for s, o in zip(scans, seg.predict(scans)):
+            got = submission.read_nuscenes_predictions(preds, s["token"])
+            want = o["labels"].astype(np.uint8)
+            same = np.array_equal(got[want != 0], want[want != 0])
+            if len(got) != len(s["xyzret"]) or (got == 0).any() or not same:
+                raise AssertionError(f"{s['token']}: the lidarseg file differs from Segmenter.predict's labels")
+        meta = _json.loads((preds / "submission.json").read_text())["meta"]
+        if meta != submission.NUSCENES_SUBMISSION_META:
+            raise AssertionError(f"submission.json meta {meta}")
+        log(f"nuscenes Trainer.train: one epoch of {len(hist[0]['steps'])} steps, loss {hist[0]['loss']:.5f}; "
+            f"evaluate_points(save_path) wrote {[f.name for f in files]} ({[f.stat().st_size for f in files]} "
+            f"bytes, uint8, no 0) and submission.json, equal to Segmenter.predict; mIoU {ev['miou']:.2f}")
+        del tr, seg
+        torch.cuda.empty_cache()
+
+        # ---- card against CPU on small scans, narrow widths
+        narrow = {"cr": 0.25}
+        small_check("nuscenes minkunet", RECIPES["tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml"], narrow,
+                    small_nus)
+        small_check("nuscenes fsa", RECIPES["tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa.yaml"], narrow,
+                    small_nus)
+        small_check("nuscenes tiaf", RECIPES["tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa_tiaf.yaml"],
+                    {"cr": 0.25, "FOV_CR": 0.25, "IMAGE_BASE": 8, "IMAGE_HEIGHT": 48, "IMAGE_WIDTH": 64},
+                    small_nus)
+        for path in ("voxel/waymo/minkunet_mk34_cr10", "voxel/waymo/minkunet_mk18_cr10",
+                     "fusion/waymo/spvcnn_mk18_cr10"):
+            small_check(path, RECIPES[f"tools/cfgs/{path}.yaml"], narrow, small_waymo)
+        small_check("waymo rpvnet mk18", RECIPES["tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml"],
+                    narrow, small_waymo)
+        small_check("waymo cylinder", RECIPES["tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml"],
+                    {"INIT_SIZE": 8}, small_waymo)
+        small_check("nuscenes cenet", RECIPES["tools/cfgs/range/nuscenes/cenet_res34.yaml"], {}, small_nus)
+    finally:
+        reader_mm._load_image = load_image
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"nuscenes / waymo phase (5k): {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
@@ -4704,6 +5293,11 @@ def main() -> int:
     # its plain version, adamW steps at batch 30, FIDNet and RangeNet++
     rng = phase_range(scans)
 
+    # 5k. nuScenes and Waymo: their readers on sensor-sized trees, every
+    # new recipe at full width, serving and train steps counted, the
+    # submission files, card against CPU at narrow widths
+    nus_waymo = phase_nus_waymo()
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -4813,6 +5407,7 @@ def main() -> int:
         }
         entry["fsa"] = fsa_entry(fsa, name)
         entry["tiaf"] = tiaf_entry(tiaf, name)
+        entry["nus_waymo"] = nus_waymo_entry(nus_waymo, name)
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
@@ -4839,6 +5434,7 @@ def main() -> int:
         "device_ms_per_scan": cylinder["device_ms_per_scan"]["sparse_conv_k"],
         "fsa": fsa_entry(fsa, "sparse_conv_k"),
         "tiaf": tiaf_entry(tiaf, "sparse_conv_k"),
+        "nus_waymo": nus_waymo_entry(nus_waymo, "sparse_conv_k"),
         "train": {
             "launches": train["sparse_conv_k"], "tf32x3_launches": train["sparse_conv_k_tf32"],
             "dgrad_launches": train["sparse_conv_k_dgrad"],
@@ -4863,6 +5459,7 @@ def main() -> int:
         "device_ms_per_train_step": cylinder["device_ms_per_step"]["sparse_conv_dw"],
         "fsa": fsa_entry(fsa, "sparse_conv_dw"),
         "tiaf": tiaf_entry(tiaf, "sparse_conv_dw"),
+        "nus_waymo": nus_waymo_entry(nus_waymo, "sparse_conv_dw"),
     })
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")
@@ -4876,9 +5473,10 @@ def main() -> int:
         **{k: k9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per": "scan (SalsaNext serving, 64 x 512)", "device_ms_per_scan": k9["device_ms"],
         "points": k9["points"], "image": k9["image"], "bytes": k9["bytes"],
+        "nus_waymo": nus_waymo_entry(nus_waymo, "knn"),
     })
     log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s; "
-        f"range phase (5j): {rng['seconds']:.1f} s")
+        f"range phase (5j): {rng['seconds']:.1f} s; nuscenes / waymo phase (5k): {nus_waymo['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

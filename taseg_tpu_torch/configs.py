@@ -682,8 +682,10 @@ SALSANEXT_RES34 = _range_kitti("SalsaNext")
 FIDNET_RES34 = _range_kitti("FIDNet")
 RANGENET_DARKNET53 = _range_kitti("RangeNet", IF_AUX=False)
 # tools/cfgs/range/nuscenes/cenet_res34.yaml: CENet with its aux heads on
-# nuScenes' 32 x 1920 images; the nuScenes reader is not ported, so the
-# loader raises (ROADMAP Queue 1 item 6)
+# nuScenes' 32 x 1920 images, read by the nuScenes reader; the range
+# pipeline projects with KITTI's field of view (+3, -25 degrees) for every
+# dataset, as JAX builds it, where nuScenes' 32-beam lidar spans about +10
+# to -30 (ROADMAP, "Open against the JAX package")
 CENET_RES34 = {
     "MODALITY": "range",
     "DATA": {
@@ -711,6 +713,146 @@ SALSANEXT_TINY = {
         "WEIGHT_DECAY": 0.0001, "MOMENTUM": 0.9, "SCHEDULER": "linear_warmup_with_cosdecay",
         "WARMUP_EPOCH": 1,
     },
+}
+
+# nuScenes lidarseg and Waymo: the YAMLs' NUM_POINTS of 1 000 000 (and
+# batches of 12 / 2 / 1 / 4) size the JAX loader; the port serves and
+# trains one scan per step at POINTS_PER_SCAN rows.  The port-only
+# capacities hold >= 30% headroom over `tools/nus_waymo_capacity.py` (the
+# largest level counts over the sensor-sized synthetic trees of
+# `tests/torch_nuscenes_fixture.make_card_trees`, every scan unaugmented
+# and 2 times augmented): a nuScenes keyframe of 34 000 points (24-27k
+# voxels at 0.1 m), its fused TLAD cloud of ~645 000 points over 18
+# sweeps (83k voxels, 116k augmented: the sweeps sample one static
+# street, so a real street with more new surface per meter fills more),
+# a Waymo frame of 170 000 returns (110k voxels at 0.05 m, 125k
+# augmented).  The port raises on overflow where JAX drops voxels
+#
+# the largest level counts as fractions of the point capacity, serving
+# (unaugmented) / train (augmented), and what each recipe takes:
+#   nuScenes keyframe, 65 536 rows: 0.360 0.225 0.107 0.043 0.014 /
+#     0.410 0.253 0.123 0.051 0.017
+#   nuScenes TLAD (FSA), 262 144 rows: 0.315 0.124 0.040 0.013 0.0038 /
+#     0.441 0.165 0.050 0.016 0.0048
+#   nuScenes TIAF: the FOV cloud fills ~93% of the main one (six cameras
+#     all round) and takes half the point capacity (JAX's default), so
+#     the point capacity is 327 680 rows: main 0.252 0.099 0.032 0.010
+#     0.0030 / 0.353 0.132 0.040 0.013 0.0038; FOV, at JAX's default
+#     schedule of 163 840 rows, 0.468 0.184 0.059 0.019 0.0058 / 0.661
+#     0.244 0.075 0.024 0.0072
+#   Waymo frame, 262 144 rows: 0.419 0.301 0.185 0.077 0.026 / 0.475
+#     0.347 0.189 0.083 0.029
+#   Waymo on the polar grid, 131 072 rows: 0.447 0.218 0.076 0.029
+#     0.011 / 0.446 0.206 0.073 0.029 0.011
+NUS_CAPS = {
+    "POINTS_PER_SCAN": 65536,
+    "CAPACITY_SCHEDULE": (1.0, 0.30, 0.14, 0.06, 0.02),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.35, 0.17, 0.07, 0.025),
+}
+NUS_TLAD_CAPS = {
+    "POINTS_PER_SCAN": 262144,
+    "CAPACITY_SCHEDULE": (1.0, 0.17, 0.055, 0.017, 0.005),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.22, 0.07, 0.022, 0.0065),
+}
+NUS_TIAF_CAPS = {
+    "POINTS_PER_SCAN": 327680,
+    "CAPACITY_SCHEDULE": (1.0, 0.13, 0.042, 0.014, 0.004),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.175, 0.053, 0.017, 0.005),
+}
+WAYMO_CAPS = {
+    "POINTS_PER_SCAN": 262144,
+    "CAPACITY_SCHEDULE": (1.0, 0.40, 0.25, 0.105, 0.035),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.46, 0.25, 0.11, 0.04),
+}
+WAYMO_CYL_CAPS = {
+    "CAPACITY_SCHEDULE": (1.0, 0.30, 0.10, 0.04, 0.015),
+    "TRAIN_CAPACITY_SCHEDULE": (1.0, 0.30, 0.10, 0.04, 0.015),
+}
+_NUS_DATA = {"DATA_PATH": "/data/nuscenes", "VOXEL_SIZE": 0.1, "NUM_POINTS": 1000000}
+_NUS_TLAD = {
+    "MULTISCAN": 15, "STEP": 1.0, "PSEUDO_MASK": "mink_sweep_notta",
+    "FLEXIBLE_STEPS": [0, 1, 1, 1, 3, 1, 1, 3, 1, 3, 3, 0, 1, 1, 1, 1, 1],
+}
+_MK34 = {"NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2], "PLANES": list(_PLANES), "cr": 1.0}
+_NUS_MODEL = {
+    "IN_FEATURE_DIM": 4, "NUM_CLASS": 17, "IGNORE_LABEL": 0, "BLOCK": "ResBlock", **_MK34,
+    "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.1, "IF_DIST": True, "LOSS_CONFIG": _CE_LOVASZ,
+}
+_NUS_SGD = {**_SGD, "LR_PER_SAMPLE": 0.005, "BATCH_SIZE_PER_GPU": 12}
+
+# tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml: the single-sweep
+# MinkUNet on nuScenes lidarseg (17 classes, voxel 0.1 m)
+MINKUNET_MK34_CR10_NUS = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "nuscenes", **_NUS_DATA},
+    "MODEL": {"NAME": "MinkUNet", **_NUS_MODEL, **NUS_CAPS},
+    "OPTIM": {**_NUS_SGD, "NUM_EPOCHS": 48},
+}
+# tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa.yaml: TLAD, the
+# distance-based sweep selection (one sweep a meter, 15 rings) with the
+# per-class flexible steps; the model reads 4 of the 5 columns (the time
+# lag is sliced off, as in JAX)
+MINKUNET_MK34_CR10_FSA_NUS = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "nuscenes_ms", **_NUS_DATA, **_NUS_TLAD},
+    "MODEL": {"NAME": "MinkUNetMs", **_NUS_MODEL, **NUS_TLAD_CAPS},
+    "OPTIM": dict(_NUS_SGD),
+}
+# tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa_tiaf.yaml: TIAF over
+# the six cameras of the keyframe (MULTISCAN_IMAGE 0), 448 x 800 images,
+# in f32; the main cloud is TLAD's, the FOV cloud (every fused point in
+# a camera's frustum) takes half the point capacity
+MINKUNET_MK34_CR10_FSA_TIAF_NUS = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "nuscenes_ms_mm", **_NUS_DATA, **_NUS_TLAD, "MULTISCAN_IMAGE": 0,
+             "STEP_IMAGE": 7},
+    "MODEL": {
+        "NAME": "MinkUNetMsMmNus", **_NUS_MODEL, "LOSS_WEIGHT": [0, 1, 0.5, 0.5, 1],
+        "ENSEMBLE_TYPE": "replace", **NUS_TIAF_CAPS,
+    },
+    "OPTIM": {**_NUS_SGD, "BATCH_SIZE_PER_GPU": 2},
+}
+
+_WAYMO_DATA = {"DATASET": "waymo", "DATA_PATH": "/data/waymo_preprocessed", "VOXEL_SIZE": 0.05,
+               "NUM_POINTS": 1000000}
+
+
+def _waymo(name: str, num_layer: list, batch: int = 1, epochs: int = 12, smoothing: float = 0.1) -> dict:
+    """A Waymo MinkUNet-family recipe (23 classes; of its IN_FEATURE_DIM
+    5 the loader keeps 4 columns, as JAX's, so the stem is 4 wide:
+    `models.stem_width`)."""
+    return {
+        "MODALITY": "voxel" if name == "MinkUNet" else "fusion",
+        "DATA": dict(_WAYMO_DATA),
+        "MODEL": {
+            "NAME": name, "IN_FEATURE_DIM": 5, "NUM_CLASS": 23, "IGNORE_LABEL": 0,
+            "BLOCK": "ResBlock", "NUM_LAYER": list(num_layer), "PLANES": list(_PLANES), "cr": 1.0,
+            "DROPOUT_P": 0.0, "LABEL_SMOOTHING": smoothing, "IF_DIST": True,
+            "LOSS_CONFIG": _CE_LOVASZ, **WAYMO_CAPS,
+        },
+        "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": batch, "NUM_EPOCHS": epochs},
+    }
+
+
+# tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml and _mk18_cr10.yaml
+MINKUNET_MK34_CR10_WAYMO = _waymo("MinkUNet", _MK34["NUM_LAYER"])
+MINKUNET_MK18_CR10_WAYMO = _waymo("MinkUNet", [2] * 8)
+# tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml and rpvnet_mk18_cr10.yaml
+# (RPVNet's range images: the FusionPipeline's 64 x 2048 default)
+SPVCNN_MK18_CR10_WAYMO = _waymo("SPVCNN", [2] * 8)
+RPVNET_MK18_CR10_WAYMO = _waymo("RPVNet", [2] * 8, batch=4, epochs=36, smoothing=0.0)
+# tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml: Cylinder_TS on the
+# 480 x 360 x 32 polar grid; the YAML's IN_FEATURE_DIM 10 builds the
+# 9-wide pre-net of the pipeline's 9 columns, as JAX's parameters come out
+CYLINDER_CY480_CR10_WAYMO = {
+    "MODALITY": "cylinder",
+    "DATA": {"DATASET": "waymo", "DATA_PATH": "/data/waymo_preprocessed", "GRID_SIZE": [480, 360, 32]},
+    "MODEL": {
+        "NAME": "Cylinder_TS", "IN_FEATURE_DIM": 10, "NUM_CLASS": 23, "IGNORE_LABEL": 0,
+        "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.0, "IF_DIST": True, "INIT_SIZE": 32,
+        "LOSS_CONFIG": _CE_LOVASZ, **WAYMO_CYL_CAPS,
+    },
+    "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 1},
 }
 
 # the recipes `utils.config.load_config` serves, by YAML path
@@ -742,4 +884,12 @@ RECIPES = {
     "tools/cfgs/range/semantic_kitti/rangenet_darknet53.yaml": RANGENET_DARKNET53,
     "tools/cfgs/range/nuscenes/cenet_res34.yaml": CENET_RES34,
     "tools/cfgs/range/synthetic/salsanext_tiny.yaml": SALSANEXT_TINY,
+    "tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10_NUS,
+    "tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa.yaml": MINKUNET_MK34_CR10_FSA_NUS,
+    "tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa_tiaf.yaml": MINKUNET_MK34_CR10_FSA_TIAF_NUS,
+    "tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml": MINKUNET_MK34_CR10_WAYMO,
+    "tools/cfgs/voxel/waymo/minkunet_mk18_cr10.yaml": MINKUNET_MK18_CR10_WAYMO,
+    "tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml": CYLINDER_CY480_CR10_WAYMO,
+    "tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml": SPVCNN_MK18_CR10_WAYMO,
+    "tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml": RPVNET_MK18_CR10_WAYMO,
 }

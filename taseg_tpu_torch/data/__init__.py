@@ -25,8 +25,10 @@ runs on `RangeViewPipeline`: its shard holds the (B, H, W, 6) images,
 their labels and masks and each point's pixel and range; in training
 each scan's mixes draw their second scan from the loader's generator,
 as JAX's `_make_batch` does.
-The readers and pipelines of the other datasets and modalities are not
-ported yet and raise, naming their ROADMAP item.
+nuScenes (`nuscenes`, its TLAD `nuscenes_ms` on `MsVoxelPipeline` and
+its 6-camera TIAF `nuscenes_ms_mm` on `MsMmVoxelPipeline`) and Waymo
+(`waymo`) read the info-pickle and per-frame `.npy` layouts
+(`data/nuscenes`, `data/waymo`).
 """
 
 from __future__ import annotations
@@ -41,24 +43,14 @@ import numpy as np
 from .augment import AugParams
 from .cylinder_dataset import CylinderPipeline, grid_from_cfg
 from .fusion_dataset import FusionPipeline
+from .nuscenes.reader import NuscenesMsReader, NuscenesReader
 from .range_dataset import RangeViewPipeline
 from .semantickitti.reader import SemanticKittiReader
 from .semantickitti.reader_ms import MsKdKittiReader, MultiScanKittiReader, SmsaKittiReader
 from .synthetic import SyntheticKittiReader, SyntheticMsKittiReader, SyntheticTiafReader
 from .voxel_dataset import MsKdVoxelPipeline, MsVoxelPipeline, VoxelPipeline
 from .voxel_mm import MsMmVoxelPipeline
-
-# datasets of the JAX package the port does not read yet, by ROADMAP item
-_NOT_PORTED = {
-    "nuscenes": "Queue 1 item 6 (nuScenes reader)",
-    "nuscenes_ms": "Queue 1 item 6 (nuScenes reader)",
-    "nuscenes_ms_mm": "Queue 1 item 6 (nuScenes reader; TIAF's MinkUNetMsMmNus)",
-    "waymo": "Queue 1 item 6 (Waymo reader)",
-}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+from .waymo.reader import WaymoReader
 
 
 def build_reader(data_cfgs, training: bool):
@@ -129,6 +121,38 @@ def build_reader(data_cfgs, training: bool):
             image_width=data_cfgs.get("IMAGE_WIDTH", 1280),
             semantic_map_root=data_cfgs.get("SEMANTIC_MAP_ROOT", None),
         )
+    if dataset == "nuscenes":
+        return NuscenesReader(
+            data_cfgs["DATA_PATH"],
+            split=train_split if training else eval_split,
+            samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
+        )
+    if dataset in ("nuscenes_ms", "nuscenes_ms_mm"):
+        kw = dict(
+            split=train_split if training else eval_split,
+            samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
+            multiscan=data_cfgs.get("MULTISCAN", 15),
+            step=data_cfgs.get("STEP", 1.0),
+            flexible_steps=data_cfgs.get("FLEXIBLE_STEPS", None),
+            pseudo_label_root=data_cfgs.get("PSEUDO_LABEL_ROOT", None),
+        )
+        if dataset == "nuscenes_ms":
+            return NuscenesMsReader(data_cfgs["DATA_PATH"], **kw)
+        from .nuscenes.reader_mm import NuscenesTiafReader
+
+        return NuscenesTiafReader(
+            data_cfgs["DATA_PATH"], **kw,
+            multiscan_image=data_cfgs.get("MULTISCAN_IMAGE", 0),
+            step_image=data_cfgs.get("STEP_IMAGE", 7),
+            image_height=data_cfgs.get("IMAGE_HEIGHT", 448),
+            image_width=data_cfgs.get("IMAGE_WIDTH", 800),
+        )
+    if dataset == "waymo":
+        return WaymoReader(
+            data_cfgs["DATA_PATH"],
+            split=train_split if training else eval_split,
+            samples_per_epoch=data_cfgs.get("SAMPLES_PER_EPOCH", -1),
+        )
     if dataset == "synthetic":
         return SyntheticKittiReader(
             length=data_cfgs.get("LENGTH", 64),
@@ -151,8 +175,6 @@ def build_reader(data_cfgs, training: bool):
             img_h=data_cfgs.get("IMG_H", 32),
             img_w=data_cfgs.get("IMG_W", 64),
         )
-    if dataset in _NOT_PORTED:
-        raise _not_ported(f"dataset {dataset!r}", _NOT_PORTED[dataset])
     raise NotImplementedError(f"dataset {dataset!r}")
 
 
@@ -392,6 +414,19 @@ class VoxelLoader:
             self.reader.resample()
 
 
+
+
+def feature_columns(data_cfgs) -> int:
+    """The reader columns the loader's voxel-family pipelines keep on a
+    dataset (`build_dataloader`, as JAX `data/__init__.py:546-553`):
+    DATA.IN_FEATURE_DIM (5) on the multi-scan datasets (`_ms`, `_ms_kd`,
+    `_ms_mm`), 4 (xyz and intensity) on the others, whatever the model's
+    IN_FEATURE_DIM.  JAX's `init` takes the stem's width from them, so
+    `models.build_segmentor` builds no wider a stem."""
+    dataset = str(data_cfgs.get("DATASET", "synthetic"))
+    if dataset.endswith(("_ms", "_ms_kd", "_ms_mm")):
+        return int(data_cfgs.get("IN_FEATURE_DIM", 5))
+    return 4
 
 
 def build_dataloader(

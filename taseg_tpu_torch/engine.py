@@ -14,19 +14,19 @@ per-raw-point logits and labels.  A batch goes through four stages:
                the CylinderPipeline (polar grid, majority labels); for
                MinkUNetMs / MinkUNetMsKd (FSA) the MsVoxelPipeline over
                the fused multi-scan cloud (`xyzret_ms`, 5 features); for
-               MinkUNetMsMm (TIAF) the MsMmVoxelPipeline, which adds the
+               MinkUNetMsMm(Nus) (TIAF) the MsMmVoxelPipeline, which adds the
                FOV cloud, its pixel coordinates and the camera images;
   2. topology: build_unet_topology(assume_sorted_points=True), with the
                model's `point_voxel_strides` (SPVCNN's and RPVNet's point
                branch); for RPVNet also its point <-> range tables
                (`models.fusion.rpvnet.rpv_inputs`, JAX
                `parallel/fusion_step.py:_unpack`); for Cylinder_TS
-               `build_cylinder_topology`; for MinkUNetMsMm the
+               `build_cylinder_topology`; for MinkUNetMsMm(Nus) the
                `TiafInputs` (`models.voxel.minkunet_mm.tiaf_inputs`, JAX
                `parallel/tiaf.py:_unpack`): both topologies, the FOV ->
                main tables and the pixel table;
   3. forward:  the model (`models.build_segmentor` on MODEL.NAME:
-               MinkUNet, SPVCNN, RPVNet, Cylinder_TS or MinkUNetMsMm) in
+               MinkUNet, SPVCNN, RPVNet, Cylinder_TS or MinkUNetMsMm(Nus)) in
                eval mode, in the compute dtype (Cylinder_TS and
                MinkUNetMsMm: f32; TIAF's logits with the replace
                ensemble);
@@ -79,14 +79,19 @@ from .models.layers import seed_dropout
 from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology, host_nonneg
 from .models.voxel.minkunet_mm import TRAINABLE_PREFIXES, TiafInputs, tiaf_inputs
-from .models import RANGE_SEGMENTORS, build_segmentor
+from .models import RANGE_SEGMENTORS, TIAF_MODELS, build_segmentor
 from .optim import build_optimizer
 from .utils import storage
 from .utils.common import StepTimer, create_logger
 from .utils.param_groups import frozen_parameters
 from .utils.metrics import confusion_hist, format_confusion, miou_from_hist, per_class_iou
 from .utils.params_from_jax import init_params_numpy, load_flax_params
-from .utils.submission import save_logits, save_predictions
+from .utils.submission import (
+    save_logits,
+    save_nuscenes_predictions,
+    save_predictions,
+    write_nuscenes_submission_json,
+)
 from .utils.tb import MetricsWriter
 
 # padded points per scan: 120k-point scans with ~9% headroom (bench.py);
@@ -197,7 +202,7 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
     64 x 2048 by default) for a model that reads range images (RPVNet),
     the MsVoxelPipeline for the models of the fused cloud (MS_MODELS; the
     MsKdVoxelPipeline with DATA.MAX_VOXEL pairs per scan to train
-    MinkUNetMsKd), the MsMmVoxelPipeline for TIAF (MinkUNetMsMm), the
+    MinkUNetMsKd), the MsMmVoxelPipeline for TIAF (TIAF_MODELS), the
     VoxelPipeline otherwise; the RangeViewPipeline (DATA.H x DATA.W,
     64 x 2048 by default, and the mixes' flags) for the range models."""
     if is_range_model(model):
@@ -213,7 +218,7 @@ def make_pipeline(cfg: dict, model: torch.nn.Module, training: bool, seed: int =
         return MsKdVoxelPipeline(max_voxel=int(cfg["DATA"].get("MAX_VOXEL", 3000)), **kw)
     if name in MS_MODELS:
         return MsVoxelPipeline(**kw)
-    if name == "MinkUNetMsMm":
+    if name in TIAF_MODELS:
         return MsMmVoxelPipeline(**kw)
     if getattr(model, "range_view", False):
         return FusionPipeline(h=cfg["DATA"].get("H", 64), w=cfg["DATA"].get("W", 2048), **kw)
@@ -277,10 +282,26 @@ def point_logits(logits: torch.Tensor, offsets, samples, padded=None):
             yield s, pt
 
 
+def save_scan(save_path, sample, pred: np.ndarray, logits: np.ndarray = None) -> None:
+    """Write one scan's predicted train ids in its dataset's submission
+    format (JAX `engine.py:714 _save_scan`, reference train.py:476-559):
+    a sample with a nuScenes token as uint8 `lidarseg/test/<token>_
+    lidarseg.bin` beside `submission.json` (an FSA sample's frame: the
+    keyframe's points only), else a SemanticKITTI .label file of raw ids
+    (and `logits`, where given, as a float32 .bin)."""
+    if getattr(sample, "token", None) is not None:
+        save_nuscenes_predictions(save_path, sample.token, pred)
+        write_nuscenes_submission_json(save_path)
+        return
+    if logits is not None:
+        save_logits(save_path, sample.name, logits)
+    save_predictions(save_path, sample.name, pred)
+
+
 class Segmenter:
     """Inference on one device of the model that MODEL.NAME names
     (MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMs, MinkUNetMsKd or
-    MinkUNetMsMm; the last three take reader dicts with the fused cloud,
+    MinkUNetMsMm(Nus); the last three take reader dicts with the fused cloud,
     `xyzret_ms` (TIAF's also with the camera window: `fov_mask`,
     `fov_rowcol`, `images`, `image_labels`), and return the current
     frame's points).  A range model's config (SalsaNext, FIDNet, CENet,
@@ -510,7 +531,7 @@ class Trainer:
     The teacher's parameters and buffers are in no optimizer and in no
     checkpoint; a step without a teacher raises.
 
-    MinkUNetMsMm trains the `tiaf` kind (JAX `parallel/tiaf.py:73`, wired
+    MinkUNetMsMm(Nus) trains the `tiaf` kind (JAX `parallel/tiaf.py:73`, wired
     as `engine.py:229-251, 321-337`): its pipeline is the
     MsMmVoxelPipeline, whose shard holds the main fused cloud, the FOV
     cloud (`fov_capacity` rows: the loader's, else `fov_points`, at JAX's
@@ -602,7 +623,8 @@ class Trainer:
         self.point_capacity = point_capacity or points_per_scan(cfg) * batch_size
         train_schedule = m.get("TRAIN_CAPACITY_SCHEDULE", m.get("CAPACITY_SCHEDULE"))
         self.caps = UNetCapacities.for_points(self.point_capacity, schedule=train_schedule)
-        self.kind = {"MinkUNetMsKd": "kd", "MinkUNetMsMm": "tiaf"}.get(m.get("NAME"), "voxel")
+        name = m.get("NAME")
+        self.kind = "kd" if name == "MinkUNetMsKd" else "tiaf" if name in TIAF_MODELS else "voxel"
         self.teacher_capacity = teacher_capacity or self.point_capacity
         self.teacher_caps = UNetCapacities.for_points(self.teacher_capacity, schedule=train_schedule)
         self.teacher = None
@@ -1019,24 +1041,17 @@ class Trainer:
         `engine.py:750`); with tta_votes > 0, deterministic rotation votes
         (`VoxelLoader.iter_tta`) are softmaxed in f32 and summed per scan,
         one batch of scans at a time (reference train.py:452-611).  With
-        `save_path`, each scan's predictions are written as a
-        SemanticKITTI .label file of raw ids (and, with `save_score` and
-        no TTA, its float32 logits as a .bin).  Padding repeats of the
-        last batch are skipped."""
+        `save_path`, each scan's predictions are written in its dataset's
+        submission format (`save_scan`).  Padding repeats of the last
+        batch are skipped."""
         hist = torch.zeros((self.num_class, self.num_class), dtype=torch.int64, device=self.device)
         n_scans = 0
 
         for sample, pred, logits in self._point_predictions(tta_votes, save_score):
             hist += self._point_hist(pred, sample)
             if save_path is not None:
-                if getattr(sample, "token", None) is not None:
-                    raise NotImplementedError(
-                        "nuScenes submission files are not ported yet: ROADMAP "
-                        "Queue 1 item 6 (nuScenes reader)"
-                    )
-                if logits is not None:
-                    save_logits(save_path, sample.name, logits.cpu().numpy())
-                save_predictions(save_path, sample.name, pred.cpu().numpy())
+                save_scan(save_path, sample, pred.cpu().numpy(),
+                          None if logits is None else logits.cpu().numpy())
             n_scans += 1
         hist = parallel.sum_over_ranks(hist).cpu().numpy()
         n_scans = int(parallel.sum_over_ranks(torch.tensor(n_scans, device=self.device)))

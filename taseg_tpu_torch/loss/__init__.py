@@ -64,7 +64,7 @@ class Losses:
         missing = [t for t in loss_types if t not in PORTED]
         if missing:
             raise NotImplementedError(
-                f"loss types not ported yet: {missing}; the port has {list(PORTED)}"
+                f"loss types not ported yet (ROADMAP Queue 1 item 6): {missing}; the port has {list(PORTED)}"
             )
         self.loss_types = list(loss_types)
         self.loss_weights = list(loss_weights)

@@ -3,6 +3,7 @@ dispatch on `MODEL.NAME` (JAX `models/__init__.py:54 build_segmentor`)."""
 
 from __future__ import annotations
 
+from ..data import feature_columns
 from .fusion.rpvnet import RPVNet
 from .range2d.rangenet import RangeNet
 from .range2d.resnet_range import CENet, FIDNet
@@ -10,7 +11,7 @@ from .range2d.salsanext import SalsaNext
 from .fusion.spvcnn import SPVCNN
 from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
-from .voxel.minkunet_mm import MinkUNetMsMm
+from .voxel.minkunet_mm import MinkUNetMsMm, MinkUNetMsMmNus
 
 # the segmentors the port builds (JAX VOXEL_SEGMENTORS, models/__init__.py:25,
 # and Cylinder_TS and MinkUNetMsMm of its SEGMENTORS).  MinkUNetMs (FSA) is
@@ -18,17 +19,32 @@ from .voxel.minkunet_mm import MinkUNetMsMm
 # the time flag among them); MinkUNetMsKd is the KD stage's student (and
 # teacher), a MinkUNet too, whose distillation wiring is the Trainer's kd
 # step; MinkUNetMsMm is TIAF (camera images, the FOV branch, the fusion
-# head), whose five-term loss is the Trainer's tiaf step
+# head), whose five-term loss is the Trainer's tiaf step; MinkUNetMsMmNus
+# is TIAF over nuScenes' six cameras, the same modules
 SEGMENTORS = {
     "MinkUNet": MinkUNet, "SPVCNN": SPVCNN, "RPVNet": RPVNet, "Cylinder_TS": CylinderTS,
     "MinkUNetMs": MinkUNet, "MinkUNetMsKd": MinkUNet, "MinkUNetMsMm": MinkUNetMsMm,
+    "MinkUNetMsMmNus": MinkUNetMsMmNus,
 }
+# TIAF's models: the `mm` pipeline, `tiaf_inputs`, the Trainer's tiaf step
+TIAF_MODELS = ("MinkUNetMsMm", "MinkUNetMsMmNus")
 # the range view's 2D segmentors (JAX RANGE_SEGMENTORS, models/__init__.py:38),
 # trained and served on the `range` pipeline
 RANGE_SEGMENTORS = {"SalsaNext": SalsaNext, "CENet": CENet, "FIDNet": FIDNet, "RangeNet": RangeNet}
 SEGMENTORS.update(RANGE_SEGMENTORS)
 # the models JAX builds in f32 only: another compute dtype raises
-F32_ONLY = ("Cylinder_TS", "MinkUNetMsMm", *RANGE_SEGMENTORS)
+F32_ONLY = ("Cylinder_TS", *TIAF_MODELS, *RANGE_SEGMENTORS)
+
+
+def stem_width(cfg: dict, default: int) -> int:
+    """The input features of a voxel-family model: MODEL.IN_FEATURE_DIM,
+    at most the columns its dataset's loader keeps
+    (`data.feature_columns`), as JAX's `init` takes the stem's width from
+    the loader's batch (`engine.py:449-522`): Waymo's single-frame recipes
+    name 5 (xyz, intensity, elongation) and get 4."""
+    width = int(cfg["MODEL"].get("IN_FEATURE_DIM", default))
+    data = cfg.get("DATA") or {}
+    return min(width, feature_columns(data)) if "DATASET" in data else width
 
 
 def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
@@ -39,10 +55,12 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     `BN_MOMENTUM` to the MinkUNets (MinkUNet, MinkUNetMs, MinkUNetMsKd)
     and SPVCNN only and `MULTI_SCALE` to SPVCNN
     only (RPVNet keeps momentum 0.1 and its 'concat' head).  Cylinder_TS
-    reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9) only, as JAX
-    (`models/__init__.py:58-64`); MinkUNetMsMm reads `IN_FEATURE_DIM`
-    (5), `cr` (1.0), `FOV_CR` (0.5), `IMAGE_BASE` (32) and
-    `ENSEMBLE_TYPE` ('replace') only (:65-75).  The range models read
+    reads `INIT_SIZE` (32) and `IN_FEATURE_DIM` (9; its pre-net is at
+    most the pipeline's 9 columns wide, as JAX's parameters come out)
+    only, as JAX (`models/__init__.py:58-64`);
+    MinkUNetMsMm and MinkUNetMsMmNus read `IN_FEATURE_DIM` (5), `cr`
+    (1.0), `FOV_CR` (0.5), `IMAGE_BASE` (32) and `ENSEMBLE_TYPE`
+    ('replace') only (:65-75).  The range models read
     `IN_FEATURE_DIM` (6), CENet also `IF_AUX` (True), as JAX (:118-126),
     at their full widths (RangeNet on darknet53).  These run in f32:
     another compute dtype raises.  A name the port has not ported raises, listing
@@ -63,20 +81,21 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
         if name == "CENet":
             kw["aux"] = bool(m.get("IF_AUX", True))
         return RANGE_SEGMENTORS[name](**kw)
-    if name == "MinkUNetMsMm":
-        return MinkUNetMsMm(
-            num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 5), cr=m.get("cr", 1.0),
+    if name in TIAF_MODELS:
+        return SEGMENTORS[name](
+            num_classes=m["NUM_CLASS"], in_dim=stem_width(cfg, 5), cr=m.get("cr", 1.0),
             fov_cr=m.get("FOV_CR", 0.5), image_base=m.get("IMAGE_BASE", 32),
             ensemble_type=m.get("ENSEMBLE_TYPE", "replace"), device=device,
         )
     if name == "Cylinder_TS":
         return CylinderTS(
-            num_classes=m["NUM_CLASS"], in_dim=m.get("IN_FEATURE_DIM", 9),
+            num_classes=m["NUM_CLASS"],
+            in_dim=m.get("IN_FEATURE_DIM", 9),
             init_size=m.get("INIT_SIZE", 32), device=device,
         )
     kw = dict(
         num_classes=m["NUM_CLASS"],
-        in_dim=m.get("IN_FEATURE_DIM", 4),
+        in_dim=stem_width(cfg, 4),
         planes=tuple(m.get("PLANES", (32, 32, 64, 128, 256, 256, 128, 96, 96))),
         num_layer=tuple(m.get("NUM_LAYER", (2, 3, 4, 6, 2, 2, 2, 2))),
         block=m.get("BLOCK", "Bottleneck"),
@@ -93,6 +112,7 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
 
 
 __all__ = [
-    "CENet", "CylinderTS", "FIDNet", "MinkUNet", "MinkUNetMsMm", "RANGE_SEGMENTORS", "RPVNet",
-    "RangeNet", "SEGMENTORS", "SPVCNN", "SalsaNext", "build_segmentor",
+    "CENet", "CylinderTS", "FIDNet", "MinkUNet", "MinkUNetMsMm", "MinkUNetMsMmNus",
+    "RANGE_SEGMENTORS", "RPVNet", "RangeNet", "SEGMENTORS", "SPVCNN", "SalsaNext",
+    "TIAF_MODELS", "build_segmentor",
 ]

@@ -305,7 +305,7 @@ class RPVNet(nn.Module):
                 hh, f"up{k}_blocks", self.num_layer[3 + k], rb[lvl - 1], masks[lvl - 1]
             )
 
-        feats = point_feats[:, : self.in_dim]
+        feats = point_feats[:, : self.in_dim].contiguous()
         # ---- stems (rpvnet.py:645-647)
         x0 = voxelize_avg(feats, topo.point_inverse, topo.point_tables).to(cdt)
         x0 = self.v_stem1(self.v_stem0(x0, rb[0], masks[0]), rb[0], masks[0])

@@ -139,7 +139,7 @@ class SPVCNN(nn.Module):
             return self.dropout(x) if drop else x
 
         x0 = voxelize_avg(
-            point_feats[:, : self.in_dim], topo.point_inverse, topo.point_tables
+            point_feats[:, : self.in_dim].contiguous(), topo.point_inverse, topo.point_tables
         ).to(cdt)
         x0 = self.stem_1(self.stem_0(x0, rb[0], masks[0]), rb[0], masks[0])
         z0 = devoxelize(x0, topo.devox[1])

@@ -262,9 +262,19 @@ class ReconBlock(nn.Module):
         return gate * x
 
 
+# the feature columns of the cylinder pipeline's rows
+# (`data/cylinder_dataset.py`: offsets to the cell centre, rho, phi, z,
+# x, y, intensity)
+POINT_FEATURES = 9
+
+
 class CylinderTS(nn.Module):
     """Cylinder_TS: `forward(point_feats (P, in_dim) f32, CylTopology)`
-    -> per-row logits (P, num_classes) f32."""
+    -> per-row logits (P, num_classes) f32.  The pre-net reads
+    min(in_dim, POINT_FEATURES) columns: JAX slices `feats[:, :in_dim]`
+    of the pipeline's 9 and its layers take their widths from that slice
+    (`cylinder3d.py:220`), so a recipe's IN_FEATURE_DIM of 10 (Waymo's)
+    gives JAX 9-wide parameters, and the port the same."""
 
     def __init__(
         self,
@@ -276,7 +286,7 @@ class CylinderTS(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
-        self.in_dim = in_dim
+        self.in_dim = in_dim = min(in_dim, POINT_FEATURES)
         self.point_refinement = point_refinement
         b = init_size
         add = self.add_module

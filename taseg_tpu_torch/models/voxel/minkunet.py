@@ -155,7 +155,7 @@ class MinkUNet(nn.Module):
             masks = [None] * len(levels)
         rb = conv_tables(topo, self.training)
         x0 = voxelize_avg(
-            point_feats[:, : self.in_dim], topo.point_inverse, topo.point_tables
+            point_feats[:, : self.in_dim].contiguous(), topo.point_inverse, topo.point_tables
         ).to(self.compute_dtype)
         x0 = self.stem_1(self.stem_0(x0, rb[0], masks[0]), rb[0], masks[0])
 

@@ -298,3 +298,12 @@ class MinkUNetMsMm(nn.Module):
             "image_point_logits": img_point_logits,
             "fov_point_logits": fov_point_logits,
         }
+
+
+class MinkUNetMsMmNus(MinkUNetMsMm):
+    """nuScenes 6-camera TIAF (JAX `minkunet_mm.py:240`, reference
+    minkunet_ms_mm_nus.py:190).  The fusion architecture is
+    MinkUNetMsMm's: `images` stacks the six cameras of the selected
+    keyframes as one (B_img, H, W, C) tensor and `fov_rowcol` rows arrive
+    offset by image slot from the nuScenes reader, so several cameras
+    need no new modules."""

@@ -94,7 +94,7 @@ def build_schedule(optim_cfg: dict, iters_per_epoch: int, total_epochs: int):
     if name == "onecycle":
         return cosine_onecycle(total_steps)
     if name != "linear_warmup_with_cosdecay":
-        raise NotImplementedError(f"SCHEDULER {name} is not ported yet")
+        raise NotImplementedError(f"SCHEDULER {name} is not ported yet (ROADMAP Queue 1 item 6)")
     warmup_steps = int(optim_cfg.get("WARMUP_EPOCH", 1)) * iters_per_epoch
     return linear_warmup_with_cosdecay(warmup_steps, total_steps)
 
@@ -233,7 +233,7 @@ def build_optimizer(
     if name == "adamW":
         return ClippedAdamW(params, **kw)
     if name != "sgd":
-        raise NotImplementedError(f"OPTIMIZER {name} is not ported yet")
+        raise NotImplementedError(f"OPTIMIZER {name} is not ported yet (ROADMAP Queue 1 item 6)")
     return ClippedSGD(
         params, momentum=float(optim_cfg.get("MOMENTUM", 0.9)),
         nesterov=bool(optim_cfg.get("NESTEROV", False)), **kw,

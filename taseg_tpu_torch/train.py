@@ -16,8 +16,11 @@ one (MODALITY range);
 TASeg's temporal stages by dataset: MinkUNetMs on the multi-scan
 pipeline (FSA, SMSA), MinkUNetMsKd on the `kd` one, whose frozen
 teacher is MODEL.TEACHER_CKPT (JAX `train.py:127-128`; a checkpoint of
-the FSA stage), and MinkUNetMsMm (TIAF) on the `mm` one, whose FSA
-branch loads from --pretrained_model (`main/` matched by suffix).
+the FSA stage), and MinkUNetMsMm / MinkUNetMsMmNus (TIAF) on the `mm`
+one, whose FSA branch loads from --pretrained_model (`main/` matched by
+suffix); nuScenes and Waymo recipes likewise (`tools/cfgs/*/nuscenes/`,
+`*/waymo/`; an evaluation of nuScenes with --save_path writes its
+lidarseg submission files).
 
 Several cards: `--distributed` under `torchrun`, one process per card
 (`parallel.init_from_env`: NCCL on the card, gloo with `--device cpu`);
@@ -50,7 +53,7 @@ import logging
 from pathlib import Path
 
 from . import parallel
-from .data import _NOT_PORTED, build_dataloader
+from .data import build_dataloader
 from .engine import Trainer
 from .models import RANGE_SEGMENTORS, SEGMENTORS
 from .utils.common import create_logger
@@ -94,8 +97,8 @@ def check_ported(cfg) -> str:
     kind, on the voxel pipeline, RPVNet on the `fusion` pipeline and
     Cylinder_TS (MODALITY voxel or cylinder) on the `cylinder` one (JAX
     engine.py:164-176, train.py:101-107), the range models with MODALITY
-    range on the `range` one.  A dataset whose reader is not ported
-    (nuScenes, Waymo) raises, naming its ROADMAP item."""
+    range on the `range` one.  Every dataset of the JAX package is read
+    (`data.build_reader` raises for another)."""
     modality = str(cfg.get("MODALITY", "voxel"))
     name = cfg["MODEL"]["NAME"]
     if name in RANGE_SEGMENTORS:
@@ -106,14 +109,9 @@ def check_ported(cfg) -> str:
         ok = ("voxel", "fusion")
     if name not in SEGMENTORS or modality not in ok:
         raise NotImplementedError(
-            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 item 6; "
+            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 item 7; "
             f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion, "
             f"cylinder and range pipelines"
-        )
-    dataset = str(cfg.get("DATA", {}).get("DATASET", "synthetic"))
-    if dataset in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {dataset!r} of {name} is not ported yet: ROADMAP {_NOT_PORTED[dataset]}"
         )
     return modality
 

@@ -11,6 +11,7 @@ raise: ROADMAP Queue 1 item 7.
 
 from __future__ import annotations
 
+import pickle
 import shutil
 from pathlib import Path
 
@@ -41,6 +42,12 @@ def load_bin(path, dtype="float32") -> np.ndarray:
 
 def load_npy(path) -> np.ndarray:
     return np.load(_local(path))
+
+
+def load_pkl(path):
+    """A pickled object (nuScenes' info files)."""
+    with open(_local(path), "rb") as f:
+        return pickle.load(f)
 
 
 def load_image(path):

@@ -1,6 +1,7 @@
-"""Benchmark submission + pseudo-label I/O (SemanticKITTI format); the
-SemanticKITTI half of `taseg_tpu/utils/submission.py` (the nuScenes
-writers wait for the nuScenes reader, ROADMAP Queue 1 item 6).
+"""Benchmark submission + pseudo-label I/O; copy of
+`taseg_tpu/utils/submission.py`: SemanticKITTI's .label files and
+nuScenes lidarseg's uint8 `lidarseg/test/<token>_lidarseg.bin` files with
+their `submission.json`.
 
 Replaces the reference's TTA save path (`train.py:471-528`) and the
 `tta_remap.py` tool (LUT remap of .label files, tta_remap.py:96-156):
@@ -12,6 +13,7 @@ remapping uses the LUTs in data.semantickitti.labels and is byte-identical
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -79,3 +81,47 @@ def remap_label_files(
         )
         n += 1
     return n
+
+
+# --------------------------- nuScenes lidarseg -----------------------------
+
+NUSCENES_SUBMISSION_META = {
+    "use_camera": False,
+    "use_lidar": True,
+    "use_radar": False,
+    "use_map": False,
+    "use_external": False,
+}
+
+
+def save_nuscenes_predictions(save_root, lidar_token: str, train_ids: np.ndarray) -> Path:
+    """Write one scan's predictions in the nuScenes lidarseg challenge
+    format: `<save_root>/lidarseg/test/<token>_lidarseg.bin`, uint8 class
+    ids, one byte per point.  The benchmark rejects label 0 (ignore), so
+    a 0 becomes the scan's most common other class (1 where there is
+    none; reference train.py:508-528)."""
+    out = Path(save_root) / "lidarseg" / "test"
+    if not storage.is_remote(save_root):
+        out.mkdir(parents=True, exist_ok=True)
+    ids = np.asarray(train_ids).reshape(-1).astype(np.uint8)
+    if (ids == 0).any():
+        nz = ids[ids != 0]
+        fill = np.uint8(np.bincount(nz).argmax()) if len(nz) else np.uint8(1)
+        ids = np.where(ids == 0, fill, ids)
+    path = out / f"{lidar_token}_lidarseg.bin"
+    storage.save_bin(path, ids.reshape(-1, 1))
+    return path
+
+
+def write_nuscenes_submission_json(save_root) -> Path:
+    """`submission.json` beside the lidarseg/ directory (train.py:545-559)."""
+    path = Path(save_root) / "submission.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"meta": dict(NUSCENES_SUBMISSION_META)}, f)
+    return path
+
+
+def read_nuscenes_predictions(save_root, lidar_token: str) -> np.ndarray:
+    p = Path(save_root) / "lidarseg" / "test" / f"{lidar_token}_lidarseg.bin"
+    return storage.load_bin(p, "uint8")

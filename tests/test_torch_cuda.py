@@ -1756,3 +1756,54 @@ def test_range_models_card_equal_cpu(cuda, name):
     diff = sum(float(((gg[k] - cg[k]) ** 2).sum()) for k in cg) ** 0.5
     norm = sum(float((cg[k] ** 2).sum()) for k in cg) ** 0.5
     assert diff <= 5e-2 * norm, diff / norm
+
+
+# ------------------------------------------------------ nuScenes and Waymo
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [17, 23])
+def test_head_k7_at_nuscenes_and_waymo_classes(cuda, dtype, c):
+    """K7's multi-scale entry as the MinkUNet head calls it at nuScenes'
+    17 and Waymo's 23 classes (bf16 rows of 34 and 46 bytes: 2-byte
+    pieces): `devox_multi_plain`'s bits, signed zeros included, and the
+    same bits on repeat, in one launch."""
+    rng, topo, tables = _head_topology(cuda, seed=c)
+    feats = [_rand(rng, (_table_rows(t), c), cuda, dtype) for t in tables]
+    for f in feats:
+        f[0] = -f[0].abs() - 0.5
+    b = _rand(rng, (c,), cuda, torch.float32)
+    _build.reset_launches()
+    got = _twice_same(lambda: tvx.devoxelize_multi_kernel(feats, tables, b))
+    want = tvx.devox_multi_plain(feats, tables, b)
+    assert got.shape[1] == c and torch.equal(_bits(got), _bits(want))
+    assert _build.LAUNCHES["devoxelize_multi"] == 2
+
+
+@pytest.mark.parametrize("dataset", ["nuscenes", "waymo"])
+def test_nuscenes_and_waymo_scans_card_equal_cpu(cuda, dataset, tmp_path):
+    """One scan of each dataset's reader (trees of `torch_nuscenes_fixture`)
+    through `Segmenter.predict` of its recipe at a narrow width (cr 0.25),
+    f32, on the card and on the CPU: logits within 1e-3 of their scale."""
+    from torch_nuscenes_fixture import make_nuscenes_root, make_waymo_root
+
+    from taseg_tpu_torch.configs import RECIPES
+    from taseg_tpu_torch.data import build_reader
+    from taseg_tpu_torch.engine import Segmenter
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    if dataset == "nuscenes":
+        root = make_nuscenes_root(tmp_path, cameras=False)
+        cfg = RECIPES["tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10_fsa.yaml"]
+    else:
+        root = make_waymo_root(tmp_path)
+        cfg = RECIPES["tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml"]
+    cfg = {**cfg, "DATA": {**cfg["DATA"], "DATA_PATH": str(root)},
+           "MODEL": {**cfg["MODEL"], "cr": 0.25, "CAPACITY_SCHEDULE": (1.0,) * 5}}
+    reader = build_reader(cfg["DATA"], False)
+    scan = reader[len(reader) - 1]
+    p, s = init_params_numpy(cfg, seed=5)
+    out = {dev: Segmenter(cfg, {"params": p, "batch_stats": s}, dev, compute_dtype="float32",
+                          point_capacity=16384).predict([scan])[0]["logits"]
+           for dev in ("cuda", "cpu")}
+    assert out["cpu"].shape == (len(scan["xyzret"]), cfg["MODEL"]["NUM_CLASS"])
+    scale = max(1.0, float(np.abs(out["cpu"]).max()))
+    assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-3 * scale

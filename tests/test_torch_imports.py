@@ -3,7 +3,8 @@ path's loss, optim and f3conv, models/fusion, RPVNet's range blocks,
 point_range and fusion pipeline, Cylinder3D's model, pipeline and the
 K-offset conv entries, the multi-scan readers, poses and SMSA, TIAF's
 model, pipeline, readers and parameter groups, the range view's models,
-pipeline, losses, train step and K9's wrapper, among them) and
+pipeline, losses, train step and K9's wrapper, the nuScenes and Waymo
+readers, among them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -37,7 +38,9 @@ train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch
          "taseg_tpu_torch.models.range2d.salsanext", "taseg_tpu_torch.models.range2d.resnet_range",
          "taseg_tpu_torch.models.range2d.rangenet", "taseg_tpu_torch.models.range2d.postproc",
          "taseg_tpu_torch.data.range_dataset", "taseg_tpu_torch.loss.range",
-         "taseg_tpu_torch.range_step"}
+         "taseg_tpu_torch.range_step", "taseg_tpu_torch.data.nuscenes.reader",
+         "taseg_tpu_torch.data.nuscenes.reader_mm", "taseg_tpu_torch.data.nuscenes.labels",
+         "taseg_tpu_torch.data.waymo.reader"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

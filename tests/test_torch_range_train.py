@@ -240,7 +240,7 @@ def test_evaluate_points_writes_knn_labels(evaluated):
     np.testing.assert_array_equal(pred[0]["logits"], lg[arrays["py"], arrays["px"]])
 
 
-def test_recipes_build_and_cenet_raises():
+def test_recipes_build_and_cenet_raises(tmp_path):
     from taseg_tpu_torch.models import FIDNet, RangeNet, SalsaNext, build_segmentor
     from taseg_tpu_torch.train import check_ported
     from taseg_tpu_torch.utils.config import load_config
@@ -252,11 +252,22 @@ def test_recipes_build_and_cenet_raises():
         assert isinstance(m, cls)
         with pytest.raises(ValueError, match="float32"):
             build_segmentor(cfg, device="meta", compute_dtype="bfloat16")
+    # CENet's nuScenes recipe: ported since the nuScenes reader (a tree of
+    # `torch_nuscenes_fixture`); an unknown dataset still raises
+    from torch_nuscenes_fixture import make_nuscenes_root
+
+    from taseg_tpu_torch.models import CENet
+
     cfg = load_config("tools/cfgs/range/nuscenes/cenet_res34.yaml")
-    with pytest.raises(NotImplementedError, match="nuScenes reader"):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="nuScenes reader"):
-        build_dataloader(cfg.DATA, training=True, scans_per_shard=1, modality="range")
+    assert check_ported(cfg) == "range"
+    assert isinstance(build_segmentor(cfg, device="meta"), CENet)
+    root = make_nuscenes_root(tmp_path / "nus", n_key=2, splits=("train",), jpeg_hw=None)
+    loader = build_dataloader({**cfg.DATA, "DATA_PATH": str(root), "H": 16, "W": 64}, training=True,
+                              scans_per_shard=1, modality="range")
+    assert len(loader) == 2
+    with pytest.raises(NotImplementedError, match="dataset"):
+        build_dataloader({**cfg.DATA, "DATASET": "kitti360"}, training=True, scans_per_shard=1,
+                         modality="range")
 
 
 def test_cli_trains_and_evaluates_salsanext_tiny(tmp_path):

@@ -332,10 +332,10 @@ def test_build_segmentor_dispatch():
     assert m.stem_0.MaskedBatchNorm_0.momentum == 0.01
     mink = build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNet"}}, device="cpu")
     assert isinstance(mink, MinkUNet) and mink.point_voxel_strides == ()
-    with pytest.raises(ValueError, match="MinkUNetMsMmNus.*'CENet', 'Cylinder_TS', 'FIDNet', 'MinkUNet', "
-                                         "'MinkUNetMs', 'MinkUNetMsKd', 'MinkUNetMsMm', 'RPVNet', "
-                                         "'RangeNet', 'SPVCNN', 'SalsaNext'"):
-        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "MinkUNetMsMmNus"}}, device="cpu")
+    with pytest.raises(ValueError, match="SparseResUNet.*'CENet', 'Cylinder_TS', 'FIDNet', 'MinkUNet', "
+                                         "'MinkUNetMs', 'MinkUNetMsKd', 'MinkUNetMsMm', 'MinkUNetMsMmNus', "
+                                         "'RPVNet', 'RangeNet', 'SPVCNN', 'SalsaNext'"):
+        build_segmentor({**CFG, "MODEL": {**CFG["MODEL"], "NAME": "SparseResUNet"}}, device="cpu")
     with pytest.raises(ValueError, match="build_segmentor"):
         MinkUNet.from_cfg(CFG, device="cpu")
     p, s = init_params_numpy(CFG, seed=0)
@@ -358,8 +358,9 @@ def test_cli_takes_the_spvcnn_recipe():
     assert isinstance(m, SPVCNN) and m.classifier.kernel.shape == (256 + 128 + 96, 20)
     assert m.point_transform_0.Dense_0.kernel.shape == (32, 256)
     assert check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "RPVNet"}}) == "fusion"
-    with pytest.raises(NotImplementedError, match="MinkUNetMsMmNus"):
-        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "MinkUNetMsMmNus"}})
+    assert check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "MinkUNetMsMmNus"}}) == "fusion"
+    with pytest.raises(NotImplementedError, match="SparseResUNet"):
+        check_ported({**cfg, "MODEL": {**cfg["MODEL"], "NAME": "SparseResUNet"}})
     with pytest.raises(NotImplementedError, match="range"):
         check_ported({**cfg, "MODALITY": "range"})
 
