@@ -27,8 +27,9 @@ checks them:
      its plain version, K2 sparse_conv_k3 and K3 strided down/up within
      stated tolerances, with kernel, plain and library times.  bf16 takes
      the Hopper wgmma route of K2 and K3 both ways (over the level's row
-     order, child table and up table) wherever the widths allow it, f32
-     the CUDA-core route for K2 and the 3xTF32 route for K3; each
+     order, child table and up table) at every width (ragged ones padded
+     to a multiple of 8), f32 the CUDA-core route for a direct K2 call at
+     27 offsets and the 3xTF32 route for K3; each
      per-shape line names its route, and beside the wgmma route's time
      stand the kernels it replaced (`old_ms`: the mma.sync K2 tile, the
      K3-down and K3-up tiles, through their C entries), its tile work over present
@@ -43,7 +44,7 @@ checks them:
      plain version, to the three calls and adds it replaced and on
      repeat, timed beside them) and the cat at KD's feature widths;
   4. the main path on 3 scans: finite logits of the right shape, every
-     kernel's launch count above 0, 47 of the 48 K2 launches and 4 of the
+     kernel's launch count above 0, 48 of the 48 K2 launches and 4 of the
      4 K3-down and 4 of the 4 K3-up launches of each scan on the wgmma
      route, 1 K7 launch per scan (the head's multi-scale sum, where the
      head took 3), bf16/f32 argmax agreement, agreement of the card's
@@ -51,8 +52,8 @@ checks them:
      the topology / forward split;
   5. the train path, `Trainer` of the same model in bf16: the backward
      kernels K4 k3_conv_dw (one launch on wgmma over the level's pair
-     lists in bf16, beside the mma.sync tile it replaced, `old_ms`; CUDA
-     cores in f32 and for the stem's 4 -> 32), K5 strided_dw
+     lists in bf16, the stem's 4 -> 32 at C_in padded to 8, beside the
+     mma.sync tile it replaced, `old_ms`; CUDA cores in f32), K5 strided_dw
      (one launch over the level's per-slot pair lists: wgmma in bf16,
      3xTF32 in f32), K6 segment_sum (each of its 4 calls named and timed,
      one launch each, its bound recounted for the entries it reads),
@@ -83,7 +84,7 @@ checks them:
      stage inside the producer, the device stages beside the serial ones
      of 5, and eval scans/s without and with TTA;
   5c. SPVCNN at full width in bf16 on the same scans: `Segmenter.predict`
-     with every launch counted (per scan K2 48 (47 on tensor cores), K3
+     with every launch counted (per scan K2 48 (all on tensor cores), K3
      4 + 4, K6 4, K7 4, K8 0), finite logits of the right shape, bf16/f32
      argmax agreement, the small-scan card f32 logits against the CPU,
      serving ms per scan by stage; K8 voxelize_bwd at the 3 calls of one
@@ -93,7 +94,7 @@ checks them:
      8, K7 4, the convs as MinkUNet's), ms per step by stage, peak
      memory, and (after them) each kernel's device time per step;
   5d. RPVNet at full width, the range branch in f32 as in JAX:
-     `Segmenter.predict` with every launch counted (per scan K2 34 (33
+     `Segmenter.predict` with every launch counted (per scan K2 34 (all
      on tensor cores), K3 4 + 4, K6 7, K7 8 of which 4 at 4 corners, K8
      0), bf16/f32 argmax agreement, the small-scan card f32 logits
      against the CPU, serving ms per scan by stage, what the RpvContext
@@ -127,8 +128,8 @@ checks them:
   5f. FSA and KD at full width in bf16 on 3 fused clouds of
      SyntheticMsKittiReader(120 000 points, history 3), 262 144 rows per
      scan: the level counts beside their capacities; K2 and K3 at every
-     conv shape of a fused forward (the stem's C_in 5 on K2's CUDA-core
-     route), K6 at the voxelize forward (C = 5) and the head's K7
+     conv shape of a fused forward (the stem's C_in 5 on K2's wgmma
+     tile at C_in padded to 8), K6 at the voxelize forward (C = 5) and the head's K7
      against their plain versions, with their times; `Segmenter.predict`
      with every launch counted (MinkUNet's per scan), frame-length labels,
      bf16/f32 argmax agreement, a small fused cloud's f32 logits against
@@ -148,7 +149,7 @@ checks them:
      the 3xTF32 route and on the 27-offset CUDA-core K2, and its weight
      gradient on K4 at 27 both ways, against the plain versions, with
      their times, bounds and one torch.mm; `Segmenter.predict` with every
-     launch counted (TIAF_PER_SCAN: K2 at K 65 of which 64 on 3xTF32, K3
+     launch counted (TIAF_PER_SCAN: K2 at K 65, all on 3xTF32, K3
      8 + 8, K6 2, K7 15, K1 13), frame-length finite logits, the replace
      ensemble on the overlap; a small fused cloud with 5 images of 48 x
      160 on the card against the CPU; serving by stage; 3 counted
@@ -160,8 +161,8 @@ checks them:
      forward and backward alone; the phase's seconds;
   5h. MinkUNet mk34 cr1.0 with the default block (Bottleneck, the
      flagship recipe without BLOCK) in bf16: one serving scan with every
-     launch counted (K2 at each 3^3 conv, all but the stem's first on
-     wgmma, K3 4 + 4 on wgmma: no width leaves the tensor-core routes),
+     launch counted (K2 at each 3^3 conv, all on wgmma, K3 4 + 4 on
+     wgmma: no width leaves the tensor-core routes),
      finite logits, the small-scan f32 logits card vs CPU; one counted
      train step, its time and peak memory; the phase's seconds;
   5i. the flagship's bf16 train step with MODEL.IF_DIST, 2 steps without
@@ -186,11 +187,28 @@ checks them:
      seeded synthetic scans at the sensors' sizes: serving and train
      steps counted (the launches per scan and per step as the recipe's
      backbone gives them) and by stage, with peak memory; the Waymo
-     Cylinder's calls of one step (its 23-class head on the CUDA-core K2
-     and K4 at 27) and K7's head at 17 and 23 classes against their
-     plain versions; `Trainer.train` and the nuScenes submission files
+     Cylinder's calls of one step (its 23-class head on K2 and K4 at K =
+     27 over 3xTF32 at C_out padded to 24, timed beside the CUDA-core
+     kernels that took it before) and K7's head at 17 and 23 classes
+     against their plain versions; `Trainer.train` and the nuScenes submission files
      of `evaluate_points`, equal to `Segmenter.predict`; each recipe's
      small scan card vs CPU at a narrow width; the phase's seconds;
+  5l. MinkUNet and SPVCNN mk34 at cr 1.6 (`phase_cr16`): the five cr 1.6
+     recipes (tools/cfgs/{voxel,fusion}/{semantic_kitti,waymo}/*_cr16*.yaml)
+     at full width in bf16, whose widths (51, 102, 204, 409, 153, 613,
+     306; 3 and 4 at the stems) are no multiples of 8: each serves 2
+     counted scans by stage with peak memory (the KITTI ones on the
+     synthetic 120 000-point scans, the Waymo ones on a sensor-sized
+     tree), the KITTI MinkUNet and SPVCNN and the Waymo MinkUNet take a
+     counted train step and two by stage; no K2, K3, K4 or K5 launch of
+     these paths takes a CUDA-core kernel; every padded call of the KITTI
+     MinkUNet's forward and step (and the xyz recipe's 3-wide stem)
+     against its plain version at its captured shape, with kernel,
+     device, padded-copy, CUDA-core (the kernel it replaced, through its C
+     entry), plain, bound and torch.mm times; SPVCNN's K6 (409 channels:
+     16 pieces a lane, beside K6 on rows padded to 412), K7 and K8 at its
+     point widths; MinkUNet cr 1.0's stem K4 (4 -> 32) on wgmma beside
+     the CUDA-core time in PERF.md §6; the phase's seconds;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -209,7 +227,8 @@ checks them:
      and every kernel's launches on Cylinder_TS's path; every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
-     per step (`tiaf`) and on each nuScenes / Waymo path (`nus_waymo`),
+     per step (`tiaf`), on each nuScenes / Waymo path (`nus_waymo`) and
+     on each cr 1.6 path with the padded calls' times (`cr16`),
      with the 3xTF32 / CUDA-core route call beside K2
      and K4 at K offsets; K9 (`knn`) with SalsaNext's serving launches
      and its times at one scan.
@@ -239,9 +258,9 @@ N_SCANS = 3
 ROUNDS = 14  # throughput samples: ROUNDS * N_SCANS scans, 10+ beyond p75
 SEED = 0
 # launches per scan of the main path: (all, tensor-core route: K2 and
-# K3-down and K3-up the wgmma tile); only the stem's first conv (C_in = 4)
-# takes K2's CUDA-core route
-K2_PER_SCAN = (48, 47)
+# K3-down and K3-up the wgmma tile); the stem's first conv (C_in = 4)
+# takes K2's wgmma tile at C_in padded to 8, as every ragged width
+K2_PER_SCAN = (48, 48)
 DOWN_PER_SCAN = (4, 4)
 UP_PER_SCAN = (4, 4)
 # the inference path's kernels
@@ -280,21 +299,21 @@ KERNEL_NAMES = {
 }
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
-# gradients (the stem's first conv takes none), all but the stem's
-# forward on tensor cores; K3 4 + 4 each way; K4 one per k3 conv, all but
-# the stem's first (4 -> 32) on the wgmma tile over the offset lists, K5
+# gradients (the stem's first conv takes none), all on tensor cores; K3 4
+# + 4 each way; K4 one per k3 conv, all on the wgmma tile over the offset
+# lists (the stem's first, 4 -> 32, at C_in padded to 8), K5
 # one per strided conv, all on the wgmma tile; K6 the voxelize forward and
 # the head's backward (one call over its stacked pair tables; 3 before);
 # K7 the head's one multi-scale launch (3 before)
 TRAIN_PER_STEP = {
     "join_scan": 5,
-    "sparse_conv_k3": 95, "sparse_conv_k3_wgmma": 94,
+    "sparse_conv_k3": 95, "sparse_conv_k3_wgmma": 95,
     "sparse_conv_k3_dgrad": 47, "sparse_conv_k3_dgrad_wgmma": 47,
     "strided_down": 8, "strided_down_wgmma": 8,
     "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4,
     "strided_up": 8, "strided_up_wgmma": 8,
     "strided_up_dgrad": 4, "strided_up_dgrad_wgmma": 4,
-    "k3_conv_dw": 48, "k3_conv_dw_wgmma": 47, "strided_dw": 8, "strided_dw_wgmma": 8,
+    "k3_conv_dw": 48, "k3_conv_dw_wgmma": 48, "strided_dw": 8, "strided_dw_wgmma": 8,
     "segment_sum": 2, "devoxelize": 1, "devoxelize_multi": 1, "devoxelize_bilinear": 0,
     "voxelize_bwd": 0,
 }
@@ -306,7 +325,7 @@ TRAIN_PER_STEP = {
 # also K6 on the four devox backwards and K8 on the three re-voxelize
 # backwards (the stem's input takes no gradient)
 SPVCNN_PER_SCAN = {
-    "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47,
+    "join_scan": 5, "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 48,
     "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
     "segment_sum": 4, "devoxelize": 4, "devoxelize_multi": 0, "voxelize_bwd": 0,
 }
@@ -316,8 +335,7 @@ SPVCNN_PER_STEP = {
 SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 
 # RPVNet (tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml): the
-# mk18 backbone (two blocks per stage: K2 34 per scan, the stem's first
-# on CUDA cores), the point branch, and the range branch on 64 x 2048
+# mk18 backbone (two blocks per stage: K2 34 per scan, all on wgmma), the point branch, and the range branch on 64 x 2048
 # images.  Per scan K6 on the stem's voxelize, the three re-voxelizations
 # and the three scatters to the range image (pixel tables at scales 1, 16
 # and 4); K7 on the four voxel devoxelizations and the four bilinear
@@ -326,16 +344,16 @@ SPVCNN_ROUNDS = 4  # serving samples: SPVCNN_ROUNDS * N_SCANS scans
 # 4P corner pairs), K8 on the three re-voxelize and the three scatter
 # backwards
 RPVNET_PER_SCAN = {
-    "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33,
+    "join_scan": 5, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 34,
     "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
     "segment_sum": 7, "devoxelize": 8, "devoxelize_bilinear": 4, "devoxelize_multi": 0,
     "voxelize_bwd": 0,
 }
 RPVNET_PER_STEP = {
     **TRAIN_PER_STEP,
-    "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66,
+    "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 67,
     "sparse_conv_k3_dgrad": 33, "sparse_conv_k3_dgrad_wgmma": 33,
-    "k3_conv_dw": 34, "k3_conv_dw_wgmma": 33,
+    "k3_conv_dw": 34, "k3_conv_dw_wgmma": 34,
     "segment_sum": 15, "devoxelize": 8, "devoxelize_bilinear": 4, "devoxelize_multi": 0,
     "voxelize_bwd": 6,
 }
@@ -364,7 +382,7 @@ CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 # fused clouds of SyntheticMsKittiReader(n_points=120 000, history=3) at
 # 262 144 rows per scan (POINTS_PER_SCAN of the recipes).  Serving runs
 # MinkUNet's kernels per scan, the stem's first conv (C_in 5: xyz, r and
-# the time flag) on K2's CUDA-core route; an FSA train step those of
+# the time flag) on K2's wgmma tile at C_in padded to 8; an FSA train step those of
 # TRAIN_PER_STEP; a KD step adds the teacher's eval forward (K2 48, K3 4
 # + 4, K6 1, K7 1 + 1: the head's and the features' multi-scale
 # launches) and the student's feature devoxelizations (K7 1, the cat)
@@ -373,12 +391,12 @@ CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 # student's plus the teacher's
 FSA_HISTORY = 3
 FSA_PER_SCAN = {
-    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
+    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 48, "strided_down": 4, "strided_down_wgmma": 4,
     "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 1,
     "devoxelize_multi": 1,
 }
 KD_TEACHER = {
-    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 47, "strided_down": 4, "strided_down_wgmma": 4,
+    "sparse_conv_k3": 48, "sparse_conv_k3_wgmma": 48, "strided_down": 4, "strided_down_wgmma": 4,
     "strided_up": 4, "strided_up_wgmma": 4, "segment_sum": 1, "devoxelize": 2,
     "devoxelize_multi": 2,
 }
@@ -397,6 +415,10 @@ RANGE_ROUNDS = 4
 RANGE_BATCH = 30
 RANGE_STEPS = 3
 RANGE_TINY_EPOCHS = 4
+
+# seconds that `device_ms` holds a profiled window open on each side
+# (times the try's number)
+PROFILE_MARGIN_S = 0.01
 
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -429,33 +451,52 @@ def named(key: str, frags) -> bool:
     return any(all(p in key for p in f) if isinstance(f, tuple) else f in key for f in frags)
 
 
-def device_ms(fn, frags, iters: int = 10):
+def device_ms(fn, frags, iters: int = 10, tries: int = 6):
     """Mean device time per call of `fn`'s kernels whose names hold one
     of `frags`, from torch.profiler's device events over `iters` calls after
-    one warm-up (up to three tries where one records none); None where
-    none does.  Unlike `cuda_ms` it leaves out the host's cost per
-    launch."""
+    one warm-up; None (not measured, and said so in the log) where no try
+    of `tries` records at least one matching event a call.  Each try holds
+    the profiled window open PROFILE_MARGIN_S (times the try's number)
+    before the first call and after the last: with short windows the
+    profiler lost every device event of some calls, or most of them, in
+    the same calls from run to run.  Unlike `cuda_ms` it leaves out the
+    host's cost per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = []
+    for t in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S * t)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and named(e.key, frags)
-        )
-        if us:
-            return us / 1e3 / iters
+            time.sleep(PROFILE_MARGIN_S * t)
+        events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
+        hit = [e for e in events if named(e.key, frags)]
+        n = sum(e.count for e in hit)
+        if n >= iters:
+            return sum(e.self_device_time_total for e in hit) / 1e3 / iters
+        seen.append(f"{n} ({len(events)} kinds of device event)")
+    log(f"  device time not measured: fewer device events named {frags} than calls in {tries} profiles "
+        f"of {iters} calls (matching events per try: {', '.join(seen)})")
     return None
 
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def msum(*xs):
+    """The sum of `xs`; None (not measured) where one of them is."""
+    return None if any(x is None for x in xs) else sum(xs)
+
+
+def mscale(n, x):
+    """n * x; None where x is None."""
+    return None if x is None else n * x
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -481,8 +522,11 @@ def make_scans(n: int, n_points: int = N_POINTS, seed: int = SEED) -> list:
 
 
 class Capture:
-    """Forward pre-hooks on every SparseConv: the first input of each
-    distinct (kind, rows, C_in, C_out), and how often each occurs."""
+    """Forward pre-hooks on every SparseConv of more than one offset: per
+    distinct (kind, rows, C_in, C_out) the first call's input, weight,
+    forward table (with the level's order), reverse table (a train
+    forward's KTable, else None) and whether the input takes a gradient;
+    and how often each key occurs."""
 
     def __init__(self, model):
         from taseg_tpu_torch.models.layers import SparseConv
@@ -500,16 +544,17 @@ class Capture:
         from taseg_tpu_torch.ops.sparse_conv import KTable, as_table
 
         feats, table = args
+        bwd = None
         if isinstance(table, self._strided):
             kind = "strided_up" if module.transposed else "strided_down"
         else:  # the forward table, with the level's order (of a pair in training)
             kind = "sparse_conv_k3"
             pair = isinstance(table, tuple) and not isinstance(table, KTable)
-            table = as_table(table[0] if pair else table)
+            table, bwd = (as_table(table[0]), table[1]) if pair else (as_table(table), None)
         key = (kind, feats.shape[0], module.in_channels, module.out_channels)
         self.count[key] = self.count.get(key, 0) + 1
         if key not in self.seen:
-            self.seen[key] = (feats, module.kernel.detach(), table)
+            self.seen[key] = (feats.detach(), module.kernel.detach(), table, bwd, feats.requires_grad)
 
     def remove(self):
         for h in self.handles:
@@ -723,8 +768,9 @@ def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -
     import torch
 
     from taseg_tpu_torch.ops import _build
-    from taseg_tpu_torch.ops.sparse_conv import tile_work, wgmma_splits
+    from taseg_tpu_torch.ops.sparse_conv import padded_width, tile_work, wgmma_splits
 
+    c_in_p, c_out_p = padded_width(torch.bfloat16, c_in), padded_width(torch.bfloat16, c_out)
     if name == "sparse_conv_k3":
         rb, order = table.rb, table.order
         before = tile_work(rb)
@@ -738,11 +784,11 @@ def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -
         before = 8 * 64 * int(live.reshape(-1, 64).amax(1).sum())
     work = tile_work(rb, order)
     v_out, k = rb.shape[1], rb.shape[0]
-    splits = wgmma_splits(v_out, k, c_in)
-    grid = -(-v_out // 64) * max(1, -(-c_out // 256)) * splits
+    splits = wgmma_splits(v_out, k, c_in_p)
+    grid = -(-v_out // 64) * max(1, -(-c_out_p // 256)) * splits
     return {
         "tile": work / max(pairs, 1), "before": before / max(pairs, 1),
-        "resident_per_sm": _build.wgmma_blocks_per_sm(c_in, c_out, k),
+        "resident_per_sm": _build.wgmma_blocks_per_sm(c_in_p, c_out_p, k),
         "grid_per_sm": grid / 132, "splits": splits,
         "tflops": 2.0 * pairs * c_in * c_out / ms / 1e9,
         "tile_tflops": 2.0 * work * c_in * c_out / ms / 1e9,
@@ -829,7 +875,7 @@ def phase_convs(cap: Capture, results: dict, probes: list) -> None:
         }
         results[name]["old_ms"] = 0.0
     levels: dict = {}  # K2 by level rows: ms, old, library, present and tile operations
-    for key, (feats, w32, table) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+    for key, (feats, w32, table, _, _) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, rows, c_in, c_out = key
         kern, plain, rel = kernels[name]
         count = cap.count[key]
@@ -1291,7 +1337,8 @@ def capture_train_calls(trainer, scans) -> CallCapture:
     )
     cap.patch(
         f3conv, "sparse_conv_k3",
-        lambda x, w, rb, dgrad=False, order=None: ("sparse_conv_k3", *x.shape, w.shape[2]) if dgrad else None,
+        lambda x, w, rb, dgrad=False, order=None: (
+            ("sparse_conv_k3", *x.shape, w.shape[2]) if dgrad else None),
     )
     for name in ("downsample_conv_apply", "upsample_conv_apply"):
         kind = "strided_down" if name.startswith("down") else "strided_up"
@@ -1475,7 +1522,8 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             old = None
             if name in ("sparse_conv_k3", "strided_down", "strided_up"):
                 old, old_err = old_times(name, xd, sd, a[2], want(), ref(), dtype, rel)
-            elif name == "k3_conv_dw" and f3conv.dw_route(tdt, x.shape[1], second.shape[1]) == "wgmma":
+            elif name == "k3_conv_dw" and x.shape[1] % 8 == 0 and second.shape[1] % 8 == 0:
+                # the mma.sync tile the wgmma one replaced takes widths in 8s
                 old, old_err = old_k4_times(xd, sd, kw["pairs"], want(), ref())
             pms = cuda_ms(plain, iters=3)
             nbytes, ops, lib = train_cost(name, a, kw, xd, sd)
@@ -1483,8 +1531,8 @@ def phase_train_kernels(cap: CallCapture, results: dict) -> None:
             dev = ""
             if name in ("strided_dw", "segment_sum"):
                 dev, lib_dev = yardstick_devices(name, kern, a, kw, xd, sd)
-                r["device_ms"] = r.get("device_ms", 0.0) + count * (dev or 0.0)
-                r["library_device_ms"] = r.get("library_device_ms", 0.0) + count * (lib_dev or 0.0)
+                r["device_ms"] = msum(r.get("device_ms", 0.0), mscale(count, dev))
+                r["library_device_ms"] = msum(r.get("library_device_ms", 0.0), mscale(count, lib_dev))
                 dev = f" device {fmt_ms(dev)} (yardstick device {fmt_ms(lib_dev)})"
                 if name == "segment_sum":
                     old_b, _ = bound_ms(k6_bytes(xd, a[1], a[2] if len(a) > 2 else kw.get("weights"))[1], ops, dtype)
@@ -2202,8 +2250,8 @@ def phase_k8(cap: CallCapture, results: dict) -> None:
             f"kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms index_select {lib:.4f} ms "
             f"(max|diff| {lib_err:.3e}) bound {b:.4f} ms (bytes)"
         )
-        for k, x in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib), ("device_ms", dev or 0.0)):
-            tot[k] += cap.count[key] * x
+        for k, x in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib), ("device_ms", dev)):
+            tot[k] = msum(tot[k], mscale(cap.count[key], x))
     results["voxelize_bwd"] = dict(tot, bound_by="bytes")
 
 
@@ -2397,7 +2445,7 @@ def _tot():
 
 def _add(tot, **kw):
     for k, x in kw.items():
-        tot[k] = max(tot.get(k, 0.0), x) if k == "max_abs_err" else tot.get(k, 0.0) + x
+        tot[k] = max(tot.get(k, 0.0), x) if k == "max_abs_err" else msum(tot.get(k, 0.0), x)
 
 
 def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
@@ -2444,7 +2492,7 @@ def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
             f"plain {pms:.4f} ms embedding_bag {lib:.4f} ms (max|diff| {lib_err:.3e}) "
             f"bound {b:.4f} ms (bytes)"
         )
-        _add(k7, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0)
+        _add(k7, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev)
         # its backward: K6 over the 4P (corner, pixel) pairs, weighted
         g = torch.randn(p, c, device="cuda", generator=gen)
         w = t.weights.reshape(-1)
@@ -2476,13 +2524,13 @@ def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
             f"bit-identical, kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms "
             f"index_select {lib:.4f} ms bound {b:.4f} ms (bytes)"
         )
-        _add(k8, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev or 0.0)
+        _add(k8, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev)
     results["devoxelize_bilinear"] = dict(k7, bound_by="bytes", device_ms_per_scan=k7["device_ms"])
     results.setdefault("segment_sum", {})["rpvnet_pixel_tables"] = dict(k6, bound_by="bytes")
     results.setdefault("voxelize_bwd", {})["rpvnet_pixel_tables"] = dict(k8, bound_by="bytes")
     log(
         "rpvnet point <-> range kernels per step: "
-        + "; ".join(f"{n} kernel {t['ms']:.4f} ms device {t['device_ms']:.4f} bound {t['bound_ms']:.4f} "
+        + "; ".join(f"{n} kernel {t['ms']:.4f} ms device {fmt_ms(t['device_ms'])} bound {t['bound_ms']:.4f} "
                     f"plain {t['plain_ms']:.4f} library {t['library_ms']:.4f}"
                     for n, t in (("K7 bilinear x4", k7), ("K6 pixel/pair x7", k6), ("K8 pixel x3", k8)))
     )
@@ -2518,8 +2566,8 @@ def _k6_check(label, args, tot, count: int = 1, profile: bool = True) -> None:
         + (" SLOWER than index_add_" if ms > lib else "")
     )
     _add(tot, ms=count * ms, plain_ms=count * pms, bound_ms=count * b, library_ms=count * lib,
-         device_ms=count * (dev or 0.0), max_abs_err=err)
-    tot["library_device_ms"] = tot.get("library_device_ms", 0.0) + count * (lib_dev or 0.0)
+         device_ms=mscale(count, dev), max_abs_err=err)
+    tot["library_device_ms"] = msum(tot.get("library_device_ms", 0.0), mscale(count, lib_dev))
 
 
 def _leaves(a):
@@ -2712,7 +2760,8 @@ def cylinder_calls(run) -> CallCapture:
     from taseg_tpu_torch.ops import f3conv, sparse_conv
 
     def key(x, w, rb, dgrad=False, order=None):
-        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
+        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], x.shape[0], w.shape[1],
+                rb.shape[1], w.shape[2])
 
     cap = CallCapture()
     cap.patch(sparse_conv, "sparse_conv", key)
@@ -2787,6 +2836,8 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> d
         name, k, v_in, c_in, v_out, c_out = key
         count = cap.count[key]
         x, second, rb = a[0], a[1], a[2]
+        if name != "sparse_conv_dw":  # a conv's input at its weight's C_in (its Function padded it)
+            x = x[:, : second.shape[1]].contiguous()
         pairs = int((rb >= 0).sum())
         route = sparse_conv.k_route(x.dtype, c_in, c_out)
         if route != "tf32x3":
@@ -3261,7 +3312,7 @@ def phase_fsa_kd() -> dict:
     SyntheticMsKittiReader(N_POINTS, history=FSA_HISTORY) at the recipe's
     262 144 rows per scan.  Serving: each scan's level counts beside
     their capacities; K2 and K3 at every conv shape of a fused forward
-    (twice the flagship's rows; the stem's C_in 5 on the CUDA-core route)
+    (twice the flagship's rows; the stem's C_in 5 on the wgmma tile, padded)
     and K6 at the voxelize forward (C = 5) against their plain versions,
     the head's K7 bit-identical, with their times; `Segmenter.predict`
     counted (each kernel as FSA_PER_SCAN says, K1 the same per scan), its
@@ -3407,7 +3458,8 @@ TIAF_STEPS = 3
 # TIAF (tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa_tiaf.yaml)
 # in f32: per scan the main branch's 48 convs and the FOV branch's 17: 64
 # on K2 at K = 27 offsets on the f32 3xTF32 route over the levels' row
-# orders, the main stem's first (C_in 5) on K2 at 27 (CUDA cores); K3 4 +
+# orders, the main stem's first (C_in 5) among them at C_in padded to 8;
+# K3 4 +
 # 4 per branch (K3-down and K3-up on K2 at K's 3xTF32 tile over each
 # level's child and up tables: `strided_down_tf32`, `strided_up_tf32`), K6 at
 # the two voxelizes, K7 in 5 multi-scale launches (3 of each before): the
@@ -3417,20 +3469,20 @@ TIAF_STEPS = 3
 # both topologies' joins (5 each) and the corner joins of the three
 # FOV -> main tables.  A train step adds the input gradients (47 main,
 # 17 FOV: the FOV stem's input, the image features, takes one), K4 at K =
-# 27 (64; the main stem's first on K4 at 27), K3's input gradients and K5
+# 27 (65), K3's input gradients and K5
 # per strided conv, K6 at the devoxelize backwards (13: the main head's
 # one over its stacked pair tables, 3 for each cat's columns, the image
 # gathers' over the pixel table among them) and K8 at the FOV stem's
 # voxelize backward
 TIAF_PER_SCAN = {
-    "join_scan": 13, "sparse_conv_k3": 1, "sparse_conv_k": 64, "sparse_conv_k_tf32": 64,
+    "join_scan": 13, "sparse_conv_k3": 0, "sparse_conv_k": 65, "sparse_conv_k_tf32": 65,
     "strided_down": 8, "strided_down_tf32": 8, "strided_up": 8, "strided_up_tf32": 8,
     "segment_sum": 2, "devoxelize": 5, "devoxelize_multi": 5,
 }
 TIAF_PER_STEP = {
-    "join_scan": 13, "sparse_conv_k3": 1, "k3_conv_dw": 1, "sparse_conv_k": 128,
-    "sparse_conv_k_tf32": 128, "sparse_conv_k_dgrad": 64, "sparse_conv_k_dgrad_tf32": 64,
-    "sparse_conv_dw": 64, "sparse_conv_dw_tf32": 64,
+    "join_scan": 13, "sparse_conv_k3": 0, "k3_conv_dw": 0, "sparse_conv_k": 129,
+    "sparse_conv_k_tf32": 129, "sparse_conv_k_dgrad": 64, "sparse_conv_k_dgrad_tf32": 64,
+    "sparse_conv_dw": 65, "sparse_conv_dw_tf32": 65,
     "strided_down": 16, "strided_down_tf32": 16, "strided_down_dgrad": 8,
     "strided_down_dgrad_tf32": 8, "strided_up": 16, "strided_up_tf32": 16,
     "strided_up_dgrad": 8, "strided_up_dgrad_tf32": 8,
@@ -3665,7 +3717,8 @@ def tiaf_calls(trainer, scans) -> CallCapture:
     from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv, voxelize
 
     def conv(x, w, rb, dgrad=False, order=None):
-        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], *x.shape, rb.shape[1], w.shape[2])
+        return ("sparse_conv_k" + ("_dgrad" if dgrad else ""), rb.shape[0], x.shape[0], w.shape[1], rb.shape[1],
+                w.shape[2])
 
     cap = CallCapture()
     cap.patch(sparse_conv, "sparse_conv", conv)
@@ -3689,7 +3742,8 @@ def tiaf_calls(trainer, scans) -> CallCapture:
         kind = "strided_down" if name.startswith("down") else "strided_up"
         cap.patch(
             strided_conv, name,
-            lambda x, w, t, dgrad=False, kind=kind: (kind + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]),
+            lambda x, w, t, dgrad=False, kind=kind: (
+                kind + ("_dgrad" if dgrad else ""), *x.shape, w.shape[2]),
         )
     cap.patch(
         strided_conv, "strided_dw",
@@ -3768,7 +3822,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
         r = tot.setdefault(name, dict(_tot(), calls=0, _parts={"bytes": 0.0, "operations": 0.0}))
         if "old_ms" in kw:
             r.setdefault("old_ms", 0.0)
-        _add(r, **{k: (v if k == "max_abs_err" else count * v) for k, v in kw.items()})
+        _add(r, **{k: (v if k == "max_abs_err" else mscale(count, v)) for k, v in kw.items()})
         r["calls"] += count
         r["_parts"][by] += count * kw["bound_ms"]
 
@@ -3813,7 +3867,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             dev = {}
             if name == "strided_dw":
                 d, ld = yardstick_devices(name, kern, a, kw, x, second)
-                dev = {"device_ms": d or 0.0, "library_device_ms": ld or 0.0}
+                dev = {"device_ms": d, "library_device_ms": ld}
                 label += f" device {fmt_ms(d)} (torch.mm device {fmt_ms(ld)})"
             log(
                 f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
@@ -3892,7 +3946,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
     for r in tot.values():
         parts = r.pop("_parts")
-        if not r["device_ms"]:
+        if "library_device_ms" not in r:  # K5 alone is profiled here
             r.pop("device_ms")
         r["bound_by"] = "bytes" if parts["bytes"] >= parts["operations"] else "operations"
     out.update(tot)
@@ -3900,7 +3954,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
         "tiaf kernels per step at the step's own calls: " + "; ".join(
             f"{n} x{r['calls']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"library {r['library_ms']:.4f} max|err| {r['max_abs_err']:.3e}"
-            + (f" device {r['device_ms']:.4f} library device {r['library_device_ms']:.4f}"
+            + (f" device {fmt_ms(r['device_ms'])} library device {fmt_ms(r['library_device_ms'])}"
                if "library_device_ms" in r else "")
             for n, r in sorted(out.items())
         )
@@ -4137,7 +4191,7 @@ def phase_bottleneck(scans) -> dict:
     without BLOCK: Bottleneck, 1-3-1 with expansion 4, so the stages run
     at 128 ... 1024 channels and the head reads 1024 / 512 / 384) in
     bf16: one serving scan with every launch counted (K2 at each 3^3 conv,
-    all but the stem's first on the wgmma route; K3 4 + 4 on wgmma; K6 1;
+    all on the wgmma route; K3 4 + 4 on wgmma; K6 1;
     K7 1, the head), finite logits of the right shape, the small-scan f32
     logits card vs CPU; then two train steps, the second counted (K2 with
     its input gradients, K4 per 3^3 conv, K5 8, K6 2, K7 1) and timed,
@@ -4170,7 +4224,7 @@ def phase_bottleneck(scans) -> dict:
     serve_ms = (time.perf_counter() - t0) * 1e3
     serve = dict(_build.LAUNCHES)
     per_scan = {
-        "join_scan": serve["join_scan"], "sparse_conv_k3": k3, "sparse_conv_k3_wgmma": k3 - 1,
+        "join_scan": serve["join_scan"], "sparse_conv_k3": k3, "sparse_conv_k3_wgmma": k3,
         "strided_down": 4, "strided_down_wgmma": 4, "strided_up": 4, "strided_up_wgmma": 4,
         "segment_sum": 1, "devoxelize": 1, "devoxelize_multi": 1,
     }
@@ -4200,11 +4254,11 @@ def phase_bottleneck(scans) -> dict:
     train = dict(_build.LAUNCHES)
     per_step = {
         "join_scan": serve["join_scan"], "sparse_conv_k3": 2 * k3 - 1,
-        "sparse_conv_k3_wgmma": 2 * k3 - 2, "sparse_conv_k3_dgrad": k3 - 1,
+        "sparse_conv_k3_wgmma": 2 * k3 - 1, "sparse_conv_k3_dgrad": k3 - 1,
         "sparse_conv_k3_dgrad_wgmma": k3 - 1, "strided_down": 8, "strided_down_wgmma": 8,
         "strided_down_dgrad": 4, "strided_down_dgrad_wgmma": 4, "strided_up": 8,
         "strided_up_wgmma": 8, "strided_up_dgrad": 4, "strided_up_dgrad_wgmma": 4,
-        "k3_conv_dw": k3, "k3_conv_dw_wgmma": k3 - 1, "strided_dw": 8, "strided_dw_wgmma": 8,
+        "k3_conv_dw": k3, "k3_conv_dw_wgmma": k3, "strided_dw": 8, "strided_dw_wgmma": 8,
         "segment_sum": 2, "devoxelize": 1, "devoxelize_multi": 1,
     }
     check_launches(train, per_step, 1, "bottleneck train")
@@ -4547,32 +4601,25 @@ def phase_range(scans) -> dict:
 # nuScenes and Waymo (phase 5k): the sensors' trees (tests/
 # torch_nuscenes_fixture.make_card_trees), scans served per recipe, and the
 # launches per scan of the recipes whose backbone is the flagship's (mk34)
-# or RPVNet's (mk18, two blocks a stage): K2 at each 3^3 conv, all but the
-# stem's first (C_in 4) on the wgmma tile; K3 4 + 4; K6 the voxelize; K7
+# or RPVNet's (mk18, two blocks a stage): K2 at each 3^3 conv, all on the
+# wgmma tile (the stem's first, C_in 4, padded to 8); K3 4 + 4; K6 the voxelize; K7
 # the head's one multi-scale launch.  K1's count per scan is measured.
 NW_SCANS = 3
 MK34_PER_SCAN = FSA_PER_SCAN
 MK34_PER_STEP = {k: v for k, v in TRAIN_PER_STEP.items() if k != "join_scan"}
-MK18_PER_SCAN = {**MK34_PER_SCAN, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 33}
+MK18_PER_SCAN = {**MK34_PER_SCAN, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 34}
 MK18_PER_STEP = {
-    **MK34_PER_STEP, "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 66, "sparse_conv_k3_dgrad": 33,
-    "sparse_conv_k3_dgrad_wgmma": 33, "k3_conv_dw": 34, "k3_conv_dw_wgmma": 33,
+    **MK34_PER_STEP, "sparse_conv_k3": 67, "sparse_conv_k3_wgmma": 67, "sparse_conv_k3_dgrad": 33,
+    "sparse_conv_k3_dgrad_wgmma": 33, "k3_conv_dw": 34, "k3_conv_dw_wgmma": 34,
 }
 SPV18_PER_SCAN = {k: v for k, v in SPVCNN_PER_SCAN.items() if k != "join_scan"}
-SPV18_PER_SCAN.update(sparse_conv_k3=34, sparse_conv_k3_wgmma=33)
+SPV18_PER_SCAN.update(sparse_conv_k3=34, sparse_conv_k3_wgmma=34)
 RPV18_PER_SCAN = {k: v for k, v in RPVNET_PER_SCAN.items() if k != "join_scan"}
-# Waymo's 23 classes: the 3^3 head (128 -> 23, f32) is off the 3xTF32
-# route (23 is no multiple of 4), so `k3_conv` takes K2 at 27 on its
-# CUDA-core kernel, and in the step its input gradient (23 -> 128) the
-# same and its weight gradient K4 at 27 on CUDA cores; the other 47 convs
-# run K2 / K4 at K offsets on 3xTF32
-CYL23_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 47, "sparse_conv_k_tf32": 47, "sparse_conv_k3": 1,
-                  "sparse_conv_k3_wgmma": 0}
-CYL23_PER_STEP = {
-    "join_scan": 22, "sparse_conv_k": 94, "sparse_conv_k_tf32": 94, "sparse_conv_k_dgrad": 47,
-    "sparse_conv_k_dgrad_tf32": 47, "sparse_conv_dw": 47, "sparse_conv_dw_tf32": 47,
-    "sparse_conv_k3": 2, "sparse_conv_k3_dgrad": 1, "k3_conv_dw": 1, "k3_conv_dw_wgmma": 0,
-}
+# Waymo's 23 classes: the 3^3 head (128 -> 23, f32) runs K2 at K = 27 and
+# K4 at K on 3xTF32 at C_out padded to 24, as the 20-class head does, so
+# the launches are the KITTI recipe's; nothing at K2 or K4 at 27
+CYL23_PER_SCAN = {**CYLINDER_PER_SCAN, "sparse_conv_k3": 0, "sparse_conv_k3_wgmma": 0}
+CYL23_PER_STEP = {**CYLINDER_PER_STEP, "sparse_conv_k3": 0, "sparse_conv_k3_dgrad": 0, "k3_conv_dw": 0}
 # TIAF on nuScenes (f32): every kernel of KITTI's TIAF path (TIAF_PER_SCAN)
 # must launch but K2 at 27 (the main stem's C_in is 4 here: K2 at K's
 # 3xTF32 tile takes it)
@@ -4711,30 +4758,33 @@ def nw_step_stages(trainer, scans, label: str) -> dict:
 
 def nw_k_offsets(cap, label: str) -> dict:
     """K2 and K4 at K offsets at every call of a captured Waymo Cylinder
-    step (`cylinder_calls`), and the 23-class head's K2 and K4 at 27
-    (`nw_head_calls`), on each call's own inputs: against the plain
+    step (`cylinder_calls`), on each call's own inputs: against the plain
     version (the convs within 1e-5 of the largest sum of |terms|, the
-    weight gradients within 1e-4), bit-identical on repeat; the calls off
-    the 3xTF32 route (the head's, on the CUDA-core kernels) also timed
-    beside the plain version, the bound and one torch.mm."""
+    weight gradients within 1e-4), bit-identical on repeat.  The 23-class
+    head's calls (K = 27: 128 -> 23, its input gradient 23 -> 128 and its
+    weight gradient, on 3xTF32 at C_out padded to 24) also timed: kernel,
+    device, the padded copies, the CUDA-core kernel at the same inputs
+    (`cuda_core_k`, which took them before), plain, both bounds and one
+    torch.mm, beside the CUDA-core times recorded in PERF.md §6."""
     from taseg_tpu_torch.ops import f3conv, sparse_conv
 
-    out = {"calls": 0, "max_err_share": 0.0, "cuda_core": {}}
+    out = {"calls": 0, "max_err_share": 0.0, "head": {}}
+    # the logical (C_in, C_out) of each 27-offset conv, by (V_in, V_out):
+    # its weight gradient's call sees the input and the cotangent as the
+    # autograd Function padded them
+    heads = {(k[2], k[4]): (k[3], k[5]) for k in cap.seen if k[0] == "sparse_conv_k" and k[1] == 27}
     for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         name, k, v_in, c_in, v_out, c_out = key
         x, second, rb = a[0], a[1], a[2]
         route = sparse_conv.k_route(x.dtype, c_in, c_out)
-        if name in ("sparse_conv_dw", "k3_conv_dw"):
+        dw = name == "sparse_conv_dw"
+        if not dw:  # a conv's input at its weight's C_in (its Function padded it)
+            x = x[:, : second.shape[1]].contiguous()
+        if dw:
             lists = kw.get("pairs")
-            fn = f3conv.sparse_conv_dw if name == "sparse_conv_dw" else f3conv.k3_conv_dw
-            kern = lambda: fn(x, second, rb, pairs=lists)  # noqa: E731
+            kern = lambda: f3conv.sparse_conv_dw(x, second, rb, pairs=lists)  # noqa: E731
             plain, rel = f3conv.k3_conv_dw_plain, 1e-4
             nbytes = (v_in * c_in + v_out * c_out + rb.numel() + k * c_in * c_out) * 4
-        elif name.startswith("sparse_conv_k3"):
-            order = kw.get("order")
-            kern = lambda: sparse_conv.sparse_conv_k3(x, second, rb, order=order)  # noqa: E731
-            plain, rel = sparse_conv.sparse_conv_plain, 1e-5
-            nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
         else:
             order = kw.get("order")
             kern = lambda: sparse_conv.sparse_conv(x, second, rb, order=order)  # noqa: E731
@@ -4746,40 +4796,45 @@ def nw_k_offsets(cap, label: str) -> dict:
         share = err / max(ref.abs().max().item(), 1e-30)
         out["calls"] += cap.count[key]
         out["max_err_share"] = max(out["max_err_share"], share)
-        if route != "tf32x3":
+        if k == 27:  # the head, again at its logical widths, through the wrappers that pad them
+            if dw:
+                c_in, c_out = heads[(v_in, v_out)]
+                x, second = x[:, :c_in].contiguous(), second[:, :c_out].contiguous()
+            if dw:
+                kern = lambda: f3conv.sparse_conv_dw(x, second, rb, pairs=lists)  # noqa: E731
+            else:
+                kern = lambda: sparse_conv.sparse_conv(x, second, rb, order=order)  # noqa: E731
+            want, ref = plain(x, second, rb), plain(x.abs(), second.abs(), rb)
+            err = check_close(f"{label}{key} logical", twice_same(f"{label}{key}", kern), want, ref,
+                              "float32", rel)
+            share = err / max(ref.abs().max().item(), 1e-30)
+            old_err = check_close(f"{label}{key} CUDA-core", cuda_core_k(name, x, second, rb), want, ref,
+                                  "float32", rel)
+            nbytes = (x.numel() + second.numel() + rb.numel() + (k * c_in * c_out if dw else v_out * c_out)) * 4
             ops = 2.0 * int((rb >= 0).sum()) * c_in * c_out
             b, by = bound_ms(nbytes, ops, "float32")
-            dw = name in ("sparse_conv_dw", "k3_conv_dw")
+            b3, by3 = bound_ms(nbytes, ops, "tf32x3")
             base = "sparse_conv_dw" if dw else "sparse_conv_k"
             lib = (dw_library_ms if dw else conv_library_ms)(base, x, second, rb)
+            pads, wpad = pad_copies(x, second, k)
             r = {"route": route, "k": k, "c_in": c_in, "c_out": c_out, "v_out": v_out,
-                 "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(lambda: plain(x, second, rb), 3),
-                 "bound_ms": b, "bound_by": by, "library_ms": lib}
-            out["cuda_core"][name] = r
-            log(f"{label}{name} K={k} {c_in}->{c_out} V_out={v_out} route {route}: max|err| {err:.3e} "
+                 "max_abs_err": err, "ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES[base]),
+                 "pad_ms": cuda_ms(pads) if pads else 0.0, "weight_pad_ms": cuda_ms(wpad) if wpad else 0.0,
+                 "old_ms": cuda_ms(lambda: cuda_core_k(name, x, second, rb)),
+                 "old_max_abs_err": old_err, "parent_ms": CYL23_HEAD_PARENT_MS[name],
+                 "plain_ms": cuda_ms(lambda: plain(x, second, rb), 3), "bound_ms": b, "bound_by": by,
+                 "bound_ms_3xtf32": b3, "bound_by_3xtf32": by3, "library_ms": lib}
+            out["head"][name] = r
+            log(f"{label}head {name} K={k} {c_in}->{c_out} V_out={v_out} route {route}: max|err| {err:.3e} "
                 f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), bit-identical on repeat; "
-                f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {b:.4f} ms ({by}) "
-                f"one torch.mm {lib:.4f} ms")
-    log(f"{label}K2 / K4 at K offsets and at 27: {out['calls']} calls of one step against their plain "
+                f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}, padded copies {r['pad_ms']:.4f} ms, "
+                f"weight's padded copy {r['weight_pad_ms']:.4f} ms) "
+                f"beside {r['parent_ms']} ms on CUDA cores in PERF.md §6 (CUDA-core kernel here "
+                f"{r['old_ms']:.4f} ms, max|err| {old_err:.3e}); plain {r['plain_ms']:.4f} ms bound {b:.4f} ms "
+                f"({by}) / {b3:.4f} ms ({by3}, 3xTF32) one torch.mm {lib:.4f} ms")
+    log(f"{label}K2 / K4 at K offsets: {out['calls']} calls of one step against their plain "
         f"versions, largest error {out['max_err_share']:.2e} of the largest sum of |terms|")
     return out
-
-
-def nw_head_calls(run) -> CallCapture:
-    """`run()` (a Cylinder_TS train step) with the wrappers of K2 at 27 and
-    K4 at 27 wrapped: the 3^3 head's forward, input-gradient and
-    weight-gradient calls where they leave the 3xTF32 route."""
-    from taseg_tpu_torch.ops import f3conv, sparse_conv
-
-    cap = CallCapture()
-    for mod in (sparse_conv, f3conv):
-        cap.patch(mod, "sparse_conv_k3", lambda x, w, rb, dgrad=False, order=None: (
-            "sparse_conv_k3" + ("_dgrad" if dgrad else ""), 27, *x.shape, rb.shape[1], w.shape[2]))
-    cap.patch(f3conv, "k3_conv_dw", lambda f, g, rb, out_dtype=None, pairs=None: (
-        "k3_conv_dw", 27, *f.shape, *g.shape))
-    run()
-    cap.remove()
-    return cap
 
 
 def nw_head_k7(seg, scans, label: str) -> dict:
@@ -5009,11 +5064,9 @@ def phase_nus_waymo() -> dict:
             raise AssertionError(f"{name}: non-finite loss or grad norm")
         p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
         cap = cylinder_calls(lambda: tr.step(train[:1]))
-        head = nw_head_calls(lambda: tr.step(train[:1]))
-        if sorted(k[0] for k in head.seen) != ["k3_conv_dw", "sparse_conv_k3", "sparse_conv_k3_dgrad"]:
-            raise AssertionError(f"{name}: the head's calls at 27 {sorted(head.seen)}")
-        cap.seen.update(head.seen)
-        cap.count.update(head.count)
+        heads = sorted(k[0] for k in cap.seen if k[1] == 27)
+        if heads != ["sparse_conv_dw", "sparse_conv_k", "sparse_conv_k_dgrad"]:
+            raise AssertionError(f"{name}: the head's calls at K = 27 {heads}")
         p["k_offsets"] = nw_k_offsets(cap, f"{name} ")
         res["paths"][name] = p
         del tr
@@ -5118,6 +5171,520 @@ def phase_nus_waymo() -> dict:
     res["seconds"] = time.perf_counter() - t_phase
     log(f"nuscenes / waymo phase (5k): {res['seconds']:.1f} s")
     return res
+
+
+# MinkUNet and SPVCNN mk34 at cr 1.6 (phase 5l): widths int(1.6 x PLANES)
+# = 51, 102, 204, 409, 153 and the decoder's concatenations 613 and 306,
+# none a multiple of 8, so every conv takes its tensor-core route at widths
+# the wrappers pad to whole 16-byte pieces.  The launches per scan and per
+# step are those of the cr 1.0 backbones (MK34_*, SPVCNN's); none of K2,
+# K3, K4 and K5 may take a CUDA-core kernel
+CR16_PATHS = (
+    # (name, recipe, dataset, trained)
+    ("kitti minkunet cr16", "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr16.yaml", "kitti", True),
+    ("kitti spvcnn cr16", "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr16.yaml", "kitti", True),
+    ("waymo minkunet cr16", "tools/cfgs/voxel/waymo/minkunet_mk34_cr16.yaml", "waymo", True),
+    ("waymo minkunet cr16 xyz", "tools/cfgs/voxel/waymo/minkunet_mk34_cr16_xyz.yaml", "waymo", False),
+    ("waymo spvcnn cr16", "tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml", "waymo", False),
+)
+CR16_SCANS = 2  # served per recipe after a warm-up scan
+SPV34_PER_SCAN = {k: v for k, v in SPVCNN_PER_SCAN.items() if k != "join_scan"}
+SPV34_PER_STEP = {k: v for k, v in SPVCNN_PER_STEP.items() if k != "join_scan"}
+# each wrapper of K2, K3, K4 and K5 with the LAUNCHES entries of its
+# tensor-core routes: a launch counted under the first and none of the
+# others took a CUDA-core kernel
+TENSOR_CORE_ROUTES = {
+    base: (base + "_wgmma", base + "_tf32")
+    for base in (
+        "sparse_conv_k3", "sparse_conv_k3_dgrad", "strided_down", "strided_down_dgrad", "strided_up",
+        "strided_up_dgrad", "k3_conv_dw", "strided_dw", "sparse_conv_k", "sparse_conv_k_dgrad",
+        "sparse_conv_dw",
+    )
+}
+# the times recorded in PERF.md §6 (NVIDIA H100 80GB HBM3, 700 W) before the
+# padded routes: the Waymo
+# Cylinder head's calls (128 -> 23) on the CUDA-core kernels, and MinkUNet
+# cr 1.0's stem K4 (4 -> 32) on CUDA cores, ms per call
+CYL23_HEAD_PARENT_MS = {"sparse_conv_dw": 2.485, "sparse_conv_k": 1.216, "sparse_conv_k_dgrad": 0.598}
+STEM_K4_PARENT_MS = 0.95
+
+
+def cuda_core_launches(launches: dict) -> dict:
+    """The launches of K2, K3, K4 and K5 in `launches` that took no
+    tensor-core route, by wrapper (empty where there are none)."""
+    out = {}
+    for base, routes in TENSOR_CORE_ROUTES.items():
+        n = launches.get(base, 0) - sum(launches.get(r, 0) for r in routes)
+        if n:
+            out[base] = n
+    return out
+
+
+def pad_copies(x, second, n_out: int = 0):
+    """The copies that the wrapper of one padded call makes around its
+    kernel on every call, as one callable: the zero-padded columns of the
+    features (a conv, whose kernel writes the logical output columns
+    itself and whose padded weight is kept beside a weight that takes no
+    gradient), or those of the features and the cotangent and the
+    logical (n_out, C_in, C_out) block rounded to the input dtype (a
+    weight gradient); and the weight's padded copy alone (a conv whose
+    weight changes every step pays it once a step, and W^T's once a
+    backward), as a second callable or None.  (None, None) where the
+    widths need no padding."""
+    import torch
+
+    from taseg_tpu_torch.ops.f3conv import dw_unpad
+    from taseg_tpu_torch.ops.sparse_conv import pad_cols, padded_width
+
+    dt = x.dtype
+    c_in = x.shape[1]
+    c_out = second.shape[1] if second.dim() == 2 else second.shape[2]
+    ci, co = padded_width(dt, c_in), padded_width(dt, c_out)
+    if (ci, co) == (c_in, c_out):
+        return None, None
+    if second.dim() == 2:  # a weight gradient: x and the cotangent
+        out = torch.empty((n_out, ci, co), dtype=torch.float32, device=x.device)
+        return lambda: (pad_cols(x, ci), pad_cols(second, co), dw_unpad(out, c_in, c_out, dt)), None
+    return (lambda: pad_cols(x, ci)), lambda: torch.nn.functional.pad(second, (0, co - c_out, 0, ci - c_in))
+
+
+def cuda_core_call(name: str, x, second, t, up: bool = False):
+    """The CUDA-core kernel of one K2 (at 27), K3, K4 or K5 call on the
+    same inputs, through its C entry (counted nowhere): the kernel that
+    the padded tensor-core routes replaced at ragged widths.  `t` is the
+    call's (27, V) table (K2; K4's reverse table) or its StridedTables
+    (K3, K5).  Returns the output (f32 for the weight gradients)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build, f3conv
+    from taseg_tpu_torch.ops.sparse_conv import DTYPE_CODES
+
+    dt, dev = x.dtype, x.device
+    code = DTYPE_CODES[dt]
+    if name == "k3_conv_dw":
+        v, c_in = x.shape
+        return f3conv.launch_dw("taseg_k3_conv_dw", "", (x.data_ptr(), second.data_ptr(), t.data_ptr()),
+                                (v, c_in, second.shape[1]), v, 27, dt, dev)
+    if name == "strided_dw":
+        v_fine = t.parent.shape[0]
+        return f3conv.launch_dw(
+            "taseg_strided_dw", "", (x.data_ptr(), second.data_ptr(), t.parent.data_ptr(), t.slot.data_ptr()),
+            (v_fine, x.shape[1], second.shape[1], int(up)), v_fine, 8, dt, dev,
+        )
+    c_in, c_out = x.shape[1], second.shape[2]
+    if name == "sparse_conv_k3":
+        v = x.shape[0]
+        out = torch.empty((v, c_out), dtype=dt, device=dev)
+        _build.launch("taseg_sparse_conv_k3", (), x.data_ptr(), second.data_ptr(), t.data_ptr(),
+                      out.data_ptr(), v, c_in, c_out, code)
+        return out
+    if name == "strided_up":
+        v_fine = t.parent.shape[0]
+        out = torch.empty((v_fine, c_out), dtype=dt, device=dev)
+        _build.launch("taseg_strided_up", (), x.data_ptr(), second.data_ptr(), t.parent.data_ptr(),
+                      t.slot.data_ptr(), out.data_ptr(), v_fine, c_in, c_out, code)
+        return out
+    v_coarse = t.starts.shape[0] - 1
+    out = torch.empty((v_coarse, c_out), dtype=dt, device=dev)
+    _build.launch("taseg_strided_down", (), x.data_ptr(), second.data_ptr(), t.parent.data_ptr(),
+                  t.slot.data_ptr(), t.perm.data_ptr(), t.starts.data_ptr(), out.data_ptr(),
+                  x.shape[0], v_coarse, c_in, c_out, code)
+    return out
+
+
+def cr16_call(label: str, name: str, count: int, x, second, t, kw: dict, dgrad: bool = False,
+              up: bool = False) -> dict:
+    """One padded call of K2, K3, K4 or K5 at its captured shape and
+    inputs: against its plain version within its route's tolerance (the
+    convs within 1e-5 of the largest sum of |terms|, 1e-4 for K3-down,
+    whose plain version sums by a mean-centred cumsum, and for the weight
+    gradients, which sum up to all rows in another order; bf16 outputs
+    plus one rounding), bit-identical on repeat, and the CUDA-core kernel
+    at the same inputs held to the same tolerance.  Times per call:
+    kernel (`cuda_ms`, the wrapper with the copies it makes on every call,
+    as a served model calls it: a conv's padded weight is kept after the
+    first call), device (the kernel's own, torch.profiler; None where no
+    profile caught it), those copies alone, the weight's padded copy alone
+    (`pad_copies`), the CUDA-core kernel, plain, bound (bytes and
+    operations at the logical widths) and one torch.mm on rows gathered
+    beforehand."""
+    from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv
+
+    dt = x.dtype
+    dtype = str(dt).split(".")[-1]
+    if name == "k3_conv_dw":
+        kern = partial(f3conv.k3_conv_dw, x, second, t, pairs=kw.get("pairs"))
+        plain, rel, args, n_out = f3conv.k3_conv_dw_plain, 1e-4, (x, second, t), 27
+    elif name == "strided_dw":
+        kern = partial(strided_conv.strided_dw, x, second, t, up)
+        plain, rel, args, n_out = partial(strided_conv.strided_dw_plain, up=up), 1e-4, (x, second, t), 8
+    elif name == "sparse_conv_k3":
+        kern = partial(sparse_conv.sparse_conv_k3, x, second, t, dgrad=dgrad, order=kw.get("order"))
+        plain, rel, args, n_out = sparse_conv.sparse_conv_plain, 1e-5, (x, second, t), 0
+    elif name == "strided_down":
+        kern = partial(strided_conv.downsample_conv_apply, x, second, t, dgrad=dgrad)
+        plain, rel, args, n_out = strided_conv.downsample_conv_plain, 1e-4, (x, second, t), 0
+    else:
+        kern = partial(strided_conv.upsample_conv_apply, x, second, t, dgrad=dgrad)
+        plain, rel, args, n_out = strided_conv.upsample_conv_plain, 1e-5, (x, second, t), 0
+    out_dtype = "float32" if n_out else dtype
+    got = twice_same(label, kern)
+    want = plain(*args)
+    ref = plain(args[0].abs(), args[1].abs(), t)
+    err = check_close(label, got, want, ref, out_dtype, rel)
+    old = cuda_core_call(name, x, second, t, up)
+    old_err = check_close(f"{label} CUDA-core", old, want, ref, out_dtype, rel)
+    del got, want, ref, old
+    cost_args = (x, second, t, up) if name == "strided_dw" else (x, second, t)
+    nbytes, ops, lib = train_cost(name, cost_args, {"up": up}, x, second)
+    b, by = bound_ms(nbytes, ops, dtype)
+    pads, wpad = pad_copies(x, second, n_out)
+    r = {
+        "ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES[name], iters=5),
+        "pad_ms": cuda_ms(pads) if pads else 0.0, "weight_pad_ms": cuda_ms(wpad) if wpad else 0.0,
+        "old_ms": cuda_ms(lambda: cuda_core_call(name, x, second, t, up), iters=3),
+        "plain_ms": cuda_ms(lambda: plain(*args), iters=3), "bound_ms": b, "library_ms": lib,
+        "max_abs_err": err,
+    }
+    log(
+        f"{label} x{count} route {route_of(name, dt, x, second)}: max|err| {err:.3e} (CUDA-core {old_err:.3e}), "
+        f"bit-identical on repeat; kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}, padded copies "
+        f"{r['pad_ms']:.4f} ms, weight's padded copy {r['weight_pad_ms']:.4f} ms) CUDA-core {r['old_ms']:.4f} ms "
+        f"plain {r['plain_ms']:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
+        + (" SLOWER than torch.mm" if r["ms"] > lib else "")
+    )
+    return r
+
+
+def route_of(name: str, dt, x, second) -> str:
+    from taseg_tpu_torch.ops import f3conv, sparse_conv, strided_conv
+
+    c_in = x.shape[1]
+    c_out = second.shape[1] if second.dim() == 2 else second.shape[2]
+    if name in ("k3_conv_dw", "strided_dw"):
+        return f3conv.dw_route(dt, c_in, c_out, strided=name == "strided_dw")
+    if name == "sparse_conv_k3":
+        return sparse_conv.route(dt, c_in, c_out)
+    if name == "strided_up":
+        return strided_conv.upsample_route(dt, c_in, c_out)
+    return strided_conv.downsample_route(dt, c_in, c_out)
+
+
+def conv_calls(trainer, scans) -> Capture:
+    """One real train step of `trainer` with `Capture` hooks on its model."""
+    calls = Capture(trainer.model)
+    trainer.step(scans[:1])
+    calls.remove()
+    return calls
+
+
+def cr16_padded_calls(calls: Capture, label: str) -> dict:
+    """`cr16_call` at every conv of a train step (`conv_calls`), on the
+    step's inputs at their logical widths through the wrappers, which pad
+    them: the forward (K2 at 27, K3-down, K3-up), its input gradient (K2
+    on W^T over the reverse table and its order; K3's other direction;
+    none for an input that takes no gradient) and its weight gradient (K4
+    over the level's pair lists, K5 over the slot lists), the cotangent a
+    seeded normal of the output's shape.  (In the train step the autograd
+    Functions pad the input and the cotangent once for the calls that
+    share them.)  The totals per kernel (the input gradients under
+    `<name>_dgrad`) weighted by the calls' counts per step; a total with a
+    call whose device time was not measured is None."""
+    import torch
+
+    tot: dict = {}
+
+    def add(key, count, r):
+        t = tot.setdefault(key, {k: 0.0 for k in r} | {"calls": 0})
+        for k, v in r.items():
+            t[k] = max(t[k], v) if k == "max_abs_err" else msum(t[k], mscale(count, v))
+        t["calls"] += count
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for key, (x, w32, table, bwd, grad_in) in sorted(calls.seen.items(), key=lambda kv: str(kv[0])):
+        name, rows, c_in, c_out = key
+        count = calls.count[key]
+        what = f"{label}{name} rows={rows} {c_in}->{c_out}"
+        w = w32.to(x.dtype).contiguous()
+        w_t = w.transpose(1, 2).contiguous()
+        if name == "sparse_conv_k3":
+            fwd = table
+            g = torch.randn(rows, c_out, device=x.device, generator=gen).to(x.dtype)
+            add(name, count, cr16_call(what, name, count, x, w, fwd.rb, {"order": fwd.order}))
+            if grad_in:
+                add(name + "_dgrad", count, cr16_call(f"{what} input gradient", name, count, g, w_t, bwd.rb,
+                                                      {"order": bwd.order}, dgrad=True))
+            add("k3_conv_dw", count, cr16_call(f"{what} K4", "k3_conv_dw", count, x, g, bwd.rb,
+                                               {"pairs": bwd.pairs}))
+            continue
+        up = name == "strided_up"
+        out_rows = table.parent.shape[0] if up else table.starts.shape[0] - 1
+        g = torch.randn(out_rows, c_out, device=x.device, generator=gen).to(x.dtype)
+        add(name, count, cr16_call(what, name, count, x, w, table, {}))
+        other = "strided_down" if up else "strided_up"
+        add(other + "_dgrad", count, cr16_call(f"{what} input gradient", other, count, g, w_t, table, {},
+                                               dgrad=True))
+        add("strided_dw", count, cr16_call(f"{what} K5", "strided_dw", count, x, g, table, {}, up=up))
+    for name, t in sorted(tot.items()):
+        log(f"{label}{name} over {t['calls']} calls: kernel {t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])}, "
+            f"padded copies {t['pad_ms']:.4f} ms, weights' padded copies {t['weight_pad_ms']:.4f} ms) CUDA-core "
+            f"{t['old_ms']:.4f} ms plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms one torch.mm "
+            f"{t['library_ms']:.4f} ms, max|err| {t['max_abs_err']:.3e}")
+    return tot
+
+
+def cr16_point_kernels(trainer, scans, label: str) -> dict:
+    """SPVCNN cr 1.6's point widths on one captured train step: K6 at
+    every call of 100 channels or more (the re-voxelizes of the 409-,
+    204- and 153-wide point features, f32, and the devoxelize backwards)
+    within 1e-5 of its plain version in f64, with its times, beside the
+    layout that the wrapper did not take: where it pads the rows to whole
+    16-byte pieces (`voxelize.segment_sum_cols`), K6 on the rows as they
+    are, 16 pieces a lane, through its C entry (`k6_own_pieces`); else
+    the copy to whole 16-byte pieces and K6 there, timed apart; K7 at its
+    calls of 100 channels or more bit-identical to its plain version, with
+    kernel, plain and `index_select` / `embedding_bag` times; K8 at its 3
+    calls (`phase_k8`)."""
+    import torch
+
+    from taseg_tpu_torch.ops import voxelize as vx
+    from taseg_tpu_torch.ops.sparse_conv import pad_cols, padded_width
+
+    def hold(tag, fn, want, ref):
+        got = twice_same(tag, fn)
+        return check_close(tag, got, want, ref, "float32", 1e-5)
+
+    cap = capture_train_calls(trainer, scans[:1])
+    out = {"segment_sum": {}, "devoxelize": {}}
+    for key, (a, kw) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
+        if key[0] == "segment_sum" and key[3] >= 100:
+            x, t = a[0].detach(), a[1]
+            w = a[2] if len(a) > 2 else kw.get("weights")
+            kern = partial(vx.segment_sum, x, t, w)
+            tag = f"{label}K6 {key[1:]}"
+            want = vx.segment_sum_plain(x.double(), t, None if w is None else w.double())
+            ref = vx.segment_sum_plain(x.double().abs(), t, None if w is None else w.double().abs())
+            err = hold(tag, kern, want, ref)
+            c, esz = x.shape[1], x.element_size()
+            cols = vx.segment_sum_cols(c, esz, x.data_ptr() % 16)
+            plan = vx.segment_sum_plan(c, esz, x.data_ptr() % 16)
+            r = {
+                "cols": cols, "ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES["segment_sum"], iters=5),
+                "library_ms": cuda_ms(k6_library(x, t, w)),
+                "bound_ms": bound_ms(k6_bytes(x, t, w)[0], 0.0, "float32")[0], "max_abs_err": err,
+            }
+            if cols != c:  # padded by the wrapper: the rows as they are, 16 pieces a lane
+                own = partial(k6_own_pieces, x, t, w)
+                hold(f"{tag} in its own pieces", own, want, ref)
+                r["own_pieces_ms"] = cuda_ms(own)
+                other = f"in its own pieces ({vx._layout(c, esz, x.data_ptr() % 16).pieces} a lane) " \
+                        f"{r['own_pieces_ms']:.4f} ms"
+            else:  # at its own width: the copy to whole 16-byte pieces and K6 there
+                cp = padded_width(x.dtype, c)
+                xp = pad_cols(x, cp)
+                r["padded_copy_ms"] = cuda_ms(lambda: pad_cols(x, cp)) if cp != c else 0.0
+                r["padded_k6_ms"] = cuda_ms(partial(vx.segment_sum, xp, t, w))
+                other = f"padded to {cp} columns: copy {r['padded_copy_ms']:.4f} ms + K6 {r['padded_k6_ms']:.4f} ms"
+                del xp
+            del want, ref
+            out["segment_sum"][str(key[1:])] = r
+            log(f"{tag} {x.dtype} x{cap.count[key]}/step (run at {cols} columns, {plan.pieces} pieces of "
+                f"{plan.vw} bytes a lane): max|err| {err:.3e}, bit-identical on repeat; kernel {r['ms']:.4f} ms "
+                f"(device {fmt_ms(r['device_ms'])}) index_add_ {r['library_ms']:.4f} ms bound "
+                f"{r['bound_ms']:.4f} ms; {other}")
+        elif key[0] == "devoxelize" and key[-1] >= 100:
+            z, t = a[0].detach(), a[1]
+            table = t if key[1] == "trilinear" else vx.IdentityDevoxTable(inverse=t)
+            ms, pms, lib, lib_err, points = devox_times(z, table)
+            out["devoxelize"][str(key[1:])] = {"ms": ms, "plain_ms": pms, "library_ms": lib}
+            log(f"{label}K7 {key[1:]} x{cap.count[key]}/step ({z.shape[1] * z.element_size()} bytes a row): "
+                f"bit-identical; kernel {ms:.4f} ms plain {pms:.4f} ms "
+                f"{'index_select' if key[1] == 'identity' else 'embedding_bag'} {lib:.4f} ms"
+                + (" SLOWER than the library call" if ms > lib else ""))
+    k8 = {}
+    phase_k8(k8_calls(trainer, scans), k8)
+    out["voxelize_bwd"] = k8["voxelize_bwd"]
+    del cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def k6_own_pieces(src, tables, weights=None):
+    """K6 on `src` at its own width in its own pieces (16 a lane where
+    they need more than 8: the layout that `voxelize.segment_sum` replaces
+    by a padded copy), through its C entry (counted nowhere)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops import voxelize as vx
+    from taseg_tpu_torch.ops.sparse_conv import DTYPE_CODES
+
+    dev = src.device
+    v = tables.starts.shape[0] - 1
+    n = tables.perm.shape[0]
+    p, c = src.shape
+    plan = vx._layout(c, src.element_size(), src.data_ptr() % 16)
+    units = -(-n // plan.unit)
+    out = torch.empty((v, c), dtype=torch.float32, device=dev)
+    part = torch.empty((units, 2, c), dtype=torch.float32, device=dev)
+    _build.launch(
+        "taseg_segment_sum", (), src.data_ptr(), None if weights is None else weights.data_ptr(),
+        tables.perm.data_ptr(), tables.starts.data_ptr(), out.data_ptr(), part.data_ptr(),
+        _build.zeroed_counters(dev, units).data_ptr(), v, c, n - v, p, n, DTYPE_CODES[src.dtype],
+        plan.vw, plan.lanes, plan.pieces, plan.unit, int(vx.segment_sum_by_rows(n - v, v)),
+    )
+    return out
+
+
+def cr16_stem_k4(trainer, scans) -> dict:
+    """MinkUNet cr 1.0's stem K4 (4 -> 32, bf16) at a real step's
+    tables and input: the wgmma tile at C_in padded to 8 against its plain
+    version and the CUDA-core kernel that took it before, with kernel,
+    device, padded copies, CUDA-core, plain, bound and torch.mm times
+    beside the CUDA-core time recorded in PERF.md §6."""
+    import torch
+
+    calls = conv_calls(trainer, scans)
+    keys = [k for k in calls.seen if k[0] == "sparse_conv_k3" and k[2] == 4]
+    if len(keys) != 1:
+        raise AssertionError(f"the stem's first conv: {keys}")
+    x, _, _, bwd, _ = calls.seen[keys[0]]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.randn(x.shape[0], keys[0][3], device=x.device, generator=gen).to(x.dtype)
+    r = cr16_call(f"stem K4 (cr 1.0) {keys[0][1:]}", "k3_conv_dw", 1, x, g, bwd.rb, {"pairs": bwd.pairs})
+    log(f"stem K4 (cr 1.0, 4 -> 32): {r['ms']:.4f} ms on wgmma (device {fmt_ms(r['device_ms'])}, padded copies "
+        f"{r['pad_ms']:.4f}) beside {STEM_K4_PARENT_MS} ms on CUDA cores in PERF.md §6 "
+        f"(this run's CUDA-core kernel: {r['old_ms']:.4f} ms)")
+    return r
+
+
+def phase_cr16(scans=None, trainer=None) -> dict:
+    """MinkUNet and SPVCNN mk34 at cr 1.6 (5l), the five recipes at full
+    width in bf16: the KITTI ones on `scans` (synthetic 120 000-point
+    scans), the Waymo ones on a sensor-sized tree
+    (`tests/torch_nuscenes_fixture.make_waymo_root` at WAYMO_CARD).
+    Each serves CR16_SCANS counted scans (the cr 1.0 backbones' launches
+    per scan) by stage with its peak memory; the KITTI MinkUNet and
+    SPVCNN and the Waymo MinkUNet take a counted train step and two by
+    stage.  No K2, K3, K4 or K5 launch of these paths takes a CUDA-core
+    kernel.  Every padded call of the KITTI MinkUNet's forward and step
+    against its plain version at its captured shape, beside the
+    CUDA-core kernel at the same call and the padded copies
+    (`cr16_padded_calls`); the xyz recipe's 3-wide stem the same;
+    SPVCNN's K6, K7 and K8 at its point widths (`cr16_point_kernels`);
+    MinkUNet cr 1.0's stem K4 on the main `trainer` (`cr16_stem_k4`;
+    without one, on a fresh bf16 trainer of the flagship, and `scans`
+    made here where not given).  Returns the launches, times and the
+    phase's seconds."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_nuscenes_fixture import WAYMO_CARD, make_waymo_root
+
+    from taseg_tpu_torch.configs import RECIPES
+    from taseg_tpu_torch.data import build_reader
+    from taseg_tpu_torch.engine import Segmenter, Trainer
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    t_phase = time.perf_counter()
+    if scans is None:
+        scans = make_scans(N_SCANS)
+    if trainer is None:
+        from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
+
+        p, st = init_params_numpy(MINKUNET_MK34_CR10, seed=SEED)
+        trainer = Trainer(MINKUNET_MK34_CR10, {"params": p, "batch_stats": st}, iters_per_epoch=2,
+                          total_epochs=36, compute_dtype="bfloat16", seed=SEED)
+        trainer.step(scans[:1])  # warm-up
+    res: dict = {"paths": {}}
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cr16_", dir=REPO / "build"))
+    try:
+        waymo = make_waymo_root(tmp / "waymo", seed=SEED, **WAYMO_CARD)
+        res["stem_k4"] = cr16_stem_k4(trainer, scans)
+        for name, path, data, trained in CR16_PATHS:
+            cfg = RECIPES[path]
+            if data == "waymo":
+                cfg = {**cfg, "DATA": {**cfg["DATA"], "DATA_PATH": str(waymo)}}
+                r_serve, r_train = build_reader(cfg["DATA"], False), build_reader(cfg["DATA"], True)
+                serve = [r_serve[i] for i in range(CR16_SCANS + 1)]
+                train = [r_train[i] for i in range(3)]
+            else:
+                serve = train = scans[: CR16_SCANS + 1]
+            spv = cfg["MODEL"]["NAME"] == "SPVCNN"
+            p, st = init_params_numpy(cfg, seed=SEED)
+            v = {"params": p, "batch_stats": st}
+            seg = Segmenter(cfg, v, compute_dtype="bfloat16")
+            seg.predict(serve[:1])  # warm-up
+            out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve[1:]),
+                                  exact=SPV34_PER_SCAN if spv else MK34_PER_SCAN, must=("join_scan",),
+                                  n=CR16_SCANS, never=("voxelize_bwd",))
+            if cuda_core_launches(per):
+                raise AssertionError(f"{name} serving: CUDA-core launches {cuda_core_launches(per)}")
+            nw_check_points(name, serve[1:], out, cfg["MODEL"]["NUM_CLASS"])
+            r = {"serve_launches": per, "serve": nw_serve_stages(seg, serve[1:], f"{name} ")}
+            del seg
+            torch.cuda.empty_cache()
+            if trained:
+                tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"],
+                             compute_dtype="bfloat16", seed=SEED)
+                tr.step(train[:1])  # warm-up
+                step, per_s = nw_counted(f"{name} train step", lambda: tr.step(train[1:2]),
+                                         exact=SPV34_PER_STEP if spv else MK34_PER_STEP, must=("join_scan",))
+                if cuda_core_launches(per_s):
+                    raise AssertionError(f"{name} train step: CUDA-core launches {cuda_core_launches(per_s)}")
+                if not (np.isfinite(step["loss"]) and np.isfinite(step["grad_norm"])):
+                    raise AssertionError(f"{name}: non-finite loss or grad norm")
+                log(f"{name} train step: loss {step['loss']:.5f} grad norm {step['grad_norm']:.4f} level "
+                    f"voxels {step['level_nums']} of {list(tr.caps.voxels)}")
+                r.update(step_launches=per_s, step=nw_step_stages(tr, train[1:], f"{name} "))
+                if name == "kitti minkunet cr16":
+                    r["padded"] = cr16_padded_calls(conv_calls(tr, train), f"{name} ")
+                elif name == "kitti spvcnn cr16":
+                    r["point_kernels"] = cr16_point_kernels(tr, train, f"{name} ")
+                del tr
+            elif name == "waymo minkunet cr16 xyz":  # the 3-wide stem's conv alone
+                tr = Trainer(cfg, v, iters_per_epoch=4, total_epochs=cfg["OPTIM"]["NUM_EPOCHS"],
+                             compute_dtype="bfloat16", seed=SEED)
+                calls = conv_calls(tr, train)
+                calls.seen = {k: c for k, c in calls.seen.items() if k[2] == 3}
+                if len(calls.seen) != 1:
+                    raise AssertionError(f"{name}: the stem's conv {sorted(calls.seen)}")
+                r["padded"] = cr16_padded_calls(calls, f"{name} ")
+                del tr, calls
+            log(f"{name}: no CUDA-core launch of K2, K3, K4 or K5 "
+                f"({'serving and train step' if trained else 'serving'})")
+            res["paths"][name] = r
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"cr 1.6 phase (5l): {res['seconds']:.1f} s")
+    return res
+
+
+def cr16_entry(res: dict, name: str) -> dict:
+    """A kernel's launches per scan and per step on each cr 1.6 path of
+    phase 5l, and its padded calls' totals (the KITTI MinkUNet's per
+    scan or per step; `<name>_dgrad` its input gradients)."""
+    out = {}
+    for path, p in res["paths"].items():
+        scan, step = p["serve_launches"].get(name, 0), p.get("step_launches", {}).get(name, 0)
+        if scan or step:
+            out[path] = {"launches_per_scan": scan, "launches_per_step": step if "step_launches" in p else None}
+        for key in (name, name + "_dgrad"):
+            if key in p.get("padded", {}):
+                out.setdefault(path, {})["padded" if key == name else "padded_dgrad"] = p["padded"][key]
+        pk = p.get("point_kernels", {}).get(name)
+        if pk:
+            out.setdefault(path, {})["point_widths"] = pk
+    if name == "k3_conv_dw":
+        out["stem_k4_cr10"] = dict(res["stem_k4"], parent_ms=STEM_K4_PARENT_MS)
+    return out
 
 
 def main() -> int:
@@ -5298,6 +5865,11 @@ def main() -> int:
     # submission files, card against CPU at narrow widths
     nus_waymo = phase_nus_waymo()
 
+    # 5l. MinkUNet and SPVCNN at cr 1.6: ragged widths on the tensor cores,
+    # the five recipes served (three trained) at full width, every padded
+    # call against its plain version and the CUDA-core kernel it replaced
+    cr16 = phase_cr16(scans, trainer)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -5408,6 +5980,7 @@ def main() -> int:
         entry["fsa"] = fsa_entry(fsa, name)
         entry["tiaf"] = tiaf_entry(tiaf, name)
         entry["nus_waymo"] = nus_waymo_entry(nus_waymo, name)
+        entry["cr16"] = cr16_entry(cr16, name)
         if "rpvnet_pixel_tables" in r:
             entry["rpvnet_pixel_tables"] = dict(
                 r["rpvnet_pixel_tables"], replaces="taseg_tpu/ops/point_range.py:42,82",
@@ -5476,7 +6049,8 @@ def main() -> int:
         "nus_waymo": nus_waymo_entry(nus_waymo, "knn"),
     })
     log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s; "
-        f"range phase (5j): {rng['seconds']:.1f} s; nuscenes / waymo phase (5k): {nus_waymo['seconds']:.1f} s")
+        f"range phase (5j): {rng['seconds']:.1f} s; nuscenes / waymo phase (5k): {nus_waymo['seconds']:.1f} s; "
+        f"cr 1.6 phase (5l): {cr16['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

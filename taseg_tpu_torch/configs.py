@@ -817,10 +817,11 @@ _WAYMO_DATA = {"DATASET": "waymo", "DATA_PATH": "/data/waymo_preprocessed", "VOX
                "NUM_POINTS": 1000000}
 
 
-def _waymo(name: str, num_layer: list, batch: int = 1, epochs: int = 12, smoothing: float = 0.1) -> dict:
+def _waymo(name: str, num_layer: list, batch: int = 1, epochs: int = 12, smoothing: float = 0.1,
+           **model) -> dict:
     """A Waymo MinkUNet-family recipe (23 classes; of its IN_FEATURE_DIM
     5 the loader keeps 4 columns, as JAX's, so the stem is 4 wide:
-    `models.stem_width`)."""
+    `models.stem_width`), with `model`'s MODEL keys on top."""
     return {
         "MODALITY": "voxel" if name == "MinkUNet" else "fusion",
         "DATA": dict(_WAYMO_DATA),
@@ -828,7 +829,7 @@ def _waymo(name: str, num_layer: list, batch: int = 1, epochs: int = 12, smoothi
             "NAME": name, "IN_FEATURE_DIM": 5, "NUM_CLASS": 23, "IGNORE_LABEL": 0,
             "BLOCK": "ResBlock", "NUM_LAYER": list(num_layer), "PLANES": list(_PLANES), "cr": 1.0,
             "DROPOUT_P": 0.0, "LABEL_SMOOTHING": smoothing, "IF_DIST": True,
-            "LOSS_CONFIG": _CE_LOVASZ, **WAYMO_CAPS,
+            "LOSS_CONFIG": _CE_LOVASZ, **WAYMO_CAPS, **model,
         },
         "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": batch, "NUM_EPOCHS": epochs},
     }
@@ -854,6 +855,41 @@ CYLINDER_CY480_CR10_WAYMO = {
     },
     "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 1},
 }
+
+# the mk34 backbone at cr 1.6: widths int(1.6 x PLANES) = 51, 51, 102,
+# 204, 409, 409, 204, 153, 153 and the decoder's concatenations 613 and
+# 306, none a multiple of 8, so every conv of these recipes takes its
+# tensor-core route at widths the wrappers pad to whole 16-byte pieces
+# (`ops.sparse_conv.padded_width`).  Capacities as the same backbone's at
+# cr 1.0: the voxel levels depend on the scans and the voxel size, not on
+# the widths.
+_MK34_CR16 = {**_MK34, "cr": 1.6}
+
+
+def _kitti_mk34_cr16(name: str) -> dict:
+    """A KITTI MinkUNet-family recipe at mk34 depth and cr 1.6."""
+    return {
+        "MODALITY": "fusion" if name == "SPVCNN" else "voxel",
+        "DATA": dict(_KITTI_DATA),
+        "MODEL": {
+            "NAME": name, "IN_FEATURE_DIM": 4, "NUM_CLASS": 20, "IGNORE_LABEL": 0,
+            "BLOCK": "ResBlock", **_MK34_CR16, "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.0,
+            "IF_DIST": True, "LOSS_CONFIG": _CE_LOVASZ, **_KITTI_CAPS,
+        },
+        "OPTIM": {**_SGD, "BATCH_SIZE_PER_GPU": 12},
+    }
+
+
+# tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr16.yaml and
+# tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr16.yaml
+MINKUNET_MK34_CR16 = _kitti_mk34_cr16("MinkUNet")
+SPVCNN_MK34_CR16 = _kitti_mk34_cr16("SPVCNN")
+# tools/cfgs/voxel/waymo/minkunet_mk34_cr16.yaml and _cr16_xyz.yaml (the
+# latter's IN_FEATURE_DIM 3 builds a 3-wide stem: xyz only), and
+# tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml
+MINKUNET_MK34_CR16_WAYMO = _waymo("MinkUNet", _MK34["NUM_LAYER"], cr=1.6)
+MINKUNET_MK34_CR16_XYZ_WAYMO = _waymo("MinkUNet", _MK34["NUM_LAYER"], cr=1.6, IN_FEATURE_DIM=3)
+SPVCNN_MK34_CR16_WAYMO = _waymo("SPVCNN", _MK34["NUM_LAYER"], batch=12, epochs=36, smoothing=0.0, cr=1.6)
 
 # the recipes `utils.config.load_config` serves, by YAML path
 RECIPES = {
@@ -892,4 +928,9 @@ RECIPES = {
     "tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml": CYLINDER_CY480_CR10_WAYMO,
     "tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml": SPVCNN_MK18_CR10_WAYMO,
     "tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml": RPVNET_MK18_CR10_WAYMO,
+    "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr16.yaml": MINKUNET_MK34_CR16,
+    "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr16.yaml": SPVCNN_MK34_CR16,
+    "tools/cfgs/voxel/waymo/minkunet_mk34_cr16.yaml": MINKUNET_MK34_CR16_WAYMO,
+    "tools/cfgs/voxel/waymo/minkunet_mk34_cr16_xyz.yaml": MINKUNET_MK34_CR16_XYZ_WAYMO,
+    "tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml": SPVCNN_MK34_CR16_WAYMO,
 }

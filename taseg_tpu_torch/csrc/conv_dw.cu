@@ -103,9 +103,10 @@
 // whose every block scanned all fine rows for the ~1/8 of its slot and
 // multiplied them in f32 FMA.
 //
-// dw_kernel (f32 K4 at 27 and ragged widths such as the stem's 4 -> 32,
-// for K4, K4 at K offsets and K5): CUDA cores, f32 FMA on operands
-// widened in shared memory:
+// dw_kernel (a direct f32 call of K4 at 27, a bf16 call of K4 at K;
+// K5's CUDA-core kernel, off every route since the wrappers pad ragged
+// widths onto the tensor-core ones, kept as their yardstick): CUDA
+// cores, f32 FMA on operands widened in shared memory:
 #include <algorithm>
 
 #include "common.cuh"

@@ -26,7 +26,7 @@
 // 32- or 96-wide conv is not padded to 64 or 128 columns.
 //
 // Needs C_in % 8 == 0, C_out % 8 == 0 and 16-byte aligned feats and W
-// (the wrappers route other widths to the SIMT kernels).
+// (the wrappers pad other widths).
 //
 // namespace tf32 below is the same tile in f32 for the conv over K
 // offsets (K2 at K, and the helpers of K4 at K in conv_dw.cu), on 3xTF32:
@@ -443,6 +443,12 @@ __device__ __forceinline__ void load_stage(const Smem& s, int buf, int j, int c0
 // (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k t, n g), (k t + 4, n g).
 // A rows of BK + 4 floats (BK % 32 == 16 or 0: 4 mod 32 banks apart) and
 // B rows of BN + 8 (8 mod 32) put the 32 lanes of a load on 32 banks.
+// The stage's products go into accumulators of their own, added to acc
+// with rounded f32 adds: the tensor cores' f32 accumulation does not
+// round to nearest, and over a whole chain (the 3^3 head's 27 offsets x
+// 4 chunks: 1296 mma adds into one accumulator) its error grew to 1e-5
+// of the largest sum of |terms| (Waymo Cylinder's 128 -> 23 head, halved
+// by each halving of the chain); per stage it is 12 adds.
 template <typename T>
 __device__ __forceinline__ void mma_stage(const Smem& s, int buf,
                                           float (&acc)[2][T::BN / 16][4]) {
@@ -450,6 +456,13 @@ __device__ __forceinline__ void mma_stage(const Smem& s, int buf,
   const int wm = warp / 2, wn = warp % 2, g = lane / 4, t = lane % 4;
   const float* a = s.a + buf * kBM * T::AS + (wm * 32 + g) * T::AS + t;
   const float* b = s.b + buf * T::BK * T::BS + t * T::BS + wn * (T::BN / 2) + g;
+  float part[2][T::BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < T::BN / 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < T::BK; kk += 8) {
     unsigned ah[2][4], al[2][4];
@@ -468,9 +481,15 @@ __device__ __forceinline__ void mma_stage(const Smem& s, int buf,
       split(p[0], bh[0], bl[0]);
       split(p[4 * T::BS], bh[1], bl[1]);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][j], ah[i], al[i], bh, bl);
+      for (int i = 0; i < 2; ++i) mma_3xtf32(part[i][j], ah[i], al[i], bh, bl);
     }
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < T::BN / 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
 }
 
 // the mainloop over stages [t0, t1) of the tile's chain (present offset)
@@ -504,11 +523,13 @@ __device__ __forceinline__ void gather_mma_tile(const Smem& s, int t0, int t1,
 }
 
 // store the tile's rows r (s.rows[r] >= 0) at their output rows, or,
-// with `at` >= 0, at rows at + r (a split's partial, in order positions)
+// with `at` >= 0, at rows at + r (a split's partial, in order positions);
+// rows of `ld` columns, the first ld of those computed (a ragged width
+// padded by the wrapper is written at its own width)
 template <int BN>
 __device__ __forceinline__ void store_rows(const Smem& s,
                                            const float (&acc)[2][BN / 16][4],
-                                           float* __restrict__ out, int c_out,
+                                           float* __restrict__ out, int ld,
                                            int n0, int at = -1) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
@@ -523,13 +544,19 @@ __device__ __forceinline__ void store_rows(const Smem& s,
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {
       const int col = n0 + wn * (BN / 2) + j * 8 + (lane % 4) * 2;
-      if (col >= c_out) continue;  // c_out % 4 == 0: col + 1 < c_out too
-      if (row0 >= 0)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row0) * c_out + col) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
-      if (row1 >= 0)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row1) * c_out + col) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
+      if (col >= ld) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? row1 : row0;
+        if (row < 0) continue;
+        float* o = out + static_cast<size_t>(row) * ld + col;
+        if (ld % 2 == 0) {  // col even: col + 1 < ld, 8-byte aligned
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          o[0] = acc[i][j][2 * h];
+          if (col + 1 < ld) o[1] = acc[i][j][2 * h + 1];
+        }
+      }
     }
   }
 }

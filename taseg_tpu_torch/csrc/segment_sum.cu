@@ -500,6 +500,14 @@ int launch_np(int np, const void* src, const void* w, const void* perm,
     case 2: TASEG_SEG_LAUNCH(2); break;
     case 4: TASEG_SEG_LAUNCH(4); break;
     case 8: TASEG_SEG_LAUNCH(8); break;
+    case 16:  // pieces of 4 bytes (SPVCNN cr 1.6's 409 f32 channels); of 2
+              // bytes only in a comparison (the wrapper pads such rows to
+              // 16-byte pieces, which ran faster)
+      if constexpr (VW <= 4) {
+        TASEG_SEG_LAUNCH(16);
+        break;
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TASEG_SEG_LAUNCH
@@ -528,7 +536,7 @@ int launch_vw(int vw, int np, const void* src, const void* w, const void* perm,
 // (build_segment_tables: sentinel last in each segment) -> out (V, C)
 // f32.  vw: bytes of src per lane piece (16, 8, 4 or 2; divides C esz
 // and src's address), g: lanes per group (a power of two, 1..32), np:
-// pieces per lane (1, 2, 4, 8), with g np vw / esz >= C; unit: items
+// pieces per lane (1, 2, 4, 8; 16 where vw <= 4), with g np vw / esz >= C; unit: items
 // per group (256 unit / g <= 2048); rows: cut by rows (the sparse tables'
 // kernel, which reads neither part nor cnt); part (ceil(N / unit), 2, C)
 // f32 scratch, cnt (ceil(N / unit),) int32 zero on entry and on exit.  Needs

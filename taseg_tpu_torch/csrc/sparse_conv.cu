@@ -27,7 +27,8 @@
 // K-offset calls as `sparse_conv_k`:
 //
 // sparse_conv_wgmma_kernel (bf16, C_in % 8 == 0, C_out % 8 == 0: every
-// bf16 conv but the 4- and 5-channel stems, at 27 or K offsets, and
+// bf16 conv, ragged widths padded to them by the wrappers, which pass the
+// logical output width `ldo` that the kernel writes, at 27 or K offsets, and
 // K3-down's and K3-up's 8 slots, strided_conv.cu): the Hopper tile of
 // wgmma_tile.cuh,
 // output-stationary over the table's row order like the 3xTF32 kernel
@@ -62,8 +63,9 @@
 // cut into equal parts run by separate blocks, and a second kernel adds
 // the parts' partials to the first's output in split order.
 //
-// k3_conv_kernel / sparse_conv_k_kernel (f32 on the 27-offset conv
-// with ragged widths such as the stem's C_in = 4): a 64 x 64 output tile in
+// k3_conv_kernel / sparse_conv_k_kernel (any dtype and width; no path
+// calls them since the wrappers pad ragged widths onto the tensor-core
+// routes: the yardstick those routes replaced): a 64 x 64 output tile in
 // registers (4 x 4 per thread) for all its offsets;
 // per offset it gathers the present neighbour rows into shared memory
 // (zero for -1), multiplies them with the W[k] tile by f32 FMA and skips
@@ -208,7 +210,7 @@ __global__ void __launch_bounds__(taseg::tf32::kThreads)
                               const int* __restrict__ order,
                               float* __restrict__ out, float* __restrict__ part,
                               int* __restrict__ live, int v_out, int c_in,
-                              int c_out, int n_off) {
+                              int c_out, int n_off, int ldo) {
   namespace tf = taseg::tf32;
   extern __shared__ __align__(16) unsigned char smem[];
   const tf::Smem s = tf::carve<T>(smem, n_off);
@@ -234,51 +236,66 @@ __global__ void __launch_bounds__(taseg::tf32::kThreads)
   float acc[2][T::BN / 16][4] = {};
   tf::gather_mma_tile<T>(s, t0, t1, feats, w, c_in, c_out, n0, acc);
   if (z == 0)
-    tf::store_rows<T::BN>(s, acc, out, c_out, n0);
+    tf::store_rows<T::BN>(s, acc, out, ldo, n0);
   else
     tf::store_rows<T::BN>(s, acc, part + static_cast<size_t>(z - 1) * v_out * c_out,
                           c_out, n0, m0);
 }
 
-// out[order[p]] += the live partials of p's tile, in split order
+// out[order[p]] += the live partials of p's tile, in split order; out
+// rows of ldo <= c_out columns (partials of c_out), 4 columns a thread
 __global__ void sparse_conv_k_tf32_reduce(const float* __restrict__ part,
                                           const int* __restrict__ live,
                                           const int* __restrict__ order,
                                           float* __restrict__ out, int v_out,
-                                          int c_out, int parts, int tiles) {
+                                          int c_out, int ldo, int parts, int tiles) {
   const int c4 = c_out / 4;
   const size_t n = static_cast<size_t>(v_out) * c4;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int p = static_cast<int>(e / c4), c = static_cast<int>(e % c4) * 4;
     const int tile = p / taseg::tf32::kBM;
+    if (c >= ldo) continue;
     bool any = false;
     for (int z = 0; z < parts; ++z) any |= live[z * tiles + tile] != 0;
     if (!any) continue;
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(order[p]) * c_out + c);
-    float4 a = *o;
+    float* o = out + static_cast<size_t>(order[p]) * ldo + c;
+    float a[4];
+    if (ldo == c_out) {
+      const float4 v = *reinterpret_cast<const float4*>(o);
+      a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = c + i < ldo ? o[i] : 0.f;
+    }
     for (int z = 0; z < parts; ++z) {
       if (!live[z * tiles + tile]) continue;
       const float4 b = *reinterpret_cast<const float4*>(
           part + (static_cast<size_t>(z) * v_out + p) * c_out + c);
-      a.x += b.x;
-      a.y += b.y;
-      a.z += b.z;
-      a.w += b.w;
+      a[0] += b.x;
+      a[1] += b.y;
+      a[2] += b.z;
+      a[3] += b.w;
     }
-    *o = a;
+    if (ldo == c_out) {
+      *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i < ldo) o[i] = a[i];
+    }
   }
 }
 
 // launch the 3xTF32 kernel with tile T over `splits` parts of each tile's
 // chain (part: (splits - 1, v_out, c_out) f32, live: (splits - 1,
-// row tiles) int32 scratch when splits > 1), then the reduction; returns
-// the CUDA error
+// row tiles) int32 scratch when splits > 1), then the reduction, out rows
+// of ldo columns; returns the CUDA error
 template <typename T>
 int launch_k_tf32(const void* feats, const void* w, const void* rb,
                   const void* order, void* out, void* part, void* live,
                   int v_out, int c_in, int c_out, int n_off, int splits,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int ldo) {
   namespace tf = taseg::tf32;
   if (splits < 1 || (splits > 1 && (part == nullptr || live == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -293,14 +310,14 @@ int launch_k_tf32(const void* feats, const void* w, const void* rb,
       static_cast<const float*>(feats), static_cast<const float*>(w),
       static_cast<const int*>(rb), static_cast<const int*>(order),
       static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(live),
-      v_out, c_in, c_out, n_off);
+      v_out, c_in, c_out, n_off, ldo);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const size_t n = static_cast<size_t>(v_out) * (c_out / 4);
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
   sparse_conv_k_tf32_reduce<<<blocks, 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(live),
-      static_cast<const int*>(order), static_cast<float*>(out), v_out, c_out,
+      static_cast<const int*>(order), static_cast<float*>(out), v_out, c_out, ldo,
       splits - 1, tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -324,7 +341,7 @@ __global__ void __launch_bounds__(taseg::wg::kThreads, 1)
                              const int* __restrict__ rb, const int* __restrict__ order,
                              __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                              int* __restrict__ live, int v_out, int c_in, int c_out,
-                             int n_off) {
+                             int n_off, int ldo) {
   namespace wg = taseg::wg;
   extern __shared__ unsigned char smem_raw[];
   const wg::Smem s = wg::carve<T>(smem_raw, n_off);
@@ -364,23 +381,25 @@ __global__ void __launch_bounds__(taseg::wg::kThreads, 1)
   wg::consume<T>(s, t1 - t0, acc);
   wg::store<T::BN>(s, acc, out,
                    splits > 1 ? part + static_cast<size_t>(z) * v_out * c_out : nullptr,
-                   c_out, m0, n0);
+                   c_out, ldo, m0, n0);
 }
 
 // out[order[p]] = bf16(the live partials of p's tile added in split
-// order; 0 where none is live), 8 columns per thread
+// order; 0 where none is live), 8 columns per thread; out rows of ldo <=
+// c_out columns (partials of c_out)
 template <typename Role>
 __global__ void sparse_conv_wgmma_reduce(const float* __restrict__ part,
                                          const int* __restrict__ live,
                                          const int* __restrict__ order,
                                          __nv_bfloat16* __restrict__ out, int v_out,
-                                         int c_out, int splits, int tiles) {
+                                         int c_out, int ldo, int splits, int tiles) {
   const int c8 = c_out / 8;
   const size_t n = static_cast<size_t>(v_out) * c8;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
        e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int p = static_cast<int>(e / c8), c = static_cast<int>(e % c8) * 8;
     const int tile = p / taseg::wg::kBM;
+    if (c >= ldo) continue;
     float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int z = 0; z < splits; ++z) {
       if (!live[z * tiles + tile]) continue;
@@ -390,18 +409,25 @@ __global__ void sparse_conv_wgmma_reduce(const float* __restrict__ part,
       a[0] += u.x; a[1] += u.y; a[2] += u.z; a[3] += u.w;
       a[4] += v.x; a[5] += v.y; a[6] += v.z; a[7] += v.w;
     }
-    __align__(16) __nv_bfloat162 o[4];
+    if (ldo == c_out) {
+      __align__(16) __nv_bfloat162 o[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(order[p]) * c_out + c) =
-        *reinterpret_cast<const uint4*>(o);
+      for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(order[p]) * c_out + c) =
+          *reinterpret_cast<const uint4*>(o);
+    } else {
+      __nv_bfloat16* o = out + static_cast<size_t>(order[p]) * ldo + c;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (c + i < ldo) o[i] = __float2bfloat16_rn(a[i]);
+    }
   }
 }
 
 template <typename T, typename Role>
 int launch_wgmma(const void* feats, const void* w, const void* rb, const void* order,
                  void* out, void* part, void* live, int v_out, int c_in, int c_out,
-                 int n_off, int splits, cudaStream_t stream) {
+                 int n_off, int splits, cudaStream_t stream, int ldo) {
   namespace wg = taseg::wg;
   using bf16 = __nv_bfloat16;
   const size_t bytes = wg::smem_bytes<T>(n_off);
@@ -417,14 +443,14 @@ int launch_wgmma(const void* feats, const void* w, const void* rb, const void* o
   sparse_conv_wgmma_kernel<T, Role><<<grid, wg::kThreads, bytes, stream>>>(
       static_cast<const bf16*>(feats), static_cast<const bf16*>(w),
       static_cast<const int*>(rb), static_cast<const int*>(order), static_cast<bf16*>(out),
-      static_cast<float*>(part), static_cast<int*>(live), v_out, c_in, c_out, n_off);
+      static_cast<float*>(part), static_cast<int*>(live), v_out, c_in, c_out, n_off, ldo);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const size_t n = static_cast<size_t>(v_out) * (c_out / 8);
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
   sparse_conv_wgmma_reduce<Role><<<blocks, 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(live),
-      static_cast<const int*>(order), static_cast<bf16*>(out), v_out, c_out, splits,
+      static_cast<const int*>(order), static_cast<bf16*>(out), v_out, c_out, ldo, splits,
       tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -506,20 +532,21 @@ extern "C" int taseg_sparse_conv_k(const void* feats, const void* w,
 // a permutation of the output rows (sparse_conv.mask_row_order(rb));
 // `splits` parts of each tile's chain (sparse_conv.k_splits), with part
 // (splits - 1, v_out, c_out) f32 and live (splits - 1, ceil(v_out / 64))
-// int32 scratch when splits > 1
+// int32 scratch when splits > 1; out rows of ldo <= c_out columns (the
+// first ldo of those computed: a ragged width padded to c_out)
 extern "C" int taseg_sparse_conv_k_tf32(const void* feats, const void* w,
                                         const void* rb, const void* order,
                                         void* out, void* part, void* live,
                                         int v_out, int c_in, int c_out,
-                                        int n_off, int splits, void* stream) {
+                                        int n_off, int splits, int ldo, void* stream) {
   namespace tf = taseg::tf32;
   if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 4 != 0 ||
-      c_out % 4 != 0 || n_off <= 0 || n_off > 32)
+      c_out % 4 != 0 || n_off <= 0 || n_off > 32 || ldo <= 0 || ldo > c_out)
     return static_cast<int>(cudaErrorInvalidValue);
   return tf::with_tile_n_f32(c_out, [&](auto bn) {
     using T = tf::Tile<decltype(bn)::value, 32, 3>;
     return launch_k_tf32<T>(feats, w, rb, order, out, part, live, v_out, c_in,
-                            c_out, n_off, splits, static_cast<cudaStream_t>(stream));
+                            c_out, n_off, splits, static_cast<cudaStream_t>(stream), ldo);
   });
 }
 
@@ -531,20 +558,22 @@ namespace {
 // of feats, order (v_out,) int32 a permutation of the output rows
 // (sparse_conv.mask_row_order(rb)); `splits` (1..8) parts of each tile's
 // chain (sparse_conv.wgmma_splits), with part (splits, v_out, c_out) f32
-// and live (splits, ceil(v_out / 64)) int32 scratch when splits > 1
+// and live (splits, ceil(v_out / 64)) int32 scratch when splits > 1; out
+// rows of ldo <= c_out columns (the first ldo of those computed: a ragged
+// width padded to c_out)
 template <typename Role>
 int wgmma_entry(const void* feats, const void* w, const void* rb, const void* order,
                 void* out, void* part, void* live, int v_out, int c_in, int c_out,
-                int n_off, int splits, void* stream) {
+                int n_off, int splits, int ldo, void* stream) {
   namespace wg = taseg::wg;
   if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 8 != 0 || c_out % 8 != 0 ||
       n_off <= 0 || n_off > 32 || splits < 1 || splits > wg::kMaxSplits ||
-      (splits > 1 && (part == nullptr || live == nullptr)))
+      (splits > 1 && (part == nullptr || live == nullptr)) || ldo <= 0 || ldo > c_out)
     return static_cast<int>(cudaErrorInvalidValue);
   return wg::with_tile(c_in, c_out, [&](auto bk, auto bn) {
     using T = wg::Tile<decltype(bk)::value, decltype(bn)::value>;
     return launch_wgmma<T, Role>(feats, w, rb, order, out, part, live, v_out, c_in,
-                                 c_out, n_off, splits, static_cast<cudaStream_t>(stream));
+                                 c_out, n_off, splits, static_cast<cudaStream_t>(stream), ldo);
   });
 }
 
@@ -553,9 +582,9 @@ int wgmma_entry(const void* feats, const void* w, const void* rb, const void* or
 extern "C" int taseg_sparse_conv_wgmma(const void* feats, const void* w, const void* rb,
                                        const void* order, void* out, void* part,
                                        void* live, int v_out, int c_in, int c_out,
-                                       int n_off, int splits, void* stream) {
+                                       int n_off, int splits, int ldo, void* stream) {
   return wgmma_entry<K2Rows>(feats, w, rb, order, out, part, live, v_out, c_in, c_out,
-                             n_off, splits, stream);
+                             n_off, splits, ldo, stream);
 }
 
 // K3-down's calls of the same route, over its child table (n_off = 8)
@@ -563,9 +592,9 @@ extern "C" int taseg_strided_down_wgmma(const void* feats, const void* w,
                                         const void* child, const void* order,
                                         void* out, void* part, void* live,
                                         int v_coarse, int c_in, int c_out,
-                                        int n_off, int splits, void* stream) {
+                                        int n_off, int splits, int ldo, void* stream) {
   return wgmma_entry<DownSlots>(feats, w, child, order, out, part, live, v_coarse,
-                                c_in, c_out, n_off, splits, stream);
+                                c_in, c_out, n_off, splits, ldo, stream);
 }
 
 // K3-up's calls of the same route, over its up table (n_off = 8; feats
@@ -573,9 +602,9 @@ extern "C" int taseg_strided_down_wgmma(const void* feats, const void* w,
 extern "C" int taseg_strided_up_wgmma(const void* feats, const void* w, const void* up,
                                       const void* order, void* out, void* part, void* live,
                                       int v_fine, int c_in, int c_out, int n_off, int splits,
-                                      void* stream) {
+                                      int ldo, void* stream) {
   return wgmma_entry<UpSlots>(feats, w, up, order, out, part, live, v_fine, c_in, c_out,
-                              n_off, splits, stream);
+                              n_off, splits, ldo, stream);
 }
 
 // resident blocks per SM of the wgmma route at these widths and offsets

@@ -30,8 +30,9 @@
 // (taseg_strided_up_wgmma in bf16, taseg_sparse_conv_k_tf32 in f32;
 // strided_conv.upsample_route).  This file holds the down direction's
 // round kernels, which a table of several rounds takes (cells that fold
-// negative coordinates), the up direction's CUDA-core kernel (ragged
-// widths), and the tensor-core tiles that the K2 tiles replaced on the
+// negative coordinates), the up direction's CUDA-core kernel (off every
+// route since the wrappers pad ragged widths onto the K2 tiles: the
+// yardstick at those widths), and the tensor-core tiles that the K2 tiles replaced on the
 // path, kept callable as their yardstick (chip_smoke.py's `old_ms`).
 //
 // The yardstick tiles: in bf16 with C_in and C_out multiples of 8, the
@@ -54,7 +55,7 @@
 //     pairs on MinkUNet's path, against 1.1-1.4x for the wgmma tile over
 //     the child table's order.
 //
-// The other cases (f32 and ragged widths) run the CUDA-core design: like
+// The CUDA-core design (f32 rounds; the yardstick at ragged widths): like
 // K2's a gather-GEMM with a 64x64 output tile in registers, except that
 // the weight slice varies per row: each shared-memory stage holds the
 // chunk of all 8 slots' weights, and each thread reads the slot of each of

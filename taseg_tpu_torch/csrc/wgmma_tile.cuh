@@ -51,7 +51,8 @@
 // same inputs give the same bits.
 //
 // Needs bf16, C_in % 8 == 0, C_out % 8 == 0, 16-byte aligned feats and
-// W, 1 <= K <= 32 offsets.
+// W, 1 <= K <= 32 offsets; the output rows may be narrower (ldo <= C_out:
+// the wrappers pad a ragged width to the next multiple of 8).
 #pragma once
 
 #include <stdint.h>
@@ -440,11 +441,14 @@ __device__ __forceinline__ void consume(const Smem& s, int n, float (&acc)[T::BN
 }
 
 // store the consumer's accumulators of the tile rows r with s.rows[r] >= 0:
-// rounded to bf16 at out[s.rows[r]], or, with `part`, in f32 at part[m0 + r]
+// rounded to bf16 at out[s.rows[r]], rows of `ldo` columns (the first ldo
+// <= c_out of the columns computed: a ragged width padded to c_out by the
+// wrapper is written at its own width, one value at a time), or, with
+// `part`, in f32 at part[m0 + r] (rows of c_out)
 template <int BN>
 __device__ __forceinline__ void store(const Smem& s, const float (&acc)[BN / 2],
                                       bf16* __restrict__ out, float* __restrict__ part,
-                                      int c_out, int m0, int n0) {
+                                      int c_out, int ldo, int m0, int n0) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -455,12 +459,17 @@ __device__ __forceinline__ void store(const Smem& s, const float (&acc)[BN / 2],
       const int col = n0 + j * 8 + (lane % 4) * 2;
       if (col >= c_out) continue;  // c_out % 8 == 0: col + 1 < c_out too
       const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
-      if (part)
+      if (part) {
         *reinterpret_cast<float2*>(part + static_cast<size_t>(m0 + r) * c_out + col) =
             make_float2(x, y);
-      else
+      } else if (ldo == c_out) {
         *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * c_out + col) =
             __floats2bfloat162_rn(x, y);
+      } else {
+        bf16* o = out + static_cast<size_t>(row) * ldo + col;
+        if (col < ldo) o[0] = __float2bfloat16_rn(x);
+        if (col + 1 < ldo) o[1] = __float2bfloat16_rn(y);
+      }
     }
   }
 }

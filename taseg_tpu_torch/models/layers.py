@@ -32,8 +32,10 @@ class SparseConv(nn.Module):
     direction.  `transposed` also sets the init's fan (C_out,
     JAX layers.py:96).  The weight is cast to the activation dtype first,
     so a bf16 stream stays bf16 (JAX layers.py:104-107), and its gradient
-    comes back in that dtype.  `use_bias` adds a (C_out,) f32 bias after
-    the conv, as JAX's `use_bias` (a bf16 output is promoted, as there)."""
+    comes back in that dtype; where autograd records no graph (serving)
+    the cast weight is kept until the kernel changes (`kernel_as`).
+    `use_bias` adds a (C_out,) f32 bias after the conv, as JAX's
+    `use_bias` (a bf16 output is promoted, as there)."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int,
@@ -54,6 +56,7 @@ class SparseConv(nn.Module):
             self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
         else:
             self.bias = None
+        self._served = None
 
     @property
     def fan(self) -> int:
@@ -64,8 +67,21 @@ class SparseConv(nn.Module):
         out = self._conv(feats, rulebook)
         return out if self.bias is None else out + self.bias
 
+    def kernel_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel in `dtype`: cast anew where autograd records the
+        call, else kept (detached) while the kernel's version, storage and
+        the dtype hold, so a served model casts each weight once and the
+        conv wrappers pad it once (`sparse_conv.pad_weight`)."""
+        k = self.kernel
+        if torch.is_grad_enabled() and k.requires_grad:
+            return k.to(dtype)
+        key = (k._version, k.data_ptr(), k.device, dtype)
+        if self._served is None or self._served[0] != key:
+            self._served = (key, k.detach().to(dtype).contiguous())
+        return self._served[1]
+
     def _conv(self, feats: torch.Tensor, rulebook) -> torch.Tensor:
-        w = self.kernel.to(feats.dtype)
+        w = self.kernel_as(feats.dtype)
         if self.kernel_volume == 1:
             return feats @ w
         if isinstance(rulebook, StridedTables):

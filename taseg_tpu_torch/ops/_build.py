@@ -128,11 +128,11 @@ _SIGNATURES = {
     "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "taseg_sparse_conv_k_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_k_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
     "taseg_knn_postproc": [_P] * 8 + [_I] * 4 + [_F, _P],
 }

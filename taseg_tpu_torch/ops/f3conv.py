@@ -7,15 +7,16 @@ With the flipped rulebook rb_bwd (rb_bwd[k, i] = v <=> rb_fwd[k, v] = i):
     d_feats[i] = sum_k g[rb_bwd[k, i]] @ W[k]^T       (K2 on (g, W^T, rb_bwd))
     d_W[k]     = sum_i feats[i]^T (x) g[rb_bwd[k, i]] (K4, csrc/conv_dw.cu)
 
-So d_feats is the forward kernel K2 run on the transposed weights, and
-takes K2's wgmma route wherever C_in and C_out are multiples of 8 (over
-the level's row order: a flip maps equal offset masks to equal masks);
-d_W is the kernel K4, on one of two routes (`dw_route`): for bf16 with
-C_in and C_out multiples of 8, Hopper's warpgroup MMA over the level's
-per-offset pair lists (`k3_pair_lists`, built once per level and step by
-the topology and shared by every conv of the level), in one launch a
-call (`k3_conv_dw_wgmma`, its tile and splits from `k4_plan`); else the
-CUDA-core kernel over rb_bwd.  On CPU tensors both run their plain versions
+So d_feats is the forward kernel K2 run on the transposed weights, on
+K2's wgmma route in bf16 (over the level's row order: a flip maps equal
+offset masks to equal masks); d_W is the kernel K4 (`dw_route`): in bf16
+Hopper's warpgroup MMA over the level's per-offset pair lists
+(`k3_pair_lists`, built once per level and step by the topology and
+shared by every conv of the level), in one launch a call
+(`k3_conv_dw_wgmma`, its tile and splits from `k4_plan`); a direct f32
+call the CUDA-core kernel over rb_bwd.  Ragged widths are padded to
+whole 16-byte pieces (`sparse_conv.padded_width`), once for both kernels
+(`bwd_operands`).  On CPU tensors both run their plain versions
 (`f3_bwd_fused_plain`).  d_W comes back in the weight's dtype, as
 `_tgf_vjp_bwd` returns it (`d_w.astype(weight.dtype)`): with a bf16
 weight it is rounded once to bf16.
@@ -26,9 +27,10 @@ The conv over K offsets (`sparse_conv.conv_k`, JAX sparse_conv.py:157
 offsets on (g, W^T, rb_bwd), d_W through K4 at K offsets
 (`sparse_conv_dw`, `csrc/conv_dw.cu`), where g has V_out rows and feats
 V_in.  K4 at K offsets takes the route of `sparse_conv.k_route`: in f32
-with C_in and C_out multiples of 4, the 3xTF32 tensor-core tile over the
-per-offset pair lists of rb_bwd (`pair_lists`, which the topology builds
-once per table and step); else the CUDA-core kernel over rb_bwd itself.
+the 3xTF32 tensor-core tile over the per-offset pair lists of rb_bwd
+(`pair_lists`, which the topology builds once per table and step), at
+widths padded to multiples of 4; a bf16 call (no path makes one) the
+CUDA-core kernel over rb_bwd itself.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .sparse_conv import DTYPE_CODES, k_route, sparse_conv, sparse_conv_k3, sparse_conv_plain
+from .sparse_conv import (
+    DTYPE_CODES, k_route, pad_cols, padded_feats, padded_width, sparse_conv, sparse_conv_k3,
+    sparse_conv_plain, unpad,
+)
 
 # split-K rule of K4 and K5 (csrc/conv_dw.cu): at least 4 blocks per SM
 # of the H100's 132, at least 1024 rows per split, at most 64 MiB of f32
@@ -62,18 +67,24 @@ DW_MMA_PART_BYTES = 32 << 20
 
 def dw_route(dtype: torch.dtype, c_in: int, c_out: int, strided: bool = False) -> str:
     """The kernel a CUDA call of K4 (`strided=False`) or K5 (`strided=True`)
-    takes, both over pair lists in one launch.  "wgmma" (Hopper's
-    warpgroup MMA: K4 over the level's offset lists, K5 over its slot
-    lists) for bf16 with C_in and C_out multiples of 8; K5's f32 calls
-    with widths in 4s "tf32x3" (3xTF32 mma.sync over the slot lists); else
-    "simt" (CUDA cores over rb_bwd, or the parent and slot tables).  K4's
-    f32 calls with widths in 4s run as K4 at K = 27 (`sparse_conv.k_route`)
-    and do not reach it."""
-    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
+    takes, both over pair lists in one launch, at any widths (each padded
+    to `sparse_conv.padded_width`).  "wgmma" (Hopper's warpgroup MMA: K4
+    over the level's offset lists, K5 over its slot lists) for bf16; K5's
+    f32 calls "tf32x3" (3xTF32 mma.sync over the slot lists).  K4's f32
+    calls run as K4 at K = 27 (`sparse_conv.k_route`) and do not reach
+    it: a direct f32 call takes "simt" (CUDA cores over rb_bwd)."""
+    if dtype == torch.bfloat16:
         return "wgmma"
-    if strided and dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
-        return "tf32x3"
-    return "simt"
+    return "tf32x3" if strided and dtype == torch.float32 else "simt"
+
+
+def dw_unpad(out: torch.Tensor, c_in: int, c_out: int, dtype: torch.dtype) -> torch.Tensor:
+    """The logical (n, C_in, C_out) block of a weight gradient computed at
+    padded widths, contiguous, in `dtype` (one copy where it is ragged or
+    changes dtype, none else)."""
+    if dtype != out.dtype:
+        return out[:, :c_in, :c_out].to(dtype, memory_format=torch.contiguous_format)
+    return unpad(out, c_in, c_out)
 
 
 # K4's wgmma route (csrc/conv_dw.cu, lists::dw_wgmma_kernel): pairs per
@@ -299,8 +310,8 @@ def launch_dw(name: str, counter: str, ptrs: tuple, shape: tuple,
               n_rows: int, n_out: int, dtype: torch.dtype, dev) -> torch.Tensor:
     """Launch K4 or K5 (C entry `name`) on `ptrs` (its input pointers)
     and `shape` (its int arguments before the split), with this shape's
-    split rule and partial buffer; returns the f32 (n_out, C_in, C_out)
-    result."""
+    split rule and partial buffer, counted under `counter` (an empty
+    `counter`: nowhere); returns the f32 (n_out, C_in, C_out) result."""
     c_in, c_out = shape[1], shape[2]
     out = torch.empty((n_out, c_in, c_out), dtype=torch.float32, device=dev)
     splits, rows = dw_splits(n_rows, n_out, c_in, c_out)
@@ -309,7 +320,7 @@ def launch_dw(name: str, counter: str, ptrs: tuple, shape: tuple,
         if splits > 1 else None
     )
     _build.launch(
-        name, (counter,), *ptrs, out.data_ptr(),
+        name, (counter,) if counter else (), *ptrs, out.data_ptr(),
         None if part is None else part.data_ptr(),
         *shape, splits, rows, DTYPE_CODES[dtype],
     )
@@ -375,7 +386,9 @@ def k3_conv_dw(
     if dw_route(feats.dtype, c_in, c_out) == "wgmma":
         if pairs is None:
             pairs = k3_pair_lists(rb_bwd)
-        return k3_conv_dw_wgmma(feats, grad, pairs).to(out_dtype)
+        ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
+        out = k3_conv_dw_wgmma(pad_cols(feats, ci), pad_cols(grad, co), pairs)
+        return dw_unpad(out, c_in, c_out, out_dtype)
     out = launch_dw(
         "taseg_k3_conv_dw", "k3_conv_dw",
         (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
@@ -465,6 +478,15 @@ def f3_bwd_fused_plain(feats, weight, grad, rb_bwd):
     return d_feats, k3_conv_dw_plain(feats, g, rb_bwd).to(weight.dtype)
 
 
+def bwd_operands(feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor) -> tuple:
+    """(g, W^T) for a conv's backward: the cotangent in feats' dtype,
+    zero-padded on CUDA tensors to the tensor-core routes' width once for
+    both kernels that read it (the input gradient's conv and the weight
+    gradient), and the transposed weight (contiguous, at its own widths:
+    the conv wrapper pads it)."""
+    return padded_feats(grad.to(feats.dtype), weight.shape[2]), weight.transpose(1, 2).contiguous()
+
+
 def f3_bwd_fused(
     feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor,
     rb_bwd: torch.Tensor, *, need_feats: bool = True,
@@ -474,14 +496,17 @@ def f3_bwd_fused(
     (V, C_out): d_feats through K2 on (grad, W^T, rb_bwd) over the
     level's row order `order` on its wgmma route, counted as a
     `sparse_conv_k3_dgrad` launch; d_W through K4 (over the level's pair
-    lists `pairs` on its wgmma route), in weight's dtype.
+    lists `pairs` on its wgmma route), in weight's dtype.  `feats` may
+    come padded to the route's C_in (as `K3Conv` saves it); the
+    cotangent is padded once for both kernels (`bwd_operands`).
     `need_feats=False` skips d_feats (returns None)."""
-    g = grad.to(feats.dtype)
+    c_in, c_out = weight.shape[1], weight.shape[2]
+    g, w_t = bwd_operands(feats, weight, grad)
     d_feats = None
     if need_feats:
-        w_t = weight.transpose(1, 2).contiguous()
         d_feats = sparse_conv_k3(g, w_t, rb_bwd, dgrad=True, order=order)
-    return d_feats, k3_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)
+    d_w = k3_conv_dw(feats, g, rb_bwd, pairs=pairs)
+    return d_feats, dw_unpad(d_w, c_in, c_out, weight.dtype)
 
 
 def sparse_conv_dw(
@@ -512,11 +537,12 @@ def sparse_conv_dw(
     if k_route(feats.dtype, c_in, c_out) == "tf32x3":
         if pairs is None:
             pairs = pair_lists(rb_bwd)
+        ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
         out = launch_dw_mma(
-            "taseg_sparse_conv_dw_tf32", "sparse_conv_dw", feats, grad, pairs,
-            k, v_in, k * v_in, k,
+            "taseg_sparse_conv_dw_tf32", "sparse_conv_dw", pad_cols(feats, ci), pad_cols(grad, co),
+            pairs, k, v_in, k * v_in, k,
         )
-        return out.to(out_dtype)
+        return dw_unpad(out, c_in, c_out, out_dtype)
     out = launch_dw(
         "taseg_sparse_conv_dw", "sparse_conv_dw",
         (feats.data_ptr(), grad.data_ptr(), rb_bwd.data_ptr()),
@@ -534,10 +560,13 @@ def sparse_conv_bwd(
     `grad` (V_out, C_out): d_feats (V_in, C_in) through K2 at K offsets
     on (grad, W^T, rb_bwd) over rb_bwd's row order `order`, counted as a
     `sparse_conv_k_dgrad` launch; d_W through K4 at K offsets over rb_bwd's
-    pair lists `pairs`, in weight's dtype (both built where not given)."""
-    g = grad.to(feats.dtype)
+    pair lists `pairs`, in weight's dtype (both built where not given).
+    `feats` may come padded (as `SparseConvK` saves it); the cotangent
+    is padded once for both kernels (`bwd_operands`)."""
+    c_in, c_out = weight.shape[1], weight.shape[2]
+    g, w_t = bwd_operands(feats, weight, grad)
     d_feats = None
     if need_feats:
-        w_t = weight.transpose(1, 2).contiguous()
         d_feats = sparse_conv(g, w_t, rb_bwd, dgrad=True, order=order)
-    return d_feats, sparse_conv_dw(feats, g, rb_bwd, out_dtype=weight.dtype, pairs=pairs)
+    d_w = sparse_conv_dw(feats, g, rb_bwd, pairs=pairs)
+    return d_feats, dw_unpad(d_w, c_in, c_out, weight.dtype)

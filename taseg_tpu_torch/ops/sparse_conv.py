@@ -8,12 +8,16 @@ With a dense (27, V) rulebook the output row of voxel v is
     out[v] = sum_k  feats[rb[k, v]] * (rb[k, v] >= 0)  @  W[k]
 
 On CUDA tensors `sparse_conv_k3` launches a hand-written gather-GEMM of
-`csrc/sparse_conv.cu`, chosen by `route`: for bf16 with C_in and C_out
-multiples of 8 the Hopper tile (`csrc/wgmma_tile.cuh`: wgmma over the
-table's row order `mask_row_order`, a producer warpgroup's cp.async ring,
-the chains of the coarse levels cut in `wgmma_splits` parts), the
-CUDA-core kernel for f32 and ragged widths.  On CPU tensors it runs
-`sparse_conv_plain`, the
+`csrc/sparse_conv.cu`, chosen by `route`: for bf16 the Hopper tile
+(`csrc/wgmma_tile.cuh`: wgmma over the table's row order
+`mask_row_order`, a producer warpgroup's cp.async ring, the chains of
+the coarse levels cut in `wgmma_splits` parts), the CUDA-core kernel for
+a direct f32 call.  The tensor-core tiles copy rows in 16-byte pieces:
+a ragged width is zero-padded to whole pieces (`padded_width`) in the
+feature columns (an input may come padded already, as the autograd
+Functions save it) and the weight (a served weight's padded copy is
+kept beside it), and the kernel writes the logical output columns
+(`padded_call`).  On CPU tensors it runs `sparse_conv_plain`, the
 per-offset gather + matmul of `_conv_fwd_impl`.  Both accumulate in f32
 over all 27 offsets and round once to the input dtype.  (The JAX TGF path
 rounds each group's transformed rows to the activation dtype before it
@@ -25,10 +29,9 @@ The port takes the rulebook directly and builds no TGF tables.
 the counterpart of the custom VJP `_tgf_vjp_bwd`, JAX tgf.py:231): its
 backward runs `f3conv.f3_bwd_fused` over the flipped rulebook
 `flip_rulebook(rb)` and K4's pair lists, which the topology builds once
-per level and step.  Its f32 calls with C_in and C_out multiples of 4
-(`k_route`'s "tf32x3") go instead to `conv_k` at K = 27, on 3xTF32
-tensor cores over the level's row order; so the CUDA-core K2 at 27
-serves only ragged f32 widths (the 5-channel stems).
+per level and step.  Its f32 calls (`k_route`'s "tf32x3") go instead to
+`conv_k` at K = 27, on 3xTF32 tensor cores over the level's row order;
+so no path reaches the CUDA-core K2 at 27.
 
 The topology builds each level's order once (`k3_order`); a flip maps
 equal offset masks to equal masks, so the input gradient's call on the
@@ -45,12 +48,12 @@ table of the other direction: `flip_rulebook(rb)` for an odd kernel on
 one coordinate set, the down / up table pair (`rulebook.build_rulebook`
 and `build_reverse_rulebook`) between two levels.
 
-K2 at K picks its kernel by `k_route`: in f32 with C_in and C_out
-multiples of 4, the 3xTF32 tensor-core tile over the rows in
-`mask_row_order(rb)` (rows with equal sets of present offsets share a
-64-row tile, so a tile runs about the offsets its rows have); in bf16
-the wgmma tile over the same order; other widths the CUDA-core kernel.  A `KTable` carries a table with its order and, where a weight
-gradient reads it, its pair lists, built once by the topology.
+K2 at K picks its kernel by `k_route`: in f32 the 3xTF32 tensor-core
+tile over the rows in `mask_row_order(rb)` (rows with equal sets of
+present offsets share a 64-row tile, so a tile runs about the offsets
+its rows have); in bf16 the wgmma tile over the same order; both at
+padded widths.  A `KTable` carries a table with its order and, where a
+weight gradient reads it, its pair lists, built once by the topology.
 """
 
 from __future__ import annotations
@@ -67,24 +70,99 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of the 27-offset conv takes: "wgmma" (Hopper
-    tensor cores, over the table's row order) for bf16 with C_in and C_out
-    multiples of 8, else "simt" (CUDA cores).  `k3_conv` asks `k_route`
-    first: the f32 calls whose widths allow it go to the conv over K = 27
-    offsets on 3xTF32."""
-    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "wgmma"
-    return "simt"
+    tensor cores, over the table's row order) for bf16 at any widths,
+    each padded to `padded_width` (a multiple of 8), else "simt" (CUDA
+    cores).  `k3_conv` asks `k_route` first: its f32 calls go to the conv
+    over K = 27 offsets on 3xTF32, so "simt" serves only a direct f32
+    call of `sparse_conv_k3`."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def k_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of K2 or K4 at K offsets takes: "tf32x3"
     (tensor cores, each f32 product as three TF32 products of its
-    operands' high and low parts, within the f32 tolerance) for f32 with
-    C_in and C_out multiples of 4; "wgmma" for bf16 with both multiples
-    of 8 (K2 only: K4 at K has no bf16 tensor-core route); else "simt"."""
-    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
-        return "tf32x3"
-    return route(dtype, c_in, c_out)
+    operands' high and low parts, within the f32 tolerance) for f32,
+    "wgmma" for bf16 (K2 only: K4 at K has no bf16 tensor-core route);
+    at any widths, each padded to `padded_width`."""
+    return "tf32x3" if dtype == torch.float32 else route(dtype, c_in, c_out)
+
+
+# The tensor-core routes copy rows in 16-byte pieces, so they run at
+# widths of whole pieces: C rounded up to a multiple of 8 (bf16) or 4
+# (f32).  The wrappers zero-pad the feature columns and the weight's rows
+# and columns to those widths, run the kernel there, and hand back the
+# logical columns: a zero column adds nothing to a sum, so the padded
+# call computes the same products in the same order.  The weight's width
+# is the logical one; the input may come padded (`takes_cols`)
+ROW_PIECE = 16
+
+
+def padded_width(dtype: torch.dtype, c: int) -> int:
+    """`c` rounded up to whole 16-byte pieces of `dtype`."""
+    q = ROW_PIECE // dtype.itemsize
+    return -(-c // q) * q
+
+
+def pad_cols(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x (..., C0) with zero columns up to `c` (x itself where C0 == c)."""
+    return x if x.shape[-1] == c else torch.nn.functional.pad(x, (0, c - x.shape[-1]))
+
+
+def pad_weight(w: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
+    """w (K, C_in0, C_out0) with zero rows and columns up to (c_in, c_out).
+    A weight that takes no gradient (a served model's: `layers.SparseConv`
+    keeps its cast kernel while the kernel is unchanged) keeps its padded
+    copy beside it while its version holds, so a served conv pads its
+    weight once."""
+    if w.shape[1:] == (c_in, c_out):
+        return w
+    if w.requires_grad:
+        return torch.nn.functional.pad(w, (0, c_out - w.shape[2], 0, c_in - w.shape[1]))
+    hit = getattr(w, "_taseg_padded", None)
+    if hit is None or hit[0] != w._version or hit[1].shape[1:] != (c_in, c_out):
+        hit = (w._version, torch.nn.functional.pad(w, (0, c_out - w.shape[2], 0, c_in - w.shape[1])))
+        w._taseg_padded = hit
+    return hit[1]
+
+
+def unpad(x: torch.Tensor, *widths: int) -> torch.Tensor:
+    """The leading `widths` of x's last len(widths) dims, contiguous (x
+    itself where they are whole)."""
+    if tuple(x.shape[-len(widths):]) == widths:
+        return x
+    return x[(..., *(slice(0, w) for w in widths))].contiguous()
+
+
+def takes_cols(feats: torch.Tensor, c_in: int) -> bool:
+    """Whether feats' columns fit a weight of `c_in` rows: c_in, or c_in
+    zero-padded to `padded_width` (an input that its autograd Function
+    padded once, for the forward and for the weight gradient)."""
+    return feats.shape[-1] in (c_in, padded_width(feats.dtype, c_in))
+
+
+def logical_cols(feats: torch.Tensor, c_in: int) -> torch.Tensor:
+    """feats' first `c_in` columns (feats itself where it has no more):
+    the plain versions' view of a padded input."""
+    return feats if feats.shape[-1] == c_in else feats[..., :c_in]
+
+
+def padded_feats(feats: torch.Tensor, c_in: int) -> torch.Tensor:
+    """feats (V, c_in) zero-padded to the tensor-core routes' width on
+    CUDA tensors, as given on the CPU (whose plain versions take any
+    width): an autograd Function pads its input once, for the forward
+    and for the weight gradient that reads it again."""
+    return pad_cols(feats, padded_width(feats.dtype, c_in)) if _build.dispatch(feats) else feats
+
+
+def padded_call(feats: torch.Tensor, weight: torch.Tensor, v_out: int, launch) -> torch.Tensor:
+    """Run `launch(feats_p, weight_p, out)` on feats and weight padded to
+    the routes' widths (feats may come padded already; the kernel writes
+    only the output's columns) and return out, (v_out, C_out)."""
+    c_in, c_out = weight.shape[1], weight.shape[2]
+    ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
+    out = torch.empty((v_out, c_out), dtype=feats.dtype, device=feats.device)
+    launch(pad_cols(feats, ci), pad_weight(weight, ci, co), out)
+    return out
 
 
 # split rule of K2 at K's 3xTF32 route (csrc/sparse_conv.cu): a 64-row
@@ -139,11 +217,13 @@ def launch_wgmma(
 ) -> None:
     """K2's wgmma route (and K3-down's, on the child table, through its
     own C `entry`, which names the kernel apart in a profile): feats
-    (V_in, C_in) and weight (K, C_in, C_out) bf16, rb (K, V_out) int32,
-    order rb's `mask_row_order` (built here when None) -> out (V_out,
-    C_out), with `wgmma_splits(V_out, K, C_in)` parts per tile chain."""
+    (V_in, C_in) and weight (K, C_in, C_out) bf16 with widths in 8s, rb
+    (K, V_out) int32, order rb's `mask_row_order` (built here when None)
+    -> out (V_out, <= C_out): the output's first columns (a ragged width
+    padded by the caller is written at its own), with
+    `wgmma_splits(V_out, K, C_in)` parts per tile chain."""
     dev = feats.device
-    v_out, c_out = out.shape
+    v_out, c_out = out.shape[0], weight.shape[2]
     if order is None:
         order = mask_row_order(rb)
     _build.check("order", order, (torch.int32,), 1, dev)
@@ -160,7 +240,7 @@ def launch_wgmma(
     _build.launch(
         entry, counters,
         feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), order.data_ptr(), out.data_ptr(),
-        part, live, v_out, feats.shape[1], c_out, rb.shape[0], splits,
+        part, live, v_out, feats.shape[1], c_out, rb.shape[0], splits, out.shape[1],
     )
 
 
@@ -170,12 +250,13 @@ def launch_k_tf32(
     splits: Optional[int] = None,
 ) -> None:
     """K2 at K's 3xTF32 route (and K3-down's f32 one, on the child
-    table): feats (V_in, C_in) and weight (K, C_in, C_out) f32, rb (K,
-    V_out) int32, order rb's `mask_row_order` (built here when None) ->
-    out (V_out, C_out), with `splits` parts per tile chain (K2 at K's rule
-    `k_splits(V_out)` where None)."""
+    table): feats (V_in, C_in) and weight (K, C_in, C_out) f32 with widths
+    in 4s, rb (K, V_out) int32, order rb's `mask_row_order` (built here
+    when None) -> out (V_out, <= C_out): the output's first columns, with
+    `splits` parts per tile chain (K2 at K's rule `k_splits(V_out)` where
+    None)."""
     dev = feats.device
-    v_out, c_out = out.shape
+    v_out, c_out = out.shape[0], weight.shape[2]
     if order is None:
         order = mask_row_order(rb)
     _build.check("order", order, (torch.int32,), 1, dev)
@@ -192,7 +273,7 @@ def launch_k_tf32(
         "taseg_sparse_conv_k_tf32", counters,
         feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), order.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), None if live is None else live.data_ptr(),
-        v_out, feats.shape[1], c_out, rb.shape[0], splits,
+        v_out, feats.shape[1], c_out, rb.shape[0], splits, out.shape[1],
     )
 
 
@@ -271,7 +352,9 @@ def tile_work(rb: torch.Tensor, order: Optional[torch.Tensor] = None) -> int:
 def sparse_conv_plain(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor
 ) -> torch.Tensor:
-    """Per-offset gather -> f32 matmul accumulation, one final rounding."""
+    """Per-offset gather -> f32 matmul accumulation, one final rounding
+    (feats may come padded: its first C_in columns are read)."""
+    feats = logical_cols(feats, weight.shape[1])
     out = None
     for k in range(rb.shape[0]):
         idx = rb[k]
@@ -293,17 +376,18 @@ def sparse_conv_k3(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
     *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """feats (V, C_in), weight (27, C_in, C_out) in feats' dtype, rb
-    (27, V) int32 -> (V, C_out) in feats' dtype.  The wgmma route reads
-    `order`, rb's `mask_row_order` (the level's `k3_order`; built here
-    when not given).  `dgrad` marks a call that computes an input
+    """feats (V, C_in) (or zero-padded to `padded_width(C_in)`), weight
+    (27, C_in, C_out) in feats' dtype, rb (27, V) int32 -> (V, C_out) in
+    feats' dtype.  The wgmma route
+    reads `order`, rb's `mask_row_order` (the level's `k3_order`; built
+    here when not given).  `dgrad` marks a call that computes an input
     gradient: its launch also counts under `sparse_conv_k3_dgrad`."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
     _build.check("rb", rb, (torch.int32,), 2, dev)
-    v, c_in = feats.shape
-    if weight.shape[:2] != (27, c_in) or rb.shape != (27, v):
+    v, c_in = feats.shape[0], weight.shape[1]
+    if weight.shape[0] != 27 or not takes_cols(feats, c_in) or rb.shape != (27, v):
         raise ValueError(
             f"shapes do not fit: feats {tuple(feats.shape)}, weight "
             f"{tuple(weight.shape)}, rb {tuple(rb.shape)}"
@@ -311,46 +395,45 @@ def sparse_conv_k3(
     if not _build.dispatch(feats):
         return sparse_conv_plain(feats, weight, rb)
     c_out = weight.shape[2]
-    out = torch.empty((v, c_out), dtype=feats.dtype, device=dev)
-    if v == 0 or c_out == 0:
-        return out
-    if c_in == 0:
-        return out.zero_()
+    if v == 0 or c_out == 0 or c_in == 0:
+        return torch.zeros((v, c_out), dtype=feats.dtype, device=dev)
     if route(feats.dtype, c_in, c_out) == "wgmma":
-        launch_wgmma(
-            feats, weight, rb, order, out,
-            _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_wgmma"),
-        )
-    else:
-        _build.launch(
-            "taseg_sparse_conv_k3", _build.counters("sparse_conv_k3", dgrad=dgrad),
-            feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
-            v, c_in, c_out, DTYPE_CODES[feats.dtype],
-        )
+        counters = _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_wgmma")
+        return padded_call(feats, weight, v, lambda x, w, o: launch_wgmma(x, w, rb, order, o, counters))
+    feats = logical_cols(feats, c_in).contiguous()
+    out = torch.empty((v, c_out), dtype=feats.dtype, device=dev)
+    _build.launch(
+        "taseg_sparse_conv_k3", _build.counters("sparse_conv_k3", dgrad=dgrad),
+        feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
+        v, c_in, c_out, DTYPE_CODES[feats.dtype],
+    )
     return out
 
 
 class K3Conv(torch.autograd.Function):
     """`sparse_conv_k3` with its gradient, over the KTables `fwd` and
     `bwd` (the flipped rulebook with the level's order and pair lists).
-    Saves feats and weight; the tables are held by reference (no copy).
-    The backward returns no d_feats where feats need none (the stem's
-    first conv, whose input is the voxelized point features)."""
+    On CUDA tensors feats are padded to the wgmma route's width once
+    (`padded_feats`) and saved so for K4; the tables are held by
+    reference (no copy).  The backward returns no
+    d_feats where feats need none (the stem's first conv, whose input is
+    the voxelized point features)."""
 
     @staticmethod
     def forward(ctx, feats, weight, fwd, bwd):
-        ctx.save_for_backward(feats, weight)
+        x = padded_feats(feats, weight.shape[1])
+        ctx.save_for_backward(x, weight)
         ctx.bwd = bwd
-        return sparse_conv_k3(feats, weight, fwd.rb, order=fwd.order)
+        return sparse_conv_k3(x, weight, fwd.rb, order=fwd.order)
 
     @staticmethod
     def backward(ctx, grad):
         from .f3conv import f3_bwd_fused
 
-        feats, weight = ctx.saved_tensors
+        x, weight = ctx.saved_tensors
         b = ctx.bwd
         d_feats, d_w = f3_bwd_fused(
-            feats, weight, grad.contiguous(), b.rb,
+            x, weight, grad.contiguous(), b.rb,
             need_feats=ctx.needs_input_grad[0], pairs=b.pairs, order=b.order,
         )
         return d_feats, d_w, None, None
@@ -397,19 +480,20 @@ def sparse_conv(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
     *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K2 at K offsets: feats (V_in, C_in), weight (K, C_in, C_out) in
-    feats' dtype, rb (K, V_out) int32 of feats rows (-1: none), 1 <= K <=
-    32 -> (V_out, C_out) in feats' dtype, summed in f32 and rounded once.
-    The 3xTF32 and wgmma routes read `order`, rb's `mask_row_order` (built
-    here when not given).  `dgrad` marks an input-gradient call (counted again
-    under `sparse_conv_k_dgrad`)."""
+    """K2 at K offsets: feats (V_in, C_in) (or zero-padded to
+    `padded_width(C_in)`), weight (K, C_in, C_out) in feats' dtype, rb
+    (K, V_out) int32 of feats rows (-1: none), 1 <= K <= 32 -> (V_out,
+    C_out) in feats' dtype, summed in f32 and rounded once.  The 3xTF32 and wgmma
+    routes read `order`, rb's `mask_row_order` (built here when not
+    given).  `dgrad` marks an input-gradient call (counted again under
+    `sparse_conv_k_dgrad`)."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
     _build.check("rb", rb, (torch.int32,), 2, dev)
     k, v_out = rb.shape
-    c_in = feats.shape[1]
-    if weight.shape[:2] != (k, c_in) or not 1 <= k <= 32:
+    c_in = weight.shape[1]
+    if weight.shape[0] != k or not takes_cols(feats, c_in) or not 1 <= k <= 32:
         raise ValueError(
             f"shapes do not fit: feats {tuple(feats.shape)}, weight "
             f"{tuple(weight.shape)}, rb {tuple(rb.shape)} (1 <= K <= 32)"
@@ -417,50 +501,38 @@ def sparse_conv(
     if not _build.dispatch(feats):
         return sparse_conv_plain(feats, weight, rb)
     c_out = weight.shape[2]
-    out = torch.empty((v_out, c_out), dtype=feats.dtype, device=dev)
-    if v_out == 0 or c_out == 0:
-        return out
-    if c_in == 0 or feats.shape[0] == 0:
-        return out.zero_()
-    r = k_route(feats.dtype, c_in, c_out)
-    if r == "tf32x3":
-        launch_k_tf32(
-            feats, weight, rb, order, out,
-            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_tf32"),
-        )
-    elif r == "wgmma":
-        launch_wgmma(
-            feats, weight, rb, order, out,
-            _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_wgmma"),
-        )
+    if v_out == 0 or c_out == 0 or c_in == 0 or feats.shape[0] == 0:
+        return torch.zeros((v_out, c_out), dtype=feats.dtype, device=dev)
+    if k_route(feats.dtype, c_in, c_out) == "tf32x3":
+        counters = _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_tf32")
+        launch = lambda x, w, o: launch_k_tf32(x, w, rb, order, o, counters)  # noqa: E731
     else:
-        _build.launch(
-            "taseg_sparse_conv_k", _build.counters("sparse_conv_k", dgrad=dgrad),
-            feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), out.data_ptr(),
-            v_out, c_in, c_out, k, DTYPE_CODES[feats.dtype],
-        )
-    return out
+        counters = _build.counters("sparse_conv_k", dgrad=dgrad, suffix="_wgmma")
+        launch = lambda x, w, o: launch_wgmma(x, w, rb, order, o, counters)  # noqa: E731
+    return padded_call(feats, weight, v_out, launch)
 
 
 class SparseConvK(torch.autograd.Function):
-    """`sparse_conv` with its gradient (JAX `_conv_vjp_bwd`).  Saves feats
-    and weight; the reverse table `bwd` (a KTable over V_in rows) is held
-    by reference.  No d_feats where feats need none."""
+    """`sparse_conv` with its gradient (JAX `_conv_vjp_bwd`).  On CUDA
+    tensors feats are padded once (`padded_feats`) and saved so for K4 at
+    K; the reverse table `bwd` (a KTable over V_in rows) is held by
+    reference.  No d_feats where feats need none."""
 
     @staticmethod
     def forward(ctx, feats, weight, fwd, bwd):
-        ctx.save_for_backward(feats, weight)
+        x = padded_feats(feats, weight.shape[1])
+        ctx.save_for_backward(x, weight)
         ctx.bwd = bwd
-        return sparse_conv(feats, weight, fwd.rb, order=fwd.order)
+        return sparse_conv(x, weight, fwd.rb, order=fwd.order)
 
     @staticmethod
     def backward(ctx, grad):
         from .f3conv import sparse_conv_bwd
 
-        feats, weight = ctx.saved_tensors
+        x, weight = ctx.saved_tensors
         b = ctx.bwd
         d_feats, d_w = sparse_conv_bwd(
-            feats, weight, grad.contiguous(), b.rb,
+            x, weight, grad.contiguous(), b.rb,
             need_feats=ctx.needs_input_grad[0], order=b.order, pairs=b.pairs,
         )
         return d_feats, d_w, None, None

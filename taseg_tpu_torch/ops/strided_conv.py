@@ -21,12 +21,13 @@ s, -1 elsewhere; `StridedTables.up`, `up_order`, built by the topology
 with the level's orders: its row order groups the fine rows by slot).
 On CUDA tensors the wrappers launch hand-written kernels, by
 `downsample_route` / `upsample_route`: over a one-round child table, or
-the up table, in bf16 (C_in and C_out multiples of 8) on K2's wgmma tile
-at K = 8 (`sparse_conv.launch_wgmma`), in f32 (C_in and C_out multiples
-of 4) on K2 at K's 3xTF32 tile (`sparse_conv.launch_k_tf32`); a child
-table of several rounds (cells that fold negative coordinates) on
-K3-down's round kernels of `csrc/strided_conv.cu` ("rounds"); everything
-else on the CUDA-core kernels of `csrc/strided_conv.cu`.  On CPU
+the up table, in bf16 on K2's wgmma tile at K = 8
+(`sparse_conv.launch_wgmma`), in f32 on K2 at K's 3xTF32 tile
+(`sparse_conv.launch_k_tf32`), ragged widths padded to whole 16-byte
+pieces (`sparse_conv.padded_call`); a child table of several rounds
+(cells that fold negative coordinates) on K3-down's round kernels of
+`csrc/strided_conv.cu` ("rounds": its tensor-core one in bf16, its
+CUDA-core one in f32).  On CPU
 tensors they run the plain versions, which follow the JAX
 `_slot_matmul`, `_segment_sum` (a mean-centred cumsum) and
 `_parent_gather` (`voxelize.run_sums` is the segment sum).  The kernel
@@ -44,10 +45,11 @@ in one launch, on one of three routes (`f3conv.dw_route(...,
 strided=True)`): over the level's per-slot pair lists
 (`slot_pair_lists`, built once per level and step by the train topology
 as `StridedTables.pairs` and shared by the level's down and up conv) on
-Hopper's wgmma for bf16 with C_in and C_out multiples of 8, on 3xTF32
-tensor cores for f32 with both multiples of 4, the splits of a list
-added in the kernel by its last block; else the CUDA-core kernel over
-the parent and slot tables.
+Hopper's wgmma for bf16, on 3xTF32 tensor cores for f32, at padded
+widths, the splits of a list added in the kernel by its last block.
+The autograd Functions pad the input and the cotangent once for the
+calls that share them (`sparse_conv.padded_feats`,
+`f3conv.bwd_operands`).
 """
 
 from __future__ import annotations
@@ -59,12 +61,20 @@ import torch
 
 from . import _build
 from . import sparse_conv as _sc
-from .f3conv import PairLists, dw_route, k3_conv_dw_pairs_plain, k5_splits, launch_dw
+from .f3conv import PairLists, bwd_operands, dw_route, dw_unpad, k3_conv_dw_pairs_plain, k5_splits
 from .sparse_conv import (
     DTYPE_CODES,
     launch_k_tf32,
     launch_wgmma,
+    logical_cols,
+    pad_cols,
+    pad_weight,
+    padded_call,
+    padded_feats,
+    padded_width,
     sparse_conv_plain,
+    takes_cols,
+    unpad,
     wants_grad,
 )
 from .voxelize import run_sums
@@ -163,20 +173,15 @@ def slot_pair_lists(tables: StridedTables) -> PairLists:
 
 def downsample_route(dtype: torch.dtype, c_in: int, c_out: int, rounds: int = 1) -> str:
     """The kernel a CUDA call of `downsample_conv_apply` takes, from its
-    child table's rounds (`StridedTables.child.shape[0]`) and widths: over
-    one round "wgmma" (K2's wgmma tile at K = 8) for bf16 with C_in and
-    C_out multiples of 8, "tf32x3" (K2 at K's 3xTF32 tile) for f32 with
-    both multiples of 4, else "simt" (K3-down's CUDA-core kernel); over
-    several rounds "rounds": K3-down's round kernels of
-    csrc/strided_conv.cu (its tensor-core one for bf16 with widths in 8s,
-    else its CUDA-core one), which walk each cell's children themselves."""
+    child table's rounds (`StridedTables.child.shape[0]`) and dtype, at
+    any widths (each padded to `sparse_conv.padded_width`): over one round
+    "wgmma" (K2's wgmma tile at K = 8) for bf16, "tf32x3" (K2 at K's
+    3xTF32 tile) for f32; over several rounds "rounds": K3-down's round
+    kernels of csrc/strided_conv.cu (its tensor-core one for bf16, its
+    CUDA-core one for f32), which walk each cell's children themselves."""
     if rounds > 1:
         return "rounds"
-    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "wgmma"
-    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
-        return "tf32x3"
-    return "simt"
+    return upsample_route(dtype, c_in, c_out)
 
 
 def k3_tf32_splits(v_out: int, c_in: int) -> int:
@@ -190,15 +195,11 @@ def k3_tf32_splits(v_out: int, c_in: int) -> int:
 
 def upsample_route(dtype: torch.dtype, c_in: int, c_out: int) -> str:
     """The kernel a CUDA call of `upsample_conv_apply` takes, over the
-    level's up table: "wgmma" (K2's wgmma tile at K = 8) for bf16 with
-    C_in and C_out multiples of 8, "tf32x3" (K2 at K's 3xTF32 tile) for
-    f32 with both multiples of 4, else "simt" (K3-up's CUDA-core
-    kernel)."""
-    if dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        return "wgmma"
-    if dtype == torch.float32 and c_in % 4 == 0 and c_out % 4 == 0:
-        return "tf32x3"
-    return "simt"
+    level's up table, at any widths (each padded to
+    `sparse_conv.padded_width`): "wgmma" (K2's wgmma tile at K = 8) for
+    bf16, "tf32x3" (K2 at K's 3xTF32 tile) for f32 (any other dtype:
+    "simt", which the wrappers refuse)."""
+    return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(dtype, "simt")
 
 
 def slot_up_table(tables: StridedTables) -> torch.Tensor:
@@ -277,6 +278,7 @@ def _parent_gather(rows: torch.Tensor, tables: StridedTables) -> torch.Tensor:
 
 
 def downsample_conv_plain(feats, weight, tables: StridedTables):
+    feats = logical_cols(feats, weight.shape[1])
     h = _slot_matmul(feats, weight, tables)
     return run_sums(h[tables.perm.long()], tables.starts).to(feats.dtype)
 
@@ -294,7 +296,7 @@ def downsample_conv_slot_plain(feats, weight, child: torch.Tensor):
 
 
 def upsample_conv_plain(feats, weight, tables: StridedTables):
-    g = _parent_gather(feats, tables)
+    g = _parent_gather(logical_cols(feats, weight.shape[1]), tables)
     return _slot_matmul(g, weight, tables).to(feats.dtype)
 
 
@@ -309,7 +311,7 @@ def _check_weights(feats, weight):
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("weight", weight, (feats.dtype,), 3, dev)
-    if weight.shape[0] != 8 or weight.shape[1] != feats.shape[1]:
+    if weight.shape[0] != 8 or not takes_cols(feats, weight.shape[1]):
         raise ValueError(
             f"weight {tuple(weight.shape)} does not fit feats "
             f"{tuple(feats.shape)}: expected (8, C_in, C_out)"
@@ -335,8 +337,8 @@ def downsample_conv_apply(
     feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables,
     *, dgrad: bool = False,
 ) -> torch.Tensor:
-    """feats (V_fine, Ci), weight (8, Ci, Co) in feats' dtype ->
-    (V_coarse, Co).  The route (`downsample_route`) reads the child
+    """feats (V_fine, Ci) (or zero-padded to `padded_width(Ci)`), weight
+    (8, Ci, Co) in feats' dtype -> (V_coarse, Co).  The route (`downsample_route`) reads the child
     table's rounds: `tables.child` and `tables.child_order` (built here,
     with one host read for the rounds, where the topology gave none).
     `dgrad` marks an input-gradient call (counted under
@@ -350,57 +352,58 @@ def downsample_conv_apply(
     if not _build.dispatch(feats):
         return downsample_conv_plain(feats, weight, tables)
     c_in, c_out = weight.shape[1], weight.shape[2]
-    out = torch.empty((v_coarse, c_out), dtype=feats.dtype, device=feats.device)
-    if v_coarse == 0 or c_out == 0:
-        return out
-    if v_fine == 0 or c_in == 0:
-        return out.zero_()
+    if v_coarse == 0 or c_out == 0 or v_fine == 0 or c_in == 0:
+        return torch.zeros((v_coarse, c_out), dtype=feats.dtype, device=feats.device)
     child = tables.child if tables.child is not None else slot_child_table(tables)
     _build.check("child", child, (torch.int32,), 3, feats.device)
     if child.shape[1:] != (8, v_coarse):
         raise ValueError(f"child {tuple(child.shape)} does not fit (rounds, 8, {v_coarse})")
     r = downsample_route(feats.dtype, c_in, c_out, child.shape[0])
-    if r in ("rounds", "simt") and tables.child is not None:
-        _check(feats, weight, tables, v_fine, v_coarse)
     order = tables.child_order if tables.child is not None else None
     if r == "wgmma":
-        launch_wgmma(
-            feats, weight, child[0], order, out,
-            _build.counters("strided_down", dgrad=dgrad, suffix="_wgmma"),
-            entry="taseg_strided_down_wgmma",
-        )
-        return out
+        counters = _build.counters("strided_down", dgrad=dgrad, suffix="_wgmma")
+        return padded_call(feats, weight, v_coarse, lambda x, w, o: launch_wgmma(
+            x, w, child[0], order, o, counters, entry="taseg_strided_down_wgmma"))
     if r == "tf32x3":
-        launch_k_tf32(
-            feats, weight, child[0], order, out,
-            _build.counters("strided_down", dgrad=dgrad, suffix="_tf32"),
-            splits=k3_tf32_splits(v_coarse, c_in),
+        counters = _build.counters("strided_down", dgrad=dgrad, suffix="_tf32")
+        splits = k3_tf32_splits(v_coarse, padded_width(feats.dtype, c_in))
+        return padded_call(feats, weight, v_coarse, lambda x, w, o: launch_k_tf32(
+            x, w, child[0], order, o, counters, splits=splits))
+    if tables.child is not None:
+        _check(feats, weight, tables, v_fine, v_coarse)
+    counters = _build.counters("strided_down", dgrad=dgrad, suffix="_rounds")
+
+    def rounds(x, w, o):
+        ptrs = (
+            x.data_ptr(), w.data_ptr(), tables.parent.data_ptr(), tables.slot.data_ptr(),
+            tables.perm.data_ptr(), tables.starts.data_ptr(), o.data_ptr(),
         )
-        return out
-    ptrs = (
-        feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
-        tables.slot.data_ptr(), tables.perm.data_ptr(),
-        tables.starts.data_ptr(), out.data_ptr(),
-    )
-    counters = _build.counters("strided_down", dgrad=dgrad, suffix="_rounds" if r == "rounds" else "")
-    if r == "rounds" and feats.dtype == torch.bfloat16 and c_in % 8 == 0 and c_out % 8 == 0:
-        _build.check_aligned(feats=feats, weight=weight)
-        _build.launch("taseg_strided_down_mma", counters, *ptrs, v_coarse, c_in, c_out)
+        if x.dtype == torch.bfloat16:
+            _build.check_aligned(feats=x, weight=w)
+            _build.launch("taseg_strided_down_mma", counters, *ptrs, v_coarse, x.shape[1], o.shape[1])
+        else:
+            _build.launch(
+                "taseg_strided_down", counters,
+                *ptrs, v_fine, v_coarse, x.shape[1], o.shape[1], DTYPE_CODES[x.dtype],
+            )
+
+    if feats.dtype == torch.bfloat16:  # the round tile copies 16-byte pieces too
+        ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
+        feats, weight = pad_cols(feats, ci), pad_weight(weight, ci, co)
     else:
-        _build.launch(
-            "taseg_strided_down", counters,
-            *ptrs, v_fine, v_coarse, c_in, c_out, DTYPE_CODES[feats.dtype],
-        )
-    return out
+        feats = logical_cols(feats, c_in).contiguous()
+    out = torch.empty((v_coarse, weight.shape[2]), dtype=feats.dtype, device=feats.device)
+    rounds(feats, weight, out)
+    return unpad(out, c_out)
 
 
 def upsample_conv_apply(
     feats: torch.Tensor, weight: torch.Tensor, tables: StridedTables,
     *, dgrad: bool = False,
 ) -> torch.Tensor:
-    """Transposed pair: feats (V_coarse, Ci), weight (8, Ci, Co) in feats'
-    dtype -> (V_fine, Co); out[f] = feats[parent(f)] @ W[slot(f)].  The
-    tensor-core routes (`upsample_route`) read `tables.up` and
+    """Transposed pair: feats (V_coarse, Ci) (or zero-padded to
+    `padded_width(Ci)`), weight (8, Ci, Co) in feats' dtype -> (V_fine,
+    Co); out[f] = feats[parent(f)] @ W[slot(f)].  The tensor-core routes (`upsample_route`) read `tables.up` and
     `tables.up_order` (built here where the topology gave none).  `dgrad`
     marks an input-gradient call (counted under `strided_up_dgrad`
     too)."""
@@ -410,36 +413,20 @@ def upsample_conv_apply(
     if not _build.dispatch(feats):
         return upsample_conv_plain(feats, weight, tables)
     c_in, c_out = weight.shape[1], weight.shape[2]
-    out = torch.empty((v_fine, c_out), dtype=feats.dtype, device=feats.device)
-    if v_fine == 0 or c_out == 0:
-        return out
-    if v_coarse == 0 or c_in == 0:
-        return out.zero_()
-    r = upsample_route(feats.dtype, c_in, c_out)
-    if r != "simt":
-        up, order = (tables.up, tables.up_order) if tables.up is not None else (slot_up_table(tables), None)
-        _build.check("up", up, (torch.int32,), 2, feats.device)
-        if up.shape != (8, v_fine):
-            raise ValueError(f"up {tuple(up.shape)} does not fit (8, {v_fine})")
-        if r == "wgmma":
-            launch_wgmma(
-                feats, weight, up, order, out,
-                _build.counters("strided_up", dgrad=dgrad, suffix="_wgmma"),
-                entry="taseg_strided_up_wgmma",
-            )
-        else:
-            launch_k_tf32(
-                feats, weight, up, order, out,
-                _build.counters("strided_up", dgrad=dgrad, suffix="_tf32"),
-                splits=k3_tf32_splits(v_fine, c_in),
-            )
-        return out
-    _build.launch(
-        "taseg_strided_up", _build.counters("strided_up", dgrad=dgrad),
-        feats.data_ptr(), weight.data_ptr(), tables.parent.data_ptr(),
-        tables.slot.data_ptr(), out.data_ptr(), v_fine, c_in, c_out, DTYPE_CODES[feats.dtype],
-    )
-    return out
+    if v_fine == 0 or c_out == 0 or v_coarse == 0 or c_in == 0:
+        return torch.zeros((v_fine, c_out), dtype=feats.dtype, device=feats.device)
+    up, order = (tables.up, tables.up_order) if tables.up is not None else (slot_up_table(tables), None)
+    _build.check("up", up, (torch.int32,), 2, feats.device)
+    if up.shape != (8, v_fine):
+        raise ValueError(f"up {tuple(up.shape)} does not fit (8, {v_fine})")
+    if upsample_route(feats.dtype, c_in, c_out) == "wgmma":
+        counters = _build.counters("strided_up", dgrad=dgrad, suffix="_wgmma")
+        return padded_call(feats, weight, v_fine, lambda x, w, o: launch_wgmma(
+            x, w, up, order, o, counters, entry="taseg_strided_up_wgmma"))
+    counters = _build.counters("strided_up", dgrad=dgrad, suffix="_tf32")
+    splits = k3_tf32_splits(v_fine, padded_width(feats.dtype, c_in))
+    return padded_call(feats, weight, v_fine, lambda x, w, o: launch_k_tf32(
+        x, w, up, order, o, counters, splits=splits))
 
 
 def strided_dw_plain(x, y, tables: StridedTables, up: bool) -> torch.Tensor:
@@ -498,16 +485,12 @@ def strided_dw(
     c_in, c_out = x.shape[1], y.shape[1]
     if v_fine == 0 or v_coarse == 0 or c_in == 0 or c_out == 0:
         return torch.zeros((8, c_in, c_out), dtype=out_dtype, device=dev)
-    route = dw_route(x.dtype, c_in, c_out, strided=True)
-    if route != "simt":
-        pairs = tables.pairs if tables.pairs is not None else slot_pair_lists(tables)
-        return _strided_dw_lists(x, y, pairs, v_fine, up, route).to(out_dtype)
-    out = launch_dw(
-        "taseg_strided_dw", "strided_dw",
-        (x.data_ptr(), y.data_ptr(), tables.parent.data_ptr(), tables.slot.data_ptr()),
-        (v_fine, c_in, c_out, int(up)), v_fine, 8, x.dtype, dev,
+    pairs = tables.pairs if tables.pairs is not None else slot_pair_lists(tables)
+    ci, co = padded_width(x.dtype, c_in), padded_width(x.dtype, c_out)
+    out = _strided_dw_lists(
+        pad_cols(x, ci), pad_cols(y, co), pairs, v_fine, up, dw_route(x.dtype, c_in, c_out, strided=True)
     )
-    return out.to(out_dtype)
+    return dw_unpad(out, c_in, c_out, out_dtype)
 
 
 def _strided_dw_lists(x, y, pairs: PairLists, v_fine: int, up: bool, route: str) -> torch.Tensor:
@@ -549,25 +532,26 @@ def _cdiv(a: int, b: int) -> int:
 class DownConv(torch.autograd.Function):
     """`downsample_conv_apply` with its gradient (JAX `_down_bwd`):
     d_feats = up(g, W^T) through K3-up (over the level's up table and
-    order, as the forward's up conv), d_W through K5.  Saves feats and
-    weight; the tables by reference."""
+    order, as the forward's up conv), d_W through K5.  On CUDA tensors
+    feats are padded once (`padded_feats`) and saved so for K5, g once in
+    the backward (`f3conv.bwd_operands`); the tables by reference."""
 
     @staticmethod
     def forward(ctx, feats, weight, tables):
-        ctx.save_for_backward(feats, weight)
+        x = padded_feats(feats, weight.shape[1])
+        ctx.save_for_backward(x, weight)
         ctx.tables = tables
-        return downsample_conv_apply(feats, weight, tables)
+        return downsample_conv_apply(x, weight, tables)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weight = ctx.saved_tensors
-        g = g.contiguous().to(feats.dtype)
+        x, weight = ctx.saved_tensors
+        g, w_t = bwd_operands(x, weight, g.contiguous())
         d_feats = None
         if ctx.needs_input_grad[0]:
-            w_t = weight.transpose(1, 2).contiguous()
             d_feats = upsample_conv_apply(g, w_t, ctx.tables, dgrad=True)
-        d_w = strided_dw(feats, g, ctx.tables, up=False, out_dtype=weight.dtype)
-        return d_feats, d_w, None
+        d_w = strided_dw(x, g, ctx.tables, up=False)
+        return d_feats, dw_unpad(d_w, weight.shape[1], weight.shape[2], weight.dtype), None
 
 
 class UpConv(torch.autograd.Function):
@@ -575,24 +559,25 @@ class UpConv(torch.autograd.Function):
     down(g, W^T) through K3-down (over the level's child table and order,
     as the forward's down conv), d_W through K5, which gathers the
     coarse rows by parent itself (the (V_fine, C_in) gathered rows that
-    the JAX forward keeps are not saved)."""
+    the JAX forward keeps are not saved).  Operands padded once, as
+    `DownConv`'s."""
 
     @staticmethod
     def forward(ctx, feats, weight, tables):
-        ctx.save_for_backward(feats, weight)
+        x = padded_feats(feats, weight.shape[1])
+        ctx.save_for_backward(x, weight)
         ctx.tables = tables
-        return upsample_conv_apply(feats, weight, tables)
+        return upsample_conv_apply(x, weight, tables)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weight = ctx.saved_tensors
-        g = g.contiguous().to(feats.dtype)
+        x, weight = ctx.saved_tensors
+        g, w_t = bwd_operands(x, weight, g.contiguous())
         d_feats = None
         if ctx.needs_input_grad[0]:
-            w_t = weight.transpose(1, 2).contiguous()
             d_feats = downsample_conv_apply(g, w_t, ctx.tables, dgrad=True)
-        d_w = strided_dw(feats, g, ctx.tables, up=True, out_dtype=weight.dtype)
-        return d_feats, d_w, None
+        d_w = strided_dw(x, g, ctx.tables, up=True)
+        return d_feats, dw_unpad(d_w, weight.shape[1], weight.shape[2], weight.dtype), None
 
 
 def downsample_conv(feats, weight, tables: StridedTables) -> torch.Tensor:

@@ -44,7 +44,7 @@ from . import _build
 from .coords import GridBounds
 from .join import query_coords
 from .rulebook import kernel_offsets
-from .sparse_conv import DTYPE_CODES, wants_grad
+from .sparse_conv import DTYPE_CODES, pad_cols, unpad, wants_grad
 
 
 class SegmentTables(NamedTuple):
@@ -130,6 +130,8 @@ def segment_sum_plain(
 # to K6_MAX_UNIT items a group
 K6_THREADS = 256
 K6_MAX_UNIT = 64
+# pieces a lane K6 takes, by the bytes of a piece
+K6_MAX_PIECES = {16: 8, 8: 8, 4: 16, 2: 8}
 
 
 # K6 cuts a table by rows, not by units of items, where it has at most one
@@ -157,17 +159,11 @@ class SegmentSumPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(c: int, esz: int, addr16: int) -> SegmentSumPlan:
-    return segment_sum_plan(c, esz, addr16)
+def _plan(c: int, esz: int, addr16: int) -> tuple:
+    return segment_sum_cols(c, esz, addr16), segment_sum_plan(c, esz, addr16)
 
 
-def segment_sum_plan(c: int, esz: int, addr: int = 0) -> SegmentSumPlan:
-    """K6's layout for rows of `c` channels of `esz` bytes at address
-    `addr`: the widest piece (16, 8, 4 or 2 bytes) that divides a row and
-    the address, the lanes that cover a row in such pieces (rounded up to
-    a power of two, at most 32, with 2, 4 or 8 pieces a lane above that),
-    and the items per group: 8 a lane, at most K6_MAX_UNIT (a group
-    walks its unit in sequence, so wide rows take short units)."""
+def _layout(c: int, esz: int, addr: int) -> SegmentSumPlan:
     vw = math.gcd(c * esz, 16)
     while vw > esz and addr % vw:
         vw //= 2
@@ -176,9 +172,37 @@ def segment_sum_plan(c: int, esz: int, addr: int = 0) -> SegmentSumPlan:
     pieces = 1
     if lanes > 32:
         pieces, lanes = lanes // 32, 32
-    if pieces > 8:
-        raise ValueError(f"segment_sum: {c} channels of {esz} bytes is wider than K6 takes")
     return SegmentSumPlan(vw=vw, lanes=lanes, pieces=pieces, unit=min(8 * lanes, K6_MAX_UNIT))
+
+
+def segment_sum_cols(c: int, esz: int, addr: int = 0) -> int:
+    """The width K6 runs rows of `c` channels of `esz` bytes at: c, or c
+    rounded up to whole 16-byte pieces (a zero-padded copy of the source)
+    where c's own pieces would need more than K6_MAX_PIECES a lane.  On
+    the H100 at SPVCNN cr 1.6's 409 channels, 16 pieces of 4 bytes a lane
+    (f32) beat the copy to 412 columns, while 16 pieces of 2 bytes (bf16)
+    took twice the copy to 416 and K6 there (PERF.md §6)."""
+    own = _layout(c, esz, addr)
+    if own.pieces <= K6_MAX_PIECES[own.vw]:
+        return c
+    q = 16 // esz
+    return -(-c // q) * q
+
+
+def segment_sum_plan(c: int, esz: int, addr: int = 0) -> SegmentSumPlan:
+    """K6's layout for rows of `c` channels of `esz` bytes at address
+    `addr`, run at `segment_sum_cols` (a padded copy is aligned): the
+    widest piece (16, 8, 4 or 2 bytes) that divides a row and the
+    address, the lanes that cover a row in such pieces (rounded up to a
+    power of two, at most 32, with 2, 4 or 8 pieces a lane above that, or
+    16 of 4 bytes), and the items per group: 8 a lane, at most
+    K6_MAX_UNIT (a group walks its unit in sequence, so wide rows take
+    short units)."""
+    cols = segment_sum_cols(c, esz, addr)
+    plan = _layout(cols, esz, addr if cols == c else 0)
+    if plan.pieces > K6_MAX_PIECES[plan.vw]:
+        raise ValueError(f"segment_sum: {c} channels of {esz} bytes is wider than K6 takes")
+    return plan
 
 
 def segment_sum(
@@ -208,24 +232,23 @@ def segment_sum(
         raise ValueError("segment tables of 2^31 rows or more")
     if not _build.dispatch(src):
         return segment_sum_plain(src, tables, weights)
-    out = torch.empty((v, c), dtype=torch.float32, device=dev)
-    if v == 0 or c == 0:
-        return out
-    if r_real == 0:
-        return out.zero_()
+    if v == 0 or c == 0 or r_real == 0:
+        return torch.zeros((v, c), dtype=torch.float32, device=dev)
     n = tables.perm.shape[0]
-    plan = _plan(c, src.element_size(), src.data_ptr() % 16)
+    cols, plan = _plan(c, src.element_size(), src.data_ptr() % 16)
+    src = pad_cols(src, cols)
+    out = torch.empty((v, cols), dtype=torch.float32, device=dev)
     units = -(-n // plan.unit)
-    part = torch.empty((units, 2, c), dtype=torch.float32, device=dev)
+    part = torch.empty((units, 2, cols), dtype=torch.float32, device=dev)
     _build.launch(
         "taseg_segment_sum", ("segment_sum",),
         src.data_ptr(), None if weights is None else weights.data_ptr(),
         tables.perm.data_ptr(), tables.starts.data_ptr(), out.data_ptr(),
         part.data_ptr(), _build.zeroed_counters(dev, units).data_ptr(),
-        v, c, r_real, p, n, DTYPE_CODES[src.dtype], plan.vw, plan.lanes, plan.pieces, plan.unit,
+        v, cols, r_real, p, n, DTYPE_CODES[src.dtype], plan.vw, plan.lanes, plan.pieces, plan.unit,
         int(segment_sum_by_rows(r_real, v)),
     )
-    return out
+    return unpad(out, c)
 
 
 def _voxelize_avg(point_feats, tables):

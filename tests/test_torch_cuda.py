@@ -1807,3 +1807,220 @@ def test_nuscenes_and_waymo_scans_card_equal_cpu(cuda, dataset, tmp_path):
     assert out["cpu"].shape == (len(scan["xyzret"]), cfg["MODEL"]["NUM_CLASS"])
     scale = max(1.0, float(np.abs(out["cpu"]).max()))
     assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-3 * scale
+
+
+# ------------------------------------------------ ragged widths (cr 1.6)
+# every distinct (C_in, C_out) of MinkUNet / SPVCNN mk34 cr 1.6's convs
+# (int(1.6 x PLANES): 51, 102, 204, 409, 153; the decoder's 613 and 306):
+# the 3^3 convs (the 4-wide stem and the _xyz recipe's 3-wide one among
+# them), the strided down and up convs.  None is a multiple of 8: the
+# wrappers pad them to one and take the tensor-core routes
+CR16_K3 = [
+    (3, 51), (4, 51), (51, 51), (51, 102), (102, 102), (102, 204), (153, 153), (204, 153),
+    (204, 204), (204, 409), (306, 204), (409, 409), (613, 409),
+]
+CR16_DOWN = [(51, 51), (102, 102), (204, 204)]
+CR16_UP = [(153, 153), (204, 153), (409, 204), (409, 409)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", CR16_K3)
+def test_cr16_k3_padded_routes(cuda, dtype, c_in, c_out):
+    """The 3^3 conv at cr 1.6's widths on its padded tensor-core route:
+    bf16 K2 at 27 on wgmma (forward, and on W^T as the input gradient),
+    f32 K2 at K = 27 on 3xTF32 (`k3_conv`'s f32 route); K4 (bf16, wgmma)
+    and K4 at K (f32, 3xTF32) for d_W within 1e-4; outputs contiguous at
+    the logical widths, no CUDA-core launch, the same bits on repeat."""
+    rng, u, num, b = _level(cuda, seed=c_in + c_out)
+    rb = tr.build_rulebook_k3(u, num, 1, b)
+    rb_bwd = tsc.flip_rulebook(rb)
+    v = u.shape[0]
+    x, g = _rand(rng, (v, c_in), cuda, dtype), _rand(rng, (v, c_out), cuda, dtype)
+    w = _rand(rng, (27, c_in, c_out), cuda, dtype) / np.sqrt(27 * c_in)
+    w_t = w.transpose(1, 2).contiguous()
+    _build.reset_launches()
+    if dtype == torch.bfloat16:
+        fwd = _twice_same(lambda: tsc.sparse_conv_k3(x, w, rb))
+        dx = tsc.sparse_conv_k3(g, w_t, rb_bwd, dgrad=True)
+        dw = _twice_same(lambda: tf3.k3_conv_dw(x, g, rb_bwd))
+        L = _build.LAUNCHES
+        assert (L["sparse_conv_k3"], L["sparse_conv_k3_wgmma"], L["k3_conv_dw"], L["k3_conv_dw_wgmma"]) == (3, 3, 2, 2)
+    else:
+        fwd = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+        dx = tsc.sparse_conv(g, w_t, rb_bwd, dgrad=True)
+        dw = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd))
+        L = _build.LAUNCHES
+        assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_dw"], L["sparse_conv_dw_tf32"]) == (3, 3, 2, 2)
+        assert L["sparse_conv_k3"] == 0
+    for t, shape in ((fwd, (v, c_out)), (dx, (v, c_in)), (dw, (27, c_in, c_out))):
+        assert t.shape == shape and t.is_contiguous()
+    _close(fwd, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), dtype, 1e-5)
+    _close(dx, tsc.sparse_conv_plain(g, w_t, rb_bwd), tsc.sparse_conv_plain(g.abs(), w_t.abs(), rb_bwd), dtype, 1e-5)
+    _close(dw, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", CR16_DOWN + CR16_UP)
+def test_cr16_strided_padded_routes(cuda, dtype, c_in, c_out):
+    """K3-down over a one-round child table, K3-up over the up table (and
+    each on W^T as the other's input gradient) and K5 both ways at cr
+    1.6's strided widths, padded: wgmma in bf16, 3xTF32 in f32; no
+    CUDA-core launch."""
+    rng, v_fine, tab, _ = _down_case(cuda, "path")
+    v_coarse = tab.starts.shape[0] - 1
+    child = tst.slot_child_table(tab, rounds=1)
+    tab = replace(tab, child=child, child_order=tsc.mask_row_order(child[0]),
+                  up=tst.slot_up_table(tab), pairs=tst.slot_pair_lists(tab))
+    w = _rand(rng, (8, c_in, c_out), cuda, dtype) / np.sqrt(8 * c_in)
+    xf, xc = _rand(rng, (v_fine, c_in), cuda, dtype), _rand(rng, (v_coarse, c_in), cuda, dtype)
+    gf, gc = _rand(rng, (v_fine, c_out), cuda, dtype), _rand(rng, (v_coarse, c_out), cuda, dtype)
+    tc_ = "_wgmma" if dtype == torch.bfloat16 else "_tf32"
+    _build.reset_launches()
+    down = _twice_same(lambda: tst.downsample_conv_apply(xf, w, tab))
+    up = _twice_same(lambda: tst.upsample_conv_apply(xc, w, tab))
+    _close(down, tst.downsample_conv_slot_plain(xf, w, child), tst.downsample_conv_slot_plain(xf.abs(), w.abs(), child), dtype, 1e-5)
+    _close(up, tst.upsample_conv_plain(xc, w, tab), tst.upsample_conv_plain(xc.abs(), w.abs(), tab), dtype, 1e-5)
+    for x, y, is_up in ((xf, gc, False), (xc, gf, True)):
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, is_up))
+        assert got.shape == (8, c_in, c_out) and got.is_contiguous()
+        _close(got, tst.strided_dw_plain(x, y, tab, is_up), tst.strided_dw_plain(x.abs(), y.abs(), tab, is_up), torch.float32, 1e-4)
+    L = _build.LAUNCHES
+    assert (L["strided_down"], L["strided_down" + tc_], L["strided_up"], L["strided_up" + tc_]) == (2, 2, 2, 2)
+    assert (L["strided_dw"], L["strided_dw" + tc_]) == (4, 4)
+
+
+@pytest.mark.parametrize("kind", ["head27", "down8"])
+@pytest.mark.parametrize("c_in,c_out", [(128, 23), (5, 32), (3, 51)])
+def test_cr16_k_offsets_padded_tf32(cuda, kind, c_in, c_out):
+    """K2 and K4 at K offsets in f32 at ragged widths (Waymo Cylinder's
+    128 -> 23 head, TIAF's 5-wide stem, a 3-wide one) on 3xTF32 at widths
+    padded to multiples of 4: within 1e-5 / 1e-4 of their plain versions,
+    the same bits on repeat, no CUDA-core launch."""
+    rng = np.random.default_rng(c_in + c_out)
+    rb, rb_bwd, v_in = _k_tables(cuda, kind)
+    x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+    w = _rand(rng, (rb.shape[0], c_in, c_out), cuda, torch.float32)
+    g = _rand(rng, (rb.shape[1], c_out), cuda, torch.float32)
+    _build.reset_launches()
+    got = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+    dw = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd))
+    L = _build.LAUNCHES
+    assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_dw"], L["sparse_conv_dw_tf32"]) == (2, 2, 2, 2)
+    assert got.shape == (rb.shape[1], c_out) and dw.shape == (rb.shape[0], c_in, c_out)
+    _close(got, tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+    _close(dw, tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cr16_gradients_through_the_padded_functions(cuda, dtype):
+    """The autograd Functions at ragged widths, where each pads its input
+    once and saves it so, and its backward pads the cotangent once for the
+    input and the weight gradient: the 3^3 conv 51 -> 23 (K3Conv in bf16,
+    SparseConvK at K = 27 in f32) and the strided pair 51 -> 102 both
+    ways; output, d_feats and d_W at their logical widths against the
+    plain versions on the same tensors (the convs within 1e-5 of the
+    largest sum of |terms|, d_W within 1e-4; bf16 plus one rounding)."""
+    rng, u, num, b = _level(cuda, seed=51)
+    rb = tr.build_rulebook_k3(u, num, 1, b)
+    rb_bwd = tsc.flip_rulebook(rb)
+    _, v_fine, tab, _ = _down_case(cuda, "path")
+    v_coarse = tab.starts.shape[0] - 1
+    child = tst.slot_child_table(tab, rounds=1)
+    tab = replace(tab, child=child, child_order=tsc.mask_row_order(child[0]),
+                  up=tst.slot_up_table(tab), pairs=tst.slot_pair_lists(tab))
+
+    def k3(x, w, g):
+        return (tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(g, w.transpose(1, 2).contiguous(), rb_bwd),
+                tf3.k3_conv_dw_plain(x, g, rb_bwd))
+
+    def down(x, w, g):
+        return (tst.downsample_conv_slot_plain(x, w, child), tst.upsample_conv_plain(g, w.transpose(1, 2).contiguous(), tab),
+                tst.strided_dw_plain(x, g, tab, False))
+
+    def up(x, w, g):
+        return (tst.upsample_conv_plain(x, w, tab), tst.downsample_conv_slot_plain(g, w.transpose(1, 2).contiguous(), child),
+                tst.strided_dw_plain(x, g, tab, True))
+
+    cases = (
+        (lambda x, w: tsc.k3_conv(x, w, rb, rb_bwd), k3, u.shape[0], u.shape[0], 27, 51, 23),
+        (lambda x, w: tst.downsample_conv(x, w, tab), down, v_fine, v_coarse, 8, 51, 102),
+        (lambda x, w: tst.upsample_conv(x, w, tab), up, v_coarse, v_fine, 8, 51, 102),
+    )
+    for conv, plain, v_in, v_out, k, c_in, c_out in cases:
+        x = _rand(rng, (v_in, c_in), cuda, dtype).requires_grad_()
+        w = (_rand(rng, (k, c_in, c_out), cuda, dtype) / np.sqrt(k * c_in)).requires_grad_()
+        g = _rand(rng, (v_out, c_out), cuda, dtype)
+        _build.reset_launches()
+        out = conv(x, w)
+        out.backward(g)
+        L = _build.LAUNCHES
+        bases = ("sparse_conv_k3", "sparse_conv_k", "strided_down", "strided_up", "k3_conv_dw", "sparse_conv_dw",
+                 "strided_dw")
+        assert all(L[n] == L.get(n + "_wgmma", 0) + L.get(n + "_tf32", 0) for n in bases), dict(L)  # no CUDA core
+        assert L["k3_conv_dw" if dtype == torch.bfloat16 else "sparse_conv_dw"] + L["strided_dw"] == 1
+        with torch.no_grad():
+            want = plain(x, w, g)
+            ref = plain(x.abs(), w.abs(), g.abs())
+        for got, shape, wt, rl, rf, dt in zip(
+            (out.detach(), x.grad, w.grad), ((v_out, c_out), (v_in, c_in), (k, c_in, c_out)),
+            want, (1e-5, 1e-5, 1e-4), ref, (dtype, dtype, dtype),
+        ):
+            assert got.shape == shape and got.is_contiguous() and got.dtype == dtype
+            _close(got, wt, rf, dt, rl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [409, 204, 153])
+def test_cr16_point_widths_k6_k7_k8(cuda, dtype, c):
+    """SPVCNN cr 1.6's point widths: K6 (the re-voxelize and the devox
+    backward, on a copy padded to 16-byte pieces at 409) within 1e-5 of its plain version
+    in f64, K7 (the trilinear devoxelize) and K8 (the voxelize mean's
+    gradient) bit-identical to theirs."""
+    rng, u, num, tab = _trilinear(cuda)
+    p = u.shape[0]
+    ids = torch.from_numpy(rng.integers(-1, 700, p).astype(np.int32)).to(cuda)
+    seg = tvx.build_segment_tables(ids, 1024)
+    src = _rand(rng, (p, c), cuda, dtype)
+    for tables, wt in ((seg, None), (tab.pairs, tab.weights.reshape(-1))):
+        got = _twice_same(lambda: tvx.segment_sum(src, tables, wt))
+        want = tvx.segment_sum_plain(src.double(), tables, None if wt is None else wt.double())
+        ref = tvx.segment_sum_plain(src.double().abs(), tables, None if wt is None else wt.double().abs())
+        _close(got, want, ref, torch.float32, 1e-5)
+    vox, tri, _ = _devox_case(cuda, dtype, c, False)
+    assert torch.equal(_bits(tvx.devoxelize_trilinear(vox, tri)), _bits(tvx._devox_trilinear(vox, tri)))
+    g, inv, t = _voxelize_bwd_case(cuda, dtype, c, False)
+    assert torch.equal(_bits(tvx.voxelize_bwd(g, inv, t.counts)), _bits(tvx._voxelize_bwd_plain(g, inv, t.counts)))
+
+
+@pytest.mark.parametrize("name", ["minkunet", "spvcnn"])
+def test_cr16_narrow_scan_card_equals_cpu(cuda, name):
+    """A narrow cr 1.6 MinkUNet and SPVCNN (`torch_cr16_narrow`: widths
+    12 ... 102, none a multiple of 8) on one synthetic scan through
+    `Segmenter.predict`, f32 on the card against the CPU: logits within
+    1e-3 of their scale; every 3^3 conv on K2 at K (3xTF32), none on K2
+    at 27; in bf16 every K2 at 27 on wgmma."""
+    from torch_cr16_narrow import CR16_RECIPES, narrow_cr16
+
+    from taseg_tpu_torch.data.synthetic import synthetic_scan
+    from taseg_tpu_torch.engine import Segmenter
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    path = CR16_RECIPES[0 if name == "minkunet" else 3]
+    cfg = narrow_cr16(path, CAPACITY_SCHEDULE=(1.0,) * 5)
+    pts, labels = synthetic_scan(np.random.default_rng(9), 4000)
+    scan = {"xyzret": np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1), "labels": labels}
+    p, s = init_params_numpy(cfg, seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_launches()
+        out[dev] = Segmenter(cfg, {"params": p, "batch_stats": s}, dev, compute_dtype="float32",
+                             point_capacity=4096).predict([scan])[0]["logits"]
+        if dev == "cuda":
+            assert _build.LAUNCHES["sparse_conv_k3"] == 0
+            assert _build.LAUNCHES["sparse_conv_k"] == _build.LAUNCHES["sparse_conv_k_tf32"] == 18
+    scale = max(1.0, float(np.abs(out["cpu"]).max()))
+    assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-3 * scale
+    _build.reset_launches()
+    Segmenter(cfg, {"params": p, "batch_stats": s}, "cuda", compute_dtype="bfloat16",
+              point_capacity=4096).predict([scan])
+    assert _build.LAUNCHES["sparse_conv_k3"] == _build.LAUNCHES["sparse_conv_k3_wgmma"] == 18

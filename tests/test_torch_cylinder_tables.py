@@ -264,19 +264,16 @@ def test_3xtf32_emulation_holds_the_f32_tolerance(c_in, c_out):
 
 
 def test_k_route():
-    """f32 at cy480's widths: the 3xTF32 route; bf16 the wgmma tile
-    where both widths are multiples of 8 (not the head's 20 classes);
-    ragged widths the CUDA-core kernel in both; the split rule of K2's
-    3xTF32 route at cy480's level capacities."""
-    for a, b in CY480:
+    """f32 at cy480's widths: the 3xTF32 route; bf16 the wgmma tile; a
+    ragged width (the 20- and 23-class heads, odd widths) the same
+    routes, padded to a multiple of 4 (f32) or 8 (bf16); the split rule
+    of K2's 3xTF32 route at cy480's level capacities."""
+    for a, b in CY480 + [(128, 20), (128, 23), (37, 20), (16, 30), (6, 32)]:
         assert tsc.k_route(torch.float32, a, b) == "tf32x3"
-        want = "wgmma" if a % 8 == 0 and b % 8 == 0 else "simt"
-        assert tsc.k_route(torch.bfloat16, a, b) == want
-    assert tsc.k_route(torch.bfloat16, 128, 20) == "simt"
-    for a, b in ((37, 20), (16, 30), (6, 32)):
-        assert tsc.k_route(torch.float32, a, b) == "simt"
-        assert tsc.k_route(torch.bfloat16, a, b) == "simt"
-    # the 27-offset conv's own rule is unchanged: f32 stays on CUDA cores
+        assert tsc.k_route(torch.bfloat16, a, b) == "wgmma"
+    assert [tsc.padded_width(torch.float32, c) for c in (20, 23, 37)] == [20, 24, 40]
+    assert [tsc.padded_width(torch.bfloat16, c) for c in (20, 23, 37)] == [24, 24, 40]
+    # the 27-offset conv's own rule: a direct f32 call stays on CUDA cores
     assert tsc.route(torch.float32, 128, 128) == "simt"
     # K2's chains are cut on cy480's coarse levels (capacities 28928,
     # 12032, 4608), not on levels 0 and 1 (131072, 78848)

@@ -242,13 +242,17 @@ def test_routes_hand_their_launch_the_split_and_order(recorded, topos):
     tsc.sparse_conv_k3(x, torch.ones(27, 64, 128, dtype=torch.bfloat16), lt.rb_k3, order=lt.k3_order)
     tsc.sparse_conv_k3(x.float(), torch.ones(27, 64, 128), lt.rb_k3)
     x4 = torch.ones(v, 4, dtype=torch.bfloat16)
-    tsc.sparse_conv_k3(x4, torch.ones(27, 4, 32, dtype=torch.bfloat16), lt.rb_k3)
+    out4 = tsc.sparse_conv_k3(x4, torch.ones(27, 4, 51, dtype=torch.bfloat16), lt.rb_k3)
     name, counters, a = recorded[0]
     assert (name, counters) == ("taseg_sparse_conv_wgmma", ("sparse_conv_k3", "sparse_conv_k3_wgmma"))
     assert a[3] == lt.k3_order.data_ptr()  # the topology's order, not a new one
-    assert a[-5:] == (v, 64, 128, 27, tsc.wgmma_splits(v, 27, 64))
-    assert recorded[1][:2] == ("taseg_sparse_conv_k3", ("sparse_conv_k3",))
-    assert recorded[2][:2] == ("taseg_sparse_conv_k3", ("sparse_conv_k3",))
+    assert a[-6:] == (v, 64, 128, 27, tsc.wgmma_splits(v, 27, 64), 128)  # ..., splits, output columns
+    assert recorded[1][:2] == ("taseg_sparse_conv_k3", ("sparse_conv_k3",))  # a direct f32 call
+    # a 4 -> 51 conv on the same tile at C_in padded to 8 and C_out to
+    # 56, writing its 51 output columns
+    assert recorded[2][:2] == ("taseg_sparse_conv_wgmma", ("sparse_conv_k3", "sparse_conv_k3_wgmma"))
+    assert recorded[2][2][-6:] == (v, 8, 56, 27, tsc.wgmma_splits(v, 27, 8), 51)
+    assert out4.shape == (v, 51) and out4.is_contiguous()
 
     s = lt.strided
     fine = s.parent.shape[0]
@@ -263,8 +267,8 @@ def test_routes_hand_their_launch_the_split_and_order(recorded, topos):
         "strided_down", "strided_down_dgrad", "strided_down_tf32", "strided_down_dgrad_tf32"))
     v_coarse = s.starts.shape[0] - 1
     assert a0[2] == s.child.data_ptr() and a0[3] == s.child_order.data_ptr()
-    assert a0[-5:] == (v_coarse, 32, 32, 8, tsc.wgmma_splits(v_coarse, 8, 32))
-    assert a1[-5:] == (v_coarse, 32, 32, 8, tst.k3_tf32_splits(v_coarse, 32)) == (v_coarse, 32, 32, 8, 1)
+    assert a0[-6:] == (v_coarse, 32, 32, 8, tsc.wgmma_splits(v_coarse, 8, 32), 32)
+    assert a1[-6:] == (v_coarse, 32, 32, 8, tst.k3_tf32_splits(v_coarse, 32), 32) == (v_coarse, 32, 32, 8, 1, 32)
 
     recorded.clear()
     two = tst.StridedTables(s.parent, s.slot, s.perm, s.starts, child=torch.cat([s.child, s.child]))
@@ -273,30 +277,32 @@ def test_routes_hand_their_launch_the_split_and_order(recorded, topos):
     assert [r[:2] for r in recorded] == [
         ("taseg_strided_down_mma", ("strided_down", "strided_down_rounds")),
         ("taseg_strided_down", ("strided_down", "strided_down_rounds")),
-        ("taseg_strided_down", ("strided_down", "strided_down_rounds")),
+        ("taseg_strided_down_mma", ("strided_down", "strided_down_rounds")),
     ]
+    assert recorded[2][2][-3:] == (v_coarse, 16, 16)  # 12 channels padded to 16
 
 
 def test_up_routes_hand_their_launch_the_table_and_order(recorded, topos):
     """K3-up and its input-gradient use: bf16 widths in 8s on K2's wgmma
     tile over the level's up table and order (its own C entry), f32
-    widths in 4s on K2 at K's 3xTF32 tile over the same, ragged widths
-    on K3-up's CUDA-core kernel; a table without the topology's up table
+    widths in 4s on K2 at K's 3xTF32 tile over the same, ragged bf16
+    widths on the wgmma tile, padded to a multiple of 8; a table without the topology's up table
     gets one built (no order: the launch builds it)."""
     s = topos[0].levels[3].strided
     fine, v_coarse = s.parent.shape[0], s.starts.shape[0] - 1
     for dt, c in ((torch.bfloat16, 64), (torch.float32, 64), (torch.bfloat16, 12)):
         tst.upsample_conv_apply(torch.ones(v_coarse, c, dtype=dt), torch.ones(8, c, 32, dtype=dt), s, dgrad=True)
-    (n0, c0, a0), (n1, c1, a1), (n2, c2, _) = recorded
+    (n0, c0, a0), (n1, c1, a1), (n2, c2, a2) = recorded
     assert (n0, c0) == ("taseg_strided_up_wgmma", (
         "strided_up", "strided_up_dgrad", "strided_up_wgmma", "strided_up_dgrad_wgmma"))
     assert (n1, c1) == ("taseg_sparse_conv_k_tf32", (
         "strided_up", "strided_up_dgrad", "strided_up_tf32", "strided_up_dgrad_tf32"))
-    assert (n2, c2) == ("taseg_strided_up", ("strided_up", "strided_up_dgrad"))
-    for a in (a0, a1):
+    assert (n2, c2) == (n0, c0)
+    assert a2[-6:] == (fine, 16, 32, 8, tsc.wgmma_splits(fine, 8, 16), 32)  # 12 channels padded to 16
+    for a in (a0, a1, a2):
         assert a[2] == s.up.data_ptr() and a[3] == s.up_order.data_ptr()
-    assert a0[-5:] == (fine, 64, 32, 8, tsc.wgmma_splits(fine, 8, 64))
-    assert a1[-5:] == (fine, 64, 32, 8, tst.k3_tf32_splits(fine, 64))
+    assert a0[-6:] == (fine, 64, 32, 8, tsc.wgmma_splits(fine, 8, 64), 32)
+    assert a1[-6:] == (fine, 64, 32, 8, tst.k3_tf32_splits(fine, 64), 32)
     recorded.clear()
     bare = tst.StridedTables(s.parent, s.slot, s.perm, s.starts)
     tst.upsample_conv_apply(torch.ones(v_coarse, 64, dtype=torch.bfloat16),

@@ -1,16 +1,23 @@
 """Which kernel each conv of the main path takes on the card, decided on the
 CPU from the modules' widths: K2 (`sparse_conv.route`) and K3-down
 (`strided_conv.downsample_route`, over a one-round child table) take the
-Hopper wgmma tile ("wgmma") in bf16 where C_in and C_out are multiples of
-8, and so does K3-up (`strided_conv.upsample_route`, over the level's up
-table); K4 and K5, the weight gradients of the k3 conv and of the strided
-pair (`f3conv.dw_route`), take the wgmma tile over pair lists there; K5
-takes 3xTF32 ("tf32x3") in f32 with widths in 4s, as K3-down and K3-up
-take K2 at K's 3xTF32 tile in f32; the rest the CUDA-core route
-("simt").  K4's and K5's split rules and their pieces are checked against
-a numpy model here, and the TF32 switch of the entry points' device
-resolution; ~5 s for the file.
+Hopper wgmma tile ("wgmma") in bf16 at every width, each padded to a
+multiple of 8 (`sparse_conv.padded_width`), and so does K3-up
+(`strided_conv.upsample_route`, over the level's up table); K4 and K5,
+the weight gradients of the k3 conv and of the strided pair
+(`f3conv.dw_route`), take the wgmma tile over pair lists there; K5 takes
+3xTF32 ("tf32x3") in f32 at widths padded to multiples of 4, as K3-down
+and K3-up take K2 at K's 3xTF32 tile in f32; only a direct f32 call of
+K2 or K4 at 27 offsets (the models send f32 to K2 and K4 at K) and
+K3-down's f32 round kernel stay on CUDA cores ("simt").  K4's and K5's
+split rules and their pieces are checked against a numpy model here, K6's
+plan at SPVCNN cr 1.6's widths (409 channels on a padded copy), the
+padded inputs and served weights that the wrappers take as they are, and
+the TF32 switch of the entry points' device resolution; ~5 s for the
+file.
 MinkUNet mk34 cr1.0 at full width; nothing runs on a card here."""
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -37,23 +44,23 @@ def convs():
 
 
 def test_k2_routes_in_bf16(convs):
-    """Every 27-point conv but the stem's first (C_in = 4) is on tensor
-    cores: 47 of the 48 K2 launches of a scan."""
+    """Every 27-point conv is on tensor cores, the stem's first (C_in =
+    4) at C_in padded to 8: 48 of the 48 K2 launches of a scan."""
     k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
     routes = {n: tsc.route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
     assert len(k3) == 48
-    assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
-    assert sum(r == "wgmma" for r in routes.values()) == 47
+    assert set(routes.values()) == {"wgmma"}
+    stem = k3["stem_0.SparseConv_0"]
+    assert (stem.in_channels, tsc.padded_width(torch.bfloat16, stem.in_channels)) == (4, 8)
 
 
 def test_k4_routes_in_bf16(convs):
-    """The train step's d_W of every 27-point conv but the stem's first
-    (C_in = 4) is on tensor cores: 47 of the 48 K4 launches of a step, on
-    the wgmma tile over the offset lists."""
+    """The train step's d_W of every 27-point conv is on tensor cores,
+    the stem's first (4 -> 32) at C_in padded to 8: 48 of the 48 K4
+    launches of a step, on the wgmma tile over the offset lists."""
     k3 = {n: m for n, m in convs.items() if m.kernel_volume == 27}
     routes = {n: tf3.dw_route(torch.bfloat16, m.in_channels, m.out_channels) for n, m in k3.items()}
-    assert [n for n, r in routes.items() if r == "simt"] == ["stem_0.SparseConv_0"]
-    assert sum(r == "wgmma" for r in routes.values()) == 47
+    assert len(routes) == 48 and set(routes.values()) == {"wgmma"}
 
 
 def test_k5_routes_in_bf16(convs):
@@ -70,14 +77,16 @@ def test_k5_routes_in_bf16(convs):
 
 def test_k5_routes_in_f32(convs):
     """In f32 (TIAF's step, whose branches are MinkUNets of these widths)
-    every K5 call takes the 3xTF32 tile over the slot lists; a ragged
-    width keeps the CUDA-core kernel."""
+    every K5 call takes the 3xTF32 tile over the slot lists; so does a
+    ragged width, padded to a multiple of 4; a dtype without a kernel
+    gets none."""
     strided = [m for m in convs.values() if m.kernel_volume == 8]
     assert len(strided) == 8
     for m in strided:
         assert tf3.dw_route(torch.float32, m.in_channels, m.out_channels, strided=True) == "tf32x3"
-    assert tf3.dw_route(torch.float32, 5, 32, strided=True) == "simt"
-    assert tf3.dw_route(torch.float32, 32, 6, strided=True) == "simt"
+    assert tf3.dw_route(torch.float32, 5, 32, strided=True) == "tf32x3"
+    assert tf3.dw_route(torch.float32, 32, 6, strided=True) == "tf32x3"
+    assert [tsc.padded_width(torch.float32, c) for c in (5, 6, 32)] == [8, 8, 32]
     assert tf3.dw_route(torch.float16, 32, 32, strided=True) == "simt"
 
 
@@ -136,25 +145,52 @@ def test_f32_routes_stay_on_cuda_cores(convs):
 
 
 @pytest.mark.parametrize(
-    "c_in,c_out,want",
+    "c_in,c_out",
     [
-        (4, 32, "simt"), (37, 70, "simt"), (64, 20, "simt"), (12, 8, "simt"),
-        (8, 8, "wgmma"), (32, 32, "wgmma"), (40, 24, "wgmma"), (384, 256, "wgmma"),
+        (4, 32), (37, 70), (64, 20), (12, 8), (8, 8), (32, 32), (40, 24), (384, 256),
+        # MinkUNet / SPVCNN cr 1.6 (int(1.6 x PLANES): 51, 102, 204, 409,
+        # 153; the decoder's concatenations 613 and 306), Waymo Cylinder's
+        # 23-class head, the 4-wide stem
+        (51, 51), (102, 102), (409, 409), (613, 409), (306, 204), (128, 23), (4, 51),
     ],
 )
-def test_ragged_widths_take_the_simt_route(c_in, c_out, want):
-    """`want` is the bf16 route of K2, K3 both ways, K4 and K5: the wgmma
-    tiles at widths in 8s."""
-    assert tsc.route(torch.bfloat16, c_in, c_out) == want
-    assert tst.upsample_route(torch.bfloat16, c_in, c_out) == want
-    assert tst.downsample_route(torch.bfloat16, c_in, c_out) == want
-    assert tst.downsample_route(torch.bfloat16, c_in, c_out, 3) == "rounds"
-    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == want
-    assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"
-    assert tf3.dw_route(torch.bfloat16, c_in, c_out, strided=True) == want
-    f32 = "tf32x3" if c_in % 4 == 0 and c_out % 4 == 0 else "simt"
-    assert tf3.dw_route(torch.float32, c_in, c_out, strided=True) == f32
-    assert tst.upsample_route(torch.float32, c_in, c_out) == f32
+def test_ragged_widths_take_the_tensor_core_routes(c_in, c_out):
+    """Every width takes the tensor-core routes of K2, K3 both ways, K4
+    and K5, at widths padded to whole 16-byte pieces: multiples of 8 in
+    bf16 (the wgmma tiles), of 4 in f32 (the 3xTF32 tiles; K2 and K4 at
+    K, `k_route`, serve the f32 3^3 convs); a child table of several
+    rounds takes K3-down's round kernels."""
+    for dtype, tc, q in ((torch.bfloat16, "wgmma", 8), (torch.float32, "tf32x3", 4)):
+        for c in (c_in, c_out):
+            p = tsc.padded_width(dtype, c)
+            assert p % q == 0 and c <= p < c + q
+        assert tsc.k_route(dtype, c_in, c_out) == tc
+        assert tst.upsample_route(dtype, c_in, c_out) == tc
+        assert tst.downsample_route(dtype, c_in, c_out) == tc
+        assert tst.downsample_route(dtype, c_in, c_out, 3) == "rounds"
+        assert tf3.dw_route(dtype, c_in, c_out, strided=True) == tc
+    assert tsc.route(torch.bfloat16, c_in, c_out) == "wgmma"
+    assert tf3.dw_route(torch.bfloat16, c_in, c_out) == "wgmma"
+    assert tf3.dw_route(torch.float32, c_in, c_out) == "simt"  # f32 d_W takes K4 at K
+
+
+@pytest.mark.parametrize("esz", [4, 2])
+def test_k6_plan_takes_spvcnn_cr16_widths(esz):
+    """K6 takes SPVCNN cr 1.6's re-voxelize and devoxelize-backward
+    widths (409, 204, 153) in f32 and bf16: 409 f32 channels in 16
+    pieces of 4 bytes a lane of 32 lanes; 409 bf16 channels, which would
+    need 16 pieces of 2 bytes, on a copy padded to 416 columns (2 pieces
+    of 16 bytes); 204 and 153 at their own widths; rows of more than 4096
+    bytes are too wide."""
+    for c in (409, 204, 153):
+        p = tvx.segment_sum_plan(c, esz)
+        cols = tvx.segment_sum_cols(c, esz)
+        assert p.lanes * p.pieces * (p.vw // esz) >= cols >= c and p.pieces <= 16
+        assert cols == (416 if (c, esz) == (409, 2) else c)
+    want = (4, 32, 16, 64) if esz == 4 else (16, 32, 2, 64)
+    assert tvx.segment_sum_plan(409, esz) == tvx.SegmentSumPlan(*want)
+    with pytest.raises(ValueError, match="wider than K6 takes"):
+        tvx.segment_sum_plan(4096 // esz + 1, esz)
 
 
 @pytest.mark.parametrize(
@@ -373,8 +409,8 @@ def test_k4_launches_once_per_call(monkeypatch):
     `k3_conv_dw` and `k3_conv_dw_wgmma`, with the plan's tile and pieces,
     the partial buffer and the counters (the pairs per split follow the
     lists' lengths on the device); with every list in one piece, neither.
-    The stem's 4 -> 32 stays on the CUDA-core kernel.  (The launch is
-    recorded, not made.)"""
+    The stem's 4 -> 32 takes the same tile at C_in padded to 8.  (The
+    launch is recorded, not made.)"""
     calls = []
     monkeypatch.setattr(_build, "dispatch", lambda t: True)
     monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
@@ -388,7 +424,8 @@ def test_k4_launches_once_per_call(monkeypatch):
     tf3.k3_conv_dw_wgmma(x, g, lists, tf3.k4_one_split(v, 384, 256))
     tf3.k3_conv_dw(torch.ones(v, 4, dtype=torch.bfloat16), torch.ones(v, 32, dtype=torch.bfloat16), rb)
     wg = ("k3_conv_dw", "k3_conv_dw_wgmma")
-    assert [c[:2] for c in calls] == [("taseg_k3_conv_dw_wgmma", wg)] * 2 + [("taseg_k3_conv_dw", ("k3_conv_dw",))]
+    assert [c[:2] for c in calls] == [("taseg_k3_conv_dw_wgmma", wg)] * 3
+    assert calls[2][2][7:9] == (8, 32)
     p = tf3.k4_plan(v, 384, 256)
     plan, one = calls[0][2], calls[1][2]  # (..., part, cnt, c_in, c_out, cw, bn, pieces, per_min, target)
     pieces = tf3.k4_pieces(v, p.target, 256)
@@ -519,3 +556,180 @@ def test_tensor_core_route_rejects_misaligned_rows():
     _build.check_aligned(feats=base[:64].view(8, 8))
     with pytest.raises(ValueError, match="feats: data not 16-byte aligned"):
         _build.check_aligned(feats=base[1:65].view(8, 8))
+
+
+def test_served_weight_is_cast_and_padded_once():
+    """A served conv (no autograd recording) casts its kernel once and the
+    padded copy of that cast is made once, both kept while the kernel's
+    version holds; a train call casts and pads anew; an in-place change
+    of the kernel (an optimizer step) drops both.  In f32 the served
+    weight is the kernel itself, detached."""
+    torch.manual_seed(0)
+    conv = SparseConv(51, 23, 27)
+    torch.nn.init.normal_(conv.kernel)
+    with torch.no_grad():
+        w = conv.kernel_as(torch.bfloat16)
+        assert conv.kernel_as(torch.bfloat16) is w and not w.requires_grad
+        assert conv.kernel_as(torch.float32).data_ptr() == conv.kernel.data_ptr()
+    p = tsc.pad_weight(w, 56, 24)
+    assert tsc.pad_weight(w, 56, 24) is p and p.shape == (27, 56, 24) and p.is_contiguous()
+    assert torch.equal(p[:, :51, :23], w) and not p[:, 51:].any() and not p[:, :, 23:].any()
+    trained = conv.kernel_as(torch.bfloat16)
+    assert trained is not w and trained.requires_grad
+    assert tsc.pad_weight(trained, 56, 24) is not tsc.pad_weight(trained, 56, 24)
+    with torch.no_grad():
+        conv.kernel.add_(1.0)
+        w2 = conv.kernel_as(torch.bfloat16)
+    assert w2 is not w and torch.equal(w2, conv.kernel.detach().bfloat16())
+    w.add_(1.0)  # a change of the cast itself: its padded copy is made again
+    assert torch.equal(tsc.pad_weight(w, 56, 24)[:, :51, :23], w)
+
+
+@pytest.mark.parametrize("dtype,ci,co", [(torch.bfloat16, 56, 24), (torch.float32, 52, 24)])
+def test_wrappers_take_padded_inputs_as_they_are(monkeypatch, dtype, ci, co):
+    """K2 at 27 and at K take an input zero-padded to the route's width
+    (as the autograd Functions save it) without copying it again, pad a
+    logical input once, hand the kernel the padded weight (the same copy
+    on every call for a served weight) and return the logical output
+    columns; an input of any other width is refused.  (The launches are
+    recorded, not made.)"""
+    calls = []
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
+    monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, a)))
+    v = 300
+    rb = _k4_rulebook("random", v, np.random.default_rng(1))
+    w = torch.ones(27, 51, 23, dtype=dtype)
+    x = torch.ones(v, 51, dtype=dtype)
+    xp = tsc.pad_cols(x, ci)
+    call = tsc.sparse_conv_k3 if dtype == torch.bfloat16 else tsc.sparse_conv
+    for feats in (xp, x, xp):
+        out = call(feats, w, rb)
+        assert out.shape == (v, 23) and out.is_contiguous()
+    (_, a0), (_, a1), (_, a2) = calls
+    assert a0[0] == xp.data_ptr() == a2[0] and a1[0] != x.data_ptr()
+    assert a0[1] == a1[1] == a2[1] != w.data_ptr()  # one padded copy of the weight
+    assert a0[-5:-3] == (ci, co) and a0[-1] == 23
+    with pytest.raises(ValueError, match="do not fit"):
+        call(tsc.pad_cols(x, ci + 8), w, rb)
+
+
+def test_k6_pads_rows_that_need_16_pieces(monkeypatch):
+    """K6 runs 409 bf16 channels (16 pieces of 2 bytes a lane at their own
+    width) on a copy padded to 416 columns, 2 pieces of 16 bytes a lane,
+    and returns the 409 logical columns; 153 channels (8 pieces of 2
+    bytes) run as they are, and so do 409 f32 channels (16 pieces of 4
+    bytes).  (The launches are recorded, not made.)"""
+    calls = []
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    monkeypatch.setattr(_build, "zeroed_counters", lambda dev, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, a)))
+    ids = torch.from_numpy(np.random.default_rng(2).integers(-1, 50, 400).astype(np.int32))
+    tables = tvx.build_segment_tables(ids, 64)
+    for c in (409, 153):
+        src = torch.ones(400, c, dtype=torch.bfloat16)
+        out = tvx.segment_sum(src, tables)
+        assert out.shape == (64, c) and out.is_contiguous() and out.dtype == torch.float32
+        a = calls[-1][1]
+        assert (a[0] == src.data_ptr()) == (c == 153)
+        # (..., v, cols, r_real, p, n, dtype, vw, lanes, pieces, unit, rows)
+        assert a[7:9] == (64, 416 if c == 409 else 153) and a[13:16] == ((16, 32, 2) if c == 409 else (2, 32, 8))
+    src = torch.ones(400, 409)
+    assert tvx.segment_sum(src, tables).shape == (64, 409)
+    assert calls[-1][1][0] == src.data_ptr() and calls[-1][1][8] == 409 and calls[-1][1][13:16] == (4, 32, 16)
+
+
+def _cpu_level(seed: int):
+    """A level of ~1500 voxels with its 3^3 rulebook and one strided
+    level pair (a one-round child table, the up table and the slot pair
+    lists), on the CPU."""
+    from taseg_tpu_torch.ops import coords as tc
+    from taseg_tpu_torch.ops import join as tj
+    from taseg_tpu_torch.ops import rulebook as tr
+
+    rng = np.random.default_rng(seed)
+    coords = np.concatenate([rng.integers(0, 16, size=(2000, 3)), rng.integers(0, 2, size=(2000, 1))], 1)
+    c = torch.from_numpy(coords.astype(np.int32))
+    valid = torch.ones(len(c), dtype=torch.bool)
+    b = tc.compute_bounds(c, valid)
+    u, num, _, _ = tj.unique_coords(c, valid, b, 4096)
+    rb = tr.build_rulebook_k3(u, num, 1, b)
+    _, _, par, cnt, perm = tr.spdownsample(u, num, 2, 1, b, 2048, return_inverse=True)
+    tab = tst.build_strided_tables(u, num, par, cnt, perm, 1)
+    child = tst.slot_child_table(tab, rounds=1)
+    tab = replace(tab, child=child, child_order=tsc.mask_row_order(child[0]), up=tst.slot_up_table(tab),
+                  pairs=tst.slot_pair_lists(tab))
+    return rng, rb, tab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_functions_pad_once_and_return_logical_gradients(monkeypatch, dtype):
+    """The autograd Functions at ragged widths on the tensor-core routes,
+    with each kernel emulated by its plain version at the padded widths
+    it is handed: the 3^3 conv 51 -> 23 (K3Conv in bf16, SparseConvK at
+    K = 27 in f32) and the strided pair 51 -> 102 both ways give the
+    logical output, d_feats and d_W (contiguous, in the operands' dtype)
+    of the plain versions; every kernel sees 16-byte widths, and the
+    forward's input and the cotangent are each padded once for the two
+    kernels that read them."""
+    rng, rb, tab = _cpu_level(3)
+    rb_bwd = tsc.flip_rulebook(rb)
+    seen = []
+
+    def conv_tile(x, w, table, order, out, counters, **kw):
+        seen.append(("conv", x.data_ptr(), x.shape[1], w.shape[1:]))
+        out.copy_(tsc.sparse_conv_plain(x, w, table)[:, : out.shape[1]])
+
+    def dw(x, g, lists, *a):
+        seen.append(("dw", x.data_ptr(), x.shape[1], g.shape[1]))
+        return tf3.k3_conv_dw_plain(x.float(), g.float(), lists)
+
+    def strided_dw_tile(x, y, pairs, v_fine, up, route):
+        seen.append(("dw", x.data_ptr(), x.shape[1], y.shape[1]))
+        return tst.strided_dw_plain(x.float(), y.float(), tab, up)
+
+    monkeypatch.setattr(_build, "dispatch", lambda t: True)
+    for mod in (tsc, tst):
+        monkeypatch.setattr(mod, "launch_wgmma", conv_tile)
+        monkeypatch.setattr(mod, "launch_k_tf32", conv_tile)
+    monkeypatch.setattr(tf3, "k3_pair_lists", lambda t: t)
+    monkeypatch.setattr(tf3, "pair_lists", lambda t: t)
+    monkeypatch.setattr(tf3, "k3_conv_dw_wgmma", dw)
+    monkeypatch.setattr(tf3, "launch_dw_mma", lambda name, counter, x, g, lists, *a: dw(x, g, lists))
+    monkeypatch.setattr(tst, "_strided_dw_lists", strided_dw_tile)
+
+    def k3(x, w, g):
+        return (tsc.sparse_conv_plain(x, w, rb), tsc.sparse_conv_plain(g, w.transpose(1, 2), rb_bwd),
+                tf3.k3_conv_dw_plain(x, g, rb_bwd))
+
+    def down(x, w, g):
+        return (tst.downsample_conv_slot_plain(x, w, tab.child), tst.upsample_conv_plain(g, w.transpose(1, 2), tab),
+                tst.strided_dw_plain(x, g, tab, False))
+
+    def up(x, w, g):
+        return (tst.upsample_conv_plain(x, w, tab), tst.downsample_conv_slot_plain(g, w.transpose(1, 2), tab.child),
+                tst.strided_dw_plain(x, g, tab, True))
+
+    v, v_fine, v_coarse = rb.shape[1], tab.parent.shape[0], tab.starts.shape[0] - 1
+    for conv, plain, v_in, v_out, k, c_out in (
+        (lambda x, w: tsc.k3_conv(x, w, rb, rb_bwd), k3, v, v, 27, 23),
+        (lambda x, w: tst.downsample_conv(x, w, tab), down, v_fine, v_coarse, 8, 102),
+        (lambda x, w: tst.upsample_conv(x, w, tab), up, v_coarse, v_fine, 8, 102),
+    ):
+        x = torch.from_numpy(rng.normal(size=(v_in, 51)).astype(np.float32)).to(dtype).requires_grad_()
+        w = torch.from_numpy(rng.normal(size=(k, 51, c_out)).astype(np.float32) / 20).to(dtype).requires_grad_()
+        g = torch.from_numpy(rng.normal(size=(v_out, c_out)).astype(np.float32)).to(dtype)
+        seen.clear()
+        out = conv(x, w)
+        out.backward(g)
+        q = 16 // x.element_size()
+        assert all(s[2] % q == 0 for s in seen) and all(d % q == 0 for s in seen for d in s[3:] if isinstance(d, int))
+        assert all(d % q == 0 for s in seen if s[0] == "conv" for d in s[3])
+        (fwd, x_p), (dgrad, g_p), (wgrad, x_dw) = [(s[0], s[1]) for s in seen]
+        assert (fwd, dgrad, wgrad) == ("conv", "conv", "dw") and x_p == x_dw  # the input padded once
+        with torch.no_grad():
+            want = plain(x.float(), w.float(), g.float())
+        for got, shape, wt in zip((out.detach(), x.grad, w.grad), ((v_out, c_out), (v_in, 51), (k, 51, c_out)), want):
+            assert got.shape == shape and got.is_contiguous() and got.dtype == dtype
+            tol = 1e-5 * wt.abs().max().item() if dtype == torch.float32 else 2.0**-7 * wt.abs().max().item()
+            assert (got.float() - wt).abs().max().item() <= tol

@@ -372,4 +372,4 @@ def test_load_config_from_the_registry():
     t.OPTIM.NUM_EPOCHS = 99  # a copy: the registry stays as it is
     assert tcfg.load_config(rel).OPTIM.NUM_EPOCHS == 1
     with pytest.raises(KeyError, match="minkunet_tiny"):
-        tcfg.load_config("tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr16.yaml")
+        tcfg.load_config("tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr20.yaml")

@@ -43,7 +43,7 @@ def make_copy() -> None:
     cases = "\n".join(
         f"  if (bn == {bn} && bk == {bk} && st == {st})\n"
         f"    return launch_k_tf32<taseg::tf32::Tile<{bn}, {bk}, {st}>>(feats, w, rb, order, out, "
-        "part, live, v_out, c_in, c_out, n_off, splits, static_cast<cudaStream_t>(stream));"
+        "part, live, v_out, c_in, c_out, n_off, splits, static_cast<cudaStream_t>(stream), c_out);"
         for bn, bk, st in TILES
     )
     src = COPY / "taseg_tpu_torch" / "csrc" / "sparse_conv.cu"
