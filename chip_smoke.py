@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`taseg_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 5e --phase 5g   # phases alone (`ALONE`)
 
 Drives the port's main paths — `Segmenter.predict`, `Trainer.step` and
 the harness around it (`Trainer.train` over the prefetching loader,
@@ -88,8 +89,10 @@ checks them:
      4 + 4, K6 4, K7 4, K8 0), finite logits of the right shape, bf16/f32
      argmax agreement, the small-scan card f32 logits against the CPU,
      serving ms per scan by stage; K8 voxelize_bwd at the 3 calls of one
-     real train step, bit-identical to its plain version, with kernel,
-     device, plain, bound and library times; a small-scan f32 step on the
+     real train step, bit-identical to its plain version (and in its
+     other layout and its first kernel), with kernel, device, the other
+     layout, the first kernel (`old_ms`), plain, bound and library
+     times (`k8_call`); a small-scan f32 step on the
      card against the CPU; 4 counted full-width steps (per step K8 3, K6
      8, K7 4, the convs as MinkUNet's), ms per step by stage, peak
      memory, and (after them) each kernel's device time per step;
@@ -106,7 +109,7 @@ checks them:
      bit-identical to its plain version and on repeat, with kernel,
      device, plain, bound and `embedding_bag` times, K6 over the 3 pixel
      tables and the 4 corner-pair tables against its plain version in
-     f64, K8 at the 3 pixel scatters bit-identical; each kernel's device
+     f64, K8 at the 3 pixel scatters bit-identical (`k8_call`); each kernel's device
      time per step;
   5e. Cylinder_TS cy480 cr1.0 at full width (INIT_SIZE 32, the 480 x
      360 x 32 polar grid) in f32: `Segmenter.predict` with every launch
@@ -116,8 +119,10 @@ checks them:
      small-scan card f32 logits against the CPU, serving ms per scan by
      stage and each kernel's device time per scan; K2 at K at every call
      of a real forward against its plain version, bit-identical on
-     repeat, beside the CUDA-core kernel at the same inputs (through
-     its C entry), with two bounds (f32 CUDA cores, 3xTF32), and once in
+     repeat, with its device time, beside the mma.sync 3xTF32 tile that
+     its wgmma tile replaced (`old_ms`) and the CUDA-core kernel at the
+     same inputs (through their C entries), with two bounds (f32 CUDA
+     cores, 3xTF32), and once in
      bf16 (the tensor-core route) at the same shapes; the input and
      weight gradients (K2 at K, K4 at K) at every call of a real step the
      same way; what the row orders and pair lists cost; a small-scan f32
@@ -223,7 +228,8 @@ checks them:
      replaced, `old_ms`); K2 at K offsets (`sparse_conv_k`, with its train
      launches and input-gradient times) and K4 at K offsets
      (`sparse_conv_dw`) with Cylinder_TS's launches per route, the
-     CUDA-core time (`old_ms`), the 3xTF32 bound and the head's share,
+     CUDA-core time (`cuda_core_ms`), K2's mma.sync 3xTF32 tile
+     (`old_ms`), the device time, the 3xTF32 bound and the head's share,
      and every kernel's launches on Cylinder_TS's path; every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
@@ -293,8 +299,14 @@ KERNEL_NAMES = {
     # last template argument is the calls' corner count)
     "devoxelize_bilinear": (("devox_cols_kernel", ", 4>"),),
     "devoxelize_multi": ("devox_sum_kernel",),
-    "voxelize_bwd": ("voxelize_bwd_kernel",),
-    "sparse_conv_k": ("sparse_conv_k_",),
+    # K8's two layouts (its first kernel, `voxelize_bwd_kernel`, is the
+    # yardstick `old_ms`, never on a path)
+    "voxelize_bwd": ("voxelize_bwd_rows_kernel", "voxelize_bwd_flat_kernel"),
+    # K2 at K: its CUDA-core kernel, the 3xTF32 wgmma tile with its split
+    # reduction and the weight's split (`tf32_split_kernel`, a launch of
+    # the call where the weight keeps no split operand); K3's f32 calls
+    # run the same kernels
+    "sparse_conv_k": ("sparse_conv_k_", "tf32_split_kernel"),
     "sparse_conv_dw": ("PairsOffsets", "sparse_conv_dw_tf32", "OffsetLists"),
 }
 TRAIN_STEPS = 4
@@ -702,6 +714,7 @@ def old_call(name: str, x, w, t):
     from taseg_tpu_torch.ops.sparse_conv import DTYPE_CODES
 
     c_in, c_out = x.shape[1], w.shape[2]
+    w = w.contiguous()  # an input gradient's W^T comes as a view of W
     if name == "sparse_conv_k3":
         out = torch.empty((x.shape[0], c_out), dtype=x.dtype, device=x.device)
         _build.launch("taseg_sparse_conv_k3_mma", (), x.data_ptr(), w.data_ptr(), t.data_ptr(),
@@ -1035,7 +1048,8 @@ def phase_profile(seg, scans, results: dict, calls: dict, probes: list) -> None:
             f"profiler {k}: {ms:.4f} ms per scan on the device, "
             f"{count / n:g} kernel launches per scan, {per_call:g} per wrapper call"
         )
-        results.setdefault(k, {})["device_ms"] = ms if count else None
+        if calls[k] or count:  # a kernel off the main path keeps its own phase's device time
+            results.setdefault(k, {})["device_ms"] = ms if count else None
     k1_count = dev["join_scan"][1]
     if k1_count and k1_count != n * calls["join_scan"]:
         raise AssertionError(
@@ -1274,10 +1288,20 @@ def devox_times(z, table):
     return ms, pms, lib, err, table.idx.shape[1]
 
 
+def _kept(a):
+    """A captured argument as the call saw it: a view (the backward's W^T,
+    a view of a parameter that the step's optimizer then updates in place)
+    is cloned at its strides; any other argument is kept as it is."""
+    import torch
+
+    return a.detach().clone() if isinstance(a, torch.Tensor) and a._is_view() else a
+
+
 class CallCapture:
     """Wraps module-level functions for one train step: the first call of
     each distinct key (from `key_fn` of the call's arguments; None skips
-    the call) is kept with its arguments, and every key is counted."""
+    the call) is kept with its arguments (a view cloned: `_kept`), and
+    every key is counted."""
 
     def __init__(self):
         self.seen: dict = {}
@@ -1291,7 +1315,8 @@ class CallCapture:
             key = key_fn(*args, **kwargs)
             if key is not None:
                 self.count[key] = self.count.get(key, 0) + 1
-                self.seen.setdefault(key, (args, kwargs))
+                if key not in self.seen:
+                    self.seen[key] = (tuple(_kept(a) for a in args), {k: _kept(v) for k, v in kwargs.items()})
             return orig(*args, **kwargs)
 
         setattr(module, name, wrapper)
@@ -2204,54 +2229,95 @@ def k8_calls(trainer, scans) -> CallCapture:
     return cap
 
 
-def phase_k8(cap: CallCapture, results: dict) -> None:
-    """K8 at every call of one real SPVCNN train step: bit-identical to
-    its plain version (signed zeros included) and on a repeat call, with
-    kernel, plain, device (profiler), bound (bytes: g, the (P,) map and
-    the counts read once, the (P, C) output written once) and library
-    times, summed over the step's calls; g's rows and counts count once
-    per voxel that has points (what this step's data reads).  The library
-    call is one
-    `index_select` of g's rows divided by their counts beforehand, over a
-    zero row for points without a voxel (bit-equal to K8 where torch's
-    division rounds as K8's)."""
+def k8_layout_call(g, inv, counts, layout: str):
+    """K8 in `layout` ("rows", "flat", or "old": its first kernel, the
+    yardstick `old_ms`) through its C entry, counted nowhere: the (P, C)
+    output."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.sparse_conv import DTYPE_CODES
+    from taseg_tpu_torch.ops.voxelize import K8_LAYOUTS
+
+    out = torch.empty((inv.shape[0], g.shape[1]), dtype=g.dtype, device=g.device)
+    _build.launch("taseg_voxelize_bwd", (), g.data_ptr(), inv.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                  inv.shape[0], g.shape[1], DTYPE_CODES[g.dtype], K8_LAYOUTS[layout])
+    return out
+
+
+def k8_call(label: str, g, inv, counts) -> dict:
+    """K8 at one call through its wrapper: the same bits as its plain
+    version (signed zeros included), on a repeat call, in its other
+    layout (where the row holds a 16-byte piece) and in its first kernel.
+    Times: kernel (`cuda_ms`), device (profiler), plain, the other layout
+    (`other_ms`), the first kernel (`old_ms`), one `index_select` (and its
+    device time) of g's
+    rows divided by their counts beforehand over a zero row for points
+    without a voxel (bit-equal to K8 where torch's division rounds as
+    K8's; held within one bf16 rounding), and the bound (bytes: the (P, C)
+    output written once, the (P,) map read once, g's rows and counts
+    once per voxel that has points: what this call's data reads).  Logs
+    one line; returns the times with the layout taken."""
     import torch
 
     from taseg_tpu_torch.ops import voxelize as vx
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "device_ms": 0.0, "max_abs_err": 0.0}
+    v, c = g.shape
+    p, es = inv.shape[0], g.element_size()
+    got = twice_same(label, lambda: vx.voxelize_bwd(g, inv, counts))
+    want = bits(vx._voxelize_bwd_plain(g, inv, counts))
+    if not bits(got).equal(want):
+        raise AssertionError(f"{label}: {(bits(got) != want).sum().item()} values differ from the plain version")
+    layout, piece = vx.voxelize_bwd_plan(c, es, g.data_ptr() % 16, p * c)
+    other = {"rows": "flat", "flat": "rows"}.get(layout) if c * es >= 16 else None
+    for lay in (other, "old"):
+        if lay is not None and not bits(k8_layout_call(g, inv, counts, lay)).equal(want):
+            raise AssertionError(f"{label}: K8's {lay} layout differs from the plain version")
+    scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
+    idx = torch.where(inv >= 0, inv, v).long()
+    lib_err = (torch.index_select(scaled, 0, idx).float() - got.float()).abs().max().item()
+    if not lib_err <= 2.0**-7 * got.float().abs().max().item():
+        raise AssertionError(f"{label}: index_select differs by {lib_err:.3e}")
+    used = int((counts > 0).sum())
+    r = {
+        "ms": cuda_ms(lambda: vx.voxelize_bwd(g, inv, counts)),
+        "device_ms": device_ms(partial(vx.voxelize_bwd, g, inv, counts), KERNEL_NAMES["voxelize_bwd"]),
+        "plain_ms": cuda_ms(lambda: vx._voxelize_bwd_plain(g, inv, counts)),
+        "old_ms": cuda_ms(lambda: k8_layout_call(g, inv, counts, "old")),
+        "library_ms": cuda_ms(lambda: torch.index_select(scaled, 0, idx)),
+        "library_device_ms": device_ms(lambda: torch.index_select(scaled, 0, idx), ("",)),
+        "bound_ms": bound_ms(p * c * es + used * (c * es + 4) + p * 4, 0.0, "float32")[0],
+        "max_abs_err": 0.0,
+    }
+    other_ms = cuda_ms(lambda: k8_layout_call(g, inv, counts, other)) if other else None
+    log(
+        f"{label} P={p} V={v} ({used} with points) C={c} {str(g.dtype).split('.')[-1]} ({c * es} bytes a row): "
+        f"bit-identical (and on repeat, in every layout), {layout} layout"
+        + (f" ({piece}-byte pieces)" if layout == "rows" else "")
+        + f" kernel {r['ms']:.4f} ms device {fmt_ms(r['device_ms'])}"
+        + ("" if other is None else f", {other} layout {other_ms:.4f} ms")
+        + f", first kernel (old_ms) {r['old_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms index_select "
+        f"{r['library_ms']:.4f} ms (device {fmt_ms(r['library_device_ms'])}, max|diff| {lib_err:.3e}) "
+        f"bound {r['bound_ms']:.4f} ms (bytes)"
+        + (" SLOWER than index_select" if r["ms"] > r["library_ms"] else "")
+    )
+    return dict(r, layout=layout, other_ms=other_ms)
+
+
+def phase_k8(cap: CallCapture, results: dict) -> None:
+    """K8 at every call of one real SPVCNN train step (`k8_call`): the
+    plain version's bits, its times beside its other layout, its first
+    kernel and `index_select`, summed over the step's calls."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0,
+           "old_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0}
     if sum(cap.count.values()) != SPVCNN_PER_STEP["voxelize_bwd"]:
         raise AssertionError(f"K8: calls per step {cap.count}")
     for key, (args, _) in sorted(cap.seen.items(), key=lambda kv: str(kv[0])):
         g, inv, counts = args
-        got = twice_same("K8 voxelize_bwd", lambda: vx.voxelize_bwd(g, inv, counts))
-        want = vx._voxelize_bwd_plain(g, inv, counts)
-        if not bits(got).equal(bits(want)):
-            bad = (bits(got) != bits(want)).sum().item()
-            raise AssertionError(f"K8 {key[1:]}: {bad} values differ from the plain version")
-        ms = cuda_ms(lambda: vx.voxelize_bwd(g, inv, counts))
-        pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, inv, counts))
-        dev = device_ms(partial(vx.voxelize_bwd, g, inv, counts), KERNEL_NAMES["voxelize_bwd"])
-        v, c = g.shape
-        p = inv.shape[0]
-        scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
-        idx = torch.where(inv >= 0, inv, v).long()
-        lib = cuda_ms(lambda: torch.index_select(scaled, 0, idx))
-        lib_err = (torch.index_select(scaled, 0, idx).float() - got.float()).abs().max().item()
-        if not lib_err <= 2.0**-7 * got.float().abs().max().item():
-            raise AssertionError(f"K8 {key[1:]}: index_select differs by {lib_err:.3e}")
-        es = g.element_size()
-        used = int((counts > 0).sum())
-        b, _ = bound_ms(p * c * es + used * (c * es + 4) + p * 4, 0.0, "float32")
-        log(
-            f"K8 voxelize_bwd P={p} V={v} ({used} with points) C={c} {key[4]} "
-            f"x{cap.count[key]}/step: bit-identical, "
-            f"kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms index_select {lib:.4f} ms "
-            f"(max|diff| {lib_err:.3e}) bound {b:.4f} ms (bytes)"
-        )
-        for k, x in (("ms", ms), ("plain_ms", pms), ("bound_ms", b), ("library_ms", lib), ("device_ms", dev)):
-            tot[k] = msum(tot[k], mscale(cap.count[key], x))
+        r = k8_call(f"K8 voxelize_bwd x{cap.count[key]}/step", g, inv, counts)
+        for k in tot:
+            if k != "max_abs_err":
+                tot[k] = msum(tot[k], mscale(cap.count[key], r[k]))
     results["voxelize_bwd"] = dict(tot, bound_by="bytes")
 
 
@@ -2505,26 +2571,8 @@ def phase_rpv_kernels(cap: CallCapture, results: dict) -> None:
                   (z, tables, None), k6)
         v, c = h * w_, z.shape[1]
         g = torch.randn(v, c, device="cuda", generator=gen)
-        counts = tables.counts
-        got = twice_same("K8 scatter backward", lambda: vx.voxelize_bwd(g, ids, counts))
-        want = vx._voxelize_bwd_plain(g, ids, counts)
-        if not bits(got).equal(bits(want)):
-            raise AssertionError(f"K8 scatter backward {h}x{w_}: differs from the plain version")
-        ms = cuda_ms(lambda: vx.voxelize_bwd(g, ids, counts))
-        pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, ids, counts))
-        dev = device_ms(partial(vx.voxelize_bwd, g, ids, counts), KERNEL_NAMES["voxelize_bwd"])
-        scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
-        idx = torch.where(ids >= 0, ids, v).long()
-        lib = cuda_ms(lambda: torch.index_select(scaled, 0, idx))
-        used = int((counts > 0).sum())
-        p = ids.shape[0]
-        b, _ = bound_ms(p * c * 4 + used * (c * 4 + 4) + p * 4, 0.0, "float32")
-        log(
-            f"K8 scatter backward (point_to_range) P={p} pixels={v} ({used} with points) C={c} f32: "
-            f"bit-identical, kernel {ms:.4f} ms device {fmt_ms(dev)} plain {pms:.4f} ms "
-            f"index_select {lib:.4f} ms bound {b:.4f} ms (bytes)"
-        )
-        _add(k8, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, device_ms=dev)
+        r = k8_call(f"K8 scatter backward (point_to_range) pixels {h}x{w_}", g, ids, tables.counts)
+        _add(k8, **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "old_ms")})
     results["devoxelize_bilinear"] = dict(k7, bound_by="bytes", device_ms_per_scan=k7["device_ms"])
     results.setdefault("segment_sum", {})["rpvnet_pixel_tables"] = dict(k6, bound_by="bytes")
     results.setdefault("voxelize_bwd", {})["rpvnet_pixel_tables"] = dict(k8, bound_by="bytes")
@@ -2798,6 +2846,7 @@ def cuda_core_k(name: str, x, second, rb):
         )
     else:
         c_in, c_out = x.shape[1], second.shape[2]
+        second = second.contiguous()  # an input gradient's W^T comes as a view of W
         out = torch.empty((rb.shape[1], c_out), device=x.device)
         err = lib.taseg_sparse_conv_k(
             x.data_ptr(), second.data_ptr(), rb.data_ptr(), out.data_ptr(), rb.shape[1],
@@ -2808,25 +2857,98 @@ def cuda_core_k(name: str, x, second, rb):
     return out
 
 
-def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> dict:
+def tf32_mma_call(x, w, rb, order, splits: int):
+    """The mma.sync 3xTF32 tile that the wgmma tile replaced (K2 at K and
+    K3 in f32), at one call, through its C entry (counted nowhere): x
+    (V_in, C_in) and w (K, C_in, C_out) f32 at their logical widths, padded
+    here to 4s as the wrappers pad them, rb (K, V_out) and its order,
+    `splits` parts per tile chain.  Returns the (V_out, C_out) output."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.sparse_conv import mask_row_order, pad_cols, pad_weight, padded_width
+
+    k, v_out = rb.shape
+    c_in, c_out = w.shape[1], w.shape[2]
+    ci, co = padded_width(torch.float32, c_in), padded_width(torch.float32, c_out)
+    xp, wp = pad_cols(x, ci), pad_weight(w, ci, co).contiguous()
+    order = mask_row_order(rb) if order is None else order
+    out = torch.empty((v_out, c_out), device=x.device)
+    part = live = None
+    if splits > 1:
+        part = torch.empty((splits - 1, v_out, co), device=x.device)
+        live = torch.empty((splits - 1, -(-v_out // 64)), dtype=torch.int32, device=x.device)
+    _build.launch("taseg_sparse_conv_k_tf32_mma", (), xp.data_ptr(), wp.data_ptr(), rb.data_ptr(),
+                  order.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+                  None if live is None else live.data_ptr(), v_out, ci, co, k, splits, c_out)
+    return out
+
+
+def tf32_yardsticks(label: str, kern, x, w, rb, order, splits: int, want, ref, rel: float,
+                    fresh: bool, old_device: bool = False) -> dict:
+    """The 3xTF32 wgmma tile's times at one f32 call of K2 at K or K3
+    (`kern`, through its wrapper) beside the mma.sync tile it replaced
+    (`tf32_mma_call`, held to the same tolerance): `ms` (cuda_ms), `device_ms`
+    (the profiler, the weight's split included where it runs) and `old_ms`
+    (and, with `old_device`, the mma.sync tile's device time,
+    `old_device_ms`).
+    `fresh`: the call splits its weight every time, as a train step's
+    calls do (the weight takes a gradient, or is a new view); else the
+    weight keeps its split operand, as a served weight does, and that
+    operand is held bit for bit against `sparse_conv.tf32_split_plain`."""
+    import torch
+
+    from taseg_tpu_torch.ops import sparse_conv
+
+    mma_err = check_close(f"{label} mma.sync tile", tf32_mma_call(x, w, rb, order, splits), want, ref,
+                          "float32", rel)
+    if fresh:
+        grad_w = w.detach().requires_grad_()
+        run = lambda: kern(grad_w)  # noqa: E731
+    else:
+        run = lambda: kern(w)  # noqa: E731
+        run()
+        # the split kernel's operand, kept beside the weight (or its padded
+        # copy), against its plain version, bit for bit
+        held = w if hasattr(w, "_taseg_tf32") else getattr(w, "_taseg_padded", (None, None))[1]
+        if held is None or not torch.equal(held._taseg_tf32[1], sparse_conv.tf32_split_plain(held)):
+            raise AssertionError(f"{label}: the weight's kept 3xTF32 operand differs from tf32_split_plain")
+    old = lambda: tf32_mma_call(x, w, rb, order, splits)  # noqa: E731
+    r = {
+        "ms": cuda_ms(run), "device_ms": device_ms(run, KERNEL_NAMES["sparse_conv_k"], iters=5),
+        "old_ms": cuda_ms(old), "old_max_abs_err": mma_err,
+    }
+    if old_device:
+        r["old_device_ms"] = device_ms(old, ("k_tf32_mma_kernel", "sparse_conv_k_tf32_reduce"), iters=5)
+    return r
+
+
+def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True, train: bool = False,
+                           old_device: bool = False) -> dict:
     """K2 and K4 at K offsets (the 3^3 head's at K = 27 among them) at
     every call of the captured forward or train step, on the call's own
     f32 inputs and the topology's row order / pair lists: the 3xTF32
     kernel against its plain version (the convs within 1e-5 of the
     largest sum of |terms|, the weight gradients within 1e-4: they sum up
     to all V rows in another order) and bit-identical on a repeat call;
-    the CUDA-core kernel (`cuda_core_k`) on the same inputs held to
-    the same tolerances.  Times: kernel, CUDA-core kernel, plain, two
-    bounds (bytes: inputs read once, output written once; operations: the
-    rulebook's present pairs at the f32 CUDA-core rate, and at 3xTF32's
-    494.7 / 3 TFLOP/s) and library (one torch.mm on rows gathered
-    beforehand), summed over the calls by their count; a call slower than
-    its torch.mm is named.  The convs also run once in bf16 at the same
-    shapes (their tensor-core route where the widths allow it), for
-    correctness only: no path calls them in bf16 (`bf16` False leaves
-    that out).  Returns the totals by
-    kind (`sparse_conv_k`, `sparse_conv_k_dgrad`, `sparse_conv_dw`), each
-    with a `head` part of its K = 27 calls."""
+    the CUDA-core kernel (`cuda_core_k`) and, for the convs, the mma.sync
+    3xTF32 tile that the wgmma tile replaced (`tf32_mma_call`) on the
+    same inputs, held to the same tolerances.  Times: kernel (`cuda_ms`;
+    a conv of a `train` capture splits its weight every call, as a train
+    step does, a served one keeps the split operand), device (profiler),
+    the mma.sync tile (`old_ms`, the convs; with `old_device` its device
+    time too), the CUDA-core kernel, plain,
+    two bounds (bytes: inputs read once, output written once; operations:
+    the rulebook's present pairs at the f32 CUDA-core rate, and at
+    3xTF32's 494.7 / 3 TFLOP/s) and library (one torch.mm on rows
+    gathered beforehand), summed over the calls by their count; a call
+    slower than its torch.mm is named.  The convs also run once in bf16
+    at the same shapes (their tensor-core route where the widths allow
+    it), for correctness only: no path calls them in bf16 (`bf16` False
+    leaves that out).  Returns the totals by kind (`sparse_conv_k`,
+    `sparse_conv_k_dgrad`, `sparse_conv_dw`), each with a `head` part of
+    its K = 27 calls; a device total holding a call not measured is
+    None."""
     import torch
 
     from taseg_tpu_torch.ops import f3conv, sparse_conv
@@ -2842,6 +2964,7 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> d
         route = sparse_conv.k_route(x.dtype, c_in, c_out)
         if route != "tf32x3":
             raise AssertionError(f"{label}{key}: route {route}, expected tf32x3")
+        dgrad = name == "sparse_conv_k_dgrad"
         if name == "sparse_conv_dw":
             lists = kw.get("pairs")
             kern = lambda: f3conv.sparse_conv_dw(x, second, rb, pairs=lists)  # noqa: E731
@@ -2849,30 +2972,39 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> d
             nbytes = (v_in * c_in + v_out * c_out + rb.numel() + k * c_in * c_out) * 4
         else:
             order = kw.get("order")
-            kern = lambda: sparse_conv.sparse_conv(x, second, rb, order=order)  # noqa: E731
+            kern = lambda: sparse_conv.sparse_conv(x, second, rb, dgrad=dgrad, order=order)  # noqa: E731
             plain, rel = sparse_conv.sparse_conv_plain, 1e-5
             nbytes = (v_in * c_in + second.numel() + rb.numel() + v_out * c_out) * 4
         want = plain(x, second, rb)
         ref = plain(x.abs(), second.abs(), rb)
         got = twice_same(f"{label}{key}", kern)
         err = check_close(f"{label}{key}", got, want, ref, "float32", rel)
-        old_err = check_close(
+        core_err = check_close(
             f"{label}{key} CUDA-core", cuda_core_k(name, x, second, rb), want, ref, "float32", rel
         )
         share = err / max(ref.abs().max().item(), 1e-30)  # of the largest sum of |terms|
+        if name == "sparse_conv_dw":
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES[name], iters=5)}
+        else:
+            t = tf32_yardsticks(
+                f"{label}{key}", lambda w: sparse_conv.sparse_conv(x, w, rb, dgrad=dgrad, order=order),
+                x, second, rb, order, sparse_conv.k_splits(v_out), want, ref, rel, fresh=train,
+                old_device=old_device,
+            )
         del got, want, ref
         extra = (f"3xTF32 max|err| {err:.3e} "
-                 f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), CUDA-core {old_err:.3e}, "
-                 f"bit-identical on repeat")
+                 f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), CUDA-core {core_err:.3e}"
+                 + (f", mma.sync tile {t['old_max_abs_err']:.3e}" if "old_ms" in t else "")
+                 + ", bit-identical on repeat")
         if name == "sparse_conv_k" and bf16:
             xb, wb = x.bfloat16(), second.bfloat16()
             berr = check_close(f"{label}{key} bf16", sparse_conv.sparse_conv(xb, wb, rb), plain(xb, wb, rb),
                                plain(xb.abs(), wb.abs(), rb), "bfloat16", 1e-5)
             extra += f"; bf16 route {sparse_conv.k_route(torch.bfloat16, c_in, c_out)} max|err| {berr:.3e}"
-        base = "sparse_conv_k" if name == "sparse_conv_k_dgrad" else name
+        base = "sparse_conv_k" if dgrad else name
         lib = (dw_library_ms if name == "sparse_conv_dw" else conv_library_ms)(base, x, second, rb)
-        ms = cuda_ms(kern)
-        old_ms = cuda_ms(lambda: cuda_core_k(name, x, second, rb))
+        ms = t["ms"]
+        core_ms = cuda_ms(lambda: cuda_core_k(name, x, second, rb))
         pms = cuda_ms(lambda: plain(x, second, rb), iters=3)
         ops = 2.0 * pairs * c_in * c_out
         b, by = bound_ms(nbytes, ops, "float32")
@@ -2880,22 +3012,34 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> d
         slow = " SLOWER than torch.mm" if ms > lib else ""
         log(
             f"{label}{name} K={k} V_in={v_in} {c_in}->{c_out} V_out={v_out} x{count} "
-            f"pairs={pairs} ({extra}) kernel {ms:.4f} ms CUDA-core {old_ms:.4f} ms plain {pms:.4f} ms "
+            f"pairs={pairs} ({extra}) kernel {ms:.4f} ms (device {fmt_ms(t['device_ms'])}"
+            + ("" if name == "sparse_conv_dw" or not train else ", the weight split every call")
+            + ")" + (f" mma.sync tile {t['old_ms']:.4f} ms" if "old_ms" in t else "")
+            + (f" (device {fmt_ms(t['old_device_ms'])})" if "old_device_ms" in t else "")
+            + f" CUDA-core {core_ms:.4f} ms plain {pms:.4f} ms "
             f"bound {b:.4f} ms ({by}, f32 CUDA cores) / {b3:.4f} ms ({by3}, 3xTF32) "
             f"one torch.mm {lib:.4f} ms{slow}"
         )
         parts = [tot.setdefault(name, {})]
         if k == 27:
             parts.append(parts[0].setdefault("head", {}))
+        vals = [("ms", ms), ("cuda_core_ms", core_ms), ("plain_ms", pms), ("bound_ms", b),
+                ("bound_ms_3xtf32", b3), ("library_ms", lib)]
+        if "old_ms" in t:
+            vals.append(("old_ms", t["old_ms"]))
         for r in parts:
-            for kk, val in (("ms", ms), ("old_ms", old_ms), ("plain_ms", pms), ("bound_ms", b),
-                            ("bound_ms_3xtf32", b3), ("library_ms", lib)):
+            for kk, val in vals:
                 r[kk] = r.get(kk, 0.0) + count * val
+            r["device_ms"] = msum(r.get("device_ms", 0.0), mscale(count, t["device_ms"]))
+            if "old_device_ms" in t:
+                r["old_device_ms"] = msum(r.get("old_device_ms", 0.0), mscale(count, t["old_device_ms"]))
             for kk, val in ((by, b), (by3 + "_3xtf32", b3)):
                 r.setdefault("_parts", {})[kk] = r.get("_parts", {}).get(kk, 0.0) + count * val
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
             r["max_err_share"] = max(r.get("max_err_share", 0.0), share)
-            r["old_max_abs_err"] = max(r.get("old_max_abs_err", 0.0), old_err)
+            r["cuda_core_max_abs_err"] = max(r.get("cuda_core_max_abs_err", 0.0), core_err)
+            if "old_ms" in t:
+                r["old_max_abs_err"] = max(r.get("old_max_abs_err", 0.0), t["old_max_abs_err"])
             r["calls"] = r.get("calls", 0) + count
     for r in tot.values():
         for q in (r, r.get("head")):
@@ -2906,6 +3050,12 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True) -> d
             q["bound_by_3xtf32"] = (
                 "bytes" if parts.get("bytes_3xtf32", 0) >= parts.get("operations_3xtf32", 0) else "operations"
             )
+    for name, r in sorted(tot.items()):
+        log(f"{label}{name} over {r['calls']} calls: kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])})"
+            + (f" mma.sync tile {r['old_ms']:.4f} ms" if "old_ms" in r else "")
+            + (f" (device {fmt_ms(r['old_device_ms'])})" if "old_device_ms" in r else "")
+            + f" CUDA-core {r['cuda_core_ms']:.4f} ms bound {r['bound_ms_3xtf32']:.4f} ms (3xTF32) one torch.mm "
+            f"{r['library_ms']:.4f} ms")
     return tot
 
 
@@ -3137,7 +3287,7 @@ def phase_cylinder(scans, results: dict) -> dict:
     del out
     small_scan_check(cfg, variables, "cylinder ")
     serve_split(seg, scans, CYLINDER_ROUNDS, "cylinder ")
-    serve_k = phase_cylinder_kernels(cap, "cylinder serving ")
+    serve_k = phase_cylinder_kernels(cap, "cylinder serving ", old_device=True)
     results["sparse_conv_k"] = serve_k["sparse_conv_k"]
     del cap
     a = seg.collate(scans[:1])
@@ -3167,7 +3317,8 @@ def phase_cylinder(scans, results: dict) -> dict:
 
     cap = cylinder_calls(step)
     train_k = phase_cylinder_kernels(
-        CallCapture.only(cap, lambda key: key[0] != "sparse_conv_k"), "cylinder train ",
+        CallCapture.only(cap, lambda key: key[0] != "sparse_conv_k"), "cylinder train ", train=True,
+        old_device=True,
     )
     del cap
     for k in ("sparse_conv_k_dgrad", "sparse_conv_dw"):
@@ -3807,7 +3958,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
 
     out = phase_cylinder_kernels(
         CallCapture.only(cap, lambda k: k[0].startswith(("sparse_conv_k_", "sparse_conv_dw"))
-                         or k[0] == "sparse_conv_k"), "tiaf ", bf16=False
+                         or k[0] == "sparse_conv_k"), "tiaf ", bf16=False, train=True,
     )
     for r in out.values():
         r.pop("head", None)
@@ -3820,8 +3971,8 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
 
     def add(name, count, by, **kw):
         r = tot.setdefault(name, dict(_tot(), calls=0, _parts={"bytes": 0.0, "operations": 0.0}))
-        if "old_ms" in kw:
-            r.setdefault("old_ms", 0.0)
+        if "device_ms" in kw:
+            r["_dev"] = True
         _add(r, **{k: (v if k == "max_abs_err" else mscale(count, v)) for k, v in kw.items()})
         r["calls"] += count
         r["_parts"][by] += count * kw["bound_ms"]
@@ -3855,28 +4006,43 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             err = check_close(label, got, want, ref, "float32", rel)
             limit = rel * ref.abs().max().item()
             # K3's CUDA-core kernels, which the 3xTF32 route replaced
-            old, old_err = (
+            core, core_err = (
                 old_times(base, x, second, t, want, ref, "float32", rel)
                 if base in ("strided_down", "strided_up") else (None, None)
             )
+            dev = {}
+            ms = None
+            if base in ("strided_down", "strided_up") and route == "tf32x3":
+                # the 3xTF32 wgmma tile over the child / up table, beside
+                # the mma.sync tile it replaced
+                down = base == "strided_down"
+                rb_t = (t.child[0] if t.child is not None else strided_conv.slot_child_table(t)[0]) if down \
+                    else (t.up if t.up is not None else strided_conv.slot_up_table(t))
+                order = (t.child_order if t.child is not None else None) if down \
+                    else (t.up_order if t.up is not None else None)
+                splits = strided_conv.k3_tf32_splits(rb_t.shape[1], sparse_conv.padded_width(x.dtype, x.shape[1]))
+                ty = tf32_yardsticks(label, lambda w: fn(x, w, t, dgrad=name != base), x, second, rb_t, order,
+                                     splits, want, ref, rel, fresh=True)
+                ms, dev = ty["ms"], {"device_ms": ty["device_ms"], "old_ms": ty["old_ms"]}
+                label += (f" device {fmt_ms(ty['device_ms'])} (the weight split every call) mma.sync tile "
+                          f"{ty['old_ms']:.4f} ms (max|err| {ty['old_max_abs_err']:.3e})")
             del got, ref, want
-            ms = cuda_ms(kern)
+            ms = cuda_ms(kern) if ms is None else ms
             pms = cuda_ms(lambda: plain(x, second, t), iters=3)
             nbytes, ops, lib = train_cost(base, a, kw, x, second)
             b, by = bound_ms(nbytes, ops, "float32")
-            dev = {}
             if name == "strided_dw":
                 d, ld = yardstick_devices(name, kern, a, kw, x, second)
                 dev = {"device_ms": d, "library_device_ms": ld}
                 label += f" device {fmt_ms(d)} (torch.mm device {fmt_ms(ld)})"
             log(
                 f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
-                + ("" if old is None else f"CUDA-core {old:.4f} ms (max|err| {old_err:.3e}) ")
+                + ("" if core is None else f"CUDA-core {core:.4f} ms (max|err| {core_err:.3e}) ")
                 + f"plain {pms:.4f} ms bound {b:.4f} ms ({by}) one torch.mm {lib:.4f} ms"
                 + (" SLOWER than torch.mm" if ms > lib else "")
             )
             add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=err,
-                **({} if old is None else {"old_ms": old}), **dev)
+                **({} if core is None else {"cuda_core_ms": core}), **dev)
         elif name == "segment_sum":
             x, t = a[0].detach(), a[1]
             w = a[2] if len(a) > 2 else kw.get("w")
@@ -3927,26 +4093,12 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             add("devoxelize", count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
         elif name == "voxelize_bwd":
             g, ids, counts = a[0].detach(), a[1], a[2]
-            kern = partial(vx.voxelize_bwd, g, ids, counts)
-            if not bits(twice_same(label, kern)).equal(bits(vx._voxelize_bwd_plain(g, ids, counts))):
-                raise AssertionError(f"{label}: K8 differs from the plain version")
-            v, c = g.shape
-            ms = cuda_ms(kern)
-            pms = cuda_ms(lambda: vx._voxelize_bwd_plain(g, ids, counts))
-            scaled = torch.cat([g / counts.clamp(min=1).to(g.dtype)[:, None], g.new_zeros(1, c)])
-            gidx = torch.where(ids >= 0, ids, v).long()
-            lib = cuda_ms(lambda: torch.index_select(scaled, 0, gidx))
-            used, p = int((counts > 0).sum()), ids.shape[0]
-            b, by = bound_ms(p * c * 4 + used * (c * 4 + 4) + p * 4, 0.0, "float32")
-            log(
-                f"tiaf K8 voxelize backward (the FOV stem) P={p} V={v} ({used} occupied) C={c} x{count}/step: "
-                f"bit-identical (and on repeat), kernel {ms:.4f} ms plain {pms:.4f} ms index_select "
-                f"{lib:.4f} ms bound {b:.4f} ms ({by})"
-            )
-            add(name, count, by, ms=ms, plain_ms=pms, bound_ms=b, library_ms=lib, max_abs_err=0.0)
+            r = k8_call(f"tiaf K8 voxelize backward (the FOV stem) x{count}/step", g, ids, counts)
+            add(name, count, "bytes", max_abs_err=0.0,
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "old_ms")})
     for r in tot.values():
         parts = r.pop("_parts")
-        if "library_device_ms" not in r:  # K5 alone is profiled here
+        if not r.pop("_dev", False):  # K5 and K3's f32 calls are profiled here
             r.pop("device_ms")
         r["bound_by"] = "bytes" if parts["bytes"] >= parts["operations"] else "operations"
     out.update(tot)
@@ -3954,8 +4106,10 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
         "tiaf kernels per step at the step's own calls: " + "; ".join(
             f"{n} x{r['calls']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"library {r['library_ms']:.4f} max|err| {r['max_abs_err']:.3e}"
-            + (f" device {fmt_ms(r['device_ms'])} library device {fmt_ms(r['library_device_ms'])}"
-               if "library_device_ms" in r else "")
+            + (f" device {fmt_ms(r['device_ms'])}" if "device_ms" in r else "")
+            + (f" library device {fmt_ms(r['library_device_ms'])}" if "library_device_ms" in r else "")
+            + (f" replaced kernel (old_ms) {r['old_ms']:.4f}" if "old_ms" in r else "")
+            + (f" CUDA-core {r['cuda_core_ms']:.4f}" if "cuda_core_ms" in r else "")
             for n, r in sorted(out.items())
         )
     )
@@ -4824,13 +4978,19 @@ def nw_k_offsets(cap, label: str) -> dict:
                  "old_max_abs_err": old_err, "parent_ms": CYL23_HEAD_PARENT_MS[name],
                  "plain_ms": cuda_ms(lambda: plain(x, second, rb), 3), "bound_ms": b, "bound_by": by,
                  "bound_ms_3xtf32": b3, "bound_by_3xtf32": by3, "library_ms": lib}
+            if not dw:  # the mma.sync 3xTF32 tile that the wgmma tile replaced
+                r["mma_ms"] = tf32_yardsticks(
+                    f"{label}{key}", lambda w: sparse_conv.sparse_conv(x, w, rb, order=order), x, second, rb,
+                    order, sparse_conv.k_splits(v_out), want, ref, rel, fresh=True)["old_ms"]
             out["head"][name] = r
             log(f"{label}head {name} K={k} {c_in}->{c_out} V_out={v_out} route {route}: max|err| {err:.3e} "
                 f"({share:.2e} of the largest sum of |terms|, limit {rel:.0e}), bit-identical on repeat; "
                 f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}, padded copies {r['pad_ms']:.4f} ms, "
                 f"weight's padded copy {r['weight_pad_ms']:.4f} ms) "
                 f"beside {r['parent_ms']} ms on CUDA cores in PERF.md §6 (CUDA-core kernel here "
-                f"{r['old_ms']:.4f} ms, max|err| {old_err:.3e}); plain {r['plain_ms']:.4f} ms bound {b:.4f} ms "
+                f"{r['old_ms']:.4f} ms, max|err| {old_err:.3e})"
+                + (f", the mma.sync 3xTF32 tile {r['mma_ms']:.4f} ms" if "mma_ms" in r else "")
+                + f"; plain {r['plain_ms']:.4f} ms bound {b:.4f} ms "
                 f"({by}) / {b3:.4f} ms ({by3}, 3xTF32) one torch.mm {lib:.4f} ms")
     log(f"{label}K2 / K4 at K offsets: {out['calls']} calls of one step against their plain "
         f"versions, largest error {out['max_err_share']:.2e} of the largest sum of |terms|")
@@ -5272,6 +5432,7 @@ def cuda_core_call(name: str, x, second, t, up: bool = False):
             (v_fine, x.shape[1], second.shape[1], int(up)), v_fine, 8, dt, dev,
         )
     c_in, c_out = x.shape[1], second.shape[2]
+    second = second.contiguous()
     if name == "sparse_conv_k3":
         v = x.shape[0]
         out = torch.empty((v, c_out), dtype=dt, device=dev)
@@ -5443,8 +5604,8 @@ def cr16_point_kernels(trainer, scans, label: str) -> dict:
     are, 16 pieces a lane, through its C entry (`k6_own_pieces`); else
     the copy to whole 16-byte pieces and K6 there, timed apart; K7 at its
     calls of 100 channels or more bit-identical to its plain version, with
-    kernel, plain and `index_select` / `embedding_bag` times; K8 at its 3
-    calls (`phase_k8`)."""
+    kernel, device, bound, plain and `index_select` / `embedding_bag`
+    times; K8 at its 3 calls (`phase_k8`)."""
     import torch
 
     from taseg_tpu_torch.ops import voxelize as vx
@@ -5496,9 +5657,20 @@ def cr16_point_kernels(trainer, scans, label: str) -> dict:
             z, t = a[0].detach(), a[1]
             table = t if key[1] == "trilinear" else vx.IdentityDevoxTable(inverse=t)
             ms, pms, lib, lib_err, points = devox_times(z, table)
-            out["devoxelize"][str(key[1:])] = {"ms": ms, "plain_ms": pms, "library_ms": lib}
+            # device time, and the bound: the table's (idx, w) entries, the
+            # rows it reads and the output, each once
+            trilinear = key[1] == "trilinear"
+            fn = vx.devoxelize_trilinear if trilinear else vx.devoxelize_identity
+            dev = device_ms(partial(fn, z, t), KERNEL_NAMES["devoxelize"], iters=5)
+            idx = t.idx if trilinear else t[None]
+            c, es = z.shape[1], z.element_size()
+            rows = int(torch.unique(idx[idx >= 0]).numel())
+            b = bound_ms(idx.shape[0] * points * (8 if trilinear else 4) + rows * c * es + points * c * es,
+                         0.0, "float32")[0]
+            out["devoxelize"][str(key[1:])] = {"ms": ms, "device_ms": dev, "plain_ms": pms, "library_ms": lib,
+                                               "bound_ms": b}
             log(f"{label}K7 {key[1:]} x{cap.count[key]}/step ({z.shape[1] * z.element_size()} bytes a row): "
-                f"bit-identical; kernel {ms:.4f} ms plain {pms:.4f} ms "
+                f"bit-identical; kernel {ms:.4f} ms (device {fmt_ms(dev)}, bound {b:.4f} ms, bytes) plain {pms:.4f} ms "
                 f"{'index_select' if key[1] == 'identity' else 'embedding_bag'} {lib:.4f} ms"
                 + (" SLOWER than the library call" if ms > lib else ""))
     k8 = {}
@@ -5687,7 +5859,39 @@ def cr16_entry(res: dict, name: str) -> dict:
     return out
 
 
+# the phases that `--phase` runs alone, after the card and the build
+ALONE = {"5d": "phase_rpvnet", "5e": "phase_cylinder", "5g": "phase_tiaf", "5k": "phase_nus_waymo",
+         "5l": "phase_cr16"}
+
+
+def run_phases(phases: list, t_start: float) -> int:
+    """Phases of `ALONE` by themselves (a development run: no kernels
+    line, no other phase), each with its own checks, on the scans made
+    from SEED; their results as one JSON line."""
+    import torch
+
+    scans = make_scans(N_SCANS)
+    out = {}
+    for ph in phases:
+        fn = globals()[ALONE[ph]]
+        t0 = time.perf_counter()
+        r = fn() if ph in ("5g", "5k") else fn(scans, {}) if ph in ("5d", "5e") else fn(scans)
+        out[ph] = {"seconds": time.perf_counter() - t0,
+                   **{k: r[k] for k in ("per_scan", "per_step") if isinstance(r, dict) and k in r}}
+        log(f"phase {ph}: {out[ph]['seconds']:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"phases": out}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    phases = sys.argv[1:][1::2] if sys.argv[1:2] == ["--phase"] else []
+    if sys.argv[1:] and (len(sys.argv[1:]) % 2 or any(a != "--phase" for a in sys.argv[1::2])
+                         or any(p not in ALONE for p in phases)):
+        print(f"usage: chip_smoke.py [--phase {{{','.join(ALONE)}}}]...", file=sys.stderr)
+        return 2
     if not (REPO / "taseg_tpu_torch" / "__init__.py").is_file():
         print("taseg_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
         return 2
@@ -5721,6 +5925,9 @@ def main() -> int:
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"  {line.strip()}")
+
+    if phases:
+        return run_phases(phases, t_start)
 
     # main-path objects: seeded weights, bf16 and f32 segmenters
     cfg = MINKUNET_MK34_CR10
@@ -5919,6 +6126,10 @@ def main() -> int:
             entry["device_ms_per_scan"] = r["device_ms_per_scan"]
         elif name == "voxelize_bwd":
             entry["per"] = "train step (SPVCNN)"
+            # its first kernel at the same calls, and its profiled time
+            entry["old_ms"] = r["old_ms"]
+            entry["device_ms"] = r["device_ms"]
+            entry["library_device_ms"] = r["library_device_ms"]
         elif name in per_step:
             entry["per"] = "train step"
             if name == "k3_conv_dw":
@@ -5988,12 +6199,15 @@ def main() -> int:
             )
         kernels.append(entry)
     # K2 and K4 at K offsets: Cylinder_TS's serving (per scan) and train
-    # (per step) paths, their only users, on the 3xTF32 route; beside it
-    # the CUDA-core kernel at the same inputs (`old_ms`), the 3xTF32
-    # bound, and the 3^3 head's calls (K = 27) on their own
+    # (per step) paths on the 3xTF32 route (K2 on its wgmma tile); beside
+    # them the CUDA-core kernel at the same inputs (`cuda_core_ms`), K2's
+    # mma.sync tile that the wgmma tile replaced (`old_ms`), the profiled
+    # time, the 3xTF32 bound, and the 3^3 head's calls (K = 27) on their
+    # own
     k2k, dgrad, k4k = results["sparse_conv_k"], results["sparse_conv_k_dgrad"], results["sparse_conv_dw"]
     serve, train = cylinder["launches"], cylinder["train_launches"]
-    extra = ("old_ms", "old_max_abs_err", "max_err_share", "bound_ms_3xtf32", "bound_by_3xtf32", "calls", "head")
+    extra = ("old_ms", "old_device_ms", "old_max_abs_err", "cuda_core_ms", "cuda_core_max_abs_err", "device_ms",
+             "max_err_share", "bound_ms_3xtf32", "bound_by_3xtf32", "calls", "head")
     kernels.append({
         "name": "sparse_conv_k", "route": "cuda", "source": "taseg_tpu_torch/csrc/sparse_conv.cu",
         "replaces": "taseg_tpu/ops/sparse_conv.py:137", "launches": serve["sparse_conv_k"],
@@ -6013,6 +6227,7 @@ def main() -> int:
             "dgrad_launches": train["sparse_conv_k_dgrad"],
             "dgrad_tf32x3_launches": train["sparse_conv_k_dgrad_tf32"],
             **{f"dgrad_{k}_per_step": dgrad[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "old_ms",
+                                                         "old_device_ms", "cuda_core_ms", "device_ms",
                                                          "bound_ms_3xtf32")},
             "dgrad_bound_by": dgrad["bound_by"], "dgrad_max_abs_err": dgrad["max_abs_err"],
             "dgrad_head": dgrad.get("head"),

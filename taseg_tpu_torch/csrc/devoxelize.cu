@@ -56,7 +56,7 @@
 // f32 rows; the cat runs one scale per blockIdx.y into its columns.
 // K8 replaces taseg_tpu/ops/voxelize.py:126 _voxelize_bwd, the gradient
 // of voxelize_avg (SPVCNN's point branch re-voxelizes features that take
-// a gradient):
+// a gradient; RPVNet's and TIAF's scatters to pixels and voxels too):
 //
 //   d_points[p] = g[inv[p]] / max(count[inv[p]], 1), or 0 where inv[p] < 0
 //
@@ -66,9 +66,24 @@
 // one rounding to g's dtype.  Absent points write +0.  So its bits,
 // signed zeros included, are the plain version's.  Bound on the H100:
 // bytes, the (P, C) output (8.4-134 MB per call on SPVCNN's train step)
-// and the rows of g it gathers.  A thread owns one point and 16 bytes of
-// its row (4 f32 or 8 bf16 channels): one 16-byte load of g, one of the
-// output, where C and the bases allow it (else scalar loads and stores).
+// and the rows of g it gathers.  Two layouts, picked by the row's
+// alignment (launch_voxelize_bwd):
+//   * rows (voxelize_bwd_rows_kernel): one thread a (point, piece), the
+//     piece the widest of 16, 8, 4 or 2 bytes that the row's bytes and
+//     both bases allow (K7's layout), one 32-bit division a piece;
+//   * flat (voxelize_bwd_flat_kernel): one thread a 16-byte piece of the
+//     flat (P * C) output, its values gathered one by one from the (at
+//     most two) rows they fall in: a row of 102 bytes (51 bf16, SPVCNN cr
+//     1.6) or 1636 (409 f32) allows only 2- or 4-byte pieces above, and
+//     those move a warp's 64 or 128 bytes an instruction; here every
+//     store is 16 bytes a lane.
+// The wrapper picks the layout (voxelize.voxelize_bwd_plan): rows whose
+// bytes and bases allow 16-byte pieces take the rows layout (the two then
+// coincide), and so do rows narrower than 16 bytes; the others the flat
+// one.  The kernel it replaced (voxelize_bwd_kernel, the first K8: one
+// thread 16 bytes of one point, scalar 2-byte loads and stores where the
+// row is not 16-byte aligned, a 64-bit division and remainder per
+// element) stays callable as the yardstick `old_ms` (layout 3).
 #include <algorithm>
 
 #include "common.cuh"
@@ -343,7 +358,8 @@ int single(const void* feats, const void* idx, const void* w, int corners, void*
 }
 
 // ---------------------------------------------------------------- K8
-// 16 bytes of one row: 4 f32 or 8 bf16 values
+// the first K8 kernel, off the path (the yardstick `old_ms`): 16 bytes of one
+// row a thread, 4 f32 or 8 bf16 values
 template <typename D>
 struct alignas(16) Row16 {
   static constexpr int kN = 16 / sizeof(typename D::raw);
@@ -397,21 +413,143 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the rows layout: one thread a (point, VB-byte piece), `chunks` pieces a
+// row, p * chunks < 2^32 (one 32-bit division a piece)
+template <typename D, int VB>
+__global__ void __launch_bounds__(kThreads)
+    voxelize_bwd_rows_kernel(const typename D::raw* __restrict__ g,
+                             const int* __restrict__ inv, const int* __restrict__ counts,
+                             typename D::raw* __restrict__ out, unsigned n, unsigned chunks) {
+  using P = Piece<D, VB>;
+  using V = typename Vec<VB>::T;
+  for (unsigned t = blockIdx.x * kThreads + threadIdx.x; t < n; t += gridDim.x * kThreads) {
+    const unsigned pt = t / chunks, ch = t - pt * chunks;
+    const int i = __ldg(inv + pt);
+    P r;
+    if (i >= 0) {
+      // the count in g's dtype (bf16 rounds counts above 256)
+      const float d = D::to_f(D::from_f(static_cast<float>(max(__ldg(counts + i), 1))));
+      r.v = __ldg(reinterpret_cast<const V*>(g) + static_cast<size_t>(i) * chunks + ch);
+#pragma unroll
+      for (int j = 0; j < P::N; ++j) r.e[j] = D::from_f(__fdiv_rn(D::to_f(r.e[j]), d));
+    } else {
+#pragma unroll
+      for (int j = 0; j < P::N; ++j) r.e[j] = typename D::raw(0);
+    }
+    reinterpret_cast<V*>(out)[t] = r.v;
+  }
+}
+
+// the flat layout: 16 bytes of the (P * c) output a thread, `total` = P * c
+// < 2^31 values in `pieces` pieces, c >= the values of a piece (so a
+// piece spans at most two rows, whose maps and counts are loaded first),
+// out 16-byte aligned
+template <typename D>
+__global__ void __launch_bounds__(kThreads)
+    voxelize_bwd_flat_kernel(const typename D::raw* __restrict__ g,
+                             const int* __restrict__ inv, const int* __restrict__ counts,
+                             typename D::raw* __restrict__ out, int p, int c, unsigned total,
+                             unsigned pieces) {
+  using raw = typename D::raw;
+  using P = Piece<D, 16>;
+  constexpr int N = P::N;
+  for (unsigned t = blockIdx.x * kThreads + threadIdx.x; t < pieces; t += gridDim.x * kThreads) {
+    const unsigned e0 = t * N, pt = e0 / c;
+    const int ch0 = static_cast<int>(e0 - pt * c);
+    const int i0 = __ldg(inv + pt);
+    const int i1 = ch0 + N > c && pt + 1 < static_cast<unsigned>(p) ? __ldg(inv + pt + 1) : -1;
+    // the counts in g's dtype (bf16 rounds counts above 256)
+    const float d0 = D::to_f(D::from_f(static_cast<float>(i0 >= 0 ? max(__ldg(counts + i0), 1) : 1)));
+    const float d1 = D::to_f(D::from_f(static_cast<float>(i1 >= 0 ? max(__ldg(counts + i1), 1) : 1)));
+    P r;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bool next = ch0 + j >= c;
+      const int i = next ? i1 : i0;
+      r.e[j] = raw(0);
+      if (i >= 0 && e0 + j < total)
+        r.e[j] = D::from_f(__fdiv_rn(
+            D::to_f(__ldg(g + static_cast<size_t>(i) * c + (next ? ch0 + j - c : ch0 + j))),
+            next ? d1 : d0));
+    }
+    if (e0 + N <= total) {
+      *reinterpret_cast<uint4*>(out + e0) = r.v;
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (e0 + j < total) out[e0 + j] = r.e[j];
+    }
+  }
+}
+
+// K8's layouts (launch_voxelize_bwd's `layout`; voxelize.voxelize_bwd_plan
+// picks one)
+enum Layout { kRows = 1, kFlat = 2, kOld = 3 };
+
+template <typename D, int VB>
+void launch_rows(const void* g, const void* inv, const void* counts, void* out, int p, int c,
+                 cudaStream_t s) {
+  using raw = typename D::raw;
+  const unsigned chunks = static_cast<unsigned>(c) * sizeof(raw) / VB;
+  const unsigned n = static_cast<unsigned>(p) * chunks;
+  const int blocks = static_cast<int>(std::min<unsigned>((n + kThreads - 1) / kThreads, 1u << 20));
+  voxelize_bwd_rows_kernel<D, VB><<<blocks, kThreads, 0, s>>>(
+      static_cast<const raw*>(g), static_cast<const int*>(inv), static_cast<const int*>(counts),
+      static_cast<raw*>(out), n, chunks);
+}
+
 template <typename D>
 int launch_voxelize_bwd(const void* g, const void* inv, const void* counts,
-                        void* out, int p, int c, cudaStream_t s) {
-  if (p <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                        void* out, int p, int c, int layout, cudaStream_t s) {
   using raw = typename D::raw;
-  constexpr int kN = Row16<D>::kN;
-  const bool vec = c % kN == 0 && reinterpret_cast<size_t>(g) % 16 == 0 &&
-                   reinterpret_cast<size_t>(out) % 16 == 0;
-  const long long n = static_cast<long long>(p) * ((c + kN - 1) / kN);
-  const int blocks = static_cast<int>(
-      std::min<long long>((n + kThreads - 1) / kThreads, 1 << 20));
-  auto kern = vec ? voxelize_bwd_kernel<D, true> : voxelize_bwd_kernel<D, false>;
-  kern<<<blocks, kThreads, 0, s>>>(
-      static_cast<const raw*>(g), static_cast<const int*>(inv),
-      static_cast<const int*>(counts), static_cast<raw*>(out), p, c);
+  constexpr int esz = static_cast<int>(sizeof(raw));
+  if (p <= 0 || c <= 0 || layout < kRows || layout > kOld)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(p) * c;
+  // the widest piece that the row and both bases allow
+  int vb = 16;
+  auto fit = [&](size_t x) {
+    while (vb > esz && x % vb) vb /= 2;
+  };
+  fit(static_cast<size_t>(c) * esz);
+  fit(reinterpret_cast<size_t>(g));
+  fit(reinterpret_cast<size_t>(out));
+  constexpr int N = 16 / esz;  // values of a flat piece
+  const bool flat_ok = reinterpret_cast<size_t>(out) % 16 == 0 && total < (1LL << 31) && c >= N;
+  const bool rows_ok = total * esz / vb < (1LL << 32);
+  if (layout == kFlat) {
+    if (!flat_ok) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned pieces = static_cast<unsigned>((total + N - 1) / N);
+    const int blocks = static_cast<int>(std::min<long long>((pieces + kThreads - 1) / kThreads, 1 << 20));
+    voxelize_bwd_flat_kernel<D><<<blocks, kThreads, 0, s>>>(
+        static_cast<const raw*>(g), static_cast<const int*>(inv), static_cast<const int*>(counts),
+        static_cast<raw*>(out), p, c, static_cast<unsigned>(total), pieces);
+  } else if (layout == kRows) {
+    if (!rows_ok) return static_cast<int>(cudaErrorInvalidValue);
+    switch (vb) {
+      case 16: launch_rows<D, 16>(g, inv, counts, out, p, c, s); break;
+      case 8: launch_rows<D, 8>(g, inv, counts, out, p, c, s); break;
+      default:
+        if constexpr (esz == 2) {
+          if (vb == 2) {
+            launch_rows<D, 2>(g, inv, counts, out, p, c, s);
+            break;
+          }
+        }
+        launch_rows<D, 4>(g, inv, counts, out, p, c, s);
+    }
+  } else {
+    constexpr int kN = Row16<D>::kN;
+    const bool vec = c % kN == 0 && reinterpret_cast<size_t>(g) % 16 == 0 &&
+                     reinterpret_cast<size_t>(out) % 16 == 0;
+    const long long n = static_cast<long long>(p) * ((c + kN - 1) / kN);
+    const int blocks = static_cast<int>(
+        std::min<long long>((n + kThreads - 1) / kThreads, 1 << 20));
+    auto kern = vec ? voxelize_bwd_kernel<D, true> : voxelize_bwd_kernel<D, false>;
+    kern<<<blocks, kThreads, 0, s>>>(
+        static_cast<const raw*>(g), static_cast<const int*>(inv),
+        static_cast<const int*>(counts), static_cast<raw*>(out), p, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,14 +609,18 @@ extern "C" int taseg_devox_multi(
 }
 
 // g (V, C), inv (P,) int32 (-1: no voxel), counts (V,) int32 -> out (P, C),
-// g and out f32 or bf16 (dtype)
+// g and out f32 or bf16 (dtype), in `layout`: 1 rows (pieces of the widest
+// of 16, 8, 4 or 2 bytes that the row and both bases allow, P * C values
+// in fewer than 2^32 of them), 2 flat (out 16-byte aligned, P * C < 2^31,
+// C at least a 16-byte piece's values), 3 the first K8 kernel (the
+// yardstick `old_ms`)
 extern "C" int taseg_voxelize_bwd(const void* g, const void* inv,
                                   const void* counts, void* out, int p, int c,
-                                  int dtype, void* stream) {
+                                  int dtype, int layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == taseg::kF32)
-    return launch_voxelize_bwd<F32>(g, inv, counts, out, p, c, s);
+    return launch_voxelize_bwd<F32>(g, inv, counts, out, p, c, layout, s);
   if (dtype == taseg::kBF16)
-    return launch_voxelize_bwd<BF16>(g, inv, counts, out, p, c, s);
+    return launch_voxelize_bwd<BF16>(g, inv, counts, out, p, c, layout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,22 +46,38 @@
 // its rows once per 128-column block (now once); the coarse levels had
 // 1-4 blocks per SM (now split chains).
 //
-// sparse_conv_k_tf32_kernel (f32, C_in % 4 == 0, C_out % 4 == 0: every
-// conv of Cylinder3D, every f32 MinkUNet's 3^3 convs and K3-down's and
-// K3-up's f32 calls over the child and up tables): the f32 tile of gather_mma.cuh (namespace tf32) on
-// 3xTF32 tensor cores, output-stationary over a row order.  The wrapper
-// passes `order`, the rows sorted by their bitmask of present offsets
-// (sparse_conv.mask_row_order, built once per table by the topology); a
-// tile takes 64 consecutive entries of the order, reads their rows'
-// rulebook entries through it, runs only the offsets one of them has and
-// writes out[order[r]].  Rows with equal masks share a tile, so the
-// tile's union of offsets comes near each row's own count, and rows of a group stay in table order (nearby gathers).  Each
-// row sums its offsets in k order with no atomics: the same bits on
-// repeat.  Tiles of rows without offsets write zeros.  A table of few
-// rows (sparse_conv.k_splits: the coarse levels) has too few tiles to
-// fill the card: each tile's chain of (offset, 32-channel) stages is then
-// cut into equal parts run by separate blocks, and a second kernel adds
-// the parts' partials to the first's output in split order.
+// sparse_conv_k_tf32_wgmma_kernel (f32, C_in % 4 == 0, C_out % 4 == 0:
+// every conv of Cylinder3D, every f32 MinkUNet's 3^3 convs, their input
+// gradients, and K3-down's and K3-up's f32 calls over the child and up
+// tables): the Hopper tile of wgmma_tf32.cuh on 3xTF32, output-stationary
+// over a row order.  The wrapper passes `order`, the rows sorted by their
+// bitmask of present offsets (sparse_conv.mask_row_order, built once per
+// table by the topology); a tile takes 64 consecutive entries of the
+// order, reads their rows' rulebook entries through it, runs only the
+// offsets one of them has and writes out[order[r]].  Rows with equal
+// masks share a tile, so the tile's union of offsets comes near each
+// row's own count, and rows of a group stay in table order (nearby
+// gathers).  Each row sums its offsets in k order with no atomics: the
+// same bits on repeat.  Tiles of rows without offsets write zeros.  A
+// table of few rows (sparse_conv.k_splits: the coarse levels) has too few
+// tiles to fill the card: each tile's chain of (offset, 32-channel)
+// stages is then cut into equal parts run by separate blocks, and a
+// second kernel adds the parts' partials to the first's output in split
+// order.  wgmma reads .tf32 operands K-major only, so the weight's B
+// operand is its (K, C_out, C_in) form, split into TF32 high and low
+// parts by tf32_split_kernel (one pass over W read at any strides: the
+// forward's W transposed, the input gradient's W^T as W is stored),
+// once per call or once per served weight.  What held the mma.sync tile
+// it replaced (k_tf32_mma_kernel, gather_mma.cuh namespace tf32, kept
+// off the path as the yardstick `old_ms`) at 18% of its bound on
+// Cylinder's calls (4.43 device ms a scan against 0.80 on an H100 80GB
+// HBM3 at 700 W, chip_smoke.py phase 5e): Ampere's mma.sync m16n8k8 at
+// a quarter of a warpgroup's issue, each operand split again for every
+// fragment load (B once per row block of 32), and a __syncthreads per
+// 32-channel stage with two stages of lookahead; the wgmma tile splits B
+// once per call, runs a warp-specialised 4-stage ring and issues
+// m64nBNk8 for the whole tile (3.51 device ms against the mma.sync tile's
+// 4.03 at the same calls, PERF.md §6).
 //
 // k3_conv_kernel / sparse_conv_k_kernel (any dtype and width; no path
 // calls them since the wrappers pad ragged widths onto the tensor-core
@@ -75,6 +91,7 @@
 
 #include "common.cuh"
 #include "gather_mma.cuh"
+#include "wgmma_tf32.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -197,20 +214,20 @@ __global__ void __launch_bounds__(mma::kThreads)
   mma::store_tile<BN>(acc, out, v, c_out, m0, n0);
 }
 
-// the 3xTF32 tile of one block: 64 rows of the order, T::BN columns.
-// With gridDim.z = S > 1 splits, block z runs the z-th of S equal parts of
-// the tile's stage chain; split 0 writes out (as with one split), split z
-// > 0 its partial at part[z - 1] in order positions and live[z - 1][tile]
-// = whether it had stages; sparse_conv_k_tf32_reduce adds the partials.
+// the mma.sync 3xTF32 tile of one block (off the path since the wgmma
+// tile; kept as its yardstick, chip_smoke.py's `old_ms`, and for
+// tools/k2k_tiles.py): 64 rows of the order, T::BN columns.  With
+// gridDim.z = S > 1 splits, block z runs the z-th of S equal parts of the
+// tile's stage chain; split 0 writes out (as with one split), split z > 0
+// its partial at part[z - 1] in order positions and live[z - 1][tile] =
+// whether it had stages; sparse_conv_k_tf32_reduce adds the partials.
 template <typename T>
 __global__ void __launch_bounds__(taseg::tf32::kThreads)
-    sparse_conv_k_tf32_kernel(const float* __restrict__ feats,
-                              const float* __restrict__ w,
-                              const int* __restrict__ rb,
-                              const int* __restrict__ order,
-                              float* __restrict__ out, float* __restrict__ part,
-                              int* __restrict__ live, int v_out, int c_in,
-                              int c_out, int n_off, int ldo) {
+    k_tf32_mma_kernel(const float* __restrict__ feats, const float* __restrict__ w,
+                      const int* __restrict__ rb, const int* __restrict__ order,
+                      float* __restrict__ out, float* __restrict__ part,
+                      int* __restrict__ live, int v_out, int c_in, int c_out, int n_off,
+                      int ldo) {
   namespace tf = taseg::tf32;
   extern __shared__ __align__(16) unsigned char smem[];
   const tf::Smem s = tf::carve<T>(smem, n_off);
@@ -287,10 +304,10 @@ __global__ void sparse_conv_k_tf32_reduce(const float* __restrict__ part,
   }
 }
 
-// launch the 3xTF32 kernel with tile T over `splits` parts of each tile's
-// chain (part: (splits - 1, v_out, c_out) f32, live: (splits - 1,
-// row tiles) int32 scratch when splits > 1), then the reduction, out rows
-// of ldo columns; returns the CUDA error
+// launch the mma.sync 3xTF32 kernel with tile T over `splits` parts of
+// each tile's chain (part: (splits - 1, v_out, c_out) f32, live: (splits
+// - 1, row tiles) int32 scratch when splits > 1), then the reduction, out
+// rows of ldo columns; returns the CUDA error
 template <typename T>
 int launch_k_tf32(const void* feats, const void* w, const void* rb,
                   const void* order, void* out, void* part, void* live,
@@ -300,13 +317,13 @@ int launch_k_tf32(const void* feats, const void* w, const void* rb,
   if (splits < 1 || (splits > 1 && (part == nullptr || live == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = tf::smem_bytes<T>(n_off);
-  cudaError_t e = cudaFuncSetAttribute(sparse_conv_k_tf32_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(k_tf32_mma_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (v_out + tf::kBM - 1) / tf::kBM;
   const dim3 grid(tiles, (c_out + T::BN - 1) / T::BN, splits);
-  sparse_conv_k_tf32_kernel<T><<<grid, tf::kThreads, bytes, stream>>>(
+  k_tf32_mma_kernel<T><<<grid, tf::kThreads, bytes, stream>>>(
       static_cast<const float*>(feats), static_cast<const float*>(w),
       static_cast<const int*>(rb), static_cast<const int*>(order),
       static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(live),
@@ -327,6 +344,148 @@ int launch_k_tf32(const void* feats, const void* w, const void* rb,
 struct K2Rows {};
 struct DownSlots {};
 struct UpSlots {};
+
+// The B operand of the 3xTF32 wgmma tile: w (K, c_in, c_out) f32 read at
+// strides (s_k, s_ci, s_co) -> hi and lo, (K, c_out, c_in) each, the
+// K-major form wgmma reads, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x -
+// hi).  32 x 32 tiles through shared memory, read along w's unit-stride
+// axis (C_out for W as stored, C_in for the input gradient's W^T, a
+// transposed view of W) and written along C_in.  Grid (c_in / 32,
+// c_out / 32, K), blocks of 32 x 8.
+__global__ void tf32_split_kernel(const float* __restrict__ w, float* __restrict__ hi,
+                                  float* __restrict__ lo, int c_in, int c_out, int s_k, int s_ci,
+                                  int s_co) {
+  __shared__ float t[32][33];  // [n - n0][c - c0]
+  const int c0 = blockIdx.x * 32, n0 = blockIdx.y * 32, k = blockIdx.z;
+  const bool n_major = s_co == 1;
+  const float* wk = w + static_cast<size_t>(k) * s_k;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n_major ? n0 + threadIdx.x : n0 + i;
+    const int c = n_major ? c0 + i : c0 + threadIdx.x;
+    const float x = n < c_out && c < c_in
+                        ? wk[static_cast<size_t>(c) * s_ci + static_cast<size_t>(n) * s_co]
+                        : 0.f;
+    if (n_major)
+      t[threadIdx.x][i] = x;
+    else
+      t[i][threadIdx.x] = x;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i, c = c0 + threadIdx.x;
+    if (n >= c_out || c >= c_in) continue;
+    uint32_t h, l;
+    taseg::wt::split(t[i][threadIdx.x], h, l);
+    const size_t o = (static_cast<size_t>(k) * c_out + n) * c_in + c;
+    hi[o] = __uint_as_float(h);
+    lo[o] = __uint_as_float(l);
+  }
+}
+
+// the 3xTF32 wgmma tile of one block: 64 entries of the order
+// (blockIdx.x), columns [n0, n0 + BN) (blockIdx.y), part z of the tile's
+// chain (blockIdx.z of S).  Split 0 writes out (as with one split), split
+// z > 0 its partial at part[z - 1] in order positions and live[z -
+// 1][tile] = whether it had stages; sparse_conv_k_tf32_reduce adds them.
+// whi / wlo: the weight's split K-major operand (tf32_split_kernel).
+template <typename T>
+__global__ void __launch_bounds__(taseg::wt::kThreads, T::MIN_BLOCKS)
+    sparse_conv_k_tf32_wgmma_kernel(const float* __restrict__ feats,
+                                    const float* __restrict__ whi,
+                                    const float* __restrict__ wlo,
+                                    const int* __restrict__ rb, const int* __restrict__ order,
+                                    float* __restrict__ out, float* __restrict__ part,
+                                    int* __restrict__ live, int v_out, int c_in, int c_out,
+                                    int n_off, int ldo) {
+  namespace wg = taseg::wg;
+  namespace wt = taseg::wt;
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wt::carve<T>(smem_raw, n_off);
+  const int m0 = blockIdx.x * wt::kBM, n0 = blockIdx.y * T::BN;
+  if (threadIdx.x < wt::kBM) {
+    const int r = m0 + threadIdx.x;
+    s.rows[threadIdx.x] = r < v_out ? order[r] : -1;
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wt::kStages; ++i) {
+      wg::mbar_init(s.full + i, wt::kProducers);
+      wg::mbar_init(s.empty + i, wt::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_off * wt::kBM; e += wt::kThreads) {
+    const int k = e / wt::kBM, row = s.rows[e % wt::kBM];
+    s.idx[e] = row >= 0 ? rb[static_cast<size_t>(k) * v_out + row] : -1;
+  }
+  __syncthreads();
+  const int total = wg::present_offsets(s, n_off) * ((c_in + wt::kBK - 1) / wt::kBK);
+  const int z = blockIdx.z, per = (total + gridDim.z - 1) / gridDim.z;
+  const int t0 = min(total, z * per), t1 = min(total, t0 + per);
+  if (z > 0) {
+    if (threadIdx.x == 0 && blockIdx.y == 0)
+      live[(z - 1) * gridDim.x + blockIdx.x] = t0 < t1;
+    if (t0 >= t1) return;
+  }
+  if (threadIdx.x >= wt::kConsumers) {
+    wt::produce<T>(s, t0, t1, feats, whi, wlo, c_in, c_out, n0);
+    return;
+  }
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  wt::consume<T>(s, t1 - t0, acc);
+  if (z == 0)
+    wt::store<T::BN>(s, acc, out, ldo, n0, -1);
+  else
+    wt::store<T::BN>(s, acc, part + static_cast<size_t>(z - 1) * v_out * c_out, c_out, n0, m0);
+}
+
+// launch the 3xTF32 wgmma route: where `fresh`, first split w (K, c_in,
+// c_out) at strides (s_k, s_ci, s_co) into wsplit (2, K, c_out, c_in)
+// (else wsplit holds that operand already), then the tile over `splits`
+// parts of each tile's chain (part: (splits - 1, v_out, c_out) f32, live:
+// (splits - 1, row tiles) int32 scratch when splits > 1), then the
+// reduction, out rows of ldo columns; returns the CUDA error
+template <typename T>
+int launch_tf32_wgmma(const void* feats, const void* w, const void* rb, const void* order,
+                      void* out, void* part, void* live, void* wsplit, bool fresh, int s_k,
+                      int s_ci, int s_co, int v_out, int c_in, int c_out, int n_off, int splits,
+                      cudaStream_t stream, int ldo) {
+  namespace wt = taseg::wt;
+  if (splits < 1 || (splits > 1 && (part == nullptr || live == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute once per kernel at its largest size (K = 32 offsets)
+  static const cudaError_t set = cudaFuncSetAttribute(
+      sparse_conv_k_tf32_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(wt::smem_bytes<T>(32)));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  float* hi = static_cast<float*>(wsplit);
+  float* lo = hi + static_cast<size_t>(n_off) * c_out * c_in;
+  cudaError_t e;
+  if (fresh) {
+    const dim3 g((c_in + 31) / 32, (c_out + 31) / 32, n_off);
+    tf32_split_kernel<<<g, dim3(32, 8), 0, stream>>>(static_cast<const float*>(w), hi, lo, c_in,
+                                                     c_out, s_k, s_ci, s_co);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int tiles = (v_out + wt::kBM - 1) / wt::kBM;
+  const dim3 grid(tiles, (c_out + T::BN - 1) / T::BN, splits);
+  sparse_conv_k_tf32_wgmma_kernel<T><<<grid, wt::kThreads, wt::smem_bytes<T>(n_off), stream>>>(
+      static_cast<const float*>(feats), hi, lo, static_cast<const int*>(rb),
+      static_cast<const int*>(order), static_cast<float*>(out), static_cast<float*>(part),
+      static_cast<int*>(live), v_out, c_in, c_out, n_off, ldo);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const size_t n = static_cast<size_t>(v_out) * (c_out / 4);
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  sparse_conv_k_tf32_reduce<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(live),
+      static_cast<const int*>(order), static_cast<float*>(out), v_out, c_out, ldo, splits - 1,
+      tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // the wgmma tile of one block: 64 entries of the order (blockIdx.x),
 // columns [n0, n0 + BN) (blockIdx.y), part z of the tile's chain
@@ -527,18 +686,44 @@ extern "C" int taseg_sparse_conv_k(const void* feats, const void* w,
                      static_cast<cudaStream_t>(stream));
 }
 
-// the 3xTF32 route of the K-offset conv: f32, C_in and C_out multiples of
-// 4, feats and w 16-byte aligned, 1 <= n_off <= 32; order (v_out,) int32,
-// a permutation of the output rows (sparse_conv.mask_row_order(rb));
+// the 3xTF32 route of the K-offset conv (and of K3's f32 calls over the
+// child and up tables): f32, C_in and C_out multiples of 4, feats 16-byte
+// aligned, 1 <= n_off <= 32; w (n_off, C_in, C_out) f32 at element
+// strides (s_k, s_ci, s_co), any layout (the input gradient's W^T is a
+// transposed view of W); wsplit (2, n_off, C_out, C_in) f32 scratch for
+// w's split K-major operand, filled here where `fresh`, else filled by
+// an earlier call on the same weight; order (v_out,) int32, a
+// permutation of the output rows (sparse_conv.mask_row_order(rb));
 // `splits` parts of each tile's chain (sparse_conv.k_splits), with part
 // (splits - 1, v_out, c_out) f32 and live (splits - 1, ceil(v_out / 64))
 // int32 scratch when splits > 1; out rows of ldo <= c_out columns (the
 // first ldo of those computed: a ragged width padded to c_out)
-extern "C" int taseg_sparse_conv_k_tf32(const void* feats, const void* w,
-                                        const void* rb, const void* order,
-                                        void* out, void* part, void* live,
-                                        int v_out, int c_in, int c_out,
-                                        int n_off, int splits, int ldo, void* stream) {
+extern "C" int taseg_sparse_conv_k_tf32(const void* feats, const void* w, const void* rb,
+                                        const void* order, void* out, void* part, void* live,
+                                        void* wsplit, int fresh, int s_k, int s_ci, int s_co,
+                                        int v_out, int c_in, int c_out, int n_off, int splits,
+                                        int ldo, void* stream) {
+  namespace wt = taseg::wt;
+  if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 4 != 0 || c_out % 4 != 0 ||
+      n_off <= 0 || n_off > 32 || ldo <= 0 || ldo > c_out || wsplit == nullptr ||
+      (fresh && w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wt::with_tile(c_out, [&](auto bn) {
+    using T = wt::Tile<decltype(bn)::value>;
+    return launch_tf32_wgmma<T>(feats, w, rb, order, out, part, live, wsplit, fresh != 0, s_k,
+                                s_ci, s_co, v_out, c_in, c_out, n_off, splits,
+                                static_cast<cudaStream_t>(stream), ldo);
+  });
+}
+
+// the mma.sync 3xTF32 tile that route replaced (off the path: the
+// yardstick `old_ms`), at the same calls: w (n_off, C_in, C_out)
+// contiguous, 16-byte aligned; the other arguments as above
+extern "C" int taseg_sparse_conv_k_tf32_mma(const void* feats, const void* w,
+                                            const void* rb, const void* order,
+                                            void* out, void* part, void* live,
+                                            int v_out, int c_in, int c_out,
+                                            int n_off, int splits, int ldo, void* stream) {
   namespace tf = taseg::tf32;
   if (v_out <= 0 || c_in <= 0 || c_out <= 0 || c_in % 4 != 0 ||
       c_out % 4 != 0 || n_off <= 0 || n_off > 32 || ldo <= 0 || ldo > c_out)

@@ -125,10 +125,11 @@ _SIGNATURES = {
     "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_identity": [_P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_multi": [_P, _P, _P, _I, _I] * 3 + [_I, _P, _P, _I, _I, _I, _P],
-    "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "taseg_voxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "taseg_sparse_conv_k_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_k_tf32": [_P] * 8 + [_I] * 10 + [_P],
+    "taseg_sparse_conv_k_tf32_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -269,11 +270,12 @@ def wgmma_blocks_per_sm(c_in: int, c_out: int, n_off: int) -> int:
     return n.value
 
 
-def check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
-    """Raise unless `t` is a contiguous tensor of one of `dtypes`, with
-    `ndim` dimensions, on `device`."""
+def check(name: str, t: torch.Tensor, dtypes, ndim: int, device, contiguous: bool = True) -> None:
+    """Raise unless `t` is a tensor of one of `dtypes`, with `ndim`
+    dimensions, on `device`, and contiguous (any strides where not
+    `contiguous`)."""
     if (isinstance(t, torch.Tensor) and t.dtype in dtypes and t.dim() == ndim
-            and t.device == device and t.is_contiguous()):
+            and t.device == device and (t.is_contiguous() or not contiguous)):
         return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -283,7 +285,7 @@ def check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
 

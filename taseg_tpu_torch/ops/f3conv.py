@@ -482,9 +482,10 @@ def bwd_operands(feats: torch.Tensor, weight: torch.Tensor, grad: torch.Tensor) 
     """(g, W^T) for a conv's backward: the cotangent in feats' dtype,
     zero-padded on CUDA tensors to the tensor-core routes' width once for
     both kernels that read it (the input gradient's conv and the weight
-    gradient), and the transposed weight (contiguous, at its own widths:
-    the conv wrapper pads it)."""
-    return padded_feats(grad.to(feats.dtype), weight.shape[2]), weight.transpose(1, 2).contiguous()
+    gradient), and the transposed weight as a view of W (no copy: the
+    3xTF32 route reads it as W is stored, K-major; the other routes pad
+    or copy it to their own layout)."""
+    return padded_feats(grad.to(feats.dtype), weight.shape[2]), weight.transpose(1, 2)
 
 
 def f3_bwd_fused(

@@ -48,12 +48,17 @@ table of the other direction: `flip_rulebook(rb)` for an odd kernel on
 one coordinate set, the down / up table pair (`rulebook.build_rulebook`
 and `build_reverse_rulebook`) between two levels.
 
-K2 at K picks its kernel by `k_route`: in f32 the 3xTF32 tensor-core
-tile over the rows in `mask_row_order(rb)` (rows with equal sets of
-present offsets share a 64-row tile, so a tile runs about the offsets
-its rows have); in bf16 the wgmma tile over the same order; both at
-padded widths.  A `KTable` carries a table with its order and, where a
-weight gradient reads it, its pair lists, built once by the topology.
+K2 at K picks its kernel by `k_route`: in f32 the 3xTF32 wgmma tile
+over the rows in `mask_row_order(rb)` (rows with equal sets of present
+offsets share a 64-row tile, so a tile runs about the offsets its rows
+have); in bf16 the bf16 wgmma tile over the same order; both at padded
+widths.  wgmma reads f32 (TF32) operands K-major only, so the 3xTF32
+tile reads the weight as (K, C_out, C_in), split into its TF32 high and
+low parts by the launch (`tf32_operand`): the launch takes the weight at
+any strides, and the input gradient's W^T, a transposed view of W, is
+read as W is stored (no transposed copy).  A `KTable` carries a table
+with its order and, where a weight gradient reads it, its pair lists,
+built once by the topology.
 """
 
 from __future__ import annotations
@@ -109,7 +114,8 @@ def pad_cols(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def pad_weight(w: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
-    """w (K, C_in0, C_out0) with zero rows and columns up to (c_in, c_out).
+    """w (K, C_in0, C_out0) with zero rows and columns up to (c_in, c_out)
+    (w itself, at its strides, where it has them; else a contiguous copy).
     A weight that takes no gradient (a served model's: `layers.SparseConv`
     keeps its cast kernel while the kernel is unchanged) keeps its padded
     copy beside it while its version holds, so a served conv pads its
@@ -229,6 +235,7 @@ def launch_wgmma(
     _build.check("order", order, (torch.int32,), 1, dev)
     if order.shape != (v_out,):
         raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
+    weight = weight.contiguous()  # the input gradient's W^T comes as a view
     _build.check_aligned(feats=feats, weight=weight)
     splits = wgmma_splits(v_out, rb.shape[0], feats.shape[1])
     part = live = None
@@ -244,17 +251,93 @@ def launch_wgmma(
     )
 
 
+# the 3xTF32 wgmma tile (csrc/wgmma_tf32.cuh): 64 order entries by BN
+# output columns (the least of TF32_TILE_COLS that holds C_out; wider convs
+# run several 128-column blocks, each gathering its rows), stages of 32
+# input channels (one 128-byte row each) in a ring of 4, each stage A
+# (64 rows) and B's high and low parts (BN rows each); tiles of BN <= 64
+# run two blocks an SM
+TF32_TILE_COLS = (16, 32, 64, 96, 128)
+TF32_STAGE_CHANNELS = 32
+TF32_RING = 4
+SMEM_PER_BLOCK = 232448  # the H100's dynamic shared memory a block may use
+
+
+class Tf32Tile(NamedTuple):
+    """The 3xTF32 wgmma tile's plan for one call."""
+
+    bn: int             # output columns a block
+    column_blocks: int  # blocks across C_out (each gathers the rows again)
+    chunks: int         # stages per present offset: C_in / 32
+    smem_bytes: int     # dynamic shared memory a block
+    blocks_per_sm: int  # resident blocks an SM
+
+
+def tf32_tile(c_in: int, c_out: int, n_off: int) -> Tf32Tile:
+    """The 3xTF32 wgmma tile's plan at widths c_in, c_out (multiples of 4,
+    as the wrappers pad them) over n_off offsets: the kernel's own choice
+    (`wt::with_tile`, `wt::smem_bytes`, `Tile::MIN_BLOCKS`), for tools and
+    tests."""
+    bn = next((b for b in TF32_TILE_COLS if c_out <= b), TF32_TILE_COLS[-1])
+    row = 4 * TF32_STAGE_CHANNELS
+    smem = (1024 + TF32_RING * (K_TILE_ROWS * row + 2 * bn * row) + 2 * TF32_RING * 8
+            + n_off * K_TILE_ROWS * 4 + K_TILE_ROWS * 4 + 32 * 4 + 8 * 4)
+    return Tf32Tile(bn, -(-c_out // bn), -(-c_in // TF32_STAGE_CHANNELS), smem, 2 if bn <= 64 else 1)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32` rounds a finite value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_plain(weight: torch.Tensor) -> torch.Tensor:
+    """The plain version of the weight split (`tf32_split_kernel`): weight
+    (K, C_in, C_out) f32 at any strides -> (2, K, C_out, C_in), its TF32
+    high part hi = rna(w) and low part rna(w - hi), K-major."""
+    w = weight.transpose(1, 2).float()
+    hi = tf32_round(w)
+    return torch.stack([hi, tf32_round(w - hi)])
+
+
+def tf32_operand(weight: torch.Tensor) -> tuple:
+    """(buffer, fresh): the (2, K, C_out, C_in) f32 buffer of the 3xTF32
+    wgmma tile's B operand for weight (K, C_in, C_out) (its TF32 high and
+    low parts, K-major: `tf32_split_plain`), and whether the launch must
+    fill it.  A weight that takes no gradient (a served model's, kept by
+    `layers.SparseConv.kernel_as` and padded once by `pad_weight`) keeps
+    its filled operand beside it while its version holds (`keep_tf32`),
+    so a served conv splits its weight once."""
+    k, c_in, c_out = weight.shape
+    shape = (2, k, c_out, c_in)
+    hit = None if weight.requires_grad else getattr(weight, "_taseg_tf32", None)
+    if hit is not None and hit[0] == weight._version and hit[1].shape == shape:
+        return hit[1], False
+    return torch.empty(shape, dtype=torch.float32, device=weight.device), True
+
+
+def keep_tf32(weight: torch.Tensor, buf: torch.Tensor) -> None:
+    """Keep the operand `buf` that a launch filled beside a weight that
+    takes no gradient (see `tf32_operand`)."""
+    if not weight.requires_grad:
+        weight._taseg_tf32 = (weight._version, buf)
+
+
 def launch_k_tf32(
     feats: torch.Tensor, weight: torch.Tensor, rb: torch.Tensor,
     order: Optional[torch.Tensor], out: torch.Tensor, counters: tuple,
     splits: Optional[int] = None,
 ) -> None:
-    """K2 at K's 3xTF32 route (and K3-down's f32 one, on the child
-    table): feats (V_in, C_in) and weight (K, C_in, C_out) f32 with widths
-    in 4s, rb (K, V_out) int32, order rb's `mask_row_order` (built here
-    when None) -> out (V_out, <= C_out): the output's first columns, with
-    `splits` parts per tile chain (K2 at K's rule `k_splits(V_out)` where
-    None)."""
+    """K2 at K's 3xTF32 route (and K3's f32 one, on the child and up
+    tables), the wgmma tile: feats (V_in, C_in) and weight (K, C_in,
+    C_out) f32 with widths in 4s, the weight at any strides (the input
+    gradient's W^T, a transposed view of W, is read as W is stored), rb
+    (K, V_out) int32, order rb's `mask_row_order` (built here when None)
+    -> out (V_out, <= C_out): the output's first columns, with `splits`
+    parts per tile chain (K2 at K's rule `k_splits(V_out)` where None).
+    The launch splits the weight into its K-major TF32 operand first,
+    unless the weight keeps one (`tf32_operand`)."""
     dev = feats.device
     v_out, c_out = out.shape[0], weight.shape[2]
     if order is None:
@@ -262,19 +345,23 @@ def launch_k_tf32(
     _build.check("order", order, (torch.int32,), 1, dev)
     if order.shape != (v_out,):
         raise ValueError(f"order {tuple(order.shape)} does not fit ({v_out},)")
-    _build.check_aligned(feats=feats, weight=weight)
+    _build.check_aligned(feats=feats)
     if splits is None:
         splits = k_splits(v_out)
     part = live = None
     if splits > 1:
         part = torch.empty((splits - 1, v_out, c_out), dtype=torch.float32, device=dev)
         live = torch.empty((splits - 1, -(-v_out // K_TILE_ROWS)), dtype=torch.int32, device=dev)
+    buf, fresh = tf32_operand(weight)
     _build.launch(
         "taseg_sparse_conv_k_tf32", counters,
         feats.data_ptr(), weight.data_ptr(), rb.data_ptr(), order.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), None if live is None else live.data_ptr(),
+        buf.data_ptr(), int(fresh), *weight.stride(),
         v_out, feats.shape[1], c_out, rb.shape[0], splits, out.shape[1],
     )
+    if fresh:
+        keep_tf32(weight, buf)
 
 
 class KTable(NamedTuple):
@@ -377,14 +464,14 @@ def sparse_conv_k3(
     *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """feats (V, C_in) (or zero-padded to `padded_width(C_in)`), weight
-    (27, C_in, C_out) in feats' dtype, rb (27, V) int32 -> (V, C_out) in
-    feats' dtype.  The wgmma route
+    (27, C_in, C_out) in feats' dtype (at any strides), rb (27, V) int32
+    -> (V, C_out) in feats' dtype.  The wgmma route
     reads `order`, rb's `mask_row_order` (the level's `k3_order`; built
     here when not given).  `dgrad` marks a call that computes an input
     gradient: its launch also counts under `sparse_conv_k3_dgrad`."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
-    _build.check("weight", weight, (feats.dtype,), 3, dev)
+    _build.check("weight", weight, (feats.dtype,), 3, dev, contiguous=False)
     _build.check("rb", rb, (torch.int32,), 2, dev)
     v, c_in = feats.shape[0], weight.shape[1]
     if weight.shape[0] != 27 or not takes_cols(feats, c_in) or rb.shape != (27, v):
@@ -400,7 +487,7 @@ def sparse_conv_k3(
     if route(feats.dtype, c_in, c_out) == "wgmma":
         counters = _build.counters("sparse_conv_k3", dgrad=dgrad, suffix="_wgmma")
         return padded_call(feats, weight, v, lambda x, w, o: launch_wgmma(x, w, rb, order, o, counters))
-    feats = logical_cols(feats, c_in).contiguous()
+    feats, weight = logical_cols(feats, c_in).contiguous(), weight.contiguous()
     out = torch.empty((v, c_out), dtype=feats.dtype, device=dev)
     _build.launch(
         "taseg_sparse_conv_k3", _build.counters("sparse_conv_k3", dgrad=dgrad),
@@ -481,7 +568,8 @@ def sparse_conv(
     *, dgrad: bool = False, order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2 at K offsets: feats (V_in, C_in) (or zero-padded to
-    `padded_width(C_in)`), weight (K, C_in, C_out) in feats' dtype, rb
+    `padded_width(C_in)`), weight (K, C_in, C_out) in feats' dtype (at
+    any strides: the input gradient passes W^T as a view of W), rb
     (K, V_out) int32 of feats rows (-1: none), 1 <= K <= 32 -> (V_out,
     C_out) in feats' dtype, summed in f32 and rounded once.  The 3xTF32 and wgmma
     routes read `order`, rb's `mask_row_order` (built here when not
@@ -489,7 +577,7 @@ def sparse_conv(
     `sparse_conv_k_dgrad`)."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
-    _build.check("weight", weight, (feats.dtype,), 3, dev)
+    _build.check("weight", weight, (feats.dtype,), 3, dev, contiguous=False)
     _build.check("rb", rb, (torch.int32,), 2, dev)
     k, v_out = rb.shape
     c_in = weight.shape[1]

@@ -310,7 +310,8 @@ def upsample_conv_up_plain(feats, weight, up: torch.Tensor):
 def _check_weights(feats, weight):
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
-    _build.check("weight", weight, (feats.dtype,), 3, dev)
+    # any strides: the input gradient passes W^T as a view of W
+    _build.check("weight", weight, (feats.dtype,), 3, dev, contiguous=False)
     if weight.shape[0] != 8 or not takes_cols(feats, weight.shape[1]):
         raise ValueError(
             f"weight {tuple(weight.shape)} does not fit feats "
@@ -389,9 +390,9 @@ def downsample_conv_apply(
 
     if feats.dtype == torch.bfloat16:  # the round tile copies 16-byte pieces too
         ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
-        feats, weight = pad_cols(feats, ci), pad_weight(weight, ci, co)
+        feats, weight = pad_cols(feats, ci), pad_weight(weight, ci, co).contiguous()
     else:
-        feats = logical_cols(feats, c_in).contiguous()
+        feats, weight = logical_cols(feats, c_in).contiguous(), weight.contiguous()
     out = torch.empty((v_coarse, weight.shape[2]), dtype=feats.dtype, device=feats.device)
     rounds(feats, weight, out)
     return unpad(out, c_out)

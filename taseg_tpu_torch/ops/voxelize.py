@@ -264,11 +264,37 @@ def _voxelize_bwd_plain(g, inverse, counts):
     return torch.where((inverse >= 0)[:, None], scaled[inverse.clamp(min=0).long()], 0)
 
 
+# K8's layouts (csrc/devoxelize.cu): the C entry's `layout` codes
+K8_LAYOUTS = {"rows": 1, "flat": 2, "old": 3}
+
+
+def voxelize_bwd_plan(c: int, esz: int, base: int, values: int = 0) -> tuple:
+    """(layout, piece bytes) of K8 for rows of `c` values of `esz` bytes
+    whose g starts `base` bytes past a 16-byte boundary (its output, a
+    new tensor, starts on one), `values` = P * C in all: "rows" (one
+    thread a (point, piece), the piece the widest of 16, 8, 4 or 2 bytes
+    that the row's bytes and g's base allow) where that is 16 bytes or the
+    row is narrower than 16 bytes; else "flat" (one thread 16 bytes of the
+    flat output, its values gathered from the rows they fall in: 51 bf16,
+    409 f32).  Calls of 2^31 values or more take the first K8 kernel
+    ("old"), which counts in 64 bits."""
+    piece = 16
+    for x in (c * esz, base):
+        while piece > esz and x % piece:
+            piece //= 2
+    if values >= 2**31:
+        return "old", 16
+    if piece == 16 or c * esz < 16:
+        return "rows", piece
+    return "flat", 16
+
+
 def voxelize_bwd(g: torch.Tensor, inverse: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """K8, the gradient of `voxelize_avg`: out[p] = g[inverse[p]] /
     max(counts[inverse[p]], 1), the count rounded to g's dtype first, and
     +0 where inverse[p] < 0; (V, C) f32 or bf16, (P,) and (V,) int32 ->
-    (P, C) in g's dtype."""
+    (P, C) in g's dtype.  One launch in the layout `voxelize_bwd_plan`
+    picks from the row's alignment."""
     dev = g.device
     _build.check("g", g, tuple(DTYPE_CODES), 2, dev)
     _build.check("inverse", inverse, (torch.int32,), 1, dev)
@@ -281,9 +307,10 @@ def voxelize_bwd(g: torch.Tensor, inverse: torch.Tensor, counts: torch.Tensor) -
     out = torch.empty((p, c), dtype=g.dtype, device=dev)
     if p == 0 or c == 0:
         return out
+    layout, _ = voxelize_bwd_plan(c, g.element_size(), g.data_ptr() % 16, p * c)
     _build.launch(
         "taseg_voxelize_bwd", ("voxelize_bwd",), g.data_ptr(), inverse.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), p, c, DTYPE_CODES[g.dtype],
+        counts.data_ptr(), out.data_ptr(), p, c, DTYPE_CODES[g.dtype], K8_LAYOUTS[layout],
     )
     return out
 

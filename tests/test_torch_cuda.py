@@ -2024,3 +2024,125 @@ def test_cr16_narrow_scan_card_equals_cpu(cuda, name):
     Segmenter(cfg, {"params": p, "batch_stats": s}, "cuda", compute_dtype="bfloat16",
               point_capacity=4096).predict([scan])
     assert _build.LAUNCHES["sparse_conv_k3"] == _build.LAUNCHES["sparse_conv_k3_wgmma"] == 18
+
+
+# ------------------------------------------ 3xTF32 on wgmma; K8's layouts
+# f32 (C_in, C_out) of the recipes' K2-at-K and K3 calls: Cylinder's 32-512
+# (its convs reach 512 -> 512), TIAF's main branch (96 and 128 -> 96), the
+# heads' 128 -> 20 and Waymo's 128 -> 23 (padded to 24), and ragged widths
+# padded to 4s (the stems' C_in 5 and 84, 51 -> 102)
+TF32_WGMMA_WIDTHS = [
+    (32, 32), (32, 64), (64, 128), (128, 128), (128, 256), (256, 512), (512, 512), (512, 256),
+    (96, 96), (128, 96), (128, 20), (128, 23), (5, 32), (84, 32), (51, 102),
+]
+
+
+@pytest.mark.parametrize("kind", ("asym9", "recon3", "down8", "up4", "head27"))
+@pytest.mark.parametrize("c_in,c_out", TF32_WGMMA_WIDTHS)
+def test_tf32_wgmma_k2_at_k_both_ways(cuda, kind, c_in, c_out):
+    """K2 at K on the 3xTF32 wgmma tile: the forward (W as stored, which
+    the launch splits and transposes) and the input gradient (W^T handed
+    as a transposed view of W, read as W is stored) within 1e-5 of the
+    largest sum of |terms| of the plain version and the same bits on
+    repeat, with the table's chains cut (`k_splits`) and uncut; one
+    `sparse_conv_k_tf32` launch a call, none on another route."""
+    rng = np.random.default_rng(c_in * 1000 + c_out)
+    rb, rb_bwd, v_in = _k_tables(cuda, kind)
+    k, v_out = rb.shape
+    x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+    w = _rand(rng, (k, c_in, c_out), cuda, torch.float32)
+    g = _rand(rng, (v_out, c_out), cuda, torch.float32)
+    w_t = w.transpose(1, 2)
+    assert not w_t.is_contiguous()
+    _build.reset_launches()
+    out = _twice_same(lambda: tsc.sparse_conv(x, w, rb))
+    d = _twice_same(lambda: tsc.sparse_conv(g, w_t, rb_bwd, dgrad=True))
+    L = _build.LAUNCHES
+    assert (L["sparse_conv_k"], L["sparse_conv_k_tf32"], L["sparse_conv_k_dgrad_tf32"], L["sparse_conv_k_wgmma"]) == (
+        4, 4, 2, 0)
+    plain = tsc.sparse_conv_plain
+    _close(out, plain(x, w, rb), plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+    _close(d, plain(g, w_t, rb_bwd), plain(g.abs(), w_t.abs(), rb_bwd), torch.float32, 1e-5)
+    ci, co = tsc.padded_width(torch.float32, c_in), tsc.padded_width(torch.float32, c_out)
+    uncut = torch.empty(v_out, c_out, device=cuda)
+    tsc.launch_k_tf32(tsc.pad_cols(x, ci), tsc.pad_weight(w, ci, co), rb, None, uncut, (), splits=1)
+    _close(uncut, plain(x, w, rb), plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+
+
+def test_tf32_wgmma_served_weight_is_split_once(cuda):
+    """A weight that takes no gradient keeps its split operand: the next
+    call reuses it (no split) with the same bits; an in-place change of
+    the weight splits it again and the output follows the new weight; a
+    weight that takes a gradient is split on every call."""
+    rng = np.random.default_rng(5)
+    rb, _, v_in = _k_tables(cuda, "asym9")
+    x = _rand(rng, (v_in, 64), cuda, torch.float32)
+    w = _rand(rng, (9, 64, 32), cuda, torch.float32)
+    first = tsc.sparse_conv(x, w, rb)
+    buf, fresh = tsc.tf32_operand(w)
+    assert not fresh and buf is w._taseg_tf32[1]
+    assert torch.equal(tsc.sparse_conv(x, w, rb), first) and w._taseg_tf32[1] is buf
+    w.mul_(2.0)
+    assert tsc.tf32_operand(w)[1]
+    _close(tsc.sparse_conv(x, w, rb), tsc.sparse_conv_plain(x, w, rb),
+           tsc.sparse_conv_plain(x.abs(), w.abs(), rb), torch.float32, 1e-5)
+    trained = w.clone().requires_grad_()
+    for _ in range(2):
+        assert tsc.tf32_operand(trained)[1]
+        tsc.sparse_conv(x, trained, rb)
+    assert not hasattr(trained, "_taseg_tf32")
+
+
+@pytest.mark.parametrize("case", ["path", "ragged", "dead"])
+@pytest.mark.parametrize("c_in,c_out", [(32, 64), (64, 32), (128, 256), (256, 128), (96, 96), (51, 102)])
+def test_tf32_wgmma_k3_both_ways(cuda, case, c_in, c_out):
+    """K3 in f32 on the 3xTF32 wgmma tile, both ways and as each other's
+    input gradient (W^T a view of W): K3-down over the child table within
+    1e-4 of the largest sum of |terms| (its plain version sums by a
+    mean-centred cumsum), K3-up over the up table within 1e-5, the same
+    bits on repeat, every launch on the `_tf32` route."""
+    rng, v_fine, tab, n2 = _down_case(cuda, case)
+    tab = replace(tab, child=tst.slot_child_table(tab, rounds=1), up=tst.slot_up_table(tab))
+    tab = replace(tab, child_order=tsc.mask_row_order(tab.child[0]), up_order=tsc.mask_row_order(tab.up))
+    v_coarse = tab.starts.shape[0] - 1
+    xf = _rand(rng, (v_fine, c_in), cuda, torch.float32)
+    xc = _rand(rng, (v_coarse, c_in), cuda, torch.float32)
+    w = _rand(rng, (8, c_in, c_out), cuda, torch.float32)
+    w_t = _rand(rng, (8, c_out, c_in), cuda, torch.float32).transpose(1, 2)
+    _build.reset_launches()
+    down = _twice_same(lambda: tst.downsample_conv_apply(xf, w, tab))
+    up = _twice_same(lambda: tst.upsample_conv_apply(xc, w_t, tab, dgrad=True))
+    L = _build.LAUNCHES
+    assert (L["strided_down"], L["strided_down_tf32"], L["strided_up"], L["strided_up_tf32"],
+            L["strided_up_dgrad_tf32"]) == (2, 2, 2, 2, 2)
+    _close(down, tst.downsample_conv_plain(xf, w, tab), tst.downsample_conv_plain(xf.abs(), w.abs(), tab),
+           torch.float32, 1e-4)
+    _close(up, tst.upsample_conv_plain(xc, w_t, tab), tst.upsample_conv_plain(xc.abs(), w_t.abs(), tab),
+           torch.float32, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,c", [
+    (torch.bfloat16, 51), (torch.float32, 204), (torch.float32, 409), (torch.bfloat16, 153),
+    (torch.bfloat16, 409), (torch.bfloat16, 64), (torch.float32, 96), (torch.bfloat16, 20), (torch.float32, 3),
+])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_voxelize_bwd_layouts_bit_equal(cuda, dtype, c, misaligned):
+    """K8 in each layout (the rows layout in its widest piece, the flat
+    layout of 16-byte output pieces where the row holds one, and the
+    first kernel) gives the plain version's bits at SPVCNN cr 1.6's point
+    widths (51 bf16, 204 and 409 f32, 153 bf16) and aligned ones, with g
+    at and off a 16-byte boundary; the wrapper launches once a call, in
+    the layout `voxelize_bwd_plan` picks."""
+    g, inv, tables = _voxelize_bwd_case(cuda, dtype, c, misaligned)
+    want = _bits(tvx._voxelize_bwd_plain(g, inv, tables.counts))
+    _build.reset_launches()
+    assert torch.equal(_bits(tvx.voxelize_bwd(g, inv, tables.counts)), want)
+    assert _build.LAUNCHES["voxelize_bwd"] == 1
+    p = inv.shape[0]
+    for name, layout in tvx.K8_LAYOUTS.items():
+        if name == "flat" and c * g.element_size() < 16:
+            continue  # a flat piece would span more than two rows
+        out = torch.full((p, c), float("nan"), device=cuda, dtype=dtype)
+        _build.launch("taseg_voxelize_bwd", (), g.data_ptr(), inv.data_ptr(), tables.counts.data_ptr(),
+                      out.data_ptr(), p, c, tsc.DTYPE_CODES[dtype], layout)
+        assert torch.equal(_bits(out), want), name

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Tile shape and chain splits of K2 at K's 3xTF32 kernel, on one GPU.
+"""Tile shape and chain splits of K2 at K's mma.sync 3xTF32 tile, on one GPU
+(the tile the wgmma tile of `csrc/wgmma_tf32.cuh` replaced on the path;
+it stays as `chip_smoke.py`'s yardstick `old_ms`).
 
     python3 tools/k2k_tiles.py
 
 Copies `taseg_tpu_torch` to `build/k2k_tiles/` with one more C entry,
-`taseg_sparse_conv_k_tf32_cfg`, that launches `sparse_conv_k_tf32_kernel`
+`taseg_sparse_conv_k_tf32_cfg`, that launches `k_tf32_mma_kernel`
 at a chosen tile (BN output columns, BK input channels per stage, ST
 stages in the cp.async ring) and number of chain splits S, and builds it.
 Then it captures every distinct K2-at-K call of Cylinder_TS cy480 cr1.0
@@ -107,6 +109,7 @@ def main() -> int:
     by_variant = {v: 0.0 for v in variants}
     for key, ((args, kw), n) in sorted(calls.items(), key=lambda kv: str(kv[0])):
         x, w, rb = args[:3]
+        w = w.contiguous()  # the mma.sync tile reads W (K, C_in, C_out) row-major; an input gradient's W^T is a view
         order = kw.get("order")
         if order is None:
             order = sparse_conv.mask_row_order(rb)
