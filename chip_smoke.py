@@ -56,7 +56,8 @@ checks them:
      lists in bf16, the stem's 4 -> 32 at C_in padded to 8, beside the
      mma.sync tile it replaced, `old_ms`; CUDA cores in f32), K5 strided_dw
      (one launch over the level's per-slot pair lists: wgmma in bf16,
-     3xTF32 in f32), K6 segment_sum (each of its 4 calls named and timed,
+     the f32 weight gradients' 3xTF32 wgmma tile in f32, beside the
+     mma.sync tile it replaced), K6 segment_sum (each of its 4 calls named and timed,
      one launch each, its bound recounted for the entries it reads),
      K5 and K6 with their device time beside their yardstick's,
      and the input-gradient calls of K2 and K3 on both routes (K2 and
@@ -228,8 +229,10 @@ checks them:
      replaced, `old_ms`); K2 at K offsets (`sparse_conv_k`, with its train
      launches and input-gradient times) and K4 at K offsets
      (`sparse_conv_dw`) with Cylinder_TS's launches per route, the
-     CUDA-core time (`cuda_core_ms`), K2's mma.sync 3xTF32 tile
-     (`old_ms`), the device time, the 3xTF32 bound and the head's share,
+     CUDA-core time (`cuda_core_ms`), the mma.sync 3xTF32 tiles that the
+     wgmma tiles replaced (`old_ms`, `old_device_ms`), the device time,
+     the 3xTF32 bound and the head's share, K5 in f32 on TIAF's step
+     (`strided_dw_tf32`: its wgmma tile beside the mma.sync one),
      and every kernel's launches on Cylinder_TS's path; every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
@@ -291,7 +294,9 @@ KERNEL_NAMES = {
     "strided_up": ("strided_up", "UpSlots"),
     "segment_sum": ("segment_sum_",),
     "k3_conv_dw": ("PairsK3", "K3Lists"),
-    "strided_dw": ("PairsStrided", "strided_dw_", "SlotLists"),
+    # K5: its CUDA-core kernel and the lists' tiles (bf16 wgmma, f32 3xTF32
+    # wgmma) over the slot lists
+    "strided_dw": ("PairsStrided", "SlotLists"),
     # K7: its column kernel (single calls and the cat epilogue) and its
     # sum kernel (the head)
     "devoxelize": ("devox_cols_kernel", "devox_sum_kernel"),
@@ -307,8 +312,16 @@ KERNEL_NAMES = {
     # the call where the weight keeps no split operand); K3's f32 calls
     # run the same kernels
     "sparse_conv_k": ("sparse_conv_k_", "tf32_split_kernel"),
-    "sparse_conv_dw": ("PairsOffsets", "sparse_conv_dw_tf32", "OffsetLists"),
+    # K4 at K: its CUDA-core kernel and the 3xTF32 wgmma tile over the
+    # offset lists (one kernel a call)
+    "sparse_conv_dw": ("PairsOffsets", ("dw_tf32_wgmma_kernel", "OffsetLists")),
 }
+# the mma.sync pair-list tiles that wgmma tiles replaced (K4's bf16 tile,
+# the 3xTF32 tiles of K4 at K and of K5, K4 at K's split reduction): the
+# yardsticks `old_ms`, through their C entries, on no path; a profiled
+# train step holding one of them fails
+OLD_DW_KERNELS = ("dw_mma_kernel", "dw_mma_reduce_splits_kernel", "sparse_conv_dw_tf32_kernel",
+                  "strided_dw_tf32_kernel")
 TRAIN_STEPS = 4
 # launches per train step (bf16, batch 1): K2 48 forward + 47 input
 # gradients (the stem's first conv takes none), all on tensor cores; K3 4
@@ -379,7 +392,8 @@ RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bott
 # asymmetric rulebooks per level, the 4 pooling tables and their
 # reverses, 3 recon rulebooks, the head's); per train step also the 48
 # input gradients (K2 at K) and weight gradients (K4 at K), all on the
-# 3xTF32 route; no other kernel (its voxelization is a segment max in
+# 3xTF32 route (K4 at K on the f32 weight gradients' wgmma tile, one
+# kernel a call); no other kernel (its voxelization is a segment max in
 # plain torch, its devoxelization a gather), none at 27 offsets
 CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 48, "sparse_conv_k_tf32": 48}
 CYLINDER_PER_STEP = {
@@ -467,7 +481,9 @@ def device_ms(fn, frags, iters: int = 10, tries: int = 6):
     """Mean device time per call of `fn`'s kernels whose names hold one
     of `frags`, from torch.profiler's device events over `iters` calls after
     one warm-up; None (not measured, and said so in the log) where no try
-    of `tries` records at least one matching event a call.  Each try holds
+    of `tries` records each matching kernel at least once a call (a call
+    of several kernels, as a split call and its reduction, whose profile
+    lost some of one kernel's events would be undercounted).  Each try holds
     the profiled window open PROFILE_MARGIN_S (times the try's number)
     before the first call and after the last: with short windows the
     profiler lost every device event of some calls, or most of them, in
@@ -488,12 +504,12 @@ def device_ms(fn, frags, iters: int = 10, tries: int = 6):
             time.sleep(PROFILE_MARGIN_S * t)
         events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
         hit = [e for e in events if named(e.key, frags)]
-        n = sum(e.count for e in hit)
+        n = min((e.count for e in hit), default=0)
         if n >= iters:
             return sum(e.self_device_time_total for e in hit) / 1e3 / iters
         seen.append(f"{n} ({len(events)} kinds of device event)")
-    log(f"  device time not measured: fewer device events named {frags} than calls in {tries} profiles "
-        f"of {iters} calls (matching events per try: {', '.join(seen)})")
+    log(f"  device time not measured: a kernel named {frags} with fewer device events than calls in {tries} "
+        f"profiles of {iters} calls (its fewest events per try: {', '.join(seen)})")
     return None
 
 
@@ -762,13 +778,57 @@ def old_k4(x, g, pairs):
     from taseg_tpu_torch.ops import f3conv
 
     v = x.shape[0]
-    return f3conv.launch_dw_mma("taseg_k3_conv_dw_mma", "", x, g, pairs, 27, v, 27 * v)
+    return f3conv.launch_dw_mma("taseg_k3_conv_dw_mma", x, g, pairs, 27, v, 27 * v)
 
 
 def old_k4_times(x, g, pairs, want, ref):
     """(ms, max|err|) of `old_k4` at one call, held to K4's tolerance."""
     err = check_close("k3_conv_dw old kernel", old_k4(x, g, pairs), want, ref, "float32", 1e-4)
     return cuda_ms(lambda: old_k4(x, g, pairs)), err
+
+
+def old_dw_tf32(x, g, rb, lists):
+    """K4 at K offsets on the mma.sync 3xTF32 tile that the wgmma tile
+    replaced (`taseg_sparse_conv_dw_tf32_mma`, two launches where a list
+    splits), counted nowhere: x (V_in, C_in), g (V_out, C_out) f32 padded
+    to 4s as the wrapper pads them, over the same pair lists; the f32 (K,
+    C_in, C_out) result at the logical widths."""
+    import torch
+
+    from taseg_tpu_torch.ops import f3conv
+    from taseg_tpu_torch.ops.sparse_conv import pad_cols, padded_width
+
+    k, v_in = rb.shape
+    lists = f3conv.pair_lists(rb) if lists is None else lists
+    ci, co = padded_width(torch.float32, x.shape[1]), padded_width(torch.float32, g.shape[1])
+    out = f3conv.launch_dw_mma("taseg_sparse_conv_dw_tf32_mma", pad_cols(x, ci), pad_cols(g, co), lists, k, v_in,
+                               k * v_in, k)
+    return out[:, : x.shape[1], : g.shape[1]]
+
+
+def old_k5_tf32(x, y, t, up: bool):
+    """K5 in f32 on the mma.sync 3xTF32 tile that the wgmma tile replaced
+    (`strided_conv.strided_dw_tf32_mma`), counted nowhere, over the level's
+    slot lists, at widths padded to 4s; the logical (8, C_in, C_out)."""
+    import torch
+
+    from taseg_tpu_torch.ops import strided_conv
+    from taseg_tpu_torch.ops.sparse_conv import pad_cols, padded_width
+
+    pairs = t.pairs if t.pairs is not None else strided_conv.slot_pair_lists(t)
+    ci, co = padded_width(torch.float32, x.shape[1]), padded_width(torch.float32, y.shape[1])
+    out = strided_conv.strided_dw_tf32_mma(pad_cols(x, ci), pad_cols(y, co), pairs, t.parent.shape[0], up)
+    return out[:, : x.shape[1], : y.shape[1]]
+
+
+def old_tf32_dw_times(label: str, old, want, ref) -> dict:
+    """The mma.sync 3xTF32 weight-gradient tile at one call (`old`: its
+    call, `old_dw_tf32` or `old_k5_tf32`): held to the wgmma tile's gate
+    (1e-4 of the largest sum of |terms|), its time (`old_ms`) and its
+    device time (`old_device_ms`, the profiler)."""
+    err = check_close(f"{label} mma.sync tile", old(), want, ref, "float32", 1e-4)
+    return {"old_ms": cuda_ms(old), "old_device_ms": device_ms(old, OLD_DW_KERNELS, iters=5),
+            "old_max_abs_err": err}
 
 
 def tile_stats(name: str, table, c_in: int, c_out: int, ms: float, pairs: int) -> dict:
@@ -2096,6 +2156,8 @@ def phase_train_profile(trainer, scans, results: dict, label: str = "") -> None:
             continue
         ms = e.self_device_time_total / 1e3
         busy += ms
+        if named(e.key, OLD_DW_KERNELS):
+            raise AssertionError(f"{label}train step launched a replaced mma.sync weight-gradient tile: {e.key}")
         if "reduce_splits" in e.key:
             red += ms
         mine = [k for k, frags in KERNEL_NAMES.items() if named(e.key, frags)]
@@ -2931,13 +2993,14 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True, trai
     kernel against its plain version (the convs within 1e-5 of the
     largest sum of |terms|, the weight gradients within 1e-4: they sum up
     to all V rows in another order) and bit-identical on a repeat call;
-    the CUDA-core kernel (`cuda_core_k`) and, for the convs, the mma.sync
-    3xTF32 tile that the wgmma tile replaced (`tf32_mma_call`) on the
-    same inputs, held to the same tolerances.  Times: kernel (`cuda_ms`;
-    a conv of a `train` capture splits its weight every call, as a train
-    step does, a served one keeps the split operand), device (profiler),
-    the mma.sync tile (`old_ms`, the convs; with `old_device` its device
-    time too), the CUDA-core kernel, plain,
+    the CUDA-core kernel (`cuda_core_k`) and the mma.sync 3xTF32 tiles
+    that the wgmma tiles replaced (`tf32_mma_call` for the convs,
+    `old_dw_tf32` for the weight gradients) on the same inputs, held to
+    the same tolerances.  Times: kernel (`cuda_ms`; a conv of a `train`
+    capture splits its weight every call, as a train step does, a served
+    one keeps the split operand), device (profiler), the mma.sync tile
+    (`old_ms`; its device time too for the weight gradients, and with
+    `old_device` for the convs), the CUDA-core kernel, plain,
     two bounds (bytes: inputs read once, output written once; operations:
     the rulebook's present pairs at the f32 CUDA-core rate, and at
     3xTF32's 494.7 / 3 TFLOP/s) and library (one torch.mm on rows
@@ -2984,7 +3047,8 @@ def phase_cylinder_kernels(cap: CallCapture, label: str, bf16: bool = True, trai
         )
         share = err / max(ref.abs().max().item(), 1e-30)  # of the largest sum of |terms|
         if name == "sparse_conv_dw":
-            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES[name], iters=5)}
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, KERNEL_NAMES[name], iters=5),
+                 **old_tf32_dw_times(f"{label}{key}", partial(old_dw_tf32, x, second, rb, lists), want, ref)}
         else:
             t = tf32_yardsticks(
                 f"{label}{key}", lambda w: sparse_conv.sparse_conv(x, w, rb, dgrad=dgrad, order=order),
@@ -3620,8 +3684,8 @@ TIAF_STEPS = 3
 # both topologies' joins (5 each) and the corner joins of the three
 # FOV -> main tables.  A train step adds the input gradients (47 main,
 # 17 FOV: the FOV stem's input, the image features, takes one), K4 at K =
-# 27 (65), K3's input gradients and K5
-# per strided conv, K6 at the devoxelize backwards (13: the main head's
+# 27 (65), K3's input gradients and K5 per strided conv (K4 at K and K5
+# on the f32 weight gradients' 3xTF32 wgmma tile, one kernel a call), K6 at the devoxelize backwards (13: the main head's
 # one over its stacked pair tables, 3 for each cat's columns, the image
 # gathers' over the pixel table among them) and K8 at the FOV stem's
 # voxelize backward
@@ -3934,7 +3998,9 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
       * K3-down and K3-up, forward and input gradient, at every call of
         both branches (1e-4 / 1e-5 of the largest sum of |terms|: the
         plain down path sums by a mean-centred cumsum), and K5 at every
-        call (1e-4: it sums up to all fine rows in another order);
+        call (1e-4: it sums up to all fine rows in another order), beside
+        the mma.sync 3xTF32 tile that its wgmma tile replaced (`old_ms`,
+        `old_device_ms`);
       * K6 at every call (the two voxelizes, the devoxelize backwards, the
         image gathers' backward over the `pixels`-segment pixel table)
         against its plain version in f64 (1e-5);
@@ -4005,6 +4071,9 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             want = plain(x, second, t)
             err = check_close(label, got, want, ref, "float32", rel)
             limit = rel * ref.abs().max().item()
+            # K5's f32 calls: the mma.sync tile the wgmma tile replaced
+            old_k5 = (old_tf32_dw_times(label, partial(old_k5_tf32, x, second, t, up), want, ref)
+                      if name == "strided_dw" and route == "tf32x3" else None)
             # K3's CUDA-core kernels, which the 3xTF32 route replaced
             core, core_err = (
                 old_times(base, x, second, t, want, ref, "float32", rel)
@@ -4035,6 +4104,10 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
                 d, ld = yardstick_devices(name, kern, a, kw, x, second)
                 dev = {"device_ms": d, "library_device_ms": ld}
                 label += f" device {fmt_ms(d)} (torch.mm device {fmt_ms(ld)})"
+                if old_k5 is not None:
+                    dev.update(old_ms=old_k5["old_ms"], old_device_ms=old_k5["old_device_ms"])
+                    label += (f" mma.sync tile {old_k5['old_ms']:.4f} ms (device {fmt_ms(old_k5['old_device_ms'])}, "
+                              f"max|err| {old_k5['old_max_abs_err']:.3e})")
             log(
                 f"{label} route {route} max|err| {err:.3e} (limit {limit:.3e}; bit-identical on repeat) kernel {ms:.4f} ms "
                 + ("" if core is None else f"CUDA-core {core:.4f} ms (max|err| {core_err:.3e}) ")
@@ -4109,6 +4182,7 @@ def phase_tiaf_kernels(cap: CallCapture, pixels: int) -> dict:
             + (f" device {fmt_ms(r['device_ms'])}" if "device_ms" in r else "")
             + (f" library device {fmt_ms(r['library_device_ms'])}" if "library_device_ms" in r else "")
             + (f" replaced kernel (old_ms) {r['old_ms']:.4f}" if "old_ms" in r else "")
+            + (f" (device {fmt_ms(r['old_device_ms'])})" if "old_device_ms" in r else "")
             + (f" CUDA-core {r['cuda_core_ms']:.4f}" if "cuda_core_ms" in r else "")
             for n, r in sorted(out.items())
         )
@@ -4758,7 +4832,9 @@ def phase_range(scans) -> dict:
 # or RPVNet's (mk18, two blocks a stage): K2 at each 3^3 conv, all on the
 # wgmma tile (the stem's first, C_in 4, padded to 8); K3 4 + 4; K6 the voxelize; K7
 # the head's one multi-scale launch.  K1's count per scan is measured.
-NW_SCANS = 3
+# Served scans a recipe: 2 (3 until the f32 weight gradients' yardsticks
+# were added to 5e, 5g and 5k: the script's time budget)
+NW_SCANS = 2
 MK34_PER_SCAN = FSA_PER_SCAN
 MK34_PER_STEP = {k: v for k, v in TRAIN_PER_STEP.items() if k != "join_scan"}
 MK18_PER_SCAN = {**MK34_PER_SCAN, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 34}
@@ -4919,7 +4995,9 @@ def nw_k_offsets(cap, label: str) -> dict:
     weight gradient, on 3xTF32 at C_out padded to 24) also timed: kernel,
     device, the padded copies, the CUDA-core kernel at the same inputs
     (`cuda_core_k`, which took them before), plain, both bounds and one
-    torch.mm, beside the CUDA-core times recorded in PERF.md §6."""
+    torch.mm, beside the CUDA-core times recorded in PERF.md §6, and the
+    mma.sync 3xTF32 tiles that the wgmma tiles replaced (`mma_ms`; the
+    weight gradient's device time, `mma_device_ms`)."""
     from taseg_tpu_torch.ops import f3conv, sparse_conv
 
     out = {"calls": 0, "max_err_share": 0.0, "head": {}}
@@ -4978,7 +5056,10 @@ def nw_k_offsets(cap, label: str) -> dict:
                  "old_max_abs_err": old_err, "parent_ms": CYL23_HEAD_PARENT_MS[name],
                  "plain_ms": cuda_ms(lambda: plain(x, second, rb), 3), "bound_ms": b, "bound_by": by,
                  "bound_ms_3xtf32": b3, "bound_by_3xtf32": by3, "library_ms": lib}
-            if not dw:  # the mma.sync 3xTF32 tile that the wgmma tile replaced
+            if dw:  # the mma.sync 3xTF32 tiles that the wgmma tiles replaced
+                o = old_tf32_dw_times(f"{label}{key}", partial(old_dw_tf32, x, second, rb, lists), want, ref)
+                r["mma_ms"], r["mma_device_ms"] = o["old_ms"], o["old_device_ms"]
+            else:
                 r["mma_ms"] = tf32_yardsticks(
                     f"{label}{key}", lambda w: sparse_conv.sparse_conv(x, w, rb, order=order), x, second, rb,
                     order, sparse_conv.k_splits(v_out), want, ref, rel, fresh=True)["old_ms"]
@@ -4990,6 +5071,7 @@ def nw_k_offsets(cap, label: str) -> dict:
                 f"beside {r['parent_ms']} ms on CUDA cores in PERF.md §6 (CUDA-core kernel here "
                 f"{r['old_ms']:.4f} ms, max|err| {old_err:.3e})"
                 + (f", the mma.sync 3xTF32 tile {r['mma_ms']:.4f} ms" if "mma_ms" in r else "")
+                + (f" (device {fmt_ms(r['mma_device_ms'])})" if "mma_device_ms" in r else "")
                 + f"; plain {r['plain_ms']:.4f} ms bound {b:.4f} ms "
                 f"({by}) / {b3:.4f} ms ({by3}, 3xTF32) one torch.mm {lib:.4f} ms")
     log(f"{label}K2 / K4 at K offsets: {out['calls']} calls of one step against their plain "
@@ -6248,6 +6330,19 @@ def main() -> int:
         "fsa": fsa_entry(fsa, "sparse_conv_dw"),
         "tiaf": tiaf_entry(tiaf, "sparse_conv_dw"),
         "nus_waymo": nus_waymo_entry(nus_waymo, "sparse_conv_dw"),
+    })
+    # K5 in f32 (TIAF's step) on the 3xTF32 wgmma tile: its launches over
+    # the counted TIAF steps, its numbers per step at the calls of one real
+    # step, beside the mma.sync tile it replaced (`old_ms`,
+    # `old_device_ms`)
+    k5f = tiaf["kernels"]["strided_dw"]
+    kernels.append({
+        "name": "strided_dw_tf32", "route": "cuda", "source": "taseg_tpu_torch/csrc/conv_dw.cu",
+        "replaces": "taseg_tpu/ops/strided_conv.py:136", "route_of": "strided_dw",
+        "launches": tiaf["per_step"]["strided_dw_tf32"] * TIAF_STEPS,
+        **{k: k5f[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: k5f[k] for k in ("device_ms", "library_device_ms", "old_ms", "old_device_ms", "calls") if k in k5f},
+        "per": "train step (TIAF, f32)",
     })
     log(f"cylinder phase (5e): {cylinder['seconds']:.1f} s")
     log(f"fsa/kd phase (5f): {fsa['seconds']:.1f} s")

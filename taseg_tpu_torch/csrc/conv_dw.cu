@@ -88,20 +88,26 @@
 // most exited at once, a (splits, 27, C_in, C_out) buffer and a second
 // launch to add them, and drained its cp.async ring at each window.
 //
-// sparse_conv_dw_tf32_kernel (K4 at K offsets in f32 with C_in % 4 == 0
-// and C_out % 4 == 0: every weight gradient of Cylinder3D and of the f32
-// MinkUNets' 3^3 convs): the mma.sync pair-list tile in f32 on 3xTF32
-// tensor cores over the per-offset lists of f3conv.pair_lists, 16 pairs
-// per stage, mma.sync m16n8k8 .tf32 with each operand split into TF32
-// high and low parts and each product taken as three (gather_mma.cuh,
-// namespace tf32); splits from a cap on the partials, added by
-// dw_mma_reduce_splits_kernel.
-//
-// strided_dw_tf32_kernel (f32, widths in 4s: TIAF's 16 K5 calls per
-// step): that 3xTF32 tile over the slot lists, with the pieces above.  It
-// replaced the CUDA-core dw_kernel over the parent and slot tables,
-// whose every block scanned all fine rows for the ~1/8 of its slot and
-// multiplied them in f32 FMA.
+// dw_tf32_wgmma_kernel (namespace lists; f32, widths in 4s: K4 at K
+// offsets, every weight gradient of Cylinder3D and of the f32 MinkUNets'
+// 3^3 convs, over the per-offset lists of f3conv.pair_lists, and K5 in
+// f32, TIAF's 16 calls a step, over the slot lists): Hopper's wgmma on
+// 3xTF32 (wgmma_tf32_dw.cuh: A = X^T split in registers, B = Y transposed
+// and split K-major in shared memory by the producer warpgroup), one
+// launch a call over the pieces above (split_pairs at 32-pair stages,
+// f3conv.dw_tf32_plan's target).  It replaced two mma.sync tiles, kept
+// only as chip_smoke.py's yardstick `old_ms` (C entries
+// taseg_sparse_conv_dw_tf32_mma, taseg_strided_dw_tf32_mma):
+// sparse_conv_dw_tf32_kernel, the mma.sync pair-list tile in f32 on 3xTF32
+// tensor cores (16 pairs per stage, mma.sync m16n8k8 .tf32 with each
+// operand split into TF32 high and low parts and each product taken as
+// three: gather_mma.cuh, namespace tf32), its splits from a cap on the
+// partials, a (splits, K, C_in, C_out) buffer and a second launch
+// (dw_mma_reduce_splits_kernel) to add them; and strided_dw_tf32_kernel,
+// that tile over the slot lists with the pieces above (it replaced the
+// CUDA-core dw_kernel over the parent and slot tables, whose every block
+// scanned all fine rows for the ~1/8 of its slot and multiplied them in
+// f32 FMA).
 //
 // dw_kernel (a direct f32 call of K4 at 27, a bf16 call of K4 at K;
 // K5's CUDA-core kernel, off every route since the wrappers pad ragged
@@ -111,6 +117,7 @@
 
 #include "common.cuh"
 #include "gather_mma.cuh"
+#include "wgmma_tf32_dw.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -730,11 +737,10 @@ __device__ __forceinline__ int split_pairs(const int* __restrict__ starts, int n
 // to out.  piece_of gives the (list, split) of piece p (blockIdx.y: one
 // block per piece, no block for a split past its list's end); false for
 // the few indices between two lists' pieces and past the last.
-template <int N>
-__device__ __forceinline__ bool piece_of(const int* __restrict__ starts, int p, int per,
+__device__ __forceinline__ bool piece_of(const int* __restrict__ starts, int n, int p, int per,
                                          int& k, int& z, int& live) {
   const int s0 = starts[0];
-  for (int kk = 0; kk < N; ++kk) {
+  for (int kk = 0; kk < n; ++kk) {
     const int fp = (starts[kk] - s0) / per + kk;
     const int lv = max(1, (starts[kk + 1] - starts[kk] + per - 1) / per);
     if (p >= fp && p < fp + lv) {
@@ -964,7 +970,7 @@ __global__ void __launch_bounds__((CW + 1) * 128, 1)
   const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int per = split_pairs(starts, Lists::kOut, per_min, target, kBK);
   int k, z, live;
-  if (!piece_of<Lists::kOut>(starts, blockIdx.y, per, k, z, live)) return;
+  if (!piece_of(starts, Lists::kOut, blockIdx.y, per, k, z, live)) return;
   const int beg = starts[k], n_k = starts[k + 1] - beg;
   const int n_pairs = max(0, min(per, n_k - z * per));
   if (threadIdx.x == 0) {
@@ -1036,6 +1042,85 @@ int launch_k4(const void* x, const void* y, const void* pairs, const void* start
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- f32: the 3xTF32 wgmma tile over the lists (wgmma_tf32_dw.cuh) ----
+namespace wtd = taseg::wtd;
+
+struct OffsetLists {};  // K4 at K offsets (n_out <= 32 at run time); names the kernel
+
+// grid: x = C_in tiles (64 rows) * C_out tiles (BN columns), y = piece
+// (`piece_of` over the n_out lists, its pairs per split from
+// `split_pairs` at 32-pair stages).  Threads: the consumer warpgroup,
+// then the producer warpgroup.  `swap` reads each pair as (y row, x row):
+// K5's up direction over the (fine, parent) lists.  out (n_out, C_in,
+// C_out) f32; part (pieces, C_in, C_out) f32 and cnt (n_out * tiles)
+// int32, zero on entry and on exit, where a list splits.  The last block
+// of a (list, tile) sums its pieces with all its threads.
+template <int BN, typename Lists>
+__global__ void __launch_bounds__(wtd::kThreads, wtd::Tile<BN>::MIN_BLOCKS)
+    dw_tf32_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                         const int2* __restrict__ pairs, const int* __restrict__ starts,
+                         float* __restrict__ out, float* __restrict__ part, int* __restrict__ cnt,
+                         int n_out, int c_in, int c_out, int per_min, int target, int swap) {
+  using T = wtd::Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int flag;
+  const wtd::Smem s = wtd::carve<T>(smem_raw);
+  const int tiles_n = (c_out + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * wtd::kBM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int per = split_pairs(starts, n_out, per_min, target, wtd::kBK);
+  int k, z, live;
+  if (!piece_of(starts, n_out, blockIdx.y, per, k, z, live)) return;
+  const int beg = starts[k], n_k = starts[k + 1] - beg;
+  const int n_pairs = max(0, min(per, n_k - z * per));
+  if (threadIdx.x == 0) wtd::init_barriers<T>(s);
+  __syncthreads();
+
+  const size_t per_k = static_cast<size_t>(c_in) * c_out;
+  // the warpgroup's role, warp-uniform to the compiler: behind a branch on
+  // threadIdx.x alone ptxas serializes every wgmma (C7518, "in divergent
+  // path"), as it still does in sparse_conv.cu's 3xTF32 tile
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 1) {
+    wtd::produce<T>(s, pairs + beg + z * per, n_pairs, swap, x, y, c_in, c_out, m0, n0);
+  } else {
+    float acc[BN / 2];
+#pragma unroll
+    for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+    wtd::consume<T>(s, (n_pairs + wtd::kBK - 1) / wtd::kBK, acc);
+    wtd::store<BN>(acc, live == 1 ? out + k * per_k : part + static_cast<size_t>(blockIdx.y) * per_k,
+                   c_in, c_out, m0, n0);
+  }
+  if (live == 1) return;
+  finish_pieces(part, out + k * per_k, cnt + k * gridDim.x + blockIdx.x, &flag, blockIdx.y - z,
+                live, c_in, c_out, m0, n0, wtd::kBM, BN, threadIdx.x, wtd::kThreads,
+                [] { __syncthreads(); });
+}
+
+// one call of the f32 tile over n_out lists, `pieces` blocks a tile
+template <typename Lists>
+int launch_tf32(const void* x, const void* y, const void* pairs, const void* starts, void* out,
+                void* part, void* cnt, int n_out, int c_in, int c_out, int swap, int pieces,
+                int per_min, int target, cudaStream_t s) {
+  if (c_in <= 0 || c_out <= 0 || c_in % 4 || c_out % 4 || n_out < 1 || n_out > 32 ||
+      pieces < n_out || per_min <= 0 || target < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return taseg::wt::with_tile(c_out, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    constexpr size_t bytes = wtd::smem_bytes<wtd::Tile<BN>>();
+    // the attribute once per instance: a launch then sets nothing more
+    static const cudaError_t set = cudaFuncSetAttribute(
+        dw_tf32_wgmma_kernel<BN, Lists>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (set != cudaSuccess) return static_cast<int>(set);
+    const int tiles = ((c_in + wtd::kBM - 1) / wtd::kBM) * ((c_out + BN - 1) / BN);
+    dw_tf32_wgmma_kernel<BN, Lists><<<dim3(tiles, pieces), wtd::kThreads, bytes, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const int2*>(pairs), static_cast<const int*>(starts),
+        static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(cnt), n_out, c_in,
+        c_out, per_min, target, swap);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 }  // namespace lists
 
 // ---- K5 over the slot pair lists, one launch per call ----
@@ -1065,7 +1150,7 @@ __global__ void __launch_bounds__(dwmma::dwtf32::kThreads)
   const int tiles_n = (c_out + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * d::kBM, n0 = (blockIdx.x % tiles_n) * BN;
   int k, z, live;
-  if (!lists::piece_of<8>(starts, blockIdx.y, per_split, k, z, live)) return;
+  if (!lists::piece_of(starts, 8, blockIdx.y, per_split, k, z, live)) return;
   const int beg = starts[k], n_k = starts[k + 1] - beg;
   const int lo = z * per_split;
   const int n_pairs = max(0, min(per_split, n_k - lo));
@@ -1308,27 +1393,60 @@ extern "C" int taseg_strided_dw_wgmma(const void* x, const void* y, const void* 
                           per_split, static_cast<cudaStream_t>(stream));
 }
 
-// f32 with C_in % 4 == 0 and C_out % 4 == 0 on 3xTF32 mma.sync:
-extern "C" int taseg_strided_dw_tf32(const void* x, const void* y, const void* pairs,
-                                     const void* starts, void* out, void* part,
-                                     void* cnt, int c_in, int c_out, int up, int pieces,
-                                     int per_split, void* stream) {
+// f32 with C_in % 4 == 0 and C_out % 4 == 0 on the 3xTF32 mma.sync tile
+// (no longer on the path: chip_smoke.py's yardstick `old_ms`):
+extern "C" int taseg_strided_dw_tf32_mma(const void* x, const void* y, const void* pairs,
+                                         const void* starts, void* out, void* part, void* cnt,
+                                         int c_in, int c_out, int up, int pieces, int per_split,
+                                         void* stream) {
   return k5::launch<false>(x, y, pairs, starts, out, part, cnt, c_in, c_out, up, pieces,
                            per_split, static_cast<cudaStream_t>(stream));
 }
 
-// K4 at K offsets on 3xTF32 tensor cores.  feats (V_in, C_in), grad
-// (V_out, C_out) f32, 16-byte aligned, C_in % 4 == 0 and C_out % 4 == 0;
-// pairs (n_off V_in,) int2 and starts (n_off + 1,) int32 from
+// K5 in f32 (C_in % 4 == 0, C_out % 4 == 0) on the 3xTF32 wgmma tile, one
+// launch a call: pairs per split from per_min and target
+// (`lists::split_pairs` at 32-pair stages, f3conv.dw_tf32_plan); pieces
+// (f3conv.dw_pieces(8, ...)) blocks a tile; part (pieces, C_in, C_out)
+// f32 and cnt (8 * tiles,) int32, zero on entry and on exit, or both null
+// where no list can split (per_min >= V_fine).
+extern "C" int taseg_strided_dw_tf32(const void* x, const void* y, const void* pairs,
+                                     const void* starts, void* out, void* part, void* cnt,
+                                     int c_in, int c_out, int up, int pieces, int per_min,
+                                     int target, void* stream) {
+  return lists::launch_tf32<lists::SlotLists>(x, y, pairs, starts, out, part, cnt, 8, c_in, c_out,
+                                              up, pieces, per_min, target,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+// K4 at K offsets on the 3xTF32 mma.sync tile (no longer on the path:
+// chip_smoke.py's yardstick `old_ms`).  feats (V_in, C_in), grad (V_out,
+// C_out) f32, 16-byte aligned, C_in % 4 == 0 and C_out % 4 == 0; pairs
+// (n_off V_in,) int2 and starts (n_off + 1,) int32 from
 // f3conv.pair_lists(rb_bwd) -> out (n_off, C_in, C_out) f32; part
 // (splits, n_off, C_in, C_out) f32 scratch when splits > 1, with splits *
 // per_split >= V_in.
-extern "C" int taseg_sparse_conv_dw_tf32(const void* feats, const void* grad,
-                                         const void* pairs, const void* starts,
-                                         void* out, void* part, int c_in,
-                                         int c_out, int n_off, int splits,
-                                         int per_split, void* stream) {
-  return dwmma::dwtf32::launch(feats, grad, pairs, starts, out, part, c_in,
-                               c_out, n_off, splits, per_split,
-                               static_cast<cudaStream_t>(stream));
+extern "C" int taseg_sparse_conv_dw_tf32_mma(const void* feats, const void* grad,
+                                             const void* pairs, const void* starts, void* out,
+                                             void* part, int c_in, int c_out, int n_off,
+                                             int splits, int per_split, void* stream) {
+  return dwmma::dwtf32::launch(feats, grad, pairs, starts, out, part, c_in, c_out, n_off, splits,
+                               per_split, static_cast<cudaStream_t>(stream));
+}
+
+// K4 at K offsets on the 3xTF32 wgmma tile, one launch a call.  feats
+// (V_in, C_in), grad (V_out, C_out) f32, 16-byte aligned, C_in % 4 == 0
+// and C_out % 4 == 0; pairs (n_off V_in,) int2 and starts (n_off + 1,)
+// int32 from f3conv.pair_lists(rb_bwd), 1 <= n_off <= 32 -> out (n_off,
+// C_in, C_out) f32.  Pairs per split from per_min and target
+// (`lists::split_pairs` at 32-pair stages, f3conv.dw_tf32_plan); pieces
+// (f3conv.dw_pieces) blocks a tile; part (pieces, C_in, C_out) f32 and cnt
+// (n_off * tiles,) int32, zero on entry and on exit, or both null where no
+// list can split (per_min >= V_in).
+extern "C" int taseg_sparse_conv_dw_tf32(const void* feats, const void* grad, const void* pairs,
+                                         const void* starts, void* out, void* part, void* cnt,
+                                         int c_in, int c_out, int n_off, int pieces, int per_min,
+                                         int target, void* stream) {
+  return lists::launch_tf32<lists::OffsetLists>(feats, grad, pairs, starts, out, part, cnt, n_off,
+                                                c_in, c_out, 0, pieces, per_min, target,
+                                                static_cast<cudaStream_t>(stream));
 }

@@ -17,8 +17,9 @@ bf16, over row orders), `strided_down_tf32` and `strided_up_tf32` K2 at
 K's 3xTF32 tile (K3 in f32), `strided_down_rounds` K3-down's round
 kernels (child tables of several rounds), `k3_conv_dw_wgmma` and
 `strided_dw_wgmma` the wgmma tile over pair lists (K4 over the offset
-lists, K5 over the slot lists, bf16), `strided_dw_tf32` K5's 3xTF32
-tile (f32).  The `_dgrad` counters count, again, the launches of K2 and
+lists, K5 over the slot lists, bf16), `strided_dw_tf32` the 3xTF32
+wgmma tile over pair lists (K5 in f32; K4 at K offsets counts it under
+`sparse_conv_dw_tf32`).  The `_dgrad` counters count, again, the launches of K2 and
 K3 that compute an input gradient (the backward of the k3 conv and of
 the other strided direction).  K1 (`join_scan`), K4 on its wgmma route
 and K5 (`k3_conv_dw`, `strided_dw`, their splits added in the kernel)
@@ -34,7 +35,9 @@ launches one per call.  K2 at K offsets (`sparse_conv`, Cylinder3D's
 convs) counts under its own `sparse_conv_k` (`_wgmma`, `_tf32`,
 `_dgrad`, `_dgrad_wgmma`, `_dgrad_tf32` as K2's), so K2's 27-offset
 counts stay those of the 3^3 convs; K4 at K offsets (`sparse_conv_dw`,
-`_tf32`) counts one per call, its split reduction included.  K9 (`knn`, the
+`_tf32`) launches one kernel per call on its 3xTF32 wgmma tile (its
+splits added in the kernel) and counts one per call, its split reduction
+included, on CUDA cores.  K9 (`knn`, the
 range view's KNN clean-up) launches one kernel per call, one call per
 batch of scans.
 """
@@ -119,7 +122,8 @@ _SIGNATURES = {
     "taseg_k3_conv_dw_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_dw_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_strided_dw_tf32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_strided_dw_tf32": [_P] * 7 + [_I] * 6 + [_P],
+    "taseg_strided_dw_tf32_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_devox_trilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
     "taseg_devox_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -130,7 +134,8 @@ _SIGNATURES = {
     "taseg_sparse_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_k_tf32": [_P] * 8 + [_I] * 10 + [_P],
     "taseg_sparse_conv_k_tf32_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "taseg_sparse_conv_dw_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_sparse_conv_dw_tf32": [_P] * 7 + [_I] * 6 + [_P],
+    "taseg_sparse_conv_dw_tf32_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_down_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

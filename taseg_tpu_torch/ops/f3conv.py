@@ -27,9 +27,11 @@ The conv over K offsets (`sparse_conv.conv_k`, JAX sparse_conv.py:157
 offsets on (g, W^T, rb_bwd), d_W through K4 at K offsets
 (`sparse_conv_dw`, `csrc/conv_dw.cu`), where g has V_out rows and feats
 V_in.  K4 at K offsets takes the route of `sparse_conv.k_route`: in f32
-the 3xTF32 tensor-core tile over the per-offset pair lists of rb_bwd
-(`pair_lists`, which the topology builds once per table and step), at
-widths padded to multiples of 4; a bf16 call (no path makes one) the
+the 3xTF32 tile on Hopper's wgmma over the per-offset pair lists of
+rb_bwd (`pair_lists`, which the topology builds once per table and step),
+at widths padded to multiples of 4, in one launch a call
+(`launch_dw_tf32`, its plan from `dw_tf32_plan`; K5's f32 calls take the
+same tile over the slot lists); a bf16 call (no path makes one) the
 CUDA-core kernel over rb_bwd itself.
 """
 
@@ -56,10 +58,11 @@ DW_TILE = 64
 DW_WINDOW = 256
 
 
-# split rule of the 3xTF32 route of K4 at K (and of K4's mma.sync tile
-# before its wgmma one): pairs per split a multiple of the 32-pair stage,
-# at least DW_MMA_MIN_PAIRS, and enough splits to cover V pairs (the most
-# one list can have) within DW_MMA_PART_BYTES of f32 partials
+# split rule of the mma.sync tiles that wgmma tiles replaced (K4's bf16
+# tile and the 3xTF32 tile of K4 at K, now only chip_smoke.py's
+# yardsticks): pairs per split a multiple of the 32-pair stage, at least
+# DW_MMA_MIN_PAIRS, and enough splits to cover V pairs (the most one list
+# can have) within DW_MMA_PART_BYTES of f32 partials
 DW_MMA_STAGE = 32
 DW_MMA_MIN_PAIRS = 512
 DW_MMA_PART_BYTES = 32 << 20
@@ -70,9 +73,10 @@ def dw_route(dtype: torch.dtype, c_in: int, c_out: int, strided: bool = False) -
     takes, both over pair lists in one launch, at any widths (each padded
     to `sparse_conv.padded_width`).  "wgmma" (Hopper's warpgroup MMA: K4
     over the level's offset lists, K5 over its slot lists) for bf16; K5's
-    f32 calls "tf32x3" (3xTF32 mma.sync over the slot lists).  K4's f32
-    calls run as K4 at K = 27 (`sparse_conv.k_route`) and do not reach
-    it: a direct f32 call takes "simt" (CUDA cores over rb_bwd)."""
+    f32 calls "tf32x3" (the 3xTF32 wgmma tile over the slot lists,
+    `launch_dw_tf32`).  K4's f32 calls run as K4 at K = 27
+    (`sparse_conv.k_route`) and do not reach it: a direct f32 call takes
+    "simt" (CUDA cores over rb_bwd)."""
     if dtype == torch.bfloat16:
         return "wgmma"
     return "tf32x3" if strided and dtype == torch.float32 else "simt"
@@ -217,6 +221,80 @@ def k5_splits(v: int, c_in: int, c_out: int) -> tuple[int, int]:
     per = max(K5_MIN_PAIRS, _cdiv(v * tiles, K5_SMS * K5_PER_SM))
     per = _cdiv(per, K5_STAGE) * K5_STAGE
     return max(1, _cdiv(v, per)), per
+
+
+# The f32 weight gradients' tile (csrc/wgmma_tf32_dw.cuh: K4 at K offsets
+# and K5 in f32 on 3xTF32 wgmma, one launch a call): one consumer
+# warpgroup on 64 C_in rows, DW_TF32_TILE_COLS C_out columns a block;
+# pairs per split in whole 32-pair stages, at least DW_TF32_MIN_PAIRS, the
+# least at which the lists' pieces number at most the plan's target a
+# tile (found on the device, `k4_split_pairs` at stage 32 is its host
+# model): DW_TF32_WAVES waves of the H100's SMs at the tile's resident
+# blocks
+DW_TF32_WAVES = 1
+DW_TF32_STAGE = 32
+DW_TF32_MIN_PAIRS = 256
+DW_TF32_TILE_COLS = (16, 32, 64, 96, 128)
+DW_TF32_B_BUFFERS = 2  # transposed, split B (hi and lo)
+DW_TF32_WINDOW = 512  # pairs a block stages in shared memory at a time
+
+
+class DwTf32Plan(NamedTuple):
+    """One call of the f32 weight-gradient tile: `bn` C_out columns a
+    block (64 C_in rows), `tiles` blocks a piece, pairs per split at least
+    `per_min` and the least at which the lists' pieces number at most
+    `target` a tile."""
+
+    bn: int
+    tiles: int
+    target: int
+    per_min: int
+
+
+def dw_tf32_tile_n(c_out: int) -> int:
+    """C_out columns a block of the f32 tile: the whole C_out up to 128,
+    in 16, 32, 64, 96 or 128; wider C_out in 128-column blocks."""
+    return next((w for w in DW_TF32_TILE_COLS if c_out <= w), 128)
+
+
+def dw_tf32_raw_stages(bn: int) -> int:
+    """Stages of gathered rows a block of the f32 tile keeps in flight: 6,
+    but 4 at 64 columns (two blocks an SM)."""
+    return 4 if bn == 64 else 6
+
+
+def dw_tf32_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of a block: 1 KB of alignment, the B buffers
+    (hi and lo, bn rows of 32 pairs), the raw stages (32 X rows of 72
+    floats and 32 Y rows of bn) with their two barriers each, and the pair
+    window."""
+    raw = dw_tf32_raw_stages(bn)
+    return (1024 + DW_TF32_B_BUFFERS * 2 * bn * DW_TF32_STAGE * 4 + raw * DW_TF32_STAGE * (72 + bn) * 4
+            + 2 * raw * 8 + DW_TF32_WINDOW * 8)
+
+
+def dw_tf32_resident(bn: int) -> int:
+    """Blocks of the f32 tile resident per SM: two where bn <= 64 (their
+    registers, ~128 a thread, and shared memory fit twice), else one."""
+    return 2 if bn <= 64 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def dw_tf32_plan(c_in: int, c_out: int) -> DwTf32Plan:
+    """The f32 weight-gradient tile's plan at these (padded) widths, from
+    the shapes alone (the pairs per split follow the lists' lengths on the
+    device)."""
+    bn = dw_tf32_tile_n(c_out)
+    tiles = _cdiv(c_in, 64) * _cdiv(c_out, bn)
+    return DwTf32Plan(bn, tiles, _cdiv(DW_TF32_WAVES * K4_SMS * dw_tf32_resident(bn), tiles), DW_TF32_MIN_PAIRS)
+
+
+def dw_pieces(n_out: int, v: int, target: int, per_min: int) -> int:
+    """Blocks a tile that cover every split of n_out lists of at most V
+    pairs each: piece (k, z) lies at (starts[k] - starts[0]) // per + k +
+    z, below max(target, n_out) + n_out with a target (at most `target`
+    pieces, or one a list), below n_out V // per_min + n_out without."""
+    return (max(target, n_out) if target > 0 else n_out * v // per_min) + n_out
 
 
 class PairLists(NamedTuple):
@@ -443,14 +521,16 @@ def k3_conv_dw_wgmma(
     return out
 
 
-def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
-                  max_pairs: int, capacity: int, *extra, suffix: str = "_tf32") -> torch.Tensor:
-    """Launch the 3xTF32 route of K4 at K offsets (C entry `name`, counted
-    under `counter` and its `suffix` entry; with an empty `counter`,
-    counted nowhere: K4's mma.sync tile, the yardstick of its wgmma route)
-    over `pairs`, n_out lists of up to `max_pairs` pairs each in a
-    (capacity, 2) buffer; `extra` are the entry's int arguments after the
-    widths.  Returns the f32 (n_out, C_in, C_out) result."""
+def launch_dw_mma(name: str, x, y, pairs: PairLists, n_out: int, max_pairs: int, capacity: int,
+                  *extra) -> torch.Tensor:
+    """Launch an mma.sync pair-list tile that a wgmma tile replaced (C
+    entry `name`: K4's bf16 tile, `taseg_k3_conv_dw_mma`, or the 3xTF32
+    tile of K4 at K offsets, `taseg_sparse_conv_dw_tf32_mma`), counted
+    nowhere: chip_smoke.py's yardsticks, on no path.  Over `pairs`, n_out
+    lists of up to `max_pairs` pairs each in a (capacity, 2) buffer, its
+    splits from `dw_mma_splits` added by a second kernel; `extra` are the
+    entry's int arguments after the widths.  Returns the f32 (n_out,
+    C_in, C_out) result."""
     dev = x.device
     check_pair_lists(x, y, pairs, n_out, capacity)
     c_in, c_out = x.shape[1], y.shape[1]
@@ -461,10 +541,41 @@ def launch_dw_mma(name: str, counter: str, x, y, pairs: PairLists, n_out: int,
         if splits > 1 else None
     )
     _build.launch(
-        name, _build.counters(counter, suffix=suffix) if counter else (),
-        x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(),
-        pairs.starts.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), c_in, c_out, *extra, splits, per,
+        name, (), x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), c_in, c_out, *extra, splits, per,
+    )
+    return out
+
+
+def launch_dw_tf32(name: str, counter: str, x, y, pairs: PairLists, n_out: int, max_pairs: int,
+                   capacity: int, mode: int, plan: Optional[DwTf32Plan] = None) -> torch.Tensor:
+    """Launch the f32 weight-gradient tile on 3xTF32 wgmma (C entry
+    `name`: `taseg_sparse_conv_dw_tf32`, K4 at K offsets, `mode` n_out;
+    `taseg_strided_dw_tf32`, K5, `mode` 1 for the up direction), counted
+    under `counter` and its `_tf32` entry (an empty `counter`: nowhere),
+    in one launch: x (rows, C_in) and y (rows, C_out) f32 with widths in
+    4s over `pairs`, n_out lists of up to `max_pairs` pairs each in a
+    (capacity, 2) buffer, with `plan` (`dw_tf32_plan` where None; a tool
+    may pass another target).  The partials (pieces, C_in,
+    C_out) and the counters are handed over only where a list can split
+    (its split at least `per_min` pairs); the last block of each list
+    adds its pieces in split order, so the same inputs give the same
+    bits.  Returns the f32 (n_out, C_in, C_out) result."""
+    dev = x.device
+    check_pair_lists(x, y, pairs, n_out, capacity)
+    c_in, c_out = x.shape[1], y.shape[1]
+    p = plan or dw_tf32_plan(c_in, c_out)
+    pieces = dw_pieces(n_out, max_pairs, p.target, p.per_min)
+    out = torch.empty((n_out, c_in, c_out), dtype=torch.float32, device=dev)
+    part = cnt = None
+    if p.per_min < max_pairs:  # a list may split
+        part = torch.empty((pieces, c_in, c_out), dtype=torch.float32, device=dev)
+        cnt = _build.zeroed_counters(dev, n_out * p.tiles)
+    _build.launch(
+        name, _build.counters(counter, suffix="_tf32") if counter else (),
+        x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), c_in, c_out, mode, pieces, p.per_min, p.target,
     )
     return out
 
@@ -516,9 +627,9 @@ def sparse_conv_dw(
 ) -> torch.Tensor:
     """K4 at K offsets: feats (V_in, C_in), grad (V_out, C_out) in one
     dtype, rb_bwd (K, V_in) int32 of grad rows -> d_W (K, C_in, C_out),
-    summed in f32 and rounded once to `out_dtype`.  The 3xTF32 route reads
-    `pairs`, `pair_lists(rb_bwd)` (built here when not given).
-    Deterministic: the same inputs give the same bits."""
+    summed in f32 and rounded once to `out_dtype`.  The 3xTF32 route (the
+    wgmma tile, one launch) reads `pairs`, `pair_lists(rb_bwd)` (built here
+    when not given).  Deterministic: the same inputs give the same bits."""
     dev = feats.device
     _build.check("feats", feats, tuple(DTYPE_CODES), 2, dev)
     _build.check("grad", grad, (feats.dtype,), 2, dev)
@@ -539,7 +650,7 @@ def sparse_conv_dw(
         if pairs is None:
             pairs = pair_lists(rb_bwd)
         ci, co = padded_width(feats.dtype, c_in), padded_width(feats.dtype, c_out)
-        out = launch_dw_mma(
+        out = launch_dw_tf32(
             "taseg_sparse_conv_dw_tf32", "sparse_conv_dw", pad_cols(feats, ci), pad_cols(grad, co),
             pairs, k, v_in, k * v_in, k,
         )

@@ -45,8 +45,9 @@ in one launch, on one of three routes (`f3conv.dw_route(...,
 strided=True)`): over the level's per-slot pair lists
 (`slot_pair_lists`, built once per level and step by the train topology
 as `StridedTables.pairs` and shared by the level's down and up conv) on
-Hopper's wgmma for bf16, on 3xTF32 tensor cores for f32, at padded
-widths, the splits of a list added in the kernel by its last block.
+Hopper's wgmma for bf16, on 3xTF32 wgmma for f32 (the tile of K4 at K
+offsets), at padded widths, the splits of a list added in the kernel by
+its last block.
 The autograd Functions pad the input and the cotangent once for the
 calls that share them (`sparse_conv.padded_feats`,
 `f3conv.bwd_operands`).
@@ -61,7 +62,10 @@ import torch
 
 from . import _build
 from . import sparse_conv as _sc
-from .f3conv import PairLists, bwd_operands, dw_route, dw_unpad, k3_conv_dw_pairs_plain, k5_splits
+from .f3conv import (
+    PairLists, bwd_operands, check_pair_lists, dw_route, dw_unpad, k3_conv_dw_pairs_plain, k5_splits,
+    launch_dw_tf32,
+)
 from .sparse_conv import (
     DTYPE_CODES,
     launch_k_tf32,
@@ -496,17 +500,29 @@ def strided_dw(
 
 def _strided_dw_lists(x, y, pairs: PairLists, v_fine: int, up: bool, route: str) -> torch.Tensor:
     """K5 over the slot lists `pairs` (a (>= V_fine, 2) buffer, (9,)
-    starts) on its "wgmma" or "tf32x3" route: one launch, the splits of a
-    list added in split order by the last of its blocks to finish."""
+    starts) on its "wgmma" route (bf16) or its "tf32x3" one (f32, the
+    3xTF32 wgmma tile, `f3conv.launch_dw_tf32`): one launch, the splits of
+    a list added in split order by the last of its blocks to finish."""
+    if route == "tf32x3":
+        return launch_dw_tf32("taseg_strided_dw_tf32", "strided_dw", x, y, pairs, 8, v_fine, v_fine, int(up))
+    return _launch_k5_lists("taseg_strided_dw_wgmma", _build.counters("strided_dw", suffix="_wgmma"),
+                            x, y, pairs, v_fine, up)
+
+
+def strided_dw_tf32_mma(x, y, pairs: PairLists, v_fine: int, up: bool) -> torch.Tensor:
+    """K5's f32 mma.sync tile over the slot lists, which the 3xTF32 wgmma
+    tile replaced (C entry `taseg_strided_dw_tf32_mma`), counted nowhere:
+    the yardstick of chip_smoke.py and the card tests, on no path.  x, y
+    f32 with widths in 4s -> f32 (8, C_in, C_out)."""
+    return _launch_k5_lists("taseg_strided_dw_tf32_mma", (), x, y, pairs, v_fine, up)
+
+
+def _launch_k5_lists(entry: str, counters: tuple, x, y, pairs: PairLists, v_fine: int, up: bool):
+    """One launch of a K5 entry that takes its splits from the shapes
+    (`f3conv.k5_splits`): the bf16 wgmma tile, or the f32 mma.sync
+    yardstick."""
     dev = x.device
-    _build.check_aligned(x=x, y=y)
-    _build.check("pairs", pairs.pairs, (torch.int32,), 2, dev)
-    _build.check("starts", pairs.starts, (torch.int32,), 1, dev)
-    if pairs.pairs.shape[1:] != (2,) or pairs.pairs.shape[0] < v_fine or pairs.starts.shape != (9,):
-        raise ValueError(
-            f"slot lists {tuple(pairs.pairs.shape)} / {tuple(pairs.starts.shape)} "
-            f"do not fit (>= {v_fine}, 2) / (9,)"
-        )
+    check_pair_lists(x, y, pairs, 8, v_fine)
     c_in, c_out = x.shape[1], y.shape[1]
     splits, per = k5_splits(v_fine, c_in, c_out)
     out = torch.empty((8, c_in, c_out), dtype=torch.float32, device=dev)
@@ -516,10 +532,8 @@ def _strided_dw_lists(x, y, pairs: PairLists, v_fine: int, up: bool, route: str)
         pieces = v_fine // per + 9
         part = torch.empty((pieces, c_in, c_out), dtype=torch.float32, device=dev)
         cnt = _build.zeroed_counters(dev, 8 * _cdiv(c_in, 64) * _cdiv(c_out, 32))
-    name, suffix = ("taseg_strided_dw_wgmma", "_wgmma") if route == "wgmma" else ("taseg_strided_dw_tf32", "_tf32")
     _build.launch(
-        name, _build.counters("strided_dw", suffix=suffix),
-        x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
+        entry, counters, x.data_ptr(), y.data_ptr(), pairs.pairs.data_ptr(), pairs.starts.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if cnt is None else cnt.data_ptr(), c_in, c_out, int(up), pieces, per,
     )

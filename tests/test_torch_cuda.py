@@ -2146,3 +2146,132 @@ def test_voxelize_bwd_layouts_bit_equal(cuda, dtype, c, misaligned):
         _build.launch("taseg_voxelize_bwd", (), g.data_ptr(), inv.data_ptr(), tables.counts.data_ptr(),
                       out.data_ptr(), p, c, tsc.DTYPE_CODES[dtype], layout)
         assert torch.equal(_bits(out), want), name
+
+
+# ------------------------------- the f32 weight gradients on 3xTF32 wgmma
+# (C_in, C_out, K) of every K4-at-K call of the recipes' f32 paths:
+# Cylinder cy480's convs (K = 9, 8, 4, 3) and its head (128 -> 20 at 27),
+# TIAF's main-branch 3^3 convs (K = 27, the stem's C_in 5 padded to 8),
+# the Waymo Cylinder head (128 -> 23, padded to 24) and ragged widths
+DW_TF32_WIDTHS = [
+    (16, 32, 9), (32, 32, 9), (32, 64, 8), (64, 64, 3), (64, 64, 9), (64, 128, 8), (96, 64, 9),
+    (128, 20, 27), (128, 64, 8), (128, 128, 9), (128, 256, 4), (192, 128, 9), (256, 128, 8),
+    (256, 256, 9), (256, 512, 4), (384, 256, 9), (512, 256, 4), (512, 512, 4), (512, 512, 9),
+    (768, 512, 9),
+    (5, 32, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27), (48, 48, 27), (64, 48, 27),
+    (64, 64, 27), (64, 128, 27), (88, 16, 27), (96, 64, 27), (96, 96, 27), (128, 96, 27),
+    (128, 128, 27), (128, 256, 27), (192, 128, 27), (256, 256, 27), (384, 256, 27),
+    (128, 23, 27), (51, 102, 9),
+]
+# a level's table of each K (`_k_tables`)
+DW_TF32_KIND = {9: "asym9", 3: "recon3", 8: "down8", 4: "up4", 27: "head27"}
+
+
+def _dw_mma_sync(x, g, lists, k, v_in):
+    """K4 at K on the mma.sync tile the wgmma tile replaced, at the
+    widths the wrapper pads to (counted nowhere)."""
+    ci, co = tsc.padded_width(torch.float32, x.shape[1]), tsc.padded_width(torch.float32, g.shape[1])
+    out = tf3.launch_dw_mma("taseg_sparse_conv_dw_tf32_mma", tsc.pad_cols(x, ci), tsc.pad_cols(g, co), lists,
+                            k, v_in, k * v_in, k)
+    return out[:, : x.shape[1], : g.shape[1]]
+
+
+@pytest.mark.parametrize("c_in,c_out,k", DW_TF32_WIDTHS)
+def test_tf32_wgmma_dw_at_k_every_width(cuda, c_in, c_out, k):
+    """K4 at K on the 3xTF32 wgmma tile at every width of the recipes' f32
+    paths, on a level's table of the width's K: within 1e-4 of the largest
+    sum of |terms| of the plain version, and so is the mma.sync tile it
+    replaced at the same inputs; the same bits on repeat and with the
+    lists built by the wrapper; one `sparse_conv_dw_tf32` launch a call."""
+    rng = np.random.default_rng(c_in * 1000 + c_out + k)
+    rb, rb_bwd, v_in = _k_tables(cuda, DW_TF32_KIND[k])
+    x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+    g = _rand(rng, (rb.shape[1], c_out), cuda, torch.float32)
+    lists = tf3.pair_lists(rb_bwd)
+    _build.reset_launches()
+    got = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd, pairs=lists))
+    assert torch.equal(tf3.sparse_conv_dw(x, g, rb_bwd), got)
+    old = _dw_mma_sync(x, g, lists, k, v_in)
+    L = _build.LAUNCHES
+    assert (L["sparse_conv_dw"], L["sparse_conv_dw_tf32"], L["k3_conv_dw"]) == (3, 3, 0)
+    want, ref = tf3.k3_conv_dw_plain(x, g, rb_bwd), tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd)
+    assert got.shape == (k, c_in, c_out)
+    _close(got, want, ref, torch.float32, 1e-4)
+    _close(old, want, ref, torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 9, 27, 32])
+@pytest.mark.parametrize("case", ["empty", "one_pair", "long"])
+def test_tf32_wgmma_dw_edges(cuda, k, case):
+    """K4 at K on the wgmma tile at its edges: every list empty (zeros),
+    one pair in all, and lists longer than a wave (131 072 input rows, ~2/3
+    of them in each list: every list cut into pieces, which its last block
+    adds in split order); K = 1 and 32 (the most lists a call takes);
+    widths 128 -> 24, 32 -> 64 and 256 -> 128; within 1e-4 of the plain
+    version, the same bits on repeat, one launch a call."""
+    rng = np.random.default_rng(10 * k + len(case))
+    v_in, v_out = (131072, 131072) if case == "long" else (300, 200)
+    rb_bwd = rng.integers(0, v_out, (k, v_in))
+    rb_bwd[rng.random((k, v_in)) < {"empty": 1.0, "one_pair": 1.0, "long": 0.35}[case]] = -1
+    if case == "one_pair":
+        rb_bwd[k // 2, 7] = 3
+    rb_bwd = torch.tensor(rb_bwd, dtype=torch.int32, device=cuda)
+    lists = tf3.pair_lists(rb_bwd)
+    longest = int((lists.starts[1:] - lists.starts[:-1]).max())
+    for c_in, c_out in ((128, 24), (32, 64), (256, 128)):
+        if case == "long":
+            p = tf3.dw_tf32_plan(c_in, c_out)
+            per = tf3.k4_split_pairs(lists.starts.tolist(), p.per_min, p.target, tf3.DW_TF32_STAGE)
+            assert per < longest  # the lists split
+        x = _rand(rng, (v_in, c_in), cuda, torch.float32)
+        g = _rand(rng, (v_out, c_out), cuda, torch.float32)
+        _build.reset_launches()
+        dw = _twice_same(lambda: tf3.sparse_conv_dw(x, g, rb_bwd, pairs=lists))
+        assert (_build.LAUNCHES["sparse_conv_dw"], _build.LAUNCHES["sparse_conv_dw_tf32"]) == (2, 2)
+        if case == "empty":
+            assert not dw.any()
+        want = tf3.k3_conv_dw_plain(x, g, rb_bwd)
+        if case == "one_pair":
+            assert torch.count_nonzero(dw.abs().sum((1, 2))) == 1
+        _close(dw, want, tf3.k3_conv_dw_plain(x.abs(), g.abs(), rb_bwd), torch.float32, 1e-4)
+
+
+# (C_in, C_out) of K5's f32 calls: TIAF's strided convs (both branches)
+K5_F32_WIDTHS = [
+    (16, 16), (32, 32), (48, 48), (64, 48), (64, 64), (96, 96), (128, 64), (128, 96), (128, 128),
+    (256, 128), (256, 256),
+]
+
+
+@pytest.mark.parametrize("c_in,c_out", K5_F32_WIDTHS)
+@pytest.mark.parametrize("v", [1, 3000, 131072])
+def test_tf32_wgmma_k5_against_mma_sync(cuda, c_in, c_out, v):
+    """K5 in f32 on the 3xTF32 wgmma tile, down and up, at TIAF's widths,
+    with one fine row (one pair), a small level and a level-0 sized one
+    (every slot's list cut into pieces), slot 3 empty and every 7th row
+    dead: within 1e-4 of `strided_dw_plain`'s largest sum of |terms|, and
+    so is the mma.sync tile it replaced; the same bits on repeat, slot 3
+    zero; one `strided_dw_tf32` launch a call."""
+    v_coarse = max(1, v // 6)
+    rng = np.random.default_rng(c_in + 3 * c_out + v)
+    parent = rng.integers(0, v_coarse, v).astype(np.int32)
+    parent[7::7] = -1
+    slot = rng.integers(0, 8, v).astype(np.int32)
+    slot[slot == 3] = 5
+    i32 = lambda a: torch.from_numpy(a).to(cuda)
+    bare = tst.StridedTables(
+        parent=i32(parent), slot=i32(slot), perm=i32(np.arange(v, dtype=np.int32)),
+        starts=torch.zeros(v_coarse + 1, dtype=torch.int32, device=cuda),
+    )
+    tab = replace(bare, pairs=tst.slot_pair_lists(bare))
+    _build.reset_launches()
+    for up in (False, True):
+        x = _rand(rng, (v_coarse if up else v, c_in), cuda, torch.float32)
+        y = _rand(rng, (v if up else v_coarse, c_out), cuda, torch.float32)
+        got = _twice_same(lambda: tst.strided_dw(x, y, tab, up))
+        old = tst.strided_dw_tf32_mma(x, y, tab.pairs, v, up)
+        want, ref = tst.strided_dw_plain(x, y, bare, up), tst.strided_dw_plain(x.abs(), y.abs(), bare, up)
+        _close(got, want, ref, torch.float32, 1e-4)
+        _close(old, want, ref, torch.float32, 1e-4)
+        assert not got[3].any()
+    assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_tf32"]) == (4, 4)

@@ -458,8 +458,10 @@ def test_cuda_resolution_switches_tf32_off(monkeypatch):
 def test_k5_launches_once_per_call(monkeypatch, dtype, entry, suffix):
     """K5 on either tensor-core route is one C entry per call, counted
     under `strided_dw` and its route's entry, with the partial buffer and
-    the counters only where a list is split.  (The launch is recorded,
-    not made.)"""
+    the counters only where a list can be split: the bf16 wgmma tile with
+    its pairs per split from the shapes (`k5_splits`), the f32 3xTF32
+    wgmma tile with `dw_tf32_plan`'s least pairs per split and target and
+    `dw_pieces` blocks a tile.  (The launch is recorded, not made.)"""
     calls = []
     monkeypatch.setattr(_build, "dispatch", lambda t: True)
     monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
@@ -472,9 +474,16 @@ def test_k5_launches_once_per_call(monkeypatch, dtype, entry, suffix):
         )
         tst.strided_dw(torch.ones(v, 32, dtype=dtype), torch.ones(1, 64, dtype=dtype), tab, False)
     assert [(c[0], c[1]) for c in calls] == [(entry, ("strided_dw", "strided_dw" + suffix))] * 2
-    small, big = (c[2] for c in calls)  # (..., pieces, pairs per split)
-    assert small[5] is None and small[6] is None and small[-2] == 8
-    assert big[5] is not None and big[6] is not None and big[-2] == 20000 // big[-1] + 9
+    small, big = (c[2] for c in calls)
+    assert small[5] is None and small[6] is None
+    assert big[5] is not None and big[6] is not None
+    if dtype == torch.bfloat16:  # (..., pieces, pairs per split)
+        assert small[-2] == 8 and big[-2] == 20000 // big[-1] + 9
+    else:  # (..., up, pieces, least pairs per split, target)
+        p = tf3.dw_tf32_plan(32, 64)
+        assert small[-3:] == (tf3.dw_pieces(8, 200, p.target, p.per_min), p.per_min, p.target)
+        assert big[-3:] == (tf3.dw_pieces(8, 20000, p.target, p.per_min), p.per_min, p.target)
+        assert small[-4] == big[-4] == 0  # the down direction
 
 
 def test_launch_counters_have_the_route_entries():
@@ -695,7 +704,7 @@ def test_functions_pad_once_and_return_logical_gradients(monkeypatch, dtype):
     monkeypatch.setattr(tf3, "k3_pair_lists", lambda t: t)
     monkeypatch.setattr(tf3, "pair_lists", lambda t: t)
     monkeypatch.setattr(tf3, "k3_conv_dw_wgmma", dw)
-    monkeypatch.setattr(tf3, "launch_dw_mma", lambda name, counter, x, g, lists, *a: dw(x, g, lists))
+    monkeypatch.setattr(tf3, "launch_dw_tf32", lambda name, counter, x, g, lists, *a: dw(x, g, lists))
     monkeypatch.setattr(tst, "_strided_dw_lists", strided_dw_tile)
 
     def k3(x, w, g):

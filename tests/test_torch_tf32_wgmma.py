@@ -133,6 +133,7 @@ def _recording(monkeypatch):
     calls = []
     monkeypatch.setattr(_build, "dispatch", lambda t: True)
     monkeypatch.setattr(_build, "check_aligned", lambda **t: None)
+    monkeypatch.setattr(_build, "zeroed_counters", lambda dev, n: torch.zeros(n, dtype=torch.int32))
     monkeypatch.setattr(_build, "launch", lambda name, counters, *a: calls.append((name, counters, a)))
     return calls
 
