@@ -18,7 +18,9 @@ mk34 cr1.0 (FSA, tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10_fsa.yaml)
 and its mask-distillation step (_fsa_kd.yaml) in bf16 on fused
 multi-scan clouds, and TIAF, MinkUNetMsMm (_fsa_tiaf.yaml) in f32 on
 fused clouds with 5 camera images each, and the nuScenes and Waymo
-recipes on sensor-sized synthetic trees, weights drawn from a seed — and
+recipes on sensor-sized synthetic trees, and torchsparse's demo
+backbones SparseResNet21D and SparseResUNet42 with the global pools and
+the BEV family on two scans (phase 5m), weights drawn from a seed — and
 checks them:
 
   1. the card's name and power limit (nvidia-smi);
@@ -215,6 +217,24 @@ checks them:
      16 pieces a lane, beside K6 on rows padded to 412), K7 and K8 at its
      point widths; MinkUNet cr 1.0's stem K4 (4 -> 32) on wgmma beside
      the CUDA-core time in PERF.md §6; the phase's seconds;
+  5m. torchsparse's demo backbones and the BEV family (`phase_backbones`):
+     two synthetic 120 000-point scans quantized at 0.05 m in one batch
+     of 2; SparseResNet21D (16-128, its strided entry convs on K2 / K4
+     at K offsets over two levels, the (1, 3, 1) finisher at K = 3) and
+     SparseResUNet42 (32-256, decoder 256/128/96/96) at full width, each
+     by stage (topology, forward in f32 and in bf16, one f32 train step
+     with a feature loss: topology, forward, backward, update) with its
+     launches per wrapper and peak memory, bf16 within 5e-2 of f32; the
+     six pools and BEV modules on the ResNet's last stage, counted (K10
+     once, in the max pool); K10 at that pool's shape (`k10_check`);
+     both backbones and the six modules card against CPU on two small
+     scans; the MinkUNet flagship's two bf16 steps with each of
+     LOSS_VARIANTS (EQLv2 with sgd_fc; WCE, focal, dice v1 and ELL with
+     adam; adam_onecycle) and its small-scan f32 steps card against CPU;
+     the phase's seconds.  In phase 5e K10 at Cylinder_TS's call
+     (`phase_k10_cylinder`: bit-exact both ways, on repeat, one launch
+     each way, times beside its bound and scatter_reduce(amax)), and no
+     scatter_reduce on its serving or train path;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -233,7 +253,10 @@ checks them:
      wgmma tiles replaced (`old_ms`, `old_device_ms`), the device time,
      the 3xTF32 bound and the head's share, K5 in f32 on TIAF's step
      (`strided_dw_tf32`: its wgmma tile beside the mma.sync one),
-     and every kernel's launches on Cylinder_TS's path; every kernel's
+     and every kernel's launches on Cylinder_TS's path; K10
+     (`segment_max`) with Cylinder_TS's serving launches, its train
+     launches, its numbers both ways at Cylinder's call and at the max
+     pool's (`pool`, phase 5m); every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
      per step (`tiaf`), on each nuScenes / Waymo path (`nus_waymo`) and
@@ -315,6 +338,8 @@ KERNEL_NAMES = {
     # K4 at K: its CUDA-core kernel and the 3xTF32 wgmma tile over the
     # offset lists (one kernel a call)
     "sparse_conv_dw": ("PairsOffsets", ("dw_tf32_wgmma_kernel", "OffsetLists")),
+    # K10: its forward and its two-phase backward
+    "segment_max": ("segment_max_fwd_kernel", "segment_max_bwd_kernel"),
 }
 # the mma.sync pair-list tiles that wgmma tiles replaced (K4's bf16 tile,
 # the 3xTF32 tiles of K4 at K and of K5, K4 at K's split reduction): the
@@ -393,13 +418,16 @@ RANGE_MODULES = ("range_stem", "range_encoder", "range_dec_top", "range_dec_bott
 # reverses, 3 recon rulebooks, the head's); per train step also the 48
 # input gradients (K2 at K) and weight gradients (K4 at K), all on the
 # 3xTF32 route (K4 at K on the f32 weight gradients' wgmma tile, one
-# kernel a call); no other kernel (its voxelization is a segment max in
-# plain torch, its devoxelization a gather), none at 27 offsets
-CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 48, "sparse_conv_k_tf32": 48}
+# kernel a call); its max-pooled voxelization on K10 (`segment_max`,
+# once a scan, forward and backward once each a step: no scatter_reduce
+# on the path), no other kernel (its devoxelization is a gather), none at
+# 27 offsets
+CYLINDER_PER_SCAN = {"join_scan": 22, "sparse_conv_k": 48, "sparse_conv_k_tf32": 48, "segment_max": 1}
 CYLINDER_PER_STEP = {
     "join_scan": 22, "sparse_conv_k": 96, "sparse_conv_k_tf32": 96,
     "sparse_conv_k_dgrad": 48, "sparse_conv_k_dgrad_tf32": 48,
     "sparse_conv_dw": 48, "sparse_conv_dw_tf32": 48,
+    "segment_max": 2, "segment_max_bwd": 1,
 }
 CYLINDER_ROUNDS = 3  # serving samples: CYLINDER_ROUNDS * N_SCANS scans
 
@@ -1807,7 +1835,8 @@ def phase_pair_lists(trainer, scans) -> None:
     log(f"K5 pair lists: {tot:.4f} ms per step in the topology stage")
 
 
-def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = False) -> None:
+def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = False, prepare=None,
+                           tol=(1e-4, 1e-3, 3e-2)) -> None:
     """The same small scan and weights through 2 f32 train steps on the
     card and on the CPU (plain versions): step 0 at LR * 1e-5, step 1 at
     the full LR (warmup of one step).  Loss within 1e-4 relative, grad
@@ -1816,7 +1845,11 @@ def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = F
     amplifies summation-order differences, as tests/test_torch_train.py
     shows on the CPU).  `no_dropout` sets every Dropout's rate to 0 on
     both sides: a CUDA and a CPU generator draw different masks from one
-    seed (RPVNet's range branch drops at 0.2 in every step)."""
+    seed (RPVNet's range branch drops at 0.2 in every step).  `prepare`
+    is called on each Trainer before its steps (a criterion rebuilt with
+    class counts); `tol` replaces the three tolerances (loss, grad norm,
+    update) for an optimizer that amplifies the difference
+    (`LOSS_VARIANTS`' adam_onecycle)."""
     import numpy as np
 
     from taseg_tpu_torch.engine import Trainer
@@ -1835,6 +1868,8 @@ def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = F
             for m in tr.model.modules():
                 if isinstance(m, Dropout):
                     m.rate = 0.0
+        if prepare is not None:
+            prepare(tr)
         runs[dev] = [tr.step(small) for _ in range(2)], export_flax_params(tr.model)[0]
     (g_out, g_par), (c_out, c_par) = runs["cuda"], runs["cpu"]
     p0 = variables["params"]
@@ -1853,12 +1888,12 @@ def phase_small_train_step(cfg, variables, label: str = "", no_dropout: bool = F
             f"{label}small-scan f32 step {i}: loss card {g['loss']:.7f} cpu {c['loss']:.7f}, "
             f"grad norm card {g['grad_norm']:.6f} cpu {c['grad_norm']:.6f}, lr {g['lr']:.3e}"
         )
-        if not abs(g["loss"] - c["loss"]) <= 1e-4 * abs(c["loss"]):
+        if not abs(g["loss"] - c["loss"]) <= tol[0] * abs(c["loss"]):
             raise AssertionError(f"small-scan step {i}: card and CPU losses disagree")
-        if not abs(g["grad_norm"] - c["grad_norm"]) <= 1e-3 * c["grad_norm"]:
+        if not abs(g["grad_norm"] - c["grad_norm"]) <= tol[1] * c["grad_norm"]:
             raise AssertionError(f"small-scan step {i}: card and CPU grad norms disagree")
     log(f"{label}small-scan f32 params after 2 steps: |card - cpu| / |update| = {diff / upd:.3e}")
-    if not diff <= 3e-2 * upd:
+    if not diff <= tol[2] * upd:
         raise AssertionError("small-scan step: card and CPU updates disagree")
 
 
@@ -3199,7 +3234,7 @@ def cylinder_serve_profile(seg, scans, out: dict) -> None:
             dev[k] += ms
         if not mine:
             others.append((ms, e.count / n, e.key[:90]))
-    for k in ("join_scan", "sparse_conv_k"):
+    for k in ("join_scan", "sparse_conv_k", "segment_max"):
         log(f"cylinder profiler serving {k}: {dev[k]:.4f} ms per scan on the device")
         out[k] = dev[k] or None
     others.sort(reverse=True)
@@ -3209,47 +3244,6 @@ def cylinder_serve_profile(seg, scans, out: dict) -> None:
     )
     for ms, c, name in others[:8]:
         log(f"  {ms:.4f} ms x{c:g} {name}")
-
-
-def segment_max_ms(seg, scans) -> None:
-    """The segment max (plain torch: `scatter_reduce` amax forward, its own
-    backward) at the real (P, 16) f32 shape and segment ids of one scan:
-    forward, and forward + backward of its sum, on the host clock around
-    10 calls (CUDA events, `cuda_ms`) and in device time (profiler events,
-    every kernel of the call), beside its bound (bytes: (P, 16) f32 read
-    and (V, 16) written once each way) and one `scatter_reduce(amax)` on
-    the same rows into a -inf-filled output made beforehand (`library_ms`
-    of its table row)."""
-    import torch
-
-    from taseg_tpu_torch.ops.voxelize import segment_max
-
-    a = seg.collate(scans[:1])
-    topo = seg.topology(a)
-    inv, v0 = topo.point_inverse, topo.levels[0].coords.shape[0]
-    ids = torch.where(inv >= 0, inv, v0)
-    gen = torch.Generator(device=inv.device).manual_seed(SEED)
-    x = torch.randn(inv.shape[0], 16, device=inv.device, generator=gen)
-    x = torch.where((inv >= 0)[:, None], x, float("-inf")).requires_grad_()
-
-    def fwd_bwd():
-        m = segment_max(x, ids, v0 + 1)
-        torch.where(torch.isfinite(m), m, 0.0).sum().backward()
-
-    def fwd():
-        segment_max(x.detach(), ids, v0 + 1)
-
-    b, _ = bound_ms((x.shape[0] + v0 + 1) * 16 * 4, 0, "float32")
-    base = torch.full((v0 + 1, 16), float("-inf"), device=x.device)
-    idx = ids.long()[:, None].expand(-1, 16)
-    xd = x.detach()
-    lib = cuda_ms(lambda: base.scatter_reduce(0, idx, xd, "amax"))
-    log(
-        f"cylinder segment_max P={x.shape[0]} V={v0} C=16 f32: forward {cuda_ms(fwd):.4f} ms "
-        f"(device {fmt_ms(device_ms(fwd, ('',)))}), forward + backward {cuda_ms(fwd_bwd):.4f} ms "
-        f"(device {fmt_ms(device_ms(fwd_bwd, ('',)))}); bound {b:.4f} ms each way (bytes); one "
-        f"scatter_reduce(amax) {lib:.4f} ms"
-    )
 
 
 def permute_rows_ms(trainer, scans) -> None:
@@ -3357,7 +3351,8 @@ def phase_cylinder(scans, results: dict) -> dict:
     a = seg.collate(scans[:1])
     cylinder_table_cost(seg.topology(a), "cylinder serving ")
     del a
-    segment_max_ms(seg, scans)
+    results["segment_max"] = phase_k10_cylinder(seg, scans)
+    no_aten_op(lambda: seg.predict(scans[:1]), "scatter_reduce", "cylinder serving")
     serve_dev: dict = {}
     cylinder_serve_profile(seg, scans, serve_dev)
     del seg
@@ -3390,6 +3385,7 @@ def phase_cylinder(scans, results: dict) -> dict:
     cylinder_table_cost(kept.pop("topo"), "cylinder train ")
     permute_rows_ms(trainer, scans)
     phase_small_train_step(cfg, variables, "cylinder ")
+    no_aten_op(lambda: trainer.step(scans[:1]), "scatter_reduce", "cylinder train step")
     per_step = {k: CYLINDER_PER_STEP.get(k, 0) for k in _build.LAUNCHES}
     train, _ = phase_train_steps(trainer, scans, per_step, "cylinder train")
     cyl: dict = {}
@@ -5941,9 +5937,477 @@ def cr16_entry(res: dict, name: str) -> dict:
     return out
 
 
+# K10 (`segment_max`, csrc/segment_max.cu): each check holds the kernel
+# to the bits of its plain versions both ways, on repeat, with one launch
+# each way, and times it beside its bound and one scatter_reduce(amax)
+K10_SOURCE = ("csrc/segment_max.cu", "taseg_tpu/models/voxel/cylinder3d.py:236, taseg_tpu/ops/bev.py:43")
+# Cylinder_TS's serving and train paths: K10 once a scan, 1 + 1 a step
+CYLINDER_K10_PER_SCAN = {"segment_max": 1}
+CYLINDER_K10_PER_STEP = {"segment_max": 2, "segment_max_bwd": 1}
+
+# Phase 5m (this slice's path): torchsparse's demo backbones and the BEV
+# family on two synthetic 120 000-point scans quantized at 0.05 m, batch
+# 2, 4 input features; the new losses and optimizers on the MinkUNet
+# flagship.  The capacities hold the two scans' voxels with room to spare
+# (the level counts are logged beside them and an overflow fails): the
+# stride-2 stages of kernel 3 take every stride-2 point within one voxel
+# of an input, so stage 1 holds more voxels than stage 0 (SEED's two
+# scans: 159 581, 245 335, 155 865, 58 329, 38 450 on the CPU).
+BB_POINT_CAP = 262_144
+RESNET_CAPS = (262_144, 327_680, 196_608, 98_304, 65_536)
+BB_TRAIN_LR = 0.01
+# the flagship's 2-step variants of the new losses and optimizers:
+# (label, LOSS_TYPES, OPTIM keys, the small-scan step's tolerances (loss,
+# grad norm, update) card against CPU); WCELoss reads class counts, which
+# no config carries (JAX's engine passes none either): the variant's
+# criterion is rebuilt with the scans' label histogram.  adam_onecycle
+# takes Adam's normalised step at LR / 10 from the first update, where
+# each parameter moves by about the LR whichever way its gradient's last
+# bits tip it: its step 1 is held looser (measured on an H100 80GB HBM3
+# at 700 W: loss 4.0e-4, grad norm 4.9e-3, the update 1.4e-1 off the
+# CPU's)
+LOSS_VARIANTS = (
+    ("eqlv2+sgd_fc", ["CELoss", "LovLoss", "EQLv2"], {"OPTIMIZER": "sgd_fc"}, (1e-4, 1e-3, 3e-2)),
+    ("wce/focal/dice1/ell+adam", ["WCELoss", "FocalLoss", "DiceLossV1", "ELLLoss"],
+     {"OPTIMIZER": "adam", "LR_PER_SAMPLE": 0.0005}, (1e-4, 1e-3, 3e-2)),
+    ("ce/lov+adam_onecycle", ["CELoss", "LovLoss"],
+     {"OPTIMIZER": "adam_onecycle", "LR_PER_SAMPLE": 0.0005, "MOMS": (0.95, 0.85), "DIV_FACTOR": 10.0,
+      "PCT_START": 0.4}, (2e-3, 2e-2, 2.5e-1)),
+)
+
+
+def bits(t):
+    """A float tensor's bits (f32 as int32, bf16 as int16)."""
+    import torch
+
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def k10_check(label: str, x, seg, s: int, g=None) -> dict:
+    """K10 at one shape: forward and backward bit-equal to the plain
+    versions on the same card tensors (a max of zeros +0.0 in both),
+    bit-identical on repeat, one launch each way; each way's device ms
+    (CUDA events), the plain version's, the bound (bytes: x and the ids
+    read and out written once; backward x, ids, out, g read and dx
+    written) and, forward, one scatter_reduce(amax) into a -inf output
+    made beforehand (`library_ms`)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops import voxelize as vx
+
+    if g is None:
+        gen = torch.Generator(device=x.device).manual_seed(SEED)
+        g = torch.randn((s, x.shape[1]), device=x.device, generator=gen).to(x.dtype)
+    seg = seg.to(torch.int32).contiguous()
+    _build.reset_launches()
+    out = vx.segment_max_kernel(x, seg, s)
+    again = vx.segment_max_kernel(x, seg, s)
+    dx = vx.segment_max_bwd_kernel(x, seg, out, g)
+    dx2 = vx.segment_max_bwd_kernel(x, seg, out, g)
+    torch.cuda.synchronize()
+    if (_build.LAUNCHES["segment_max"], _build.LAUNCHES["segment_max_bwd"]) != (4, 2):
+        raise AssertionError(f"K10 {label}: launches {_build.LAUNCHES['segment_max']} for 2 + 2 calls")
+    want, dwant = vx.segment_max_plain(x, seg, s), vx.segment_max_bwd_plain(x, seg, out, g)
+    for name, a, b in (("forward", out, want), ("repeat", again, out), ("backward", dx, dwant),
+                       ("backward repeat", dx2, dx)):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"K10 {label}: {name} differs from its plain version in the bits")
+    # columns where some segment but the last (the dropped rows') has
+    # more than one member at its max
+    hit = (x == out.gather(0, seg.long()[:, None].expand_as(x))) & (seg < s - 1)[:, None]
+    n_hit = torch.zeros((s, x.shape[1]), dtype=torch.int32, device=x.device)
+    n_hit.scatter_add_(0, seg.long()[:, None].expand_as(x), hit.int())
+    ties = int((n_hit > 1).any(0).sum())
+    esz = x.element_size()
+    p, c = x.shape
+    b_f, by_f = bound_ms(p * c * esz + p * 4 + s * c * esz, 0, "float32")
+    b_b, by_b = bound_ms(2 * p * c * esz + p * 4 + 2 * s * c * esz, 0, "float32")
+    idx = seg.long()[:, None].expand(-1, c)
+    base = torch.full((s, c), float("-inf"), dtype=x.dtype, device=x.device)
+    r = {
+        "shape": [p, c, s], "dtype": str(x.dtype).split(".")[1], "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: vx.segment_max_kernel(x, seg, s)),
+        "plain_ms": cuda_ms(lambda: vx.segment_max_plain(x, seg, s)),
+        "bound_ms": b_f, "bound_by": by_f,
+        "library_ms": cuda_ms(lambda: base.scatter_reduce(0, idx, x, "amax")),
+        "bwd_ms": cuda_ms(lambda: vx.segment_max_bwd_kernel(x, seg, out, g)),
+        "bwd_plain_ms": cuda_ms(lambda: vx.segment_max_bwd_plain(x, seg, out, g)),
+        "bwd_bound_ms": b_b, "bwd_bound_by": by_b, "bwd_library_ms": None,
+        "columns_with_tied_maxima": ties,
+    }
+    log(
+        f"K10 {label} P={p} C={c} S={s} {r['dtype']}: bit-exact both ways, repeat bit-identical, "
+        f"{ties} of {c} columns with tied maxima; forward {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"scatter_reduce amax {r['library_ms']:.4f}, bound {b_f:.4f}); backward {r['bwd_ms']:.4f} ms "
+        f"(plain {r['bwd_plain_ms']:.4f}, bound {b_b:.4f})"
+    )
+    return r
+
+
+def no_aten_op(fn, op: str, what: str) -> None:
+    """Run `fn` under the profiler (host ops only) and fail if `op` ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e.key for e in prof.key_averages() if op in e.key]
+    if hits:
+        raise AssertionError(f"{what} ran {hits}")
+    log(f"{what}: no {op}")
+
+
+def phase_k10_cylinder(seg, scans) -> dict:
+    """K10 at Cylinder_TS's real call: the (P, 16) f32 compression
+    features of one scan (a ReLU's output, -0.0 planted in 5% of them)
+    into the level-0 voxels and the padding rows' sentinel segment, both
+    ways (`k10_check`); each voxel holds one row there, so the same call
+    again with every two voxels' rows in one segment plants the ties
+    (exact zeros and equal values in most segments).  Returns the real
+    call's numbers."""
+    import torch
+
+    a = seg.collate(scans[:1])
+    topo = seg.topology(a)
+    inv, v0 = topo.point_inverse, topo.levels[0].coords.shape[0]
+    ids = torch.where(inv >= 0, inv, v0)
+    gen = torch.Generator(device=inv.device).manual_seed(SEED)
+    x = torch.relu(torch.randn(inv.shape[0], 16, device=inv.device, generator=gen))
+    x = torch.where(torch.rand(x.shape, device=x.device, generator=gen) < 0.05, -0.0, x)
+    x = torch.where((inv >= 0)[:, None], x, float("-inf"))
+    r = k10_check("cylinder", x, ids, v0 + 1)
+    k10_check("cylinder, ties planted", x, torch.where(inv >= 0, inv // 2, v0), v0 + 1)
+    return r
+
+
+def bb_inputs(scans, dev, cap: int = BB_POINT_CAP) -> dict:
+    """Two scans quantized at 0.05 m (the voxel pipeline, eval form),
+    collated with a batch column: coords (cap, 4) int32, feats (cap, 4)
+    f32, num, and the (x, y, z) extent of the voxels."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.data.voxel_dataset import VoxelPipeline, collate_shard
+
+    pipe = VoxelPipeline(0.05, training=False)
+    a = collate_shard([pipe(s) for s in scans[:2]], cap)
+    n = int(a["num_points"][0])
+    return {
+        "coords": torch.from_numpy(a["point_coords"].astype(np.int32)).to(dev),
+        "feats": torch.from_numpy(a["point_feats"]).to(dev), "num": n,
+        "extent": a["point_coords"][:n, :3].max(0).astype(np.int64) + 1,
+    }
+
+
+def bb_topology(kind: str, inp: dict, train: bool, caps):
+    """(topology, input features at its first level) of either backbone."""
+    import torch
+
+    from taseg_tpu_torch.models.voxel import backbones as bb
+    from taseg_tpu_torch.models.voxel.backbone_context import build_unet_topology
+    from taseg_tpu_torch.ops.voxelize import voxelize_avg
+
+    if kind == "resnet":
+        topo = bb.build_resnet_topology(inp["coords"], inp["num"], caps, train=train)
+        levels = topo.stages
+    else:
+        topo = build_unet_topology(
+            inp["coords"].float(), torch.tensor(inp["num"], dtype=torch.int32, device=inp["coords"].device),
+            caps, devox_pairs=train, nonneg_coords=True,
+        )
+        levels = topo.levels
+    for i, (l, c) in enumerate(zip(levels, caps if kind == "resnet" else caps.voxels)):
+        if int(l.num) > c:
+            raise AssertionError(f"{kind}: level {i} holds {int(l.num)} voxels > capacity {c}")
+    return topo, voxelize_avg(inp["feats"], topo.point_inverse, topo.point_tables)
+
+
+def bb_model(kind: str, dev, width: float = 1.0):
+    from taseg_tpu_torch.models.voxel import backbones as bb
+    from taseg_tpu_torch.utils.params_from_jax import init_module_numpy, load_flax_params
+
+    net = bb.SparseResNet21D if kind == "resnet" else bb.SparseResUNet42
+    model = net(in_channels=4, width_multiplier=width, device=dev)
+    params, stats = init_module_numpy(net(in_channels=4, width_multiplier=width, device="cpu"), SEED)
+    load_flax_params(model, params, stats)
+    return model
+
+
+def bb_caps(kind: str, cap: int):
+    from taseg_tpu_torch.models.voxel.backbone_context import UNetCapacities
+
+    if kind == "resnet":
+        # small scans are sparser: their stride-2 stages grow more
+        return RESNET_CAPS if cap == BB_POINT_CAP else (cap,) + (4 * cap,) * 4
+    # the default schedule holds the two full scans (159 581, 105 993,
+    # 53 517, 21 562, 7 421 voxels on the CPU); small scans fill every level
+    return UNetCapacities.for_points(cap, schedule=None if cap == BB_POINT_CAP else (1.0,) * 5)
+
+
+def bev_modules(grid, bounds, extent, dev) -> dict:
+    """The six pools and BEV modules on `grid` (SparseResNet21D's last
+    stage, 128 channels, read at stride 8 on x and z; its y stride is 16),
+    batch 2, a BEV map over the scans' extent: name -> output (a tensor,
+    or a SparseGrid's feats)."""
+    import math
+
+    import torch
+
+    from taseg_tpu_torch import models as tm
+
+    s = grid.stride
+    shape = tuple(int(math.ceil(e / s)) for e in extent)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    c = grid.feats.shape[1]
+    mods = {
+        "GlobalAvgPool": lambda: tm.GlobalAvgPool(2)(grid),
+        "GlobalMaxPool": lambda: tm.GlobalMaxPool(2)(grid),
+        "ToBEVReduction": lambda: tm.ToBEVReduction(2)(grid, bounds).feats,
+        "ToDenseBEVConvolution": lambda: tm.ToDenseBEVConvolution(
+            c, 64, shape, batch_size=2, use_bias=True, generator=gen).to(dev)(grid),
+        "ToBEVConvolution": lambda: tm.ToBEVConvolution(
+            c, 64, shape[2], stride=2, use_bias=True, generator=gen).to(dev)(grid, bounds).feats,
+        "ToBEVHeightCompression": lambda: tm.ToBEVHeightCompression(c, shape, batch_size=2)(grid),
+    }
+    return {k: f() for k, f in mods.items()}, shape
+
+
+def bb_grid(topo, out):
+    from taseg_tpu_torch.ops.sparse_tensor import SparseGrid
+
+    st = topo.stages[-1]
+    return SparseGrid(coords=st.coords, feats=out, num=st.num, stride=8)
+
+
+# phase_bb_small's tolerances, of each output's scale: the backbones'
+# features (3xTF32 and another summation order); the pools and BEV maps,
+# whose CPU side sums a batch's ~8 000 rows by a mean-centred cumsum (the
+# JAX package's `segment_sum`, K6's plain version: ~1e-4 off over such
+# segments, 1.24e-4 measured on an H100 80GB HBM3 at 700 W against K6's
+# fixed-order sum)
+BB_SMALL_TOL = {"resnet": 1e-4, "unet": 1e-4, "bev": 1e-3}
+
+
+def phase_bb_small() -> None:
+    """Card against CPU on two 8000-point scans: both backbones' eval
+    features at width 0.25 in f32, and the six pools and BEV modules on
+    the ResNet's last stage, within BB_SMALL_TOL of their scale."""
+    import torch
+
+    small = make_scans(2, n_points=8000, seed=SEED + 1)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        inp = bb_inputs(small, dev, cap=16_384)
+        out = {}
+        for kind in ("resnet", "unet"):
+            model = bb_model(kind, dev, 0.25)
+            model.eval()
+            topo, x0 = bb_topology(kind, inp, False, bb_caps(kind, 16_384))
+            with torch.no_grad():
+                feats = model(x0, topo)
+            out[kind] = [f.float().cpu() for f in feats]
+            if kind == "resnet":
+                with torch.no_grad():
+                    bev, _ = bev_modules(bb_grid(topo, feats[-1]), topo.bounds, inp["extent"], dev)
+                out["bev"] = [v.float().cpu() for v in bev.values()]
+        res[dev] = out
+    worst = {}
+    for k in res["cpu"]:
+        for a, b in zip(res["cuda"][k], res["cpu"][k], strict=True):
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+            worst[k] = max(worst.get(k, 0.0), err)
+            if not err <= BB_SMALL_TOL[k]:
+                raise AssertionError(f"backbones small {k}: card vs cpu {err:.3e} of the scale")
+    log(f"backbones/BEV small scans f32 card vs cpu, worst |d| / scale: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def bb_counted(fn):
+    """(fn's result, its launches, its device ms (CUDA events))."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    r = fn()
+    e1.record()
+    e1.synchronize()
+    return r, {k: v for k, v in _build.LAUNCHES.items() if v}, e0.elapsed_time(e1)
+
+
+def phase_backbone(kind: str, inp: dict) -> dict:
+    """One backbone at full width on the two scans: the eval topology,
+    an f32 and a bf16 forward (finite; bf16 within 5e-2 of f32's scale
+    per stage), the train topology and one f32 train step with a feature
+    loss (mean square of every stage output, the port's SGD), each
+    stage counted (launches per wrapper) and timed (CUDA events), the
+    second run of each after a warm-up; peak memory."""
+    import torch
+
+    from taseg_tpu_torch.optim import build_optimizer
+
+    caps = bb_caps(kind, BB_POINT_CAP)
+    model = bb_model(kind, "cuda")
+    model.eval()
+    r = {}
+    for _ in range(2):  # the second pass is the measured one
+        torch.cuda.reset_peak_memory_stats()
+        (topo, x0), r["topology_launches"], r["topology_ms"] = bb_counted(lambda: bb_topology(kind, inp, False, caps))
+        with torch.no_grad():
+            f32, r["forward_f32_launches"], r["forward_f32_ms"] = bb_counted(lambda: model(x0, topo))
+            b16, r["forward_bf16_launches"], r["forward_bf16_ms"] = bb_counted(lambda: model(x0.bfloat16(), topo))
+        r["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    levels = topo.stages if kind == "resnet" else topo.levels
+    r["level_voxels"] = [int(l.num) for l in levels]
+    r["capacities"] = list(caps if kind == "resnet" else caps.voxels)
+    agree = []
+    for a, b in zip(b16, f32):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{kind}: non-finite features")
+        agree.append(float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-6))
+    r["bf16_vs_f32"] = agree
+    if max(agree) > 5e-2:
+        raise AssertionError(f"{kind}: bf16 features off f32's by {max(agree):.3e} of the scale")
+    last = f32[-1]
+    del f32, b16, topo
+    model.train()
+    # no warmup: the step runs at BB_TRAIN_LR
+    opt = build_optimizer(model.parameters(), {"OPTIMIZER": "sgd", "LR": BB_TRAIN_LR, "WARMUP_EPOCH": 0}, 1, 1)
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        (topo, x0), r["train_topology_launches"], r["train_topology_ms"] = bb_counted(
+            lambda: bb_topology(kind, inp, True, caps))
+        outs, r["train_forward_launches"], r["train_forward_ms"] = bb_counted(lambda: model(x0, topo))
+        loss = sum((o.float() ** 2).mean() for o in outs)
+        _, r["backward_launches"], r["backward_ms"] = bb_counted(lambda: (opt.zero_grad(), loss.backward()))
+        (g_norm, _), _, r["update_ms"] = bb_counted(opt.step)
+        r["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not (torch.isfinite(loss) and torch.isfinite(g_norm)):
+            raise AssertionError(f"{kind}: non-finite train step")
+        del outs, topo, loss
+    r["loss_grad_norm"] = [float(g_norm)]
+    log(f"backbone {kind}: level voxels {r['level_voxels']} caps {r['capacities']}; topology "
+        f"{r['topology_ms']:.3f} ms, forward f32 {r['forward_f32_ms']:.3f} ms, bf16 "
+        f"{r['forward_bf16_ms']:.3f} ms (bf16 vs f32 worst {max(agree):.3e}); train topology "
+        f"{r['train_topology_ms']:.3f} ms, forward {r['train_forward_ms']:.3f} ms, backward "
+        f"{r['backward_ms']:.3f} ms, update {r['update_ms']:.3f} ms; peak {r['serve_peak_gib']:.2f} / "
+        f"{r['train_peak_gib']:.2f} GiB")
+    for k in ("topology_launches", "forward_f32_launches", "forward_bf16_launches", "backward_launches"):
+        log(f"  {kind} {k}: {r[k]}")
+    if kind == "resnet":
+        if not (r["forward_f32_launches"].get("sparse_conv_k_tf32", 0) >= 3
+                and r["backward_launches"].get("sparse_conv_dw", 0) >= 3):
+            raise AssertionError("resnet: its strided entry convs did not run K2 / K4 at K offsets")
+    elif not (r["forward_bf16_launches"].get("strided_down_wgmma", 0) == 4
+              and r["backward_launches"].get("strided_dw", 0) == 8):
+        raise AssertionError("unet: K3-down on wgmma in bf16 and K5 in the step expected")
+    r["last"] = last
+    return r
+
+
+def loss_variants(scans) -> dict:
+    """The MinkUNet flagship (bf16, full width) with each of
+    LOSS_VARIANTS: two counted train steps on the scans (finite loss and
+    grad norm; EQLv2's statistics moved and summed into `loss_state`);
+    then the same variant's small-scan f32 steps on the card against the
+    CPU (`phase_small_train_step`)."""
+    import numpy as np
+    import torch
+
+    from taseg_tpu_torch.configs import MINKUNET_MK34_CR10
+    from taseg_tpu_torch.engine import Trainer
+    from taseg_tpu_torch.loss import Losses
+    from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
+
+    base = MINKUNET_MK34_CR10
+    params, stats = init_params_numpy(base, seed=SEED)
+    variables = {"params": params, "batch_stats": stats}
+    counts = np.bincount(np.concatenate([s["labels"] for s in scans]), minlength=20).astype(np.float64) + 1.0
+    out = {}
+
+    def prepare(tr):
+        if "WCELoss" in tr.criterion.loss_types:
+            tr.criterion = Losses(tr.criterion.loss_types, [1.0] * len(tr.criterion.loss_types),
+                                  ignore_index=0, cls_num_pts=counts)
+
+    for label, types, optim, tol in LOSS_VARIANTS:
+        cfg = {**base, "MODEL": {**base["MODEL"], "LOSS_CONFIG": {
+            "LOSS_TYPES": types, "LOSS_WEIGHTS": [1.0] * len(types)}},
+            "OPTIM": {**base["OPTIM"], **optim}}
+        tr = Trainer(cfg, variables, iters_per_epoch=2, total_epochs=2, compute_dtype="bfloat16", seed=SEED)
+        prepare(tr)
+        steps = []
+        t0 = time.perf_counter()
+        for i in range(2):
+            m = tr.step(scans[i : i + 1])
+            steps.append((m["loss"], m["grad_norm"], m["lr"]))
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"{label}: non-finite step {i}")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        if "EQLv2" in types and not bool((tr.loss_state.neg_grad > 0).all()):
+            raise AssertionError(f"{label}: EQLv2's statistics did not move")
+        log(f"flagship {label}: 2 bf16 steps (loss, grad norm, lr) {steps}, {ms:.1f} ms a step on the host clock")
+        out[label] = {"steps": steps, "ms_per_step": ms}
+        del tr
+        torch.cuda.empty_cache()
+        phase_small_train_step(cfg, variables, f"flagship {label} ", prepare=prepare, tol=tol)
+    return out
+
+
+def phase_backbones(scans) -> dict:
+    """Phase 5m: SparseResNet21D (torchsparse's widths, 16-128) and
+    SparseResUNet42 (32-256, decoder 256/128/96/96) on two 120 000-point
+    scans (`phase_backbone`), the six pools and BEV modules on
+    SparseResNet21D's last stage with every launch counted (K10 in the
+    max pool) and K10 held at the pool's shape, card against CPU on small
+    scans, and the new losses and optimizers on the MinkUNet flagship
+    (`loss_variants`).  Returns its numbers and seconds."""
+    import torch
+
+    t_phase = time.perf_counter()
+    inp = bb_inputs(scans, "cuda")
+    log(f"phase 5m: two scans, {inp['num']} voxels at 0.05 m, extent {inp['extent'].tolist()}")
+    res = {"resnet": phase_backbone("resnet", inp)}
+    last = res["resnet"].pop("last")
+    topo, _ = bb_topology("resnet", inp, False, bb_caps("resnet", BB_POINT_CAP))
+    grid = bb_grid(topo, last)
+    with torch.no_grad():
+        (bev, shape), launches, ms = bb_counted(lambda: bev_modules(grid, topo.bounds, inp["extent"], "cuda"))
+    for k, v in bev.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{k}: non-finite output")
+    if launches.get("segment_max", 0) != 1 or not launches.get("segment_sum") or not launches.get("sparse_conv_k"):
+        raise AssertionError(f"BEV modules: launches {launches} (K10 once, K6 and K2 at K expected)")
+    res["bev"] = {"map_shape": list(shape), "launches": launches, "ms": ms,
+                  "outputs": {k: list(v.shape) for k, v in bev.items()}}
+    log(f"BEV / pools on the last stage ({int(grid.num)} voxels x {grid.feats.shape[1]}, map {shape}): "
+        f"{ms:.3f} ms, launches {launches}, outputs {res['bev']['outputs']}")
+    bid = torch.where(grid.valid_mask(), grid.coords[:, 3], 2).to(torch.int32)
+    res["k10_pool"] = k10_check("pool", grid.feats.float().contiguous(), bid, 3)
+    # the same rows on a grid of 0.5: most columns' maxima tied
+    k10_check("pool, ties planted", (grid.feats.float() * 2).round() / 2, bid, 3)
+    del bev, grid, topo, last
+    torch.cuda.empty_cache()
+    res["unet"] = phase_backbone("unet", inp)
+    res["unet"].pop("last")
+    del inp
+    torch.cuda.empty_cache()
+    phase_bb_small()
+    res["losses"] = loss_variants(scans)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5m: {res['seconds']:.1f} s")
+    return res
+
+
 # the phases that `--phase` runs alone, after the card and the build
 ALONE = {"5d": "phase_rpvnet", "5e": "phase_cylinder", "5g": "phase_tiaf", "5k": "phase_nus_waymo",
-         "5l": "phase_cr16"}
+         "5l": "phase_cr16", "5m": "phase_backbones"}
 
 
 def run_phases(phases: list, t_start: float) -> int:
@@ -6159,6 +6623,12 @@ def main() -> int:
     # call against its plain version and the CUDA-core kernel it replaced
     cr16 = phase_cr16(scans, trainer)
 
+    # 5m. torchsparse's SparseResNet21D and SparseResUNet42 on two scans,
+    # the pools and the BEV family on the ResNet's last stage (K10 in the
+    # max pool, held at that shape), the new losses and optimizers on the
+    # flagship
+    bb = phase_backbones(scans)
+
     # 6. device time per kernel on the main paths
     phase_profile(seg, scans, results, {k: launches[k] / N_SCANS for k in KERNEL_NAMES}, probes)
     phase_train_profile(trainer, scans, results)
@@ -6358,9 +6828,27 @@ def main() -> int:
         "points": k9["points"], "image": k9["image"], "bytes": k9["bytes"],
         "nus_waymo": nus_waymo_entry(nus_waymo, "knn"),
     })
+    # K10, the segment max: Cylinder_TS's serving launches (one a scan),
+    # its numbers at one scan's (P, 16) call both ways, its train
+    # launches, and its numbers at the global max pool's shape (phase 5m)
+    k10 = results["segment_max"]
+    train_launches_cyl = cylinder["train_launches"]
+    kernels.append({
+        "name": "segment_max", "route": "cuda", "source": f"taseg_tpu_torch/{K10_SOURCE[0]}",
+        "replaces": K10_SOURCE[1], "launches": cylinder["launches"]["segment_max"],
+        **{k: k10[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per": "scan (Cylinder_TS serving, f32)", "shape": k10["shape"],
+        "train": {"launches": train_launches_cyl["segment_max"],
+                  "bwd_launches": train_launches_cyl["segment_max_bwd"],
+                  **{k: k10[k] for k in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
+                                         "bwd_library_ms")}},
+        "pool": {**bb["k10_pool"], "launches": bb["bev"]["launches"]["segment_max"],
+                 "per": "the six BEV / pool modules on SparseResNet21D's last stage (phase 5m)"},
+    })
     log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s; "
         f"range phase (5j): {rng['seconds']:.1f} s; nuscenes / waymo phase (5k): {nus_waymo['seconds']:.1f} s; "
-        f"cr 1.6 phase (5l): {cr16['seconds']:.1f} s")
+        f"cr 1.6 phase (5l): {cr16['seconds']:.1f} s; backbones / BEV / losses phase (5m): "
+        f"{bb['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

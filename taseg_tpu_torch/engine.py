@@ -80,7 +80,7 @@ from .models.voxel.cylinder3d import CylinderTS, build_cylinder_topology
 from .models.voxel.backbone_context import UNetCapacities, build_unet_topology, host_nonneg
 from .models.voxel.minkunet_mm import TRAINABLE_PREFIXES, TiafInputs, tiaf_inputs
 from .models import RANGE_SEGMENTORS, TIAF_MODELS, build_segmentor
-from .optim import build_optimizer
+from .optim import build_optimizer, head_parameters
 from .utils import storage
 from .utils.common import StepTimer, create_logger
 from .utils.param_groups import frozen_parameters
@@ -664,29 +664,46 @@ class Trainer:
         self.optimizer = build_optimizer(
             self.model.parameters(), {**optim, "LR": lr}, iters_per_epoch,
             self.total_epochs, clip_grad_norm=float(optim.get("GRAD_NORM_CLIP", 10.0)),
-            frozen=frozen,
+            frozen=frozen, head=head_parameters(self.model),
         )
         loss_cfg = m.get(
             "LOSS_CONFIG",
             {"LOSS_TYPES": ["CELoss", "LovLoss"], "LOSS_WEIGHTS": [1.0, 1.0]},
         )
+        self.loss_state = self._next_loss_state = None
         self.build_criterion(cfg, loss_cfg)
         self.output_dir = Path(output_dir)
         ckpt_root = str(cfg.get("CKPT_DIR", "") or "")
-        self.ckpt_dir = (Path(ckpt_root) if ckpt_root else self.output_dir / "ckpt").absolute()
+        if storage.is_remote(ckpt_root):  # s3:// on the Petrel backend
+            self.ckpt_dir = ckpt_root.rstrip("/")
+        else:
+            self.ckpt_dir = (Path(ckpt_root) if ckpt_root else self.output_dir / "ckpt").absolute()
         self.ckptr = storage.CheckpointIO()
         self.start_epoch = 0
         self._writer = None
 
     def build_criterion(self, cfg: dict, loss_cfg: dict) -> None:
-        """The criterion of MODEL.LOSS_CONFIG: CE with label smoothing +
-        Lovász, ignoring MODEL.IGNORE_LABEL."""
+        """The criterion of MODEL.LOSS_CONFIG (LOSS_TYPES, LOSS_WEIGHTS,
+        GS_GROUPS, GS_FG_CLASSES), ignoring MODEL.IGNORE_LABEL, with
+        MODEL.LABEL_SMOOTHING, as JAX's engine builds it
+        (engine.py:195-207); under MODEL.IF_DIST EQLv2 sums its
+        statistics over the ranks.  A stateful criterion's statistics
+        start in `loss_state` (JAX `TrainState.loss_state`)."""
         m = cfg["MODEL"]
         self.criterion = Losses(
             loss_cfg["LOSS_TYPES"], loss_cfg["LOSS_WEIGHTS"],
             ignore_index=int(m.get("IGNORE_LABEL", 0)),
             label_smoothing=float(m.get("LABEL_SMOOTHING", 0.0)),
+            gs_groups=loss_cfg.get("GS_GROUPS"),
+            gs_fg_classes=loss_cfg.get("GS_FG_CLASSES"),
+            dist=bool(m.get("IF_DIST", False)),
         )
+        if self.criterion.stateful and self.kind != "voxel":
+            raise ValueError(
+                f"EQLv2 carries its statistics through the plain train step only, as JAX's "
+                f"make_train_step; the {self.kind} step takes a stateless criterion"
+            )
+        self.loss_state = self.criterion.init_state(self.num_class, self.device)
 
     @property
     def writer(self) -> MetricsWriter:
@@ -786,6 +803,13 @@ class Trainer:
             logits, s_feats = self.model(a["point_feats_t"], topo, return_features=True)
         p = logits.shape[0]
         pvalid = torch.arange(p, device=self.device) < a["num_points_t"]
+        if self.criterion.stateful:
+            # the statistics after this step, taken by `train_on` with
+            # the update (JAX's step returns them in the new TrainState)
+            loss, self._next_loss_state = self.criterion(
+                logits, a["labels_t"].long(), pvalid, self.loss_state
+            )
+            return loss
         loss = self.criterion(logits, a["labels_t"].long(), pvalid)
         if self.kind == "kd":
             fs = s_feats[arrays["kd_student_idx_t"].long()]
@@ -851,6 +875,8 @@ class Trainer:
         loss = self.forward(arrays, topo)
         self.backward(loss)
         g_norm, lr = self.update()
+        if self._next_loss_state is not None:
+            self.loss_state, self._next_loss_state = self._next_loss_state, None
         out = {
             "loss": float(parallel.mean_over_ranks(loss.detach())), "grad_norm": float(g_norm),
             "lr": lr, "level_nums": level_nums,
@@ -869,8 +895,9 @@ class Trainer:
     def save_checkpoint(self, epoch: int, max_keep: int = 30) -> None:
         """`checkpoint_epoch_<epoch>`: the model's state dict (parameters
         and BN running statistics), the optimizer's (momentum traces and
-        its step count), the dropout generator's state and the epoch;
-        keeps the newest `max_keep`."""
+        its step count), the dropout generator's state, EQLv2's
+        statistics where the criterion has them, and the epoch; keeps the
+        newest `max_keep`."""
         if self.rank == 0:  # the ranks hold the same state: one writes it
             path = f"{str(self.ckpt_dir).rstrip('/')}/checkpoint_epoch_{epoch}"
             payload = {
@@ -879,6 +906,8 @@ class Trainer:
                 "dropout_rng": self.dropout_generator.get_state(),
                 "epoch": epoch,
             }
+            if self.loss_state is not None:  # EQLv2's statistics
+                payload["loss_state"] = tuple(t.detach().cpu() for t in self.loss_state)
             self.ckptr.save(path, payload)
             kept = self.ckptr.list_epochs(self.ckpt_dir)
             for _, old in kept[:-max_keep]:
@@ -894,6 +923,8 @@ class Trainer:
         payload = self.ckptr.restore(found[-1][1], map_location=self.device)
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
+        if self.loss_state is not None and "loss_state" in payload:
+            self.loss_state = type(self.loss_state)(*(t.to(self.device) for t in payload["loss_state"]))
         if "dropout_rng" in payload and self.rank == 0:
             self.dropout_generator.set_state(payload["dropout_rng"].cpu())
         elif self.rank:

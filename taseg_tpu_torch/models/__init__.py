@@ -4,11 +4,27 @@ dispatch on `MODEL.NAME` (JAX `models/__init__.py:54 build_segmentor`)."""
 from __future__ import annotations
 
 from ..data import feature_columns
+from .bev import (
+    GlobalAvgPool,
+    GlobalMaxPool,
+    ToBEVConvolution,
+    ToBEVHeightCompression,
+    ToBEVReduction,
+    ToDenseBEVConvolution,
+)
 from .fusion.rpvnet import RPVNet
 from .range2d.rangenet import RangeNet
 from .range2d.resnet_range import CENet, FIDNet
 from .range2d.salsanext import SalsaNext
 from .fusion.spvcnn import SPVCNN
+from .voxel.backbone_context import UNetCapacities, UNetTopology, build_unet_topology
+from .voxel.backbones import (
+    RESNET21D_BLOCKS,
+    ResNetTopology,
+    SparseResNet21D,
+    SparseResUNet42,
+    build_resnet_topology,
+)
 from .voxel.cylinder3d import CylinderTS
 from .voxel.minkunet import MinkUNet
 from .voxel.minkunet_mm import MinkUNetMsMm, MinkUNetMsMmNus
@@ -69,7 +85,7 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
     name = m.get("NAME", "MinkUNet")
     if name not in SEGMENTORS:
         raise ValueError(
-            f"MODEL.NAME {name!r} is not ported (ROADMAP Queue 1); the port "
+            f"MODEL.NAME {name!r} is no segmentor of the port; the port "
             f"builds {sorted(SEGMENTORS)}"
         )
     if name in F32_ONLY:
@@ -112,6 +128,10 @@ def build_segmentor(cfg: dict, device=None, compute_dtype: str = None):
 
 
 __all__ = [
+    "GlobalAvgPool", "GlobalMaxPool", "ToBEVConvolution", "ToBEVHeightCompression",
+    "ToBEVReduction", "ToDenseBEVConvolution",
+    "RESNET21D_BLOCKS", "ResNetTopology", "SparseResNet21D", "SparseResUNet42",
+    "UNetCapacities", "UNetTopology", "build_resnet_topology", "build_unet_topology",
     "CENet", "CylinderTS", "FIDNet", "MinkUNet", "MinkUNetMsMm", "MinkUNetMsMmNus",
     "RANGE_SEGMENTORS", "RPVNet", "RangeNet", "SEGMENTORS", "SPVCNN", "SalsaNext",
     "TIAF_MODELS", "build_segmentor",

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.sparse_conv import KTable, conv_k, k3_conv
+from ..ops.sparse_conv import KTable, as_table, conv_k, k3_conv
 from ..parallel import all_reduce_sum
 from ..ops.strided_conv import StridedTables, downsample_conv, upsample_conv
 
@@ -23,10 +23,12 @@ class SparseConv(nn.Module):
 
     Called with a (K, V_out) rulebook or a `KTable` (a table with its row
     order and pair lists), or a tuple (forward table, reverse table) of
-    either where a gradient is wanted.  K = 27: the stride-1 3^3 conv
+    either where a gradient is wanted.  K = 27 on a table with as many
+    rows as the input (one level): the stride-1 3^3 conv
     (`k3_conv`, JAX's F3 and TGF routes; the route by dtype and widths:
     K2 at 27, backward K2 + K4, or in f32 the conv over K = 27 offsets on
-    3xTF32).  Any other K: the conv over K offsets (K2 at K, backward K2
+    3xTF32).  Any other K, or 27 between two levels (SparseResNet's
+    strided entry convs): the conv over K offsets (K2 at K, backward K2
     + K4 at K; JAX's `sparse_conv_apply`).  With `StridedTables` the
     ks=2/stride=2 pair (K3, backward K3 + K5), `transposed` picking the
     direction.  `transposed` also sets the init's fan (C_out,
@@ -89,7 +91,7 @@ class SparseConv(nn.Module):
             return apply(feats, w.contiguous(), rulebook)
         pair = isinstance(rulebook, tuple) and not isinstance(rulebook, KTable)
         fwd, bwd = rulebook if pair else (rulebook, None)
-        if self.kernel_volume == 27:
+        if self.kernel_volume == 27 and as_table(fwd).rb.shape[1] == feats.shape[0]:
             return k3_conv(feats, w.contiguous(), fwd, bwd)
         return conv_k(feats, w.contiguous(), fwd, bwd)
 

@@ -39,7 +39,9 @@ counts stay those of the 3^3 convs; K4 at K offsets (`sparse_conv_dw`,
 splits added in the kernel) and counts one per call, its split reduction
 included, on CUDA cores.  K9 (`knn`, the
 range view's KNN clean-up) launches one kernel per call, one call per
-batch of scans.
+batch of scans.  K10 (`segment_max`, Cylinder3D's max-pooled voxelize
+and the global max pool) launches one kernel per call each way; its
+backward counts again under `segment_max_bwd`.
 """
 
 from __future__ import annotations
@@ -103,6 +105,8 @@ LAUNCHES = {
     "sparse_conv_k_dgrad_tf32": 0,
     "sparse_conv_dw_tf32": 0,
     "knn": 0,
+    "segment_max": 0,
+    "segment_max_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -141,6 +145,8 @@ _SIGNATURES = {
     "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
     "taseg_knn_postproc": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "taseg_segment_max": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_segment_max_bwd": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -20,9 +20,12 @@
     is one K6 call over the scales' pair tables stacked with row offsets
     (`stack_devox_tables`, built by the train topology).
 
-`segment_max` is Cylinder3D's max-pooled voxelization (JAX
-`jax.ops.segment_max` in `models/voxel/cylinder3d.py:236`, an XLA
-scatter), in plain torch with JAX's gradient (`SegmentMax`).
+`segment_max` is Cylinder3D's max-pooled voxelization and the global
+max pool (JAX `jax.ops.segment_max` in `models/voxel/cylinder3d.py:236`
+and `ops/bev.py:43`, an XLA scatter) with JAX's gradient
+(`SegmentMax`): the hand kernel K10 (`csrc/segment_max.cu`, one launch
+each way, bit-identical to the plain versions `segment_max_plain` /
+`segment_max_bwd_plain`) on CUDA tensors.
 
 Every segment sum (the voxelize forward and both devoxelize backwards)
 is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`: the sorted
@@ -746,35 +749,120 @@ def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
     return devoxelize_trilinear(voxel_feats, table)
 
 
+# K10's threads: about one wave of the card (132 SMs x 2048 threads)
+K10_WAVE = 132 * 2048
+
+
+def segment_max_rows(p: int, c: int) -> int:
+    """Rows a thread of K10 takes (its run): the p x c items spread over
+    about one wave of the card, at least one row each."""
+    return max(1, -(-p * c // K10_WAVE))
+
+
+def _seg32(seg: torch.Tensor) -> torch.Tensor:
+    return seg.to(torch.int32).contiguous()
+
+
+def segment_max_plain(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The forward of `segment_max` in plain torch: `scatter_reduce`
+    amax over a -inf fill, then + 0.0, which makes a -0.0 max +0.0 (the
+    order of the members decides which zero amax keeps; K10 makes every
+    zero +0.0 first, so the two agree to the bit)."""
+    idx = seg.long()[:, None].expand_as(x)
+    out = torch.full(
+        (num_segments, x.shape[1]), float("-inf"), dtype=x.dtype, device=x.device
+    ).scatter_reduce(0, idx, x, "amax", include_self=True)
+    return out + 0.0
+
+
+def segment_max_bwd_plain(x, seg, out, g) -> torch.Tensor:
+    """The backward of `segment_max` in plain torch: g / n to every
+    member equal to its segment's max (n the number of such members,
+    counted in f32; the share g * (1 / n) taken in f32 and rounded once
+    to x's dtype), 0 elsewhere."""
+    idx = seg.long()[:, None].expand_as(x)
+    top = out.gather(0, idx)
+    hit = x == top
+    n = torch.zeros(out.shape, dtype=torch.float32, device=x.device).scatter_add_(0, idx, hit.float())
+    share = (g.float() * (1.0 / n.clamp(min=1.0))).to(x.dtype)  # JAX multiplies by 1 / count
+    return torch.where(hit, share.gather(0, idx), 0.0)
+
+
+def segment_max_kernel(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K10's forward (`csrc/segment_max.cu`, one launch): x (P, C) f32 or
+    bf16, seg (P,) ids in [0, num_segments) -> (num_segments, C) in x's
+    dtype; -inf for a segment without rows."""
+    dev = x.device
+    _build.check("x", x, tuple(DTYPE_CODES), 2, dev)
+    seg = _seg32(seg)
+    _build.check("seg", seg, (torch.int32,), 1, dev)
+    p, c = x.shape
+    if seg.shape[0] != p:
+        raise ValueError(f"seg has {seg.shape[0]} rows, x {p}")
+    out = torch.full((num_segments, c), float("-inf"), dtype=torch.float32, device=dev)
+    if p and c and num_segments:
+        _build.launch(
+            "taseg_segment_max", ("segment_max",), x.data_ptr(), seg.data_ptr(), out.data_ptr(),
+            p, c, num_segments, segment_max_rows(p, c), DTYPE_CODES[x.dtype],
+        )
+    return out.to(x.dtype)
+
+
+def segment_max_bwd_kernel(x, seg, out, g) -> torch.Tensor:
+    """K10's backward (one launch: the ties counted, a grid-wide barrier,
+    the shares written): x (P, C), out and g (S, C) of x's dtype -> dx
+    (P, C)."""
+    dev = x.device
+    for name, t in (("x", x), ("out", out), ("g", g)):
+        _build.check(name, t, (x.dtype,), 2, dev)
+    seg = _seg32(seg)
+    _build.check("seg", seg, (torch.int32,), 1, dev)
+    p, c = x.shape
+    s = out.shape[0]
+    if x.dtype not in DTYPE_CODES or out.shape != g.shape or out.shape[1] != c or seg.shape[0] != p:
+        raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, out {tuple(out.shape)}, g {tuple(g.shape)}")
+    dx = torch.empty_like(x)
+    if p and c:
+        n = torch.zeros((s, c), dtype=torch.int32, device=dev)
+        _build.launch(
+            "taseg_segment_max_bwd", ("segment_max", "segment_max_bwd"), x.data_ptr(), seg.data_ptr(),
+            out.data_ptr(), g.data_ptr(), n.data_ptr(), dx.data_ptr(),
+            _build.zeroed_counters(dev, 2).data_ptr(), p, c, s, segment_max_rows(p, c),
+            DTYPE_CODES[x.dtype],
+        )
+    return dx
+
+
 class SegmentMax(torch.autograd.Function):
     """`jax.ops.segment_max` with JAX's gradient.  Forward: per segment
-    the max over its member rows, -inf for a segment with no member
-    (`scatter_reduce(amax)` over a -inf fill).  Backward: the segment's
-    cotangent goes to every member equal to the segment's max, divided by
-    the number of such members, as JAX's scatter-max gradient splits ties
-    (torch's own `amax` backward counts the fill value as a tie)."""
+    the max over its member rows, -inf for a segment with no member.
+    Backward: the segment's cotangent goes to every member equal to the
+    segment's max, divided by the number of such members, as JAX's
+    scatter-max gradient splits ties (torch's own `amax` backward counts
+    the fill value as a tie).  K10 on CUDA tensors, the plain versions on
+    CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, seg, num_segments):
-        idx = seg.long()[:, None].expand_as(x)
-        out = torch.full(
-            (num_segments, x.shape[1]), float("-inf"), dtype=x.dtype, device=x.device
-        ).scatter_reduce(0, idx, x, "amax", include_self=True)
-        ctx.save_for_backward(x, idx, out)
+        if _build.dispatch(x):
+            out = segment_max_kernel(x, seg, num_segments)
+        else:
+            out = segment_max_plain(x, seg, num_segments)
+        ctx.save_for_backward(x, seg, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, idx, out = ctx.saved_tensors
-        top = out.gather(0, idx)
-        hit = x == top
-        n = torch.zeros_like(out).scatter_add_(0, idx, hit.to(out.dtype))
-        share = g * (1.0 / n.clamp(min=1.0))  # JAX multiplies by 1 / count
-        return torch.where(hit, share.gather(0, idx), 0.0), None, None
+        x, seg, out = ctx.saved_tensors
+        g = g.contiguous()
+        if _build.dispatch(x):
+            return segment_max_bwd_kernel(x, seg, out, g), None, None
+        return segment_max_bwd_plain(x, seg, out, g), None, None
 
 
 def segment_max(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(num_segments, C): per segment id in `seg` (P,), in [0,
     num_segments), the max of its rows of x (P, C); -inf where a segment
-    has no row (JAX `jax.ops.segment_max`)."""
+    has no row (JAX `jax.ops.segment_max`); a max of zeros is +0.0.
+    Differentiable in x (`SegmentMax`); K10 on CUDA tensors."""
     return SegmentMax.apply(x, seg, num_segments)

@@ -109,8 +109,8 @@ def check_ported(cfg) -> str:
         ok = ("voxel", "fusion")
     if name not in SEGMENTORS or modality not in ok:
         raise NotImplementedError(
-            f"{name} ({modality}) is not ported yet: ROADMAP Queue 1 item 7; "
-            f"the port trains {sorted(SEGMENTORS)} on the voxel, fusion, "
+            f"{name} ({modality}) is no segmentor of the CLI (the backbones and BEV "
+            f"modules are built in code); the port trains {sorted(SEGMENTORS)} on the voxel, fusion, "
             f"cylinder and range pipelines"
         )
     return modality

@@ -1,6 +1,9 @@
 """Weights between the JAX package's flax trees and the port's models
-(MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMsMm, and the range
-view's SalsaNext, CENet, FIDNet and RangeNet).
+(MinkUNet, SPVCNN, RPVNet, Cylinder_TS, MinkUNetMsMm, the range
+view's SalsaNext, CENet, FIDNet and RangeNet, torchsparse's
+SparseResNet21D and SparseResUNet42 (`stage1_conv/SparseConv_0/kernel`,
+`dec0_fuse1/MaskedBatchNorm_2/mean`), and the parameterised BEV modules
+ToBEVConvolution and ToDenseBEVConvolution (`kernel`, `bias`)).
 
 `load_flax_params(model, params, batch_stats)` fills a torch model
 from the flax `params` and `batch_stats` trees given as nested dicts of
@@ -21,7 +24,8 @@ key on either side must be matched, or it raises.
 `export_flax_params(model)` is the inverse map: the model's parameters
 and BN running statistics back to the two flax-shaped numpy trees.
 
-`init_params_numpy(cfg, seed)` draws trees of the same names and shapes
+`init_params_numpy(cfg, seed)` (and `init_module_numpy(model, seed)` for
+a module that no config builds) draws trees of the same names and shapes
 from numpy with the flax init distributions (JAX layers.py:68-76:
 uniform(+-1/sqrt(fan*K)) for convs and a sparse conv's bias,
 lecun_uniform for MinkUNet's head,
@@ -40,6 +44,7 @@ import torch
 from torch import nn
 
 from ..models import build_segmentor
+from ..models.bev import _Sliced
 from ..models.layers import Dense, MaskedBatchNorm, SparseConv
 from ..models.range2d.blocks import BatchNorm, Conv, ConvTranspose
 from ..models.voxel.minkunet import _TriScaleHead
@@ -113,8 +118,16 @@ def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
     """(params, batch_stats) nested dicts of float32 numpy arrays for the
     model of `cfg` (`models.build_segmentor`), drawn from numpy's
     generator seeded with `seed`."""
+    return init_module_numpy(build_segmentor(cfg, device="cpu"), seed)
+
+
+def init_module_numpy(model: nn.Module, seed: int = 0) -> tuple[dict, dict]:
+    """(params, batch_stats) of any module built from the port's layers
+    (a segmentor, SparseResNet21D, SparseResUNet42, the BEV modules),
+    drawn with the flax init distributions from numpy's generator seeded
+    with `seed`; the BEV modules' kernels uniform(+-1/sqrt(C_in)), their
+    biases 0 (JAX `models/bev.py:33`)."""
     rng = np.random.default_rng(seed)
-    model = build_segmentor(cfg, device="cpu")
     params, stats = {}, {}
     for mname, m in model.named_modules():
         path = mname.replace(".", "/")
@@ -149,6 +162,12 @@ def init_params_numpy(cfg: dict, seed: int = 0) -> tuple[dict, dict]:
             fan_in, n_out = m.kernel.shape
             params[f"{path}/kernel"] = lecun_normal(rng, fan_in, (fan_in, n_out))
             params[f"{path}/bias"] = np.zeros(n_out, np.float32)
+        elif isinstance(m, _Sliced):  # may be the root: no scope then
+            pre = f"{path}/" if path else ""
+            std = 1.0 / m.in_channels**0.5
+            params[pre + "kernel"] = rng.uniform(-std, std, tuple(m.kernel.shape)).astype(np.float32)
+            if m.bias is not None:
+                params[pre + "bias"] = np.zeros(m.out_channels, np.float32)
     return _nest(params), _nest(stats)
 
 

@@ -60,7 +60,15 @@ ties and class-0 votes; the four range models'
 eval logits and train-mode gradients on the card against the CPU.  A
 `Segmenter` built on the card
 (without this file's `cuda` fixture, which switches TF32 off itself)
-reads both TF32 flags as False.
+reads both TF32 flags as False.  K10 (`segment_max`) forward and
+backward to the bits of its plain versions (`_bits`: signed zeros told
+apart, a max of zeros +0.0 in both) at Cylinder3D's and the global max
+pool's shapes with ties, f32 and bf16, the same bits on repeat, one
+launch each way, through autograd against the CPU, and a NaN member;
+SparseResNet21D and SparseResUNet42 at width 0.25 card against CPU
+(eval features within 1e-4 of the CPU's largest; the parameters'
+gradients, the ResNet's each within 1e-4, the UNet's as a whole within
+1e-3 of its norm).
 """
 
 from dataclasses import replace
@@ -2275,3 +2283,142 @@ def test_tf32_wgmma_k5_against_mma_sync(cuda, c_in, c_out, v):
         _close(old, want, ref, torch.float32, 1e-4)
         assert not got[3].any()
     assert (_build.LAUNCHES["strided_dw"], _build.LAUNCHES["strided_dw_tf32"]) == (4, 4)
+
+
+def _bits(t):
+    """A float tensor's bits (f32 as int32, bf16 as int16)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _k10_case(kind, dtype, dev):
+    """(x, seg, num_segments) at K10's two shapes with planted ties:
+    Cylinder3D's (P = 120 000 rows x 16 ReLU features, almost every row
+    its own segment, the padding rows in a sentinel segment, exact zeros
+    and -0.0 among the maxima) or the pool's (two batches of ~60 000
+    sorted rows at 128 columns, values on a coarse grid so that most
+    maxima are tied)."""
+    rng = np.random.default_rng(5)
+    if kind == "cylinder":
+        p, c = 120_000, 16
+        x = np.maximum(rng.normal(size=(p, c)), 0).astype(np.float32)
+        x[rng.random((p, c)) < 0.05] = -0.0
+        seg = rng.permutation(np.minimum(np.arange(p), p - 3000)).astype(np.int32)  # a few shared
+        pad = rng.random(p) < 0.02
+        seg[pad] = p - 2999
+        x[pad] = -np.inf
+        s = p - 2998
+    else:
+        p, c = 120_000, 128
+        x = np.round(rng.normal(size=(p, c)) * 2) / 2
+        x = x.astype(np.float32)
+        seg = (np.arange(p) >= p // 2).astype(np.int32)
+        seg[-500:] = 2  # the dropped rows' segment
+        s = 3
+    t = torch.from_numpy(x).to(dev, dtype)
+    return t, torch.from_numpy(seg).to(dev), s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["cylinder", "pool"])
+def test_segment_max_kernel_bit_exact(cuda, kind, dtype):
+    """K10 forward and backward against `segment_max_plain` /
+    `segment_max_bwd_plain` on the same card tensors, to the bit (a max
+    of zeros is +0.0 in both), at Cylinder3D's and the pool's shapes with
+    ties; the same bits on repeat; one launch each way."""
+    x, seg, s = _k10_case(kind, dtype, cuda)
+    _build.reset_launches()
+    out = _twice_same(lambda: tvx.segment_max_kernel(x, seg, s))
+    assert _build.LAUNCHES["segment_max"] == 2
+    want = tvx.segment_max_plain(x, seg, s)
+    assert torch.equal(_bits(out), _bits(want))
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=out.shape).astype(np.float32)).to(cuda, dtype)
+    _build.reset_launches()
+    dx = _twice_same(lambda: tvx.segment_max_bwd_kernel(x, seg, out, g))
+    assert (_build.LAUNCHES["segment_max"], _build.LAUNCHES["segment_max_bwd"]) == (2, 2)
+    assert torch.equal(_bits(dx), _bits(tvx.segment_max_bwd_plain(x, seg, out, g)))
+    assert ((dx != 0).sum(0) >= 1).all()  # every column's maximum took its share
+
+
+def test_segment_max_autograd_and_nan_on_card(cuda):
+    """`segment_max` through autograd on the card (one K10 launch each
+    way) against the CPU's plain path, ties and empty segments included;
+    a NaN member makes its segment NaN, as `scatter_reduce` amax does."""
+    rng = np.random.default_rng(9)
+    x0 = rng.integers(-3, 3, size=(5000, 24)).astype(np.float32)
+    seg0 = rng.integers(0, 1500, 5000)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.tensor(x0, device=dev, requires_grad=True)
+        _build.reset_launches()
+        out = tvx.segment_max(x, torch.tensor(seg0, device=dev), 1600)
+        out = torch.where(torch.isfinite(out), out, 0.0)
+        (out * torch.arange(24, device=dev)).sum().backward()
+        res.append((out.detach().cpu(), x.grad.cpu(), dict(_build.LAUNCHES)))
+    assert torch.equal(_bits(res[0][0]), _bits(res[1][0])) and torch.equal(res[0][1], res[1][1])
+    assert (res[0][2]["segment_max"], res[0][2]["segment_max_bwd"]) == (2, 1)
+    assert not any(res[1][2].values())
+    xn = torch.tensor(x0, device=cuda)
+    xn[7, 3] = float("nan")
+    got = tvx.segment_max_kernel(xn, torch.tensor(seg0, device=cuda), 1600)
+    assert torch.isnan(got[int(seg0[7]), 3]) and torch.isnan(got).sum() == 1
+
+
+@pytest.mark.parametrize("kind", ["resnet", "unet"])
+def test_backbones_card_equals_cpu(cuda, kind):
+    """SparseResNet21D and SparseResUNet42 at width 0.25 on ~800 voxels of
+    two batches, f32, the same weights on both: every stage's eval
+    features within 1e-4 of the CPU's largest (3xTF32 and another
+    summation order), and the gradient of a weighted sum of them in every
+    parameter (eval mode, the train form of the topology): the ResNet's
+    each within 1e-4 of its largest (measured 1.2e-6 on an H100 80GB HBM3
+    at 700 W); the UNet's as a whole within 1e-3 of its L2 norm (measured
+    1.7e-4 there).  The
+    UNet's nine outputs meet in its decoder, where some gradients are
+    ~1e-4 small differences of terms of ~1e3: held one by one, the
+    decoder's convs are off by up to 1.9e-2 of their own largest.  K2 at
+    K offsets and K4 at K launched on the card (the strided entry convs
+    of the ResNet, the 3^3 convs on 3xTF32)."""
+    from taseg_tpu_torch.models.voxel import backbones as tbb
+    from taseg_tpu_torch.models.voxel.backbone_context import UNetCapacities, build_unet_topology
+    from taseg_tpu_torch.utils.params_from_jax import init_module_numpy, load_flax_params
+
+    rng = np.random.default_rng(2)
+    xyz = np.unique(rng.integers(0, 28, (900, 3)), axis=0).astype(np.int32)
+    coords = np.zeros((1024, 4), np.int32)
+    coords[: len(xyz), :3] = xyz
+    coords[: len(xyz), 3] = rng.integers(0, 2, len(xyz))
+    feats = rng.normal(size=(1024, 4)).astype(np.float32)
+    net = tbb.SparseResNet21D if kind == "resnet" else tbb.SparseResUNet42
+    params, stats = init_module_numpy(net(in_channels=4, width_multiplier=0.25, device="cpu"), 1)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = net(in_channels=4, width_multiplier=0.25, device=dev)
+        load_flax_params(model, params, stats)
+        model.eval()
+        c = torch.from_numpy(coords).to(dev)
+        if kind == "resnet":
+            topo = tbb.build_resnet_topology(c, len(xyz), (1024, 1024, 512, 512, 512), train=True)
+        else:
+            topo = build_unet_topology(
+                c.float(), torch.tensor(len(xyz), dtype=torch.int32, device=dev),
+                UNetCapacities.for_points(1024), devox_pairs=True,
+            )
+        x0 = tvx.voxelize_avg(torch.from_numpy(feats).to(dev), topo.point_inverse, topo.point_tables)
+        _build.reset_launches()
+        outs = model(x0, topo)
+        sum((o * (i + 1)).sum() for i, o in enumerate(outs)).backward()
+        res[dev.type] = ([o.detach().cpu() for o in outs],
+                         {n: p.grad.cpu() for n, p in model.named_parameters()}, dict(_build.LAUNCHES))
+    (outs, grads, launches), (outs_c, grads_c, none) = res["cuda"], res["cpu"]
+    assert not any(none.values())
+    assert launches["sparse_conv_k"] > 0 and launches["sparse_conv_dw"] > 0
+    for a, b in zip(outs, outs_c, strict=True):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    errs = {n: float((grads[n] - g).abs().max() / g.abs().max()) for n, g in grads_c.items()}
+    worst = max(errs, key=errs.get)
+    diff = sum(float(((grads[n] - g).double() ** 2).sum()) for n, g in grads_c.items()) ** 0.5
+    norm = sum(float((g.double() ** 2).sum()) for g in grads_c.values()) ** 0.5
+    if kind == "resnet":
+        assert errs[worst] <= 1e-4, (worst, errs[worst])
+    else:
+        assert diff <= 1e-3 * norm, (diff / norm, worst, errs[worst])

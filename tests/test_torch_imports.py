@@ -4,7 +4,9 @@ point_range and fusion pipeline, Cylinder3D's model, pipeline and the
 K-offset conv entries, the multi-scan readers, poses and SMSA, TIAF's
 model, pipeline, readers and parameter groups, the range view's models,
 pipeline, losses, train step and K9's wrapper, the nuScenes and Waymo
-readers, among them) and
+readers, the sparse tensors, the BEV ops and modules, torchsparse's
+backbones, EQLv2, the checkpoint converter and the Petrel storage among
+them) and
 chip_smoke.py pulls in no jax, flax, optax or taseg_tpu module;
 chip_smoke.py refuses to run without CUDA or without the package beside
 it, and prints no result."""
@@ -40,7 +42,10 @@ train = {"taseg_tpu_torch.loss", "taseg_tpu_torch.loss.lovasz", "taseg_tpu_torch
          "taseg_tpu_torch.data.range_dataset", "taseg_tpu_torch.loss.range",
          "taseg_tpu_torch.range_step", "taseg_tpu_torch.data.nuscenes.reader",
          "taseg_tpu_torch.data.nuscenes.reader_mm", "taseg_tpu_torch.data.nuscenes.labels",
-         "taseg_tpu_torch.data.waymo.reader"}
+         "taseg_tpu_torch.data.waymo.reader", "taseg_tpu_torch.ops.sparse_tensor",
+         "taseg_tpu_torch.ops.bev", "taseg_tpu_torch.models.bev",
+         "taseg_tpu_torch.models.voxel.backbones", "taseg_tpu_torch.loss.eqlv2",
+         "taseg_tpu_torch.utils.ckpt_convert", "taseg_tpu_torch.utils.storage"}
 missing = train - set(names)
 for n in names:
     importlib.import_module(n)

@@ -26,7 +26,9 @@ on minkunet_ms_tiny (the teacher) and minkunet_ms_kd_tiny with
 MODEL.TEACHER_CKPT, on the CPU.  About 150 s on one worker
 (`--durations`): 118 s for the steps on both sides, most of it JAX
 compiling the KD step once (its teacher forward, student forward and
-backward), 26 s for the CLI.
+backward; at XLA's backend optimisation level 1,
+`torch_jit_once.compile_once`: 95 s for the steps in a run beside
+another module), 26 s for the CLI.
 """
 
 import jax
@@ -50,6 +52,7 @@ from taseg_tpu_torch.data.synthetic import SyntheticMsKittiReader
 from taseg_tpu_torch.data.voxel_dataset import MsKdVoxelPipeline, collate_kd_shard, match_voxels
 from taseg_tpu_torch.engine import Trainer
 from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
+from torch_jit_once import compile_once
 
 CAP = 8192
 MAX_VOXEL = 256
@@ -214,10 +217,10 @@ def kd_run():
         {**CFG["OPTIM"], "LR": CFG["OPTIM"]["LR_PER_SAMPLE"] * 2}, clip_grad_norm=10.0, **sched,
     )
     caps = JCaps.for_points(CAP, schedule=m["CAPACITY_SCHEDULE"])
-    step = make_kd_train_step(
+    step = compile_once(make_kd_train_step(
         model, JLosses(["CELoss", "LovLoss"], [1.0, 1.0], ignore_index=0), tx, caps, caps,
         make_mesh(jax.devices()[:1]), feat_kd_weight=m["FEAT_KD_WEIGHT"], donate=False,
-    )
+    ))
     p0 = jax.tree_util.tree_map(jnp.asarray, student[0])
     state = TrainState(
         params=p0, batch_stats=jax.tree_util.tree_map(jnp.asarray, student[1]),

@@ -500,6 +500,7 @@ def test_launch_counters_have_the_route_entries():
         "sparse_conv_k", "sparse_conv_k_wgmma", "sparse_conv_k_dgrad",
         "sparse_conv_k_dgrad_wgmma", "sparse_conv_dw",
         "sparse_conv_k_tf32", "sparse_conv_k_dgrad_tf32", "sparse_conv_dw_tf32", "knn",
+        "segment_max", "segment_max_bwd",
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())

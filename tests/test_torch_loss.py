@@ -120,8 +120,10 @@ def test_losses_combinator_matches_jax():
     j = _value_and_grad_jax(jl, logits, labels, valid)
     t = _value_and_grad_torch(lambda x, l, v: tlo(x, l.long(), v), logits, labels, valid)
     _close(t, j)
-    with pytest.raises(NotImplementedError):
-        tl.Losses(["CELoss", "FocalLoss"], [1.0, 1.0])
+    # every JAX loss type builds; an unknown name raises
+    tl.Losses(["CELoss", "FocalLoss"], [1.0, 1.0])
+    with pytest.raises(ValueError, match="unknown loss types"):
+        tl.Losses(["CELoss", "NoSuchLoss"], [1.0, 1.0])
 
 
 def test_permute_rows_gradient_is_the_inverse_gather():

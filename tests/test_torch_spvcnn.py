@@ -50,6 +50,7 @@ from taseg_tpu_torch.utils.params_from_jax import (
     init_params_numpy,
     load_flax_params,
 )
+from torch_jit_once import compile_once
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -383,10 +384,10 @@ def _jax_step():
         clip_grad_norm=10.0,
     )
     caps = JCaps.for_points(CAP, schedule=SCHEDULE)
-    step = make_train_step(
+    step = compile_once(make_train_step(
         _jax_model(), criterion, tx, caps, make_mesh(jax.devices()[:1]), donate=False,
         topo_kwargs={"assume_sorted_points": True, "point_voxel_strides": STRIDES},
-    )
+    ))
     params, stats = init_params_numpy(CFG, seed=4)
     params = jax.tree_util.tree_map(jnp.asarray, params)
     state = TrainState(

@@ -36,6 +36,7 @@ from taseg_tpu.models import UNetCapacities as JCaps
 from taseg_tpu.optim import build_optimizer as j_build_optimizer
 from taseg_tpu.parallel import Batch, TrainState, make_mesh, make_train_step
 from taseg_tpu_torch.data.synthetic import synthetic_scan
+from torch_jit_once import compile_once
 from taseg_tpu_torch.engine import Trainer
 from taseg_tpu_torch.utils.params_from_jax import export_flax_params, init_params_numpy
 
@@ -100,10 +101,10 @@ def _jax_step(dtype, bn_momentum=0.1):
         clip_grad_norm=10.0,
     )
     caps = JCaps.for_points(CAP, schedule=m["CAPACITY_SCHEDULE"])
-    step = make_train_step(
+    step = compile_once(make_train_step(
         model, criterion, tx, caps, make_mesh(jax.devices()[:1]), donate=False,
         topo_kwargs={"assume_sorted_points": True},
-    )
+    ))
     params, stats = init_params_numpy(CFG, seed=4)
     params = jax.tree_util.tree_map(jnp.asarray, params)
     state = TrainState(

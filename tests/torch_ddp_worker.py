@@ -12,8 +12,11 @@ holding it.  Each rank runs, in order:
   * `eval`: `Trainer.evaluate()` over its slice of the val loader;
   * `range`: two adamW steps of SalsaNext (base 8, dropout off), its
     collated range shard per step read from `range_step<i>_rank<r>.npz`;
+  * `eqlv2`: the EQLv2 loss with `dist` over its own logits per step,
+    its statistics summed over the ranks, carried from step to step;
 
-and writes what it saw to `out_rank<r>.pt`.
+and writes what it saw to `out_rank<r>.pt`.  A spec holds the stages it
+wants; the others are not run.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ def run(rank: int, world: int, tmp: str, spec: dict) -> None:
     )
     try:
         out = {"rank": rank}
-        out["step"] = _steps(rank, tmp, spec["step"])
-        out["kd"] = _kd(rank, spec["kd"])
-        out["eval"] = _eval(spec["eval"])
-        out["range"] = _range(rank, tmp, spec["range"])
+        stages = {"step": lambda s: _steps(rank, tmp, s), "kd": lambda s: _kd(rank, s),
+                  "eval": _eval, "range": lambda s: _range(rank, tmp, s),
+                  "eqlv2": lambda s: _eqlv2(rank, s)}
+        for name, fn in stages.items():
+            if name in spec:
+                out[name] = fn(spec[name])
         torch.save(out, tmp / f"out_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -129,3 +134,20 @@ def _range(rank: int, tmp: Path, spec: dict) -> list:
 
 if __name__ == "__main__":
     sys.exit("run through tests/test_torch_ddp.py")
+
+
+def _eqlv2(rank: int, spec: dict) -> list:
+    """[(loss, pos_grad, neg_grad)] per step of `Losses(["EQLv2"], dist=True)`
+    on this rank's rows of spec's (step, rank, N, C) logits."""
+    from taseg_tpu_torch.loss import Losses
+
+    crit = Losses(["EQLv2"], [1.0], dist=True)
+    state = crit.init_state(spec["logits"].shape[-1])
+    out = []
+    for i in range(spec["logits"].shape[0]):
+        loss, state = crit(
+            torch.from_numpy(spec["logits"][i, rank]), torch.from_numpy(spec["labels"][i, rank]).long(),
+            torch.from_numpy(spec["valid"][i, rank]), state,
+        )
+        out.append((float(loss), state.pos_grad.clone(), state.neg_grad.clone()))
+    return out
