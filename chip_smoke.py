@@ -182,9 +182,12 @@ checks them:
      `Segmenter.predict` counted (K9, the KNN clean-up, once a scan and
      no other kernel), finite logits, labels in range, serving by stage
      (host, forward, K9, mapping); K9 at a real scan's shapes
-     array-equal to its plain version on the card and on the CPU, with
-     kernel, device, plain and bound times; a small scan card vs CPU
-     (logits, two f32 steps); 3 adamW + onecycle steps at the recipe's
+     array-equal to its plain version on the card and on the CPU and to
+     its first design, with kernel and device times in turns with the
+     first design's (`old_ms`), plain and bound times, its kernels a
+     call (`graph_kernels`), and the same points again in beam order
+     (`k9_check`); a small scan card vs CPU
+     (logits, two f32 steps); 2 adamW + onecycle steps at the recipe's
      batch of 30 by stage with the peak memory; the salsanext_tiny
      recipe through the loader for 4 epochs, its loss falling; FIDNet
      and RangeNet++ at their recipes' widths: a counted scan and a step
@@ -198,8 +201,10 @@ checks them:
      Cylinder's calls of one step (its 23-class head on K2 and K4 at K =
      27 over 3xTF32 at C_out padded to 24, timed beside the CUDA-core
      kernels that took it before) and K7's head at 17 and 23 classes
-     against their plain versions; `Trainer.train` and the nuScenes submission files
-     of `evaluate_points`, equal to `Segmenter.predict`; each recipe's
+     against their plain versions; K9 at CENet's real call with seeded
+     labels (`k9_check`, `seeded_labels`);
+     `Trainer.train` and the nuScenes submission files of
+     `evaluate_points`, equal to `Segmenter.predict`; each recipe's
      small scan card vs CPU at a narrow width; the phase's seconds;
   5l. MinkUNet and SPVCNN mk34 at cr 1.6 (`phase_cr16`): the five cr 1.6
      recipes (tools/cfgs/{voxel,fusion}/{semantic_kitti,waymo}/*_cr16*.yaml)
@@ -226,15 +231,21 @@ checks them:
      with a feature loss: topology, forward, backward, update) with its
      launches per wrapper and peak memory, bf16 within 5e-2 of f32; the
      six pools and BEV modules on the ResNet's last stage, counted (K10
-     once, in the max pool); K10 at that pool's shape (`k10_check`);
+     once, in the max pool); K10 at that pool's shape in f32 and bf16,
+     and with ties planted (`k10_check`);
      both backbones and the six modules card against CPU on two small
      scans; the MinkUNet flagship's two bf16 steps with each of
      LOSS_VARIANTS (EQLv2 with sgd_fc; WCE, focal, dice v1 and ELL with
-     adam; adam_onecycle) and its small-scan f32 steps card against CPU;
+     adam; adam_onecycle) and the second's small-scan f32 steps card
+     against CPU (`SMALL_STEP_VARIANT`);
      the phase's seconds.  In phase 5e K10 at Cylinder_TS's call
-     (`phase_k10_cylinder`: bit-exact both ways, on repeat, one launch
-     each way, times beside its bound and scatter_reduce(amax)), and no
-     scatter_reduce on its serving or train path;
+     (`phase_k10_cylinder`: bit-exact both ways, on repeat, one counted
+     launch a call each way and the kernels a call that
+     K10_KERNELS_PER_CALL says, counted in a captured CUDA graph
+     (`graph_kernels`), each way and a train step's pair timed
+     in turns with the first design's, beside its bound and one
+     scatter_reduce(amax) with its fill), and no scatter_reduce and no
+     first-design K9 / K10 kernel on its serving or train path;
   6. each kernel's device time per scan (inference) and per step (train)
      on the main paths (torch.profiler device events), and the train
      step's largest plain-torch kernels;
@@ -255,15 +266,17 @@ checks them:
      (`strided_dw_tf32`: its wgmma tile beside the mma.sync one),
      and every kernel's launches on Cylinder_TS's path; K10
      (`segment_max`) with Cylinder_TS's serving launches, its train
-     launches, its numbers both ways at Cylinder's call and at the max
-     pool's (`pool`, phase 5m); every kernel's
+     launches, its kernels a call, its numbers both ways at Cylinder's
+     call beside its first design's (`old_ms`) and at the max pool's
+     (`pool`, `pool_bf16`, phase 5m); every kernel's
      launches per scan, per FSA step and per KD step, and its times at
      the fused shapes (`fsa`); every kernel's TIAF launches per scan and
      per step (`tiaf`), on each nuScenes / Waymo path (`nus_waymo`) and
      on each cr 1.6 path with the padded calls' times (`cr16`),
      with the 3xTF32 / CUDA-core route call beside K2
      and K4 at K offsets; K9 (`knn`) with SalsaNext's serving launches
-     and its times at one scan.
+     and its times at one scan beside its first design's (`old_ms`), in
+     beam order (`beam_order`) and at CENet's call (`cenet_nuscenes`).
      Beside each kernel and plain time stands one PyTorch call of the
      same function (`library_ms`): K1 three cummax, K6 one index_add_, K7
      index_select and embedding_bag, K8 index_select of rows divided
@@ -338,9 +351,14 @@ KERNEL_NAMES = {
     # K4 at K: its CUDA-core kernel and the 3xTF32 wgmma tile over the
     # offset lists (one kernel a call)
     "sparse_conv_dw": ("PairsOffsets", ("dw_tf32_wgmma_kernel", "OffsetLists")),
-    # K10: its forward and its two-phase backward
-    "segment_max": ("segment_max_fwd_kernel", "segment_max_bwd_kernel"),
+    # K10: the -inf fill, the runs kernel (the forward's max, the
+    # backward's tie count) and the shares
+    "segment_max": ("k10_",),
 }
+# the first designs of K9 and K10 (the yardsticks `old_ms`, through their
+# C entries, on no path); a profiled Cylinder_TS scan or step holding one
+# of them fails
+OLD_K9K10_KERNELS = ("segment_max_fwd_kernel", "segment_max_bwd_kernel", "knn_postproc_v1_kernel")
 # the mma.sync pair-list tiles that wgmma tiles replaced (K4's bf16 tile,
 # the 3xTF32 tiles of K4 at K and of K5, K4 at K's split reduction): the
 # yardsticks `old_ms`, through their C entries, on no path; a profiled
@@ -467,7 +485,7 @@ HARNESS_POINT_CAPACITY = 131072
 # card, timed steps, and the tiny recipe's epochs through the loader
 RANGE_ROUNDS = 4
 RANGE_BATCH = 30
-RANGE_STEPS = 3
+RANGE_STEPS = 2
 RANGE_TINY_EPOCHS = 4
 
 # seconds that `device_ms` holds a profiled window open on each side
@@ -539,6 +557,62 @@ def device_ms(fn, frags, iters: int = 10, tries: int = 6):
     log(f"  device time not measured: a kernel named {frags} with fewer device events than calls in {tries} "
         f"profiles of {iters} calls (its fewest events per try: {', '.join(seen)})")
     return None
+
+
+def call_device_ms(fn, iters: int = 10):
+    """Device ms of one call of `fn`, every kernel of it (some launched
+    more than once, and calls that read a count back to the host, which
+    a CUDA graph cannot hold): every device event's time in a
+    torch.profiler window of `iters` calls after one warm-up, over the
+    calls (an event the profiler lost counts nothing); None where it saw
+    no event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    ev = [e for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU and not e.is_user_annotation]
+    return sum(e.self_device_time_total for e in ev) / 1e3 / iters if ev else None
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5):
+    """Device ms of one call of `fn`, every kernel of it: CUDA events
+    around `reps` replays of a CUDA graph of `n` calls (no host cost
+    between the launches; the profiler lost one event of ten of these
+    short kernels in whole runs); None (said so in the log) where the
+    calls cannot be captured."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        log(f"  device time not measured: the calls were not captured ({str(e).splitlines()[0][:120]})")
+        return None
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (reps * n)
 
 
 def fmt_ms(x) -> str:
@@ -2193,6 +2267,8 @@ def phase_train_profile(trainer, scans, results: dict, label: str = "") -> None:
         busy += ms
         if named(e.key, OLD_DW_KERNELS):
             raise AssertionError(f"{label}train step launched a replaced mma.sync weight-gradient tile: {e.key}")
+        if named(e.key, OLD_K9K10_KERNELS):
+            raise AssertionError(f"{label}train step launched a first-design K9 / K10 kernel: {e.key}")
         if "reduce_splits" in e.key:
             red += ms
         mine = [k for k, frags in KERNEL_NAMES.items() if named(e.key, frags)]
@@ -3229,6 +3305,8 @@ def cylinder_serve_profile(seg, scans, out: dict) -> None:
             continue
         ms = e.self_device_time_total / 1e3 / n
         busy += ms
+        if named(e.key, OLD_K9K10_KERNELS):
+            raise AssertionError(f"cylinder serving launched a first-design K10 kernel: {e.key}")
         mine = [k for k, frags in KERNEL_NAMES.items() if named(e.key, frags)]
         for k in mine:
             dev[k] += ms
@@ -4637,6 +4715,102 @@ def range_train_split(trainer, scans, others, steps: int, label: str) -> dict:
     return {**med, "losses": losses, "peak_gib": peak}
 
 
+def k9_args(seg, scans) -> tuple:
+    """K9's arguments at a range model's real call on `scans` (one batch):
+    the range image as the model read it, each point's range, the pixel
+    argmax of the model's logits, each point's column, row and image."""
+    import torch
+
+    arrays = seg.collate(scans)
+    logits = seg.forward(arrays, None)
+    return ((arrays["scan_t"][..., 4] * 80.0).contiguous(), arrays["unproj_range_t"],
+            logits.argmax(-1).to(torch.int32), arrays["px_t"], arrays["py_t"], arrays["img_t"])
+
+
+def beam_order(args) -> tuple:
+    """The same points in beam order (by image, row, then column), as a
+    real sensor's scans arrive."""
+    import torch
+
+    r, u, pix, px, py, img = args
+    _, h, w = r.shape
+    o = torch.argsort((img.long() * h + py.long()) * w + px.long(), stable=True)
+    return r, u[o].contiguous(), pix, px[o].contiguous(), py[o].contiguous(), img[o].contiguous()
+
+
+def seeded_labels(args, n_cls: int) -> tuple:
+    """K9's arguments with the label image drawn from SEED in [0, n_cls):
+    a model with random weights predicts one class almost everywhere
+    (CENet's nuScenes sweep: no window disagrees, K9 relabels nothing),
+    so its call takes these labels at its real image and points."""
+    import torch
+
+    r, u, pix, px, py, img = args
+    gen = torch.Generator(device=pix.device).manual_seed(SEED)
+    pix = torch.randint(0, n_cls, pix.shape, device=pix.device, generator=gen, dtype=torch.int32)
+    return r, u, pix, px, py, img
+
+
+def k9_check(label: str, args, n_cls: int) -> dict:
+    """K9 at one call: its labels equal to its plain version's on the
+    card and on the CPU, to its first design's (`knn_postprocess_v1`),
+    and on repeat, with some points relabelled (else the check would pass
+    a kernel that returned each point's own pixel); one counted launch
+    and one kernel a call (`graph_kernels`); its `cuda_ms`
+    and device ms in turns with the first design's (`old_ms`), the plain
+    version's ms and the bound (bytes: per point its range, column, row
+    and image in and its label out; each pixel's range and label once;
+    the 25 weights)."""
+    import torch
+
+    from taseg_tpu_torch.ops import _build
+    from taseg_tpu_torch.ops.knn import knn_postprocess, knn_postprocess_plain, knn_postprocess_v1
+
+    kern = lambda: knn_postprocess(*args, num_classes=n_cls)
+    old = lambda: knn_postprocess_v1(*args, num_classes=n_cls)
+    plain = lambda: knn_postprocess_plain(*args, num_classes=n_cls)
+    _build.reset_launches()
+    got = kern()
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["knn"] != 1:
+        raise AssertionError(f"K9 {label}: {_build.LAUNCHES['knn']} launches for one call")
+    want, again, first = plain(), kern(), old()
+    cpu = knn_postprocess(*(a.cpu() for a in args), num_classes=n_cls)
+    if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu) and torch.equal(got, again)
+            and torch.equal(first, want)):
+        raise AssertionError(
+            f"K9 {label}: {int((got != want).sum())} labels differ from the plain version on the card, "
+            f"{int((got.cpu() != cpu).sum())} from the CPU's, {int((got != again).sum())} on repeat, "
+            f"{int((first != want).sum())} of the first design's"
+        )
+    r, _, pix, px, py, img = args
+    changed = float((got != pix[img.long(), py.long(), px.long()]).float().mean())
+    if not changed > 0:
+        raise AssertionError(f"K9 {label}: no point relabelled, the vote is not exercised")
+    kernels, others = graph_kernels(kern)
+    if (kernels, others) != (1, 0):
+        raise AssertionError(f"K9 {label}: {kernels} kernels and {others} other graph nodes a call, one kernel "
+                             "expected")
+    p_pts = px.shape[0]
+    b, h, w = r.shape
+    nbytes = p_pts * (4 * 4 + 4) + b * h * w * (4 + 4) + 25 * 4
+    bound, by = bound_ms(nbytes, 0, "float32")
+    ms, old_ms = in_turns(kern, old, 50)
+    dev, old_dev = in_turns(kern, old, timer=graph_ms)
+    k9 = {
+        "max_abs_err": 0.0, "ms": ms, "old_ms": old_ms, "plain_ms": cuda_ms(plain, 20),
+        "device_ms": dev, "old_device_ms": old_dev, "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "points": p_pts, "image": [b, h, w], "bytes": nbytes,
+        "changed_share": changed, "kernels_per_call": kernels,
+    }
+    log(f"K9 {label} at {p_pts} points, {b} x {h} x {w} image: labels equal to the plain version's (card and "
+        f"CPU), the first design's and on repeat, {kernels} kernel a call (the graph); {fmt_ms(ms)} (device "
+        f"{fmt_ms(k9['device_ms'])}), first design {fmt_ms(old_ms)} (device {fmt_ms(k9['old_device_ms'])}), "
+        f"plain {fmt_ms(k9['plain_ms'])}, bound {bound:.5f} ms ({by}, {nbytes} bytes), library none (no one "
+        f"call); {k9['changed_share']:.4f} of the points relabelled")
+    return k9
+
+
 def phase_range(scans) -> dict:
     """The range view (5j): SalsaNext at the full width of
     tools/cfgs/range/semantic_kitti/salsanext_res34.yaml (base 32, 64 x
@@ -4646,8 +4820,10 @@ def phase_range(scans) -> dict:
         per scan and nothing else; finite (N, 20) logits, labels in range;
         serving by stage (`range_scan_split`);
       * K9 at the main path's shapes against its plain version on the
-        same inputs (on the card and on the CPU), labels array-equal, with
-        its time, device time, plain time and bound;
+        same inputs (on the card and on the CPU) and its first design,
+        labels array-equal, with its time and device time in turns with
+        the first design's, plain time and bound, one kernel a call (the
+        graph); again with the points in beam order (`k9_check`);
       * a small scan (16 x 128 images) card vs CPU: f32 logits within
         1e-3 of their scale; two f32 train steps (dropout off on both
         sides), loss and grad norm within tolerances from measurement;
@@ -4670,7 +4846,7 @@ def phase_range(scans) -> dict:
     from taseg_tpu_torch.engine import Segmenter, Trainer
     from taseg_tpu_torch.models.layers import Dropout
     from taseg_tpu_torch.ops import _build
-    from taseg_tpu_torch.ops.knn import knn_postprocess, knn_postprocess_plain
+    from taseg_tpu_torch.ops.knn import knn_postprocess
     from taseg_tpu_torch.range_step import range_point_labels
     from taseg_tpu_torch.utils.params_from_jax import init_params_numpy
 
@@ -4709,45 +4885,17 @@ def phase_range(scans) -> dict:
     out["launches"] = launches["knn"]
     out["serve"] = range_scan_split(seg, scans, RANGE_ROUNDS, "salsanext ")
 
-    # K9 at the main path's shapes against its plain version
+    # K9 at the main path's shapes against its plain version and its
+    # first design: the shuffled synthetic scan, then its points in beam
+    # order
+    args = k9_args(seg, scans[:1])
     arrays = seg.collate(scans[:1])
-    logits = seg.forward(arrays, None)
-    pix = logits.argmax(-1).to(torch.int32)
-    args = (
-        (arrays["scan_t"][..., 4] * 80.0).contiguous(), arrays["unproj_range_t"], pix,
-        arrays["px_t"], arrays["py_t"], arrays["img_t"],
-    )
-    kern = lambda: knn_postprocess(*args, num_classes=n_cls)
-    plain = lambda: knn_postprocess_plain(*args, num_classes=n_cls)
-    got, want = kern(), plain()
-    cpu = knn_postprocess(*(a.cpu() for a in args), num_classes=n_cls)
-    again = kern()
-    if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu) and torch.equal(got, again)):
-        raise AssertionError(
-            f"K9: {int((got != want).sum())} labels differ from the plain version on the card, "
-            f"{int((got.cpu() != cpu).sum())} from the CPU's, {int((got != again).sum())} on repeat"
-        )
-    if not torch.equal(got, range_point_labels(arrays, logits, n_cls)):
+    if not torch.equal(knn_postprocess(*args, num_classes=n_cls),
+                       range_point_labels(arrays, seg.forward(arrays, None), n_cls)):
         raise AssertionError("K9: the engine's call differs from the direct one")
-    p_pts = args[1].shape[0]
-    b, h, w = args[0].shape
-    # per point its range, column, row and image in and its label out;
-    # each pixel's range and label (the centre's label among them); the
-    # window's 25 weights
-    nbytes = p_pts * (4 * 4 + 4) + b * h * w * (4 + 4) + 25 * 4
-    bound, by = bound_ms(nbytes, 0, "float32")
-    changed = float((got != pix[args[5].long(), args[4].long(), args[3].long()]).float().mean())
-    k9 = {
-        "max_abs_err": 0.0, "ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 20),
-        "device_ms": device_ms(kern, ("knn_postproc_kernel",), 20), "bound_ms": bound,
-        "bound_by": by, "library_ms": None, "points": p_pts, "image": [b, h, w],
-        "bytes": nbytes, "changed_share": changed,
-    }
-    out["knn"] = k9
-    log(f"K9 knn at {p_pts} points, {b} x {h} x {w} image: labels equal to the plain version's "
-        f"(card and CPU) and on repeat; {fmt_ms(k9['ms'])} (device {fmt_ms(k9['device_ms'])}), plain "
-        f"{fmt_ms(k9['plain_ms'])}, bound {k9['bound_ms']:.5f} ms ({by}, {nbytes} bytes), library "
-        f"none (no one call); {changed:.4f} of the points relabelled")
+    out["knn"] = k9_check("salsanext scan", args, n_cls)
+    out["knn_beam"] = k9_check("salsanext scan in beam order", beam_order(args), n_cls)
+    del arrays
 
     # a small scan, card vs CPU: logits, then two f32 train steps
     small_cfg = {**SALSANEXT_RES34, "DATA": {**SALSANEXT_RES34["DATA"], "H": 16, "W": 128}}
@@ -4830,7 +4978,7 @@ def phase_range(scans) -> dict:
 # the head's one multi-scale launch.  K1's count per scan is measured.
 # Served scans a recipe: 2 (3 until the f32 weight gradients' yardsticks
 # were added to 5e, 5g and 5k: the script's time budget)
-NW_SCANS = 2
+NW_SCANS = 1
 MK34_PER_SCAN = FSA_PER_SCAN
 MK34_PER_STEP = {k: v for k, v in TRAIN_PER_STEP.items() if k != "join_scan"}
 MK18_PER_SCAN = {**MK34_PER_SCAN, "sparse_conv_k3": 34, "sparse_conv_k3_wgmma": 34}
@@ -5122,7 +5270,7 @@ def phase_nus_waymo() -> dict:
         a scan) in bf16, Waymo MinkUNet mk34 and mk18 in bf16: serving of
         NW_SCANS scans through `Segmenter.predict`, counted (the flagship's
         launches per scan and per step on the mk34 recipes, RPVNet's
-        backbone's on mk18), by stage; a train step counted, two by stage;
+        backbone's on mk18), by stage; a train step counted, one by stage;
         K7's head at 17 and 23 classes against its plain version;
       * nuScenes TIAF (MinkUNetMsMmNus, f32, six images of 448 x 800):
         the real reader with the JPEG decode replaced by seeded images
@@ -5131,8 +5279,10 @@ def phase_nus_waymo() -> dict:
         counted; K2 and K4 at K offsets at every call of the step against
         their plain versions (the head's 128 -> 23 on CUDA cores);
       * Waymo SPVCNN mk18 and RPVNet mk18: one counted scan each;
-      * CENet on nuScenes (32 x 1920): one scan (K9 once) and one step at
-        its recipe's batch of 1;
+      * CENet on nuScenes (32 x 1920): one scan (K9 once), K9 at its real
+        image and points with seeded labels against its plain version and
+        its first design (`k9_check`), and one step at its recipe's batch
+        of 1;
       * `Trainer.train` for one epoch over two nuScenes keyframes and
         `evaluate_points(save_path=...)` on two: the lidarseg `.bin` files
         and `submission.json` read back, equal to `Segmenter.predict`;
@@ -5248,7 +5398,7 @@ def phase_nus_waymo() -> dict:
                 raise AssertionError(f"{name}: non-finite loss or grad norm")
             log(f"{name} train step: loss {r['loss']:.5f} grad norm {r['grad_norm']:.4f} level voxels "
                 f"{r['level_nums']} of {list(tr.caps.voxels)}")
-            p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+            p.update(step_launches=per_s, step=nw_step_stages(tr, train[1:], f"{name} "))
             res["paths"][name] = p
             del tr
             torch.cuda.empty_cache()
@@ -5275,7 +5425,7 @@ def phase_nus_waymo() -> dict:
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
             raise AssertionError(f"{name}: non-finite loss or grad norm")
         log(f"{name} train step: loss {r['loss']:.5f} grad norm {r['grad_norm']:.4f}")
-        p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+        p.update(step_launches=per_s, step=nw_step_stages(tr, train[1:], f"{name} "))
         res["paths"][name] = p
         del tr
         torch.cuda.empty_cache()
@@ -5300,7 +5450,7 @@ def phase_nus_waymo() -> dict:
         r, per_s = nw_counted(f"{name} train step", lambda: tr.step(train[1:]), exact=CYL23_PER_STEP)
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
             raise AssertionError(f"{name}: non-finite loss or grad norm")
-        p.update(step_launches=per_s, step=nw_step_stages(tr, train, f"{name} "))
+        p.update(step_launches=per_s, step=nw_step_stages(tr, train[1:], f"{name} "))
         cap = cylinder_calls(lambda: tr.step(train[:1]))
         heads = sorted(k[0] for k in cap.seen if k[1] == 27)
         if heads != ["sparse_conv_dw", "sparse_conv_k", "sparse_conv_k_dgrad"]:
@@ -5339,6 +5489,8 @@ def phase_nus_waymo() -> dict:
         out, per = nw_counted(f"{name} serving", lambda: seg.predict(serve[1:]), exact={"knn": 1})
         nw_check_points(name, serve[1:], out, 17)
         p = {"serve_launches": per, "serve": range_scan_split(seg, serve[1:], 2, f"{name} ")}
+        res["knn_cenet"] = k9_check("cenet nuscenes sweep, seeded labels",
+                                    seeded_labels(k9_args(seg, serve[1:2]), 17), 17)
         del seg
         torch.cuda.empty_cache()
         train = scans_of(cfg, True, 2)
@@ -5937,13 +6089,19 @@ def cr16_entry(res: dict, name: str) -> dict:
     return out
 
 
-# K10 (`segment_max`, csrc/segment_max.cu): each check holds the kernel
-# to the bits of its plain versions both ways, on repeat, with one launch
-# each way, and times it beside its bound and one scatter_reduce(amax)
+# K10 (`segment_max`, csrc/segment_max.cu): each check holds the kernels
+# to the bits of their plain versions both ways, on repeat, with one
+# counted launch a call each way and the kernels a call below (the
+# kernel nodes of a captured CUDA graph, `graph_kernels`), and times
+# them beside their first design (`old_ms`), their bound and one
+# scatter_reduce(amax) with its -inf fill
 K10_SOURCE = ("csrc/segment_max.cu", "taseg_tpu/models/voxel/cylinder3d.py:236, taseg_tpu/ops/bev.py:43")
 # Cylinder_TS's serving and train paths: K10 once a scan, 1 + 1 a step
 CYLINDER_K10_PER_SCAN = {"segment_max": 1}
 CYLINDER_K10_PER_STEP = {"segment_max": 2, "segment_max_bwd": 1}
+# K10's kernels a call: the forward's -inf fill and runs kernel; the
+# backward's fill of the tie counts, tie count and shares
+K10_KERNELS_PER_CALL = {"forward": 2, "backward": 3}
 
 # Phase 5m (this slice's path): torchsparse's demo backbones and the BEV
 # family on two synthetic 120 000-point scans quantized at 0.05 m, batch
@@ -5966,6 +6124,9 @@ BB_TRAIN_LR = 0.01
 # bits tip it: its step 1 is held looser (measured on an H100 80GB HBM3
 # at 700 W: loss 4.0e-4, grad norm 4.9e-3, the update 1.4e-1 off the
 # CPU's)
+# the variant whose small-scan f32 steps run on the card against the CPU
+# (the four new losses and adam; the CPU tests hold every variant to JAX)
+SMALL_STEP_VARIANT = "wce/focal/dice1/ell+adam"
 LOSS_VARIANTS = (
     ("eqlv2+sgd_fc", ["CELoss", "LovLoss", "EQLv2"], {"OPTIMIZER": "sgd_fc"}, (1e-4, 1e-3, 3e-2)),
     ("wce/focal/dice1/ell+adam", ["WCELoss", "FocalLoss", "DiceLossV1", "ELLLoss"],
@@ -5983,14 +6144,66 @@ def bits(t):
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
-def k10_check(label: str, x, seg, s: int, g=None) -> dict:
+def graph_kernels(fn) -> tuple:
+    """(kernels, other nodes) that one call of `fn` puts on the card: the
+    node types of a CUDA graph captured around the call, read back through
+    libcuda (`cuGraphGetNodes`, `cuGraphNodeGetType`).  The capture
+    records every launch, where the profiler loses events of such short
+    kernels; raises where the graph cannot be captured or read."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    if n.value and drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[: n.value]:
+        kind = ctypes.c_int(-1)
+        if drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    del graph
+    torch.cuda.synchronize()
+    kernels = kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, len(kinds) - kernels
+
+
+def in_turns(new, old, iters: int = 10, timer=None) -> tuple:
+    """`cuda_ms` (or `timer`) of `new` and `old` in turns (new, old, old,
+    new): each one's mean of its two samples (None where one is)."""
+    t = timer or (lambda fn: cuda_ms(fn, iters))
+    a, b, c, d = t(new), t(old), t(old), t(new)
+    mean = lambda x, y: None if x is None or y is None else (x + y) / 2
+    return mean(a, d), mean(b, c)
+
+
+def k10_check(label: str, x, seg, s: int, g=None, timed: bool = True) -> dict:
     """K10 at one shape: forward and backward bit-equal to the plain
     versions on the same card tensors (a max of zeros +0.0 in both),
-    bit-identical on repeat, one launch each way; each way's device ms
-    (CUDA events), the plain version's, the bound (bytes: x and the ids
-    read and out written once; backward x, ids, out, g read and dx
-    written) and, forward, one scatter_reduce(amax) into a -inf output
-    made beforehand (`library_ms`)."""
+    bit-identical on repeat, one counted launch a call each way and the
+    kernels a call that K10_KERNELS_PER_CALL says (`graph_kernels`); the
+    first design (`segment_max_v1`, `segment_max_bwd_v1`) to the same
+    bits.  With `timed`: each way's `cuda_ms` in turns with the first
+    design's (`old_ms`: its torch fill and cast included), every kernel of
+    a call on the device for both, a train step's pair (the forward, then
+    the backward over its output) the same way, the plain versions' ms,
+    the bound (bytes: x and the ids read and out written once; backward x,
+    ids, out, g read and dx written) and, forward, one
+    scatter_reduce(amax) with its -inf fill (`library_ms`)."""
     import torch
 
     from taseg_tpu_torch.ops import _build
@@ -6009,38 +6222,65 @@ def k10_check(label: str, x, seg, s: int, g=None) -> dict:
     if (_build.LAUNCHES["segment_max"], _build.LAUNCHES["segment_max_bwd"]) != (4, 2):
         raise AssertionError(f"K10 {label}: launches {_build.LAUNCHES['segment_max']} for 2 + 2 calls")
     want, dwant = vx.segment_max_plain(x, seg, s), vx.segment_max_bwd_plain(x, seg, out, g)
+    old, dold = vx.segment_max_v1(x, seg, s), vx.segment_max_bwd_v1(x, seg, out, g)
     for name, a, b in (("forward", out, want), ("repeat", again, out), ("backward", dx, dwant),
-                       ("backward repeat", dx2, dx)):
+                       ("backward repeat", dx2, dx), ("first design", old, want),
+                       ("first design's backward", dold, dwant)):
         if not torch.equal(bits(a), bits(b)):
             raise AssertionError(f"K10 {label}: {name} differs from its plain version in the bits")
+    fwd = lambda: vx.segment_max_kernel(x, seg, s)
+    bwd = lambda: vx.segment_max_bwd_kernel(x, seg, out, g)
+    step = lambda: vx.segment_max_bwd_kernel(x, seg, vx.segment_max_kernel(x, seg, s), g)
+    per_call = {}
+    for way, fn in (("forward", fwd), ("backward", bwd)):
+        kernels, others = graph_kernels(fn)
+        if (kernels, others) != (K10_KERNELS_PER_CALL[way], 0):
+            raise AssertionError(f"K10 {label}: {way} {kernels} kernels and {others} other graph nodes a call, "
+                                 f"{K10_KERNELS_PER_CALL[way]} kernels expected")
+        per_call[way] = kernels
     # columns where some segment but the last (the dropped rows') has
     # more than one member at its max
     hit = (x == out.gather(0, seg.long()[:, None].expand_as(x))) & (seg < s - 1)[:, None]
     n_hit = torch.zeros((s, x.shape[1]), dtype=torch.int32, device=x.device)
     n_hit.scatter_add_(0, seg.long()[:, None].expand_as(x), hit.int())
     ties = int((n_hit > 1).any(0).sum())
-    esz = x.element_size()
     p, c = x.shape
+    r = {"shape": [p, c, s], "dtype": str(x.dtype).split(".")[1], "max_abs_err": 0.0,
+         "columns_with_tied_maxima": ties, "kernels_per_call": per_call}
+    if not timed:
+        log(f"K10 {label} P={p} C={c} S={s} {r['dtype']}: bit-exact both ways, repeat bit-identical, the first "
+            f"design too, kernels a call {per_call} (the graph); {ties} of {c} columns with tied maxima")
+        return r
+    esz = x.element_size()
     b_f, by_f = bound_ms(p * c * esz + p * 4 + s * c * esz, 0, "float32")
     b_b, by_b = bound_ms(2 * p * c * esz + p * 4 + 2 * s * c * esz, 0, "float32")
     idx = seg.long()[:, None].expand(-1, c)
-    base = torch.full((s, c), float("-inf"), dtype=x.dtype, device=x.device)
-    r = {
-        "shape": [p, c, s], "dtype": str(x.dtype).split(".")[1], "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: vx.segment_max_kernel(x, seg, s)),
+    library = lambda: torch.full((s, c), float("-inf"), dtype=x.dtype, device=x.device).scatter_reduce_(
+        0, idx, x, "amax")
+    old_fwd = lambda: vx.segment_max_v1(x, seg, s)
+    old_bwd = lambda: vx.segment_max_bwd_v1(x, seg, out, g)
+    old_step = lambda: vx.segment_max_bwd_v1(x, seg, vx.segment_max_v1(x, seg, s), g)
+    for way, new, old in (("", fwd, old_fwd), ("bwd_", bwd, old_bwd), ("step_", step, old_step)):
+        r[f"{way}ms"], r[f"{way}old_ms"] = in_turns(new, old)
+        r[f"{way}device_ms"], r[f"{way}old_device_ms"] = in_turns(new, old, timer=graph_ms)
+    r.update({
         "plain_ms": cuda_ms(lambda: vx.segment_max_plain(x, seg, s)),
-        "bound_ms": b_f, "bound_by": by_f,
-        "library_ms": cuda_ms(lambda: base.scatter_reduce(0, idx, x, "amax")),
-        "bwd_ms": cuda_ms(lambda: vx.segment_max_bwd_kernel(x, seg, out, g)),
+        "bound_ms": b_f, "bound_by": by_f, "library_ms": cuda_ms(library),
+        "library_device_ms": graph_ms(library),
         "bwd_plain_ms": cuda_ms(lambda: vx.segment_max_bwd_plain(x, seg, out, g)),
         "bwd_bound_ms": b_b, "bwd_bound_by": by_b, "bwd_library_ms": None,
-        "columns_with_tied_maxima": ties,
-    }
+        "step_bound_ms": b_f + b_b,
+    })
     log(
-        f"K10 {label} P={p} C={c} S={s} {r['dtype']}: bit-exact both ways, repeat bit-identical, "
-        f"{ties} of {c} columns with tied maxima; forward {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-        f"scatter_reduce amax {r['library_ms']:.4f}, bound {b_f:.4f}); backward {r['bwd_ms']:.4f} ms "
-        f"(plain {r['bwd_plain_ms']:.4f}, bound {b_b:.4f})"
+        f"K10 {label} P={p} C={c} S={s} {r['dtype']}: bit-exact both ways, repeat bit-identical, the first "
+        f"design too, kernels a call {per_call} (the graph); {ties} of {c} columns with tied maxima; forward "
+        f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}; first design {r['old_ms']:.4f}, device "
+        f"{fmt_ms(r['old_device_ms'])}; plain {r['plain_ms']:.4f}; scatter_reduce amax with its fill "
+        f"{r['library_ms']:.4f}, device {fmt_ms(r['library_device_ms'])}; bound {b_f:.4f}); backward "
+        f"{r['bwd_ms']:.4f} ms (device {fmt_ms(r['bwd_device_ms'])}; first design {r['bwd_old_ms']:.4f}, device "
+        f"{fmt_ms(r['bwd_old_device_ms'])}; plain {r['bwd_plain_ms']:.4f}; bound {b_b:.4f}); a step's pair "
+        f"{r['step_ms']:.4f} ms (device {fmt_ms(r['step_device_ms'])}; first design {r['step_old_ms']:.4f}, "
+        f"device {fmt_ms(r['step_old_device_ms'])}; bound {b_f + b_b:.4f})"
     )
     return r
 
@@ -6078,7 +6318,7 @@ def phase_k10_cylinder(seg, scans) -> dict:
     x = torch.where(torch.rand(x.shape, device=x.device, generator=gen) < 0.05, -0.0, x)
     x = torch.where((inv >= 0)[:, None], x, float("-inf"))
     r = k10_check("cylinder", x, ids, v0 + 1)
-    k10_check("cylinder, ties planted", x, torch.where(inv >= 0, inv // 2, v0), v0 + 1)
+    k10_check("cylinder, ties planted", x, torch.where(inv >= 0, inv // 2, v0), v0 + 1, timed=False)
     return r
 
 
@@ -6146,11 +6386,13 @@ def bb_caps(kind: str, cap: int):
     return UNetCapacities.for_points(cap, schedule=None if cap == BB_POINT_CAP else (1.0,) * 5)
 
 
-def bev_modules(grid, bounds, extent, dev) -> dict:
+def bev_callables(grid, bounds, extent, dev) -> tuple:
     """The six pools and BEV modules on `grid` (SparseResNet21D's last
     stage, 128 channels, read at stride 8 on x and z; its y stride is 16),
-    batch 2, a BEV map over the scans' extent: name -> output (a tensor,
-    or a SparseGrid's feats)."""
+    batch 2, a BEV map over the scans' extent, built here once (their
+    weights drawn in this order from one seeded generator): name -> (a
+    call of the module on `grid` returning its output tensors, the
+    module's parameters), and the map's shape."""
     import math
 
     import torch
@@ -6161,17 +6403,51 @@ def bev_modules(grid, bounds, extent, dev) -> dict:
     shape = tuple(int(math.ceil(e / s)) for e in extent)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     c = grid.feats.shape[1]
-    mods = {
-        "GlobalAvgPool": lambda: tm.GlobalAvgPool(2)(grid),
-        "GlobalMaxPool": lambda: tm.GlobalMaxPool(2)(grid),
-        "ToBEVReduction": lambda: tm.ToBEVReduction(2)(grid, bounds).feats,
-        "ToDenseBEVConvolution": lambda: tm.ToDenseBEVConvolution(
-            c, 64, shape, batch_size=2, use_bias=True, generator=gen).to(dev)(grid),
-        "ToBEVConvolution": lambda: tm.ToBEVConvolution(
-            c, 64, shape[2], stride=2, use_bias=True, generator=gen).to(dev)(grid, bounds).feats,
-        "ToBEVHeightCompression": lambda: tm.ToBEVHeightCompression(c, shape, batch_size=2)(grid),
+    dense = tm.ToDenseBEVConvolution(c, 64, shape, batch_size=2, use_bias=True, generator=gen).to(dev)
+    conv = tm.ToBEVConvolution(c, 64, shape[2], stride=2, use_bias=True, generator=gen).to(dev)
+
+    def sparse(out):
+        return out.feats[: int(out.num)], out.coords[: int(out.num)]
+
+    calls = {
+        "GlobalAvgPool": (lambda: (tm.GlobalAvgPool(2)(grid),), ()),
+        "GlobalMaxPool": (lambda: (tm.GlobalMaxPool(2)(grid),), ()),
+        "ToBEVReduction": (lambda: sparse(tm.ToBEVReduction(2)(grid, bounds)), ()),
+        "ToDenseBEVConvolution": (lambda: (dense(grid),), tuple(dense.parameters())),
+        "ToBEVConvolution": (lambda: sparse(conv(grid, bounds)), tuple(conv.parameters())),
+        "ToBEVHeightCompression": (lambda: (tm.ToBEVHeightCompression(c, shape, batch_size=2)(grid),), ()),
     }
-    return {k: f() for k, f in mods.items()}, shape
+    return calls, shape
+
+
+def bev_modules(grid, bounds, extent, dev) -> tuple:
+    """`bev_callables`' six modules built and run once: (name -> output
+    (a tensor, or a SparseGrid's valid feats), the map's shape)."""
+    calls, shape = bev_callables(grid, bounds, extent, dev)
+    return {k: f()[0] for k, (f, _) in calls.items()}, shape
+
+
+def bev_module_times(grid, bounds, extent) -> dict:
+    """Each of the six modules' device ms (every kernel of a call,
+    torch.profiler), `cuda_ms` and bytes bound: the grid's valid feats and
+    coords and the module's parameters read once, its output tensors
+    (a sparse output's valid rows and coords) written once."""
+    import torch
+
+    calls, _ = bev_callables(grid, bounds, extent, "cuda")
+    n = int(grid.num)
+    read = grid.feats[:n].nbytes + grid.coords[:n].nbytes
+    out = {}
+    with torch.no_grad():
+        for k, (fn, params) in calls.items():
+            nbytes = read + sum(p.nbytes for p in params) + sum(t.nbytes for t in fn())
+            b, by = bound_ms(nbytes, 0, "float32")
+            out[k] = {"device_ms": call_device_ms(fn), "ms": cuda_ms(fn), "bound_ms": b, "bound_by": by,
+                      "bytes": nbytes}
+    log("BEV / pools one by one (device ms, cuda_ms, bytes bound): " + "; ".join(
+        f"{k} {fmt_ms(v['device_ms'])}, {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms ({v['bytes']} bytes)"
+        for k, v in out.items()))
+    return out
 
 
 def bb_grid(topo, out):
@@ -6314,8 +6590,8 @@ def loss_variants(scans) -> dict:
     """The MinkUNet flagship (bf16, full width) with each of
     LOSS_VARIANTS: two counted train steps on the scans (finite loss and
     grad norm; EQLv2's statistics moved and summed into `loss_state`);
-    then the same variant's small-scan f32 steps on the card against the
-    CPU (`phase_small_train_step`)."""
+    then SMALL_STEP_VARIANT's small-scan f32 steps on the card against
+    the CPU (`phase_small_train_step`)."""
     import numpy as np
     import torch
 
@@ -6356,7 +6632,8 @@ def loss_variants(scans) -> dict:
         out[label] = {"steps": steps, "ms_per_step": ms}
         del tr
         torch.cuda.empty_cache()
-        phase_small_train_step(cfg, variables, f"flagship {label} ", prepare=prepare, tol=tol)
+        if label == SMALL_STEP_VARIANT:
+            phase_small_train_step(cfg, variables, f"flagship {label} ", prepare=prepare, tol=tol)
     return out
 
 
@@ -6385,13 +6662,17 @@ def phase_backbones(scans) -> dict:
     if launches.get("segment_max", 0) != 1 or not launches.get("segment_sum") or not launches.get("sparse_conv_k"):
         raise AssertionError(f"BEV modules: launches {launches} (K10 once, K6 and K2 at K expected)")
     res["bev"] = {"map_shape": list(shape), "launches": launches, "ms": ms,
-                  "outputs": {k: list(v.shape) for k, v in bev.items()}}
+                  "outputs": {k: list(v.shape) for k, v in bev.items()},
+                  "modules": bev_module_times(grid, topo.bounds, inp["extent"])}
     log(f"BEV / pools on the last stage ({int(grid.num)} voxels x {grid.feats.shape[1]}, map {shape}): "
         f"{ms:.3f} ms, launches {launches}, outputs {res['bev']['outputs']}")
     bid = torch.where(grid.valid_mask(), grid.coords[:, 3], 2).to(torch.int32)
     res["k10_pool"] = k10_check("pool", grid.feats.float().contiguous(), bid, 3)
+    res["k10_pool_bf16"] = k10_check("pool bf16", grid.feats.bfloat16().contiguous(), bid, 3)
     # the same rows on a grid of 0.5: most columns' maxima tied
-    k10_check("pool, ties planted", (grid.feats.float() * 2).round() / 2, bid, 3)
+    tied = (grid.feats.float() * 2).round() / 2
+    k10_check("pool, ties planted", tied, bid, 3, timed=False)
+    k10_check("pool bf16, ties planted", tied.bfloat16(), bid, 3, timed=False)
     del bev, grid, topo, last
     torch.cuda.empty_cache()
     res["unet"] = phase_backbone("unet", inp)
@@ -6406,8 +6687,8 @@ def phase_backbones(scans) -> dict:
 
 
 # the phases that `--phase` runs alone, after the card and the build
-ALONE = {"5d": "phase_rpvnet", "5e": "phase_cylinder", "5g": "phase_tiaf", "5k": "phase_nus_waymo",
-         "5l": "phase_cr16", "5m": "phase_backbones"}
+ALONE = {"5d": "phase_rpvnet", "5e": "phase_cylinder", "5g": "phase_tiaf", "5j": "phase_range",
+         "5k": "phase_nus_waymo", "5l": "phase_cr16", "5m": "phase_backbones"}
 
 
 def run_phases(phases: list, t_start: float) -> int:
@@ -6819,31 +7100,39 @@ def main() -> int:
     log(f"tiaf phase (5g): {tiaf['seconds']:.1f} s")
     # K9, the range view's KNN clean-up: SalsaNext's serving launches (one
     # a scan), its times at one 120 000-point scan on a 64 x 512 image
+    # beside its first design's (`old_ms`), the same points in beam order,
+    # and CENet's nuScenes call (32 x 1920, phase 5k)
     k9 = rng["knn"]
     kernels.append({
         "name": "knn", "route": "cuda", "source": "taseg_tpu_torch/csrc/knn_postproc.cu",
         "replaces": "taseg_tpu/models/range2d/postproc.py:19", "launches": rng["launches"],
         **{k: k9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per": "scan (SalsaNext serving, 64 x 512)", "device_ms_per_scan": k9["device_ms"],
-        "points": k9["points"], "image": k9["image"], "bytes": k9["bytes"],
+        **{k: k9[k] for k in ("old_ms", "old_device_ms", "kernels_per_call", "points", "image", "bytes")},
+        "beam_order": rng["knn_beam"], "cenet_nuscenes": nus_waymo["knn_cenet"],
         "nus_waymo": nus_waymo_entry(nus_waymo, "knn"),
     })
     # K10, the segment max: Cylinder_TS's serving launches (one a scan),
-    # its numbers at one scan's (P, 16) call both ways, its train
-    # launches, and its numbers at the global max pool's shape (phase 5m)
+    # its numbers at one scan's (P, 16) call both ways beside its first
+    # design's (`old_ms`), its train launches, and its numbers at the
+    # global max pool's shape in f32 and bf16 (phase 5m)
     k10 = results["segment_max"]
     train_launches_cyl = cylinder["train_launches"]
+    step_keys = ("step_ms", "step_old_ms", "step_device_ms", "step_old_device_ms", "step_bound_ms")
     kernels.append({
         "name": "segment_max", "route": "cuda", "source": f"taseg_tpu_torch/{K10_SOURCE[0]}",
         "replaces": K10_SOURCE[1], "launches": cylinder["launches"]["segment_max"],
         **{k: k10[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "per": "scan (Cylinder_TS serving, f32)", "shape": k10["shape"],
+        **{k: k10[k] for k in ("old_ms", "device_ms", "old_device_ms", "library_device_ms", "kernels_per_call")},
         "train": {"launches": train_launches_cyl["segment_max"],
                   "bwd_launches": train_launches_cyl["segment_max_bwd"],
                   **{k: k10[k] for k in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
-                                         "bwd_library_ms")}},
+                                         "bwd_library_ms", "bwd_old_ms", "bwd_device_ms", "bwd_old_device_ms",
+                                         *step_keys)}},
         "pool": {**bb["k10_pool"], "launches": bb["bev"]["launches"]["segment_max"],
                  "per": "the six BEV / pool modules on SparseResNet21D's last stage (phase 5m)"},
+        "pool_bf16": bb["k10_pool_bf16"],
     })
     log(f"bottleneck phase (5h): {bottleneck['seconds']:.1f} s; ddp phase (5i): {ddp['seconds']:.1f} s; "
         f"range phase (5j): {rng['seconds']:.1f} s; nuscenes / waymo phase (5k): {nus_waymo['seconds']:.1f} s; "

@@ -40,8 +40,10 @@ splits added in the kernel) and counts one per call, its split reduction
 included, on CUDA cores.  K9 (`knn`, the
 range view's KNN clean-up) launches one kernel per call, one call per
 batch of scans.  K10 (`segment_max`, Cylinder3D's max-pooled voxelize
-and the global max pool) launches one kernel per call each way; its
-backward counts again under `segment_max_bwd`.
+and the global max pool) counts one per call each way, its backward
+again under `segment_max_bwd`: a forward call launches two kernels (the
+-inf fill and the runs kernel), a backward three (the tie counts
+zeroed, the ties counted, the shares).
 """
 
 from __future__ import annotations
@@ -145,8 +147,11 @@ _SIGNATURES = {
     "taseg_strided_up_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taseg_sparse_conv_wgmma_blocks": [_I, _I, _I, _P],
     "taseg_knn_postproc": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "taseg_segment_max": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taseg_segment_max_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    "taseg_knn_postproc_v1": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "taseg_segment_max": [_P] * 3 + [_I] * 9 + [_P],
+    "taseg_segment_max_bwd": [_P] * 7 + [_I] * 9 + [_P],
+    "taseg_segment_max_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "taseg_segment_max_bwd_v1": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lib = None

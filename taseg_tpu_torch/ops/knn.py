@@ -23,13 +23,14 @@ image index, so one call (one K9 launch on the card) serves a batch of
 scans.  It runs the window and k of every caller (JAX's defaults: a 5 x
 5 window, k = 5) and takes a cutoff above 0 only;
 `knn_postprocess_plain` keeps JAX's general signature.  On CUDA tensors
-it launches K9 (one thread per point, the window read straight from the
-two images, the k best kept in registers by insertion; the multiply and
-add of the penalty rounded apart, as XLA and torch round them); on CPU
-tensors it runs the plain version, JAX's steps in torch.  K9 moves 20
-bytes per point (its range, column, row and image in, its label out)
-and reads at most 25 pixels of 8 bytes per point, most from cache: it
-is bound by the bytes it moves.
+it launches K9 (one thread a point in blocks of 256 consecutive points;
+the window weights passed by value; the k best kept in registers by
+insertion; the multiply and add of the penalty rounded apart, as XLA and
+torch round them); on CPU tensors it runs the plain version, JAX's steps
+in torch.  K9 moves 20 bytes per point (its range, column, row and image
+in, its label out) and reads at most 25 pixels of 8 bytes per point,
+most from cache: it is bound by the bytes it moves.  `knn_postprocess_v1`
+is its first design, the yardstick of chip_smoke.py, on no path.
 """
 
 from __future__ import annotations
@@ -60,8 +61,18 @@ def inv_gauss(kernel_size: int, sigma: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _host_weights(sigma: float) -> tuple[np.ndarray, int]:
+    """K9's `inv_gauss` in host memory and its address: the C entry
+    copies it into the launch's arguments."""
+    w = np.ascontiguousarray(inv_gauss(KERNEL_SIZE, sigma))
+    w.setflags(write=False)
+    return w, w.ctypes.data
+
+
+@functools.lru_cache(maxsize=None)
 def _device_weights(sigma: float, device: torch.device) -> torch.Tensor:
-    """K9's `inv_gauss` on `device`, copied there once per sigma."""
+    """The first design's `inv_gauss` on `device`, copied there once per
+    sigma."""
     return torch.from_numpy(inv_gauss(KERNEL_SIZE, sigma)).to(device)
 
 
@@ -113,16 +124,9 @@ def knn_postprocess_plain(
     return torch.where(has_vote, voted, direct)
 
 
-def knn_postprocess(
-    proj_range: torch.Tensor, unproj_range: torch.Tensor, proj_argmax: torch.Tensor,
-    px: torch.Tensor, py: torch.Tensor, img: torch.Tensor = None, *, num_classes: int,
-    sigma: float = 1.0, cutoff: float = 1.0,
-) -> torch.Tensor:
-    """K9.  proj_range (B, H, W) or (H, W) f32, unproj_range (P,) f32,
-    proj_argmax like proj_range int32, px / py (P,) int32 (each point's
-    column and row, inside the image), img (P,) int32 (each point's
-    image; None for one image) -> (P,) int32 labels, with K9's window
-    and k (`KERNEL_SIZE`, `K`) and a `cutoff` above 0."""
+def _checked(proj_range, unproj_range, proj_argmax, px, py, img, cutoff) -> None:
+    """The arguments of K9 and of its first design: dtypes, ranks, one
+    device, matching point counts, a cutoff above 0."""
     dev = proj_range.device
     nd = proj_range.dim()
     if nd not in (2, 3):
@@ -143,18 +147,50 @@ def knn_postprocess(
             raise ValueError(f"img: {img.shape[0]} points, unproj_range has {p}")
     if not cutoff > 0:
         raise ValueError(f"cutoff {cutoff}: K9 needs a cutoff above 0 (knn_postprocess_plain takes any)")
-    kw = dict(num_classes=num_classes, k=K, kernel_size=KERNEL_SIZE, sigma=sigma, cutoff=cutoff)
-    if not _build.dispatch(proj_range):
-        return knn_postprocess_plain(proj_range, unproj_range, proj_argmax, px, py, img, **kw)
+
+
+def _launch(entry: str, counters: tuple, weights: int, proj_range, unproj_range, proj_argmax, px, py, img,
+            num_classes: int, cutoff: float) -> torch.Tensor:
+    p = unproj_range.shape[0]
     proj_range, proj_argmax, img = _as_batch(proj_range, proj_argmax, img, p)
-    _, h, w = proj_range.shape
-    out = torch.empty(p, dtype=torch.int32, device=dev)
-    if p == 0:
-        return out
-    g = _device_weights(float(sigma), dev)
-    _build.launch(
-        "taseg_knn_postproc", ("knn",), proj_range.data_ptr(), proj_argmax.data_ptr(),
-        unproj_range.data_ptr(), px.data_ptr(), py.data_ptr(), img.data_ptr(), g.data_ptr(),
-        out.data_ptr(), p, h, w, num_classes, float(cutoff),
-    )
+    b, h, w = proj_range.shape
+    if b * h * w >= 2**31:
+        raise ValueError(f"K9 indexes the images with 32-bit ints: {b} x {h} x {w} pixels")
+    out = torch.empty(p, dtype=torch.int32, device=proj_range.device)
+    if p:
+        _build.launch(
+            entry, counters, proj_range.data_ptr(), proj_argmax.data_ptr(), unproj_range.data_ptr(),
+            px.data_ptr(), py.data_ptr(), img.data_ptr(), weights, out.data_ptr(), p, h, w, num_classes,
+            float(cutoff),
+        )
     return out
+
+
+def knn_postprocess(
+    proj_range: torch.Tensor, unproj_range: torch.Tensor, proj_argmax: torch.Tensor,
+    px: torch.Tensor, py: torch.Tensor, img: torch.Tensor = None, *, num_classes: int,
+    sigma: float = 1.0, cutoff: float = 1.0,
+) -> torch.Tensor:
+    """K9.  proj_range (B, H, W) or (H, W) f32, unproj_range (P,) f32,
+    proj_argmax like proj_range int32, px / py (P,) int32 (each point's
+    column and row, inside the image), img (P,) int32 (each point's
+    image; None for one image) -> (P,) int32 labels, with K9's window
+    and k (`KERNEL_SIZE`, `K`) and a `cutoff` above 0."""
+    _checked(proj_range, unproj_range, proj_argmax, px, py, img, cutoff)
+    if not _build.dispatch(proj_range):
+        return knn_postprocess_plain(proj_range, unproj_range, proj_argmax, px, py, img, num_classes=num_classes,
+                                     k=K, kernel_size=KERNEL_SIZE, sigma=sigma, cutoff=cutoff)
+    return _launch("taseg_knn_postproc", ("knn",), _host_weights(float(sigma))[1], proj_range, unproj_range,
+                   proj_argmax, px, py, img, num_classes, cutoff)
+
+
+def knn_postprocess_v1(proj_range, unproj_range, proj_argmax, px, py, img=None, *, num_classes: int,
+                       sigma: float = 1.0, cutoff: float = 1.0) -> torch.Tensor:
+    """K9's first design (C entry `taseg_knn_postproc_v1`: int64
+    index math and a bounds test a pixel, the weights from device
+    memory) on CUDA tensors, behind K9's own argument checks, counted
+    nowhere: the yardstick `old_ms` of chip_smoke.py and the card tests,
+    on no path."""
+    _checked(proj_range, unproj_range, proj_argmax, px, py, img, cutoff)
+    return _launch("taseg_knn_postproc_v1", (), _device_weights(float(sigma), proj_range.device).data_ptr(),
+                   proj_range, unproj_range, proj_argmax, px, py, img, num_classes, cutoff)

@@ -23,9 +23,10 @@
 `segment_max` is Cylinder3D's max-pooled voxelization and the global
 max pool (JAX `jax.ops.segment_max` in `models/voxel/cylinder3d.py:236`
 and `ops/bev.py:43`, an XLA scatter) with JAX's gradient
-(`SegmentMax`): the hand kernel K10 (`csrc/segment_max.cu`, one launch
-each way, bit-identical to the plain versions `segment_max_plain` /
-`segment_max_bwd_plain`) on CUDA tensors.
+(`SegmentMax`): the hand kernel K10 (`csrc/segment_max.cu`, one counted
+launch each way: the forward's fill and runs kernels, the backward's
+zeroed counts, tie count and shares; bit-identical to the plain versions
+`segment_max_plain` / `segment_max_bwd_plain`) on CUDA tensors.
 
 Every segment sum (the voxelize forward and both devoxelize backwards)
 is `segment_sum`: the hand kernel K6 (`csrc/segment_sum.cu`: the sorted
@@ -749,18 +750,65 @@ def devoxelize(voxel_feats: torch.Tensor, table) -> torch.Tensor:
     return devoxelize_trilinear(voxel_feats, table)
 
 
-# K10's threads: about one wave of the card (132 SMs x 2048 threads)
+# K10's runs kernel (`csrc/segment_max.cu`): warps a block, and the warps
+# of one wave of the card (132 SMs x 64 resident warps)
+K10_WARPS = 8
+K10_WAVE_WARPS = 132 * 64
+# where a forward's segments hold K10_LONG rows or more on average (the
+# global pool's few segments), its warps take K10_LONG_CHUNKS times longer
+# chunks: a segment spanning many blocks takes an atomic a column from
+# each, and atomics on one address serialize
+K10_LONG = 64
+K10_LONG_CHUNKS = 4
+# the first design's threads: about one wave of the card (132 SMs x 2048)
 K10_WAVE = 132 * 2048
 
 
+class SegmentMaxPlan(NamedTuple):
+    """The shape of K10's runs kernel: `vec` columns a thread (16 bytes of
+    a row, else 1), `tpr` threads a row (a power of two, at most a warp),
+    `col_blocks` blocks along the row where it is wider than a warp's
+    pieces, `chunk` consecutive rows a warp (whole passes of 32 / tpr
+    rows), `blocks` blocks of K10_WARPS warps over the rows."""
+
+    vec: int
+    tpr: int
+    col_blocks: int
+    chunk: int
+    blocks: int
+
+
+def segment_max_plan(p: int, c: int, esz: int, aligned: bool = True, segments: int = 0) -> SegmentMaxPlan:
+    """K10's plan at p rows of c columns of `esz` bytes: 16-byte pieces
+    where the rows are 16-byte aligned (`aligned`) and hold whole pieces,
+    the warps' chunks as short as fill one wave of the card, K10_LONG_CHUNKS
+    times longer where a forward's `segments` hold K10_LONG rows or more
+    on average (0: the backward, whose tie counts rarely flush)."""
+    step = 16 // esz
+    vec = step if aligned and c % step == 0 else 1
+    groups = c // vec
+    tpr = min(32, 1 << (groups - 1).bit_length()) if groups > 1 else 1
+    col_blocks = -(-groups // tpr)
+    rpw = 32 // tpr
+    per_warp = -(-p * col_blocks // K10_WAVE_WARPS)
+    chunk = rpw * max(1, -(-per_warp // rpw))
+    if segments and p >= K10_LONG * segments:
+        chunk *= K10_LONG_CHUNKS
+    return SegmentMaxPlan(vec, tpr, col_blocks, chunk, max(1, -(-p // (K10_WARPS * chunk))))
+
+
 def segment_max_rows(p: int, c: int) -> int:
-    """Rows a thread of K10 takes (its run): the p x c items spread over
-    about one wave of the card, at least one row each."""
+    """Rows a thread of K10's first design takes (its run): the p x c
+    items spread over about one wave of the card, at least one row each."""
     return max(1, -(-p * c // K10_WAVE))
 
 
 def _seg32(seg: torch.Tensor) -> torch.Tensor:
     return seg.to(torch.int32).contiguous()
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def segment_max_plain(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -788,47 +836,94 @@ def segment_max_bwd_plain(x, seg, out, g) -> torch.Tensor:
     return torch.where(hit, share.gather(0, idx), 0.0)
 
 
-def segment_max_kernel(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """K10's forward (`csrc/segment_max.cu`, one launch): x (P, C) f32 or
-    bf16, seg (P,) ids in [0, num_segments) -> (num_segments, C) in x's
-    dtype; -inf for a segment without rows."""
+def _check_fwd(x, seg):
     dev = x.device
     _build.check("x", x, tuple(DTYPE_CODES), 2, dev)
     seg = _seg32(seg)
     _build.check("seg", seg, (torch.int32,), 1, dev)
+    if seg.shape[0] != x.shape[0]:
+        raise ValueError(f"seg has {seg.shape[0]} rows, x {x.shape[0]}")
+    return seg
+
+
+def segment_max_kernel(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K10's forward (`csrc/segment_max.cu`: the -inf fill and the runs
+    kernel, two launches): x (P, C) f32 or bf16, seg (P,) ids in [0,
+    num_segments) -> (num_segments, C) in x's dtype; -inf for a segment
+    without rows."""
+    seg = _check_fwd(x, seg)
     p, c = x.shape
-    if seg.shape[0] != p:
-        raise ValueError(f"seg has {seg.shape[0]} rows, x {p}")
-    out = torch.full((num_segments, c), float("-inf"), dtype=torch.float32, device=dev)
-    if p and c and num_segments:
+    out = torch.empty((num_segments, c), dtype=x.dtype, device=x.device)
+    if c and num_segments:
+        plan = segment_max_plan(p, c, x.element_size(), _aligned(x), num_segments)
         _build.launch(
-            "taseg_segment_max", ("segment_max",), x.data_ptr(), seg.data_ptr(), out.data_ptr(),
-            p, c, num_segments, segment_max_rows(p, c), DTYPE_CODES[x.dtype],
+            "taseg_segment_max", ("segment_max",), x.data_ptr(), seg.data_ptr(), out.data_ptr(), p, c,
+            num_segments, *plan, DTYPE_CODES[x.dtype],
         )
-    return out.to(x.dtype)
+    return out
 
 
-def segment_max_bwd_kernel(x, seg, out, g) -> torch.Tensor:
-    """K10's backward (one launch: the ties counted, a grid-wide barrier,
-    the shares written): x (P, C), out and g (S, C) of x's dtype -> dx
-    (P, C)."""
+def _check_bwd(x, seg, out, g):
     dev = x.device
     for name, t in (("x", x), ("out", out), ("g", g)):
         _build.check(name, t, (x.dtype,), 2, dev)
     seg = _seg32(seg)
     _build.check("seg", seg, (torch.int32,), 1, dev)
+    if x.dtype not in DTYPE_CODES or out.shape != g.shape or out.shape[1] != x.shape[1] or seg.shape[0] != x.shape[0]:
+        raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, out {tuple(out.shape)}, g {tuple(g.shape)}")
+    return seg
+
+
+def segment_max_bwd_kernel(x, seg, out, g) -> torch.Tensor:
+    """K10's backward (the tie counts zeroed, the ties counted, then the
+    shares: three launches, no barrier): x (P, C), out and g (S, C) of
+    x's dtype -> dx (P, C)."""
+    seg = _check_bwd(x, seg, out, g)
     p, c = x.shape
     s = out.shape[0]
-    if x.dtype not in DTYPE_CODES or out.shape != g.shape or out.shape[1] != c or seg.shape[0] != p:
-        raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, out {tuple(out.shape)}, g {tuple(g.shape)}")
     dx = torch.empty_like(x)
     if p and c:
-        n = torch.zeros((s, c), dtype=torch.int32, device=dev)
+        plan = segment_max_plan(p, c, x.element_size(), _aligned(x, out, g))
+        n = torch.empty((s, c), dtype=torch.float32, device=x.device)
+        mask = torch.empty(p * (c // plan.vec), dtype=torch.uint8, device=x.device)
         _build.launch(
             "taseg_segment_max_bwd", ("segment_max", "segment_max_bwd"), x.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), g.data_ptr(), n.data_ptr(), dx.data_ptr(),
-            _build.zeroed_counters(dev, 2).data_ptr(), p, c, s, segment_max_rows(p, c),
+            out.data_ptr(), g.data_ptr(), n.data_ptr(), mask.data_ptr(), dx.data_ptr(), p, c, s, *plan,
             DTYPE_CODES[x.dtype],
+        )
+    return dx
+
+
+def segment_max_v1(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K10's first design (C entry `taseg_segment_max_v1`: the -inf
+    fill and the cast in torch around one launch), counted nowhere: the
+    yardstick `old_ms` of chip_smoke.py and the card tests, on no path."""
+    seg = _check_fwd(x, seg)
+    p, c = x.shape
+    out = torch.full((num_segments, c), float("-inf"), dtype=torch.float32, device=x.device)
+    if p and c and num_segments:
+        _build.launch(
+            "taseg_segment_max_v1", (), x.data_ptr(), seg.data_ptr(), out.data_ptr(),
+            p, c, num_segments, segment_max_rows(p, c), DTYPE_CODES[x.dtype],
+        )
+    return out.to(x.dtype)
+
+
+def segment_max_bwd_v1(x, seg, out, g) -> torch.Tensor:
+    """K10's first backward (one cooperative launch: the ties counted
+    into zeroed int32 counts, a grid-wide barrier, the shares), behind
+    K10's own argument checks, counted nowhere: the yardstick `old_ms`,
+    on no path."""
+    seg = _check_bwd(x, seg, out, g)
+    p, c = x.shape
+    s = out.shape[0]
+    dx = torch.empty_like(x)
+    if p and c:
+        n = torch.zeros((s, c), dtype=torch.int32, device=x.device)
+        _build.launch(
+            "taseg_segment_max_bwd_v1", (), x.data_ptr(), seg.data_ptr(), out.data_ptr(), g.data_ptr(),
+            n.data_ptr(), dx.data_ptr(), _build.zeroed_counters(x.device, 2).data_ptr(), p, c, s,
+            segment_max_rows(p, c), DTYPE_CODES[x.dtype],
         )
     return dx
 

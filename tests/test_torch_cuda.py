@@ -1686,28 +1686,43 @@ def test_fsa_and_kd_small_steps_card_equal_cpu(cuda, kd):
 def _knn_case(case: str, seed: int = 0):
     """(proj_range (B, H, W), unproj, labels (B, H, W), px, py, img) of 3
     images of 16 x 48 with 700 points each: random ranges with empty
-    pixels, or every distance 0 ('ties'), or labels all 0 ('class0')."""
+    pixels, or every distance 0 ('ties'), or labels all 0 ('class0');
+    'beam': two images of 64 x 512 with 60 000 points each in beam order
+    (sorted by image, row, column; one block spans the two images),
+    labels outside [0, 20) planted; 'scattered': one 64 x 512 image,
+    its points shuffled; 'edges': the points on the two rows and
+    columns at each edge of the image, the column seam (columns W - 1 and
+    0) among them, in beam order."""
     rng = np.random.default_rng(seed)
-    b, h, w, p = 3, 16, 48, 700
+    b, h, w, p = {"beam": (2, 64, 512, 60_000), "scattered": (1, 64, 512, 120_000)}.get(case, (3, 16, 48, 700))
     r = rng.uniform(0.5, 4.0, (b, h, w)).astype(np.float32)
     r[rng.random((b, h, w)) < 0.3] = 0.0
     lab = rng.integers(0, 20, (b, h, w)).astype(np.int32)
     img = np.repeat(np.arange(b), p).astype(np.int32)
     px = rng.integers(0, w, b * p).astype(np.int32)
     py = rng.integers(0, h, b * p).astype(np.int32)
+    if case == "edges":
+        px = rng.choice([0, 1, w - 2, w - 1], b * p).astype(np.int32)
+        py = np.where(rng.random(b * p) < 0.5, rng.choice([0, 1, h - 2, h - 1], b * p), py).astype(np.int32)
+    if case in ("beam", "edges"):
+        o = np.lexsort((px, py, img))
+        px, py = px[o], py[o]
+    if case == "beam":
+        lab[rng.random((b, h, w)) < 0.01] = -1
+        lab[rng.random((b, h, w)) < 0.01] = 300
     u = (r[img, py, px] + rng.normal(0, 0.5, b * p)).astype(np.float32)
-    if case != "random":
+    if case in ("ties", "class0"):
         r, u = np.ones_like(r), np.ones_like(u)
     if case == "class0":
         lab[:] = 0
     return r, u, lab, px, py, img
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "class0"])
+@pytest.mark.parametrize("case", ["random", "ties", "class0", "beam", "scattered", "edges"])
 def test_knn_kernel_equals_plain(cuda, case):
     """K9 (one launch) gives its plain version's labels exactly, and the
-    same bits on repeat."""
-    from taseg_tpu_torch.ops.knn import knn_postprocess
+    same bits on repeat; so does its first design (the yardstick)."""
+    from taseg_tpu_torch.ops.knn import knn_postprocess, knn_postprocess_v1
 
     args = [torch.from_numpy(a) for a in _knn_case(case)]
     want = knn_postprocess(*args, num_classes=20)
@@ -1717,6 +1732,7 @@ def test_knn_kernel_equals_plain(cuda, case):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["knn"] == before + 2
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert torch.equal(knn_postprocess_v1(*(a.to(cuda) for a in args), num_classes=20).cpu(), want)
 
 
 @pytest.mark.parametrize("name", ["SalsaNext", "FIDNet", "CENet", "RangeNet"])
@@ -2294,9 +2310,11 @@ def _k10_case(kind, dtype, dev):
     """(x, seg, num_segments) at K10's two shapes with planted ties:
     Cylinder3D's (P = 120 000 rows x 16 ReLU features, almost every row
     its own segment, the padding rows in a sentinel segment, exact zeros
-    and -0.0 among the maxima) or the pool's (two batches of ~60 000
-    sorted rows at 128 columns, values on a coarse grid so that most
-    maxima are tied)."""
+    and -0.0 among the maxima; 'cylinder_padded': 131 072 rows whose last
+    11 072, all -inf, are the padding rows in one dummy segment, as the
+    model lays them out, every two real rows in one segment) or the
+    pool's (two batches of ~60 000 sorted rows at 128 columns, values on
+    a coarse grid so that most maxima are tied)."""
     rng = np.random.default_rng(5)
     if kind == "cylinder":
         p, c = 120_000, 16
@@ -2307,6 +2325,13 @@ def _k10_case(kind, dtype, dev):
         seg[pad] = p - 2999
         x[pad] = -np.inf
         s = p - 2998
+    elif kind == "cylinder_padded":
+        p, c, real = 131_072, 16, 120_000
+        x = np.maximum(np.round(rng.normal(size=(p, c)) * 8) / 8, 0).astype(np.float32)
+        x[rng.random((p, c)) < 0.05] = -0.0
+        x[real:] = -np.inf
+        seg = np.concatenate([rng.permutation(real) // 2, np.full(p - real, real // 2)]).astype(np.int32)
+        s = real // 2 + 1
     else:
         p, c = 120_000, 128
         x = np.round(rng.normal(size=(p, c)) * 2) / 2
@@ -2319,12 +2344,13 @@ def _k10_case(kind, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["cylinder", "pool"])
+@pytest.mark.parametrize("kind", ["cylinder", "cylinder_padded", "pool"])
 def test_segment_max_kernel_bit_exact(cuda, kind, dtype):
     """K10 forward and backward against `segment_max_plain` /
     `segment_max_bwd_plain` on the same card tensors, to the bit (a max
     of zeros is +0.0 in both), at Cylinder3D's and the pool's shapes with
-    ties; the same bits on repeat; one launch each way."""
+    ties; the same bits on repeat; one launch each way; the first design
+    (the yardstick) to the same bits."""
     x, seg, s = _k10_case(kind, dtype, cuda)
     _build.reset_launches()
     out = _twice_same(lambda: tvx.segment_max_kernel(x, seg, s))
@@ -2335,8 +2361,11 @@ def test_segment_max_kernel_bit_exact(cuda, kind, dtype):
     _build.reset_launches()
     dx = _twice_same(lambda: tvx.segment_max_bwd_kernel(x, seg, out, g))
     assert (_build.LAUNCHES["segment_max"], _build.LAUNCHES["segment_max_bwd"]) == (2, 2)
-    assert torch.equal(_bits(dx), _bits(tvx.segment_max_bwd_plain(x, seg, out, g)))
+    dwant = tvx.segment_max_bwd_plain(x, seg, out, g)
+    assert torch.equal(_bits(dx), _bits(dwant))
     assert ((dx != 0).sum(0) >= 1).all()  # every column's maximum took its share
+    assert torch.equal(_bits(tvx.segment_max_v1(x, seg, s)), _bits(want))
+    assert torch.equal(_bits(tvx.segment_max_bwd_v1(x, seg, out, g)), _bits(dwant))
 
 
 def test_segment_max_autograd_and_nan_on_card(cuda):

@@ -2,8 +2,8 @@
 the JAX package's `knn_postprocess` (`models/range2d/postproc.py:19`):
 labels array-equal on random scans (ranges with empty pixels, points
 near and far from their pixel's range, the window reaching past every
-edge), on JAX's all-ties case (every candidate at distance 0,
-tests/test_range.py:130-145), on the class-0 vote (only class 0 within
+edge) and on a beam-ordered one, on JAX's all-ties case (every
+candidate at distance 0, tests/test_range.py:130-145), on the class-0 vote (only class 0 within
 the cutoff: label 1, as JAX gives it); the plain version with the
 cutoff off, at k = 3 and a 3 x 3 window, and at another sigma; a batch
 of images in one call equals the images one by one; the wrapper refuses
@@ -100,6 +100,27 @@ def test_batch_equals_images_one_by_one():
     got = knn_postprocess(r, u, lab, px, py, img, num_classes=C).numpy()
     want = np.concatenate([_both(*s)[1] for s in scans])
     np.testing.assert_array_equal(got, want)
+
+
+def test_beam_ordered_scan_equals_jax():
+    """Points in beam order (sorted by row, then column: how real scans
+    arrive), on a 32 x 96 image with several points a pixel and empty
+    pixels: labels array-equal to JAX's.  Measured ~0.8 s, most of it JAX compiling."""
+    rng = np.random.default_rng(21)
+    h, w, p = 32, 96, 6000
+    r = rng.uniform(0.5, 40.0, (h, w)).astype(np.float32)
+    r[rng.random((h, w)) < 0.2] = 0.0
+    lab = rng.integers(0, C, (h, w)).astype(np.int32)
+    px = rng.integers(0, w, p).astype(np.int32)
+    py = rng.integers(0, h, p).astype(np.int32)
+    o = np.lexsort((px, py))
+    px, py = px[o], py[o]
+    u = (r[py, px] + rng.normal(0, 0.4, p)).astype(np.float32)
+    want = np.asarray(jax.jit(functools.partial(jpost.knn_postprocess, num_classes=C))(
+        *(jnp.asarray(a) for a in (r, u, lab, px, py))))
+    got = knn_postprocess(*(torch.from_numpy(a) for a in (r, u, lab, px, py)), num_classes=C)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != lab[py, px]).any()  # the clean-up relabels some points
 
 
 def _k9_emulation(r, u, lab, px, py, k=5, ks=5, cutoff=1.0):
